@@ -17,19 +17,21 @@
 // Design (simple first): one cooperative launch runs every step, with
 // the grid sized to one resident block per SM. The steps loop inside
 // the kernel; each stage spreads its work over all blocks and ends in a
-// grid barrier. Panels and rings are read through L2 and never copied;
-// the rings are updated in place in the device copy the wrapper makes.
-// Matmul stages give each block a 32-column group (the LSTM cell: the
-// four gates of 8 hidden units) and split K over its 8 warps, with up
-// to 64 weight loads in flight per lane (each stage is a chain of L2
-// round trips) and activations read from shared memory as float4. A
-// LayerNorm that feeds a matmul is recomputed by every block as the
-// stage's prologue (16 rows, cheaper than another barrier), and block 0
-// keeps the FP32 result for later residuals. Attention takes
-// two stages: logits plus per-chunk softmax statistics over 128-slot
-// chunks, then normalised weights and the context sum over 32-column
-// slices. One launch handles 16 dialogs; the wrapper runs larger
-// batches as consecutive 16-dialog launches.
+// grid barrier (~2 us on an H100). Panels and rings are read through L2 and never
+// copied; the rings are updated in place in the device copy the wrapper
+// makes. Each stage is a short chain of L2 round trips and of one
+// block's instruction stream, so the work is cut wide: a matmul stage
+// gives each block a 32-column group (the LSTM cell: the four gates of 8
+// hidden units), splits K over the block's 8 warps and, in the narrow
+// stages, over up to 4 blocks as well (partial sums added by the next
+// stage's prologue); lanes keep 16-32 weight loads in flight and read
+// activations from shared memory as float4. A LayerNorm that feeds a
+// matmul is recomputed by every block as the stage's prologue (16 rows,
+// cheaper than another barrier), and one block keeps the FP32 result
+// for later residuals. Attention takes two stages: logits plus
+// per-chunk softmax statistics over 128-slot chunks, then normalised
+// weights and the context sum over 64-column slices. One launch handles
+// 16 dialogs; the wrapper runs larger batches as consecutive launches.
 //
 // Numerics follow the TPU kernel: FP32 state, LayerNorms (E[x^2] -
 // mean^2, eps 1e-5), softmax and accumulation; matmul inputs rounded to
@@ -51,10 +53,54 @@ enum {
   W_O1, B_O1, W_O2, B_O2, W_FB, B_FB, N_W
 };
 
+// Split-K factors of the narrow matmul stages: a stage with N / 32
+// column groups runs on N / 32 * P blocks, each over K / P of the depth,
+// and leaves P partial sums for the next stage's prologue to add up.
+constexpr int P_EF = 4;   // S2  LN+FF of the main embedding  (K 256)
+constexpr int P_O = 4;    // S6  out-side fold                (K 1024)
+constexpr int P_F = 4;    // S7  integrator LN+FF             (K 256)
+constexpr int P_CAT = 4;  // S8  cat linear                   (K 512)
+constexpr int P_1 = 4;    // S9  FFN in                       (K 256)
+constexpr int P_2 = 2;    // S10 FFN out                      (K = bottleneck)
+constexpr int P_O1 = 4;   // S11 output head in               (K 256)
+
+// FP32 scratch of one launch; parts of a split stage are BT x N apart
 struct Scratch {
   float *x, *hs, *cs, *ya, *ze, *y, *q, *logit[2], *stat[2], *ctx, *att,
-      *y2, *z2, *merged, *ff1, *zf, *o1;
+      *y2, *z2, *mparts, *merged, *ff1, *zf, *o1;
 };
+
+// Lays the scratch out from `base` (nullptr: only count); returns floats.
+long long layout(float* base, int NB, int SA, int SM, int BN, Scratch* s) {
+  const long long nca = (SA + CH - 1) / CH, ncm = (SM + CH - 1) / CH;
+  long long used = 0;
+  auto take = [&](long long n) {
+    float* r = base ? base + used : nullptr;
+    used += (n + 3) / 4 * 4;  // keep every buffer 16-byte aligned
+    return r;
+  };
+  s->x = take(BT * H);
+  s->hs = take(2LL * NB * BT * H);
+  s->cs = take((long long)NB * BT * H);
+  s->ya = take(BT * H);
+  s->ze = take((long long)P_EF * BT * H);
+  s->y = take(BT * H);
+  s->q = take(2LL * BT * HD);
+  s->logit[0] = take((long long)BT * HEADS * SA);
+  s->logit[1] = take((long long)BT * HEADS * SM);
+  s->stat[0] = take(BT * HEADS * 2 * nca);
+  s->stat[1] = take(BT * HEADS * 2 * ncm);
+  s->ctx = take(2LL * BT * HD);
+  s->att = take(2LL * P_O * BT * H);
+  s->y2 = take(2LL * BT * H);
+  s->z2 = take(2LL * P_F * BT * H);
+  s->mparts = take((long long)P_CAT * BT * H);
+  s->merged = take(BT * H);
+  s->ff1 = take((long long)P_1 * BT * BN);
+  s->zf = take((long long)P_2 * BT * H);
+  s->o1 = take((long long)P_O1 * BT * BN);
+  return used;
+}
 
 template <typename T>
 struct Params {
@@ -134,9 +180,9 @@ __global__ void __launch_bounds__(NT, 1) rollout_kernel(Params<T> p) {
         if (l == 0)
           prologue_copy<T>(act, 2 * H, 0, s.x, H, bt);
         else
-          prologue_ln<T>(act, 2 * H, 0, s.zf, s.merged,
-                         wf(LNFG) + lh - H, wf(LNFB) + lh - H,
-                         g == 0 ? s.x : nullptr, bt);
+          prologue_ln<T, P_2>(act, 2 * H, 0, s.zf, s.merged,
+                              wf(LNFG) + lh - H, wf(LNFB) + lh - H,
+                              g == 0 ? s.x : nullptr, bt);
         prologue_copy<T>(act, 2 * H, H, h_cur, H, bt);
         __syncthreads();
         cell_group<T>(act, wt(W_IH) + lh * 4 * H, wt(W_HH) + lh * 4 * H,
@@ -145,22 +191,25 @@ __global__ void __launch_bounds__(NT, 1) rollout_kernel(Params<T> p) {
       grid_sync(p.bar, gen);
 
       // S2: ya = LN(h + x); ze = ya @ W_ef + b
-      for (int g = blockIdx.x; g < H / 32; g += gridDim.x) {
+      for (int u = blockIdx.x; u < (H / 32) * P_EF; u += gridDim.x) {
+        const int g = u / P_EF, q = u % P_EF;
         prologue_ln<T>(act, H, 0, h_nxt, s.x, wf(LN1G) + lh, wf(LN1B) + lh,
-                       g == 0 ? s.ya : nullptr, bt);
+                       u == 0 ? s.ya : nullptr, bt);
         __syncthreads();
-        mm_group<T>(act, H, H, wt(W_EF) + lh * H, H, g * 32,
-                    wf(B_EF) + lh, false, s.ze, H, nullptr, 0, 0.f, bt, red);
+        mm_group<T>(act, H, q * (H / P_EF), H / P_EF, wt(W_EF) + lh * H, H,
+                    g * 32, q ? nullptr : wf(B_EF) + lh, false,
+                    s.ze + (size_t)q * BT * H, H, nullptr, 0, 0.f, bt, red);
       }
       grid_sync(p.bar, gen);
 
       // S3: y = LN(ze + ya); folded queries of both modalities
+      // (64 column groups already fill half the grid: no K split)
       for (int g = blockIdx.x; g < 2 * HD / 32; g += gridDim.x) {
         const int md = g / (HD / 32);
-        prologue_ln<T>(act, H, 0, s.ze, s.ya, wf(LN2G) + lh, wf(LN2B) + lh,
-                       g == 0 ? s.y : nullptr, bt);
+        prologue_ln<T, P_EF>(act, H, 0, s.ze, s.ya, wf(LN2G) + lh,
+                             wf(LN2B) + lh, g == 0 ? s.y : nullptr, bt);
         __syncthreads();
-        mm_group<T>(act, H, H, wt(md ? W_QM : W_QA) + lh * HD, HD,
+        mm_group<T>(act, H, 0, H, wt(md ? W_QM : W_QA) + lh * HD, HD,
                     (g % (HD / 32)) * 32, wf(md ? B_QM : B_QA) + l * HD,
                     false, s.q + (size_t)md * BT * HD, HD, nullptr, 0, 0.f,
                     bt, red);
@@ -180,80 +229,100 @@ __global__ void __launch_bounds__(NT, 1) rollout_kernel(Params<T> p) {
       }
       grid_sync(p.bar, gen);
 
-      // S5: softmax weights and context, 32 raw columns per unit
-      for (int u = blockIdx.x; u < 2 * bt * (H / 32); u += gridDim.x) {
-        const int md = u / (bt * (H / 32)), v = u % (bt * (H / 32));
+      // S5: softmax weights and context, 64 raw columns per unit
+      for (int u = blockIdx.x; u < 2 * bt * (H / 64); u += gridDim.x) {
+        const int md = u / (bt * (H / 64)), v = u % (bt * (H / 64));
         context_unit<T>(p.ring[md], p.S[md], vis[md], s.logit[md],
-                        s.stat[md], p.nch[md], v / (H / 32), v % (H / 32),
+                        s.stat[md], p.nch[md], v / (H / 64), v % (H / 64),
                         s.ctx + (size_t)md * BT * HD, wsm, red, ml);
       }
       grid_sync(p.bar, gen);
 
       // S6: out-side fold: att = ctx @ W_o + b
-      for (int g = blockIdx.x; g < 2 * H / 32; g += gridDim.x) {
-        const int md = g / (H / 32);
+      for (int u = blockIdx.x; u < 2 * (H / 32) * P_O; u += gridDim.x) {
+        const int md = u / ((H / 32) * P_O), v = u % ((H / 32) * P_O);
+        const int g = v / P_O, q = v % P_O;
         prologue_copy<T>(act, HD, 0, s.ctx + (size_t)md * BT * HD, HD, bt);
         __syncthreads();
-        mm_group<T>(act, HD, HD, wt(md ? W_OM : W_OA) + lh * HD, H,
-                    (g % (H / 32)) * 32, wf(md ? B_OM : B_OA) + lh, false,
-                    s.att + (size_t)md * BT * H, H, nullptr, 0, 0.f, bt, red);
-      }
-      grid_sync(p.bar, gen);
-
-      // S7: y2 = LN(att + y); z2 = y2 @ W_f + b
-      for (int g = blockIdx.x; g < 2 * H / 32; g += gridDim.x) {
-        const int md = g / (H / 32), gc = g % (H / 32);
-        prologue_ln<T>(act, H, 0, s.att + (size_t)md * BT * H, s.y,
-                       wf(md ? LNMG : LNAG) + lh, wf(md ? LNMB : LNAB) + lh,
-                       gc == 0 ? s.y2 + (size_t)md * BT * H : nullptr, bt);
-        __syncthreads();
-        mm_group<T>(act, H, H, wt(md ? W_FM : W_FA) + lh * H, H, gc * 32,
-                    wf(md ? B_FM : B_FA) + lh, false,
-                    s.z2 + (size_t)md * BT * H, H, nullptr, 0, 0.f, bt, red);
-      }
-      grid_sync(p.bar, gen);
-
-      // S8: merged = [LN(z2a + y2a) | LN(z2m + y2m)] @ W_cat + b
-      for (int g = blockIdx.x; g < H / 32; g += gridDim.x) {
-        for (int md = 0; md < 2; ++md)
-          prologue_ln<T>(act, 2 * H, md * H, s.z2 + (size_t)md * BT * H,
-                         s.y2 + (size_t)md * BT * H,
-                         wf(md ? LNFMG : LNFAG) + lh,
-                         wf(md ? LNFMB : LNFAB) + lh, nullptr, bt);
-        __syncthreads();
-        mm_group<T>(act, 2 * H, 2 * H, wt(W_CAT) + lh * 2 * H, H, g * 32,
-                    wf(B_CAT) + lh, false, s.merged, H, nullptr, 0, 0.f, bt,
-                    red);
-      }
-      grid_sync(p.bar, gen);
-
-      // S9: ff1 = relu(merged @ W_1 + b)
-      for (int g = blockIdx.x; g < (BN + 31) / 32; g += gridDim.x) {
-        prologue_copy<T>(act, H, 0, s.merged, H, bt);
-        __syncthreads();
-        mm_group<T>(act, H, H, wt(W_1) + lh * BN, BN, g * 32,
-                    wf(B_1) + (size_t)l * BN, true, s.ff1, BN, nullptr, 0,
+        mm_group<T>(act, HD, q * (HD / P_O), HD / P_O,
+                    wt(md ? W_OM : W_OA) + lh * HD, H, g * 32,
+                    q ? nullptr : wf(md ? B_OM : B_OA) + lh, false,
+                    s.att + ((size_t)md * P_O + q) * BT * H, H, nullptr, 0,
                     0.f, bt, red);
       }
       grid_sync(p.bar, gen);
 
-      // S10: zf = ff1 @ W_2 + b  (next x = LN(zf + merged), in S1/S11)
-      for (int g = blockIdx.x; g < H / 32; g += gridDim.x) {
-        prologue_copy<T>(act, BN, 0, s.ff1, BN, bt);
+      // S7: y2 = LN(att + y); z2 = y2 @ W_f + b
+      for (int u = blockIdx.x; u < 2 * (H / 32) * P_F; u += gridDim.x) {
+        const int md = u / ((H / 32) * P_F), v = u % ((H / 32) * P_F);
+        const int g = v / P_F, q = v % P_F;
+        prologue_ln<T, P_O>(act, H, 0, s.att + (size_t)md * P_O * BT * H,
+                            s.y, wf(md ? LNMG : LNAG) + lh,
+                            wf(md ? LNMB : LNAB) + lh,
+                            v == 0 ? s.y2 + (size_t)md * BT * H : nullptr, bt);
         __syncthreads();
-        mm_group<T>(act, BN, BN, wt(W_2) + (size_t)l * BN * H, H, g * 32,
-                    wf(B_2) + lh, false, s.zf, H, nullptr, 0, 0.f, bt, red);
+        mm_group<T>(act, H, q * (H / P_F), H / P_F,
+                    wt(md ? W_FM : W_FA) + lh * H, H, g * 32,
+                    q ? nullptr : wf(md ? B_FM : B_FA) + lh, false,
+                    s.z2 + ((size_t)md * P_F + q) * BT * H, H, nullptr, 0,
+                    0.f, bt, red);
+      }
+      grid_sync(p.bar, gen);
+
+      // S8: merged = [LN(z2a + y2a) | LN(z2m + y2m)] @ W_cat + b
+      for (int u = blockIdx.x; u < (H / 32) * P_CAT; u += gridDim.x) {
+        const int g = u / P_CAT, q = u % P_CAT;
+        for (int md = 0; md < 2; ++md)
+          prologue_ln<T, P_F>(act, 2 * H, md * H,
+                              s.z2 + (size_t)md * P_F * BT * H,
+                              s.y2 + (size_t)md * BT * H,
+                              wf(md ? LNFMG : LNFAG) + lh,
+                              wf(md ? LNFMB : LNFAB) + lh, nullptr, bt);
+        __syncthreads();
+        mm_group<T>(act, 2 * H, q * (2 * H / P_CAT), 2 * H / P_CAT,
+                    wt(W_CAT) + lh * 2 * H, H, g * 32,
+                    q ? nullptr : wf(B_CAT) + lh, false,
+                    s.mparts + (size_t)q * BT * H, H, nullptr, 0, 0.f, bt,
+                    red);
+      }
+      grid_sync(p.bar, gen);
+
+      // S9: ff1 = merged @ W_1 + b (relu applied by the consumer, after
+      //     the parts are summed); block 0 keeps the summed merged
+      for (int u = blockIdx.x; u < ((BN + 31) / 32) * P_1; u += gridDim.x) {
+        const int g = u / P_1, q = u % P_1;
+        prologue_copy<T, P_CAT>(act, H, 0, s.mparts, H, bt, false,
+                                u == 0 ? s.merged : nullptr);
+        __syncthreads();
+        mm_group<T>(act, H, q * (H / P_1), H / P_1, wt(W_1) + lh * BN, BN,
+                    g * 32, q ? nullptr : wf(B_1) + (size_t)l * BN, false,
+                    s.ff1 + (size_t)q * BT * BN, BN, nullptr, 0, 0.f, bt,
+                    red);
+      }
+      grid_sync(p.bar, gen);
+
+      // S10: zf = relu(ff1) @ W_2 + b  (next x = LN(zf + merged), S1/S11)
+      for (int u = blockIdx.x; u < (H / 32) * P_2; u += gridDim.x) {
+        const int g = u / P_2, q = u % P_2;
+        prologue_copy<T, P_1>(act, BN, 0, s.ff1, BN, bt, true);
+        __syncthreads();
+        mm_group<T>(act, BN, q * (BN / P_2), BN / P_2,
+                    wt(W_2) + (size_t)l * BN * H, H, g * 32,
+                    q ? nullptr : wf(B_2) + lh, false,
+                    s.zf + (size_t)q * BT * H, H, nullptr, 0, 0.f, bt, red);
       }
       grid_sync(p.bar, gen);
     }
 
-    // S11: o1 = relu(LN(zf + merged) @ W_o1 + b)
+    // S11: o1 = LN(zf + merged) @ W_o1 + b (relu by the consumer)
     const size_t ll = (size_t)(NB - 1) * H;
-    for (int g = blockIdx.x; g < (BN + 31) / 32; g += gridDim.x) {
-      prologue_ln<T>(act, H, 0, s.zf, s.merged, wf(LNFG) + ll,
-                     wf(LNFB) + ll, nullptr, bt);
+    for (int u = blockIdx.x; u < ((BN + 31) / 32) * P_O1; u += gridDim.x) {
+      const int g = u / P_O1, q = u % P_O1;
+      prologue_ln<T, P_2>(act, H, 0, s.zf, s.merged, wf(LNFG) + ll,
+                          wf(LNFB) + ll, nullptr, bt);
       __syncthreads();
-      mm_group<T>(act, H, H, wt(W_O1), BN, g * 32, wf(B_O1), true, s.o1,
+      mm_group<T>(act, H, q * (H / P_O1), H / P_O1, wt(W_O1), BN, g * 32,
+                  q ? nullptr : wf(B_O1), false, s.o1 + (size_t)q * BT * BN,
                   BN, nullptr, 0, 0.f, bt, red);
     }
     grid_sync(p.bar, gen);
@@ -263,15 +332,15 @@ __global__ void __launch_bounds__(NT, 1) rollout_kernel(Params<T> p) {
     {
       const int ng_out = (p.out_dim + 31) / 32;
       for (int g = blockIdx.x; g < ng_out + H / 32; g += gridDim.x) {
-        prologue_copy<T>(act, BN, 0, s.o1, BN, bt);
+        prologue_copy<T, P_O1>(act, BN, 0, s.o1, BN, bt, true);
         __syncthreads();
         if (g < ng_out)
-          mm_group<T>(act, BN, BN, wt(W_O2), p.out_dim, g * 32, wf(B_O2),
+          mm_group<T>(act, BN, 0, BN, wt(W_O2), p.out_dim, g * 32, wf(B_O2),
                       false, p.ys + ((size_t)t * p.B + p.b0) * p.out_dim,
                       p.out_dim, nullptr, 0, 0.f, bt, red);
         else
-          mm_group<T>(act, BN, BN, wt(W_FB), H, (g - ng_out) * 32, wf(B_FB),
-                      false, s.x, H,
+          mm_group<T>(act, BN, 0, BN, wt(W_FB), H, (g - ng_out) * 32,
+                      wf(B_FB), false, s.x, H,
                       p.gt + ((size_t)t * p.B + p.b0) * H, H, m, bt, red);
       }
     }
@@ -312,11 +381,8 @@ extern "C" {
 
 // FP32 scratch of one launch (16 dialogs), in floats
 long long decode_rollout_workspace_floats(int NB, int SA, int SM, int BN) {
-  using namespace rollout;
-  const long long nca = (SA + CH - 1) / CH, ncm = (SM + CH - 1) / CH;
-  return (long long)BT * (H * (1 + 2 * NB + NB + 3 + 2 + 2 + 2 + 1 + 1) +
-                          2 * HD + 2 * HD + HEADS * (SA + SM) +
-                          HEADS * 2 * (nca + ncm) + 2 * BN);
+  rollout::Scratch s;
+  return rollout::layout(nullptr, NB, SA, SM, BN, &s);
 }
 
 // weights: 43 device pointers in the order of ops/decode_rollout.py
@@ -331,31 +397,11 @@ int decode_rollout_launch(
     int bt, int NB, int BN, int out_dim, int SA, int SM, int ratio,
     int len_a0, int len_m0, int bud_m, float scale, void* stream_ptr) {
   using namespace rollout;
-  if (bt < 1 || bt > BT || SA > SMAX || SM > SMAX || BN % (4 * NW))
+  if (bt < 1 || bt > BT || SA > SMAX || SM > SMAX || BN % (4 * NW * P_2))
     return (int)cudaErrorInvalidValue;
   const long long nca = (SA + CH - 1) / CH, ncm = (SM + CH - 1) / CH;
   Scratch s;
-  float* q = ws;
-  auto take = [&](long long n) { float* r = q; q += n; return r; };
-  s.x = take(BT * H);
-  s.hs = take(2LL * NB * BT * H);
-  s.cs = take((long long)NB * BT * H);
-  s.ya = take(BT * H);
-  s.ze = take(BT * H);
-  s.y = take(BT * H);
-  s.att = take(2 * BT * H);
-  s.y2 = take(2 * BT * H);
-  s.z2 = take(2 * BT * H);
-  s.merged = take(BT * H);
-  s.zf = take(BT * H);
-  s.q = take(2 * BT * HD);
-  s.ctx = take(2 * BT * HD);
-  s.logit[0] = take((long long)BT * HEADS * SA);
-  s.logit[1] = take((long long)BT * HEADS * SM);
-  s.stat[0] = take(BT * HEADS * 2 * nca);
-  s.stat[1] = take(BT * HEADS * 2 * ncm);
-  s.ff1 = take((long long)BT * BN);
-  s.o1 = take((long long)BT * BN);
+  layout(ws, NB, SA, SM, BN, &s);
 
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   auto fill = [&](auto& p, auto* ring_type) {

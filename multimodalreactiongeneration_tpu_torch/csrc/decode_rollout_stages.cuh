@@ -47,10 +47,13 @@ __device__ __forceinline__ float ldw(const __nv_bfloat16* p) {
       __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
 }
 // rings: written in-kernel, read through L2
-__device__ __forceinline__ float ldr(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float ldr(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(
-      __ldcg(reinterpret_cast<const unsigned short*>(p))));
+// 2 consecutive ring elements (aligned to their pair)
+__device__ __forceinline__ float2 ldr2(const float* p) {
+  return __ldcg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ldr2(const __nv_bfloat16* p) {
+  const unsigned int u = __ldcg(reinterpret_cast<const unsigned int*>(p));
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
 }
 // 8 consecutive ring elements (16-byte aligned)
 __device__ __forceinline__ void load8(const float* p, float v[8]) {
@@ -115,36 +118,63 @@ constexpr int INFLIGHT = 8;
 constexpr int MM_INFLIGHT = 16;   // weight loads per lane in a matmul
 constexpr int CTX_INFLIGHT = 16;  // ring loads per lane in the context sum
 
-// act[b][koff + k] = src[b][k], rounded to the panel type T (K % 4 == 0)
-template <typename T>
+// A split-K matmul stage leaves P partial sums of its output, BT x N
+// apart, that the next stage's prologue adds up (P is a template
+// argument so the loads of all parts are issued together).
+
+// act[b][koff + k] = f(sum_p src[p][b][k]), rounded to the panel type T,
+// with f = relu when asked (K % 4 == 0). The FP32 value also goes to dst
+// when dst is given.
+template <typename T, int P = 1>
 __device__ void prologue_copy(float* act, int ldk, int koff,
-                              const float* src, int K, int bt) {
+                              const float* src, int K, int bt,
+                              bool relu = false, float* dst = nullptr) {
+  constexpr int ITEMS = INFLIGHT / P > 0 ? INFLIGHT / P : 1;
   const int k4 = K / 4, n = bt * k4;
-  for (int i0 = threadIdx.x; i0 < n; i0 += NT * INFLIGHT) {
-    float4 v[INFLIGHT];
+  const size_t part = (size_t)BT * K;
+  for (int i0 = threadIdx.x; i0 < n; i0 += NT * ITEMS) {
+    float4 u[ITEMS][P];
 #pragma unroll
-    for (int j = 0; j < INFLIGHT; ++j) {
-      const int i = i0 + j * NT;
-      if (i < n)
-        v[j] = __ldcg(reinterpret_cast<const float4*>(
-            src + (size_t)(i / k4) * K + (i % k4) * 4));
-    }
-#pragma unroll
-    for (int j = 0; j < INFLIGHT; ++j) {
+    for (int j = 0; j < ITEMS; ++j) {
       const int i = i0 + j * NT;
       if (i >= n) continue;
-      float* d = act + (i / k4) * ldk + koff + (i % k4) * 4;
-      d[0] = rnd<T>(v[j].x);
-      d[1] = rnd<T>(v[j].y);
-      d[2] = rnd<T>(v[j].z);
-      d[3] = rnd<T>(v[j].w);
+      const float* q = src + (size_t)(i / k4) * K + (i % k4) * 4;
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        u[j][p] = __ldcg(reinterpret_cast<const float4*>(q + p * part));
+    }
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const int i = i0 + j * NT;
+      if (i >= n) continue;
+      float4 v = u[j][0];
+#pragma unroll
+      for (int p = 1; p < P; ++p) {
+        v.x += u[j][p].x;
+        v.y += u[j][p].y;
+        v.z += u[j][p].z;
+        v.w += u[j][p].w;
+      }
+      if (relu) {
+        v.x = fmaxf(v.x, 0.f);
+        v.y = fmaxf(v.y, 0.f);
+        v.z = fmaxf(v.z, 0.f);
+        v.w = fmaxf(v.w, 0.f);
+      }
+      const int b = i / k4, k = (i % k4) * 4;
+      float* d = act + b * ldk + koff + k;
+      d[0] = rnd<T>(v.x);
+      d[1] = rnd<T>(v.y);
+      d[2] = rnd<T>(v.z);
+      d[3] = rnd<T>(v.w);
+      if (dst) __stcg(reinterpret_cast<float4*>(dst + b * K + k), v);
     }
   }
 }
 
-// act[b][koff + k] = LN(a[b] + r[b]) (rounded); the FP32 value also goes
-// to dst when dst is given. One warp per row, 8 values per lane.
-template <typename T>
+// act[b][koff + k] = LN(sum_p a[p][b] + r[b]) (rounded); the FP32 value
+// also goes to dst when dst is given. One warp per row, 8 values per lane.
+template <typename T, int P = 1>
 __device__ void prologue_ln(float* act, int ldk, int koff, const float* a,
                             const float* r, const float* g,
                             const float* be, float* dst, int bt) {
@@ -154,7 +184,9 @@ __device__ void prologue_ln(float* act, int ldk, int koff, const float* a,
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int k = lane + 32 * i;
-      v[i] = __ldcg(a + b * H + k) + __ldcg(r + b * H + k);
+      v[i] = __ldcg(r + b * H + k);
+#pragma unroll
+      for (int p = 0; p < P; ++p) v[i] += __ldcg(a + (p * BT + b) * H + k);
       s += v[i];
       ss += v[i] * v[i];
     }
@@ -172,19 +204,19 @@ __device__ void prologue_ln(float* act, int ldk, int koff, const float* a,
   }
 }
 
-// ---- one 32-column group of out = act @ W + bias ----------------------
-// W is (K, N) row-major; the 8 warps split K (K % 32 == 0), lanes own
-// columns, and the warp partials meet in shared memory. Epilogue:
-// optional relu, optional blend  m * v + (1 - m) * gt[b][n]  (the AR
-// feedback).
+// ---- one 32-column group of out = act[:, kb:kb+K] @ W[kb:kb+K] + bias --
+// W is (K_total, N) row-major; the 8 warps split the K range (K % 32 ==
+// 0), lanes own columns, and the warp partials meet in shared memory.
+// Epilogue: bias (when given: part 0 of a split-K stage), optional relu,
+// optional blend  m * v + (1 - m) * gt[b][n]  (the AR feedback).
 template <typename T>
-__device__ void mm_group(const float* act, int ldk, int K,
+__device__ void mm_group(const float* act, int ldk, int kb, int K,
                          const T* __restrict__ W, int N, int n0,
                          const float* __restrict__ bias, bool relu,
                          float* out, int ldo, const float* gt, int ldg,
                          float m, int bt, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int kw = K / NW, k0 = warp * kw;
+  const int kw = K / NW, k0 = kb + warp * kw;
   const int n = n0 + lane;
   const bool ok = n < N;
   float acc[BT];
@@ -219,7 +251,7 @@ __device__ void mm_group(const float* act, int ldk, int K,
 #pragma unroll
     for (int w2 = 0; w2 < NW; ++w2) v += red[(w2 * BT + b) * 32 + lane];
     if (ok) {
-      v += bias[n];
+      if (bias) v += bias[n];
       if (relu) v = fmaxf(v, 0.f);
       if (gt) v = m * v + (1.f - m) * gt[(size_t)b * ldg + n];
       __stcg(out + (size_t)b * ldo + n, v);
@@ -231,7 +263,7 @@ __device__ void mm_group(const float* act, int ldk, int K,
 // ---- LSTM cell for hidden units [8g, 8g+8) ----------------------------
 // act = [x | h] (BT x 2H, rounded); gates = x@W_ih + h@W_hh + b, gate
 // order i, f, g, o. Lane l owns gate column (l / 8) * H + 8g + l % 8 and
-// issues all of its 64 weight loads at once; warps 0-3 take the x half
+// issues its 64 weight loads in two batches; warps 0-3 take the x half
 // of K, warps 4-7 the h half.
 template <typename T>
 __device__ void cell_group(const float* act, const T* __restrict__ wih,
@@ -243,22 +275,27 @@ __device__ void cell_group(const float* act, const T* __restrict__ wih,
   constexpr int KW = 2 * H / NW;
   const int k0 = warp * KW;
   const T* W = (k0 < H ? wih : whh) + (size_t)(k0 < H ? k0 : k0 - H) * 4 * H;
-  float w[KW];
-#pragma unroll
-  for (int j = 0; j < KW; ++j) w[j] = ldw(W + (size_t)j * 4 * H + col);
   float acc[BT];
 #pragma unroll
   for (int b = 0; b < BT; ++b) acc[b] = 0.f;
+  constexpr int KB = KW / 2;  // two batches of weight loads
 #pragma unroll
-  for (int j = 0; j < KW; j += 4) {
+  for (int j0 = 0; j0 < KW; j0 += KB) {
+    float w[KB];
 #pragma unroll
-    for (int b = 0; b < BT; ++b) {
-      const float4 a =
-          *reinterpret_cast<const float4*>(act + b * 2 * H + k0 + j);
-      acc[b] = fmaf(a.x, w[j], acc[b]);
-      acc[b] = fmaf(a.y, w[j + 1], acc[b]);
-      acc[b] = fmaf(a.z, w[j + 2], acc[b]);
-      acc[b] = fmaf(a.w, w[j + 3], acc[b]);
+    for (int j = 0; j < KB; ++j)
+      w[j] = ldw(W + (size_t)(j0 + j) * 4 * H + col);
+#pragma unroll
+    for (int j = 0; j < KB; j += 4) {
+#pragma unroll
+      for (int b = 0; b < BT; ++b) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(act + b * 2 * H + k0 + j0 + j);
+        acc[b] = fmaf(a.x, w[j], acc[b]);
+        acc[b] = fmaf(a.y, w[j + 1], acc[b]);
+        acc[b] = fmaf(a.z, w[j + 2], acc[b]);
+        acc[b] = fmaf(a.w, w[j + 3], acc[b]);
+      }
     }
   }
 #pragma unroll
@@ -298,7 +335,7 @@ __device__ void logits_unit(const T* ring, int S, int vis, const float* q,
     for (int i = 0; i < 8; ++i)
       qr[h][i] = rnd<T>(__ldcg(q + (size_t)b * HD + h * H + lane * 8 + i));
   const int s0 = ch * CH, s1 = min(s0 + CH, S);
-  constexpr int SB = INFLIGHT;  // slots loaded per batch
+  constexpr int SB = INFLIGHT / 2;  // slots loaded per batch
   for (int sb = s0 + warp; sb < s1; sb += SB * NW) {
     float v[SB][8];
 #pragma unroll
@@ -352,7 +389,8 @@ __device__ void logits_unit(const T* ring, int S, int vis, const float* q,
 }
 
 // ---- attention, pass 2: softmax weights and the context sum -----------
-// for dialog b, all heads, raw columns [32kg, 32kg + 32). The weights
+// for dialog b, all heads, raw columns [64kg, 64kg + 64), two per lane
+// (one round of units for 16 dialogs and two rings). The weights
 // are rounded to the ring type before the sum, as in the TPU kernel.
 // Slots at or past `vis` carry weight exactly 0 and are skipped.
 template <typename T>
@@ -391,35 +429,42 @@ __device__ void context_unit(const T* ring, int S, int vis,
     }
   }
   __syncthreads();
-  const int k = kg * 32 + lane;
-  float acc[HEADS];
+  const int k = kg * 64 + 2 * lane;
+  float2 acc[HEADS];
 #pragma unroll
-  for (int h = 0; h < HEADS; ++h) acc[h] = 0.f;
+  for (int h = 0; h < HEADS; ++h) acc[h] = make_float2(0.f, 0.f);
   for (int s0 = warp; s0 < vis; s0 += NW * CTX_INFLIGHT) {
-    float v[CTX_INFLIGHT];
+    float2 v[CTX_INFLIGHT];
 #pragma unroll
     for (int j = 0; j < CTX_INFLIGHT; ++j) {
       const int s = s0 + j * NW;
-      v[j] = s < vis ? ldr(ring + ((size_t)b * S + s) * H + k) : 0.f;
+      if (s < vis) v[j] = ldr2(ring + ((size_t)b * S + s) * H + k);
     }
 #pragma unroll
     for (int j = 0; j < CTX_INFLIGHT; ++j) {
       const int s = s0 + j * NW;
       if (s >= vis) continue;
 #pragma unroll
-      for (int h = 0; h < HEADS; ++h)
-        acc[h] = fmaf(wsm[h * SMAX + s], v[j], acc[h]);
+      for (int h = 0; h < HEADS; ++h) {
+        const float w = wsm[h * SMAX + s];
+        acc[h].x = fmaf(w, v[j].x, acc[h].x);
+        acc[h].y = fmaf(w, v[j].y, acc[h].y);
+      }
     }
   }
 #pragma unroll
-  for (int h = 0; h < HEADS; ++h) red[(warp * HEADS + h) * 32 + lane] = acc[h];
+  for (int h = 0; h < HEADS; ++h) {
+    red[(warp * HEADS + h) * 64 + 2 * lane] = acc[h].x;
+    red[(warp * HEADS + h) * 64 + 2 * lane + 1] = acc[h].y;
+  }
   __syncthreads();
-  if (tid < HEADS * 32) {
-    const int h = tid / 32;
+  static_assert(HEADS * 64 == NT, "one context output per thread");
+  {
+    const int h = tid / 64, c = tid % 64;
     float v = 0.f;
 #pragma unroll
-    for (int w2 = 0; w2 < NW; ++w2) v += red[(w2 * HEADS + h) * 32 + lane];
-    __stcg(ctx + (size_t)b * HD + h * H + k, v);
+    for (int w2 = 0; w2 < NW; ++w2) v += red[(w2 * HEADS + h) * 64 + c];
+    __stcg(ctx + (size_t)b * HD + h * H + kg * 64 + c, v);
   }
   __syncthreads();
 }

@@ -291,11 +291,11 @@ def decode_rollout(
             f"decode_rollout kernel takes hidden {_KERNEL_HIDDEN} and "
             f"{_KERNEL_HEADS} heads; got {hidden} and {heads}"
         )
-    if max(sa, sm) > _KERNEL_MAX_RING or bud_m > sm or bneck % 32:
+    if max(sa, sm) > _KERNEL_MAX_RING or bud_m > sm or bneck % 64:
         raise ValueError(
             f"decode_rollout kernel: rings up to {_KERNEL_MAX_RING} slots "
             f"(got {sa}, {sm}; bud_m {bud_m}) and a bottleneck that is a "
-            f"multiple of 32 (got {bneck})"
+            f"multiple of 64 (got {bneck})"
         )
     if sa % ratio or len_a0 % ratio:
         raise ValueError(
