@@ -1,25 +1,47 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path, offline AR generation with the flagship
-Metaformer at full width (``configs.LSTMFORMER_MODEL_CFG``: hidden 256,
-5 blocks, encoders of 5 mixer blocks, 4 heads, 10 s context) on random
-weights from a seeded generator, in phases:
+Drives the port's two main paths with the flagship Metaformer at full
+width (``configs.LSTMFORMER_MODEL_CFG``: hidden 256, 5 blocks, encoders
+of 5 mixer blocks, 4 heads, 10 s context) on random weights from a
+seeded generator: offline AR generation, and the training step. Phases:
 
   0. device: name and power limit; TF32 off;
-  1. build both CUDA kernels from csrc/ (timed);
-  2. mixer-stack kernel vs its plain version, f32, B16 x H256 x L5 at
-     T2096 (audio encoder) and T262 (partner-motion encoder): <= 1e-4
-     (sums taken in another order over 5 x 2096 sequential cells);
-  3. decode-rollout kernel vs its plain version at B16 x T250,
-     teacher-forced: f32 kernel vs f32 plain <= 1e-4; bf16 kernel vs
-     f32 plain <= 5e-2 (the JAX package's bf16 drift bound);
-  4. main path: ``generate_metaformer`` with the full mask and bf16
-     caches on 3 batches of 16 x 250 frames (lead 12): shape, finite,
-     launch counts (mixer stack +2, rollout +1 per generation), time
-     per generation; then a teacher-forced f32 generation at batch 2
-     against the same weights and inputs on CPU tensors (the all-plain
-     path): <= 1e-4.
+  1. build every CUDA kernel library from csrc/, one nvcc each, all
+     started together (timed; registers and spills printed);
+  2. mixer-stack inference kernel (K1) vs its plain version, f32, B16 x
+     H256 x L5 at T2096 (audio encoder) and T262 (partner-motion
+     encoder): <= 1e-4 (sums taken in another order over 5 x 2096
+     sequential cells);
+  3. decode-rollout kernel (K2) vs its plain version at B16 x T250,
+     teacher-forced: f32 kernel vs f32 plain <= 1e-4; bf16 kernel vs f32
+     plain <= 5e-2 (the JAX package's bf16 drift bound);
+  4. decode main path: ``generate_metaformer`` with the full mask and
+     bf16 caches on 3 batches of 16 x 250 frames (lead 12): shape,
+     finite, launch counts (K1 +2, K2 +1, the training kernels +0 per
+     generation), time per generation; then a teacher-forced f32
+     generation at batch 2 against the same weights and inputs on CPU
+     tensors (the all-plain path): <= 1e-4;
+  5. mixer-stack training forward (K3) and backward (K4) vs their plain
+     versions (autograd through the plain forward), f32, B32 x H256 x L5
+     at T2016 and T252, seeded random inputs, weights and cotangents:
+     out, hn, cn <= 1e-4 abs; each of the twelve gradients
+     max|kernel - plain| / max|plain| <= 1e-3;
+  6. LSTM-layer forward (K7, with and without residuals) and backward vs
+     plain at B32 x T252 x din 256 x H256, the same bounds;
+  7. training main path: ``train.harness.streaming_step_fns`` at B32 x
+     T240 (lead 12), AdamW lr 1e-4, weight decay 1e-2: one warm-up
+     step, 5 timed steps (ms per step, trained frames/s), launch counts
+     per step (K3 +2, K4 +2, K7 forward +5, K7 backward +5, K1 and K2
+     +0), finite losses; one eval step (K1 +2, K7 forward +5); one more
+     training step under ``torch.profiler``: the device's busy share
+     goes into the ``train_step`` record, and the table of kernels by
+     device time into ``_build/profile_train_step.txt`` of the package;
+     then one SGD step (lr 1e-2, momentum 0.9) at B2 x T48 on the card
+     and on CPU tensors from the same weights and batch: loss within
+     1e-5 relative, every parameter gradient within 1e-3 of its largest
+     magnitude (floored at 1e-4 of the largest gradient of all: the
+     k-projection biases' gradients are zero in exact arithmetic).
 
 Any failure raises. The last lines are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -38,6 +60,11 @@ B, FRAMES, LEAD, RATIO = 16, 250, 12, 8
 AUDIO_DIM, MOTION_DIM = 81, 18
 SEED = 0
 K1_TOL, K2_F32_TOL, K2_BF16_TOL, PATH_TOL = 1e-4, 1e-4, 5e-2, 1e-4
+FWD_TOL, GRAD_REL_TOL, LOSS_REL_TOL = 1e-4, 1e-3, 1e-5
+TRAIN_B, TRAIN_FRAMES, TRAIN_STEPS = 32, 240, 5
+LIBS = ("mixer_stack", "decode_rollout", "lstm_layer")
+SRC = "multimodalreactiongeneration_tpu_torch/csrc/"
+JAX_OPS = "multimodalreactiongeneration_tpu/ops/"
 
 
 def log(phase, **kv):
@@ -79,8 +106,321 @@ def cuda_ms(fn, reps):
 
 
 def max_err(a, b):
-    return max(float((x.float() - y.float()).abs().max())
+    return max(float((x.detach().float() - y.detach().float()).abs().max())
                for x, y in zip(a, b))
+
+
+COUNTERS = {  # kernel name -> (module key, counter attribute)
+    "mixer_stack": ("K1", "launches"),
+    "decode_rollout": ("K2", "launches"),
+    "mixer_stack_train_fwd": ("K1", "train_fwd_launches"),
+    "mixer_stack_bwd": ("K1", "bwd_launches"),
+    "lstm_layer_fwd": ("K7", "fwd_launches"),
+    "lstm_layer_bwd": ("K7", "bwd_launches"),
+}
+
+
+def counts(K1, K2, K7):
+    mods = {"K1": K1, "K2": K2, "K7": K7}
+    return {k: getattr(mods[m], a) for k, (m, a) in COUNTERS.items()}
+
+
+def zero_counts(K1, K2, K7):
+    mods = {"K1": K1, "K2": K2, "K7": K7}
+    for m, a in COUNTERS.values():
+        setattr(mods[m], a, 0)
+
+
+def check_launches(what, before, after, **want):
+    """The launches between two reads of the counters must be exactly
+    ``want`` (kernels not named: none)."""
+    got = {k: after[k] - before[k] for k in COUNTERS}
+    expected = {k: want.get(k, 0) for k in COUNTERS}
+    if got != expected:
+        raise AssertionError(f"{what}: launches {got}, want {expected}")
+    return got
+
+
+def seeded(rng, dev):
+    def r(*shape, s=1.0, mean=0.0):
+        x = mean + s * rng.standard_normal(shape)
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+    return r
+
+
+def rel_err(got, want):
+    return max(float((g - w).abs().max()) / float(w.abs().max())
+               for g, w in zip(got, want))
+
+
+def check_case(name, fwd_err, grad_rel, **kv):
+    log(name, fwd_max_abs_err=f"{fwd_err:.3e}",
+        grad_max_rel_err=f"{grad_rel:.3e}",
+        **{k: f"{v:.3f}" if isinstance(v, float) else v
+           for k, v in kv.items()})
+    if not fwd_err <= FWD_TOL:
+        raise AssertionError(f"{name} {kv}: forward {fwd_err} > {FWD_TOL}")
+    if not grad_rel <= GRAD_REL_TOL:
+        raise AssertionError(
+            f"{name} {kv}: gradients {grad_rel} > {GRAD_REL_TOL}")
+
+
+def train_kernel_phase(K1, dev, rng):
+    """5. The encoder stack's training forward (K3) and backward (K4) vs
+    their plain versions at B32 x H256 x L5, audio and motion lengths."""
+    b, h, n = TRAIN_B, 256, 5
+    r = seeded(rng, dev)
+    cases = []
+    for t in ((LEAD + TRAIN_FRAMES) * RATIO, LEAD + TRAIN_FRAMES):
+        args = (r(b, t, h), r(n, h, 4 * h, s=0.06), r(n, 4 * h, s=0.06),
+                r(n, h, 4 * h, s=0.06), r(n, h, h, s=0.06), r(n, h, s=0.1),
+                r(n, h, s=0.1, mean=1.0), r(n, h, s=0.1),
+                r(n, h, s=0.1, mean=1.0), r(n, h, s=0.1),
+                r(n, b, h, s=0.3), r(n, b, h, s=0.3))
+        cots = (r(b, t, h), r(n, b, h), r(n, b, h))
+        # the wrapper as the model calls it: autograd runs K3, then K4
+        leaves = [a.clone().requires_grad_() for a in args]
+        y, (hn, cn) = K1.mixer_stack_recurrence(*leaves)
+        grads = torch.autograd.grad((y, hn, cn), leaves, cots)
+        with torch.no_grad():
+            plain_fwd_ms, (yr, (hr, cr)) = cuda_ms(
+                lambda: K1.mixer_stack_forward_reference(*args), 1)
+        plain_bwd_ms, want = cuda_ms(
+            K1.mixer_stack_backward_reference(args, *cots, closure=True), 1)
+        fwd_err = max_err((y, hn, cn), (yr, hr, cr))
+        grad_err = max_err(grads, want)
+        grad_rel = rel_err(grads, want)
+        # kernel times, each launch on its own
+        fwd_ms, (_, _, _, res) = cuda_ms(
+            lambda: K1.mixer_stack_train_forward(*args), 3)
+        bwd_ms, _ = cuda_ms(lambda: K1.mixer_stack_backward(args, res, *cots), 3)
+        del res
+        check_case("mixer_stack_train", fwd_err, grad_rel, T=t,
+                   fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms, bwd_ms=bwd_ms,
+                   plain_bwd_ms=plain_bwd_ms)
+        cases.append(dict(T=t, fwd_max_abs_err=fwd_err,
+                          grad_max_abs_err=grad_err, grad_max_rel_err=grad_rel,
+                          fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
+                          bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms))
+    return cases
+
+
+def lstm_layer_phase(K7, dev, rng):
+    """6. The LSTM layer (K7): forward without and with residuals and
+    backward vs plain at the self-motion LSTM's shape."""
+    b, t, din, h = TRAIN_B, LEAD + TRAIN_FRAMES, 256, 256
+    r = seeded(rng, dev)
+    args = (r(b, t, din), r(din, 4 * h, s=0.06), r(4 * h, s=0.06),
+            r(h, 4 * h, s=0.06), r(b, h, s=0.3), r(b, h, s=0.3))
+    cots = (r(b, t, h), r(b, h), r(b, h))
+    ys0, (hn0, cn0) = K7.lstm_layer(*args)  # no gradient: no residuals
+    leaves = [a.clone().requires_grad_() for a in args]
+    ys, (hn, cn) = K7.lstm_layer(*leaves)
+    grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
+    with torch.no_grad():
+        plain_fwd_ms, (ysr, (hr, cr)) = cuda_ms(
+            lambda: K7.lstm_layer_reference(*args), 1)
+    plain_bwd_ms, want = cuda_ms(
+        K7.lstm_layer_backward_reference(args, *cots, closure=True), 1)
+    fwd_err = max(max_err((ys0, hn0, cn0), (ysr, hr, cr)),
+                  max_err((ys, hn, cn), (ysr, hr, cr)))
+    grad_err = max_err(grads, want)
+    grad_rel = rel_err(grads, want)
+    fwd_ms, _ = cuda_ms(lambda: K7.lstm_layer_forward(args, False), 5)
+    fwd_res_ms, (ys1, _, _, acts, cs) = cuda_ms(
+        lambda: K7.lstm_layer_forward(args, True), 5)
+    bwd_ms, _ = cuda_ms(
+        lambda: K7.lstm_layer_backward(args, ys1, acts, cs, *cots), 5)
+    check_case("lstm_layer", fwd_err, grad_rel, T=t, fwd_ms=fwd_ms,
+               fwd_res_ms=fwd_res_ms, plain_fwd_ms=plain_fwd_ms,
+               bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms)
+    return dict(T=t, fwd_max_abs_err=fwd_err, grad_max_abs_err=grad_err,
+                grad_max_rel_err=grad_rel, fwd_ms=fwd_ms,
+                fwd_res_ms=fwd_res_ms, plain_fwd_ms=plain_fwd_ms,
+                bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms)
+
+
+def train_batch(rng, batch, frames, dev=None):
+    """(data, lengths) pairs as the loader gives them; 10% of the target
+    frames are padding (-100)."""
+    data = make_batch(rng, batch, frames=frames)
+    pad = rng.random((batch, frames)) < 0.1
+    data[-1][torch.from_numpy(pad)] = -100.0
+    return [(x.to(dev) if dev is not None else x, None) for x in data]
+
+
+def train_path_phase(K1, K2, K7, dev, rng):
+    """7. The training main path: ``streaming_step_fns`` on the flagship
+    model at B32 x T240, then one step on the card vs on CPU tensors."""
+    import copy
+
+    from multimodalreactiongeneration_tpu_torch.configs import (
+        LSTMFORMER_LOSS_CFG,
+        LSTMFORMER_METRICS_CFG,
+        LSTMFORMER_MODEL_CFG,
+        LSTMFORMER_OPTIM_CFG,
+    )
+    from multimodalreactiongeneration_tpu_torch.models.lstmformer import (
+        Metaformer,
+    )
+    from multimodalreactiongeneration_tpu_torch.train.harness import (
+        streaming_step_fns,
+    )
+    from multimodalreactiongeneration_tpu_torch.train.optim import (
+        build_optimizer,
+    )
+
+    cfg = LSTMFORMER_MODEL_CFG
+    model_cfg = {**cfg, **LSTMFORMER_LOSS_CFG}
+
+    def step_fns(model, **optim):
+        opt = build_optimizer(model.parameters(),
+                              {**LSTMFORMER_OPTIM_CFG, **optim})
+        return streaming_step_fns(model, model_cfg, LSTMFORMER_METRICS_CFG,
+                                  opt, mask_self_motion_input=True)
+
+    model = Metaformer(cfg, generator=torch.Generator().manual_seed(SEED),
+                       device=dev)
+    # AdamW as benchmarks/train_bench.py runs it: lr 1e-4, decay 1e-2
+    train_step, eval_step = step_fns(model, lr=1e-4, weight_decay=1e-2)
+    batch = train_batch(rng, TRAIN_B, TRAIN_FRAMES, dev)
+    train_step(batch)  # warm-up, not counted
+    torch.cuda.synchronize()
+    zero_counts(K1, K2, K7)
+    per_step = dict(mixer_stack_train_fwd=2, mixer_stack_bwd=2,
+                    lstm_layer_fwd=5, lstm_layer_bwd=5)
+    losses, times = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(TRAIN_STEPS):
+        before = counts(K1, K2, K7)
+        t0 = time.perf_counter()
+        loss, _ = train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000)
+        check_launches(f"train step {i}", before, counts(K1, K2, K7),
+                       **per_step)
+        losses.append(float(loss))
+    launches = counts(K1, K2, K7)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train steps: non-finite losses {losses}")
+    step_ms = float(np.mean(times))
+    frames_per_s = TRAIN_B * TRAIN_FRAMES / (step_ms / 1000)
+    log("train_step", batch=TRAIN_B, frames=TRAIN_FRAMES,
+        ms_per_step=f"{step_ms:.3f}", frames_per_s=f"{frames_per_s:.1f}",
+        step_ms=[round(t, 3) for t in times], losses=losses,
+        peak_mem_gib=f"{peak_gib:.3f}", launches=launches)
+    before = counts(K1, K2, K7)
+    eval_loss, _ = eval_step(batch)
+    check_launches("eval step", before, counts(K1, K2, K7),
+                   mixer_stack=2, lstm_layer_fwd=5)
+    if not np.isfinite(float(eval_loss)):
+        raise AssertionError(f"eval step: loss {float(eval_loss)}")
+    log("eval_step", loss=f"{float(eval_loss):.6f}", launches="K1 +2, K7 +5")
+
+    busy = profile_step(train_step, batch)
+
+    # one SGD step on the card and on CPU tensors, same weights and batch
+    model_cpu = Metaformer(cfg, generator=torch.Generator().manual_seed(SEED))
+    model_card = copy.deepcopy(model_cpu).to(dev)
+    small = train_batch(rng, 2, 48)
+    sgd = dict(use_optimizer="sgd", lr=1e-2, momentum=0.9, weight_decay=0.0)
+    loss_card, _ = step_fns(model_card, **sgd)[0](
+        [(x.to(dev), n) for x, n in small])
+    loss_cpu, _ = step_fns(model_cpu, **sgd)[0](small)
+    loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    named_cpu = dict(model_cpu.named_parameters())
+    g_all = max(float(p.grad.abs().max()) for p in named_cpu.values())
+    worst, worst_name = 0.0, ""
+    for name, p in model_card.named_parameters():
+        g_cpu = named_cpu[name].grad
+        scale = max(float(g_cpu.abs().max()), 1e-4 * g_all)
+        e = float((p.grad.cpu() - g_cpu).abs().max()) / scale
+        if e > worst:
+            worst, worst_name = e, name
+    log("train_step", card_vs_cpu_loss_rel_err=f"{loss_rel:.3e}",
+        card_vs_cpu_grad_max_rel_err=f"{worst:.3e}", worst=worst_name,
+        loss_card=f"{float(loss_card):.7f}", loss_cpu=f"{float(loss_cpu):.7f}")
+    if not loss_rel <= LOSS_REL_TOL:
+        raise AssertionError(f"card vs CPU loss: {loss_rel} > {LOSS_REL_TOL}")
+    if not worst <= GRAD_REL_TOL:
+        raise AssertionError(
+            f"card vs CPU gradient of {worst_name}: {worst} > {GRAD_REL_TOL}")
+    return {"launches": launches, "record": {
+        "batch": TRAIN_B, "frames": TRAIN_FRAMES, "steps": TRAIN_STEPS,
+        "ms": step_ms, "frames_per_s": frames_per_s, "losses": losses,
+        "peak_mem_gib": peak_gib, "device_busy_share": busy,
+        "card_vs_cpu_loss_rel_err": loss_rel,
+        "card_vs_cpu_grad_max_rel_err": worst}}
+
+
+def profile_step(train_step, batch):
+    """A torch.profiler table of one training step, by device time,
+    written to ``_build/profile_train_step.txt`` of the package; returns
+    the share of the step's wall time in which a kernel or copy ran on
+    the device (the union of their intervals)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodalreactiongeneration_tpu_torch import _build
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy = busy_us / wall_us
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=60)
+    path = _build.BUILD_DIR / "profile_train_step.txt"
+    path.write_text(table)
+    print("\n".join(table.splitlines()[:30]))
+    log("profile", table=path, step_wall_ms=f"{wall_us / 1000:.3f}",
+        device_busy_ms=f"{busy_us / 1000:.3f}",
+        device_busy_share=f"{busy:.4f}")
+    return busy
+
+
+def training_records(train, lstm, launches):
+    """The JSON entries of the four training kernels."""
+    audio = train[0]
+    ms_src = SRC + "mixer_stack.cu"
+    ll_src = SRC + "lstm_layer.cu"
+    return [
+        {"name": "mixer_stack_train_fwd", "route": "cuda", "source": ms_src,
+         "replaces": JAX_OPS + "pallas_mixer_stack.py:110",
+         "launches": launches["mixer_stack_train_fwd"],
+         "max_abs_err": max(c["fwd_max_abs_err"] for c in train),
+         "ms": audio["fwd_ms"], "plain_ms": audio["plain_fwd_ms"],
+         "cases": train},
+        {"name": "mixer_stack_bwd", "route": "cuda", "source": ms_src,
+         "replaces": JAX_OPS + "pallas_mixer_stack.py:297",
+         "launches": launches["mixer_stack_bwd"],
+         "max_abs_err": max(c["grad_max_abs_err"] for c in train),
+         "max_rel_err": max(c["grad_max_rel_err"] for c in train),
+         "ms": audio["bwd_ms"], "plain_ms": audio["plain_bwd_ms"]},
+        {"name": "lstm_layer_fwd", "route": "cuda", "source": ll_src,
+         "replaces": JAX_OPS + "pallas_lstm.py:390",
+         "launches": launches["lstm_layer_fwd"],
+         "max_abs_err": lstm["fwd_max_abs_err"],
+         "ms": lstm["fwd_res_ms"], "plain_ms": lstm["plain_fwd_ms"],
+         "no_residual_ms": lstm["fwd_ms"]},
+        {"name": "lstm_layer_bwd", "route": "cuda", "source": ll_src,
+         "replaces": JAX_OPS + "pallas_lstm.py:448",
+         "launches": launches["lstm_layer_bwd"],
+         "max_abs_err": lstm["grad_max_abs_err"],
+         "max_rel_err": lstm["grad_max_rel_err"],
+         "ms": lstm["bwd_ms"], "plain_ms": lstm["plain_bwd_ms"]},
+    ]
 
 
 def main():
@@ -96,6 +436,7 @@ def main():
     )
     from multimodalreactiongeneration_tpu_torch.ops import (
         decode_rollout as K2,
+        lstm_layer as K7,
         mixer_stack as K1,
     )
 
@@ -110,10 +451,8 @@ def main():
 
     # ---- 1. build ----------------------------------------------------
     t0 = time.perf_counter()
-    for name in ("mixer_stack", "decode_rollout"):
-        t1 = time.perf_counter()
-        _build.load(name)
-        log("build", kernel=name, seconds=f"{time.perf_counter() - t1:.1f}")
+    for name, seconds in _build.build_all(LIBS).items():
+        log("build", kernel=name, seconds=f"{seconds:.1f}")
         for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print("   ", line.strip())
@@ -129,7 +468,7 @@ def main():
     blocks = [getattr(stack, f"block_{i}") for i in range(stack.num_layerd)]
 
     def st(fn):
-        return torch.stack([fn(b) for b in blocks]).float().contiguous()
+        return torch.stack([fn(b) for b in blocks]).detach().float().contiguous()
 
     weights = (
         st(lambda b: b.mixer.weight_ih_l0.T),
@@ -204,11 +543,10 @@ def main():
     batches = [[x.to(dev) for x in make_batch(rng, B)] for _ in range(3)]
     G.generate_metaformer(model, batches[0], full)  # warm-up, not counted
     torch.cuda.synchronize()
-    K1.launches = 0
-    K2.launches = 0
+    zero_counts(K1, K2, K7)
     times = []
     for i, bd in enumerate(batches):
-        k1_before, k2_before = K1.launches, K2.launches
+        before = counts(K1, K2, K7)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -220,15 +558,12 @@ def main():
             raise AssertionError(f"generation {i}: shape {tuple(pred.shape)}")
         if not bool(torch.isfinite(pred).all()):
             raise AssertionError(f"generation {i}: non-finite output")
-        d1, d2 = K1.launches - k1_before, K2.launches - k2_before
-        if (d1, d2) != (2, 1):
-            raise AssertionError(
-                f"generation {i}: launches mixer_stack +{d1}, "
-                f"decode_rollout +{d2} (want +2, +1)")
+        d = check_launches(f"generation {i}", before, counts(K1, K2, K7),
+                           mixer_stack=2, decode_rollout=1)
         log("generate", batch=i, shape=tuple(pred.shape), finite=True,
-            ms=f"{times[-1]:.3f}", mixer_stack_launches=f"+{d1}",
-            decode_rollout_launches=f"+{d2}")
-    launches = {"mixer_stack": K1.launches, "decode_rollout": K2.launches}
+            ms=f"{times[-1]:.3f}", mixer_stack_launches=f"+{d['mixer_stack']}",
+            decode_rollout_launches=f"+{d['decode_rollout']}")
+    launches = counts(K1, K2, K7)
     gen_ms = float(np.mean(times))
     log("generate", ms_per_generation=f"{gen_ms:.3f}",
         frames_per_s=f"{B * FRAMES / (gen_ms / 1000):.1f}",
@@ -246,6 +581,11 @@ def main():
     log("generate", teacher_f32_batch2_vs_cpu_max_abs_err=f"{err:.3e}")
     if not err <= PATH_TOL:
         raise AssertionError(f"card vs CPU generation: {err} > {PATH_TOL}")
+
+    # ---- 5.-7. training kernels and the training main path ------------
+    train = train_kernel_phase(K1, dev, rng)
+    lstm = lstm_layer_phase(K7, dev, rng)
+    step = train_path_phase(K1, K2, K7, dev, rng)
 
     k1_main, k2_main = k1_cases[0], k2_cases[1]
     record = {"kernels": [
@@ -267,8 +607,10 @@ def main():
             "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
             "cases": k2_cases,
         },
+        *training_records(train, lstm, step["launches"]),
     ], "generation": {"batch": B, "frames": FRAMES, "ms": gen_ms,
-                      "frames_per_s": B * FRAMES / (gen_ms / 1000)}}
+                      "frames_per_s": B * FRAMES / (gen_ms / 1000)},
+        "train_step": step["record"]}
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -82,6 +84,19 @@ def build(name: str) -> Path:
     return out
 
 
+def build_all(names) -> Dict[str, float]:
+    """Build several sources at once, one nvcc each, all started
+    together; returns the seconds each took."""
+    def timed(name):
+        t0 = time.perf_counter()
+        build(name)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = {name: pool.submit(timed, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu; cached per process."""
     with _LOCK:
@@ -90,3 +105,19 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _LIBS[name] = lib
         return lib
+
+
+def launch(fn, *tensors, dims) -> None:
+    """Call a kernel entry point of a loaded library on the current stream
+    of the first tensor's device: the tensors' data pointers (None passes
+    a null pointer), then ``dims``, then the stream. Raises on a CUDA
+    error code."""
+    import torch
+
+    dev = tensors[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*[None if t is None else t.data_ptr() for t in tensors],
+                *dims, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")

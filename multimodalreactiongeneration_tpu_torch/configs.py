@@ -4,7 +4,9 @@
 ``configs/lstmformer.yaml`` restricted to the keys the model reads: the
 flagship Metaformer at the production size (hidden 256, 5 blocks, LSTM
 embeddings, encoders of 5 mixer blocks, 4-head integrators, 10 s context
-budget). The tests hold it equal to the yaml as the JAX config loader
+budget). ``LSTMFORMER_LOSS_CFG``, ``LSTMFORMER_METRICS_CFG`` and
+``LSTMFORMER_OPTIM_CFG`` are what the training step reads from the same
+file. The tests hold all four equal to the yaml as the JAX config loader
 resolves it.
 """
 
@@ -40,3 +42,19 @@ LSTMFORMER_MODEL_CFG = dict(
     nmels=26,
     delta_order=2,
 )
+
+# the loss keys of the same ``model:`` group, which the training step
+# reads beside the model's own
+LSTMFORMER_LOSS_CFG = dict(
+    loss_type="huber",
+    loss_reduction="mean",
+    huber_delta=1.0,
+    smoothl1_beta=1.0,
+    delta_loss_scale=1,
+)
+
+# the ``metrics:`` and ``optim:`` groups of ``configs/lstmformer.yaml``
+LSTMFORMER_METRICS_CFG = dict(use_centroid=True, use_angle=True,
+                              delta_order=2)
+LSTMFORMER_OPTIM_CFG = dict(use_optimizer="adam", momentum=0.9,
+                            weight_decay=1e-2, lr=5e-6)

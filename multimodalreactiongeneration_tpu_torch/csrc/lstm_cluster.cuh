@@ -1,0 +1,351 @@
+// Forward building blocks of the recurrent kernels: a tiled FP32 GEMM,
+// the row-parallel add+LayerNorm, and the cluster LSTM recurrence.
+//
+// Used by csrc/mixer_stack.cu (the encoder stack, inference and training
+// forward) and csrc/lstm_layer.cu (one LSTM layer). The recurrence's
+// design is in mixer_stack.cu's source note: W_hh split over an 8-CTA
+// cluster in shared memory, h exchanged through distributed shared
+// memory, one cluster barrier per step, 16 batch rows per cluster.
+//
+// Numerics: FP32 throughout (no tensor cores, so no TF32 rounding);
+// LayerNorm in the fast-variance form E[x^2] - mean^2, eps 1e-5; gate
+// order i, f, g, o.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr float LN_EPS = 1e-5f;
+
+// ---------------------------------------------------------------------
+// C[M, N] = A[M, K] @ op(W) (+ bias[N]) (+ D[M, N]), row-major FP32.
+// op(W) is W stored (K, N), or with TRANS_W the transpose of W stored
+// (N, K). bias and D may be null.
+// ---------------------------------------------------------------------
+constexpr int GM_BM = 64, GM_BN = 64, GM_BK = 16;
+
+template <bool TRANS_W>
+__global__ void __launch_bounds__(256) gemm_kernel(
+    const float* __restrict__ A, const float* __restrict__ W,
+    const float* __restrict__ bias, const float* __restrict__ D,
+    float* __restrict__ C, int M, int N, int K) {
+  __shared__ float As[GM_BK][GM_BM + 4];  // A tile, transposed: As[k][m]
+  __shared__ __align__(16) float Ws[GM_BK][GM_BN];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * GM_BM, n0 = blockIdx.x * GM_BN;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += GM_BK) {
+    for (int i = tid; i < GM_BM * GM_BK; i += 256) {
+      const int r = i / GM_BK, c = i % GM_BK;
+      const int gm = m0 + r, gk = k0 + c;
+      As[c][r] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
+    }
+    for (int i = tid; i < GM_BK * GM_BN; i += 256) {
+      const int r = i / GM_BN, c = i % GM_BN;
+      const int gk = k0 + r, gn = n0 + c;
+      float v = 0.f;
+      if (gk < K && gn < N)
+        v = TRANS_W ? W[(size_t)gn * K + gk] : W[(size_t)gk * N + gn];
+      Ws[r][c] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < GM_BK; ++kk) {
+      float a[4], w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gm = m0 + ty * 4 + i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tx * 4 + j;
+      if (gn >= N) continue;
+      float v = acc[i][j];
+      if (bias) v += bias[gn];
+      if (D) v += D[(size_t)gm * N + gn];
+      C[(size_t)gm * N + gn] = v;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// out[r, :] = LN(a[r, :] + b[r, :]) * g + beta, one warp per row
+// ---------------------------------------------------------------------
+__global__ void __launch_bounds__(256) add_ln_kernel(
+    const float* __restrict__ a, const float* __restrict__ b,
+    const float* __restrict__ g, const float* __restrict__ beta,
+    float* __restrict__ out, int rows, int H) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const float* pa = a + (size_t)row * H;
+  const float* pb = b + (size_t)row * H;
+  float s = 0.f, ss = 0.f;
+  for (int k = lane; k < H; k += 32) {
+    const float v = pa[k] + pb[k];
+    s += v;
+    ss += v * v;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  }
+  const float mu = s / H;
+  const float rstd = rsqrtf(ss / H - mu * mu + LN_EPS);
+  float* po = out + (size_t)row * H;
+  for (int k = lane; k < H; k += 32) {
+    const float v = pa[k] + pb[k];
+    po[k] = (v - mu) * rstd * g[k] + beta[k];
+  }
+}
+
+// ---------------------------------------------------------------------
+// LSTM recurrence over xw = x @ W_ih + b, W_hh split over a cluster
+// ---------------------------------------------------------------------
+constexpr int CL = 8;     // CTAs per cluster (W_hh column split)
+constexpr int BT = 16;    // batch rows per cluster
+constexpr int NT = 256;   // threads per CTA
+constexpr int MAX_H = 256;
+
+// H the recurrence kernels take: a CTA owns H/8 units, i.e. H/2 gate
+// columns, and the step's thread layout needs at least 64 of them
+inline bool hidden_ok(int H) { return H % 128 == 0 && H <= MAX_H; }
+
+__device__ __forceinline__ float sigmoidf_(float x) {
+  return 1.f / (1.f + expf(-x));
+}
+
+size_t lstm_smem_bytes(int H) {
+  const int nc = H / 2;  // 4 gates x H/8 units
+  return sizeof(float) * ((size_t)H * nc + 2 * BT * H + BT * nc);
+}
+
+// acts (B, T, 4H) and cs (B, T, H) are the training residuals: the gate
+// activations i, f, g, o and the cell state of every step. Null skips
+// them (the inference forward).
+__global__ void __launch_bounds__(NT, 1) lstm_cluster_kernel(
+    const float* __restrict__ xw,      // (B, T, 4H)
+    const float* __restrict__ w_hh_t,  // (H, 4H)
+    const float* __restrict__ h0,      // (B, H)
+    const float* __restrict__ c0,      // (B, H)
+    float* __restrict__ rnn,           // (B, T, H)
+    float* __restrict__ hn,            // (B, H)
+    float* __restrict__ cn,            // (B, H)
+    float* __restrict__ acts,          // (B, T, 4H) or null
+    float* __restrict__ cs,            // (B, T, H) or null
+    int B, int T, int H) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int b0 = (blockIdx.x / CL) * BT;
+  const int U = H / CL;   // hidden units owned by this CTA
+  const int NC = 4 * U;   // gate columns owned by this CTA
+  const int tid = threadIdx.x;
+
+  extern __shared__ __align__(16) float smem[];
+  float* Ws = smem;                  // [H][NC]
+  float* hbuf = Ws + H * NC;         // [2][BT][H]
+  float* gsm = hbuf + 2 * BT * H;    // [BT][NC]
+
+  // local column lc = g*U + u  <->  global gate column g*H + rank*U + u
+  for (int i = tid; i < H * NC; i += NT) {
+    const int k = i / NC, lc = i % NC;
+    const int g = lc / U, u = lc % U;
+    Ws[i] = w_hh_t[(size_t)k * 4 * H + g * H + rank * U + u];
+  }
+  for (int i = tid; i < BT * H; i += NT) {
+    const int b = b0 + i / H;
+    hbuf[i] = (b < B) ? h0[(size_t)b * H + i % H] : 0.f;
+  }
+  // each thread owns up to two (row, unit) cells for the whole sequence
+  float creg[2] = {0.f, 0.f};
+  int own_r[2], own_u[2];
+  bool own_ok[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int p = tid + NT * j;
+    own_r[j] = p / U;
+    own_u[j] = p % U;
+    own_ok[j] = p < BT * U && b0 + own_r[j] < B;
+    if (own_ok[j])
+      creg[j] = c0[(size_t)(b0 + own_r[j]) * H + rank * U + own_u[j]];
+  }
+  cluster.sync();
+
+  const int rg = tid / 64;  // rows rg*4 .. rg*4+3
+  const int cl = tid % 64;  // columns cl and cl+64
+  const bool col2 = cl + 64 < NC;
+  const size_t G = 4 * (size_t)H;
+
+  for (int t = 0; t < T; ++t) {
+    const float* hcur = hbuf + (t & 1) * BT * H;
+    const int nxt_off = ((t + 1) & 1) * BT * H;
+
+    float xg[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        xg[j][g] = own_ok[j]
+            ? xw[((size_t)(b0 + own_r[j]) * T + t) * G + g * H + rank * U +
+                 own_u[j]]
+            : 0.f;
+      }
+    }
+
+    float acc[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.f;
+    for (int k = 0; k < H; k += 4) {
+      float4 hv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        hv[i] = *reinterpret_cast<const float4*>(&hcur[(rg * 4 + i) * H + k]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float w0 = Ws[(k + kk) * NC + cl];
+        const float w1 = col2 ? Ws[(k + kk) * NC + cl + 64] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float hk = kk == 0 ? hv[i].x
+                         : kk == 1 ? hv[i].y
+                         : kk == 2 ? hv[i].z
+                                   : hv[i].w;
+          acc[i][0] = fmaf(hk, w0, acc[i][0]);
+          acc[i][1] = fmaf(hk, w1, acc[i][1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      gsm[(rg * 4 + i) * NC + cl] = acc[i][0];
+      if (col2) gsm[(rg * 4 + i) * NC + cl + 64] = acc[i][1];
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int p = tid + NT * j;
+      if (p >= BT * U) continue;
+      const int r = own_r[j], u = own_u[j];
+      const float* gr = gsm + r * NC;
+      const float gi = sigmoidf_(gr[u] + xg[j][0]);
+      const float gf = sigmoidf_(gr[U + u] + xg[j][1]);
+      const float gg = tanhf(gr[2 * U + u] + xg[j][2]);
+      const float go = sigmoidf_(gr[3 * U + u] + xg[j][3]);
+      const float c = gf * creg[j] + gi * gg;
+      const float h = go * tanhf(c);
+      creg[j] = c;
+      const int slot = nxt_off + r * H + rank * U + u;
+#pragma unroll
+      for (int q = 0; q < CL; ++q) cluster.map_shared_rank(hbuf, q)[slot] = h;
+      if (own_ok[j]) {
+        const size_t row = (size_t)(b0 + r) * T + t;
+        const int col = rank * U + u;
+        rnn[row * H + col] = h;
+        if (acts) {
+          float* a = acts + row * G + col;
+          a[0] = gi;
+          a[H] = gf;
+          a[2 * H] = gg;
+          a[3 * H] = go;
+          cs[row * H + col] = c;
+        }
+      }
+    }
+    cluster.sync();
+  }
+
+  const float* hlast = hbuf + (T & 1) * BT * H;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (!own_ok[j]) continue;
+    const size_t o = (size_t)(b0 + own_r[j]) * H + rank * U + own_u[j];
+    hn[o] = hlast[own_r[j] * H + rank * U + own_u[j]];
+    cn[o] = creg[j];
+  }
+}
+
+int check_launch() { return (int)cudaGetLastError(); }
+
+// launch `kernel` on ceil(B / 16) clusters of 8 CTAs
+template <typename Kernel, typename... Args>
+int launch_cluster(Kernel kernel, size_t smem, int B, cudaStream_t stream,
+                   Args... args) {
+  int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL * ((B + BT - 1) / BT));
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err) return err;
+  return check_launch();
+}
+
+int gemm(const float* A, const float* W, const float* bias, const float* D,
+         float* C, int M, int N, int K, bool trans_w, cudaStream_t stream) {
+  const dim3 grid((N + GM_BN - 1) / GM_BN, (M + GM_BM - 1) / GM_BM);
+  if (trans_w)
+    gemm_kernel<true><<<grid, 256, 0, stream>>>(A, W, bias, D, C, M, N, K);
+  else
+    gemm_kernel<false><<<grid, 256, 0, stream>>>(A, W, bias, D, C, M, N, K);
+  return check_launch();
+}
+
+int add_ln(const float* a, const float* b, const float* g, const float* beta,
+           float* out, size_t rows, int H, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((rows * 32 + 255) / 256);
+  add_ln_kernel<<<blocks, 256, 0, stream>>>(a, b, g, beta, out, (int)rows,
+                                            H);
+  return check_launch();
+}
+
+// One LSTM layer forward: xw = x @ W_ih^T + b over all B*T rows, then the
+// recurrence. acts/cs null: no training residuals.
+int lstm_forward(const float* x, int din, const float* w_ih_t,
+                 const float* b, const float* w_hh_t, const float* h0,
+                 const float* c0, float* xw, float* ys, float* hn, float* cn,
+                 float* acts, float* cs, int B, int T, int H,
+                 cudaStream_t stream) {
+  int err = gemm(x, w_ih_t, b, nullptr, xw, B * T, 4 * H, din, false,
+                 stream);
+  if (err) return err;
+  return launch_cluster(lstm_cluster_kernel, lstm_smem_bytes(H), B, stream,
+                        (const float*)xw, w_hh_t, h0, c0, ys, hn, cn, acts,
+                        cs, B, T, H);
+}
+
+}  // namespace

@@ -1,0 +1,409 @@
+// Backward building blocks of the recurrent kernels: the reverse cluster
+// LSTM recurrence, split-K reductions over all B*T rows (A^T B products
+// and column sums), and the row-parallel LayerNorm backward.
+//
+// Used by csrc/mixer_stack.cu (the encoder-stack backward) and
+// csrc/lstm_layer.cu (one LSTM layer's backward).
+//
+// The reverse recurrence. The forward stored the gate activations
+// A = [i, f, g, o] and the cell states c of every step, so a reverse step
+// needs no transcendental but tanh(c_t):
+//   dh  = dy_t + dh_carry,      dc = dh * o * (1 - tanh^2 c_t) + dc_carry
+//   dgates = [dc*g*i(1-i), dc*c_{t-1}*f(1-f), dc*i*(1-g^2), dh*tanh(c_t)*o(1-o)]
+//   dc_carry = dc * f,          dh_carry = dgates @ W_hh      (W_hh = w_hh_t^T)
+// with c_{-1} = c0. The chain is dh_carry: a (16 x 4H) @ (4H x H) product
+// per step. As in the forward, a cluster of 8 CTAs splits W_hh: CTA r
+// keeps the 4H/8 gate columns of hidden units [r*H/8, (r+1)*H/8), now
+// transposed (column-major over k, so thread k reads without bank
+// conflicts), and computes those columns' dgates. Its product with its
+// W_hh slice is a PARTIAL dh_carry over all H units; each CTA needs only
+// its own units' sum, so every CTA writes its partial for CTA q's units
+// into q's shared memory (slot r of 8) and after one cluster barrier sums
+// the 8 slots. The slots are double-buffered by step parity, so the
+// barrier of step t also orders step t-1's writes after step t's reads.
+// dgates go to device memory (B, T, 4H); the weight gradients and dx are
+// then parallel products over all rows (below).
+
+#pragma once
+
+#include <algorithm>
+
+#include "lstm_cluster.cuh"
+
+namespace {
+
+// split-K scratch the wrappers allocate (floats)
+constexpr size_t PART_FLOATS = (size_t)1 << 22;   // A^T B partial tiles
+constexpr size_t CPART_FLOATS = (size_t)1 << 18;  // column-sum partials
+constexpr int SPLIT_TARGET_BLOCKS = 1024;
+
+size_t lstm_bwd_smem_bytes(int H) {
+  const int nc = H / 2;
+  const int u = H / CL;
+  return sizeof(float) *
+         ((size_t)nc * H + (size_t)nc * BT + 2 * (size_t)CL * BT * u);
+}
+
+__global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
+    const float* __restrict__ acts,    // (B, T, 4H) i, f, g, o
+    const float* __restrict__ cs,      // (B, T, H) cell states
+    const float* __restrict__ c0,      // (B, H)
+    const float* __restrict__ dys,     // (B, T, H) cotangent of h_t
+    const float* __restrict__ w_hh_t,  // (H, 4H)
+    const float* __restrict__ dhn,     // (B, H)
+    const float* __restrict__ dcn,     // (B, H)
+    float* __restrict__ dgates,        // (B, T, 4H)
+    float* __restrict__ dh0,           // (B, H)
+    float* __restrict__ dc0,           // (B, H)
+    int B, int T, int H) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int b0 = (blockIdx.x / CL) * BT;
+  const int U = H / CL;
+  const int NC = 4 * U;
+  const int tid = threadIdx.x;
+  const size_t G = 4 * (size_t)H;
+
+  extern __shared__ __align__(16) float smem[];
+  float* WsT = smem;              // [NC][H]: WsT[lc][k] = W_hh^T[k][col(lc)]
+  float* dg = WsT + NC * H;       // [NC][BT] this step's dgates slice
+  float* red = dg + NC * BT;      // [2][CL][BT][U] partial dh_carry slots
+  const int slot = BT * U;
+
+  for (int i = tid; i < H * NC; i += NT) {
+    const int k = i / NC, lc = i % NC;
+    const int g = lc / U, u = lc % U;
+    WsT[lc * H + k] = w_hh_t[(size_t)k * G + g * H + rank * U + u];
+  }
+  float dcreg[2] = {0.f, 0.f};
+  int own_r[2], own_u[2];
+  bool own_ok[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int p = tid + NT * j;
+    own_r[j] = p / U;
+    own_u[j] = p % U;
+    own_ok[j] = p < BT * U && b0 + own_r[j] < B;
+    if (own_ok[j])
+      dcreg[j] = dcn[(size_t)(b0 + own_r[j]) * H + rank * U + own_u[j]];
+  }
+  cluster.sync();  // every CTA of the cluster runs before remote writes
+
+  for (int t = T - 1; t >= 0; --t) {
+    const float* rd = red + ((t + 1) & 1) * CL * slot;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int p = tid + NT * j;
+      if (p >= BT * U) continue;
+      const int r = own_r[j], u = own_u[j];
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      if (own_ok[j]) {
+        const int b = b0 + r;
+        const int col = rank * U + u;
+        const size_t row = (size_t)b * T + t;
+        float dh = dys[row * H + col];
+        if (t == T - 1) {
+          dh += dhn[(size_t)b * H + col];
+        } else {
+#pragma unroll
+          for (int s = 0; s < CL; ++s) dh += rd[s * slot + r * U + u];
+        }
+        const float* a = acts + row * G + col;
+        const float ai = a[0], af = a[H], ag = a[2 * H], ao = a[3 * H];
+        const float c = cs[row * H + col];
+        const float cp = t > 0 ? cs[(row - 1) * H + col] : c0[(size_t)b * H + col];
+        const float tc = tanhf(c);
+        const float dc = dh * ao * (1.f - tc * tc) + dcreg[j];
+        d[0] = dc * ag * ai * (1.f - ai);
+        d[1] = dc * cp * af * (1.f - af);
+        d[2] = dc * ai * (1.f - ag * ag);
+        d[3] = dh * tc * ao * (1.f - ao);
+        dcreg[j] = dc * af;
+        float* o = dgates + row * G + col;
+        o[0] = d[0];
+        o[H] = d[1];
+        o[2 * H] = d[2];
+        o[3 * H] = d[3];
+      }
+#pragma unroll
+      for (int g = 0; g < 4; ++g) dg[(g * U + u) * BT + r] = d[g];
+    }
+    __syncthreads();
+
+    if (tid < H) {  // thread k: partial dh_carry[:, k] over this CTA's columns
+      float acc[BT];
+#pragma unroll
+      for (int r = 0; r < BT; ++r) acc[r] = 0.f;
+      for (int lc = 0; lc < NC; ++lc) {
+        const float w = WsT[lc * H + tid];
+        const float4* d4 = reinterpret_cast<const float4*>(dg + lc * BT);
+#pragma unroll
+        for (int q = 0; q < BT / 4; ++q) {
+          const float4 v = d4[q];
+          acc[4 * q] = fmaf(v.x, w, acc[4 * q]);
+          acc[4 * q + 1] = fmaf(v.y, w, acc[4 * q + 1]);
+          acc[4 * q + 2] = fmaf(v.z, w, acc[4 * q + 2]);
+          acc[4 * q + 3] = fmaf(v.w, w, acc[4 * q + 3]);
+        }
+      }
+      float* dst = cluster.map_shared_rank(red, tid / U) +
+                   ((t & 1) * CL + rank) * slot + tid % U;
+#pragma unroll
+      for (int r = 0; r < BT; ++r) dst[r * U] = acc[r];
+    }
+    cluster.sync();
+  }
+
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (!own_ok[j]) continue;
+    const int r = own_r[j], u = own_u[j];
+    float dh = 0.f;
+#pragma unroll
+    for (int s = 0; s < CL; ++s) dh += red[s * slot + r * U + u];
+    const size_t o = (size_t)(b0 + r) * H + rank * U + u;
+    dh0[o] = dh;
+    dc0[o] = dcreg[j];
+  }
+}
+
+// ---------------------------------------------------------------------
+// P[s, M, N] = sum over the rows r of split s of A'[r, :]^T B[r, :].
+// A' is A (R, M), or with shift_t > 0 the one-step-shifted trajectory:
+// row (b, t) of the (B, T = shift_t, M) array reads A[b, t-1], and h0[b]
+// at t = 0 (the h_{t-1} of every step). Tiles of 64 x 64, 16 rows deep.
+// ---------------------------------------------------------------------
+__global__ void __launch_bounds__(256) gemm_tn_partial_kernel(
+    const float* __restrict__ A, const float* __restrict__ h0,
+    const float* __restrict__ Bm, float* __restrict__ P, int R, int M,
+    int N, int rows_per_split, int shift_t) {
+  __shared__ __align__(16) float As[GM_BK][GM_BM];
+  __shared__ __align__(16) float Bs[GM_BK][GM_BN];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * GM_BM, n0 = blockIdx.x * GM_BN;
+  const int r_begin = blockIdx.z * rows_per_split;
+  const int r_end = min(R, r_begin + rows_per_split);
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int r0 = r_begin; r0 < r_end; r0 += GM_BK) {
+    for (int i = tid; i < GM_BK * GM_BM; i += 256) {
+      const int k = i / GM_BM, c = i % GM_BM;
+      const int gr = r0 + k, gm = m0 + c;
+      float v = 0.f;
+      if (gr < r_end && gm < M) {
+        if (shift_t > 0 && gr % shift_t == 0)
+          v = h0[(size_t)(gr / shift_t) * M + gm];
+        else if (shift_t > 0)
+          v = A[(size_t)(gr - 1) * M + gm];
+        else
+          v = A[(size_t)gr * M + gm];
+      }
+      As[k][c] = v;
+    }
+    for (int i = tid; i < GM_BK * GM_BN; i += 256) {
+      const int k = i / GM_BN, c = i % GM_BN;
+      const int gr = r0 + k, gn = n0 + c;
+      Bs[k][c] = (gr < r_end && gn < N) ? Bm[(size_t)gr * N + gn] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < GM_BK; ++kk) {
+      float a[4], w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = Bs[kk][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* out = P + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gm = m0 + ty * 4 + i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tx * 4 + j;
+      if (gn < N) out[(size_t)gm * N + gn] = acc[i][j];
+    }
+  }
+}
+
+// out[i] = sum over s of P[s, i]
+__global__ void __launch_bounds__(256) sum_splits_kernel(
+    const float* __restrict__ P, float* __restrict__ out, int splits,
+    size_t n) {
+  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int k = 0; k < splits; ++k) s += P[(size_t)k * n + i];
+  out[i] = s;
+}
+
+// P[s, n] = sum over the rows r of split s of a[r, n] * b[r, n] (b null: 1)
+__global__ void __launch_bounds__(256) colsum_partial_kernel(
+    const float* __restrict__ a, const float* __restrict__ b,
+    float* __restrict__ P, int R, int N, int rows_per_split) {
+  const int n = blockIdx.x * 256 + threadIdx.x;
+  if (n >= N) return;
+  const int r_begin = blockIdx.y * rows_per_split;
+  const int r_end = min(R, r_begin + rows_per_split);
+  float s = 0.f;
+  for (int r = r_begin; r < r_end; ++r) {
+    const float v = a[(size_t)r * N + n];
+    s += b ? v * b[(size_t)r * N + n] : v;
+  }
+  P[(size_t)blockIdx.y * N + n] = s;
+}
+
+// ---------------------------------------------------------------------
+// LayerNorm backward for out = LN(ra + rb) * g + beta, one warp per row:
+// dr = rstd * (g*dout - mean(g*dout) - xhat * mean(g*dout*xhat)); the
+// statistics are recomputed from ra + rb as the forward computed them.
+// Also writes xhat, for the scale gradient sum(dout * xhat).
+// ---------------------------------------------------------------------
+__global__ void __launch_bounds__(256) ln_bwd_kernel(
+    const float* __restrict__ dout, const float* __restrict__ ra,
+    const float* __restrict__ rb, const float* __restrict__ g,
+    float* __restrict__ dr, float* __restrict__ xhat, int rows, int H) {
+  constexpr int V = MAX_H / 32;
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const size_t base = (size_t)row * H;
+  float rv[V], dv[V];
+  float s = 0.f, ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int k = lane + 32 * i;
+    rv[i] = dv[i] = 0.f;
+    if (k < H) {
+      rv[i] = ra[base + k] + rb[base + k];
+      dv[i] = dout[base + k] * g[k];
+      s += rv[i];
+      ss += rv[i] * rv[i];
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  }
+  const float mu = s / H;
+  const float rstd = rsqrtf(ss / H - mu * mu + LN_EPS);
+  float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    if (lane + 32 * i < H) {
+      rv[i] = (rv[i] - mu) * rstd;
+      m1 += dv[i];
+      m2 += dv[i] * rv[i];
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    m1 += __shfl_xor_sync(0xffffffffu, m1, o);
+    m2 += __shfl_xor_sync(0xffffffffu, m2, o);
+  }
+  m1 /= H;
+  m2 /= H;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int k = lane + 32 * i;
+    if (k < H) {
+      dr[base + k] = rstd * (dv[i] - m1 - rv[i] * m2);
+      xhat[base + k] = rv[i];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// host helpers
+// ---------------------------------------------------------------------
+
+// out (M, N) = A'^T B over R rows (see gemm_tn_partial_kernel)
+int reduce_rows_tn(const float* A, const float* h0, int shift_t,
+                   const float* Bm, float* out, float* part, int R, int M,
+                   int N, cudaStream_t stream) {
+  const size_t mn = (size_t)M * N;
+  const int tiles = ((M + GM_BM - 1) / GM_BM) * ((N + GM_BN - 1) / GM_BN);
+  int splits = (SPLIT_TARGET_BLOCKS + tiles - 1) / tiles;
+  splits = (int)std::min<size_t>(splits, PART_FLOATS / mn);
+  splits = std::max(1, std::min(splits, (R + GM_BK - 1) / GM_BK));
+  int rps = (R + splits - 1) / splits;
+  rps = (rps + GM_BK - 1) / GM_BK * GM_BK;
+  splits = (R + rps - 1) / rps;
+  const dim3 grid((N + GM_BN - 1) / GM_BN, (M + GM_BM - 1) / GM_BM, splits);
+  gemm_tn_partial_kernel<<<grid, 256, 0, stream>>>(A, h0, Bm, part, R, M, N,
+                                                   rps, shift_t);
+  int err = check_launch();
+  if (err) return err;
+  sum_splits_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
+      part, out, splits, mn);
+  return check_launch();
+}
+
+// out[n] = sum over R rows of a[r, n] * b[r, n] (b null: 1)
+int colsum(const float* a, const float* b, float* out, float* cpart, int R,
+           int N, cudaStream_t stream) {
+  int splits = (int)std::min<size_t>(256, CPART_FLOATS / N);
+  splits = std::max(1, std::min(splits, R));
+  const int rps = (R + splits - 1) / splits;
+  splits = (R + rps - 1) / rps;
+  const dim3 grid((N + 255) / 256, splits);
+  colsum_partial_kernel<<<grid, 256, 0, stream>>>(a, b, cpart, R, N, rps);
+  int err = check_launch();
+  if (err) return err;
+  sum_splits_kernel<<<(N + 255) / 256, 256, 0, stream>>>(cpart, out, splits,
+                                                         (size_t)N);
+  return check_launch();
+}
+
+int ln_bwd(const float* dout, const float* ra, const float* rb,
+           const float* g, float* dr, float* xhat, size_t rows, int H,
+           cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((rows * 32 + 255) / 256);
+  ln_bwd_kernel<<<blocks, 256, 0, stream>>>(dout, ra, rb, g, dr, xhat,
+                                            (int)rows, H);
+  return check_launch();
+}
+
+// Backward of one LSTM layer (input projection + recurrence) from the
+// cotangent dys of its h trajectory ys: the reverse recurrence writes
+// dgates, then dW_ih^T = x^T dgates, dW_hh^T = h_prev^T dgates,
+// db = colsum(dgates) and dx = dgates @ W_ih (+ dx_add, may be null).
+int lstm_backward(const float* x, int din, const float* w_ih_t,
+                  const float* w_hh_t, const float* h0, const float* c0,
+                  const float* ys, const float* acts, const float* cs,
+                  const float* dys, const float* dhn, const float* dcn,
+                  const float* dx_add, float* dx, float* dwih, float* db,
+                  float* dwhh, float* dh0, float* dc0, float* dgates,
+                  float* part, float* cpart, int B, int T, int H,
+                  cudaStream_t stream) {
+  const int rows = B * T;
+  int err = launch_cluster(lstm_cluster_bwd_kernel, lstm_bwd_smem_bytes(H),
+                           B, stream, acts, cs, c0, dys, w_hh_t, dhn, dcn,
+                           dgates, dh0, dc0, B, T, H);
+  if (err) return err;
+  if ((err = reduce_rows_tn(x, nullptr, 0, dgates, dwih, part, rows, din,
+                            4 * H, stream)))
+    return err;
+  if ((err = reduce_rows_tn(ys, h0, T, dgates, dwhh, part, rows, H, 4 * H,
+                            stream)))
+    return err;
+  if ((err = colsum(dgates, nullptr, db, cpart, rows, 4 * H, stream)))
+    return err;
+  return gemm(dgates, w_ih_t, nullptr, dx_add, dx, rows, din, 4 * H, true,
+              stream);
+}
+
+}  // namespace

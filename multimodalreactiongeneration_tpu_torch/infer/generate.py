@@ -251,7 +251,20 @@ def generate_metaformer(
 
     fused_rollout: "auto" takes ``decode_rollout`` whenever the config
     is supported (bf16 and f32 caches alike); True requires it; False
-    runs the module step by step."""
+    runs the module step by step.
+
+    Decoding is deterministic, as the JAX decode: the model runs in eval
+    mode for the call, and its own mode is restored afterwards."""
+    was_training = model.training
+    model.eval()
+    try:
+        return _generate(model, batch_data, sampling_mask, cache_dtype,
+                         fused_rollout)
+    finally:
+        model.train(was_training)
+
+
+def _generate(model, batch_data, sampling_mask, cache_dtype, fused_rollout):
     cfg = model.cfg
     states, enc_a_steps, enc_mp_steps, ms, la, lm = _hoist_and_warmup(
         model, batch_data, cache_dtype

@@ -150,10 +150,6 @@ class Metaformer(nn.Module):
             interlayer_residual=cfg["interlayer_residual"],
             interlayer_residual_norm=cfg["interlayer_residual_norm"],
         )
-        # inference only until the training slice lands: no autograd graph
-        # is recorded through the decode path
-        self.requires_grad_(False)
-        self.eval()
         if device is not None:
             self.to(device)
 

@@ -19,7 +19,8 @@ rounded to bf16, products accumulate in f32, and the softmax weights are
 rounded to the stream's dtype before the context sum.
 
 The fused rect-attention route of the JAX ``attend`` (training only)
-is not ported: ``attend`` here is the plain path.
+is not ported yet: ``attend`` here is the plain path, as the JAX package
+runs it under MRGEN_FUSED_ATTN=0.
 """
 
 from __future__ import annotations
@@ -141,6 +142,9 @@ class TorchMHA(nn.Module):
         q = q.reshape(batch, q_len, h, dh).transpose(1, 2)
         k = k_proj.reshape(batch, k_len, h, dh).transpose(1, 2)
         v = v_proj.reshape(batch, k_len, h, dh).transpose(1, 2)
+        # the rect-attention kernels (K5/K6, JAX nn/attention.py:179-211,
+        # ops/pallas_rect_attention.py) dispatch here once ported, for
+        # rank-3 rect-causal | pad masks
         mask = _broadcast_mask(attn_mask, batch, h, q_len, k_len)
         ctx = scaled_dot_attention(q, k, v, mask)
         ctx = ctx.transpose(1, 2).reshape(batch, q_len, e)

@@ -26,15 +26,23 @@ from multimodalreactiongeneration_tpu_torch.nn.basic import (
     LayerNorm,
     set_nonlinearity,
 )
-from multimodalreactiongeneration_tpu_torch.nn.recurrent import TorchLSTM
+from multimodalreactiongeneration_tpu_torch.nn.recurrent import (
+    MIN_KERNEL_STEPS,
+    TorchLSTM,
+)
 from multimodalreactiongeneration_tpu_torch.ops.mixer_stack import (
-    mixer_stack_forward,
+    mixer_stack_recurrence,
 )
 
-# decode-sized sequences stay on the plain recurrence (the JAX package's
-# resolve_impl rule: under 16 steps the kernel's set-up costs more than
-# it saves)
-MIN_FUSED_STEPS = 16
+
+def _refuse_dropout(module: nn.Module) -> None:
+    """Dropout in training comes with a later slice; until then a mixer
+    that would apply it raises instead of silently skipping it."""
+    if module.dropout > 0 and module.training:
+        raise NotImplementedError(
+            f"{type(module).__name__}: dropout {module.dropout} in training "
+            "is not ported yet (use dropout 0.0, or eval mode)"
+        )
 
 
 def _residual_wrap(y, x, use_residual, norm):
@@ -193,6 +201,7 @@ class RecurrentMixerLayerd(nn.Module):
             ))
 
     def forward(self, x, hx: Optional[List[Any]] = None):
+        _refuse_dropout(self)
         fused = self._fused_stack(x, hx)
         if fused is not None:
             return fused
@@ -205,10 +214,12 @@ class RecurrentMixerLayerd(nn.Module):
         return x, new_states
 
     def _fused_stack(self, x, hx):
-        """Run the whole block stack through ``mixer_stack_forward`` (the
-        CUDA kernel on the card, its plain version on the CPU); returns
-        None to fall back to the per-block modules. Same gate as the JAX
-        package, less its TPU backend test."""
+        """Run the whole block stack through ``mixer_stack_recurrence``
+        (the CUDA kernels on the card, its plain version on the CPU;
+        differentiable in both); returns None to fall back to the
+        per-block modules. Same gate as the JAX package, less its TPU
+        backend test and its dropout term (``forward`` has already
+        refused dropout in training)."""
         if not (
             self.kind == "lstm"
             and self.num_internal_layer == 1
@@ -218,9 +229,8 @@ class RecurrentMixerLayerd(nn.Module):
             and self.residual_layer_norm
             and set_nonlinearity(self.nonlinearity) is None
             and self.use_bias
-            and (self.dropout == 0 or not self.training)
             and x.shape[-1] == self.hidden_size
-            and x.shape[1] >= MIN_FUSED_STEPS
+            and x.shape[1] >= MIN_KERNEL_STEPS
         ):
             return None
         blocks = [getattr(self, f"block_{i}") for i in range(self.num_layerd)]
@@ -244,7 +254,7 @@ class RecurrentMixerLayerd(nn.Module):
         else:
             h0 = torch.cat([p[0] for p in hx]).float().contiguous()
             c0 = torch.cat([p[1] for p in hx]).float().contiguous()
-        y, (hn, cn) = mixer_stack_forward(
+        y, (hn, cn) = mixer_stack_recurrence(
             x.float().contiguous(), w_ih_t, b_g, w_hh_t, w_ff, b_ff,
             g1, b1, g2, b2, h0, c0,
         )
@@ -275,6 +285,7 @@ class MHAMixerLayerd(nn.Module):
         super().__init__()
         self.self_attention = self_attention
         self.num_layerd = num_layerd
+        self.dropout = dropout
         for i in range(num_layerd):
             setattr(self, f"block_{i}", MHAMixerBlock(
                 hidden_size, generator, num_layers=num_internal_layer,
@@ -292,6 +303,7 @@ class MHAMixerLayerd(nn.Module):
         attn_mask: Optional[torch.Tensor] = None,
         shared_raw: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ):
+        _refuse_dropout(self)
         query = x
         if self.self_attention:
             if shared_raw is not None:

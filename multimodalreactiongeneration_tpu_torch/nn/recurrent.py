@@ -1,15 +1,21 @@
-"""LSTM with torch-layout parameters, as a plain recurrence.
+"""LSTM with torch-layout parameters.
 
 Counterpart of ``TorchLSTM`` in ``multimodalreactiongeneration_tpu/
-nn/recurrent.py`` on its scan path (``_lstm_scan``): the input
-projection for the whole sequence is one matmul, only h @ W_hh^T runs
-inside the time loop. Gate order i, f, g, o; bias b_ih + b_hh.
+nn/recurrent.py``. Gate order i, f, g, o; bias b_ih + b_hh. Dispatch, as
+the JAX package's (``resolve_impl`` and the ``lstm_layer`` gate of
+``TorchLSTM``):
+
+  * under ``MIN_KERNEL_STEPS`` steps (the AR-decode embeddings): the
+    plain recurrence on every device;
+  * from there on, with input and hidden sizes multiples of 128:
+    ``ops/lstm_layer.py lstm_layer`` (the kernels on CUDA, the plain
+    version on CPU);
+  * other sizes: the plain recurrence on CPU; on CUDA they need the
+    ``lstm_recurrence`` kernels, which are not ported yet, so they raise.
 
 Only the single-layer unidirectional LSTM is ported (every LSTM of the
-Metaformer decode path is one). The stacked, bidirectional and GRU
-forms, and their kernel dispatch points, come with the models that use
-them. Decode-sized sequences stay on this recurrence on every device,
-as in the JAX package (``resolve_impl``: under 16 steps, the scan).
+Metaformer is one). The stacked, bidirectional and GRU forms come with
+the models that use them.
 """
 
 from __future__ import annotations
@@ -20,30 +26,32 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from multimodalreactiongeneration_tpu_torch.ops.lstm_layer import (
+    lstm_layer,
+    lstm_layer_reference,
+)
+
 LSTMState = Tuple[torch.Tensor, torch.Tensor]
 
+# under 16 steps a kernel's set-up costs more than it saves
+MIN_KERNEL_STEPS = 16
 
-def lstm_recurrence(
-    x: torch.Tensor,
-    h0: torch.Tensor,
-    c0: torch.Tensor,
-    w_ih: torch.Tensor,
-    w_hh: torch.Tensor,
-    b_ih: torch.Tensor,
-    b_hh: torch.Tensor,
-) -> Tuple[torch.Tensor, LSTMState]:
-    """(B, T, I) single-direction LSTM; returns (ys (B, T, H), (h, c))."""
-    xw = x @ w_ih.T + b_ih + b_hh
-    w_hh_t = w_hh.T
-    h, c = h0, c0
-    ys = []
-    for t in range(x.shape[1]):
-        gates = xw[:, t] + h @ w_hh_t
-        i, f, g, o = gates.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
-        ys.append(h)
-    return torch.stack(ys, dim=1), (h, c)
+
+def use_lstm_layer(device_type: str, steps: int, din: int,
+                   hidden: int) -> bool:
+    """True where the JAX package runs ``lstm_layer``; raises where it
+    runs a kernel the port does not have yet."""
+    if steps < MIN_KERNEL_STEPS:
+        return False
+    if din % 128 == 0 and hidden % 128 == 0:
+        return True
+    if device_type == "cuda":
+        raise NotImplementedError(
+            f"an LSTM of input {din}, hidden {hidden} over {steps} steps "
+            "needs the lstm_recurrence kernels (K8, ops/pallas_lstm.py:702 "
+            "of the JAX package), which are not ported yet"
+        )
+    return False
 
 
 class TorchLSTM(nn.Module):
@@ -75,8 +83,14 @@ class TorchLSTM(nn.Module):
         if hx is None:
             zeros = x.new_zeros(1, x.shape[0], self.hidden_size)
             hx = (zeros, zeros)
-        ys, (h, c) = lstm_recurrence(
-            x, hx[0][0], hx[1][0], self.weight_ih_l0, self.weight_hh_l0,
-            self.bias_ih_l0, self.bias_hh_l0,
-        )
+        args = (self.weight_ih_l0.T, self.bias_ih_l0 + self.bias_hh_l0,
+                self.weight_hh_l0.T)
+        if use_lstm_layer(x.device.type, x.shape[1], x.shape[-1],
+                          self.hidden_size):
+            ys, (h, c) = lstm_layer(
+                x.float().contiguous(), *[a.contiguous() for a in args],
+                hx[0][0].float().contiguous(), hx[1][0].float().contiguous(),
+            )
+        else:
+            ys, (h, c) = lstm_layer_reference(x, *args, hx[0][0], hx[1][0])
         return ys, (h[None], c[None])

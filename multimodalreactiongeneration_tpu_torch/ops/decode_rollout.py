@@ -272,6 +272,13 @@ def decode_rollout(
             gt_emb, mask_f)
     kw = dict(heads=heads, ratio=ratio, len_a0=len_a0, len_m0=len_m0,
               bud_m=bud_m)
+    tensors = [*args[1:], *(v for v in folded.values()
+                            if isinstance(v, torch.Tensor))]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "decode_rollout has no backward; call it under torch.no_grad() "
+            "or on tensors that do not require grad"
+        )
     if ca0.device.type == "cpu":
         return decode_rollout_reference(*args, **kw)
     if ca0.device.type != "cuda":

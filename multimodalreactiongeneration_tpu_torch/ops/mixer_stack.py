@@ -1,15 +1,20 @@
-"""Recurrent-mixer block stack, forward: CUDA kernel and plain version.
+"""Recurrent-mixer block stack: CUDA kernels, autograd and plain version.
 
 Counterpart of ``mixer_stack_recurrence`` in ``multimodalreactiongeneration
-_tpu/ops/pallas_mixer_stack.py`` (its primal, the light forward), with
-the same signature and layouts. Each of the L blocks computes
-LSTM -> +x -> LayerNorm -> Dense(H->H) -> +res -> LayerNorm; the stack
-returns the top block's output and every block's final (h, c).
+_tpu/ops/pallas_mixer_stack.py``, with the same signature and layouts.
+Each of the L blocks computes LSTM -> +x -> LayerNorm -> Dense(H->H) ->
++res -> LayerNorm; the stack returns the top block's output and every
+block's final (h, c).
 
-``mixer_stack_forward`` launches ``csrc/mixer_stack.cu`` for CUDA
-tensors (f32 only; the kernel's design is in its source note) and runs
-``mixer_stack_forward_reference`` for CPU tensors. ``launches`` counts
-kernel launches.
+``mixer_stack_recurrence`` is the entry point. On CPU tensors it runs
+``mixer_stack_forward_reference`` (autograd records through it). On CUDA
+tensors, where a gradient is needed, the autograd function runs the
+training forward (``mixer_stack_train_forward``, which stores residuals)
+and the backward kernel (``mixer_stack_backward``); otherwise the
+inference forward (``mixer_stack_forward``). All three launch
+``csrc/mixer_stack.cu`` (f32 only; the design is in its source note).
+Launch counters: ``launches`` (inference forward), ``train_fwd_launches``
+and ``bwd_launches``.
 """
 
 from __future__ import annotations
@@ -19,11 +24,16 @@ from typing import Tuple
 
 import torch
 
+from multimodalreactiongeneration_tpu_torch import _build
 from multimodalreactiongeneration_tpu_torch.nn.basic import layer_norm
 
 launches = 0
+train_fwd_launches = 0
+bwd_launches = 0
 
 _MAX_H = 256
+_P = ctypes.c_void_p
+_I = ctypes.c_int
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -34,7 +44,7 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def mixer_stack_forward_reference(
     x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2, h0, c0
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Plain PyTorch version; arguments as ``mixer_stack_forward``."""
+    """Plain PyTorch version; arguments as ``mixer_stack_recurrence``."""
     x = x0.float()
     hn, cn = [], []
     for l in range(w_hh_t.shape[0]):
@@ -54,19 +64,75 @@ def mixer_stack_forward_reference(
     return x, (torch.stack(hn), torch.stack(cn))
 
 
-def _lib():
-    from multimodalreactiongeneration_tpu_torch import _build
+def mixer_stack_backward_reference(args, dout, dhn, dcn, closure=False):
+    """Plain backward: ``torch.autograd.grad`` through the plain forward.
+    Returns the twelve input gradients, in argument order; with
+    ``closure=True``, a function that computes them again and again from
+    the graph recorded once, so the backward can be timed alone."""
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_() for a in args]
+        out, (hn, cn) = mixer_stack_forward_reference(*leaves)
 
+    def grads():
+        return torch.autograd.grad((out, hn, cn), leaves, (dout, dhn, dcn),
+                                   retain_graph=closure)
+    return grads if closure else grads()
+
+
+def _lib():
     lib = _build.load("mixer_stack")
     if not getattr(lib, "_typed", False):
-        lib.mixer_stack_forward_f32.argtypes = (
-            [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        )
-        lib.mixer_stack_forward_f32.restype = ctypes.c_int
-        lib.mixer_stack_workspace_floats.argtypes = [ctypes.c_int] * 3
-        lib.mixer_stack_workspace_floats.restype = ctypes.c_longlong
+        for name in ("mixer_stack_workspace_floats",
+                     "mixer_stack_train_workspace_floats",
+                     "mixer_stack_backward_workspace_floats"):
+            getattr(lib, name).argtypes = [_I] * 3
+            getattr(lib, name).restype = ctypes.c_longlong
+        lib.mixer_stack_residual_floats.argtypes = [_I] * 4
+        lib.mixer_stack_residual_floats.restype = ctypes.c_longlong
+        lib.mixer_stack_forward_f32.argtypes = [_P] * 16 + [_I] * 4 + [_P]
+        lib.mixer_stack_train_forward_f32.argtypes = (
+            [_P] * 17 + [_I] * 4 + [_P])
+        lib.mixer_stack_backward_f32.argtypes = [_P] * 25 + [_I] * 4 + [_P]
+        for name in ("mixer_stack_forward_f32",
+                     "mixer_stack_train_forward_f32",
+                     "mixer_stack_backward_f32"):
+            getattr(lib, name).restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def _check_args(name, args):
+    """The kernels' contract: contiguous f32 on one CUDA device, shapes as
+    ``mixer_stack_recurrence`` documents, H 128 or 256."""
+    x0, w_hh_t = args[0], args[3]
+    if x0.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {x0.device}")
+    b, t, h = x0.shape
+    nl = w_hh_t.shape[0]
+    shapes = (
+        (b, t, h), (nl, h, 4 * h), (nl, 4 * h), (nl, h, 4 * h), (nl, h, h),
+        (nl, h), (nl, h), (nl, h), (nl, h), (nl, h), (nl, b, h), (nl, b, h),
+    )
+    for a, shape in zip(args, shapes):
+        if a.device != x0.device or a.dtype != torch.float32:
+            raise ValueError(
+                f"{name} kernel takes f32 tensors on one CUDA device; got "
+                f"{a.dtype} on {a.device}"
+            )
+        if tuple(a.shape) != shape or not a.is_contiguous():
+            raise ValueError(
+                f"{name}: expected contiguous {shape}, got {tuple(a.shape)} "
+                f"(contiguous={a.is_contiguous()})"
+            )
+    if h % 128 or h > _MAX_H:
+        raise ValueError(
+            f"{name} kernel takes H a multiple of 128 up to {_MAX_H}; got {h}"
+        )
+    return b, t, h, nl
+
+
+def _empty(n, like):
+    return torch.empty(n, dtype=torch.float32, device=like.device)
 
 
 def mixer_stack_forward(
@@ -80,51 +146,100 @@ def mixer_stack_forward(
     g2: torch.Tensor, b2: torch.Tensor,  # (L, H) feed_forward LN
     h0: torch.Tensor, c0: torch.Tensor,  # (L, B, H) f32
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Returns (out_top (B, T, H), (h_n (L, B, H), c_n (L, B, H)))."""
+    """The inference forward. Returns (out_top (B, T, H), (h_n (L, B, H),
+    c_n (L, B, H))). It records no autograd graph, so it refuses inputs
+    that need a gradient (``mixer_stack_recurrence`` takes those)."""
     args = (x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2, h0, c0)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        raise RuntimeError(
+            "mixer_stack_forward records no gradient; call "
+            "mixer_stack_recurrence for inputs that require grad"
+        )
     if x0.device.type == "cpu":
         return mixer_stack_forward_reference(*args)
-    if x0.device.type != "cuda":
-        raise ValueError(f"mixer_stack_forward: no kernel for {x0.device}")
-    b, t, h = x0.shape
-    nl = w_hh_t.shape[0]
-    shapes = (
-        (b, t, h), (nl, h, 4 * h), (nl, 4 * h), (nl, h, 4 * h), (nl, h, h),
-        (nl, h), (nl, h), (nl, h), (nl, h), (nl, h), (nl, b, h), (nl, b, h),
-    )
-    for a, shape in zip(args, shapes):
-        if a.device != x0.device or a.dtype != torch.float32:
-            raise ValueError(
-                "mixer_stack_forward kernel takes f32 tensors on one CUDA "
-                f"device; got {a.dtype} on {a.device}"
-            )
-        if tuple(a.shape) != shape or not a.is_contiguous():
-            raise ValueError(
-                f"mixer_stack_forward: expected contiguous {shape}, got "
-                f"{tuple(a.shape)} (contiguous={a.is_contiguous()})"
-            )
-    if h % 64 or h > _MAX_H:
-        raise ValueError(
-            f"mixer_stack_forward kernel takes H a multiple of 64 up to "
-            f"{_MAX_H}; got {h}"
-        )
+    b, t, h, nl = _check_args("mixer_stack_forward", args)
     lib = _lib()
     out = torch.empty_like(x0)
     hn = torch.empty_like(h0)
     cn = torch.empty_like(c0)
-    ws = torch.empty(
-        lib.mixer_stack_workspace_floats(b, t, h),
-        dtype=torch.float32, device=x0.device,
-    )
-    stream = torch.cuda.current_stream(x0.device).cuda_stream
-    with torch.cuda.device(x0.device):
-        rc = lib.mixer_stack_forward_f32(
-            *[a.data_ptr() for a in args],
-            out.data_ptr(), hn.data_ptr(), cn.data_ptr(), ws.data_ptr(),
-            b, t, h, nl, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"mixer_stack kernel launch failed: CUDA error {rc}")
+    ws = _empty(lib.mixer_stack_workspace_floats(b, t, h), x0)
+    _build.launch(lib.mixer_stack_forward_f32, *args, out, hn, cn, ws,
+                  dims=(b, t, h, nl))
     global launches
     launches += 1
     return out, (hn, cn)
+
+
+def mixer_stack_train_forward(*args):
+    """The training forward kernel (CUDA only): returns (out, hn, cn,
+    res), ``res`` the flat residual buffer ``mixer_stack_backward``
+    reads."""
+    b, t, h, nl = _check_args("mixer_stack_train_forward", args)
+    x0, h0 = args[0], args[10]
+    lib = _lib()
+    out = torch.empty_like(x0)
+    hn = torch.empty_like(h0)
+    cn = torch.empty_like(h0)
+    res = _empty(lib.mixer_stack_residual_floats(b, t, h, nl), x0)
+    ws = _empty(lib.mixer_stack_train_workspace_floats(b, t, h), x0)
+    _build.launch(lib.mixer_stack_train_forward_f32, *args, out, hn, cn,
+                  res, ws, dims=(b, t, h, nl))
+    global train_fwd_launches
+    train_fwd_launches += 1
+    return out, hn, cn, res
+
+
+def mixer_stack_backward(args, res, dout, dhn, dcn):
+    """The backward kernel (CUDA only), from the training forward's
+    residuals. Returns the twelve input gradients, in argument order."""
+    b, t, h, nl = _check_args("mixer_stack_backward", args)
+    x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2, h0, c0 = args
+    cots = [c.float().contiguous() for c in (dout, dhn, dcn)]
+    for c, like in zip(cots, (x0, h0, c0)):
+        if c.shape != like.shape or c.device != like.device:
+            raise ValueError(
+                f"mixer_stack_backward: cotangent {tuple(c.shape)} on "
+                f"{c.device} for {tuple(like.shape)} on {like.device}")
+    grads = [torch.empty_like(a) for a in (
+        x0, h0, c0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2)]
+    lib = _lib()
+    ws = _empty(lib.mixer_stack_backward_workspace_floats(b, t, h), x0)
+    _build.launch(lib.mixer_stack_backward_f32, x0, w_ih_t, w_hh_t, w_ff, g1,
+                  g2, h0, c0, res, *cots, *grads, ws, dims=(b, t, h, nl))
+    global bwd_launches
+    bwd_launches += 1
+    dx0, dh0, dc0, dwih, dbg, dwhh, dwff, dbff, dg1, db1, dg2, db2 = grads
+    return (dx0, dwih, dbg, dwhh, dwff, dbff, dg1, db1, dg2, db2, dh0, dc0)
+
+
+class _MixerStack(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *args):
+        out, hn, cn, res = mixer_stack_train_forward(*args)
+        ctx.save_for_backward(*args, res)
+        return out, hn, cn
+
+    @staticmethod
+    def backward(ctx, dout, dhn, dcn):
+        *args, res = ctx.saved_tensors
+        dout, dhn, dcn = (
+            torch.zeros_like(like) if c is None else c
+            for c, like in zip((dout, dhn, dcn), (args[0], args[10], args[11]))
+        )
+        return mixer_stack_backward(args, res, dout, dhn, dcn)
+
+
+def mixer_stack_recurrence(
+    x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2, h0, c0
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The stack, differentiable: arguments and result as
+    ``mixer_stack_forward``. CPU tensors take the plain version; CUDA
+    tensors the kernels (training forward and backward where a gradient
+    is needed, the inference forward otherwise)."""
+    args = (x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2, h0, c0)
+    if x0.device.type == "cpu":
+        return mixer_stack_forward_reference(*args)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        out, hn, cn = _MixerStack.apply(*args)
+        return out, (hn, cn)
+    return mixer_stack_forward(*args)

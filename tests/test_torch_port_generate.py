@@ -129,6 +129,24 @@ def test_forced_fused_rollout_outside_contract_raises(models):
         _port(pm, batch, np.ones(STEPS, bool), fused_rollout=True)
 
 
+def test_decode_is_deterministic_in_any_mode(models, jax_outputs):
+    """A freshly built model is in training mode; with dropout above 0
+    its mixers refuse to run there. Decode runs in eval mode, as the JAX
+    decode is always deterministic, and leaves the model's mode as it
+    found it."""
+    _, _, pm, batch = models
+    from multimodalreactiongeneration_tpu_torch.models.lstmformer import (
+        Metaformer,
+    )
+
+    drop = Metaformer(dict(MF_CFG, dropout=0.1))
+    drop.load_state_dict(pm.state_dict(), strict=True)
+    assert drop.training
+    got = _port(drop, batch, np.zeros(STEPS, bool), cache_dtype=torch.float32)
+    assert drop.training
+    np.testing.assert_allclose(got, jax_outputs["teacher"], atol=2e-5)
+
+
 def test_scheduled_mask_from_torch_generator():
     g = torch.Generator().manual_seed(3)
     m = G.sampling_mask_for(1000, "scheduled", generator=g, rate=0.3)

@@ -96,3 +96,109 @@ def test_decode_rollout_kernel_matches_plain(dev, batch, mode):
         assert K2.launches == before + (batch + 15) // 16
         want = K2.decode_rollout_reference(*args, **kw)
     assert float((got - want).abs().max()) <= TOL
+
+
+def _rand(rng, dev):
+    def r(*shape, s=1.0, mean=0.0):
+        x = mean + s * rng.standard_normal(shape)
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+    return r
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+GRAD_REL_TOL = 1e-3  # max|kernel - plain| / max|plain| (split-K sums)
+
+
+@pytest.mark.parametrize("b,t,h,layers", [(16, 40, 256, 3), (20, 33, 128, 2)])
+def test_mixer_stack_train_kernels_match_plain(dev, b, t, h, layers):
+    r = _rand(np.random.default_rng(b * t + h), dev)
+    n = layers
+    args = (r(b, t, h), r(n, h, 4 * h, s=0.06), r(n, 4 * h, s=0.06),
+            r(n, h, 4 * h, s=0.06), r(n, h, h, s=0.06), r(n, h, s=0.1),
+            r(n, h, s=0.1, mean=1.0), r(n, h, s=0.1),
+            r(n, h, s=0.1, mean=1.0), r(n, h, s=0.1),
+            r(n, b, h, s=0.3), r(n, b, h, s=0.3))
+    cots = (r(b, t, h), r(n, b, h), r(n, b, h))
+    leaves = [a.clone().requires_grad_() for a in args]
+    counts = K1.launches, K1.train_fwd_launches, K1.bwd_launches
+    y, (hn, cn) = K1.mixer_stack_recurrence(*leaves)
+    grads = torch.autograd.grad((y, hn, cn), leaves, cots)
+    torch.cuda.synchronize()
+    assert (K1.launches, K1.train_fwd_launches, K1.bwd_launches) == (
+        counts[0], counts[1] + 1, counts[2] + 1)
+    yr, (hr, cr) = K1.mixer_stack_forward_reference(*args)
+    for got, want in ((y, yr), (hn, hr), (cn, cr)):
+        assert float((got.detach() - want).abs().max()) <= TOL
+    want = K1.mixer_stack_backward_reference(args, *cots)
+    for i, (g, w) in enumerate(zip(grads, want)):
+        assert float(w.abs().max()) > 0, i
+        assert _rel_err(g, w) <= GRAD_REL_TOL, i
+
+
+def test_mixer_stack_recurrence_without_grad_runs_inference_kernel(dev):
+    r = _rand(np.random.default_rng(3), dev)
+    b, t, h, n = 4, 20, 128, 2
+    args = (r(b, t, h), *[r(n, h, 4 * h, s=0.06), r(n, 4 * h, s=0.06),
+                          r(n, h, 4 * h, s=0.06), r(n, h, h, s=0.06)],
+            *[r(n, h, s=0.1) for _ in range(5)], r(n, b, h), r(n, b, h))
+    before = K1.launches, K1.train_fwd_launches
+    K1.mixer_stack_recurrence(*args)
+    assert (K1.launches, K1.train_fwd_launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("b,t,din,h", [(16, 40, 256, 256), (5, 17, 128, 128)])
+def test_lstm_layer_kernels_match_plain(dev, b, t, din, h):
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_layer as K7
+
+    r = _rand(np.random.default_rng(b * t + din), dev)
+    args = (r(b, t, din), r(din, 4 * h, s=0.06), r(4 * h, s=0.06),
+            r(h, 4 * h, s=0.06), r(b, h, s=0.3), r(b, h, s=0.3))
+    cots = (r(b, t, h), r(b, h), r(b, h))
+    ysr, (hr, cr) = K7.lstm_layer_reference(*args)
+    before = K7.fwd_launches, K7.bwd_launches
+    ys, (hn, cn) = K7.lstm_layer(*args)  # no grad needed: no residuals
+    for got, want in ((ys, ysr), (hn, hr), (cn, cr)):
+        assert float((got.detach() - want).abs().max()) <= TOL
+    leaves = [a.clone().requires_grad_() for a in args]
+    ys, (hn, cn) = K7.lstm_layer(*leaves)
+    grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
+    torch.cuda.synchronize()
+    assert (K7.fwd_launches, K7.bwd_launches) == (before[0] + 2,
+                                                  before[1] + 1)
+    for got, want in ((ys, ysr), (hn, hr), (cn, cr)):
+        assert float((got.detach() - want).abs().max()) <= TOL
+    want = K7.lstm_layer_backward_reference(args, *cots)
+    for i, (g, w) in enumerate(zip(grads, want)):
+        assert _rel_err(g, w) <= GRAD_REL_TOL, i
+
+
+def test_training_kernels_refuse_bf16_and_off_gate_shapes(dev):
+    from multimodalreactiongeneration_tpu_torch.nn.recurrent import (
+        use_lstm_layer,
+    )
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_layer as K7
+
+    b, t = 2, 16
+    for h, dt, match in ((256, torch.bfloat16, "f32"),
+                         (64, torch.float32, "multiple of 128")):
+        w = torch.zeros(h, 4 * h, device=dev, dtype=dt)
+        s = torch.zeros(b, h, device=dev)
+        with pytest.raises(ValueError, match=match):
+            K7.lstm_layer(torch.zeros(b, t, h, device=dev, dtype=dt), w,
+                          torch.zeros(4 * h, device=dev), w, s, s)
+        args = (torch.zeros(b, t, h, device=dev, dtype=dt),
+                w[None].requires_grad_(), torch.zeros(1, 4 * h, device=dev),
+                w[None], torch.zeros(1, h, h, device=dev),
+                *[torch.zeros(1, h, device=dev)] * 5,
+                torch.zeros(1, b, h, device=dev),
+                torch.zeros(1, b, h, device=dev))
+        with pytest.raises(ValueError, match=match):
+            K1.mixer_stack_recurrence(*args)  # K3/K4
+        with torch.no_grad(), pytest.raises(ValueError, match=match):
+            K1.mixer_stack_recurrence(*args)  # K1
+    with pytest.raises(NotImplementedError, match="lstm_recurrence"):
+        use_lstm_layer("cuda", 16, 18, 256)
