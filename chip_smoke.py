@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two main paths with the flagship Metaformer at full
+Drives the port's three main paths with the flagship Metaformer at full
 width (``configs.LSTMFORMER_MODEL_CFG``: hidden 256, 5 blocks, encoders
 of 5 mixer blocks, 4 heads, 10 s context) on random weights from a
-seeded generator: offline AR generation, and the training step. Phases:
+seeded generator: offline AR generation, the training step, and the
+training CLI. Phases:
 
   0. device: name and power limit; TF32 off;
   1. build every CUDA kernel library from csrc/, one nvcc each, all
@@ -28,27 +29,44 @@ seeded generator: offline AR generation, and the training step. Phases:
      out, hn, cn <= 1e-4 abs; each of the twelve gradients
      max|kernel - plain| / max|plain| <= 1e-3;
   6. LSTM-layer forward (K7, with and without residuals) and backward vs
-     plain at B32 x T252 x din 256 x H256, the same bounds;
-  7. training main path: ``train.harness.streaming_step_fns`` at B32 x
+     plain at B32 x T252 x din 256 x H256, the same bounds; cuDNN's
+     ``torch.nn.LSTM`` with the same weights timed as a yardstick;
+  7. rect-attention forward (K5) and backward (K6) vs plain at B32, Lq
+     252, Lk 2016 and 252, E 256, 4 heads, 10% padded rows and keys: the
+     same bounds; ``scaled_dot_product_attention`` with the boolean mask
+     timed as a yardstick (forward, and its backward through autograd);
+  8. training main path: ``train.harness.streaming_step_fns`` at B32 x
      T240 (lead 12), AdamW lr 1e-4, weight decay 1e-2: one warm-up
-     step, 5 timed steps (ms per step, trained frames/s), launch counts
-     per step (K3 +2, K4 +2, K7 forward +5, K7 backward +5, K1 and K2
-     +0), finite losses; one eval step (K1 +2, K7 forward +5); one more
-     training step under ``torch.profiler``: the device's busy share
-     goes into the ``train_step`` record, and the table of kernels by
-     device time into ``_build/profile_train_step.txt`` of the package;
-     then one SGD step (lr 1e-2, momentum 0.9) at B2 x T48 on the card
-     and on CPU tensors from the same weights and batch: loss within
-     1e-5 relative, every parameter gradient within 1e-3 of its largest
-     magnitude (floored at 1e-4 of the largest gradient of all: the
-     k-projection biases' gradients are zero in exact arithmetic).
+     step, 5 timed steps (ms per step, trained frames/s, peak memory),
+     launch counts per step (K5 +10, K6 +10, K3 +2, K4 +2, K7 forward
+     +5, K7 backward +5, K1 and K2 +0), finite losses; one eval step
+     (K5 +10, K1 +2, K7 forward +5); one more training step under
+     ``torch.profiler``: the device's busy share goes into the
+     ``train_step`` record, and the table of kernels by device time into
+     ``_build/profile_train_step.txt`` of the package; then one SGD step
+     (lr 1e-2, momentum 0.9) at B2 x T48 on the card and on CPU tensors
+     from the same weights and batch: loss within 1e-5 relative, every
+     parameter gradient within 1e-3 of its largest magnitude (floored at
+     1e-4 of the largest gradient of all: the k-projection biases'
+     gradients are zero in exact arithmetic);
+  9. training CLI: ``train.cli.main`` with ``configs/lstmformer.yaml``'s
+     own settings at batch 32 on a corpus this script writes (4 sessions
+     x 540 s, 2,160 s of audio per channel: 108 training and 13
+     validation windows of 10 s), one epoch, then one epoch resumed from
+     ``last``: finite train, val and generation losses, V/T/G
+     checkpoints and ``last``, the epoch records, and the launches of
+     every kernel (K5, K6, K3, K4, K7 per train step; K5, K1, K7 and a
+     generation's K1 and K2 per validation batch).
 
+Every kernel's JSON record carries its bound: the larger of its FP32
+operations at 67 TFLOP/s and its bytes at 3.35 TB/s (H100 SXM, 700 W).
 Any failure raises. The last lines are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Run from the repository root: ``python3 chip_smoke.py``.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -62,7 +80,8 @@ SEED = 0
 K1_TOL, K2_F32_TOL, K2_BF16_TOL, PATH_TOL = 1e-4, 1e-4, 5e-2, 1e-4
 FWD_TOL, GRAD_REL_TOL, LOSS_REL_TOL = 1e-4, 1e-3, 1e-5
 TRAIN_B, TRAIN_FRAMES, TRAIN_STEPS = 32, 240, 5
-LIBS = ("mixer_stack", "decode_rollout", "lstm_layer")
+CORPUS_SESSIONS, CORPUS_SECONDS = 4, 540.0
+LIBS = ("mixer_stack", "decode_rollout", "lstm_layer", "rect_attention")
 SRC = "multimodalreactiongeneration_tpu_torch/csrc/"
 JAX_OPS = "multimodalreactiongeneration_tpu/ops/"
 
@@ -117,16 +136,16 @@ COUNTERS = {  # kernel name -> (module key, counter attribute)
     "mixer_stack_bwd": ("K1", "bwd_launches"),
     "lstm_layer_fwd": ("K7", "fwd_launches"),
     "lstm_layer_bwd": ("K7", "bwd_launches"),
+    "rect_attention_fwd": ("K5", "fwd_launches"),
+    "rect_attention_bwd": ("K5", "bwd_launches"),
 }
 
 
-def counts(K1, K2, K7):
-    mods = {"K1": K1, "K2": K2, "K7": K7}
+def counts(mods):
     return {k: getattr(mods[m], a) for k, (m, a) in COUNTERS.items()}
 
 
-def zero_counts(K1, K2, K7):
-    mods = {"K1": K1, "K2": K2, "K7": K7}
+def zero_counts(mods):
     for m, a in COUNTERS.values():
         setattr(mods[m], a, 0)
 
@@ -151,6 +170,42 @@ def seeded(rng, dev):
 def rel_err(got, want):
     return max(float((g - w).abs().max()) / float(w.abs().max())
                for g, w in zip(got, want))
+
+
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): FP32 outside the tensor
+# cores, and HBM3
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+
+
+def nbytes(*objs):
+    """Bytes of every tensor in ``objs`` (nested tuples, lists, dicts)."""
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, dict):
+            total += nbytes(*o.values())
+        elif isinstance(o, (list, tuple)):
+            total += nbytes(*o)
+    return total
+
+
+def bound(flops, bytes_):
+    """(ms, "operations" or "bytes"): the least time the card could take,
+    the larger of the FP32 operations at 67 TFLOP/s and the bytes (each
+    input read once, each output written once) at 3.35 TB/s."""
+    t_ops = flops / PEAK_FLOPS * 1e3
+    t_bytes = bytes_ / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def matmul_flops(fn):
+    """FLOPs of the matrix products ``fn`` runs (torch's flop counter)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return counter.get_total_flops()
 
 
 def check_case(name, fwd_err, grad_rel, **kv):
@@ -191,17 +246,24 @@ def train_kernel_phase(K1, dev, rng):
         grad_err = max_err(grads, want)
         grad_rel = rel_err(grads, want)
         # kernel times, each launch on its own
-        fwd_ms, (_, _, _, res) = cuda_ms(
+        fwd_ms, fwd_out = cuda_ms(
             lambda: K1.mixer_stack_train_forward(*args), 3)
+        res = fwd_out[3]
         bwd_ms, _ = cuda_ms(lambda: K1.mixer_stack_backward(args, res, *cots), 3)
-        del res
+        # matmul FLOPs per block: x.W_ih and h.W_hh (8 B T H^2 each), the
+        # Dense (2 B T H^2); the backward doubles each product
+        fwd_bound = bound(18 * n * b * t * h * h, nbytes(args, fwd_out))
+        bwd_bound = bound(36 * n * b * t * h * h,
+                          nbytes(args, res, cots, grads))
+        del res, fwd_out
         check_case("mixer_stack_train", fwd_err, grad_rel, T=t,
                    fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms, bwd_ms=bwd_ms,
                    plain_bwd_ms=plain_bwd_ms)
         cases.append(dict(T=t, fwd_max_abs_err=fwd_err,
                           grad_max_abs_err=grad_err, grad_max_rel_err=grad_rel,
                           fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
-                          bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms))
+                          bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
+                          fwd_bound=fwd_bound, bwd_bound=bwd_bound))
     return cases
 
 
@@ -217,6 +279,7 @@ def lstm_layer_phase(K7, dev, rng):
     leaves = [a.clone().requires_grad_() for a in args]
     ys, (hn, cn) = K7.lstm_layer(*leaves)
     grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
+    ys, hn, cn = ys.detach(), hn.detach(), cn.detach()
     with torch.no_grad():
         plain_fwd_ms, (ysr, (hr, cr)) = cuda_ms(
             lambda: K7.lstm_layer_reference(*args), 1)
@@ -231,13 +294,44 @@ def lstm_layer_phase(K7, dev, rng):
         lambda: K7.lstm_layer_forward(args, True), 5)
     bwd_ms, _ = cuda_ms(
         lambda: K7.lstm_layer_backward(args, ys1, acts, cs, *cots), 5)
+    # x.W_ih and h.W_hh: 2 B T 4H (Din + H) FLOPs; the backward doubles it
+    fwd_bound = bound(8 * b * t * h * (din + h),
+                      nbytes(args, ys1, hn, cn, acts, cs))
+    bwd_bound = bound(16 * b * t * h * (din + h),
+                      nbytes(args, ys1, acts, cs, cots, grads))
+    lib_fwd_ms, lib_bwd_ms = cudnn_lstm_ms(args, cots)
     check_case("lstm_layer", fwd_err, grad_rel, T=t, fwd_ms=fwd_ms,
                fwd_res_ms=fwd_res_ms, plain_fwd_ms=plain_fwd_ms,
-               bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms)
+               bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
+               library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms)
     return dict(T=t, fwd_max_abs_err=fwd_err, grad_max_abs_err=grad_err,
                 grad_max_rel_err=grad_rel, fwd_ms=fwd_ms,
                 fwd_res_ms=fwd_res_ms, plain_fwd_ms=plain_fwd_ms,
-                bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms)
+                bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
+                library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms,
+                fwd_bound=fwd_bound, bwd_bound=bwd_bound)
+
+
+def cudnn_lstm_ms(args, cots):
+    """Yardstick only, never called by the port: ``torch.nn.LSTM``
+    (cuDNN) with the same weights, forward under grad and backward, ms
+    each (mean of 5 after a warm-up)."""
+    x, w_ih_t, b_sum, w_hh_t, h0, c0 = args
+    lstm = torch.nn.LSTM(x.shape[-1], h0.shape[-1], batch_first=True).to(
+        x.device)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(w_ih_t.T)
+        lstm.weight_hh_l0.copy_(w_hh_t.T)
+        lstm.bias_ih_l0.copy_(b_sum)
+        lstm.bias_hh_l0.zero_()
+    xl = x.clone().requires_grad_()
+    fwd_ms, (ys, (hn, cn)) = cuda_ms(lambda: lstm(xl, (h0[None], c0[None])),
+                                     5)
+    leaves = [xl, *lstm.parameters()]
+    bwd_ms, _ = cuda_ms(lambda: torch.autograd.grad(
+        (ys, hn, cn), leaves, (cots[0], cots[1][None], cots[2][None]),
+        retain_graph=True), 5)
+    return fwd_ms, bwd_ms
 
 
 def train_batch(rng, batch, frames, dev=None):
@@ -249,8 +343,8 @@ def train_batch(rng, batch, frames, dev=None):
     return [(x.to(dev) if dev is not None else x, None) for x in data]
 
 
-def train_path_phase(K1, K2, K7, dev, rng):
-    """7. The training main path: ``streaming_step_fns`` on the flagship
+def train_path_phase(mods, dev, rng):
+    """8. The training main path: ``streaming_step_fns`` on the flagship
     model at B32 x T240, then one step on the card vs on CPU tensors."""
     import copy
 
@@ -286,21 +380,22 @@ def train_path_phase(K1, K2, K7, dev, rng):
     batch = train_batch(rng, TRAIN_B, TRAIN_FRAMES, dev)
     train_step(batch)  # warm-up, not counted
     torch.cuda.synchronize()
-    zero_counts(K1, K2, K7)
+    zero_counts(mods)
     per_step = dict(mixer_stack_train_fwd=2, mixer_stack_bwd=2,
-                    lstm_layer_fwd=5, lstm_layer_bwd=5)
+                    lstm_layer_fwd=5, lstm_layer_bwd=5,
+                    rect_attention_fwd=10, rect_attention_bwd=10)
     losses, times = [], []
     torch.cuda.reset_peak_memory_stats(dev)
     for i in range(TRAIN_STEPS):
-        before = counts(K1, K2, K7)
+        before = counts(mods)
         t0 = time.perf_counter()
         loss, _ = train_step(batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1000)
-        check_launches(f"train step {i}", before, counts(K1, K2, K7),
+        check_launches(f"train step {i}", before, counts(mods),
                        **per_step)
         losses.append(float(loss))
-    launches = counts(K1, K2, K7)
+    launches = counts(mods)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train steps: non-finite losses {losses}")
@@ -310,18 +405,20 @@ def train_path_phase(K1, K2, K7, dev, rng):
         ms_per_step=f"{step_ms:.3f}", frames_per_s=f"{frames_per_s:.1f}",
         step_ms=[round(t, 3) for t in times], losses=losses,
         peak_mem_gib=f"{peak_gib:.3f}", launches=launches)
-    before = counts(K1, K2, K7)
+    before = counts(mods)
     eval_loss, _ = eval_step(batch)
-    check_launches("eval step", before, counts(K1, K2, K7),
-                   mixer_stack=2, lstm_layer_fwd=5)
+    check_launches("eval step", before, counts(mods),
+                   mixer_stack=2, lstm_layer_fwd=5, rect_attention_fwd=10)
     if not np.isfinite(float(eval_loss)):
         raise AssertionError(f"eval step: loss {float(eval_loss)}")
-    log("eval_step", loss=f"{float(eval_loss):.6f}", launches="K1 +2, K7 +5")
+    log("eval_step", loss=f"{float(eval_loss):.6f}",
+        launches="K1 +2, K7 +5, K5 +10")
 
     busy = profile_step(train_step, batch)
 
     # one SGD step on the card and on CPU tensors, same weights and batch
-    model_cpu = Metaformer(cfg, generator=torch.Generator().manual_seed(SEED))
+    model_cpu = Metaformer(cfg, generator=torch.Generator().manual_seed(SEED),
+                           device="cpu")
     model_card = copy.deepcopy(model_cpu).to(dev)
     small = train_batch(rng, 2, 48)
     sgd = dict(use_optimizer="sgd", lr=1e-2, momentum=0.9, weight_decay=0.0)
@@ -390,36 +487,256 @@ def profile_step(train_step, batch):
     return busy
 
 
+def rect_pairs(q_pad, k_pad):
+    """(query, key) pairs one head's attention needs, over the batch: the
+    ceil((i+1) Lk / Lq) keys the rect-causal mask leaves to row i, or all
+    Lk for a row whose every key is masked (it averages over them)."""
+    b, lq = q_pad.shape
+    lk = k_pad.shape[1]
+    i = torch.arange(lq, device=q_pad.device)
+    lim = torch.clamp(((i + 1) * lk + lq - 1) // lq, max=lk)[None].expand(
+        b, lq)
+    unpadded = ~k_pad
+    first = torch.where(unpadded.any(1), unpadded.int().argmax(1),
+                        torch.full((b,), lk, device=q_pad.device))
+    full = q_pad & (first[:, None] >= lim)
+    return int(torch.where(full, lk, lim).sum())
+
+
+def rect_attention_phase(K5, dev, rng):
+    """7. Rect attention forward (K5) and backward (K6) vs plain at the
+    integrators' shapes: B32, Lq 252, Lk 2016 (audio) and 252 (partner
+    motion), E 256, 4 heads, 10% padded rows and keys; the library
+    yardstick is scaled_dot_product_attention with the boolean mask."""
+    import torch.nn.functional as F
+
+    b, lq, e, heads = TRAIN_B, LEAD + TRAIN_FRAMES, 256, 4
+    dh = e // heads
+    r = seeded(rng, dev)
+    cases = []
+    for lk in (lq * RATIO, lq):
+        q, k, v, g = r(b, lq, e), r(b, lk, e), r(b, lk, e), r(b, lq, e)
+        q_pad = torch.from_numpy(rng.random((b, lq)) < 0.1).to(dev)
+        k_pad = torch.from_numpy(rng.random((b, lk)) < 0.1).to(dev)
+        args = (heads, q, k, v, q_pad, k_pad)
+        # the wrapper as the model calls it: autograd runs K5, then K6
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = K5.rect_attention(heads, *leaves, q_pad, k_pad)
+        grads = torch.autograd.grad(out, leaves, g)
+        with torch.no_grad():
+            plain_fwd_ms, want = cuda_ms(
+                lambda: K5.rect_attention_reference(*args), 1)
+        plain_bwd_ms, wgrads = cuda_ms(
+            K5.rect_attention_backward_reference(*args, g, closure=True), 1)
+        fwd_err = max_err((out,), (want,))
+        grad_err = max_err(grads, wgrads)
+        grad_rel = rel_err(grads, wgrads)
+        fwd_ms, (ctx, m, l) = cuda_ms(
+            lambda: K5.rect_attention_forward(*args, residuals=True), 10)
+        fwd_nores_ms, _ = cuda_ms(lambda: K5.rect_attention_forward(*args),
+                                  10)
+        bwd_ms, _ = cuda_ms(
+            lambda: K5.rect_attention_backward(*args, ctx, m, l, g), 10)
+        # yardstick only, never called by the port
+        allowed = ~K5.rect_attention_mask(q_pad, k_pad)[:, None]
+        lib_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+        def split(x):
+            return x.view(b, x.shape[1], heads, dh).transpose(1, 2)
+
+        lib_fwd_ms, lib_out = cuda_ms(lambda: F.scaled_dot_product_attention(
+            *[split(x) for x in lib_leaves], attn_mask=allowed), 10)
+        lib_bwd_ms, _ = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, lib_leaves, split(g), retain_graph=True), 10)
+        # per needed (query, key) pair and head dim: q.k and p.v (2 FLOPs
+        # each) forward; the backward recomputes q.k and does dO.v, dV,
+        # dK and dQ (10 FLOPs)
+        pairs = rect_pairs(q_pad, k_pad) * heads
+        fwd_bound = bound(4 * pairs * dh, nbytes(args, ctx, m, l))
+        bwd_bound = bound(10 * pairs * dh, nbytes(args, ctx, m, l, g, grads))
+        check_case("rect_attention", fwd_err, grad_rel, Lk=lk, fwd_ms=fwd_ms,
+                   fwd_no_residual_ms=fwd_nores_ms, bwd_ms=bwd_ms,
+                   plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
+                   library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms,
+                   fwd_bound_ms=fwd_bound[0], bwd_bound_ms=bwd_bound[0])
+        cases.append(dict(
+            Lq=lq, Lk=lk, fwd_max_abs_err=fwd_err, grad_max_abs_err=grad_err,
+            grad_max_rel_err=grad_rel, fwd_ms=fwd_ms,
+            fwd_no_residual_ms=fwd_nores_ms, bwd_ms=bwd_ms,
+            plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
+            library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms,
+            fwd_bound=fwd_bound, bwd_bound=bwd_bound))
+        del out, grads, want, wgrads, ctx, m, l, lib_out, allowed
+    return cases
+
+
+def write_corpus(root, sessions=CORPUS_SESSIONS, seconds=CORPUS_SECONDS):
+    """A dyadic corpus in the layout the manifest builder walks, from
+    SEED: per session, host and comp wavs whose speakers take turns of
+    12 s noise bursts 3 s apart (one 10 s training window per turn), and
+    host/comp motion .npz at 25 fps. Returns the seconds of audio per
+    channel."""
+    from multimodalreactiongeneration_tpu_torch.utils.wavio import write_wav
+
+    rng = np.random.default_rng(SEED)
+    sr, fps = 16000, 25
+    for s in range(sessions):
+        d = os.path.join(root, f"session{s:02d}", f"data{s:02d}")
+        os.makedirs(d, exist_ok=True)
+        waves = np.zeros((2, int(seconds * sr)), np.float32)
+        t, who = 1.0, 0
+        while t + 14.0 < seconds:
+            a, z = int(t * sr), int((t + 12.0) * sr)
+            waves[who, a:z] = 0.3 * rng.standard_normal(z - a)
+            t, who = t + 15.0, who ^ 1
+        frames = int(seconds * fps)
+        for w, name in enumerate(("host", "comp")):
+            write_wav(os.path.join(d, f"{name}.wav"), waves[w][None], sr)
+            traj = np.cumsum(rng.normal(0, 0.8, (frames, 6)), axis=0) * 0.05
+            angle, cent = traj[:, :3] * 5.0, 0.5 + traj[:, 3:] * 0.01
+            np.savez(
+                os.path.join(d, f"{name}_000000.npz"),
+                angle=(angle - angle.mean(0)) / (angle.std(0) + 1e-6),
+                centroid=(cent - cent.mean(0)) / (cent.std(0) + 1e-6),
+                angle_mean=angle.mean(0), angle_std=angle.std(0) + 1e-6,
+                centroid_mean=cent.mean(0), centroid_std=cent.std(0) + 1e-6,
+                section=np.array([0, frames]),
+            )
+    return sessions * seconds
+
+
+def cli_phase(mods):
+    """9. The training CLI, as a user runs it: ``configs/lstmformer.yaml``
+    at full width (its defaults: val_check_interval 0.25, the generation
+    eval, async top-k checkpoints, the audio resident on the card) on a
+    corpus written here, batch 32, one epoch; then a resumed epoch from
+    ``last``."""
+    import shutil
+
+    from multimodalreactiongeneration_tpu_torch import _build
+    from multimodalreactiongeneration_tpu_torch.train import cli
+
+    run = _build.BUILD_DIR / "cli_run"
+    shutil.rmtree(run, ignore_errors=True)
+    run.mkdir(parents=True)
+    t0 = time.perf_counter()
+    audio_s = write_corpus(str(run / "corpus"))
+    log("cli", corpus_seconds_of_audio=audio_s, sessions=CORPUS_SESSIONS,
+        write_s=f"{time.perf_counter() - t0:.1f}")
+    ckpt = run / "ckpt" / "smoke"
+    common = ["--config", "configs/lstmformer.yaml", "name=smoke",
+              f"data_dir={run / 'corpus'}", f"ckpt_path={run / 'ckpt'}",
+              f"log_dir={run / 'log'}", "batch_size=32", f"seed={SEED}"]
+    cwd = os.getcwd()
+    os.chdir(run)  # the manifests go under ./data of the run directory
+    try:
+        zero_counts(mods)
+        t0 = time.perf_counter()
+        first = cli.main(common + ["max_epochs=1"])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = counts(mods)
+        t0 = time.perf_counter()
+        resumed = cli.main(common + ["max_epochs=2",
+                                     f"resume_from={ckpt / 'last'}"])
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    records = first.history + resumed.history
+    for rec in records:
+        log("cli_epoch", **{k: (f"{v:.6f}" if isinstance(v, float) else v)
+                            for k, v in rec.items()})
+        for key in ("train_loss", "val_loss", "genrt_loss"):
+            if not np.isfinite(rec.get(key, float("nan"))):
+                raise AssertionError(f"cli epoch {rec['epoch']}: {key} "
+                                     f"{rec.get(key)}")
+    if [r["epoch"] for r in records] != [0, 1]:
+        raise AssertionError(f"cli epochs {[r['epoch'] for r in records]}")
+    names = sorted(os.listdir(ckpt))
+    if "last" not in names or not all(
+            any(n.startswith(f"{m}0-") for n in names) for m in "VTG"):
+        raise AssertionError(f"cli checkpoints {names}")
+    # launches of the first run: every train step K5 +10, K6 +10, K3 +2,
+    # K4 +2, K7 +5 / +5; every validation batch an eval step (K5 +10, K1
+    # +2, K7 forward +5) and a generation (K1 +2, K2 one per 16 rows)
+    steps = first.history[0]["step"]
+    n_eval = (launches["rect_attention_fwd"] - 10 * steps) // 10
+    want = dict(rect_attention_fwd=10 * (steps + n_eval),
+                rect_attention_bwd=10 * steps,
+                mixer_stack_train_fwd=2 * steps, mixer_stack_bwd=2 * steps,
+                lstm_layer_fwd=5 * (steps + n_eval), lstm_layer_bwd=5 * steps,
+                mixer_stack=4 * n_eval)
+    got = {k: launches[k] for k in want}
+    if (n_eval < first.history[0]["val_checks"] or got != want
+            or launches["decode_rollout"] < n_eval):
+        raise AssertionError(f"cli launches {launches}, want {want} and "
+                             f"decode_rollout >= {n_eval}")
+    log("cli", train_steps=steps, eval_batches=n_eval, launches=launches,
+        first_run_s=f"{first_s:.1f}", resumed_run_s=f"{resumed_s:.1f}",
+        checkpoints=names)
+    shutil.rmtree(run)  # the corpus, manifests and checkpoints
+    return {"launches": launches, "record": {
+        "corpus_seconds_of_audio": audio_s, "first_run_s": first_s,
+        "resumed_run_s": resumed_s, "epochs": records}}
+
+
+def kernel_record(name, source, replaces, launches, max_abs_err, ms,
+                  plain_ms, bound_, library_ms, **extra):
+    """One entry of the kernels line, with the keys every entry has."""
+    return {"name": name, "route": "cuda", "source": SRC + source,
+            "replaces": JAX_OPS + replaces, "launches": launches,
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_[0], "bound_by": bound_[1],
+            "library_ms": library_ms, **extra}
+
+
 def training_records(train, lstm, launches):
-    """The JSON entries of the four training kernels."""
+    """The JSON entries of the four training kernels (no single PyTorch
+    call computes the encoder stack; cuDNN's LSTM is K7's yardstick)."""
     audio = train[0]
-    ms_src = SRC + "mixer_stack.cu"
-    ll_src = SRC + "lstm_layer.cu"
     return [
-        {"name": "mixer_stack_train_fwd", "route": "cuda", "source": ms_src,
-         "replaces": JAX_OPS + "pallas_mixer_stack.py:110",
-         "launches": launches["mixer_stack_train_fwd"],
-         "max_abs_err": max(c["fwd_max_abs_err"] for c in train),
-         "ms": audio["fwd_ms"], "plain_ms": audio["plain_fwd_ms"],
-         "cases": train},
-        {"name": "mixer_stack_bwd", "route": "cuda", "source": ms_src,
-         "replaces": JAX_OPS + "pallas_mixer_stack.py:297",
-         "launches": launches["mixer_stack_bwd"],
-         "max_abs_err": max(c["grad_max_abs_err"] for c in train),
-         "max_rel_err": max(c["grad_max_rel_err"] for c in train),
-         "ms": audio["bwd_ms"], "plain_ms": audio["plain_bwd_ms"]},
-        {"name": "lstm_layer_fwd", "route": "cuda", "source": ll_src,
-         "replaces": JAX_OPS + "pallas_lstm.py:390",
-         "launches": launches["lstm_layer_fwd"],
-         "max_abs_err": lstm["fwd_max_abs_err"],
-         "ms": lstm["fwd_res_ms"], "plain_ms": lstm["plain_fwd_ms"],
-         "no_residual_ms": lstm["fwd_ms"]},
-        {"name": "lstm_layer_bwd", "route": "cuda", "source": ll_src,
-         "replaces": JAX_OPS + "pallas_lstm.py:448",
-         "launches": launches["lstm_layer_bwd"],
-         "max_abs_err": lstm["grad_max_abs_err"],
-         "max_rel_err": lstm["grad_max_rel_err"],
-         "ms": lstm["bwd_ms"], "plain_ms": lstm["plain_bwd_ms"]},
+        kernel_record(
+            "mixer_stack_train_fwd", "mixer_stack.cu",
+            "pallas_mixer_stack.py:110", launches["mixer_stack_train_fwd"],
+            max(c["fwd_max_abs_err"] for c in train), audio["fwd_ms"],
+            audio["plain_fwd_ms"], audio["fwd_bound"], None, cases=train),
+        kernel_record(
+            "mixer_stack_bwd", "mixer_stack.cu", "pallas_mixer_stack.py:297",
+            launches["mixer_stack_bwd"],
+            max(c["grad_max_abs_err"] for c in train), audio["bwd_ms"],
+            audio["plain_bwd_ms"], audio["bwd_bound"], None,
+            max_rel_err=max(c["grad_max_rel_err"] for c in train)),
+        kernel_record(
+            "lstm_layer_fwd", "lstm_layer.cu", "pallas_lstm.py:390",
+            launches["lstm_layer_fwd"], lstm["fwd_max_abs_err"],
+            lstm["fwd_res_ms"], lstm["plain_fwd_ms"], lstm["fwd_bound"],
+            lstm["library_fwd_ms"], no_residual_ms=lstm["fwd_ms"]),
+        kernel_record(
+            "lstm_layer_bwd", "lstm_layer.cu", "pallas_lstm.py:448",
+            launches["lstm_layer_bwd"], lstm["grad_max_abs_err"],
+            lstm["bwd_ms"], lstm["plain_bwd_ms"], lstm["bwd_bound"],
+            lstm["library_bwd_ms"], max_rel_err=lstm["grad_max_rel_err"]),
+    ]
+
+
+def attention_records(cases, launches):
+    """The JSON entries of K5 and K6; launches from the CLI run."""
+    audio = cases[0]
+    return [
+        kernel_record(
+            "rect_attention_fwd", "rect_attention.cu",
+            "pallas_rect_attention.py:85", launches["rect_attention_fwd"],
+            max(c["fwd_max_abs_err"] for c in cases), audio["fwd_ms"],
+            audio["plain_fwd_ms"], audio["fwd_bound"],
+            audio["library_fwd_ms"], cases=cases),
+        kernel_record(
+            "rect_attention_bwd", "rect_attention.cu",
+            "pallas_rect_attention.py:117", launches["rect_attention_bwd"],
+            max(c["grad_max_abs_err"] for c in cases), audio["bwd_ms"],
+            audio["plain_bwd_ms"], audio["bwd_bound"],
+            audio["library_bwd_ms"],
+            max_rel_err=max(c["grad_max_rel_err"] for c in cases)),
     ]
 
 
@@ -438,7 +755,11 @@ def main():
         decode_rollout as K2,
         lstm_layer as K7,
         mixer_stack as K1,
+        rect_attention as K5,
     )
+
+    mods = {"K1": K1, "K2": K2, "K5": K5, "K7": K7}
+    t_start = time.perf_counter()
 
     # ---- 0. device ---------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -501,7 +822,12 @@ def main():
             plain_ms=f"{plain_ms:.3f}")
         if not err <= K1_TOL:
             raise AssertionError(f"mixer_stack T={t}: {err} > {K1_TOL}")
-        k1_cases.append(dict(T=t, max_abs_err=err, ms=ms, plain_ms=plain_ms))
+        # matmul FLOPs per block: x.W_ih and h.W_hh (8 B T H^2 each), the
+        # Dense (2 B T H^2)
+        k1_bound = bound(18 * nl * B * t * hid * hid,
+                         nbytes(args, y, hn, cn))
+        k1_cases.append(dict(T=t, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound=k1_bound))
 
     # ---- 3. decode rollout vs plain ----------------------------------
     batch = [x.to(dev) for x in make_batch(rng, B)]
@@ -516,6 +842,9 @@ def main():
         plain_ms, ref = cuda_ms(
             lambda: K2.decode_rollout_reference(*a32, **kw), 1)
         k2_cases = []
+        # the plain version's matrix products count the work (the same
+        # products in both cache dtypes)
+        flops = matmul_flops(lambda: K2.decode_rollout_reference(*a32, **kw))
         for dt, tol in ((torch.float32, K2_F32_TOL),
                         (torch.bfloat16, K2_BF16_TOL)):
             a, kw_dt = rollout[dt]
@@ -533,6 +862,7 @@ def main():
                 **{k: f"{v:.3e}" for k, v in case.items()})
             if not err <= tol:
                 raise AssertionError(f"decode_rollout {name}: {err} > {tol}")
+            case["bound"] = bound(flops, nbytes(a, out))
             k2_cases.append(dict(dtype=name, max_abs_err=err, ms=ms, **case))
         k2_cases[0]["plain_ms"] = plain_ms
         k2_cases[1]["plain_ms"] = plain_bf16_ms
@@ -543,10 +873,10 @@ def main():
     batches = [[x.to(dev) for x in make_batch(rng, B)] for _ in range(3)]
     G.generate_metaformer(model, batches[0], full)  # warm-up, not counted
     torch.cuda.synchronize()
-    zero_counts(K1, K2, K7)
+    zero_counts(mods)
     times = []
     for i, bd in enumerate(batches):
-        before = counts(K1, K2, K7)
+        before = counts(mods)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -558,12 +888,12 @@ def main():
             raise AssertionError(f"generation {i}: shape {tuple(pred.shape)}")
         if not bool(torch.isfinite(pred).all()):
             raise AssertionError(f"generation {i}: non-finite output")
-        d = check_launches(f"generation {i}", before, counts(K1, K2, K7),
+        d = check_launches(f"generation {i}", before, counts(mods),
                            mixer_stack=2, decode_rollout=1)
         log("generate", batch=i, shape=tuple(pred.shape), finite=True,
             ms=f"{times[-1]:.3f}", mixer_stack_launches=f"+{d['mixer_stack']}",
             decode_rollout_launches=f"+{d['decode_rollout']}")
-    launches = counts(K1, K2, K7)
+    launches = counts(mods)
     gen_ms = float(np.mean(times))
     log("generate", ms_per_generation=f"{gen_ms:.3f}",
         frames_per_s=f"{B * FRAMES / (gen_ms / 1000):.1f}",
@@ -574,7 +904,8 @@ def main():
     on_card = G.generate_metaformer(
         model, [x.to(dev) for x in small], teacher_cpu.to(dev),
         cache_dtype=torch.float32)
-    model_cpu = Metaformer(cfg, generator=torch.Generator().manual_seed(SEED))
+    model_cpu = Metaformer(cfg, generator=torch.Generator().manual_seed(SEED),
+                           device="cpu")
     on_cpu = G.generate_metaformer(model_cpu, small, teacher_cpu,
                                    cache_dtype=torch.float32)
     err = float((on_card.cpu() - on_cpu).abs().max())
@@ -582,35 +913,33 @@ def main():
     if not err <= PATH_TOL:
         raise AssertionError(f"card vs CPU generation: {err} > {PATH_TOL}")
 
-    # ---- 5.-7. training kernels and the training main path ------------
+    # ---- 5.-9. training kernels, the training step, the training CLI --
     train = train_kernel_phase(K1, dev, rng)
     lstm = lstm_layer_phase(K7, dev, rng)
-    step = train_path_phase(K1, K2, K7, dev, rng)
+    attention = rect_attention_phase(K5, dev, rng)
+    step = train_path_phase(mods, dev, rng)
+    cli_run = cli_phase(mods)
 
     k1_main, k2_main = k1_cases[0], k2_cases[1]
+    # no single PyTorch call computes the encoder stack or the rollout
     record = {"kernels": [
-        {
-            "name": "mixer_stack", "route": "cuda",
-            "source": "multimodalreactiongeneration_tpu_torch/csrc/mixer_stack.cu",
-            "replaces": "multimodalreactiongeneration_tpu/ops/pallas_mixer_stack.py:215",
-            "launches": launches["mixer_stack"],
-            "max_abs_err": max(c["max_abs_err"] for c in k1_cases),
-            "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
-            "cases": k1_cases,
-        },
-        {
-            "name": "decode_rollout", "route": "cuda",
-            "source": "multimodalreactiongeneration_tpu_torch/csrc/decode_rollout.cu",
-            "replaces": "multimodalreactiongeneration_tpu/ops/pallas_decode_rollout.py:103",
-            "launches": launches["decode_rollout"],
-            "max_abs_err": max(c["max_abs_err"] for c in k2_cases),
-            "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
-            "cases": k2_cases,
-        },
+        kernel_record(
+            "mixer_stack", "mixer_stack.cu", "pallas_mixer_stack.py:215",
+            launches["mixer_stack"], max(c["max_abs_err"] for c in k1_cases),
+            k1_main["ms"], k1_main["plain_ms"], k1_main["bound"], None,
+            cases=k1_cases),
+        kernel_record(
+            "decode_rollout", "decode_rollout.cu",
+            "pallas_decode_rollout.py:103", launches["decode_rollout"],
+            max(c["max_abs_err"] for c in k2_cases), k2_main["ms"],
+            k2_main["plain_ms"], k2_main["bound"], None, cases=k2_cases),
         *training_records(train, lstm, step["launches"]),
+        *attention_records(attention, cli_run["launches"]),
     ], "generation": {"batch": B, "frames": FRAMES, "ms": gen_ms,
                       "frames_per_s": B * FRAMES / (gen_ms / 1000)},
-        "train_step": step["record"]}
+        "train_step": step["record"], "cli": cli_run["record"],
+        "seconds": time.perf_counter() - t_start}
+    log("done", seconds=f"{record['seconds']:.1f}")
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,60 +1,358 @@
-"""Model configurations as plain dicts (no yaml at run time).
+"""Configurations as plain dicts (no yaml at run time).
 
-``LSTMFORMER_MODEL_CFG`` is the resolved ``model:`` group of
-``configs/lstmformer.yaml`` restricted to the keys the model reads: the
-flagship Metaformer at the production size (hidden 256, 5 blocks, LSTM
-embeddings, encoders of 5 mixer blocks, 4-head integrators, 10 s context
-budget). ``LSTMFORMER_LOSS_CFG``, ``LSTMFORMER_METRICS_CFG`` and
-``LSTMFORMER_OPTIM_CFG`` are what the training step reads from the same
-file. The tests hold all four equal to the yaml as the JAX config loader
-resolves it.
+``LSTMFORMER`` is ``configs/lstmformer.yaml`` as written: every group,
+with its ``${a.b}`` interpolations and ``???`` mandatory values.
+``load_config`` is the counterpart of the JAX package's
+``utils/config.py load_config``: it takes the config by its file's stem
+(``--config configs/lstmformer.yaml`` and ``lstmformer`` name the same
+dict), applies ``key=value`` dotted overrides with YAML-typed values,
+resolves the interpolations and returns a ``Config`` (a dict with
+attribute access). The tests hold ``LSTMFORMER`` equal to the yaml and
+the resolved config equal to the JAX loader's.
+
+``LSTMFORMER_MODEL_CFG`` (the keys the model reads), ``LSTMFORMER_LOSS_CFG``,
+``LSTMFORMER_METRICS_CFG`` and ``LSTMFORMER_OPTIM_CFG`` (what the training
+step reads) are cut from the resolved config: the flagship Metaformer at
+the production size (hidden 256, 5 blocks, LSTM embeddings, encoders of
+5 mixer blocks, 4-head integrators, 10 s context budget).
 """
 
-LSTMFORMER_MODEL_CFG = dict(
-    main_modal_idx=2,
-    hidden_size=256,
-    num_block=5,
-    dropout=0.0,
-    num_layerd=1,
-    encoder_num_layer=5,
-    num_internal_layer=1,
-    residual=True,
-    residual_layer_norm=True,
-    bias=True,
-    emb_mixers=["lstm", "lstm", "lstm"],
-    bottleneck_size=64,
-    nonlinearity="none",
-    ffn_nonlinearity="relu",
-    proj_size=0,
-    num_heads=4,
-    add_bias_kv=False,
-    add_zero_attn=False,
-    max_context_len=10,
-    repeat_with_encoder=False,
-    interlayer_residual=False,
-    interlayer_residual_norm=True,
-    sampling_rate=16000,
-    shift=160,
-    pred_fps=12.5,
-    modalities=["audio", "motion", "motion"],
-    use_centroid=True,
-    use_angle=True,
-    nmels=26,
-    delta_order=2,
-)
+from __future__ import annotations
 
+import copy
+import re
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+MANDATORY = "???"
+_INTERP_RE = re.compile(r"\$\{([^}]+)\}")
+
+LSTMFORMER: Dict[str, Any] = {
+    "project": "Head-Motion_LSTMformer",
+    "name": "cradle-01",
+    "version": None,
+    "hidden_size": 256,
+    "bottleneck_size": 64,
+    "lr": 5e-06,
+    "batch_size": 128,
+    "max_epochs": 60,
+    "optim_epochs": 100,
+    "use_centroid": True,
+    "use_angle": True,
+    "sample_rate": 16000,
+    "nfft": 400,
+    "shift": 160,
+    "nmels": 26,
+    "delta_order": 2,
+    "data_dir": "???",
+    "no_cache_build": False,
+    "clear_cache": False,
+    "ckpt_path": "???",
+    "log_dir": "???",
+    "device": "tpu",
+    "seed": 0,
+    "model": {
+        "main_modal_idx": 2,
+        "hidden_size": "${hidden_size}",
+        "num_block": 5,
+        "dropout": 0.0,
+        "num_layerd": 1,
+        "encoder_num_layer": 5,
+        "num_internal_layer": 1,
+        "residual": True,
+        "residual_layer_norm": True,
+        "bias": True,
+        "emb_mixers": ["lstm", "lstm", "lstm"],
+        "bottleneck_size": "${bottleneck_size}",
+        "nonlinearity": "none",
+        "ffn_nonlinearity": "relu",
+        "proj_size": 0,
+        "num_heads": 4,
+        "add_bias_kv": False,
+        "add_zero_attn": False,
+        "max_context_len": 10,
+        "repeat_with_encoder": False,
+        "interlayer_residual": False,
+        "interlayer_residual_norm": True,
+        "sampling_rate": "${sample_rate}",
+        "shift": "${shift}",
+        "pred_fps": "${motion.pred_fps}",
+        "modalities": ["audio", "motion", "motion"],
+        "use_centroid": "${use_centroid}",
+        "use_angle": "${use_angle}",
+        "nmels": "${nmels}",
+        "delta_order": "${delta_order}",
+        "loss_type": "huber",
+        "loss_reduction": "mean",
+        "huber_delta": 1.0,
+        "smoothl1_beta": 1.0,
+        "delta_loss_scale": 1,
+        "use_scheduled_sampling": False,
+        "max_epochs": "${max_epochs}",
+    },
+    "metrics": {
+        "use_centroid": "${use_centroid}",
+        "use_angle": "${use_angle}",
+        "delta_order": "${delta_order}",
+    },
+    "trainer": {
+        "max_epochs": "${max_epochs}",
+        "log_every_n_steps": 50,
+        "precision": 32,
+        "val_check_interval": 0.25,
+        "pad_to_multiple": 16,
+        "run_generation_eval": True,
+    },
+    "callbacks": {
+        "save_top_k": 5,
+        "patience_epoch": 10,
+        "use_checkpoint": True,
+        "use_early_stopping": True,
+        "async_checkpoint": True,
+        "save_opt_state": "last",
+    },
+    "optim": {
+        "use_optimizer": "adam",
+        "momentum": 0.9,
+        "weight_decay": 0.01,
+        "lr": "${lr}",
+        "use_lr_sched": True,
+        "batch_size": "${batch_size}",
+        "max_epochs": "${optim_epochs}",
+    },
+    "exp": {
+        "use_model": "lstmformer",
+        "batch_size": "${batch_size}",
+        "train_rate": 0.8,
+        "valid_rate": 0.1,
+        "use_logger": "jsonl",
+    },
+    "data": {
+        "no_cache_build": "${no_cache_build}",
+        "clear_cache": "${clear_cache}",
+        "data_dir": "${data_dir}",
+        "fps": "${motion.fps}",
+        "pred_fps": "${motion.pred_fps}",
+        "pred_shift": "${motion.pred_shift}",
+        "max_len": "${motion.max_len}",
+        "min_len": "${motion.min_len}",
+        "shift_len": "${motion.shift_len}",
+        "leading_len": "${motion.leading_len}",
+        "sample_rate": "${sample_rate}",
+        "nfft": "${nfft}",
+        "shift": "${shift}",
+        "threshold": "${utterance.threshold}",
+        "minimum_utterance_length": "${utterance.minimum_utterance_length}",
+        "pause_with_voice": "${utterance.pause_with_voice}",
+        "pause_without_voice": "${utterance.pause_without_voice}",
+        "mergin": "${utterance.mergin}",
+        "use_partner_motion": True,
+        "use_partner_audio": True,
+        "use_self_motion": True,
+        "use_self_audio": False,
+        "target_shift": 1,
+        "use_centroid": "${use_centroid}",
+        "use_angle": "${use_angle}",
+        "delta_order": "${delta_order}",
+    },
+    "motion": {
+        "fps": 25,
+        "pred_fps": 12.5,
+        "pred_shift": 2,
+        "max_len": 250,
+        "min_len": 125,
+        "shift_len": 250,
+        "leading_len": 25,
+        "use_centroid": "${use_centroid}",
+        "use_angle": "${use_angle}",
+        "delta_order": "${delta_order}",
+        "train_by_std": True,
+    },
+    "audio": {
+        "sample_rate": "${sample_rate}",
+        "nfft": "${nfft}",
+        "shift": "${shift}",
+        "nmels": "${nmels}",
+        "delta_order": "${delta_order}",
+    },
+    "utterance": {
+        "sample_rate": "${sample_rate}",
+        "window_size": "${nfft}",
+        "stride": "${shift}",
+        "threshold": -4,
+        "minimum_utterance_length": 1.0,
+        "pause_with_voice": 1.0,
+        "pause_without_voice": 2.0,
+        "mergin": 1.0,
+    },
+    "model_type": "lstmformer",
+    "model_path": None,
+    "model_conf": None,
+    "movie_path": None,
+    "audio_path": None,
+    "output_path": None,
+}
+
+CONFIGS: Dict[str, Dict[str, Any]] = {"lstmformer": LSTMFORMER}
+
+
+class MandatoryValueError(KeyError):
+    """A ``???`` value was read before it was given."""
+
+
+class Config(dict):
+    """A resolved config group: a dict with attribute access, nested
+    groups as ``Config``s. Reading a ``???`` value raises; ``get``
+    defaults only absent keys."""
+
+    def __getitem__(self, key):
+        value = super().__getitem__(key)
+        if isinstance(value, str) and value == MANDATORY:
+            raise MandatoryValueError(f"mandatory config key '{key}' not set")
+        return value
+
+    def get(self, key, default=None):
+        return self[key] if key in self else default
+
+    def __getattr__(self, key):
+        if key.startswith("_"):
+            raise AttributeError(key)
+        try:
+            return self[key]
+        except MandatoryValueError:
+            raise
+        except KeyError as exc:
+            raise AttributeError(f"no config key '{key}'") from exc
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {k: v.to_dict() if isinstance(v, Config) else v
+                for k, v in self.items()}
+
+
+def _wrap(value):
+    if isinstance(value, dict):
+        return Config({k: _wrap(v) for k, v in value.items()})
+    if isinstance(value, list):
+        return [_wrap(v) for v in value]
+    return value
+
+
+def _lookup(root, dotted: str):
+    node = root
+    for part in dotted.split("."):
+        node = node[int(part)] if isinstance(node, list) else node[part]
+    return node
+
+
+def _resolve_value(root, value, stack: tuple):
+    if not isinstance(value, str):
+        return value
+    full = _INTERP_RE.fullmatch(value)
+    if full:
+        ref = full.group(1)
+        if ref in stack:
+            raise ValueError(f"interpolation cycle via ${{{ref}}}")
+        return _resolve_value(root, _lookup(root, ref), stack + (ref,))
+    if _INTERP_RE.search(value):
+        def sub(match):
+            ref = match.group(1)
+            if ref in stack:
+                raise ValueError(f"interpolation cycle via ${{{ref}}}")
+            return str(_resolve_value(root, _lookup(root, ref),
+                                      stack + (ref,)))
+        return _INTERP_RE.sub(sub, value)
+    return value
+
+
+def _resolve_tree(root, node):
+    if isinstance(node, dict):
+        return {k: _resolve_tree(root, v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_resolve_tree(root, v) for v in node]
+    return _resolve_value(root, node, ())
+
+
+_BOOLS = {**{w: True for w in ("y", "Y", "yes", "Yes", "YES", "true", "True",
+                                "TRUE", "on", "On", "ON")},
+          **{w: False for w in ("n", "N", "no", "No", "NO", "false", "False",
+                                 "FALSE", "off", "Off", "OFF")}}
+_NULLS = ("~", "null", "Null", "NULL")
+_INT_RE = re.compile(r"^[-+]?(0|[1-9][0-9_]*)$")
+_FLOAT_RE = re.compile(
+    r"^[-+]?(\d[\d_]*)?\.[\d_]*([eE][-+]?\d+)?$|^[-+]?\d+[eE][-+]?\d+$")
+
+
+def parse_value(text: str) -> Any:
+    """A YAML 1.1 scalar or flow list, as the JAX loader's overrides read
+    it: bools (true/yes/on ...), null, ints, floats (``5e-6`` too), quoted
+    strings, ``[a, b]`` lists; anything else is the string itself."""
+    t = text.strip()
+    if t == "" or t in _NULLS:
+        return None if t else ""
+    if t in _BOOLS:
+        return _BOOLS[t]
+    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
+        return t[1:-1]
+    if t.startswith("[") and t.endswith("]"):
+        inner = t[1:-1].strip()
+        return [parse_value(x) for x in inner.split(",")] if inner else []
+    if _INT_RE.match(t):
+        return int(t.replace("_", ""))
+    if _FLOAT_RE.match(t) and any(ch.isdigit() for ch in t):
+        return float(t.replace("_", ""))
+    if t.lower() in (".inf", "+.inf"):
+        return float("inf")
+    if t.lower() == "-.inf":
+        return float("-inf")
+    if t.lower() == ".nan":
+        return float("nan")
+    return text
+
+
+def apply_overrides(raw: Dict[str, Any], overrides: List[str]) -> None:
+    """Apply ``a.b.c=value`` overrides to an unresolved config in place
+    (before interpolation, as the JAX loader does)."""
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"override must look like key=value, got {item!r}")
+        dotted, _, text = item.partition("=")
+        parts = dotted.strip().split(".")
+        node = raw
+        for part in parts[:-1]:
+            if not isinstance(node.get(part), dict):
+                node[part] = {}
+            node = node[part]
+        node[parts[-1]] = parse_value(text)
+
+
+def load_config(name: str, overrides: Optional[List[str]] = None) -> Config:
+    """The config named by ``name`` (a key of ``CONFIGS`` or a path whose
+    stem is one), with ``overrides`` applied and interpolations
+    resolved."""
+    stem = Path(name).stem
+    if stem not in CONFIGS:
+        raise KeyError(
+            f"no config {stem!r} in the port (it has {sorted(CONFIGS)})")
+    raw = copy.deepcopy(CONFIGS[stem])
+    apply_overrides(raw, overrides or [])
+    return _wrap(_resolve_tree(raw, raw))
+
+
+_RESOLVED = load_config("lstmformer").to_dict()
+LSTMFORMER_MODEL_CFG = {k: _RESOLVED["model"][k] for k in (
+    "main_modal_idx", "hidden_size", "num_block", "dropout", "num_layerd",
+    "encoder_num_layer", "num_internal_layer", "residual",
+    "residual_layer_norm", "bias", "emb_mixers", "bottleneck_size",
+    "nonlinearity", "ffn_nonlinearity", "proj_size", "num_heads",
+    "add_bias_kv", "add_zero_attn", "max_context_len", "repeat_with_encoder",
+    "interlayer_residual", "interlayer_residual_norm", "sampling_rate",
+    "shift", "pred_fps", "modalities", "use_centroid", "use_angle", "nmels",
+    "delta_order")}
 # the loss keys of the same ``model:`` group, which the training step
 # reads beside the model's own
-LSTMFORMER_LOSS_CFG = dict(
-    loss_type="huber",
-    loss_reduction="mean",
-    huber_delta=1.0,
-    smoothl1_beta=1.0,
-    delta_loss_scale=1,
-)
-
-# the ``metrics:`` and ``optim:`` groups of ``configs/lstmformer.yaml``
-LSTMFORMER_METRICS_CFG = dict(use_centroid=True, use_angle=True,
-                              delta_order=2)
-LSTMFORMER_OPTIM_CFG = dict(use_optimizer="adam", momentum=0.9,
-                            weight_decay=1e-2, lr=5e-6)
+LSTMFORMER_LOSS_CFG = {k: _RESOLVED["model"][k] for k in (
+    "loss_type", "loss_reduction", "huber_delta", "smoothl1_beta",
+    "delta_loss_scale")}
+LSTMFORMER_METRICS_CFG = dict(_RESOLVED["metrics"])
+LSTMFORMER_OPTIM_CFG = {k: _RESOLVED["optim"][k] for k in (
+    "use_optimizer", "momentum", "weight_decay", "lr")}

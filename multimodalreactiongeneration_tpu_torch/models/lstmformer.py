@@ -16,6 +16,7 @@ from typing import Any, List, Optional, Tuple
 import torch
 from torch import nn
 
+from multimodalreactiongeneration_tpu_torch import resolve_device
 from multimodalreactiongeneration_tpu_torch.nn.metaformer import (
     MultiModalMetaformer,
 )
@@ -90,8 +91,9 @@ def _layerd_config(mixer_type: str, cfg: dict, num_layerd: int) -> dict:
 
 class Metaformer(nn.Module):
     """The flagship model. ``generator`` draws every initial weight
-    (distribution-matched to the JAX initialisers); ``device`` places
-    the parameters."""
+    (distribution-matched to the JAX initialisers); the parameters are
+    placed on ``device``, ``cuda:0`` when none is named
+    (``resolve_device``)."""
 
     def __init__(
         self,
@@ -100,6 +102,7 @@ class Metaformer(nn.Module):
         device: Optional[torch.device] = None,
     ):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -140,8 +143,12 @@ class Metaformer(nn.Module):
                 (t, _layerd_config(t, cfg, cfg["encoder_num_layer"]))
                 for t in other_types
             ),
+            # the training cross-masks are always merged_attention_mask
+            # products (forward below), so the integrators' masked
+            # attention takes rect_attention (nn/attention.py attend)
             integrate_configs=tuple(
-                dict(integ) for _ in range(len(cfg["modalities"]) - 1)
+                dict(integ, rect_pad_masks=True)
+                for _ in range(len(cfg["modalities"]) - 1)
             ),
             feedforward_config=ff,
             output_feedforward_config=out_ff,
@@ -150,8 +157,7 @@ class Metaformer(nn.Module):
             interlayer_residual=cfg["interlayer_residual"],
             interlayer_residual_norm=cfg["interlayer_residual_norm"],
         )
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     def forward(
         self,

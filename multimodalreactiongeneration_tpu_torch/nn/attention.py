@@ -18,9 +18,15 @@ Operand rule of the bf16 decode caches: a bf16 key stream meets a query
 rounded to bf16, products accumulate in f32, and the softmax weights are
 rounded to the stream's dtype before the context sum.
 
-The fused rect-attention route of the JAX ``attend`` (training only)
-is not ported yet: ``attend`` here is the plain path, as the JAX package
-runs it under MRGEN_FUSED_ATTN=0.
+A module built with ``rect_pad_masks=True`` (the Metaformer's
+integrators) declares that every rank-3 mask its ``forward`` receives is
+a rect-causal | pad-pair mask (``ops/masks.py merged_attention_mask``).
+``attend`` then rebuilds the pad vectors from the mask and runs
+``ops/rect_attention.py rect_attention`` (the K5/K6 kernels on the card,
+the plain version on the CPU) under the JAX package's conditions: rank-3
+mask, batch leading, one length dividing the other. The route is always
+on, as on the TPU; the decode paths (``attend_raw``, the rollout) do not
+take it.
 """
 
 from __future__ import annotations
@@ -30,6 +36,13 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from multimodalreactiongeneration_tpu_torch.ops.masks import (
+    rectangular_causal_mask,
+)
+from multimodalreactiongeneration_tpu_torch.ops.rect_attention import (
+    rect_attention,
+)
 
 NEG_INF = -1e30
 
@@ -83,7 +96,8 @@ def _xavier_uniform(shape, generator: torch.Generator) -> nn.Parameter:
 
 
 class TorchMHA(nn.Module):
-    """torch.nn.MultiheadAttention(batch_first=True) equivalent."""
+    """torch.nn.MultiheadAttention(batch_first=True) equivalent;
+    ``rect_pad_masks`` as the module docstring says."""
 
     def __init__(
         self,
@@ -93,9 +107,11 @@ class TorchMHA(nn.Module):
         kdim: Optional[int] = None,
         vdim: Optional[int] = None,
         use_bias: bool = True,
+        rect_pad_masks: bool = False,
     ):
         super().__init__()
         e = embed_dim
+        self.rect_pad_masks = rect_pad_masks
         self.embed_dim = e
         self.num_heads = num_heads
         self.kdim = kdim if kdim is not None else e
@@ -132,19 +148,35 @@ class TorchMHA(nn.Module):
         k_proj: torch.Tensor,
         v_proj: torch.Tensor,
         attn_mask: Optional[torch.Tensor] = None,
+        rect_pad_hint: bool = False,
     ) -> torch.Tensor:
-        """Attention over already-projected K/V (both (B,S,E))."""
+        """Attention over already-projected K/V (both (B,S,E)).
+        ``rect_pad_hint`` (set by ``forward`` on ``rect_pad_masks``
+        modules) routes rate-aligned rank-3 masks to ``rect_attention``."""
         e, h = self.embed_dim, self.num_heads
         dh = e // h
         batch, q_len = query.shape[0], query.shape[1]
         k_len = k_proj.shape[1]
         q = query @ self.q_proj_weight.T + self._bias("q_proj_bias")
+        if (
+            rect_pad_hint
+            and attn_mask is not None
+            and attn_mask.dim() == 3
+            and attn_mask.shape[0] == batch
+            and (q_len % k_len == 0 or k_len % q_len == 0)
+        ):
+            # the pad vectors back out of the merged mask: exact for masks
+            # built by merged_attention_mask (its pad part is an outer
+            # product of the indicators)
+            pp = attn_mask & ~rectangular_causal_mask(
+                q_len, k_len, attn_mask.device)[None]
+            ctx = rect_attention(h, q.contiguous(), k_proj.contiguous(),
+                                 v_proj.contiguous(), pp.any(dim=2),
+                                 pp.any(dim=1))
+            return ctx @ self.out_proj_weight.T + self._bias("out_proj_bias")
         q = q.reshape(batch, q_len, h, dh).transpose(1, 2)
         k = k_proj.reshape(batch, k_len, h, dh).transpose(1, 2)
         v = v_proj.reshape(batch, k_len, h, dh).transpose(1, 2)
-        # the rect-attention kernels (K5/K6, JAX nn/attention.py:179-211,
-        # ops/pallas_rect_attention.py) dispatch here once ported, for
-        # rank-3 rect-causal | pad masks
         mask = _broadcast_mask(attn_mask, batch, h, q_len, k_len)
         ctx = scaled_dot_attention(q, k, v, mask)
         ctx = ctx.transpose(1, 2).reshape(batch, q_len, e)
@@ -197,4 +229,5 @@ class TorchMHA(nn.Module):
         attn_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         k, v = self.project_kv(key, value)
-        return self.attend(query, k, v, attn_mask)
+        return self.attend(query, k, v, attn_mask,
+                           rect_pad_hint=self.rect_pad_masks)

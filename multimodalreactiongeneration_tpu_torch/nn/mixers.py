@@ -127,6 +127,7 @@ class MHAMixerBlock(nn.Module):
         residual_layer_norm: bool = False,
         bottleneck_size: Optional[int] = None,
         use_bias: bool = True,
+        rect_pad_masks: bool = False,
     ):
         super().__init__()
         self.num_layers = num_layers
@@ -138,7 +139,7 @@ class MHAMixerBlock(nn.Module):
         for i in range(num_layers):
             setattr(self, f"mha_{i}", TorchMHA(
                 hidden_size, num_heads, generator, kdim=kdim, vdim=vdim,
-                use_bias=use_bias,
+                use_bias=use_bias, rect_pad_masks=rect_pad_masks,
             ))
         self.mixer_norm = (
             LayerNorm(hidden_size) if residual and residual_layer_norm
@@ -281,6 +282,7 @@ class MHAMixerLayerd(nn.Module):
         residual_layer_norm: bool = False,
         bottleneck_size: Optional[int] = None,
         use_bias: bool = True,
+        rect_pad_masks: bool = False,
     ):
         super().__init__()
         self.self_attention = self_attention
@@ -293,6 +295,7 @@ class MHAMixerLayerd(nn.Module):
                 nonlinearity=nonlinearity, residual=residual,
                 residual_layer_norm=residual_layer_norm,
                 bottleneck_size=bottleneck_size, use_bias=use_bias,
+                rect_pad_masks=rect_pad_masks,
             ))
 
     def forward(

@@ -1,0 +1,154 @@
+"""Checkpointing: top-k monitors, ``last``, and restore, on ``torch.save``.
+
+Counterpart of ``multimodalreactiongeneration_tpu/train/checkpoint.py``
+(orbax there). Reference semantics: Lightning ModelCheckpoint keeps top-k
+on a monitored loss plus a ``last`` checkpoint (reference
+lstmformer/trainer.py:33-57). Here:
+
+  * ``TopKCheckpointer``: one file per checkpoint, named as in the JAX
+    package, ``{monitor}{epoch}-{loss:.6f}`` (V val_loss, T train_loss,
+    G genrt_loss), plus ``last``; a resumed run seeds its top-k from the
+    files already in the directory and prunes beyond k;
+  * a payload is ``{"params": model state_dict, "epoch": int}`` plus
+    ``"opt"`` (the optimizer's state_dict) where optimizer state is
+    saved: always in ``last``, in the top-k files only with
+    ``save_opt_state="all"``;
+  * ``use_async``: the payload is copied to host memory on the calling
+    thread (a snapshot the next step cannot touch), and ``torch.save``
+    writes it on a background thread, at most one in flight per monitor;
+    the bytes on disk equal a synchronous save's.
+
+Importing the reference's Lightning checkpoints (JAX
+``import_torch_state_dict``) comes with the inference CLI.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import threading
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+
+def _to_host(tree):
+    """An owned host copy of a (nested) state dict."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
+class HostSnapshot:
+    """One host copy of the model's (and optionally the optimizer's)
+    state, shared by the monitors that save at the same check."""
+
+    def __init__(self, model: torch.nn.Module,
+                 optimizer: Optional[torch.optim.Optimizer] = None):
+        self.tree = {"params": _to_host(model.state_dict())}
+        if optimizer is not None:
+            self.tree["opt"] = _to_host(optimizer.state_dict())
+
+
+def _remove(path: str) -> None:
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    elif os.path.exists(path):
+        os.remove(path)
+
+
+class TopKCheckpointer:
+    def __init__(self, directory: str, top_k: int = 5, monitor: str = "V",
+                 use_async: bool = False):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.top_k = top_k
+        self.monitor = monitor
+        self.use_async = use_async
+        self._thread: Optional[threading.Thread] = None
+        self._thread_exc: Optional[BaseException] = None
+        self._saved: List[Tuple[float, str]] = []  # (loss, path)
+        # seed from checkpoints already on disk so a resumed run compares
+        # against and prunes the previous run's top-k
+        for name in sorted(os.listdir(self.directory)):
+            if not name.startswith(self.monitor):
+                continue
+            try:
+                loss = float(name[len(self.monitor):].split("-", 1)[1])
+            except (IndexError, ValueError):
+                continue
+            self._saved.append((loss, os.path.join(self.directory, name)))
+        self._saved.sort()
+        for _, stale in self._saved[self.top_k:]:
+            _remove(stale)
+        del self._saved[self.top_k:]
+
+    def wait(self) -> None:
+        """Block until the in-flight background save is on disk."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+            exc, self._thread_exc = self._thread_exc, None
+            if exc is not None:
+                raise exc
+
+    def _save(self, path: str, snap: HostSnapshot, epoch: int) -> None:
+        # one save in flight: pruning never races an unfinished write
+        self.wait()
+        _remove(path)
+        payload = dict(snap.tree, epoch=epoch)
+        if not self.use_async:
+            torch.save(payload, path)
+            return
+
+        def run():
+            try:
+                torch.save(payload, path)
+            except Exception as exc:  # noqa: BLE001 - raised by wait()
+                self._thread_exc = exc
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def maybe_save(self, snap: HostSnapshot, epoch: int, loss: float) -> bool:
+        path = os.path.join(self.directory, f"{self.monitor}{epoch}-{loss:.6f}")
+        if len(self._saved) < self.top_k:
+            self._save(path, snap, epoch)
+            self._saved.append((loss, path))
+            self._saved.sort()
+            return True
+        worst_loss, worst_path = self._saved[-1]
+        if loss < worst_loss:
+            self._save(path, snap, epoch)
+            if worst_path != path:
+                _remove(worst_path)
+            self._saved[-1] = (loss, path)
+            self._saved.sort()
+            return True
+        return False
+
+    def save_last(self, snap: HostSnapshot, epoch: int) -> None:
+        self._save(os.path.join(self.directory, "last"), snap, epoch)
+
+    def best_path(self) -> Optional[str]:
+        return self._saved[0][1] if self._saved else None
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """A checkpoint's payload, tensors on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def restore_opt_state(payload: Dict[str, Any],
+                      optimizer: torch.optim.Optimizer) -> bool:
+    """Load the payload's optimizer state into ``optimizer`` (its tensors
+    move to the parameters' device); False if the checkpoint holds
+    none."""
+    if payload.get("opt") is None:
+        return False
+    optimizer.load_state_dict(payload["opt"])
+    return True

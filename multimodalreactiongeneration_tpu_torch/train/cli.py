@@ -1,0 +1,184 @@
+"""Training CLI: the port's counterpart of the JAX package's ``train/cli.py``.
+
+Usage (the run/*/train.sh contract):
+
+    python -m multimodalreactiongeneration_tpu_torch.train.cli \\
+        --config configs/lstmformer.yaml \\
+        name=exp-01 data_dir=/path/corpus ckpt_path=./ckpts log_dir=./log
+
+``--config`` names a config by its file's stem; the dict is the port's
+own (``configs.py``), so no yaml is read. ``key=value`` dotted overrides
+apply as in the JAX loader. The run builds the corpus manifests
+(``data/databuild_nx.py``), the bucketed loaders with the corpus audio
+resident on the device (``make_streaming_loaders``), the Metaformer and
+its step functions (``train/harness.py streaming_step_fns``), and trains
+with ``Trainer.fit``; ``resume_from=<checkpoint>`` (e.g. ``<ckpt>/last``)
+restores the weights, the optimizer state and the epoch.
+
+It runs on ``cuda:0``; ``device=cpu`` runs it on the CPU (the tests do).
+The yaml's own ``device: tpu`` names no device of the port and means the
+default. Only ``exp.use_model=lstmformer`` is ported. Not carried over:
+the JAX package's persistent compile cache (the port compiles nothing per
+shape) and its multi-host set-up (one device, ROADMAP queue A, item 9).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+from multimodalreactiongeneration_tpu_torch import resolve_device
+from multimodalreactiongeneration_tpu_torch.configs import load_config
+from multimodalreactiongeneration_tpu_torch.data.audio_cache import (
+    DeviceAudioCache,
+)
+from multimodalreactiongeneration_tpu_torch.data.databuild_nx import (
+    DataBuilderNX,
+)
+from multimodalreactiongeneration_tpu_torch.data.dataset import (
+    BatchLoader,
+    PrefetchLoader,
+    SegmentDatasetNX,
+    random_split_indices,
+)
+from multimodalreactiongeneration_tpu_torch.models.lstmformer import Metaformer
+from multimodalreactiongeneration_tpu_torch.train.checkpoint import (
+    load_checkpoint,
+    restore_opt_state,
+)
+from multimodalreactiongeneration_tpu_torch.train.generation_eval import (
+    make_generation_eval,
+)
+from multimodalreactiongeneration_tpu_torch.train.harness import (
+    Trainer,
+    streaming_step_fns,
+)
+from multimodalreactiongeneration_tpu_torch.train.optim import build_optimizer
+from multimodalreactiongeneration_tpu_torch.utils.logging import set_logger
+
+
+def make_streaming_loaders(cfg, logger, device=None):
+    """(train, valid, test loaders, dataset) over the corpus at
+    ``cfg.data.data_dir``; the batched fbank runs on ``device``."""
+    device = resolve_device(device)
+    builder = DataBuilderNX(cfg.data, logger)
+    dataset = SegmentDatasetNX(builder.data_site, cfg.motion, cfg.audio)
+    if len(dataset) == 0:
+        raise ValueError("dataset is empty")
+    tr, va, te = random_split_indices(
+        len(dataset), cfg.exp.train_rate, cfg.exp.valid_rate,
+        seed=cfg.get("seed", 0))
+    logger.info(
+        f"train size: {len(tr)}, valid size: {len(va)}, test size: {len(te)}")
+    pad = cfg.trainer.get("pad_to_multiple", 16)
+    bs = cfg.exp.batch_size
+    depth = int(cfg.trainer.get("prefetch_batches", 2))
+
+    # the corpus audio resident on the device: wavs upload once, slices
+    # gather there per batch; cache_audio_mb=0 turns it off
+    audio_cache = None
+    cache_mb = float(cfg.trainer.get("cache_audio_mb", 1024))
+    if cache_mb > 0:
+        audio_cache = DeviceAudioCache.build_for_dataset(
+            dataset, cfg.audio, pad, ratio=8,
+            budget_bytes=int(cache_mb * 1e6), device=device)
+        if audio_cache is not None:
+            logger.info(f"audio cache: corpus resident on {device} "
+                        f"({audio_cache.nbytes / 1e6:.0f} MB)")
+        else:
+            logger.info(f"audio cache: off (over {cache_mb:.0f} MB budget "
+                        "or empty corpus); per-batch int16 reads")
+
+    def mk(idx, shuffle):
+        loader = BatchLoader(
+            dataset, idx, bs, pad_to_multiple=pad, shuffle=shuffle,
+            seed=cfg.get("seed", 0), audio_cfg=cfg.audio,
+            bucket_windows=int(cfg.trainer.get("bucket_windows", 8)),
+            audio_cache=audio_cache, device=device,
+        )
+        return PrefetchLoader(loader, depth) if depth > 0 else loader
+
+    return mk(tr, True), mk(va, False), mk(te, False), dataset
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--config", required=True,
+                        help="config file (its stem names the port's dict)")
+    parser.add_argument("overrides", nargs="*",
+                        help="key=value dotted overrides")
+    args = parser.parse_args(argv)
+
+    cfg = load_config(args.config, args.overrides)
+    model_type = cfg.exp.use_model
+    if model_type != "lstmformer":
+        raise NotImplementedError(
+            f"exp.use_model={model_type!r}: the port trains the lstmformer; "
+            "lstm_with_sampling comes with the next slice (K9), simple_lstm "
+            "after it (ROADMAP queue B)")
+    if cfg.model.get("use_scheduled_sampling", False):
+        raise NotImplementedError(
+            "scheduled sampling is not ported yet (ROADMAP queue A, item 4)")
+    if cfg.trainer.get("accumulate_grad_batches", 1) != 1:
+        raise NotImplementedError("gradient accumulation is not ported yet")
+    if cfg.trainer.get("mesh_shape"):
+        raise NotImplementedError(
+            "trainer.mesh_shape: the port trains on one device (ROADMAP "
+            "queue A, item 9)")
+    named = cfg.get("device")
+    device = resolve_device(None if named in (None, "tpu") else named)
+    logger = set_logger(model_type, cfg.get("log_dir", "log"))
+
+    train_loader, val_loader, _, _ = make_streaming_loaders(cfg, logger,
+                                                            device)
+    model_cfg = cfg.model.to_dict()
+    model = Metaformer(
+        model_cfg, generator=torch.Generator().manual_seed(cfg.get("seed", 0)),
+        device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    logger.info(f"model: {model_type}, parameters: {n_params:,}, "
+                f"device: {device}")
+    optimizer = build_optimizer(model.parameters(), cfg.optim)
+    precision = str(cfg.trainer.get("precision", 32))
+    train_step, eval_step = streaming_step_fns(
+        model, model_cfg, cfg.metrics.to_dict(), optimizer,
+        mask_self_motion_input=True,
+        compute_dtype=(torch.bfloat16 if precision in ("bf16", "bfloat16")
+                       else torch.float32),
+        remat=cfg.trainer.get("remat", False),
+    )
+
+    start_epoch = 0
+    if cfg.get("resume_from"):
+        payload = load_checkpoint(cfg.resume_from)
+        model.load_state_dict(payload["params"])
+        restored = restore_opt_state(payload, optimizer)
+        start_epoch = int(payload.get("epoch", -1)) + 1
+        logger.info(f"resumed from {cfg.resume_from} at epoch {start_epoch} "
+                    f"(optimizer state: {'yes' if restored else 'no'})")
+
+    generation_eval = None
+    if cfg.trainer.get("run_generation_eval", False):
+        generation_eval = make_generation_eval(model, model_type, model_cfg)
+
+    trainer = Trainer(
+        model, train_step, eval_step, optimizer, cfg.optim,
+        callbacks_cfg=cfg.callbacks.to_dict(),
+        log_dir=cfg.get("log_dir", "log"),
+        ckpt_dir=os.path.join(cfg.get("ckpt_path", "ckpts"), cfg.name),
+        generation_eval=generation_eval,
+        val_check_interval=float(cfg.trainer.get("val_check_interval", 1.0)),
+        device=device,
+    )
+    result = trainer.fit(train_loader, val_loader,
+                         max_epochs=cfg.trainer.max_epochs,
+                         start_epoch=start_epoch)
+    logger.info(
+        f"done: epochs={result.epochs_run} best_val={result.best_val_loss:.6f}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -10,23 +10,46 @@ lstmformer.py:357-424), for the Metaformer:
     to the numerator and stays in the denominator;
   * the training loss scales the delta channels by sqrt(delta_loss_scale).
 
-The step runs the model's modules eagerly; on CUDA the encoder stacks
-and the self-motion LSTMs go through their kernels (``ops/mixer_stack.py``,
-``ops/lstm_layer.py``). f32 only. The scheduled-sampling and windowed
-steps and the fit loop (``Trainer``) come with later slices.
+The step runs the model's modules eagerly; on CUDA the encoder stacks,
+the self-motion LSTMs and the integrators' attention go through their
+kernels (``ops/mixer_stack.py``, ``ops/lstm_layer.py``,
+``ops/rect_attention.py``). f32 only.
+
+``Trainer`` is the counterpart of the JAX package's fit loop on one
+device: per-epoch cosine LR, Lightning ``val_check_interval`` semantics
+(a fraction of the train epoch, or every N steps when > 1) with
+early-stop patience counted in validation checks, V/T/G top-k
+checkpoints (T and G only with a generation eval) and ``last``, and the
+same ``metrics.jsonl`` records. Losses and metrics stay on the device
+through the epoch and are read back once at its end. A device mesh,
+multi-host runs (ROADMAP queue A, item 9) and scheduled sampling (queue
+A, item 4) raise ``NotImplementedError``; so do the scheduled-sampling
+and windowed step functions, which come with later slices.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple
+import json
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from multimodalreactiongeneration_tpu_torch import resolve_device
 from multimodalreactiongeneration_tpu_torch.ops.masks import PADDING_VALUE
+from multimodalreactiongeneration_tpu_torch.train import checkpoint as ckpt_lib
 from multimodalreactiongeneration_tpu_torch.train.losses import build_loss
 from multimodalreactiongeneration_tpu_torch.train.metrics import (
+    MetricAccumulator,
     gen_target_dict,
     per_slice_sq_err,
+)
+from multimodalreactiongeneration_tpu_torch.train.optim import (
+    cosine_annealing,
+    set_learning_rate,
 )
 
 # the 7-tuple of (data, lengths) pairs: fbank_p, motion_p, motion_s,
@@ -99,3 +122,258 @@ def streaming_step_fns(
         return lossfun(y, t), per_slice_sq_err(y, t, target_dict)
 
     return train_step, eval_step
+
+
+def _batch_frames(batch) -> int:
+    """Real (unpadded) motion frames in a batch, from the target's host
+    lengths: the per-epoch throughput record needs no device sync."""
+    return int(np.asarray(batch[-1][1]).sum())
+
+
+def _pack(loss, slices) -> Tuple[torch.Tensor, List[str]]:
+    """One device vector [loss, s_0, c_0, s_1, c_1, ...] and the slice
+    names, so an epoch's scalars read back as one array. Names in sorted
+    order, as the JAX package flattens the dict: the records list the
+    slices in the same order."""
+    names = sorted(slices)
+    flat = [loss.reshape(())]
+    for name in names:
+        flat += [x.reshape(()).to(loss.dtype) for x in slices[name]]
+    return torch.stack(flat), names
+
+
+def _unpack_rows(arr: np.ndarray, names: List[str], acc: MetricAccumulator):
+    for row in arr:
+        acc.update({n: (row[1 + 2 * i], row[2 + 2 * i])
+                    for i, n in enumerate(names)})
+
+
+@dataclass
+class FitResult:
+    epochs_run: int = 0
+    best_val_loss: float = float("inf")
+    history: List[Dict[str, float]] = field(default_factory=list)
+    ckpt_dir: Optional[str] = None
+
+
+class Trainer:
+    """``fit`` on one device with checkpoint and early-stop callbacks.
+
+    ``train_step(batch) -> (loss, per_slice)`` and ``eval_step(batch) ->
+    (loss, per_slice)`` are ``streaming_step_fns``'s; the model's
+    parameters and the optimizer are updated in place. Batches are staged
+    onto ``device`` (``cuda:0`` unless named)."""
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        train_step: Callable,
+        eval_step: Callable,
+        optimizer: torch.optim.Optimizer,
+        optim_cfg,
+        callbacks_cfg=None,
+        log_dir: str = "log",
+        ckpt_dir: Optional[str] = None,
+        mesh=None,
+        generation_eval: Optional[Callable] = None,
+        scheduled_max_epochs: Optional[int] = None,
+        val_check_interval: float = 1.0,
+        device=None,
+    ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "the port trains on one device: a mesh and multi-host "
+                "training come with data-parallel training (ROADMAP queue "
+                "A, item 9)")
+        if scheduled_max_epochs:
+            raise NotImplementedError(
+                "scheduled sampling is not ported yet (ROADMAP queue A, "
+                "item 4)")
+        self.model = model
+        self.train_step = train_step
+        self.eval_step = eval_step
+        self.optimizer = optimizer
+        self.optim_cfg = optim_cfg
+        self.callbacks = callbacks_cfg or {}
+        self.log_dir = log_dir
+        self.ckpt_dir = ckpt_dir
+        self.generation_eval = generation_eval
+        self.val_check_interval = float(val_check_interval)
+        self.device = resolve_device(device)
+        os.makedirs(log_dir, exist_ok=True)
+        self._metrics_path = os.path.join(log_dir, "metrics.jsonl")
+
+    def _stage(self, batch):
+        return [(torch.as_tensor(x).to(self.device, non_blocking=True), n)
+                for x, n in batch]
+
+    def _log(self, record: Dict[str, Any]) -> None:
+        with open(self._metrics_path, "a", encoding="utf-8") as f:
+            f.write(json.dumps(record) + "\n")
+
+    def fit(self, train_loader, val_loader, max_epochs: int,
+            start_epoch: int = 0) -> FitResult:
+        """Epochs ``start_epoch`` .. ``max_epochs - 1``; the optimizer's
+        state is whatever it holds (restored by the caller on resume)."""
+        cfg = self.optim_cfg
+        lr_sched = (cosine_annealing(cfg["lr"], cfg["max_epochs"])
+                    if cfg.get("use_lr_sched", False) else None)
+        patience_epochs = self.callbacks.get("patience_epoch", max_epochs)
+        use_early = self.callbacks.get("use_early_stopping", False)
+        top_k = self.callbacks.get("save_top_k", 1)
+        vci = self.val_check_interval
+        try:
+            n_train_batches = len(train_loader)
+        except TypeError:
+            n_train_batches = None
+        if vci > 1.0:
+            val_every = int(vci)
+        elif n_train_batches:
+            val_every = max(1, int(n_train_batches * vci))
+        else:
+            val_every = None
+        patience = patience_epochs / vci if vci <= 1.0 else patience_epochs
+        use_ckpt = self.callbacks.get("use_checkpoint", True) and self.ckpt_dir
+
+        result = FitResult(ckpt_dir=self.ckpt_dir)
+        use_async = self.callbacks.get("async_checkpoint", False)
+        savers: Dict[str, ckpt_lib.TopKCheckpointer] = {}
+        if use_ckpt:
+            monitors = ["V"] + (["T", "G"] if self.generation_eval else [])
+            for mon in monitors:
+                savers[mon] = ckpt_lib.TopKCheckpointer(
+                    self.ckpt_dir, top_k=top_k, monitor=mon,
+                    use_async=use_async)
+        saver = savers.get("V")
+        state = dict(wait_checks=0, step=0, check_idx=0, stop=False,
+                     val_seconds=0.0)
+
+        def run_check(epoch, packed_train):
+            """One validation check: the val pass (+ the generation eval),
+            the V/T/G monitors, early-stop bookkeeping and a check record
+            in metrics.jsonl."""
+            state["check_idx"] += 1
+            # read first: it drains the queued train steps, so the timer
+            # below charges only validation work to val_seconds
+            train_so_far = (float(torch.stack([p[0] for p in packed_train])
+                                  .mean()) if packed_train else float("nan"))
+            t_val = time.time()
+            val_metrics = MetricAccumulator("valid_")
+            packed_val, names = [], []
+            for vbatch in val_loader:
+                loss, slices = self.eval_step(self._stage(vbatch))
+                vec, names = _pack(loss, slices)
+                packed_val.append(vec)
+            if packed_val:
+                arr = torch.stack(packed_val).cpu().numpy()
+                val_loss = float(arr[:, 0].mean())
+                _unpack_rows(arr, names, val_metrics)
+            else:
+                val_loss = float("nan")
+            genrt_loss = None
+            if self.generation_eval is not None:
+                genrt_loss = float(self.generation_eval(val_loader))
+
+            snap = None
+            if savers:
+                # optimizer state only in ``last`` unless "all"
+                opt = (self.optimizer
+                       if self.callbacks.get("save_opt_state", "last") == "all"
+                       else None)
+                snap = ckpt_lib.HostSnapshot(self.model, opt)
+            if saver is not None and not np.isnan(val_loss):
+                saver.maybe_save(snap, epoch, val_loss)
+            if "T" in savers and np.isfinite(train_so_far):
+                savers["T"].maybe_save(snap, epoch, train_so_far)
+            if ("G" in savers and genrt_loss is not None
+                    and np.isfinite(genrt_loss)):
+                savers["G"].maybe_save(snap, epoch, genrt_loss)
+
+            if val_loss < result.best_val_loss:
+                result.best_val_loss = val_loss
+                state["wait_checks"] = 0
+            elif not np.isnan(val_loss):
+                state["wait_checks"] += 1
+                if use_early and state["wait_checks"] >= patience:
+                    state["stop"] = True
+
+            check = {
+                "epoch": epoch,
+                "step": state["step"],
+                "val_check": state["check_idx"],
+                "val_loss": val_loss,
+                "train_loss_so_far": train_so_far,
+                **val_metrics.compute(),
+            }
+            if genrt_loss is not None:
+                check["genrt_loss"] = genrt_loss
+            self._log(check)
+            state["val_seconds"] += time.time() - t_val
+            return check
+
+        for epoch in range(start_epoch, max_epochs):
+            if lr_sched is not None:
+                set_learning_rate(self.optimizer, float(lr_sched(epoch)))
+            train_metrics = MetricAccumulator("train_")
+            t0 = time.time()
+            packed_train, names = [], []
+            train_frames = 0
+            last_check = None
+            checks_this_epoch = 0
+            state["val_seconds"] = 0.0
+            for batch_idx, batch in enumerate(train_loader):
+                train_frames += _batch_frames(batch)
+                loss, slices = self.train_step(self._stage(batch))
+                vec, names = _pack(loss, slices)
+                packed_train.append(vec)
+                state["step"] += 1
+                if val_every and (batch_idx + 1) % val_every == 0:
+                    last_check = run_check(epoch, packed_train)
+                    checks_this_epoch += 1
+                    if state["stop"]:
+                        break
+            # the one readback of the epoch is its device sync
+            if packed_train:
+                arr = torch.stack(packed_train).cpu().numpy()
+                train_loss = float(arr[:, 0].mean())
+                _unpack_rows(arr, names, train_metrics)
+            else:
+                train_loss = float("nan")
+            train_seconds = time.time() - t0 - state["val_seconds"]
+            # epoch-end validation only when no interval check ran
+            if last_check is None and not state["stop"]:
+                last_check = run_check(epoch, packed_train)
+                checks_this_epoch += 1
+            val_loss = last_check["val_loss"] if last_check else float("nan")
+
+            record = {
+                "epoch": epoch,
+                "step": state["step"],
+                "train_loss": train_loss,
+                "val_loss": val_loss,
+                "lr": float(lr_sched(epoch)) if lr_sched else cfg["lr"],
+                "epoch_seconds": time.time() - t0,
+                "train_seconds": round(train_seconds, 4),
+                "train_frames": train_frames,
+                "train_frames_per_s": round(
+                    train_frames / max(train_seconds, 1e-9), 1),
+                "val_checks": checks_this_epoch,
+                "val_seconds": round(state["val_seconds"], 4),
+                **train_metrics.compute(),
+            }
+            if last_check:
+                record.update({k: v for k, v in last_check.items()
+                               if k.startswith("valid_")})
+                if "genrt_loss" in last_check:
+                    record["genrt_loss"] = last_check["genrt_loss"]
+            self._log(record)
+            result.history.append(record)
+            result.epochs_run = epoch + 1
+            if state["stop"]:
+                break
+        if saver is not None:
+            saver.save_last(ckpt_lib.HostSnapshot(self.model, self.optimizer),
+                            result.epochs_run - 1)
+        for s in savers.values():
+            s.wait()  # flush background saves before anyone reads ckpt_dir
+        return result

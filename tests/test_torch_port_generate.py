@@ -124,7 +124,7 @@ def test_forced_fused_rollout_outside_contract_raises(models):
         Metaformer,
     )
 
-    pm = Metaformer(dict(MF_CFG, interlayer_residual=True))
+    pm = Metaformer(dict(MF_CFG, interlayer_residual=True), device="cpu")
     with pytest.raises(ValueError, match="fused_rollout"):
         _port(pm, batch, np.ones(STEPS, bool), fused_rollout=True)
 
@@ -139,7 +139,7 @@ def test_decode_is_deterministic_in_any_mode(models, jax_outputs):
         Metaformer,
     )
 
-    drop = Metaformer(dict(MF_CFG, dropout=0.1))
+    drop = Metaformer(dict(MF_CFG, dropout=0.1), device="cpu")
     drop.load_state_dict(pm.state_dict(), strict=True)
     assert drop.training
     got = _port(drop, batch, np.zeros(STEPS, bool), cache_dtype=torch.float32)

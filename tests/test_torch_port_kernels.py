@@ -202,3 +202,55 @@ def test_training_kernels_refuse_bf16_and_off_gate_shapes(dev):
             K1.mixer_stack_recurrence(*args)  # K1
     with pytest.raises(NotImplementedError, match="lstm_recurrence"):
         use_lstm_layer("cuda", 16, 18, 256)
+
+
+def _rect_inputs(dev, seed, b, lq, lk, e, full_row=True):
+    """q/k/v (B, L, E) and pads with ~10% padded rows and keys; with
+    ``full_row``, row 3 of batch 0 has every key masked (it and the keys
+    it can see are padding)."""
+    rng = np.random.default_rng(seed)
+    r = _rand(rng, dev)
+    q_pad = torch.from_numpy(rng.random((b, lq)) < 0.1)
+    k_pad = torch.from_numpy(rng.random((b, lk)) < 0.1)
+    if full_row:
+        q_pad[0, 3] = True
+        k_pad[0, :-(-4 * lk // lq)] = True
+    return (r(b, lq, e), r(b, lk, e), r(b, lk, e), q_pad.to(dev),
+            k_pad.to(dev), r(b, lq, e))
+
+
+@pytest.mark.parametrize("b,lq,lk,e,heads", [
+    (32, 252, 2016, 256, 4), (32, 252, 252, 256, 4), (2, 16, 128, 64, 2),
+    (2, 128, 16, 64, 2), (3, 40, 40, 128, 2), (2, 10, 20, 64, 2),
+])
+def test_rect_attention_kernels_match_plain(dev, b, lq, lk, e, heads):
+    from multimodalreactiongeneration_tpu_torch.ops import rect_attention as K5
+
+    q, k, v, q_pad, k_pad, g = _rect_inputs(dev, lq * lk + e, b, lq, lk, e)
+    want = K5.rect_attention_reference(heads, q, k, v, q_pad, k_pad)
+    before = K5.fwd_launches, K5.bwd_launches
+    with torch.no_grad():
+        got = K5.rect_attention(heads, q, k, v, q_pad, k_pad)
+    assert float((got - want).abs().max()) <= TOL
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = K5.rect_attention(heads, *leaves, q_pad, k_pad)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (K5.fwd_launches, K5.bwd_launches) == (before[0] + 2,
+                                                  before[1] + 1)
+    assert float((out.detach() - want).abs().max()) <= TOL
+    wgrads = K5.rect_attention_backward_reference(heads, q, k, v, q_pad,
+                                                  k_pad, g)
+    for i, (gk, gw) in enumerate(zip(grads, wgrads)):
+        assert _rel_err(gk, gw) <= GRAD_REL_TOL, i
+
+
+def test_rect_attention_kernel_refuses_bf16_and_other_head_dims(dev):
+    from multimodalreactiongeneration_tpu_torch.ops import rect_attention as K5
+
+    q, k, v, q_pad, k_pad, _ = _rect_inputs(dev, 0, 2, 8, 16, 64, False)
+    with pytest.raises(ValueError, match="f32"):
+        K5.rect_attention(2, q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                          q_pad, k_pad)
+    with pytest.raises(ValueError, match="head dims"):
+        K5.rect_attention(4, q, k, v, q_pad, k_pad)

@@ -11,7 +11,12 @@
     2-block encoders, T 24, lead 4) with the JAX weights moved over by
     ``state_dict_from_jax``, through three SGD-momentum steps of the
     port's ``train_step`` vs the JAX ``streaming_step_fns`` train_step:
-    per-step losses rtol 1e-5, final parameters atol 1e-5;
+    per-step losses rtol 1e-5, final parameters atol 1e-5. The JAX side
+    runs its default TPU configuration, the integrators through the
+    rect-attention kernel (``MRGEN_FUSED_ATTN=force``, Pallas in
+    interpret mode), as the port's integrators always do; one case keeps
+    the JAX package's plain attention (``MRGEN_FUSED_ATTN=0``), and the
+    two agree;
   * the faults training exposed in the decode slice: the model is
     trainable, the inference-only kernel wrappers refuse inputs that
     need a gradient, and the mixers refuse dropout in training.
@@ -238,7 +243,17 @@ def _train_batch(seed):
     return batch
 
 
-def test_train_step_matches_jax():
+def test_train_step_matches_jax(monkeypatch):
+    monkeypatch.setenv("MRGEN_FUSED_ATTN", "force")
+    _check_train_step_matches_jax()
+
+
+def test_train_step_matches_jax_plain_attention(monkeypatch):
+    monkeypatch.setenv("MRGEN_FUSED_ATTN", "0")
+    _check_train_step_matches_jax()
+
+
+def _check_train_step_matches_jax():
     batch = _train_batch(50)
     jm, params, pm = paired_models(MF_CFG, 51, batch)
     model_cfg = dict(MF_CFG, **LOSS_CFG)
@@ -282,7 +297,8 @@ def test_train_step_matches_jax():
 
 
 def test_step_fns_refuse_bf16_and_remat():
-    pm = Metaformer(MF_CFG, generator=torch.Generator().manual_seed(0))
+    pm = Metaformer(MF_CFG, generator=torch.Generator().manual_seed(0),
+                    device="cpu")
     opt = optim.build_optimizer(pm.parameters(), SGD_CFG)
     model_cfg = dict(MF_CFG, **LOSS_CFG)
     with pytest.raises(NotImplementedError, match="f32"):
@@ -299,7 +315,8 @@ def test_metaformer_trains_every_parameter():
     """The constructor leaves the model trainable; one backward gives
     every parameter a gradient, the encoder stacks' included (CPU
     tensors: autograd records through the plain stack)."""
-    pm = Metaformer(MF_CFG, generator=torch.Generator().manual_seed(3))
+    pm = Metaformer(MF_CFG, generator=torch.Generator().manual_seed(3),
+                    device="cpu")
     assert pm.training
     assert all(p.requires_grad for p in pm.parameters())
     batch = [torch.from_numpy(x) for x in _train_batch(60)]

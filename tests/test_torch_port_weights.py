@@ -56,7 +56,7 @@ def paired_models(cfg, seed, batch):
     params = jax.jit(jm.init)(
         jax.random.PRNGKey(seed), *[jnp.asarray(x) for x in batch[:6]]
     )
-    pm = PortMetaformer(cfg)
+    pm = PortMetaformer(cfg, device="cpu")
     pm.load_state_dict(state_dict_from_jax(flat_params(params)), strict=True)
     return jm, params, pm
 
@@ -67,7 +67,7 @@ def test_converter_maps_every_leaf_and_loads_strict():
     params = jm.init(jax.random.PRNGKey(0), *[jnp.asarray(x) for x in batch[:6]])
     flat = flat_params(params)
     sd = state_dict_from_jax(flat)
-    pm = PortMetaformer(MF_CFG)
+    pm = PortMetaformer(MF_CFG, device="cpu")
     assert set(sd) == set(pm.state_dict())
     assert len(sd) == len(flat)
     pm.load_state_dict(sd, strict=True)
@@ -103,8 +103,8 @@ def test_port_init_is_distribution_matched():
         jm.init(jax.random.PRNGKey(1), *[jnp.asarray(x) for x in batch[:6]])
     )
     ref = state_dict_from_jax(flat)
-    sd = PortMetaformer(MF_CFG, generator=torch.Generator().manual_seed(1)
-                        ).state_dict()
+    sd = PortMetaformer(MF_CFG, generator=torch.Generator().manual_seed(1),
+                        device="cpu").state_dict()
     for name, t in sd.items():
         assert t.shape == ref[name].shape, name
         r = ref[name]
