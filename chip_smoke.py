@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's three main paths with the flagship Metaformer at full
-width (``configs.LSTMFORMER_MODEL_CFG``: hidden 256, 5 blocks, encoders
-of 5 mixer blocks, 4 heads, 10 s context) on random weights from a
-seeded generator: offline AR generation, the training step, and the
-training CLI. Phases:
+Drives the port's main paths at full width on random weights from a
+seeded generator: with the flagship Metaformer
+(``configs.LSTMFORMER_MODEL_CFG``: hidden 256, 5 blocks, encoders of 5
+mixer blocks, 4 heads, 10 s context) offline AR generation, the training
+step and the training CLI; then the same three with lstm_with_sampling
+(``configs.LWS_MODEL_CFG``: a 2-layer 128-wide LSTM sampler, two
+256-wide layered-LSTM blocks). Phases:
 
   0. device: name and power limit; TF32 off;
   1. build every CUDA kernel library from csrc/, one nvcc each, all
@@ -29,8 +31,10 @@ training CLI. Phases:
      out, hn, cn <= 1e-4 abs; each of the twelve gradients
      max|kernel - plain| / max|plain| <= 1e-3;
   6. LSTM-layer forward (K7, with and without residuals) and backward vs
-     plain at B32 x T252 x din 256 x H256, the same bounds; cuDNN's
-     ``torch.nn.LSTM`` with the same weights timed as a yardstick;
+     plain at B32 x T252 x din 256 x H256 (the Metaformer's self-motion
+     LSTMs) and B256 x T140 (lstm_with_sampling's blocks), the same
+     bounds; cuDNN's ``torch.nn.LSTM`` with the same weights timed as a
+     yardstick;
   7. rect-attention forward (K5) and backward (K6) vs plain at B32, Lq
      252, Lk 2016 and 252, E 256, 4 heads, 10% padded rows and keys: the
      same bounds; ``scaled_dot_product_attention`` with the boolean mask
@@ -56,7 +60,27 @@ training CLI. Phases:
      ``last``: finite train, val and generation losses, V/T/G
      checkpoints and ``last``, the epoch records, and the launches of
      every kernel (K5, K6, K3, K4, K7 per train step; K5, K1, K7 and a
-     generation's K1 and K2 per validation batch).
+     generation's K1 and K2 per validation batch);
+ 10. stacked-LSTM wavefront (K9) forward with and without residuals and
+     backward vs plain, f32, H128 x L2 at B256 x T1120 (the sampler in
+     training) and B16 x T96 (the generation warmup): out, hn, cn <=
+     1e-4 abs; each gradient max|kernel - plain| / max|plain| <= 1e-3;
+     cuDNN's 2-layer ``torch.nn.LSTM`` with the same recurrent weights
+     timed as a yardstick (it also computes layer 0's input product);
+ 11. lstm_with_sampling generation: ``generate_lws`` with the full mask
+     on 3 batches of 16 x 250 frames (lead 12): shape, finite, launches
+     per generation (K9 forward +1, nothing else), time; then a
+     teacher-forced f32 generation at batch 2 vs CPU tensors: <= 1e-4;
+ 12. lstm_with_sampling training step at the yaml's batch and window,
+     B256 x T128 (lead 12), AdamW with the yaml's optim group: as phase
+     8, with launches per step K9 +1 / +1 and K7 +2 / +2, per eval step
+     K9 +1 and K7 forward +2, the profiler table in
+     ``_build/profile_lws_train_step.txt``;
+ 13. lstm_with_sampling training CLI: ``configs/lstm_with_sampling.yaml``
+     at ``exp.batch_size=32`` on phase 9's corpus, an epoch and a resumed
+     epoch, the checks of phase 9, and exact K9 and K7 launches (per
+     train step K9 +1 / +1, K7 +2 / +2; per validation batch an eval
+     step, K9 +1 and K7 forward +2, and a generation, K9 +1).
 
 Every kernel's JSON record carries its bound: the larger of its FP32
 operations at 67 TFLOP/s and its bytes at 3.35 TB/s (H100 SXM, 700 W).
@@ -67,6 +91,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -80,8 +105,10 @@ SEED = 0
 K1_TOL, K2_F32_TOL, K2_BF16_TOL, PATH_TOL = 1e-4, 1e-4, 5e-2, 1e-4
 FWD_TOL, GRAD_REL_TOL, LOSS_REL_TOL = 1e-4, 1e-3, 1e-5
 TRAIN_B, TRAIN_FRAMES, TRAIN_STEPS = 32, 240, 5
+LWS_B, LWS_FRAMES = 256, 128  # configs/lstm_with_sampling.yaml's batch
 CORPUS_SESSIONS, CORPUS_SECONDS = 4, 540.0
-LIBS = ("mixer_stack", "decode_rollout", "lstm_layer", "rect_attention")
+LIBS = ("mixer_stack", "decode_rollout", "lstm_layer", "rect_attention",
+        "lstm_stacked")
 SRC = "multimodalreactiongeneration_tpu_torch/csrc/"
 JAX_OPS = "multimodalreactiongeneration_tpu/ops/"
 
@@ -138,6 +165,8 @@ COUNTERS = {  # kernel name -> (module key, counter attribute)
     "lstm_layer_bwd": ("K7", "bwd_launches"),
     "rect_attention_fwd": ("K5", "fwd_launches"),
     "rect_attention_bwd": ("K5", "bwd_launches"),
+    "lstm_stacked_fwd": ("K9", "fwd_launches"),
+    "lstm_stacked_bwd": ("K9", "bwd_launches"),
 }
 
 
@@ -269,53 +298,68 @@ def train_kernel_phase(K1, dev, rng):
 
 def lstm_layer_phase(K7, dev, rng):
     """6. The LSTM layer (K7): forward without and with residuals and
-    backward vs plain at the self-motion LSTM's shape."""
-    b, t, din, h = TRAIN_B, LEAD + TRAIN_FRAMES, 256, 256
-    r = seeded(rng, dev)
-    args = (r(b, t, din), r(din, 4 * h, s=0.06), r(4 * h, s=0.06),
-            r(h, 4 * h, s=0.06), r(b, h, s=0.3), r(b, h, s=0.3))
-    cots = (r(b, t, h), r(b, h), r(b, h))
-    ys0, (hn0, cn0) = K7.lstm_layer(*args)  # no gradient: no residuals
-    leaves = [a.clone().requires_grad_() for a in args]
-    ys, (hn, cn) = K7.lstm_layer(*leaves)
-    grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
-    ys, hn, cn = ys.detach(), hn.detach(), cn.detach()
-    with torch.no_grad():
-        plain_fwd_ms, (ysr, (hr, cr)) = cuda_ms(
-            lambda: K7.lstm_layer_reference(*args), 1)
-    plain_bwd_ms, want = cuda_ms(
-        K7.lstm_layer_backward_reference(args, *cots, closure=True), 1)
-    fwd_err = max(max_err((ys0, hn0, cn0), (ysr, hr, cr)),
-                  max_err((ys, hn, cn), (ysr, hr, cr)))
-    grad_err = max_err(grads, want)
-    grad_rel = rel_err(grads, want)
-    fwd_ms, _ = cuda_ms(lambda: K7.lstm_layer_forward(args, False), 5)
-    fwd_res_ms, (ys1, _, _, acts, cs) = cuda_ms(
-        lambda: K7.lstm_layer_forward(args, True), 5)
-    bwd_ms, _ = cuda_ms(
-        lambda: K7.lstm_layer_backward(args, ys1, acts, cs, *cots), 5)
-    # x.W_ih and h.W_hh: 2 B T 4H (Din + H) FLOPs; the backward doubles it
-    fwd_bound = bound(8 * b * t * h * (din + h),
-                      nbytes(args, ys1, hn, cn, acts, cs))
-    bwd_bound = bound(16 * b * t * h * (din + h),
-                      nbytes(args, ys1, acts, cs, cots, grads))
-    lib_fwd_ms, lib_bwd_ms = cudnn_lstm_ms(args, cots)
-    check_case("lstm_layer", fwd_err, grad_rel, T=t, fwd_ms=fwd_ms,
-               fwd_res_ms=fwd_res_ms, plain_fwd_ms=plain_fwd_ms,
-               bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
-               library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms)
-    return dict(T=t, fwd_max_abs_err=fwd_err, grad_max_abs_err=grad_err,
-                grad_max_rel_err=grad_rel, fwd_ms=fwd_ms,
-                fwd_res_ms=fwd_res_ms, plain_fwd_ms=plain_fwd_ms,
-                bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
-                library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms,
-                fwd_bound=fwd_bound, bwd_bound=bwd_bound)
+    backward vs plain at the Metaformer self-motion LSTM's shape (B32 x
+    T252) and at lstm_with_sampling's block shape (B256 x T140), both
+    256 -> 256."""
+    cases = []
+    for b, t in ((TRAIN_B, LEAD + TRAIN_FRAMES), (LWS_B, LEAD + LWS_FRAMES)):
+        din = h = 256
+        r = seeded(rng, dev)
+        args = (r(b, t, din), r(din, 4 * h, s=0.06), r(4 * h, s=0.06),
+                r(h, 4 * h, s=0.06), r(b, h, s=0.3), r(b, h, s=0.3))
+        cots = (r(b, t, h), r(b, h), r(b, h))
+        ys0, (hn0, cn0) = K7.lstm_layer(*args)  # no gradient: no residuals
+        leaves = [a.clone().requires_grad_() for a in args]
+        ys, (hn, cn) = K7.lstm_layer(*leaves)
+        grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
+        ys, hn, cn = ys.detach(), hn.detach(), cn.detach()
+        with torch.no_grad():
+            plain_fwd_ms, (ysr, (hr, cr)) = cuda_ms(
+                lambda: K7.lstm_layer_reference(*args), 1)
+        plain_bwd_ms, want = cuda_ms(
+            K7.lstm_layer_backward_reference(args, *cots, closure=True), 1)
+        fwd_err = max(max_err((ys0, hn0, cn0), (ysr, hr, cr)),
+                      max_err((ys, hn, cn), (ysr, hr, cr)))
+        grad_err = max_err(grads, want)
+        grad_rel = rel_err(grads, want)
+        fwd_ms, _ = cuda_ms(lambda: K7.lstm_layer_forward(args, False), 5)
+        fwd_res_ms, (ys1, _, _, acts, cs) = cuda_ms(
+            lambda: K7.lstm_layer_forward(args, True), 5)
+        bwd_ms, _ = cuda_ms(
+            lambda: K7.lstm_layer_backward(args, ys1, acts, cs, *cots), 5)
+        # x.W_ih and h.W_hh: 2 B T 4H (Din + H) FLOPs; the backward doubles
+        fwd_bound = bound(8 * b * t * h * (din + h),
+                          nbytes(args, ys1, hn, cn, acts, cs))
+        bwd_bound = bound(16 * b * t * h * (din + h),
+                          nbytes(args, ys1, acts, cs, cots, grads))
+        lib_fwd_ms, lib_bwd_ms = cudnn_lstm_ms(args, cots)
+        check_case("lstm_layer", fwd_err, grad_rel, B=b, T=t, fwd_ms=fwd_ms,
+                   fwd_res_ms=fwd_res_ms, plain_fwd_ms=plain_fwd_ms,
+                   bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
+                   library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms)
+        cases.append(dict(
+            B=b, T=t, fwd_max_abs_err=fwd_err, grad_max_abs_err=grad_err,
+            grad_max_rel_err=grad_rel, fwd_ms=fwd_ms, fwd_res_ms=fwd_res_ms,
+            plain_fwd_ms=plain_fwd_ms, bwd_ms=bwd_ms,
+            plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
+            library_bwd_ms=lib_bwd_ms, fwd_bound=fwd_bound,
+            bwd_bound=bwd_bound))
+    return cases
+
+
+def cudnn_ms(lstm, x, hx, cots):
+    """Yardstick only, never called by the port: a ``torch.nn.LSTM``
+    (cuDNN) forward under grad and its backward, ms each (mean of 5
+    after a warm-up)."""
+    fwd_ms, (ys, (hn, cn)) = cuda_ms(lambda: lstm(x, hx), 5)
+    leaves = [x, *lstm.parameters()]
+    bwd_ms, _ = cuda_ms(lambda: torch.autograd.grad(
+        (ys, hn, cn), leaves, cots, retain_graph=True), 5)
+    return fwd_ms, bwd_ms
 
 
 def cudnn_lstm_ms(args, cots):
-    """Yardstick only, never called by the port: ``torch.nn.LSTM``
-    (cuDNN) with the same weights, forward under grad and backward, ms
-    each (mean of 5 after a warm-up)."""
+    """cuDNN's one-layer LSTM with K7's weights (``cudnn_ms``)."""
     x, w_ih_t, b_sum, w_hh_t, h0, c0 = args
     lstm = torch.nn.LSTM(x.shape[-1], h0.shape[-1], batch_first=True).to(
         x.device)
@@ -324,14 +368,96 @@ def cudnn_lstm_ms(args, cots):
         lstm.weight_hh_l0.copy_(w_hh_t.T)
         lstm.bias_ih_l0.copy_(b_sum)
         lstm.bias_hh_l0.zero_()
-    xl = x.clone().requires_grad_()
-    fwd_ms, (ys, (hn, cn)) = cuda_ms(lambda: lstm(xl, (h0[None], c0[None])),
-                                     5)
-    leaves = [xl, *lstm.parameters()]
-    bwd_ms, _ = cuda_ms(lambda: torch.autograd.grad(
-        (ys, hn, cn), leaves, (cots[0], cots[1][None], cots[2][None]),
-        retain_graph=True), 5)
-    return fwd_ms, bwd_ms
+    return cudnn_ms(lstm, x.clone().requires_grad_(), (h0[None], c0[None]),
+                    (cots[0], cots[1][None], cots[2][None]))
+
+
+def cudnn_stacked_ms(args, cots):
+    """cuDNN's L-layer LSTM with K9's recurrent weights (``cudnn_ms``).
+    It also computes layer 0's input product, from an input x (B, T, H)
+    standing in for the precomputed xw0 the kernels take."""
+    xw0, w_ih_t, b_rest, w_hh_t, h0, c0 = args
+    layers, _, h = h0.shape
+    lstm = torch.nn.LSTM(h, h, num_layers=layers, batch_first=True).to(
+        xw0.device)
+    with torch.no_grad():
+        for k in range(layers):
+            getattr(lstm, f"weight_hh_l{k}").copy_(w_hh_t[k].T)
+            getattr(lstm, f"bias_hh_l{k}").zero_()
+            if k:
+                getattr(lstm, f"weight_ih_l{k}").copy_(w_ih_t[k - 1].T)
+                getattr(lstm, f"bias_ih_l{k}").copy_(b_rest[k - 1])
+    x = xw0[:, :, :h].contiguous().requires_grad_()
+    return cudnn_ms(lstm, x, (h0, c0), cots)
+
+
+def lstm_stacked_phase(K9, dev, rng):
+    """10. The stacked-LSTM wavefront (K9): forward without and with
+    residuals and backward vs plain at lstm_with_sampling's sampler
+    shapes, H128 x L2: B256 x T1120 (training) and B16 x T96 (the
+    generation warmup)."""
+    h, layers = 128, 2
+    r = seeded(rng, dev)
+    # one 8-CTA cluster per 16 rows: beyond what the card holds at once,
+    # the clusters run in waves
+    resident = {k: K9.resident_clusters(layers, k == "backward")
+                for k in ("forward", "backward")}
+    log("lstm_stacked", resident_clusters=resident)
+    cases = []
+    for b, t in ((LWS_B, (LEAD + LWS_FRAMES) * RATIO), (B, LEAD * RATIO)):
+        args = (r(b, t, 4 * h), r(layers - 1, h, 4 * h, s=0.06),
+                r(layers - 1, 4 * h, s=0.06), r(layers, h, 4 * h, s=0.06),
+                r(layers, b, h, s=0.3), r(layers, b, h, s=0.3))
+        cots = (r(b, t, h), r(layers, b, h), r(layers, b, h))
+        # the wrapper as the model calls it: without a gradient the
+        # forward without residuals; with one, the forward with
+        # residuals, then the backward
+        ys0, (hn0, cn0) = K9.lstm_stacked_recurrence(*args)
+        leaves = [a.clone().requires_grad_() for a in args]
+        ys, (hn, cn) = K9.lstm_stacked_recurrence(*leaves)
+        grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
+        ys, hn, cn = ys.detach(), hn.detach(), cn.detach()
+        with torch.no_grad():
+            plain_fwd_ms, (ysr, (hr, cr)) = cuda_ms(
+                lambda: K9.lstm_stacked_reference(*args), 1)
+        plain_bwd_ms, want = cuda_ms(
+            K9.lstm_stacked_backward_reference(args, *cots, closure=True), 1)
+        fwd_err = max(max_err((ys0, hn0, cn0), (ysr, hr, cr)),
+                      max_err((ys, hn, cn), (ysr, hr, cr)))
+        grad_err = max_err(grads, want)
+        grad_rel = rel_err(grads, want)
+        del ysr, hr, cr, want
+        fwd_ms, _ = cuda_ms(lambda: K9.lstm_stacked_forward(args, False), 5)
+        fwd_res_ms, (ys1, hn1, cn1, hs, acts, cs) = cuda_ms(
+            lambda: K9.lstm_stacked_forward(args, True), 5)
+        bwd_ms, _ = cuda_ms(lambda: K9.lstm_stacked_backward(
+            args[1:], ys1, hs, acts, cs, *cots), 5)
+        # h.W_hh of every layer and h.W_ih of layers 1..L-1: 2 B T 4H H
+        # (2L - 1) FLOPs; the backward doubles it (dgates . W^T and dW)
+        flops = 2 * b * t * 4 * h * h * (2 * layers - 1)
+        fwd_bound = bound(flops, nbytes(args, ys1, hn1, cn1, hs, acts, cs))
+        fwd_nores_bound = bound(flops, nbytes(args, ys0, hn0, cn0))
+        bwd_bound = bound(2 * flops,
+                          nbytes(args[1:], ys1, hs, acts, cs, cots, grads))
+        del hs, acts, cs
+        lib_fwd_ms, lib_bwd_ms = cudnn_stacked_ms(args, cots)
+        check_case("lstm_stacked", fwd_err, grad_rel, B=b, T=t, L=layers,
+                   fwd_ms=fwd_ms, fwd_res_ms=fwd_res_ms,
+                   plain_fwd_ms=plain_fwd_ms, bwd_ms=bwd_ms,
+                   plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
+                   library_bwd_ms=lib_bwd_ms, fwd_bound_ms=fwd_bound[0],
+                   bwd_bound_ms=bwd_bound[0])
+        cases.append(dict(
+            B=b, T=t, L=layers, H=h, clusters=-(-b // 16),
+            resident_clusters=resident, fwd_max_abs_err=fwd_err,
+            grad_max_abs_err=grad_err, grad_max_rel_err=grad_rel,
+            fwd_ms=fwd_ms, fwd_res_ms=fwd_res_ms, plain_fwd_ms=plain_fwd_ms,
+            bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
+            library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms,
+            fwd_bound=fwd_bound, fwd_no_residual_bound=fwd_nores_bound,
+            bwd_bound=bwd_bound))
+        del args, leaves, grads, ys, ys0, ys1
+    return cases
 
 
 def train_batch(rng, batch, frames, dev=None):
@@ -343,20 +469,13 @@ def train_batch(rng, batch, frames, dev=None):
     return [(x.to(dev) if dev is not None else x, None) for x in data]
 
 
-def train_path_phase(mods, dev, rng):
-    """8. The training main path: ``streaming_step_fns`` on the flagship
-    model at B32 x T240, then one step on the card vs on CPU tensors."""
+def train_path_phase(mods, dev, rng, spec):
+    """8. and 12. A training main path: ``streaming_step_fns`` on a model
+    at full width, as ``spec`` names it (model class and config groups,
+    batch, the launches of a step), then one SGD step on the card vs on
+    CPU tensors from the same weights and batch."""
     import copy
 
-    from multimodalreactiongeneration_tpu_torch.configs import (
-        LSTMFORMER_LOSS_CFG,
-        LSTMFORMER_METRICS_CFG,
-        LSTMFORMER_MODEL_CFG,
-        LSTMFORMER_OPTIM_CFG,
-    )
-    from multimodalreactiongeneration_tpu_torch.models.lstmformer import (
-        Metaformer,
-    )
     from multimodalreactiongeneration_tpu_torch.train.harness import (
         streaming_step_fns,
     )
@@ -364,26 +483,25 @@ def train_path_phase(mods, dev, rng):
         build_optimizer,
     )
 
-    cfg = LSTMFORMER_MODEL_CFG
-    model_cfg = {**cfg, **LSTMFORMER_LOSS_CFG}
+    tag, cfg, batch_size, frames = (spec["tag"], spec["cfg"], spec["batch"],
+                                    spec["frames"])
+    model_cfg = {**cfg, **spec["loss"]}
 
-    def step_fns(model, **optim):
-        opt = build_optimizer(model.parameters(),
-                              {**LSTMFORMER_OPTIM_CFG, **optim})
-        return streaming_step_fns(model, model_cfg, LSTMFORMER_METRICS_CFG,
-                                  opt, mask_self_motion_input=True)
+    def step_fns(model, optim):
+        opt = build_optimizer(model.parameters(), optim)
+        return streaming_step_fns(model, model_cfg, spec["metrics"], opt,
+                                  mask_self_motion_input=spec["mask_self"])
 
-    model = Metaformer(cfg, generator=torch.Generator().manual_seed(SEED),
-                       device=dev)
-    # AdamW as benchmarks/train_bench.py runs it: lr 1e-4, decay 1e-2
-    train_step, eval_step = step_fns(model, lr=1e-4, weight_decay=1e-2)
-    batch = train_batch(rng, TRAIN_B, TRAIN_FRAMES, dev)
+    def new_model(device):
+        return spec["model"](cfg, generator=torch.Generator().manual_seed(SEED),
+                             device=device)
+
+    model = new_model(dev)
+    train_step, eval_step = step_fns(model, spec["optim"])
+    batch = train_batch(rng, batch_size, frames, dev)
     train_step(batch)  # warm-up, not counted
     torch.cuda.synchronize()
     zero_counts(mods)
-    per_step = dict(mixer_stack_train_fwd=2, mixer_stack_bwd=2,
-                    lstm_layer_fwd=5, lstm_layer_bwd=5,
-                    rect_attention_fwd=10, rect_attention_bwd=10)
     losses, times = [], []
     torch.cuda.reset_peak_memory_stats(dev)
     for i in range(TRAIN_STEPS):
@@ -392,39 +510,37 @@ def train_path_phase(mods, dev, rng):
         loss, _ = train_step(batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1000)
-        check_launches(f"train step {i}", before, counts(mods),
-                       **per_step)
+        check_launches(f"{tag} {i}", before, counts(mods), **spec["per_step"])
         losses.append(float(loss))
     launches = counts(mods)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"train steps: non-finite losses {losses}")
+        raise AssertionError(f"{tag}: non-finite losses {losses}")
     step_ms = float(np.mean(times))
-    frames_per_s = TRAIN_B * TRAIN_FRAMES / (step_ms / 1000)
-    log("train_step", batch=TRAIN_B, frames=TRAIN_FRAMES,
+    frames_per_s = batch_size * frames / (step_ms / 1000)
+    log(tag, batch=batch_size, frames=frames,
         ms_per_step=f"{step_ms:.3f}", frames_per_s=f"{frames_per_s:.1f}",
         step_ms=[round(t, 3) for t in times], losses=losses,
         peak_mem_gib=f"{peak_gib:.3f}", launches=launches)
     before = counts(mods)
     eval_loss, _ = eval_step(batch)
-    check_launches("eval step", before, counts(mods),
-                   mixer_stack=2, lstm_layer_fwd=5, rect_attention_fwd=10)
+    got = check_launches(f"{tag} eval", before, counts(mods),
+                         **spec["per_eval"])
     if not np.isfinite(float(eval_loss)):
-        raise AssertionError(f"eval step: loss {float(eval_loss)}")
-    log("eval_step", loss=f"{float(eval_loss):.6f}",
-        launches="K1 +2, K7 +5, K5 +10")
+        raise AssertionError(f"{tag} eval: loss {float(eval_loss)}")
+    log(spec["eval_tag"], loss=f"{float(eval_loss):.6f}",
+        launches={k: v for k, v in got.items() if v})
 
-    busy = profile_step(train_step, batch)
+    busy = profile_step(train_step, batch, spec["profile"])
 
     # one SGD step on the card and on CPU tensors, same weights and batch
-    model_cpu = Metaformer(cfg, generator=torch.Generator().manual_seed(SEED),
-                           device="cpu")
+    model_cpu = new_model("cpu")
     model_card = copy.deepcopy(model_cpu).to(dev)
     small = train_batch(rng, 2, 48)
     sgd = dict(use_optimizer="sgd", lr=1e-2, momentum=0.9, weight_decay=0.0)
-    loss_card, _ = step_fns(model_card, **sgd)[0](
+    loss_card, _ = step_fns(model_card, sgd)[0](
         [(x.to(dev), n) for x, n in small])
-    loss_cpu, _ = step_fns(model_cpu, **sgd)[0](small)
+    loss_cpu, _ = step_fns(model_cpu, sgd)[0](small)
     loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
     named_cpu = dict(model_cpu.named_parameters())
     g_all = max(float(p.grad.abs().max()) for p in named_cpu.values())
@@ -435,25 +551,65 @@ def train_path_phase(mods, dev, rng):
         e = float((p.grad.cpu() - g_cpu).abs().max()) / scale
         if e > worst:
             worst, worst_name = e, name
-    log("train_step", card_vs_cpu_loss_rel_err=f"{loss_rel:.3e}",
+    log(tag, card_vs_cpu_loss_rel_err=f"{loss_rel:.3e}",
         card_vs_cpu_grad_max_rel_err=f"{worst:.3e}", worst=worst_name,
         loss_card=f"{float(loss_card):.7f}", loss_cpu=f"{float(loss_cpu):.7f}")
     if not loss_rel <= LOSS_REL_TOL:
-        raise AssertionError(f"card vs CPU loss: {loss_rel} > {LOSS_REL_TOL}")
-    if not worst <= GRAD_REL_TOL:
         raise AssertionError(
-            f"card vs CPU gradient of {worst_name}: {worst} > {GRAD_REL_TOL}")
+            f"{tag} card vs CPU loss: {loss_rel} > {LOSS_REL_TOL}")
+    if not worst <= GRAD_REL_TOL:
+        raise AssertionError(f"{tag} card vs CPU gradient of {worst_name}: "
+                             f"{worst} > {GRAD_REL_TOL}")
     return {"launches": launches, "record": {
-        "batch": TRAIN_B, "frames": TRAIN_FRAMES, "steps": TRAIN_STEPS,
+        "batch": batch_size, "frames": frames, "steps": TRAIN_STEPS,
         "ms": step_ms, "frames_per_s": frames_per_s, "losses": losses,
         "peak_mem_gib": peak_gib, "device_busy_share": busy,
         "card_vs_cpu_loss_rel_err": loss_rel,
         "card_vs_cpu_grad_max_rel_err": worst}}
 
 
-def profile_step(train_step, batch):
+def metaformer_train_spec():
+    from multimodalreactiongeneration_tpu_torch import configs
+    from multimodalreactiongeneration_tpu_torch.models.lstmformer import (
+        Metaformer,
+    )
+
+    return dict(
+        tag="train_step", eval_tag="eval_step", model=Metaformer,
+        cfg=configs.LSTMFORMER_MODEL_CFG, loss=configs.LSTMFORMER_LOSS_CFG,
+        metrics=configs.LSTMFORMER_METRICS_CFG,
+        # AdamW as benchmarks/train_bench.py runs it: lr 1e-4, decay 1e-2
+        optim={**configs.LSTMFORMER_OPTIM_CFG, "lr": 1e-4,
+               "weight_decay": 1e-2},
+        mask_self=True, batch=TRAIN_B, frames=TRAIN_FRAMES,
+        per_step=dict(mixer_stack_train_fwd=2, mixer_stack_bwd=2,
+                      lstm_layer_fwd=5, lstm_layer_bwd=5,
+                      rect_attention_fwd=10, rect_attention_bwd=10),
+        per_eval=dict(mixer_stack=2, lstm_layer_fwd=5, rect_attention_fwd=10),
+        profile="profile_train_step.txt")
+
+
+def lws_train_spec():
+    from multimodalreactiongeneration_tpu_torch import configs
+    from multimodalreactiongeneration_tpu_torch.models.lstm_with_sampling \
+        import LSTMwithSample
+
+    # the yaml's optim group (AdamW, lr 5e-6, decay 1e-2); the self
+    # motion's padding goes into the model as it is, as the CLI does
+    return dict(
+        tag="lws_train_step", eval_tag="lws_eval_step", model=LSTMwithSample,
+        cfg=configs.LWS_MODEL_CFG, loss=configs.LWS_LOSS_CFG,
+        metrics=configs.LWS_METRICS_CFG, optim=configs.LWS_OPTIM_CFG,
+        mask_self=False, batch=LWS_B, frames=LWS_FRAMES,
+        per_step=dict(lstm_stacked_fwd=1, lstm_stacked_bwd=1,
+                      lstm_layer_fwd=2, lstm_layer_bwd=2),
+        per_eval=dict(lstm_stacked_fwd=1, lstm_layer_fwd=2),
+        profile="profile_lws_train_step.txt")
+
+
+def profile_step(train_step, batch, name):
     """A torch.profiler table of one training step, by device time,
-    written to ``_build/profile_train_step.txt`` of the package; returns
+    written to ``_build/<name>`` of the package; returns
     the share of the step's wall time in which a kernel or copy ran on
     the device (the union of their intervals)."""
     from torch.autograd import DeviceType
@@ -478,7 +634,7 @@ def profile_step(train_step, batch):
     busy = busy_us / wall_us
     table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=60)
-    path = _build.BUILD_DIR / "profile_train_step.txt"
+    path = _build.BUILD_DIR / name
     path.write_text(table)
     print("\n".join(table.splitlines()[:30]))
     log("profile", table=path, step_wall_ms=f"{wall_us / 1000:.3f}",
@@ -605,28 +761,19 @@ def write_corpus(root, sessions=CORPUS_SESSIONS, seconds=CORPUS_SECONDS):
     return sessions * seconds
 
 
-def cli_phase(mods):
-    """9. The training CLI, as a user runs it: ``configs/lstmformer.yaml``
-    at full width (its defaults: val_check_interval 0.25, the generation
-    eval, async top-k checkpoints, the audio resident on the card) on a
-    corpus written here, batch 32, one epoch; then a resumed epoch from
-    ``last``."""
-    import shutil
-
-    from multimodalreactiongeneration_tpu_torch import _build
+def cli_phase(mods, run, config, tag, overrides, expect):
+    """9. and 13. The training CLI, as a user runs it: ``config`` at full
+    width (its defaults: val_check_interval 0.25, the generation eval,
+    async top-k checkpoints, the audio resident on the card) on the
+    corpus under ``run``, one epoch; then a resumed epoch from ``last``.
+    ``expect(launches, steps)`` gives the exact launches of the first run
+    and the validation batches they imply."""
     from multimodalreactiongeneration_tpu_torch.train import cli
 
-    run = _build.BUILD_DIR / "cli_run"
-    shutil.rmtree(run, ignore_errors=True)
-    run.mkdir(parents=True)
-    t0 = time.perf_counter()
-    audio_s = write_corpus(str(run / "corpus"))
-    log("cli", corpus_seconds_of_audio=audio_s, sessions=CORPUS_SESSIONS,
-        write_s=f"{time.perf_counter() - t0:.1f}")
-    ckpt = run / "ckpt" / "smoke"
-    common = ["--config", "configs/lstmformer.yaml", "name=smoke",
-              f"data_dir={run / 'corpus'}", f"ckpt_path={run / 'ckpt'}",
-              f"log_dir={run / 'log'}", "batch_size=32", f"seed={SEED}"]
+    ckpt = run / f"ckpt_{tag}" / "smoke"
+    common = ["--config", config, "name=smoke", f"data_dir={run / 'corpus'}",
+              f"ckpt_path={ckpt.parent}", f"log_dir={run / f'log_{tag}'}",
+              f"seed={SEED}", *overrides]
     cwd = os.getcwd()
     os.chdir(run)  # the manifests go under ./data of the run directory
     try:
@@ -645,22 +792,36 @@ def cli_phase(mods):
         os.chdir(cwd)
     records = first.history + resumed.history
     for rec in records:
-        log("cli_epoch", **{k: (f"{v:.6f}" if isinstance(v, float) else v)
-                            for k, v in rec.items()})
+        log(f"{tag}_epoch", **{k: (f"{v:.6f}" if isinstance(v, float) else v)
+                               for k, v in rec.items()})
         for key in ("train_loss", "val_loss", "genrt_loss"):
             if not np.isfinite(rec.get(key, float("nan"))):
-                raise AssertionError(f"cli epoch {rec['epoch']}: {key} "
+                raise AssertionError(f"{tag} epoch {rec['epoch']}: {key} "
                                      f"{rec.get(key)}")
     if [r["epoch"] for r in records] != [0, 1]:
-        raise AssertionError(f"cli epochs {[r['epoch'] for r in records]}")
+        raise AssertionError(f"{tag} epochs {[r['epoch'] for r in records]}")
     names = sorted(os.listdir(ckpt))
     if "last" not in names or not all(
             any(n.startswith(f"{m}0-") for n in names) for m in "VTG"):
-        raise AssertionError(f"cli checkpoints {names}")
-    # launches of the first run: every train step K5 +10, K6 +10, K3 +2,
-    # K4 +2, K7 +5 / +5; every validation batch an eval step (K5 +10, K1
-    # +2, K7 forward +5) and a generation (K1 +2, K2 one per 16 rows)
+        raise AssertionError(f"{tag} checkpoints {names}")
     steps = first.history[0]["step"]
+    n_eval = expect(launches, steps)
+    if n_eval < first.history[0]["val_checks"]:
+        raise AssertionError(f"{tag}: {n_eval} validation batches in "
+                             f"{first.history[0]['val_checks']} checks")
+    log(tag, train_steps=steps, eval_batches=n_eval, launches=launches,
+        first_run_s=f"{first_s:.1f}", resumed_run_s=f"{resumed_s:.1f}",
+        checkpoints=names)
+    return {"launches": launches, "record": {
+        "first_run_s": first_s, "resumed_run_s": resumed_s,
+        "epochs": records}}
+
+
+def metaformer_cli_launches(launches, steps):
+    """Every train step K5 +10, K6 +10, K3 +2, K4 +2, K7 +5 / +5; every
+    validation batch an eval step (K5 +10, K1 +2, K7 forward +5) and a
+    generation (K1 +2, K2 one per 16 rows). Returns the validation
+    batches."""
     n_eval = (launches["rect_attention_fwd"] - 10 * steps) // 10
     want = dict(rect_attention_fwd=10 * (steps + n_eval),
                 rect_attention_bwd=10 * steps,
@@ -668,17 +829,24 @@ def cli_phase(mods):
                 lstm_layer_fwd=5 * (steps + n_eval), lstm_layer_bwd=5 * steps,
                 mixer_stack=4 * n_eval)
     got = {k: launches[k] for k in want}
-    if (n_eval < first.history[0]["val_checks"] or got != want
-            or launches["decode_rollout"] < n_eval):
+    if (got != want or launches["decode_rollout"] < n_eval
+            or launches["lstm_stacked_fwd"] or launches["lstm_stacked_bwd"]):
         raise AssertionError(f"cli launches {launches}, want {want} and "
                              f"decode_rollout >= {n_eval}")
-    log("cli", train_steps=steps, eval_batches=n_eval, launches=launches,
-        first_run_s=f"{first_s:.1f}", resumed_run_s=f"{resumed_s:.1f}",
-        checkpoints=names)
-    shutil.rmtree(run)  # the corpus, manifests and checkpoints
-    return {"launches": launches, "record": {
-        "corpus_seconds_of_audio": audio_s, "first_run_s": first_s,
-        "resumed_run_s": resumed_s, "epochs": records}}
+    return n_eval
+
+
+def lws_cli_launches(launches, steps):
+    """Every train step K9 +1 / +1 and K7 +2 / +2; every validation batch
+    an eval step (K9 +1, K7 forward +2) and a generation (K9 +1: the
+    sampler's warmup over the lead); no other kernel."""
+    n_eval = (launches["lstm_layer_fwd"] - 2 * steps) // 2
+    want = {k: 0 for k in COUNTERS}
+    want.update(lstm_stacked_fwd=steps + 2 * n_eval, lstm_stacked_bwd=steps,
+                lstm_layer_fwd=2 * (steps + n_eval), lstm_layer_bwd=2 * steps)
+    if launches != want:
+        raise AssertionError(f"lws cli launches {launches}, want {want}")
+    return n_eval
 
 
 def kernel_record(name, source, replaces, launches, max_abs_err, ms,
@@ -691,10 +859,12 @@ def kernel_record(name, source, replaces, launches, max_abs_err, ms,
             "library_ms": library_ms, **extra}
 
 
-def training_records(train, lstm, launches):
+def training_records(train, lstm_cases, launches):
     """The JSON entries of the four training kernels (no single PyTorch
-    call computes the encoder stack; cuDNN's LSTM is K7's yardstick)."""
-    audio = train[0]
+    call computes the encoder stack; cuDNN's LSTM is K7's yardstick).
+    K7's main case is the Metaformer's (B32 x T252), its second
+    lstm_with_sampling's blocks (B256 x T140)."""
+    audio, lstm = train[0], lstm_cases[0]
     return [
         kernel_record(
             "mixer_stack_train_fwd", "mixer_stack.cu",
@@ -709,15 +879,110 @@ def training_records(train, lstm, launches):
             max_rel_err=max(c["grad_max_rel_err"] for c in train)),
         kernel_record(
             "lstm_layer_fwd", "lstm_layer.cu", "pallas_lstm.py:390",
-            launches["lstm_layer_fwd"], lstm["fwd_max_abs_err"],
+            launches["lstm_layer_fwd"],
+            max(c["fwd_max_abs_err"] for c in lstm_cases),
             lstm["fwd_res_ms"], lstm["plain_fwd_ms"], lstm["fwd_bound"],
-            lstm["library_fwd_ms"], no_residual_ms=lstm["fwd_ms"]),
+            lstm["library_fwd_ms"], no_residual_ms=lstm["fwd_ms"],
+            cases=lstm_cases),
         kernel_record(
             "lstm_layer_bwd", "lstm_layer.cu", "pallas_lstm.py:448",
-            launches["lstm_layer_bwd"], lstm["grad_max_abs_err"],
-            lstm["bwd_ms"], lstm["plain_bwd_ms"], lstm["bwd_bound"],
-            lstm["library_bwd_ms"], max_rel_err=lstm["grad_max_rel_err"]),
+            launches["lstm_layer_bwd"],
+            max(c["grad_max_abs_err"] for c in lstm_cases), lstm["bwd_ms"],
+            lstm["plain_bwd_ms"], lstm["bwd_bound"], lstm["library_bwd_ms"],
+            max_rel_err=max(c["grad_max_rel_err"] for c in lstm_cases)),
     ]
+
+
+def stacked_records(cases, launches, **more_launches):
+    """The JSON entries of K9's forward and backward: the main case is
+    the sampler in training (B256 x T1120); launches from the lws CLI
+    run, those of the generation and training-step phases beside them.
+    cuDNN's multi-layer LSTM is the yardstick."""
+    main = cases[0]
+    extra = {f"launches_{k}": {n: v[n] for n in ("lstm_stacked_fwd",
+                                                 "lstm_stacked_bwd")}
+             for k, v in more_launches.items()}
+    return [
+        kernel_record(
+            "lstm_stacked_fwd", "lstm_stacked.cu",
+            "pallas_lstm_stacked.py:154", launches["lstm_stacked_fwd"],
+            max(c["fwd_max_abs_err"] for c in cases), main["fwd_res_ms"],
+            main["plain_fwd_ms"], main["fwd_bound"], main["library_fwd_ms"],
+            no_residual_ms=main["fwd_ms"],
+            no_residual_bound_ms=main["fwd_no_residual_bound"][0],
+            cases=cases, **extra),
+        kernel_record(
+            "lstm_stacked_bwd", "lstm_stacked.cu",
+            "pallas_lstm_stacked.py:317", launches["lstm_stacked_bwd"],
+            max(c["grad_max_abs_err"] for c in cases), main["bwd_ms"],
+            main["plain_bwd_ms"], main["bwd_bound"], main["library_bwd_ms"],
+            max_rel_err=max(c["grad_max_rel_err"] for c in cases)),
+    ]
+
+
+def lws_generation_phase(mods, dev, rng):
+    """11. lstm_with_sampling's generation: ``generate_lws`` with the full
+    mask at the yaml's width (random weights from SEED) on 3 batches of
+    16 x 250 frames (lead 12): shape, finite, launches per generation (K9
+    +1, the sampler's warmup; nothing else), time; then a teacher-forced
+    generation at batch 2 against the same weights and inputs on CPU
+    tensors (the all-plain path): <= 1e-4."""
+    from multimodalreactiongeneration_tpu_torch.configs import LWS_MODEL_CFG
+    from multimodalreactiongeneration_tpu_torch.infer.generate import (
+        generate_lws,
+        sampling_mask_for,
+    )
+    from multimodalreactiongeneration_tpu_torch.models.lstm_with_sampling \
+        import LSTMwithSample
+
+    def new_model(device):
+        return LSTMwithSample(LWS_MODEL_CFG,
+                              generator=torch.Generator().manual_seed(SEED),
+                              device=device)
+
+    model = new_model(dev)
+    full = sampling_mask_for(FRAMES, "full", device=dev)
+    batches = [[x.to(dev) for x in make_batch(rng, B)] for _ in range(3)]
+    generate_lws(model, batches[0], full)  # warm-up, not counted
+    torch.cuda.synchronize()
+    zero_counts(mods)
+    times = []
+    for i, bd in enumerate(batches):
+        before = counts(mods)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pred = generate_lws(model, bd, full)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+        if tuple(pred.shape) != (B, FRAMES, MOTION_DIM):
+            raise AssertionError(
+                f"lws generation {i}: shape {tuple(pred.shape)}")
+        if not bool(torch.isfinite(pred).all()):
+            raise AssertionError(f"lws generation {i}: non-finite output")
+        check_launches(f"lws generation {i}", before, counts(mods),
+                       lstm_stacked_fwd=1)
+        log("lws_generate", batch=i, shape=tuple(pred.shape), finite=True,
+            ms=f"{times[-1]:.3f}", lstm_stacked_launches="+1")
+    launches = counts(mods)
+    gen_ms = float(np.mean(times))
+    frames_per_s = B * FRAMES / (gen_ms / 1000)
+    log("lws_generate", ms_per_generation=f"{gen_ms:.3f}",
+        frames_per_s=f"{frames_per_s:.1f}", launches=launches)
+
+    small = make_batch(rng, 2)
+    teacher = sampling_mask_for(FRAMES, "teacher")
+    on_card = generate_lws(model, [x.to(dev) for x in small], teacher.to(dev))
+    on_cpu = generate_lws(new_model("cpu"), small, teacher)
+    err = float((on_card.cpu() - on_cpu).abs().max())
+    log("lws_generate", teacher_f32_batch2_vs_cpu_max_abs_err=f"{err:.3e}")
+    if not err <= PATH_TOL:
+        raise AssertionError(f"lws card vs CPU generation: {err} > {PATH_TOL}")
+    return {"launches": launches, "record": {
+        "batch": B, "frames": FRAMES, "ms": gen_ms,
+        "frames_per_s": frames_per_s, "ms_each": times,
+        "teacher_batch2_vs_cpu_max_abs_err": err}}
 
 
 def attention_records(cases, launches):
@@ -754,11 +1019,12 @@ def main():
     from multimodalreactiongeneration_tpu_torch.ops import (
         decode_rollout as K2,
         lstm_layer as K7,
+        lstm_stacked as K9,
         mixer_stack as K1,
         rect_attention as K5,
     )
 
-    mods = {"K1": K1, "K2": K2, "K5": K5, "K7": K7}
+    mods = {"K1": K1, "K2": K2, "K5": K5, "K7": K7, "K9": K9}
     t_start = time.perf_counter()
 
     # ---- 0. device ---------------------------------------------------
@@ -917,8 +1183,24 @@ def main():
     train = train_kernel_phase(K1, dev, rng)
     lstm = lstm_layer_phase(K7, dev, rng)
     attention = rect_attention_phase(K5, dev, rng)
-    step = train_path_phase(mods, dev, rng)
-    cli_run = cli_phase(mods)
+    step = train_path_phase(mods, dev, rng, metaformer_train_spec())
+    run = _build.BUILD_DIR / "cli_run"
+    shutil.rmtree(run, ignore_errors=True)
+    run.mkdir(parents=True)
+    t0 = time.perf_counter()
+    audio_s = write_corpus(str(run / "corpus"))
+    log("cli", corpus_seconds_of_audio=audio_s, sessions=CORPUS_SESSIONS,
+        write_s=f"{time.perf_counter() - t0:.1f}")
+    cli_run = cli_phase(mods, run, "configs/lstmformer.yaml", "cli",
+                        ["batch_size=32"], metaformer_cli_launches)
+
+    # ---- 10.-13. lstm_with_sampling: K9, generation, step, CLI ---------
+    stacked = lstm_stacked_phase(K9, dev, rng)
+    lws_gen = lws_generation_phase(mods, dev, rng)
+    lws_step = train_path_phase(mods, dev, rng, lws_train_spec())
+    lws_cli = cli_phase(mods, run, "configs/lstm_with_sampling.yaml",
+                        "lws_cli", ["exp.batch_size=32"], lws_cli_launches)
+    shutil.rmtree(run)  # the corpus, manifests and checkpoints
 
     k1_main, k2_main = k1_cases[0], k2_cases[1]
     # no single PyTorch call computes the encoder stack or the rollout
@@ -935,9 +1217,15 @@ def main():
             k2_main["plain_ms"], k2_main["bound"], None, cases=k2_cases),
         *training_records(train, lstm, step["launches"]),
         *attention_records(attention, cli_run["launches"]),
+        *stacked_records(stacked, lws_cli["launches"],
+                         generation=lws_gen["launches"],
+                         train_step=lws_step["launches"]),
     ], "generation": {"batch": B, "frames": FRAMES, "ms": gen_ms,
                       "frames_per_s": B * FRAMES / (gen_ms / 1000)},
-        "train_step": step["record"], "cli": cli_run["record"],
+        "train_step": step["record"],
+        "cli": {"corpus_seconds_of_audio": audio_s, **cli_run["record"]},
+        "lws_generation": lws_gen["record"],
+        "lws_train_step": lws_step["record"], "lws_cli": lws_cli["record"],
         "seconds": time.perf_counter() - t_start}
     log("done", seconds=f"{record['seconds']:.1f}")
     print(json.dumps(record))

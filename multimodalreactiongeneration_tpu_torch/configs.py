@@ -15,6 +15,12 @@ the resolved config equal to the JAX loader's.
 step reads) are cut from the resolved config: the flagship Metaformer at
 the production size (hidden 256, 5 blocks, LSTM embeddings, encoders of
 5 mixer blocks, 4-head integrators, 10 s context budget).
+
+``LSTM_WITH_SAMPLING`` is ``configs/lstm_with_sampling.yaml`` in the same
+way (``load_config("lstm_with_sampling")``), and ``LWS_MODEL_CFG``,
+``LWS_LOSS_CFG``, ``LWS_METRICS_CFG`` and ``LWS_OPTIM_CFG`` are cut from
+it: the reference's second model at its published size (a 2-layer
+128-wide LSTM sampler, two 256-wide layered-LSTM blocks, batch 256).
 """
 
 from __future__ import annotations
@@ -193,7 +199,79 @@ LSTMFORMER: Dict[str, Any] = {
     "output_path": None,
 }
 
-CONFIGS: Dict[str, Dict[str, Any]] = {"lstmformer": LSTMFORMER}
+# ``configs/lstm_with_sampling.yaml``: its own top level and model, exp
+# and audio groups; every other group is written as the lstmformer's
+LSTM_WITH_SAMPLING: Dict[str, Any] = {
+    "project": "Head-Motion_LSTM-with-Sampling",
+    "name": "cradle-01",
+    "version": None,
+    "hidden_size": 256,
+    "bottleneck_size": 64,
+    "lr": 5e-06,
+    "batch_size": 256,
+    "max_epochs": 60,
+    "optim_epochs": 100,
+    "use_centroid": True,
+    "use_angle": True,
+    "delta_order": 2,
+    "sample_rate": 16000,
+    "nfft": 400,
+    "shift": 160,
+    "data_dir": "???",
+    "no_cache_build": False,
+    "clear_cache": False,
+    "ckpt_path": "???",
+    "log_dir": "???",
+    "device": "tpu",
+    "seed": 0,
+    "model": {
+        "nmels": "${audio.nmels}",
+        "delta_order": "${delta_order}",
+        "use_centroid": "${use_centroid}",
+        "use_angle": "${use_angle}",
+        "sampler_hidden_size": 128,
+        "sampler_num_layers": 2,
+        "sampler_dropout_rate": 0,
+        "sampling_rate": "${sample_rate}",
+        "shift": "${shift}",
+        "fps": "${motion.fps}",
+        "pred_fps": "${motion.pred_fps}",
+        "hidden_size": "${hidden_size}",
+        "bottleneck_size": "${bottleneck_size}",
+        "num_layers": 2,
+        "num_lstm": 1,
+        "dropout_rate": 0.0,
+        "use_layer_norm": True,
+        "use_relu": True,
+        "use_mixing": False,
+        "use_residual": True,
+        "delta_loss_scale": 1,
+        "loss_type": "huber",
+        "loss_reduction": "mean",
+        "huber_delta": 1.0,
+        "smoothl1_beta": 1.0,
+        "use_scheduled_sampling": False,
+        "max_epochs": "${max_epochs}",
+    },
+    **{group: copy.deepcopy(LSTMFORMER[group]) for group in (
+        "metrics", "trainer", "callbacks", "optim")},
+    "exp": dict(LSTMFORMER["exp"], use_model="lstm_with_sampling"),
+    **{group: copy.deepcopy(LSTMFORMER[group]) for group in (
+        "data", "motion")},
+    "audio": dict(LSTMFORMER["audio"], nmels=26),
+    "utterance": copy.deepcopy(LSTMFORMER["utterance"]),
+    "model_type": "lstm_with_sampling",
+    "model_path": None,
+    "model_conf": None,
+    "movie_path": None,
+    "audio_path": None,
+    "output_path": None,
+}
+
+CONFIGS: Dict[str, Dict[str, Any]] = {
+    "lstmformer": LSTMFORMER,
+    "lstm_with_sampling": LSTM_WITH_SAMPLING,
+}
 
 
 class MandatoryValueError(KeyError):
@@ -355,4 +433,18 @@ LSTMFORMER_LOSS_CFG = {k: _RESOLVED["model"][k] for k in (
     "delta_loss_scale")}
 LSTMFORMER_METRICS_CFG = dict(_RESOLVED["metrics"])
 LSTMFORMER_OPTIM_CFG = {k: _RESOLVED["optim"][k] for k in (
+    "use_optimizer", "momentum", "weight_decay", "lr")}
+
+_LWS = load_config("lstm_with_sampling").to_dict()
+LWS_MODEL_CFG = {k: _LWS["model"][k] for k in (
+    "nmels", "delta_order", "use_centroid", "use_angle",
+    "sampler_hidden_size", "sampler_num_layers", "sampler_dropout_rate",
+    "sampling_rate", "shift", "fps", "pred_fps", "hidden_size",
+    "bottleneck_size", "num_layers", "num_lstm", "dropout_rate",
+    "use_layer_norm", "use_relu", "use_mixing", "use_residual")}
+LWS_LOSS_CFG = {k: _LWS["model"][k] for k in (
+    "loss_type", "loss_reduction", "huber_delta", "smoothl1_beta",
+    "delta_loss_scale")}
+LWS_METRICS_CFG = dict(_LWS["metrics"])
+LWS_OPTIM_CFG = {k: _LWS["optim"][k] for k in (
     "use_optimizer", "momentum", "weight_decay", "lr")}

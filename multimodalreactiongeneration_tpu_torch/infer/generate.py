@@ -1,8 +1,8 @@
-"""Autoregressive head-motion generation for the Metaformer.
+"""Autoregressive head-motion generation.
 
-Counterpart of ``generate_metaformer`` in ``multimodalreactiongeneration
-_tpu/infer/generate.py`` on its production branch: the hoisted-encoder,
-shared-KV path.
+Counterpart of ``multimodalreactiongeneration_tpu/infer/generate.py``:
+``generate_lws`` for LSTMwithSample (below) and ``generate_metaformer``
+on its production branch, the hoisted-encoder, shared-KV path:
 
   1. One full-sequence pass encodes the known other-modality streams
      (audio, partner motion) for lead + seq (``encode_others_only``; on
@@ -28,6 +28,9 @@ from typing import Optional, Sequence
 import torch
 
 from multimodalreactiongeneration_tpu_torch.infer.cache import raw_cache_init
+from multimodalreactiongeneration_tpu_torch.models.lstm_with_sampling import (
+    derived_sizes as lws_sizes,
+)
 from multimodalreactiongeneration_tpu_torch.models.lstmformer import (
     context_budgets,
     derived_sizes,
@@ -71,6 +74,50 @@ def sampling_mask_for(
                           device=generator.device)
         return (draw < rate).to(device)
     raise ValueError(f"unknown sampling mode {mode!r}")
+
+
+@torch.no_grad()
+def generate_lws(
+    model,
+    batch_data: Sequence[torch.Tensor],
+    sampling_mask: torch.Tensor,
+    carry_layerd_state: bool = True,
+) -> torch.Tensor:
+    """Rollout for LSTMwithSample; ``batch_data`` is the 7-tuple (fbank_p,
+    motion_p, motion_s, lead_fbank, lead_mp, lead_ms, target). Returns
+    the prediction (B, L, D).
+
+    A warmup pass over the leading segment primes the states (on the
+    card the sampler's stacked LSTM runs its kernel there); then per step
+    ``ratio`` audio frames, one partner-motion frame and the previous
+    self-motion frame go through the model (all under 16 steps: the
+    plain recurrences). ``carry_layerd_state=False`` drops the layered
+    blocks' states after every call, the reference's effective behaviour
+    (its LSTMLayerd returns the input states). The model runs in eval
+    mode for the call, and its own mode is restored afterwards."""
+    was_training = model.training
+    model.eval()
+    try:
+        fbank, motion_p, motion_s, lead_a, lead_mp, lead_ms, _ = [
+            _zero_padding(x) for x in batch_data
+        ]
+        fb, mp, ms = _form_steps(fbank, motion_p, motion_s,
+                                 lws_sizes(model.cfg)["ratio"])
+        sampling_mask = sampling_mask.to(ms.device)
+
+        def keep(state):
+            return state if carry_layerd_state else (state[0], None)
+
+        _, state = model(lead_a, lead_mp, lead_ms)
+        state, prev, ys = keep(state), ms[0], []
+        for t in range(ms.shape[0]):
+            y, state = model(fb[t], mp[t], prev, None, None, None, state)
+            state = keep(state)
+            prev = torch.where(sampling_mask[t], y, ms[t])
+            ys.append(y)
+        return torch.stack(ys)[:, :, 0, :].transpose(0, 1)
+    finally:
+        model.train(was_training)
 
 
 def _init_metaformer_states(

@@ -7,15 +7,19 @@ The port's modules carry the flax paths as attribute names, so a leaf
   * Dense ``kernel`` (in, out) -> ``weight`` (out, in), transposed;
   * LayerNorm ``scale`` -> ``weight``;
   * ``bias`` and the LSTM / MHA leaves (already in torch layout, under
-    torch's names) keep name and layout.
+    torch's names: ``weight_ih_l<k>``, ``weight_hh_l<k>``, ``bias_ih_l<k>``,
+    ``bias_hh_l<k>`` for every layer k, and their ``_reverse`` forms) keep
+    name and layout.
 
-Any other leaf name raises. Loading reference Lightning checkpoints
-(a numpy port of the JAX package's ``metaformer_name_map``) comes with
-the checkpoint slice.
+Any other leaf name raises. It converts a Metaformer tree and an
+LSTMwithSample tree alike. Loading reference Lightning checkpoints (a
+numpy port of the JAX package's ``metaformer_name_map``) comes with the
+checkpoint slice.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -23,10 +27,10 @@ import torch
 
 _KEEP = {
     "bias",
-    "weight_ih_l0", "weight_hh_l0", "bias_ih_l0", "bias_hh_l0",
     "q_proj_weight", "k_proj_weight", "v_proj_weight", "out_proj_weight",
     "q_proj_bias", "k_proj_bias", "v_proj_bias", "out_proj_bias",
 }
+_RNN_LEAF = re.compile(r"(weight|bias)_(ih|hh)_l\d+(_reverse)?")
 
 
 def state_dict_from_jax(
@@ -49,7 +53,7 @@ def state_dict_from_jax(
             arr = arr.T
         elif leaf == "scale":
             parts[-1] = "weight"
-        elif leaf not in _KEEP:
+        elif leaf not in _KEEP and not _RNN_LEAF.fullmatch(leaf):
             raise KeyError(f"no mapping for parameter leaf {path!r}")
         out[".".join(parts)] = torch.from_numpy(np.array(arr, order="C"))
     return out

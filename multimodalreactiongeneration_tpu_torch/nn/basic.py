@@ -1,4 +1,5 @@
-"""Basic blocks: nonlinearities, Dense, LayerNorm, FeedForward, residual.
+"""Basic blocks: nonlinearities, Dense, LayerNorm, FeedForward, residual,
+and the refusal of dropout in training (not ported yet).
 
 Counterpart of ``multimodalreactiongeneration_tpu/nn/basic.py``. Parameter
 names follow the flax tree of the JAX package so a converted parameter
@@ -33,6 +34,16 @@ def set_nonlinearity(name: Optional[str]) -> Optional[Callable]:
     if name not in table:
         raise ValueError(f"unknown nonlinearity {name!r}")
     return table[name]
+
+
+def refuse_dropout(module: nn.Module) -> None:
+    """Dropout in training comes with a later slice; until then a module
+    that would apply it raises instead of silently skipping it."""
+    if module.dropout > 0 and module.training:
+        raise NotImplementedError(
+            f"{type(module).__name__}: dropout {module.dropout} in training "
+            "is not ported yet (use dropout 0.0, or eval mode)"
+        )
 
 
 def layer_norm(

@@ -24,6 +24,7 @@ from multimodalreactiongeneration_tpu_torch.nn.attention import TorchMHA
 from multimodalreactiongeneration_tpu_torch.nn.basic import (
     FeedForward,
     LayerNorm,
+    refuse_dropout,
     set_nonlinearity,
 )
 from multimodalreactiongeneration_tpu_torch.nn.recurrent import (
@@ -33,16 +34,6 @@ from multimodalreactiongeneration_tpu_torch.nn.recurrent import (
 from multimodalreactiongeneration_tpu_torch.ops.mixer_stack import (
     mixer_stack_recurrence,
 )
-
-
-def _refuse_dropout(module: nn.Module) -> None:
-    """Dropout in training comes with a later slice; until then a mixer
-    that would apply it raises instead of silently skipping it."""
-    if module.dropout > 0 and module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: dropout {module.dropout} in training "
-            "is not ported yet (use dropout 0.0, or eval mode)"
-        )
 
 
 def _residual_wrap(y, x, use_residual, norm):
@@ -202,7 +193,7 @@ class RecurrentMixerLayerd(nn.Module):
             ))
 
     def forward(self, x, hx: Optional[List[Any]] = None):
-        _refuse_dropout(self)
+        refuse_dropout(self)
         fused = self._fused_stack(x, hx)
         if fused is not None:
             return fused
@@ -306,7 +297,7 @@ class MHAMixerLayerd(nn.Module):
         attn_mask: Optional[torch.Tensor] = None,
         shared_raw: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ):
-        _refuse_dropout(self)
+        refuse_dropout(self)
         query = x
         if self.self_attention:
             if shared_raw is not None:

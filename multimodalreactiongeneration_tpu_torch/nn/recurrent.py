@@ -1,21 +1,25 @@
 """LSTM with torch-layout parameters.
 
 Counterpart of ``TorchLSTM`` in ``multimodalreactiongeneration_tpu/
-nn/recurrent.py``. Gate order i, f, g, o; bias b_ih + b_hh. Dispatch, as
-the JAX package's (``resolve_impl`` and the ``lstm_layer`` gate of
-``TorchLSTM``):
+nn/recurrent.py``. Gate order i, f, g, o; bias b_ih + b_hh; parameters
+``weight_ih_l{k}``, ``weight_hh_l{k}``, ``bias_ih_l{k}``, ``bias_hh_l{k}``
+and states (L, B, H), as torch's. Dispatch, as the JAX package's
+(``resolve_impl`` and the branches of ``TorchLSTM``):
 
-  * under ``MIN_KERNEL_STEPS`` steps (the AR-decode embeddings): the
-    plain recurrence on every device;
-  * from there on, with input and hidden sizes multiples of 128:
-    ``ops/lstm_layer.py lstm_layer`` (the kernels on CUDA, the plain
-    version on CPU);
-  * other sizes: the plain recurrence on CPU; on CUDA they need the
-    ``lstm_recurrence`` kernels, which are not ported yet, so they raise.
+  * under ``MIN_KERNEL_STEPS`` steps (the AR-decode steps): the plain
+    recurrence, layer by layer, on every device;
+  * several layers, unidirectional, dropout 0 or eval mode:
+    ``ops/lstm_stacked.py lstm_stacked_recurrence`` (the wavefront kernels
+    on CUDA, the plain version on CPU) over x @ W_ih_0^T + b computed
+    here; on CUDA, stacks the kernels do not take raise;
+  * one layer with input and hidden sizes multiples of 128:
+    ``ops/lstm_layer.py lstm_layer``; other sizes: the plain recurrence on
+    CPU; on CUDA they need the ``lstm_recurrence`` kernels, which are not
+    ported yet, so they raise;
+  * dropout between layers in training raises (not ported yet), and so
+    does a bidirectional LSTM (it comes with simple_lstm's slice).
 
-Only the single-layer unidirectional LSTM is ported (every LSTM of the
-Metaformer is one). The stacked, bidirectional and GRU forms come with
-the models that use them.
+The GRU comes with the model that uses it.
 """
 
 from __future__ import annotations
@@ -26,9 +30,14 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from multimodalreactiongeneration_tpu_torch.nn.basic import refuse_dropout
 from multimodalreactiongeneration_tpu_torch.ops.lstm_layer import (
     lstm_layer,
     lstm_layer_reference,
+)
+from multimodalreactiongeneration_tpu_torch.ops.lstm_stacked import (
+    kernel_refusal,
+    lstm_stacked_recurrence,
 )
 
 LSTMState = Tuple[torch.Tensor, torch.Tensor]
@@ -54,17 +63,39 @@ def use_lstm_layer(device_type: str, steps: int, din: int,
     return False
 
 
-class TorchLSTM(nn.Module):
-    """torch.nn.LSTM(batch_first=True, num_layers=1) equivalent with
-    uniform(+-1/sqrt(H)) init drawn from an explicit generator.
+def use_lstm_stacked(device_type: str, steps: int, layers: int, hidden: int,
+                     batch: int) -> bool:
+    """True where the JAX package runs ``lstm_stacked_recurrence`` on a
+    unidirectional stack without active dropout; on CUDA, raises for a
+    stack the kernels do not take."""
+    if steps < MIN_KERNEL_STEPS or layers < 2:
+        return False
+    why = kernel_refusal(layers, hidden, batch)
+    if why is not None and device_type == "cuda":
+        raise NotImplementedError(
+            f"a {layers}-layer LSTM over {steps} steps needs the stacked "
+            f"LSTM kernels (K9), which do not take {why}")
+    return True
 
-    State convention as torch: ``hx`` is (h, c), each (1, B, H); None
+
+class TorchLSTM(nn.Module):
+    """torch.nn.LSTM(batch_first=True) equivalent with uniform(+-1/sqrt(H))
+    init drawn from an explicit generator.
+
+    State convention as torch: ``hx`` is (h, c), each (L, B, H); None
     means zeros."""
 
     def __init__(self, input_size: int, hidden_size: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator, num_layers: int = 1,
+                 bidirectional: bool = False, dropout: float = 0.0):
         super().__init__()
+        if bidirectional:
+            raise NotImplementedError(
+                "a bidirectional LSTM comes with simple_lstm's slice (ROADMAP "
+                "queue B)")
         self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.dropout = dropout
         bound = 1.0 / math.sqrt(hidden_size)
 
         def uniform(*shape):
@@ -72,25 +103,54 @@ class TorchLSTM(nn.Module):
             w.uniform_(-bound, bound, generator=generator)
             return nn.Parameter(w)
 
-        self.weight_ih_l0 = uniform(4 * hidden_size, input_size)
-        self.weight_hh_l0 = uniform(4 * hidden_size, hidden_size)
-        self.bias_ih_l0 = uniform(4 * hidden_size)
-        self.bias_hh_l0 = uniform(4 * hidden_size)
+        for k in range(num_layers):
+            din = input_size if k == 0 else hidden_size
+            setattr(self, f"weight_ih_l{k}", uniform(4 * hidden_size, din))
+            setattr(self, f"weight_hh_l{k}",
+                    uniform(4 * hidden_size, hidden_size))
+            setattr(self, f"bias_ih_l{k}", uniform(4 * hidden_size))
+            setattr(self, f"bias_hh_l{k}", uniform(4 * hidden_size))
+
+    def _layer(self, k: int):
+        """(W_ih^T, b_ih + b_hh, W_hh^T) of layer k."""
+        return (getattr(self, f"weight_ih_l{k}").T,
+                getattr(self, f"bias_ih_l{k}") + getattr(self, f"bias_hh_l{k}"),
+                getattr(self, f"weight_hh_l{k}").T)
 
     def forward(
         self, x: torch.Tensor, hx: Optional[LSTMState] = None
     ) -> Tuple[torch.Tensor, LSTMState]:
+        layers, steps = self.num_layers, x.shape[1]
         if hx is None:
-            zeros = x.new_zeros(1, x.shape[0], self.hidden_size)
+            zeros = x.new_zeros(layers, x.shape[0], self.hidden_size)
             hx = (zeros, zeros)
-        args = (self.weight_ih_l0.T, self.bias_ih_l0 + self.bias_hh_l0,
-                self.weight_hh_l0.T)
-        if use_lstm_layer(x.device.type, x.shape[1], x.shape[-1],
-                          self.hidden_size):
-            ys, (h, c) = lstm_layer(
-                x.float().contiguous(), *[a.contiguous() for a in args],
-                hx[0][0].float().contiguous(), hx[1][0].float().contiguous(),
+        if layers > 1:  # dropout acts between layers
+            refuse_dropout(self)
+        if use_lstm_stacked(x.device.type, steps, layers, self.hidden_size,
+                            x.shape[0]):
+            w_ih0, b0, w_hh0 = self._layer(0)
+            rest = [self._layer(k) for k in range(1, layers)]
+            return lstm_stacked_recurrence(
+                (x @ w_ih0 + b0).float().contiguous(),
+                torch.stack([w for w, _, _ in rest]).float().contiguous(),
+                torch.stack([b for _, b, _ in rest]).float().contiguous(),
+                torch.stack([w_hh0] + [w for _, _, w in rest]).float()
+                .contiguous(),
+                hx[0].float().contiguous(), hx[1].float().contiguous(),
             )
-        else:
-            ys, (h, c) = lstm_layer_reference(x, *args, hx[0][0], hx[1][0])
-        return ys, (h[None], c[None])
+        hs, cs = [], []
+        for k in range(layers):
+            args = self._layer(k)
+            if use_lstm_layer(x.device.type, steps, x.shape[-1],
+                              self.hidden_size):
+                x, (h, c) = lstm_layer(
+                    x.float().contiguous(), *[a.contiguous() for a in args],
+                    hx[0][k].float().contiguous(),
+                    hx[1][k].float().contiguous(),
+                )
+            else:
+                x, (h, c) = lstm_layer_reference(x, *args, hx[0][k],
+                                                 hx[1][k])
+            hs.append(h)
+            cs.append(c)
+        return x, (torch.stack(hs), torch.stack(cs))

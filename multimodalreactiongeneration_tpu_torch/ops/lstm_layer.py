@@ -35,10 +35,14 @@ _I = ctypes.c_int
 def lstm_layer_reference(x, w_ih_t, b_sum, w_hh_t, h0, c0):
     """Plain PyTorch version: the projection for the whole sequence is one
     matmul, only h @ W_hh^T runs inside the time loop."""
-    xw = x @ w_ih_t + b_sum
+    return lstm_recurrence_reference(x @ w_ih_t + b_sum, w_hh_t, h0, c0)
+
+
+def lstm_recurrence_reference(xw, w_hh_t, h0, c0):
+    """The recurrence over precomputed inputs xw (B, T, 4H)."""
     h, c = h0, c0
     ys = []
-    for t in range(x.shape[1]):
+    for t in range(xw.shape[1]):
         gates = xw[:, t] + h @ w_hh_t
         i, f, g, o = gates.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)

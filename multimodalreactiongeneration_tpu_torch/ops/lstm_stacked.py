@@ -1,0 +1,227 @@
+"""Stacked unidirectional LSTM as one wavefront: CUDA kernels, autograd
+and plain version.
+
+Counterpart of ``lstm_stacked_recurrence`` in ``multimodalreactiongeneration
+_tpu/ops/pallas_lstm_stacked.py``, same signature and layouts: ``xw0``
+(B, T, 4H) = x @ W_ih_0^T + b_ih_0 + b_hh_0, ``w_ih_t`` (L-1, H, 4H) the
+input projections of layers 1..L-1 transposed, ``b_rest`` (L-1, 4H) their
+b_ih + b_hh, ``w_hh_t`` (L, H, 4H), ``h0``/``c0`` (L, B, H) (torch's
+state layout); gate order i, f, g, o. Returns (ys of the top layer
+(B, T, H), (h_n, c_n) each (L, B, H)).
+
+On CPU tensors ``lstm_stacked_recurrence`` runs ``lstm_stacked_reference``
+(autograd records through it). On CUDA tensors it launches
+``csrc/lstm_stacked.cu`` (f32, H 128, L 2 or 3, any B): where a gradient
+is needed, the forward that stores the backward's residuals and then the
+backward kernel; otherwise the forward without residuals. Other shapes
+raise. Launch counters: ``fwd_launches`` (both forwards) and
+``bwd_launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from multimodalreactiongeneration_tpu_torch import _build
+from multimodalreactiongeneration_tpu_torch.ops.lstm_layer import (
+    lstm_recurrence_reference,
+)
+
+fwd_launches = 0
+bwd_launches = 0
+
+HIDDEN = 128       # the hidden size the kernels take
+MAX_LAYERS = 3     # the most layers whose weights fit one 8-CTA cluster
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def lstm_stacked_reference(xw0, w_ih_t, b_rest, w_hh_t, h0, c0):
+    """Plain PyTorch version, layer by layer: the JAX test's ground truth
+    (``tests/test_pallas_lstm_stacked.py _scan_stack_ref``)."""
+    x = xw0
+    hns, cns = [], []
+    for layer in range(w_hh_t.shape[0]):
+        if layer > 0:
+            x = x @ w_ih_t[layer - 1] + b_rest[layer - 1]
+        x, (hn, cn) = lstm_recurrence_reference(x, w_hh_t[layer], h0[layer],
+                                                c0[layer])
+        hns.append(hn)
+        cns.append(cn)
+    return x, (torch.stack(hns), torch.stack(cns))
+
+
+def lstm_stacked_backward_reference(args, dys, dhn, dcn, closure=False):
+    """Plain backward: ``torch.autograd.grad`` through the plain forward.
+    Returns (dxw0, dw_ih_t, db_rest, dw_hh_t, dh0, dc0); with
+    ``closure=True``, a function that computes them again and again from
+    the graph recorded once, so the backward can be timed alone."""
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_() for a in args]
+        ys, (hn, cn) = lstm_stacked_reference(*leaves)
+
+    def grads():
+        return torch.autograd.grad((ys, hn, cn), leaves, (dys, dhn, dcn),
+                                   retain_graph=closure)
+    return grads if closure else grads()
+
+
+def _lib():
+    lib = _build.load("lstm_stacked")
+    if not getattr(lib, "_typed", False):
+        lib.lstm_stacked_backward_workspace_floats.argtypes = []
+        lib.lstm_stacked_backward_workspace_floats.restype = ctypes.c_longlong
+        lib.lstm_stacked_forward_f32.argtypes = [_P] * 12 + [_I] * 3 + [_P]
+        lib.lstm_stacked_backward_f32.argtypes = [_P] * 18 + [_I] * 3 + [_P]
+        lib.lstm_stacked_forward_f32.restype = ctypes.c_int
+        lib.lstm_stacked_backward_f32.restype = ctypes.c_int
+        lib.lstm_stacked_resident_clusters.argtypes = [_I, _I]
+        lib.lstm_stacked_resident_clusters.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def resident_clusters(layers: int, backward: bool) -> int:
+    """How many 8-CTA clusters (16 batch rows each) of the forward or
+    backward kernel the current card holds at once (CUDA only); a larger
+    batch runs in waves."""
+    n = _lib().lstm_stacked_resident_clusters(layers, int(backward))
+    if n < 0:
+        raise RuntimeError(f"no occupancy for {layers} layers")
+    return n
+
+
+def kernel_refusal(layers: int, hidden: int, batch: int):
+    """Why the kernels cannot take this stack, or None if they can."""
+    if hidden != HIDDEN:
+        return (f"hidden size {hidden}: the kernels take {HIDDEN} (the "
+                "recurrent weights of the stack must fit one 8-CTA cluster)")
+    if not 2 <= layers <= MAX_LAYERS:
+        return (f"{layers} layers: the kernels take 2 to {MAX_LAYERS} at "
+                f"hidden {HIDDEN} (the weights of more do not fit one "
+                "cluster's shared memory)")
+    if batch < 1:
+        return f"batch {batch}"
+    return None
+
+
+def _check(name, t, w_ih_t, b_rest, w_hh_t, h0, c0, **more):
+    """Raise unless the kernels take these tensors: f32, contiguous, on
+    one CUDA device, shapes from h0 (L, B, H) and ``t``; ``more`` maps
+    each further tensor to its expected shape. Returns (L, B, T, H)."""
+    if h0.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {h0.device}")
+    layers, b, h = h0.shape
+    want = dict(w_ih_t=(w_ih_t, (layers - 1, h, 4 * h)),
+                b_rest=(b_rest, (layers - 1, 4 * h)),
+                w_hh_t=(w_hh_t, (layers, h, 4 * h)),
+                h0=(h0, (layers, b, h)), c0=(c0, (layers, b, h)))
+    want.update({k: (v, tuple(s(layers, b, t, h)))
+                 for k, (v, s) in more.items()})
+    for key, (a, shape) in want.items():
+        if a.device != h0.device or a.dtype != torch.float32:
+            raise ValueError(
+                f"{name} kernel takes f32 tensors on one CUDA device; got "
+                f"{key} {a.dtype} on {a.device}")
+        if tuple(a.shape) != shape or not a.is_contiguous():
+            raise ValueError(
+                f"{name}: expected {key} contiguous {shape}, got "
+                f"{tuple(a.shape)} (contiguous={a.is_contiguous()})")
+    why = kernel_refusal(layers, h, b) if t >= 1 else f"T {t}"
+    if why is not None:
+        raise ValueError(f"{name}: no kernel for {why}")
+    return layers, b, t, h
+
+
+def lstm_stacked_forward(args, residuals: bool):
+    """The forward kernel (CUDA only). Returns (ys, hn, cn, hs, acts, cs);
+    hs (L-1, B, T, H), acts (L, B, T, 4H) and cs (L, B, T, H) are the
+    backward's residuals, None unless ``residuals``."""
+    xw0 = args[0]
+    layers, b, t, h = _check(
+        "lstm_stacked_forward", xw0.shape[1], *args[1:],
+        xw0=(xw0, lambda l, b, t, h: (b, t, 4 * h)))
+    new = lambda *shape: torch.empty(*shape, dtype=torch.float32,
+                                     device=xw0.device)
+    ys, hn, cn = new(b, t, h), new(layers, b, h), new(layers, b, h)
+    hs = acts = cs = None
+    if residuals:
+        hs = new(layers - 1, b, t, h)
+        acts = new(layers, b, t, 4 * h)
+        cs = new(layers, b, t, h)
+    _build.launch(_lib().lstm_stacked_forward_f32, *args, ys, hn, cn, hs,
+                  acts, cs, dims=(b, t, layers))
+    global fwd_launches
+    fwd_launches += 1
+    return ys, hn, cn, hs, acts, cs
+
+
+def lstm_stacked_backward(weights, ys, hs, acts, cs, dys, dhn, dcn):
+    """The backward kernel (CUDA only), from ``weights`` = (w_ih_t,
+    b_rest, w_hh_t, h0, c0) and the forward's residuals. Returns (dxw0,
+    dw_ih_t, db_rest, dw_hh_t, dh0, dc0)."""
+    w_ih_t, b_rest, w_hh_t, h0, c0 = weights
+    cots = [c.float().contiguous() for c in (dys, dhn, dcn)]
+    layers, b, t, h = _check(
+        "lstm_stacked_backward", ys.shape[1], *weights,
+        ys=(ys, lambda l, b, t, h: (b, t, h)),
+        hs=(hs, lambda l, b, t, h: (l - 1, b, t, h)),
+        acts=(acts, lambda l, b, t, h: (l, b, t, 4 * h)),
+        cs=(cs, lambda l, b, t, h: (l, b, t, h)),
+        dys=(cots[0], lambda l, b, t, h: (b, t, h)),
+        dhn=(cots[1], lambda l, b, t, h: (l, b, h)),
+        dcn=(cots[2], lambda l, b, t, h: (l, b, h)))
+    dgates = torch.empty(layers, b, t, 4 * h, dtype=torch.float32,
+                         device=h0.device)
+    dwih, db, dwhh, dh0, dc0 = [torch.empty_like(a) for a in weights]
+    lib = _lib()
+    ws = torch.empty(lib.lstm_stacked_backward_workspace_floats(),
+                     dtype=torch.float32, device=h0.device)
+    _build.launch(lib.lstm_stacked_backward_f32, w_ih_t, w_hh_t, h0, c0, ys,
+                  hs, acts, cs, *cots, dgates, dwih, db, dwhh, dh0, dc0, ws,
+                  dims=(b, t, layers))
+    global bwd_launches
+    bwd_launches += 1
+    return dgates[0], dwih, db, dwhh, dh0, dc0
+
+
+class _LstmStacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *args):
+        ys, hn, cn, hs, acts, cs = lstm_stacked_forward(args, residuals=True)
+        # xw0 itself is not needed again: only its shape (that of the
+        # dgates) and the weights
+        ctx.save_for_backward(*args[1:], ys, hs, acts, cs)
+        return ys, hn, cn
+
+    @staticmethod
+    def backward(ctx, dys, dhn, dcn):
+        *weights, ys, hs, acts, cs = ctx.saved_tensors
+        dys, dhn, dcn = (
+            torch.zeros_like(like) if c is None else c
+            for c, like in zip((dys, dhn, dcn), (ys, weights[3], weights[4]))
+        )
+        return lstm_stacked_backward(weights, ys, hs, acts, cs, dys, dhn,
+                                     dcn)
+
+
+def lstm_stacked_recurrence(
+    xw0: torch.Tensor,     # (B, T, 4H) f32
+    w_ih_t: torch.Tensor,  # (L-1, H, 4H)
+    b_rest: torch.Tensor,  # (L-1, 4H)
+    w_hh_t: torch.Tensor,  # (L, H, 4H)
+    h0: torch.Tensor, c0: torch.Tensor,  # (L, B, H)
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The stacked LSTM, differentiable. CPU tensors take the plain
+    version, CUDA tensors the kernels."""
+    args = (xw0, w_ih_t, b_rest, w_hh_t, h0, c0)
+    if xw0.device.type == "cpu":
+        return lstm_stacked_reference(*args)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        ys, hn, cn = _LstmStacked.apply(*args)
+    else:
+        ys, hn, cn, _, _, _ = lstm_stacked_forward(args, residuals=False)
+    return ys, (hn, cn)

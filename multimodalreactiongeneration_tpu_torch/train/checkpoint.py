@@ -3,7 +3,8 @@
 Counterpart of ``multimodalreactiongeneration_tpu/train/checkpoint.py``
 (orbax there). Reference semantics: Lightning ModelCheckpoint keeps top-k
 on a monitored loss plus a ``last`` checkpoint (reference
-lstmformer/trainer.py:33-57). Here:
+lstmformer/trainer.py:33-57, the same for lstm_with_sampling). Here,
+for any ``nn.Module`` (the Metaformer and LSTMwithSample alike):
 
   * ``TopKCheckpointer``: one file per checkpoint, named as in the JAX
     package, ``{monitor}{epoch}-{loss:.6f}`` (V val_loss, T train_loss,

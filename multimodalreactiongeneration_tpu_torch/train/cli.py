@@ -6,18 +6,23 @@ Usage (the run/*/train.sh contract):
         --config configs/lstmformer.yaml \\
         name=exp-01 data_dir=/path/corpus ckpt_path=./ckpts log_dir=./log
 
-``--config`` names a config by its file's stem; the dict is the port's
-own (``configs.py``), so no yaml is read. ``key=value`` dotted overrides
+``--config`` names a config by its file's stem (``configs/lstmformer.yaml``
+or ``configs/lstm_with_sampling.yaml``); the dict is the port's own
+(``configs.py``), so no yaml is read. ``key=value`` dotted overrides
 apply as in the JAX loader. The run builds the corpus manifests
 (``data/databuild_nx.py``), the bucketed loaders with the corpus audio
-resident on the device (``make_streaming_loaders``), the Metaformer and
-its step functions (``train/harness.py streaming_step_fns``), and trains
-with ``Trainer.fit``; ``resume_from=<checkpoint>`` (e.g. ``<ckpt>/last``)
-restores the weights, the optimizer state and the epoch.
+resident on the device (``make_streaming_loaders``), the model of
+``exp.use_model`` (``models.build_model``) and its step functions
+(``train/harness.py streaming_step_fns``; the lstmformer's self-motion
+input has its -100 padding zeroed, lstm_with_sampling's is fed as it is,
+as in the JAX package), and trains with ``Trainer.fit``;
+``resume_from=<checkpoint>`` (e.g. ``<ckpt>/last``) restores the weights,
+the optimizer state and the epoch.
 
 It runs on ``cuda:0``; ``device=cpu`` runs it on the CPU (the tests do).
 The yaml's own ``device: tpu`` names no device of the port and means the
-default. Only ``exp.use_model=lstmformer`` is ported. Not carried over:
+default. ``exp.use_model`` lstmformer and lstm_with_sampling are ported;
+simple_lstm raises. Not carried over:
 the JAX package's persistent compile cache (the port compiles nothing per
 shape) and its multi-host set-up (one device, ROADMAP queue A, item 9).
 """
@@ -43,7 +48,7 @@ from multimodalreactiongeneration_tpu_torch.data.dataset import (
     SegmentDatasetNX,
     random_split_indices,
 )
-from multimodalreactiongeneration_tpu_torch.models.lstmformer import Metaformer
+from multimodalreactiongeneration_tpu_torch.models import build_model
 from multimodalreactiongeneration_tpu_torch.train.checkpoint import (
     load_checkpoint,
     restore_opt_state,
@@ -113,11 +118,11 @@ def main(argv=None):
 
     cfg = load_config(args.config, args.overrides)
     model_type = cfg.exp.use_model
-    if model_type != "lstmformer":
+    if model_type not in ("lstmformer", "lstm_with_sampling"):
         raise NotImplementedError(
-            f"exp.use_model={model_type!r}: the port trains the lstmformer; "
-            "lstm_with_sampling comes with the next slice (K9), simple_lstm "
-            "after it (ROADMAP queue B)")
+            f"exp.use_model={model_type!r}: the port trains the lstmformer "
+            "and lstm_with_sampling; simple_lstm comes with its own slice "
+            "(ROADMAP queue B)")
     if cfg.model.get("use_scheduled_sampling", False):
         raise NotImplementedError(
             "scheduled sampling is not ported yet (ROADMAP queue A, item 4)")
@@ -134,8 +139,9 @@ def main(argv=None):
     train_loader, val_loader, _, _ = make_streaming_loaders(cfg, logger,
                                                             device)
     model_cfg = cfg.model.to_dict()
-    model = Metaformer(
-        model_cfg, generator=torch.Generator().manual_seed(cfg.get("seed", 0)),
+    model = build_model(
+        model_type, model_cfg,
+        generator=torch.Generator().manual_seed(cfg.get("seed", 0)),
         device=device)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"model: {model_type}, parameters: {n_params:,}, "
@@ -144,7 +150,7 @@ def main(argv=None):
     precision = str(cfg.trainer.get("precision", 32))
     train_step, eval_step = streaming_step_fns(
         model, model_cfg, cfg.metrics.to_dict(), optimizer,
-        mask_self_motion_input=True,
+        mask_self_motion_input=(model_type == "lstmformer"),
         compute_dtype=(torch.bfloat16 if precision in ("bf16", "bfloat16")
                        else torch.float32),
         remat=cfg.trainer.get("remat", False),

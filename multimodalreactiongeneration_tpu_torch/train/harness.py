@@ -2,7 +2,9 @@
 
 Counterpart of ``streaming_step_fns`` in ``multimodalreactiongeneration
 _tpu/train/harness.py`` (reference training_step / validation_step,
-lstmformer.py:357-424), for the Metaformer:
+lstmformer.py:357-424, lstm_with_sample.py:278-337), for the two
+streaming models, the Metaformer and LSTMwithSample (any module called
+as ``model(a_p, m_p, m_s, lead_a, lead_mp, lead_ms) -> (y, state)``):
 
   * leading warmup frames are sliced off the prediction (y[:, lead:]);
   * prediction AND target are multiplied by the (target != -100) mask,
@@ -10,10 +12,12 @@ lstmformer.py:357-424), for the Metaformer:
     to the numerator and stays in the denominator;
   * the training loss scales the delta channels by sqrt(delta_loss_scale).
 
-The step runs the model's modules eagerly; on CUDA the encoder stacks,
-the self-motion LSTMs and the integrators' attention go through their
-kernels (``ops/mixer_stack.py``, ``ops/lstm_layer.py``,
-``ops/rect_attention.py``). f32 only.
+The step runs the model's modules eagerly; on CUDA the recurrences and
+the attention go through their kernels: the Metaformer's encoder stacks,
+self-motion LSTMs and integrators (``ops/mixer_stack.py``,
+``ops/lstm_layer.py``, ``ops/rect_attention.py``), LSTMwithSample's
+sampler stack and layered blocks (``ops/lstm_stacked.py``,
+``ops/lstm_layer.py``). f32 only.
 
 ``Trainer`` is the counterpart of the JAX package's fit loop on one
 device: per-epoch cosine LR, Lightning ``val_check_interval`` semantics
@@ -74,7 +78,9 @@ def streaming_step_fns(
     compute_dtype: torch.dtype = torch.float32,
     remat: bool = False,
 ):
-    """(train_step, eval_step) for the Metaformer.
+    """(train_step, eval_step) for a streaming model. The Metaformer
+    zeroes the -100 padding of its self-motion input
+    (``mask_self_motion_input=True``); LSTMwithSample takes it as it is.
 
     ``train_step(batch) -> (loss, per_slice)`` runs forward, loss,
     backward and one optimizer step on ``model``'s parameters;

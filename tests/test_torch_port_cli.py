@@ -121,7 +121,7 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_other_models_and_unported_options():
-    with pytest.raises(NotImplementedError, match="lstmformer"):
+    with pytest.raises(NotImplementedError, match="simple_lstm"):
         cli.main(["--config", "configs/lstmformer.yaml", "device=cpu",
                   "exp.use_model=simple_lstm"])
     with pytest.raises(NotImplementedError, match="item 4"):

@@ -204,6 +204,59 @@ def test_training_kernels_refuse_bf16_and_off_gate_shapes(dev):
         use_lstm_layer("cuda", 16, 18, 256)
 
 
+@pytest.mark.parametrize("b,t,layers", [
+    (3, 16, 2), (20, 17, 3), (5, 1, 3), (16, 96, 2), (256, 1120, 2),
+])
+def test_lstm_stacked_kernels_match_plain(dev, b, t, layers):
+    """K9 forward without and with residuals, and backward, vs plain, from
+    small ragged shapes (T 1, 16, 17; batch not a multiple of 16) to the
+    lws sampler's (B16 x T96 generation warmup, B256 x T1120 training)."""
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_stacked as K9
+
+    h = 128
+    r = _rand(np.random.default_rng(b * t + layers), dev)
+    args = (r(b, t, 4 * h), r(layers - 1, h, 4 * h, s=0.06),
+            r(layers - 1, 4 * h, s=0.06), r(layers, h, 4 * h, s=0.06),
+            r(layers, b, h, s=0.3), r(layers, b, h, s=0.3))
+    cots = (r(b, t, h), r(layers, b, h), r(layers, b, h))
+    ysr, (hr, cr) = K9.lstm_stacked_reference(*args)
+    before = K9.fwd_launches, K9.bwd_launches
+    ys, (hn, cn) = K9.lstm_stacked_recurrence(*args)  # no grad: no residuals
+    for got, want in ((ys, ysr), (hn, hr), (cn, cr)):
+        assert float((got.detach() - want).abs().max()) <= TOL
+    leaves = [a.clone().requires_grad_() for a in args]
+    ys, (hn, cn) = K9.lstm_stacked_recurrence(*leaves)
+    grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
+    torch.cuda.synchronize()
+    assert (K9.fwd_launches, K9.bwd_launches) == (before[0] + 2,
+                                                  before[1] + 1)
+    for got, want in ((ys, ysr), (hn, hr), (cn, cr)):
+        assert float((got.detach() - want).abs().max()) <= TOL
+    want = K9.lstm_stacked_backward_reference(args, *cots)
+    for i, (g, w) in enumerate(zip(grads, want)):
+        assert _rel_err(g, w) <= GRAD_REL_TOL, i
+
+
+def test_lstm_stacked_kernel_refuses_other_shapes(dev):
+    from multimodalreactiongeneration_tpu_torch.nn.recurrent import (
+        use_lstm_stacked,
+    )
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_stacked as K9
+
+    b, t = 2, 16
+    for layers, h, dt, match in ((2, 256, torch.float32, "hidden size 256"),
+                                 (4, 128, torch.float32, "4 layers"),
+                                 (2, 128, torch.bfloat16, "f32")):
+        z = lambda *s: torch.zeros(*s, device=dev, dtype=dt)
+        args = (z(b, t, 4 * h), z(layers - 1, h, 4 * h), z(layers - 1, 4 * h),
+                z(layers, h, 4 * h), z(layers, b, h), z(layers, b, h))
+        with pytest.raises(ValueError, match=match):
+            K9.lstm_stacked_recurrence(*args)
+    with pytest.raises(NotImplementedError, match="hidden size 256"):
+        use_lstm_stacked("cuda", 16, 2, 256, b)
+    assert use_lstm_stacked("cuda", 16, 2, 128, b)
+
+
 def _rect_inputs(dev, seed, b, lq, lk, e, full_row=True):
     """q/k/v (B, L, E) and pads with ~10% padded rows and keys; with
     ``full_row``, row 3 of batch 0 has every key masked (it and the keys

@@ -212,5 +212,5 @@ def test_trainer_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 4"):
         harness.Trainer(pm, None, None, opt, OPTIM, scheduled_max_epochs=3,
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="lstmformer"):
-        make_generation_eval(pm, "lstm_with_sampling", CFG)
+    with pytest.raises(NotImplementedError, match="simple_lstm"):
+        make_generation_eval(pm, "simple_lstm", CFG)
