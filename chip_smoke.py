@@ -7,7 +7,9 @@ seeded generator: with the flagship Metaformer
 mixer blocks, 4 heads, 10 s context) offline AR generation, the training
 step and the training CLI; then the same three with lstm_with_sampling
 (``configs.LWS_MODEL_CFG``: a 2-layer 128-wide LSTM sampler, two
-256-wide layered-LSTM blocks). Phases:
+256-wide layered-LSTM blocks) and with the GRU-embedding Metaformer
+(``configs.LSTMFORMER_GRU_MODEL_CFG``: the flagship with GRU embeddings).
+Phases:
 
   0. device: name and power limit; TF32 off;
   1. build every CUDA kernel library from csrc/, one nvcc each, all
@@ -69,8 +71,10 @@ step and the training CLI; then the same three with lstm_with_sampling
      timed as a yardstick (it also computes layer 0's input product);
  11. lstm_with_sampling generation: ``generate_lws`` with the full mask
      on 3 batches of 16 x 250 frames (lead 12): shape, finite, launches
-     per generation (K9 forward +1, nothing else), time; then a
-     teacher-forced f32 generation at batch 2 vs CPU tensors: <= 1e-4;
+     per generation (K9 forward +1, nothing else), time; one more
+     generation under ``torch.profiler`` (table in
+     ``_build/profile_lws_generation.txt``); then a teacher-forced f32
+     generation at batch 2 vs CPU tensors: <= 1e-4;
  12. lstm_with_sampling training step at the yaml's batch and window,
      B256 x T128 (lead 12), AdamW with the yaml's optim group: as phase
      8, with launches per step K9 +1 / +1 and K7 +2 / +2, per eval step
@@ -80,7 +84,31 @@ step and the training CLI; then the same three with lstm_with_sampling
      at ``exp.batch_size=32`` on phase 9's corpus, an epoch and a resumed
      epoch, the checks of phase 9, and exact K9 and K7 launches (per
      train step K9 +1 / +1, K7 +2 / +2; per validation batch an eval
-     step, K9 +1 and K7 forward +2, and a generation, K9 +1).
+     step, K9 +1 and K7 forward +2, and a generation, K9 +1);
+ 14. GRU recurrence (K10) forward with and without residuals and backward
+     vs plain, f32: H256 at B32 x T2016 (an audio-encoder block in
+     training), B32 x T252 (the self-motion and partner blocks) and B16 x
+     T2096 (the decode hoist, forward only), and H128 at B32 x T252: ys,
+     h_n <= 1e-4 abs; each gradient max|kernel - plain| / max|plain| <=
+     1e-3; cuDNN's ``torch.nn.GRU`` with the same recurrent weights timed
+     as a yardstick (it also computes the input product);
+ 15. GRU generation: ``generate_metaformer`` with the GRU config, full
+     mask, bf16 caches, on 3 batches of 16 x 250 frames (lead 12): shape,
+     finite, launches per generation (K10 forward +10, the hoisted
+     encoders; nothing else: the fused rollout's gate needs an LSTM main
+     modality, so the rollout runs step by step), time; one more
+     generation under ``torch.profiler`` (table in
+     ``_build/profile_gru_generation.txt``); then a teacher-forced f32
+     generation at batch 2 vs CPU tensors: <= 1e-4;
+ 16. GRU training step, B32 x T240 (lead 12), f32, AdamW lr 1e-4, decay
+     1e-2: as phase 8, with launches per step K10 +15 / +15, K5 +10, K6
+     +10, per eval step K10 forward +15 and K5 +10, the profiler table in
+     ``_build/profile_gru_train_step.txt``;
+ 17. GRU training CLI: ``configs/lstmformer_gru.yaml`` at ``batch_size=32``
+     on phase 9's corpus, an epoch and a resumed epoch, the checks of
+     phase 9, and exact K10, K5 and K6 launches (per train step K10 +15 /
+     +15, K5 +10, K6 +10; per validation batch an eval step, K10 forward
+     +15 and K5 +10, and a generation, K10 forward +10).
 
 Every kernel's JSON record carries its bound: the larger of its FP32
 operations at 67 TFLOP/s and its bytes at 3.35 TB/s (H100 SXM, 700 W).
@@ -108,7 +136,7 @@ TRAIN_B, TRAIN_FRAMES, TRAIN_STEPS = 32, 240, 5
 LWS_B, LWS_FRAMES = 256, 128  # configs/lstm_with_sampling.yaml's batch
 CORPUS_SESSIONS, CORPUS_SECONDS = 4, 540.0
 LIBS = ("mixer_stack", "decode_rollout", "lstm_layer", "rect_attention",
-        "lstm_stacked")
+        "lstm_stacked", "gru")
 SRC = "multimodalreactiongeneration_tpu_torch/csrc/"
 JAX_OPS = "multimodalreactiongeneration_tpu/ops/"
 
@@ -167,6 +195,8 @@ COUNTERS = {  # kernel name -> (module key, counter attribute)
     "rect_attention_bwd": ("K5", "bwd_launches"),
     "lstm_stacked_fwd": ("K9", "fwd_launches"),
     "lstm_stacked_bwd": ("K9", "bwd_launches"),
+    "gru_fwd": ("K10", "fwd_launches"),
+    "gru_bwd": ("K10", "bwd_launches"),
 }
 
 
@@ -347,14 +377,15 @@ def lstm_layer_phase(K7, dev, rng):
     return cases
 
 
-def cudnn_ms(lstm, x, hx, cots):
-    """Yardstick only, never called by the port: a ``torch.nn.LSTM``
-    (cuDNN) forward under grad and its backward, ms each (mean of 5
-    after a warm-up)."""
-    fwd_ms, (ys, (hn, cn)) = cuda_ms(lambda: lstm(x, hx), 5)
-    leaves = [x, *lstm.parameters()]
+def cudnn_ms(rnn, x, hx, cots):
+    """Yardstick only, never called by the port: a ``torch.nn.LSTM`` or
+    ``torch.nn.GRU`` (cuDNN) forward under grad and its backward, ms each
+    (mean of 5 after a warm-up)."""
+    fwd_ms, (ys, hn) = cuda_ms(lambda: rnn(x, hx), 5)
+    outs = (ys, *hn) if isinstance(hn, tuple) else (ys, hn)
+    leaves = [x, *rnn.parameters()]
     bwd_ms, _ = cuda_ms(lambda: torch.autograd.grad(
-        (ys, hn, cn), leaves, cots, retain_graph=True), 5)
+        outs, leaves, cots, retain_graph=True), 5)
     return fwd_ms, bwd_ms
 
 
@@ -389,6 +420,92 @@ def cudnn_stacked_ms(args, cots):
                 getattr(lstm, f"bias_ih_l{k}").copy_(b_rest[k - 1])
     x = xw0[:, :, :h].contiguous().requires_grad_()
     return cudnn_ms(lstm, x, (h0, c0), cots)
+
+
+def cudnn_gru_ms(args, cots):
+    """cuDNN's one-layer GRU with K10's recurrent weights (``cudnn_ms``).
+    It also computes the input product, from an input x (B, T, H) and
+    random W_ih standing in for the precomputed xw the kernels take."""
+    xw, w_hh_t, b_hh, h0 = args
+    h = h0.shape[-1]
+    gru = torch.nn.GRU(h, h, batch_first=True).to(xw.device)
+    with torch.no_grad():
+        gru.weight_hh_l0.copy_(w_hh_t.T)
+        gru.bias_hh_l0.copy_(b_hh)
+    x = xw[:, :, :h].contiguous().requires_grad_()
+    return cudnn_ms(gru, x, h0[None], (cots[0], cots[1][None]))
+
+
+def gru_phase(K10, dev, rng):
+    """14. The GRU recurrence (K10): forward without and with residuals
+    and backward vs plain at the GRU config's shapes, H256: B32 x T2016
+    (an audio-encoder block in training), B32 x T252 (the self-motion and
+    partner blocks), B16 x T2096 (the decode hoist, forward only); and
+    H128 at B32 x T252."""
+    r = seeded(rng, dev)
+    cases = []
+    for b, t, h, backward in (
+            (TRAIN_B, (LEAD + TRAIN_FRAMES) * RATIO, 256, True),
+            (TRAIN_B, LEAD + TRAIN_FRAMES, 256, True),
+            (B, (LEAD + FRAMES) * RATIO, 256, False),
+            (TRAIN_B, LEAD + TRAIN_FRAMES, 128, True)):
+        args = (r(b, t, 3 * h, s=0.5), r(h, 3 * h, s=0.06), r(3 * h, s=0.1),
+                r(b, h, s=0.3))
+        cots = (r(b, t, h), r(b, h))
+        # the wrapper as the model calls it: without a gradient the
+        # forward without residuals; with one, the forward with
+        # residuals, then the backward
+        ys0, hn0 = K10.gru_recurrence(*args)
+        with torch.no_grad():
+            plain_fwd_ms, (ysr, hr) = cuda_ms(
+                lambda: K10.gru_recurrence_reference(*args), 1)
+        fwd_err = max_err((ys0, hn0), (ysr, hr))
+        fwd_ms, _ = cuda_ms(lambda: K10.gru_forward(args, False), 5)
+        # the chain's products: 2 B T 3H H FLOPs each way; the backward
+        # call also reduces dW_hh (the same again)
+        flops = 2 * b * t * 3 * h * h
+        case = dict(B=b, T=t, H=h, clusters=-(-b // 16),
+                    fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
+                    fwd_no_residual_bound=bound(flops,
+                                                nbytes(args, ys0, hn0)))
+        kv = {}
+        if backward:
+            leaves = [a.clone().requires_grad_() for a in args]
+            ys, hn = K10.gru_recurrence(*leaves)
+            grads = torch.autograd.grad((ys, hn), leaves, cots)
+            fwd_err = max(fwd_err, max_err((ys, hn), (ysr, hr)))
+            plain_bwd_ms, want = cuda_ms(
+                K10.gru_backward_reference(args, *cots, closure=True), 1)
+            grad_err = max_err(grads, want)
+            grad_rel = rel_err(grads, want)
+            del want
+            fwd_res_ms, (ys1, hn1, hh) = cuda_ms(
+                lambda: K10.gru_forward(args, True), 5)
+            bwd_ms, _ = cuda_ms(
+                lambda: K10.gru_backward(args, ys1, hh, *cots), 5)
+            lib_fwd_ms, lib_bwd_ms = cudnn_gru_ms(args, cots)
+            case.update(
+                grad_max_abs_err=grad_err, grad_max_rel_err=grad_rel,
+                fwd_res_ms=fwd_res_ms, bwd_ms=bwd_ms,
+                plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
+                library_bwd_ms=lib_bwd_ms,
+                fwd_bound=bound(flops, nbytes(args, ys1, hn1, hh)),
+                bwd_bound=bound(2 * flops,
+                                nbytes(args, ys1, hh, cots, grads)))
+            kv = dict(fwd_res_ms=fwd_res_ms, bwd_ms=bwd_ms,
+                      plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
+                      library_bwd_ms=lib_bwd_ms,
+                      bwd_bound_ms=case["bwd_bound"][0])
+            del leaves, grads, ys, ys1, hh
+        else:
+            grad_rel = 0.0
+        case["fwd_max_abs_err"] = fwd_err
+        check_case("gru", fwd_err, grad_rel, B=b, T=t, H=h, fwd_ms=fwd_ms,
+                   plain_fwd_ms=plain_fwd_ms,
+                   fwd_bound_ms=case["fwd_no_residual_bound"][0], **kv)
+        cases.append(case)
+        del args, ys0, ysr
+    return cases
 
 
 def lstm_stacked_phase(K9, dev, rng):
@@ -607,11 +724,25 @@ def lws_train_spec():
         profile="profile_lws_train_step.txt")
 
 
-def profile_step(train_step, batch, name):
-    """A torch.profiler table of one training step, by device time,
-    written to ``_build/<name>`` of the package; returns
-    the share of the step's wall time in which a kernel or copy ran on
-    the device (the union of their intervals)."""
+def gru_train_spec():
+    from multimodalreactiongeneration_tpu_torch import configs
+
+    # the flagship's step with GRU embeddings: its loss, metrics and optim
+    # groups are the lstmformer's
+    return dict(metaformer_train_spec(), tag="gru_train_step",
+                eval_tag="gru_eval_step",
+                cfg=configs.LSTMFORMER_GRU_MODEL_CFG,
+                per_step=dict(gru_fwd=15, gru_bwd=15, rect_attention_fwd=10,
+                              rect_attention_bwd=10),
+                per_eval=dict(gru_fwd=15, rect_attention_fwd=10),
+                profile="profile_gru_train_step.txt")
+
+
+def profile_step(step, batch, name):
+    """A torch.profiler table of one ``step(batch)`` (a training step or a
+    generation), by device time, written to ``_build/<name>`` of the
+    package; returns the share of the step's wall time in which a kernel
+    or copy ran on the device (the union of their intervals)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -621,7 +752,7 @@ def profile_step(train_step, batch, name):
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        train_step(batch)
+        step(batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -829,8 +960,9 @@ def metaformer_cli_launches(launches, steps):
                 lstm_layer_fwd=5 * (steps + n_eval), lstm_layer_bwd=5 * steps,
                 mixer_stack=4 * n_eval)
     got = {k: launches[k] for k in want}
+    others = ("lstm_stacked_fwd", "lstm_stacked_bwd", "gru_fwd", "gru_bwd")
     if (got != want or launches["decode_rollout"] < n_eval
-            or launches["lstm_stacked_fwd"] or launches["lstm_stacked_bwd"]):
+            or any(launches[k] for k in others)):
         raise AssertionError(f"cli launches {launches}, want {want} and "
                              f"decode_rollout >= {n_eval}")
     return n_eval
@@ -846,6 +978,20 @@ def lws_cli_launches(launches, steps):
                 lstm_layer_fwd=2 * (steps + n_eval), lstm_layer_bwd=2 * steps)
     if launches != want:
         raise AssertionError(f"lws cli launches {launches}, want {want}")
+    return n_eval
+
+
+def gru_cli_launches(launches, steps):
+    """Every train step K10 +15 / +15, K5 +10, K6 +10; every validation
+    batch an eval step (K10 forward +15, K5 +10) and a generation (K10
+    forward +10: the hoisted encoders); no other kernel."""
+    n_eval = (launches["rect_attention_fwd"] - 10 * steps) // 10
+    want = {k: 0 for k in COUNTERS}
+    want.update(gru_fwd=15 * steps + 25 * n_eval, gru_bwd=15 * steps,
+                rect_attention_fwd=10 * (steps + n_eval),
+                rect_attention_bwd=10 * steps)
+    if launches != want:
+        raise AssertionError(f"gru cli launches {launches}, want {want}")
     return n_eval
 
 
@@ -920,30 +1066,24 @@ def stacked_records(cases, launches, **more_launches):
     ]
 
 
-def lws_generation_phase(mods, dev, rng):
-    """11. lstm_with_sampling's generation: ``generate_lws`` with the full
-    mask at the yaml's width (random weights from SEED) on 3 batches of
-    16 x 250 frames (lead 12): shape, finite, launches per generation (K9
-    +1, the sampler's warmup; nothing else), time; then a teacher-forced
-    generation at batch 2 against the same weights and inputs on CPU
-    tensors (the all-plain path): <= 1e-4."""
-    from multimodalreactiongeneration_tpu_torch.configs import LWS_MODEL_CFG
+def generation_phase(mods, dev, rng, spec):
+    """11. and 15. A generation main path at full width (random weights
+    from SEED), as ``spec`` names it (tag, model constructor, generate
+    function and the launches of one generation), with the full mask on
+    3 batches of 16 x 250 frames (lead 12): shape, finite, launches per
+    generation, time; one more generation under ``torch.profiler`` (the
+    busy share into the record, the table into ``_build/``); then a
+    teacher-forced f32 generation at batch 2 against the same weights and
+    inputs on CPU tensors (the all-plain path): <= 1e-4."""
     from multimodalreactiongeneration_tpu_torch.infer.generate import (
-        generate_lws,
         sampling_mask_for,
     )
-    from multimodalreactiongeneration_tpu_torch.models.lstm_with_sampling \
-        import LSTMwithSample
 
-    def new_model(device):
-        return LSTMwithSample(LWS_MODEL_CFG,
-                              generator=torch.Generator().manual_seed(SEED),
-                              device=device)
-
-    model = new_model(dev)
+    tag, generate = spec["tag"], spec["generate"]
+    model = spec["model"](dev)
     full = sampling_mask_for(FRAMES, "full", device=dev)
     batches = [[x.to(dev) for x in make_batch(rng, B)] for _ in range(3)]
-    generate_lws(model, batches[0], full)  # warm-up, not counted
+    generate(model, batches[0], full)  # warm-up, not counted
     torch.cuda.synchronize()
     zero_counts(mods)
     times = []
@@ -952,37 +1092,107 @@ def lws_generation_phase(mods, dev, rng):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        pred = generate_lws(model, bd, full)
+        pred = generate(model, bd, full)
         stop.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
         if tuple(pred.shape) != (B, FRAMES, MOTION_DIM):
             raise AssertionError(
-                f"lws generation {i}: shape {tuple(pred.shape)}")
+                f"{tag} generation {i}: shape {tuple(pred.shape)}")
         if not bool(torch.isfinite(pred).all()):
-            raise AssertionError(f"lws generation {i}: non-finite output")
-        check_launches(f"lws generation {i}", before, counts(mods),
-                       lstm_stacked_fwd=1)
-        log("lws_generate", batch=i, shape=tuple(pred.shape), finite=True,
-            ms=f"{times[-1]:.3f}", lstm_stacked_launches="+1")
+            raise AssertionError(f"{tag} generation {i}: non-finite output")
+        d = check_launches(f"{tag} generation {i}", before, counts(mods),
+                           **spec["per_generation"])
+        log(f"{tag}_generate", batch=i, shape=tuple(pred.shape), finite=True,
+            ms=f"{times[-1]:.3f}", launches={k: v for k, v in d.items() if v})
     launches = counts(mods)
     gen_ms = float(np.mean(times))
     frames_per_s = B * FRAMES / (gen_ms / 1000)
-    log("lws_generate", ms_per_generation=f"{gen_ms:.3f}",
+    log(f"{tag}_generate", ms_per_generation=f"{gen_ms:.3f}",
         frames_per_s=f"{frames_per_s:.1f}", launches=launches)
+    busy = profile_step(lambda bd: generate(model, bd, full), batches[0],
+                        f"profile_{tag}_generation.txt")
 
     small = make_batch(rng, 2)
     teacher = sampling_mask_for(FRAMES, "teacher")
-    on_card = generate_lws(model, [x.to(dev) for x in small], teacher.to(dev))
-    on_cpu = generate_lws(new_model("cpu"), small, teacher)
+    on_card = generate(model, [x.to(dev) for x in small], teacher.to(dev),
+                       **spec["f32"])
+    on_cpu = generate(spec["model"]("cpu"), small, teacher, **spec["f32"])
     err = float((on_card.cpu() - on_cpu).abs().max())
-    log("lws_generate", teacher_f32_batch2_vs_cpu_max_abs_err=f"{err:.3e}")
+    log(f"{tag}_generate", teacher_f32_batch2_vs_cpu_max_abs_err=f"{err:.3e}")
     if not err <= PATH_TOL:
-        raise AssertionError(f"lws card vs CPU generation: {err} > {PATH_TOL}")
+        raise AssertionError(
+            f"{tag} card vs CPU generation: {err} > {PATH_TOL}")
     return {"launches": launches, "record": {
         "batch": B, "frames": FRAMES, "ms": gen_ms,
         "frames_per_s": frames_per_s, "ms_each": times,
+        "device_busy_share": busy,
         "teacher_batch2_vs_cpu_max_abs_err": err}}
+
+
+def gru_records(cases, launches, **more_launches):
+    """The JSON entries of K10's forward and backward: the main case is an
+    audio-encoder block in training (B32 x T2016 x H256); launches from
+    the GRU CLI run, those of the generation and training-step phases
+    beside them. cuDNN's ``nn.GRU`` is the yardstick."""
+    main = cases[0]
+    extra = {f"launches_{k}": {n: v[n] for n in ("gru_fwd", "gru_bwd")}
+             for k, v in more_launches.items()}
+    bwd = [c for c in cases if "bwd_ms" in c]
+    return [
+        kernel_record(
+            "gru_fwd", "gru.cu", "pallas_gru.py:57", launches["gru_fwd"],
+            max(c["fwd_max_abs_err"] for c in cases), main["fwd_res_ms"],
+            main["plain_fwd_ms"], main["fwd_bound"], main["library_fwd_ms"],
+            no_residual_ms=main["fwd_ms"],
+            no_residual_bound_ms=main["fwd_no_residual_bound"][0],
+            cases=cases, **extra),
+        kernel_record(
+            "gru_bwd", "gru.cu", "pallas_gru.py:101", launches["gru_bwd"],
+            max(c["grad_max_abs_err"] for c in bwd), main["bwd_ms"],
+            main["plain_bwd_ms"], main["bwd_bound"], main["library_bwd_ms"],
+            max_rel_err=max(c["grad_max_rel_err"] for c in bwd)),
+    ]
+
+
+def lws_generation_spec():
+    """lstm_with_sampling's generation: K9 +1 per generation (the
+    sampler's warmup), nothing else."""
+    from multimodalreactiongeneration_tpu_torch.configs import LWS_MODEL_CFG
+    from multimodalreactiongeneration_tpu_torch.infer.generate import (
+        generate_lws,
+    )
+    from multimodalreactiongeneration_tpu_torch.models.lstm_with_sampling \
+        import LSTMwithSample
+
+    return dict(
+        tag="lws", generate=generate_lws, per_generation=dict(
+            lstm_stacked_fwd=1), f32={},
+        model=lambda device: LSTMwithSample(
+            LWS_MODEL_CFG, generator=torch.Generator().manual_seed(SEED),
+            device=device))
+
+
+def gru_generation_spec():
+    """The GRU Metaformer's generation, bf16 caches: K10 +10 per
+    generation (the hoisted audio and partner-motion encoders, 5 blocks
+    each), nothing else."""
+    from multimodalreactiongeneration_tpu_torch.configs import (
+        LSTMFORMER_GRU_MODEL_CFG,
+    )
+    from multimodalreactiongeneration_tpu_torch.infer.generate import (
+        generate_metaformer,
+    )
+    from multimodalreactiongeneration_tpu_torch.models.lstmformer import (
+        Metaformer,
+    )
+
+    return dict(
+        tag="gru", generate=generate_metaformer,
+        per_generation=dict(gru_fwd=10), f32=dict(cache_dtype=torch.float32),
+        model=lambda device: Metaformer(
+            LSTMFORMER_GRU_MODEL_CFG,
+            generator=torch.Generator().manual_seed(SEED), device=device))
 
 
 def attention_records(cases, launches):
@@ -1019,12 +1229,13 @@ def main():
     from multimodalreactiongeneration_tpu_torch.ops import (
         decode_rollout as K2,
         lstm_layer as K7,
+        gru as K10,
         lstm_stacked as K9,
         mixer_stack as K1,
         rect_attention as K5,
     )
 
-    mods = {"K1": K1, "K2": K2, "K5": K5, "K7": K7, "K9": K9}
+    mods = {"K1": K1, "K2": K2, "K5": K5, "K7": K7, "K9": K9, "K10": K10}
     t_start = time.perf_counter()
 
     # ---- 0. device ---------------------------------------------------
@@ -1196,10 +1407,17 @@ def main():
 
     # ---- 10.-13. lstm_with_sampling: K9, generation, step, CLI ---------
     stacked = lstm_stacked_phase(K9, dev, rng)
-    lws_gen = lws_generation_phase(mods, dev, rng)
+    lws_gen = generation_phase(mods, dev, rng, lws_generation_spec())
     lws_step = train_path_phase(mods, dev, rng, lws_train_spec())
     lws_cli = cli_phase(mods, run, "configs/lstm_with_sampling.yaml",
                         "lws_cli", ["exp.batch_size=32"], lws_cli_launches)
+
+    # ---- 14.-17. the GRU Metaformer: K10, generation, step, CLI ---------
+    gru = gru_phase(K10, dev, rng)
+    gru_gen = generation_phase(mods, dev, rng, gru_generation_spec())
+    gru_step = train_path_phase(mods, dev, rng, gru_train_spec())
+    gru_cli = cli_phase(mods, run, "configs/lstmformer_gru.yaml", "gru_cli",
+                        ["batch_size=32"], gru_cli_launches)
     shutil.rmtree(run)  # the corpus, manifests and checkpoints
 
     k1_main, k2_main = k1_cases[0], k2_cases[1]
@@ -1220,12 +1438,17 @@ def main():
         *stacked_records(stacked, lws_cli["launches"],
                          generation=lws_gen["launches"],
                          train_step=lws_step["launches"]),
+        *gru_records(gru, gru_cli["launches"],
+                     generation=gru_gen["launches"],
+                     train_step=gru_step["launches"]),
     ], "generation": {"batch": B, "frames": FRAMES, "ms": gen_ms,
                       "frames_per_s": B * FRAMES / (gen_ms / 1000)},
         "train_step": step["record"],
         "cli": {"corpus_seconds_of_audio": audio_s, **cli_run["record"]},
         "lws_generation": lws_gen["record"],
         "lws_train_step": lws_step["record"], "lws_cli": lws_cli["record"],
+        "gru_generation": gru_gen["record"],
+        "gru_train_step": gru_step["record"], "gru_cli": gru_cli["record"],
         "seconds": time.perf_counter() - t_start}
     log("done", seconds=f"{record['seconds']:.1f}")
     print(json.dumps(record))

@@ -16,6 +16,11 @@ step reads) are cut from the resolved config: the flagship Metaformer at
 the production size (hidden 256, 5 blocks, LSTM embeddings, encoders of
 5 mixer blocks, 4-head integrators, 10 s context budget).
 
+``LSTMFORMER_GRU`` is ``configs/lstmformer_gru.yaml``, the lstmformer's
+dict with ``emb_mixers`` three GRUs, and ``LSTMFORMER_GRU_MODEL_CFG`` is
+cut from it as ``LSTMFORMER_MODEL_CFG`` is (its loss, metrics and optim
+groups are the lstmformer's).
+
 ``LSTM_WITH_SAMPLING`` is ``configs/lstm_with_sampling.yaml`` in the same
 way (``load_config("lstm_with_sampling")``), and ``LWS_MODEL_CFG``,
 ``LWS_LOSS_CFG``, ``LWS_METRICS_CFG`` and ``LWS_OPTIM_CFG`` are cut from
@@ -268,8 +273,16 @@ LSTM_WITH_SAMPLING: Dict[str, Any] = {
     "output_path": None,
 }
 
+# ``configs/lstmformer_gru.yaml``: the lstmformer's with GRU embeddings
+LSTMFORMER_GRU: Dict[str, Any] = {
+    **copy.deepcopy(LSTMFORMER),
+    "model": dict(copy.deepcopy(LSTMFORMER["model"]),
+                  emb_mixers=["gru", "gru", "gru"]),
+}
+
 CONFIGS: Dict[str, Dict[str, Any]] = {
     "lstmformer": LSTMFORMER,
+    "lstmformer_gru": LSTMFORMER_GRU,
     "lstm_with_sampling": LSTM_WITH_SAMPLING,
 }
 
@@ -416,8 +429,7 @@ def load_config(name: str, overrides: Optional[List[str]] = None) -> Config:
     return _wrap(_resolve_tree(raw, raw))
 
 
-_RESOLVED = load_config("lstmformer").to_dict()
-LSTMFORMER_MODEL_CFG = {k: _RESOLVED["model"][k] for k in (
+_METAFORMER_KEYS = (
     "main_modal_idx", "hidden_size", "num_block", "dropout", "num_layerd",
     "encoder_num_layer", "num_internal_layer", "residual",
     "residual_layer_norm", "bias", "emb_mixers", "bottleneck_size",
@@ -425,7 +437,11 @@ LSTMFORMER_MODEL_CFG = {k: _RESOLVED["model"][k] for k in (
     "add_bias_kv", "add_zero_attn", "max_context_len", "repeat_with_encoder",
     "interlayer_residual", "interlayer_residual_norm", "sampling_rate",
     "shift", "pred_fps", "modalities", "use_centroid", "use_angle", "nmels",
-    "delta_order")}
+    "delta_order")
+_RESOLVED = load_config("lstmformer").to_dict()
+LSTMFORMER_MODEL_CFG = {k: _RESOLVED["model"][k] for k in _METAFORMER_KEYS}
+_GRU = load_config("lstmformer_gru").to_dict()
+LSTMFORMER_GRU_MODEL_CFG = {k: _GRU["model"][k] for k in _METAFORMER_KEYS}
 # the loss keys of the same ``model:`` group, which the training step
 # reads beside the model's own
 LSTMFORMER_LOSS_CFG = {k: _RESOLVED["model"][k] for k in (

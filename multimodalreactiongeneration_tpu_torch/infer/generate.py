@@ -13,8 +13,11 @@ on its production branch, the hoisted-encoder, shared-KV path:
      prediction[t] where sampling_mask[t] else motion_s[t]. With
      ``fused_rollout`` ("auto" or True, and a supported config) it is
      one call of ``ops/decode_rollout.decode_rollout`` (the kernel on
-     the card, its plain version on the CPU); ``fused_rollout=False``
-     runs the module step by step.
+     the card, its plain version on the CPU); ``fused_rollout=False``,
+     or a config outside the rollout's gate (a GRU main modality, as in
+     configs/lstmformer_gru.yaml), runs the module step by step. With GRU
+     embeddings the hoisted pass of step 1 runs the GRU recurrence
+     kernel (K10) over each encoder block.
 
 -100 padded inputs are zeroed first. Tensors use the JAX package's
 layouts. The per-block KV layout, int8 caches and the in-loop

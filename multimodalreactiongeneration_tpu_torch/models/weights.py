@@ -6,13 +6,15 @@ The port's modules carry the flax paths as attribute names, so a leaf
 
   * Dense ``kernel`` (in, out) -> ``weight`` (out, in), transposed;
   * LayerNorm ``scale`` -> ``weight``;
-  * ``bias`` and the LSTM / MHA leaves (already in torch layout, under
-    torch's names: ``weight_ih_l<k>``, ``weight_hh_l<k>``, ``bias_ih_l<k>``,
-    ``bias_hh_l<k>`` for every layer k, and their ``_reverse`` forms) keep
-    name and layout.
+  * ``bias`` and the LSTM / GRU / MHA leaves (already in torch layout,
+    under torch's names: ``weight_ih_l<k>``, ``weight_hh_l<k>``,
+    ``bias_ih_l<k>``, ``bias_hh_l<k>`` for every layer k, and their
+    ``_reverse`` forms; 4H rows for an LSTM, 3H for a GRU) keep name and
+    layout.
 
-Any other leaf name raises. It converts a Metaformer tree and an
-LSTMwithSample tree alike. Loading reference Lightning checkpoints (a
+Any other leaf name raises. It converts a Metaformer tree (LSTM or GRU
+embeddings, tests/test_torch_port_gru.py) and an LSTMwithSample tree
+alike. Loading reference Lightning checkpoints (a
 numpy port of the JAX package's ``metaformer_name_map``) comes with the
 checkpoint slice.
 """

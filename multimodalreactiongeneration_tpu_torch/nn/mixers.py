@@ -1,16 +1,18 @@
 """Recurrent and attention mixer blocks and their layered stacks.
 
 Counterpart of ``multimodalreactiongeneration_tpu/nn/mixers.py`` for the
-pieces the Metaformer decode path runs: ``RecurrentMixerBlock`` /
-``RecurrentMixerLayerd`` (LSTM kind, single inner layer) with the fused
-stack dispatch, and ``MHAMixerBlock`` / ``MHAMixerLayerd`` on their
-shared-raw (decode) and masked full-sequence paths. Submodule names
+pieces the Metaformer runs: ``RecurrentMixerBlock`` /
+``RecurrentMixerLayerd`` (LSTM and GRU kinds, single inner layer) with
+the fused stack dispatch (LSTM stacks only, as in the JAX package: a GRU
+stack runs block by block), and ``MHAMixerBlock`` / ``MHAMixerLayerd`` on
+their shared-raw (decode) and masked full-sequence paths. Submodule names
 follow the flax tree (``block_i``, ``mixer``, ``mixer_norm``,
 ``feed_forward``, ``mha_i``). Recurrent stacks return their fresh
-states, as in the JAX package (PARITY #1).
+states, as in the JAX package (PARITY #1): (h, c) per LSTM block, h per
+GRU block.
 
-Not ported yet: the MLP and GRU mixers, bidirectional and multi-layer
-LSTM mixers, and the per-block KV-cache decode path.
+Not ported yet: the MLP mixers, bidirectional and multi-layer recurrent
+mixers, and the per-block KV-cache decode path.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from multimodalreactiongeneration_tpu_torch.nn.basic import (
 )
 from multimodalreactiongeneration_tpu_torch.nn.recurrent import (
     MIN_KERNEL_STEPS,
+    TorchGRU,
     TorchLSTM,
 )
 from multimodalreactiongeneration_tpu_torch.ops.mixer_stack import (
@@ -58,7 +61,7 @@ def _feed_forward(hidden_size, generator, cfg_owner) -> FeedForward:
 
 
 class RecurrentMixerBlock(nn.Module):
-    """LSTM mixer + FFN (reference mixer_block.py:355-507)."""
+    """GRU or LSTM mixer + FFN (reference mixer_block.py:355-507)."""
 
     def __init__(
         self,
@@ -74,10 +77,12 @@ class RecurrentMixerBlock(nn.Module):
         use_bias: bool = True,
     ):
         super().__init__()
-        if kind != "lstm" or num_layers != 1 or bidirectional:
+        if kind not in ("gru", "lstm"):
+            raise ValueError(f"kind must be gru/lstm, got {kind!r}")
+        if num_layers != 1 or bidirectional:
             raise NotImplementedError(
-                "the port has the single-layer unidirectional LSTM mixer "
-                f"only (kind={kind!r}, num_layers={num_layers}, "
+                "the port has the single-layer unidirectional recurrent "
+                f"mixers only (kind={kind!r}, num_layers={num_layers}, "
                 f"bidirectional={bidirectional})"
             )
         self.nonlinearity = nonlinearity
@@ -85,7 +90,8 @@ class RecurrentMixerBlock(nn.Module):
         self.residual_layer_norm = residual_layer_norm
         self.bottleneck_size = bottleneck_size
         self.use_bias = use_bias
-        self.mixer = TorchLSTM(hidden_size, hidden_size, generator)
+        rnn = TorchLSTM if kind == "lstm" else TorchGRU
+        self.mixer = rnn(hidden_size, hidden_size, generator)
         self.mixer_norm = (
             LayerNorm(hidden_size) if residual and residual_layer_norm
             else None
@@ -320,14 +326,13 @@ class MHAMixerLayerd(nn.Module):
 def build_mixer_layerd(mixer_type: str, configs: Dict[str, Any],
                        generator: torch.Generator) -> nn.Module:
     """MixerLayerdFactory equivalent for the ported mixer kinds."""
-    if mixer_type == "lstm":
-        return RecurrentMixerLayerd(kind="lstm", generator=generator,
+    if mixer_type in ("gru", "lstm"):
+        return RecurrentMixerLayerd(kind=mixer_type, generator=generator,
                                     **configs)
     if mixer_type == "mha":
         return MHAMixerLayerd(generator=generator, **configs)
-    if mixer_type in ("mlp", "gru"):
+    if mixer_type == "mlp":
         raise NotImplementedError(
-            f"{mixer_type!r} mixers are not ported yet (the Metaformer "
-            "decode slice runs lstm and mha mixers only)"
+            "'mlp' mixers are not ported yet (no shipped config runs them)"
         )
     raise ValueError(f"mixer_type must be mlp/gru/lstm/mha, got {mixer_type!r}")

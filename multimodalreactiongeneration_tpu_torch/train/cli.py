@@ -6,9 +6,9 @@ Usage (the run/*/train.sh contract):
         --config configs/lstmformer.yaml \\
         name=exp-01 data_dir=/path/corpus ckpt_path=./ckpts log_dir=./log
 
-``--config`` names a config by its file's stem (``configs/lstmformer.yaml``
-or ``configs/lstm_with_sampling.yaml``); the dict is the port's own
-(``configs.py``), so no yaml is read. ``key=value`` dotted overrides
+``--config`` names a config by its file's stem (``configs/lstmformer.yaml``,
+``configs/lstmformer_gru.yaml`` or ``configs/lstm_with_sampling.yaml``);
+the dict is the port's own (``configs.py``), so no yaml is read. ``key=value`` dotted overrides
 apply as in the JAX loader. The run builds the corpus manifests
 (``data/databuild_nx.py``), the bucketed loaders with the corpus audio
 resident on the device (``make_streaming_loaders``), the model of
@@ -21,8 +21,8 @@ the optimizer state and the epoch.
 
 It runs on ``cuda:0``; ``device=cpu`` runs it on the CPU (the tests do).
 The yaml's own ``device: tpu`` names no device of the port and means the
-default. ``exp.use_model`` lstmformer and lstm_with_sampling are ported;
-simple_lstm raises. Not carried over:
+default. ``exp.use_model`` lstmformer (with LSTM or GRU embeddings) and
+lstm_with_sampling are ported; simple_lstm raises. Not carried over:
 the JAX package's persistent compile cache (the port compiles nothing per
 shape) and its multi-host set-up (one device, ROADMAP queue A, item 9).
 """

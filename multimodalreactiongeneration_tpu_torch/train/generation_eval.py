@@ -8,9 +8,11 @@ model's generation with the full sampling mask, as in the JAX package:
 ``generate_lws`` for lstm_with_sampling (on the card the sampler's
 warmup runs the stacked-LSTM kernel, K9), ``generate_metaformer`` for the
 lstmformer with f32 caches (the metric stays off the bf16 inference
-default's rounding) and the shared raw-KV layout (on the card the
-encoder-stack kernel, K1, and the rollout kernel, K2). The per-batch
-losses stay on the device and are read back once.
+default's rounding) and the shared raw-KV layout (on the card, with LSTM
+embeddings, the encoder-stack kernel, K1, and the rollout kernel, K2;
+with GRU embeddings the GRU recurrence kernel, K10, over the hoisted
+encoders and the step-by-step rollout). The per-batch losses stay on the
+device and are read back once.
 """
 
 from __future__ import annotations

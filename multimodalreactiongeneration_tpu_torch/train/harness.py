@@ -15,7 +15,9 @@ as ``model(a_p, m_p, m_s, lead_a, lead_mp, lead_ms) -> (y, state)``):
 The step runs the model's modules eagerly; on CUDA the recurrences and
 the attention go through their kernels: the Metaformer's encoder stacks,
 self-motion LSTMs and integrators (``ops/mixer_stack.py``,
-``ops/lstm_layer.py``, ``ops/rect_attention.py``), LSTMwithSample's
+``ops/lstm_layer.py``, ``ops/rect_attention.py``; with GRU embeddings,
+configs/lstmformer_gru.yaml, every encoder and self-motion block runs
+``ops/gru.py``), LSTMwithSample's
 sampler stack and layered blocks (``ops/lstm_stacked.py``,
 ``ops/lstm_layer.py``). f32 only.
 

@@ -307,3 +307,58 @@ def test_rect_attention_kernel_refuses_bf16_and_other_head_dims(dev):
                           q_pad, k_pad)
     with pytest.raises(ValueError, match="head dims"):
         K5.rect_attention(4, q, k, v, q_pad, k_pad)
+
+
+@pytest.mark.parametrize("h", [128, 256])
+@pytest.mark.parametrize("t", [16, 17, 2016])
+def test_gru_kernels_match_plain(dev, t, h):
+    """K10 forward without and with residuals, and backward, vs plain, at
+    both hidden sizes the kernels take, batch 28 (a ragged 12-row second
+    cluster), from the shortest kernel route (T 16) to the audio encoder
+    in training (T 2016)."""
+    from multimodalreactiongeneration_tpu_torch.ops import gru as K10
+
+    b = 28
+    r = _rand(np.random.default_rng(b * t + h), dev)
+    args = (r(b, t, 3 * h, s=0.5), r(h, 3 * h, s=0.06), r(3 * h, s=0.1),
+            r(b, h, s=0.3))
+    cots = (r(b, t, h), r(b, h))
+    ysr, hr = K10.gru_recurrence_reference(*args)
+    before = K10.fwd_launches, K10.bwd_launches
+    ys, hn = K10.gru_recurrence(*args)  # no grad needed: no residuals
+    for got, want in ((ys, ysr), (hn, hr)):
+        assert float((got - want).abs().max()) <= TOL
+    leaves = [a.clone().requires_grad_() for a in args]
+    ys, hn = K10.gru_recurrence(*leaves)
+    grads = torch.autograd.grad((ys, hn), leaves, cots)
+    torch.cuda.synchronize()
+    assert (K10.fwd_launches, K10.bwd_launches) == (before[0] + 2,
+                                                    before[1] + 1)
+    for got, want in ((ys, ysr), (hn, hr)):
+        assert float((got.detach() - want).abs().max()) <= TOL
+    want = K10.gru_backward_reference(args, *cots)
+    for i, (g, w) in enumerate(zip(grads, want)):
+        assert _rel_err(g, w) <= GRAD_REL_TOL, i
+
+
+def test_gru_kernel_refuses_bf16_and_other_hidden_sizes(dev):
+    from multimodalreactiongeneration_tpu_torch.nn.recurrent import (
+        use_gru_kernel,
+    )
+    from multimodalreactiongeneration_tpu_torch.ops import gru as K10
+
+    b, t = 2, 16
+    for h, dt, match in ((256, torch.bfloat16, "f32"),
+                         (64, torch.float32, "hidden size 64"),
+                         (192, torch.float32, "hidden size 192")):
+        z = lambda *s: torch.zeros(*s, device=dev, dtype=dt)
+        with pytest.raises(ValueError, match=match):
+            K10.gru_recurrence(z(b, t, 3 * h), z(h, 3 * h), z(3 * h), z(b, h))
+        with pytest.raises(ValueError, match=match):
+            K10.gru_recurrence(z(b, t, 3 * h).requires_grad_(), z(h, 3 * h),
+                               z(3 * h), z(b, h))
+    for h in (64, 192):
+        with pytest.raises(NotImplementedError, match="K10"):
+            use_gru_kernel("cuda", 16, h)
+    assert use_gru_kernel("cuda", 16, 128) and use_gru_kernel("cuda", 252, 256)
+    assert not use_gru_kernel("cuda", 15, 64)
