@@ -7,8 +7,11 @@ seeded generator: with the flagship Metaformer
 mixer blocks, 4 heads, 10 s context) offline AR generation, the training
 step and the training CLI; then the same three with lstm_with_sampling
 (``configs.LWS_MODEL_CFG``: a 2-layer 128-wide LSTM sampler, two
-256-wide layered-LSTM blocks) and with the GRU-embedding Metaformer
-(``configs.LSTMFORMER_GRU_MODEL_CFG``: the flagship with GRU embeddings).
+256-wide layered-LSTM blocks), with the GRU-embedding Metaformer
+(``configs.LSTMFORMER_GRU_MODEL_CFG``: the flagship with GRU embeddings)
+and with simple_lstm (``configs.SIMPLE_LSTM_MODEL_CFG``: bidirectional
+128-wide LSTM encoders over 256-wide affines, 8-head cross-modal
+attention, a 5-block decoder, 15-frame context, 120 audio frames).
 Phases:
 
   0. device: name and power limit; TF32 off;
@@ -108,7 +111,41 @@ Phases:
      on phase 9's corpus, an epoch and a resumed epoch, the checks of
      phase 9, and exact K10, K5 and K6 launches (per train step K10 +15 /
      +15, K5 +10, K6 +10; per validation batch an eval step, K10 forward
-     +15 and K5 +10, and a generation, K10 forward +10).
+     +15 and K5 +10, and a generation, K10 forward +10);
+ 18. LSTM recurrence over precomputed inputs (K8) forward with and without
+     residuals and backward vs plain, f32: B256 x T120 x H128 (a
+     simple_lstm acoustic direction), B32 x T252 x H256 (the flagship's
+     self-motion LSTMs under ``MRGEN_FUSED_DW=0``) and B20 x T37 x H128:
+     ys, h_n, c_n <= 1e-4 abs; each gradient max|kernel - plain| /
+     max|plain| <= 1e-3; cuDNN's ``torch.nn.LSTM`` with the same recurrent
+     weights timed as a yardstick (it also computes the input product);
+     then a bidirectional ``TorchLSTM`` at simple_lstm's acoustic shape
+     (B256 x T120, 256 -> 128: K7 on the input and on the flipped input)
+     vs the plain recurrences, the same bounds, K7 +2 / +2; and the
+     routing case: ``TorchLSTM(81, 128)`` over T120 launches K8 once and
+     no K7;
+ 19. simple_lstm generation: ``sliding_window_generate`` on 3 rollouts of
+     250 frames (batch 1, one model call per frame): shape, finite,
+     launches per rollout (K7 forward +4 per step, +1,000; nothing else),
+     ms per rollout; a 25-frame rollout under ``MRGEN_FUSED_DW=0`` (K8
+     forward +4 per step, no K7); then an 8-step f32 rollout vs CPU
+     tensors: <= 1e-4;
+ 20. simple_lstm training step at the yaml's batch, B256 windows (context
+     15, audio T120, one target frame), AdamW with the yaml's optim group:
+     as phase 8, with launches per step K7 +4 / +4, per eval step K7
+     forward +4, the profiler table in
+     ``_build/profile_simple_train_step.txt``; then one step of the same
+     weights and batch with ``MRGEN_FUSED_DW=0`` (K8 +4 / +4, K7 +0), and
+     one flagship Metaformer step with it (K8 +5 / +5, K7 +0, the other
+     kernels as in phase 8): loss and gradients within phase 8's bounds of
+     the default step's;
+ 21. simple_lstm training CLI: ``configs/simple_lstm.yaml`` and
+     ``configs/simple_lstm_best.yaml`` as written (batch 256), passed by
+     their paths, on a ``.head`` corpus this script writes (2 sessions x
+     24 s, 1,124 windows), an epoch and a resumed epoch each: finite train
+     and val
+     losses, V top-k checkpoints and ``last``, exact K7 launches (per
+     train step +4 / +4, per validation batch an eval step, +4 forward).
 
 Every kernel's JSON record carries its bound: the larger of its FP32
 operations at 67 TFLOP/s and its bytes at 3.35 TB/s (H100 SXM, 700 W).
@@ -117,6 +154,7 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Run from the repository root: ``python3 chip_smoke.py``.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -134,9 +172,17 @@ K1_TOL, K2_F32_TOL, K2_BF16_TOL, PATH_TOL = 1e-4, 1e-4, 5e-2, 1e-4
 FWD_TOL, GRAD_REL_TOL, LOSS_REL_TOL = 1e-4, 1e-3, 1e-5
 TRAIN_B, TRAIN_FRAMES, TRAIN_STEPS = 32, 240, 5
 LWS_B, LWS_FRAMES = 256, 128  # configs/lstm_with_sampling.yaml's batch
+# configs/simple_lstm.yaml's batch, audio window (15 x 100 / 12.5) and
+# motion context
+SIMPLE_B, SIMPLE_AUDIO_T, SIMPLE_CONTEXT = 256, 120, 15
 CORPUS_SESSIONS, CORPUS_SECONDS = 4, 540.0
+# simple_lstm's corpus: its loader reads 20 pickles and computes a
+# 120-frame fbank per window on the host (~9 ms a window on an H100
+# machine's host CPU), so it is sized for phase 21 to take about a minute
+V1_SESSIONS, V1_SECONDS = 2, 24.0
+DW0_FRAMES = 25  # the MRGEN_FUSED_DW=0 rollout
 LIBS = ("mixer_stack", "decode_rollout", "lstm_layer", "rect_attention",
-        "lstm_stacked", "gru")
+        "lstm_stacked", "gru", "lstm_recurrence")
 SRC = "multimodalreactiongeneration_tpu_torch/csrc/"
 JAX_OPS = "multimodalreactiongeneration_tpu/ops/"
 
@@ -197,6 +243,8 @@ COUNTERS = {  # kernel name -> (module key, counter attribute)
     "lstm_stacked_bwd": ("K9", "bwd_launches"),
     "gru_fwd": ("K10", "fwd_launches"),
     "gru_bwd": ("K10", "bwd_launches"),
+    "lstm_recurrence_fwd": ("K8", "fwd_launches"),
+    "lstm_recurrence_bwd": ("K8", "bwd_launches"),
 }
 
 
@@ -508,6 +556,145 @@ def gru_phase(K10, dev, rng):
     return cases
 
 
+def cudnn_recurrence_ms(args, cots):
+    """cuDNN's one-layer LSTM with K8's recurrent weights (``cudnn_ms``).
+    It also computes the input product, from an input x (B, T, H) and
+    random W_ih standing in for the precomputed xw the kernels take."""
+    xw, w_hh_t, h0, c0 = args
+    h = h0.shape[-1]
+    lstm = torch.nn.LSTM(h, h, batch_first=True).to(xw.device)
+    with torch.no_grad():
+        lstm.weight_hh_l0.copy_(w_hh_t.T)
+        lstm.bias_hh_l0.zero_()
+    x = xw[:, :, :h].contiguous().requires_grad_()
+    return cudnn_ms(lstm, x, (h0[None], c0[None]),
+                    (cots[0], cots[1][None], cots[2][None]))
+
+
+def lstm_recurrence_phase(K8, dev, rng):
+    """18. The LSTM recurrence over precomputed inputs (K8): forward
+    without and with residuals and backward vs plain at B256 x T120 x H128
+    (a simple_lstm acoustic direction), B32 x T252 x H256 (the flagship's
+    self-motion LSTMs under MRGEN_FUSED_DW=0) and B20 x T37 x H128 (ragged
+    batch and length)."""
+    r = seeded(rng, dev)
+    cases = []
+    for b, t, h in ((SIMPLE_B, SIMPLE_AUDIO_T, 128),
+                    (TRAIN_B, LEAD + TRAIN_FRAMES, 256), (20, 37, 128)):
+        args = (r(b, t, 4 * h, s=0.5), r(h, 4 * h, s=0.06), r(b, h, s=0.3),
+                r(b, h, s=0.3))
+        cots = (r(b, t, h), r(b, h), r(b, h))
+        # the wrapper as the model calls it: without a gradient the
+        # forward without residuals; with one, the forward with
+        # residuals, then the backward
+        ys0, (hn0, cn0) = K8.lstm_recurrence(*args)
+        leaves = [a.clone().requires_grad_() for a in args]
+        ys, (hn, cn) = K8.lstm_recurrence(*leaves)
+        grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
+        ys, hn, cn = ys.detach(), hn.detach(), cn.detach()
+        with torch.no_grad():
+            plain_fwd_ms, (ysr, (hr, cr)) = cuda_ms(
+                lambda: K8.lstm_recurrence_reference(*args), 1)
+        plain_bwd_ms, want = cuda_ms(
+            K8.lstm_recurrence_backward_reference(args, *cots, closure=True),
+            1)
+        fwd_err = max(max_err((ys0, hn0, cn0), (ysr, hr, cr)),
+                      max_err((ys, hn, cn), (ysr, hr, cr)))
+        grad_err = max_err(grads, want)
+        grad_rel = rel_err(grads, want)
+        del ysr, hr, cr, want
+        fwd_ms, _ = cuda_ms(lambda: K8.lstm_recurrence_forward(args, False),
+                            5)
+        fwd_res_ms, (ys1, hn1, cn1, acts, cs) = cuda_ms(
+            lambda: K8.lstm_recurrence_forward(args, True), 5)
+        bwd_ms, _ = cuda_ms(lambda: K8.lstm_recurrence_backward(
+            args, ys1, acts, cs, *cots), 5)
+        # the chain's products h.W_hh: 2 B T 4H H FLOPs; the backward
+        # twice that (dgates.W_hh^T on the chain, then dW_hh)
+        flops = 2 * b * t * 4 * h * h
+        fwd_bound = bound(flops, nbytes(args, ys1, hn1, cn1, acts, cs))
+        fwd_nores_bound = bound(flops, nbytes(args, ys0, hn0, cn0))
+        bwd_bound = bound(2 * flops,
+                          nbytes(args, ys1, acts, cs, cots, grads))
+        lib_fwd_ms, lib_bwd_ms = cudnn_recurrence_ms(args, cots)
+        check_case("lstm_recurrence", fwd_err, grad_rel, B=b, T=t, H=h,
+                   fwd_ms=fwd_ms, fwd_res_ms=fwd_res_ms,
+                   plain_fwd_ms=plain_fwd_ms, bwd_ms=bwd_ms,
+                   plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
+                   library_bwd_ms=lib_bwd_ms, fwd_bound_ms=fwd_bound[0],
+                   bwd_bound_ms=bwd_bound[0])
+        cases.append(dict(
+            B=b, T=t, H=h, clusters=-(-b // 16), fwd_max_abs_err=fwd_err,
+            grad_max_abs_err=grad_err, grad_max_rel_err=grad_rel,
+            fwd_ms=fwd_ms, fwd_res_ms=fwd_res_ms, plain_fwd_ms=plain_fwd_ms,
+            bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
+            library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms,
+            fwd_bound=fwd_bound, fwd_no_residual_bound=fwd_nores_bound,
+            bwd_bound=bwd_bound))
+        del args, leaves, grads, ys, ys0, ys1, acts, cs
+    return cases
+
+
+def bidirectional_phase(mods, dev, rng):
+    """18. A bidirectional ``TorchLSTM`` at simple_lstm's acoustic shape
+    (B256 x T120, 256 -> 128): K7 on the input and on the time-flipped
+    input (+2 / +2), outputs, states and the gradients of the input and
+    every parameter vs the plain recurrences; then the routing case, an
+    LSTM of input 81 over T120 without a gradient: K8 +1, no K7."""
+    from multimodalreactiongeneration_tpu_torch.nn.recurrent import TorchLSTM
+    from multimodalreactiongeneration_tpu_torch.ops.lstm_layer import (
+        lstm_layer_reference,
+    )
+
+    b, t, din, h = SIMPLE_B, SIMPLE_AUDIO_T, 256, 128
+    r = seeded(rng, dev)
+    lstm = TorchLSTM(din, h, torch.Generator().manual_seed(SEED),
+                     bidirectional=True).to(dev)
+    x = r(b, t, din)
+    g = r(b, t, 2 * h)
+    leaves = [x.clone().requires_grad_(), *lstm.parameters()]
+    before = counts(mods)
+    ys, (hn, cn) = lstm(leaves[0])
+    grads = torch.autograd.grad((ys * g).sum() + hn.sum() + cn.sum(), leaves)
+    torch.cuda.synchronize()
+    check_launches("bidirectional", before, counts(mods), lstm_layer_fwd=2,
+                   lstm_layer_bwd=2)
+
+    def plain(x, *params):
+        outs, hs, cs = [], [], []
+        z = torch.zeros(b, h, device=dev)
+        for d in range(2):
+            w_ih, w_hh, b_ih, b_hh = params[4 * d:4 * d + 4]
+            xd = torch.flip(x, [1]) if d else x
+            y, (hd, cd) = lstm_layer_reference(xd, w_ih.T, b_ih + b_hh,
+                                               w_hh.T, z, z)
+            outs.append(torch.flip(y, [1]) if d else y)
+            hs.append(hd)
+            cs.append(cd)
+        return torch.cat(outs, -1), torch.stack(hs), torch.stack(cs)
+
+    ref = [a.detach().clone().requires_grad_() for a in leaves]
+    ysr, hr, cr = plain(*ref)
+    want = torch.autograd.grad((ysr * g).sum() + hr.sum() + cr.sum(), ref)
+    fwd_err = max_err((ys, hn, cn), (ysr, hr, cr))
+    grad_rel = rel_err(grads, want)
+    check_case("bidirectional_k7", fwd_err, grad_rel, B=b, T=t, din=din, H=h)
+    del ref, want, grads, ysr
+
+    with torch.no_grad():
+        routed = TorchLSTM(AUDIO_DIM, h, torch.Generator().manual_seed(SEED)
+                           ).to(dev)
+        before = counts(mods)
+        routed(r(b, t, AUDIO_DIM))
+        torch.cuda.synchronize()
+        check_launches("routing: input 81", before, counts(mods),
+                       lstm_recurrence_fwd=1)
+    log("lstm_routing", input=AUDIO_DIM, hidden=h, steps=t,
+        launches="lstm_recurrence_fwd +1, lstm_layer +0")
+    return dict(B=b, T=t, din=din, H=h, fwd_max_abs_err=fwd_err,
+                grad_max_rel_err=grad_rel)
+
+
 def lstm_stacked_phase(K9, dev, rng):
     """10. The stacked-LSTM wavefront (K9): forward without and with
     residuals and backward vs plain at lstm_with_sampling's sampler
@@ -586,36 +773,83 @@ def train_batch(rng, batch, frames, dev=None):
     return [(x.to(dev) if dev is not None else x, None) for x in data]
 
 
-def train_path_phase(mods, dev, rng, spec):
-    """8. and 12. A training main path: ``streaming_step_fns`` on a model
-    at full width, as ``spec`` names it (model class and config groups,
-    batch, the launches of a step), then one SGD step on the card vs on
-    CPU tensors from the same weights and batch."""
-    import copy
+def window_batch(rng, batch, dev=None):
+    """simple_lstm's window batch as the loader stacks it: fbank (B, 120,
+    81), motion context (B, 15, 18), one target frame (B, 1, 18)."""
+    data = tuple(
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+        for s in ((batch, SIMPLE_AUDIO_T, AUDIO_DIM),
+                  (batch, SIMPLE_CONTEXT, MOTION_DIM), (batch, 1, MOTION_DIM)))
+    return data if dev is None else to_device(data, dev)
 
+
+def to_device(batch, dev):
+    """A host batch on ``dev``: stacked arrays (windowed) or (data,
+    lengths) pairs (streaming)."""
+    if isinstance(batch, tuple):
+        return tuple(x.to(dev) for x in batch)
+    return [(x.to(dev), n) for x, n in batch]
+
+
+def spec_batch(spec, rng, batch, dev=None, frames=None):
+    """A training batch of the kind ``spec``'s model takes."""
+    if spec.get("windowed"):
+        return window_batch(rng, batch, dev)
+    return train_batch(rng, batch, frames or spec["frames"], dev)
+
+
+def spec_step_fns(spec, model, optim):
+    """(train_step, eval_step) of ``spec``'s model with a fresh optimizer
+    from the ``optim`` group."""
     from multimodalreactiongeneration_tpu_torch.train.harness import (
         streaming_step_fns,
+        windowed_step_fns,
     )
     from multimodalreactiongeneration_tpu_torch.train.optim import (
         build_optimizer,
     )
 
-    tag, cfg, batch_size, frames = (spec["tag"], spec["cfg"], spec["batch"],
-                                    spec["frames"])
-    model_cfg = {**cfg, **spec["loss"]}
+    opt = build_optimizer(model.parameters(), optim)
+    model_cfg = {**spec["cfg"], **spec["loss"]}
+    if spec.get("windowed"):
+        return windowed_step_fns(model, model_cfg, spec["metrics"], opt)
+    return streaming_step_fns(model, model_cfg, spec["metrics"], opt,
+                              mask_self_motion_input=spec["mask_self"])
 
-    def step_fns(model, optim):
-        opt = build_optimizer(model.parameters(), optim)
-        return streaming_step_fns(model, model_cfg, spec["metrics"], opt,
-                                  mask_self_motion_input=spec["mask_self"])
 
-    def new_model(device):
-        return spec["model"](cfg, generator=torch.Generator().manual_seed(SEED),
-                             device=device)
+def spec_model(spec, device):
+    return spec["model"](spec["cfg"],
+                         generator=torch.Generator().manual_seed(SEED),
+                         device=device)
 
-    model = new_model(dev)
-    train_step, eval_step = step_fns(model, spec["optim"])
-    batch = train_batch(rng, batch_size, frames, dev)
+
+def grad_rel_errs(model, ref):
+    """(worst, its parameter): max |grad - ref grad| of each parameter over
+    the largest magnitude of ``ref``'s, that scale floored at 1e-4 of
+    ``ref``'s largest gradient of all (phase 8's bound)."""
+    named_ref = dict(ref.named_parameters())
+    g_all = max(float(p.grad.abs().max()) for p in named_ref.values())
+    worst, worst_name = 0.0, ""
+    for name, p in model.named_parameters():
+        g_ref = named_ref[name].grad
+        scale = max(float(g_ref.abs().max()), 1e-4 * g_all)
+        e = float((p.grad.to(g_ref.device) - g_ref).abs().max()) / scale
+        if e > worst:
+            worst, worst_name = e, name
+    return worst, worst_name
+
+
+def train_path_phase(mods, dev, rng, spec):
+    """8., 12., 16. and 20. A training main path: the step functions of a
+    model at full width, as ``spec`` names it (model class and config
+    groups, batch, the launches of a step), then one SGD step on the card
+    vs on CPU tensors from the same weights and batch."""
+    import copy
+
+    tag, batch_size, frames = spec["tag"], spec["batch"], spec["frames"]
+    model = spec_model(spec, dev)
+    train_step, eval_step = spec_step_fns(spec, model, spec["optim"])
+    batch = spec_batch(spec, rng, batch_size, dev)
     train_step(batch)  # warm-up, not counted
     torch.cuda.synchronize()
     zero_counts(mods)
@@ -651,23 +885,15 @@ def train_path_phase(mods, dev, rng, spec):
     busy = profile_step(train_step, batch, spec["profile"])
 
     # one SGD step on the card and on CPU tensors, same weights and batch
-    model_cpu = new_model("cpu")
+    model_cpu = spec_model(spec, "cpu")
     model_card = copy.deepcopy(model_cpu).to(dev)
-    small = train_batch(rng, 2, 48)
+    small = spec_batch(spec, rng, 2, frames=48)
     sgd = dict(use_optimizer="sgd", lr=1e-2, momentum=0.9, weight_decay=0.0)
-    loss_card, _ = step_fns(model_card, sgd)[0](
-        [(x.to(dev), n) for x, n in small])
-    loss_cpu, _ = step_fns(model_cpu, sgd)[0](small)
+    loss_card, _ = spec_step_fns(spec, model_card, sgd)[0](
+        to_device(small, dev))
+    loss_cpu, _ = spec_step_fns(spec, model_cpu, sgd)[0](small)
     loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
-    named_cpu = dict(model_cpu.named_parameters())
-    g_all = max(float(p.grad.abs().max()) for p in named_cpu.values())
-    worst, worst_name = 0.0, ""
-    for name, p in model_card.named_parameters():
-        g_cpu = named_cpu[name].grad
-        scale = max(float(g_cpu.abs().max()), 1e-4 * g_all)
-        e = float((p.grad.cpu() - g_cpu).abs().max()) / scale
-        if e > worst:
-            worst, worst_name = e, name
+    worst, worst_name = grad_rel_errs(model_card, model_cpu)
     log(tag, card_vs_cpu_loss_rel_err=f"{loss_rel:.3e}",
         card_vs_cpu_grad_max_rel_err=f"{worst:.3e}", worst=worst_name,
         loss_card=f"{float(loss_card):.7f}", loss_cpu=f"{float(loss_cpu):.7f}")
@@ -683,6 +909,60 @@ def train_path_phase(mods, dev, rng, spec):
         "peak_mem_gib": peak_gib, "device_busy_share": busy,
         "card_vs_cpu_loss_rel_err": loss_rel,
         "card_vs_cpu_grad_max_rel_err": worst}}
+
+
+@contextlib.contextmanager
+def fused_dw(value):
+    """``MRGEN_FUSED_DW`` set to ``value`` inside the block (the port reads
+    it at call time), restored after."""
+    old = os.environ.get("MRGEN_FUSED_DW")
+    os.environ["MRGEN_FUSED_DW"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("MRGEN_FUSED_DW")
+        else:
+            os.environ["MRGEN_FUSED_DW"] = old
+
+
+def fused_dw_off_phase(mods, dev, rng, spec):
+    """20. One training step of ``spec``'s model with ``MRGEN_FUSED_DW=0``
+    (its single-layer LSTMs on K8) against one with the default (K7), the
+    same weights and batch: the launches of each step, then the loss
+    within 1e-5 relative and every gradient within 1e-3 of its largest
+    (phase 8's bounds). SGD with lr 0 leaves the gradients to compare."""
+    tag = spec["tag"] + "_fused_dw_0"
+    batch = spec_batch(spec, rng, spec["batch"], dev)
+    sgd0 = dict(use_optimizer="sgd", lr=0.0, momentum=0.0, weight_decay=0.0)
+    runs = {}
+    for flag, want in (("1", spec["per_step"]), ("0", spec["per_step_off"])):
+        model = spec_model(spec, dev)
+        train_step, _ = spec_step_fns(spec, model, sgd0)
+        with fused_dw(flag):
+            zero_counts(mods)
+            loss, _ = train_step(batch)
+            torch.cuda.synchronize()
+            got = check_launches(f"{tag} MRGEN_FUSED_DW={flag}",
+                                 {k: 0 for k in COUNTERS}, counts(mods),
+                                 **want)
+        runs[flag] = (float(loss), model, got)
+    (loss_on, model_on, _), (loss_off, model_off, launches) = (
+        runs["1"], runs["0"])
+    loss_rel = abs(loss_off - loss_on) / abs(loss_on)
+    worst, worst_name = grad_rel_errs(model_off, model_on)
+    log(tag, loss_default=f"{loss_on:.7f}", loss_fused_dw_0=f"{loss_off:.7f}",
+        loss_rel_err=f"{loss_rel:.3e}", grad_max_rel_err=f"{worst:.3e}",
+        worst=worst_name, launches={k: v for k, v in launches.items() if v})
+    if not loss_rel <= LOSS_REL_TOL:
+        raise AssertionError(f"{tag} loss: {loss_rel} > {LOSS_REL_TOL}")
+    if not worst <= GRAD_REL_TOL:
+        raise AssertionError(f"{tag} gradient of {worst_name}: {worst} > "
+                             f"{GRAD_REL_TOL}")
+    del runs, model_on, model_off
+    return {"launches": launches, "record": {
+        "loss_default": loss_on, "loss_fused_dw_0": loss_off,
+        "loss_rel_err": loss_rel, "grad_max_rel_err": worst}}
 
 
 def metaformer_train_spec():
@@ -703,6 +983,9 @@ def metaformer_train_spec():
                       lstm_layer_fwd=5, lstm_layer_bwd=5,
                       rect_attention_fwd=10, rect_attention_bwd=10),
         per_eval=dict(mixer_stack=2, lstm_layer_fwd=5, rect_attention_fwd=10),
+        per_step_off=dict(mixer_stack_train_fwd=2, mixer_stack_bwd=2,
+                          lstm_recurrence_fwd=5, lstm_recurrence_bwd=5,
+                          rect_attention_fwd=10, rect_attention_bwd=10),
         profile="profile_train_step.txt")
 
 
@@ -736,6 +1019,25 @@ def gru_train_spec():
                               rect_attention_bwd=10),
                 per_eval=dict(gru_fwd=15, rect_attention_fwd=10),
                 profile="profile_gru_train_step.txt")
+
+
+def simple_train_spec():
+    from multimodalreactiongeneration_tpu_torch import configs
+    from multimodalreactiongeneration_tpu_torch.models.simple_lstm import (
+        SimpleLSTM,
+    )
+
+    # the yaml's batch and optim group (AdamW, lr 5e-6, decay 1e-2); the
+    # model group carries the loss keys (delta_loss_scale, all_static)
+    return dict(
+        tag="simple_train_step", eval_tag="simple_eval_step",
+        model=SimpleLSTM, windowed=True, cfg=configs.SIMPLE_LSTM_MODEL_CFG,
+        loss={}, metrics=configs.SIMPLE_LSTM_METRICS_CFG,
+        optim=configs.SIMPLE_LSTM_OPTIM_CFG, batch=SIMPLE_B, frames=1,
+        per_step=dict(lstm_layer_fwd=4, lstm_layer_bwd=4),
+        per_eval=dict(lstm_layer_fwd=4),
+        per_step_off=dict(lstm_recurrence_fwd=4, lstm_recurrence_bwd=4),
+        profile="profile_simple_train_step.txt")
 
 
 def profile_step(step, batch, name):
@@ -892,17 +1194,56 @@ def write_corpus(root, sessions=CORPUS_SESSIONS, seconds=CORPUS_SECONDS):
     return sessions * seconds
 
 
-def cli_phase(mods, run, config, tag, overrides, expect):
-    """9. and 13. The training CLI, as a user runs it: ``config`` at full
-    width (its defaults: val_check_interval 0.25, the generation eval,
-    async top-k checkpoints, the audio resident on the card) on the
-    corpus under ``run``, one epoch; then a resumed epoch from ``last``.
-    ``expect(launches, steps)`` gives the exact launches of the first run
-    and the validation batches they imply."""
+def write_corpus_v1(root, sessions=V1_SESSIONS, seconds=V1_SECONDS):
+    """simple_lstm's corpus layout, from SEED: per session, host and comp
+    wavs of noise bursts and, beside each, a directory of per-frame
+    ``.head`` pickles at 25 fps (a random-walk head pose with its
+    standardisation stats). Returns the windows' frames per channel."""
+    from multimodalreactiongeneration_tpu_torch.data.head_io import (
+        HeadFrame,
+        write_head_frame,
+    )
+    from multimodalreactiongeneration_tpu_torch.utils.wavio import write_wav
+
+    rng = np.random.default_rng(SEED + 1)
+    sr, fps = 16000, 25
+    frames = int(seconds * fps)
+    for s in range(sessions):
+        session = os.path.join(root, f"session{s:02d}")
+        for who in ("host", "comp"):
+            head_dir = os.path.join(session, who)
+            os.makedirs(head_dir, exist_ok=True)
+            wave = 0.2 * rng.standard_normal(int(seconds * sr))
+            write_wav(os.path.join(session, f"{who}.wav"),
+                      wave.astype(np.float32)[None], sr)
+            traj = np.cumsum(rng.normal(0, 0.5, (frames, 6)), axis=0) * 0.05
+            stats = dict(angle_mean=traj[:, :3].mean(0),
+                         angle_std=traj[:, :3].std(0) + 1e-6,
+                         centroid_mean=traj[:, 3:].mean(0),
+                         centroid_std=traj[:, 3:].std(0) + 1e-6)
+            for t in range(frames):
+                write_head_frame(
+                    os.path.join(head_dir, f"{who}_{t:05d}.head"), t,
+                    HeadFrame(angle=traj[t, :3], centroid=traj[t, 3:],
+                              frame_no=t, fps=float(fps), **stats))
+    return sessions * 2 * frames
+
+
+def cli_phase(mods, run, config, tag, overrides, expect, corpus="corpus",
+              monitors="VTG"):
+    """9., 13., 17. and 21. The training CLI, as a user runs it: the yaml
+    at ``config``, passed by its path, at full width (its defaults:
+    val_check_interval 0.25, the generation eval where the model has one,
+    async top-k checkpoints, the audio resident on the card for the
+    streaming models) on the corpus ``run / corpus``, one epoch; then a
+    resumed epoch from ``last``. ``monitors`` are the top-k checkpoint
+    sets the run writes; ``expect(launches, steps)`` gives the exact
+    launches of the first run and the validation batches they imply."""
     from multimodalreactiongeneration_tpu_torch.train import cli
 
     ckpt = run / f"ckpt_{tag}" / "smoke"
-    common = ["--config", config, "name=smoke", f"data_dir={run / 'corpus'}",
+    config = os.path.abspath(config)  # the run's cwd is ``run``
+    common = ["--config", config, "name=smoke", f"data_dir={run / corpus}",
               f"ckpt_path={ckpt.parent}", f"log_dir={run / f'log_{tag}'}",
               f"seed={SEED}", *overrides]
     cwd = os.getcwd()
@@ -925,7 +1266,9 @@ def cli_phase(mods, run, config, tag, overrides, expect):
     for rec in records:
         log(f"{tag}_epoch", **{k: (f"{v:.6f}" if isinstance(v, float) else v)
                                for k, v in rec.items()})
-        for key in ("train_loss", "val_loss", "genrt_loss"):
+        keys = ("train_loss", "val_loss") + (
+            ("genrt_loss",) if "G" in monitors else ())
+        for key in keys:
             if not np.isfinite(rec.get(key, float("nan"))):
                 raise AssertionError(f"{tag} epoch {rec['epoch']}: {key} "
                                      f"{rec.get(key)}")
@@ -933,7 +1276,7 @@ def cli_phase(mods, run, config, tag, overrides, expect):
         raise AssertionError(f"{tag} epochs {[r['epoch'] for r in records]}")
     names = sorted(os.listdir(ckpt))
     if "last" not in names or not all(
-            any(n.startswith(f"{m}0-") for n in names) for m in "VTG"):
+            any(n.startswith(f"{m}0-") for n in names) for m in monitors):
         raise AssertionError(f"{tag} checkpoints {names}")
     steps = first.history[0]["step"]
     n_eval = expect(launches, steps)
@@ -960,7 +1303,8 @@ def metaformer_cli_launches(launches, steps):
                 lstm_layer_fwd=5 * (steps + n_eval), lstm_layer_bwd=5 * steps,
                 mixer_stack=4 * n_eval)
     got = {k: launches[k] for k in want}
-    others = ("lstm_stacked_fwd", "lstm_stacked_bwd", "gru_fwd", "gru_bwd")
+    others = ("lstm_stacked_fwd", "lstm_stacked_bwd", "gru_fwd", "gru_bwd",
+              "lstm_recurrence_fwd", "lstm_recurrence_bwd")
     if (got != want or launches["decode_rollout"] < n_eval
             or any(launches[k] for k in others)):
         raise AssertionError(f"cli launches {launches}, want {want} and "
@@ -992,6 +1336,17 @@ def gru_cli_launches(launches, steps):
                 rect_attention_bwd=10 * steps)
     if launches != want:
         raise AssertionError(f"gru cli launches {launches}, want {want}")
+    return n_eval
+
+
+def simple_cli_launches(launches, steps):
+    """Every train step K7 +4 / +4; every validation batch an eval step, K7
+    forward +4 (no generation eval); no other kernel."""
+    n_eval = (launches["lstm_layer_fwd"] - 4 * steps) // 4
+    want = {k: 0 for k in COUNTERS}
+    want.update(lstm_layer_fwd=4 * (steps + n_eval), lstm_layer_bwd=4 * steps)
+    if launches != want:
+        raise AssertionError(f"simple cli launches {launches}, want {want}")
     return n_eval
 
 
@@ -1195,6 +1550,118 @@ def gru_generation_spec():
             generator=torch.Generator().manual_seed(SEED), device=device))
 
 
+def simple_generation_phase(mods, dev, rng):
+    """19. simple_lstm's generation at full width (random weights from
+    SEED): ``sliding_window_generate`` on 3 rollouts of 250 frames, batch
+    1, one model call per frame over its 120-frame audio window: shape,
+    finite, launches per rollout (K7 forward +4 per step), ms per
+    rollout; a ``DW0_FRAMES`` rollout under ``MRGEN_FUSED_DW=0`` (K8
+    forward +4 per step); then an 8-step f32 rollout against the same
+    weights and inputs on CPU tensors (the all-plain path): <= 1e-4."""
+    from multimodalreactiongeneration_tpu_torch.configs import (
+        SIMPLE_LSTM_MODEL_CFG,
+    )
+    from multimodalreactiongeneration_tpu_torch.infer.simple_generate import (
+        audio_windows,
+        sliding_window_generate,
+    )
+    from multimodalreactiongeneration_tpu_torch.models.simple_lstm import (
+        SimpleLSTM,
+    )
+
+    def new_model(device):
+        return SimpleLSTM(SIMPLE_LSTM_MODEL_CFG,
+                          generator=torch.Generator().manual_seed(SEED),
+                          device=device)
+
+    def inputs():
+        fbank = torch.from_numpy(rng.standard_normal(
+            (FRAMES * RATIO + SIMPLE_AUDIO_T, AUDIO_DIM)).astype(np.float32))
+        ctx = torch.from_numpy(rng.standard_normal(
+            (SIMPLE_CONTEXT, MOTION_DIM)).astype(np.float32))
+        return audio_windows(fbank, FRAMES, RATIO, SIMPLE_AUDIO_T), ctx
+
+    model = new_model(dev)
+    rollouts = [inputs() for _ in range(3)]
+    sliding_window_generate(model, rollouts[0][0][:8], rollouts[0][1])
+    torch.cuda.synchronize()  # warm-up, not counted
+
+    def rollout(i, windows, ctx, **want):
+        before = counts(mods)
+        t0 = time.perf_counter()
+        pred = sliding_window_generate(model, windows, ctx)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1000
+        if tuple(pred.shape) != (len(windows), MOTION_DIM):
+            raise AssertionError(f"simple rollout {i}: shape "
+                                 f"{tuple(pred.shape)}")
+        if not bool(torch.isfinite(pred).all()):
+            raise AssertionError(f"simple rollout {i}: non-finite output")
+        d = check_launches(f"simple rollout {i}", before, counts(mods),
+                           **want)
+        log("simple_generate", rollout=i, shape=tuple(pred.shape),
+            finite=True, ms=f"{ms:.3f}",
+            launches={k: v for k, v in d.items() if v})
+        return ms
+
+    zero_counts(mods)
+    times = [rollout(i, w, c, lstm_layer_fwd=4 * FRAMES)
+             for i, (w, c) in enumerate(rollouts)]
+    launches = counts(mods)
+    gen_ms = float(np.mean(times))
+    log("simple_generate", ms_per_rollout=f"{gen_ms:.3f}",
+        frames_per_s=f"{FRAMES / (gen_ms / 1000):.1f}", launches=launches)
+    with fused_dw("0"):
+        zero_counts(mods)
+        windows, ctx = rollouts[0]
+        off_ms = rollout("fused_dw_0", windows[:DW0_FRAMES], ctx,
+                         lstm_recurrence_fwd=4 * DW0_FRAMES)
+        launches_off = counts(mods)
+
+    windows, ctx = rollouts[1]
+    on_card = sliding_window_generate(model, windows[:8], ctx)
+    on_cpu = sliding_window_generate(new_model("cpu"), windows[:8], ctx,
+                                     device="cpu")
+    err = float((on_card.cpu() - on_cpu).abs().max())
+    log("simple_generate", f32_8_steps_vs_cpu_max_abs_err=f"{err:.3e}")
+    if not err <= PATH_TOL:
+        raise AssertionError(f"simple card vs CPU rollout: {err} > {PATH_TOL}")
+    return {"launches": launches, "launches_fused_dw_0": launches_off,
+            "record": {"batch": 1, "frames": FRAMES, "ms": gen_ms,
+                       "frames_per_s": FRAMES / (gen_ms / 1000),
+                       "ms_each": times, "fused_dw_0_frames": DW0_FRAMES,
+                       "fused_dw_0_ms": off_ms,
+                       "f32_8_steps_vs_cpu_max_abs_err": err}}
+
+
+def recurrence_records(cases, launches, **more_launches):
+    """The JSON entries of K8's forward and backward: the main case is a
+    simple_lstm acoustic direction (B256 x T120 x H128); launches from the
+    ``MRGEN_FUSED_DW=0`` runs of the main paths (phases 19 and 20), each
+    beside the total. cuDNN's ``nn.LSTM`` is the yardstick."""
+    main = cases[0]
+    extra = {f"launches_{k}": {n: v[n] for n in ("lstm_recurrence_fwd",
+                                                 "lstm_recurrence_bwd")}
+             for k, v in more_launches.items()}
+    return [
+        kernel_record(
+            "lstm_recurrence_fwd", "lstm_recurrence.cu", "pallas_lstm.py:117",
+            launches["lstm_recurrence_fwd"],
+            max(c["fwd_max_abs_err"] for c in cases), main["fwd_res_ms"],
+            main["plain_fwd_ms"], main["fwd_bound"], main["library_fwd_ms"],
+            no_residual_ms=main["fwd_ms"],
+            no_residual_bound_ms=main["fwd_no_residual_bound"][0],
+            no_residual_replaces=JAX_OPS + "pallas_lstm.py:66",
+            cases=cases, **extra),
+        kernel_record(
+            "lstm_recurrence_bwd", "lstm_recurrence.cu", "pallas_lstm.py:131",
+            launches["lstm_recurrence_bwd"],
+            max(c["grad_max_abs_err"] for c in cases), main["bwd_ms"],
+            main["plain_bwd_ms"], main["bwd_bound"], main["library_bwd_ms"],
+            max_rel_err=max(c["grad_max_rel_err"] for c in cases)),
+    ]
+
+
 def attention_records(cases, launches):
     """The JSON entries of K5 and K6; launches from the CLI run."""
     audio = cases[0]
@@ -1229,13 +1696,15 @@ def main():
     from multimodalreactiongeneration_tpu_torch.ops import (
         decode_rollout as K2,
         lstm_layer as K7,
+        lstm_recurrence as K8,
         gru as K10,
         lstm_stacked as K9,
         mixer_stack as K1,
         rect_attention as K5,
     )
 
-    mods = {"K1": K1, "K2": K2, "K5": K5, "K7": K7, "K9": K9, "K10": K10}
+    mods = {"K1": K1, "K2": K2, "K5": K5, "K7": K7, "K8": K8, "K9": K9,
+            "K10": K10}
     t_start = time.perf_counter()
 
     # ---- 0. device ---------------------------------------------------
@@ -1418,7 +1887,28 @@ def main():
     gru_step = train_path_phase(mods, dev, rng, gru_train_spec())
     gru_cli = cli_phase(mods, run, "configs/lstmformer_gru.yaml", "gru_cli",
                         ["batch_size=32"], gru_cli_launches)
-    shutil.rmtree(run)  # the corpus, manifests and checkpoints
+
+    # ---- 18.-21. K8, simple_lstm: generation, step, CLI ----------------
+    recurrence = lstm_recurrence_phase(K8, dev, rng)
+    bidirectional = bidirectional_phase(mods, dev, rng)
+    simple_gen = simple_generation_phase(mods, dev, rng)
+    simple_step = train_path_phase(mods, dev, rng, simple_train_spec())
+    simple_off = fused_dw_off_phase(mods, dev, rng, simple_train_spec())
+    flagship_off = fused_dw_off_phase(mods, dev, rng, metaformer_train_spec())
+    t0 = time.perf_counter()
+    v1_frames = write_corpus_v1(str(run / "corpus_v1"))
+    log("simple_cli", corpus_frames=v1_frames, sessions=V1_SESSIONS,
+        seconds=V1_SECONDS, write_s=f"{time.perf_counter() - t0:.1f}")
+    simple_cli = {
+        name: cli_phase(mods, run, f"configs/{name}.yaml", f"{name}_cli", [],
+                        simple_cli_launches, corpus="corpus_v1", monitors="V")
+        for name in ("simple_lstm", "simple_lstm_best")}
+    shutil.rmtree(run)  # the corpora, manifests and checkpoints
+    k8_runs = {"generation": simple_gen["launches_fused_dw_0"],
+               "simple_train_step": simple_off["launches"],
+               "flagship_train_step": flagship_off["launches"]}
+    k8_launches = {k: sum(v[k] for v in k8_runs.values())
+                   for k in ("lstm_recurrence_fwd", "lstm_recurrence_bwd")}
 
     k1_main, k2_main = k1_cases[0], k2_cases[1]
     # no single PyTorch call computes the encoder stack or the rollout
@@ -1441,6 +1931,7 @@ def main():
         *gru_records(gru, gru_cli["launches"],
                      generation=gru_gen["launches"],
                      train_step=gru_step["launches"]),
+        *recurrence_records(recurrence, k8_launches, **k8_runs),
     ], "generation": {"batch": B, "frames": FRAMES, "ms": gen_ms,
                       "frames_per_s": B * FRAMES / (gen_ms / 1000)},
         "train_step": step["record"],
@@ -1449,6 +1940,13 @@ def main():
         "lws_train_step": lws_step["record"], "lws_cli": lws_cli["record"],
         "gru_generation": gru_gen["record"],
         "gru_train_step": gru_step["record"], "gru_cli": gru_cli["record"],
+        "bidirectional_k7": bidirectional,
+        "simple_generation": simple_gen["record"],
+        "simple_train_step": simple_step["record"],
+        "simple_fused_dw_0_step": simple_off["record"],
+        "flagship_fused_dw_0_step": flagship_off["record"],
+        "simple_cli": {"corpus_frames": v1_frames,
+                       **{k: v["record"] for k, v in simple_cli.items()}},
         "seconds": time.perf_counter() - t_start}
     log("done", seconds=f"{record['seconds']:.1f}")
     print(json.dumps(record))

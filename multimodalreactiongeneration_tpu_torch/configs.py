@@ -1,15 +1,17 @@
-"""Configurations as plain dicts (no yaml at run time).
+"""Configurations: the shipped yamls as plain dicts, and a yaml loader.
+
+``load_config`` is the counterpart of the JAX package's
+``utils/config.py load_config``: given a path, it reads the yaml there
+(``parse_yaml``, a reader of the subset the shipped configs use, since
+the port does not depend on PyYAML); given a bare name (``lstmformer``),
+it takes the built-in dict of that name from ``CONFIGS``. Then it
+applies ``key=value`` dotted overrides with YAML-typed values, resolves
+the ``${a.b}`` interpolations and returns a ``Config`` (a dict with
+attribute access). The tests hold every dict of ``CONFIGS`` equal to its
+yaml and the resolved config equal to the JAX loader's.
 
 ``LSTMFORMER`` is ``configs/lstmformer.yaml`` as written: every group,
 with its ``${a.b}`` interpolations and ``???`` mandatory values.
-``load_config`` is the counterpart of the JAX package's
-``utils/config.py load_config``: it takes the config by its file's stem
-(``--config configs/lstmformer.yaml`` and ``lstmformer`` name the same
-dict), applies ``key=value`` dotted overrides with YAML-typed values,
-resolves the interpolations and returns a ``Config`` (a dict with
-attribute access). The tests hold ``LSTMFORMER`` equal to the yaml and
-the resolved config equal to the JAX loader's.
-
 ``LSTMFORMER_MODEL_CFG`` (the keys the model reads), ``LSTMFORMER_LOSS_CFG``,
 ``LSTMFORMER_METRICS_CFG`` and ``LSTMFORMER_OPTIM_CFG`` (what the training
 step reads) are cut from the resolved config: the flagship Metaformer at
@@ -22,10 +24,17 @@ cut from it as ``LSTMFORMER_MODEL_CFG`` is (its loss, metrics and optim
 groups are the lstmformer's).
 
 ``LSTM_WITH_SAMPLING`` is ``configs/lstm_with_sampling.yaml`` in the same
-way (``load_config("lstm_with_sampling")``), and ``LWS_MODEL_CFG``,
-``LWS_LOSS_CFG``, ``LWS_METRICS_CFG`` and ``LWS_OPTIM_CFG`` are cut from
-it: the reference's second model at its published size (a 2-layer
-128-wide LSTM sampler, two 256-wide layered-LSTM blocks, batch 256).
+way, and ``LWS_MODEL_CFG``, ``LWS_LOSS_CFG``, ``LWS_METRICS_CFG`` and
+``LWS_OPTIM_CFG`` are cut from it: the reference's second model at its
+published size (a 2-layer 128-wide LSTM sampler, two 256-wide
+layered-LSTM blocks, batch 256).
+
+``SIMPLE_LSTM`` is ``configs/simple_lstm.yaml`` and ``SIMPLE_LSTM_BEST``
+``configs/simple_lstm_best.yaml`` (``all_static`` off); ``SIMPLE_LSTM_MODEL_CFG``
+(its whole ``model:`` group), ``SIMPLE_LSTM_METRICS_CFG`` and
+``SIMPLE_LSTM_OPTIM_CFG`` are cut from the first: the reference's third
+model (bidirectional 128-wide LSTM encoders over 256-wide affines, 8-head
+cross-modal attention, a 5-block decoder, batch 256, 15-frame context).
 """
 
 from __future__ import annotations
@@ -280,10 +289,117 @@ LSTMFORMER_GRU: Dict[str, Any] = {
                   emb_mixers=["gru", "gru", "gru"]),
 }
 
+# ``configs/simple_lstm.yaml``; ``simple_lstm_best.yaml`` differs only in
+# ``model.all_static``
+SIMPLE_LSTM: Dict[str, Any] = {
+    "project": "Multimodal-Head-Motion-Prediction",
+    "name": "cradle-01",
+    "version": None,
+    "hidden_size": 256,
+    "lstm_size": 128,
+    "bottleneck_size": 64,
+    "lr": 5e-06,
+    "batch_size": 256,
+    "max_epochs": 60,
+    "optim_epochs": 100,
+    "use_centroid": True,
+    "use_angle": True,
+    "motion_stride": 2,
+    "delta_order": 2,
+    "sample_rate": 16000,
+    "nfft": 400,
+    "shift": 160,
+    "data_dir": "???",
+    "no_cache_build": False,
+    "clear_cache": False,
+    "ckpt_path": "???",
+    "log_dir": "???",
+    "device": "tpu",
+    "seed": 0,
+    "model": {
+        "acostic_feat_size": 81,
+        "motion_feat_size": 18,
+        "motion_num_lstm": 1,
+        "acostic_num_lstm": 1,
+        "acostic_num_layers": 2,
+        "motion_num_layers": 2,
+        "acostic_lstm_size": "${lstm_size}",
+        "motion_lstm_size": "${lstm_size}",
+        "acostic_lstm_out_size": "${hidden_size}",
+        "motion_lstm_out_size": "${hidden_size}",
+        "acostic_affine_size": "${hidden_size}",
+        "motion_affine_size": "${hidden_size}",
+        "acostic_bottleneck_size": "${bottleneck_size}",
+        "motion_bottleneck_size": "${bottleneck_size}",
+        "acostic_output_size": "${hidden_size}",
+        "motion_output_size": "${hidden_size}",
+        "att_heads": 8,
+        "att_num_layers": 3,
+        "att_use_residual": True,
+        "att_use_layer_norm": True,
+        "dropout_rate": 0,
+        "output_size": 18,
+        "bidirectional": True,
+        "use_layer_norm": True,
+        "use_relu": True,
+        "use_mixing": True,
+        "use_residual": True,
+        "decoder_num_layers": 5,
+        "decoder_num_lstm": 1,
+        "decoder_lstm_size": "${lstm_size}",
+        "decoder_affine_size": "${hidden_size}",
+        "decoder_bottleneck_size": "${bottleneck_size}",
+        "decoder_output_size": "${hidden_size}",
+        "decoder_mapping_size": 64,
+        "decoder_bidirectional": True,
+        "decoder_use_layer_norm": True,
+        "decoder_use_relu": True,
+        "decoder_use_mixing": True,
+        "decoder_use_residual": True,
+        "delta_loss_scale": 1,
+        "all_static": True,
+    },
+    "metrics": copy.deepcopy(LSTMFORMER["metrics"]),
+    "trainer": {k: LSTMFORMER["trainer"][k] for k in (
+        "max_epochs", "log_every_n_steps", "precision", "val_check_interval")},
+    **{group: copy.deepcopy(LSTMFORMER[group]) for group in (
+        "callbacks", "optim")},
+    "exp": dict(LSTMFORMER["exp"], use_model="simple_lstm", train_rate=0.9,
+                valid_rate=0.05),
+    "data": {
+        "data_dir": "${data_dir}",
+        "fps": 25,
+        "context_start": -30,
+        "sample_stride": 2,
+        "context_size": 15,
+        "context_stride": "${motion_stride}",
+        "target_type": "direct",
+        "target_position": 0,
+        "target_size": 1,
+        "target_stride": "${motion_stride}",
+        **{k: LSTMFORMER["data"][k] for k in (
+            "delta_order", "no_cache_build", "clear_cache", "sample_rate",
+            "nfft", "shift", "use_centroid", "use_angle")},
+    },
+    "audio": dict(LSTMFORMER["audio"], nmels=26),
+    "model_type": "simple_lstm",
+    "model_path": None,
+    "model_conf": None,
+    "movie_path": None,
+    "audio_path": None,
+    "output_path": None,
+}
+SIMPLE_LSTM_BEST: Dict[str, Any] = {
+    **copy.deepcopy(SIMPLE_LSTM),
+    "model": dict(copy.deepcopy(SIMPLE_LSTM["model"]), all_static=False),
+}
+
 CONFIGS: Dict[str, Dict[str, Any]] = {
     "lstmformer": LSTMFORMER,
     "lstmformer_gru": LSTMFORMER_GRU,
     "lstm_with_sampling": LSTM_WITH_SAMPLING,
+    "simple_lstm": SIMPLE_LSTM,
+    "simple_lstm_best": SIMPLE_LSTM_BEST,
 }
 
 
@@ -416,15 +532,95 @@ def apply_overrides(raw: Dict[str, Any], overrides: List[str]) -> None:
         node[parts[-1]] = parse_value(text)
 
 
-def load_config(name: str, overrides: Optional[List[str]] = None) -> Config:
-    """The config named by ``name`` (a key of ``CONFIGS`` or a path whose
-    stem is one), with ``overrides`` applied and interpolations
-    resolved."""
-    stem = Path(name).stem
-    if stem not in CONFIGS:
-        raise KeyError(
-            f"no config {stem!r} in the port (it has {sorted(CONFIGS)})")
-    raw = copy.deepcopy(CONFIGS[stem])
+def _strip_comment(line: str) -> str:
+    """The line up to a ``#`` that starts a comment: at the line's start
+    or after a blank, outside quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def parse_yaml(text: str) -> Any:
+    """The subset of YAML the shipped configs use: nested mappings by
+    indentation, block (``- a``) and flow (``[a, b]``) lists of scalars,
+    scalars typed as ``parse_value`` types them (``5e-6`` is a float, as
+    in the JAX loader), empty values as null, ``#`` comments. ``???`` and
+    ``${a.b}`` stay strings until ``load_config`` resolves them. Anything
+    else (anchors, multi-line strings, tabs) raises ``ValueError``."""
+    lines = []
+    for no, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw).rstrip()
+        if not line.strip():
+            continue
+        if "\t" in line[:len(line) - len(line.lstrip())]:
+            raise ValueError(f"line {no}: tab in indentation")
+        lines.append((no, len(line) - len(line.lstrip(" ")), line.strip()))
+    if not lines:
+        return None
+    value, end = _parse_block(lines, 0, lines[0][1])
+    if end != len(lines):
+        raise ValueError(f"line {lines[end][0]}: bad indentation")
+    return value
+
+
+def _is_item(text: str) -> bool:
+    return text == "-" or text.startswith("- ")
+
+
+def _parse_block(lines, i: int, indent: int):
+    """The mapping or list whose entries start at ``indent`` from line
+    ``i``; returns (value, index of the first line after it)."""
+    if _is_item(lines[i][2]):
+        items = []
+        while (i < len(lines) and lines[i][1] == indent
+               and _is_item(lines[i][2])):
+            no, _, text = lines[i]
+            item = text[1:].strip()
+            if (not item or _is_item(item) or item.endswith(":")
+                    or ": " in item):
+                raise ValueError(f"line {no}: only scalar list items are read")
+            items.append(parse_value(item))
+            i += 1
+        return items, i
+    out: Dict[str, Any] = {}
+    while i < len(lines) and lines[i][1] == indent:
+        no, _, text = lines[i]
+        key, sep, rest = text.partition(":")
+        if not sep or (rest and not rest[0].isspace()) or _is_item(text):
+            raise ValueError(f"line {no}: expected 'key: value', got {text!r}")
+        key, rest = key.strip(), rest.strip()
+        i += 1
+        if rest:
+            if rest[0] in "|>&*!":
+                raise ValueError(f"line {no}: {rest[0]!r} values are not read")
+            out[key] = parse_value(rest)
+        elif i < len(lines) and (lines[i][1] > indent or (
+                lines[i][1] == indent and _is_item(lines[i][2]))):
+            out[key], i = _parse_block(lines, i, lines[i][1])
+        else:
+            out[key] = None
+    return out, i
+
+
+def load_config(path: str, overrides: Optional[List[str]] = None) -> Config:
+    """The config at ``path`` (a yaml file), or the built-in dict named
+    ``path`` when it is a bare name (a key of ``CONFIGS``), with
+    ``overrides`` applied and interpolations resolved."""
+    if Path(path).is_file():
+        raw = parse_yaml(Path(path).read_text(encoding="utf-8")) or {}
+    elif path in CONFIGS:
+        raw = copy.deepcopy(CONFIGS[path])
+    else:
+        raise FileNotFoundError(
+            f"no config file {path!r} (bare names {sorted(CONFIGS)} take "
+            "the built-in dicts)")
     apply_overrides(raw, overrides or [])
     return _wrap(_resolve_tree(raw, raw))
 
@@ -463,4 +659,10 @@ LWS_LOSS_CFG = {k: _LWS["model"][k] for k in (
     "delta_loss_scale")}
 LWS_METRICS_CFG = dict(_LWS["metrics"])
 LWS_OPTIM_CFG = {k: _LWS["optim"][k] for k in (
+    "use_optimizer", "momentum", "weight_decay", "lr")}
+
+_SIMPLE = load_config("simple_lstm").to_dict()
+SIMPLE_LSTM_MODEL_CFG = _SIMPLE["model"]
+SIMPLE_LSTM_METRICS_CFG = dict(_SIMPLE["metrics"])
+SIMPLE_LSTM_OPTIM_CFG = {k: _SIMPLE["optim"][k] for k in (
     "use_optimizer", "momentum", "weight_decay", "lr")}

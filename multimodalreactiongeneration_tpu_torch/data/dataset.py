@@ -11,8 +11,10 @@ datamodule (reference mr_gen/model/lstmformer/dataloader.py):
 Sequences pad to a BUCKET length (pad_to_multiple) as in the JAX package,
 so batch shapes repeat. Batches are [(data, lengths), ...] with host
 numpy lengths; motion data are numpy, the batched fbank entries of
-``pad_collate_device`` tensors on the device. ``WindowDataset`` (simple
-lstm) and ``HostRowShard`` (data-parallel training) are not ported.
+``pad_collate_device`` tensors on the device. The fixed windows of
+simple_lstm (``WindowDataset``, ``stack_collate``, ``WindowBatchLoader``)
+are host numpy batches of stacked arrays (fbank, motion context,
+target). ``HostRowShard`` (data-parallel training) is not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from multimodalreactiongeneration_tpu_torch import resolve_device
 from multimodalreactiongeneration_tpu_torch.data.features import (
     AudioFeatureExtractor,
+    MotionFeatureExtractor,
     MotionFeatureExtractorNX,
 )
 from multimodalreactiongeneration_tpu_torch.ops import dsp
@@ -180,6 +183,70 @@ class SegmentDatasetNX:
             lead_motion_s,
             target,
         )
+
+
+class WindowDataset:
+    """v1 fixed-shape windows for SimpleLSTM (reference
+    simple_lstm/dataloader.py:16-61): (fbank, motion_context,
+    motion_target) from the manifests of ``data/databuild.py``."""
+
+    def __init__(self, dataset_path: str, data_cfg, audio_cfg):
+        self.dataset_path = dataset_path
+        self.data_list = sorted(
+            os.path.join(dataset_path, p)
+            for p in os.listdir(dataset_path)
+            if p.endswith(".json") and p != "datainfo.json"
+        )
+        self.audio = AudioFeatureExtractor(audio_cfg)
+        self.motion = MotionFeatureExtractor(data_cfg)
+
+    def __len__(self) -> int:
+        return len(self.data_list)
+
+    def __getitem__(self, index: int):
+        with open(self.data_list[index], "r", encoding="utf-8") as f:
+            jdic = json.loads(f.readline())
+        fbank = self.audio(
+            jdic["wav_file"], jdic["audio"]["start"], jdic["audio"]["end"]
+        )
+        context = self.motion(jdic["head_dir"], **jdic["context"])
+        target = self.motion(jdic["head_dir"], **jdic["target"])
+        return fbank, context, target
+
+
+def stack_collate(samples: Sequence[Sample]) -> Tuple[np.ndarray, ...]:
+    """Fixed-shape stack (reference simple_lstm/dataloader.py:56-61)."""
+    return tuple(
+        np.stack([s[m] for s in samples], axis=0)
+        for m in range(len(samples[0]))
+    )
+
+
+class WindowBatchLoader:
+    """Epoch iterator for fixed-shape v1 windows: stacked host arrays,
+    reshuffled each epoch from ``seed + epoch``. Like the JAX package's it
+    has no ``len``, so a ``Trainer`` validates at the end of each epoch."""
+
+    def __init__(self, dataset, indices, batch_size, shuffle=True, seed=0,
+                 drop_last=False):
+        self.dataset = dataset
+        self.indices = np.asarray(indices)
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self._epoch = 0
+
+    def __iter__(self):
+        order = self.indices.copy()
+        if self.shuffle:
+            np.random.default_rng(self.seed + self._epoch).shuffle(order)
+            self._epoch += 1
+        for i in range(0, len(order), self.batch_size):
+            chunk = order[i:i + self.batch_size]
+            if self.drop_last and len(chunk) < self.batch_size:
+                break
+            yield stack_collate([self.dataset[int(j)] for j in chunk])
 
 
 def random_split_indices(

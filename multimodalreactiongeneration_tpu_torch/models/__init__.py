@@ -11,8 +11,10 @@ from multimodalreactiongeneration_tpu_torch.models.lstm_with_sampling import (
     LSTMwithSample,
 )
 from multimodalreactiongeneration_tpu_torch.models.lstmformer import Metaformer
+from multimodalreactiongeneration_tpu_torch.models.simple_lstm import SimpleLSTM
 
-MODEL_TYPE = {"lstmformer": Metaformer, "lstm_with_sampling": LSTMwithSample}
+MODEL_TYPE = {"lstmformer": Metaformer, "lstm_with_sampling": LSTMwithSample,
+              "simple_lstm": SimpleLSTM}
 
 
 def build_model(model_type: str, model_cfg: Dict[str, Any],
@@ -20,10 +22,6 @@ def build_model(model_type: str, model_cfg: Dict[str, Any],
                 device: Optional[torch.device] = None) -> torch.nn.Module:
     """The model named ``model_type`` from its config group, with weights
     drawn from ``generator``, on ``device`` (``cuda:0`` unless named)."""
-    if model_type == "simple_lstm":
-        raise NotImplementedError(
-            "simple_lstm comes with its own slice (bidirectional LSTMs, "
-            "windowed data; ROADMAP queue B)")
     if model_type not in MODEL_TYPE:
         raise ValueError(
             f"model_type must be one of {sorted(MODEL_TYPE)}, got "

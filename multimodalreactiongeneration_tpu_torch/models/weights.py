@@ -13,7 +13,9 @@ The port's modules carry the flax paths as attribute names, so a leaf
     layout.
 
 Any other leaf name raises. It converts a Metaformer tree (LSTM or GRU
-embeddings, tests/test_torch_port_gru.py) and an LSTMwithSample tree
+embeddings, tests/test_torch_port_gru.py), an LSTMwithSample tree and a
+SimpleLSTM tree (bidirectional LSTMs with their ``_reverse`` leaves,
+cross-modal MHA with kdim/vdim; tests/test_torch_port_simple_lstm.py)
 alike. Loading reference Lightning checkpoints (a
 numpy port of the JAX package's ``metaformer_name_map``) comes with the
 checkpoint slice.

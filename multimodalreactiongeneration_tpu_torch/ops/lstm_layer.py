@@ -23,6 +23,9 @@ from typing import Tuple
 import torch
 
 from multimodalreactiongeneration_tpu_torch import _build
+from multimodalreactiongeneration_tpu_torch.ops.lstm_recurrence import (
+    lstm_recurrence_reference,
+)
 
 fwd_launches = 0
 bwd_launches = 0
@@ -36,19 +39,6 @@ def lstm_layer_reference(x, w_ih_t, b_sum, w_hh_t, h0, c0):
     """Plain PyTorch version: the projection for the whole sequence is one
     matmul, only h @ W_hh^T runs inside the time loop."""
     return lstm_recurrence_reference(x @ w_ih_t + b_sum, w_hh_t, h0, c0)
-
-
-def lstm_recurrence_reference(xw, w_hh_t, h0, c0):
-    """The recurrence over precomputed inputs xw (B, T, 4H)."""
-    h, c = h0, c0
-    ys = []
-    for t in range(xw.shape[1]):
-        gates = xw[:, t] + h @ w_hh_t
-        i, f, g, o = gates.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
-        ys.append(h)
-    return torch.stack(ys, dim=1), (h, c)
 
 
 def lstm_layer_backward_reference(args, dys, dhn, dcn, closure=False):

@@ -26,7 +26,7 @@ from typing import Tuple
 import torch
 
 from multimodalreactiongeneration_tpu_torch import _build
-from multimodalreactiongeneration_tpu_torch.ops.lstm_layer import (
+from multimodalreactiongeneration_tpu_torch.ops.lstm_recurrence import (
     lstm_recurrence_reference,
 )
 

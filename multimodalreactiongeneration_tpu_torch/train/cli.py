@@ -6,25 +6,29 @@ Usage (the run/*/train.sh contract):
         --config configs/lstmformer.yaml \\
         name=exp-01 data_dir=/path/corpus ckpt_path=./ckpts log_dir=./log
 
-``--config`` names a config by its file's stem (``configs/lstmformer.yaml``,
-``configs/lstmformer_gru.yaml`` or ``configs/lstm_with_sampling.yaml``);
-the dict is the port's own (``configs.py``), so no yaml is read. ``key=value`` dotted overrides
-apply as in the JAX loader. The run builds the corpus manifests
-(``data/databuild_nx.py``), the bucketed loaders with the corpus audio
-resident on the device (``make_streaming_loaders``), the model of
-``exp.use_model`` (``models.build_model``) and its step functions
-(``train/harness.py streaming_step_fns``; the lstmformer's self-motion
-input has its -100 padding zeroed, lstm_with_sampling's is fed as it is,
-as in the JAX package), and trains with ``Trainer.fit``;
+``--config`` is a yaml file, read as the JAX loader reads it
+(``configs.py load_config``: any of the five shipped configs, or an
+edited copy under any name); ``key=value`` dotted overrides apply as in
+the JAX loader. The run builds the corpus manifests and loaders of its
+model: for the streaming models (``exp.use_model`` lstmformer, with LSTM
+or GRU embeddings, and lstm_with_sampling) ``data/databuild_nx.py`` and
+the bucketed loaders with the corpus audio resident on the device
+(``make_streaming_loaders``); for simple_lstm ``data/databuild.py``
+window manifests over per-frame ``.head`` pickles and fixed-shape
+window batches (``make_windowed_loaders``). Then the model
+(``models.build_model``), its step functions (``train/harness.py``:
+``streaming_step_fns``, where the lstmformer's self-motion input has its
+-100 padding zeroed and lstm_with_sampling's is fed as it is, as in the
+JAX package; ``windowed_step_fns`` for simple_lstm), the generation eval
+(not for simple_lstm, as in the JAX CLI), and ``Trainer.fit``;
 ``resume_from=<checkpoint>`` (e.g. ``<ckpt>/last``) restores the weights,
 the optimizer state and the epoch.
 
 It runs on ``cuda:0``; ``device=cpu`` runs it on the CPU (the tests do).
 The yaml's own ``device: tpu`` names no device of the port and means the
-default. ``exp.use_model`` lstmformer (with LSTM or GRU embeddings) and
-lstm_with_sampling are ported; simple_lstm raises. Not carried over:
-the JAX package's persistent compile cache (the port compiles nothing per
-shape) and its multi-host set-up (one device, ROADMAP queue A, item 9).
+default. Not carried over: the JAX package's persistent compile cache
+(the port compiles nothing per shape) and its multi-host set-up (one
+device, ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from multimodalreactiongeneration_tpu_torch.configs import load_config
 from multimodalreactiongeneration_tpu_torch.data.audio_cache import (
     DeviceAudioCache,
 )
+from multimodalreactiongeneration_tpu_torch.data.databuild import DataBuilder
 from multimodalreactiongeneration_tpu_torch.data.databuild_nx import (
     DataBuilderNX,
 )
@@ -46,9 +51,11 @@ from multimodalreactiongeneration_tpu_torch.data.dataset import (
     BatchLoader,
     PrefetchLoader,
     SegmentDatasetNX,
+    WindowBatchLoader,
+    WindowDataset,
     random_split_indices,
 )
-from multimodalreactiongeneration_tpu_torch.models import build_model
+from multimodalreactiongeneration_tpu_torch.models import MODEL_TYPE, build_model
 from multimodalreactiongeneration_tpu_torch.train.checkpoint import (
     load_checkpoint,
     restore_opt_state,
@@ -59,6 +66,7 @@ from multimodalreactiongeneration_tpu_torch.train.generation_eval import (
 from multimodalreactiongeneration_tpu_torch.train.harness import (
     Trainer,
     streaming_step_fns,
+    windowed_step_fns,
 )
 from multimodalreactiongeneration_tpu_torch.train.optim import build_optimizer
 from multimodalreactiongeneration_tpu_torch.utils.logging import set_logger
@@ -108,21 +116,38 @@ def make_streaming_loaders(cfg, logger, device=None):
     return mk(tr, True), mk(va, False), mk(te, False), dataset
 
 
+def make_windowed_loaders(cfg, logger):
+    """(train, valid, test loaders, dataset) of simple_lstm's fixed
+    windows over the ``.head`` corpus at ``cfg.data.data_dir``."""
+    builder = DataBuilder(cfg.data, logger)
+    dataset = WindowDataset(builder.data_site, cfg.data, cfg.audio)
+    if len(dataset) == 0:
+        raise ValueError("dataset is empty")
+    tr, va, te = random_split_indices(
+        len(dataset), cfg.exp.train_rate, cfg.exp.valid_rate,
+        seed=cfg.get("seed", 0))
+    logger.info(
+        f"train size: {len(tr)}, valid size: {len(va)}, test size: {len(te)}")
+
+    def mk(idx, shuffle):
+        return WindowBatchLoader(dataset, idx, cfg.exp.batch_size,
+                                 shuffle=shuffle, seed=cfg.get("seed", 0))
+
+    return mk(tr, True), mk(va, False), mk(te, False), dataset
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--config", required=True,
-                        help="config file (its stem names the port's dict)")
+    parser.add_argument("--config", required=True, help="YAML config path")
     parser.add_argument("overrides", nargs="*",
                         help="key=value dotted overrides")
     args = parser.parse_args(argv)
 
     cfg = load_config(args.config, args.overrides)
     model_type = cfg.exp.use_model
-    if model_type not in ("lstmformer", "lstm_with_sampling"):
-        raise NotImplementedError(
-            f"exp.use_model={model_type!r}: the port trains the lstmformer "
-            "and lstm_with_sampling; simple_lstm comes with its own slice "
-            "(ROADMAP queue B)")
+    if model_type not in MODEL_TYPE:
+        raise ValueError(f"exp.use_model must be one of {sorted(MODEL_TYPE)}, "
+                         f"got {model_type!r}")
     if cfg.model.get("use_scheduled_sampling", False):
         raise NotImplementedError(
             "scheduled sampling is not ported yet (ROADMAP queue A, item 4)")
@@ -136,8 +161,12 @@ def main(argv=None):
     device = resolve_device(None if named in (None, "tpu") else named)
     logger = set_logger(model_type, cfg.get("log_dir", "log"))
 
-    train_loader, val_loader, _, _ = make_streaming_loaders(cfg, logger,
-                                                            device)
+    windowed = model_type == "simple_lstm"
+    if windowed:
+        train_loader, val_loader, _, _ = make_windowed_loaders(cfg, logger)
+    else:
+        train_loader, val_loader, _, _ = make_streaming_loaders(cfg, logger,
+                                                                device)
     model_cfg = cfg.model.to_dict()
     model = build_model(
         model_type, model_cfg,
@@ -147,14 +176,19 @@ def main(argv=None):
     logger.info(f"model: {model_type}, parameters: {n_params:,}, "
                 f"device: {device}")
     optimizer = build_optimizer(model.parameters(), cfg.optim)
-    precision = str(cfg.trainer.get("precision", 32))
-    train_step, eval_step = streaming_step_fns(
-        model, model_cfg, cfg.metrics.to_dict(), optimizer,
-        mask_self_motion_input=(model_type == "lstmformer"),
-        compute_dtype=(torch.bfloat16 if precision in ("bf16", "bfloat16")
-                       else torch.float32),
-        remat=cfg.trainer.get("remat", False),
-    )
+    if windowed:
+        train_step, eval_step = windowed_step_fns(
+            model, model_cfg, cfg.metrics.to_dict(), optimizer)
+    else:
+        precision = str(cfg.trainer.get("precision", 32))
+        train_step, eval_step = streaming_step_fns(
+            model, model_cfg, cfg.metrics.to_dict(), optimizer,
+            mask_self_motion_input=(model_type == "lstmformer"),
+            compute_dtype=(torch.bfloat16
+                           if precision in ("bf16", "bfloat16")
+                           else torch.float32),
+            remat=cfg.trainer.get("remat", False),
+        )
 
     start_epoch = 0
     if cfg.get("resume_from"):
@@ -166,7 +200,7 @@ def main(argv=None):
                     f"(optimizer state: {'yes' if restored else 'no'})")
 
     generation_eval = None
-    if cfg.trainer.get("run_generation_eval", False):
+    if not windowed and cfg.trainer.get("run_generation_eval", False):
         generation_eval = make_generation_eval(model, model_type, model_cfg)
 
     trainer = Trainer(

@@ -49,8 +49,8 @@ def make_generation_eval(model, model_type: str, model_cfg) -> Callable:
                                 cache_dtype=torch.float32)
     else:
         raise NotImplementedError(
-            f"generation eval for {model_type!r} comes with its model's "
-            "slice (the port trains the lstmformer and lstm_with_sampling)")
+            f"no generation eval for {model_type!r}: the streaming models "
+            "have one; simple_lstm trains without it, as in the JAX CLI")
     lossfun = build_loss(model_cfg)
     device = next(model.parameters()).device
 

@@ -1,10 +1,13 @@
 """Training step functions.
 
-Counterpart of ``streaming_step_fns`` in ``multimodalreactiongeneration
-_tpu/train/harness.py`` (reference training_step / validation_step,
-lstmformer.py:357-424, lstm_with_sample.py:278-337), for the two
-streaming models, the Metaformer and LSTMwithSample (any module called
-as ``model(a_p, m_p, m_s, lead_a, lead_mp, lead_ms) -> (y, state)``):
+Counterpart of ``streaming_step_fns`` and ``windowed_step_fns`` in
+``multimodalreactiongeneration_tpu/train/harness.py`` (reference
+training_step / validation_step, lstmformer.py:357-424,
+lstm_with_sample.py:278-337, simple_lstm.py:239-269).
+
+``streaming_step_fns`` serves the two streaming models, the Metaformer
+and LSTMwithSample (any module called as ``model(a_p, m_p, m_s, lead_a,
+lead_mp, lead_ms) -> (y, state)``):
 
   * leading warmup frames are sliced off the prediction (y[:, lead:]);
   * prediction AND target are multiplied by the (target != -100) mask,
@@ -12,25 +15,31 @@ as ``model(a_p, m_p, m_s, lead_a, lead_mp, lead_ms) -> (y, state)``):
     to the numerator and stays in the denominator;
   * the training loss scales the delta channels by sqrt(delta_loss_scale).
 
+``windowed_step_fns`` serves SimpleLSTM on fixed windows (fbank, motion
+context, one target frame): ``simple_lstm_loss`` in training; in
+evaluation the plain MSE, with the all_static delta recompute; in both,
+rows that are all -100 (filler) are zeroed out of prediction and target.
+
 The step runs the model's modules eagerly; on CUDA the recurrences and
 the attention go through their kernels: the Metaformer's encoder stacks,
 self-motion LSTMs and integrators (``ops/mixer_stack.py``,
 ``ops/lstm_layer.py``, ``ops/rect_attention.py``; with GRU embeddings,
 configs/lstmformer_gru.yaml, every encoder and self-motion block runs
-``ops/gru.py``), LSTMwithSample's
-sampler stack and layered blocks (``ops/lstm_stacked.py``,
-``ops/lstm_layer.py``). f32 only.
+``ops/gru.py``), LSTMwithSample's sampler stack and layered blocks
+(``ops/lstm_stacked.py``, ``ops/lstm_layer.py``), SimpleLSTM's acoustic
+LSTMs (``ops/lstm_layer.py``); under ``MRGEN_FUSED_DW=0`` the single-layer
+LSTMs run ``ops/lstm_recurrence.py`` instead. f32 only.
 
 ``Trainer`` is the counterpart of the JAX package's fit loop on one
 device: per-epoch cosine LR, Lightning ``val_check_interval`` semantics
 (a fraction of the train epoch, or every N steps when > 1) with
 early-stop patience counted in validation checks, V/T/G top-k
 checkpoints (T and G only with a generation eval) and ``last``, and the
-same ``metrics.jsonl`` records. Losses and metrics stay on the device
-through the epoch and are read back once at its end. A device mesh,
-multi-host runs (ROADMAP queue A, item 9) and scheduled sampling (queue
-A, item 4) raise ``NotImplementedError``; so do the scheduled-sampling
-and windowed step functions, which come with later slices.
+same ``metrics.jsonl`` records. It stages both batch layouts: the
+streaming (data, lengths) pairs and the windowed stacked arrays. Losses
+and metrics stay on the device through the epoch and are read back once
+at its end. A device mesh, multi-host runs and scheduled sampling (ROADMAP
+queue A) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,6 +54,12 @@ import numpy as np
 import torch
 
 from multimodalreactiongeneration_tpu_torch import resolve_device
+from multimodalreactiongeneration_tpu_torch.models.simple_lstm import (
+    mse_loss,
+    simple_lstm_loss,
+    split_and_form,
+    static_base,
+)
 from multimodalreactiongeneration_tpu_torch.ops.masks import PADDING_VALUE
 from multimodalreactiongeneration_tpu_torch.train import checkpoint as ckpt_lib
 from multimodalreactiongeneration_tpu_torch.train.losses import build_loss
@@ -132,10 +147,70 @@ def streaming_step_fns(
     return train_step, eval_step
 
 
+def windowed_step_fns(
+    model: torch.nn.Module,
+    model_cfg: Dict[str, Any],
+    metrics_cfg: Dict[str, Any],
+    optimizer: torch.optim.Optimizer,
+):
+    """(train_step, eval_step) for SimpleLSTM: each takes a batch
+    (fbank (B, Ta, 81), motion (B, Tm, 18), target (B, 1, 18)) and returns
+    (loss, per_slice), as ``streaming_step_fns``' do."""
+    target_dict = gen_target_dict(
+        metrics_cfg["use_centroid"],
+        metrics_cfg["use_angle"],
+        metrics_cfg["delta_order"],
+    )
+
+    def row_mask(target):
+        """1 for real rows, 0 for rows that are all -100 (filler): the
+        windowed loss has no element mask, so those rows are zeroed out
+        of prediction AND target, and stay in the mean's denominator."""
+        real = ~(target == PADDING_VALUE).flatten(1).all(dim=1)
+        return real.reshape((-1,) + (1,) * (target.dim() - 1))
+
+    def train_step(batch):
+        fbank, motion, target = batch
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        m = row_mask(target)
+        loss, y = simple_lstm_loss(model(fbank, motion), target, motion,
+                                   model_cfg, metrics_cfg, row_mask=m)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), per_slice_sq_err(
+            y.detach(), target * m.to(target.dtype), target_dict)
+
+    @torch.no_grad()
+    def eval_step(batch):
+        fbank, motion, target = batch
+        model.eval()
+        y = model(fbank, motion)
+        if model_cfg.get("all_static", False):
+            y = split_and_form(motion, y, metrics_cfg["delta_order"],
+                               static_base(metrics_cfg))
+        m = row_mask(target).to(y.dtype)
+        y, target = y * m, target * m
+        return mse_loss(y, target), per_slice_sq_err(y, target, target_dict)
+
+    return train_step, eval_step
+
+
+def _is_paired(batch) -> bool:
+    """Streaming batches are [(data, lengths), ...]; windowed batches are
+    stacked arrays."""
+    last = batch[-1]
+    return isinstance(last, (tuple, list)) and len(last) == 2
+
+
 def _batch_frames(batch) -> int:
-    """Real (unpadded) motion frames in a batch, from the target's host
-    lengths: the per-epoch throughput record needs no device sync."""
-    return int(np.asarray(batch[-1][1]).sum())
+    """Real (unpadded) motion frames in a batch, for the per-epoch
+    throughput record, with no device sync: the target's host lengths of a
+    streaming batch; B*T of a windowed batch's target."""
+    if _is_paired(batch):
+        return int(np.asarray(batch[-1][1]).sum())
+    shape = batch[-1].shape
+    return int(shape[0] * shape[1])
 
 
 def _pack(loss, slices) -> Tuple[torch.Tensor, List[str]]:
@@ -168,7 +243,8 @@ class Trainer:
     """``fit`` on one device with checkpoint and early-stop callbacks.
 
     ``train_step(batch) -> (loss, per_slice)`` and ``eval_step(batch) ->
-    (loss, per_slice)`` are ``streaming_step_fns``'s; the model's
+    (loss, per_slice)`` are ``streaming_step_fns``' or
+    ``windowed_step_fns``'; the model's
     parameters and the optimizer are updated in place. Batches are staged
     onto ``device`` (``cuda:0`` unless named)."""
 
@@ -212,8 +288,12 @@ class Trainer:
         self._metrics_path = os.path.join(log_dir, "metrics.jsonl")
 
     def _stage(self, batch):
-        return [(torch.as_tensor(x).to(self.device, non_blocking=True), n)
-                for x, n in batch]
+        def put(x):
+            return torch.as_tensor(x).to(self.device, non_blocking=True)
+
+        if _is_paired(batch):
+            return [(put(x), n) for x, n in batch]
+        return tuple(put(x) for x in batch)
 
     def _log(self, record: Dict[str, Any]) -> None:
         with open(self._metrics_path, "a", encoding="utf-8") as f:

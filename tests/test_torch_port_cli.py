@@ -4,6 +4,9 @@
     loader reads it, and the port's ``load_config`` (overrides, then
     interpolation) resolves to the JAX ``utils/config.py load_config``'s
     dict; override values parse as the JAX loader's YAML scalars;
+  * ``load_config`` reads the file it is given: every shipped yaml, and
+    an edited copy under another name, load as the JAX loader loads them,
+    and every built-in dict of ``configs.CONFIGS`` is its yaml;
   * ``train.cli.main`` with ``device=cpu`` on a synthetic corpus at
     small width (hidden 32, 1 block, batch 2) builds the manifests, trains
     an epoch with two validation checks and the generation eval, writes
@@ -72,6 +75,50 @@ def test_override_values_parse_as_yaml(text):
     assert type(got) is type(want)
 
 
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                          "configs")
+SHIPPED = ("lstmformer", "lstmformer_gru", "lstm_with_sampling", "simple_lstm",
+           "simple_lstm_best")
+
+
+@pytest.mark.parametrize("overrides", [[], OVERRIDES])
+@pytest.mark.parametrize("name", SHIPPED)
+def test_load_config_reads_every_shipped_yaml(name, overrides):
+    path = os.path.join(CONFIG_DIR, f"{name}.yaml")
+    got = configs.load_config(path, overrides)
+    assert got.to_dict() == jconfig.load_config(path, overrides).to_dict()
+    with open(path, encoding="utf-8") as f:
+        assert configs.CONFIGS[name] == jconfig._yaml_load(f.read())
+    assert configs.parse_yaml(open(path, encoding="utf-8").read()) == (
+        configs.CONFIGS[name])
+
+
+def test_load_config_reads_an_edited_copy_under_any_name(tmp_path):
+    """The repair: the file is read, not looked up by its stem."""
+    with open(os.path.join(CONFIG_DIR, "simple_lstm.yaml"),
+              encoding="utf-8") as f:
+        text = f.read()
+    text = text.replace("batch_size: 256", "batch_size: 7  # edited") + (
+        "\n# a trailing comment\nextra:\n    ratio: 1e-2\n    tags: [a, 'b c']"
+        "\n    items:\n    - 3\n    - x\n    empty:\n    mark: '#1'\n")
+    for name in ("my_run.yaml", "lstmformer.yaml"):
+        path = tmp_path / name
+        path.write_text(text, encoding="utf-8")
+        for overrides in ([], ["exp.train_rate=0.5", "lr=3e-4"]):
+            got = configs.load_config(str(path), overrides)
+            want = jconfig.load_config(str(path), overrides)
+            assert got.to_dict() == want.to_dict()
+        assert got.exp.batch_size == 7 and got.optim.lr == 3e-4
+        assert got.extra.ratio == 0.01 and got.extra["items"] == [3, "x"]
+        assert got.extra.mark == "#1" and got.extra.empty is None
+    with pytest.raises(FileNotFoundError, match="no config file"):
+        configs.load_config(str(tmp_path / "absent.yaml"))
+    for bad in ("a: &x 1\n", "a: |\n  text\n", "a:\n  - - 1\n",
+                "a: 1\n b: 2\n"):
+        with pytest.raises(ValueError):
+            configs.parse_yaml(bad)
+
+
 def test_model_config_cut_from_the_full_config():
     resolved = configs.load_config("lstmformer")
     for key, value in configs.LSTMFORMER_MODEL_CFG.items():
@@ -95,8 +142,7 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, monkeypatch):
                                    seconds=90.0)
     common = ["name=cli", f"data_dir={corpus}", "ckpt_path=ck",
               "log_dir=log", *SMALL]
-    result = cli.main(["--config", "configs/lstmformer.yaml", *common,
-                       "max_epochs=1"])
+    result = cli.main(["--config", YAML, *common, "max_epochs=1"])
     assert result.epochs_run == 1
     rec = result.history[0]
     assert rec["val_checks"] == 2
@@ -110,8 +156,8 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, monkeypatch):
         lines = [json.loads(x) for x in f]
     assert [("val_check" in x) for x in lines] == [True, True, False]
 
-    resumed = cli.main(["--config", "configs/lstmformer.yaml", *common,
-                        "max_epochs=2", "resume_from=ck/cli/last"])
+    resumed = cli.main(["--config", YAML, *common, "max_epochs=2",
+                        "resume_from=ck/cli/last"])
     assert [r["epoch"] for r in resumed.history] == [1]
     assert np.isfinite(resumed.history[0]["train_loss"])
     # the cosine schedule picked up at epoch 1 of optim_epochs 2
@@ -121,9 +167,9 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_other_models_and_unported_options():
-    with pytest.raises(NotImplementedError, match="simple_lstm"):
+    with pytest.raises(ValueError, match="gpt"):
         cli.main(["--config", "configs/lstmformer.yaml", "device=cpu",
-                  "exp.use_model=simple_lstm"])
+                  "exp.use_model=gpt"])
     with pytest.raises(NotImplementedError, match="item 4"):
         cli.main(["--config", "configs/lstmformer.yaml", "device=cpu",
                   "model.use_scheduled_sampling=true"])

@@ -378,7 +378,7 @@ def test_gru_cli_trains_checkpoints_and_resumes(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)  # the manifests go under ./data
     corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_sessions=1,
                                    seconds=90.0)
-    common = ["--config", "configs/lstmformer_gru.yaml", "name=gru",
+    common = ["--config", YAML, "name=gru",
               f"data_dir={corpus}", "ckpt_path=ck", "log_dir=log", *SMALL]
     result = cli.main(common + ["max_epochs=1"])
     assert result.epochs_run == 1

@@ -178,7 +178,7 @@ def test_lstm_layer_kernels_match_plain(dev, b, t, din, h):
 
 def test_training_kernels_refuse_bf16_and_off_gate_shapes(dev):
     from multimodalreactiongeneration_tpu_torch.nn.recurrent import (
-        use_lstm_layer,
+        single_layer_route,
     )
     from multimodalreactiongeneration_tpu_torch.ops import lstm_layer as K7
 
@@ -200,8 +200,8 @@ def test_training_kernels_refuse_bf16_and_off_gate_shapes(dev):
             K1.mixer_stack_recurrence(*args)  # K3/K4
         with torch.no_grad(), pytest.raises(ValueError, match=match):
             K1.mixer_stack_recurrence(*args)  # K1
-    with pytest.raises(NotImplementedError, match="lstm_recurrence"):
-        use_lstm_layer("cuda", 16, 18, 256)
+    with pytest.raises(NotImplementedError, match="K8"):
+        single_layer_route("cuda", 16, 18, 64)
 
 
 @pytest.mark.parametrize("b,t,layers", [
@@ -362,3 +362,98 @@ def test_gru_kernel_refuses_bf16_and_other_hidden_sizes(dev):
             use_gru_kernel("cuda", 16, h)
     assert use_gru_kernel("cuda", 16, 128) and use_gru_kernel("cuda", 252, 256)
     assert not use_gru_kernel("cuda", 15, 64)
+
+
+@pytest.mark.parametrize("b,t,h", [
+    (256, 120, 128), (32, 252, 256), (20, 37, 128), (1, 16, 128),
+    (3, 1, 256),
+])
+def test_lstm_recurrence_kernels_match_plain(dev, b, t, h):
+    """K8 forward without and with residuals, and backward, vs plain: a
+    simple_lstm acoustic direction (B256 x T120 x H128), the flagship's
+    self-motion LSTMs under MRGEN_FUSED_DW=0 (B32 x T252 x H256), and
+    ragged shapes (B and T not multiples of 16, B1, T1)."""
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_recurrence as K8
+
+    r = _rand(np.random.default_rng(b * t + h), dev)
+    args = (r(b, t, 4 * h, s=0.5), r(h, 4 * h, s=0.06), r(b, h, s=0.3),
+            r(b, h, s=0.3))
+    cots = (r(b, t, h), r(b, h), r(b, h))
+    ysr, (hr, cr) = K8.lstm_recurrence_reference(*args)
+    before = K8.fwd_launches, K8.bwd_launches
+    ys, (hn, cn) = K8.lstm_recurrence(*args)  # no grad needed: no residuals
+    for got, want in ((ys, ysr), (hn, hr), (cn, cr)):
+        assert float((got - want).abs().max()) <= TOL
+    leaves = [a.clone().requires_grad_() for a in args]
+    ys, (hn, cn) = K8.lstm_recurrence(*leaves)
+    grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
+    torch.cuda.synchronize()
+    assert (K8.fwd_launches, K8.bwd_launches) == (before[0] + 2,
+                                                  before[1] + 1)
+    for got, want in ((ys, ysr), (hn, hr), (cn, cr)):
+        assert float((got.detach() - want).abs().max()) <= TOL
+    want = K8.lstm_recurrence_backward_reference(args, *cots)
+    for i, (g, w) in enumerate(zip(grads, want)):
+        assert _rel_err(g, w) <= GRAD_REL_TOL, i
+
+
+def test_lstm_recurrence_kernel_refuses_bf16_and_other_hidden_sizes(dev):
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_recurrence as K8
+
+    b, t = 2, 16
+    for h, dt, match in ((128, torch.bfloat16, "f32"),
+                         (64, torch.float32, "hidden size 64"),
+                         (384, torch.float32, "hidden size 384")):
+        z = lambda *s: torch.zeros(*s, device=dev, dtype=dt)
+        for grad in (False, True):
+            xw = z(b, t, 4 * h).requires_grad_(grad)
+            with pytest.raises(ValueError, match=match):
+                K8.lstm_recurrence(xw, z(h, 4 * h), z(b, h), z(b, h))
+
+
+@pytest.mark.parametrize("din", [256, 81])
+def test_lstm_layer_and_recurrence_on_flipped_input(dev, din):
+    """The reverse direction of a bidirectional LSTM: K7 (din 256) or K8
+    (din 81) on the time-flipped input, flipped back, vs the plain
+    recurrence run backwards in time, forward and gradients."""
+    from multimodalreactiongeneration_tpu_torch.nn.recurrent import TorchLSTM
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_layer as K7
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_recurrence as K8
+
+    b, t, h = 24, 120, 128
+    lstm = TorchLSTM(din, h, torch.Generator().manual_seed(din),
+                     bidirectional=True).to(dev)
+    x = _rand(np.random.default_rng(din), dev)(b, t, din).requires_grad_()
+    before = (K7.fwd_launches, K7.bwd_launches, K8.fwd_launches,
+              K8.bwd_launches)
+    ys, (hn, cn) = lstm(x)
+    g = torch.randn_like(ys)
+    grads = torch.autograd.grad((ys * g).sum() + hn.sum(),
+                                [x, *lstm.parameters()])
+    torch.cuda.synchronize()
+    k7 = din % 128 == 0
+    assert (K7.fwd_launches, K7.bwd_launches, K8.fwd_launches,
+            K8.bwd_launches) == (before[0] + 2 * k7, before[1] + 2 * k7,
+                                 before[2] + 2 * (not k7),
+                                 before[3] + 2 * (not k7))
+    leaves = [x.detach().clone().requires_grad_(), *[
+        p.detach().clone().requires_grad_() for p in lstm.parameters()]]
+    z = torch.zeros(b, h, device=dev)
+
+    def plain(x, *params):
+        outs, hs = [], []
+        for d in range(2):
+            w_ih, w_hh, b_ih, b_hh = params[4 * d:4 * d + 4]
+            xd = torch.flip(x, [1]) if d else x
+            y, (hd, _) = K7.lstm_layer_reference(xd, w_ih.T, b_ih + b_hh,
+                                                 w_hh.T, z, z)
+            outs.append(torch.flip(y, [1]) if d else y)
+            hs.append(hd)
+        return torch.cat(outs, -1), torch.stack(hs)
+
+    ysr, hr = plain(*leaves)
+    want = torch.autograd.grad((ysr * g).sum() + hr.sum(), leaves)
+    assert float((ys.detach() - ysr.detach()).abs().max()) <= TOL
+    assert float((hn.detach() - hr.detach()).abs().max()) <= TOL
+    for i, (gk, gw) in enumerate(zip(grads, want)):
+        assert _rel_err(gk, gw) <= GRAD_REL_TOL, i

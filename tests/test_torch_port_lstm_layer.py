@@ -6,9 +6,9 @@ The port's plain ``lstm_layer`` (what CPU tensors run) vs the JAX
 input gradients under one random cotangent, f32, atol 2e-5 (the JAX
 kernel takes its sums in another order). ``TorchLSTM`` routes as the JAX
 package does: under 16 steps the plain recurrence, from there on with
-128-aligned sizes ``lstm_layer``; on CUDA, other sizes raise (their
-kernel, ``lstm_recurrence``, is not ported). The CUDA kernels are held to
-the plain version on the card in tests/test_torch_port_kernels.py.
+128-aligned sizes ``lstm_layer``; other sizes take ``lstm_recurrence``
+(K8, tests/test_torch_port_lstm_recurrence.py). The CUDA kernels are held
+to the plain version on the card in tests/test_torch_port_kernels.py.
 """
 
 import functools
@@ -110,7 +110,7 @@ def test_torchlstm_matches_jax_module_on_the_kernel_route():
 @pytest.mark.parametrize("t,din,h,routed", [
     (20, 128, 128, True),    # in the gate: lstm_layer
     (15, 128, 128, False),   # decode-sized: the plain recurrence
-    (20, 18, 128, False),    # off the gate: plain on CPU
+    (20, 18, 128, False),    # off the gate: K8, plain on CPU
 ])
 def test_torchlstm_dispatch_on_cpu(monkeypatch, t, din, h, routed):
     calls = []
@@ -132,10 +132,14 @@ def test_torchlstm_dispatch_on_cpu(monkeypatch, t, din, h, routed):
 
 
 def test_cuda_lstm_off_the_kernel_gate_raises():
-    """Where the JAX package runs lstm_recurrence (K8), the port must not
-    quietly run its Python loop on the card."""
-    assert recurrent.use_lstm_layer("cuda", 252, 256, 256)
-    assert not recurrent.use_lstm_layer("cuda", 15, 18, 256)
-    assert not recurrent.use_lstm_layer("cpu", 252, 18, 256)
+    """Where the JAX package runs lstm_recurrence (K8), the port runs its
+    K8 kernels; on the card a hidden size they do not take raises rather
+    than quietly run the Python loop there."""
+    route = recurrent.single_layer_route
+    assert route("cuda", 252, 256, 256) == "lstm_layer"
+    assert route("cuda", 15, 18, 256) == "plain"
+    assert route("cpu", 252, 18, 256) == "lstm_recurrence"
+    assert route("cuda", 252, 18, 256) == "lstm_recurrence"
+    assert route("cpu", 252, 18, 64) == "lstm_recurrence"
     with pytest.raises(NotImplementedError, match="lstm_recurrence"):
-        recurrent.use_lstm_layer("cuda", 252, 18, 256)
+        route("cuda", 252, 18, 64)

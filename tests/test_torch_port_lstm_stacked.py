@@ -191,14 +191,23 @@ def test_stack_gate_raises_on_cuda_for_shapes_the_kernel_does_not_take():
         recurrent.use_lstm_stacked("cuda", 96, 4, 128, 2)
 
 
-def test_torchlstm_refuses_bidirectional_and_dropout_in_training():
+def test_torchlstm_refuses_bidirectional_and_dropout_in_training(
+        monkeypatch):
+    """Dropout between layers in training raises, one direction or two; a
+    bidirectional stack runs layer by layer and direction by direction,
+    never the stacked route (JAX takes it for one direction only)."""
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="simple_lstm"):
-        recurrent.TorchLSTM(8, 16, gen, num_layers=2, bidirectional=True)
-    port = recurrent.TorchLSTM(8, 16, gen, num_layers=2, dropout=0.1)
     x = torch.randn(2, 20, 8, generator=gen)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        port(x)
-    port.eval()  # inactive dropout: the stacked route, as in JAX
+    for bidirectional in (False, True):
+        port = recurrent.TorchLSTM(8, 16, gen, num_layers=2, dropout=0.1,
+                                   bidirectional=bidirectional)
+        with pytest.raises(NotImplementedError, match="dropout"):
+            port(x)
+    port.eval()
+    monkeypatch.setattr(recurrent, "lstm_stacked_recurrence", None)
     ys, (hn, cn) = port(x)
+    assert ys.shape == (2, 20, 32) and hn.shape == (4, 2, 16)
+    port = recurrent.TorchLSTM(8, 16, gen, num_layers=2, dropout=0.1).eval()
+    monkeypatch.undo()
+    ys, (hn, cn) = port(x)  # inactive dropout: the stacked route, as in JAX
     assert ys.shape == (2, 20, 16) and hn.shape == (2, 2, 16)

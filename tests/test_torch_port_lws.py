@@ -197,8 +197,6 @@ def test_weight_bridge_build_model_and_refusals(monkeypatch):
     with pytest.raises(KeyError, match="no mapping"):
         state_dict_from_jax({"params/a/weight_hh_x0": np.zeros(3)})
 
-    with pytest.raises(NotImplementedError, match="simple_lstm"):
-        build_model("simple_lstm", CFG, device="cpu")
     with pytest.raises(ValueError, match="model_type"):
         build_model("gpt", CFG, device="cpu")
     bad = _torch(batch)
@@ -334,7 +332,7 @@ def test_lws_cli_trains_checkpoints_and_resumes(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)  # the manifests go under ./data
     corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_sessions=1,
                                    seconds=90.0)
-    common = ["--config", "configs/lstm_with_sampling.yaml", "name=lws",
+    common = ["--config", YAML, "name=lws",
               f"data_dir={corpus}", "ckpt_path=ck", "log_dir=log", *SMALL]
     result = cli.main(common + ["max_epochs=1"])
     assert result.epochs_run == 1
