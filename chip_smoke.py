@@ -37,9 +37,13 @@ Phases:
      max|kernel - plain| / max|plain| <= 1e-3;
   6. LSTM-layer forward (K7, with and without residuals) and backward vs
      plain at B32 x T252 x din 256 x H256 (the Metaformer's self-motion
-     LSTMs) and B256 x T140 (lstm_with_sampling's blocks), the same
-     bounds; cuDNN's ``torch.nn.LSTM`` with the same weights timed as a
-     yardstick;
+     LSTMs), B256 x T140 (lstm_with_sampling's blocks) and B256 x T120,
+     256 -> 128 (simple_lstm's acoustic LSTMs), the same bounds; each
+     chain at the wrapper's rows per cluster (its clusters, one wave, and
+     the card's resident clusters at every rows per cluster printed) and
+     at R 16 through the wrappers' ``rows``, both held to the plain
+     version and timed in turns; cuDNN's ``torch.nn.LSTM`` with the same
+     weights timed as a yardstick;
   7. rect-attention forward (K5) and backward (K6) vs plain at B32, Lq
      252, Lk 2016 and 252, E 256, 4 heads, 10% padded rows and keys: the
      same bounds; ``scaled_dot_product_attention`` with the boolean mask
@@ -70,8 +74,9 @@ Phases:
      backward vs plain, f32, H128 x L2 at B256 x T1120 (the sampler in
      training) and B16 x T96 (the generation warmup): out, hn, cn <=
      1e-4 abs; each gradient max|kernel - plain| / max|plain| <= 1e-3;
-     cuDNN's 2-layer ``torch.nn.LSTM`` with the same recurrent weights
-     timed as a yardstick (it also computes layer 0's input product);
+     the wrapper's rows per cluster and R 16 as in phase 6; cuDNN's
+     2-layer ``torch.nn.LSTM`` with the same recurrent weights timed as a
+     yardstick (it also computes layer 0's input product);
  11. lstm_with_sampling generation: ``generate_lws`` with the full mask
      on 3 batches of 16 x 250 frames (lead 12): shape, finite, launches
      per generation (K9 forward +1, nothing else), time; one more
@@ -94,7 +99,8 @@ Phases:
      T2096 (the decode hoist, forward only), and H128 at B32 x T252: ys,
      h_n <= 1e-4 abs; each gradient max|kernel - plain| / max|plain| <=
      1e-3; cuDNN's ``torch.nn.GRU`` with the same recurrent weights timed
-     as a yardstick (it also computes the input product);
+     as a yardstick (it also computes the input product; at the decode
+     hoist its forward alone, without a gradient);
  15. GRU generation: ``generate_metaformer`` with the GRU config, full
      mask, bf16 caches, on 3 batches of 16 x 250 frames (lead 12): shape,
      finite, launches per generation (K10 forward +10, the hoisted
@@ -124,7 +130,7 @@ Phases:
      vs the plain recurrences, the same bounds, K7 +2 / +2; and the
      routing case: ``TorchLSTM(81, 128)`` over T120 launches K8 once and
      no K7;
- 19. simple_lstm generation: ``sliding_window_generate`` on 3 rollouts of
+ 19. simple_lstm generation: ``sliding_window_generate`` on 2 rollouts of
      250 frames (batch 1, one model call per frame): shape, finite,
      launches per rollout (K7 forward +4 per step, +1,000; nothing else),
      ms per rollout; a 25-frame rollout under ``MRGEN_FUSED_DW=0`` (K8
@@ -147,8 +153,9 @@ Phases:
      losses, V top-k checkpoints and ``last``, exact K7 launches (per
      train step +4 / +4, per validation batch an eval step, +4 forward).
 
-Every kernel's JSON record carries its bound: the larger of its FP32
-operations at 67 TFLOP/s and its bytes at 3.35 TB/s (H100 SXM, 700 W).
+Every kernel's JSON record carries its bound: the larger of its
+operations (FP32 at 67 TFLOP/s; K7's and K9's 3xTF32 products as three
+TF32 passes at 495) and its bytes at 3.35 TB/s (H100 SXM, 700 W).
 Any failure raises. The last lines are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -280,8 +287,8 @@ def rel_err(got, want):
 
 
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): FP32 outside the tensor
-# cores, and HBM3
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# cores, dense TF32 on them, and HBM3
+PEAK_FLOPS, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
 
 
 def nbytes(*objs):
@@ -297,11 +304,13 @@ def nbytes(*objs):
     return total
 
 
-def bound(flops, bytes_):
+def bound(flops, bytes_, tf32x3_flops=0):
     """(ms, "operations" or "bytes"): the least time the card could take,
-    the larger of the FP32 operations at 67 TFLOP/s and the bytes (each
-    input read once, each output written once) at 3.35 TB/s."""
-    t_ops = flops / PEAK_FLOPS * 1e3
+    the larger of the operations and the bytes (each input read once,
+    each output written once) at 3.35 TB/s. The operations are FP32 at 67
+    TFLOP/s, and ``tf32x3_flops`` products in 3xTF32 (three TF32 passes
+    at 495 TFLOP/s each)."""
+    t_ops = (flops / PEAK_FLOPS + 3 * tf32x3_flops / PEAK_TF32) * 1e3
     t_bytes = bytes_ / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -374,18 +383,71 @@ def train_kernel_phase(K1, dev, rng):
     return cases
 
 
+def layout_times(fwd, bwd, chosen):
+    """Times of a chain at the rows per cluster the wrapper chooses and at
+    R 16, in turns (R 16, chosen, chosen, R 16; R 16 alone where it is the
+    choice): forward without and with residuals and backward, ms each
+    (mean of 5 launches after a warm-up), the means of the turns by
+    layout. fwd(residuals, rows) and bwd(fwd's outputs, rows) call the
+    wrapper; rows None is its choice."""
+    order = (16,) if chosen == (16, 16) else (16, None, None, 16)
+    runs = {}
+    for rows in order:
+        out = fwd(True, rows)
+        runs.setdefault("chosen" if rows is None else "rows16", []).append(
+            dict(fwd_ms=cuda_ms(lambda: fwd(False, rows), 5)[0],
+                 fwd_res_ms=cuda_ms(lambda: fwd(True, rows), 5)[0],
+                 bwd_ms=cuda_ms(lambda: bwd(out, rows), 5)[0]))
+        del out
+    times = {k: {m: float(np.mean([r[m] for r in v])) for m in v[0]}
+             for k, v in runs.items()}
+    times.setdefault("chosen", times["rows16"])
+    return times
+
+
+def rows16_errors(fwd, bwd, plain_fwd, plain_grads):
+    """The R 16 layout's forward error (abs) and gradient error (relative
+    to the largest) against the plain version, through the wrapper's
+    ``rows`` argument."""
+    out0, out1 = fwd(False, 16), fwd(True, 16)
+    grads = bwd(out1, 16)
+    return (max(max_err(out0[:3], plain_fwd), max_err(out1[:3], plain_fwd)),
+            rel_err(grads, plain_grads))
+
+
+def layout_record(mod, key, b, chosen):
+    """Rows per cluster of both chains, clusters launched, and what the
+    card holds at once at every rows per cluster that fits; raises unless
+    the clusters run in one wave."""
+    resident = {d: mod.layout(0, key, d == "backward")[0]
+                for d in ("forward", "backward")}
+    lay = dict(rows=dict(zip(("forward", "backward"), chosen)),
+               clusters={d: -(-b // r) for d, r in
+                         zip(("forward", "backward"), chosen)},
+               resident_clusters=resident)
+    for d, rows in lay["rows"].items():
+        if lay["clusters"][d] > resident[d][rows]:
+            raise AssertionError(f"{mod.__name__} B{b} {d}: {lay}: not one "
+                                 "wave of clusters")
+    return lay
+
+
 def lstm_layer_phase(K7, dev, rng):
     """6. The LSTM layer (K7): forward without and with residuals and
     backward vs plain at the Metaformer self-motion LSTM's shape (B32 x
-    T252) and at lstm_with_sampling's block shape (B256 x T140), both
-    256 -> 256."""
+    T252, 256 -> 256), at lstm_with_sampling's block shape (B256 x T140,
+    256 -> 256) and at simple_lstm's acoustic LSTMs' (B256 x T120,
+    256 -> 128); at the wrapper's rows per cluster and at R 16, timed in
+    turns."""
     cases = []
-    for b, t in ((TRAIN_B, LEAD + TRAIN_FRAMES), (LWS_B, LEAD + LWS_FRAMES)):
-        din = h = 256
+    for b, t, din, h in ((TRAIN_B, LEAD + TRAIN_FRAMES, 256, 256),
+                         (LWS_B, LEAD + LWS_FRAMES, 256, 256),
+                         (SIMPLE_B, SIMPLE_AUDIO_T, 256, 128)):
         r = seeded(rng, dev)
         args = (r(b, t, din), r(din, 4 * h, s=0.06), r(4 * h, s=0.06),
                 r(h, 4 * h, s=0.06), r(b, h, s=0.3), r(b, h, s=0.3))
         cots = (r(b, t, h), r(b, h), r(b, h))
+        chosen = tuple(K7.rows_for(dev, h, bw, b) for bw in (False, True))
         ys0, (hn0, cn0) = K7.lstm_layer(*args)  # no gradient: no residuals
         leaves = [a.clone().requires_grad_() for a in args]
         ys, (hn, cn) = K7.lstm_layer(*leaves)
@@ -400,28 +462,49 @@ def lstm_layer_phase(K7, dev, rng):
                       max_err((ys, hn, cn), (ysr, hr, cr)))
         grad_err = max_err(grads, want)
         grad_rel = rel_err(grads, want)
-        fwd_ms, _ = cuda_ms(lambda: K7.lstm_layer_forward(args, False), 5)
-        fwd_res_ms, (ys1, _, _, acts, cs) = cuda_ms(
-            lambda: K7.lstm_layer_forward(args, True), 5)
-        bwd_ms, _ = cuda_ms(
-            lambda: K7.lstm_layer_backward(args, ys1, acts, cs, *cots), 5)
-        # x.W_ih and h.W_hh: 2 B T 4H (Din + H) FLOPs; the backward doubles
+
+        def fwd(res, rows):
+            return K7.lstm_layer_forward(args, res, rows=rows)
+
+        def bwd(out, rows):
+            return K7.lstm_layer_backward(args, out[0], out[3], out[4],
+                                          *cots, rows=rows)
+
+        r16_fwd_err, r16_grad_rel = rows16_errors(fwd, bwd, (ysr, hr, cr),
+                                                  want)
+        check_case("lstm_layer_rows16", r16_fwd_err, r16_grad_rel, B=b, T=t)
+        times = layout_times(fwd, bwd, chosen)
+        ys1, _, _, acts, cs = fwd(True, None)
+        # x.W_ih and h.W_hh: 2 B T 4H (Din + H) FLOPs. The backward: the
+        # chain's dgates.W_hh^T in FP32, 2 B T 4H H; dW_ih, dW_hh and dx in
+        # 3xTF32, 2 B T 4H (2 Din + H)
         fwd_bound = bound(8 * b * t * h * (din + h),
                           nbytes(args, ys1, hn, cn, acts, cs))
-        bwd_bound = bound(16 * b * t * h * (din + h),
-                          nbytes(args, ys1, acts, cs, cots, grads))
+        bwd_bound = bound(8 * b * t * h * h,
+                          nbytes(args, ys1, acts, cs, cots, grads),
+                          tf32x3_flops=8 * b * t * h * (2 * din + h))
+        del ys1, acts, cs
         lib_fwd_ms, lib_bwd_ms = cudnn_lstm_ms(args, cots)
-        check_case("lstm_layer", fwd_err, grad_rel, B=b, T=t, fwd_ms=fwd_ms,
-                   fwd_res_ms=fwd_res_ms, plain_fwd_ms=plain_fwd_ms,
-                   bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
-                   library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms)
+        main = times["chosen"]
+        lay = layout_record(K7, h, b, chosen)
+        check_case("lstm_layer", fwd_err, grad_rel, B=b, T=t, din=din, H=h,
+                   rows=chosen, clusters=tuple(lay["clusters"].values()),
+                   resident=lay["resident_clusters"], fwd_ms=main["fwd_ms"],
+                   fwd_res_ms=main["fwd_res_ms"], bwd_ms=main["bwd_ms"],
+                   rows16=times["rows16"], plain_fwd_ms=plain_fwd_ms,
+                   plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
+                   library_bwd_ms=lib_bwd_ms, fwd_bound_ms=fwd_bound[0],
+                   bwd_bound_ms=bwd_bound[0])
         cases.append(dict(
-            B=b, T=t, fwd_max_abs_err=fwd_err, grad_max_abs_err=grad_err,
-            grad_max_rel_err=grad_rel, fwd_ms=fwd_ms, fwd_res_ms=fwd_res_ms,
-            plain_fwd_ms=plain_fwd_ms, bwd_ms=bwd_ms,
+            B=b, T=t, din=din, H=h, **lay, fwd_max_abs_err=fwd_err,
+            grad_max_abs_err=grad_err, grad_max_rel_err=grad_rel,
+            rows16_fwd_max_abs_err=r16_fwd_err,
+            rows16_grad_max_rel_err=r16_grad_rel, **main,
+            rows16_ms=times["rows16"], plain_fwd_ms=plain_fwd_ms,
             plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
             library_bwd_ms=lib_bwd_ms, fwd_bound=fwd_bound,
             bwd_bound=bwd_bound))
+        del args, leaves, grads, want, ys, ys0, ysr
     return cases
 
 
@@ -470,18 +553,24 @@ def cudnn_stacked_ms(args, cots):
     return cudnn_ms(lstm, x, (h0, c0), cots)
 
 
-def cudnn_gru_ms(args, cots):
+def cudnn_gru_ms(args, cots=None):
     """cuDNN's one-layer GRU with K10's recurrent weights (``cudnn_ms``).
     It also computes the input product, from an input x (B, T, H) and
-    random W_ih standing in for the precomputed xw the kernels take."""
+    random W_ih standing in for the precomputed xw the kernels take.
+    Without ``cots``, the forward alone without a gradient (the decode
+    hoist) and None for the backward."""
     xw, w_hh_t, b_hh, h0 = args
     h = h0.shape[-1]
     gru = torch.nn.GRU(h, h, batch_first=True).to(xw.device)
     with torch.no_grad():
         gru.weight_hh_l0.copy_(w_hh_t.T)
         gru.bias_hh_l0.copy_(b_hh)
-    x = xw[:, :, :h].contiguous().requires_grad_()
-    return cudnn_ms(gru, x, h0[None], (cots[0], cots[1][None]))
+    x = xw[:, :, :h].contiguous()
+    if cots is None:
+        with torch.no_grad():
+            return cuda_ms(lambda: gru(x, h0[None]), 5)[0], None
+    return cudnn_ms(gru, x.requires_grad_(), h0[None],
+                    (cots[0], cots[1][None]))
 
 
 def gru_phase(K10, dev, rng):
@@ -547,6 +636,9 @@ def gru_phase(K10, dev, rng):
             del leaves, grads, ys, ys1, hh
         else:
             grad_rel = 0.0
+            lib_fwd_ms, _ = cudnn_gru_ms(args)
+            case["library_fwd_ms"] = lib_fwd_ms
+            kv = dict(library_fwd_ms=lib_fwd_ms)
         case["fwd_max_abs_err"] = fwd_err
         check_case("gru", fwd_err, grad_rel, B=b, T=t, H=h, fwd_ms=fwd_ms,
                    plain_fwd_ms=plain_fwd_ms,
@@ -699,20 +791,18 @@ def lstm_stacked_phase(K9, dev, rng):
     """10. The stacked-LSTM wavefront (K9): forward without and with
     residuals and backward vs plain at lstm_with_sampling's sampler
     shapes, H128 x L2: B256 x T1120 (training) and B16 x T96 (the
-    generation warmup)."""
+    generation warmup); at the wrapper's rows per cluster and at R 16,
+    timed in turns."""
     h, layers = 128, 2
     r = seeded(rng, dev)
-    # one 8-CTA cluster per 16 rows: beyond what the card holds at once,
-    # the clusters run in waves
-    resident = {k: K9.resident_clusters(layers, k == "backward")
-                for k in ("forward", "backward")}
-    log("lstm_stacked", resident_clusters=resident)
     cases = []
     for b, t in ((LWS_B, (LEAD + LWS_FRAMES) * RATIO), (B, LEAD * RATIO)):
         args = (r(b, t, 4 * h), r(layers - 1, h, 4 * h, s=0.06),
                 r(layers - 1, 4 * h, s=0.06), r(layers, h, 4 * h, s=0.06),
                 r(layers, b, h, s=0.3), r(layers, b, h, s=0.3))
         cots = (r(b, t, h), r(layers, b, h), r(layers, b, h))
+        chosen = tuple(K9.rows_for(dev, layers, bw, b)
+                       for bw in (False, True))
         # the wrapper as the model calls it: without a gradient the
         # forward without residuals; with one, the forward with
         # residuals, then the backward
@@ -730,37 +820,52 @@ def lstm_stacked_phase(K9, dev, rng):
                       max_err((ys, hn, cn), (ysr, hr, cr)))
         grad_err = max_err(grads, want)
         grad_rel = rel_err(grads, want)
+
+        def fwd(res, rows):
+            return K9.lstm_stacked_forward(args, res, rows=rows)
+
+        def bwd(out, rows):
+            return K9.lstm_stacked_backward(args[1:], out[0], *out[3:],
+                                            *cots, rows=rows)
+
+        r16_fwd_err, r16_grad_rel = rows16_errors(fwd, bwd, (ysr, hr, cr),
+                                                  want)
+        check_case("lstm_stacked_rows16", r16_fwd_err, r16_grad_rel, B=b,
+                   T=t)
         del ysr, hr, cr, want
-        fwd_ms, _ = cuda_ms(lambda: K9.lstm_stacked_forward(args, False), 5)
-        fwd_res_ms, (ys1, hn1, cn1, hs, acts, cs) = cuda_ms(
-            lambda: K9.lstm_stacked_forward(args, True), 5)
-        bwd_ms, _ = cuda_ms(lambda: K9.lstm_stacked_backward(
-            args[1:], ys1, hs, acts, cs, *cots), 5)
+        times = layout_times(fwd, bwd, chosen)
+        ys1, hn1, cn1, hs, acts, cs = fwd(True, None)
         # h.W_hh of every layer and h.W_ih of layers 1..L-1: 2 B T 4H H
-        # (2L - 1) FLOPs; the backward doubles it (dgates . W^T and dW)
+        # (2L - 1) FLOPs; the backward does it twice, dgates . W^T on the
+        # chain in FP32 and the dW reductions in 3xTF32
         flops = 2 * b * t * 4 * h * h * (2 * layers - 1)
         fwd_bound = bound(flops, nbytes(args, ys1, hn1, cn1, hs, acts, cs))
         fwd_nores_bound = bound(flops, nbytes(args, ys0, hn0, cn0))
-        bwd_bound = bound(2 * flops,
-                          nbytes(args[1:], ys1, hs, acts, cs, cots, grads))
-        del hs, acts, cs
+        bwd_bound = bound(flops,
+                          nbytes(args[1:], ys1, hs, acts, cs, cots, grads),
+                          tf32x3_flops=flops)
+        del ys1, hs, acts, cs
         lib_fwd_ms, lib_bwd_ms = cudnn_stacked_ms(args, cots)
+        main = times["chosen"]
+        lay = layout_record(K9, layers, b, chosen)
         check_case("lstm_stacked", fwd_err, grad_rel, B=b, T=t, L=layers,
-                   fwd_ms=fwd_ms, fwd_res_ms=fwd_res_ms,
-                   plain_fwd_ms=plain_fwd_ms, bwd_ms=bwd_ms,
+                   rows=chosen, clusters=tuple(lay["clusters"].values()),
+                   resident=lay["resident_clusters"], fwd_ms=main["fwd_ms"],
+                   fwd_res_ms=main["fwd_res_ms"], bwd_ms=main["bwd_ms"],
+                   rows16=times["rows16"], plain_fwd_ms=plain_fwd_ms,
                    plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
                    library_bwd_ms=lib_bwd_ms, fwd_bound_ms=fwd_bound[0],
                    bwd_bound_ms=bwd_bound[0])
         cases.append(dict(
-            B=b, T=t, L=layers, H=h, clusters=-(-b // 16),
-            resident_clusters=resident, fwd_max_abs_err=fwd_err,
+            B=b, T=t, L=layers, H=h, **lay, fwd_max_abs_err=fwd_err,
             grad_max_abs_err=grad_err, grad_max_rel_err=grad_rel,
-            fwd_ms=fwd_ms, fwd_res_ms=fwd_res_ms, plain_fwd_ms=plain_fwd_ms,
-            bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
-            library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms,
-            fwd_bound=fwd_bound, fwd_no_residual_bound=fwd_nores_bound,
-            bwd_bound=bwd_bound))
-        del args, leaves, grads, ys, ys0, ys1
+            rows16_fwd_max_abs_err=r16_fwd_err,
+            rows16_grad_max_rel_err=r16_grad_rel, **main,
+            rows16_ms=times["rows16"], plain_fwd_ms=plain_fwd_ms,
+            plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
+            library_bwd_ms=lib_bwd_ms, fwd_bound=fwd_bound,
+            fwd_no_residual_bound=fwd_nores_bound, bwd_bound=bwd_bound))
+        del args, leaves, grads, ys, ys0
     return cases
 
 
@@ -1552,7 +1657,7 @@ def gru_generation_spec():
 
 def simple_generation_phase(mods, dev, rng):
     """19. simple_lstm's generation at full width (random weights from
-    SEED): ``sliding_window_generate`` on 3 rollouts of 250 frames, batch
+    SEED): ``sliding_window_generate`` on 2 rollouts of 250 frames, batch
     1, one model call per frame over its 120-frame audio window: shape,
     finite, launches per rollout (K7 forward +4 per step), ms per
     rollout; a ``DW0_FRAMES`` rollout under ``MRGEN_FUSED_DW=0`` (K8
@@ -1582,7 +1687,7 @@ def simple_generation_phase(mods, dev, rng):
         return audio_windows(fbank, FRAMES, RATIO, SIMPLE_AUDIO_T), ctx
 
     model = new_model(dev)
-    rollouts = [inputs() for _ in range(3)]
+    rollouts = [inputs() for _ in range(2)]
     sliding_window_generate(model, rollouts[0][0][:8], rollouts[0][1])
     torch.cuda.synchronize()  # warm-up, not counted
 

@@ -321,8 +321,8 @@ template <int U>
 int gru_forward(const float* xw, const float* w_hh_t, const float* b_hh,
                 const float* h0, float* ys, float* hn, float* hh, int B,
                 int T, cudaStream_t stream) {
-  return launch_cluster(gru_fwd_kernel<U>, gru_fwd_smem<U>(), B, stream, xw,
-                        w_hh_t, b_hh, h0, ys, hn, hh, B, T);
+  return launch_cluster(gru_fwd_kernel<U>, gru_fwd_smem<U>(), B, BT, stream,
+                        xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T);
 }
 
 template <int U>
@@ -330,8 +330,9 @@ int gru_backward(const float* xw, const float* hh, const float* w_hh_t,
                  const float* h0, const float* ys, const float* dys,
                  const float* dhn, float* dxw, float* dhh, float* dh0, int B,
                  int T, cudaStream_t stream) {
-  return launch_cluster(gru_bwd_kernel<U>, gru_bwd_smem<U>(), B, stream, xw,
-                        hh, w_hh_t, h0, ys, dys, dhn, dxw, dhh, dh0, B, T);
+  return launch_cluster(gru_bwd_kernel<U>, gru_bwd_smem<U>(), B, BT, stream,
+                        xw, hh, w_hh_t, h0, ys, dys, dhn, dxw, dhh, dh0, B,
+                        T);
 }
 
 }  // namespace

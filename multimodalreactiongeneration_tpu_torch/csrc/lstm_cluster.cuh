@@ -2,10 +2,12 @@
 // the row-parallel add+LayerNorm, and the cluster LSTM recurrence.
 //
 // Used by csrc/mixer_stack.cu (the encoder stack, inference and training
-// forward) and csrc/lstm_layer.cu (one LSTM layer). The recurrence's
-// design is in mixer_stack.cu's source note: W_hh split over an 8-CTA
-// cluster in shared memory, h exchanged through distributed shared
-// memory, one cluster barrier per step, 16 batch rows per cluster.
+// forward), csrc/lstm_layer.cu (one LSTM layer) and
+// csrc/lstm_recurrence.cu. The recurrence's design is in mixer_stack.cu's
+// source note: W_hh split over an 8-CTA cluster in shared memory, h
+// exchanged through distributed shared memory, one cluster barrier per
+// step, R batch rows per cluster (a template parameter: 16 for the
+// encoder stack and K8; K7 picks 16, 24 or 32, lstm_layer.cu).
 //
 // Numerics: FP32 throughout (no tensor cores, so no TF32 rounding);
 // LayerNorm in the fast-variance form E[x^2] - mean^2, eps 1e-5; gate
@@ -127,9 +129,11 @@ __global__ void __launch_bounds__(256) add_ln_kernel(
 // LSTM recurrence over xw = x @ W_ih + b, W_hh split over a cluster
 // ---------------------------------------------------------------------
 constexpr int CL = 8;     // CTAs per cluster (W_hh column split)
-constexpr int BT = 16;    // batch rows per cluster
+constexpr int BT = 16;    // batch rows per cluster but for K7 and K9's choice
 constexpr int NT = 256;   // threads per CTA
 constexpr int MAX_H = 256;
+// a block's shared memory on sm_90 (227 KB)
+constexpr size_t SMEM_LIMIT = 232448;
 
 // H the recurrence kernels take: a CTA owns H/8 units, i.e. H/2 gate
 // columns, and the step's thread layout needs at least 64 of them
@@ -139,14 +143,20 @@ __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-size_t lstm_smem_bytes(int H) {
+// R batch rows per cluster (16, 24 or 32)
+size_t lstm_smem_bytes(int H, int R) {
   const int nc = H / 2;  // 4 gates x H/8 units
-  return sizeof(float) * ((size_t)H * nc + 2 * BT * H + BT * nc);
+  return sizeof(float) * ((size_t)H * nc + 2 * (size_t)R * H + (size_t)R * nc);
 }
 
 // acts (B, T, 4H) and cs (B, T, H) are the training residuals: the gate
 // activations i, f, g, o and the cell state of every step. Null skips
-// them (the inference forward).
+// them (the inference forward). R batch rows per cluster: the step's
+// product runs in 4 row groups of R/4 rows (64 threads each, one or two
+// gate columns a thread), and each thread owns up to R/8 (row, unit)
+// cells for the whole sequence. A step's xw loads are issued before its
+// product, which hides them (loading them a step ahead measured slower).
+template <int R>
 __global__ void __launch_bounds__(NT, 1) lstm_cluster_kernel(
     const float* __restrict__ xw,      // (B, T, 4H)
     const float* __restrict__ w_hh_t,  // (H, 4H)
@@ -158,17 +168,20 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_kernel(
     float* __restrict__ acts,          // (B, T, 4H) or null
     float* __restrict__ cs,            // (B, T, H) or null
     int B, int T, int H) {
+  constexpr int RG = R / 4;  // rows of a row group
+  constexpr int MC = R / 8;  // most cells a thread owns (H <= 256)
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int b0 = (blockIdx.x / CL) * BT;
+  const int b0 = (blockIdx.x / CL) * R;
   const int U = H / CL;   // hidden units owned by this CTA
   const int NC = 4 * U;   // gate columns owned by this CTA
   const int tid = threadIdx.x;
+  const size_t G = 4 * (size_t)H;
 
   extern __shared__ __align__(16) float smem[];
   float* Ws = smem;                  // [H][NC]
-  float* hbuf = Ws + H * NC;         // [2][BT][H]
-  float* gsm = hbuf + 2 * BT * H;    // [BT][NC]
+  float* hbuf = Ws + H * NC;         // [2][R][H]
+  float* gsm = hbuf + 2 * R * H;     // [R][NC]
 
   // local column lc = g*U + u  <->  global gate column g*H + rank*U + u
   for (int i = tid; i < H * NC; i += NT) {
@@ -176,60 +189,63 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_kernel(
     const int g = lc / U, u = lc % U;
     Ws[i] = w_hh_t[(size_t)k * 4 * H + g * H + rank * U + u];
   }
-  for (int i = tid; i < BT * H; i += NT) {
+  for (int i = tid; i < R * H; i += NT) {
     const int b = b0 + i / H;
     hbuf[i] = (b < B) ? h0[(size_t)b * H + i % H] : 0.f;
   }
-  // each thread owns up to two (row, unit) cells for the whole sequence
-  float creg[2] = {0.f, 0.f};
-  int own_r[2], own_u[2];
-  bool own_ok[2];
+  // own_in: the cell exists; own_ok: and its row is a batch row (rows
+  // past B run on zeros and are never stored)
+  float creg[MC];
+  int own_r[MC], own_u[MC];
+  bool own_in[MC], own_ok[MC];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
+  for (int j = 0; j < MC; ++j) {
     const int p = tid + NT * j;
     own_r[j] = p / U;
     own_u[j] = p % U;
-    own_ok[j] = p < BT * U && b0 + own_r[j] < B;
-    if (own_ok[j])
-      creg[j] = c0[(size_t)(b0 + own_r[j]) * H + rank * U + own_u[j]];
+    own_in[j] = p < R * U;
+    own_ok[j] = own_in[j] && b0 + own_r[j] < B;
+    creg[j] = own_ok[j]
+        ? c0[(size_t)(b0 + own_r[j]) * H + rank * U + own_u[j]] : 0.f;
   }
-  cluster.sync();
-
-  const int rg = tid / 64;  // rows rg*4 .. rg*4+3
-  const int cl = tid % 64;  // columns cl and cl+64
-  const bool col2 = cl + 64 < NC;
-  const size_t G = 4 * (size_t)H;
-
-  for (int t = 0; t < T; ++t) {
-    const float* hcur = hbuf + (t & 1) * BT * H;
-    const int nxt_off = ((t + 1) & 1) * BT * H;
-
-    float xg[2][4];
+  auto load_xw = [&](int t, float (&x)[MC][4]) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < MC; ++j) {
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        xg[j][g] = own_ok[j]
+        x[j][g] = own_ok[j]
             ? xw[((size_t)(b0 + own_r[j]) * T + t) * G + g * H + rank * U +
                  own_u[j]]
             : 0.f;
       }
     }
+  };
+  cluster.sync();
 
-    float acc[4][2];
+  const int rg = tid / 64;  // rows rg*RG .. rg*RG+RG-1
+  const int cl = tid % 64;  // columns cl and cl+64
+  const bool col2 = cl + 64 < NC;
+
+  for (int t = 0; t < T; ++t) {
+    const float* hcur = hbuf + (t & 1) * R * H;
+    const int nxt_off = ((t + 1) & 1) * R * H;
+    float xg[MC][4];
+    load_xw(t, xg);
+
+    float acc[RG][2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.f;
+    for (int i = 0; i < RG; ++i) acc[i][0] = acc[i][1] = 0.f;
     for (int k = 0; k < H; k += 4) {
-      float4 hv[4];
+      float4 hv[RG];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        hv[i] = *reinterpret_cast<const float4*>(&hcur[(rg * 4 + i) * H + k]);
+      for (int i = 0; i < RG; ++i)
+        hv[i] = *reinterpret_cast<const float4*>(&hcur[(rg * RG + i) * H + k]);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const float w0 = Ws[(k + kk) * NC + cl];
         const float w1 = col2 ? Ws[(k + kk) * NC + cl + 64] : 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RG; ++i) {
           const float hk = kk == 0 ? hv[i].x
                          : kk == 1 ? hv[i].y
                          : kk == 2 ? hv[i].z
@@ -240,16 +256,15 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_kernel(
       }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      gsm[(rg * 4 + i) * NC + cl] = acc[i][0];
-      if (col2) gsm[(rg * 4 + i) * NC + cl + 64] = acc[i][1];
+    for (int i = 0; i < RG; ++i) {
+      gsm[(rg * RG + i) * NC + cl] = acc[i][0];
+      if (col2) gsm[(rg * RG + i) * NC + cl + 64] = acc[i][1];
     }
     __syncthreads();
 
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int p = tid + NT * j;
-      if (p >= BT * U) continue;
+    for (int j = 0; j < MC; ++j) {
+      if (!own_in[j]) continue;
       const int r = own_r[j], u = own_u[j];
       const float* gr = gsm + r * NC;
       const float gi = sigmoidf_(gr[u] + xg[j][0]);
@@ -279,9 +294,9 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_kernel(
     cluster.sync();
   }
 
-  const float* hlast = hbuf + (T & 1) * BT * H;
+  const float* hlast = hbuf + (T & 1) * R * H;
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
+  for (int j = 0; j < MC; ++j) {
     if (!own_ok[j]) continue;
     const size_t o = (size_t)(b0 + own_r[j]) * H + rank * U + own_u[j];
     hn[o] = hlast[own_r[j] * H + rank * U + own_u[j]];
@@ -291,28 +306,51 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_kernel(
 
 int check_launch() { return (int)cudaGetLastError(); }
 
-// launch `kernel` on ceil(B / 16) clusters of 8 CTAs
-template <typename Kernel, typename... Args>
-int launch_cluster(Kernel kernel, size_t smem, int B, cudaStream_t stream,
-                   Args... args) {
-  int err = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err) return err;
+cudaLaunchConfig_t cluster_config(unsigned clusters, size_t smem,
+                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CL * ((B + BT - 1) / BT));
+  cfg.gridDim = dim3(CL * clusters);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = CL;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  return cfg;
+}
+
+// launch `kernel` on ceil(B / rows) clusters of 8 CTAs
+template <typename Kernel, typename... Args>
+int launch_cluster(Kernel kernel, size_t smem, int B, int rows,
+                   cudaStream_t stream, Args... args) {
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg =
+      cluster_config((unsigned)((B + rows - 1) / rows), smem, attr);
+  cfg.stream = stream;
   err = (int)cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err) return err;
   return check_launch();
+}
+
+// How many clusters of `kernel` the card holds at once (the occupancy
+// query); a launch of more runs in waves. -1 on an error.
+template <typename Kernel>
+int resident_clusters(Kernel kernel, size_t smem) {
+  if (!kernel || smem > SMEM_LIMIT) return -1;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem))
+    return -1;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(1, smem, attr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg)) return -1;
+  return n;
 }
 
 int gemm(const float* A, const float* W, const float* bias, const float* D,
@@ -343,9 +381,9 @@ int lstm_forward(const float* x, int din, const float* w_ih_t,
   int err = gemm(x, w_ih_t, b, nullptr, xw, B * T, 4 * H, din, false,
                  stream);
   if (err) return err;
-  return launch_cluster(lstm_cluster_kernel, lstm_smem_bytes(H), B, stream,
-                        (const float*)xw, w_hh_t, h0, c0, ys, hn, cn, acts,
-                        cs, B, T, H);
+  return launch_cluster(lstm_cluster_kernel<BT>, lstm_smem_bytes(H, BT), B,
+                        BT, stream, (const float*)xw, w_hh_t, h0, c0, ys, hn,
+                        cn, acts, cs, B, T, H);
 }
 
 }  // namespace

@@ -2,8 +2,9 @@
 // LSTM recurrence, split-K reductions over all B*T rows (A^T B products
 // and column sums), and the row-parallel LayerNorm backward.
 //
-// Used by csrc/mixer_stack.cu (the encoder-stack backward) and
-// csrc/lstm_layer.cu (one LSTM layer's backward).
+// Used by csrc/mixer_stack.cu (the encoder-stack backward),
+// csrc/lstm_recurrence.cu and csrc/lstm_layer.cu (whose weight gradients
+// take the tensor-core reductions of tc_gemm.cuh instead of these).
 //
 // The reverse recurrence. The forward stored the gate activations
 // A = [i, f, g, o] and the cell states c of every step, so a reverse step
@@ -11,8 +12,8 @@
 //   dh  = dy_t + dh_carry,      dc = dh * o * (1 - tanh^2 c_t) + dc_carry
 //   dgates = [dc*g*i(1-i), dc*c_{t-1}*f(1-f), dc*i*(1-g^2), dh*tanh(c_t)*o(1-o)]
 //   dc_carry = dc * f,          dh_carry = dgates @ W_hh      (W_hh = w_hh_t^T)
-// with c_{-1} = c0. The chain is dh_carry: a (16 x 4H) @ (4H x H) product
-// per step. As in the forward, a cluster of 8 CTAs splits W_hh: CTA r
+// with c_{-1} = c0. The chain is dh_carry: an (R x 4H) @ (4H x H) product
+// per step, R the batch rows per cluster. As in the forward, a cluster of 8 CTAs splits W_hh: CTA r
 // keeps the 4H/8 gate columns of hidden units [r*H/8, (r+1)*H/8), now
 // transposed (column-major over k, so thread k reads without bank
 // conflicts), and computes those columns' dgates. Its product with its
@@ -21,6 +22,8 @@
 // into q's shared memory (slot r of 8) and after one cluster barrier sums
 // the 8 slots. The slots are double-buffered by step parity, so the
 // barrier of step t also orders step t-1's writes after step t's reads.
+// A step's dy, gate activations and cell states come from device memory
+// a step ahead (StepIn), so their latency is off the chain.
 // dgates go to device memory (B, T, 4H); the weight gradients and dx are
 // then parallel products over all rows (below).
 
@@ -37,13 +40,56 @@ constexpr size_t PART_FLOATS = (size_t)1 << 22;   // A^T B partial tiles
 constexpr size_t CPART_FLOATS = (size_t)1 << 18;  // column-sum partials
 constexpr int SPLIT_TARGET_BLOCKS = 1024;
 
-size_t lstm_bwd_smem_bytes(int H) {
+// R batch rows per cluster (16, 24 or 32)
+size_t lstm_bwd_smem_bytes(int H, int R) {
   const int nc = H / 2;
   const int u = H / CL;
   return sizeof(float) *
-         ((size_t)nc * H + (size_t)nc * BT + 2 * (size_t)CL * BT * u);
+         ((size_t)nc * H + (size_t)nc * R + 2 * (size_t)CL * R * u);
 }
 
+// What a reverse step of one (row, unit) cell reads besides the chain:
+// the cotangent of its h, its gate activations, its cell state and the
+// one before (dy 0 without dys). Loaded during the step before, off the
+// chain; nothing is loaded for a step outside [0, T).
+struct StepIn {
+  float dy, a[4], c, cp;
+};
+
+__device__ __forceinline__ void load_step_in(
+    StepIn& in, bool ok, const float* __restrict__ dys,
+    const float* __restrict__ acts, const float* __restrict__ cs,
+    const float* __restrict__ c0, int b, int t, int T, int H, int col) {
+  if (!ok || t < 0 || t >= T) return;
+  const size_t row = (size_t)b * T + t;
+  const float* a = acts + row * 4 * H + col;
+  in.dy = dys ? dys[row * H + col] : 0.f;
+  in.a[0] = a[0];
+  in.a[1] = a[H];
+  in.a[2] = a[2 * H];
+  in.a[3] = a[3 * H];
+  in.c = cs[row * H + col];
+  in.cp = t > 0 ? cs[(row - 1) * H + col] : c0[(size_t)b * H + col];
+}
+
+// One reverse cell step from dh (the carry and dy summed): returns the
+// four dgates and updates the cell-state carry dcreg.
+__device__ __forceinline__ void cell_bwd(const StepIn& in, float dh,
+                                         float& dcreg, float (&d)[4]) {
+  const float ai = in.a[0], af = in.a[1], ag = in.a[2], ao = in.a[3];
+  const float tc = tanhf(in.c);
+  const float dc = dh * ao * (1.f - tc * tc) + dcreg;
+  d[0] = dc * ag * ai * (1.f - ai);
+  d[1] = dc * in.cp * af * (1.f - af);
+  d[2] = dc * ai * (1.f - ag * ag);
+  d[3] = dh * tc * ao * (1.f - ao);
+  dcreg = dc * af;
+}
+
+// R batch rows per cluster; each thread owns up to R/8 (row, unit) cells
+// (H <= 256), and threads k < H compute the partial dh_carry of unit k
+// for all R rows.
+template <int R>
 __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
     const float* __restrict__ acts,    // (B, T, 4H) i, f, g, o
     const float* __restrict__ cs,      // (B, T, H) cell states
@@ -56,9 +102,10 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
     float* __restrict__ dh0,           // (B, H)
     float* __restrict__ dc0,           // (B, H)
     int B, int T, int H) {
+  constexpr int MC = R / 8;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int b0 = (blockIdx.x / CL) * BT;
+  const int b0 = (blockIdx.x / CL) * R;
   const int U = H / CL;
   const int NC = 4 * U;
   const int tid = threadIdx.x;
@@ -66,79 +113,75 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
 
   extern __shared__ __align__(16) float smem[];
   float* WsT = smem;              // [NC][H]: WsT[lc][k] = W_hh^T[k][col(lc)]
-  float* dg = WsT + NC * H;       // [NC][BT] this step's dgates slice
-  float* red = dg + NC * BT;      // [2][CL][BT][U] partial dh_carry slots
-  const int slot = BT * U;
+  float* dg = WsT + NC * H;       // [NC][R] this step's dgates slice
+  float* red = dg + NC * R;       // [2][CL][R][U] partial dh_carry slots
+  const int slot = R * U;
 
   for (int i = tid; i < H * NC; i += NT) {
     const int k = i / NC, lc = i % NC;
     const int g = lc / U, u = lc % U;
     WsT[lc * H + k] = w_hh_t[(size_t)k * G + g * H + rank * U + u];
   }
-  float dcreg[2] = {0.f, 0.f};
-  int own_r[2], own_u[2];
-  bool own_ok[2];
+  float dcreg[MC];
+  int own_r[MC], own_u[MC];
+  bool own_in[MC], own_ok[MC];
+  StepIn cur[MC], nxt[MC];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
+  for (int j = 0; j < MC; ++j) {
     const int p = tid + NT * j;
     own_r[j] = p / U;
     own_u[j] = p % U;
-    own_ok[j] = p < BT * U && b0 + own_r[j] < B;
-    if (own_ok[j])
-      dcreg[j] = dcn[(size_t)(b0 + own_r[j]) * H + rank * U + own_u[j]];
+    own_in[j] = p < R * U;
+    own_ok[j] = own_in[j] && b0 + own_r[j] < B;
+    dcreg[j] = own_ok[j]
+        ? dcn[(size_t)(b0 + own_r[j]) * H + rank * U + own_u[j]] : 0.f;
+    load_step_in(cur[j], own_ok[j], dys, acts, cs, c0, b0 + own_r[j], T - 1,
+                 T, H, rank * U + own_u[j]);
   }
   cluster.sync();  // every CTA of the cluster runs before remote writes
 
   for (int t = T - 1; t >= 0; --t) {
     const float* rd = red + ((t + 1) & 1) * CL * slot;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int p = tid + NT * j;
-      if (p >= BT * U) continue;
+    for (int j = 0; j < MC; ++j)
+      load_step_in(nxt[j], own_ok[j], dys, acts, cs, c0, b0 + own_r[j],
+                   t - 1, T, H, rank * U + own_u[j]);
+#pragma unroll
+    for (int j = 0; j < MC; ++j) {
+      if (!own_in[j]) continue;
       const int r = own_r[j], u = own_u[j];
       float d[4] = {0.f, 0.f, 0.f, 0.f};
       if (own_ok[j]) {
         const int b = b0 + r;
         const int col = rank * U + u;
-        const size_t row = (size_t)b * T + t;
-        float dh = dys[row * H + col];
+        float dh = cur[j].dy;
         if (t == T - 1) {
           dh += dhn[(size_t)b * H + col];
         } else {
 #pragma unroll
           for (int s = 0; s < CL; ++s) dh += rd[s * slot + r * U + u];
         }
-        const float* a = acts + row * G + col;
-        const float ai = a[0], af = a[H], ag = a[2 * H], ao = a[3 * H];
-        const float c = cs[row * H + col];
-        const float cp = t > 0 ? cs[(row - 1) * H + col] : c0[(size_t)b * H + col];
-        const float tc = tanhf(c);
-        const float dc = dh * ao * (1.f - tc * tc) + dcreg[j];
-        d[0] = dc * ag * ai * (1.f - ai);
-        d[1] = dc * cp * af * (1.f - af);
-        d[2] = dc * ai * (1.f - ag * ag);
-        d[3] = dh * tc * ao * (1.f - ao);
-        dcreg[j] = dc * af;
-        float* o = dgates + row * G + col;
+        cell_bwd(cur[j], dh, dcreg[j], d);
+        float* o = dgates + ((size_t)b * T + t) * G + col;
         o[0] = d[0];
         o[H] = d[1];
         o[2 * H] = d[2];
         o[3 * H] = d[3];
       }
 #pragma unroll
-      for (int g = 0; g < 4; ++g) dg[(g * U + u) * BT + r] = d[g];
+      for (int g = 0; g < 4; ++g) dg[(g * U + u) * R + r] = d[g];
     }
     __syncthreads();
 
     if (tid < H) {  // thread k: partial dh_carry[:, k] over this CTA's columns
-      float acc[BT];
+      float acc[R];
 #pragma unroll
-      for (int r = 0; r < BT; ++r) acc[r] = 0.f;
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
       for (int lc = 0; lc < NC; ++lc) {
         const float w = WsT[lc * H + tid];
-        const float4* d4 = reinterpret_cast<const float4*>(dg + lc * BT);
+        const float4* d4 = reinterpret_cast<const float4*>(dg + lc * R);
 #pragma unroll
-        for (int q = 0; q < BT / 4; ++q) {
+        for (int q = 0; q < R / 4; ++q) {
           const float4 v = d4[q];
           acc[4 * q] = fmaf(v.x, w, acc[4 * q]);
           acc[4 * q + 1] = fmaf(v.y, w, acc[4 * q + 1]);
@@ -149,13 +192,15 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
       float* dst = cluster.map_shared_rank(red, tid / U) +
                    ((t & 1) * CL + rank) * slot + tid % U;
 #pragma unroll
-      for (int r = 0; r < BT; ++r) dst[r * U] = acc[r];
+      for (int r = 0; r < R; ++r) dst[r * U] = acc[r];
     }
     cluster.sync();
+#pragma unroll
+    for (int j = 0; j < MC; ++j) cur[j] = nxt[j];
   }
 
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
+  for (int j = 0; j < MC; ++j) {
     if (!own_ok[j]) continue;
     const int r = own_r[j], u = own_u[j];
     float dh = 0.f;
@@ -390,9 +435,10 @@ int lstm_backward(const float* x, int din, const float* w_ih_t,
                   float* part, float* cpart, int B, int T, int H,
                   cudaStream_t stream) {
   const int rows = B * T;
-  int err = launch_cluster(lstm_cluster_bwd_kernel, lstm_bwd_smem_bytes(H),
-                           B, stream, acts, cs, c0, dys, w_hh_t, dhn, dcn,
-                           dgates, dh0, dc0, B, T, H);
+  int err = launch_cluster(lstm_cluster_bwd_kernel<BT>,
+                           lstm_bwd_smem_bytes(H, BT), B, BT, stream, acts,
+                           cs, c0, dys, w_hh_t, dhn, dcn, dgates, dh0, dc0, B,
+                           T, H);
   if (err) return err;
   if ((err = reduce_rows_tn(x, nullptr, 0, dgates, dwih, part, rows, din,
                             4 * H, stream)))

@@ -50,9 +50,9 @@ int lstm_recurrence_forward_f32(const float* xw, const float* w_hh_t,
                                 float* hn, float* cn, float* acts, float* cs,
                                 int B, int T, int H, void* stream_ptr) {
   if (!hidden_ok(H) || B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
-  return launch_cluster(lstm_cluster_kernel, lstm_smem_bytes(H), B,
-                        (cudaStream_t)stream_ptr, xw, w_hh_t, h0, c0, ys, hn,
-                        cn, acts, cs, B, T, H);
+  return launch_cluster(lstm_cluster_kernel<BT>, lstm_smem_bytes(H, BT), B,
+                        BT, (cudaStream_t)stream_ptr, xw, w_hh_t, h0, c0, ys,
+                        hn, cn, acts, cs, B, T, H);
 }
 
 // floats of backward scratch: the split-K partials of dW_hh
@@ -72,9 +72,10 @@ int lstm_recurrence_backward_f32(const float* w_hh_t, const float* h0,
                                  int T, int H, void* stream_ptr) {
   if (!hidden_ok(H) || B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int err = launch_cluster(lstm_cluster_bwd_kernel, lstm_bwd_smem_bytes(H), B,
-                           stream, acts, cs, c0, dys, w_hh_t, dhn, dcn, dxw,
-                           dh0, dc0, B, T, H);
+  int err = launch_cluster(lstm_cluster_bwd_kernel<BT>,
+                           lstm_bwd_smem_bytes(H, BT), B, BT, stream, acts,
+                           cs, c0, dys, w_hh_t, dhn, dcn, dxw, dh0, dc0, B, T,
+                           H);
   if (err) return err;
   return reduce_rows_tn(ys, h0, T, dxw, dwhh, ws, B * T, H, 4 * H, stream);
 }

@@ -17,19 +17,30 @@
 // layer's final state is its state after the last slot.
 //
 // Design. It extends the cluster recurrence of lstm_cluster.cuh: one
-// persistent 8-CTA cluster per 16 batch rows (B256: 16 clusters, 128
-// CTAs, one wave on the 132 SMs; a ragged last cluster is masked). At
-// H = 128 every recurrent weight of the stack fits the cluster's shared
-// memory: CTA r keeps the 64 gate columns of hidden units [16r, 16r+16)
-// of W_hh_0..W_hh_{L-1} and W_ih_1..W_ih_{L-1} (L = 2: 96 KB, L = 3:
-// 160 KB per CTA). Per slot each CTA computes its columns' gates of all
-// layers from the previous slot's h of all layers, updates its cells
-// (cell state in registers), and broadcasts the new h of every layer to
-// the 8 CTAs through distributed shared memory: one cluster barrier per
-// slot. Under grad the forward writes K7's residual layout per layer,
-// acts (L, B, T, 4H) = [i, f, g, o] and cs (L, B, T, H), plus the h
+// persistent 8-CTA cluster per R batch rows, R = 16, 24 or 32 (a ragged
+// last cluster is masked). At H = 128 every recurrent weight of the stack
+// fits the cluster's shared memory: CTA r keeps the 64 gate columns of
+// hidden units [16r, 16r+16) of W_hh_0..W_hh_{L-1} and W_ih_1..W_ih_{L-1}
+// (L = 2: 96 KB, L = 3: 160 KB per CTA). Per slot each CTA computes its
+// columns' gates of all layers from the previous slot's h of all layers
+// (4 row groups of R/4 rows, one gate column a thread), updates its cells
+// (cell state in registers; a thread owns unit tid % 16 of rows tid / 16
+// and tid / 16 + 16), and broadcasts the new h of every layer to the 8
+// CTAs through distributed shared memory: one cluster barrier per slot.
+// Under grad the forward writes K7's residual layout per layer, acts
+// (L, B, T, 4H) = [i, f, g, o] and cs (L, B, T, H), plus the h
 // trajectories of the lower layers (L-1, B, T, H); at B256 x T1120 x L2
 // that is 1.76 GB (the JAX A/M layout would be ~2.7 GB).
+//
+// Rows per cluster. A CTA needs 136 / 156 / 176 KB at L = 2 and R = 16 /
+// 24 / 32, forward and backward alike, so an SM holds one, and an H100
+// holds 15 such clusters at once (the occupancy query,
+// lstm_stacked_resident_clusters). At R 16, lstm_with_sampling's batch of
+// 256 needs 16 clusters: the 16th ran its whole chain in a second wave,
+// doubling the kernel's time. The wrapper (ops/lstm_stacked.py) picks the
+// smallest R whose clusters the card holds in one wave: R 24 at B256 (11
+// clusters). L = 3 takes 220 KB at R 16 and does not fit more rows: it
+// keeps R 16, in waves beyond 240 rows.
 //
 // The backward is the reverse wavefront. At reverse slot s, layer l
 // (time t = s - l) takes
@@ -41,62 +52,67 @@
 // bracket over all H units, and writes each CTA q's units into q's
 // shared memory (slot r of 8); after one cluster barrier every CTA sums
 // its 8 slots (double-buffered by slot parity, as lstm_cluster_bwd.cuh).
-// The sum read by layer l one slot before its first step is dh0_l. The
-// dgates of every layer go to device memory (L, B, T, 4H); layer 0's are
-// dxw0. dW_hh, dW_ih and db are deterministic split-K reductions over
-// them (lstm_cluster_bwd.cuh): dW_hh_l = h_l(t-1)^T dgates_l,
-// dW_ih_l = h_{l-1}(t)^T dgates_l, db_l = colsum(dgates_l).
+// A slot's dy, gate activations and cell states are loaded during the
+// slot before. The sum read by layer l one slot before its first step is
+// dh0_l. The dgates of every layer go to device memory (L, B, T, 4H);
+// layer 0's are dxw0. dW_hh_l = h_l(t-1)^T dgates_l and dW_ih_l =
+// h_{l-1}(t)^T dgates_l are deterministic split-K reductions over all
+// B*T rows on the tensor cores in 3xTF32 (tc_gemm.cuh: FP32 accuracy, the
+// sums cancel heavily), db_l = colsum(dgates_l) in FP32.
 //
 // What bounds it. The chain of T + L - 1 dependent slots, each a
-// cluster barrier plus a (16 x 128) x (128 x 64) product per matrix per
-// CTA: about the per-step latency of K7 (7.9 us at H256), T + 1 times.
-// Its FLOP bound at B256 x T1120 x H128 x L2 is 2 B T 4H H (2L-1) FLOPs
-// at 67 TFLOP/s = 1.7 ms forward (3.4 ms backward); this FP32 SIMT
-// kernel is right and simple first, not fast.
+// cluster barrier plus an (R x 128) x (128 x 64) FP32 product per matrix
+// per CTA on the CUDA cores. Its FLOP bound at B256 x T1120 x H128 x L2
+// is 2 B T 4H H (2L-1) FLOPs at 67 TFLOP/s = 1.7 ms forward (3.4 ms
+// backward); the per-slot products on the tensor cores are later work.
 //
 // Shapes: H = 128, L = 2 or 3, any B, any T >= 1. FP32 throughout.
 
-#include "lstm_cluster_bwd.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
 constexpr int SH = 128;         // the hidden size the kernels take
 constexpr int SU = SH / CL;     // hidden units per CTA: 16
 constexpr int SNC = 4 * SU;     // gate columns per CTA and matrix: 64
-constexpr int MAX_L = 3;        // layers whose weights fit one cluster
 
-inline bool stacked_ok(int L) { return L >= 2 && L <= MAX_L; }
-
-// shared memory: the 2L-1 weight slices, then the kernel's buffers
-size_t stacked_fwd_smem_bytes(int L) {
+// shared memory at R rows per cluster: the 2L-1 weight slices, then the
+// kernel's buffers
+size_t stacked_fwd_smem_bytes(int L, int R) {
   return sizeof(float) * ((size_t)(2 * L - 1) * SH * SNC +
-                          2 * (size_t)L * BT * SH + (size_t)L * BT * SNC);
+                          2 * (size_t)L * R * SH + (size_t)L * R * SNC);
 }
 
-size_t stacked_bwd_smem_bytes(int L) {
+size_t stacked_bwd_smem_bytes(int L, int R) {
   return sizeof(float) * ((size_t)(2 * L - 1) * SNC * SH +
-                          (size_t)L * SNC * BT + 2 * (size_t)L * CL * BT * SU);
+                          (size_t)L * SNC * R + 2 * (size_t)L * CL * R * SU);
+}
+
+// cells a thread owns per layer at R rows: R x 16 units over 256 threads
+__host__ __device__ constexpr int stacked_cells(int R) {
+  return (R * SU + NT - 1) / NT;
 }
 
 // a0 += h[rows] . w0[:, cl]; with UP also a1 += h[rows] . w1[:, cl]
-// (w0 = W_hh of layer l, w1 = W_ih of layer l+1: both read h_l)
-template <bool UP>
+// (w0 = W_hh of layer l, w1 = W_ih of layer l+1: both read h_l); rows
+// rg*RG .. rg*RG+RG-1
+template <bool UP, int RG>
 __device__ __forceinline__ void mac_rows(const float* __restrict__ h,
                                          const float* __restrict__ w0,
                                          const float* __restrict__ w1,
-                                         int rg, int cl, float (&a0)[4],
-                                         float (&a1)[4]) {
+                                         int rg, int cl, float (&a0)[RG],
+                                         float (&a1)[RG]) {
   for (int k = 0; k < SH; k += 4) {
-    float4 hv[4];
+    float4 hv[RG];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      hv[i] = *reinterpret_cast<const float4*>(&h[(rg * 4 + i) * SH + k]);
+    for (int i = 0; i < RG; ++i)
+      hv[i] = *reinterpret_cast<const float4*>(&h[(rg * RG + i) * SH + k]);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const float x0 = w0[(k + kk) * SNC + cl];
       const float x1 = UP ? w1[(k + kk) * SNC + cl] : 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RG; ++i) {
         const float hk = kk == 0 ? hv[i].x
                        : kk == 1 ? hv[i].y
                        : kk == 2 ? hv[i].z
@@ -108,7 +124,9 @@ __device__ __forceinline__ void mac_rows(const float* __restrict__ h,
   }
 }
 
-// hs, acts and cs null: no training residuals (the inference forward)
+// R rows per cluster, L layers. hs, acts and cs null: no training
+// residuals (the inference forward)
+template <int R, int L>
 __global__ void __launch_bounds__(NT, 1) lstm_stacked_fwd_kernel(
     const float* __restrict__ xw0,     // (B, T, 4H)
     const float* __restrict__ w_ih_t,  // (L-1, H, 4H)
@@ -122,18 +140,19 @@ __global__ void __launch_bounds__(NT, 1) lstm_stacked_fwd_kernel(
     float* __restrict__ hs,            // (L-1, B, T, H) or null
     float* __restrict__ acts,          // (L, B, T, 4H) or null
     float* __restrict__ cs,            // (L, B, T, H) or null
-    int B, int T, int L) {
+    int B, int T) {
   constexpr int H = SH, U = SU, NC = SNC;
+  constexpr int RG = R / 4, MC = stacked_cells(R);
   constexpr size_t G = 4 * SH;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int b0 = (blockIdx.x / CL) * BT;
+  const int b0 = (blockIdx.x / CL) * R;
   const int tid = threadIdx.x;
 
   extern __shared__ __align__(16) float smem[];
   float* Ws = smem;                         // [2L-1][H][NC]
-  float* hbuf = Ws + (2 * L - 1) * H * NC;  // [2][L][BT][H]
-  float* gsm = hbuf + 2 * L * BT * H;       // [L][BT][NC]
+  float* hbuf = Ws + (2 * L - 1) * H * NC;  // [2][L][R][H]
+  float* gsm = hbuf + 2 * L * R * H;        // [L][R][NC]
 
   // matrix m < L is W_hh_m, m >= L is W_ih_{m-L+1}; local column
   // lc = g*U + u  <->  global gate column g*H + rank*U + u
@@ -143,124 +162,141 @@ __global__ void __launch_bounds__(NT, 1) lstm_stacked_fwd_kernel(
                            : w_ih_t + (size_t)(m - L) * H * G;
     Ws[i] = w[(size_t)k * G + (lc / U) * H + rank * U + lc % U];
   }
-  for (int i = tid; i < L * BT * H; i += NT) {
-    const int l = i / (BT * H), b = b0 + (i / H) % BT;
+  for (int i = tid; i < L * R * H; i += NT) {
+    const int l = i / (R * H), b = b0 + (i / H) % R;
     hbuf[i] = b < B ? h0[((size_t)l * B + b) * H + i % H] : 0.f;
   }
-  // each thread owns one (row, unit) cell in every layer
-  const int own_r = tid / U, own_u = tid % U;
+  // each thread owns the cells of unit own_u in rows own_r[j] of every
+  // layer; own_in: the row is one of the cluster's R, row_ok: and a batch
+  // row (rows past B run on zeros and are never stored)
+  const int own_u = tid % U;
   const int col = rank * U + own_u;
-  const int b = b0 + own_r;
-  const bool row_ok = b < B;
-  float creg[MAX_L], bias[MAX_L][4];
+  int own_r[MC];
+  bool own_in[MC], row_ok[MC];
+  float creg[L][MC], bias[L][4];
 #pragma unroll
-  for (int l = 0; l < MAX_L; ++l) {
-    creg[l] = (l < L && row_ok) ? c0[((size_t)l * B + b) * H + col] : 0.f;
+  for (int j = 0; j < MC; ++j) {
+    own_r[j] = tid / U + (NT / U) * j;
+    own_in[j] = own_r[j] < R;
+    row_ok[j] = own_in[j] && b0 + own_r[j] < B;
+#pragma unroll
+    for (int l = 0; l < L; ++l)
+      creg[l][j] =
+          row_ok[j] ? c0[((size_t)l * B + b0 + own_r[j]) * H + col] : 0.f;
+  }
+#pragma unroll
+  for (int l = 0; l < L; ++l)
 #pragma unroll
     for (int g = 0; g < 4; ++g)
-      bias[l][g] = (l > 0 && l < L) ? b_rest[(l - 1) * G + g * H + col] : 0.f;
-  }
+      bias[l][g] = l > 0 ? b_rest[(l - 1) * G + g * H + col] : 0.f;
+  // layer 0's input at slot s (t = s), loaded before the slot's product
+  auto load_xw = [&](int s, float (&x)[MC][4]) {
+#pragma unroll
+    for (int j = 0; j < MC; ++j)
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        x[j][g] = row_ok[j] && s < T
+            ? xw0[((size_t)(b0 + own_r[j]) * T + s) * G + g * H + col]
+            : 0.f;
+  };
   cluster.sync();
 
-  const int rg = tid / 64;  // rows rg*4 .. rg*4+3
+  const int rg = tid / 64;  // rows rg*RG .. rg*RG+RG-1
   const int cl = tid % 64;  // local gate column
   const int S = T + L - 1;
   for (int s = 0; s < S; ++s) {
-    const float* hcur = hbuf + (s & 1) * L * BT * H;
-    const int nxt = ((s + 1) & 1) * L * BT * H;
+    const float* hcur = hbuf + (s & 1) * L * R * H;
+    const int nxt = ((s + 1) & 1) * L * R * H;
+    float xg[MC][4];
+    load_xw(s, xg);
 
-    float xg[4] = {0.f, 0.f, 0.f, 0.f};  // layer 0's input, t = s
-    if (row_ok && s < T) {
+    float acc[L][RG];
 #pragma unroll
-      for (int g = 0; g < 4; ++g)
-        xg[g] = xw0[((size_t)b * T + s) * G + g * H + col];
-    }
-
-    float acc[MAX_L + 1][4];
+    for (int l = 0; l < L; ++l)
 #pragma unroll
-    for (int l = 0; l <= MAX_L; ++l)
+      for (int i = 0; i < RG; ++i) acc[l][i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[l][i] = 0.f;
-#pragma unroll
-    for (int l = 0; l < MAX_L; ++l) {
-      if (l >= L) break;
-      const float* hl = hcur + l * BT * H;
+    for (int l = 0; l < L; ++l) {
+      const float* hl = hcur + l * R * H;
       const float* whh = Ws + l * H * NC;
       if (l + 1 < L)
-        mac_rows<true>(hl, whh, Ws + (L + l) * H * NC, rg, cl, acc[l],
-                       acc[l + 1]);
+        mac_rows<true, RG>(hl, whh, Ws + (L + l) * H * NC, rg, cl, acc[l],
+                           acc[l + 1 < L ? l + 1 : l]);
       else
-        mac_rows<false>(hl, whh, whh, rg, cl, acc[l], acc[l]);
+        mac_rows<false, RG>(hl, whh, whh, rg, cl, acc[l], acc[l]);
     }
 #pragma unroll
-    for (int l = 0; l < MAX_L; ++l) {
-      if (l >= L) break;
+    for (int l = 0; l < L; ++l)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        gsm[(l * BT + rg * 4 + i) * NC + cl] = acc[l][i];
-    }
+      for (int i = 0; i < RG; ++i)
+        gsm[(l * R + rg * RG + i) * NC + cl] = acc[l][i];
     __syncthreads();
 
 #pragma unroll
-    for (int l = 0; l < MAX_L; ++l) {
-      if (l >= L) break;
+    for (int l = 0; l < L; ++l) {
       const int t = s - l;
       const bool valid = t >= 0 && t < T;
-      const float* gr = gsm + (l * BT + own_r) * NC;
-      float in[4];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) in[g] = l == 0 ? xg[g] : bias[l][g];
-      const float gi = sigmoidf_(gr[own_u] + in[0]);
-      const float gf = sigmoidf_(gr[U + own_u] + in[1]);
-      const float gg = tanhf(gr[2 * U + own_u] + in[2]);
-      const float go = sigmoidf_(gr[3 * U + own_u] + in[3]);
-      const float c = gf * creg[l] + gi * gg;
-      const float h = go * tanhf(c);
-      const int cell = (l * BT + own_r) * H + col;
-      const float h_new = valid ? h : hcur[cell];
-      if (valid) creg[l] = c;
+      for (int j = 0; j < MC; ++j) {
+        if (!own_in[j]) continue;
+        const float* gr = gsm + (l * R + own_r[j]) * NC;
+        float in[4];
 #pragma unroll
-      for (int q = 0; q < CL; ++q)
-        cluster.map_shared_rank(hbuf, q)[nxt + cell] = h_new;
-      if (row_ok && valid) {
-        const size_t row = (size_t)b * T + t;
-        const size_t lrow = (size_t)l * B * T + row;
-        if (l == L - 1) ys[row * H + col] = h;
-        if (acts) {
-          float* a = acts + lrow * G + col;
-          a[0] = gi;
-          a[H] = gf;
-          a[2 * H] = gg;
-          a[3 * H] = go;
-          cs[lrow * H + col] = c;
-          if (l < L - 1) hs[lrow * H + col] = h;
+        for (int g = 0; g < 4; ++g) in[g] = l == 0 ? xg[j][g] : bias[l][g];
+        const float gi = sigmoidf_(gr[own_u] + in[0]);
+        const float gf = sigmoidf_(gr[U + own_u] + in[1]);
+        const float gg = tanhf(gr[2 * U + own_u] + in[2]);
+        const float go = sigmoidf_(gr[3 * U + own_u] + in[3]);
+        const float c = gf * creg[l][j] + gi * gg;
+        const float h = go * tanhf(c);
+        const int cell = (l * R + own_r[j]) * H + col;
+        const float h_new = valid ? h : hcur[cell];
+        if (valid) creg[l][j] = c;
+#pragma unroll
+        for (int q = 0; q < CL; ++q)
+          cluster.map_shared_rank(hbuf, q)[nxt + cell] = h_new;
+        if (row_ok[j] && valid) {
+          const size_t row = (size_t)(b0 + own_r[j]) * T + t;
+          const size_t lrow = (size_t)l * B * T + row;
+          if (l == L - 1) ys[row * H + col] = h;
+          if (acts) {
+            float* a = acts + lrow * G + col;
+            a[0] = gi;
+            a[H] = gf;
+            a[2 * H] = gg;
+            a[3 * H] = go;
+            cs[lrow * H + col] = c;
+            if (l < L - 1) hs[lrow * H + col] = h;
+          }
         }
       }
     }
     cluster.sync();
   }
 
-  if (row_ok) {
-    const float* hlast = hbuf + (S & 1) * L * BT * H;
+  const float* hlast = hbuf + (S & 1) * L * R * H;
 #pragma unroll
-    for (int l = 0; l < MAX_L; ++l) {
-      if (l >= L) break;
-      const size_t o = ((size_t)l * B + b) * H + col;
-      hn[o] = hlast[(l * BT + own_r) * H + col];
-      cn[o] = creg[l];
+  for (int j = 0; j < MC; ++j) {
+    if (!row_ok[j]) continue;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const size_t o = ((size_t)l * B + b0 + own_r[j]) * H + col;
+      hn[o] = hlast[(l * R + own_r[j]) * H + col];
+      cn[o] = creg[l][j];
     }
   }
 }
 
 // acc[r] += sum over this CTA's columns lc of d[lc][r] * wT[lc][k]
+template <int R>
 __device__ __forceinline__ void mac_cols(const float* __restrict__ d,
                                          const float* __restrict__ wT, int k,
-                                         float (&acc)[BT]) {
+                                         float (&acc)[R]) {
   for (int lc = 0; lc < SNC; ++lc) {
     const float w = wT[lc * SH + k];
-    const float4* d4 = reinterpret_cast<const float4*>(d + lc * BT);
+    const float4* d4 = reinterpret_cast<const float4*>(d + lc * R);
 #pragma unroll
-    for (int q = 0; q < BT / 4; ++q) {
+    for (int q = 0; q < R / 4; ++q) {
       const float4 v = d4[q];
       acc[4 * q] = fmaf(v.x, w, acc[4 * q]);
       acc[4 * q + 1] = fmaf(v.y, w, acc[4 * q + 1]);
@@ -270,6 +306,7 @@ __device__ __forceinline__ void mac_cols(const float* __restrict__ d,
   }
 }
 
+template <int R, int L>
 __global__ void __launch_bounds__(NT, 1) lstm_stacked_bwd_kernel(
     const float* __restrict__ acts,    // (L, B, T, 4H) i, f, g, o
     const float* __restrict__ cs,      // (L, B, T, H) cell states
@@ -282,19 +319,19 @@ __global__ void __launch_bounds__(NT, 1) lstm_stacked_bwd_kernel(
     float* __restrict__ dgates,        // (L, B, T, 4H)
     float* __restrict__ dh0,           // (L, B, H)
     float* __restrict__ dc0,           // (L, B, H)
-    int B, int T, int L) {
-  constexpr int H = SH, U = SU, NC = SNC;
+    int B, int T) {
+  constexpr int H = SH, U = SU, NC = SNC, MC = stacked_cells(R);
   constexpr size_t G = 4 * SH;
-  constexpr int SLOT = BT * U;  // one CTA's partial for one target CTA
+  constexpr int SLOT = R * U;  // one CTA's partial for one target CTA
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int b0 = (blockIdx.x / CL) * BT;
+  const int b0 = (blockIdx.x / CL) * R;
   const int tid = threadIdx.x;
 
   extern __shared__ __align__(16) float smem[];
   float* WsT = smem;                         // [2L-1][NC][H], transposed
-  float* dg = WsT + (2 * L - 1) * NC * H;    // [L][NC][BT] this slot's dgates
-  float* red = dg + L * NC * BT;             // [2][L][CL][BT][U] partials
+  float* dg = WsT + (2 * L - 1) * NC * H;    // [L][NC][R] this slot's dgates
+  float* red = dg + L * NC * R;              // [2][L][CL][R][U] partials
 
   for (int i = tid; i < (2 * L - 1) * H * NC; i += NT) {
     const int m = i / (H * NC), k = (i / NC) % H, lc = i % NC;
@@ -304,59 +341,71 @@ __global__ void __launch_bounds__(NT, 1) lstm_stacked_bwd_kernel(
         w[(size_t)k * G + (lc / U) * H + rank * U + lc % U];
   }
   for (int i = tid; i < 2 * L * CL * SLOT; i += NT) red[i] = 0.f;
-  const int own_r = tid / U, own_u = tid % U;
+  const int own_u = tid % U;
   const int col = rank * U + own_u;
-  const int b = b0 + own_r;
-  const bool row_ok = b < B;
-  float dcreg[MAX_L];
+  int own_r[MC];
+  bool own_in[MC], row_ok[MC];
+  float dcreg[L][MC];
+  StepIn cur[L][MC], nxt[L][MC];
+  const int S = T + L - 1;
+  // layer l's step inputs at slot s (t = s - l); dys only for the top
+  auto load = [&](StepIn (&in)[L][MC], int s) {
 #pragma unroll
-  for (int l = 0; l < MAX_L; ++l)
-    dcreg[l] = (l < L && row_ok) ? dcn[((size_t)l * B + b) * H + col] : 0.f;
+    for (int l = 0; l < L; ++l)
+#pragma unroll
+      for (int j = 0; j < MC; ++j)
+        load_step_in(in[l][j], row_ok[j], l == L - 1 ? dys : nullptr,
+                     acts + (size_t)l * B * T * G, cs + (size_t)l * B * T * H,
+                     c0 + (size_t)l * B * H, b0 + own_r[j], s - l, T, H, col);
+  };
+#pragma unroll
+  for (int j = 0; j < MC; ++j) {
+    own_r[j] = tid / U + (NT / U) * j;
+    own_in[j] = own_r[j] < R;
+    row_ok[j] = own_in[j] && b0 + own_r[j] < B;
+#pragma unroll
+    for (int l = 0; l < L; ++l)
+      dcreg[l][j] =
+          row_ok[j] ? dcn[((size_t)l * B + b0 + own_r[j]) * H + col] : 0.f;
+  }
+  load(cur, S - 1);
   cluster.sync();  // every CTA is zeroed and running before remote writes
 
-  const int S = T + L - 1;
   // slot -1 only reads: the sum layer 0 gets there is its dh0
   for (int s = S - 1; s >= -1; --s) {
     const float* rd = red + ((s + 1) & 1) * L * CL * SLOT;
+    load(nxt, s - 1);
 #pragma unroll
-    for (int l = 0; l < MAX_L; ++l) {
-      if (l >= L) break;
+    for (int l = 0; l < L; ++l) {
       const int t = s - l;
-      float dh = 0.f;
 #pragma unroll
-      for (int q = 0; q < CL; ++q)
-        dh += rd[(l * CL + q) * SLOT + own_r * U + own_u];
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-      if (row_ok && t >= 0 && t < T) {
-        const size_t row = (size_t)b * T + t;
-        const size_t lrow = (size_t)l * B * T + row;
-        const size_t st = ((size_t)l * B + b) * H + col;
-        if (l == L - 1) dh += dys[row * H + col];
-        if (t == T - 1) dh += dhn[st];
-        const float* a = acts + lrow * G + col;
-        const float ai = a[0], af = a[H], ag = a[2 * H], ao = a[3 * H];
-        const float c = cs[lrow * H + col];
-        const float cp = t > 0 ? cs[(lrow - 1) * H + col] : c0[st];
-        const float tc = tanhf(c);
-        const float dc = dh * ao * (1.f - tc * tc) + dcreg[l];
-        d[0] = dc * ag * ai * (1.f - ai);
-        d[1] = dc * cp * af * (1.f - af);
-        d[2] = dc * ai * (1.f - ag * ag);
-        d[3] = dh * tc * ao * (1.f - ao);
-        dcreg[l] = dc * af;
-        float* o = dgates + lrow * G + col;
-        o[0] = d[0];
-        o[H] = d[1];
-        o[2 * H] = d[2];
-        o[3 * H] = d[3];
-      } else if (row_ok && t == -1) {
-        const size_t st = ((size_t)l * B + b) * H + col;
-        dh0[st] = dh;
-        dc0[st] = dcreg[l];
+      for (int j = 0; j < MC; ++j) {
+        if (!own_in[j]) continue;
+        const int r = own_r[j];
+        float dh = 0.f;
+#pragma unroll
+        for (int q = 0; q < CL; ++q)
+          dh += rd[(l * CL + q) * SLOT + r * U + own_u];
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        const size_t st = ((size_t)l * B + b0 + r) * H + col;
+        if (row_ok[j] && t >= 0 && t < T) {
+          dh += cur[l][j].dy;
+          if (t == T - 1) dh += dhn[st];
+          cell_bwd(cur[l][j], dh, dcreg[l][j], d);
+          float* o = dgates + ((size_t)l * B * T + (size_t)(b0 + r) * T + t) *
+                                  G + col;
+          o[0] = d[0];
+          o[H] = d[1];
+          o[2 * H] = d[2];
+          o[3 * H] = d[3];
+        } else if (row_ok[j] && t == -1) {
+          dh0[st] = dh;
+          dc0[st] = dcreg[l][j];
+        }
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          dg[(l * NC + g * U + own_u) * R + r] = d[g];
       }
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        dg[(l * NC + g * U + own_u) * BT + own_r] = d[g];
     }
     if (s < 0) break;
     __syncthreads();
@@ -365,67 +414,86 @@ __global__ void __launch_bounds__(NT, 1) lstm_stacked_bwd_kernel(
     // columns: dgates_m W_hh_m^T + dgates_{m+1} W_ih_{m+1}^T
     for (int p = tid; p < L * H; p += NT) {
       const int m = p / H, k = p % H;
-      float acc[BT];
+      float acc[R];
 #pragma unroll
-      for (int r = 0; r < BT; ++r) acc[r] = 0.f;
-      mac_cols(dg + m * NC * BT, WsT + m * NC * H, k, acc);
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
+      mac_cols<R>(dg + m * NC * R, WsT + m * NC * H, k, acc);
       if (m + 1 < L)
-        mac_cols(dg + (m + 1) * NC * BT, WsT + (L + m) * NC * H, k, acc);
+        mac_cols<R>(dg + (m + 1) * NC * R, WsT + (L + m) * NC * H, k, acc);
       float* dst = cluster.map_shared_rank(red, k / U) +
                    (((s & 1) * L + m) * CL + rank) * SLOT + k % U;
 #pragma unroll
-      for (int r = 0; r < BT; ++r) dst[r * U] = acc[r];
+      for (int r = 0; r < R; ++r) dst[r * U] = acc[r];
     }
     cluster.sync();
+#pragma unroll
+    for (int l = 0; l < L; ++l)
+#pragma unroll
+      for (int j = 0; j < MC; ++j) cur[l][j] = nxt[l][j];
   }
+}
+
+using StackedFwd = decltype(&lstm_stacked_fwd_kernel<16, 2>);
+using StackedBwd = decltype(&lstm_stacked_bwd_kernel<16, 2>);
+
+// the instantiations: L 2 at R 16, 24 and 32; L 3 only at R 16 (its
+// 2L-1 = 5 weight slices leave no room for more rows)
+StackedFwd stacked_fwd(int L, int R) {
+  if (L == 3) return R == 16 ? lstm_stacked_fwd_kernel<16, 3> : nullptr;
+  if (L != 2) return nullptr;
+  switch (R) {
+    case 16: return lstm_stacked_fwd_kernel<16, 2>;
+    case 24: return lstm_stacked_fwd_kernel<24, 2>;
+    case 32: return lstm_stacked_fwd_kernel<32, 2>;
+  }
+  return nullptr;
+}
+
+StackedBwd stacked_bwd(int L, int R) {
+  if (L == 3) return R == 16 ? lstm_stacked_bwd_kernel<16, 3> : nullptr;
+  if (L != 2) return nullptr;
+  switch (R) {
+    case 16: return lstm_stacked_bwd_kernel<16, 2>;
+    case 24: return lstm_stacked_bwd_kernel<24, 2>;
+    case 32: return lstm_stacked_bwd_kernel<32, 2>;
+  }
+  return nullptr;
 }
 
 }  // namespace
 
 extern "C" {
 
+// shared memory of one CTA of the forward (backward) at R rows
+long long lstm_stacked_smem_bytes(int L, int backward, int R) {
+  return (long long)(backward ? stacked_bwd_smem_bytes(L, R)
+                              : stacked_fwd_smem_bytes(L, R));
+}
+
 // xw0 (B,T,4H); w_ih_t (L-1,H,4H); b_rest (L-1,4H); w_hh_t (L,H,4H);
 // h0, c0 (L,B,H). Writes ys (B,T,H), hn, cn (L,B,H) and, when hs, acts
 // and cs are not null, the training residuals hs (L-1,B,T,H), acts
-// (L,B,T,4H) = [i, f, g, o] and cs (L,B,T,H).
+// (L,B,T,4H) = [i, f, g, o] and cs (L,B,T,H). R rows per cluster.
 int lstm_stacked_forward_f32(const float* xw0, const float* w_ih_t,
                              const float* b_rest, const float* w_hh_t,
                              const float* h0, const float* c0, float* ys,
                              float* hn, float* cn, float* hs, float* acts,
-                             float* cs, int B, int T, int L,
+                             float* cs, int B, int T, int L, int R,
                              void* stream_ptr) {
-  if (!stacked_ok(L) || B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
-  return launch_cluster(lstm_stacked_fwd_kernel, stacked_fwd_smem_bytes(L),
-                        B, (cudaStream_t)stream_ptr, xw0, w_ih_t, b_rest,
-                        w_hh_t, h0, c0, ys, hn, cn, hs, acts, cs, B, T, L);
+  const StackedFwd kernel = stacked_fwd(L, R);
+  if (!kernel || B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  return launch_cluster(kernel, stacked_fwd_smem_bytes(L, R), B, R,
+                        (cudaStream_t)stream_ptr, xw0, w_ih_t, b_rest, w_hh_t,
+                        h0, c0, ys, hn, cn, hs, acts, cs, B, T);
 }
 
-// How many clusters of the forward (backward) kernel the card holds at
-// once; a batch of more than 16 times as many rows runs in waves. -1 on
-// an error.
-int lstm_stacked_resident_clusters(int L, int backward) {
-  if (!stacked_ok(L)) return -1;
-  const size_t smem =
-      backward ? stacked_bwd_smem_bytes(L) : stacked_fwd_smem_bytes(L);
-  const void* kernel = backward ? (const void*)lstm_stacked_bwd_kernel
-                                : (const void*)lstm_stacked_fwd_kernel;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem))
-    return -1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CL);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg)) return -1;
-  return n;
+// How many clusters of the forward (backward) kernel at R rows the card
+// holds at once; a batch of more than R times as many rows runs in
+// waves. -1 if there is no such kernel or on an error.
+int lstm_stacked_resident_clusters(int L, int backward, int R) {
+  const size_t smem = (size_t)lstm_stacked_smem_bytes(L, backward, R);
+  return backward ? resident_clusters(stacked_bwd(L, R), smem)
+                  : resident_clusters(stacked_fwd(L, R), smem);
 }
 
 // floats of backward scratch: the split-K partials
@@ -435,7 +503,7 @@ long long lstm_stacked_backward_workspace_floats() {
 
 // From the forward's residuals and the cotangents dys (B,T,H), dhn, dcn
 // (L,B,H): dgates (L,B,T,4H) (layer 0's are dxw0), dw_ih_t (L-1,H,4H),
-// db (L-1,4H), dw_hh_t (L,H,4H), dh0, dc0 (L,B,H).
+// db (L-1,4H), dw_hh_t (L,H,4H), dh0, dc0 (L,B,H). R rows per cluster.
 int lstm_stacked_backward_f32(const float* w_ih_t, const float* w_hh_t,
                               const float* h0, const float* c0,
                               const float* ys, const float* hs,
@@ -443,14 +511,15 @@ int lstm_stacked_backward_f32(const float* w_ih_t, const float* w_hh_t,
                               const float* dys, const float* dhn,
                               const float* dcn, float* dgates, float* dwih,
                               float* db, float* dwhh, float* dh0, float* dc0,
-                              float* ws, int B, int T, int L,
+                              float* ws, int B, int T, int L, int R,
                               void* stream_ptr) {
-  if (!stacked_ok(L) || B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  const StackedBwd kernel = stacked_bwd(L, R);
+  if (!kernel || B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const size_t G = 4 * SH, rows = (size_t)B * T;
-  int err = launch_cluster(lstm_stacked_bwd_kernel, stacked_bwd_smem_bytes(L),
-                           B, stream, acts, cs, c0, dys, w_ih_t, w_hh_t, dhn,
-                           dcn, dgates, dh0, dc0, B, T, L);
+  int err = launch_cluster(kernel, stacked_bwd_smem_bytes(L, R), B, R, stream,
+                           acts, cs, c0, dys, w_ih_t, w_hh_t, dhn, dcn,
+                           dgates, dh0, dc0, B, T);
   if (err) return err;
   float* part = ws;
   float* cpart = ws + PART_FLOATS;
@@ -458,15 +527,15 @@ int lstm_stacked_backward_f32(const float* w_ih_t, const float* w_hh_t,
     const float* dg_l = dgates + l * rows * G;
     const float* h_l = l == L - 1 ? ys : hs + l * rows * SH;
     // dW_hh_l = h_l(t-1)^T dgates_l, with h_l(-1) = h0_l
-    if ((err = reduce_rows_tn(h_l, h0 + (size_t)l * B * SH, T, dg_l,
-                              dwhh + l * SH * G, part, (int)rows, SH, (int)G,
-                              stream)))
+    if ((err = reduce_rows_tn_tc(h_l, h0 + (size_t)l * B * SH, T, dg_l,
+                                 dwhh + l * SH * G, part, (int)rows, SH,
+                                 (int)G, stream)))
       return err;
     if (l == 0) continue;
     // layer l's input is h_{l-1}(t): dW_ih_l = h_{l-1}^T dgates_l
-    if ((err = reduce_rows_tn(hs + (l - 1) * rows * SH, nullptr, 0, dg_l,
-                              dwih + (l - 1) * SH * G, part, (int)rows, SH,
-                              (int)G, stream)))
+    if ((err = reduce_rows_tn_tc(hs + (l - 1) * rows * SH, nullptr, 0, dg_l,
+                                 dwih + (l - 1) * SH * G, part, (int)rows, SH,
+                                 (int)G, stream)))
       return err;
     if ((err = colsum(dg_l, nullptr, db + (l - 1) * G, cpart, (int)rows,
                       (int)G, stream)))

@@ -13,19 +13,26 @@ On CPU tensors ``lstm_stacked_recurrence`` runs ``lstm_stacked_reference``
 (autograd records through it). On CUDA tensors it launches
 ``csrc/lstm_stacked.cu`` (f32, H 128, L 2 or 3, any B): where a gradient
 is needed, the forward that stores the backward's residuals and then the
-backward kernel; otherwise the forward without residuals. Other shapes
-raise. Launch counters: ``fwd_launches`` (both forwards) and
-``bwd_launches``.
+backward kernel; otherwise the forward without residuals. Each runs R
+batch rows per cluster, the smallest R the card holds in one wave
+(``cluster_rows.choose_rows``; L 3 takes only 16), or the ``rows`` a
+caller names. Other shapes raise. Launch counters: ``fwd_launches``
+(both forwards) and ``bwd_launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from multimodalreactiongeneration_tpu_torch import _build
+from multimodalreactiongeneration_tpu_torch.ops.cluster_rows import (
+    card_layout,
+    resolve_rows,
+)
 from multimodalreactiongeneration_tpu_torch.ops.lstm_recurrence import (
     lstm_recurrence_reference,
 )
@@ -74,24 +81,52 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.lstm_stacked_backward_workspace_floats.argtypes = []
         lib.lstm_stacked_backward_workspace_floats.restype = ctypes.c_longlong
-        lib.lstm_stacked_forward_f32.argtypes = [_P] * 12 + [_I] * 3 + [_P]
-        lib.lstm_stacked_backward_f32.argtypes = [_P] * 18 + [_I] * 3 + [_P]
+        lib.lstm_stacked_smem_bytes.argtypes = [_I] * 3
+        lib.lstm_stacked_smem_bytes.restype = ctypes.c_longlong
+        lib.lstm_stacked_forward_f32.argtypes = [_P] * 12 + [_I] * 4 + [_P]
+        lib.lstm_stacked_backward_f32.argtypes = [_P] * 18 + [_I] * 4 + [_P]
         lib.lstm_stacked_forward_f32.restype = ctypes.c_int
         lib.lstm_stacked_backward_f32.restype = ctypes.c_int
-        lib.lstm_stacked_resident_clusters.argtypes = [_I, _I]
+        lib.lstm_stacked_resident_clusters.argtypes = [_I] * 3
         lib.lstm_stacked_resident_clusters.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def resident_clusters(layers: int, backward: bool) -> int:
-    """How many 8-CTA clusters (16 batch rows each) of the forward or
+def smem_bytes(layers: int, backward: bool, rows: int) -> int:
+    """Shared memory of one CTA of the forward or backward at ``rows``
+    batch rows per cluster."""
+    return _lib().lstm_stacked_smem_bytes(layers, int(backward), rows)
+
+
+def resident_clusters(layers: int, backward: bool, rows: int = 16) -> int:
+    """How many 8-CTA clusters of ``rows`` batch rows of the forward or
     backward kernel the current card holds at once (CUDA only); a larger
     batch runs in waves."""
-    n = _lib().lstm_stacked_resident_clusters(layers, int(backward))
+    n = _lib().lstm_stacked_resident_clusters(layers, int(backward), rows)
     if n < 0:
-        raise RuntimeError(f"no occupancy for {layers} layers")
+        raise RuntimeError(
+            f"no occupancy for {layers} layers at {rows} rows per cluster")
     return n
+
+
+@functools.lru_cache(maxsize=None)
+def layout(device_index: int, layers: int, backward: bool):
+    """(resident clusters, shared memory) by rows of the forward or
+    backward on one card (``cluster_rows.card_layout``)."""
+    with torch.cuda.device(device_index):
+        return card_layout(lambda r: smem_bytes(layers, backward, r),
+                           lambda r: resident_clusters(layers, backward, r))
+
+
+def _rows(name, device, layers, backward, batch, rows):
+    return resolve_rows(name, batch, rows,
+                        layout(device.index or 0, layers, backward))
+
+
+def rows_for(device, layers: int, backward: bool, batch: int) -> int:
+    """The rows per cluster the wrapper launches at this batch."""
+    return _rows("lstm_stacked", device, layers, backward, batch, None)
 
 
 def kernel_refusal(layers: int, hidden: int, batch: int):
@@ -136,14 +171,16 @@ def _check(name, t, w_ih_t, b_rest, w_hh_t, h0, c0, **more):
     return layers, b, t, h
 
 
-def lstm_stacked_forward(args, residuals: bool):
-    """The forward kernel (CUDA only). Returns (ys, hn, cn, hs, acts, cs);
-    hs (L-1, B, T, H), acts (L, B, T, 4H) and cs (L, B, T, H) are the
+def lstm_stacked_forward(args, residuals: bool, rows: Optional[int] = None):
+    """The forward kernel (CUDA only), at ``rows`` batch rows per cluster
+    (None: the wrapper's choice). Returns (ys, hn, cn, hs, acts, cs); hs
+    (L-1, B, T, H), acts (L, B, T, 4H) and cs (L, B, T, H) are the
     backward's residuals, None unless ``residuals``."""
     xw0 = args[0]
     layers, b, t, h = _check(
         "lstm_stacked_forward", xw0.shape[1], *args[1:],
         xw0=(xw0, lambda l, b, t, h: (b, t, 4 * h)))
+    rows = _rows("lstm_stacked_forward", xw0.device, layers, False, b, rows)
     new = lambda *shape: torch.empty(*shape, dtype=torch.float32,
                                      device=xw0.device)
     ys, hn, cn = new(b, t, h), new(layers, b, h), new(layers, b, h)
@@ -153,16 +190,18 @@ def lstm_stacked_forward(args, residuals: bool):
         acts = new(layers, b, t, 4 * h)
         cs = new(layers, b, t, h)
     _build.launch(_lib().lstm_stacked_forward_f32, *args, ys, hn, cn, hs,
-                  acts, cs, dims=(b, t, layers))
+                  acts, cs, dims=(b, t, layers, rows))
     global fwd_launches
     fwd_launches += 1
     return ys, hn, cn, hs, acts, cs
 
 
-def lstm_stacked_backward(weights, ys, hs, acts, cs, dys, dhn, dcn):
+def lstm_stacked_backward(weights, ys, hs, acts, cs, dys, dhn, dcn,
+                          rows: Optional[int] = None):
     """The backward kernel (CUDA only), from ``weights`` = (w_ih_t,
-    b_rest, w_hh_t, h0, c0) and the forward's residuals. Returns (dxw0,
-    dw_ih_t, db_rest, dw_hh_t, dh0, dc0)."""
+    b_rest, w_hh_t, h0, c0) and the forward's residuals, at ``rows`` batch
+    rows per cluster (None: the wrapper's choice). Returns (dxw0, dw_ih_t,
+    db_rest, dw_hh_t, dh0, dc0)."""
     w_ih_t, b_rest, w_hh_t, h0, c0 = weights
     cots = [c.float().contiguous() for c in (dys, dhn, dcn)]
     layers, b, t, h = _check(
@@ -174,6 +213,7 @@ def lstm_stacked_backward(weights, ys, hs, acts, cs, dys, dhn, dcn):
         dys=(cots[0], lambda l, b, t, h: (b, t, h)),
         dhn=(cots[1], lambda l, b, t, h: (l, b, h)),
         dcn=(cots[2], lambda l, b, t, h: (l, b, h)))
+    rows = _rows("lstm_stacked_backward", h0.device, layers, True, b, rows)
     dgates = torch.empty(layers, b, t, 4 * h, dtype=torch.float32,
                          device=h0.device)
     dwih, db, dwhh, dh0, dc0 = [torch.empty_like(a) for a in weights]
@@ -182,7 +222,7 @@ def lstm_stacked_backward(weights, ys, hs, acts, cs, dys, dhn, dcn):
                      dtype=torch.float32, device=h0.device)
     _build.launch(lib.lstm_stacked_backward_f32, w_ih_t, w_hh_t, h0, c0, ys,
                   hs, acts, cs, *cots, dgates, dwih, db, dwhh, dh0, dc0, ws,
-                  dims=(b, t, layers))
+                  dims=(b, t, layers, rows))
     global bwd_launches
     bwd_launches += 1
     return dgates[0], dwih, db, dwhh, dh0, dc0

@@ -237,6 +237,116 @@ def test_lstm_stacked_kernels_match_plain(dev, b, t, layers):
         assert _rel_err(g, w) <= GRAD_REL_TOL, i
 
 
+def _assert_within_gates(got, want, n_fwd):
+    """The first ``n_fwd`` tensors within TOL abs, the rest (gradients)
+    within GRAD_REL_TOL of their largest magnitude."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i < n_fwd:
+            assert float((g.detach() - w).abs().max()) <= TOL, i
+        else:
+            assert _rel_err(g, w) <= GRAD_REL_TOL, i
+
+
+@pytest.mark.parametrize("b,t,layers", [
+    (241, 1, 2), (256, 1, 2), (257, 1, 2), (241, 1120, 2), (256, 1120, 2),
+    (257, 1120, 2), (256, 64, 3),
+])
+def test_lstm_stacked_chosen_rows_match_rows16(dev, b, t, layers):
+    """K9 at the rows per cluster the wrapper chooses (ragged last
+    clusters at R 24 and 32 for B241 and B257) equals K9 at R 16 within
+    the gates, and both hold against the plain version; L3 keeps R 16.
+    The wrapper launches as before: +2 forwards, +1 backward."""
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_stacked as K9
+
+    h = 128
+    r = _rand(np.random.default_rng(b * t + layers), dev)
+    args = (r(b, t, 4 * h), r(layers - 1, h, 4 * h, s=0.06),
+            r(layers - 1, 4 * h, s=0.06), r(layers, h, 4 * h, s=0.06),
+            r(layers, b, h, s=0.3), r(layers, b, h, s=0.3))
+    cots = (r(b, t, h), r(layers, b, h), r(layers, b, h))
+    chosen = K9.rows_for(dev, layers, False, b), K9.rows_for(dev, layers,
+                                                            True, b)
+    for backward, rows in enumerate(chosen):
+        resident, _ = K9.layout(dev.index or 0, layers, bool(backward))
+        if layers == 3:
+            assert rows == 16
+        else:
+            assert -(-b // rows) <= resident[rows], (rows, resident)
+    before = K9.fwd_launches, K9.bwd_launches
+    ys0, (hn0, cn0) = K9.lstm_stacked_recurrence(*args)
+    leaves = [a.clone().requires_grad_() for a in args]
+    ys, (hn, cn) = K9.lstm_stacked_recurrence(*leaves)
+    grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
+    torch.cuda.synchronize()
+    assert (K9.fwd_launches, K9.bwd_launches) == (before[0] + 2,
+                                                  before[1] + 1)
+    chosen_out = (ys0, hn0, cn0, ys, hn, cn, *grads)
+    ys16, hn16, cn16, hs, acts, cs = K9.lstm_stacked_forward(args, True,
+                                                             rows=16)
+    ys16n, hn16n, cn16n, *_ = K9.lstm_stacked_forward(args, False, rows=16)
+    grads16 = K9.lstm_stacked_backward(args[1:], ys16, hs, acts, cs, *cots,
+                                       rows=16)
+    rows16_out = (ys16n, hn16n, cn16n, ys16, hn16, cn16, *grads16)
+    _assert_within_gates(chosen_out, rows16_out, 6)
+    ysr, (hr, cr) = K9.lstm_stacked_reference(*args)
+    want = (ysr, hr, cr, ysr, hr, cr,
+            *K9.lstm_stacked_backward_reference(args, *cots))
+    _assert_within_gates(chosen_out, want, 6)
+    _assert_within_gates(rows16_out, want, 6)
+
+
+@pytest.mark.parametrize("b,t", [(256, 140), (250, 17)])
+def test_lstm_layer_chosen_rows_match_rows16(dev, b, t):
+    """K7 at lstm_with_sampling's block shape (256 -> 256) and a ragged
+    batch: the wrapper's rows per cluster equal R 16 within the gates and
+    both hold against the plain version; +2 forwards, +1 backward."""
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_layer as K7
+
+    din = h = 256
+    r = _rand(np.random.default_rng(b * t), dev)
+    args = (r(b, t, din), r(din, 4 * h, s=0.06), r(4 * h, s=0.06),
+            r(h, 4 * h, s=0.06), r(b, h, s=0.3), r(b, h, s=0.3))
+    cots = (r(b, t, h), r(b, h), r(b, h))
+    for backward in (False, True):
+        rows = K7.rows_for(dev, h, backward, b)
+        resident, _ = K7.layout(dev.index or 0, h, backward)
+        assert -(-b // rows) <= resident[rows], (rows, resident)
+    before = K7.fwd_launches, K7.bwd_launches
+    ys0, (hn0, cn0) = K7.lstm_layer(*args)
+    leaves = [a.clone().requires_grad_() for a in args]
+    ys, (hn, cn) = K7.lstm_layer(*leaves)
+    grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
+    torch.cuda.synchronize()
+    assert (K7.fwd_launches, K7.bwd_launches) == (before[0] + 2,
+                                                  before[1] + 1)
+    chosen_out = (ys0, hn0, cn0, ys, hn, cn, *grads)
+    ys16, hn16, cn16, acts, cs = K7.lstm_layer_forward(args, True, rows=16)
+    ys16n, hn16n, cn16n, _, _ = K7.lstm_layer_forward(args, False, rows=16)
+    grads16 = K7.lstm_layer_backward(args, ys16, acts, cs, *cots, rows=16)
+    rows16_out = (ys16n, hn16n, cn16n, ys16, hn16, cn16, *grads16)
+    _assert_within_gates(chosen_out, rows16_out, 6)
+    ysr, (hr, cr) = K7.lstm_layer_reference(*args)
+    want = (ysr, hr, cr, ysr, hr, cr,
+            *K7.lstm_layer_backward_reference(args, *cots))
+    _assert_within_gates(chosen_out, want, 6)
+    _assert_within_gates(rows16_out, want, 6)
+
+
+def test_lstm_chains_refuse_rows_they_do_not_take(dev):
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_layer as K7
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_stacked as K9
+
+    z = lambda *s: torch.zeros(*s, device=dev)
+    h, b, t = 128, 4, 3
+    with pytest.raises(ValueError, match="20 rows"):
+        K7.lstm_layer_forward((z(b, t, h), z(h, 4 * h), z(4 * h),
+                               z(h, 4 * h), z(b, h), z(b, h)), False, rows=20)
+    with pytest.raises(ValueError, match="24 rows"):
+        K9.lstm_stacked_forward((z(b, t, 4 * h), z(2, h, 4 * h),
+                                 z(2, 4 * h), z(3, h, 4 * h), z(3, b, h),
+                                 z(3, b, h)), False, rows=24)
+
+
 def test_lstm_stacked_kernel_refuses_other_shapes(dev):
     from multimodalreactiongeneration_tpu_torch.nn.recurrent import (
         use_lstm_stacked,
