@@ -154,8 +154,9 @@ Phases:
      train step +4 / +4, per validation batch an eval step, +4 forward).
 
 Every kernel's JSON record carries its bound: the larger of its
-operations (FP32 at 67 TFLOP/s; K7's and K9's 3xTF32 products as three
-TF32 passes at 495) and its bytes at 3.35 TB/s (H100 SXM, 700 W).
+operations (FP32 at 67 TFLOP/s; the 3xTF32 products of K5's forward and
+of K7's and K9's backward as three TF32 passes at 495) and its bytes at
+3.35 TB/s (H100 SXM, 700 W).
 Any failure raises. The last lines are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -1243,10 +1244,11 @@ def rect_attention_phase(K5, dev, rng):
         lib_bwd_ms, _ = cuda_ms(lambda: torch.autograd.grad(
             lib_out, lib_leaves, split(g), retain_graph=True), 10)
         # per needed (query, key) pair and head dim: q.k and p.v (2 FLOPs
-        # each) forward; the backward recomputes q.k and does dO.v, dV,
-        # dK and dQ (10 FLOPs)
+        # each) forward, in 3xTF32; the backward recomputes q.k and does
+        # dO.v, dV, dK and dQ (10 FLOPs) in FP32
         pairs = rect_pairs(q_pad, k_pad) * heads
-        fwd_bound = bound(4 * pairs * dh, nbytes(args, ctx, m, l))
+        fwd_bound = bound(0, nbytes(args, ctx, m, l),
+                          tf32x3_flops=4 * pairs * dh)
         bwd_bound = bound(10 * pairs * dh, nbytes(args, ctx, m, l, g, grads))
         check_case("rect_attention", fwd_err, grad_rel, Lk=lk, fwd_ms=fwd_ms,
                    fwd_no_residual_ms=fwd_nores_ms, bwd_ms=bwd_ms,

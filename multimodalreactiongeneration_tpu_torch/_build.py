@@ -6,7 +6,10 @@ a build takes seconds). The hash covers the source, the headers of
 ``csrc/`` and the flags: an
 edited source builds anew, an unchanged one loads the library already
 built. Nothing here runs at import time; the kernel wrappers call
-``load`` on their first launch.
+``load`` on their first launch. A measuring tool may ask for a variant
+of a source built with preprocessor ``defines`` (an instrumented
+build); it gets a library of its own, and the wrappers never ask for
+one.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -31,7 +34,7 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
@@ -53,8 +56,12 @@ def find_nvcc() -> str:
     )
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines: Tuple[str, ...]) -> list:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def _lib_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     # the headers of csrc/ count too: a .cu may include any of them
     for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode() + src.read_bytes())
@@ -62,17 +69,20 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless a library for this source exists.
-    The compiler's register/spill report goes to _build/<name>.log."""
-    out = _lib_path(name)
+def build(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    """Compile csrc/<name>.cu (with -D for each of ``defines``) unless a
+    library for this source exists. The compiler's register/spill report
+    goes to _build/<name>.log (<name>-<defines>.log for a variant)."""
+    out = _lib_path(name, defines)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [find_nvcc(), *_flags(defines), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / f"{name}.log").write_text(
+    log = "-".join((name, *defines))
+    (BUILD_DIR / f"{log}.log").write_text(
         " ".join(cmd) + "\n" + proc.stdout + proc.stderr
     )
     if proc.returncode != 0:
@@ -97,13 +107,14 @@ def build_all(names) -> Dict[str, float]:
         return {name: f.result() for name, f in futures.items()}
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu; cached per process."""
+    key = (name, tuple(defines))
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            _LIBS[name] = lib
+            lib = ctypes.CDLL(str(build(name, key[1])))
+            _LIBS[key] = lib
         return lib
 
 

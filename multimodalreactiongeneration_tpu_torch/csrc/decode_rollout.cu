@@ -8,30 +8,43 @@
 //   the AR feedback blended with the teacher embedding by the mask.
 //
 // What bounds it on the H100: the latency of the dependent chain. A
-// step is ~52 dependent stages (10 per block x 5 blocks + head +
-// feedback) over tiny operands (16 rows); the folded panels (~9.7 M
-// values) and the rings (8.2 MB + 1 MB in bf16) fit the 50 MB L2, so
-// neither bytes nor FLOPs are the limit, and no SM's 227 KB of shared
-// memory holds the working set.
+// step is 52 dependent stages (10 per block x 5 blocks + the head's 2)
+// over tiny operands (16 rows); the folded panels (~9.7 M values) and
+// the rings (8.2 MB + 1 MB in bf16) fit the 50 MB L2, so neither bytes
+// nor FLOPs are the limit, and no SM's 227 KB of shared memory holds the
+// working set. Measured per stage (%globaltimer stamps of a
+// -DROLLOUT_STAMPS build, tools/attention_rollout_ab.py --stages): each
+// stage is a few dependent L2 round trips (prologue activations,
+// weights, ring rows, the stores) plus a ~1.5 us barrier; the logits
+// stage ran its 144 units in two rounds on 132 blocks.
 //
-// Design (simple first): one cooperative launch runs every step, with
-// the grid sized to one resident block per SM. The steps loop inside
-// the kernel; each stage spreads its work over all blocks and ends in a
-// grid barrier (~2 us on an H100). Panels and rings are read through L2 and never
-// copied; the rings are updated in place in the device copy the wrapper
-// makes. Each stage is a short chain of L2 round trips and of one
-// block's instruction stream, so the work is cut wide: a matmul stage
-// gives each block a 32-column group (the LSTM cell: the four gates of 8
-// hidden units), splits K over the block's 8 warps and, in the narrow
-// stages, over up to 4 blocks as well (partial sums added by the next
-// stage's prologue); lanes keep 16-32 weight loads in flight and read
-// activations from shared memory as float4. A LayerNorm that feeds a
-// matmul is recomputed by every block as the stage's prologue (16 rows,
-// cheaper than another barrier), and one block keeps the FP32 result
-// for later residuals. Attention takes two stages: logits plus
-// per-chunk softmax statistics over 128-slot chunks, then normalised
-// weights and the context sum over 64-column slices. One launch handles
-// 16 dialogs; the wrapper runs larger batches as consecutive launches.
+// Design: one cooperative launch runs every step, with the grid sized to
+// one resident block per SM. The steps loop inside the kernel; each
+// stage spreads its work over all blocks and ends in a grid barrier
+// (GridSync: one thread of each block arrives with a release add and
+// waits with acquire loads). Panels and rings are read through L2 and
+// never copied; the rings are updated in place in the device copy the
+// wrapper makes. Each stage is a short chain of L2 round trips and of
+// one block's instruction stream, so the work is cut wide: a matmul
+// stage gives each block a 32-column group (the LSTM cell: the four
+// gates of 8 hidden units), splits K over the block's 8 warps and, in
+// the narrow stages, over up to 4 blocks as well (partial sums added by
+// the next stage's prologue); lanes keep 16-32 weight loads in flight
+// and read activations from shared memory as float4. A LayerNorm that
+// feeds a matmul is recomputed by every block as the stage's prologue
+// (16 rows, cheaper than another barrier), and one block keeps the FP32
+// result for later residuals. Attention takes two stages: logits plus
+// per-chunk softmax statistics, then normalised weights and the context
+// sum over 64-column slices; the host sizes the chunks so that every
+// logits unit runs in one round on the grid (ops/decode_rollout.py
+// logit_chunk: 144 slots at the flagship's rings), both loops keep
+// ring rows packed until used (Pack8), 8 bf16 or 4 f32 rows a lane in
+// flight, and the logits' four head sums reduce together
+// (sum4_by_lane). One launch handles 16 dialogs; the wrapper runs larger
+// batches as consecutive launches. (Measured and taken out, PERF.md:
+// merging S9+S10 and S11+S12 by recomputing the narrow middle, copying
+// each block's next weight slice into shared memory during the barrier,
+// loading the cell's state before its products.)
 //
 // Numerics follow the TPU kernel: FP32 state, LayerNorms (E[x^2] -
 // mean^2, eps 1e-5), softmax and accumulation; matmul inputs rounded to
@@ -71,8 +84,9 @@ struct Scratch {
 };
 
 // Lays the scratch out from `base` (nullptr: only count); returns floats.
-long long layout(float* base, int NB, int SA, int SM, int BN, Scratch* s) {
-  const long long nca = (SA + CH - 1) / CH, ncm = (SM + CH - 1) / CH;
+long long layout(float* base, int NB, int SA, int SM, int BN, int cs,
+                 Scratch* s) {
+  const long long nca = (SA + cs - 1) / cs, ncm = (SM + cs - 1) / cs;
   long long used = 0;
   auto take = [&](long long n) {
     float* r = base ? base + used : nullptr;
@@ -116,7 +130,7 @@ struct Params {
   float* ys;           // (steps, B, out_dim)
   Scratch s;
   unsigned int* bar;
-  int steps, B, b0, bt, NB, BN, out_dim, S[2], nch[2], ratio, len_a0,
+  int steps, B, b0, bt, NB, BN, out_dim, S[2], nch[2], chunk, ratio, len_a0,
       len_m0, bud_m;
   float scale;
 };
@@ -128,7 +142,7 @@ __global__ void __launch_bounds__(NT, 1) rollout_kernel(Params<T> p) {
   float* red = act + BT * HD;           // [NW][4][BT][32]
   float* wsm = red + NW * 4 * BT * 32;  // [HEADS][SMAX]
   __shared__ float ml[2 * HEADS];
-  unsigned int gen = 0;
+  GridSync sync(p.bar);
   const int tid = threadIdx.x;
   const int bt = p.bt, NB = p.NB, BN = p.BN;
   const Scratch& s = p.s;
@@ -148,7 +162,7 @@ __global__ void __launch_bounds__(NT, 1) rollout_kernel(Params<T> p) {
     const int r = i / H;
     s.x[i] = r < bt ? p.main0[(size_t)(p.b0 + r) * H + i % H] : 0.f;
   }
-  grid_sync(p.bar, gen);
+  sync(gridDim.x);
 
   for (int t = 0; t < p.steps; ++t) {
     const int cur = t & 1, nxt = cur ^ 1;
@@ -157,6 +171,7 @@ __global__ void __launch_bounds__(NT, 1) rollout_kernel(Params<T> p) {
     const int vis[2] = {min(p.len_a0 + (t + 1) * p.ratio, p.S[0]),
                         min(p.len_m0 + t + 1, p.bud_m)};
     const float m = p.mask[t];
+    sync.begin_step(t);
 
     // ring writes (read from the attention stages on, after >= 3 barriers)
     for (int i = gtid; i < bt * p.ratio * H; i += gstride) {
@@ -188,7 +203,7 @@ __global__ void __launch_bounds__(NT, 1) rollout_kernel(Params<T> p) {
         cell_group<T>(act, wt(W_IH) + lh * 4 * H, wt(W_HH) + lh * 4 * H,
                       wf(B_G) + lh * 4, s.cs + lh * BT, h_nxt, g, bt, red);
       }
-      grid_sync(p.bar, gen);
+      sync(H / 8);
 
       // S2: ya = LN(h + x); ze = ya @ W_ef + b
       for (int u = blockIdx.x; u < (H / 32) * P_EF; u += gridDim.x) {
@@ -200,7 +215,7 @@ __global__ void __launch_bounds__(NT, 1) rollout_kernel(Params<T> p) {
                     g * 32, q ? nullptr : wf(B_EF) + lh, false,
                     s.ze + (size_t)q * BT * H, H, nullptr, 0, 0.f, bt, red);
       }
-      grid_sync(p.bar, gen);
+      sync((H / 32) * P_EF);
 
       // S3: y = LN(ze + ya); folded queries of both modalities
       // (64 column groups already fill half the grid: no K split)
@@ -214,20 +229,19 @@ __global__ void __launch_bounds__(NT, 1) rollout_kernel(Params<T> p) {
                     false, s.q + (size_t)md * BT * HD, HD, nullptr, 0, 0.f,
                     bt, red);
       }
-      grid_sync(p.bar, gen);
+      sync(2 * HD / 32);
 
       // S4: logits and per-chunk softmax statistics
-      {
-        const int na = bt * p.nch[0], total = na + bt * p.nch[1];
-        for (int u = blockIdx.x; u < total; u += gridDim.x) {
-          const int md = u >= na, v = md ? u - na : u;
-          const int b = v / p.nch[md], ch = v % p.nch[md];
-          logits_unit<T>(p.ring[md], p.S[md], vis[md],
-                         s.q + (size_t)md * BT * HD, b, ch, p.nch[md],
-                         p.scale, s.logit[md], s.stat[md], wsm);
-        }
+      const int na = bt * p.nch[0], n_logit = na + bt * p.nch[1];
+      for (int u = blockIdx.x; u < n_logit; u += gridDim.x) {
+        const int md = u >= na, v = md ? u - na : u;
+        const int b = v / p.nch[md], ch = v % p.nch[md];
+        logits_unit<T>(p.ring[md], p.S[md], vis[md],
+                       s.q + (size_t)md * BT * HD, b, ch, p.chunk, p.nch[md],
+                       p.scale,
+                       s.logit[md], s.stat[md], wsm);
       }
-      grid_sync(p.bar, gen);
+      sync(n_logit);
 
       // S5: softmax weights and context, 64 raw columns per unit
       for (int u = blockIdx.x; u < 2 * bt * (H / 64); u += gridDim.x) {
@@ -236,7 +250,7 @@ __global__ void __launch_bounds__(NT, 1) rollout_kernel(Params<T> p) {
                         s.stat[md], p.nch[md], v / (H / 64), v % (H / 64),
                         s.ctx + (size_t)md * BT * HD, wsm, red, ml);
       }
-      grid_sync(p.bar, gen);
+      sync(2 * bt * (H / 64));
 
       // S6: out-side fold: att = ctx @ W_o + b
       for (int u = blockIdx.x; u < 2 * (H / 32) * P_O; u += gridDim.x) {
@@ -250,7 +264,7 @@ __global__ void __launch_bounds__(NT, 1) rollout_kernel(Params<T> p) {
                     s.att + ((size_t)md * P_O + q) * BT * H, H, nullptr, 0,
                     0.f, bt, red);
       }
-      grid_sync(p.bar, gen);
+      sync(2 * (H / 32) * P_O);
 
       // S7: y2 = LN(att + y); z2 = y2 @ W_f + b
       for (int u = blockIdx.x; u < 2 * (H / 32) * P_F; u += gridDim.x) {
@@ -267,7 +281,7 @@ __global__ void __launch_bounds__(NT, 1) rollout_kernel(Params<T> p) {
                     s.z2 + ((size_t)md * P_F + q) * BT * H, H, nullptr, 0,
                     0.f, bt, red);
       }
-      grid_sync(p.bar, gen);
+      sync(2 * (H / 32) * P_F);
 
       // S8: merged = [LN(z2a + y2a) | LN(z2m + y2m)] @ W_cat + b
       for (int u = blockIdx.x; u < (H / 32) * P_CAT; u += gridDim.x) {
@@ -285,7 +299,7 @@ __global__ void __launch_bounds__(NT, 1) rollout_kernel(Params<T> p) {
                     s.mparts + (size_t)q * BT * H, H, nullptr, 0, 0.f, bt,
                     red);
       }
-      grid_sync(p.bar, gen);
+      sync((H / 32) * P_CAT);
 
       // S9: ff1 = merged @ W_1 + b (relu applied by the consumer, after
       //     the parts are summed); block 0 keeps the summed merged
@@ -299,7 +313,7 @@ __global__ void __launch_bounds__(NT, 1) rollout_kernel(Params<T> p) {
                     s.ff1 + (size_t)q * BT * BN, BN, nullptr, 0, 0.f, bt,
                     red);
       }
-      grid_sync(p.bar, gen);
+      sync(((BN + 31) / 32) * P_1);
 
       // S10: zf = relu(ff1) @ W_2 + b  (next x = LN(zf + merged), S1/S11)
       for (int u = blockIdx.x; u < (H / 32) * P_2; u += gridDim.x) {
@@ -311,7 +325,7 @@ __global__ void __launch_bounds__(NT, 1) rollout_kernel(Params<T> p) {
                     q ? nullptr : wf(B_2) + lh, false,
                     s.zf + (size_t)q * BT * H, H, nullptr, 0, 0.f, bt, red);
       }
-      grid_sync(p.bar, gen);
+      sync((H / 32) * P_2);
     }
 
     // S11: o1 = LN(zf + merged) @ W_o1 + b (relu by the consumer)
@@ -325,26 +339,24 @@ __global__ void __launch_bounds__(NT, 1) rollout_kernel(Params<T> p) {
                   q ? nullptr : wf(B_O1), false, s.o1 + (size_t)q * BT * BN,
                   BN, nullptr, 0, 0.f, bt, red);
     }
-    grid_sync(p.bar, gen);
+    sync(((BN + 31) / 32) * P_O1);
 
     // S12: the output row, and the next step's main embedding
     //      x = m * (o1 @ W_fb + b_fb) + (1 - m) * gt[t]
-    {
-      const int ng_out = (p.out_dim + 31) / 32;
-      for (int g = blockIdx.x; g < ng_out + H / 32; g += gridDim.x) {
-        prologue_copy<T, P_O1>(act, BN, 0, s.o1, BN, bt, true);
-        __syncthreads();
-        if (g < ng_out)
-          mm_group<T>(act, BN, 0, BN, wt(W_O2), p.out_dim, g * 32, wf(B_O2),
-                      false, p.ys + ((size_t)t * p.B + p.b0) * p.out_dim,
-                      p.out_dim, nullptr, 0, 0.f, bt, red);
-        else
-          mm_group<T>(act, BN, 0, BN, wt(W_FB), H, (g - ng_out) * 32,
-                      wf(B_FB), false, s.x, H,
-                      p.gt + ((size_t)t * p.B + p.b0) * H, H, m, bt, red);
-      }
+    const int ng_out = (p.out_dim + 31) / 32;
+    for (int g = blockIdx.x; g < ng_out + H / 32; g += gridDim.x) {
+      prologue_copy<T, P_O1>(act, BN, 0, s.o1, BN, bt, true);
+      __syncthreads();
+      if (g < ng_out)
+        mm_group<T>(act, BN, 0, BN, wt(W_O2), p.out_dim, g * 32, wf(B_O2),
+                    false, p.ys + ((size_t)t * p.B + p.b0) * p.out_dim,
+                    p.out_dim, nullptr, 0, 0.f, bt, red);
+      else
+        mm_group<T>(act, BN, 0, BN, wt(W_FB), H, (g - ng_out) * 32, wf(B_FB),
+                    false, s.x, H, p.gt + ((size_t)t * p.B + p.b0) * H, H, m,
+                    bt, red);
     }
-    grid_sync(p.bar, gen);
+    sync(ng_out + H / 32);
   }
 }
 
@@ -380,28 +392,35 @@ int launch(Params<T>& p, cudaStream_t stream) {
 extern "C" {
 
 // FP32 scratch of one launch (16 dialogs), in floats
-long long decode_rollout_workspace_floats(int NB, int SA, int SM, int BN) {
+long long decode_rollout_workspace_floats(int NB, int SA, int SM, int BN,
+                                          int chunk) {
   rollout::Scratch s;
-  return rollout::layout(nullptr, NB, SA, SM, BN, &s);
+  return rollout::layout(nullptr, NB, SA, SM, BN, chunk, &s);
 }
 
 // weights: 43 device pointers in the order of ops/decode_rollout.py
 // _W_KEYS. ring_a (B, SA, H), ring_m (B, SM, H) are updated in place.
-// bf16 != 0 selects BF16 panels, rings and streams. Returns 0 or the
+// bf16 != 0 selects BF16 panels, rings and streams. chunk: ring slots
+// per logits unit (ops/decode_rollout.py logit_chunk). Returns 0 or the
 // first CUDA error code.
 int decode_rollout_launch(
     const void* const* weights, const void* ea, const void* em,
     const float* gt, const float* mask, void* ring_a, void* ring_m,
     const float* h0, const float* c0, const float* main0, float* ys,
     float* ws, unsigned int* bar, int bf16, int steps, int B, int b0,
-    int bt, int NB, int BN, int out_dim, int SA, int SM, int ratio,
-    int len_a0, int len_m0, int bud_m, float scale, void* stream_ptr) {
+    int bt, int NB, int BN, int out_dim, int SA, int SM, int chunk,
+    int ratio, int len_a0, int len_m0, int bud_m, float scale,
+    void* stream_ptr) {
   using namespace rollout;
-  if (bt < 1 || bt > BT || SA > SMAX || SM > SMAX || BN % (4 * NW * P_2))
+  if (bt < 1 || bt > BT || SA > SMAX || SM > SMAX || BN % (4 * NW * P_2) ||
+      chunk < 1 || chunk > SMAX)
     return (int)cudaErrorInvalidValue;
-  const long long nca = (SA + CH - 1) / CH, ncm = (SM + CH - 1) / CH;
+  const long long nca = (SA + chunk - 1) / chunk;
+  const long long ncm = (SM + chunk - 1) / chunk;
+  if (nca > 32 || ncm > 32)  // one lane per chunk merges the statistics
+    return (int)cudaErrorInvalidValue;
   Scratch s;
-  layout(ws, NB, SA, SM, BN, &s);
+  layout(ws, NB, SA, SM, BN, chunk, &s);
 
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   auto fill = [&](auto& p, auto* ring_type) {
@@ -430,6 +449,7 @@ int decode_rollout_launch(
     p.S[1] = SM;
     p.nch[0] = (int)nca;
     p.nch[1] = (int)ncm;
+    p.chunk = chunk;
     p.ratio = ratio;
     p.len_a0 = len_a0;
     p.len_m0 = len_m0;
@@ -445,5 +465,24 @@ int decode_rollout_launch(
   fill(p, (float*)nullptr);
   return launch(p, stream);
 }
+
+#ifdef ROLLOUT_STAMPS
+// The stamps of the instrumented build (decode_rollout_stages.cuh):
+// dims gets {STAMP_T0, STAMP_STEPS, STAMP_STAGES, STAMP_GRID}; with
+// host != nullptr the (steps, stages, grid, 3) u64 array is copied there
+// (after the stream's work), with host == nullptr it is zeroed.
+int decode_rollout_stamps(unsigned long long* host, int* dims) {
+  using namespace rollout;
+  dims[0] = STAMP_T0;
+  dims[1] = STAMP_STEPS;
+  dims[2] = STAMP_STAGES;
+  dims[3] = STAMP_GRID;
+  if (host) return (int)cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps));
+  void* at = nullptr;
+  int err = (int)cudaGetSymbolAddress(&at, g_stamps);
+  if (err) return err;
+  return (int)cudaMemset(at, 0, sizeof(g_stamps));
+}
+#endif
 
 }  // extern "C"

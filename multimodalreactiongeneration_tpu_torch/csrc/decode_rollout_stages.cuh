@@ -1,8 +1,8 @@
 // Device stages of the persistent decode-rollout kernel
 // (decode_rollout.cu). Every stage runs on all blocks of the grid;
-// stages are separated by grid barriers. Activations that cross a
-// barrier live in an FP32 scratch in device memory (L2-resident) and
-// are read with __ldcg so no stale L1 line is ever used.
+// stages are separated by grid barriers (GridSync). Activations that
+// cross a barrier live in an FP32 scratch in device memory (L2-resident)
+// and are read with __ldcg so no stale L1 line is ever used.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -17,7 +17,6 @@ constexpr int HD = HEADS * H;    // folded attention width
 constexpr int BT = 16;           // batch rows per launch
 constexpr int NT = 256;          // threads per block
 constexpr int NW = NT / 32;      // warps per block
-constexpr int CH = 128;          // ring slots per logits work unit
 constexpr int SMAX = 2048;       // longest ring
 constexpr float LN_EPS = 1e-5f;
 constexpr float NEG = -1e30f;
@@ -46,25 +45,24 @@ __device__ __forceinline__ float ldw(const __nv_bfloat16* p) {
   return __bfloat162float(
       __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
 }
-// rings: written in-kernel, read through L2
-// 2 consecutive ring elements (aligned to their pair)
-__device__ __forceinline__ float2 ldr2(const float* p) {
-  return __ldcg(reinterpret_cast<const float2*>(p));
+// rings: written in-kernel, read through L2. Eight consecutive ring
+// elements (16-byte aligned) load packed, 16 bytes in bf16 and 32 in
+// f32, and unpack to FP32 where they are used, so a lane keeps more rows
+// in flight for the same registers.
+template <typename T> struct Pack8;
+template <> struct Pack8<__nv_bfloat16> { uint4 u; };
+template <> struct Pack8<float> { float4 a, b; };
+__device__ __forceinline__ void ldpack(const __nv_bfloat16* p,
+                                       Pack8<__nv_bfloat16>& x) {
+  x.u = __ldcg(reinterpret_cast<const uint4*>(p));
 }
-__device__ __forceinline__ float2 ldr2(const __nv_bfloat16* p) {
-  const unsigned int u = __ldcg(reinterpret_cast<const unsigned int*>(p));
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+__device__ __forceinline__ void ldpack(const float* p, Pack8<float>& x) {
+  x.a = __ldcg(reinterpret_cast<const float4*>(p));
+  x.b = __ldcg(reinterpret_cast<const float4*>(p + 4));
 }
-// 8 consecutive ring elements (16-byte aligned)
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  const float4 a = __ldcg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldcg(reinterpret_cast<const float4*>(p + 4));
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
-  const uint4 u = __ldcg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+__device__ __forceinline__ void unpack(const Pack8<__nv_bfloat16>& x,
+                                       float v[8]) {
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&x.u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h2[i]);
@@ -72,6 +70,13 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
     v[2 * i + 1] = f.y;
   }
 }
+__device__ __forceinline__ void unpack(const Pack8<float>& x, float v[8]) {
+  v[0] = x.a.x; v[1] = x.a.y; v[2] = x.a.z; v[3] = x.a.w;
+  v[4] = x.b.x; v[5] = x.b.y; v[6] = x.b.z; v[7] = x.b.w;
+}
+// packed rows in flight per lane in the attention loops: 32 registers
+template <typename T>
+constexpr int ROWS_INFLIGHT = sizeof(T) == 2 ? 8 : 4;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -84,31 +89,112 @@ __device__ __forceinline__ float warp_max(float v) {
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
+// The warp sums of four values at once, in 6 shuffles instead of 20:
+// lane l ends with the sum over all lanes of v[(l >> 3) & 3].
+__device__ __forceinline__ float sum4_by_lane(const float v[4]) {
+  const int lane = threadIdx.x & 31;
+  const bool hi = lane & 16, mid = lane & 8;
+  float k0 = hi ? v[2] : v[0], k1 = hi ? v[3] : v[1];
+  k0 += __shfl_xor_sync(0xffffffffu, hi ? v[0] : v[2], 16);
+  k1 += __shfl_xor_sync(0xffffffffu, hi ? v[1] : v[3], 16);
+  float k = mid ? k1 : k0;
+  k += __shfl_xor_sync(0xffffffffu, mid ? k0 : k1, 8);
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) k += __shfl_xor_sync(0xffffffffu, k, o);
+  return k;
+}
 __device__ __forceinline__ float sigmoid_(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
 // ---- grid barrier ----------------------------------------------------
 // The launch is cooperative, so every block is resident and a counter
-// barrier is safe. bar[0] counts arrivals, bar[1] is the generation.
-__device__ __forceinline__ void grid_sync(unsigned int* bar,
-                                          unsigned int& gen) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    ++gen;
-    if (atomicAdd(&bar[0], 1u) == gridDim.x - 1) {
-      atomicExch(&bar[0], 0u);
-      __threadfence();
-      atomicExch(&bar[1], gen);
-    } else {
-      while (*reinterpret_cast<volatile unsigned int*>(&bar[1]) < gen) {
-      }
-    }
-    __threadfence();
-  }
-  __syncthreads();
+// barrier is safe. bar[0] counts arrivals over the whole launch (zeroed
+// by the wrapper), bar[1] is the generation the last arrival released.
+// Thread 0 of each block arrives with a release add and waits with
+// acquire loads; the block's __syncthreads on either side orders its
+// other threads' writes and reads (release and acquire are cumulative).
+//
+// Built with -DROLLOUT_STAMPS (a build only a measuring tool asks for),
+// each block also stamps %globaltimer as it arrives and as it leaves,
+// with the units of work it ran in the stage, for steps [STAMP_T0,
+// STAMP_T0 + STAMP_STEPS); decode_rollout_stamps() reads them back.
+#ifdef ROLLOUT_STAMPS
+constexpr int STAMP_T0 = 240, STAMP_STEPS = 8, STAMP_STAGES = 64;
+constexpr int STAMP_GRID = 160;
+__device__ unsigned long long
+    g_stamps[STAMP_STEPS][STAMP_STAGES][STAMP_GRID][3];
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
+#endif
+
+struct GridSync {
+  unsigned int* bar;
+  unsigned int gen;
+#ifdef ROLLOUT_STAMPS
+  int step, stage;
+#endif
+
+  __device__ explicit GridSync(unsigned int* b) : bar(b), gen(0) {
+#ifdef ROLLOUT_STAMPS
+    step = -1;
+    stage = 0;
+#endif
+  }
+
+  __device__ void begin_step(int t) {
+#ifdef ROLLOUT_STAMPS
+    step = t - STAMP_T0;
+    stage = 0;
+#endif
+  }
+
+  // Every block waits here until all have arrived. `units` is the number
+  // of work units of the stage that ends here (block u % grid runs unit u).
+  __device__ void operator()(int units) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+#ifdef ROLLOUT_STAMPS
+      const unsigned long long t_arrive = globaltimer();
+#endif
+      ++gen;
+      unsigned int arrived;
+      asm volatile("atom.add.release.gpu.global.u32 %0, [%1], 1;"
+                   : "=r"(arrived)
+                   : "l"(bar)
+                   : "memory");
+      if (arrived + 1 == gen * gridDim.x) {
+        asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(bar + 1),
+                     "r"(gen)
+                     : "memory");
+      } else {
+        unsigned int seen;
+        do {
+          asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                       : "=r"(seen)
+                       : "l"(bar + 1)
+                       : "memory");
+        } while (seen < gen);
+      }
+#ifdef ROLLOUT_STAMPS
+      if (step >= 0 && step < STAMP_STEPS && stage < STAMP_STAGES &&
+          blockIdx.x < STAMP_GRID) {
+        unsigned long long* st = g_stamps[step][stage][blockIdx.x];
+        st[0] = t_arrive;
+        st[1] = globaltimer();
+        st[2] = units > (int)blockIdx.x
+                    ? (units - blockIdx.x + gridDim.x - 1) / gridDim.x
+                    : 0;
+      }
+      ++stage;
+#endif
+    }
+    __syncthreads();
+  }
+};
 
 // ---- prologues: stage a (BT x K) activation in shared memory ----------
 // Loops that read L2 issue a batch of independent loads before using
@@ -116,7 +202,7 @@ __device__ __forceinline__ void grid_sync(unsigned int* bar,
 // each time, and at 16 rows these stages are latency-bound.
 constexpr int INFLIGHT = 8;
 constexpr int MM_INFLIGHT = 16;   // weight loads per lane in a matmul
-constexpr int CTX_INFLIGHT = 16;  // ring loads per lane in the context sum
+constexpr int CTX_INFLIGHT = 16;  // logit loads per thread for the weights
 
 // A split-K matmul stage leaves P partial sums of its output, BT x N
 // apart, that the next stage's prologue adds up (P is a template
@@ -320,12 +406,13 @@ __device__ void cell_group(const float* act, const T* __restrict__ wih,
   __syncthreads();
 }
 
-// ---- attention, pass 1: logits of ring slots [CH*ch, CH*ch + CH) -------
+// ---- attention, pass 1: logits of ring slots [cs*ch, cs*ch + cs) -------
 // for one dialog b and all heads, plus the chunk's max and sum of exp.
+// The chunk size cs is the host's (ops/decode_rollout.py logit_chunk).
 // The folded query is rounded to the ring type; products sum in FP32.
 template <typename T>
 __device__ void logits_unit(const T* ring, int S, int vis, const float* q,
-                            int b, int ch, int nch, float scale,
+                            int b, int ch, int cs, int nch, float scale,
                             float* logit, float* stat, float* lg_sm) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float qr[HEADS][8];
@@ -334,39 +421,36 @@ __device__ void logits_unit(const T* ring, int S, int vis, const float* q,
 #pragma unroll
     for (int i = 0; i < 8; ++i)
       qr[h][i] = rnd<T>(__ldcg(q + (size_t)b * HD + h * H + lane * 8 + i));
-  const int s0 = ch * CH, s1 = min(s0 + CH, S);
-  constexpr int SB = INFLIGHT / 2;  // slots loaded per batch
+  const int s0 = ch * cs, s1 = min(s0 + cs, S);
+  constexpr int SB = ROWS_INFLIGHT<T>;  // slots a warp loads per batch
   for (int sb = s0 + warp; sb < s1; sb += SB * NW) {
-    float v[SB][8];
+    Pack8<T> v[SB];
 #pragma unroll
     for (int j = 0; j < SB; ++j) {
       const int s = sb + j * NW;
       if (s < s1 && s < vis)
-        load8(ring + ((size_t)b * S + s) * H + lane * 8, v[j]);
+        ldpack(ring + ((size_t)b * S + s) * H + lane * 8, v[j]);
     }
 #pragma unroll
     for (int j = 0; j < SB; ++j) {
       const int s = sb + j * NW;
       if (s >= s1) continue;
-      float d[HEADS];
+      float d = NEG;  // head lane / 8's logit, in lanes 0, 8, 16, 24
       if (s < vis) {
+        float x[8], part[HEADS];
+        unpack(v[j], x);
 #pragma unroll
         for (int h = 0; h < HEADS; ++h) {
-          float acc = 0.f;
+          part[h] = 0.f;
 #pragma unroll
-          for (int i = 0; i < 8; ++i) acc = fmaf(qr[h][i], v[j][i], acc);
-          d[h] = warp_sum(acc) * scale;
+          for (int i = 0; i < 8; ++i) part[h] = fmaf(qr[h][i], x[i], part[h]);
         }
-      } else {
-#pragma unroll
-        for (int h = 0; h < HEADS; ++h) d[h] = NEG;
+        d = sum4_by_lane(part) * scale;
       }
-      if (lane == 0) {
-#pragma unroll
-        for (int h = 0; h < HEADS; ++h) {
-          lg_sm[h * CH + s - s0] = d[h];
-          __stcg(logit + ((size_t)b * HEADS + h) * S + s, d[h]);
-        }
+      if ((lane & 7) == 0) {
+        const int h = lane >> 3;
+        lg_sm[h * cs + s - s0] = d;
+        __stcg(logit + ((size_t)b * HEADS + h) * S + s, d);
       }
     }
   }
@@ -374,10 +458,10 @@ __device__ void logits_unit(const T* ring, int S, int vis, const float* q,
   if (warp < HEADS) {
     const int h = warp, n = s1 - s0;
     float mx = LOWEST;
-    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, lg_sm[h * CH + j]);
+    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, lg_sm[h * cs + j]);
     mx = warp_max(mx);
     float sum = 0.f;
-    for (int j = lane; j < n; j += 32) sum += expf(lg_sm[h * CH + j] - mx);
+    for (int j = lane; j < n; j += 32) sum += expf(lg_sm[h * cs + j] - mx);
     sum = warp_sum(sum);
     if (lane == 0) {
       float* st = stat + (((size_t)b * HEADS + h) * nch + ch) * 2;
@@ -389,10 +473,13 @@ __device__ void logits_unit(const T* ring, int S, int vis, const float* q,
 }
 
 // ---- attention, pass 2: softmax weights and the context sum -----------
-// for dialog b, all heads, raw columns [64kg, 64kg + 64), two per lane
-// (one round of units for 16 dialogs and two rings). The weights
-// are rounded to the ring type before the sum, as in the TPU kernel.
-// Slots at or past `vis` carry weight exactly 0 and are skipped.
+// for dialog b, all heads, raw columns [64kg, 64kg + 64) (one round of
+// units for 16 dialogs and two rings). The weights are rounded to the
+// ring type before the sum, as in the TPU kernel. Slots at or past `vis`
+// carry weight exactly 0 and are skipped. In the sum, lane l loads 8
+// columns (8 (l % 8)) of slot (4 warp + l / 8) of each group of 32 slots,
+// ROWS_INFLIGHT groups per batch; the four lanes of a column group then
+// add their partial sums.
 template <typename T>
 __device__ void context_unit(const T* ring, int S, int vis,
                              const float* logit, const float* stat, int nch,
@@ -412,16 +499,16 @@ __device__ void context_unit(const T* ring, int S, int vis,
     }
   }
   __syncthreads();
-  for (int i0 = tid; i0 < HEADS * vis; i0 += NT * INFLIGHT) {
-    float lg[INFLIGHT];
+  for (int i0 = tid; i0 < HEADS * vis; i0 += NT * CTX_INFLIGHT) {
+    float lg[CTX_INFLIGHT];
 #pragma unroll
-    for (int j = 0; j < INFLIGHT; ++j) {
+    for (int j = 0; j < CTX_INFLIGHT; ++j) {
       const int i = i0 + j * NT;
       if (i < HEADS * vis)
         lg[j] = __ldcg(logit + ((size_t)b * HEADS + i / vis) * S + i % vis);
     }
 #pragma unroll
-    for (int j = 0; j < INFLIGHT; ++j) {
+    for (int j = 0; j < CTX_INFLIGHT; ++j) {
       const int i = i0 + j * NT;
       if (i >= HEADS * vis) continue;
       const int h = i / vis;
@@ -429,33 +516,48 @@ __device__ void context_unit(const T* ring, int S, int vis,
     }
   }
   __syncthreads();
-  const int k = kg * 64 + 2 * lane;
-  float2 acc[HEADS];
+  constexpr int J = ROWS_INFLIGHT<T>;
+  const int cg = lane & 7, sub = lane >> 3;
+  const T* rb = ring + (size_t)b * S * H + kg * 64 + cg * 8;
+  float acc[HEADS][8];
 #pragma unroll
-  for (int h = 0; h < HEADS; ++h) acc[h] = make_float2(0.f, 0.f);
-  for (int s0 = warp; s0 < vis; s0 += NW * CTX_INFLIGHT) {
-    float2 v[CTX_INFLIGHT];
+  for (int h = 0; h < HEADS; ++h)
 #pragma unroll
-    for (int j = 0; j < CTX_INFLIGHT; ++j) {
-      const int s = s0 + j * NW;
-      if (s < vis) v[j] = ldr2(ring + ((size_t)b * S + s) * H + k);
+    for (int i = 0; i < 8; ++i) acc[h][i] = 0.f;
+  for (int base = warp * 4 + sub; base < vis; base += 32 * J) {
+    Pack8<T> v[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int s = base + 32 * j;
+      if (s < vis) ldpack(rb + (size_t)s * H, v[j]);
     }
 #pragma unroll
-    for (int j = 0; j < CTX_INFLIGHT; ++j) {
-      const int s = s0 + j * NW;
+    for (int j = 0; j < J; ++j) {
+      const int s = base + 32 * j;
       if (s >= vis) continue;
+      float x[8];
+      unpack(v[j], x);
 #pragma unroll
       for (int h = 0; h < HEADS; ++h) {
         const float w = wsm[h * SMAX + s];
-        acc[h].x = fmaf(w, v[j].x, acc[h].x);
-        acc[h].y = fmaf(w, v[j].y, acc[h].y);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[h][i] = fmaf(w, x[i], acc[h][i]);
       }
     }
   }
 #pragma unroll
-  for (int h = 0; h < HEADS; ++h) {
-    red[(warp * HEADS + h) * 64 + 2 * lane] = acc[h].x;
-    red[(warp * HEADS + h) * 64 + 2 * lane + 1] = acc[h].y;
+  for (int h = 0; h < HEADS; ++h)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      acc[h][i] += __shfl_xor_sync(0xffffffffu, acc[h][i], 8);
+      acc[h][i] += __shfl_xor_sync(0xffffffffu, acc[h][i], 16);
+    }
+  if (sub == 0) {
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        red[(warp * HEADS + h) * 64 + cg * 8 + i] = acc[h][i];
   }
   __syncthreads();
   static_assert(HEADS * 64 == NT, "one context output per thread");

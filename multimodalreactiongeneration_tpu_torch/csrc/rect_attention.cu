@@ -15,42 +15,66 @@
 //
 // Bound, at the flagship audio integrator (B32, Lq 252, Lk 2016, E 256,
 // 4 heads, Dh 64): the forward does 4*B*H*Lq*Lk*Dh = 16.6 GFLOP dense, 8.3
-// GFLOP over the keys the causal mask leaves, against 67 TFLOP/s of FP32
-// (0.12 ms); it moves q, k, v and the context once, ~150 MB against
-// 3.35 TB/s (0.045 ms). It is bound by FP32 operations, not bytes.
+// GFLOP over the keys the causal mask leaves. On the tensor cores in
+// 3xTF32 that is three TF32 passes at 495 TFLOP/s (0.05 ms); it moves q,
+// k, v and the context once, ~150 MB against 3.35 TB/s (0.045 ms). The
+// backward's 20.8 GFLOP run as FP32 FMAs at 67 TFLOP/s (0.31 ms).
 //
 // Design. The TPU kernel keeps a 128-row q block's logits for the whole
 // key range in VMEM (~1 MB per head); no SM holds that. So:
-//   * forward: one block per (q tile of 64 rows, head, batch) streams
-//     64-key tiles of K and V through shared memory with an online
-//     softmax (running max and sum in registers), and stops at the last
-//     key the causal mask leaves visible to the tile, about half the
-//     audio keys. A tile that holds a fully masked row reads every key,
-//     since that row averages over all of them. Key columns past Lk are
-//     excluded outright, not given -1e30. Under grad it writes each row's
-//     max and sum, (B, H, Lq) each, for the backward;
+//   * forward: one block of 4 warps per (q tile of 64 rows, head, batch);
+//     each warp owns 16 q rows and streams 64-key tiles of K and V with
+//     an online softmax (running max and sum in registers, FP32), and
+//     the block stops at the last key the causal mask leaves visible to
+//     the tile, about half the audio keys. A tile that holds a fully
+//     masked row reads every key, since that row averages over all of
+//     them. Key columns past Lk are excluded outright, not given -1e30.
+//     Under grad it writes each row's max and sum, (B, H, Lq) each, for
+//     the backward. Both products, S = Q K^T and O += P V, run on the
+//     tensor cores in 3xTF32 (tf32x3.cuh: mma.sync.m16n8k8, FP32
+//     accumulation in a fixed order), so the result holds to the f32
+//     plain path. The warp keeps its Q fragments (hi and lo) in
+//     registers for the whole key loop. K and V tiles stream through a
+//     two-stage ring in shared memory by 16-byte cp.async, so tile j+1
+//     loads while tile j is multiplied. P never leaves registers: the
+//     accumulator of S holds keys 2q and 2q+1 of each 8-key group in
+//     thread q of a quad, and P V reads them as the A fragment's columns
+//     q and q+4, with V's rows taken in the same order (a permutation of
+//     the sum over keys). Shared rows are Dh+4 floats, so the fragment
+//     reads of K (row g, column q) and of V (rows 2q, 2q+1, column g) hit
+//     32 different banks. Blocks of the longest key ranges start first;
 //   * backward: D = rowsum(dO * O) in a small pre-pass; dK/dV with one
 //     block per (key tile, head, batch) looping over the q tiles that can
 //     see it, recomputing P from the saved max and sum; dQ in a second
 //     pass with one block per q tile looping over its visible key tiles.
 //     No atomics: the result is deterministic. dS is zero where the mask
 //     is set, as autograd through the plain masked_fill gives it.
-// Arithmetic is FP32 FMAs (SIMT), so the result holds to the f32 plain
-// path; tensor-core (3xTF32, bf16) versions are later work. Each thread
-// of a 16 x 16 block owns 4 rows (ty*4 + r) and 4 strided columns
-// (tx + 16*c) of every 64 x 64 tile; shared rows are padded to 65 floats
-// so that every shared read is conflict-free or a broadcast.
+//     Arithmetic is FP32 FMAs (SIMT). Each thread of a 16 x 16 block owns
+//     4 rows (ty*4 + r) and 4 strided columns (tx + 16*c) of every 64 x
+//     64 tile; shared rows are padded to 65 floats so that every shared
+//     read is conflict-free or a broadcast.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
 constexpr int BM = 64;          // rows of a q tile and of a key tile
 constexpr int LD = BM + 1;      // shared row stride
 constexpr int TILE = BM * LD;   // floats of one shared tile
-constexpr int THREADS = 256;    // 16 x 16
+constexpr int THREADS = 256;    // 16 x 16 (backward)
 constexpr float NEG = -1e30f;   // the plain path's masked logit
+
+// forward: FQ_WARPS warps of 16 q rows, FK-key tiles, F_STAGES in flight
+// (measured against 8 warps of a 128-row tile and against 3 stages: both
+// slower at the flagship's audio shape)
+constexpr int FQ_WARPS = 4;
+constexpr int FQ = 16 * FQ_WARPS;
+constexpr int FK = 64;
+constexpr int F_THREADS = 32 * FQ_WARPS;
+constexpr int F_STAGES = 2;
 
 // keys visible to query row i: j*Lq < (i+1)*Lk, i.e. ceil((i+1)*Lk/Lq)
 __device__ __forceinline__ int visible(int i, int Lq, int Lk) {
@@ -62,7 +86,7 @@ __device__ __forceinline__ int visible(int i, int Lq, int Lk) {
 __device__ int first_unpadded(const unsigned char* kp, int Lk, int* s_min) {
   if (threadIdx.x == 0) *s_min = Lk;
   __syncthreads();
-  for (int j = threadIdx.x; j < Lk; j += THREADS) {
+  for (int j = threadIdx.x; j < Lk; j += blockDim.x) {
     if (!kp[j]) {
       atomicMin(s_min, j);
       break;
@@ -72,11 +96,12 @@ __device__ int first_unpadded(const unsigned char* kp, int Lk, int* s_min) {
   return *s_min;
 }
 
-// does q tile [i0, i0+BM) hold a row whose every key is masked?
-__device__ bool tile_has_full_row(const unsigned char* qp, int i0, int Lq,
-                                  int Lk, int fu) {
+// does q tile [i0, i0+rows) hold a row whose every key is masked?
+// (rows <= blockDim.x)
+__device__ bool tile_has_full_row(const unsigned char* qp, int i0, int rows,
+                                  int Lq, int Lk, int fu) {
   bool full = false;
-  if (threadIdx.x < BM) {
+  if (threadIdx.x < rows) {
     int i = i0 + threadIdx.x;
     full = i < Lq && qp[i] && fu >= visible(i, Lq, Lk);
   }
@@ -147,8 +172,35 @@ __device__ __forceinline__ void tile_acc(const float* W, const float* X,
   }
 }
 
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// keys [j0, j0+FK) of one head's columns of k and v into a ring stage
+// (rows of DH+4 floats) by cp.async; rows past Lk are zeros
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void load_kv(float* ks, float* vs, const float* kb,
+                                        const float* vb, int j0, int Lk,
+                                        int E, int col0) {
+  constexpr int LDF = DH + 4, CPR = DH / 4;  // 16-byte chunks per row
+#pragma unroll
+  for (int c = threadIdx.x; c < FK * CPR; c += F_THREADS) {
+    const int r = c / CPR, d = (c % CPR) * 4, row = j0 + r;
+    const bool ok = row < Lk;
+    const size_t at = ok ? (size_t)row * E + col0 + d : 0;
+    cp_async16(ks + r * LDF + d, kb + at, ok);
+    cp_async16(vs + r * LDF + d, vb + at, ok);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(F_THREADS, 2)
     rect_attn_fwd(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v,
                   const unsigned char* __restrict__ qpad,
@@ -156,99 +208,176 @@ __global__ void __launch_bounds__(THREADS)
                   float* __restrict__ out, float* __restrict__ mrow,
                   float* __restrict__ lrow, int Lq, int Lk, int H,
                   float scale) {
-  constexpr int NC = DH / 16;
-  extern __shared__ float sm[];
-  float* Qs = sm;
-  float* Ks = Qs + TILE;
-  float* Vs = Ks + TILE;
-  float* Ps = Vs + TILE;
+  constexpr int LDF = DH + 4;    // shared row stride
+  constexpr int KS = DH / 8;     // k-steps of Q K^T
+  constexpr int NT = FK / 8;     // 8-key groups of a tile
+  constexpr int DT = DH / 8;     // 8-column groups of O
+  constexpr int STAGE = 2 * FK * LDF;  // floats of a ring stage (K, V)
+  extern __shared__ __align__(16) float ring[];
   __shared__ int s_fu;
-  const int i0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int i0 = (gridDim.x - 1 - blockIdx.x) * FQ;  // longest first
+  const int h = blockIdx.y, b = blockIdx.z;
   const int E = H * DH, col0 = h * DH;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* qb = q + (long long)b * Lq * E;
-  const float* kb = k + (long long)b * Lk * E;
-  const float* vb = v + (long long)b * Lk * E;
-  const unsigned char* qp = qpad + (long long)b * Lq;
-  const unsigned char* kp = kpad + (long long)b * Lk;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float* qb = q + (size_t)b * Lq * E;
+  const float* kb = k + (size_t)b * Lk * E;
+  const float* vb = v + (size_t)b * Lk * E;
+  const unsigned char* qp = qpad + (size_t)b * Lq;
+  const unsigned char* kp = kpad + (size_t)b * Lk;
 
   const int fu = first_unpadded(kp, Lk, &s_fu);
-  const int i_end = min(i0 + BM, Lq);
-  const int kend = tile_has_full_row(qp, i0, Lq, Lk, fu)
+  const int i_end = min(i0 + FQ, Lq);
+  const int kend = tile_has_full_row(qp, i0, FQ, Lq, Lk, fu)
                        ? Lk
                        : visible(i_end - 1, Lq, Lk);
-  load_tile<DH>(Qs, qb, i0, Lq, E, col0);
+  const int ntiles = (kend + FK - 1) / FK;
 
-  float m[4], l[4], o[4][NC];
-  int lim[4];
-  bool qpr[4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    int i = i0 + ty * 4 + r;
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-    lim[r] = i < Lq ? visible(i, Lq, Lk) : 0;
-    qpr[r] = i < Lq && qp[i];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) o[r][c] = 0.f;
+  for (int s = 0; s < F_STAGES - 1; ++s) {
+    if (s < ntiles) {
+      float* st = ring + s * STAGE;
+      load_kv<DH>(st, st + FK * LDF, kb, vb, s * FK, Lk, E, col0);
+    }
+    cp_async_commit();
   }
 
-  for (int j0 = 0; j0 < kend; j0 += BM) {
-    __syncthreads();  // the last tile's readers are done
-    load_tile<DH>(Ks, kb, j0, Lk, E, col0);
-    load_tile<DH>(Vs, vb, j0, Lk, E, col0);
-    __syncthreads();
-    float s[4][4];
-    tile_dot<DH>(Qs, Ks, ty, tx, s);
-    bool jin[4], kpj[4];
+  // this warp's rows r0 = i0 + 16 warp + g and r1 = r0 + 8: Q as A
+  // fragments (hi, lo), masks, running max and (per-thread partial) sum
+  const int r0 = i0 + warp * 16 + g, r1 = r0 + 8;
+  uint32_t qh[KS][4], ql[KS][4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      int j = j0 + tx + 16 * c;
-      jin[c] = j < Lk;
-      kpj[c] = jin[c] && kp[j];
-    }
+  for (int kk = 0; kk < KS; ++kk) {
+    const int d = col0 + kk * 8 + t4;
+    const float a[4] = {
+        r0 < Lq ? __ldg(qb + (size_t)r0 * E + d) : 0.f,
+        r1 < Lq ? __ldg(qb + (size_t)r1 * E + d) : 0.f,
+        r0 < Lq ? __ldg(qb + (size_t)r0 * E + d + 4) : 0.f,
+        r1 < Lq ? __ldg(qb + (size_t)r1 * E + d + 4) : 0.f};
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float mt = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        int j = j0 + tx + 16 * c;
-        float x = s[r][c] * scale;
-        if (j >= lim[r] || (qpr[r] && kpj[c])) x = NEG;
-        if (!jin[c]) x = -INFINITY;  // block padding: excluded
-        s[r][c] = x;
-        mt = fmaxf(mt, x);
-      }
-      float mnew = fmaxf(m[r], row_max16(mt));
-      float alpha = expf(m[r] - mnew);
-      float rs = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float p = expf(s[r][c] - mnew);
-        rs += p;
-        Ps[(ty * 4 + r) * LD + tx + 16 * c] = p;
-      }
-      l[r] = l[r] * alpha + row_sum16(rs);
-      m[r] = mnew;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) o[r][c] *= alpha;
-    }
-    __syncthreads();
-    tile_acc<NC, false>(Ps, Vs, ty, tx, o);
+    for (int c = 0; c < 4; ++c) split_tf32(a[c], qh[kk][c], ql[kk][c]);
   }
+  const int lim0 = r0 < Lq ? visible(r0, Lq, Lk) : 0;
+  const int lim1 = r1 < Lq ? visible(r1, Lq, Lk) : 0;
+  const bool qp0 = r0 < Lq && qp[r0], qp1 = r1 < Lq && qp[r1];
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float o[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[dt][c] = 0.f;
 
-  float* ob = out + (long long)b * Lq * E;
+  for (int jt = 0; jt < ntiles; ++jt) {
+    cp_async_wait<F_STAGES - 2>();
+    __syncthreads();  // tile jt landed; every warp is done with jt - 1's
+    const int nx = jt + F_STAGES - 1;
+    if (nx < ntiles) {
+      float* st = ring + (nx % F_STAGES) * STAGE;
+      load_kv<DH>(st, st + FK * LDF, kb, vb, nx * FK, Lk, E, col0);
+    }
+    cp_async_commit();
+    const float* ks = ring + (jt % F_STAGES) * STAGE;
+    const float* vs = ks + FK * LDF;
+    const int j0 = jt * FK;
+
+    // S = Q K^T: s[nt] is rows (g, g+8) x keys j0 + 8nt + (2t4, 2t4 + 1)
+    float s[NT][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    int i = i0 + ty * 4 + r;
-    if (i >= Lq) continue;
-    float inv = 1.f / l[r];
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      ob[(long long)i * E + col0 + tx + 16 * c] = o[r][c] * inv;
-    if (mrow != nullptr && tx == 0) {
-      mrow[((long long)b * H + h) * Lq + i] = m[r];
-      lrow[((long long)b * H + h) * Lq + i] = l[r];
+      for (int c = 0; c < 4; ++c) s[nt][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* kr = ks + (nt * 8 + g) * LDF + kk * 8 + t4;
+        uint32_t bh[2], bl[2];
+        split_tf32(kr[0], bh[0], bl[0]);
+        split_tf32(kr[4], bh[1], bl[1]);
+        mma_3xtf32(s[nt], qh[kk], ql[kk], bh, bl);
+      }
+
+    // scale and mask as the plain path; the tile's row maxima
+    float mt0 = -INFINITY, mt1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int j = j0 + nt * 8 + 2 * t4 + c;
+        const bool jin = j < Lk;
+        const bool kpj = jin && kp[j];
+        float x0 = s[nt][c] * scale, x1 = s[nt][2 + c] * scale;
+        if (j >= lim0 || (qp0 && kpj)) x0 = NEG;
+        if (j >= lim1 || (qp1 && kpj)) x1 = NEG;
+        if (!jin) x0 = x1 = -INFINITY;  // block padding: excluded
+        s[nt][c] = x0;
+        s[nt][2 + c] = x1;
+        mt0 = fmaxf(mt0, x0);
+        mt1 = fmaxf(mt1, x1);
+      }
+    const float mn0 = fmaxf(m0, quad_max(mt0));
+    const float mn1 = fmaxf(m1, quad_max(mt1));
+    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= al0;
+    l1 *= al1;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      o[dt][0] *= al0;
+      o[dt][1] *= al0;
+      o[dt][2] *= al1;
+      o[dt][3] *= al1;
+    }
+
+    // O += P V over the tile's keys, 8 at a time: the S accumulator of
+    // group nt is the A fragment of keys (2 t4 -> column t4, 2 t4 + 1 ->
+    // column t4 + 4), and V's rows are read in that order
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float p0 = expf(s[nt][0] - m0), p1 = expf(s[nt][1] - m0);
+      const float p2 = expf(s[nt][2] - m1), p3 = expf(s[nt][3] - m1);
+      l0 += p0 + p1;
+      l1 += p2 + p3;
+      uint32_t ph[4], pl[4];
+      split_tf32(p0, ph[0], pl[0]);
+      split_tf32(p2, ph[1], pl[1]);
+      split_tf32(p1, ph[2], pl[2]);
+      split_tf32(p3, ph[3], pl[3]);
+      const float* vr = vs + (nt * 8 + 2 * t4) * LDF + g;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        uint32_t bh[2], bl[2];
+        split_tf32(vr[dt * 8], bh[0], bl[0]);
+        split_tf32(vr[LDF + dt * 8], bh[1], bl[1]);
+        mma_3xtf32(o[dt], ph, pl, bh, bl);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  float* ob = out + (size_t)b * Lq * E + col0 + 2 * t4;
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    if (r0 < Lq)
+      *reinterpret_cast<float2*>(ob + (size_t)r0 * E + dt * 8) =
+          make_float2(o[dt][0] * inv0, o[dt][1] * inv0);
+    if (r1 < Lq)
+      *reinterpret_cast<float2*>(ob + (size_t)r1 * E + dt * 8) =
+          make_float2(o[dt][2] * inv1, o[dt][3] * inv1);
+  }
+  if (mrow != nullptr && t4 == 0) {
+    const size_t at = ((size_t)b * H + h) * Lq;
+    if (r0 < Lq) {
+      mrow[at + r0] = m0;
+      lrow[at + r0] = l0;
+    }
+    if (r1 < Lq) {
+      mrow[at + r1] = m1;
+      lrow[at + r1] = l1;
     }
   }
 }
@@ -376,7 +505,8 @@ __global__ void __launch_bounds__(THREADS)
   const int nqt = (Lq + BM - 1) / BM;
   for (int qt = 0; qt < nqt; ++qt) {
     const int i0 = qt * BM;
-    if (qt < q_first && !tile_has_full_row(qp, i0, Lq, Lk, fu)) continue;
+    if (qt < q_first && !tile_has_full_row(qp, i0, BM, Lq, Lk, fu))
+      continue;
     __syncthreads();  // the last tile's readers are done
     load_tile<DH>(Qs, qb, i0, Lq, E, col0);
     load_tile<DH>(Gs, gb, i0, Lq, E, col0);
@@ -493,11 +623,11 @@ int forward(const float* q, const float* k, const float* v,
             const unsigned char* qpad, const unsigned char* kpad, float* out,
             float* mrow, float* lrow, int B, int Lq, int Lk, int H,
             cudaStream_t stream) {
-  const int smem = 4 * TILE * (int)sizeof(float);
+  const int smem = F_STAGES * 2 * FK * (DH + 4) * (int)sizeof(float);
   cudaError_t err = set_smem(rect_attn_fwd<DH>, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Lq + BM - 1) / BM, H, B);
-  rect_attn_fwd<DH><<<grid, THREADS, smem, stream>>>(
+  dim3 grid((Lq + FQ - 1) / FQ, H, B);
+  rect_attn_fwd<DH><<<grid, F_THREADS, smem, stream>>>(
       q, k, v, qpad, kpad, out, mrow, lrow, Lq, Lk, H, rsqrtf((float)DH));
   return (int)cudaGetLastError();
 }

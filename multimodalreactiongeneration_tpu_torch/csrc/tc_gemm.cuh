@@ -7,14 +7,9 @@
 // einsums at Precision.HIGHEST) and of K9's (_bwd_kernel_fused in
 // pallas_lstm_stacked.py).
 //
-// Why 3xTF32. The weight gradients are sums over 10^4 to 3 x 10^5 rows of
-// products of both signs, and they cancel heavily: one TF32 pass (10-bit
-// mantissas) misses the 1e-3 gate. Each FP32 operand x is split into
-// hi = tf32(x) and lo = tf32(x - hi) (cvt.rna: round to nearest, ties
-// away), and hi*hi + hi*lo + lo*hi is summed in FP32 by
-// mma.sync.m16n8k8 (TF32 in, FP32 accumulate): the dropped lo*lo and the
-// rounding of lo are ~2^-22 of a product, FP32's own order. Three TF32
-// products cost 3/495 of a TFLOP/s each, against FP32 SIMT at 67.
+// Why 3xTF32 (tf32x3.cuh). The weight gradients are sums over 10^4 to
+// 3 x 10^5 rows of products of both signs, and they cancel heavily: one
+// TF32 pass (10-bit mantissas) misses the 1e-3 gate.
 //
 // Layout. Blocks of 128 threads compute a 64 x 64 tile of C, 16 rows of
 // the sum at a time; each warp computes 32 x 32 as 2 x 4 m16n8 tiles.
@@ -33,6 +28,7 @@
 #pragma once
 
 #include "lstm_cluster_bwd.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -42,39 +38,6 @@ constexpr int TC_LDK = TC_BM + 8;  // k-major tile: [TC_BK][TC_LDK]
 constexpr int TC_LDX = TC_BK + 4;  // m-/n-major tile: [64][TC_LDX]
 constexpr int TC_TILE = TC_BM * TC_LDX;  // floats of a stage (the larger)
 static_assert(TC_BM == TC_BN, "one tile shape for both operands");
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 16 bytes global -> shared; zeros where !ok (nothing is read)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N));
-}
 
 // element (k, x) of a staged tile, x the row of A (m) or column of B (n)
 template <bool KMAJOR>
@@ -181,11 +144,8 @@ __global__ void __launch_bounds__(TC_THREADS) tc_gemm_kernel(
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          mma_tf32(acc[i][j], al[i], bh[j]);
-          mma_tf32(acc[i][j], ah[i], bl[j]);
-          mma_tf32(acc[i][j], ah[i], bh[j]);
-        }
+        for (int j = 0; j < 4; ++j)
+          mma_3xtf32(acc[i][j], ah[i], al[i], bh[j], bl[j]);
     }
   }
   cp_async_wait<0>();

@@ -16,10 +16,11 @@ Weight folding (exact reassociations of ``TorchMHA.attend_raw``):
 
 ``decode_rollout`` launches ``csrc/decode_rollout.cu`` for CUDA tensors
 (its design is in the source note) and runs ``decode_rollout_reference``
-for CPU tensors. ``launches`` counts kernel launches. Numerics: f32
-state, LayerNorms, softmax and sums; matmul inputs rounded to the panel
-dtype; queries and softmax weights rounded to the ring dtype; masked
-logits at -1e30.
+for CPU tensors; ``logit_chunk`` sizes the ring chunks of the kernel's
+logits stage. ``launches`` counts kernel launches. Numerics: f32 state,
+LayerNorms, softmax and sums; matmul inputs rounded to the panel dtype;
+queries and softmax weights rounded to the ring dtype; masked logits at
+-1e30.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ BATCH_PER_LAUNCH = 16
 _KERNEL_HIDDEN = 256
 _KERNEL_HEADS = 4
 _KERNEL_MAX_RING = 2048
+_MAX_CHUNKS = 32  # per ring: one lane per chunk merges the statistics
 
 _W_KEYS = [
     "wih", "whh", "bg", "ln1g", "ln1b", "wef", "bef", "ln2g", "ln2b",
@@ -219,17 +221,45 @@ def decode_rollout_reference(
     return torch.stack(ys)
 
 
-def _lib():
+def logit_chunk(sa: int, sm: int, grid: int,
+                bt: int = BATCH_PER_LAUNCH) -> int:
+    """Ring slots per work unit of the kernel's logits stage (S4): each
+    of ``bt`` dialogs splits its audio ring (``sa`` slots) and motion ring
+    (``sm``) into chunks of this size, one unit per chunk, on ``grid``
+    blocks. A unit costs a fixed part (the query, the statistics) and
+    a part per slot, so the chunk (a multiple of 8, each ring in at most
+    32 chunks) takes the fewest rounds of units per block, then the
+    fewest slots. At the flagship's rings (1000, 125) on 132 blocks: 144
+    (8 chunks per dialog, 128 units, one round) where 128 gives 144
+    units and a second round."""
+    if grid < 1 or bt < 1 or not 0 < max(sa, sm) <= _KERNEL_MAX_RING:
+        raise ValueError(
+            f"logit_chunk: rings of 1 to {_KERNEL_MAX_RING} slots on at "
+            f"least one block (got {sa}, {sm}, grid {grid}, bt {bt})")
+    best = None
+    for cs in range(8, _KERNEL_MAX_RING + 8, 8):
+        na, nm = -(-sa // cs), -(-sm // cs)
+        if max(na, nm) > _MAX_CHUNKS:
+            continue
+        cost = (-(-bt * (na + nm) // grid), cs)
+        if best is None or cost < best[0]:
+            best = (cost, cs)
+    return best[1]
+
+
+def _lib(defines=()):
+    """The kernel's library; ``defines`` names a variant build (a
+    measuring tool's instrumented one), never asked for here."""
     from multimodalreactiongeneration_tpu_torch import _build
 
-    lib = _build.load("decode_rollout")
+    lib = _build.load("decode_rollout", defines)
     if not getattr(lib, "_typed", False):
         lib.decode_rollout_launch.argtypes = (
-            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 14
+            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 15
             + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.decode_rollout_launch.restype = ctypes.c_int
-        lib.decode_rollout_workspace_floats.argtypes = [ctypes.c_int] * 4
+        lib.decode_rollout_workspace_floats.argtypes = [ctypes.c_int] * 5
         lib.decode_rollout_workspace_floats.restype = ctypes.c_longlong
         lib._typed = True
     return lib
@@ -330,10 +360,12 @@ def decode_rollout(
             )
 
     lib = _lib()
+    chunk = logit_chunk(
+        sa, sm, torch.cuda.get_device_properties(dev).multi_processor_count)
     ring_a, ring_m = ca0.clone(), cm0.clone()  # updated in place
     ys = torch.empty(steps, batch, out_dim, dtype=torch.float32, device=dev)
     ws = torch.empty(
-        lib.decode_rollout_workspace_floats(nb, sa, sm, bneck),
+        lib.decode_rollout_workspace_floats(nb, sa, sm, bneck, chunk),
         dtype=torch.float32, device=dev,
     )
     wptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
@@ -352,7 +384,8 @@ def decode_rollout(
                 h0.data_ptr(), c0.data_ptr(), main0.data_ptr(),
                 ys.data_ptr(), ws.data_ptr(), bar.data_ptr(),
                 int(rdt == torch.bfloat16), steps, batch, b0, bt, nb, bneck,
-                out_dim, sa, sm, ratio, len_a0, len_m0, bud_m, scale, stream,
+                out_dim, sa, sm, chunk, ratio, len_a0, len_m0, bud_m, scale,
+                stream,
             )
             if rc != 0:
                 raise RuntimeError(

@@ -15,8 +15,9 @@ over all Lk keys (PARITY #4).
 tensors, where a gradient is needed, the autograd function runs the
 forward kernel with its softmax residuals and the backward kernels;
 otherwise the forward kernel alone, which writes no residuals. Both
-launch ``csrc/rect_attention.cu`` (f32 only; the design is in its source
-note). Launch counters: ``fwd_launches`` (one per forward call) and
+launch ``csrc/rect_attention.cu`` (f32 only; the forward's products on
+the tensor cores in 3xTF32, the backward in FP32 FMAs; the design is in
+its source note). Launch counters: ``fwd_launches`` (one per forward call) and
 ``bwd_launches`` (one per backward call, which runs the source's three
 backward kernels in turn).
 """
@@ -120,6 +121,10 @@ def _check_args(name, heads, q, k, v, q_pad, k_pad):
                 f"{name}: expected contiguous {shape}, got {tuple(x.shape)} "
                 f"(contiguous={x.is_contiguous()})"
             )
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError(
+            f"{name}: q, k and v must start on 16-byte boundaries (the "
+            f"forward copies them 16 bytes at a time)")
     if e % heads or e // heads not in HEAD_DIMS:
         raise ValueError(
             f"{name} kernel takes head dims {HEAD_DIMS}; got E={e}, "

@@ -42,3 +42,28 @@ def test_library_name_follows_sources_and_headers(monkeypatch, tmp_path):
 def test_shipped_kernel_sources_exist():
     for name in ("mixer_stack", "decode_rollout"):
         assert (_build.CSRC / f"{name}.cu").is_file()
+
+
+def test_a_variant_build_gets_a_library_and_a_compile_line_of_its_own(
+        monkeypatch, tmp_path):
+    """A measuring tool's -D build (K2's stamps) never replaces the
+    library the wrappers load, and its compile line carries the define."""
+    (tmp_path / "k.cu").write_text("// kernel\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    plain, stamped = _build._lib_path("k"), _build._lib_path("k", ("S",))
+    assert plain != stamped
+    assert stamped == _build._lib_path("k", ("S",))
+    calls = []
+
+    def fake_run(cmd, capture_output, text):
+        calls.append(cmd)
+        out = cmd[cmd.index("-o") + 1]
+        open(out, "w").close()
+        return type("P", (), {"returncode": 0, "stdout": "", "stderr": ""})
+
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", fake_run)
+    assert _build.build("k", ("S",)) == stamped and stamped.is_file()
+    assert "-DS" in calls[0] and not plain.exists()
+    assert (tmp_path / "_build" / "k-S.log").is_file()

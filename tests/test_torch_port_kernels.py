@@ -419,6 +419,155 @@ def test_rect_attention_kernel_refuses_bf16_and_other_head_dims(dev):
         K5.rect_attention(4, q, k, v, q_pad, k_pad)
 
 
+def _rect_holds_to_plain(dev, heads, q, k, v, q_pad, k_pad, g):
+    """The forward (no grad, and with residuals under grad) <= TOL of the
+    plain version, K6's gradients through it within GRAD_REL_TOL of the
+    largest plain gradient of the three (at Lk 1 dq and dk are exactly
+    zero), two forward launches and one backward."""
+    from multimodalreactiongeneration_tpu_torch.ops import rect_attention as K5
+
+    want = K5.rect_attention_reference(heads, q, k, v, q_pad, k_pad)
+    before = K5.fwd_launches, K5.bwd_launches
+    with torch.no_grad():
+        got = K5.rect_attention(heads, q, k, v, q_pad, k_pad)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = K5.rect_attention(heads, *leaves, q_pad, k_pad)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (K5.fwd_launches, K5.bwd_launches) == (before[0] + 2,
+                                                  before[1] + 1)
+    assert float((got - want).abs().max()) <= TOL
+    assert float((out.detach() - want).abs().max()) <= TOL
+    wgrads = K5.rect_attention_backward_reference(heads, q, k, v, q_pad,
+                                                  k_pad, g)
+    largest = max(float(w.abs().max()) for w in wgrads)
+    for i, (gk, gw) in enumerate(zip(grads, wgrads)):
+        assert float((gk - gw).abs().max()) <= GRAD_REL_TOL * largest, i
+    return got
+
+
+@pytest.mark.parametrize("lq,lk", [
+    (1, 1), (1, 2016), (17, 63), (63, 17), (65, 129), (129, 65),
+    (2016, 129), (129, 2016),
+])
+def test_rect_attention_kernels_at_ragged_tiles(dev, lq, lk):
+    """Lq and Lk that are not multiples of the forward's 64-row q tile and
+    64-key tile."""
+    inputs = _rect_inputs(dev, 7 * lq + lk, 2, lq, lk, 128, full_row=False)
+    _rect_holds_to_plain(dev, 2, *inputs)
+
+
+def test_rect_attention_fully_masked_rows_beside_normal_rows(dev):
+    """Rows 3, 9 and 40 of batch 0 are padding and every key they see is
+    padding: each averages v over all Lk keys, while the other rows of
+    their q tile (rows 0-63) take the masked softmax."""
+    lq, lk = 100, 800
+    q, k, v, q_pad, k_pad, g = _rect_inputs(dev, 11, 2, lq, lk, 256,
+                                            full_row=False)
+    q_pad[0] = False
+    q_pad[0, [3, 9, 40]] = True
+    k_pad[0] = False
+    k_pad[0, :-(-41 * lk // lq)] = True
+    got = _rect_holds_to_plain(dev, 4, q, k, v, q_pad, k_pad, g)
+    mean = v[0].mean(dim=0)
+    for i in (3, 9, 40):
+        assert float((got[0, i] - mean).abs().max()) <= TOL
+    assert float((got[0, 4] - mean).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("lk", [2016, 252])
+def test_rect_attention_kernels_at_head_dim_32(dev, lk):
+    inputs = _rect_inputs(dev, lk, 4, 252, lk, 128)
+    _rect_holds_to_plain(dev, 4, *inputs)
+
+
+def _flagship_rollout(dev, batch, dtype, mode="teacher", frames=6):
+    from multimodalreactiongeneration_tpu_torch.configs import (
+        LSTMFORMER_MODEL_CFG,
+    )
+    from multimodalreactiongeneration_tpu_torch.infer import generate as G
+    from multimodalreactiongeneration_tpu_torch.models.lstmformer import (
+        Metaformer,
+    )
+
+    model = Metaformer(LSTMFORMER_MODEL_CFG,
+                       generator=torch.Generator().manual_seed(0), device=dev)
+    lead, ratio = 12, 8
+    rng = np.random.default_rng(batch + frames)
+    shapes = [(batch, frames * ratio, 81), (batch, frames, 18),
+              (batch, frames, 18), (batch, lead * ratio, 81),
+              (batch, lead, 18), (batch, lead, 18), (batch, frames, 18)]
+    data = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(dev) for s in shapes]
+    mask = G.sampling_mask_for(frames, mode, device=dev)
+    with torch.no_grad():
+        states, ea, em, ms, la, lm = G._hoist_and_warmup(model, data, dtype)
+        return G._fused_rollout_args(model, states, ea, em, ms, mask, dtype,
+                                     la, lm)
+
+
+@pytest.mark.parametrize("batch", [1, 16, 17, 64])
+def test_decode_rollout_kernel_at_batches(dev, batch):
+    """f32 kernel vs f32 plain, teacher-forced, one launch per 16 dialogs;
+    bf16 kernel vs the f32 plain version within the bf16 bound."""
+    args, kw = _flagship_rollout(dev, batch, torch.float32)
+    with torch.no_grad():
+        before = K2.launches
+        got = K2.decode_rollout(*args, **kw)
+        torch.cuda.synchronize()
+        assert K2.launches == before + (batch + 15) // 16
+        want = K2.decode_rollout_reference(*args, **kw)
+        assert float((got - want).abs().max()) <= TOL
+        a16, kw16 = _flagship_rollout(dev, batch, torch.bfloat16)
+        got16 = K2.decode_rollout(*a16, **kw16)
+    assert float((got16 - want).abs().max()) <= 5e-2
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL),
+                                       (torch.bfloat16, 5e-2)])
+def test_decode_rollout_kernel_across_ring_wrap(dev, dtype, tol):
+    """Rings of the flagship's 10 s context primed to within two steps of
+    their end: the audio ring (1000 slots, 8 per step) and the motion
+    ring (125) wrap during an 8-step rollout.
+    The kernel (in ``dtype``) against the f32 plain version on the same
+    numbers; the caller's rings stay as they were."""
+    from multimodalreactiongeneration_tpu_torch.configs import (
+        LSTMFORMER_MODEL_CFG,
+    )
+    from multimodalreactiongeneration_tpu_torch.models.lstmformer import (
+        Metaformer,
+    )
+
+    model = Metaformer(LSTMFORMER_MODEL_CFG,
+                       generator=torch.Generator().manual_seed(1), device=dev)
+    b, steps, ratio, h, sa, sm, nb = 16, 8, 8, 256, 1000, 125, 5
+    r = _rand(np.random.default_rng(5), dev)
+    f32 = dict(ca0=r(b, sa, h, s=0.5), cm0=r(b, sm, h, s=0.5),
+               enc_a_steps=r(steps, b, ratio, h, s=0.5),
+               enc_m_steps=r(steps, b, h, s=0.5))
+    state = (r(nb, b, h, s=0.3), r(nb, b, h, s=0.3), r(b, h), )
+    gt, mask = r(steps, b, h), torch.zeros(steps, device=dev)
+    mask[::3] = 1.0  # every third step feeds back the model's sample
+    kw = dict(heads=4, ratio=ratio, len_a0=sa - 2 * ratio, len_m0=sm - 2,
+              bud_m=sm)
+
+    def run(dt, fn):
+        folded = K2.fold_decode_params(model, nb, 4, mm_dtype=dt)
+        rings = {k: v.to(dt) for k, v in f32.items()}
+        kept = {k: v.clone() for k, v in rings.items()}
+        out = fn(folded, rings["ca0"], rings["cm0"], *state,
+                 rings["enc_a_steps"], rings["enc_m_steps"], gt, mask, **kw)
+        for k in rings:
+            assert torch.equal(rings[k], kept[k]), k
+        return out
+
+    with torch.no_grad():
+        want = run(torch.float32, K2.decode_rollout_reference)
+        got = run(dtype, K2.decode_rollout)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= tol
+
+
 @pytest.mark.parametrize("h", [128, 256])
 @pytest.mark.parametrize("t", [16, 17, 2016])
 def test_gru_kernels_match_plain(dev, t, h):
