@@ -20,7 +20,11 @@ Phases:
   2. mixer-stack inference kernel (K1) vs its plain version, f32, B16 x
      H256 x L5 at T2096 (audio encoder) and T262 (partner-motion
      encoder): <= 1e-4 (sums taken in another order over 5 x 2096
-     sequential cells);
+     sequential cells); the layer-lagged chunk schedule at the chunk
+     ``chunk_steps`` picks and at chunk = T (layer-major) timed in turns,
+     their outputs equal bit for bit, the chunk, rows per cluster,
+     clusters and the card's resident clusters printed, and a chunk
+     sweep on an earlier line;
   3. decode-rollout kernel (K2) vs its plain version at B16 x T250,
      teacher-forced: f32 kernel vs f32 plain <= 1e-4; bf16 kernel vs f32
      plain <= 5e-2 (the JAX package's bf16 drift bound);
@@ -29,12 +33,15 @@ Phases:
      finite, launch counts (K1 +2, K2 +1, the training kernels +0 per
      generation), time per generation; then a teacher-forced f32
      generation at batch 2 against the same weights and inputs on CPU
-     tensors (the all-plain path): <= 1e-4;
+     tensors (the all-plain path): <= 1e-4; the generation with the
+     stack's chunk schedule and at chunk = T, in turns;
   5. mixer-stack training forward (K3) and backward (K4) vs their plain
      versions (autograd through the plain forward), f32, B32 x H256 x L5
      at T2016 and T252, seeded random inputs, weights and cotangents:
      out, hn, cn <= 1e-4 abs; each of the twelve gradients
-     max|kernel - plain| / max|plain| <= 1e-3;
+     max|kernel - plain| / max|plain| <= 1e-3; K3 as K1 in phase 2:
+     sweep, the chosen chunk and chunk = T in turns, and out, hn, cn and
+     every residual plane equal bit for bit;
   6. LSTM-layer forward (K7, with and without residuals) and backward vs
      plain at B32 x T252 x din 256 x H256 (the Metaformer's self-motion
      LSTMs), B256 x T140 (lstm_with_sampling's blocks) and B256 x T120,
@@ -56,7 +63,10 @@ Phases:
      (K5 +10, K1 +2, K7 forward +5); one more training step under
      ``torch.profiler``: the device's busy share goes into the
      ``train_step`` record, and the table of kernels by device time into
-     ``_build/profile_train_step.txt`` of the package; then one SGD step
+     ``_build/profile_train_step.txt`` of the package, with the share of
+     the encoder stack's windows in which two or more layers'
+     recurrences ran at once; the step with the stack's chunk schedule
+     and at chunk = T in turns (ms, peak memory); then one SGD step
      (lr 1e-2, momentum 0.9) at B2 x T48 on the card and on CPU tensors
      from the same weights and batch: loss within 1e-5 relative, every
      parameter gradient within 1e-3 of its largest magnitude (floored at
@@ -188,6 +198,8 @@ CORPUS_SESSIONS, CORPUS_SECONDS = 4, 540.0
 # 120-frame fbank per window on the host (~9 ms a window on an H100
 # machine's host CPU), so it is sized for phase 21 to take about a minute
 V1_SESSIONS, V1_SECONDS = 2, 24.0
+# the encoder stack's chunk sweeps: audio and motion lengths
+SWEEP_LONG, SWEEP_SHORT = (16, 32, 64, 128), (16, 32, 64)
 DW0_FRAMES = 25  # the MRGEN_FUSED_DW=0 rollout
 LIBS = ("mixer_stack", "decode_rollout", "lstm_layer", "rect_attention",
         "lstm_stacked", "gru", "lstm_recurrence")
@@ -287,6 +299,93 @@ def rel_err(got, want):
                for g, w in zip(got, want))
 
 
+def chunk_sweep(fn, t, chunks, reps=3):
+    """ms of fn(chunk) at each chunk shorter than t and at t (CUDA
+    events, mean of ``reps`` after a warm-up)."""
+    return {c: cuda_ms(lambda: fn(c), reps)[0]
+            for c in sorted({c for c in chunks if c < t} | {t})}
+
+
+def in_turns(fn, a, b, reps=5):
+    """ms of fn(a) and fn(b) in turns (a, b, b, a; CUDA events, mean of
+    ``reps`` launches a turn after a warm-up): the mean of each and the
+    turns."""
+    turns = {a: [], b: []}
+    for x in (a, b, b, a):
+        turns[x].append(cuda_ms(lambda: fn(x), reps)[0])
+    return {x: float(np.mean(v)) for x, v in turns.items()}, turns
+
+
+def same_bits(xs, ys):
+    return all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+
+@contextlib.contextmanager
+def whole_sequence_chunks(K1):
+    """Inside, the stack forwards run at chunk = T (the layer-major
+    schedule) wherever the caller names no chunk."""
+    chosen = K1.chunk_steps
+    K1.chunk_steps = lambda b, t, h, layers: t
+    try:
+        yield
+    finally:
+        K1.chunk_steps = chosen
+
+
+def schedule_ab(K1, run, reps):
+    """Host-clock ms of ``run()`` to a synchronize with the stack's chunk
+    schedule and at chunk = T, in turns (chunked, whole, whole, chunked),
+    ``reps`` calls a turn after a warm-up, and the peak memory of each:
+    (means, every time, peak GiB)."""
+    times, peak = {"chunked": [], "whole": []}, {}
+    for key in ("chunked", "whole", "whole", "chunked"):
+        with (whole_sequence_chunks(K1) if key == "whole"
+              else contextlib.nullcontext()):
+            run()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times[key].append((time.perf_counter() - t0) * 1000)
+            peak[key] = max(peak.get(key, 0.0),
+                            torch.cuda.max_memory_allocated() / 2**30)
+    return {k: float(np.mean(v)) for k, v in times.items()}, times, peak
+
+
+def window_overlap(events):
+    """From a profile's device events, the stack's recurrence windows
+    (``lstm_window_kernel``): grouped into stack calls where the device
+    ran none of them for 0.5 ms, each call's window from its first start
+    to its last end; the share of the windows in which two or more
+    layers' recurrences ran at once, and in which at least one ran."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if "lstm_window_kernel" in e.name)
+    if not spans:
+        return None
+    calls, end = [], float("-inf")
+    for a, b in spans:
+        if a - end > 500:
+            calls.append([])
+        calls[-1].append((a, b))
+        end = max(end, b)
+    window = multi = single = 0.0
+    for call in calls:
+        window += max(b for _, b in call) - call[0][0]
+        marks = sorted([(a, 1) for a, _ in call] + [(b, -1) for _, b in call])
+        depth, last = 0, marks[0][0]
+        for x, d in marks:
+            if depth >= 2:
+                multi += x - last
+            if depth >= 1:
+                single += x - last
+            depth, last = depth + d, x
+    return {"calls": len(calls), "window_ms": window / 1000,
+            "multi_layer_share": multi / window,
+            "recurrence_share": single / window}
+
+
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): FP32 outside the tensor
 # cores, dense TF32 on them, and HBM3
 PEAK_FLOPS, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
@@ -362,9 +461,25 @@ def train_kernel_phase(K1, dev, rng):
         fwd_err = max_err((y, hn, cn), (yr, hr, cr))
         grad_err = max_err(grads, want)
         grad_rel = rel_err(grads, want)
-        # kernel times, each launch on its own
-        fwd_ms, fwd_out = cuda_ms(
-            lambda: K1.mixer_stack_train_forward(*args), 3)
+        # kernel times, each launch on its own: the chunk sweep, then the
+        # chosen chunk and chunk = T in turns, and their bits
+        chosen = K1.chunk_steps(b, t, h, n)
+
+        def k3(chunk):
+            return K1.mixer_stack_train_forward(*args, chunk=chunk)
+
+        sweep = chunk_sweep(k3, t, SWEEP_LONG if t > 1000 else SWEEP_SHORT)
+        log("mixer_stack_train_sweep", T=t,
+            ms={c: round(v, 3) for c, v in sweep.items()})
+        means, turns = in_turns(k3, chosen, t)
+        fwd_ms, whole_ms = means[chosen], means[t]
+        fwd_out = k3(chosen)
+        # out, hn, cn and the residual planes but the last (the top
+        # block's output plane, left unwritten: its output is out)
+        whole, top = k3(t), fwd_out[0].numel()
+        bitwise = same_bits((*fwd_out[:3], fwd_out[3][:-top]),
+                            (*whole[:3], whole[3][:-top]))
+        del whole
         res = fwd_out[3]
         bwd_ms, _ = cuda_ms(lambda: K1.mixer_stack_backward(args, res, *cots), 3)
         # matmul FLOPs per block: x.W_ih and h.W_hh (8 B T H^2 each), the
@@ -373,10 +488,23 @@ def train_kernel_phase(K1, dev, rng):
         bwd_bound = bound(36 * n * b * t * h * h,
                           nbytes(args, res, cots, grads))
         del res, fwd_out
+        rows, resident = K1.cluster_layout(h)
         check_case("mixer_stack_train", fwd_err, grad_rel, T=t,
-                   fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms, bwd_ms=bwd_ms,
+                   fwd_ms=fwd_ms, whole_sequence_fwd_ms=whole_ms,
+                   chunk=chosen, rows=rows, resident_clusters=resident,
+                   clusters=n * -(-b // rows),
+                   bitwise_equal_to_whole=bitwise,
+                   plain_fwd_ms=plain_fwd_ms, bwd_ms=bwd_ms,
                    plain_bwd_ms=plain_bwd_ms)
-        cases.append(dict(T=t, fwd_max_abs_err=fwd_err,
+        if not bitwise:
+            raise AssertionError(
+                f"mixer_stack_train T={t}: chunk {chosen} differs from "
+                "chunk = T")
+        cases.append(dict(T=t, chunk=chosen, rows=rows,
+                          whole_sequence_fwd_ms=whole_ms,
+                          fwd_ms_turns=turns, chunk_sweep_ms=sweep,
+                          bitwise_equal_to_whole=bitwise,
+                          fwd_max_abs_err=fwd_err,
                           grad_max_abs_err=grad_err, grad_max_rel_err=grad_rel,
                           fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
                           bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
@@ -988,7 +1116,16 @@ def train_path_phase(mods, dev, rng, spec):
     log(spec["eval_tag"], loss=f"{float(eval_loss):.6f}",
         launches={k: v for k, v in got.items() if v})
 
-    busy = profile_step(train_step, batch, spec["profile"])
+    busy, overlap = profile_step(train_step, batch, spec["profile"])
+    ab = None
+    if spec.get("stack_ab"):  # the chunk schedule vs chunk = T
+        means, each, peak = schedule_ab(mods["K1"], lambda: train_step(batch),
+                                        TRAIN_STEPS)
+        ab = {"ms": means, "ms_each": each, "peak_mem_gib": peak}
+        log(tag, schedule="chunked_vs_whole_in_turns",
+            chunked_ms=f"{means['chunked']:.3f}",
+            whole_ms=f"{means['whole']:.3f}",
+            peak_mem_gib={k: round(v, 3) for k, v in peak.items()})
 
     # one SGD step on the card and on CPU tensors, same weights and batch
     model_cpu = spec_model(spec, "cpu")
@@ -1013,6 +1150,7 @@ def train_path_phase(mods, dev, rng, spec):
         "batch": batch_size, "frames": frames, "steps": TRAIN_STEPS,
         "ms": step_ms, "frames_per_s": frames_per_s, "losses": losses,
         "peak_mem_gib": peak_gib, "device_busy_share": busy,
+        "stack_overlap": overlap, "stack_schedule_ab": ab,
         "card_vs_cpu_loss_rel_err": loss_rel,
         "card_vs_cpu_grad_max_rel_err": worst}}
 
@@ -1089,6 +1227,7 @@ def metaformer_train_spec():
                       lstm_layer_fwd=5, lstm_layer_bwd=5,
                       rect_attention_fwd=10, rect_attention_bwd=10),
         per_eval=dict(mixer_stack=2, lstm_layer_fwd=5, rect_attention_fwd=10),
+        stack_ab=True,
         per_step_off=dict(mixer_stack_train_fwd=2, mixer_stack_bwd=2,
                           lstm_recurrence_fwd=5, lstm_recurrence_bwd=5,
                           rect_attention_fwd=10, rect_attention_bwd=10),
@@ -1150,7 +1289,9 @@ def profile_step(step, batch, name):
     """A torch.profiler table of one ``step(batch)`` (a training step or a
     generation), by device time, written to ``_build/<name>`` of the
     package; returns the share of the step's wall time in which a kernel
-    or copy ran on the device (the union of their intervals)."""
+    or copy ran on the device (the union of their intervals), and the
+    encoder stack's layer overlap (``window_overlap``; None without a
+    stack forward)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1171,6 +1312,8 @@ def profile_step(step, batch, name):
             busy_us += b - max(a, end)
             end = b
     busy = busy_us / wall_us
+    overlap = window_overlap(e for e in prof.events()
+                             if e.device_type == DeviceType.CUDA)
     table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=60)
     path = _build.BUILD_DIR / name
@@ -1179,7 +1322,12 @@ def profile_step(step, batch, name):
     log("profile", table=path, step_wall_ms=f"{wall_us / 1000:.3f}",
         device_busy_ms=f"{busy_us / 1000:.3f}",
         device_busy_share=f"{busy:.4f}")
-    return busy
+    if overlap:
+        log("profile", stack_windows=overlap["calls"],
+            stack_window_ms=f"{overlap['window_ms']:.3f}",
+            multi_layer_share=f"{overlap['multi_layer_share']:.4f}",
+            recurrence_share=f"{overlap['recurrence_share']:.4f}")
+    return busy, overlap
 
 
 def rect_pairs(q_pad, k_pad):
@@ -1478,7 +1626,9 @@ def training_records(train, lstm_cases, launches):
             "mixer_stack_train_fwd", "mixer_stack.cu",
             "pallas_mixer_stack.py:110", launches["mixer_stack_train_fwd"],
             max(c["fwd_max_abs_err"] for c in train), audio["fwd_ms"],
-            audio["plain_fwd_ms"], audio["fwd_bound"], None, cases=train),
+            audio["plain_fwd_ms"], audio["fwd_bound"], None,
+            whole_sequence_ms=audio["whole_sequence_fwd_ms"],
+            chunk=audio["chunk"], cases=train),
         kernel_record(
             "mixer_stack_bwd", "mixer_stack.cu", "pallas_mixer_stack.py:297",
             launches["mixer_stack_bwd"],
@@ -1572,7 +1722,7 @@ def generation_phase(mods, dev, rng, spec):
     frames_per_s = B * FRAMES / (gen_ms / 1000)
     log(f"{tag}_generate", ms_per_generation=f"{gen_ms:.3f}",
         frames_per_s=f"{frames_per_s:.1f}", launches=launches)
-    busy = profile_step(lambda bd: generate(model, bd, full), batches[0],
+    busy, _ = profile_step(lambda bd: generate(model, bd, full), batches[0],
                         f"profile_{tag}_generation.txt")
 
     small = make_batch(rng, 2)
@@ -1857,6 +2007,7 @@ def main():
     )
     k1_cases = []
     nl, hid = len(blocks), cfg["hidden_size"]
+
     for t in ((LEAD + FRAMES) * RATIO, LEAD + FRAMES):
         x0 = torch.from_numpy(
             rng.standard_normal((B, t, hid)).astype(np.float32)).to(dev)
@@ -1865,22 +2016,45 @@ def main():
         c0 = torch.from_numpy(
             0.3 * rng.standard_normal((nl, B, hid)).astype(np.float32)).to(dev)
         args = (x0, *weights, h0, c0)
+        chosen = K1.chunk_steps(B, t, hid, nl)
+
+        def k1(chunk):
+            return K1.mixer_stack_forward(*args, chunk=chunk)
+
         with torch.no_grad():
-            ms, (y, (hn, cn)) = cuda_ms(
-                lambda: K1.mixer_stack_forward(*args), 5)
+            sweep = chunk_sweep(k1, t, SWEEP_LONG if t > 1000 else SWEEP_SHORT)
+            log("mixer_stack_sweep", T=t,
+                ms={c: round(v, 3) for c, v in sweep.items()})
+            means, turns = in_turns(k1, chosen, t)
+            ms, whole_ms = means[chosen], means[t]
+            y, (hn, cn) = k1(chosen)
+            yw, (hnw, cnw) = k1(t)
+            bitwise = same_bits((y, hn, cn), (yw, hnw, cnw))
             plain_ms, (yr, (hr, cr)) = cuda_ms(
                 lambda: K1.mixer_stack_forward_reference(*args), 1)
         err = max_err((y, hn, cn), (yr, hr, cr))
-        log("mixer_stack", T=t, max_abs_err=f"{err:.3e}", ms=f"{ms:.3f}",
-            plain_ms=f"{plain_ms:.3f}")
+        rows, resident = K1.cluster_layout(hid)
+        log("mixer_stack", T=t, chunk=chosen, rows=rows,
+            clusters=nl * -(-B // rows), resident_clusters=resident,
+            bitwise_equal_to_whole=bitwise,
+            max_abs_err=f"{err:.3e}", ms=f"{ms:.3f}",
+            whole_sequence_ms=f"{whole_ms:.3f}", plain_ms=f"{plain_ms:.3f}")
         if not err <= K1_TOL:
             raise AssertionError(f"mixer_stack T={t}: {err} > {K1_TOL}")
+        if not bitwise:
+            raise AssertionError(
+                f"mixer_stack T={t}: chunk {chosen} differs from chunk = T")
         # matmul FLOPs per block: x.W_ih and h.W_hh (8 B T H^2 each), the
         # Dense (2 B T H^2)
         k1_bound = bound(18 * nl * B * t * hid * hid,
                          nbytes(args, y, hn, cn))
         k1_cases.append(dict(T=t, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound=k1_bound))
+                             bound=k1_bound, chunk=chosen, rows=rows,
+                             resident_clusters=resident,
+                             whole_sequence_ms=whole_ms, ms_turns=turns,
+                             chunk_sweep_ms=sweep,
+                             bitwise_equal_to_whole=bitwise))
+        del args, y, hn, cn, yw, hnw, cnw, yr, hr, cr
 
     # ---- 3. decode rollout vs plain ----------------------------------
     batch = [x.to(dev) for x in make_batch(rng, B)]
@@ -1951,6 +2125,11 @@ def main():
     log("generate", ms_per_generation=f"{gen_ms:.3f}",
         frames_per_s=f"{B * FRAMES / (gen_ms / 1000):.1f}",
         card=repr(card), launches=launches)
+    gen_ab, gen_ab_each, _ = schedule_ab(
+        K1, lambda: G.generate_metaformer(model, batches[0], full), 3)
+    log("generate", schedule="chunked_vs_whole_in_turns",
+        chunked_ms=f"{gen_ab['chunked']:.3f}",
+        whole_ms=f"{gen_ab['whole']:.3f}")
 
     small = make_batch(rng, 2)
     teacher_cpu = G.sampling_mask_for(FRAMES, "teacher")
@@ -2024,7 +2203,8 @@ def main():
             "mixer_stack", "mixer_stack.cu", "pallas_mixer_stack.py:215",
             launches["mixer_stack"], max(c["max_abs_err"] for c in k1_cases),
             k1_main["ms"], k1_main["plain_ms"], k1_main["bound"], None,
-            cases=k1_cases),
+            whole_sequence_ms=k1_main["whole_sequence_ms"],
+            chunk=k1_main["chunk"], cases=k1_cases),
         kernel_record(
             "decode_rollout", "decode_rollout.cu",
             "pallas_decode_rollout.py:103", launches["decode_rollout"],
@@ -2040,7 +2220,9 @@ def main():
                      train_step=gru_step["launches"]),
         *recurrence_records(recurrence, k8_launches, **k8_runs),
     ], "generation": {"batch": B, "frames": FRAMES, "ms": gen_ms,
-                      "frames_per_s": B * FRAMES / (gen_ms / 1000)},
+                      "frames_per_s": B * FRAMES / (gen_ms / 1000),
+                      "stack_schedule_ab": {"ms": gen_ab,
+                                            "ms_each": gen_ab_each}},
         "train_step": step["record"],
         "cli": {"corpus_seconds_of_audio": audio_s, **cli_run["record"]},
         "lws_generation": lws_gen["record"],

@@ -6,8 +6,12 @@
 // csrc/lstm_recurrence.cu. The recurrence's design is in mixer_stack.cu's
 // source note: W_hh split over an 8-CTA cluster in shared memory, h
 // exchanged through distributed shared memory, one cluster barrier per
-// step, R batch rows per cluster (a template parameter: 16 for the
-// encoder stack and K8; K7 picks 16, 24 or 32, lstm_layer.cu).
+// step, R batch rows per cluster (a template parameter: 16 for K8 and
+// the encoder stack, mixer_stack.cu STACK_ROWS; K7 picks 16, 24 or 32,
+// lstm_layer.cu).
+// The encoder stack runs the recurrence in windows of steps
+// (lstm_window_kernel) and its GEMMs and LayerNorms on the rows of a
+// window (RowMap).
 //
 // Numerics: FP32 throughout (no tensor cores, so no TF32 rounding);
 // LayerNorm in the fast-variance form E[x^2] - mean^2, eps 1e-5; gate
@@ -25,18 +29,30 @@ namespace {
 
 constexpr float LN_EPS = 1e-5f;
 
+// Rows of a (B, n) window at step t0 of a (B, T) plane: task row r is
+// plane row (r / n) * T + t0 + r % n. {n, 0, n} is a dense (B, n) plane.
+struct RowMap {
+  int T, t0, n;
+  __host__ __device__ size_t operator()(int r) const {
+    return (size_t)(r / n) * T + t0 + r % n;
+  }
+};
+
 // ---------------------------------------------------------------------
 // C[M, N] = A[M, K] @ op(W) (+ bias[N]) (+ D[M, N]), row-major FP32.
 // op(W) is W stored (K, N), or with TRANS_W the transpose of W stored
-// (N, K). bias and D may be null.
+// (N, K). bias and D may be null. With MAP, row m of A is row ma(m) of
+// the A plane, and row m of C and D is row mc(m) of theirs; each output
+// element's sum runs in the same order either way.
 // ---------------------------------------------------------------------
 constexpr int GM_BM = 64, GM_BN = 64, GM_BK = 16;
+constexpr int GM_AROWS = GM_BM * GM_BK / 256;  // A-tile rows a thread loads
 
-template <bool TRANS_W>
+template <bool TRANS_W, bool MAP = false>
 __global__ void __launch_bounds__(256) gemm_kernel(
     const float* __restrict__ A, const float* __restrict__ W,
     const float* __restrict__ bias, const float* __restrict__ D,
-    float* __restrict__ C, int M, int N, int K) {
+    float* __restrict__ C, int M, int N, int K, RowMap ma, RowMap mc) {
   __shared__ float As[GM_BK][GM_BM + 4];  // A tile, transposed: As[k][m]
   __shared__ __align__(16) float Ws[GM_BK][GM_BN];
   const int tid = threadIdx.x;
@@ -47,12 +63,31 @@ __global__ void __launch_bounds__(256) gemm_kernel(
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  // MAP: a thread loads the same GM_AROWS rows of A at every k0
+  size_t arow[GM_AROWS];
+  if constexpr (MAP) {
+#pragma unroll
+    for (int j = 0; j < GM_AROWS; ++j) {
+      const int gm = m0 + (tid + 256 * j) / GM_BK;
+      arow[j] = gm < M ? ma(gm) * K : 0;
+    }
+  }
 
   for (int k0 = 0; k0 < K; k0 += GM_BK) {
-    for (int i = tid; i < GM_BM * GM_BK; i += 256) {
-      const int r = i / GM_BK, c = i % GM_BK;
-      const int gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
+    if constexpr (MAP) {
+#pragma unroll
+      for (int j = 0; j < GM_AROWS; ++j) {
+        const int i = tid + 256 * j;
+        const int r = i / GM_BK, c = i % GM_BK;
+        const int gm = m0 + r, gk = k0 + c;
+        As[c][r] = (gm < M && gk < K) ? A[arow[j] + gk] : 0.f;
+      }
+    } else {
+      for (int i = tid; i < GM_BM * GM_BK; i += 256) {
+        const int r = i / GM_BK, c = i % GM_BK;
+        const int gm = m0 + r, gk = k0 + c;
+        As[c][r] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
+      }
     }
     for (int i = tid; i < GM_BK * GM_BN; i += 256) {
       const int r = i / GM_BN, c = i % GM_BN;
@@ -81,30 +116,32 @@ __global__ void __launch_bounds__(256) gemm_kernel(
   for (int i = 0; i < 4; ++i) {
     const int gm = m0 + ty * 4 + i;
     if (gm >= M) continue;
+    const size_t cr = MAP ? mc(gm) : (size_t)gm;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gn = n0 + tx * 4 + j;
       if (gn >= N) continue;
       float v = acc[i][j];
       if (bias) v += bias[gn];
-      if (D) v += D[(size_t)gm * N + gn];
-      C[(size_t)gm * N + gn] = v;
+      if (D) v += D[cr * N + gn];
+      C[cr * N + gn] = v;
     }
   }
 }
 
 // ---------------------------------------------------------------------
-// out[r, :] = LN(a[r, :] + b[r, :]) * g + beta, one warp per row
+// out[r, :] = LN(a[r, :] + b[r, :]) * g + beta, one warp per row; row r
+// of a, b and out is row ma(r), mb(r) and mo(r) of its plane
 // ---------------------------------------------------------------------
 __global__ void __launch_bounds__(256) add_ln_kernel(
-    const float* __restrict__ a, const float* __restrict__ b,
-    const float* __restrict__ g, const float* __restrict__ beta,
-    float* __restrict__ out, int rows, int H) {
+    const float* __restrict__ a, RowMap ma, const float* __restrict__ b,
+    RowMap mb, const float* __restrict__ g, const float* __restrict__ beta,
+    float* __restrict__ out, RowMap mo, int rows, int H) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const float* pa = a + (size_t)row * H;
-  const float* pb = b + (size_t)row * H;
+  const float* pa = a + ma(row) * H;
+  const float* pb = b + mb(row) * H;
   float s = 0.f, ss = 0.f;
   for (int k = lane; k < H; k += 32) {
     const float v = pa[k] + pb[k];
@@ -118,7 +155,7 @@ __global__ void __launch_bounds__(256) add_ln_kernel(
   }
   const float mu = s / H;
   const float rstd = rsqrtf(ss / H - mu * mu + LN_EPS);
-  float* po = out + (size_t)row * H;
+  float* po = out + mo(row) * H;
   for (int k = lane; k < H; k += 32) {
     const float v = pa[k] + pb[k];
     po[k] = (v - mu) * rstd * g[k] + beta[k];
@@ -156,18 +193,17 @@ size_t lstm_smem_bytes(int H, int R) {
 // gate columns a thread), and each thread owns up to R/8 (row, unit)
 // cells for the whole sequence. A step's xw loads are issued before its
 // product, which hides them (loading them a step ahead measured slower).
-template <int R>
-__global__ void __launch_bounds__(NT, 1) lstm_cluster_kernel(
-    const float* __restrict__ xw,      // (B, T, 4H)
-    const float* __restrict__ w_hh_t,  // (H, 4H)
-    const float* __restrict__ h0,      // (B, H)
-    const float* __restrict__ c0,      // (B, H)
-    float* __restrict__ rnn,           // (B, T, H)
-    float* __restrict__ hn,            // (B, H)
-    float* __restrict__ cn,            // (B, H)
-    float* __restrict__ acts,          // (B, T, 4H) or null
-    float* __restrict__ cs,            // (B, T, H) or null
-    int B, int T, int H) {
+// WINDOW runs the n steps t0 .. t0+n-1 of the (B, T) planes rnn, acts
+// and cs from xw laid out (B, n, 4H); without it t0 = 0, n = T.
+template <int R, bool WINDOW>
+__device__ __forceinline__ void lstm_cluster_steps(
+    const float* __restrict__ xw, const float* __restrict__ w_hh_t,
+    const float* __restrict__ h0, const float* __restrict__ c0,
+    float* __restrict__ rnn, float* __restrict__ hn, float* __restrict__ cn,
+    float* __restrict__ acts, float* __restrict__ cs, int B, int T, int H,
+    int t0, int n) {
+  const int steps = WINDOW ? n : T;  // steps run, and xw's row stride
+  const int tb = WINDOW ? t0 : 0;
   constexpr int RG = R / 4;  // rows of a row group
   constexpr int MC = R / 8;  // most cells a thread owns (H <= 256)
   cg::cluster_group cluster = cg::this_cluster();
@@ -214,8 +250,8 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_kernel(
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
         x[j][g] = own_ok[j]
-            ? xw[((size_t)(b0 + own_r[j]) * T + t) * G + g * H + rank * U +
-                 own_u[j]]
+            ? xw[((size_t)(b0 + own_r[j]) * steps + t) * G + g * H +
+                 rank * U + own_u[j]]
             : 0.f;
       }
     }
@@ -226,7 +262,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_kernel(
   const int cl = tid % 64;  // columns cl and cl+64
   const bool col2 = cl + 64 < NC;
 
-  for (int t = 0; t < T; ++t) {
+  for (int t = 0; t < steps; ++t) {
     const float* hcur = hbuf + (t & 1) * R * H;
     const int nxt_off = ((t + 1) & 1) * R * H;
     float xg[MC][4];
@@ -278,7 +314,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_kernel(
 #pragma unroll
       for (int q = 0; q < CL; ++q) cluster.map_shared_rank(hbuf, q)[slot] = h;
       if (own_ok[j]) {
-        const size_t row = (size_t)(b0 + r) * T + t;
+        const size_t row = (size_t)(b0 + r) * T + tb + t;
         const int col = rank * U + u;
         rnn[row * H + col] = h;
         if (acts) {
@@ -294,7 +330,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_kernel(
     cluster.sync();
   }
 
-  const float* hlast = hbuf + (T & 1) * R * H;
+  const float* hlast = hbuf + (steps & 1) * R * H;
 #pragma unroll
   for (int j = 0; j < MC; ++j) {
     if (!own_ok[j]) continue;
@@ -302,6 +338,31 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_kernel(
     hn[o] = hlast[own_r[j] * H + rank * U + own_u[j]];
     cn[o] = creg[j];
   }
+}
+
+// The whole sequence: xw (B, T, 4H); rnn (B, T, H); h0, c0, hn, cn (B, H)
+template <int R>
+__global__ void __launch_bounds__(NT, 1) lstm_cluster_kernel(
+    const float* __restrict__ xw, const float* __restrict__ w_hh_t,
+    const float* __restrict__ h0, const float* __restrict__ c0,
+    float* __restrict__ rnn, float* __restrict__ hn, float* __restrict__ cn,
+    float* __restrict__ acts, float* __restrict__ cs, int B, int T, int H) {
+  lstm_cluster_steps<R, false>(xw, w_hh_t, h0, c0, rnn, hn, cn, acts, cs, B,
+                               T, H, 0, T);
+}
+
+// A window of n steps from step t0 (the encoder stack's chunks): xw (B,
+// n, 4H); rnn, acts, cs the (B, T) planes; h0, c0 the state before step
+// t0, hn, cn after step t0 + n - 1 (other buffers than h0, c0).
+template <int R>
+__global__ void __launch_bounds__(NT, 1) lstm_window_kernel(
+    const float* __restrict__ xw, const float* __restrict__ w_hh_t,
+    const float* __restrict__ h0, const float* __restrict__ c0,
+    float* __restrict__ rnn, float* __restrict__ hn, float* __restrict__ cn,
+    float* __restrict__ acts, float* __restrict__ cs, int B, int T, int H,
+    int t0, int n) {
+  lstm_cluster_steps<R, true>(xw, w_hh_t, h0, c0, rnn, hn, cn, acts, cs, B,
+                              T, H, t0, n);
 }
 
 int check_launch() { return (int)cudaGetLastError(); }
@@ -357,33 +418,30 @@ int gemm(const float* A, const float* W, const float* bias, const float* D,
          float* C, int M, int N, int K, bool trans_w, cudaStream_t stream) {
   const dim3 grid((N + GM_BN - 1) / GM_BN, (M + GM_BM - 1) / GM_BM);
   if (trans_w)
-    gemm_kernel<true><<<grid, 256, 0, stream>>>(A, W, bias, D, C, M, N, K);
+    gemm_kernel<true><<<grid, 256, 0, stream>>>(A, W, bias, D, C, M, N, K,
+                                                RowMap{}, RowMap{});
   else
-    gemm_kernel<false><<<grid, 256, 0, stream>>>(A, W, bias, D, C, M, N, K);
+    gemm_kernel<false><<<grid, 256, 0, stream>>>(A, W, bias, D, C, M, N, K,
+                                                 RowMap{}, RowMap{});
   return check_launch();
 }
 
-int add_ln(const float* a, const float* b, const float* g, const float* beta,
-           float* out, size_t rows, int H, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((rows * 32 + 255) / 256);
-  add_ln_kernel<<<blocks, 256, 0, stream>>>(a, b, g, beta, out, (int)rows,
-                                            H);
+// C[mc(m)] = A[ma(m)] @ W (+ bias) for the M rows of a window
+int gemm_rows(const float* A, RowMap ma, const float* W, const float* bias,
+              float* C, RowMap mc, int M, int N, int K, cudaStream_t stream) {
+  const dim3 grid((N + GM_BN - 1) / GM_BN, (M + GM_BM - 1) / GM_BM);
+  gemm_kernel<false, true><<<grid, 256, 0, stream>>>(A, W, bias, nullptr, C,
+                                                     M, N, K, ma, mc);
   return check_launch();
 }
 
-// One LSTM layer forward: xw = x @ W_ih^T + b over all B*T rows, then the
-// recurrence. acts/cs null: no training residuals.
-int lstm_forward(const float* x, int din, const float* w_ih_t,
-                 const float* b, const float* w_hh_t, const float* h0,
-                 const float* c0, float* xw, float* ys, float* hn, float* cn,
-                 float* acts, float* cs, int B, int T, int H,
-                 cudaStream_t stream) {
-  int err = gemm(x, w_ih_t, b, nullptr, xw, B * T, 4 * H, din, false,
-                 stream);
-  if (err) return err;
-  return launch_cluster(lstm_cluster_kernel<BT>, lstm_smem_bytes(H, BT), B,
-                        BT, stream, (const float*)xw, w_hh_t, h0, c0, ys, hn,
-                        cn, acts, cs, B, T, H);
+int add_ln(const float* a, RowMap ma, const float* b, RowMap mb,
+           const float* g, const float* beta, float* out, RowMap mo,
+           int rows, int H, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)(((size_t)rows * 32 + 255) / 256);
+  add_ln_kernel<<<blocks, 256, 0, stream>>>(a, ma, b, mb, g, beta, out, mo,
+                                            rows, H);
+  return check_launch();
 }
 
 }  // namespace

@@ -13,43 +13,69 @@
 // What bounds it on the H100: the LSTM recurrence. Its T cell steps are
 // a dependent chain, and each step is a small (B x H) @ (H x 4H) product
 // plus the gate math; at B16, H256 that is 4.2 MFLOP, far too little to
-// fill the card, so the time is the per-step latency times L*T. The
+// fill the card, so the time is the per-step latency times the chain's
+// steps, and one recurrence holds 8 SMs per 16 batch rows. The
 // input projection and the block tail are parallel over all B*T rows
 // and are bounded by FP32 FMA throughput (about 110 GFLOP at the audio
 // encoder shape B16 x T2096 x L5); the backward adds three such
 // products per block (dW_ih, dW_hh, dx) and the Dense's two.
 //
-// Design (layer-major, simple first; building blocks in lstm_cluster.cuh
-// and lstm_cluster_bwd.cuh):
-//   1. gemm_kernel: x_l @ W_ih + (b_ih + b_hh) for all B*T rows, a
-//      shared-memory tiled FP32 GEMM (64x64 tiles, 4x4 per thread);
-//   2. lstm_cluster_kernel: one persistent launch per block runs the T
-//      cells. W_hh (H x 4H f32 = 1 MB at H256) does not fit one SM, so a
-//      cluster of 8 CTAs splits it: CTA r keeps the four gate columns of
-//      hidden units [r*H/8, (r+1)*H/8) in shared memory (128 KB) for the
-//      whole sequence and never re-reads it. Each step every CTA forms
-//      its gate slice from the full h, updates its units' cells, and
-//      writes its slice of the new h into every CTA's double-buffered h
-//      through distributed shared memory; one cluster barrier per step
-//      orders the exchange. The chain per step is then one 256-deep
-//      shared-memory dot loop, the gate math and one cluster barrier.
-//      A cluster serves 16 batch rows; larger batches add clusters.
+// Forward design (building blocks in lstm_cluster.cuh): a layer-lagged
+// chunk schedule on per-layer streams. Layer l runs the steps of chunk c
+// (C steps from t0 = c*C; the last chunk may be shorter) once layer l-1
+// has finished chunk c, so the L layers' recurrences run at the same
+// time and the chain is (ceil(T/C) + L - 1) * C cell steps instead of
+// L * T. Chunk (l, c) on layer l's stream, after an event wait on (l-1,
+// c):
+//   1. gemm_kernel: the chunk's rows of x_l @ W_ih + (b_ih + b_hh) into
+//      layer l's xw chunk buffer (B, C, 4H); a shared-memory tiled FP32
+//      GEMM (64x64 tiles, 4x4 per thread) reading the rows of the (B, C)
+//      window of the (B, T) plane (RowMap);
+//   2. lstm_window_kernel: the chunk's cells, from the (h, c) carried
+//      from chunk c-1 (ping-pong buffers per layer; h0, c0 at chunk 0,
+//      hn, cn written after the last). W_hh (H x 4H f32 = 1 MB at H256)
+//      does not fit one SM, so a cluster of 8 CTAs splits it: CTA r
+//      keeps the four gate columns of hidden units [r*H/8, (r+1)*H/8) in
+//      shared memory (128 KB), loaded once a chunk. Each step every CTA
+//      forms its gate slice from the full h, updates its units' cells,
+//      and writes its slice of the new h into every CTA's double-
+//      buffered h through distributed shared memory; one cluster barrier
+//      per step orders the exchange. A cluster serves STACK_ROWS = 16
+//      batch rows; larger batches add clusters (32 rows, a measuring
+//      tool's build, ran slower at B64: PERF.md);
 //   3. add_ln_kernel + gemm_kernel + add_ln_kernel: the block tail,
-//      LN(h + x) -> Dense -> LN(z + y), parallel over rows.
-// The training forward is the same launch sequence, writing per block
-// the residuals the backward reads (RES_PLANES below); the TPU kernel's
-// A/M residuals become A = [i, f, g, o] and the cell states. The
-// backward runs the blocks top to bottom: the tail backward (row-
-// parallel LN backward, dW_ff = y^T dz and the LN scale/bias sums as
-// split-K reductions over all rows, dy = dz @ W_ff^T + dz), then the
-// reverse cluster recurrence (the partial dh products reduced across
-// the 8 CTAs through distributed shared memory), then dW_ih, dW_hh, db
-// and dx by split-K reductions and a GEMM. Unlike the TPU kernel,
-// dgates go through device memory.
-// The sequential chain is L*T cell steps each way. The TPU kernel's
-// chunk-lag wavefront (T + (L-1)*8 steps) is later work.
+//      LN(h + x) -> Dense -> LN(z + y), on the window's rows.
+// Stream order gives (l, c-1) -> (l, c), so one xw chunk buffer a layer
+// is safe. An event on the caller's stream forks the layer streams at
+// entry; at exit the caller's stream waits on each of them. Every output
+// element is summed in the same order as in one whole-sequence chunk
+// (C = T, the layer-major schedule), so any C gives the same bits.
+// The training forward writes per block the residuals the backward
+// reads (RES_PLANES below) into (B, T) planes, at the chunk's rows; the
+// TPU kernel's A/M residuals become A = [i, f, g, o] and the cell
+// states. The inference forward keeps the LSTM output, y and z in chunk
+// buffers and each block's output but the top one in a (B, T, H) plane
+// (the layers are not throttled against each other). The TPU kernel
+// lags a block by 8 steps inside one kernel; on the H100 a chunk is a
+// few launches, so C is longer (ops/mixer_stack.py chunk_steps).
+//
+// Backward design (layer-major, lstm_cluster_bwd.cuh): the blocks top to
+// bottom: the tail backward (row-parallel LN backward, dW_ff = y^T dz
+// and the LN scale/bias sums as split-K reductions over all rows, dy =
+// dz @ W_ff^T + dz), then the reverse cluster recurrence (the partial dh
+// products reduced across the 8 CTAs through distributed shared memory),
+// then dW_ih, dW_hh, db and dx by split-K reductions and a GEMM. Unlike
+// the TPU kernel, dgates go through device memory. Its chain is L*T cell
+// steps; the chunk schedule for it is later work.
+
+#include <mutex>
+#include <vector>
 
 #include "lstm_cluster_bwd.cuh"
+
+#ifndef STACK_ROWS
+#define STACK_ROWS 16  // batch rows per cluster of the forward recurrence
+#endif
 
 namespace {
 
@@ -72,76 +98,197 @@ bool shape_ok(int B, int T, int H, int L) {
   return hidden_ok(H) && B > 0 && T > 0 && L > 0;
 }
 
-// res null: the inference forward, everything per block in ws
-int stack_forward(const float* x0, const float* w_ih_t, const float* b_g,
-                  const float* w_hh_t, const float* w_ff, const float* b_ff,
-                  const float* g1, const float* b1, const float* g2,
-                  const float* b2, const float* h0, const float* c0,
-                  float* out, float* hn, float* cn, float* res, float* ws,
-                  int B, int T, int H, int L, cudaStream_t stream) {
-  if (!shape_ok(B, T, H, L)) return (int)cudaErrorInvalidValue;
-  const size_t rows = (size_t)B * T;
-  const size_t bth = rows * H;
-  float* xw = ws;
-  float* scratch = xw + 4 * bth;  // rnn, y, z and two block outputs
+const auto window_kernel = lstm_window_kernel<STACK_ROWS>;
+
+// Scratch of the forward per layer: the xw chunk buffer (4H per row of a
+// chunk), the inference forward's LSTM output, y and z chunk buffers (H
+// each), and two (h, c) carries (B, H) each
+size_t layer_floats(int B, int C, int H, bool train) {
+  return (size_t)B * C * H * (train ? 4 : 7) + 4 * (size_t)B * H;
+}
+
+// The layer streams of one device, made once and kept; one stack
+// forward enqueues at a time (the events are reused call after call).
+struct Lanes {
+  std::vector<cudaStream_t> streams;
+  std::vector<cudaEvent_t> done;  // the last chunk enqueued on each
+  cudaEvent_t fork = nullptr;
+};
+
+std::mutex lanes_mutex;
+std::vector<Lanes> lanes_by_device;
+
+int lanes_for(int L, Lanes** out) {
+  int dev, err;
+  if ((err = (int)cudaGetDevice(&dev))) return err;
+  if ((int)lanes_by_device.size() <= dev) lanes_by_device.resize(dev + 1);
+  Lanes& ln = lanes_by_device[dev];
+  if (!ln.fork &&
+      (err = (int)cudaEventCreateWithFlags(&ln.fork, cudaEventDisableTiming)))
+    return err;
+  while ((int)ln.streams.size() < L) {
+    cudaStream_t s;
+    cudaEvent_t e;
+    if ((err = (int)cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking)))
+      return err;
+    if ((err = (int)cudaEventCreateWithFlags(&e, cudaEventDisableTiming))) {
+      cudaStreamDestroy(s);
+      return err;
+    }
+    ln.streams.push_back(s);
+    ln.done.push_back(e);
+  }
+  *out = &ln;
+  return 0;
+}
+
+struct StackArgs {
+  const float *x0, *w_ih_t, *b_g, *w_hh_t, *w_ff, *b_ff, *g1, *b1, *g2, *b2,
+      *h0, *c0;
+  float *out, *hn, *cn, *res, *ws;
+  int B, T, H, L, C;
+};
+
+// Enqueue chunk c of every layer, each on its stream after (l-1, c).
+int enqueue_chunk(const StackArgs& a, Lanes& ln, size_t smem, int c) {
+  const int B = a.B, T = a.T, H = a.H, C = a.C;
+  const bool train = a.res != nullptr;
+  const size_t bth = (size_t)B * T * H, bh = (size_t)B * H;
+  const int t0 = c * C, n = T - t0 < C ? T - t0 : C, rows = B * n;
+  const bool last = t0 + n == T;
+  const RowMap win{T, t0, n}, dense{n, 0, n};
+  float* planes = a.ws + a.L * layer_floats(B, C, H, train);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg =
+      cluster_config((unsigned)((B + STACK_ROWS - 1) / STACK_ROWS), smem,
+                     attr);
   int err;
-  const float* xin = x0;
-  for (int l = 0; l < L; ++l) {
-    const size_t wo = (size_t)l * H * 4 * H;
-    const size_t so = (size_t)l * B * H;
-    const size_t vo = (size_t)l * H;
-    BlockRes r = res ? block_res(res, bth, l)
-                     : BlockRes{scratch, nullptr, nullptr, scratch + bth,
-                                scratch + 2 * bth,
-                                scratch + (3 + l % 2) * bth};
-    if ((err = lstm_forward(xin, H, w_ih_t + wo, b_g + 4 * vo, w_hh_t + wo,
-                            h0 + so, c0 + so, xw, r.rnn, hn + so, cn + so,
-                            r.acts, r.cs, B, T, H, stream)))
+  for (int l = 0; l < a.L; ++l) {
+    cudaStream_t s = ln.streams[l];
+    if (l > 0 && (err = (int)cudaStreamWaitEvent(s, ln.done[l - 1], 0)))
       return err;
-    if ((err = add_ln(r.rnn, xin, g1 + vo, b1 + vo, r.y, rows, H, stream)))
+    const size_t wo = (size_t)l * H * 4 * H, so = (size_t)l * bh,
+                 vo = (size_t)l * H;
+    float* xw = a.ws + l * layer_floats(B, C, H, train);
+    float* carry = xw + (size_t)B * C * H * (train ? 4 : 7);
+    // the block's input and output planes (B, T, H)
+    const float* xin = l == 0 ? a.x0
+                     : train  ? block_res(a.res, bth, l - 1).out
+                              : planes + (l - 1) * bth;
+    float* xout = l == a.L - 1 ? a.out
+                : train        ? block_res(a.res, bth, l).out
+                               : planes + l * bth;
+    // LSTM output, y, z: residual planes (training) or chunk buffers
+    BlockRes r;
+    RowMap m;
+    if (train) {
+      r = block_res(a.res, bth, l);
+      m = win;
+    } else {
+      float* cb = xw + (size_t)B * C * 4 * H;
+      const size_t cf = (size_t)B * C * H;
+      r = BlockRes{cb, nullptr, nullptr, cb + cf, cb + 2 * cf, nullptr};
+      m = dense;
+    }
+    const float* h_in = c == 0 ? a.h0 + so : carry + ((c - 1) & 1) * 2 * bh;
+    const float* c_in = c == 0 ? a.c0 + so : h_in + bh;
+    float* h_out = last ? a.hn + so : carry + (c & 1) * 2 * bh;
+    float* c_out = last ? a.cn + so : h_out + bh;
+    if ((err = gemm_rows(xin, win, a.w_ih_t + wo, a.b_g + 4 * vo, xw, dense,
+                         rows, 4 * H, H, s)))
       return err;
-    if ((err = gemm(r.y, w_ff + (size_t)l * H * H, b_ff + vo, nullptr, r.z,
-                    (int)rows, H, H, false, stream)))
+    cfg.stream = s;
+    if ((err = (int)cudaLaunchKernelEx(
+             &cfg, window_kernel, (const float*)xw, a.w_hh_t + wo, h_in, c_in,
+             r.rnn, h_out, c_out, r.acts, r.cs, B, m.T, H, m.t0, n)))
       return err;
-    float* xout = (l == L - 1) ? out : r.out;
-    if ((err = add_ln(r.z, r.y, g2 + vo, b2 + vo, xout, rows, H, stream)))
+    if ((err = check_launch())) return err;
+    if ((err = add_ln(r.rnn, m, xin, win, a.g1 + vo, a.b1 + vo, r.y, m, rows,
+                      H, s)))
       return err;
-    xin = xout;
+    if ((err = gemm_rows(r.y, m, a.w_ff + (size_t)l * H * H, a.b_ff + vo, r.z,
+                         m, rows, H, H, s)))
+      return err;
+    if ((err = add_ln(r.z, m, r.y, m, a.g2 + vo, a.b2 + vo, xout, win, rows,
+                      H, s)))
+      return err;
+    if ((err = (int)cudaEventRecord(ln.done[l], s))) return err;
   }
   return 0;
+}
+
+int stack_forward(const StackArgs& a, cudaStream_t stream) {
+  if (!shape_ok(a.B, a.T, a.H, a.L) || a.C < 1 || a.C > a.T)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = lstm_smem_bytes(a.H, STACK_ROWS);
+  int err = (int)cudaFuncSetAttribute(
+      window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  std::lock_guard<std::mutex> lock(lanes_mutex);
+  Lanes* ln;
+  if ((err = lanes_for(a.L, &ln))) return err;
+  if ((err = (int)cudaEventRecord(ln->fork, stream))) return err;
+  for (int l = 0; l < a.L; ++l)
+    if ((err = (int)cudaStreamWaitEvent(ln->streams[l], ln->fork, 0)))
+      return err;
+  const int chunks = (a.T + a.C - 1) / a.C;
+  for (int c = 0; c < chunks && !err; ++c)
+    err = enqueue_chunk(a, *ln, smem, c);
+  // join, also after an error: the caller's stream waits on every layer
+  for (int l = 0; l < a.L; ++l) {
+    int e = (int)cudaEventRecord(ln->done[l], ln->streams[l]);
+    if (!e) e = (int)cudaStreamWaitEvent(stream, ln->done[l], 0);
+    if (!err) err = e;
+  }
+  return err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// floats of scratch mixer_stack_forward_f32 needs: xw (4H) + rnn, y, z
-// and two ping-pong block outputs (H each), per row of B*T
-long long mixer_stack_workspace_floats(int B, int T, int H) {
-  return (long long)B * T * 9 * H;
+// floats of scratch mixer_stack_forward_f32 needs at chunk C: per layer
+// the chunk buffers and carries, and the block outputs but the top one
+long long mixer_stack_workspace_floats(int B, int T, int H, int L, int C) {
+  return (long long)(L * layer_floats(B, C, H, false) +
+                     (size_t)(L - 1) * B * T * H);
+}
+
+// batch rows per cluster of the forward recurrence (this build's)
+int mixer_stack_rows() { return STACK_ROWS; }
+
+// How many clusters of the forward recurrence the card holds at once;
+// -1 if it takes no such launch.
+int mixer_stack_resident_clusters(int H) {
+  if (!hidden_ok(H)) return -1;
+  return resident_clusters(window_kernel, lstm_smem_bytes(H, STACK_ROWS));
 }
 
 // x0 (B,T,H); w_ih_t, w_hh_t (L,H,4H); b_g (L,4H); w_ff (L,H,H);
 // b_ff, g1, b1, g2, b2 (L,H); h0, c0 (L,B,H). Writes out (B,T,H),
-// hn, cn (L,B,H). Returns 0 or the first CUDA error code.
+// hn, cn (L,B,H). Chunks of C steps. Returns 0 or the first CUDA error
+// code.
 int mixer_stack_forward_f32(
     const float* x0, const float* w_ih_t, const float* b_g,
     const float* w_hh_t, const float* w_ff, const float* b_ff,
     const float* g1, const float* b1, const float* g2, const float* b2,
     const float* h0, const float* c0, float* out, float* hn, float* cn,
-    float* ws, int B, int T, int H, int L, void* stream_ptr) {
-  return stack_forward(x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2,
-                       h0, c0, out, hn, cn, nullptr, ws, B, T, H, L,
+    float* ws, int B, int T, int H, int L, int C, void* stream_ptr) {
+  return stack_forward({x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2,
+                        h0, c0, out, hn, cn, nullptr, ws, B, T, H, L, C},
                        (cudaStream_t)stream_ptr);
 }
 
-// floats of the training forward's residuals and scratch (xw)
+// floats of the training forward's residuals
 long long mixer_stack_residual_floats(int B, int T, int H, int L) {
   return (long long)L * RES_PLANES * B * T * H;
 }
 
-long long mixer_stack_train_workspace_floats(int B, int T, int H) {
-  return (long long)B * T * 4 * H;
+// floats of the training forward's scratch at chunk C: per layer the xw
+// chunk buffer and the carries
+long long mixer_stack_train_workspace_floats(int B, int T, int H, int L,
+                                             int C) {
+  return (long long)(L * layer_floats(B, C, H, true));
 }
 
 // As mixer_stack_forward_f32, and writes the residuals into res.
@@ -150,9 +297,10 @@ int mixer_stack_train_forward_f32(
     const float* w_hh_t, const float* w_ff, const float* b_ff,
     const float* g1, const float* b1, const float* g2, const float* b2,
     const float* h0, const float* c0, float* out, float* hn, float* cn,
-    float* res, float* ws, int B, int T, int H, int L, void* stream_ptr) {
-  return stack_forward(x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2,
-                       h0, c0, out, hn, cn, res, ws, B, T, H, L,
+    float* res, float* ws, int B, int T, int H, int L, int C,
+    void* stream_ptr) {
+  return stack_forward({x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2,
+                        h0, c0, out, hn, cn, res, ws, B, T, H, L, C},
                        (cudaStream_t)stream_ptr);
 }
 

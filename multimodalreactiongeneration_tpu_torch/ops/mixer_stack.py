@@ -15,12 +15,17 @@ inference forward (``mixer_stack_forward``). All three launch
 ``csrc/mixer_stack.cu`` (f32 only; the design is in its source note).
 Launch counters: ``launches`` (inference forward), ``train_fwd_launches``
 and ``bwd_launches``.
+
+The two forwards run the layers as a layer-lagged chunk schedule on
+per-layer CUDA streams: layer l runs chunk c (``chunk`` steps) once layer
+l-1 has finished it. ``chunk_steps`` picks the chunk; ``chunk=T`` is the
+layer-major schedule, and every chunk gives the same bits.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,6 +39,38 @@ bwd_launches = 0
 _MAX_H = 256
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+CHUNKS = (8, 16, 32, 64, 128, 256)  # chunks chunk_steps weighs, besides T
+# One layer's time per chunk on its stream (H100, H256, R16): the cell
+# steps, a fixed part (the chunk's launches, the W_hh prologue, the
+# tail's latency) and the chunk's FP32 GEMMs (10 H^2 FLOPs a row) at the
+# rate they reach beside the recurrences. CHUNK_US is fitted to the
+# chunk sweep of tools/mixer_stack_ab.py (C 16-128 at B16 x T2096 and
+# B32 x T2016, C 8-64 at T262 and T252), where C 64 and C 32 ran fastest.
+STEP_US = 6.6
+CHUNK_US = 75.0
+GEMM_FLOPS_PER_US = 2e7
+
+
+def chunk_cost_us(b: int, t: int, h: int, layers: int, chunk: int) -> float:
+    """The schedule's modelled time: ceil(t / chunk) + layers - 1 chunk
+    slots on the chain, each a chunk of one layer."""
+    gemm_us = 10 * b * chunk * h * h / GEMM_FLOPS_PER_US
+    per = chunk * STEP_US + CHUNK_US + gemm_us
+    return (-(-t // chunk) + layers - 1) * per
+
+
+def chunk_steps(b: int, t: int, h: int, layers: int) -> int:
+    """Steps per chunk of the stack forward at batch b, t steps, width h
+    and ``layers`` blocks: the chunk of ``CHUNKS`` shorter than t, or t
+    itself, whose schedule ``chunk_cost_us`` models fastest (the longer
+    on a tie). One layer has no lag to hide: t, one chunk. A short chunk
+    adds launches and a W_hh prologue per chunk; a long one adds
+    (layers - 1) * chunk steps to the chain."""
+    if min(b, t, h, layers) < 1:
+        raise ValueError(f"chunk_steps: b {b}, t {t}, h {h}, layers {layers}")
+    cands = [c for c in CHUNKS if c < t] + [t]
+    return min(cands, key=lambda c: (chunk_cost_us(b, t, h, layers, c), -c))
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -79,19 +116,24 @@ def mixer_stack_backward_reference(args, dout, dhn, dcn, closure=False):
     return grads if closure else grads()
 
 
-def _lib():
-    lib = _build.load("mixer_stack")
+def _lib(defines=()):
+    """The kernels' library; ``defines`` names a variant build (a
+    measuring tool's, e.g. ``STACK_ROWS=32``), never asked for here."""
+    lib = _build.load("mixer_stack", defines)
     if not getattr(lib, "_typed", False):
-        for name in ("mixer_stack_workspace_floats",
-                     "mixer_stack_train_workspace_floats",
-                     "mixer_stack_backward_workspace_floats"):
-            getattr(lib, name).argtypes = [_I] * 3
+        for name, n in (("mixer_stack_workspace_floats", 5),
+                        ("mixer_stack_train_workspace_floats", 5),
+                        ("mixer_stack_backward_workspace_floats", 3),
+                        ("mixer_stack_residual_floats", 4)):
+            getattr(lib, name).argtypes = [_I] * n
             getattr(lib, name).restype = ctypes.c_longlong
-        lib.mixer_stack_residual_floats.argtypes = [_I] * 4
-        lib.mixer_stack_residual_floats.restype = ctypes.c_longlong
-        lib.mixer_stack_forward_f32.argtypes = [_P] * 16 + [_I] * 4 + [_P]
+        lib.mixer_stack_rows.argtypes = []
+        lib.mixer_stack_resident_clusters.argtypes = [_I]
+        for name in ("mixer_stack_rows", "mixer_stack_resident_clusters"):
+            getattr(lib, name).restype = _I
+        lib.mixer_stack_forward_f32.argtypes = [_P] * 16 + [_I] * 5 + [_P]
         lib.mixer_stack_train_forward_f32.argtypes = (
-            [_P] * 17 + [_I] * 4 + [_P])
+            [_P] * 17 + [_I] * 5 + [_P])
         lib.mixer_stack_backward_f32.argtypes = [_P] * 25 + [_I] * 4 + [_P]
         for name in ("mixer_stack_forward_f32",
                      "mixer_stack_train_forward_f32",
@@ -135,6 +177,23 @@ def _empty(n, like):
     return torch.empty(n, dtype=torch.float32, device=like.device)
 
 
+def _chunk(name, b, t, h, nl, chunk):
+    """The chunk of a forward launch: ``chunk`` steps (None:
+    ``chunk_steps``) from 1 to t; raises on others."""
+    chunk = chunk_steps(b, t, h, nl) if chunk is None else chunk
+    if not 1 <= chunk <= t:
+        raise ValueError(f"{name}: chunk of {chunk} steps; takes 1 to {t}")
+    return chunk
+
+
+def cluster_layout(h: int, device=None) -> Tuple[int, int]:
+    """(batch rows per cluster, clusters the card holds at once) of the
+    forward recurrence at width h (the occupancy query)."""
+    with torch.cuda.device(device):
+        lib = _lib()
+        return lib.mixer_stack_rows(), lib.mixer_stack_resident_clusters(h)
+
+
 def mixer_stack_forward(
     x0: torch.Tensor,      # (B, T, H) f32
     w_ih_t: torch.Tensor,  # (L, H, 4H)
@@ -145,10 +204,12 @@ def mixer_stack_forward(
     g1: torch.Tensor, b1: torch.Tensor,  # (L, H) mixer_norm
     g2: torch.Tensor, b2: torch.Tensor,  # (L, H) feed_forward LN
     h0: torch.Tensor, c0: torch.Tensor,  # (L, B, H) f32
+    *, chunk: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The inference forward. Returns (out_top (B, T, H), (h_n (L, B, H),
     c_n (L, B, H))). It records no autograd graph, so it refuses inputs
-    that need a gradient (``mixer_stack_recurrence`` takes those)."""
+    that need a gradient (``mixer_stack_recurrence`` takes those).
+    ``chunk`` steps per chunk (None: ``chunk_steps``; T: layer-major)."""
     args = (x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2, h0, c0)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         raise RuntimeError(
@@ -158,32 +219,35 @@ def mixer_stack_forward(
     if x0.device.type == "cpu":
         return mixer_stack_forward_reference(*args)
     b, t, h, nl = _check_args("mixer_stack_forward", args)
+    chunk = _chunk("mixer_stack_forward", b, t, h, nl, chunk)
     lib = _lib()
     out = torch.empty_like(x0)
     hn = torch.empty_like(h0)
     cn = torch.empty_like(c0)
-    ws = _empty(lib.mixer_stack_workspace_floats(b, t, h), x0)
+    ws = _empty(lib.mixer_stack_workspace_floats(b, t, h, nl, chunk), x0)
     _build.launch(lib.mixer_stack_forward_f32, *args, out, hn, cn, ws,
-                  dims=(b, t, h, nl))
+                  dims=(b, t, h, nl, chunk))
     global launches
     launches += 1
     return out, (hn, cn)
 
 
-def mixer_stack_train_forward(*args):
+def mixer_stack_train_forward(*args, chunk=None):
     """The training forward kernel (CUDA only): returns (out, hn, cn,
     res), ``res`` the flat residual buffer ``mixer_stack_backward``
-    reads."""
+    reads; ``chunk`` as ``mixer_stack_forward``."""
     b, t, h, nl = _check_args("mixer_stack_train_forward", args)
+    chunk = _chunk("mixer_stack_train_forward", b, t, h, nl, chunk)
     x0, h0 = args[0], args[10]
     lib = _lib()
     out = torch.empty_like(x0)
     hn = torch.empty_like(h0)
     cn = torch.empty_like(h0)
     res = _empty(lib.mixer_stack_residual_floats(b, t, h, nl), x0)
-    ws = _empty(lib.mixer_stack_train_workspace_floats(b, t, h), x0)
+    ws = _empty(lib.mixer_stack_train_workspace_floats(b, t, h, nl, chunk),
+                x0)
     _build.launch(lib.mixer_stack_train_forward_f32, *args, out, hn, cn,
-                  res, ws, dims=(b, t, h, nl))
+                  res, ws, dims=(b, t, h, nl, chunk))
     global train_fwd_launches
     train_fwd_launches += 1
     return out, hn, cn, res

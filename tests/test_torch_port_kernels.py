@@ -150,6 +150,94 @@ def test_mixer_stack_recurrence_without_grad_runs_inference_kernel(dev):
     assert (K1.launches, K1.train_fwd_launches) == (before[0] + 1, before[1])
 
 
+def _stack_args(r, b, t, h, n):
+    return (r(b, t, h), r(n, h, 4 * h, s=0.06), r(n, 4 * h, s=0.06),
+            r(n, h, 4 * h, s=0.06), r(n, h, h, s=0.06), r(n, h, s=0.1),
+            r(n, h, s=0.1, mean=1.0), r(n, h, s=0.1),
+            r(n, h, s=0.1, mean=1.0), r(n, h, s=0.1),
+            r(n, b, h, s=0.3), r(n, b, h, s=0.3))
+
+
+@pytest.mark.parametrize("b,t,layers,chunk", [
+    (16, 2096, 5, 32), (32, 252, 5, 8), (17, 37, 2, 8), (3, 40, 3, 1),
+    (33, 101, 5, 64), (64, 300, 5, 16), (5, 37, 1, 10)])
+def test_mixer_stack_chunks_bitwise_equal_layer_major(dev, b, t, layers,
+                                                      chunk):
+    """The chunk schedule gives the bits of chunk=T (the layer-major
+    schedule): out, hn, cn, and every residual plane of the training
+    forward; one launch counted per wrapper call."""
+    r = _rand(np.random.default_rng(b + t + chunk), dev)
+    args = _stack_args(r, b, t, 256, layers)
+    with torch.no_grad():
+        before = K1.launches, K1.train_fwd_launches
+        got = K1.mixer_stack_forward(*args, chunk=chunk)
+        want = K1.mixer_stack_forward(*args, chunk=t)
+        got_tr = K1.mixer_stack_train_forward(*args, chunk=chunk)
+        want_tr = K1.mixer_stack_train_forward(*args, chunk=t)
+        torch.cuda.synchronize()
+        assert (K1.launches, K1.train_fwd_launches) == (before[0] + 2,
+                                                        before[1] + 2)
+    for g, w in zip((got[0], *got[1]), (want[0], *want[1])):
+        assert torch.equal(g, w)
+    # out, hn, cn, and the residual planes: all but the last, the top
+    # block's output plane, which the top block leaves unwritten
+    top = got[0].numel()
+    for g, w in zip((*got_tr[:3], got_tr[3][:-top]),
+                    (*want_tr[:3], want_tr[3][:-top])):
+        assert torch.equal(g, w)
+    assert torch.equal(got_tr[0], got[0])
+
+
+@pytest.mark.parametrize("b,t,layers", [
+    (1, 37, 1), (17, 37, 2), (33, 37, 5), (64, 37, 5), (1, 2016, 5),
+    (17, 2016, 1), (33, 2016, 2), (64, 2016, 5)])
+def test_mixer_stack_schedule_matches_plain(dev, b, t, layers):
+    """Both forwards at the chunk chunk_steps picks vs the plain
+    version."""
+    r = _rand(np.random.default_rng(7 * b + t + layers), dev)
+    args = _stack_args(r, b, t, 256, layers)
+    with torch.no_grad():
+        y, (hn, cn) = K1.mixer_stack_forward(*args)
+        y2, hn2, cn2, _ = K1.mixer_stack_train_forward(*args)
+        yr, (hr, cr) = K1.mixer_stack_forward_reference(*args)
+    for got, want in ((y, yr), (hn, hr), (cn, cr), (y2, yr), (hn2, hr),
+                      (cn2, cr)):
+        assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("b,t,layers,chunk", [(32, 252, 5, 16),
+                                              (17, 101, 3, 8)])
+def test_mixer_stack_backward_from_chunked_residuals(dev, b, t, layers,
+                                                     chunk):
+    """K4 from the residuals of the chunk schedule's training forward vs
+    the plain backward."""
+    r = _rand(np.random.default_rng(b * chunk + t), dev)
+    args = _stack_args(r, b, t, 256, layers)
+    cots = (r(b, t, 256), r(layers, b, 256), r(layers, b, 256))
+    before = K1.train_fwd_launches, K1.bwd_launches
+    out, hn, cn, res = K1.mixer_stack_train_forward(*args, chunk=chunk)
+    grads = K1.mixer_stack_backward(args, res, *cots)
+    torch.cuda.synchronize()
+    assert (K1.train_fwd_launches, K1.bwd_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    yr, (hr, cr) = K1.mixer_stack_forward_reference(*args)
+    for got, want in ((out, yr), (hn, hr), (cn, cr)):
+        assert float((got - want).abs().max()) <= TOL
+    want = K1.mixer_stack_backward_reference(args, *cots)
+    for i, (g, w) in enumerate(zip(grads, want)):
+        assert _rel_err(g, w) <= GRAD_REL_TOL, i
+
+
+def test_mixer_stack_refuses_chunks_it_does_not_take(dev):
+    r = _rand(np.random.default_rng(1), dev)
+    args = _stack_args(r, 2, 20, 128, 2)
+    for kw in (dict(chunk=0), dict(chunk=21)):
+        with pytest.raises(ValueError):
+            K1.mixer_stack_forward(*args, **kw)
+        with pytest.raises(ValueError):
+            K1.mixer_stack_train_forward(*args, **kw)
+
+
 @pytest.mark.parametrize("b,t,din,h", [(16, 40, 256, 256), (5, 17, 128, 128)])
 def test_lstm_layer_kernels_match_plain(dev, b, t, din, h):
     from multimodalreactiongeneration_tpu_torch.ops import lstm_layer as K7
