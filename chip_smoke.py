@@ -488,7 +488,7 @@ def train_kernel_phase(K1, dev, rng):
         bwd_bound = bound(36 * n * b * t * h * h,
                           nbytes(args, res, cots, grads))
         del res, fwd_out
-        rows, resident = K1.cluster_layout(h)
+        rows, resident = K1.ROWS, K1.resident_clusters(h)
         check_case("mixer_stack_train", fwd_err, grad_rel, T=t,
                    fwd_ms=fwd_ms, whole_sequence_fwd_ms=whole_ms,
                    chunk=chosen, rows=rows, resident_clusters=resident,
@@ -2033,7 +2033,7 @@ def main():
             plain_ms, (yr, (hr, cr)) = cuda_ms(
                 lambda: K1.mixer_stack_forward_reference(*args), 1)
         err = max_err((y, hn, cn), (yr, hr, cr))
-        rows, resident = K1.cluster_layout(hid)
+        rows, resident = K1.ROWS, K1.resident_clusters(hid)
         log("mixer_stack", T=t, chunk=chosen, rows=rows,
             clusters=nl * -(-B // rows), resident_clusters=resident,
             bitwise_equal_to_whole=bitwise,

@@ -41,8 +41,8 @@
 //      and writes its slice of the new h into every CTA's double-
 //      buffered h through distributed shared memory; one cluster barrier
 //      per step orders the exchange. A cluster serves STACK_ROWS = 16
-//      batch rows; larger batches add clusters (32 rows, a measuring
-//      tool's build, ran slower at B64: PERF.md);
+//      batch rows; larger batches add clusters (32 rows ran slower at
+//      B64: PERF.md);
 //   3. add_ln_kernel + gemm_kernel + add_ln_kernel: the block tail,
 //      LN(h + x) -> Dense -> LN(z + y), on the window's rows.
 // Stream order gives (l, c-1) -> (l, c), so one xw chunk buffer a layer
@@ -73,11 +73,11 @@
 
 #include "lstm_cluster_bwd.cuh"
 
-#ifndef STACK_ROWS
-#define STACK_ROWS 16  // batch rows per cluster of the forward recurrence
-#endif
-
 namespace {
+
+// batch rows per cluster of the forward recurrence (ops/mixer_stack.py
+// ROWS)
+constexpr int STACK_ROWS = 16;
 
 // Residuals of the training forward, per block l, each a (B, T, H)
 // plane except the 4-plane gate activations: h trajectory, A = [i, f, g,
@@ -253,9 +253,6 @@ long long mixer_stack_workspace_floats(int B, int T, int H, int L, int C) {
   return (long long)(L * layer_floats(B, C, H, false) +
                      (size_t)(L - 1) * B * T * H);
 }
-
-// batch rows per cluster of the forward recurrence (this build's)
-int mixer_stack_rows() { return STACK_ROWS; }
 
 // How many clusters of the forward recurrence the card holds at once;
 // -1 if it takes no such launch.

@@ -40,37 +40,23 @@ _MAX_H = 256
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-CHUNKS = (8, 16, 32, 64, 128, 256)  # chunks chunk_steps weighs, besides T
-# One layer's time per chunk on its stream (H100, H256, R16): the cell
-# steps, a fixed part (the chunk's launches, the W_hh prologue, the
-# tail's latency) and the chunk's FP32 GEMMs (10 H^2 FLOPs a row) at the
-# rate they reach beside the recurrences. CHUNK_US is fitted to the
-# chunk sweep of tools/mixer_stack_ab.py (C 16-128 at B16 x T2096 and
-# B32 x T2016, C 8-64 at T262 and T252), where C 64 and C 32 ran fastest.
-STEP_US = 6.6
-CHUNK_US = 75.0
-GEMM_FLOPS_PER_US = 2e7
-
-
-def chunk_cost_us(b: int, t: int, h: int, layers: int, chunk: int) -> float:
-    """The schedule's modelled time: ceil(t / chunk) + layers - 1 chunk
-    slots on the chain, each a chunk of one layer."""
-    gemm_us = 10 * b * chunk * h * h / GEMM_FLOPS_PER_US
-    per = chunk * STEP_US + CHUNK_US + gemm_us
-    return (-(-t // chunk) + layers - 1) * per
+ROWS = 16  # batch rows per cluster of the recurrence (csrc STACK_ROWS)
+# Chunk lengths measured fastest on an H100 at H256 x L5 (PERF.md §6,
+# PR 10): 64 steps at T2016-T2096 and 32 at T252-T262, for B16 to B64.
+LONG_CHUNK, SHORT_CHUNK, LONG_T = 64, 32, 1024
 
 
 def chunk_steps(b: int, t: int, h: int, layers: int) -> int:
     """Steps per chunk of the stack forward at batch b, t steps, width h
-    and ``layers`` blocks: the chunk of ``CHUNKS`` shorter than t, or t
-    itself, whose schedule ``chunk_cost_us`` models fastest (the longer
-    on a tie). One layer has no lag to hide: t, one chunk. A short chunk
-    adds launches and a W_hh prologue per chunk; a long one adds
-    (layers - 1) * chunk steps to the chain."""
+    and ``layers`` blocks. One layer has no lag to hide: t, one chunk.
+    Otherwise LONG_CHUNK from LONG_T steps on and SHORT_CHUNK below, at
+    most t: a short chunk adds launches and a W_hh prologue per chunk, a
+    long one adds (layers - 1) * chunk steps to the chain."""
     if min(b, t, h, layers) < 1:
         raise ValueError(f"chunk_steps: b {b}, t {t}, h {h}, layers {layers}")
-    cands = [c for c in CHUNKS if c < t] + [t]
-    return min(cands, key=lambda c: (chunk_cost_us(b, t, h, layers, c), -c))
+    if layers == 1:
+        return t
+    return min(t, LONG_CHUNK if t >= LONG_T else SHORT_CHUNK)
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -116,10 +102,8 @@ def mixer_stack_backward_reference(args, dout, dhn, dcn, closure=False):
     return grads if closure else grads()
 
 
-def _lib(defines=()):
-    """The kernels' library; ``defines`` names a variant build (a
-    measuring tool's, e.g. ``STACK_ROWS=32``), never asked for here."""
-    lib = _build.load("mixer_stack", defines)
+def _lib():
+    lib = _build.load("mixer_stack")
     if not getattr(lib, "_typed", False):
         for name, n in (("mixer_stack_workspace_floats", 5),
                         ("mixer_stack_train_workspace_floats", 5),
@@ -127,10 +111,8 @@ def _lib(defines=()):
                         ("mixer_stack_residual_floats", 4)):
             getattr(lib, name).argtypes = [_I] * n
             getattr(lib, name).restype = ctypes.c_longlong
-        lib.mixer_stack_rows.argtypes = []
         lib.mixer_stack_resident_clusters.argtypes = [_I]
-        for name in ("mixer_stack_rows", "mixer_stack_resident_clusters"):
-            getattr(lib, name).restype = _I
+        lib.mixer_stack_resident_clusters.restype = _I
         lib.mixer_stack_forward_f32.argtypes = [_P] * 16 + [_I] * 5 + [_P]
         lib.mixer_stack_train_forward_f32.argtypes = (
             [_P] * 17 + [_I] * 5 + [_P])
@@ -186,12 +168,11 @@ def _chunk(name, b, t, h, nl, chunk):
     return chunk
 
 
-def cluster_layout(h: int, device=None) -> Tuple[int, int]:
-    """(batch rows per cluster, clusters the card holds at once) of the
-    forward recurrence at width h (the occupancy query)."""
+def resident_clusters(h: int, device=None) -> int:
+    """Clusters of ROWS batch rows the card holds at once in the forward
+    recurrence at width h (the occupancy query)."""
     with torch.cuda.device(device):
-        lib = _lib()
-        return lib.mixer_stack_rows(), lib.mixer_stack_resident_clusters(h)
+        return _lib().mixer_stack_resident_clusters(h)
 
 
 def mixer_stack_forward(

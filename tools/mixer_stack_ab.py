@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Time the encoder-stack forwards K1 and K3 of the checkout in the
-current directory, over chunk lengths and rows per cluster.
+current directory, over chunk lengths.
 
 Run from the root of a checkout of the PyTorch port, on one CUDA card:
 
@@ -14,10 +14,9 @@ weights: K1 (inference forward) at B16 x T2096 and T262 (the audio and
 partner-motion encoders in decode) and B64 x T2096; K3 (training
 forward) at B32 x T2016 and T252. Where the wrappers take ``chunk``,
 each case is timed at every chunk of the sweep and at chunk = T (the
-layer-major schedule), in turns (the sweep, then again in reverse), and
-at B64 with 16 and with 32 batch rows per cluster (the library built
-with ``-DSTACK_ROWS=32``), with the card's resident clusters for each; a
-checkout without ``chunk`` times its one schedule. Each time is the mean
+layer-major schedule), in turns (the sweep, then again in reverse),
+with the card's resident clusters; a checkout without ``chunk`` times
+its one schedule. Each time is the mean
 of N launches (default 5) by CUDA events after a warm-up. Every output
 (out, hn, cn and for K3 the residual planes) is hashed, so checkouts
 and chunks can be compared bit for bit. Prints one JSON line per case
@@ -25,8 +24,6 @@ and a last one with TAG and the card's name and power limit.
 """
 
 import argparse
-import contextlib
-import functools
 import hashlib
 import json
 import os
@@ -83,57 +80,36 @@ def stack_args(b, t, h=256, n=5, seed=0):
             r(n, b, h, s=0.3), r(n, b, h, s=0.3))
 
 
-@contextlib.contextmanager
-def rows_build(K1, rows):
-    """Inside, the wrappers launch the library built for ``rows`` batch
-    rows per cluster (16: the default build)."""
-    plain = K1._lib
-    if rows != 16:
-        K1._lib = functools.partial(plain, (f"STACK_ROWS={rows}",))
-    try:
-        yield
-    finally:
-        K1._lib = plain
-
-
-def run_case(K1, name, train, b, t, sweep, rows_list, reps):
+def run_case(K1, name, train, b, t, sweep, reps):
     args = stack_args(b, t)
     fn = K1.mixer_stack_train_forward if train else K1.mixer_stack_forward
     chunked = hasattr(K1, "chunk_steps")
 
-    def call(chunk, rows):
-        if not chunked:
-            out = fn(*args)
-        else:
-            with rows_build(K1, rows):
-                out = fn(*args, chunk=chunk)
+    def call(chunk):
+        out = fn(*args, chunk=chunk) if chunked else fn(*args)
         if not train:
             return out[0], *out[1]
         # the residual planes but the last, the top block's output plane,
         # which the top block leaves unwritten
         return (*out[:3], out[3][:-out[0].numel()])
 
-    settings = [(None, None)]
+    settings = [None]
     if chunked:
         picked = K1.chunk_steps(b, t, 256, 5)
-        chunks = sorted({*sweep, picked} - {t})
-        settings = [(c, r) for r in rows_list for c in (*chunks, t)]
+        settings = [*sorted({*sweep, picked} - {t}), t]
         settings += settings[::-1]
     rec = {"case": name, "B": b, "T": t, "train": train, "times": {}}
     if chunked:
         rec["chunk_steps"] = picked
-        rec["resident_clusters"] = {}
-        for r in rows_list:
-            with rows_build(K1, r):
-                rec["resident_clusters"][r] = K1.cluster_layout(256)[1]
+        rec["resident_clusters"] = K1.resident_clusters(256)
     hashes = {}
     with torch.no_grad():
-        for chunk, rows in settings:
-            key = "default" if chunk is None else f"C{chunk}_R{rows}"
-            ms = cuda_ms(lambda: call(chunk, rows), reps)
+        for chunk in settings:
+            key = "default" if chunk is None else f"C{chunk}"
+            ms = cuda_ms(lambda: call(chunk), reps)
             rec["times"].setdefault(key, []).append(ms)
             if key not in hashes:
-                hashes[key] = digest(call(chunk, rows))
+                hashes[key] = digest(call(chunk))
     rec["hashes"] = hashes
     rec["bitwise_equal"] = len(set(hashes.values())) == 1
     print(json.dumps(rec), flush=True)
@@ -148,13 +124,13 @@ def main():
     from multimodalreactiongeneration_tpu_torch.ops import mixer_stack as K1
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = [("K1", False, 16, 2096, SWEEP_LONG, (16,)),
-             ("K1", False, 16, 262, SWEEP_SHORT, (16,)),
-             ("K3", True, 32, 2016, SWEEP_LONG, (16,)),
-             ("K3", True, 32, 252, SWEEP_SHORT, (16,)),
-             ("K1", False, 64, 2096, (32, 64), (16, 32))]
-    recs = [run_case(K1, n, tr, b, t, sw, rl, a.reps)
-            for n, tr, b, t, sw, rl in cases]
+    cases = [("K1", False, 16, 2096, SWEEP_LONG),
+             ("K1", False, 16, 262, SWEEP_SHORT),
+             ("K3", True, 32, 2016, SWEEP_LONG),
+             ("K3", True, 32, 252, SWEEP_SHORT),
+             ("K1", False, 64, 2096, (32, 64))]
+    recs = [run_case(K1, n, tr, b, t, sw, a.reps)
+            for n, tr, b, t, sw in cases]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
