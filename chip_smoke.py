@@ -322,14 +322,14 @@ def same_bits(xs, ys):
 
 @contextlib.contextmanager
 def whole_sequence_chunks(K1):
-    """Inside, the stack forwards run at chunk = T (the layer-major
-    schedule) wherever the caller names no chunk."""
-    chosen = K1.chunk_steps
-    K1.chunk_steps = lambda b, t, h, layers: t
+    """Inside, the stack forwards and backward run at chunk = T (the
+    layer-major schedule) wherever the caller names no chunk."""
+    chosen = K1.chunk_steps, K1.backward_chunk_steps
+    K1.chunk_steps = K1.backward_chunk_steps = lambda b, t, h, layers: t
     try:
         yield
     finally:
-        K1.chunk_steps = chosen
+        K1.chunk_steps, K1.backward_chunk_steps = chosen
 
 
 def schedule_ab(K1, run, reps):
@@ -354,14 +354,17 @@ def schedule_ab(K1, run, reps):
     return {k: float(np.mean(v)) for k, v in times.items()}, times, peak
 
 
-def window_overlap(events):
+def window_overlap(events, kernel="lstm_window_kernel"):
     """From a profile's device events, the stack's recurrence windows
-    (``lstm_window_kernel``): grouped into stack calls where the device
-    ran none of them for 0.5 ms, each call's window from its first start
-    to its last end; the share of the windows in which two or more
-    layers' recurrences ran at once, and in which at least one ran."""
+    (``kernel``: the forward's, or the backward's
+    ``lstm_cluster_bwd_kernel``): grouped into stack calls where the
+    device ran none of them for 0.5 ms, each call's window from its first
+    start to its last end; the share of the windows in which two or more
+    layers' recurrences ran at once, and in which at least one ran. A
+    group of one launch is no stack call (K7 and K8 run the backward
+    kernel over a whole sequence in one launch) and is left out."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if "lstm_window_kernel" in e.name)
+                   if kernel in e.name)
     if not spans:
         return None
     calls, end = [], float("-inf")
@@ -370,6 +373,9 @@ def window_overlap(events):
             calls.append([])
         calls[-1].append((a, b))
         end = max(end, b)
+    calls = [call for call in calls if len(call) > 1]
+    if not calls:
+        return None
     window = multi = single = 0.0
     for call in calls:
         window += max(b for _, b in call) - call[0][0]
@@ -474,19 +480,43 @@ def train_kernel_phase(K1, dev, rng):
         means, turns = in_turns(k3, chosen, t)
         fwd_ms, whole_ms = means[chosen], means[t]
         fwd_out = k3(chosen)
-        # out, hn, cn and the residual planes but the last (the top
-        # block's output plane, left unwritten: its output is out)
-        whole, top = k3(t), fwd_out[0].numel()
-        bitwise = same_bits((*fwd_out[:3], fwd_out[3][:-top]),
-                            (*whole[:3], whole[3][:-top]))
+        # out, hn, cn and every residual plane
+        whole = k3(t)
+        bitwise = same_bits(fwd_out, whole)
         del whole
         res = fwd_out[3]
-        bwd_ms, _ = cuda_ms(lambda: K1.mixer_stack_backward(args, res, *cots), 3)
+
+        # K4 the same way, and its bits: dx0, dh0, dc0 against chunk = T,
+        # all twelve gradients run to run
+        def k4(chunk):
+            return K1.mixer_stack_backward(args, res, *cots, chunk=chunk)
+
+        bwd_chosen = K1.backward_chunk_steps(b, t, h, n)
+        bwd_sweep = chunk_sweep(k4, t,
+                                SWEEP_LONG if t > 1000 else SWEEP_SHORT)
+        log("mixer_stack_bwd_sweep", T=t,
+            ms={c: round(v, 3) for c, v in bwd_sweep.items()})
+        means, bwd_turns = in_turns(k4, bwd_chosen, t)
+        bwd_ms, whole_bwd_ms = means[bwd_chosen], means[t]
+        got, again, whole = k4(bwd_chosen), k4(bwd_chosen), k4(t)
+        states = (0, 10, 11)  # dx0, dh0, dc0
+        bwd_bitwise = same_bits([got[i] for i in states],
+                                [whole[i] for i in states])
+        bwd_repeat = same_bits(got, again)
+        del got, again, whole
+        ws_floats = K1._lib().mixer_stack_backward_workspace_floats
+        ws_bytes = 4 * ws_floats(b, t, h, n, bwd_chosen)
+        whole_ws_bytes = 4 * ws_floats(b, t, h, n, t)
+        # the layer-major K4's workspace: B*T*8*H floats and the partials
+        parent_ws_bytes = 4 * (b * t * 8 * h + (1 << 22) + (1 << 18))
         # matmul FLOPs per block: x.W_ih and h.W_hh (8 B T H^2 each), the
-        # Dense (2 B T H^2); the backward doubles each product
+        # Dense (2 B T H^2); the backward doubles each product: the chain's
+        # dgates.W_hh^T in FP32, dW_ih, dW_hh, dx (8 B T H^2 each), dW_ff and
+        # dy (2 B T H^2 each) in 3xTF32
         fwd_bound = bound(18 * n * b * t * h * h, nbytes(args, fwd_out))
-        bwd_bound = bound(36 * n * b * t * h * h,
-                          nbytes(args, res, cots, grads))
+        bwd_bound = bound(8 * n * b * t * h * h,
+                          nbytes(args, res, cots, grads),
+                          tf32x3_flops=28 * n * b * t * h * h)
         del res, fwd_out
         rows, resident = K1.ROWS, K1.resident_clusters(h)
         check_case("mixer_stack_train", fwd_err, grad_rel, T=t,
@@ -495,15 +525,38 @@ def train_kernel_phase(K1, dev, rng):
                    clusters=n * -(-b // rows),
                    bitwise_equal_to_whole=bitwise,
                    plain_fwd_ms=plain_fwd_ms, bwd_ms=bwd_ms,
+                   whole_sequence_bwd_ms=whole_bwd_ms, bwd_chunk=bwd_chosen,
+                   bwd_states_bitwise_equal_to_whole=bwd_bitwise,
+                   bwd_run_to_run_bitwise=bwd_repeat,
+                   bwd_workspace_bytes=ws_bytes,
+                   whole_sequence_bwd_workspace_bytes=whole_ws_bytes,
+                   parent_bwd_workspace_bytes=parent_ws_bytes,
                    plain_bwd_ms=plain_bwd_ms)
         if not bitwise:
             raise AssertionError(
                 f"mixer_stack_train T={t}: chunk {chosen} differs from "
                 "chunk = T")
+        if not bwd_bitwise:
+            raise AssertionError(
+                f"mixer_stack_bwd T={t}: dx0, dh0, dc0 at chunk "
+                f"{bwd_chosen} differ from chunk = T")
+        if not bwd_repeat:
+            raise AssertionError(
+                f"mixer_stack_bwd T={t}: two runs at chunk {bwd_chosen} "
+                "differ")
         cases.append(dict(T=t, chunk=chosen, rows=rows,
                           whole_sequence_fwd_ms=whole_ms,
                           fwd_ms_turns=turns, chunk_sweep_ms=sweep,
                           bitwise_equal_to_whole=bitwise,
+                          bwd_chunk=bwd_chosen,
+                          whole_sequence_bwd_ms=whole_bwd_ms,
+                          bwd_ms_turns=bwd_turns,
+                          bwd_chunk_sweep_ms=bwd_sweep,
+                          bwd_states_bitwise_equal_to_whole=bwd_bitwise,
+                          bwd_run_to_run_bitwise=bwd_repeat,
+                          bwd_workspace_bytes=ws_bytes,
+                          whole_sequence_bwd_workspace_bytes=whole_ws_bytes,
+                          parent_bwd_workspace_bytes=parent_ws_bytes,
                           fwd_max_abs_err=fwd_err,
                           grad_max_abs_err=grad_err, grad_max_rel_err=grad_rel,
                           fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
@@ -1290,8 +1343,8 @@ def profile_step(step, batch, name):
     generation), by device time, written to ``_build/<name>`` of the
     package; returns the share of the step's wall time in which a kernel
     or copy ran on the device (the union of their intervals), and the
-    encoder stack's layer overlap (``window_overlap``; None without a
-    stack forward)."""
+    encoder stack's layer overlap (``window_overlap``, forward and
+    backward; None without a stack call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1312,8 +1365,9 @@ def profile_step(step, batch, name):
             busy_us += b - max(a, end)
             end = b
     busy = busy_us / wall_us
-    overlap = window_overlap(e for e in prof.events()
-                             if e.device_type == DeviceType.CUDA)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    overlap = window_overlap(device)
+    bwd_overlap = window_overlap(device, "lstm_cluster_bwd_kernel")
     table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=60)
     path = _build.BUILD_DIR / name
@@ -1327,6 +1381,12 @@ def profile_step(step, batch, name):
             stack_window_ms=f"{overlap['window_ms']:.3f}",
             multi_layer_share=f"{overlap['multi_layer_share']:.4f}",
             recurrence_share=f"{overlap['recurrence_share']:.4f}")
+    if bwd_overlap:
+        log("profile", stack_bwd_windows=bwd_overlap["calls"],
+            stack_bwd_window_ms=f"{bwd_overlap['window_ms']:.3f}",
+            bwd_multi_layer_share=f"{bwd_overlap['multi_layer_share']:.4f}",
+            bwd_recurrence_share=f"{bwd_overlap['recurrence_share']:.4f}")
+        overlap = {**(overlap or {}), "backward": bwd_overlap}
     return busy, overlap
 
 
@@ -1634,7 +1694,9 @@ def training_records(train, lstm_cases, launches):
             launches["mixer_stack_bwd"],
             max(c["grad_max_abs_err"] for c in train), audio["bwd_ms"],
             audio["plain_bwd_ms"], audio["bwd_bound"], None,
-            max_rel_err=max(c["grad_max_rel_err"] for c in train)),
+            max_rel_err=max(c["grad_max_rel_err"] for c in train),
+            whole_sequence_ms=audio["whole_sequence_bwd_ms"],
+            chunk=audio["bwd_chunk"]),
         kernel_record(
             "lstm_layer_fwd", "lstm_layer.cu", "pallas_lstm.py:390",
             launches["lstm_layer_fwd"],

@@ -376,7 +376,7 @@ int gru_backward_f32(const float* xw, const float* hh, const float* w_hh_t,
   const int rows = B * T;
   if ((err = reduce_rows_tn(ys, h0, T, dhh, dwhh, part, rows, H, 3 * H, s)))
     return err;
-  return colsum(dhh, nullptr, dbhh, part + PART_FLOATS, rows, 3 * H, s);
+  return colsum(dhh, dbhh, part + PART_FLOATS, rows, 3 * H, s);
 }
 
 }  // extern "C"

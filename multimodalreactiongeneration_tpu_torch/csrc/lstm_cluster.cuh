@@ -39,20 +39,18 @@ struct RowMap {
 };
 
 // ---------------------------------------------------------------------
-// C[M, N] = A[M, K] @ op(W) (+ bias[N]) (+ D[M, N]), row-major FP32.
-// op(W) is W stored (K, N), or with TRANS_W the transpose of W stored
-// (N, K). bias and D may be null. With MAP, row m of A is row ma(m) of
-// the A plane, and row m of C and D is row mc(m) of theirs; each output
-// element's sum runs in the same order either way.
+// C[mc(m), :] = A[ma(m), :] @ W (+ bias), row-major FP32, for the M rows of
+// a window: row m of A is row ma(m) of the A plane (K wide), row m of C
+// row mc(m) of the C plane (N wide); W stored (K, N); bias may be null.
+// Each output element's sum runs in the same order whatever the window.
 // ---------------------------------------------------------------------
 constexpr int GM_BM = 64, GM_BN = 64, GM_BK = 16;
 constexpr int GM_AROWS = GM_BM * GM_BK / 256;  // A-tile rows a thread loads
 
-template <bool TRANS_W, bool MAP = false>
 __global__ void __launch_bounds__(256) gemm_kernel(
     const float* __restrict__ A, const float* __restrict__ W,
-    const float* __restrict__ bias, const float* __restrict__ D,
-    float* __restrict__ C, int M, int N, int K, RowMap ma, RowMap mc) {
+    const float* __restrict__ bias, float* __restrict__ C, int M, int N,
+    int K, RowMap ma, RowMap mc) {
   __shared__ float As[GM_BK][GM_BM + 4];  // A tile, transposed: As[k][m]
   __shared__ __align__(16) float Ws[GM_BK][GM_BN];
   const int tid = threadIdx.x;
@@ -63,39 +61,26 @@ __global__ void __launch_bounds__(256) gemm_kernel(
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  // MAP: a thread loads the same GM_AROWS rows of A at every k0
+  // a thread loads the same GM_AROWS rows of A at every k0
   size_t arow[GM_AROWS];
-  if constexpr (MAP) {
 #pragma unroll
-    for (int j = 0; j < GM_AROWS; ++j) {
-      const int gm = m0 + (tid + 256 * j) / GM_BK;
-      arow[j] = gm < M ? ma(gm) * K : 0;
-    }
+  for (int j = 0; j < GM_AROWS; ++j) {
+    const int gm = m0 + (tid + 256 * j) / GM_BK;
+    arow[j] = gm < M ? ma(gm) * K : 0;
   }
 
   for (int k0 = 0; k0 < K; k0 += GM_BK) {
-    if constexpr (MAP) {
 #pragma unroll
-      for (int j = 0; j < GM_AROWS; ++j) {
-        const int i = tid + 256 * j;
-        const int r = i / GM_BK, c = i % GM_BK;
-        const int gm = m0 + r, gk = k0 + c;
-        As[c][r] = (gm < M && gk < K) ? A[arow[j] + gk] : 0.f;
-      }
-    } else {
-      for (int i = tid; i < GM_BM * GM_BK; i += 256) {
-        const int r = i / GM_BK, c = i % GM_BK;
-        const int gm = m0 + r, gk = k0 + c;
-        As[c][r] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
-      }
+    for (int j = 0; j < GM_AROWS; ++j) {
+      const int i = tid + 256 * j;
+      const int r = i / GM_BK, c = i % GM_BK;
+      const int gm = m0 + r, gk = k0 + c;
+      As[c][r] = (gm < M && gk < K) ? A[arow[j] + gk] : 0.f;
     }
     for (int i = tid; i < GM_BK * GM_BN; i += 256) {
       const int r = i / GM_BN, c = i % GM_BN;
       const int gk = k0 + r, gn = n0 + c;
-      float v = 0.f;
-      if (gk < K && gn < N)
-        v = TRANS_W ? W[(size_t)gn * K + gk] : W[(size_t)gk * N + gn];
-      Ws[r][c] = v;
+      Ws[r][c] = (gk < K && gn < N) ? W[(size_t)gk * N + gn] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -116,14 +101,13 @@ __global__ void __launch_bounds__(256) gemm_kernel(
   for (int i = 0; i < 4; ++i) {
     const int gm = m0 + ty * 4 + i;
     if (gm >= M) continue;
-    const size_t cr = MAP ? mc(gm) : (size_t)gm;
+    const size_t cr = mc(gm);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gn = n0 + tx * 4 + j;
       if (gn >= N) continue;
       float v = acc[i][j];
       if (bias) v += bias[gn];
-      if (D) v += D[cr * N + gn];
       C[cr * N + gn] = v;
     }
   }
@@ -414,24 +398,11 @@ int resident_clusters(Kernel kernel, size_t smem) {
   return n;
 }
 
-int gemm(const float* A, const float* W, const float* bias, const float* D,
-         float* C, int M, int N, int K, bool trans_w, cudaStream_t stream) {
-  const dim3 grid((N + GM_BN - 1) / GM_BN, (M + GM_BM - 1) / GM_BM);
-  if (trans_w)
-    gemm_kernel<true><<<grid, 256, 0, stream>>>(A, W, bias, D, C, M, N, K,
-                                                RowMap{}, RowMap{});
-  else
-    gemm_kernel<false><<<grid, 256, 0, stream>>>(A, W, bias, D, C, M, N, K,
-                                                 RowMap{}, RowMap{});
-  return check_launch();
-}
-
 // C[mc(m)] = A[ma(m)] @ W (+ bias) for the M rows of a window
 int gemm_rows(const float* A, RowMap ma, const float* W, const float* bias,
               float* C, RowMap mc, int M, int N, int K, cudaStream_t stream) {
   const dim3 grid((N + GM_BN - 1) / GM_BN, (M + GM_BM - 1) / GM_BM);
-  gemm_kernel<false, true><<<grid, 256, 0, stream>>>(A, W, bias, nullptr, C,
-                                                     M, N, K, ma, mc);
+  gemm_kernel<<<grid, 256, 0, stream>>>(A, W, bias, C, M, N, K, ma, mc);
   return check_launch();
 }
 

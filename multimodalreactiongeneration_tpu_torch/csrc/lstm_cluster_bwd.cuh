@@ -1,10 +1,12 @@
 // Backward building blocks of the recurrent kernels: the reverse cluster
-// LSTM recurrence, split-K reductions over all B*T rows (A^T B products
-// and column sums), and the row-parallel LayerNorm backward.
+// LSTM recurrence (over a whole sequence or over a window of steps),
+// split-K reductions over rows (A^T B products and column sums), and the
+// row-parallel LayerNorm backward.
 //
 // Used by csrc/mixer_stack.cu (the encoder-stack backward),
-// csrc/lstm_recurrence.cu and csrc/lstm_layer.cu (whose weight gradients
-// take the tensor-core reductions of tc_gemm.cuh instead of these).
+// csrc/lstm_recurrence.cu, csrc/lstm_layer.cu (whose weight gradients
+// take the tensor-core reductions of tc_gemm.cuh instead of these) and
+// csrc/gru.cu (the reductions).
 //
 // The reverse recurrence. The forward stored the gate activations
 // A = [i, f, g, o] and the cell states c of every step, so a reverse step
@@ -24,8 +26,15 @@
 // barrier of step t also orders step t-1's writes after step t's reads.
 // A step's dy, gate activations and cell states come from device memory
 // a step ahead (StepIn), so their latency is off the chain.
-// dgates go to device memory (B, T, 4H); the weight gradients and dx are
-// then parallel products over all rows (below).
+// One kernel runs a window of n steps from t0. K7 and K8 run the whole
+// sequence (t0 = 0, n = T) and write the dgates trajectory (B, T, 4H);
+// the weight gradients and dx are then parallel products over all rows
+// (below). The encoder stack's chunks (mixer_stack.cu) run windows of the
+// (B, T) residual planes, read dy and write dgates in (B, n) chunk
+// buffers, and hand dh_carry to the next window as its 8 unsummed slots
+// (CL, B, H): the next window sums dy + slot 0 + ... + slot 7 in the
+// order a step inside one window does, so every window length gives the
+// same bits.
 
 #pragma once
 
@@ -50,8 +59,10 @@ size_t lstm_bwd_smem_bytes(int H, int R) {
 
 // What a reverse step of one (row, unit) cell reads besides the chain:
 // the cotangent of its h, its gate activations, its cell state and the
-// one before (dy 0 without dys). Loaded during the step before, off the
-// chain; nothing is loaded for a step outside [0, T).
+// one before (dy 0 without dys). Step t of the (B, T) planes acts and
+// cs; dys row b * n + t - t0 (the whole sequence: t0 = 0, n = T). Loaded
+// during the step before, off the chain; nothing is loaded for a step
+// outside [t0, t0 + n).
 struct StepIn {
   float dy, a[4], c, cp;
 };
@@ -59,11 +70,12 @@ struct StepIn {
 __device__ __forceinline__ void load_step_in(
     StepIn& in, bool ok, const float* __restrict__ dys,
     const float* __restrict__ acts, const float* __restrict__ cs,
-    const float* __restrict__ c0, int b, int t, int T, int H, int col) {
-  if (!ok || t < 0 || t >= T) return;
+    const float* __restrict__ c0, int b, int t, int T, int t0, int n, int H,
+    int col) {
+  if (!ok || t < t0 || t >= t0 + n) return;
   const size_t row = (size_t)b * T + t;
   const float* a = acts + row * 4 * H + col;
-  in.dy = dys ? dys[row * H + col] : 0.f;
+  in.dy = dys ? dys[((size_t)b * n + t - t0) * H + col] : 0.f;
   in.a[0] = a[0];
   in.a[1] = a[H];
   in.a[2] = a[2 * H];
@@ -88,20 +100,27 @@ __device__ __forceinline__ void cell_bwd(const StepIn& in, float dh,
 
 // R batch rows per cluster; each thread owns up to R/8 (row, unit) cells
 // (H <= 256), and threads k < H compute the partial dh_carry of unit k
-// for all R rows.
+// for all R rows. Runs steps t0+n-1 down to t0 of the (B, T) planes acts
+// and cs (the whole sequence, K7 and K8: t0 = 0, n = T). dys (B, n, H)
+// and dgates (B, n, 4H) are laid out by the steps run. The state after
+// the steps run is dhn, dcn (B, H), or with dhn_parts (CL, B, H) not null
+// the dh_carry slots of the window after; the state before them goes to
+// dh0, dc0, or its slots to dh0_parts where that is not null.
 template <int R>
 __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
     const float* __restrict__ acts,    // (B, T, 4H) i, f, g, o
     const float* __restrict__ cs,      // (B, T, H) cell states
     const float* __restrict__ c0,      // (B, H)
-    const float* __restrict__ dys,     // (B, T, H) cotangent of h_t
+    const float* __restrict__ dys,     // (B, n, H) cotangent of h_t
     const float* __restrict__ w_hh_t,  // (H, 4H)
     const float* __restrict__ dhn,     // (B, H)
     const float* __restrict__ dcn,     // (B, H)
-    float* __restrict__ dgates,        // (B, T, 4H)
+    const float* __restrict__ dhn_parts,  // (CL, B, H) or null
+    float* __restrict__ dgates,        // (B, n, 4H)
     float* __restrict__ dh0,           // (B, H)
     float* __restrict__ dc0,           // (B, H)
-    int B, int T, int H) {
+    float* __restrict__ dh0_parts,     // (CL, B, H) or null
+    int B, int T, int H, int t0, int n) {
   constexpr int MC = R / 8;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -110,6 +129,8 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
   const int NC = 4 * U;
   const int tid = threadIdx.x;
   const size_t G = 4 * (size_t)H;
+  const size_t BH = (size_t)B * H;
+  const int tl = t0 + n - 1;  // the first step run
 
   extern __shared__ __align__(16) float smem[];
   float* WsT = smem;              // [NC][H]: WsT[lc][k] = W_hh^T[k][col(lc)]
@@ -135,17 +156,17 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
     own_ok[j] = own_in[j] && b0 + own_r[j] < B;
     dcreg[j] = own_ok[j]
         ? dcn[(size_t)(b0 + own_r[j]) * H + rank * U + own_u[j]] : 0.f;
-    load_step_in(cur[j], own_ok[j], dys, acts, cs, c0, b0 + own_r[j], T - 1,
-                 T, H, rank * U + own_u[j]);
+    load_step_in(cur[j], own_ok[j], dys, acts, cs, c0, b0 + own_r[j], tl, T,
+                 t0, n, H, rank * U + own_u[j]);
   }
   cluster.sync();  // every CTA of the cluster runs before remote writes
 
-  for (int t = T - 1; t >= 0; --t) {
+  for (int t = tl; t >= t0; --t) {
     const float* rd = red + ((t + 1) & 1) * CL * slot;
 #pragma unroll
     for (int j = 0; j < MC; ++j)
       load_step_in(nxt[j], own_ok[j], dys, acts, cs, c0, b0 + own_r[j],
-                   t - 1, T, H, rank * U + own_u[j]);
+                   t - 1, T, t0, n, H, rank * U + own_u[j]);
 #pragma unroll
     for (int j = 0; j < MC; ++j) {
       if (!own_in[j]) continue;
@@ -155,14 +176,20 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
         const int b = b0 + r;
         const int col = rank * U + u;
         float dh = cur[j].dy;
-        if (t == T - 1) {
-          dh += dhn[(size_t)b * H + col];
+        if (t == tl) {
+          if (dhn_parts) {
+#pragma unroll
+            for (int s = 0; s < CL; ++s)
+              dh += dhn_parts[s * BH + (size_t)b * H + col];
+          } else {
+            dh += dhn[(size_t)b * H + col];
+          }
         } else {
 #pragma unroll
           for (int s = 0; s < CL; ++s) dh += rd[s * slot + r * U + u];
         }
         cell_bwd(cur[j], dh, dcreg[j], d);
-        float* o = dgates + ((size_t)b * T + t) * G + col;
+        float* o = dgates + ((size_t)b * n + t - t0) * G + col;
         o[0] = d[0];
         o[H] = d[1];
         o[2 * H] = d[2];
@@ -199,15 +226,22 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
     for (int j = 0; j < MC; ++j) cur[j] = nxt[j];
   }
 
+  const float* fin = red + (t0 & 1) * CL * slot;  // written at step t0
 #pragma unroll
   for (int j = 0; j < MC; ++j) {
     if (!own_ok[j]) continue;
     const int r = own_r[j], u = own_u[j];
-    float dh = 0.f;
-#pragma unroll
-    for (int s = 0; s < CL; ++s) dh += red[s * slot + r * U + u];
     const size_t o = (size_t)(b0 + r) * H + rank * U + u;
-    dh0[o] = dh;
+    if (dh0_parts) {
+#pragma unroll
+      for (int s = 0; s < CL; ++s)
+        dh0_parts[s * BH + o] = fin[s * slot + r * U + u];
+    } else {
+      float dh = 0.f;
+#pragma unroll
+      for (int s = 0; s < CL; ++s) dh += fin[s * slot + r * U + u];
+      dh0[o] = dh;
+    }
     dc0[o] = dcreg[j];
   }
 }
@@ -283,57 +317,94 @@ __global__ void __launch_bounds__(256) gemm_tn_partial_kernel(
   }
 }
 
-// out[i] = sum over s of P[s, i]
+// out[i] = sum over s of P[s, i]; with acc, out[i] + that sum
 __global__ void __launch_bounds__(256) sum_splits_kernel(
     const float* __restrict__ P, float* __restrict__ out, int splits,
-    size_t n) {
+    size_t n, bool acc) {
   const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
   if (i >= n) return;
   float s = 0.f;
   for (int k = 0; k < splits; ++k) s += P[(size_t)k * n + i];
-  out[i] = s;
+  out[i] = acc ? out[i] + s : s;
 }
 
-// P[s, n] = sum over the rows r of split s of a[r, n] * b[r, n] (b null: 1)
-__global__ void __launch_bounds__(256) colsum_partial_kernel(
-    const float* __restrict__ a, const float* __restrict__ b,
-    float* __restrict__ P, int R, int N, int rows_per_split) {
-  const int n = blockIdx.x * 256 + threadIdx.x;
-  if (n >= N) return;
+// Column sums of several (rows, width) arrays in one pass and one sum:
+// job k sums the rows of src[k] into dst[k] (with acc, adding to it); the
+// jobs' columns lie side by side. Unused jobs have width 0.
+constexpr int SUM_JOBS = 6;
+struct ColJobs {
+  const float* src[SUM_JOBS];
+  float* dst[SUM_JOBS];
+  int width[SUM_JOBS];
+};
+
+// the job of column x, and x's column in it
+__device__ __forceinline__ int job_of(const ColJobs& jobs, int& x) {
+  int k = 0;
+  while (k < SUM_JOBS - 1 && x >= jobs.width[k]) x -= jobs.width[k++];
+  return k;
+}
+
+// P[s, x] = sum over the rows of split s of column x
+__global__ void __launch_bounds__(256) colsums_partial_kernel(
+    ColJobs jobs, float* __restrict__ P, int R, int cols,
+    int rows_per_split) {
+  const int x = blockIdx.x * 256 + threadIdx.x;
+  if (x >= cols) return;
+  int n = x;
+  const int k = job_of(jobs, n);
+  const int N = jobs.width[k];
+  const float* a = jobs.src[k];
   const int r_begin = blockIdx.y * rows_per_split;
   const int r_end = min(R, r_begin + rows_per_split);
   float s = 0.f;
-  for (int r = r_begin; r < r_end; ++r) {
-    const float v = a[(size_t)r * N + n];
-    s += b ? v * b[(size_t)r * N + n] : v;
-  }
-  P[(size_t)blockIdx.y * N + n] = s;
+  for (int r = r_begin; r < r_end; ++r) s += a[(size_t)r * N + n];
+  P[(size_t)blockIdx.y * cols + x] = s;
+}
+
+// dst of column x = (with acc: dst +) the sum over s of P[s, x]
+__global__ void __launch_bounds__(256) colsums_kernel(
+    ColJobs jobs, const float* __restrict__ P, int splits, int cols,
+    bool acc) {
+  const int x = blockIdx.x * 256 + threadIdx.x;
+  if (x >= cols) return;
+  float s = 0.f;
+  for (int k = 0; k < splits; ++k) s += P[(size_t)k * cols + x];
+  int n = x;
+  float* o = jobs.dst[job_of(jobs, n)] + n;
+  *o = acc ? *o + s : s;
 }
 
 // ---------------------------------------------------------------------
 // LayerNorm backward for out = LN(ra + rb) * g + beta, one warp per row:
 // dr = rstd * (g*dout - mean(g*dout) - xhat * mean(g*dout*xhat)); the
 // statistics are recomputed from ra + rb as the forward computed them.
-// Also writes xhat, for the scale gradient sum(dout * xhat).
+// Also writes dout * xhat, the terms of the scale gradient, and (dcopy
+// not null) a copy of dout. Row r of dout, ra and rb is row md(r), ma(r)
+// and mb(r) of its plane; dr, prod and dcopy are dense (rows, H).
 // ---------------------------------------------------------------------
 __global__ void __launch_bounds__(256) ln_bwd_kernel(
-    const float* __restrict__ dout, const float* __restrict__ ra,
-    const float* __restrict__ rb, const float* __restrict__ g,
-    float* __restrict__ dr, float* __restrict__ xhat, int rows, int H) {
+    const float* __restrict__ dout, RowMap md, const float* __restrict__ ra,
+    RowMap ma, const float* __restrict__ rb, RowMap mb,
+    const float* __restrict__ g, float* __restrict__ dr,
+    float* __restrict__ prod, float* __restrict__ dcopy, int rows, int H) {
   constexpr int V = MAX_H / 32;
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const size_t base = (size_t)row * H;
-  float rv[V], dv[V];
+  const float* pd = dout + md(row) * H;
+  const float* pa = ra + ma(row) * H;
+  const float* pb = rb + mb(row) * H;
+  float rv[V], dv[V], ov[V];
   float s = 0.f, ss = 0.f;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     const int k = lane + 32 * i;
-    rv[i] = dv[i] = 0.f;
+    rv[i] = dv[i] = ov[i] = 0.f;
     if (k < H) {
-      rv[i] = ra[base + k] + rb[base + k];
-      dv[i] = dout[base + k] * g[k];
+      rv[i] = pa[k] + pb[k];
+      ov[i] = pd[k];
+      dv[i] = ov[i] * g[k];
       s += rv[i];
       ss += rv[i] * rv[i];
     }
@@ -361,12 +432,14 @@ __global__ void __launch_bounds__(256) ln_bwd_kernel(
   }
   m1 /= H;
   m2 /= H;
+  const size_t base = (size_t)row * H;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     const int k = lane + 32 * i;
     if (k < H) {
       dr[base + k] = rstd * (dv[i] - m1 - rv[i] * m2);
-      xhat[base + k] = rv[i];
+      prod[base + k] = ov[i] * rv[i];
+      if (dcopy) dcopy[base + k] = ov[i];
     }
   }
 }
@@ -393,63 +466,45 @@ int reduce_rows_tn(const float* A, const float* h0, int shift_t,
   int err = check_launch();
   if (err) return err;
   sum_splits_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
-      part, out, splits, mn);
+      part, out, splits, mn, false);
   return check_launch();
 }
 
-// out[n] = sum over R rows of a[r, n] * b[r, n] (b null: 1)
-int colsum(const float* a, const float* b, float* out, float* cpart, int R,
-           int N, cudaStream_t stream) {
-  int splits = (int)std::min<size_t>(256, CPART_FLOATS / N);
+// the jobs' column sums over R rows (see ColJobs)
+int colsums(const ColJobs& jobs, float* cpart, int R, bool acc,
+            cudaStream_t stream) {
+  int cols = 0;
+  for (int k = 0; k < SUM_JOBS; ++k) cols += jobs.width[k];
+  int splits = (int)std::min<size_t>(256, CPART_FLOATS / cols);
   splits = std::max(1, std::min(splits, R));
   const int rps = (R + splits - 1) / splits;
   splits = (R + rps - 1) / rps;
-  const dim3 grid((N + 255) / 256, splits);
-  colsum_partial_kernel<<<grid, 256, 0, stream>>>(a, b, cpart, R, N, rps);
+  const unsigned blocks = (unsigned)((cols + 255) / 256);
+  colsums_partial_kernel<<<dim3(blocks, splits), 256, 0, stream>>>(
+      jobs, cpart, R, cols, rps);
   int err = check_launch();
   if (err) return err;
-  sum_splits_kernel<<<(N + 255) / 256, 256, 0, stream>>>(cpart, out, splits,
-                                                         (size_t)N);
+  colsums_kernel<<<blocks, 256, 0, stream>>>(jobs, cpart, splits, cols, acc);
   return check_launch();
 }
 
-int ln_bwd(const float* dout, const float* ra, const float* rb,
-           const float* g, float* dr, float* xhat, size_t rows, int H,
+// out[n] = sum over R rows of a[r, n]
+int colsum(const float* a, float* out, float* cpart, int R, int N,
            cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((rows * 32 + 255) / 256);
-  ln_bwd_kernel<<<blocks, 256, 0, stream>>>(dout, ra, rb, g, dr, xhat,
-                                            (int)rows, H);
-  return check_launch();
+  ColJobs jobs{};
+  jobs.src[0] = a;
+  jobs.dst[0] = out;
+  jobs.width[0] = N;
+  return colsums(jobs, cpart, R, false, stream);
 }
 
-// Backward of one LSTM layer (input projection + recurrence) from the
-// cotangent dys of its h trajectory ys: the reverse recurrence writes
-// dgates, then dW_ih^T = x^T dgates, dW_hh^T = h_prev^T dgates,
-// db = colsum(dgates) and dx = dgates @ W_ih (+ dx_add, may be null).
-int lstm_backward(const float* x, int din, const float* w_ih_t,
-                  const float* w_hh_t, const float* h0, const float* c0,
-                  const float* ys, const float* acts, const float* cs,
-                  const float* dys, const float* dhn, const float* dcn,
-                  const float* dx_add, float* dx, float* dwih, float* db,
-                  float* dwhh, float* dh0, float* dc0, float* dgates,
-                  float* part, float* cpart, int B, int T, int H,
-                  cudaStream_t stream) {
-  const int rows = B * T;
-  int err = launch_cluster(lstm_cluster_bwd_kernel<BT>,
-                           lstm_bwd_smem_bytes(H, BT), B, BT, stream, acts,
-                           cs, c0, dys, w_hh_t, dhn, dcn, dgates, dh0, dc0, B,
-                           T, H);
-  if (err) return err;
-  if ((err = reduce_rows_tn(x, nullptr, 0, dgates, dwih, part, rows, din,
-                            4 * H, stream)))
-    return err;
-  if ((err = reduce_rows_tn(ys, h0, T, dgates, dwhh, part, rows, H, 4 * H,
-                            stream)))
-    return err;
-  if ((err = colsum(dgates, nullptr, db, cpart, rows, 4 * H, stream)))
-    return err;
-  return gemm(dgates, w_ih_t, nullptr, dx_add, dx, rows, din, 4 * H, true,
-              stream);
+int ln_bwd(const float* dout, RowMap md, const float* ra, RowMap ma,
+           const float* rb, RowMap mb, const float* g, float* dr,
+           float* prod, float* dcopy, int rows, int H, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)(((size_t)rows * 32 + 255) / 256);
+  ln_bwd_kernel<<<blocks, 256, 0, stream>>>(dout, md, ra, ma, rb, mb, g, dr,
+                                            prod, dcopy, rows, H);
+  return check_launch();
 }
 
 }  // namespace

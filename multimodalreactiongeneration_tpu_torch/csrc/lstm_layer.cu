@@ -122,8 +122,9 @@ int lstm_layer_backward_f32(const float* x, const float* w_ih_t,
   float* dgates = ws;
   float* part = dgates + (size_t)rows * 4 * H;
   int err = launch_cluster(kernel, lstm_bwd_smem_bytes(H, R), B, R, stream,
-                           acts, cs, c0, dys, w_hh_t, dhn, dcn, dgates, dh0,
-                           dc0, B, T, H);
+                           acts, cs, c0, dys, w_hh_t, dhn, dcn,
+                           (const float*)nullptr, dgates, dh0, dc0,
+                           (float*)nullptr, B, T, H, 0, T);
   if (err) return err;
   if ((err = reduce_rows_tn_tc(x, nullptr, 0, dgates, dwih, part, rows, Din,
                                4 * H, stream)))
@@ -131,10 +132,10 @@ int lstm_layer_backward_f32(const float* x, const float* w_ih_t,
   if ((err = reduce_rows_tn_tc(ys, h0, T, dgates, dwhh, part, rows, H, 4 * H,
                                stream)))
     return err;
-  if ((err = colsum(dgates, nullptr, db, part + PART_FLOATS, rows, 4 * H,
-                    stream)))
+  if ((err = colsum(dgates, db, part + PART_FLOATS, rows, 4 * H, stream)))
     return err;
-  return gemm_tc(dgates, w_ih_t, nullptr, dx, rows, Din, 4 * H, true, stream);
+  return gemm_tc(dgates, w_ih_t, nullptr, nullptr, dx, RowMap{rows, 0, rows},
+                 rows, Din, 4 * H, true, stream);
 }
 
 // C (M,N) = A (M,K) @ W (K,N) (+ bias (N), may be null) in 3xTF32 on the
@@ -143,7 +144,8 @@ int lstm_layer_backward_f32(const float* x, const float* w_ih_t,
 int lstm_layer_gemm_tc_f32(const float* A, const float* W, const float* bias,
                            float* C, int M, int N, int K, void* stream_ptr) {
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  return gemm_tc(A, W, bias, C, M, N, K, false, (cudaStream_t)stream_ptr);
+  return gemm_tc(A, W, bias, nullptr, C, RowMap{M, 0, M}, M, N, K, false,
+                 (cudaStream_t)stream_ptr);
 }
 
 }  // extern "C"

@@ -74,8 +74,9 @@ int lstm_recurrence_backward_f32(const float* w_hh_t, const float* h0,
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err = launch_cluster(lstm_cluster_bwd_kernel<BT>,
                            lstm_bwd_smem_bytes(H, BT), B, BT, stream, acts,
-                           cs, c0, dys, w_hh_t, dhn, dcn, dxw, dh0, dc0, B, T,
-                           H);
+                           cs, c0, dys, w_hh_t, dhn, dcn,
+                           (const float*)nullptr, dxw, dh0, dc0,
+                           (float*)nullptr, B, T, H, 0, T);
   if (err) return err;
   return reduce_rows_tn(ys, h0, T, dxw, dwhh, ws, B * T, H, 4 * H, stream);
 }

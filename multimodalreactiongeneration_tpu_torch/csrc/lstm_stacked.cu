@@ -356,7 +356,8 @@ __global__ void __launch_bounds__(NT, 1) lstm_stacked_bwd_kernel(
       for (int j = 0; j < MC; ++j)
         load_step_in(in[l][j], row_ok[j], l == L - 1 ? dys : nullptr,
                      acts + (size_t)l * B * T * G, cs + (size_t)l * B * T * H,
-                     c0 + (size_t)l * B * H, b0 + own_r[j], s - l, T, H, col);
+                     c0 + (size_t)l * B * H, b0 + own_r[j], s - l, T, 0, T,
+                     H, col);
   };
 #pragma unroll
   for (int j = 0; j < MC; ++j) {
@@ -537,8 +538,8 @@ int lstm_stacked_backward_f32(const float* w_ih_t, const float* w_hh_t,
                                  dwih + (l - 1) * SH * G, part, (int)rows, SH,
                                  (int)G, stream)))
       return err;
-    if ((err = colsum(dg_l, nullptr, db + (l - 1) * G, cpart, (int)rows,
-                      (int)G, stream)))
+    if ((err = colsum(dg_l, db + (l - 1) * G, cpart, (int)rows, (int)G,
+                      stream)))
       return err;
   }
   return 0;

@@ -18,7 +18,9 @@
 // input projection and the block tail are parallel over all B*T rows
 // and are bounded by FP32 FMA throughput (about 110 GFLOP at the audio
 // encoder shape B16 x T2096 x L5); the backward adds three such
-// products per block (dW_ih, dW_hh, dx) and the Dense's two.
+// products per block (dW_ih, dW_hh, dx) and the Dense's two, which it
+// runs on the tensor cores in 3xTF32: its weight-gradient reductions,
+// beside the chains, are what bound it at B32 (PERF.md §5-6).
 //
 // Forward design (building blocks in lstm_cluster.cuh): a layer-lagged
 // chunk schedule on per-layer streams. Layer l runs the steps of chunk c
@@ -59,19 +61,50 @@
 // lags a block by 8 steps inside one kernel; on the H100 a chunk is a
 // few launches, so C is longer (ops/mixer_stack.py chunk_steps).
 //
-// Backward design (layer-major, lstm_cluster_bwd.cuh): the blocks top to
-// bottom: the tail backward (row-parallel LN backward, dW_ff = y^T dz
-// and the LN scale/bias sums as split-K reductions over all rows, dy =
-// dz @ W_ff^T + dz), then the reverse cluster recurrence (the partial dh
-// products reduced across the 8 CTAs through distributed shared memory),
-// then dW_ih, dW_hh, db and dx by split-K reductions and a GEMM. Unlike
-// the TPU kernel, dgates go through device memory. Its chain is L*T cell
-// steps; the chunk schedule for it is later work.
+// Backward design (lstm_cluster_bwd.cuh): the same schedule in reverse on
+// the same layer streams. Chunks run from the last to the first; block
+// L-1 leads, and block l runs chunk c once block l+1 has finished it.
+// Chunk (l, c) on layer l's stream, after an event wait on (l+1, c):
+//   1. the tail backward on the window's rows: the cotangent of the
+//      block's output (dout for the top block, else the rows block l+1
+//      wrote), LN2 backward (ln_bwd_kernel), dy = dz @ W_ff^T + dz, LN1
+//      backward: the cotangent of h and of x, in chunk buffers (B, C, H);
+//   2. lstm_cluster_bwd_kernel: the reverse recurrence over the
+//      window from the (dh, dc) carried from chunk c+1 (dhn, dcn at the
+//      last chunk; dh0, dc0 written at chunk 0), ping-pong buffers per
+//      layer; dh is carried as its 8 unsummed cluster slots, so a chunk
+//      boundary sums it as a step inside a chunk does. It writes the
+//      chunk's dgates (B, C, 4H) into a chunk buffer;
+//   3. dx = dgates @ W_ih + (the x cotangent) into the window's rows of
+//      dx0. dx0 is the hand-off between blocks: chunk (l-1, c) reads those
+//      rows as its output's cotangent in its step 1 and overwrites them
+//      in its step 3, so no (B, T, H) plane per block boundary is needed
+//      and the residuals stay as the forward wrote them;
+//   4. on a side stream the layers share, after an event on step 3: the
+//      window's share of the nine parameter gradients, dW_ih = x^T
+//      dgates, dW_hh = h_{t-1}^T dgates (h0 before step 0) and dW_ff =
+//      y^T dz as split-K reductions in 3xTF32 (tc_gemm.cuh), db and the
+//      LN scale and bias sums as one column-sum pass, added to the
+//      gradients in chunk order (the first chunk run writes them): a
+//      fixed order without atomics, so the gradients are the same bits
+//      run after run at one C. The layer's next chunk goes on meanwhile:
+//      its chunk buffers are two slots (one when T is one chunk), and
+//      chunk c waits for the side stream to finish chunk c+2, the slot's
+//      last user.
+// The products dy = dz @ W_ff^T + dz and dx run in 3xTF32 too, with no
+// split over K.
+// dx0, dh0 and dc0 are the same bits at every C: no per-row sum is split
+// over chunks (the row products have no split over K, LayerNorm is one
+// warp a row, the carries are f32 in the chain's own order). The
+// parameter gradients change their summation order with C. Scratch is
+// per layer (the layers run at once): the chunk buffers and the carries,
+// B*C rows and no (B, T) plane; and the side stream's partials. The
+// chain is (ceil(T/C) + L - 1) * C reverse steps instead of L * T.
 
 #include <mutex>
 #include <vector>
 
-#include "lstm_cluster_bwd.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -82,7 +115,8 @@ constexpr int STACK_ROWS = 16;
 // Residuals of the training forward, per block l, each a (B, T, H)
 // plane except the 4-plane gate activations: h trajectory, A = [i, f, g,
 // o], cell states, y = LN(h + x), z = y @ W_ff + b_ff, and the block's
-// output (the next block's input; unused for the top block).
+// output (the next block's input). The top block has no output plane
+// (its output is the stack's), so the buffer holds RES_PLANES * L - 1.
 constexpr int RES_PLANES = 9;
 
 struct BlockRes {
@@ -107,36 +141,52 @@ size_t layer_floats(int B, int C, int H, bool train) {
   return (size_t)B * C * H * (train ? 4 : 7) + 4 * (size_t)B * H;
 }
 
-// The layer streams of one device, made once and kept; one stack
-// forward enqueues at a time (the events are reused call after call).
+// The streams and events of one device, made once and kept; one stack
+// call enqueues at a time (the events are reused call after call). A
+// layer's chain runs on its stream in `chains`, at the card's greatest
+// stream priority; the backward's weight-gradient reductions run on one
+// stream, `side`, at the least, so that when an SM frees up its block
+// scheduler serves the chains first. L + 1 streams stay within the card's
+// 8 hardware work queues at L5 with the caller's stream (streams that
+// share a queue wait on each other's work in the order it was issued: 2L
+// streams ran K4 1.4x slower). The forward uses an event per layer, the
+// backward three.
 struct Lanes {
-  std::vector<cudaStream_t> streams;
-  std::vector<cudaEvent_t> done;  // the last chunk enqueued on each
+  std::vector<cudaStream_t> chains;
+  cudaStream_t side = nullptr;
+  std::vector<cudaEvent_t> events;
   cudaEvent_t fork = nullptr;
 };
 
 std::mutex lanes_mutex;
 std::vector<Lanes> lanes_by_device;
 
-int lanes_for(int L, Lanes** out) {
-  int dev, err;
-  if ((err = (int)cudaGetDevice(&dev))) return err;
+int lanes_for(int L, int n_events, Lanes** out) {
+  int dev, err, least, greatest;
+  if ((err = (int)cudaGetDevice(&dev)) ||
+      (err = (int)cudaDeviceGetStreamPriorityRange(&least, &greatest)))
+    return err;
   if ((int)lanes_by_device.size() <= dev) lanes_by_device.resize(dev + 1);
   Lanes& ln = lanes_by_device[dev];
   if (!ln.fork &&
       (err = (int)cudaEventCreateWithFlags(&ln.fork, cudaEventDisableTiming)))
     return err;
-  while ((int)ln.streams.size() < L) {
+  if (!ln.side &&
+      (err = (int)cudaStreamCreateWithPriority(&ln.side, cudaStreamNonBlocking,
+                                               least)))
+    return err;
+  while ((int)ln.chains.size() < L) {
     cudaStream_t s;
+    if ((err = (int)cudaStreamCreateWithPriority(&s, cudaStreamNonBlocking,
+                                                 greatest)))
+      return err;
+    ln.chains.push_back(s);
+  }
+  while ((int)ln.events.size() < n_events) {
     cudaEvent_t e;
-    if ((err = (int)cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking)))
+    if ((err = (int)cudaEventCreateWithFlags(&e, cudaEventDisableTiming)))
       return err;
-    if ((err = (int)cudaEventCreateWithFlags(&e, cudaEventDisableTiming))) {
-      cudaStreamDestroy(s);
-      return err;
-    }
-    ln.streams.push_back(s);
-    ln.done.push_back(e);
+    ln.events.push_back(e);
   }
   *out = &ln;
   return 0;
@@ -164,8 +214,8 @@ int enqueue_chunk(const StackArgs& a, Lanes& ln, size_t smem, int c) {
                      attr);
   int err;
   for (int l = 0; l < a.L; ++l) {
-    cudaStream_t s = ln.streams[l];
-    if (l > 0 && (err = (int)cudaStreamWaitEvent(s, ln.done[l - 1], 0)))
+    cudaStream_t s = ln.chains[l];
+    if (l > 0 && (err = (int)cudaStreamWaitEvent(s, ln.events[l - 1], 0)))
       return err;
     const size_t wo = (size_t)l * H * 4 * H, so = (size_t)l * bh,
                  vo = (size_t)l * H;
@@ -212,9 +262,33 @@ int enqueue_chunk(const StackArgs& a, Lanes& ln, size_t smem, int c) {
     if ((err = add_ln(r.z, m, r.y, m, a.g2 + vo, a.b2 + vo, xout, win, rows,
                       H, s)))
       return err;
-    if ((err = (int)cudaEventRecord(ln.done[l], s))) return err;
+    if ((err = (int)cudaEventRecord(ln.events[l], s))) return err;
   }
   return 0;
+}
+
+// Fork the L chain streams (and with side, the side stream) from the
+// caller's stream, enqueue(lanes), and join: the caller's stream waits on
+// every lane, also after an error. n_events >= L + 1.
+template <typename Enqueue>
+int on_lanes(int L, bool side, int n_events, cudaStream_t stream,
+             Enqueue enqueue) {
+  std::lock_guard<std::mutex> lock(lanes_mutex);
+  Lanes* ln;
+  int err;
+  if ((err = lanes_for(L, n_events, &ln))) return err;
+  std::vector<cudaStream_t> lanes(ln->chains.begin(), ln->chains.begin() + L);
+  if (side) lanes.push_back(ln->side);
+  if ((err = (int)cudaEventRecord(ln->fork, stream))) return err;
+  for (cudaStream_t s : lanes)
+    if ((err = (int)cudaStreamWaitEvent(s, ln->fork, 0))) return err;
+  err = enqueue(*ln);
+  for (size_t i = 0; i < lanes.size(); ++i) {
+    int e = (int)cudaEventRecord(ln->events[i], lanes[i]);
+    if (!e) e = (int)cudaStreamWaitEvent(stream, ln->events[i], 0);
+    if (!err) err = e;
+  }
+  return err;
 }
 
 int stack_forward(const StackArgs& a, cudaStream_t stream) {
@@ -224,23 +298,156 @@ int stack_forward(const StackArgs& a, cudaStream_t stream) {
   int err = (int)cudaFuncSetAttribute(
       window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
-  std::lock_guard<std::mutex> lock(lanes_mutex);
-  Lanes* ln;
-  if ((err = lanes_for(a.L, &ln))) return err;
-  if ((err = (int)cudaEventRecord(ln->fork, stream))) return err;
-  for (int l = 0; l < a.L; ++l)
-    if ((err = (int)cudaStreamWaitEvent(ln->streams[l], ln->fork, 0)))
-      return err;
-  const int chunks = (a.T + a.C - 1) / a.C;
-  for (int c = 0; c < chunks && !err; ++c)
-    err = enqueue_chunk(a, *ln, smem, c);
-  // join, also after an error: the caller's stream waits on every layer
-  for (int l = 0; l < a.L; ++l) {
-    int e = (int)cudaEventRecord(ln->done[l], ln->streams[l]);
-    if (!e) e = (int)cudaStreamWaitEvent(stream, ln->done[l], 0);
-    if (!err) err = e;
-  }
-  return err;
+  return on_lanes(a.L, false, a.L + 1, stream, [&](Lanes& ln) {
+    const int chunks = (a.T + a.C - 1) / a.C;
+    int e = 0;
+    for (int c = 0; c < chunks && !e; ++c) e = enqueue_chunk(a, ln, smem, c);
+    return e;
+  });
+}
+
+struct BwdArgs {
+  const float *x0, *w_ih_t, *w_hh_t, *w_ff, *g1, *g2, *h0, *c0, *res,
+      *dout, *dhn, *dcn;
+  float *dx0, *dh0, *dc0, *dwih, *dbg, *dwhh, *dwff, *dbff, *dg1, *db1, *dg2,
+      *db2, *ws;
+  int B, T, H, L, C;
+};
+
+const auto bwd_window_kernel = lstm_cluster_bwd_kernel<STACK_ROWS>;
+
+// Chunk buffers of the backward, H floats per row of a chunk each: the
+// dgates (4), dz, the h and x cotangent dhx, dcur (the output cotangent)
+// and dy, and the LayerNorm scale-gradient terms dcur * xhat2 and dy *
+// xhat1 (BWD_ROW * H a row in all)
+constexpr int BWD_ROW = 10;
+
+// Chunk-buffer slots of the backward per layer: two, so that the layer's
+// next chunk runs while the side stream reads the last one; one when T
+// is one chunk
+int bwd_slots(int T, int C) { return T > C ? 2 : 1; }
+
+// Scratch of the backward per layer: the slots of chunk buffers and two
+// carries (each the 8 dh_carry slots and dc, (B, H) each); after the
+// layers', the side stream's split-K partials
+size_t bwd_layer_floats(int B, int T, int C, int H) {
+  return (size_t)bwd_slots(T, C) * B * C * BWD_ROW * H +
+         2 * (size_t)(CL + 1) * B * H;
+}
+
+// Enqueue chunk (l, c): its chain on the layer's stream after (l+1, c),
+// its gradient reductions on the side stream after that. Chunk c uses
+// slot c & 1 of the layer's chunk buffers, after the side stream has
+// read them for chunk c + 2. The first chunk run (c = chunks - 1) writes
+// the gradients, the others add to them.
+int enqueue_bwd_chunk(const BwdArgs& a, Lanes& ln, size_t smem, int l,
+                      int c, int chunks) {
+  const int B = a.B, T = a.T, H = a.H, C = a.C, L = a.L;
+  const size_t bth = (size_t)B * T * H, bh = (size_t)B * H;
+  const size_t cf = (size_t)B * C * H;
+  const int t0 = c * C, n = T - t0 < C ? T - t0 : C, rows = B * n;
+  const RowMap win{T, t0, n}, dense{n, 0, n};
+  const bool first = c == chunks - 1, acc = !first;
+  const int slot = c & 1;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg =
+      cluster_config((unsigned)((B + STACK_ROWS - 1) / STACK_ROWS), smem,
+                     attr);
+  int err;
+  cudaStream_t s = ln.chains[l], side = ln.side;
+  cudaEvent_t done = ln.events[l], freed = ln.events[L + 2 * l + slot];
+  if (c + 2 < chunks && (err = (int)cudaStreamWaitEvent(s, freed, 0)))
+    return err;
+  if (l < L - 1 && (err = (int)cudaStreamWaitEvent(s, ln.events[l + 1], 0)))
+    return err;
+  const size_t wo = (size_t)l * H * 4 * H, fo = (size_t)l * H * H,
+               so = (size_t)l * bh, vo = (size_t)l * H;
+  float* base = a.ws + l * bwd_layer_floats(B, T, C, H);
+  float* dgates = base + slot * BWD_ROW * cf;
+  float* dz = dgates + 4 * cf;
+  float* dhx = dz + cf;
+  float* dcur = dhx + cf;
+  float* dy = dcur + cf;
+  float* p2 = dy + cf;
+  float* p1 = p2 + cf;
+  float* carry = base + bwd_slots(T, C) * BWD_ROW * cf;  // [2][CL + 1][B][H]
+  float* part = a.ws + L * bwd_layer_floats(B, T, C, H);
+  float* cpart = part + PART_FLOATS;
+  float* res = const_cast<float*>(a.res);
+  const BlockRes r = block_res(res, bth, l);
+  const float* xin = l == 0 ? a.x0 : block_res(res, bth, l - 1).out;
+  // 1. the tail: out = LN2(z + y) from the rows of dout, or of dx0 that
+  // block l+1 wrote; then dy = dz @ W_ff^T + dz (z = y @ W_ff + b_ff,
+  // and y also feeds the residual), y = LN1(h + x)
+  if ((err = ln_bwd(l == L - 1 ? a.dout : a.dx0, win, r.z, win, r.y, win,
+                    a.g2 + vo, dz, p2, dcur, rows, H, s)) ||
+      (err = gemm_tc(dz, a.w_ff + fo, nullptr, dz, dy, dense, rows, H, H,
+                     true, s)) ||
+      (err = ln_bwd(dy, dense, r.rnn, win, xin, win, a.g1 + vo, dhx, p1,
+                    nullptr, rows, H, s)))
+    return err;
+  // 2. the reverse recurrence over the window
+  float* cin = carry + ((c + 1) & 1) * (CL + 1) * bh;
+  float* cout = carry + (c & 1) * (CL + 1) * bh;
+  cfg.stream = s;
+  if ((err = (int)cudaLaunchKernelEx(
+           &cfg, bwd_window_kernel, (const float*)r.acts,
+           (const float*)r.cs, a.c0 + so, (const float*)dhx, a.w_hh_t + wo,
+           a.dhn + so, first ? a.dcn + so : (const float*)cin + CL * bh,
+           first ? nullptr : (const float*)cin, dgates, a.dh0 + so,
+           c == 0 ? a.dc0 + so : cout + CL * bh, c == 0 ? nullptr : cout,
+           B, T, H, t0, n)) ||
+      (err = check_launch()))
+    return err;
+  // 3. dx into the window's rows of dx0: block l-1's output cotangent
+  if ((err = gemm_tc(dgates, a.w_ih_t + wo, nullptr, dhx, a.dx0, win, rows,
+                     H, 4 * H, true, s)) ||
+      (err = (int)cudaEventRecord(done, s)))
+    return err;
+  // 4. on the side stream, the window's share of the nine parameter
+  // gradients, added in chunk order
+  const ColJobs jobs{{p2, dcur, dz, p1, dy, dgates},
+                     {a.dg2 + vo, a.db2 + vo, a.dbff + vo, a.dg1 + vo,
+                      a.db1 + vo, a.dbg + 4 * vo},
+                     {H, H, H, H, H, 4 * H}};
+  if ((err = (int)cudaStreamWaitEvent(side, done, 0)) ||
+      (err = colsums(jobs, cpart, rows, acc, side)) ||
+      (err = reduce_window_tn_tc(r.y, win, nullptr, dz, a.dwff + fo, acc,
+                                 part, rows, H, H, side)) ||
+      (err = reduce_window_tn_tc(xin, win, nullptr, dgates, a.dwih + wo,
+                                 acc, part, rows, H, 4 * H, side)) ||
+      (err = reduce_window_tn_tc(r.rnn, win, a.h0 + so, dgates,
+                                 a.dwhh + wo, acc, part, rows, H, 4 * H,
+                                 side)) ||
+      (err = (int)cudaEventRecord(freed, side)))
+    return err;
+  return 0;
+}
+
+int stack_backward(const BwdArgs& a, cudaStream_t stream) {
+  if (!shape_ok(a.B, a.T, a.H, a.L) || a.C < 1 || a.C > a.T)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = lstm_bwd_smem_bytes(a.H, STACK_ROWS);
+  int err = (int)cudaFuncSetAttribute(
+      bwd_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err) return err;
+  // Enqueued a stage at a time, a stage being the chunks the layers run
+  // together ((L-1, c) with (L-2, c+1), ...), bottom layer first: the side
+  // stream then takes the chunks in the order they finish, and (l, c)'s
+  // wait on (l+1, c), enqueued a stage before, comes before (l+1, c-1)
+  // records the layer's event again.
+  return on_lanes(a.L, true, 3 * a.L, stream, [&](Lanes& ln) {
+    const int chunks = (a.T + a.C - 1) / a.C;
+    int e = 0;
+    for (int stage = 0; stage < chunks + a.L - 1 && !e; ++stage)
+      for (int l = 0; l < a.L && !e; ++l) {
+        const int c = chunks - 1 - stage + (a.L - 1 - l);
+        if (c >= 0 && c < chunks)
+          e = enqueue_bwd_chunk(a, ln, smem, l, c, chunks);
+      }
+    return e;
+  });
 }
 
 }  // namespace
@@ -276,9 +483,10 @@ int mixer_stack_forward_f32(
                        (cudaStream_t)stream_ptr);
 }
 
-// floats of the training forward's residuals
+// floats of the training forward's residuals: RES_PLANES planes a block,
+// the top block's output plane left out
 long long mixer_stack_residual_floats(int B, int T, int H, int L) {
-  return (long long)L * RES_PLANES * B * T * H;
+  return (long long)(RES_PLANES * L - 1) * B * T * H;
 }
 
 // floats of the training forward's scratch at chunk C: per layer the xw
@@ -301,15 +509,18 @@ int mixer_stack_train_forward_f32(
                        (cudaStream_t)stream_ptr);
 }
 
-// dgates (4H), the LN backward's dr and xhat, the tail's dy and the
-// cotangent handed to the block below (H each) per row, plus the
+// floats of scratch mixer_stack_backward_f32 needs at chunk C: per layer
+// the chunk buffers (one or two slots of B * C rows) and the carries; the
 // split-K partials
-long long mixer_stack_backward_workspace_floats(int B, int T, int H) {
-  return (long long)B * T * 8 * H + (long long)(PART_FLOATS + CPART_FLOATS);
+long long mixer_stack_backward_workspace_floats(int B, int T, int H, int L,
+                                                int C) {
+  return (long long)(L * bwd_layer_floats(B, T, C, H) + PART_FLOATS +
+                     CPART_FLOATS);
 }
 
 // Cotangents dout (B,T,H), dhn, dcn (L,B,H) -> dx0 (B,T,H), dh0, dc0
 // (L,B,H) and the nine parameter gradients in the parameters' layouts.
+// Chunks of C steps. dx0 must not overlap dout.
 int mixer_stack_backward_f32(
     const float* x0, const float* w_ih_t, const float* w_hh_t,
     const float* w_ff, const float* g1, const float* g2, const float* h0,
@@ -317,57 +528,11 @@ int mixer_stack_backward_f32(
     const float* dcn, float* dx0, float* dh0, float* dc0, float* dwih,
     float* dbg, float* dwhh, float* dwff, float* dbff, float* dg1,
     float* db1, float* dg2, float* db2, float* ws, int B, int T, int H,
-    int L, void* stream_ptr) {
-  if (!shape_ok(B, T, H, L)) return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const size_t rows = (size_t)B * T;
-  const size_t bth = rows * H;
-  const int R = (int)rows;
-  float* dgates = ws;
-  float* dr = dgates + 4 * bth;
-  float* xhat = dr + bth;
-  float* dy = xhat + bth;
-  float* dnext = dy + bth;
-  float* part = dnext + bth;
-  float* cpart = part + PART_FLOATS;
-  int err;
-  for (int l = L - 1; l >= 0; --l) {
-    const size_t wo = (size_t)l * H * 4 * H;
-    const size_t so = (size_t)l * B * H;
-    const size_t vo = (size_t)l * H;
-    const BlockRes r = block_res(const_cast<float*>(res), bth, l);
-    const float* xin = l == 0 ? x0 : block_res(const_cast<float*>(res), bth,
-                                               l - 1).out;
-    const float* dcur = l == L - 1 ? dout : dnext;
-    // out = LN2(z + y): dz (= dr), the LN2 scale and bias sums
-    if ((err = ln_bwd(dcur, r.z, r.y, g2 + vo, dr, xhat, rows, H, stream)))
-      return err;
-    if ((err = colsum(dcur, xhat, dg2 + vo, cpart, R, H, stream))) return err;
-    if ((err = colsum(dcur, nullptr, db2 + vo, cpart, R, H, stream)))
-      return err;
-    if ((err = colsum(dr, nullptr, dbff + vo, cpart, R, H, stream)))
-      return err;
-    // z = y @ W_ff + b_ff, and y also feeds the residual
-    if ((err = reduce_rows_tn(r.y, nullptr, 0, dr, dwff + (size_t)l * H * H,
-                              part, R, H, H, stream)))
-      return err;
-    if ((err = gemm(dr, w_ff + (size_t)l * H * H, nullptr, dr, dy, R, H, H,
-                    true, stream)))
-      return err;
-    // y = LN1(h + x): dr becomes the cotangent of h and of x
-    if ((err = ln_bwd(dy, r.rnn, xin, g1 + vo, dr, xhat, rows, H, stream)))
-      return err;
-    if ((err = colsum(dy, xhat, dg1 + vo, cpart, R, H, stream))) return err;
-    if ((err = colsum(dy, nullptr, db1 + vo, cpart, R, H, stream)))
-      return err;
-    if ((err = lstm_backward(xin, H, w_ih_t + wo, w_hh_t + wo, h0 + so,
-                             c0 + so, r.rnn, r.acts, r.cs, dr, dhn + so,
-                             dcn + so, dr, l == 0 ? dx0 : dnext, dwih + wo,
-                             dbg + 4 * vo, dwhh + wo, dh0 + so, dc0 + so,
-                             dgates, part, cpart, B, T, H, stream)))
-      return err;
-  }
-  return 0;
+    int L, int C, void* stream_ptr) {
+  return stack_backward({x0, w_ih_t, w_hh_t, w_ff, g1, g2, h0, c0, res, dout,
+                         dhn, dcn, dx0, dh0, dc0, dwih, dbg, dwhh, dwff, dbff,
+                         dg1, db1, dg2, db2, ws, B, T, H, L, C},
+                        (cudaStream_t)stream_ptr);
 }
 
 }  // extern "C"

@@ -1,11 +1,13 @@
 // FP32 products on the tensor cores in 3xTF32: the weight-gradient
-// reductions over all B*T rows of K7's and K9's backward, and K7's dx.
+// reductions over all B*T rows of K7's and K9's backward, K7's dx, and
+// K4's weight-gradient reductions, dy and dx over a chunk's rows.
 //
 // It replaces no TPU kernel of its own: it is part of K7's backward
 // (_bwd_kernel_layer in multimodalreactiongeneration_tpu/ops/
 // pallas_lstm.py, whose weight gradients the JAX package takes as
-// einsums at Precision.HIGHEST) and of K9's (_bwd_kernel_fused in
-// pallas_lstm_stacked.py).
+// einsums at Precision.HIGHEST), of K9's (_bwd_kernel_fused in
+// pallas_lstm_stacked.py) and of K4's (_bwd_kernel in
+// pallas_mixer_stack.py).
 //
 // Why 3xTF32 (tf32x3.cuh). The weight gradients are sums over 10^4 to
 // 3 x 10^5 rows of products of both signs, and they cancel heavily: one
@@ -48,13 +50,16 @@ __device__ __forceinline__ float tile_at(const float* t, int k, int x) {
 // Stage the 64 x 16 tile of operand P at (x from base, k from k0): P is
 // k-major (element (k, x) at P[k * dim + x]; with shift_t > 0 row k of
 // the (B, T = shift_t, dim) array is read one step back, h0[b] at t = 0)
-// or x-major (element (k, x) at P[x * K + k]). Rows k >= k_end and
-// x >= dim are zeros.
-template <bool KMAJOR>
+// or x-major (element (k, x) at P[x * K + k]). With MAP (k-major), row k
+// is row mk(k) of the P plane, with shift_t > 0 the row before it (h0[k
+// / mk.n] at step 0 of the plane). Rows k >= k_end and x >= dim are
+// zeros.
+template <bool KMAJOR, bool MAP = false>
 __device__ __forceinline__ void load_tile(float* t, const float* P,
                                           const float* h0, int shift_t,
                                           int dim, int K, int base, int k0,
-                                          int k_end, int tid) {
+                                          int k_end, int tid,
+                                          RowMap mk = RowMap{}) {
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const int i = tid + TC_THREADS * c;  // 256 chunks of 4 floats
@@ -66,6 +71,10 @@ __device__ __forceinline__ void load_tile(float* t, const float* P,
     if (ok) {
       if (!KMAJOR)
         src = P + (size_t)gx * K + gk;
+      else if (MAP && shift_t > 0 && mk.t0 + gk % mk.n == 0)
+        src = h0 + (size_t)(gk / mk.n) * dim + gx;
+      else if (MAP)
+        src = P + (mk(gk) - (shift_t > 0)) * dim + gx;
       else if (shift_t > 0 && gk % shift_t == 0)
         src = h0 + (size_t)(gk / shift_t) * dim + gx;
       else
@@ -78,13 +87,16 @@ __device__ __forceinline__ void load_tile(float* t, const float* P,
 // C[m, n] = sum over k in [k_begin, k_end) of A(m, k) B(k, n) (+ bias[n]),
 // on tile (blockIdx.y, blockIdx.x), written to C + blockIdx.z * M * N.
 // A_KMAJOR: A(m, k) = A[k * M + m], shifted as load_tile says; else
-// A[m * K + k]. B_KMAJOR: B(k, n) = Bm[k * N + n]; else Bm[n * K + k].
-template <bool A_KMAJOR, bool B_KMAJOR>
+// A[m * K + k]; A_MAP (with A_KMAJOR): row k of A is row ma(k) of the A
+// plane, as load_tile says. B_KMAJOR: B(k, n) = Bm[k * N + n]; else
+// Bm[n * K + k]. D (M, N), if not null, is added; row m of C is row
+// mo(m) of the C plane.
+template <bool A_KMAJOR, bool B_KMAJOR, bool A_MAP = false>
 __global__ void __launch_bounds__(TC_THREADS) tc_gemm_kernel(
     const float* __restrict__ A, const float* __restrict__ h0,
     const float* __restrict__ Bm, const float* __restrict__ bias,
     float* __restrict__ C, int M, int N, int K, int k_per_split,
-    int shift_t) {
+    int shift_t, RowMap ma, const float* __restrict__ D, RowMap mo) {
   __shared__ __align__(16) float As[TC_STAGES][TC_TILE];
   __shared__ __align__(16) float Bs[TC_STAGES][TC_TILE];
   const int tid = threadIdx.x;
@@ -98,7 +110,8 @@ __global__ void __launch_bounds__(TC_THREADS) tc_gemm_kernel(
 
   auto load = [&](int stage, int kt) {
     const int k0 = k_begin + kt * TC_BK;
-    load_tile<A_KMAJOR>(As[stage], A, h0, shift_t, M, K, m0, k0, k_end, tid);
+    load_tile<A_KMAJOR, A_MAP>(As[stage], A, h0, shift_t, M, K, m0, k0,
+                               k_end, tid, ma);
     load_tile<B_KMAJOR>(Bs[stage], Bm, nullptr, 0, N, K, n0, k0, k_end, tid);
   };
 
@@ -154,14 +167,23 @@ __global__ void __launch_bounds__(TC_THREADS) tc_gemm_kernel(
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int h = 0; h < 2; ++h) {  // fragment elements 2h, 2h + 1: row + 8h
+      const int gm = m0 + wm + i * 16 + g + 8 * h;
+      if (gm >= M) continue;
+      float* o = out + mo(gm) * N;
+      const float* d = D ? D + (size_t)gm * N : nullptr;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int gm = m0 + wm + i * 16 + g + (c >= 2 ? 8 : 0);
-        const int gn = n0 + wn + j * 8 + 2 * q + (c & 1);
-        if (gm < M && gn < N)
-          out[(size_t)gm * N + gn] = acc[i][j][c] + (bias ? bias[gn] : 0.f);
-      }
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int gn = n0 + wn + j * 8 + 2 * q + e;
+          if (gn < N) {
+            float v = acc[i][j][2 * h + e] + (bias ? bias[gn] : 0.f);
+            if (d) v += d[gn];
+            o[gn] = v;
+          }
+        }
+    }
 }
 
 // every pointer 16-byte aligned (the tiles are read 16 bytes at a time)
@@ -170,10 +192,11 @@ bool aligned16(const P*... p) {
   return ((reinterpret_cast<uintptr_t>(p) % 16 == 0) && ...);
 }
 
-// out (M, N) = A'^T B over R rows, 3xTF32 (A' as in reduce_rows_tn)
-int reduce_rows_tn_tc(const float* A, const float* h0, int shift_t,
-                      const float* Bm, float* out, float* part, int R, int M,
-                      int N, cudaStream_t stream) {
+template <bool MAP>
+int reduce_rows_tn_tc_impl(const float* A, RowMap ma, const float* h0,
+                           int shift_t, const float* Bm, float* out,
+                           bool acc, float* part, int R, int M, int N,
+                           cudaStream_t stream) {
   if (M % 4 || N % 4 || !aligned16(A, Bm) || (shift_t > 0 && !aligned16(h0)))
     return (int)cudaErrorInvalidValue;
   const size_t mn = (size_t)M * N;
@@ -185,28 +208,50 @@ int reduce_rows_tn_tc(const float* A, const float* h0, int shift_t,
   rps = (rps + TC_BK - 1) / TC_BK * TC_BK;
   splits = (R + rps - 1) / rps;
   const dim3 grid((N + TC_BN - 1) / TC_BN, (M + TC_BM - 1) / TC_BM, splits);
-  tc_gemm_kernel<true, true><<<grid, TC_THREADS, 0, stream>>>(
-      A, h0, Bm, nullptr, part, M, N, R, rps, shift_t);
+  tc_gemm_kernel<true, true, MAP><<<grid, TC_THREADS, 0, stream>>>(
+      A, h0, Bm, nullptr, part, M, N, R, rps, shift_t, ma, nullptr,
+      RowMap{M, 0, M});
   int err = check_launch();
   if (err) return err;
   sum_splits_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
-      part, out, splits, mn);
+      part, out, splits, mn, acc);
   return check_launch();
 }
 
-// C (M, N) = A (M, K) @ op(W) (+ bias[N]), 3xTF32; op(W) is W stored
-// (K, N), or with trans_w the transpose of W stored (N, K)
-int gemm_tc(const float* A, const float* W, const float* bias, float* C,
-            int M, int N, int K, bool trans_w, cudaStream_t stream) {
+// out (M, N) = A'^T B over R rows, 3xTF32 (A' as in reduce_rows_tn)
+int reduce_rows_tn_tc(const float* A, const float* h0, int shift_t,
+                      const float* Bm, float* out, float* part, int R, int M,
+                      int N, cudaStream_t stream) {
+  return reduce_rows_tn_tc_impl<false>(A, RowMap{}, h0, shift_t, Bm, out,
+                                       false, part, R, M, N, stream);
+}
+
+// out (M, N) = (with acc: out +) A'^T B over the R rows of a window, in
+// 3xTF32: row r of A' is row ma(r) of the A plane or, with h0 not null,
+// the row before it (h0 at step 0); B dense (R, N)
+int reduce_window_tn_tc(const float* A, RowMap ma, const float* h0,
+                        const float* Bm, float* out, bool acc, float* part,
+                        int R, int M, int N, cudaStream_t stream) {
+  return reduce_rows_tn_tc_impl<true>(A, ma, h0, h0 ? 1 : 0, Bm, out, acc,
+                                      part, R, M, N, stream);
+}
+
+// C (M rows, N) = A (M, K) @ op(W) (+ bias[N]) (+ D (M, N), dense), in
+// 3xTF32; op(W) is W stored (K, N), or with trans_w the transpose of W
+// stored (N, K). Row m of C is row mo(m) of the C plane (RowMap{M, 0, M}:
+// C dense).
+int gemm_tc(const float* A, const float* W, const float* bias,
+            const float* D, float* C, RowMap mo, int M, int N, int K,
+            bool trans_w, cudaStream_t stream) {
   if (K % 4 || (!trans_w && N % 4) || !aligned16(A, W))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((N + TC_BN - 1) / TC_BN, (M + TC_BM - 1) / TC_BM, 1);
   if (trans_w)
     tc_gemm_kernel<false, false><<<grid, TC_THREADS, 0, stream>>>(
-        A, nullptr, W, bias, C, M, N, K, K, 0);
+        A, nullptr, W, bias, C, M, N, K, K, 0, RowMap{}, D, mo);
   else
     tc_gemm_kernel<false, true><<<grid, TC_THREADS, 0, stream>>>(
-        A, nullptr, W, bias, C, M, N, K, K, 0);
+        A, nullptr, W, bias, C, M, N, K, K, 0, RowMap{}, D, mo);
   return check_launch();
 }
 

@@ -19,7 +19,10 @@ and ``bwd_launches``.
 The two forwards run the layers as a layer-lagged chunk schedule on
 per-layer CUDA streams: layer l runs chunk c (``chunk`` steps) once layer
 l-1 has finished it. ``chunk_steps`` picks the chunk; ``chunk=T`` is the
-layer-major schedule, and every chunk gives the same bits.
+layer-major schedule, and every chunk gives the same bits. The backward
+runs the same schedule in reverse (the last chunk first, layer l after
+layer l+1); its input and state cotangents are the same bits at every
+chunk, its parameter gradients sum the chunks in another order.
 """
 
 from __future__ import annotations
@@ -57,6 +60,25 @@ def chunk_steps(b: int, t: int, h: int, layers: int) -> int:
     if layers == 1:
         return t
     return min(t, LONG_CHUNK if t >= LONG_T else SHORT_CHUNK)
+
+
+# The backward's chunk lengths, measured fastest on an H100 at B32 x H256 x
+# L5 (PERF.md §6, the K4 sweep): 128 steps at T2016 and 64 at T252. Its
+# chunks carry more work than the forward's (the weight-gradient reductions
+# on a side stream, which bound it), so its chunks are twice as long.
+BWD_LONG_CHUNK, BWD_SHORT_CHUNK = 128, 64
+
+
+def backward_chunk_steps(b: int, t: int, h: int, layers: int) -> int:
+    """Steps per chunk of the stack backward: the rule of ``chunk_steps``
+    (one layer: t; else the long chunk from LONG_T steps on and the short
+    one below, at most t) with BWD_LONG_CHUNK and BWD_SHORT_CHUNK."""
+    if min(b, t, h, layers) < 1:
+        raise ValueError(
+            f"backward_chunk_steps: b {b}, t {t}, h {h}, layers {layers}")
+    if layers == 1:
+        return t
+    return min(t, BWD_LONG_CHUNK if t >= LONG_T else BWD_SHORT_CHUNK)
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -107,7 +129,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         for name, n in (("mixer_stack_workspace_floats", 5),
                         ("mixer_stack_train_workspace_floats", 5),
-                        ("mixer_stack_backward_workspace_floats", 3),
+                        ("mixer_stack_backward_workspace_floats", 5),
                         ("mixer_stack_residual_floats", 4)):
             getattr(lib, name).argtypes = [_I] * n
             getattr(lib, name).restype = ctypes.c_longlong
@@ -116,7 +138,7 @@ def _lib():
         lib.mixer_stack_forward_f32.argtypes = [_P] * 16 + [_I] * 5 + [_P]
         lib.mixer_stack_train_forward_f32.argtypes = (
             [_P] * 17 + [_I] * 5 + [_P])
-        lib.mixer_stack_backward_f32.argtypes = [_P] * 25 + [_I] * 4 + [_P]
+        lib.mixer_stack_backward_f32.argtypes = [_P] * 25 + [_I] * 5 + [_P]
         for name in ("mixer_stack_forward_f32",
                      "mixer_stack_train_forward_f32",
                      "mixer_stack_backward_f32"):
@@ -159,10 +181,12 @@ def _empty(n, like):
     return torch.empty(n, dtype=torch.float32, device=like.device)
 
 
-def _chunk(name, b, t, h, nl, chunk):
-    """The chunk of a forward launch: ``chunk`` steps (None:
-    ``chunk_steps``) from 1 to t; raises on others."""
-    chunk = chunk_steps(b, t, h, nl) if chunk is None else chunk
+def _chunk(name, b, t, h, nl, chunk, backward=False):
+    """The chunk of a launch: ``chunk`` steps (None: ``chunk_steps``, or
+    ``backward_chunk_steps``) from 1 to t; raises on others."""
+    if chunk is None:
+        rule = backward_chunk_steps if backward else chunk_steps
+        chunk = rule(b, t, h, nl)
     if not 1 <= chunk <= t:
         raise ValueError(f"{name}: chunk of {chunk} steps; takes 1 to {t}")
     return chunk
@@ -234,11 +258,18 @@ def mixer_stack_train_forward(*args, chunk=None):
     return out, hn, cn, res
 
 
-def mixer_stack_backward(args, res, dout, dhn, dcn):
+def mixer_stack_backward(args, res, dout, dhn, dcn, *, chunk=None):
     """The backward kernel (CUDA only), from the training forward's
-    residuals. Returns the twelve input gradients, in argument order."""
+    residuals. Returns the twelve input gradients, in argument order.
+    ``chunk`` steps per chunk (None: ``backward_chunk_steps``; T:
+    layer-major)."""
     b, t, h, nl = _check_args("mixer_stack_backward", args)
+    chunk = _chunk("mixer_stack_backward", b, t, h, nl, chunk,
+                   backward=True)
     x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2, h0, c0 = args
+    # the tensor-core products read these 16 bytes at a time
+    x0, w_ih_t, w_ff, h0 = (a if a.data_ptr() % 16 == 0 else a.clone()
+                            for a in (x0, w_ih_t, w_ff, h0))
     cots = [c.float().contiguous() for c in (dout, dhn, dcn)]
     for c, like in zip(cots, (x0, h0, c0)):
         if c.shape != like.shape or c.device != like.device:
@@ -248,9 +279,11 @@ def mixer_stack_backward(args, res, dout, dhn, dcn):
     grads = [torch.empty_like(a) for a in (
         x0, h0, c0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2)]
     lib = _lib()
-    ws = _empty(lib.mixer_stack_backward_workspace_floats(b, t, h), x0)
+    ws = _empty(lib.mixer_stack_backward_workspace_floats(b, t, h, nl, chunk),
+                x0)
     _build.launch(lib.mixer_stack_backward_f32, x0, w_ih_t, w_hh_t, w_ff, g1,
-                  g2, h0, c0, res, *cots, *grads, ws, dims=(b, t, h, nl))
+                  g2, h0, c0, res, *cots, *grads, ws,
+                  dims=(b, t, h, nl, chunk))
     global bwd_launches
     bwd_launches += 1
     dx0, dh0, dc0, dwih, dbg, dwhh, dwff, dbff, dg1, db1, dg2, db2 = grads

@@ -179,11 +179,10 @@ def test_mixer_stack_chunks_bitwise_equal_layer_major(dev, b, t, layers,
                                                         before[1] + 2)
     for g, w in zip((got[0], *got[1]), (want[0], *want[1])):
         assert torch.equal(g, w)
-    # out, hn, cn, and the residual planes: all but the last, the top
-    # block's output plane, which the top block leaves unwritten
-    top = got[0].numel()
-    for g, w in zip((*got_tr[:3], got_tr[3][:-top]),
-                    (*want_tr[:3], want_tr[3][:-top])):
+    # out, hn, cn, and every residual plane (the top block keeps none for
+    # its output)
+    assert got_tr[3].numel() == (9 * layers - 1) * got[0].numel()
+    for g, w in zip(got_tr, want_tr):
         assert torch.equal(g, w)
     assert torch.equal(got_tr[0], got[0])
 
@@ -231,11 +230,47 @@ def test_mixer_stack_backward_from_chunked_residuals(dev, b, t, layers,
 def test_mixer_stack_refuses_chunks_it_does_not_take(dev):
     r = _rand(np.random.default_rng(1), dev)
     args = _stack_args(r, 2, 20, 128, 2)
+    res = K1.mixer_stack_train_forward(*args)[3]
+    cots = (r(2, 20, 128), r(2, 2, 128), r(2, 2, 128))
+    before = K1.bwd_launches
     for kw in (dict(chunk=0), dict(chunk=21)):
         with pytest.raises(ValueError):
             K1.mixer_stack_forward(*args, **kw)
         with pytest.raises(ValueError):
             K1.mixer_stack_train_forward(*args, **kw)
+        with pytest.raises(ValueError, match="mixer_stack_backward"):
+            K1.mixer_stack_backward(args, res, *cots, **kw)
+    assert K1.bwd_launches == before
+
+
+@pytest.mark.parametrize("b,t,layers,chunk", [
+    (1, 37, 1, 1), (17, 37, 2, 8), (33, 37, 5, 3), (64, 37, 5, 16),
+    (17, 37, 5, 36), (1, 2016, 5, 64), (17, 2016, 1, 32), (33, 2016, 2, 64),
+    (64, 2016, 5, 64), (64, 2016, 5, 37)])
+def test_mixer_stack_backward_chunks_bitwise_equal_layer_major(
+        dev, b, t, layers, chunk):
+    """K4's reverse chunk schedule: dx0, dh0, dc0 the bits of chunk=T
+    (the layer-major order); the nine parameter gradients within
+    GRAD_REL_TOL of plain at both; two runs at one chunk the same bits;
+    one launch counted per wrapper call."""
+    r = _rand(np.random.default_rng(3 * b + t + layers + chunk), dev)
+    args = _stack_args(r, b, t, 256, layers)
+    cots = (r(b, t, 256), r(layers, b, 256), r(layers, b, 256))
+    res = K1.mixer_stack_train_forward(*args)[3]
+    before = K1.bwd_launches
+    got = K1.mixer_stack_backward(args, res, *cots, chunk=chunk)
+    again = K1.mixer_stack_backward(args, res, *cots, chunk=chunk)
+    whole = K1.mixer_stack_backward(args, res, *cots, chunk=t)
+    torch.cuda.synchronize()
+    assert K1.bwd_launches == before + 3
+    for i in (0, 10, 11):  # dx0, dh0, dc0
+        assert torch.equal(got[i], whole[i]), i
+    for i, (g, w) in enumerate(zip(got, again)):
+        assert torch.equal(g, w), i
+    want = K1.mixer_stack_backward_reference(args, *cots)
+    for i, (g, gw, w) in enumerate(zip(got, whole, want)):
+        assert _rel_err(g, w) <= GRAD_REL_TOL, i
+        assert _rel_err(gw, w) <= GRAD_REL_TOL, i
 
 
 @pytest.mark.parametrize("b,t,din,h", [(16, 40, 256, 256), (5, 17, 128, 128)])

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time the encoder-stack forwards K1 and K3 of the checkout in the
-current directory, over chunk lengths.
+"""Time the encoder-stack kernels K1, K3 (forwards) and K4 (backward) of
+the checkout in the current directory, over chunk lengths.
 
 Run from the root of a checkout of the PyTorch port, on one CUDA card:
 
-    python3 <this file> TAG [--reps N]
+    python3 <this file> TAG [--reps N] [--only K1,K3,K4]
 
 It imports the port from the current directory, so one command can time
 two checkouts in turns (parent, change, change, parent: unpack the other
@@ -12,15 +12,17 @@ with ``git archive`` into a directory that ``.gitignore`` lists and run
 this file from there). Shapes, H256 x L5 with seeded random inputs and
 weights: K1 (inference forward) at B16 x T2096 and T262 (the audio and
 partner-motion encoders in decode) and B64 x T2096; K3 (training
-forward) at B32 x T2016 and T252. Where the wrappers take ``chunk``,
-each case is timed at every chunk of the sweep and at chunk = T (the
-layer-major schedule), in turns (the sweep, then again in reverse),
-with the card's resident clusters; a checkout without ``chunk`` times
-its one schedule. Each time is the mean
-of N launches (default 5) by CUDA events after a warm-up. Every output
-(out, hn, cn and for K3 the residual planes) is hashed, so checkouts
-and chunks can be compared bit for bit. Prints one JSON line per case
-and a last one with TAG and the card's name and power limit.
+forward) and K4 (backward, from K3's residuals at its default chunk) at
+B32 x T2016 and T252. Where a wrapper takes ``chunk``, each case is
+timed at every chunk of the sweep and at chunk = T (the layer-major
+schedule), in turns (the sweep, then again in reverse), with the card's
+resident clusters; a checkout without ``chunk`` times its one schedule.
+Each time is the mean of N launches (default 5) by CUDA events after a
+warm-up. The outputs are hashed, so checkouts and chunks can be compared
+bit for bit: out, hn, cn, for K3 the residual planes (the first 9L - 1,
+which every checkout writes), for K4 dx0, dh0 and dc0. Prints one JSON
+line per case and a last one with TAG and the card's name and power
+limit.
 """
 
 import argparse
@@ -80,25 +82,40 @@ def stack_args(b, t, h=256, n=5, seed=0):
             r(n, b, h, s=0.3), r(n, b, h, s=0.3))
 
 
-def run_case(K1, name, train, b, t, sweep, reps):
+def run_case(K1, name, b, t, sweep, reps):
     args = stack_args(b, t)
-    fn = K1.mixer_stack_train_forward if train else K1.mixer_stack_forward
-    chunked = hasattr(K1, "chunk_steps")
+    if name == "K4":
+        chunked = hasattr(K1, "backward_chunk_steps")
+        res = K1.mixer_stack_train_forward(*args)[3]
+        rng = np.random.default_rng(1)
+        cots = [torch.from_numpy(rng.standard_normal(tuple(a.shape)).astype(
+            np.float32)).cuda() for a in (args[0], args[10], args[11])]
 
-    def call(chunk):
-        out = fn(*args, chunk=chunk) if chunked else fn(*args)
-        if not train:
-            return out[0], *out[1]
-        # the residual planes but the last, the top block's output plane,
-        # which the top block leaves unwritten
-        return (*out[:3], out[3][:-out[0].numel()])
+        def call(chunk):
+            kw = dict(chunk=chunk) if chunked else {}
+            grads = K1.mixer_stack_backward(args, res, *cots, **kw)
+            return grads[0], grads[10], grads[11]  # dx0, dh0, dc0
+        rule = getattr(K1, "backward_chunk_steps", None)
+    else:
+        train = name == "K3"
+        fn = K1.mixer_stack_train_forward if train else K1.mixer_stack_forward
+        chunked = hasattr(K1, "chunk_steps")
+
+        def call(chunk):
+            out = fn(*args, chunk=chunk) if chunked else fn(*args)
+            if not train:
+                return out[0], *out[1]
+            # the residual planes every checkout writes (an older one keeps
+            # an unwritten plane for the top block's output after them)
+            return (*out[:3], out[3][:(9 * 5 - 1) * out[0].numel()])
+        rule = getattr(K1, "chunk_steps", None)
 
     settings = [None]
     if chunked:
-        picked = K1.chunk_steps(b, t, 256, 5)
+        picked = rule(b, t, 256, 5)
         settings = [*sorted({*sweep, picked} - {t}), t]
         settings += settings[::-1]
-    rec = {"case": name, "B": b, "T": t, "train": train, "times": {}}
+    rec = {"case": name, "B": b, "T": t, "times": {}}
     if chunked:
         rec["chunk_steps"] = picked
         rec["resident_clusters"] = K1.resident_clusters(256)
@@ -120,17 +137,20 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("tag")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--only", default="",
+                    help="comma-separated kernels to time (K1,K3,K4)")
     a = ap.parse_args()
     from multimodalreactiongeneration_tpu_torch.ops import mixer_stack as K1
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = [("K1", False, 16, 2096, SWEEP_LONG),
-             ("K1", False, 16, 262, SWEEP_SHORT),
-             ("K3", True, 32, 2016, SWEEP_LONG),
-             ("K3", True, 32, 252, SWEEP_SHORT),
-             ("K1", False, 64, 2096, (32, 64))]
-    recs = [run_case(K1, n, tr, b, t, sw, a.reps)
-            for n, tr, b, t, sw in cases]
+    cases = [("K1", 16, 2096, SWEEP_LONG), ("K1", 16, 262, SWEEP_SHORT),
+             ("K3", 32, 2016, SWEEP_LONG), ("K3", 32, 252, SWEEP_SHORT),
+             ("K4", 32, 2016, (*SWEEP_LONG, 256)),
+             ("K4", 32, 252, SWEEP_SHORT),
+             ("K1", 64, 2096, (32, 64))]
+    if a.only:
+        cases = [c for c in cases if c[0] in a.only.split(",")]
+    recs = [run_case(K1, n, b, t, sw, a.reps) for n, b, t, sw in cases]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
