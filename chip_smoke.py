@@ -53,8 +53,11 @@ Phases:
      weights timed as a yardstick;
   7. rect-attention forward (K5) and backward (K6) vs plain at B32, Lq
      252, Lk 2016 and 252, E 256, 4 heads, 10% padded rows and keys: the
-     same bounds; ``scaled_dot_product_attention`` with the boolean mask
-     timed as a yardstick (forward, and its backward through autograd);
+     same bounds; two K6 calls on the same inputs bit-identical; K6's
+     dQ workspace bytes and each of its launches' device time under
+     ``torch.profiler``; ``scaled_dot_product_attention`` with the
+     boolean mask timed as a yardstick (forward, and its backward through
+     autograd);
   8. training main path: ``train.harness.streaming_step_fns`` at B32 x
      T240 (lead 12), AdamW lr 1e-4, weight decay 1e-2: one warm-up
      step, 5 timed steps (ms per step, trained frames/s, peak memory),
@@ -164,9 +167,9 @@ Phases:
      train step +4 / +4, per validation batch an eval step, +4 forward).
 
 Every kernel's JSON record carries its bound: the larger of its
-operations (FP32 at 67 TFLOP/s; the 3xTF32 products of K5's forward and
-of K7's and K9's backward as three TF32 passes at 495) and its bytes at
-3.35 TB/s (H100 SXM, 700 W).
+operations (FP32 at 67 TFLOP/s; the 3xTF32 products of K5's forward,
+K6, K4's and K7's and K9's backward as three TF32 passes at 495) and its
+bytes at 3.35 TB/s (H100 SXM, 700 W).
 Any failure raises. The last lines are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -1406,11 +1409,38 @@ def rect_pairs(q_pad, k_pad):
     return int(torch.where(full, lk, lim).sum())
 
 
+def kernel_device_ms(fn, prefix):
+    """Device milliseconds of each kernel whose name starts with
+    ``prefix`` in one call of ``fn``, by torch.profiler, keyed by the
+    kernel's name without its namespace and arguments."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        found = re.search(rf"\b({prefix}\w*)", e.name)
+        if e.device_type == DeviceType.CUDA and found:
+            name = found.group(1)
+            ms = (e.time_range.end - e.time_range.start) / 1e3
+            out[name] = out.get(name, 0.0) + ms
+    return out
+
+
 def rect_attention_phase(K5, dev, rng):
     """7. Rect attention forward (K5) and backward (K6) vs plain at the
     integrators' shapes: B32, Lq 252, Lk 2016 (audio) and 252 (partner
     motion), E 256, 4 heads, 10% padded rows and keys; the library
-    yardstick is scaled_dot_product_attention with the boolean mask."""
+    yardstick is scaled_dot_product_attention with the boolean mask. Two
+    backward calls on the same inputs must give the same bits; K6's dQ
+    workspace and each of its launches' device time are printed."""
     import torch.nn.functional as F
 
     b, lq, e, heads = TRAIN_B, LEAD + TRAIN_FRAMES, 256, 4
@@ -1438,8 +1468,16 @@ def rect_attention_phase(K5, dev, rng):
             lambda: K5.rect_attention_forward(*args, residuals=True), 10)
         fwd_nores_ms, _ = cuda_ms(lambda: K5.rect_attention_forward(*args),
                                   10)
-        bwd_ms, _ = cuda_ms(
+        bwd_ms, again = cuda_ms(
             lambda: K5.rect_attention_backward(*args, ctx, m, l, g), 10)
+        first = K5.rect_attention_backward(*args, ctx, m, l, g)
+        same_bits = all(torch.equal(x, y) for x, y in zip(first, again))
+        ws_bytes = K5.backward_workspace_bytes(heads, b, lq, lk, e)
+        bwd_kernels_ms = kernel_device_ms(
+            lambda: K5.rect_attention_backward(*args, ctx, m, l, g),
+            "rect_attn_bwd")
+        log("rect_attention_bwd_kernels", Lk=lk, **{
+            k_: f"{v_:.4f}" for k_, v_ in bwd_kernels_ms.items()})
         # yardstick only, never called by the port
         allowed = ~K5.rect_attention_mask(q_pad, k_pad)[:, None]
         lib_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -1452,25 +1490,37 @@ def rect_attention_phase(K5, dev, rng):
         lib_bwd_ms, _ = cuda_ms(lambda: torch.autograd.grad(
             lib_out, lib_leaves, split(g), retain_graph=True), 10)
         # per needed (query, key) pair and head dim: q.k and p.v (2 FLOPs
-        # each) forward, in 3xTF32; the backward recomputes q.k and does
-        # dO.v, dV, dK and dQ (10 FLOPs) in FP32
+        # each) forward; the backward's S = q.k, dP = dO.v, dV, dK and dQ
+        # (10 FLOPs), all in 3xTF32 (three TF32 passes); its FP32 figure
+        # is kept beside it
         pairs = rect_pairs(q_pad, k_pad) * heads
         fwd_bound = bound(0, nbytes(args, ctx, m, l),
                           tf32x3_flops=4 * pairs * dh)
-        bwd_bound = bound(10 * pairs * dh, nbytes(args, ctx, m, l, g, grads))
+        bwd_bytes = nbytes(args, ctx, m, l, g, grads)
+        bwd_bound = bound(0, bwd_bytes, tf32x3_flops=10 * pairs * dh)
+        bwd_bound_fp32 = bound(10 * pairs * dh, bwd_bytes)
         check_case("rect_attention", fwd_err, grad_rel, Lk=lk, fwd_ms=fwd_ms,
                    fwd_no_residual_ms=fwd_nores_ms, bwd_ms=bwd_ms,
                    plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
                    library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms,
-                   fwd_bound_ms=fwd_bound[0], bwd_bound_ms=bwd_bound[0])
+                   fwd_bound_ms=fwd_bound[0], bwd_bound_ms=bwd_bound[0],
+                   bwd_bound_fp32_ms=bwd_bound_fp32[0],
+                   bwd_bit_identical=same_bits, bwd_workspace_bytes=ws_bytes)
+        if not same_bits:
+            raise AssertionError(
+                f"rect_attention Lk={lk}: two backward calls on the same "
+                f"inputs differ")
         cases.append(dict(
             Lq=lq, Lk=lk, fwd_max_abs_err=fwd_err, grad_max_abs_err=grad_err,
             grad_max_rel_err=grad_rel, fwd_ms=fwd_ms,
             fwd_no_residual_ms=fwd_nores_ms, bwd_ms=bwd_ms,
             plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
             library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms,
-            fwd_bound=fwd_bound, bwd_bound=bwd_bound))
-        del out, grads, want, wgrads, ctx, m, l, lib_out, allowed
+            fwd_bound=fwd_bound, bwd_bound=bwd_bound,
+            bwd_bound_fp32=bwd_bound_fp32, bwd_bit_identical=same_bits,
+            bwd_workspace_bytes=ws_bytes, bwd_kernels_ms=bwd_kernels_ms))
+        del out, grads, want, wgrads, ctx, m, l, lib_out, allowed, first
+        del again
     return cases
 
 

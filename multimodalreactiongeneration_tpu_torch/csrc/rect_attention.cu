@@ -61,10 +61,6 @@
 
 namespace {
 
-constexpr int BM = 64;          // rows of a q tile and of a key tile
-constexpr int LD = BM + 1;      // shared row stride
-constexpr int TILE = BM * LD;   // floats of one shared tile
-constexpr int THREADS = 256;    // 16 x 16 (backward)
 constexpr float NEG = -1e30f;   // the plain path's masked logit
 
 // forward: FQ_WARPS warps of 16 q rows, FK-key tiles, F_STAGES in flight
@@ -75,6 +71,34 @@ constexpr int FQ = 16 * FQ_WARPS;
 constexpr int FK = 64;
 constexpr int F_THREADS = 32 * FQ_WARPS;
 constexpr int F_STAGES = 2;
+
+// backward (K6): BW warps of 16 keys (BK keys a block), BQ q rows a step,
+// B_STAGES stages of Q and dO in flight
+#ifndef K6_WARPS
+#define K6_WARPS 4
+#endif
+#ifndef K6_BQ
+#define K6_BQ 16
+#endif
+#ifndef K6_STAGES
+#define K6_STAGES 2
+#endif
+#ifndef K6_MINB
+#define K6_MINB (12 / K6_WARPS)
+#endif
+constexpr int BW = K6_WARPS;
+constexpr int BK = 16 * BW;
+constexpr int BQ = K6_BQ;
+constexpr int B_STAGES = K6_STAGES;
+constexpr int B_THREADS = 32 * BW;
+#ifdef K6_DQ_PASS
+// measured alternative: dQ in a second pass that recomputes S and dP,
+// over (64-row q tile, split of K6_DQ_PASS 64-key tiles) blocks
+constexpr bool DQ_IN_KV = false;
+constexpr int DQ_KPS = K6_DQ_PASS;
+#else
+constexpr bool DQ_IN_KV = true;
+#endif
 
 // keys visible to query row i: j*Lq < (i+1)*Lk, i.e. ceil((i+1)*Lk/Lq)
 __device__ __forceinline__ int visible(int i, int Lq, int Lk) {
@@ -108,70 +132,6 @@ __device__ bool tile_has_full_row(const unsigned char* qp, int i0, int rows,
   return __syncthreads_or(full) != 0;
 }
 
-// rows [r0, r0+BM) of one head's columns of x (row stride E) into a
-// shared tile; rows past nrows are zero
-template <int DH>
-__device__ void load_tile(float* s, const float* x, int r0, int nrows, int E,
-                          int col0) {
-  for (int e = threadIdx.x; e < BM * DH; e += THREADS) {
-    int r = e / DH, d = e % DH, row = r0 + r;
-    s[r * LD + d] = row < nrows ? x[(long long)row * E + col0 + d] : 0.f;
-  }
-}
-
-__device__ __forceinline__ float row_max16(float x) {
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum16(float x) {
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// acc[r][c] = sum_k A[(ty*4+r)][k] * Bt[(tx+16c)][k] over k < DH
-template <int DH>
-__device__ __forceinline__ void tile_dot(const float* A, const float* Bt,
-                                         int ty, int tx, float acc[4][4]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-#pragma unroll 8
-  for (int k = 0; k < DH; ++k) {
-    float a[4], b[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[r] = A[(ty * 4 + r) * LD + k];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) b[c] = Bt[(tx + 16 * c) * LD + k];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-  }
-}
-
-// acc[r][c] += sum_m W[m][wcol(r)] * X[m][tx+16c] over m < BM, where
-// wcol(r) = ty*4+r reads W transposed (colT) or W[ty*4+r][m] (rows)
-template <int NC, bool COLT>
-__device__ __forceinline__ void tile_acc(const float* W, const float* X,
-                                         int ty, int tx, float acc[4][NC]) {
-#pragma unroll 4
-  for (int m = 0; m < BM; ++m) {
-    float w[4], x[NC];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      w[r] = COLT ? W[m * LD + ty * 4 + r] : W[(ty * 4 + r) * LD + m];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) x[c] = X[m * LD + tx + 16 * c];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[r][c] = fmaf(w[r], x[c], acc[r][c]);
-  }
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -180,6 +140,14 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// 4 bytes global -> shared; zero where !ok (nothing is read)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
 }
 
 // keys [j0, j0+FK) of one head's columns of k and v into a ring stage
@@ -404,212 +372,652 @@ __global__ void rect_attn_bwd_dot(const float* __restrict__ o,
   D[((long long)b * H + h) * Lq + i] = acc;
 }
 
-// P and dS of one (q tile, key tile) pair from the tiles in shared
-// memory: thread rows ty*4+r are q rows, columns tx+16c keys.
-struct RowInfo {
-  float m[4], l[4], D[4];
-  int lim[4];
-  bool qp[4], in[4];
-};
+// the first q row that sees a key of block jb: floor(jb*BK*Lq / Lk)
+__device__ __forceinline__ int first_row(int jb, int Lq, int Lk) {
+  return (int)((long long)jb * BK * Lq / Lk);
+}
 
-__device__ __forceinline__ void load_rows(RowInfo& ri, const float* mrow,
-                                          const float* lrow, const float* Drow,
-                                          const unsigned char* qp, int i0,
-                                          int Lq, int Lk, int ty) {
+// dQ workspace rows of the key blocks before jb (one warp computes it)
+__device__ __forceinline__ int ws_rows_before(int jb, int Lq, int Lk) {
+  int s = 0;
+  for (int j = threadIdx.x & 31; j < jb; j += 32) s += Lq - first_row(j, Lq, Lk);
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// Q and dO rows [i0, i0+BQ) of one head's columns (rows of DH+4 floats),
+// then the rows' m, l and D, into a ring stage by cp.async; rows past Lq
+// are zeros
+template <int DH>
+__device__ __forceinline__ void load_q_stage(float* st, const float* qb,
+                                             const float* gb, const float* mb,
+                                             const float* lb, const float* Db,
+                                             int i0, int Lq, int E, int col0) {
+  constexpr int LDF = DH + 4, CPR = DH / 4;
+  float* gs = st + BQ * LDF;
+  float* rs = gs + BQ * LDF;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    int i = i0 + ty * 4 + r;
-    ri.in[r] = i < Lq;
-    ri.m[r] = ri.in[r] ? mrow[i] : 0.f;
-    ri.l[r] = ri.in[r] ? lrow[i] : 1.f;
-    ri.D[r] = ri.in[r] ? Drow[i] : 0.f;
-    ri.lim[r] = ri.in[r] ? visible(i, Lq, Lk) : 0;
-    ri.qp[r] = ri.in[r] && qp[i];
+  for (int c = threadIdx.x; c < BQ * CPR; c += B_THREADS) {
+    const int r = c / CPR, d = (c % CPR) * 4, row = i0 + r;
+    const bool ok = row < Lq;
+    const size_t at = ok ? (size_t)row * E + col0 + d : 0;
+    cp_async16(st + r * LDF + d, qb + at, ok);
+    cp_async16(gs + r * LDF + d, gb + at, ok);
+  }
+  for (int c = threadIdx.x; c < 3 * BQ; c += B_THREADS) {
+    const int r = c % BQ, row = i0 + r;
+    const float* src = c < BQ ? mb : c < 2 * BQ ? lb : Db;
+    const bool ok = row < Lq;
+    cp_async4(rs + c, src + (ok ? row : 0), ok);
   }
 }
 
-template <int DH>
-__device__ __forceinline__ void p_and_ds(const float* Qs, const float* Ks,
-                                         const float* Gs, const float* Vs,
-                                         const RowInfo& ri,
-                                         const unsigned char* kp, int j0,
-                                         int Lk, float scale, int ty, int tx,
-                                         float p[4][4], float ds[4][4]) {
-  float s[4][4], dp[4][4];
-  tile_dot<DH>(Qs, Ks, ty, tx, s);
-  tile_dot<DH>(Gs, Vs, ty, tx, dp);
+__device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
+
+// d[n] += a b[n] for n < N in 3xTF32, issued pass by pass (lo*hi, hi*lo,
+// hi*hi over every n), so that N - 1 independent products stand between
+// two of one accumulator; each accumulator sums in mma_3xtf32's order
+template <int N>
+__device__ __forceinline__ void mma_3xtf32_n(float (*d)[4],
+                                             const uint32_t (&ah)[4],
+                                             const uint32_t (&al)[4],
+                                             const uint32_t (*bh)[2],
+                                             const uint32_t (*bl)[2]) {
+#ifdef K6_CHAINED
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    int j = j0 + tx + 16 * c;
-    bool jin = j < Lk;
-    bool kpj = jin && kp[j];
+  for (int n = 0; n < N; ++n) mma_3xtf32(d[n], ah, al, bh[n], bl[n]);
+#else
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      if (!jin || !ri.in[r]) {
-        p[r][c] = 0.f;
-        ds[r][c] = 0.f;
-        continue;
-      }
-      bool masked = j >= ri.lim[r] || (ri.qp[r] && kpj);
-      float x = masked ? NEG : s[r][c] * scale;
-      float pv = expf(x - ri.m[r]) / ri.l[r];
-      p[r][c] = pv;
-      ds[r][c] = masked ? 0.f : pv * (dp[r][c] - ri.D[r]);
-    }
-  }
+  for (int n = 0; n < N; ++n) mma_tf32(d[n], al, bh[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[n], ah, bl[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[n], ah, bh[n]);
+#endif
 }
 
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
-    rect_attn_bwd_dkdv(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const unsigned char* __restrict__ qpad,
-                       const unsigned char* __restrict__ kpad,
-                       const float* __restrict__ g,
-                       const float* __restrict__ mrow,
-                       const float* __restrict__ lrow,
-                       const float* __restrict__ Drow, float* __restrict__ dk,
-                       float* __restrict__ dv, int Lq, int Lk, int H,
-                       float scale) {
-  constexpr int NC = DH / 16;
-  extern __shared__ float sm[];
-  float* Ks = sm;
-  float* Vs = Ks + TILE;
-  float* Qs = Vs + TILE;
-  float* Gs = Qs + TILE;
-  float* Ps = Gs + TILE;
-  float* Ss = Ps + TILE;
-  __shared__ int s_fu;
-  const int j0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int E = H * DH, col0 = h * DH;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const long long bh = (long long)b * H + h;
-  const float* qb = q + (long long)b * Lq * E;
-  const float* gb = g + (long long)b * Lq * E;
-  const unsigned char* qp = qpad + (long long)b * Lq;
-  const unsigned char* kp = kpad + (long long)b * Lk;
-
-  const int fu = first_unpadded(kp, Lk, &s_fu);
-  load_tile<DH>(Ks, k + (long long)b * Lk * E, j0, Lk, E, col0);
-  load_tile<DH>(Vs, v + (long long)b * Lk * E, j0, Lk, E, col0);
-
-  float dka[4][NC], dva[4][NC];
+// the same for two sets at once: d[n] += a b[n] and e[n] += c f[n]
+template <int N>
+__device__ __forceinline__ void mma_3xtf32_2n(
+    float (*d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+    const uint32_t (*bh)[2], const uint32_t (*bl)[2], float (*e)[4],
+    const uint32_t (&ch)[4], const uint32_t (&cl)[4],
+    const uint32_t (*fh)[2], const uint32_t (*fl)[2]) {
+#ifdef K6_CHAINED
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dka[r][c] = dva[r][c] = 0.f;
-
-  // the first q row that sees key j0: i >= floor(j0*Lq/Lk)
-  const int q_first = (int)((long long)j0 * Lq / Lk) / BM;
-  const int nqt = (Lq + BM - 1) / BM;
-  for (int qt = 0; qt < nqt; ++qt) {
-    const int i0 = qt * BM;
-    if (qt < q_first && !tile_has_full_row(qp, i0, BM, Lq, Lk, fu))
-      continue;
-    __syncthreads();  // the last tile's readers are done
-    load_tile<DH>(Qs, qb, i0, Lq, E, col0);
-    load_tile<DH>(Gs, gb, i0, Lq, E, col0);
-    __syncthreads();
-    RowInfo ri;
-    load_rows(ri, mrow + bh * Lq, lrow + bh * Lq, Drow + bh * Lq, qp, i0, Lq,
-              Lk, ty);
-    float p[4][4], ds[4][4];
-    p_and_ds<DH>(Qs, Ks, Gs, Vs, ri, kp, j0, Lk, scale, ty, tx, p, ds);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        Ps[(ty * 4 + r) * LD + tx + 16 * c] = p[r][c];
-        Ss[(ty * 4 + r) * LD + tx + 16 * c] = ds[r][c];
-      }
-    __syncthreads();
-    // thread rows are now keys: dV += P^T dO, dK += dS^T Q
-    tile_acc<NC, true>(Ps, Gs, ty, tx, dva);
-    tile_acc<NC, true>(Ss, Qs, ty, tx, dka);
+  for (int n = 0; n < N; ++n) {
+    mma_3xtf32(d[n], ah, al, bh[n], bl[n]);
+    mma_3xtf32(e[n], ch, cl, fh[n], fl[n]);
   }
-
-  const long long base = (long long)b * Lk * E;
+#else
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    int j = j0 + ty * 4 + r;
-    if (j >= Lk) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      long long at = base + (long long)j * E + col0 + tx + 16 * c;
-      dk[at] = dka[r][c] * scale;
-      dv[at] = dva[r][c];
-    }
+  for (int n = 0; n < N; ++n) {
+    mma_tf32(d[n], al, bh[n]);
+    mma_tf32(e[n], cl, fh[n]);
   }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    mma_tf32(d[n], ah, bl[n]);
+    mma_tf32(e[n], ch, fl[n]);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    mma_tf32(d[n], ah, bh[n]);
+    mma_tf32(e[n], ch, fh[n]);
+  }
+#endif
 }
 
+// dK, dV and the dQ partials of one key block: see the source note
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
-    rect_attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+__global__ void __launch_bounds__(B_THREADS, K6_MINB)
+    rect_attn_bwd_kv(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const unsigned char* __restrict__ qpad,
                      const unsigned char* __restrict__ kpad,
                      const float* __restrict__ g,
                      const float* __restrict__ mrow,
                      const float* __restrict__ lrow,
-                     const float* __restrict__ Drow, float* __restrict__ dq,
-                     int Lq, int Lk, int H, float scale) {
-  constexpr int NC = DH / 16;
-  extern __shared__ float sm[];
-  float* Qs = sm;
-  float* Gs = Qs + TILE;
-  float* Ks = Gs + TILE;
-  float* Vs = Ks + TILE;
-  float* Ss = Vs + TILE;
-  const int i0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int E = H * DH, col0 = h * DH;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const long long bh = (long long)b * H + h;
-  const float* kb = k + (long long)b * Lk * E;
-  const float* vb = v + (long long)b * Lk * E;
-  const unsigned char* qp = qpad + (long long)b * Lq;
-  const unsigned char* kp = kpad + (long long)b * Lk;
+                     const float* __restrict__ Drow, float* __restrict__ dk,
+                     float* __restrict__ dv, float* __restrict__ ws, int B,
+                     int Lq, int Lk, int H, int R, float scale) {
+  constexpr int LDF = DH + 4;  // rows of K, V, Q and dO in shared memory
+  constexpr int LDS = BK + 8;  // rows of dS
+  constexpr int KS = DH / 8;   // k-steps over the head dim
+  constexpr int NQ = BQ / 8;   // 8-row q groups of a step
+  constexpr int DT = DH / 8;   // 8-column groups of the head dim
+  constexpr int DG = DT < 4 ? DT : 4;  // groups of dV/dK a pass goes over
+  constexpr int STAGE = 2 * BQ * LDF + 3 * BQ;
+  constexpr int PPW = (BQ / 16) * DT / BW;  // dQ (m tile, group) pairs a warp
+  static_assert(PPW >= 1 && DT % PPW == 0, "dQ pairs must split evenly");
+  extern __shared__ __align__(16) float sm[];
+  float* Kh = sm;
+  float* Kl = Kh + BK * LDF;
+  float* Vs = Kl + BK * LDF;
+  float* ring = Vs + BK * LDF;
+  float* dSs = ring + B_STAGES * STAGE;
+  const int nqt = (Lq + BQ - 1) / BQ;
+  int* full = reinterpret_cast<int*>(dSs + BQ * LDS);
+  int* tiles = full + nqt;
+  __shared__ int s_fu, s_ntl;
 
-  load_tile<DH>(Qs, q + (long long)b * Lq * E, i0, Lq, E, col0);
-  load_tile<DH>(Gs, g + (long long)b * Lq * E, i0, Lq, E, col0);
-  RowInfo ri;
-  load_rows(ri, mrow + bh * Lq, lrow + bh * Lq, Drow + bh * Lq, qp, i0, Lq,
-            Lk, ty);
-  // dS is zero on masked entries, so a fully masked row adds nothing and
-  // only the causally visible keys are read
-  const int kend = visible(min(i0 + BM, Lq) - 1, Lq, Lk);
+  // key blocks in order of their q range, the longest first
+  const int jb = blockIdx.x / (B * H), bh = blockIdx.x % (B * H);
+  const int b = bh / H, h = bh % H;
+  const int j0 = jb * BK, E = H * DH, col0 = h * DH;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const size_t rows = (size_t)bh * Lq;
+  const float* qb = q + (size_t)b * Lq * E;
+  const float* gb = g + (size_t)b * Lq * E;
+  const float* kb = k + (size_t)b * Lk * E;
+  const float* vb = v + (size_t)b * Lk * E;
+  const unsigned char* qp = qpad + (size_t)b * Lq;
+  const unsigned char* kp = kpad + (size_t)b * Lk;
 
-  float dqa[4][NC];
+  // V by cp.async (in the first group); K split once into TF32 hi and lo
+  for (int c = threadIdx.x; c < BK * (DH / 4); c += B_THREADS) {
+    const int r = c / (DH / 4), d = (c % (DH / 4)) * 4, row = j0 + r;
+    const bool ok = row < Lk;
+    const size_t at = ok ? (size_t)row * E + col0 + d : 0;
+    cp_async16(Vs + r * LDF + d, vb + at, ok);
+    const float4 x = ok ? __ldg(reinterpret_cast<const float4*>(kb + at))
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dqa[r][c] = 0.f;
-
-  for (int j0 = 0; j0 < kend; j0 += BM) {
-    __syncthreads();  // the last tile's readers are done
-    load_tile<DH>(Ks, kb, j0, Lk, E, col0);
-    load_tile<DH>(Vs, vb, j0, Lk, E, col0);
-    __syncthreads();
-    float p[4][4], ds[4][4];
-    p_and_ds<DH>(Qs, Ks, Gs, Vs, ri, kp, j0, Lk, scale, ty, tx, p, ds);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) Ss[(ty * 4 + r) * LD + tx + 16 * c] = ds[r][c];
-    __syncthreads();
-    tile_acc<NC, false>(Ss, Ks, ty, tx, dqa);  // dQ += dS K
+    for (int e = 0; e < 4; ++e) {
+      uint32_t hi, lo;
+      split_tf32_alu(xs[e], hi, lo);
+      Kh[r * LDF + d + e] = __uint_as_float(hi);
+      Kl[r * LDF + d + e] = __uint_as_float(lo);
+    }
   }
 
-  float* dqb = dq + (long long)b * Lq * E;
+  // the q tiles to visit, in order: those that see a key of the block
+  // (from the tile of row r0 on), and before them each tile holding a
+  // row whose every key is masked (it averages over all Lk keys: dV only)
+  const int fu = first_unpadded(kp, Lk, &s_fu);
+  const int r0 = first_row(jb, Lq, Lk), q_first = r0 / BQ;
+  for (int t = threadIdx.x; t < nqt; t += B_THREADS) full[t] = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < q_first * BQ; i += B_THREADS)
+    if (qp[i] && fu >= visible(i, Lq, Lk)) full[i / BQ] = 1;
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int base = 0; base < nqt; base += 32) {
+      const int qt = base + lane;
+      const bool need = qt < nqt && (qt >= q_first || full[qt]);
+      const unsigned bal = __ballot_sync(0xffffffffu, need);
+      if (need) tiles[n + __popc(bal & ((1u << lane) - 1u))] = qt;
+      n += __popc(bal);
+    }
+    if (lane == 0) s_ntl = n;
+  }
+  const int off = ws_rows_before(jb, Lq, Lk);
+  __syncthreads();
+  const int ntl = s_ntl;
+  // row i (>= r0) of this block's dQ partials
+  float* wsb = ws + ((size_t)bh * R + off - r0) * DH;
+
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    int i = i0 + ty * 4 + r;
-    if (i >= Lq) continue;
+  for (int s = 0; s < B_STAGES - 1; ++s) {
+    if (s < ntl)
+      load_q_stage<DH>(ring + s * STAGE, qb, gb, mrow + rows, lrow + rows,
+                       Drow + rows, tiles[s] * BQ, Lq, E, col0);
+    cp_async_commit();
+  }
+
+  // this warp's keys ka and ka + 8 of the block
+  const int ka = warp * 16 + g8;
+  const int jk[2] = {j0 + ka, j0 + ka + 8};
+  const bool kin[2] = {jk[0] < Lk, jk[1] < Lk};
+  const bool kpd[2] = {kin[0] && kp[jk[0]], kin[1] && kp[jk[1]]};
+  const long long jL[2] = {(long long)jk[0] * Lq, (long long)jk[1] * Lq};
+  float dka[DT][4], dva[DT][4];
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      dqb[(long long)i * E + col0 + tx + 16 * c] = dqa[r][c] * scale;
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dka[dt][c] = dva[dt][c] = 0.f;
+
+  for (int t = 0; t < ntl; ++t) {
+    cp_async_wait<B_STAGES - 2>();
+    __syncthreads();  // stage t landed; every warp is done with step t - 1
+    const int nx = t + B_STAGES - 1;
+    if (nx < ntl)
+      load_q_stage<DH>(ring + (nx % B_STAGES) * STAGE, qb, gb, mrow + rows,
+                       lrow + rows, Drow + rows, tiles[nx] * BQ, Lq, E, col0);
+    cp_async_commit();
+    const float* Qs = ring + (t % B_STAGES) * STAGE;
+    const float* Gs = Qs + BQ * LDF;
+    const float* Ms = Gs + BQ * LDF;
+    const float* Ls = Ms + BQ;
+    const float* Ds = Ls + BQ;
+    const int i0 = tiles[t] * BQ;
+    const bool vis = tiles[t] >= q_first;  // else every pair is masked
+
+    // S^T = K Q^T and dP^T = V dO^T: s[nt] and dp[nt] hold keys (ka,
+    // ka + 8) x q rows i0 + 8nt + (2t4, 2t4 + 1)
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int nt = 0; nt < NQ; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[nt][c] = dp[nt][c] = 0.f;
+    if (vis) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const int at = ka * LDF + kk * 8 + t4;
+        const uint32_t ah[4] = {bits(Kh[at]), bits(Kh[at + 8 * LDF]),
+                                bits(Kh[at + 4]), bits(Kh[at + 8 * LDF + 4])};
+        const uint32_t al[4] = {bits(Kl[at]), bits(Kl[at + 8 * LDF]),
+                                bits(Kl[at + 4]), bits(Kl[at + 8 * LDF + 4])};
+        uint32_t vh[4], vl[4];
+        split_tf32_alu(Vs[at], vh[0], vl[0]);
+        split_tf32_alu(Vs[at + 8 * LDF], vh[1], vl[1]);
+        split_tf32_alu(Vs[at + 4], vh[2], vl[2]);
+        split_tf32_alu(Vs[at + 8 * LDF + 4], vh[3], vl[3]);
+        uint32_t qh[NQ][2], ql[NQ][2], gh[NQ][2], gl[NQ][2];
+#pragma unroll
+        for (int nt = 0; nt < NQ; ++nt) {
+          const int bt = (nt * 8 + g8) * LDF + kk * 8 + t4;
+          split_tf32_alu(Qs[bt], qh[nt][0], ql[nt][0]);
+          split_tf32_alu(Qs[bt + 4], qh[nt][1], ql[nt][1]);
+          split_tf32_alu(Gs[bt], gh[nt][0], gl[nt][0]);
+          split_tf32_alu(Gs[bt + 4], gh[nt][1], gl[nt][1]);
+        }
+        mma_3xtf32_2n<NQ>(s, ah, al, qh, ql, dp, vh, vl, gh, gl);
+      }
+    }
+
+    // P^T from the forward's max and sum, and dS^T = P^T (dP^T - D), zero
+    // where the mask is set; key columns past Lk are excluded (P = 0)
+#pragma unroll
+    for (int nt = 0; nt < NQ; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = nt * 8 + 2 * t4 + c, i = i0 + col;
+        const bool in = i < Lq;
+        const float mq = Ms[col], il = in ? __frcp_rn(Ls[col]) : 0.f;
+        const float Dq = Ds[col];
+        const bool qpi = in && qp[i];
+        const long long iL = (long long)(i + 1) * Lk;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int e = 2 * rr + c;
+          const bool masked = jL[rr] >= iL || (qpi && kpd[rr]);
+          const float x = masked ? NEG : s[nt][e] * scale;
+          const float p = kin[rr] ? expf(x - mq) * il : 0.f;
+          dp[nt][e] = masked ? 0.f : p * (dp[nt][e] - Dq);
+          s[nt][e] = p;
+        }
+      }
+    if (DQ_IN_KV && vis) {  // dS for the dQ product, rows q, columns keys
+#pragma unroll
+      for (int nt = 0; nt < NQ; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dSs[(nt * 8 + 2 * t4 + (e & 1)) * LDS + ka + 8 * (e >> 1)] =
+              dp[nt][e];
+    }
+
+    // dV += P^T dO and dK += dS^T Q over the step's q rows, 8 at a time:
+    // the accumulator of group kt is the A fragment (q row 2t4 -> column
+    // t4, 2t4 + 1 -> t4 + 4), and dO's and Q's rows are read in that order
+#pragma unroll
+    for (int kt = 0; kt < NQ; ++kt) {
+      uint32_t ph[4], pl[4], dh[4], dl[4];
+      split_tf32_alu(s[kt][0], ph[0], pl[0]);
+      split_tf32_alu(s[kt][2], ph[1], pl[1]);
+      split_tf32_alu(s[kt][1], ph[2], pl[2]);
+      split_tf32_alu(s[kt][3], ph[3], pl[3]);
+      if (vis) {
+        split_tf32_alu(dp[kt][0], dh[0], dl[0]);
+        split_tf32_alu(dp[kt][2], dh[1], dl[1]);
+        split_tf32_alu(dp[kt][1], dh[2], dl[2]);
+        split_tf32_alu(dp[kt][3], dh[3], dl[3]);
+      }
+      const int bt = (kt * 8 + 2 * t4) * LDF + g8;
+#pragma unroll
+      for (int d0 = 0; d0 < DT; d0 += DG) {
+        uint32_t oh[DG][2], ol[DG][2], xh[DG][2], xl[DG][2];
+#pragma unroll
+        for (int j = 0; j < DG; ++j) {
+          const int at = bt + (d0 + j) * 8;
+          split_tf32_alu(Gs[at], oh[j][0], ol[j][0]);
+          split_tf32_alu(Gs[at + LDF], oh[j][1], ol[j][1]);
+          if (vis) {
+            split_tf32_alu(Qs[at], xh[j][0], xl[j][0]);
+            split_tf32_alu(Qs[at + LDF], xh[j][1], xl[j][1]);
+          }
+        }
+        if (vis)
+          mma_3xtf32_2n<DG>(dva + d0, ph, pl, oh, ol, dka + d0, dh, dl, xh,
+                            xl);
+        else
+          mma_3xtf32_n<DG>(dva + d0, ph, pl, oh, ol);
+      }
+    }
+
+    // this block's part of dQ for the step's rows, dS K over its BK keys
+    // (the keys taken in the order 2t4, 2t4 + 1 as above), into the
+    // workspace; each warp takes PPW (16-row tile, 8-column group) pairs
+    if (DQ_IN_KV && vis) {
+      __syncthreads();  // dS complete
+      const int p0 = warp * PPW, mt = p0 / DT, dt0 = p0 % DT;
+      float acc[PPW][4];
+#pragma unroll
+      for (int u = 0; u < PPW; ++u)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[u][c] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < BK / 8; ++kt) {
+        const float* ar = dSs + (mt * 16 + g8) * LDS + kt * 8 + 2 * t4;
+        const float2 x0 = *reinterpret_cast<const float2*>(ar);
+        const float2 x1 = *reinterpret_cast<const float2*>(ar + 8 * LDS);
+        uint32_t ah[4], al[4];
+        split_tf32_alu(x0.x, ah[0], al[0]);
+        split_tf32_alu(x1.x, ah[1], al[1]);
+        split_tf32_alu(x0.y, ah[2], al[2]);
+        split_tf32_alu(x1.y, ah[3], al[3]);
+        const int bt = (kt * 8 + 2 * t4) * LDF + g8;
+        uint32_t bh[PPW][2], bl[PPW][2];
+#pragma unroll
+        for (int u = 0; u < PPW; ++u) {
+          const int at = bt + (dt0 + u) * 8;
+          bh[u][0] = bits(Kh[at]);
+          bh[u][1] = bits(Kh[at + LDF]);
+          bl[u][0] = bits(Kl[at]);
+          bl[u][1] = bits(Kl[at + LDF]);
+        }
+        mma_3xtf32_n<PPW>(acc, ah, al, bh, bl);
+      }
+      const int ia = i0 + mt * 16 + g8, ib = ia + 8;
+#pragma unroll
+      for (int u = 0; u < PPW; ++u) {
+        const int d = (dt0 + u) * 8 + 2 * t4;
+        if (ia >= r0 && ia < Lq)
+          *reinterpret_cast<float2*>(wsb + (size_t)ia * DH + d) =
+              make_float2(acc[u][0], acc[u][1]);
+        if (ib >= r0 && ib < Lq)
+          *reinterpret_cast<float2*>(wsb + (size_t)ib * DH + d) =
+              make_float2(acc[u][2], acc[u][3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (!kin[rr]) continue;
+    const size_t at = ((size_t)b * Lk + jk[rr]) * E + col0 + 2 * t4;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      *reinterpret_cast<float2*>(dk + at + dt * 8) = make_float2(
+          dka[dt][2 * rr] * scale, dka[dt][2 * rr + 1] * scale);
+      *reinterpret_cast<float2*>(dv + at + dt * 8) =
+          make_float2(dva[dt][2 * rr], dva[dt][2 * rr + 1]);
+    }
   }
 }
+
+// dQ[b, i, h*DH + d] = scale * the sum of the key blocks' partials of row
+// i, in key-block order (no atomics: the bits do not change run to run)
+template <int DH>
+__global__ void rect_attn_bwd_dq_sum(const float* __restrict__ ws,
+                                     float* __restrict__ dq, int Lq, int Lk,
+                                     int H, int R, float scale) {
+  extern __shared__ int tab[];  // per key block: first row, workspace row
+  const int nkb = (Lk + BK - 1) / BK;
+  int* first = tab;
+  int* start = tab + nkb;
+  if (threadIdx.x < 32) {
+    int carry = 0;
+    for (int base = 0; base < nkb; base += 32) {
+      const int jb = base + threadIdx.x;
+      const int r = jb < nkb ? first_row(jb, Lq, Lk) : Lq;
+      int n = Lq - r, incl = n;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, o);
+        if ((int)threadIdx.x >= o) incl += y;
+      }
+      if (jb < nkb) {
+        first[jb] = r;
+        start[jb] = carry + incl - n;
+      }
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
+  }
+  __syncthreads();
+  constexpr int C4 = DH / 4;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= Lq * C4) return;
+  const int i = t / C4, d = (t % C4) * 4;
+  const float* wb = ws + ((size_t)b * H + h) * R * DH + d;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int jb = 0; jb < nkb && first[jb] <= i; ++jb) {
+    const float4 x = *reinterpret_cast<const float4*>(
+        wb + (size_t)(start[jb] + i - first[jb]) * DH);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  *reinterpret_cast<float4*>(dq + ((size_t)b * Lq + i) * H * DH + h * DH +
+                             d) =
+      make_float4(acc.x * scale, acc.y * scale, acc.z * scale, acc.w * scale);
+}
+
+
+#ifdef K6_DQ_PASS
+// key tiles of 64 visible to q tile qt (64 rows), and its splits
+__device__ __host__ __forceinline__ int dq_tiles(int qt, int Lq, int Lk) {
+  const int last = min((qt + 1) * FQ, Lq) - 1;
+  const long long v = ((long long)(last + 1) * Lk + Lq - 1) / Lq;
+  return (int)(((v < Lk ? v : Lk) + FK - 1) / FK);
+}
+__device__ __host__ __forceinline__ int dq_splits(int qt, int Lq, int Lk) {
+  return (dq_tiles(qt, Lq, Lk) + DQ_KPS - 1) / DQ_KPS;
+}
+
+template <int DH>
+__global__ void __launch_bounds__(F_THREADS, 2)
+    rect_attn_bwd_dq_pass(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const unsigned char* __restrict__ qpad,
+                          const unsigned char* __restrict__ kpad,
+                          const float* __restrict__ g,
+                          const float* __restrict__ mrow,
+                          const float* __restrict__ lrow,
+                          const float* __restrict__ Drow,
+                          float* __restrict__ ws, int Lq, int Lk, int H,
+                          int P, float scale) {
+  constexpr int LDF = DH + 4, KS = DH / 8, NT = FK / 8, DT = DH / 8;
+  constexpr int STAGE = 2 * FK * LDF;
+  extern __shared__ __align__(16) float ring[];
+  float* Gs = ring + F_STAGES * STAGE;  // this tile's dO rows
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int nqt = (Lq + FQ - 1) / FQ;
+  int qt = 0, p0 = 0, s = blockIdx.x;
+  while (qt < nqt && s >= dq_splits(qt, Lq, Lk)) {
+    s -= dq_splits(qt, Lq, Lk);
+    p0 += dq_splits(qt, Lq, Lk);
+    ++qt;
+  }
+  if (qt >= nqt) return;
+  const int i0 = qt * FQ, E = H * DH, col0 = h * DH;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const float* qb = q + (size_t)b * Lq * E;
+  const float* gb = g + (size_t)b * Lq * E;
+  const float* kb = k + (size_t)b * Lk * E;
+  const float* vb = v + (size_t)b * Lk * E;
+  const unsigned char* qp = qpad + (size_t)b * Lq;
+  const unsigned char* kp = kpad + (size_t)b * Lk;
+  const size_t rows = ((size_t)b * H + h) * Lq;
+  const int jt0 = s * DQ_KPS;
+  const int jt1 = min(jt0 + DQ_KPS, dq_tiles(qt, Lq, Lk));
+  for (int c = threadIdx.x; c < FQ * (DH / 4); c += F_THREADS) {
+    const int r = c / (DH / 4), d = (c % (DH / 4)) * 4, row = i0 + r;
+    const bool ok = row < Lq;
+    cp_async16(Gs + r * LDF + d, gb + (ok ? (size_t)row * E + col0 + d : 0),
+               ok);
+  }
+#pragma unroll
+  for (int st = 0; st < F_STAGES - 1; ++st) {
+    if (jt0 + st < jt1) {
+      float* stg = ring + st * STAGE;
+      load_kv<DH>(stg, stg + FK * LDF, kb, vb, (jt0 + st) * FK, Lk, E, col0);
+    }
+    cp_async_commit();
+  }
+  const int r0 = i0 + warp * 16 + g8, r1 = r0 + 8;
+  uint32_t qh[KS][4], ql[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const int d = col0 + kk * 8 + t4;
+    const float a[4] = {
+        r0 < Lq ? __ldg(qb + (size_t)r0 * E + d) : 0.f,
+        r1 < Lq ? __ldg(qb + (size_t)r1 * E + d) : 0.f,
+        r0 < Lq ? __ldg(qb + (size_t)r0 * E + d + 4) : 0.f,
+        r1 < Lq ? __ldg(qb + (size_t)r1 * E + d + 4) : 0.f};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) split_tf32_alu(a[c], qh[kk][c], ql[kk][c]);
+  }
+  const int rr[2] = {r0, r1};
+  float mq[2], il[2], Dq[2];
+  long long iL[2];
+  bool qpi[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const bool in = rr[x] < Lq;
+    mq[x] = in ? mrow[rows + rr[x]] : 0.f;
+    il[x] = in ? 1.f / lrow[rows + rr[x]] : 0.f;
+    Dq[x] = in ? Drow[rows + rr[x]] : 0.f;
+    iL[x] = (long long)(rr[x] + 1) * Lk;
+    qpi[x] = in && qp[rr[x]];
+  }
+  float dqa[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dqa[dt][c] = 0.f;
+
+  for (int jt = jt0; jt < jt1; ++jt) {
+    cp_async_wait<F_STAGES - 2>();
+    __syncthreads();
+    const int nx = jt + F_STAGES - 1;
+    if (nx < jt1) {
+      float* stg = ring + ((nx - jt0) % F_STAGES) * STAGE;
+      load_kv<DH>(stg, stg + FK * LDF, kb, vb, nx * FK, Lk, E, col0);
+    }
+    cp_async_commit();
+    const float* ks = ring + ((jt - jt0) % F_STAGES) * STAGE;
+    const float* vs = ks + FK * LDF;
+    const int j0 = jt * FK;
+    float sa[NT][4], dp[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sa[nt][c] = dp[nt][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int at = (warp * 16 + g8) * LDF + kk * 8 + t4;
+      uint32_t gh[4], gl[4];
+      split_tf32_alu(Gs[at], gh[0], gl[0]);
+      split_tf32_alu(Gs[at + 8 * LDF], gh[1], gl[1]);
+      split_tf32_alu(Gs[at + 4], gh[2], gl[2]);
+      split_tf32_alu(Gs[at + 8 * LDF + 4], gh[3], gl[3]);
+      uint32_t kh[NT][2], kl[NT][2], wh[NT][2], wl[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int bt = (nt * 8 + g8) * LDF + kk * 8 + t4;
+        split_tf32_alu(ks[bt], kh[nt][0], kl[nt][0]);
+        split_tf32_alu(ks[bt + 4], kh[nt][1], kl[nt][1]);
+        split_tf32_alu(vs[bt], wh[nt][0], wl[nt][0]);
+        split_tf32_alu(vs[bt + 4], wh[nt][1], wl[nt][1]);
+      }
+      mma_3xtf32_2n<NT>(sa, qh[kk], ql[kk], kh, kl, dp, gh, gl, wh, wl);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int j = j0 + nt * 8 + 2 * t4 + c;
+        const bool jin = j < Lk, kpj = jin && kp[j];
+        const long long jL = (long long)j * Lq;
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int e = 2 * x + c;
+          const bool masked = jL >= iL[x] || (qpi[x] && kpj);
+          const float xs = masked ? NEG : sa[nt][e] * scale;
+          const float p = jin ? expf(xs - mq[x]) * il[x] : 0.f;
+          dp[nt][e] = masked ? 0.f : p * (dp[nt][e] - Dq[x]);
+        }
+      }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t ah[4], al[4];
+      split_tf32_alu(dp[nt][0], ah[0], al[0]);
+      split_tf32_alu(dp[nt][2], ah[1], al[1]);
+      split_tf32_alu(dp[nt][1], ah[2], al[2]);
+      split_tf32_alu(dp[nt][3], ah[3], al[3]);
+      const int bt = (nt * 8 + 2 * t4) * LDF + g8;
+      uint32_t bh[DT][2], bl[DT][2];
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        split_tf32_alu(ks[bt + dt * 8], bh[dt][0], bl[dt][0]);
+        split_tf32_alu(ks[bt + LDF + dt * 8], bh[dt][1], bl[dt][1]);
+      }
+      mma_3xtf32_n<DT>(dqa, ah, al, bh, bl);
+    }
+  }
+  cp_async_wait<0>();
+  float* wb = ws + ((((size_t)b * H + h) * P + p0 + s) * FQ) * DH;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const int d = dt * 8 + 2 * t4;
+    *reinterpret_cast<float2*>(wb + (size_t)(warp * 16 + g8) * DH + d) =
+        make_float2(dqa[dt][0], dqa[dt][1]);
+    *reinterpret_cast<float2*>(wb + (size_t)(warp * 16 + g8 + 8) * DH + d) =
+        make_float2(dqa[dt][2], dqa[dt][3]);
+  }
+}
+
+template <int DH>
+__global__ void rect_attn_bwd_dq_sum2(const float* __restrict__ ws,
+                                      float* __restrict__ dq, int Lq, int Lk,
+                                      int H, int P, float scale) {
+  constexpr int C4 = DH / 4;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= Lq * C4) return;
+  const int i = t / C4, d = (t % C4) * 4, qt = i / FQ;
+  int p0 = 0;
+  for (int x = 0; x < qt; ++x) p0 += dq_splits(x, Lq, Lk);
+  const int ns = dq_splits(qt, Lq, Lk);
+  const float* wb = ws + (((size_t)b * H + h) * P + p0) * FQ * DH +
+                    (size_t)(i - qt * FQ) * DH + d;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < ns; ++s) {
+    const float4 x = *reinterpret_cast<const float4*>(wb + (size_t)s * FQ * DH);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  *reinterpret_cast<float4*>(dq + ((size_t)b * Lq + i) * H * DH + h * DH +
+                             d) =
+      make_float4(acc.x * scale, acc.y * scale, acc.z * scale, acc.w * scale);
+}
+
+int dq_pairs(int Lq, int Lk) {
+  int n = 0;
+  for (int qt = 0; qt * FQ < Lq; ++qt) n += dq_splits(qt, Lq, Lk);
+  return n;
+}
+#endif
 
 template <typename K>
 cudaError_t set_smem(K kernel, int bytes) {
@@ -632,12 +1040,20 @@ int forward(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
+// dQ workspace rows of one (batch row, head): each key block's partials
+// for the q rows that see its keys
+long long ws_rows(int Lq, int Lk) {
+  long long n = 0;
+  for (long long jb = 0; jb * BK < Lk; ++jb) n += Lq - jb * BK * Lq / Lk;
+  return n;
+}
+
 template <int DH>
 int backward(const float* q, const float* k, const float* v,
              const unsigned char* qpad, const unsigned char* kpad,
              const float* out, const float* g, const float* mrow,
              const float* lrow, float* dq, float* dk, float* dv, float* D,
-             int B, int Lq, int Lk, int H, cudaStream_t stream) {
+             float* ws, int B, int Lq, int Lk, int H, cudaStream_t stream) {
   const float scale = rsqrtf((float)DH);
   long long rows = (long long)B * Lq * H;
   rect_attn_bwd_dot<DH><<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
@@ -645,26 +1061,44 @@ int backward(const float* q, const float* k, const float* v,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int smem_kv = 6 * TILE * (int)sizeof(float);
-  if ((err = set_smem(rect_attn_bwd_dkdv<DH>, smem_kv)) != cudaSuccess)
+  constexpr int LDF = DH + 4;
+  const int R = (int)ws_rows(Lq, Lk);
+  const int nqt = (Lq + BQ - 1) / BQ, nkb = (Lk + BK - 1) / BK;
+  const int smem = (3 * BK * LDF + B_STAGES * (2 * BQ * LDF + 3 * BQ) +
+                    BQ * (BK + 8)) * (int)sizeof(float) +
+                   2 * nqt * (int)sizeof(int);
+  if ((err = set_smem(rect_attn_bwd_kv<DH>, smem)) != cudaSuccess)
     return (int)err;
-  dim3 grid_kv((Lk + BM - 1) / BM, H, B);
-  rect_attn_bwd_dkdv<DH><<<grid_kv, THREADS, smem_kv, stream>>>(
-      q, k, v, qpad, kpad, g, mrow, lrow, D, dk, dv, Lq, Lk, H, scale);
+  rect_attn_bwd_kv<DH><<<(unsigned)(nkb * B * H), B_THREADS, smem, stream>>>(
+      q, k, v, qpad, kpad, g, mrow, lrow, D, dk, dv, ws, B, Lq, Lk, H, R,
+      scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  const int smem_q = 5 * TILE * (int)sizeof(float);
-  if ((err = set_smem(rect_attn_bwd_dq<DH>, smem_q)) != cudaSuccess)
+  dim3 grid_s((Lq * (DH / 4) + 255) / 256, H, B);
+#ifdef K6_DQ_PASS
+  const int P = dq_pairs(Lq, Lk);
+  const int smem_q = (F_STAGES * 2 * FK + FQ) * LDF * (int)sizeof(float);
+  if ((err = set_smem(rect_attn_bwd_dq_pass<DH>, smem_q)) != cudaSuccess)
     return (int)err;
-  dim3 grid_q((Lq + BM - 1) / BM, H, B);
-  rect_attn_bwd_dq<DH><<<grid_q, THREADS, smem_q, stream>>>(
-      q, k, v, qpad, kpad, g, mrow, lrow, D, dq, Lq, Lk, H, scale);
+  rect_attn_bwd_dq_pass<DH><<<dim3(P, H, B), F_THREADS, smem_q, stream>>>(
+      q, k, v, qpad, kpad, g, mrow, lrow, D, ws, Lq, Lk, H, P, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  rect_attn_bwd_dq_sum2<DH><<<grid_s, 256, 0, stream>>>(ws, dq, Lq, Lk, H, P,
+                                                        scale);
+#else
+  rect_attn_bwd_dq_sum<DH><<<grid_s, 256, 2 * nkb * sizeof(int), stream>>>(
+      ws, dq, Lq, Lk, H, R, scale);
+#endif
   return (int)cudaGetLastError();
 }
 
 bool shape_ok(int B, int Lq, int Lk, int E, int H) {
-  return B > 0 && Lq > 0 && Lk > 0 && H > 0 && E % H == 0 && B <= 65535 &&
-         H <= 65535;
+  if (!(B > 0 && Lq > 0 && Lk > 0 && H > 0 && E % H == 0 && B <= 65535 &&
+        H <= 65535))
+    return false;
+  // the backward's grid, its workspace rows and their 32-bit offsets
+  const long long nkb = (Lk + BK - 1) / BK;
+  return nkb * B * H < (1LL << 31) && nkb * Lq < (1LL << 31);
 }
 
 }  // namespace
@@ -691,24 +1125,36 @@ int rect_attention_forward_f32(const float* q, const float* k, const float* v,
   }
 }
 
+// Floats of the backward's dQ workspace for these shapes.
+long long rect_attention_backward_workspace_floats(int B, int Lq, int Lk,
+                                                   int E, int H) {
+  if (!shape_ok(B, Lq, Lk, E, H)) return -1;
+#ifdef K6_DQ_PASS
+  return (long long)B * E * FQ * dq_pairs(Lq, Lk);
+#else
+  return (long long)B * E * ws_rows(Lq, Lk);
+#endif
+}
+
 // From the forward's out, mrow, lrow and the cotangent g (B,Lq,E):
-// dq (B,Lq,E), dk, dv (B,Lk,E). D is (B,H,Lq) f32 scratch.
+// dq (B,Lq,E), dk, dv (B,Lk,E). D is (B,H,Lq) f32 scratch, ws the dQ
+// workspace (rect_attention_backward_workspace_floats).
 int rect_attention_backward_f32(const float* q, const float* k,
                                 const float* v, const unsigned char* qpad,
                                 const unsigned char* kpad, const float* out,
                                 const float* g, const float* mrow,
                                 const float* lrow, float* dq, float* dk,
-                                float* dv, float* D, int B, int Lq, int Lk,
-                                int E, int H, void* stream_ptr) {
+                                float* dv, float* D, float* ws, int B, int Lq,
+                                int Lk, int E, int H, void* stream_ptr) {
   if (!shape_ok(B, Lq, Lk, E, H)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream_ptr;
   switch (E / H) {
     case 32:
       return backward<32>(q, k, v, qpad, kpad, out, g, mrow, lrow, dq, dk, dv,
-                          D, B, Lq, Lk, H, s);
+                          D, ws, B, Lq, Lk, H, s);
     case 64:
       return backward<64>(q, k, v, qpad, kpad, out, g, mrow, lrow, dq, dk, dv,
-                          D, B, Lq, Lk, H, s);
+                          D, ws, B, Lq, Lk, H, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,7 +1,7 @@
 // FP32 products on the tensor cores at FP32 accuracy (3xTF32), and the
 // 16-byte cp.async copies that feed them. Shared by tc_gemm.cuh (K7's
 // and K9's weight gradients, K7's dx) and rect_attention.cu (K5's
-// forward).
+// forward, K6's backward).
 //
 // Each FP32 operand x is split into hi = tf32(x) and lo = tf32(x - hi)
 // (cvt.rna: round to nearest, ties away), and lo*hi + hi*lo + hi*hi is
@@ -27,6 +27,20 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
   const float rest = x - __uint_as_float(hi);
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
+}
+
+// the same split by integer arithmetic, bit for bit the same for finite x:
+// half of the 13 dropped mantissa bits is added to the magnitude, then
+// they are cleared (round to nearest, ties away, as cvt.rna). cvt runs on
+// the conversion unit at 1/8 of the FP32 rate; these run at full rate.
+__device__ __forceinline__ uint32_t round_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32_alu(float x, uint32_t& hi,
+                                               uint32_t& lo) {
+  hi = round_tf32(x);
+  lo = round_tf32(x - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],

@@ -90,9 +90,12 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.rect_attention_forward_f32.argtypes = [_P] * 8 + [_I] * 5 + [_P]
         lib.rect_attention_backward_f32.argtypes = (
-            [_P] * 13 + [_I] * 5 + [_P])
+            [_P] * 14 + [_I] * 5 + [_P])
+        lib.rect_attention_backward_workspace_floats.argtypes = [_I] * 5
         lib.rect_attention_forward_f32.restype = ctypes.c_int
         lib.rect_attention_backward_f32.restype = ctypes.c_int
+        lib.rect_attention_backward_workspace_floats.restype = (
+            ctypes.c_longlong)
         lib._typed = True
     return lib
 
@@ -150,6 +153,17 @@ def rect_attention_forward(heads, q, k, v, q_pad, k_pad, residuals=False):
     return (out, m, l) if residuals else out
 
 
+def backward_workspace_bytes(heads, b, lq, lk, e):
+    """Bytes of the dQ workspace the backward kernel takes at these shapes
+    (each key block's partial dQ for the query rows that see its keys)."""
+    n = _lib().rect_attention_backward_workspace_floats(b, lq, lk, e, heads)
+    if n < 0:
+        raise ValueError(
+            f"rect_attention_backward: no kernel for B={b}, Lq={lq}, "
+            f"Lk={lk}, E={e}, heads={heads}")
+    return 4 * n
+
+
 def rect_attention_backward(heads, q, k, v, q_pad, k_pad, out, m, l, g):
     """The backward kernels (CUDA only), from the forward's context and
     residuals and the context's cotangent ``g``. Returns (dq, dk, dv)."""
@@ -160,10 +174,14 @@ def rect_attention_backward(heads, q, k, v, q_pad, k_pad, out, m, l, g):
         raise ValueError(
             f"rect_attention_backward: cotangent {tuple(g.shape)} on "
             f"{g.device} for {tuple(q.shape)} on {q.device}")
+    if g.data_ptr() % 16:  # the kernel copies 16 bytes at a time
+        g = g.clone()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     d = q.new_empty(b, heads, lq)
+    ws = q.new_empty(backward_workspace_bytes(heads, b, lq, lk, e) // 4)
     _build.launch(_lib().rect_attention_backward_f32, q, k, v, q_pad, k_pad,
-                  out, g, m, l, dq, dk, dv, d, dims=(b, lq, lk, e, heads))
+                  out, g, m, l, dq, dk, dv, d, ws,
+                  dims=(b, lq, lk, e, heads))
     global bwd_launches
     bwd_launches += 1
     return dq, dk, dv

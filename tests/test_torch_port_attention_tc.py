@@ -22,12 +22,25 @@ version and to the JAX kernel where no card is needed:
     forward bound; the emulation's own distance from the plain version is
     ~1e-6, the three TF32 passes keep FP32's order of error), and its
     residuals match the plain logits' row max and sum (rtol 1e-5);
-  * one TF32 pass instead of three drifts by more than 3xTF32 does.
+  * one TF32 pass instead of three drifts by more than 3xTF32 does;
+  * ``emulate_backward`` repeats the backward kernel's algorithm
+    (``rect_attn_bwd_kv`` and ``rect_attn_bwd_dq_sum``) the same way: one
+    pass per 64-key block over the 32-row q tiles that see its keys, P
+    from the emulated forward's max and sum, dS zero where the mask is
+    set, S and dP once per (q tile, key block) pair, all five products in
+    3xTF32; a q tile before the block's first seeing row is visited only
+    if it holds a row whose every key is masked, for dV alone; each key
+    block's partial dS K goes to the rows that see its keys, and dQ sums
+    them in key-block order. It matches ``rect_attention_backward_
+    reference`` and the JAX gradients of ``rect_attention`` (interpret
+    mode) at atol 2e-4, the gradient bound of
+    tests/test_torch_port_rect_attention.py.
 """
 
 import functools
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,9 +51,10 @@ from multimodalreactiongeneration_tpu.ops import pallas_rect_attention as jra
 from multimodalreactiongeneration_tpu_torch.ops import rect_attention as K5
 
 torch.set_num_threads(1)
-FWD_ATOL = 2e-5
+FWD_ATOL, GRAD_ATOL = 2e-5, 2e-4
 B, E, HEADS = 2, 64, 2
 TILE_Q, TILE_K = 64, 64
+BWD_KEYS, BWD_ROWS = 64, 32  # the backward's key block and q rows a step
 CASES = [(16, 128), (128, 16), (40, 40), (12, 96), (10, 20), (130, 70)]
 
 
@@ -119,6 +133,64 @@ def emulate_forward(heads, q, k, v, q_pad, k_pad, passes=3):
     return out, m_out, l_out
 
 
+def emulate_backward(heads, q, k, v, q_pad, k_pad, g):
+    """The backward kernel's arithmetic on CPU tensors, from the emulated
+    forward's context, max and sum: (dq, dk, dv)."""
+    b, lq, e = q.shape
+    lk = k.shape[1]
+    dh = e // heads
+    scale = 1.0 / math.sqrt(dh)
+    out, m_all, l_all = emulate_forward(heads, q, k, v, q_pad, k_pad)
+    dq, dk, dv = torch.zeros(b, lq, e), torch.zeros(b, lk, e), torch.zeros(
+        b, lk, e)
+    nqt = -(-lq // BWD_ROWS)
+    for bi in range(b):
+        unpadded = torch.nonzero(~k_pad[bi])
+        fu = int(unpadded[0]) if len(unpadded) else lk
+        full_tiles = {i // BWD_ROWS for i in range(lq)
+                      if bool(q_pad[bi, i]) and fu >= visible(i, lq, lk)}
+        for h in range(heads):
+            cols = slice(h * dh, (h + 1) * dh)
+            d_row = (g[bi, :, cols] * out[bi, :, cols]).sum(dim=1)
+            m, l = m_all[bi, h], l_all[bi, h]
+            partials = []
+            for j0 in range(0, lk, BWD_KEYS):
+                j1 = min(j0 + BWD_KEYS, lk)  # key columns past Lk excluded
+                j = torch.arange(j0, j1)
+                r0 = j0 * lq // lk  # the first row that sees key j0
+                kt, vt = k[bi, j0:j1, cols], v[bi, j0:j1, cols]
+                dkt, dvt = torch.zeros(j1 - j0, dh), torch.zeros(j1 - j0, dh)
+                part = torch.zeros(lq, dh)
+                for t in range(nqt):
+                    vis = t >= r0 // BWD_ROWS
+                    if not vis and t not in full_tiles:
+                        continue
+                    i0, i1 = t * BWD_ROWS, min((t + 1) * BWD_ROWS, lq)
+                    i = torch.arange(i0, i1)
+                    qt, gt = q[bi, i0:i1, cols], g[bi, i0:i1, cols]
+                    masked = (j[:, None] * lq >= (i[None] + 1) * lk) | (
+                        k_pad[bi, j0:j1][:, None] & q_pad[bi, i0:i1][None])
+                    if vis:  # S^T and dP^T, once per (q tile, key block)
+                        st, dpt = product(kt, qt.T), product(vt, gt.T)
+                    else:  # every pair masked: P alone, for dV
+                        st = dpt = torch.zeros(j1 - j0, i1 - i0)
+                    x = torch.where(masked, K5.NEG_INF, st * scale)
+                    p = torch.exp(x - m[i0:i1][None]) * (1.0 / l[i0:i1])[None]
+                    ds = torch.where(masked, 0.0, p * (dpt - d_row[i0:i1][None]))
+                    dvt += product(p, gt)
+                    if vis:
+                        dkt += product(ds, qt)
+                        part[i0:i1] = product(ds.T, kt)
+                dk[bi, j0:j1, cols] = dkt * scale
+                dv[bi, j0:j1, cols] = dvt
+                partials.append((r0, part))
+            acc = torch.zeros(lq, dh)
+            for r0, part in partials:  # key-block order
+                acc[r0:] += part[r0:]
+            dq[bi, :, cols] = acc * scale
+    return dq, dk, dv
+
+
 def _inputs(lq, lk, seed, full_row=False):
     rng = np.random.default_rng(seed)
     q, k, v = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
@@ -190,3 +262,54 @@ def test_tf32_rounds_to_nearest_ties_away():
     np.testing.assert_array_equal(
         tf32(x).numpy(), np.array([one + ulp, -(one + ulp), one, one + ulp],
                                   np.float32))
+
+
+def _full_rows(q_pad, k_pad, rows, lq, lk):
+    """Rows ``rows`` of batch 0 padding and every key they see padding,
+    the rest of batch 0 unpadded."""
+    q_pad[0] = False
+    q_pad[0, rows] = True
+    k_pad[0] = False
+    k_pad[0, :visible(max(rows), lq, lk)] = True
+
+
+@pytest.mark.parametrize("lq,lk,full", [
+    (40, 40, ()),          # one key block, two q tiles
+    (130, 70, ()),         # Lq > Lk, both ragged
+    (12, 96, ()),          # less than one q tile, two key blocks
+    (128, 16, (3,)),       # a full row, one key block
+    (96, 256, (3,)),       # later key blocks visit tile 0 for dV only
+    (100, 200, (3, 9, 40)),  # full rows in two tiles beside normal rows
+])
+def test_emulated_tensor_core_backward_matches_plain_and_jax(lq, lk, full):
+    q, k, v, q_pad, k_pad = _inputs(lq, lk, 7 * lq + lk)
+    if full:
+        _full_rows(q_pad, k_pad, list(full), lq, lk)
+    g = torch.from_numpy(np.random.default_rng(lq + 3 * lk).standard_normal(
+        (B, lq, E)).astype(np.float32))
+    got = emulate_backward(HEADS, q, k, v, q_pad, k_pad, g)
+    want = K5.rect_attention_backward_reference(HEADS, q, k, v, q_pad, k_pad,
+                                                g)
+    for x, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(x.numpy(), w.numpy(), atol=GRAD_ATOL,
+                                   err_msg=f"d{name} vs plain")
+
+    def f(q, k, v):
+        return jra.rect_attention(HEADS, q, k, v, jnp.asarray(q_pad.numpy()),
+                                  jnp.asarray(k_pad.numpy()))
+
+    _, vjp = jax.vjp(f, *[jnp.asarray(x.numpy()) for x in (q, k, v)])
+    jq, jk, jv = [np.asarray(w) for w in vjp(jnp.asarray(g.numpy()))]
+    x = [t.numpy() for t in got]
+    # the JAX kernel does not zero dS where the mask is set, so a full
+    # row (constant logits) gives it a nonzero dq and adds to dk of its
+    # batch row (ROADMAP queue C); those entries are held to plain only
+    rows = np.ones(lq, bool)
+    rows[list(full)] = False
+    keep_b = 1 if full else 0
+    for got_x, want_x, name in ((x[0][0, rows], jq[0, rows], "q, batch 0"),
+                                (x[0][1:], jq[1:], "q"),
+                                (x[1][keep_b:], jk[keep_b:], "k"),
+                                (x[2], jv, "v")):
+        np.testing.assert_allclose(got_x, want_x, atol=GRAD_ATOL,
+                                   err_msg=f"d{name} vs JAX")

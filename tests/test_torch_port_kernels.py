@@ -598,6 +598,28 @@ def test_rect_attention_fully_masked_rows_beside_normal_rows(dev):
     assert float((got[0, 4] - mean).abs().max()) > 1e-2
 
 
+@pytest.mark.parametrize("b,lq,lk,e,heads", [
+    (32, 252, 2016, 256, 4), (3, 129, 65, 128, 2),
+])
+def test_rect_attention_backward_is_bit_identical_run_to_run(dev, b, lq, lk,
+                                                              e, heads):
+    """Two backward calls on the same inputs give the same bits (the dQ
+    partials are summed in key-block order, no atomics), one launch
+    counted each."""
+    from multimodalreactiongeneration_tpu_torch.ops import rect_attention as K5
+
+    q, k, v, q_pad, k_pad, g = _rect_inputs(dev, lq + lk, b, lq, lk, e)
+    args = (heads, q, k, v, q_pad, k_pad)
+    ctx, m, l = K5.rect_attention_forward(*args, residuals=True)
+    before = K5.bwd_launches
+    first = K5.rect_attention_backward(*args, ctx, m, l, g)
+    second = K5.rect_attention_backward(*args, ctx, m, l, g)
+    torch.cuda.synchronize()
+    assert K5.bwd_launches == before + 2
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("lk", [2016, 252])
 def test_rect_attention_kernels_at_head_dim_32(dev, lk):
     inputs = _rect_inputs(dev, lk, 4, 252, lk, 128)
