@@ -1519,8 +1519,7 @@ def rect_attention_phase(K5, dev, rng):
             fwd_bound=fwd_bound, bwd_bound=bwd_bound,
             bwd_bound_fp32=bwd_bound_fp32, bwd_bit_identical=same_bits,
             bwd_workspace_bytes=ws_bytes, bwd_kernels_ms=bwd_kernels_ms))
-        del out, grads, want, wgrads, ctx, m, l, lib_out, allowed, first
-        del again
+        del out, grads, want, wgrads, ctx, m, l, lib_out, allowed, first, again
     return cases
 
 

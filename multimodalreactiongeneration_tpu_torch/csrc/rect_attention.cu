@@ -18,7 +18,9 @@
 // GFLOP over the keys the causal mask leaves. On the tensor cores in
 // 3xTF32 that is three TF32 passes at 495 TFLOP/s (0.05 ms); it moves q,
 // k, v and the context once, ~150 MB against 3.35 TB/s (0.045 ms). The
-// backward's 20.8 GFLOP run as FP32 FMAs at 67 TFLOP/s (0.31 ms).
+// backward's five products, 10 FLOPs per visible (query, key) pair and
+// head dim, are 20.8 GFLOP: 0.126 ms as three TF32 passes at 495 TFLOP/s
+// (0.31 ms as FP32 FMAs at 67).
 //
 // Design. The TPU kernel keeps a 128-row q block's logits for the whole
 // key range in VMEM (~1 MB per head); no SM holds that. So:
@@ -43,16 +45,36 @@
 //     the sum over keys). Shared rows are Dh+4 floats, so the fragment
 //     reads of K (row g, column q) and of V (rows 2q, 2q+1, column g) hit
 //     32 different banks. Blocks of the longest key ranges start first;
-//   * backward: D = rowsum(dO * O) in a small pre-pass; dK/dV with one
-//     block per (key tile, head, batch) looping over the q tiles that can
-//     see it, recomputing P from the saved max and sum; dQ in a second
-//     pass with one block per q tile looping over its visible key tiles.
-//     No atomics: the result is deterministic. dS is zero where the mask
-//     is set, as autograd through the plain masked_fill gives it.
-//     Arithmetic is FP32 FMAs (SIMT). Each thread of a 16 x 16 block owns
-//     4 rows (ty*4 + r) and 4 strided columns (tx + 16*c) of every 64 x
-//     64 tile; shared rows are padded to 65 floats so that every shared
-//     read is conflict-free or a broadcast.
+//   * backward: D = rowsum(dO * O) in a small pre-pass; then one block
+//     of 4 warps per (64-key block, head, batch), the blocks of the
+//     longest q range first. K (split once into TF32 hi and lo) and V
+//     stay in shared memory; the block streams the 16-row q tiles that
+//     see its keys (rows from floor(j0*Lq/Lk) on) through a two-stage
+//     cp.async ring: Q, dO, and the rows' max, sum and D. Each warp owns
+//     16 keys and computes S^T = K Q^T and dP^T = V dO^T once per (q
+//     tile, key block) pair, P^T from the forward's max and sum, dS^T =
+//     P^T (dP^T - D), zero where the mask is set (as autograd through the
+//     plain masked_fill gives it), and keeps dV += P^T dO and dK += dS^T
+//     Q in registers; P^T and dS^T feed those products from registers by
+//     the forward's permutation of the sum (q rows 2q, 2q+1 as columns
+//     q, q+4). A q tile before the block's first seeing row is visited
+//     only if it holds a row whose every key is masked: that row
+//     averages over all Lk keys, so it adds to dV alone. dQ: dS goes to
+//     shared memory (rows of 72 floats: the A fragments load as float2
+//     without bank conflicts), each warp takes a quarter of the tile's
+//     dS K, and the block's partial dQ lands in a workspace, rows from
+//     floor(j0*Lq/Lk) on only (134 MB at the flagship audio shape); a
+//     second kernel sums each row's partials in key-block order. No
+//     atomics: the result is the same bits run to run. All five products
+//     are 3xTF32 on mma.sync; the operands are split by integer rounding
+//     (tf32x3.cuh split_tf32_alu, the bits of cvt.rna at full ALU rate),
+//     and each product's B fragments are loaded and split before its
+//     MMAs. 16 q rows a step, three blocks an SM (74.6 KB of shared
+//     memory, at most 170 registers a thread) came from a sweep over 16,
+//     32 and 64 rows, two and three stages, 4 and 8 warps; so did the
+//     dQ route (PERF.md): at B32 x 252 x 2016 on an H100 SXM (700 W), a
+//     second pass that recomputed S and dP for dQ alone (seven products)
+//     took 1.06 ms against 0.73.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,32 +95,14 @@ constexpr int F_THREADS = 32 * FQ_WARPS;
 constexpr int F_STAGES = 2;
 
 // backward (K6): BW warps of 16 keys (BK keys a block), BQ q rows a step,
-// B_STAGES stages of Q and dO in flight
-#ifndef K6_WARPS
-#define K6_WARPS 4
-#endif
-#ifndef K6_BQ
-#define K6_BQ 16
-#endif
-#ifndef K6_STAGES
-#define K6_STAGES 2
-#endif
-#ifndef K6_MINB
-#define K6_MINB (12 / K6_WARPS)
-#endif
-constexpr int BW = K6_WARPS;
+// B_STAGES stages of Q and dO in flight, three blocks an SM (at most 170
+// registers a thread); chosen by a sweep (PERF.md)
+constexpr int BW = 4;
 constexpr int BK = 16 * BW;
-constexpr int BQ = K6_BQ;
-constexpr int B_STAGES = K6_STAGES;
+constexpr int BQ = 16;
+constexpr int B_STAGES = 2;
 constexpr int B_THREADS = 32 * BW;
-#ifdef K6_DQ_PASS
-// measured alternative: dQ in a second pass that recomputes S and dP,
-// over (64-row q tile, split of K6_DQ_PASS 64-key tiles) blocks
-constexpr bool DQ_IN_KV = false;
-constexpr int DQ_KPS = K6_DQ_PASS;
-#else
-constexpr bool DQ_IN_KV = true;
-#endif
+constexpr int B_MIN_BLOCKS = 3;
 
 // keys visible to query row i: j*Lq < (i+1)*Lk, i.e. ceil((i+1)*Lk/Lq)
 __device__ __forceinline__ int visible(int i, int Lq, int Lk) {
@@ -377,7 +381,8 @@ __device__ __forceinline__ int first_row(int jb, int Lq, int Lk) {
   return (int)((long long)jb * BK * Lq / Lk);
 }
 
-// dQ workspace rows of the key blocks before jb (one warp computes it)
+// dQ workspace rows of the key blocks before jb (a warp-wide sum: every
+// warp gets the same value)
 __device__ __forceinline__ int ws_rows_before(int jb, int Lq, int Lk) {
   int s = 0;
   for (int j = threadIdx.x & 31; j < jb; j += 32) s += Lq - first_row(j, Lq, Lk);
@@ -423,17 +428,12 @@ __device__ __forceinline__ void mma_3xtf32_n(float (*d)[4],
                                              const uint32_t (&al)[4],
                                              const uint32_t (*bh)[2],
                                              const uint32_t (*bl)[2]) {
-#ifdef K6_CHAINED
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_3xtf32(d[n], ah, al, bh[n], bl[n]);
-#else
 #pragma unroll
   for (int n = 0; n < N; ++n) mma_tf32(d[n], al, bh[n]);
 #pragma unroll
   for (int n = 0; n < N; ++n) mma_tf32(d[n], ah, bl[n]);
 #pragma unroll
   for (int n = 0; n < N; ++n) mma_tf32(d[n], ah, bh[n]);
-#endif
 }
 
 // the same for two sets at once: d[n] += a b[n] and e[n] += c f[n]
@@ -443,13 +443,6 @@ __device__ __forceinline__ void mma_3xtf32_2n(
     const uint32_t (*bh)[2], const uint32_t (*bl)[2], float (*e)[4],
     const uint32_t (&ch)[4], const uint32_t (&cl)[4],
     const uint32_t (*fh)[2], const uint32_t (*fl)[2]) {
-#ifdef K6_CHAINED
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    mma_3xtf32(d[n], ah, al, bh[n], bl[n]);
-    mma_3xtf32(e[n], ch, cl, fh[n], fl[n]);
-  }
-#else
 #pragma unroll
   for (int n = 0; n < N; ++n) {
     mma_tf32(d[n], al, bh[n]);
@@ -465,12 +458,11 @@ __device__ __forceinline__ void mma_3xtf32_2n(
     mma_tf32(d[n], ah, bh[n]);
     mma_tf32(e[n], ch, fh[n]);
   }
-#endif
 }
 
 // dK, dV and the dQ partials of one key block: see the source note
 template <int DH>
-__global__ void __launch_bounds__(B_THREADS, K6_MINB)
+__global__ void __launch_bounds__(B_THREADS, B_MIN_BLOCKS)
     rect_attn_bwd_kv(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const unsigned char* __restrict__ qpad,
@@ -651,7 +643,7 @@ __global__ void __launch_bounds__(B_THREADS, K6_MINB)
           s[nt][e] = p;
         }
       }
-    if (DQ_IN_KV && vis) {  // dS for the dQ product, rows q, columns keys
+    if (vis) {  // dS for the dQ product, rows q, columns keys
 #pragma unroll
       for (int nt = 0; nt < NQ; ++nt)
 #pragma unroll
@@ -701,7 +693,7 @@ __global__ void __launch_bounds__(B_THREADS, K6_MINB)
     // this block's part of dQ for the step's rows, dS K over its BK keys
     // (the keys taken in the order 2t4, 2t4 + 1 as above), into the
     // workspace; each warp takes PPW (16-row tile, 8-column group) pairs
-    if (DQ_IN_KV && vis) {
+    if (vis) {
       __syncthreads();  // dS complete
       const int p0 = warp * PPW, mt = p0 / DT, dt0 = p0 % DT;
       float acc[PPW][4];
@@ -808,217 +800,6 @@ __global__ void rect_attn_bwd_dq_sum(const float* __restrict__ ws,
       make_float4(acc.x * scale, acc.y * scale, acc.z * scale, acc.w * scale);
 }
 
-
-#ifdef K6_DQ_PASS
-// key tiles of 64 visible to q tile qt (64 rows), and its splits
-__device__ __host__ __forceinline__ int dq_tiles(int qt, int Lq, int Lk) {
-  const int last = min((qt + 1) * FQ, Lq) - 1;
-  const long long v = ((long long)(last + 1) * Lk + Lq - 1) / Lq;
-  return (int)(((v < Lk ? v : Lk) + FK - 1) / FK);
-}
-__device__ __host__ __forceinline__ int dq_splits(int qt, int Lq, int Lk) {
-  return (dq_tiles(qt, Lq, Lk) + DQ_KPS - 1) / DQ_KPS;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(F_THREADS, 2)
-    rect_attn_bwd_dq_pass(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const unsigned char* __restrict__ qpad,
-                          const unsigned char* __restrict__ kpad,
-                          const float* __restrict__ g,
-                          const float* __restrict__ mrow,
-                          const float* __restrict__ lrow,
-                          const float* __restrict__ Drow,
-                          float* __restrict__ ws, int Lq, int Lk, int H,
-                          int P, float scale) {
-  constexpr int LDF = DH + 4, KS = DH / 8, NT = FK / 8, DT = DH / 8;
-  constexpr int STAGE = 2 * FK * LDF;
-  extern __shared__ __align__(16) float ring[];
-  float* Gs = ring + F_STAGES * STAGE;  // this tile's dO rows
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int nqt = (Lq + FQ - 1) / FQ;
-  int qt = 0, p0 = 0, s = blockIdx.x;
-  while (qt < nqt && s >= dq_splits(qt, Lq, Lk)) {
-    s -= dq_splits(qt, Lq, Lk);
-    p0 += dq_splits(qt, Lq, Lk);
-    ++qt;
-  }
-  if (qt >= nqt) return;
-  const int i0 = qt * FQ, E = H * DH, col0 = h * DH;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g8 = lane >> 2, t4 = lane & 3;
-  const float* qb = q + (size_t)b * Lq * E;
-  const float* gb = g + (size_t)b * Lq * E;
-  const float* kb = k + (size_t)b * Lk * E;
-  const float* vb = v + (size_t)b * Lk * E;
-  const unsigned char* qp = qpad + (size_t)b * Lq;
-  const unsigned char* kp = kpad + (size_t)b * Lk;
-  const size_t rows = ((size_t)b * H + h) * Lq;
-  const int jt0 = s * DQ_KPS;
-  const int jt1 = min(jt0 + DQ_KPS, dq_tiles(qt, Lq, Lk));
-  for (int c = threadIdx.x; c < FQ * (DH / 4); c += F_THREADS) {
-    const int r = c / (DH / 4), d = (c % (DH / 4)) * 4, row = i0 + r;
-    const bool ok = row < Lq;
-    cp_async16(Gs + r * LDF + d, gb + (ok ? (size_t)row * E + col0 + d : 0),
-               ok);
-  }
-#pragma unroll
-  for (int st = 0; st < F_STAGES - 1; ++st) {
-    if (jt0 + st < jt1) {
-      float* stg = ring + st * STAGE;
-      load_kv<DH>(stg, stg + FK * LDF, kb, vb, (jt0 + st) * FK, Lk, E, col0);
-    }
-    cp_async_commit();
-  }
-  const int r0 = i0 + warp * 16 + g8, r1 = r0 + 8;
-  uint32_t qh[KS][4], ql[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int d = col0 + kk * 8 + t4;
-    const float a[4] = {
-        r0 < Lq ? __ldg(qb + (size_t)r0 * E + d) : 0.f,
-        r1 < Lq ? __ldg(qb + (size_t)r1 * E + d) : 0.f,
-        r0 < Lq ? __ldg(qb + (size_t)r0 * E + d + 4) : 0.f,
-        r1 < Lq ? __ldg(qb + (size_t)r1 * E + d + 4) : 0.f};
-#pragma unroll
-    for (int c = 0; c < 4; ++c) split_tf32_alu(a[c], qh[kk][c], ql[kk][c]);
-  }
-  const int rr[2] = {r0, r1};
-  float mq[2], il[2], Dq[2];
-  long long iL[2];
-  bool qpi[2];
-#pragma unroll
-  for (int x = 0; x < 2; ++x) {
-    const bool in = rr[x] < Lq;
-    mq[x] = in ? mrow[rows + rr[x]] : 0.f;
-    il[x] = in ? 1.f / lrow[rows + rr[x]] : 0.f;
-    Dq[x] = in ? Drow[rows + rr[x]] : 0.f;
-    iL[x] = (long long)(rr[x] + 1) * Lk;
-    qpi[x] = in && qp[rr[x]];
-  }
-  float dqa[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dqa[dt][c] = 0.f;
-
-  for (int jt = jt0; jt < jt1; ++jt) {
-    cp_async_wait<F_STAGES - 2>();
-    __syncthreads();
-    const int nx = jt + F_STAGES - 1;
-    if (nx < jt1) {
-      float* stg = ring + ((nx - jt0) % F_STAGES) * STAGE;
-      load_kv<DH>(stg, stg + FK * LDF, kb, vb, nx * FK, Lk, E, col0);
-    }
-    cp_async_commit();
-    const float* ks = ring + ((jt - jt0) % F_STAGES) * STAGE;
-    const float* vs = ks + FK * LDF;
-    const int j0 = jt * FK;
-    float sa[NT][4], dp[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) sa[nt][c] = dp[nt][c] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const int at = (warp * 16 + g8) * LDF + kk * 8 + t4;
-      uint32_t gh[4], gl[4];
-      split_tf32_alu(Gs[at], gh[0], gl[0]);
-      split_tf32_alu(Gs[at + 8 * LDF], gh[1], gl[1]);
-      split_tf32_alu(Gs[at + 4], gh[2], gl[2]);
-      split_tf32_alu(Gs[at + 8 * LDF + 4], gh[3], gl[3]);
-      uint32_t kh[NT][2], kl[NT][2], wh[NT][2], wl[NT][2];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int bt = (nt * 8 + g8) * LDF + kk * 8 + t4;
-        split_tf32_alu(ks[bt], kh[nt][0], kl[nt][0]);
-        split_tf32_alu(ks[bt + 4], kh[nt][1], kl[nt][1]);
-        split_tf32_alu(vs[bt], wh[nt][0], wl[nt][0]);
-        split_tf32_alu(vs[bt + 4], wh[nt][1], wl[nt][1]);
-      }
-      mma_3xtf32_2n<NT>(sa, qh[kk], ql[kk], kh, kl, dp, gh, gl, wh, wl);
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int j = j0 + nt * 8 + 2 * t4 + c;
-        const bool jin = j < Lk, kpj = jin && kp[j];
-        const long long jL = (long long)j * Lq;
-#pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          const int e = 2 * x + c;
-          const bool masked = jL >= iL[x] || (qpi[x] && kpj);
-          const float xs = masked ? NEG : sa[nt][e] * scale;
-          const float p = jin ? expf(xs - mq[x]) * il[x] : 0.f;
-          dp[nt][e] = masked ? 0.f : p * (dp[nt][e] - Dq[x]);
-        }
-      }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      uint32_t ah[4], al[4];
-      split_tf32_alu(dp[nt][0], ah[0], al[0]);
-      split_tf32_alu(dp[nt][2], ah[1], al[1]);
-      split_tf32_alu(dp[nt][1], ah[2], al[2]);
-      split_tf32_alu(dp[nt][3], ah[3], al[3]);
-      const int bt = (nt * 8 + 2 * t4) * LDF + g8;
-      uint32_t bh[DT][2], bl[DT][2];
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        split_tf32_alu(ks[bt + dt * 8], bh[dt][0], bl[dt][0]);
-        split_tf32_alu(ks[bt + LDF + dt * 8], bh[dt][1], bl[dt][1]);
-      }
-      mma_3xtf32_n<DT>(dqa, ah, al, bh, bl);
-    }
-  }
-  cp_async_wait<0>();
-  float* wb = ws + ((((size_t)b * H + h) * P + p0 + s) * FQ) * DH;
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int d = dt * 8 + 2 * t4;
-    *reinterpret_cast<float2*>(wb + (size_t)(warp * 16 + g8) * DH + d) =
-        make_float2(dqa[dt][0], dqa[dt][1]);
-    *reinterpret_cast<float2*>(wb + (size_t)(warp * 16 + g8 + 8) * DH + d) =
-        make_float2(dqa[dt][2], dqa[dt][3]);
-  }
-}
-
-template <int DH>
-__global__ void rect_attn_bwd_dq_sum2(const float* __restrict__ ws,
-                                      float* __restrict__ dq, int Lq, int Lk,
-                                      int H, int P, float scale) {
-  constexpr int C4 = DH / 4;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= Lq * C4) return;
-  const int i = t / C4, d = (t % C4) * 4, qt = i / FQ;
-  int p0 = 0;
-  for (int x = 0; x < qt; ++x) p0 += dq_splits(x, Lq, Lk);
-  const int ns = dq_splits(qt, Lq, Lk);
-  const float* wb = ws + (((size_t)b * H + h) * P + p0) * FQ * DH +
-                    (size_t)(i - qt * FQ) * DH + d;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int s = 0; s < ns; ++s) {
-    const float4 x = *reinterpret_cast<const float4*>(wb + (size_t)s * FQ * DH);
-    acc.x += x.x;
-    acc.y += x.y;
-    acc.z += x.z;
-    acc.w += x.w;
-  }
-  *reinterpret_cast<float4*>(dq + ((size_t)b * Lq + i) * H * DH + h * DH +
-                             d) =
-      make_float4(acc.x * scale, acc.y * scale, acc.z * scale, acc.w * scale);
-}
-
-int dq_pairs(int Lq, int Lk) {
-  int n = 0;
-  for (int qt = 0; qt * FQ < Lq; ++qt) n += dq_splits(qt, Lq, Lk);
-  return n;
-}
-#endif
-
 template <typename K>
 cudaError_t set_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -1075,20 +856,8 @@ int backward(const float* q, const float* k, const float* v,
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   dim3 grid_s((Lq * (DH / 4) + 255) / 256, H, B);
-#ifdef K6_DQ_PASS
-  const int P = dq_pairs(Lq, Lk);
-  const int smem_q = (F_STAGES * 2 * FK + FQ) * LDF * (int)sizeof(float);
-  if ((err = set_smem(rect_attn_bwd_dq_pass<DH>, smem_q)) != cudaSuccess)
-    return (int)err;
-  rect_attn_bwd_dq_pass<DH><<<dim3(P, H, B), F_THREADS, smem_q, stream>>>(
-      q, k, v, qpad, kpad, g, mrow, lrow, D, ws, Lq, Lk, H, P, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  rect_attn_bwd_dq_sum2<DH><<<grid_s, 256, 0, stream>>>(ws, dq, Lq, Lk, H, P,
-                                                        scale);
-#else
   rect_attn_bwd_dq_sum<DH><<<grid_s, 256, 2 * nkb * sizeof(int), stream>>>(
       ws, dq, Lq, Lk, H, R, scale);
-#endif
   return (int)cudaGetLastError();
 }
 
@@ -1129,11 +898,7 @@ int rect_attention_forward_f32(const float* q, const float* k, const float* v,
 long long rect_attention_backward_workspace_floats(int B, int Lq, int Lk,
                                                    int E, int H) {
   if (!shape_ok(B, Lq, Lk, E, H)) return -1;
-#ifdef K6_DQ_PASS
-  return (long long)B * E * FQ * dq_pairs(Lq, Lk);
-#else
   return (long long)B * E * ws_rows(Lq, Lk);
-#endif
 }
 
 // From the forward's out, mrow, lrow and the cotangent g (B,Lq,E):

@@ -15,11 +15,13 @@ over all Lk keys (PARITY #4).
 tensors, where a gradient is needed, the autograd function runs the
 forward kernel with its softmax residuals and the backward kernels;
 otherwise the forward kernel alone, which writes no residuals. Both
-launch ``csrc/rect_attention.cu`` (f32 only; the forward's products on
-the tensor cores in 3xTF32, the backward in FP32 FMAs; the design is in
-its source note). Launch counters: ``fwd_launches`` (one per forward call) and
-``bwd_launches`` (one per backward call, which runs the source's three
-backward kernels in turn).
+launch ``csrc/rect_attention.cu`` (f32 only; every product on the tensor
+cores in 3xTF32; the design is in its source note). The backward takes a
+dQ workspace (``backward_workspace_bytes``: each key block's partial dQ
+for the query rows that see its keys) from PyTorch's allocator on the
+caller's stream. Launch counters: ``fwd_launches`` (one per forward call)
+and ``bwd_launches`` (one per backward call, which runs the source's
+three backward kernels in turn: D, the key-block pass, the dQ sum).
 """
 
 from __future__ import annotations

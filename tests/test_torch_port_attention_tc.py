@@ -25,7 +25,7 @@ version and to the JAX kernel where no card is needed:
   * one TF32 pass instead of three drifts by more than 3xTF32 does;
   * ``emulate_backward`` repeats the backward kernel's algorithm
     (``rect_attn_bwd_kv`` and ``rect_attn_bwd_dq_sum``) the same way: one
-    pass per 64-key block over the 32-row q tiles that see its keys, P
+    pass per 64-key block over the 16-row q tiles that see its keys, P
     from the emulated forward's max and sum, dS zero where the mask is
     set, S and dP once per (q tile, key block) pair, all five products in
     3xTF32; a q tile before the block's first seeing row is visited only
@@ -54,7 +54,7 @@ torch.set_num_threads(1)
 FWD_ATOL, GRAD_ATOL = 2e-5, 2e-4
 B, E, HEADS = 2, 64, 2
 TILE_Q, TILE_K = 64, 64
-BWD_KEYS, BWD_ROWS = 64, 32  # the backward's key block and q rows a step
+BWD_KEYS, BWD_ROWS = 64, 16  # the backward's key block and q rows a step
 CASES = [(16, 128), (128, 16), (40, 40), (12, 96), (10, 20), (130, 70)]
 
 

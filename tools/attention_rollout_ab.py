@@ -23,8 +23,7 @@ this file from there). Times are means by CUDA events after a warm-up:
     caches, ms per generation (mean of 3 after a warm-up).
 
 Prints one JSON line with TAG and the card's name and power limit.
-``--attention-only`` times K5/K6 alone. ``--k6-sweep`` also builds K6 with
-each tile variant of ``K6_SWEEP`` and times it at both shapes. With
+``--attention-only`` times K5/K6 alone. With
 ``--stages``, K2 (bf16, B16) also runs once from a build of its source
 with ``-DROLLOUT_STAMPS`` (a checkout whose source has the stamps), and
 the JSON gets, per stage of a step (median over the stamped steps): the
@@ -128,80 +127,6 @@ def attention(dev, rng):
                 "rect_attn_bwd"),
             "fwd_max_abs_err": float((ctx - want).abs().max())}
         del ctx, m, l, want
-    return out
-
-
-# K6 variants (-D defines of csrc/rect_attention.cu): warps of 16 keys,
-# q rows a step, Q/dO stages in flight, blocks an SM the registers are
-# sized for (K6_MINB); K6_CHAINED: each product's three
-# TF32 passes issued back to back; K6_DQ_PASS=n: dQ in a second pass that
-# recomputes S and dP over splits of n 64-key tiles (seven products)
-K6_SWEEP = ((), ("K6_BQ=32", "K6_MINB=2"), ("K6_BQ=32", "K6_MINB=2",
-                                              "K6_CHAINED"),
-            ("K6_BQ=64", "K6_MINB=2"), ("K6_BQ=32", "K6_MINB=2",
-                                        "K6_STAGES=3"),
-            ("K6_BQ=16", "K6_MINB=2"), ("K6_BQ=16", "K6_MINB=2",
-                                        "K6_STAGES=3"),
-            ("K6_WARPS=8", "K6_BQ=32", "K6_MINB=1"),
-            ("K6_DQ_PASS=8", "K6_BQ=32", "K6_MINB=2"), ("K6_DQ_PASS=32", "K6_BQ=32", "K6_MINB=2"))
-
-
-def k6_sweep(dev, rng):
-    """K6 built with each of K6_SWEEP's defines (nvcc all at once), timed
-    at both integrator shapes; each variant's gradients against the
-    default build's (max abs difference)."""
-    import ctypes
-    from concurrent.futures import ThreadPoolExecutor
-
-    from multimodalreactiongeneration_tpu_torch import _build
-    from multimodalreactiongeneration_tpu_torch.ops import rect_attention as K5
-
-    with ThreadPoolExecutor(len(K6_SWEEP)) as pool:
-        list(pool.map(lambda d: _build.build("rect_attention", d), K6_SWEEP))
-    b, lq, e, heads = 32, LEAD + 240, 256, 4
-    shapes = []
-    for lk in (lq * RATIO, lq):
-        def r(*shape):
-            return torch.from_numpy(
-                rng.standard_normal(shape).astype(np.float32)).to(dev)
-        q, k, v, g = r(b, lq, e), r(b, lk, e), r(b, lk, e), r(b, lq, e)
-        q_pad = torch.from_numpy(rng.random((b, lq)) < 0.1).to(dev)
-        k_pad = torch.from_numpy(rng.random((b, lk)) < 0.1).to(dev)
-        ctx, m, l = K5.rect_attention_forward(heads, q, k, v, q_pad, k_pad,
-                                              residuals=True)
-        shapes.append((lk, (q, k, v, q_pad, k_pad, ctx, g, m, l)))
-    out, ref = {}, {}
-    for defines in K6_SWEEP:
-        lib = _build.load("rect_attention", defines)
-        fn = lib.rect_attention_backward_f32
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        wsf = lib.rect_attention_backward_workspace_floats
-        wsf.argtypes = [ctypes.c_int] * 5
-        wsf.restype = ctypes.c_longlong
-        rec = {}
-        for lk, t in shapes:
-            q = t[0]
-            grads = [torch.empty_like(q), torch.empty_like(t[1]),
-                     torch.empty_like(t[2])]
-            d = q.new_empty(b, heads, lq)
-            ws = q.new_empty(wsf(b, lq, lk, e, heads))
-
-            def call():
-                _build.launch(fn, *t, *grads, d, ws,
-                              dims=(b, lq, lk, e, heads))
-            ms = cuda_ms(call, 20)
-            got = [x.clone() for x in grads]
-            if not defines:
-                ref[lk] = got
-            rec[f"lk{lk}"] = {
-                "bwd_ms": ms,
-                "bwd_kernels_ms": kernel_device_ms(call, "rect_attn_bwd"),
-                "workspace_bytes": 4 * ws.numel(),
-                "max_abs_diff_vs_default": max(
-                    float((x - y).abs().max()) for x, y in zip(got, ref[lk]))}
-        out[" ".join(defines) or "default"] = rec
     return out
 
 
@@ -344,8 +269,6 @@ def main():
     model = Metaformer(LSTMFORMER_MODEL_CFG,
                        generator=torch.Generator().manual_seed(0), device=dev)
     record = {"tag": tag, "rect_attention": attention(dev, rng)}
-    if "--k6-sweep" in sys.argv:
-        record["k6_sweep"] = k6_sweep(dev, rng)
     if "--attention-only" not in sys.argv:
         record["decode_rollout"] = rollout(model, dev, rng)
         record["generate_metaformer_b16"] = generation(model, dev, rng)
