@@ -53,6 +53,32 @@
 
 namespace {
 
+// Built with -DGRU_STAMPS (a build only a measuring tool asks for),
+// thread 0 of each CTA of the first cluster stamps %globaltimer at the
+// marks of a step (the start, the product, the cell and the exchange
+// stores, the barrier passed) for steps [STAMP_T0, STAMP_T0 +
+// STAMP_STEPS) of the forward and of the backward (counted from the
+// last step); gru_stamps() reads them back.
+constexpr int STAMP_T0 = 64, STAMP_STEPS = 16, STAMP_CTAS = 16;
+constexpr int STAMP_MARKS = 5;
+#ifdef GRU_STAMPS
+__device__ unsigned long long
+    g_gru_stamps[2][STAMP_STEPS][STAMP_CTAS][STAMP_MARKS];
+#endif
+
+// mark `m` of step `step` of the forward (dir 0) or the backward (dir 1)
+__device__ __forceinline__ void stamp(int dir, int step, int m) {
+#ifdef GRU_STAMPS
+  const int s = step - STAMP_T0;
+  if (threadIdx.x == 0 && blockIdx.x < STAMP_CTAS && s >= 0 &&
+      s < STAMP_STEPS) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    g_gru_stamps[dir][s][blockIdx.x][m] = t;
+  }
+#endif
+}
+
 // the H the kernels take: U = H/8 units per CTA must be 16 or 32 for the
 // step's thread layout (256 threads = (16 rows / (U/16)) x U)
 inline bool gru_hidden_ok(int H) { return H == 128 || H == 256; }
@@ -117,6 +143,7 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
   cluster.sync();
 
   for (int t = 0; t < T; ++t) {
+    stamp(0, t, 0);
     const float* hcur = hbuf + (t & 1) * BT * HS;
     const int nxt = ((t + 1) & 1) * BT * HS;
 
@@ -144,6 +171,7 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
         }
       }
     }
+    stamp(0, t, 1);
 
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
@@ -173,7 +201,10 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
         }
       }
     }
+    stamp(0, t, 2);
+    stamp(0, t, 3);
     cluster.sync();
+    stamp(0, t, 4);
   }
 
   const float* hlast = hbuf + (T & 1) * BT * HS;
@@ -245,6 +276,7 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
   cluster.sync();  // every CTA of the cluster runs before remote writes
 
   for (int t = T - 1; t >= 0; --t) {
+    stamp(1, T - 1 - t, 0);
     const float* rd = red + ((t + 1) & 1) * CL * SLOT;
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
@@ -281,6 +313,7 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
       for (int g = 0; g < 3; ++g) dg[(g * U + u) * BT + r] = d[g];
     }
     __syncthreads();
+    stamp(1, T - 1 - t, 1);
 
     {  // thread kq: partial carry[:, kq] over this CTA's columns
       float acc[RB];
@@ -298,12 +331,15 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
           acc[4 * q + 3] = fmaf(v.w, w, acc[4 * q + 3]);
         }
       }
+      stamp(1, T - 1 - t, 2);
       float* dst = cluster.map_shared_rank(red, kq / U) +
                    ((t & 1) * CL + rank) * SLOT + kq % U;
 #pragma unroll
       for (int r = 0; r < RB; ++r) dst[(rq + r) * U] = acc[r];
+      stamp(1, T - 1 - t, 3);
     }
     cluster.sync();
+    stamp(1, T - 1 - t, 4);
   }
 
 #pragma unroll
@@ -378,5 +414,24 @@ int gru_backward_f32(const float* xw, const float* hh, const float* w_hh_t,
     return err;
   return colsum(dhh, dbhh, part + PART_FLOATS, rows, 3 * H, s);
 }
+
+#ifdef GRU_STAMPS
+// Copy the stamps to out ([2][STAMP_STEPS][STAMP_CTAS][STAMP_MARKS] u64,
+// host memory) or, with out null, zero them; dims gets {STAMP_T0,
+// STAMP_STEPS, STAMP_CTAS, STAMP_MARKS}.
+int gru_stamps(unsigned long long* out, int* dims) {
+  dims[0] = STAMP_T0;
+  dims[1] = STAMP_STEPS;
+  dims[2] = STAMP_CTAS;
+  dims[3] = STAMP_MARKS;
+  if (!out) {
+    static unsigned long long zeros[sizeof(g_gru_stamps) / 8];
+    return (int)cudaMemcpyToSymbol(g_gru_stamps, zeros, sizeof(zeros));
+  }
+  int err = (int)cudaDeviceSynchronize();
+  if (err) return err;
+  return (int)cudaMemcpyFromSymbol(out, g_gru_stamps, sizeof(g_gru_stamps));
+}
+#endif
 
 }  // extern "C"
