@@ -111,9 +111,12 @@ Phases:
      training), B32 x T252 (the self-motion and partner blocks) and B16 x
      T2096 (the decode hoist, forward only), and H128 at B32 x T252: ys,
      h_n <= 1e-4 abs; each gradient max|kernel - plain| / max|plain| <=
-     1e-3; cuDNN's ``torch.nn.GRU`` with the same recurrent weights timed
-     as a yardstick (it also computes the input product; at the decode
-     hoist its forward alone, without a gradient);
+     1e-3; two calls of each kernel on the same inputs give the same bits;
+     microseconds per chain step; the bounds with the products in 3xTF32
+     (as the kernels run them) beside their FP32 figures; cuDNN's
+     ``torch.nn.GRU`` with the same recurrent weights timed as a yardstick
+     (it also computes the input product; at the decode hoist its forward
+     alone, without a gradient);
  15. GRU generation: ``generate_metaformer`` with the GRU config, full
      mask, bf16 caches, on 3 batches of 16 x 250 frames (lead 12): shape,
      finite, launches per generation (K10 forward +10, the hoisted
@@ -763,7 +766,8 @@ def gru_phase(K10, dev, rng):
     and backward vs plain at the GRU config's shapes, H256: B32 x T2016
     (an audio-encoder block in training), B32 x T252 (the self-motion and
     partner blocks), B16 x T2096 (the decode hoist, forward only); and
-    H128 at B32 x T252."""
+    H128 at B32 x T252. Two calls of each kernel on the same inputs must
+    give the same bits."""
     r = seeded(rng, dev)
     cases = []
     for b, t, h, backward in (
@@ -782,14 +786,19 @@ def gru_phase(K10, dev, rng):
             plain_fwd_ms, (ysr, hr) = cuda_ms(
                 lambda: K10.gru_recurrence_reference(*args), 1)
         fwd_err = max_err((ys0, hn0), (ysr, hr))
-        fwd_ms, _ = cuda_ms(lambda: K10.gru_forward(args, False), 5)
-        # the chain's products: 2 B T 3H H FLOPs each way; the backward
-        # call also reduces dW_hh (the same again)
+        fwd_ms, again = cuda_ms(lambda: K10.gru_forward(args, False), 5)
+        bits = same_bits((ys0, hn0), again[:2])
+        # the chain's products: 2 B T 3H H FLOPs each way, in 3xTF32 (FP32
+        # figures beside); the backward call also reduces dW_hh (the same
+        # again, 3xTF32)
         flops = 2 * b * t * 3 * h * h
+        fwd_bytes = nbytes(args, ys0, hn0)
         case = dict(B=b, T=t, H=h, clusters=-(-b // 16),
                     fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
-                    fwd_no_residual_bound=bound(flops,
-                                                nbytes(args, ys0, hn0)))
+                    fwd_us_per_step=fwd_ms * 1e3 / t,
+                    fwd_no_residual_bound=bound(0, fwd_bytes,
+                                                tf32x3_flops=flops),
+                    fwd_no_residual_bound_fp32=bound(flops, fwd_bytes))
         kv = {}
         if backward:
             leaves = [a.clone().requires_grad_() for a in args]
@@ -803,31 +812,52 @@ def gru_phase(K10, dev, rng):
             del want
             fwd_res_ms, (ys1, hn1, hh) = cuda_ms(
                 lambda: K10.gru_forward(args, True), 5)
-            bwd_ms, _ = cuda_ms(
+            bwd_ms, again = cuda_ms(
                 lambda: K10.gru_backward(args, ys1, hh, *cots), 5)
+            first = K10.gru_forward(args, True)
+            bits = (bits and same_bits(first, (ys1, hn1, hh))
+                    and same_bits(grads, again)
+                    and same_bits(K10.gru_backward(args, *first[::2], *cots),
+                                  again))
             lib_fwd_ms, lib_bwd_ms = cudnn_gru_ms(args, cots)
+            fwd_bytes = nbytes(args, ys1, hn1, hh)
+            bwd_bytes = nbytes(args, ys1, hh, cots, grads)
             case.update(
                 grad_max_abs_err=grad_err, grad_max_rel_err=grad_rel,
                 fwd_res_ms=fwd_res_ms, bwd_ms=bwd_ms,
+                fwd_res_us_per_step=fwd_res_ms * 1e3 / t,
+                bwd_us_per_step=bwd_ms * 1e3 / t,
                 plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
                 library_bwd_ms=lib_bwd_ms,
-                fwd_bound=bound(flops, nbytes(args, ys1, hn1, hh)),
-                bwd_bound=bound(2 * flops,
-                                nbytes(args, ys1, hh, cots, grads)))
+                fwd_bound=bound(0, fwd_bytes, tf32x3_flops=flops),
+                fwd_bound_fp32=bound(flops, fwd_bytes),
+                bwd_bound=bound(0, bwd_bytes, tf32x3_flops=2 * flops),
+                bwd_bound_fp32=bound(2 * flops, bwd_bytes))
             kv = dict(fwd_res_ms=fwd_res_ms, bwd_ms=bwd_ms,
                       plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
                       library_bwd_ms=lib_bwd_ms,
-                      bwd_bound_ms=case["bwd_bound"][0])
-            del leaves, grads, ys, ys1, hh
+                      fwd_us_per_step=case["fwd_res_us_per_step"],
+                      bwd_us_per_step=case["bwd_us_per_step"],
+                      bwd_bound_ms=case["bwd_bound"][0],
+                      bwd_bound_fp32_ms=case["bwd_bound_fp32"][0])
+            del leaves, grads, ys, ys1, hh, first, again
         else:
             grad_rel = 0.0
             lib_fwd_ms, _ = cudnn_gru_ms(args)
             case["library_fwd_ms"] = lib_fwd_ms
-            kv = dict(library_fwd_ms=lib_fwd_ms)
+            kv = dict(library_fwd_ms=lib_fwd_ms,
+                      fwd_us_per_step=case["fwd_us_per_step"])
         case["fwd_max_abs_err"] = fwd_err
+        case["bit_identical"] = bits
         check_case("gru", fwd_err, grad_rel, B=b, T=t, H=h, fwd_ms=fwd_ms,
                    plain_fwd_ms=plain_fwd_ms,
-                   fwd_bound_ms=case["fwd_no_residual_bound"][0], **kv)
+                   fwd_bound_ms=case["fwd_no_residual_bound"][0],
+                   fwd_bound_fp32_ms=case["fwd_no_residual_bound_fp32"][0],
+                   bit_identical=bits, **kv)
+        if not bits:
+            raise AssertionError(
+                f"gru B={b} T={t} H={h}: two kernel calls on the same "
+                f"inputs differ")
         cases.append(case)
         del args, ys0, ysr
     return cases
@@ -1867,6 +1897,8 @@ def gru_records(cases, launches, **more_launches):
             "gru_fwd", "gru.cu", "pallas_gru.py:57", launches["gru_fwd"],
             max(c["fwd_max_abs_err"] for c in cases), main["fwd_res_ms"],
             main["plain_fwd_ms"], main["fwd_bound"], main["library_fwd_ms"],
+            bound_fp32_ms=main["fwd_bound_fp32"][0],
+            us_per_step=main["fwd_res_us_per_step"],
             no_residual_ms=main["fwd_ms"],
             no_residual_bound_ms=main["fwd_no_residual_bound"][0],
             cases=cases, **extra),
@@ -1874,6 +1906,8 @@ def gru_records(cases, launches, **more_launches):
             "gru_bwd", "gru.cu", "pallas_gru.py:101", launches["gru_bwd"],
             max(c["grad_max_abs_err"] for c in bwd), main["bwd_ms"],
             main["plain_bwd_ms"], main["bwd_bound"], main["library_bwd_ms"],
+            bound_fp32_ms=main["bwd_bound_fp32"][0],
+            us_per_step=main["bwd_us_per_step"],
             max_rel_err=max(c["grad_max_rel_err"] for c in bwd)),
     ]
 

@@ -15,22 +15,37 @@
 //
 // What bounds it: a chain of T steps, each a (16 x H) @ (H x 3H) product
 // that needs the previous step's h. Its FLOPs (2 B T 3H H) take a fraction
-// of a millisecond at the card's FP32 rate; the per-step latency (the
-// product on the few SMs of one cluster, then one cluster barrier) times
-// T is what counts. The design is the LSTM kernels' (lstm_cluster.cuh,
-// lstm_cluster_bwd.cuh): a cluster of 8 CTAs holds W_hh in shared memory,
-// CTA r the 3H/8 gate columns of hidden units [r H/8, (r+1) H/8) (96 KB of
-// FP32 at H 256); 16 batch rows per cluster; one cluster barrier per step.
+// of a millisecond at the card's rates; the per-step latency (the product
+// on the few SMs of one cluster, the exchange of h, one cluster barrier)
+// times T is what counts. A cluster of CLN CTAs holds W_hh: CTA r owns the
+// 3U gate columns r, z, n of hidden units [r U, (r+1) U), U = H / CLN; 16
+// batch rows per cluster, rows past B run on zeros and are never stored.
 //
-// The GRU step has its own thread layout, for both H the kernels take
-// (U = H/8 units per CTA: 16 or 32). Thread (row group, unit u) computes
-// the three gate columns r, z, n of ONE unit for U/16 rows, so the cell
-// that follows needs nothing from another thread: the product's sums stay
-// in registers, hn apart for the reset product. (The LSTM step's layout
-// spreads 4U gate columns over 64 threads and needs 4U >= 64, which a GRU
-// at H 128, 48 columns, does not meet.) h goes to every CTA's copy of the
-// (16 x H) state through distributed shared memory, double-buffered by
-// step parity.
+// Forward step, per CTA:
+//  * the product h_{t-1} (16 x H) @ W slice (H x 3U) on the tensor cores,
+//    mma.sync.m16n8k8 in 3xTF32 (tf32x3.cuh): the cluster's 16 rows are
+//    one M tile. Warp (ug, ks) owns units [8 ug, 8 ug + 8) of the CTA,
+//    i.e. the three n-tiles r, z, n of those units, over K range ks of
+//    KS = 8 / (U / 8), so the accumulators of one thread hold all three
+//    gates of its (row, unit) cells. W's fragments are split into TF32 hi
+//    and lo once, at kernel start, and kept in registers (hi always; lo
+//    too when a warp holds at most 24 fragments, else in shared memory in
+//    fragment order), so each W element is read once per step per CTA.
+//    The K index of a fragment is permuted inside each group of 16 so
+//    that a thread reads its four A values of two k-steps as one float4
+//    of h (rows padded to H + 16 floats: the float4 reads are free of
+//    bank conflicts); h is split into hi and lo as it is read. Even and
+//    odd k-steps sum into separate accumulators (six independent chains
+//    of MMAs a warp).
+//  * the K split is reduced through shared memory in ks order, and the
+//    KS warps of a unit group share the cell: warp ks computes the
+//    fragment elements [ks 4/KS, (ks+1) 4/KS) of its lanes.
+//  * the exchange: the CTA's 16 x U block of h is staged in shared memory
+//    and written to every CTA's copy of the state with 16-byte stores
+//    (distributed shared memory, double-buffered by step parity). The
+//    barrier is split: barrier.cluster.arrive.release after the remote
+//    stores, then ys and hh go to device memory and the next step's xw is
+//    loaded, then barrier.cluster.wait.acquire. One barrier a step.
 //
 // The backward is the reverse chain from the forward's saved hh, with no
 // recompute of the hidden product. Per step, per (row, unit):
@@ -39,19 +54,43 @@
 //   dgr = dr r (1 - r), dgz = dz z (1 - z),
 //   dxw = [dgr, dgz, dgn],  dhh = [dgr, dgz, dhn],
 //   carry' = dh z + dhh @ W_hh.
-// Each CTA computes its units' dxw and dhh; its product with its W_hh
-// slice is a PARTIAL carry over all H units, which it writes into the
-// owning CTA's slot r of 8 (distributed shared memory, slots double-
-// buffered by parity, one barrier per step), as lstm_cluster_bwd_kernel
-// does. dW_hh^T = h_shift^T dhh and db_hh = colsum(dhh) then reduce over
-// all B*T rows outside the chain, as in the JAX package, with the
-// deterministic split-K kernels of lstm_cluster_bwd.cuh.
+// Each CTA computes its units' dxw and dhh (thread: one unit, U/16 rows);
+// dhh goes through shared memory to the carry product dhh (16 x 3U) @
+// W_slice^T (3U x H) in 3xTF32 mma.sync, warp w computing the n-tiles of
+// units [8 w H/64, 8 (w+1) H/64) over all of K = 3U, from W^T fragments
+// split once into hi and lo as in the forward. That product is a PARTIAL
+// carry over all H units; each lane pairs with its neighbour (one
+// shuffle) to hold four consecutive units of one row and writes them
+// with one 16-byte store into slot r of the owning CTA (slots double-
+// buffered by parity, one barrier a step). dh sums dy, the local carry
+// and slots 0..CLN-1 in that order, so the result is the same from run
+// to run. dW_hh^T = h_shift^T dhh reduces over all B*T rows outside the
+// chain in 3xTF32 (tc_gemm.cuh reduce_rows_tn_tc, deterministic split-K)
+// and db_hh = colsum(dhh), as in the JAX package.
 //
-// Numerics: FP32 throughout, no tensor cores.
+// Cluster size per H, from the sweep of PERF.md: H 256 over CL256 CTAs,
+// H 128 over CL128.
+//
+// Numerics: the products in 3xTF32 (FP32's order of error, tf32x3.cuh);
+// cell math, state and sums in FP32.
 
-#include "lstm_cluster_bwd.cuh"
+#include "tc_gemm.cuh"
+
+#ifndef GRU_CL256
+#define GRU_CL256 8
+#endif
+#ifndef GRU_CL128
+#define GRU_CL128 8
+#endif
 
 namespace {
+
+constexpr int CL256 = GRU_CL256, CL128 = GRU_CL128;
+#ifdef GRU_SIMT
+constexpr bool SIMT = true;  // sweep variant: the forward product in SIMT
+#else
+constexpr bool SIMT = false;
+#endif
 
 // Built with -DGRU_STAMPS (a build only a measuring tool asks for),
 // thread 0 of each CTA of the first cluster stamps %globaltimer at the
@@ -79,24 +118,53 @@ __device__ __forceinline__ void stamp(int dir, int step, int m) {
 #endif
 }
 
-// the H the kernels take: U = H/8 units per CTA must be 16 or 32 for the
-// step's thread layout (256 threads = (16 rows / (U/16)) x U)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// the H the kernels take
 inline bool gru_hidden_ok(int H) { return H == 128 || H == 256; }
 
-template <int U>
-constexpr size_t gru_fwd_smem() {
-  return sizeof(float) * ((size_t)CL * U * 3 * U + 2 * BT * (CL * U + 4));
-}
+// The shape of a step for hidden size H over a cluster of CLN CTAs.
+template <int H, int CLN>
+struct Gru {
+  static constexpr int U = H / CLN;   // units a CTA owns
+  static constexpr int UG = U / 8;    // unit groups (n-tile triples)
+  static constexpr int KS = 8 / UG;   // forward: warps splitting K
+  static constexpr int EPW = 4 / KS;  // forward: cell elements a lane
+  static constexpr int KF = H / KS;   // forward: K range of a warp
+  static constexpr int KSF = KF / 8;  // forward: k-steps of a warp
+  static constexpr bool LO_F = 3 * KSF > 24;  // lo fragments in smem
+  static constexpr int NPW = H / 64;  // backward: n-tiles a warp
+  static constexpr int KSB = 3 * U / 8;       // backward: k-steps
+  static constexpr bool LO_B = NPW * KSB > 24;
+  static constexpr int RPT = U / 16;  // backward: cell rows a thread
+  static constexpr int HS = H + 16;   // row stride of the h state
+  static constexpr int DS = 3 * U + (48 - (3 * U) % 32) % 32;  // of dhh
+  static constexpr int SLOT = BT * U;  // a partial-carry slot
+  static_assert(UG * KS == 8 && KS <= 4 && KF % 16 == 0 && KSB % 2 == 0,
+                "step layout: 8 warps, k-steps in pairs");
+  static_assert(HS % 32 == 16 && DS % 32 == 16, "float4 rows on 32 banks");
 
-template <int U>
-constexpr size_t gru_bwd_smem() {
-  return sizeof(float) *
-         ((size_t)3 * U * CL * U + 3 * U * BT + 2 * (size_t)CL * BT * U);
-}
+  static constexpr size_t fwd_smem() {
+    return sizeof(float) * (2 * (size_t)BT * HS +
+                            (SIMT ? 3 * BT * NT : KS * UG * 3 * 32 * 4) +
+                            BT * U) +
+           (LO_F && !SIMT ? sizeof(uint2) * 8 * 3 * KSF * 32 : 0);
+  }
+  static constexpr size_t bwd_smem() {
+    return sizeof(float) * (2 * (size_t)CLN * SLOT + BT * DS) +
+           (LO_B ? sizeof(uint2) * 8 * NPW * KSB * 32 : 0);
+  }
+};
 
 // hh (B, T, 3H), null for the primal, is the backward's residual:
 // h_{t-1} @ w_hh_t + b_hh of every step
-template <int U>
+template <int H, int CLN>
 __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
     const float* __restrict__ xw,      // (B, T, 3H)
     const float* __restrict__ w_hh_t,  // (H, 3H)
@@ -106,116 +174,223 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
     float* __restrict__ hn,            // (B, H)
     float* __restrict__ hh,            // (B, T, 3H) or null
     int B, int T) {
-  constexpr int H = CL * U, NC = 3 * U, RPT = U / 16, HS = H + 4;
-  static_assert(RPT * (NT / U) == BT, "thread layout covers 16 rows");
+  using C = Gru<H, CLN>;
+  constexpr int U = C::U, UG = C::UG, KS = C::KS, EPW = C::EPW;
+  constexpr int KSF = C::KSF, HS = C::HS;
+  constexpr bool LO = C::LO_F;
+  constexpr int CH = BT * U / 4;  // float4 chunks of the CTA's h block
+  constexpr int KSS = NT / U, KR = H / KSS;  // SIMT: K splits, K range
+  constexpr int NE = SIMT ? U / 16 : EPW;    // cells a thread
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int b0 = (blockIdx.x / CL) * BT;
-  const int tid = threadIdx.x;
-  const int u = tid % U, r0 = (tid / U) * RPT;
-  const int col = rank * U + u;  // this thread's hidden unit
+  const int b0 = (blockIdx.x / CLN) * BT;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int ug = warp % UG, ks = warp / UG;
+  const int kb = ks * C::KF + 4 * q;  // this lane's first k
   const size_t G = 3 * (size_t)H;
 
   extern __shared__ __align__(16) float smem[];
-  float* Ws = smem;            // [H][NC]: Ws[k][g*U + u] = w_hh_t[k][g*H + col]
-  float* hbuf = Ws + H * NC;   // [2][BT][HS] (rows padded: no bank conflict)
+  float* hbuf = smem;  // [2][BT][HS] the state, double-buffered
+  float* red = hbuf + 2 * BT * HS;  // [KS][UG][3 gates][32 lanes][4]
+  float* hs = red + (SIMT ? 3 * BT * NT : KS * UG * 3 * 32 * 4);
+  uint2* wlo = reinterpret_cast<uint2*>(hs + BT * U);  // [8][3][KSF][32]
 
-  for (int i = tid; i < H * NC; i += NT) {
-    const int k = i / NC, lc = i % NC;
-    Ws[i] = w_hh_t[(size_t)k * G + (lc / U) * H + rank * U + lc % U];
+  // B fragments: k-step s reads k = kb + 16 (s / 2) + 2 (s % 2) (b0) and
+  // the k after it (b1), column gate * H + rank U + 8 ug + g
+  uint32_t whi[3][KSF][2], wl[3][LO ? 1 : KSF][2];
+  const int su = tid % U, sk = tid / U;  // SIMT: unit, K split
+  float wsm[3][SIMT ? KR : 1];
+  if constexpr (SIMT) {
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+      for (int k = 0; k < KR; ++k)
+        wsm[gt][k] = w_hh_t[(size_t)(sk * KR + k) * G + gt * H + rank * U + su];
   }
+#pragma unroll
+  for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+    for (int s = 0; s < KSF; ++s) {
+      if constexpr (SIMT) continue;
+      const int k = kb + 16 * (s / 2) + 2 * (s % 2);
+      const float* w = w_hh_t + (size_t)k * G + gt * H + rank * U + 8 * ug + g;
+      uint32_t lo[2];
+      split_tf32(w[0], whi[gt][s][0], lo[0]);
+      split_tf32(w[G], whi[gt][s][1], lo[1]);
+      if constexpr (LO)
+        wlo[((warp * 3 + gt) * KSF + s) * 32 + lane] = make_uint2(lo[0], lo[1]);
+      else
+        wl[gt][LO ? 0 : s][0] = lo[0], wl[gt][LO ? 0 : s][1] = lo[1];
+    }
   for (int i = tid; i < BT * H; i += NT) {
     const int r = i / H, k = i % H;
     hbuf[r * HS + k] = b0 + r < B ? h0[(size_t)(b0 + r) * H + k] : 0.f;
   }
-  float bias[3];
+  // this lane's cells: fragment elements e = ks EPW + i, at row g + 8 (e /
+  // 2), unit 8 ug + 2 q + e % 2
+  int row[NE], col[NE];
+  bool ok[NE];
+  float bias[NE][3], x[NE][3];  // x: this step's xw, loaded a step ahead
 #pragma unroll
-  for (int g = 0; g < 3; ++g) bias[g] = b_hh[g * H + col];
-  bool ok[RPT];
-  float x[RPT][3];  // this step's xw, loaded a step ahead
+  for (int i = 0; i < NE; ++i) {
+    const int e = ks * EPW + i;
+    row[i] = SIMT ? (tid / U) * NE + i : g + 8 * (e / 2);
+    col[i] = SIMT ? rank * U + su : rank * U + 8 * ug + 2 * q + e % 2;
+    ok[i] = b0 + row[i] < B;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    ok[i] = b0 + r0 + i < B;
-#pragma unroll
-    for (int g = 0; g < 3; ++g)
-      x[i][g] = ok[i] ? xw[(size_t)(b0 + r0 + i) * T * G + g * H + col] : 0.f;
+    for (int gt = 0; gt < 3; ++gt) {
+      bias[i][gt] = b_hh[gt * H + col[i]];
+      x[i][gt] = ok[i] ? xw[(size_t)(b0 + row[i]) * T * G + gt * H + col[i]]
+                       : 0.f;
+    }
   }
-  cluster.sync();
+  cluster.sync();  // every CTA of the cluster runs before remote writes
 
   for (int t = 0; t < T; ++t) {
     stamp(0, t, 0);
-    const float* hcur = hbuf + (t & 1) * BT * HS;
-    const int nxt = ((t + 1) & 1) * BT * HS;
-
-    float acc[RPT][3];
+    const float* hc = hbuf + (t & 1) * BT * HS;
+    if constexpr (SIMT) {
+      float sacc[BT][3];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = 0.f;
-    for (int k = 0; k < H; k += 4) {
-      float4 hv[RPT];
+      for (int r = 0; r < BT; ++r)
+        sacc[r][0] = sacc[r][1] = sacc[r][2] = 0.f;
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
-        hv[i] = *reinterpret_cast<const float4*>(&hcur[(r0 + i) * HS + k]);
+      for (int k = 0; k < KR; k += 4) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float* w = Ws + (k + kk) * NC + u;
-        const float w0 = w[0], w1 = w[U], w2 = w[2 * U];
+        for (int r = 0; r < BT; ++r) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(hc + r * HS + sk * KR + k);
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const float hk = kk == 0 ? hv[i].x
-                         : kk == 1 ? hv[i].y
-                         : kk == 2 ? hv[i].z
-                                   : hv[i].w;
-          acc[i][0] = fmaf(hk, w0, acc[i][0]);
-          acc[i][1] = fmaf(hk, w1, acc[i][1]);
-          acc[i][2] = fmaf(hk, w2, acc[i][2]);
+          for (int gt = 0; gt < 3; ++gt) {
+            float a = sacc[r][gt];
+            a = fmaf(v.x, wsm[gt][k], a);
+            a = fmaf(v.y, wsm[gt][k + 1], a);
+            a = fmaf(v.z, wsm[gt][k + 2], a);
+            sacc[r][gt] = fmaf(v.w, wsm[gt][k + 3], a);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < BT; ++r)
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt)
+          red[((sk * 3 + gt) * BT + r) * U + su] = sacc[r][gt];
+    }
+    float acc[2][3][4];
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[p][gt][c] = 0.f;
+#pragma unroll
+    for (int p = 0; p < (SIMT ? 0 : KSF / 2); ++p) {
+      const float4 va = *reinterpret_cast<const float4*>(hc + g * HS + kb +
+                                                         16 * p);
+      const float4 vb = *reinterpret_cast<const float4*>(
+          hc + (g + 8) * HS + kb + 16 * p);
+#pragma unroll
+      for (int o = 0; o < 2; ++o) {
+        const int s = 2 * p + o;
+        uint32_t ah[4], al[4];
+        split_tf32_alu(o ? va.z : va.x, ah[0], al[0]);
+        split_tf32_alu(o ? vb.z : vb.x, ah[1], al[1]);
+        split_tf32_alu(o ? va.w : va.y, ah[2], al[2]);
+        split_tf32_alu(o ? vb.w : vb.y, ah[3], al[3]);
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt) {
+          uint32_t bl[2];
+          if constexpr (LO) {
+            const uint2 v = wlo[((warp * 3 + gt) * KSF + s) * 32 + lane];
+            bl[0] = v.x, bl[1] = v.y;
+          } else {
+            bl[0] = wl[gt][LO ? 0 : s][0], bl[1] = wl[gt][LO ? 0 : s][1];
+          }
+          mma_3xtf32(acc[o][gt], ah, al, whi[gt][s], bl);
         }
       }
     }
+#pragma unroll
+    for (int gt = 0; gt < (SIMT ? 0 : 3); ++gt)
+      reinterpret_cast<float4*>(red)[((ks * UG + ug) * 3 + gt) * 32 + lane] =
+          make_float4(acc[0][gt][0] + acc[1][gt][0],
+                      acc[0][gt][1] + acc[1][gt][1],
+                      acc[0][gt][2] + acc[1][gt][2],
+                      acc[0][gt][3] + acc[1][gt][3]);
+    __syncthreads();
     stamp(0, t, 1);
 
+    float hv[NE][3];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = r0 + i;
-      const float hr = acc[i][0] + bias[0];
-      const float hz = acc[i][1] + bias[1];
-      const float hnn = acc[i][2] + bias[2];
-      const float rg = sigmoidf_(x[i][0] + hr);
-      const float z = sigmoidf_(x[i][1] + hz);
-      const float n = tanhf(x[i][2] + rg * hnn);
-      const float h = (1.f - z) * n + z * hcur[r * HS + col];
+    for (int i = 0; i < NE; ++i) {
+      const int e = ks * EPW + i;
 #pragma unroll
-      for (int q = 0; q < CL; ++q)
-        cluster.map_shared_rank(hbuf, q)[nxt + r * HS + col] = h;
-      if (ok[i]) {
-        const size_t row = (size_t)(b0 + r) * T + t;
-        ys[row * H + col] = h;
-        if (hh) {
-          float* o = hh + row * G + col;
-          o[0] = hr;
-          o[H] = hz;
-          o[2 * H] = hnn;
+      for (int gt = 0; gt < 3; ++gt) {
+        float s = 0.f;
+        if constexpr (SIMT) {
+#pragma unroll
+          for (int k = 0; k < KSS; ++k)
+            s += red[((k * 3 + gt) * BT + row[i]) * U + su];
+        } else {
+#pragma unroll
+          for (int k = 0; k < KS; ++k)
+            s += red[(((k * UG + ug) * 3 + gt) * 32 + lane) * 4 + e];
         }
-        if (t + 1 < T) {
+        hv[i][gt] = s + bias[i][gt];
+      }
+      const float rg = sigmoidf_(x[i][0] + hv[i][0]);
+      const float z = sigmoidf_(x[i][1] + hv[i][1]);
+      const float n = tanhf(x[i][2] + rg * hv[i][2]);
+      hs[row[i] * U + col[i] - rank * U] =
+          (1.f - z) * n + z * hc[row[i] * HS + col[i]];
+    }
+    __syncthreads();
+    stamp(0, t, 2);
+
+    float* nxt = hbuf + ((t + 1) & 1) * BT * HS;
+    for (int i = tid; i < CH * CLN; i += NT) {
+      const int peer = i / CH, c = i % CH;
+      const int r = c / (U / 4), u = 4 * (c % (U / 4));
+      *reinterpret_cast<float4*>(cluster.map_shared_rank(nxt, peer) +
+                                 r * HS + rank * U + u) =
+          *reinterpret_cast<const float4*>(hs + r * U + u);
+    }
+    stamp(0, t, 3);
+    cluster_arrive();
+    for (int c = tid; c < CH; c += NT) {
+      const int r = c / (U / 4), u = 4 * (c % (U / 4));
+      if (b0 + r < B)
+        *reinterpret_cast<float4*>(ys + ((size_t)(b0 + r) * T + t) * H +
+                                   rank * U + u) =
+            *reinterpret_cast<const float4*>(hs + r * U + u);
+    }
 #pragma unroll
-          for (int g = 0; g < 3; ++g) x[i][g] = xw[(row + 1) * G + g * H + col];
-        }
+    for (int i = 0; i < NE; ++i) {
+      if (!ok[i]) continue;
+      const size_t at = ((size_t)(b0 + row[i]) * T + t) * G + col[i];
+      if (hh) {
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt) hh[at + gt * H] = hv[i][gt];
+      }
+      if (t + 1 < T) {
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt) x[i][gt] = xw[at + G + gt * H];
       }
     }
-    stamp(0, t, 2);
-    stamp(0, t, 3);
-    cluster.sync();
+    cluster_wait();
     stamp(0, t, 4);
   }
 
   const float* hlast = hbuf + (T & 1) * BT * HS;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-    if (ok[i])
-      hn[(size_t)(b0 + r0 + i) * H + col] = hlast[(r0 + i) * HS + col];
+  for (int i = tid; i < BT * U; i += NT) {
+    const int r = i / U, k = rank * U + i % U;
+    if (b0 + r < B) hn[(size_t)(b0 + r) * H + k] = hlast[r * HS + k];
+  }
 }
 
 // dhh (B, T, 3H) is the cotangent of hh, for the weight reductions after
-template <int U>
+template <int H, int CLN>
 __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
     const float* __restrict__ xw,      // (B, T, 3H)
     const float* __restrict__ hh,      // (B, T, 3H) saved by the forward
@@ -228,27 +403,47 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
     float* __restrict__ dhh,           // (B, T, 3H)
     float* __restrict__ dh0,           // (B, H)
     int B, int T) {
-  constexpr int H = CL * U, NC = 3 * U, RPT = U / 16, SLOT = BT * U;
-  constexpr int RB = BT * H / NT;  // rows per thread in the carry product
-  static_assert(RB % 4 == 0 && NT % H == 0, "carry product layout");
+  using C = Gru<H, CLN>;
+  constexpr int U = C::U, RPT = C::RPT, NPW = C::NPW, KSB = C::KSB;
+  constexpr int DS = C::DS, SLOT = C::SLOT;
+  constexpr bool LO = C::LO_B;
+  static_assert(RPT * (NT / U) == BT, "cell layout covers 16 rows");
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int b0 = (blockIdx.x / CL) * BT;
-  const int tid = threadIdx.x;
-  const int u = tid % U, r0 = (tid / U) * RPT;
+  const int b0 = (blockIdx.x / CLN) * BT;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int u = tid % U, r0 = (tid / U) * RPT;  // cell: unit, first row
   const int col = rank * U + u;
-  const int kq = tid % H, rq = (tid / H) * RB;  // carry product: column, rows
   const size_t G = 3 * (size_t)H;
 
   extern __shared__ __align__(16) float smem[];
-  float* WsT = smem;          // [NC][H]: WsT[g*U + u][k] = w_hh_t[k][g*H + col]
-  float* dg = WsT + NC * H;   // [NC][BT] this step's dhh slice
-  float* red = dg + NC * BT;  // [2][CL][BT][U] partial carry slots
+  float* red = smem;               // [2][CLN][BT][U] partial carry slots
+  float* dg = red + 2 * CLN * SLOT;  // [BT][DS] this step's dhh slice
+  uint2* wlo = reinterpret_cast<uint2*>(dg + BT * DS);  // [8][NPW][KSB][32]
 
-  for (int i = tid; i < H * NC; i += NT) {
-    const int k = i / NC, lc = i % NC;
-    WsT[lc * H + k] = w_hh_t[(size_t)k * G + (lc / U) * H + rank * U + lc % U];
-  }
+  // B fragments of W^T: k-step s reads local gate column lc = 16 (s / 2)
+  // + 4 q + 2 (s % 2) (b0) and the one after it (b1), of unit n = 8 j + g
+  // of n-tile j = warp NPW + jj; local column lc is w_hh_t's column
+  // (lc / U) H + rank U + lc % U
+  uint32_t whi[NPW][KSB][2], wl[NPW][LO ? 1 : KSB][2];
+#pragma unroll
+  for (int jj = 0; jj < NPW; ++jj)
+#pragma unroll
+    for (int s = 0; s < KSB; ++s) {
+      const int lc = 16 * (s / 2) + 4 * q + 2 * (s % 2);
+      const float* w = w_hh_t + (size_t)(8 * (warp * NPW + jj) + g) * G;
+      uint32_t lo[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        split_tf32(w[((lc + c) / U) * H + rank * U + (lc + c) % U],
+                   whi[jj][s][c], lo[c]);
+      if constexpr (LO)
+        wlo[((warp * NPW + jj) * KSB + s) * 32 + lane] =
+            make_uint2(lo[0], lo[1]);
+      else
+        wl[jj][LO ? 0 : s][0] = lo[0], wl[jj][LO ? 0 : s][1] = lo[1];
+    }
   // per owned (row, unit): the local carry dh z, and the next step's
   // inputs, loaded a step ahead: dy, xw (3), hh (3), h_{t-1}
   float carry[RPT], in[RPT][8];
@@ -258,9 +453,9 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
     const size_t row = (size_t)b * T + t;
     in[i][0] = dys[row * H + col];
 #pragma unroll
-    for (int g = 0; g < 3; ++g) {
-      in[i][1 + g] = xw[row * G + g * H + col];
-      in[i][4 + g] = hh[row * G + g * H + col];
+    for (int g3 = 0; g3 < 3; ++g3) {
+      in[i][1 + g3] = xw[row * G + g3 * H + col];
+      in[i][4 + g3] = hh[row * G + g3 * H + col];
     }
     in[i][7] = t > 0 ? ys[(row - 1) * H + col] : h0[(size_t)b * H + col];
   };
@@ -277,7 +472,7 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
 
   for (int t = T - 1; t >= 0; --t) {
     stamp(1, T - 1 - t, 0);
-    const float* rd = red + ((t + 1) & 1) * CL * SLOT;
+    const float* rd = red + ((t + 1) & 1) * CLN * SLOT;
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = r0 + i;
@@ -287,7 +482,7 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
         float dh = in[i][0] + carry[i];
         if (t < T - 1) {
 #pragma unroll
-          for (int s = 0; s < CL; ++s) dh += rd[s * SLOT + r * U + u];
+          for (int s = 0; s < CLN; ++s) dh += rd[s * SLOT + r * U + u];
         }
         const float hr = in[i][4], hz = in[i][5], hnn = in[i][6];
         const float rg = sigmoidf_(in[i][1] + hr);
@@ -307,38 +502,75 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
         ox[H] = oh[H] = dgz;
         ox[2 * H] = dgn;
         oh[2 * H] = d[2];
-        if (t > 0) load(i, t - 1);
       }
 #pragma unroll
-      for (int g = 0; g < 3; ++g) dg[(g * U + u) * BT + r] = d[g];
+      for (int g3 = 0; g3 < 3; ++g3) dg[r * DS + g3 * U + u] = d[g3];
     }
     __syncthreads();
     stamp(1, T - 1 - t, 1);
 
-    {  // thread kq: partial carry[:, kq] over this CTA's columns
-      float acc[RB];
+    float acc[2][NPW][4];
 #pragma unroll
-      for (int r = 0; r < RB; ++r) acc[r] = 0.f;
-      for (int lc = 0; lc < NC; ++lc) {
-        const float w = WsT[lc * H + kq];
-        const float4* d4 = reinterpret_cast<const float4*>(dg + lc * BT + rq);
+    for (int o = 0; o < 2; ++o)
 #pragma unroll
-        for (int q = 0; q < RB / 4; ++q) {
-          const float4 v = d4[q];
-          acc[4 * q] = fmaf(v.x, w, acc[4 * q]);
-          acc[4 * q + 1] = fmaf(v.y, w, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(v.z, w, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(v.w, w, acc[4 * q + 3]);
+      for (int jj = 0; jj < NPW; ++jj)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[o][jj][c] = 0.f;
+#pragma unroll
+    for (int p = 0; p < KSB / 2; ++p) {
+      const float4 va =
+          *reinterpret_cast<const float4*>(dg + g * DS + 16 * p + 4 * q);
+      const float4 vb = *reinterpret_cast<const float4*>(
+          dg + (g + 8) * DS + 16 * p + 4 * q);
+#pragma unroll
+      for (int o = 0; o < 2; ++o) {
+        const int s = 2 * p + o;
+        uint32_t ah[4], al[4];
+        split_tf32_alu(o ? va.z : va.x, ah[0], al[0]);
+        split_tf32_alu(o ? vb.z : vb.x, ah[1], al[1]);
+        split_tf32_alu(o ? va.w : va.y, ah[2], al[2]);
+        split_tf32_alu(o ? vb.w : vb.y, ah[3], al[3]);
+#pragma unroll
+        for (int jj = 0; jj < NPW; ++jj) {
+          uint32_t bl[2];
+          if constexpr (LO) {
+            const uint2 v = wlo[((warp * NPW + jj) * KSB + s) * 32 + lane];
+            bl[0] = v.x, bl[1] = v.y;
+          } else {
+            bl[0] = wl[jj][LO ? 0 : s][0], bl[1] = wl[jj][LO ? 0 : s][1];
+          }
+          mma_3xtf32(acc[o][jj], ah, al, whi[jj][s], bl);
         }
       }
-      stamp(1, T - 1 - t, 2);
-      float* dst = cluster.map_shared_rank(red, kq / U) +
-                   ((t & 1) * CL + rank) * SLOT + kq % U;
-#pragma unroll
-      for (int r = 0; r < RB; ++r) dst[(rq + r) * U] = acc[r];
-      stamp(1, T - 1 - t, 3);
     }
-    cluster.sync();
+    stamp(1, T - 1 - t, 2);
+
+    // lane pairs (q even, q + 1): the even lane sends row g, units 2q ..
+    // 2q + 3 of the n-tile, the odd one row g + 8, units 2q - 2 .. 2q + 1
+    const bool odd = q & 1;
+#pragma unroll
+    for (int jj = 0; jj < NPW; ++jj) {
+      float c[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[e] = acc[0][jj][e] + acc[1][jj][e];
+      const float s0 = __shfl_xor_sync(0xffffffffu, odd ? c[0] : c[2], 1);
+      const float s1 = __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
+      const float4 v = odd ? make_float4(s0, s1, c[2], c[3])
+                           : make_float4(c[0], c[1], s0, s1);
+      const int n = 8 * (warp * NPW + jj);  // the n-tile's first unit
+      const int r = odd ? g + 8 : g, un = n % U + 2 * (odd ? q - 1 : q);
+      *reinterpret_cast<float4*>(cluster.map_shared_rank(red, n / U) +
+                                 ((t & 1) * CLN + rank) * SLOT + r * U + un) =
+          v;
+    }
+    stamp(1, T - 1 - t, 3);
+    cluster_arrive();
+    if (t > 0) {
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+        if (ok[i]) load(i, t - 1);
+    }
+    cluster_wait();
     stamp(1, T - 1 - t, 4);
   }
 
@@ -348,27 +580,78 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
     const int r = r0 + i;
     float dh = carry[i];
 #pragma unroll
-    for (int s = 0; s < CL; ++s) dh += red[s * SLOT + r * U + u];
+    for (int s = 0; s < CLN; ++s) dh += red[s * SLOT + r * U + u];
     dh0[(size_t)(b0 + r) * H + col] = dh;
   }
 }
 
-template <int U>
+// Sets `kernel`'s shared memory and, above 8 CTAs, its non-portable
+// cluster size; fills cfg for `clusters` clusters of CLN CTAs.
+template <int CLN, typename Kernel>
+int gru_config(Kernel kernel, size_t smem, unsigned clusters,
+               cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr) {
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (!err && CLN > 8)
+    err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLN;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg = {};
+  cfg.gridDim = dim3(CLN * clusters);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return err;
+}
+
+// launch `kernel` on ceil(B / 16) clusters of CLN CTAs
+template <int CLN, typename Kernel, typename... Args>
+int launch_gru(Kernel kernel, size_t smem, int B, cudaStream_t stream,
+               Args... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int err = gru_config<CLN>(kernel, smem, (unsigned)((B + BT - 1) / BT), cfg,
+                            attr);
+  if (err) return err;
+  cfg.stream = stream;
+  err = (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err) return err;
+  return check_launch();
+}
+
+// how many clusters of `kernel` the card holds at once; -1 on an error
+template <int CLN, typename Kernel>
+int gru_resident(Kernel kernel, size_t smem) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int n = 0;
+  if (gru_config<CLN>(kernel, smem, 1, cfg, attr) ||
+      cudaOccupancyMaxActiveClusters(&n, kernel, &cfg))
+    return -1;
+  return n;
+}
+
+template <int H, int CLN>
 int gru_forward(const float* xw, const float* w_hh_t, const float* b_hh,
                 const float* h0, float* ys, float* hn, float* hh, int B,
                 int T, cudaStream_t stream) {
-  return launch_cluster(gru_fwd_kernel<U>, gru_fwd_smem<U>(), B, BT, stream,
-                        xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T);
+  return launch_gru<CLN>(gru_fwd_kernel<H, CLN>, Gru<H, CLN>::fwd_smem(), B,
+                         stream, xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T);
 }
 
-template <int U>
+template <int H, int CLN>
 int gru_backward(const float* xw, const float* hh, const float* w_hh_t,
                  const float* h0, const float* ys, const float* dys,
                  const float* dhn, float* dxw, float* dhh, float* dh0, int B,
                  int T, cudaStream_t stream) {
-  return launch_cluster(gru_bwd_kernel<U>, gru_bwd_smem<U>(), B, BT, stream,
-                        xw, hh, w_hh_t, h0, ys, dys, dhn, dxw, dhh, dh0, B,
-                        T);
+  return launch_gru<CLN>(gru_bwd_kernel<H, CLN>, Gru<H, CLN>::bwd_smem(), B,
+                         stream, xw, hh, w_hh_t, h0, ys, dys, dhn, dxw, dhh,
+                         dh0, B, T);
 }
 
 }  // namespace
@@ -383,8 +666,26 @@ int gru_forward_f32(const float* xw, const float* w_hh_t, const float* b_hh,
   if (!gru_hidden_ok(H) || B <= 0 || T <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream_ptr;
-  return H == 256 ? gru_forward<32>(xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T, s)
-                  : gru_forward<16>(xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T, s);
+  return H == 256 ? gru_forward<256, CL256>(xw, w_hh_t, b_hh, h0, ys, hn, hh,
+                                            B, T, s)
+                  : gru_forward<128, CL128>(xw, w_hh_t, b_hh, h0, ys, hn, hh,
+                                            B, T, s);
+}
+
+// Clusters of 16 batch rows the card runs at once for hidden size H, in
+// the forward (backward 0) or the backward; more run in waves. -1 on an
+// error.
+int gru_resident_clusters(int H, int backward) {
+  if (!gru_hidden_ok(H)) return -1;
+  if (H == 256)
+    return backward ? gru_resident<CL256>(gru_bwd_kernel<256, CL256>,
+                                          Gru<256, CL256>::bwd_smem())
+                    : gru_resident<CL256>(gru_fwd_kernel<256, CL256>,
+                                          Gru<256, CL256>::fwd_smem());
+  return backward ? gru_resident<CL128>(gru_bwd_kernel<128, CL128>,
+                                        Gru<128, CL128>::bwd_smem())
+                  : gru_resident<CL128>(gru_fwd_kernel<128, CL128>,
+                                        Gru<128, CL128>::fwd_smem());
 }
 
 // floats of backward scratch: dhh (B, T, 3H) and split-K partials
@@ -393,7 +694,8 @@ long long gru_backward_workspace_floats(int B, int T, int H) {
 }
 
 // From the forward's ys and hh and the cotangents dys (B,T,H), dhn (B,H):
-// dxw (B,T,3H), dw_hh_t (H,3H), db_hh (3H), dh0 (B,H).
+// dxw (B,T,3H), dw_hh_t (H,3H), db_hh (3H), dh0 (B,H). ys and h0 16-byte
+// aligned (the weight reduction reads them 16 bytes at a time).
 int gru_backward_f32(const float* xw, const float* hh, const float* w_hh_t,
                      const float* h0, const float* ys, const float* dys,
                      const float* dhn, float* dxw, float* dwhh, float* dbhh,
@@ -404,13 +706,15 @@ int gru_backward_f32(const float* xw, const float* hh, const float* w_hh_t,
   const cudaStream_t s = (cudaStream_t)stream_ptr;
   float* dhh = ws;
   float* part = dhh + (size_t)B * T * 3 * H;
-  int err = H == 256 ? gru_backward<32>(xw, hh, w_hh_t, h0, ys, dys, dhn, dxw,
-                                        dhh, dh0, B, T, s)
-                     : gru_backward<16>(xw, hh, w_hh_t, h0, ys, dys, dhn, dxw,
-                                        dhh, dh0, B, T, s);
+  int err = H == 256
+                ? gru_backward<256, CL256>(xw, hh, w_hh_t, h0, ys, dys, dhn,
+                                           dxw, dhh, dh0, B, T, s)
+                : gru_backward<128, CL128>(xw, hh, w_hh_t, h0, ys, dys, dhn,
+                                           dxw, dhh, dh0, B, T, s);
   if (err) return err;
   const int rows = B * T;
-  if ((err = reduce_rows_tn(ys, h0, T, dhh, dwhh, part, rows, H, 3 * H, s)))
+  if ((err = reduce_rows_tn_tc(ys, h0, T, dhh, dwhh, part, rows, H, 3 * H,
+                               s)))
     return err;
   return colsum(dhh, dbhh, part + PART_FLOATS, rows, 3 * H, s);
 }

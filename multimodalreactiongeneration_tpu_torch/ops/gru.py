@@ -8,11 +8,12 @@ n = tanh(xn + r * (h @ W_hn^T + b_hn)). Returns (ys (B, T, H), h_n (B, H)).
 
 On CPU tensors ``gru_recurrence`` runs ``gru_recurrence_reference``
 (autograd records through it). On CUDA tensors it launches
-``csrc/gru.cu`` (f32, H 128 or 256, any B): where a gradient is needed,
-the forward that saves hh = h_{t-1} @ W_hh^T + b_hh of every step (as the
-JAX ``_vjp_fwd``) and then the backward kernel, which runs the reverse
-chain from hh and reduces dW_hh and db_hh; otherwise the forward without
-residuals. Other shapes and dtypes raise. Launch counters:
+``csrc/gru.cu`` (f32, H 128 or 256, any B; each step's product on the
+tensor cores in 3xTF32): where a gradient is needed, the forward that
+saves hh = h_{t-1} @ W_hh^T + b_hh of every step (as the JAX
+``_vjp_fwd``) and then the backward kernel, which runs the reverse chain
+from hh and reduces dW_hh (3xTF32) and db_hh; otherwise the forward
+without residuals. Other shapes and dtypes raise. Launch counters:
 ``fwd_launches`` (both forwards) and ``bwd_launches``.
 """
 
@@ -135,6 +136,8 @@ def gru_backward(args, ys, hh, dys, dhn):
     """The backward kernel (CUDA only), from the forward's ys and hh.
     Returns (dxw, dw_hh_t, db_hh, dh0)."""
     xw, w_hh_t, b_hh, h0 = args
+    # the dW_hh reduction reads ys and h0 16 bytes at a time
+    ys, h0 = [a.clone() if a.data_ptr() % 16 else a for a in (ys, h0)]
     cots = [c.float().contiguous() for c in (dys, dhn)]
     b, t, h = _check("gru_backward", *args,
                      ys=(ys, lambda b, t, h: (b, t, h)),

@@ -49,6 +49,7 @@ from jax.experimental import pallas as pl
 
 from multimodalreactiongeneration_tpu.ops import pallas_rect_attention as jra
 from multimodalreactiongeneration_tpu_torch.ops import rect_attention as K5
+from tests.tf32_emulation import product, tf32
 
 torch.set_num_threads(1)
 FWD_ATOL, GRAD_ATOL = 2e-5, 2e-4
@@ -63,23 +64,6 @@ def _interpret(monkeypatch):
     monkeypatch.setattr(
         pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True)
     )
-
-
-def tf32(x: torch.Tensor) -> torch.Tensor:
-    """f32 rounded to TF32 as cvt.rna.tf32.f32: add half of the 13 dropped
-    mantissa bits to the magnitude, then clear them."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def product(a, b, passes=3):
-    """a @ b from TF32 parts with FP32 sums: three passes (lo*hi + hi*lo
-    + hi*hi, the kernel's order) or one (hi*hi)."""
-    ah, bh = tf32(a), tf32(b)
-    if passes == 1:
-        return ah @ bh
-    al, bl = tf32(a - ah), tf32(b - bh)
-    return al @ bh + ah @ bl + ah @ bh
 
 
 def visible(i, lq, lk):

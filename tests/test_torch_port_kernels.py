@@ -745,6 +745,38 @@ def test_gru_kernels_match_plain(dev, t, h):
         assert _rel_err(g, w) <= GRAD_REL_TOL, i
 
 
+@pytest.mark.parametrize("h", [128, 256])
+@pytest.mark.parametrize("t", [1, 37, 252])
+@pytest.mark.parametrize("b", [1, 17, 33])
+def test_gru_kernels_are_bit_identical_run_to_run(dev, b, t, h):
+    """Two K10 forwards (with residuals) and two backwards on the same
+    inputs give the same bits (fixed summation orders, no atomics), with
+    one launch counted per call; and they agree with the plain version
+    (forward TOL, gradients GRAD_REL_TOL of the largest)."""
+    from multimodalreactiongeneration_tpu_torch.ops import gru as K10
+
+    r = _rand(np.random.default_rng(1000 * b + t + h), dev)
+    args = (r(b, t, 3 * h, s=0.5), r(h, 3 * h, s=0.06), r(3 * h, s=0.1),
+            r(b, h, s=0.3))
+    cots = (r(b, t, h), r(b, h))
+    before = K10.fwd_launches, K10.bwd_launches
+    first = K10.gru_forward(args, True)
+    second = K10.gru_forward(args, True)
+    assert K10.fwd_launches == before[0] + 2
+    grads = [K10.gru_backward(args, first[0], first[2], *cots)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    assert K10.bwd_launches == before[1] + 2
+    for x, y in zip((*first, *grads[0]), (*second, *grads[1])):
+        assert torch.equal(x, y)
+    ysr, hr = K10.gru_recurrence_reference(*args)
+    for got, want in ((first[0], ysr), (first[1], hr)):
+        assert float((got - want).abs().max()) <= TOL
+    want = K10.gru_backward_reference(args, *cots)
+    for i, (g, w) in enumerate(zip(grads[0], want)):
+        assert _rel_err(g, w) <= GRAD_REL_TOL, i
+
+
 def test_gru_kernel_refuses_bf16_and_other_hidden_sizes(dev):
     from multimodalreactiongeneration_tpu_torch.nn.recurrent import (
         use_gru_kernel,

@@ -4,7 +4,7 @@ in the current directory, and split a chain step into its phases.
 
 Run from the root of a checkout of the PyTorch port, on one CUDA card:
 
-    python3 <this file> TAG [--stamps] [--define NAME[=VALUE] ...]
+    python3 <this file> TAG [--stamps] [--batch N] [--define NAME[=VALUE] ...]
 
 It imports the port from the current directory, so one command can time
 two checkouts in turns (parent, change, change, parent: unpack the other
@@ -19,6 +19,9 @@ shape, a fingerprint of the output bits (the same in two checkouts whose
 kernels do the same arithmetic) and the largest difference from the
 plain version.
 
+``--batch N`` adds H256 at BN x T2016 (the GRU yaml's own batch is 128),
+and the JSON gets the clusters of 16 rows the card holds at once
+(``resident``: forward, backward per H) where the checkout reports them.
 ``--define`` builds ``gru.cu`` with those preprocessor defines (a
 variant library of its own) and times that. ``--stamps`` also runs one
 forward with residuals and one backward at H256 B32 x T2016 and at H128
@@ -156,6 +159,8 @@ def main():
     argv = sys.argv[1:]
     tag = argv[0] if argv and not argv[0].startswith("--") else os.getcwd()
     defines = [argv[i + 1] for i, a in enumerate(argv) if a == "--define"]
+    shapes = SHAPES + tuple((int(argv[i + 1]), 2016, 256, True)
+                            for i, a in enumerate(argv) if a == "--batch")
     from multimodalreactiongeneration_tpu_torch.ops import gru as K10
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -167,10 +172,13 @@ def main():
         return torch.from_numpy(x).to(dev)
 
     record = {"tag": tag, "defines": defines}
-    with variant(K10, defines):
-        for b, t, h, backward in SHAPES:
+    with variant(K10, defines) as lib:
+        for b, t, h, backward in shapes:
             record[f"B{b} T{t} H{h}"] = time_shape(K10, r, b, t, h,
                                                    backward)
+        if hasattr(lib, "gru_resident_clusters"):
+            record["resident"] = {h: [lib.gru_resident_clusters(h, bw)
+                                      for bw in (0, 1)] for h in (256, 128)}
     if "--stamps" in argv:
         with variant(K10, [*defines, "GRU_STAMPS"]) as lib:
             record["stamps"] = {f"B{b} T{t} H{h}": stamp_split(
