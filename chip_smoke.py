@@ -108,10 +108,11 @@ Phases:
      step, K9 +1 and K7 forward +2, and a generation, K9 +1);
  14. GRU recurrence (K10) forward with and without residuals and backward
      vs plain, f32: H256 at B32 x T2016 (an audio-encoder block in
-     training), B32 x T252 (the self-motion and partner blocks) and B16 x
-     T2096 (the decode hoist, forward only), and H128 at B32 x T252: ys,
-     h_n <= 1e-4 abs; each gradient max|kernel - plain| / max|plain| <=
-     1e-3; two calls of each kernel on the same inputs give the same bits;
+     training), B32 x T252 (the self-motion and partner blocks), B16 x
+     T2096 (the decode hoist, forward only) and B128 x T252 (the yaml's
+     own batch, past one wave of 16-CTA clusters: 8-CTA clusters), and
+     H128 at B32 x T252: ys, h_n <= 1e-4 abs; each gradient max|kernel -
+     plain| / max|plain| <= 1e-3; two calls of each kernel on the same inputs give the same bits;
      microseconds per chain step; the bounds with the products in 3xTF32
      (as the kernels run them) beside their FP32 figures; cuDNN's
      ``torch.nn.GRU`` with the same recurrent weights timed as a yardstick
@@ -195,6 +196,7 @@ SEED = 0
 K1_TOL, K2_F32_TOL, K2_BF16_TOL, PATH_TOL = 1e-4, 1e-4, 5e-2, 1e-4
 FWD_TOL, GRAD_REL_TOL, LOSS_REL_TOL = 1e-4, 1e-3, 1e-5
 TRAIN_B, TRAIN_FRAMES, TRAIN_STEPS = 32, 240, 5
+YAML_B = 128  # the batch_size of configs/lstmformer_gru.yaml
 LWS_B, LWS_FRAMES = 256, 128  # configs/lstm_with_sampling.yaml's batch
 # configs/simple_lstm.yaml's batch, audio window (15 x 100 / 12.5) and
 # motion context
@@ -765,16 +767,18 @@ def gru_phase(K10, dev, rng):
     """14. The GRU recurrence (K10): forward without and with residuals
     and backward vs plain at the GRU config's shapes, H256: B32 x T2016
     (an audio-encoder block in training), B32 x T252 (the self-motion and
-    partner blocks), B16 x T2096 (the decode hoist, forward only); and
-    H128 at B32 x T252. Two calls of each kernel on the same inputs must
-    give the same bits."""
+    partner blocks), B16 x T2096 (the decode hoist, forward only), and at
+    the yaml's own batch B128 x T252 (past the clusters of 16 CTAs the
+    card holds at once: clusters of 8); and H128 at B32 x T252. Two calls
+    of each kernel on the same inputs must give the same bits."""
     r = seeded(rng, dev)
     cases = []
     for b, t, h, backward in (
             (TRAIN_B, (LEAD + TRAIN_FRAMES) * RATIO, 256, True),
             (TRAIN_B, LEAD + TRAIN_FRAMES, 256, True),
             (B, (LEAD + FRAMES) * RATIO, 256, False),
-            (TRAIN_B, LEAD + TRAIN_FRAMES, 128, True)):
+            (TRAIN_B, LEAD + TRAIN_FRAMES, 128, True),
+            (YAML_B, LEAD + TRAIN_FRAMES, 256, True)):
         args = (r(b, t, 3 * h, s=0.5), r(h, 3 * h, s=0.06), r(3 * h, s=0.1),
                 r(b, h, s=0.3))
         cots = (r(b, t, h), r(b, h))
@@ -794,6 +798,7 @@ def gru_phase(K10, dev, rng):
         flops = 2 * b * t * 3 * h * h
         fwd_bytes = nbytes(args, ys0, hn0)
         case = dict(B=b, T=t, H=h, clusters=-(-b // 16),
+                    cluster_ctas=K10.launch_ctas(dev, b, h),
                     fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
                     fwd_us_per_step=fwd_ms * 1e3 / t,
                     fwd_no_residual_bound=bound(0, fwd_bytes,
@@ -849,7 +854,8 @@ def gru_phase(K10, dev, rng):
                       fwd_us_per_step=case["fwd_us_per_step"])
         case["fwd_max_abs_err"] = fwd_err
         case["bit_identical"] = bits
-        check_case("gru", fwd_err, grad_rel, B=b, T=t, H=h, fwd_ms=fwd_ms,
+        check_case("gru", fwd_err, grad_rel, B=b, T=t, H=h,
+                   cluster_ctas=case["cluster_ctas"], fwd_ms=fwd_ms,
                    plain_fwd_ms=plain_fwd_ms,
                    fwd_bound_ms=case["fwd_no_residual_bound"][0],
                    fwd_bound_fp32_ms=case["fwd_no_residual_bound_fp32"][0],

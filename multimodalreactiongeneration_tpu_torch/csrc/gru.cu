@@ -68,32 +68,25 @@
 // chain in 3xTF32 (tc_gemm.cuh reduce_rows_tn_tc, deterministic split-K)
 // and db_hh = colsum(dhh), as in the JAX package.
 //
-// Cluster size per H, from the sweep of PERF.md: H 256 over CL256 CTAs,
-// H 128 over CL128.
+// Cluster size (the sweep of PERF.md, on an H100): at H 256, 16 CTAs (U
+// 16; a non-portable size) halve each CTA's product and W slice against
+// 8 and run a step ~20% faster, but the card holds only 7 such clusters,
+// so a batch of more than 112 rows runs over 8 CTAs (15 resident) rather
+// than in two waves; ops/gru.py cluster_ctas picks from the occupancy
+// query gru_resident_clusters. At H 128, 8 CTAs (4 and 2 were slower).
+// The SIMT product (each thread all 16 rows of its columns) was slower
+// than the tensor cores at every size.
 //
 // Numerics: the products in 3xTF32 (FP32's order of error, tf32x3.cuh);
 // cell math, state and sums in FP32.
 
 #include "tc_gemm.cuh"
 
-#ifndef GRU_CL256
-#define GRU_CL256 8
-#endif
-#ifndef GRU_CL128
-#define GRU_CL128 8
-#endif
-
 namespace {
 
-constexpr int CL256 = GRU_CL256, CL128 = GRU_CL128;
-#ifdef GRU_SIMT
-constexpr bool SIMT = true;  // sweep variant: the forward product in SIMT
-#else
-constexpr bool SIMT = false;
-#endif
 
 // Built with -DGRU_STAMPS (a build only a measuring tool asks for),
-// thread 0 of each CTA of the first cluster stamps %globaltimer at the
+// thread 0 of each of the first 16 CTAs stamps %globaltimer at the
 // marks of a step (the start, the product, the cell and the exchange
 // stores, the barrier passed) for steps [STAMP_T0, STAMP_T0 +
 // STAMP_STEPS) of the forward and of the backward (counted from the
@@ -126,8 +119,78 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-// the H the kernels take
-inline bool gru_hidden_ok(int H) { return H == 128 || H == 256; }
+#ifdef GRU_MBAR
+constexpr bool MBAR = true;  // sweep variant: st.async + mbarrier exchange
+#else
+constexpr bool MBAR = false;
+#endif
+
+// ---- the exchange by st.async and transaction barriers (GRU_MBAR) ----
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// this CTA's one arrival of the barrier's phase, expecting `bytes`
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{ .reg .b64 st; mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], "
+      "%1; }" ::"r"(smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// wait for the phase of parity `parity` to complete; after two seconds,
+// trap (a fault the launch reports) rather than hang
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  unsigned long long t0 = 0, now;
+  for (uint32_t i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.acquire.cluster.shared::cta."
+        "b64 p, [%1], %2; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i % 256 == 0) {
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (i == 0)
+        t0 = now;
+      else if (now - t0 > 2000000000ull)
+        asm volatile("trap;");
+    }
+  }
+}
+
+// 16 bytes to CTA `peer`'s shared memory at `dst` (this CTA's address of
+// the same variable), completing 16 bytes of the peer's barrier `bar`
+__device__ __forceinline__ void st_async16(float* dst, uint64_t* bar,
+                                           int peer, float4 v) {
+  uint32_t rd, rb;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(rd)
+      : "r"(smem_addr(dst)), "r"(peer));
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(rb)
+      : "r"(smem_addr(bar)), "r"(peer));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];" ::"r"(rd),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(rb)
+      : "memory");
+}
+
+// the hidden sizes and CTAs per cluster the kernels take: H 256 over 16
+// or 8, H 128 over 8 (ops/gru.py cluster_ctas picks)
+inline bool gru_shape_ok(int H, int ctas) {
+  return (H == 256 && (ctas == 16 || ctas == 8)) || (H == 128 && ctas == 8);
+}
 
 // The shape of a step for hidden size H over a cluster of CLN CTAs.
 template <int H, int CLN>
@@ -151,13 +214,12 @@ struct Gru {
   static_assert(HS % 32 == 16 && DS % 32 == 16, "float4 rows on 32 banks");
 
   static constexpr size_t fwd_smem() {
-    return sizeof(float) * (2 * (size_t)BT * HS +
-                            (SIMT ? 3 * BT * NT : KS * UG * 3 * 32 * 4) +
+    return 16 + sizeof(float) * (2 * (size_t)BT * HS + KS * UG * 3 * 32 * 4 +
                             BT * U) +
-           (LO_F && !SIMT ? sizeof(uint2) * 8 * 3 * KSF * 32 : 0);
+           (LO_F ? sizeof(uint2) * 8 * 3 * KSF * 32 : 0);
   }
   static constexpr size_t bwd_smem() {
-    return sizeof(float) * (2 * (size_t)CLN * SLOT + BT * DS) +
+    return 16 + sizeof(float) * (2 * (size_t)CLN * SLOT + BT * DS) +
            (LO_B ? sizeof(uint2) * 8 * NPW * KSB * 32 : 0);
   }
 };
@@ -179,8 +241,6 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
   constexpr int KSF = C::KSF, HS = C::HS;
   constexpr bool LO = C::LO_F;
   constexpr int CH = BT * U / 4;  // float4 chunks of the CTA's h block
-  constexpr int KSS = NT / U, KR = H / KSS;  // SIMT: K splits, K range
-  constexpr int NE = SIMT ? U / 16 : EPW;    // cells a thread
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int b0 = (blockIdx.x / CLN) * BT;
@@ -191,28 +251,19 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
   const size_t G = 3 * (size_t)H;
 
   extern __shared__ __align__(16) float smem[];
-  float* hbuf = smem;  // [2][BT][HS] the state, double-buffered
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [2] (GRU_MBAR)
+  float* hbuf = smem + 4;  // [2][BT][HS] the state, double-buffered
   float* red = hbuf + 2 * BT * HS;  // [KS][UG][3 gates][32 lanes][4]
-  float* hs = red + (SIMT ? 3 * BT * NT : KS * UG * 3 * 32 * 4);
+  float* hs = red + KS * UG * 3 * 32 * 4;  // [BT][U] this step's h block
   uint2* wlo = reinterpret_cast<uint2*>(hs + BT * U);  // [8][3][KSF][32]
 
   // B fragments: k-step s reads k = kb + 16 (s / 2) + 2 (s % 2) (b0) and
   // the k after it (b1), column gate * H + rank U + 8 ug + g
   uint32_t whi[3][KSF][2], wl[3][LO ? 1 : KSF][2];
-  const int su = tid % U, sk = tid / U;  // SIMT: unit, K split
-  float wsm[3][SIMT ? KR : 1];
-  if constexpr (SIMT) {
-#pragma unroll
-    for (int gt = 0; gt < 3; ++gt)
-#pragma unroll
-      for (int k = 0; k < KR; ++k)
-        wsm[gt][k] = w_hh_t[(size_t)(sk * KR + k) * G + gt * H + rank * U + su];
-  }
 #pragma unroll
   for (int gt = 0; gt < 3; ++gt)
 #pragma unroll
     for (int s = 0; s < KSF; ++s) {
-      if constexpr (SIMT) continue;
       const int k = kb + 16 * (s / 2) + 2 * (s % 2);
       const float* w = w_hh_t + (size_t)k * G + gt * H + rank * U + 8 * ug + g;
       uint32_t lo[2];
@@ -229,14 +280,14 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
   }
   // this lane's cells: fragment elements e = ks EPW + i, at row g + 8 (e /
   // 2), unit 8 ug + 2 q + e % 2
-  int row[NE], col[NE];
-  bool ok[NE];
-  float bias[NE][3], x[NE][3];  // x: this step's xw, loaded a step ahead
+  int row[EPW], col[EPW];
+  bool ok[EPW];
+  float bias[EPW][3], x[EPW][3];  // x: this step's xw, loaded a step ahead
 #pragma unroll
-  for (int i = 0; i < NE; ++i) {
+  for (int i = 0; i < EPW; ++i) {
     const int e = ks * EPW + i;
-    row[i] = SIMT ? (tid / U) * NE + i : g + 8 * (e / 2);
-    col[i] = SIMT ? rank * U + su : rank * U + 8 * ug + 2 * q + e % 2;
+    row[i] = g + 8 * (e / 2);
+    col[i] = rank * U + 8 * ug + 2 * q + e % 2;
     ok[i] = b0 + row[i] < B;
 #pragma unroll
     for (int gt = 0; gt < 3; ++gt) {
@@ -245,38 +296,20 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
                        : 0.f;
     }
   }
+  constexpr uint32_t BYTES = BT * H * sizeof(float);  // a step's state
+  uint32_t ph = 0;  // GRU_MBAR: the parity of each buffer's next phase
+  if (MBAR && tid == 0) {
+    mbar_init(&full[0]);
+    mbar_init(&full[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect(&full[0], BYTES);
+    mbar_expect(&full[1], BYTES);
+  }
   cluster.sync();  // every CTA of the cluster runs before remote writes
 
   for (int t = 0; t < T; ++t) {
     stamp(0, t, 0);
     const float* hc = hbuf + (t & 1) * BT * HS;
-    if constexpr (SIMT) {
-      float sacc[BT][3];
-#pragma unroll
-      for (int r = 0; r < BT; ++r)
-        sacc[r][0] = sacc[r][1] = sacc[r][2] = 0.f;
-#pragma unroll
-      for (int k = 0; k < KR; k += 4) {
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(hc + r * HS + sk * KR + k);
-#pragma unroll
-          for (int gt = 0; gt < 3; ++gt) {
-            float a = sacc[r][gt];
-            a = fmaf(v.x, wsm[gt][k], a);
-            a = fmaf(v.y, wsm[gt][k + 1], a);
-            a = fmaf(v.z, wsm[gt][k + 2], a);
-            sacc[r][gt] = fmaf(v.w, wsm[gt][k + 3], a);
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < BT; ++r)
-#pragma unroll
-        for (int gt = 0; gt < 3; ++gt)
-          red[((sk * 3 + gt) * BT + r) * U + su] = sacc[r][gt];
-    }
     float acc[2][3][4];
 #pragma unroll
     for (int p = 0; p < 2; ++p)
@@ -285,7 +318,7 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[p][gt][c] = 0.f;
 #pragma unroll
-    for (int p = 0; p < (SIMT ? 0 : KSF / 2); ++p) {
+    for (int p = 0; p < KSF / 2; ++p) {
       const float4 va = *reinterpret_cast<const float4*>(hc + g * HS + kb +
                                                          16 * p);
       const float4 vb = *reinterpret_cast<const float4*>(
@@ -312,7 +345,7 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
       }
     }
 #pragma unroll
-    for (int gt = 0; gt < (SIMT ? 0 : 3); ++gt)
+    for (int gt = 0; gt < 3; ++gt)
       reinterpret_cast<float4*>(red)[((ks * UG + ug) * 3 + gt) * 32 + lane] =
           make_float4(acc[0][gt][0] + acc[1][gt][0],
                       acc[0][gt][1] + acc[1][gt][1],
@@ -321,22 +354,16 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
     __syncthreads();
     stamp(0, t, 1);
 
-    float hv[NE][3];
+    float hv[EPW][3];
 #pragma unroll
-    for (int i = 0; i < NE; ++i) {
+    for (int i = 0; i < EPW; ++i) {
       const int e = ks * EPW + i;
 #pragma unroll
       for (int gt = 0; gt < 3; ++gt) {
         float s = 0.f;
-        if constexpr (SIMT) {
 #pragma unroll
-          for (int k = 0; k < KSS; ++k)
-            s += red[((k * 3 + gt) * BT + row[i]) * U + su];
-        } else {
-#pragma unroll
-          for (int k = 0; k < KS; ++k)
-            s += red[(((k * UG + ug) * 3 + gt) * 32 + lane) * 4 + e];
-        }
+        for (int k = 0; k < KS; ++k)
+          s += red[(((k * UG + ug) * 3 + gt) * 32 + lane) * 4 + e];
         hv[i][gt] = s + bias[i][gt];
       }
       const float rg = sigmoidf_(x[i][0] + hv[i][0]);
@@ -352,12 +379,15 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
     for (int i = tid; i < CH * CLN; i += NT) {
       const int peer = i / CH, c = i % CH;
       const int r = c / (U / 4), u = 4 * (c % (U / 4));
-      *reinterpret_cast<float4*>(cluster.map_shared_rank(nxt, peer) +
-                                 r * HS + rank * U + u) =
-          *reinterpret_cast<const float4*>(hs + r * U + u);
+      const float4 v = *reinterpret_cast<const float4*>(hs + r * U + u);
+      if constexpr (MBAR)
+        st_async16(nxt + r * HS + rank * U + u, &full[(t + 1) & 1], peer, v);
+      else
+        *reinterpret_cast<float4*>(cluster.map_shared_rank(nxt, peer) +
+                                   r * HS + rank * U + u) = v;
     }
     stamp(0, t, 3);
-    cluster_arrive();
+    if constexpr (!MBAR) cluster_arrive();
     for (int c = tid; c < CH; c += NT) {
       const int r = c / (U / 4), u = 4 * (c % (U / 4));
       if (b0 + r < B)
@@ -366,7 +396,7 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
             *reinterpret_cast<const float4*>(hs + r * U + u);
     }
 #pragma unroll
-    for (int i = 0; i < NE; ++i) {
+    for (int i = 0; i < EPW; ++i) {
       if (!ok[i]) continue;
       const size_t at = ((size_t)(b0 + row[i]) * T + t) * G + col[i];
       if (hh) {
@@ -378,7 +408,14 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
         for (int gt = 0; gt < 3; ++gt) x[i][gt] = xw[at + G + gt * H];
       }
     }
-    cluster_wait();
+    if constexpr (MBAR) {  // this step's state from every CTA
+      const int b = (t + 1) & 1;
+      mbar_wait(&full[b], (ph >> b) & 1);
+      ph ^= 1u << b;
+      if (tid == 0 && t + 2 < T) mbar_expect(&full[b], BYTES);
+    } else {
+      cluster_wait();
+    }
     stamp(0, t, 4);
   }
 
@@ -418,7 +455,8 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
   const size_t G = 3 * (size_t)H;
 
   extern __shared__ __align__(16) float smem[];
-  float* red = smem;               // [2][CLN][BT][U] partial carry slots
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [2] (GRU_MBAR)
+  float* red = smem + 4;           // [2][CLN][BT][U] partial carry slots
   float* dg = red + 2 * CLN * SLOT;  // [BT][DS] this step's dhh slice
   uint2* wlo = reinterpret_cast<uint2*>(dg + BT * DS);  // [8][NPW][KSB][32]
 
@@ -467,6 +505,15 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
       load(i, T - 1);
       carry[i] = dhn[(size_t)(b0 + r0 + i) * H + col];
     }
+  }
+  constexpr uint32_t BYTES = BT * H * sizeof(float);  // a step's slots
+  uint32_t ph = 0;  // GRU_MBAR: the parity of each slot set's next phase
+  if (MBAR && tid == 0) {
+    mbar_init(&full[0]);
+    mbar_init(&full[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect(&full[0], BYTES);
+    mbar_expect(&full[1], BYTES);
   }
   cluster.sync();  // every CTA of the cluster runs before remote writes
 
@@ -559,18 +606,28 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
                            : make_float4(c[0], c[1], s0, s1);
       const int n = 8 * (warp * NPW + jj);  // the n-tile's first unit
       const int r = odd ? g + 8 : g, un = n % U + 2 * (odd ? q - 1 : q);
-      *reinterpret_cast<float4*>(cluster.map_shared_rank(red, n / U) +
-                                 ((t & 1) * CLN + rank) * SLOT + r * U + un) =
-          v;
+      float* dst = red + ((t & 1) * CLN + rank) * SLOT + r * U + un;
+      if constexpr (MBAR)
+        st_async16(dst, &full[t & 1], n / U, v);
+      else
+        *reinterpret_cast<float4*>(cluster.map_shared_rank(dst, n / U)) = v;
     }
     stamp(1, T - 1 - t, 3);
-    cluster_arrive();
+    if constexpr (!MBAR) cluster_arrive();
     if (t > 0) {
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
         if (ok[i]) load(i, t - 1);
     }
-    cluster_wait();
+    if constexpr (MBAR) {  // this step's partial carries from every CTA
+      const int b = t & 1;
+      mbar_wait(&full[b], (ph >> b) & 1);
+      ph ^= 1u << b;
+      if (tid == 0 && t >= 2) mbar_expect(&full[b], BYTES);
+      __syncthreads();  // every warp is done with dg (it may send no slot here)
+    } else {
+      cluster_wait();
+    }
     stamp(1, T - 1 - t, 4);
   }
 
@@ -659,33 +716,38 @@ int gru_backward(const float* xw, const float* hh, const float* w_hh_t,
 extern "C" {
 
 // xw (B,T,3H); w_hh_t (H,3H); b_hh (3H); h0 (B,H). Writes ys (B,T,H), hn
-// (B,H) and, when hh is not null, the residual hh (B,T,3H).
+// (B,H) and, when hh is not null, the residual hh (B,T,3H). ctas: CTAs
+// per cluster (gru_shape_ok).
 int gru_forward_f32(const float* xw, const float* w_hh_t, const float* b_hh,
                     const float* h0, float* ys, float* hn, float* hh, int B,
-                    int T, int H, void* stream_ptr) {
-  if (!gru_hidden_ok(H) || B <= 0 || T <= 0)
+                    int T, int H, int ctas, void* stream_ptr) {
+  if (!gru_shape_ok(H, ctas) || B <= 0 || T <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream_ptr;
-  return H == 256 ? gru_forward<256, CL256>(xw, w_hh_t, b_hh, h0, ys, hn, hh,
-                                            B, T, s)
-                  : gru_forward<128, CL128>(xw, w_hh_t, b_hh, h0, ys, hn, hh,
-                                            B, T, s);
+  if (H == 128)
+    return gru_forward<128, 8>(xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T, s);
+  return ctas == 16
+             ? gru_forward<256, 16>(xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T, s)
+             : gru_forward<256, 8>(xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T, s);
 }
 
-// Clusters of 16 batch rows the card runs at once for hidden size H, in
-// the forward (backward 0) or the backward; more run in waves. -1 on an
-// error.
-int gru_resident_clusters(int H, int backward) {
-  if (!gru_hidden_ok(H)) return -1;
-  if (H == 256)
-    return backward ? gru_resident<CL256>(gru_bwd_kernel<256, CL256>,
-                                          Gru<256, CL256>::bwd_smem())
-                    : gru_resident<CL256>(gru_fwd_kernel<256, CL256>,
-                                          Gru<256, CL256>::fwd_smem());
-  return backward ? gru_resident<CL128>(gru_bwd_kernel<128, CL128>,
-                                        Gru<128, CL128>::bwd_smem())
-                  : gru_resident<CL128>(gru_fwd_kernel<128, CL128>,
-                                        Gru<128, CL128>::fwd_smem());
+// Clusters of 16 batch rows the card runs at once for hidden size H over
+// clusters of `ctas` CTAs, the fewer of the forward's and the backward's;
+// more run in waves. -1 on an error.
+int gru_resident_clusters(int H, int ctas) {
+  if (!gru_shape_ok(H, ctas)) return -1;
+  int f, b;
+  if (H == 128) {
+    f = gru_resident<8>(gru_fwd_kernel<128, 8>, Gru<128, 8>::fwd_smem());
+    b = gru_resident<8>(gru_bwd_kernel<128, 8>, Gru<128, 8>::bwd_smem());
+  } else if (ctas == 16) {
+    f = gru_resident<16>(gru_fwd_kernel<256, 16>, Gru<256, 16>::fwd_smem());
+    b = gru_resident<16>(gru_bwd_kernel<256, 16>, Gru<256, 16>::bwd_smem());
+  } else {
+    f = gru_resident<8>(gru_fwd_kernel<256, 8>, Gru<256, 8>::fwd_smem());
+    b = gru_resident<8>(gru_bwd_kernel<256, 8>, Gru<256, 8>::bwd_smem());
+  }
+  return f < b ? f : b;
 }
 
 // floats of backward scratch: dhh (B, T, 3H) and split-K partials
@@ -695,22 +757,26 @@ long long gru_backward_workspace_floats(int B, int T, int H) {
 
 // From the forward's ys and hh and the cotangents dys (B,T,H), dhn (B,H):
 // dxw (B,T,3H), dw_hh_t (H,3H), db_hh (3H), dh0 (B,H). ys and h0 16-byte
-// aligned (the weight reduction reads them 16 bytes at a time).
+// aligned (the weight reduction reads them 16 bytes at a time); ctas as
+// the forward's.
 int gru_backward_f32(const float* xw, const float* hh, const float* w_hh_t,
                      const float* h0, const float* ys, const float* dys,
                      const float* dhn, float* dxw, float* dwhh, float* dbhh,
-                     float* dh0, float* ws, int B, int T, int H,
+                     float* dh0, float* ws, int B, int T, int H, int ctas,
                      void* stream_ptr) {
-  if (!gru_hidden_ok(H) || B <= 0 || T <= 0)
+  if (!gru_shape_ok(H, ctas) || B <= 0 || T <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream_ptr;
   float* dhh = ws;
   float* part = dhh + (size_t)B * T * 3 * H;
-  int err = H == 256
-                ? gru_backward<256, CL256>(xw, hh, w_hh_t, h0, ys, dys, dhn,
-                                           dxw, dhh, dh0, B, T, s)
-                : gru_backward<128, CL128>(xw, hh, w_hh_t, h0, ys, dys, dhn,
-                                           dxw, dhh, dh0, B, T, s);
+  int err =
+      H == 128 ? gru_backward<128, 8>(xw, hh, w_hh_t, h0, ys, dys, dhn, dxw,
+                                      dhh, dh0, B, T, s)
+      : ctas == 16
+          ? gru_backward<256, 16>(xw, hh, w_hh_t, h0, ys, dys, dhn, dxw, dhh,
+                                  dh0, B, T, s)
+          : gru_backward<256, 8>(xw, hh, w_hh_t, h0, ys, dys, dhn, dxw, dhh,
+                                 dh0, B, T, s);
   if (err) return err;
   const int rows = B * T;
   if ((err = reduce_rows_tn_tc(ys, h0, T, dhh, dwhh, part, rows, H, 3 * H,

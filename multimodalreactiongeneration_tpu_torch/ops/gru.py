@@ -13,8 +13,9 @@ tensor cores in 3xTF32): where a gradient is needed, the forward that
 saves hh = h_{t-1} @ W_hh^T + b_hh of every step (as the JAX
 ``_vjp_fwd``) and then the backward kernel, which runs the reverse chain
 from hh and reduces dW_hh (3xTF32) and db_hh; otherwise the forward
-without residuals. Other shapes and dtypes raise. Launch counters:
-``fwd_launches`` (both forwards) and ``bwd_launches``.
+without residuals. A cluster of CTAs runs 16 batch rows; its size per
+launch is ``cluster_ctas``. Other shapes and dtypes raise. Launch
+counters: ``fwd_launches`` (both forwards) and ``bwd_launches``.
 """
 
 from __future__ import annotations
@@ -30,8 +31,12 @@ fwd_launches = 0
 bwd_launches = 0
 
 HIDDEN_SIZES = (128, 256)  # the hidden sizes the kernels take
+# CTAs per cluster the kernels take at each hidden size, the faster first
+# (the sweep in PERF.md)
+CLUSTER_CTAS = {256: (16, 8), 128: (8,)}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_RESIDENT = {}  # (device index, H, ctas) -> clusters the card holds at once
 
 
 def gru_recurrence_reference(xw, w_hh_t, b_hh, h0):
@@ -74,17 +79,42 @@ def kernel_refusal(hidden: int) -> Optional[str]:
     return None
 
 
+def cluster_ctas(b: int, h: int, resident) -> int:
+    """CTAs per cluster for a batch of b rows at hidden size h: the first
+    size of ``CLUSTER_CTAS[h]`` at which the card holds all ceil(b / 16)
+    clusters at once (``resident(ctas)``: how many it holds), else the
+    last (whose clusters then run in waves)."""
+    *faster, last = CLUSTER_CTAS[h]
+    for ctas in faster:
+        if -(-b // 16) <= resident(ctas):
+            return ctas
+    return last
+
+
 def _lib():
     lib = _build.load("gru")
     if not getattr(lib, "_typed", False):
         lib.gru_backward_workspace_floats.argtypes = [_I] * 3
         lib.gru_backward_workspace_floats.restype = ctypes.c_longlong
-        lib.gru_forward_f32.argtypes = [_P] * 7 + [_I] * 3 + [_P]
-        lib.gru_backward_f32.argtypes = [_P] * 12 + [_I] * 3 + [_P]
+        lib.gru_resident_clusters.argtypes = [_I] * 2
+        lib.gru_resident_clusters.restype = ctypes.c_int
+        lib.gru_forward_f32.argtypes = [_P] * 7 + [_I] * 4 + [_P]
+        lib.gru_backward_f32.argtypes = [_P] * 12 + [_I] * 4 + [_P]
         lib.gru_forward_f32.restype = ctypes.c_int
         lib.gru_backward_f32.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def launch_ctas(device, b: int, h: int) -> int:
+    """``cluster_ctas`` on this CUDA device (its occupancy query, once)."""
+    def resident(ctas):
+        key = (device.index, h, ctas)
+        if key not in _RESIDENT:
+            with torch.cuda.device(device):
+                _RESIDENT[key] = _lib().gru_resident_clusters(h, ctas)
+        return _RESIDENT[key]
+    return cluster_ctas(b, h, resident)
 
 
 def _check(name, xw, w_hh_t, b_hh, h0, **more):
@@ -126,7 +156,8 @@ def gru_forward(args, residuals: bool):
                                      device=xw.device)
     ys, hn = new(b, t, h), new(b, h)
     hh = new(b, t, 3 * h) if residuals else None
-    _build.launch(_lib().gru_forward_f32, *args, ys, hn, hh, dims=(b, t, h))
+    _build.launch(_lib().gru_forward_f32, *args, ys, hn, hh,
+                  dims=(b, t, h, launch_ctas(xw.device, b, h)))
     global fwd_launches
     fwd_launches += 1
     return ys, hn, hh
@@ -149,7 +180,8 @@ def gru_backward(args, ys, hh, dys, dhn):
     ws = torch.empty(lib.gru_backward_workspace_floats(b, t, h),
                      dtype=torch.float32, device=xw.device)
     _build.launch(lib.gru_backward_f32, xw, hh, w_hh_t, h0, ys, *cots,
-                  grads[0], grads[1], grads[2], grads[3], ws, dims=(b, t, h))
+                  grads[0], grads[1], grads[2], grads[3], ws,
+                  dims=(b, t, h, launch_ctas(xw.device, b, h)))
     global bwd_launches
     bwd_launches += 1
     return tuple(grads)

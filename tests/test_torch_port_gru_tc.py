@@ -8,15 +8,16 @@ version and to the JAX kernel where no card is needed:
 
   * ``emulate_forward`` repeats the forward kernel's algorithm in torch
     f32: per step, hh = h_{t-1} @ w_hh_t + b_hh with the product's K range
-    split over the KS warps of a unit group (KS = 64 CL / H, CL the CTAs
-    of a cluster at that H, ``CLUSTER``), each warp's sum kept as two
+    split over the KS warps of a unit group (KS = 64 C / H for a cluster
+    of C CTAs: at H 256 both sizes the kernels take, 16 and 8,
+    ``ops/gru.py CLUSTER_CTAS``), each warp's sum kept as two
     accumulators, the even k-steps (k % 4 in {0, 1} within its range, the
     kernel's permuted fragment order) and the odd ones, added, then the
     warps' partials added in warp order and the bias last; every product
     from TF32 hi and lo parts with FP32 sums, lo*hi + hi*lo + hi*hi; the
     cell in f32 as the kernel's;
   * ``emulate_backward`` repeats the backward kernel's: per reverse step
-    dh = dy + the local carry + the partial carries of CTAs 0..CL-1 in
+    dh = dy + the local carry + the partial carries of CTAs 0..C-1 in
     that order, the cell, then each CTA's partial carry dhh[:, its 3U
     columns] @ W_slice^T in 3xTF32 (even and odd k-steps apart); dW_hh =
     h_shift^T dhh over all B*T rows in 3xTF32, db_hh the column sum;
@@ -29,12 +30,11 @@ version and to the JAX kernel where no card is needed:
     dxw, dw_hh_t, db_hh and dh0 within ``GRAD_REL`` = 1e-4 of the largest
     entry of each (dW_hh sums B*T products of both signs);
   * one TF32 pass instead of three drifts by more than 3xTF32 does;
-  * ``CLUSTER`` is the cluster size per H that ``csrc/gru.cu`` compiles.
+  * ``cluster_ctas``, the wrapper's choice of cluster size: the faster
+    size while the card holds every cluster of the batch at once.
 """
 
 import functools
-import os
-import re
 
 import jax
 import jax.numpy as jnp
@@ -49,8 +49,6 @@ from tests.tf32_emulation import product
 
 torch.set_num_threads(1)
 FWD_ATOL, GRAD_REL = 1e-5, 1e-4
-CLUSTER = {256: 8, 128: 8}  # CTAs per cluster: gru.cu CL256, CL128
-GRU_CU = os.path.join(os.path.dirname(K10.__file__), "..", "csrc", "gru.cu")
 
 
 @pytest.fixture(autouse=True)
@@ -73,10 +71,11 @@ def chain_product(a, w, passes=3, splits=1):
     return out
 
 
-def emulate_forward(xw, w_hh_t, b_hh, h0, passes=3):
-    """K10's forward arithmetic: (ys (B, T, H), hn (B, H), hh (B, T, 3H))."""
+def emulate_forward(xw, w_hh_t, b_hh, h0, ctas, passes=3):
+    """K10's forward arithmetic over clusters of ``ctas`` CTAs: (ys (B, T,
+    H), hn (B, H), hh (B, T, 3H))."""
     h = h0.shape[1]
-    splits = 64 * CLUSTER[h] // h  # KS: warps splitting K
+    splits = 64 * ctas // h  # KS: warps splitting K
     hcur, ys, hhs = h0, [], []
     for t in range(xw.shape[1]):
         hh = chain_product(hcur, w_hh_t, passes, splits) + b_hh
@@ -91,12 +90,12 @@ def emulate_forward(xw, w_hh_t, b_hh, h0, passes=3):
     return torch.stack(ys, dim=1), hcur, torch.stack(hhs, dim=1)
 
 
-def emulate_backward(xw, w_hh_t, h0, ys, hh, dys, dhn, passes=3):
-    """K10's backward arithmetic from the forward's ys and hh: (dxw,
-    dw_hh_t, db_hh, dh0)."""
+def emulate_backward(xw, w_hh_t, h0, ys, hh, dys, dhn, ctas, passes=3):
+    """K10's backward arithmetic over clusters of ``ctas`` CTAs, from the
+    forward's ys and hh: (dxw, dw_hh_t, db_hh, dh0)."""
     b, t, g3 = xw.shape
     h = g3 // 3
-    cl = CLUSTER[h]
+    cl = ctas
     u = h // cl
     # CTA r's local gate columns, gate-major: w_hh_t's columns g H + r U + i
     cols = [torch.cat([torch.arange(g * h + r * u, g * h + (r + 1) * u)
@@ -148,28 +147,31 @@ def _rel(got, want):
 @pytest.mark.parametrize("b", [1, 17, 33])
 @pytest.mark.parametrize("h", [128, 256])
 def test_emulated_tensor_core_gru_matches_plain_and_jax(h, b, t):
+    """Every cluster size the kernels take at this H."""
     args, cots = _inputs(1000 * b + 10 * t + h, b, t, h)
     xw, w, bias, h0 = [torch.from_numpy(a) for a in args]
     dys, dhn = [torch.from_numpy(c) for c in cots]
-    ys, hn, hh = emulate_forward(xw, w, bias, h0)
-    grads = emulate_backward(xw, w, h0, ys, hh, dys, dhn)
-
     ysr, hnr = K10.gru_recurrence_reference(xw, w, bias, h0)
+    want = K10.gru_backward_reference([xw, w, bias, h0], dys, dhn)
     jargs = [jnp.asarray(a) for a in args]
     (jys, jhn), vjp = jax.vjp(pallas_gru.gru_recurrence, *jargs)
-    jgrads = vjp((jnp.asarray(cots[0]), jnp.asarray(cots[1])))
-    for got, plain, jx, name in ((ys, ysr, jys, "ys"), (hn, hnr, jhn, "hn")):
-        np.testing.assert_allclose(got.numpy(), plain.numpy(),
-                                   atol=FWD_ATOL, err_msg=f"{name} vs plain")
-        np.testing.assert_allclose(got.numpy(), np.asarray(jx),
-                                   atol=FWD_ATOL, err_msg=f"{name} vs JAX")
-
-    want = K10.gru_backward_reference([xw, w, bias, h0], dys, dhn)
-    for got, plain, jg, name in zip(grads, want, jgrads,
-                                    ("dxw", "dw_hh_t", "db_hh", "dh0")):
-        assert _rel(got, plain) <= GRAD_REL, f"{name} vs plain"
-        assert _rel(got, torch.from_numpy(np.array(jg))) <= GRAD_REL, (
-            f"{name} vs JAX")
+    jgrads = [torch.from_numpy(np.array(g)) for g in vjp(
+        (jnp.asarray(cots[0]), jnp.asarray(cots[1])))]
+    for ctas in K10.CLUSTER_CTAS[h]:
+        ys, hn, hh = emulate_forward(xw, w, bias, h0, ctas)
+        grads = emulate_backward(xw, w, h0, ys, hh, dys, dhn, ctas)
+        for got, plain, jx, name in ((ys, ysr, jys, "ys"),
+                                     (hn, hnr, jhn, "hn")):
+            np.testing.assert_allclose(
+                got.numpy(), plain.numpy(), atol=FWD_ATOL,
+                err_msg=f"{name} vs plain, {ctas} CTAs")
+            np.testing.assert_allclose(
+                got.numpy(), np.asarray(jx), atol=FWD_ATOL,
+                err_msg=f"{name} vs JAX, {ctas} CTAs")
+        for got, plain, jg, name in zip(grads, want, jgrads,
+                                        ("dxw", "dw_hh_t", "db_hh", "dh0")):
+            assert _rel(got, plain) <= GRAD_REL, f"{name} vs plain, {ctas}"
+            assert _rel(got, jg) <= GRAD_REL, f"{name} vs JAX, {ctas}"
 
 
 def test_three_tf32_passes_hold_where_one_drifts():
@@ -180,24 +182,21 @@ def test_three_tf32_passes_hold_where_one_drifts():
     want = K10.gru_backward_reference([xw, w, bias, h0], dys, dhn)
     fwd_err, grad_err = [], []
     for passes in (3, 1):
-        ys, _, hh = emulate_forward(xw, w, bias, h0, passes)
+        ys, _, hh = emulate_forward(xw, w, bias, h0, 16, passes)
         fwd_err.append(float((ys - ysr).abs().max()))
-        grads = emulate_backward(xw, w, h0, ys, hh, dys, dhn, passes)
+        grads = emulate_backward(xw, w, h0, ys, hh, dys, dhn, 16, passes)
         grad_err.append(max(_rel(g, p) for g, p in zip(grads, want)))
     assert fwd_err[0] <= FWD_ATOL < fwd_err[1]
     assert grad_err[0] <= GRAD_REL < grad_err[1]
 
 
-def test_cluster_sizes_are_the_kernels():
-    """The emulation's K split follows the cluster size per H that
-    csrc/gru.cu compiles (its one path per H)."""
-    with open(GRU_CU) as f:
-        src = f.read()
-    got = re.search(r"constexpr int CL256 = (\w+), CL128 = (\w+);", src)
-    assert got, "gru.cu names CL256 and CL128"
-    values = []
-    for name in got.groups():
-        if not name.isdigit():
-            name = re.search(rf"#define {name} (\d+)", src).group(1)
-        values.append(int(name))
-    assert {256: values[0], 128: values[1]} == CLUSTER
+def test_cluster_ctas_takes_the_faster_size_while_every_cluster_fits():
+    """16 CTAs at H 256 while ceil(B / 16) clusters of them fit on the
+    card at once (an H100 holds 7), else 8; always 8 at H 128."""
+    def resident(ctas):
+        return {16: 7, 8: 15}[ctas]
+
+    assert [K10.cluster_ctas(b, 256, resident)
+            for b in (1, 16, 17, 112, 113, 128, 300)] == [16] * 4 + [8] * 3
+    assert {K10.cluster_ctas(b, 128, resident) for b in (1, 300)} == {8}
+    assert K10.cluster_ctas(32, 256, lambda ctas: -1) == 8  # query failed

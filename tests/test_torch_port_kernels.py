@@ -777,6 +777,36 @@ def test_gru_kernels_are_bit_identical_run_to_run(dev, b, t, h):
         assert _rel_err(g, w) <= GRAD_REL_TOL, i
 
 
+@pytest.mark.parametrize("b", [113, 129])
+def test_gru_kernels_match_plain_past_one_wave_of_16_cta_clusters(dev, b):
+    """At H 256 a batch whose clusters of 16 CTAs the card does not hold
+    at once (an H100 holds 7: up to 112 rows) runs over clusters of 8
+    CTAs (the yaml's own batch is 128): forward with residuals and
+    backward vs plain, the same bits from run to run."""
+    from multimodalreactiongeneration_tpu_torch.ops import gru as K10
+
+    h, t = 256, 37
+    r = _rand(np.random.default_rng(b), dev)
+    args = (r(b, t, 3 * h, s=0.5), r(h, 3 * h, s=0.06), r(3 * h, s=0.1),
+            r(b, h, s=0.3))
+    cots = (r(b, t, h), r(b, h))
+    resident = K10._lib().gru_resident_clusters(h, 16)
+    assert K10.launch_ctas(dev, b, h) == (16 if -(-b // 16) <= resident
+                                          else 8)
+    first = K10.gru_forward(args, True)
+    grads = [K10.gru_backward(args, first[0], first[2], *cots)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    for x, y in zip(grads[0], grads[1]):
+        assert torch.equal(x, y)
+    ysr, hr = K10.gru_recurrence_reference(*args)
+    for got, want in ((first[0], ysr), (first[1], hr)):
+        assert float((got - want).abs().max()) <= TOL
+    want = K10.gru_backward_reference(args, *cots)
+    for i, (g, w) in enumerate(zip(grads[0], want)):
+        assert _rel_err(g, w) <= GRAD_REL_TOL, i
+
+
 def test_gru_kernel_refuses_bf16_and_other_hidden_sizes(dev):
     from multimodalreactiongeneration_tpu_torch.nn.recurrent import (
         use_gru_kernel,

@@ -20,13 +20,14 @@ kernels do the same arithmetic) and the largest difference from the
 plain version.
 
 ``--batch N`` adds H256 at BN x T2016 (the GRU yaml's own batch is 128),
-and the JSON gets the clusters of 16 rows the card holds at once
-(``resident``: forward, backward per H) where the checkout reports them.
+and the JSON gets, where the checkout chooses a cluster size per launch,
+the clusters of 16 rows the card holds at once per H and cluster size
+(``resident``) and the size chosen for each shape (``cluster_ctas``).
 ``--define`` builds ``gru.cu`` with those preprocessor defines (a
 variant library of its own) and times that. ``--stamps`` also runs one
 forward with residuals and one backward at H256 B32 x T2016 and at H128
 B32 x T252 from a build with ``-DGRU_STAMPS`` (a checkout whose source
-has the stamps): thread 0 of each CTA of the first cluster stamps
+has the stamps): thread 0 of each of the first 16 CTAs stamps
 ``%globaltimer`` at five marks of each of 16 steps, and the JSON gets,
 per phase, the median over those steps of the mean over the CTAs, in
 microseconds. Forward phases: the product, the cell (with its stores),
@@ -176,9 +177,12 @@ def main():
         for b, t, h, backward in shapes:
             record[f"B{b} T{t} H{h}"] = time_shape(K10, r, b, t, h,
                                                    backward)
-        if hasattr(lib, "gru_resident_clusters"):
-            record["resident"] = {h: [lib.gru_resident_clusters(h, bw)
-                                      for bw in (0, 1)] for h in (256, 128)}
+        if hasattr(K10, "launch_ctas"):
+            record["resident"] = {
+                h: {c: lib.gru_resident_clusters(h, c) for c in ctas}
+                for h, ctas in K10.CLUSTER_CTAS.items()}
+            record["cluster_ctas"] = {f"B{b} H{h}": K10.launch_ctas(dev, b, h)
+                                      for b, _, h, _ in shapes}
     if "--stamps" in argv:
         with variant(K10, [*defines, "GRU_STAMPS"]) as lib:
             record["stamps"] = {f"B{b} T{t} H{h}": stamp_split(
