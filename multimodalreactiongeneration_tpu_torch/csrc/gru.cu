@@ -16,8 +16,8 @@
 // What bounds it: a chain of T steps, each a (16 x H) @ (H x 3H) product
 // that needs the previous step's h. Its FLOPs (2 B T 3H H) take a fraction
 // of a millisecond at the card's rates; the per-step latency (the product
-// on the few SMs of one cluster, the exchange of h, one cluster barrier)
-// times T is what counts. A cluster of CLN CTAs holds W_hh: CTA r owns the
+// on the few SMs of one cluster, the cell, the exchange of h and the wait
+// for it) times T is what counts. A cluster of CLN CTAs holds W_hh: CTA r owns the
 // 3U gate columns r, z, n of hidden units [r U, (r+1) U), U = H / CLN; 16
 // batch rows per cluster, rows past B run on zeros and are never stored.
 //
@@ -41,11 +41,16 @@
 //    KS warps of a unit group share the cell: warp ks computes the
 //    fragment elements [ks 4/KS, (ks+1) 4/KS) of its lanes.
 //  * the exchange: the CTA's 16 x U block of h is staged in shared memory
-//    and written to every CTA's copy of the state with 16-byte stores
-//    (distributed shared memory, double-buffered by step parity). The
-//    barrier is split: barrier.cluster.arrive.release after the remote
-//    stores, then ys and hh go to device memory and the next step's xw is
-//    loaded, then barrier.cluster.wait.acquire. One barrier a step.
+//    and written to every CTA's copy of the state (double-buffered by step
+//    parity) with 16-byte st.async stores into distributed shared memory,
+//    each of which completes 16 bytes of the receiver's transaction
+//    barrier (an mbarrier per buffer, armed for the 16 x H x 4 bytes of a
+//    step). Then ys and hh go to device memory and the next step's xw is
+//    loaded, then each CTA waits on its own barrier: one wait a step, for
+//    the data it needs, and no cluster-wide barrier (a cluster barrier,
+//    split into arrive and wait, measured slower). A CTA sends step t's h
+//    only after its last read of the buffer step t + 1 overwrites, so the
+//    data order keeps the two buffers free of races at any B and T.
 //
 // The backward is the reverse chain from the forward's saved hh, with no
 // recompute of the hidden product. Per step, per (row, unit):
@@ -61,8 +66,10 @@
 // split once into hi and lo as in the forward. That product is a PARTIAL
 // carry over all H units; each lane pairs with its neighbour (one
 // shuffle) to hold four consecutive units of one row and writes them
-// with one 16-byte store into slot r of the owning CTA (slots double-
-// buffered by parity, one barrier a step). dh sums dy, the local carry
+// with one 16-byte st.async into slot r of the owning CTA (slots double-
+// buffered by parity, a transaction barrier per parity, one wait a step;
+// a __syncthreads after it, since a warp may send no slot to its own
+// CTA and its peers must be done with dhh). dh sums dy, the local carry
 // and slots 0..CLN-1 in that order, so the result is the same from run
 // to run. dW_hh^T = h_shift^T dhh reduces over all B*T rows outside the
 // chain in 3xTF32 (tc_gemm.cuh reduce_rows_tn_tc, deterministic split-K)
@@ -70,12 +77,12 @@
 //
 // Cluster size (the sweep of PERF.md, on an H100): at H 256, 16 CTAs (U
 // 16; a non-portable size) halve each CTA's product and W slice against
-// 8 and run a step ~20% faster, but the card holds only 7 such clusters,
-// so a batch of more than 112 rows runs over 8 CTAs (15 resident) rather
-// than in two waves; ops/gru.py cluster_ctas picks from the occupancy
-// query gru_resident_clusters. At H 128, 8 CTAs (4 and 2 were slower).
-// The SIMT product (each thread all 16 rows of its columns) was slower
-// than the tensor cores at every size.
+// 8 and run B32 x T2016 ~18% faster forward and ~25% backward, but the
+// card holds only 7 such clusters, so a batch of more than 112 rows runs
+// over 8 CTAs (15 resident) rather than in two waves; ops/gru.py
+// cluster_ctas picks from the occupancy query gru_resident_clusters. At
+// H 128, 8 CTAs (4 and 2 were slower). The SIMT product (each thread all
+// 16 rows of its columns) was slower than the tensor cores at every size.
 //
 // Numerics: the products in 3xTF32 (FP32's order of error, tf32x3.cuh);
 // cell math, state and sums in FP32.
@@ -84,11 +91,10 @@
 
 namespace {
 
-
 // Built with -DGRU_STAMPS (a build only a measuring tool asks for),
 // thread 0 of each of the first 16 CTAs stamps %globaltimer at the
-// marks of a step (the start, the product, the cell and the exchange
-// stores, the barrier passed) for steps [STAMP_T0, STAMP_T0 +
+// marks of a step (the start, the product, the cell, the exchange
+// stores, the wait passed) for steps [STAMP_T0, STAMP_T0 +
 // STAMP_STEPS) of the forward and of the backward (counted from the
 // last step); gru_stamps() reads them back.
 constexpr int STAMP_T0 = 64, STAMP_STEPS = 16, STAMP_CTAS = 16;
@@ -111,21 +117,8 @@ __device__ __forceinline__ void stamp(int dir, int step, int m) {
 #endif
 }
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-#ifdef GRU_MBAR
-constexpr bool MBAR = true;  // sweep variant: st.async + mbarrier exchange
-#else
-constexpr bool MBAR = false;
-#endif
-
-// ---- the exchange by st.async and transaction barriers (GRU_MBAR) ----
+// ---- the exchange: st.async into the peers' shared memory, counted by
+// each receiver's transaction barrier ----
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
@@ -251,7 +244,7 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
   const size_t G = 3 * (size_t)H;
 
   extern __shared__ __align__(16) float smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [2] (GRU_MBAR)
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [2] per buffer
   float* hbuf = smem + 4;  // [2][BT][HS] the state, double-buffered
   float* red = hbuf + 2 * BT * HS;  // [KS][UG][3 gates][32 lanes][4]
   float* hs = red + KS * UG * 3 * 32 * 4;  // [BT][U] this step's h block
@@ -297,15 +290,15 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
     }
   }
   constexpr uint32_t BYTES = BT * H * sizeof(float);  // a step's state
-  uint32_t ph = 0;  // GRU_MBAR: the parity of each buffer's next phase
-  if (MBAR && tid == 0) {
+  uint32_t ph = 0;  // bit b: the parity of buffer b's next phase
+  if (tid == 0) {
     mbar_init(&full[0]);
     mbar_init(&full[1]);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     mbar_expect(&full[0], BYTES);
     mbar_expect(&full[1], BYTES);
   }
-  cluster.sync();  // every CTA of the cluster runs before remote writes
+  cluster.sync();  // every CTA runs, its barriers armed, before any st.async
 
   for (int t = 0; t < T; ++t) {
     stamp(0, t, 0);
@@ -380,14 +373,9 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
       const int peer = i / CH, c = i % CH;
       const int r = c / (U / 4), u = 4 * (c % (U / 4));
       const float4 v = *reinterpret_cast<const float4*>(hs + r * U + u);
-      if constexpr (MBAR)
-        st_async16(nxt + r * HS + rank * U + u, &full[(t + 1) & 1], peer, v);
-      else
-        *reinterpret_cast<float4*>(cluster.map_shared_rank(nxt, peer) +
-                                   r * HS + rank * U + u) = v;
+      st_async16(nxt + r * HS + rank * U + u, &full[(t + 1) & 1], peer, v);
     }
     stamp(0, t, 3);
-    if constexpr (!MBAR) cluster_arrive();
     for (int c = tid; c < CH; c += NT) {
       const int r = c / (U / 4), u = 4 * (c % (U / 4));
       if (b0 + r < B)
@@ -408,13 +396,11 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
         for (int gt = 0; gt < 3; ++gt) x[i][gt] = xw[at + G + gt * H];
       }
     }
-    if constexpr (MBAR) {  // this step's state from every CTA
+    {  // this step's state from every CTA; re-armed for step t + 2's
       const int b = (t + 1) & 1;
       mbar_wait(&full[b], (ph >> b) & 1);
       ph ^= 1u << b;
       if (tid == 0 && t + 2 < T) mbar_expect(&full[b], BYTES);
-    } else {
-      cluster_wait();
     }
     stamp(0, t, 4);
   }
@@ -455,7 +441,7 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
   const size_t G = 3 * (size_t)H;
 
   extern __shared__ __align__(16) float smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [2] (GRU_MBAR)
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [2] per parity
   float* red = smem + 4;           // [2][CLN][BT][U] partial carry slots
   float* dg = red + 2 * CLN * SLOT;  // [BT][DS] this step's dhh slice
   uint2* wlo = reinterpret_cast<uint2*>(dg + BT * DS);  // [8][NPW][KSB][32]
@@ -507,15 +493,15 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
     }
   }
   constexpr uint32_t BYTES = BT * H * sizeof(float);  // a step's slots
-  uint32_t ph = 0;  // GRU_MBAR: the parity of each slot set's next phase
-  if (MBAR && tid == 0) {
+  uint32_t ph = 0;  // bit b: the parity of slot set b's next phase
+  if (tid == 0) {
     mbar_init(&full[0]);
     mbar_init(&full[1]);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     mbar_expect(&full[0], BYTES);
     mbar_expect(&full[1], BYTES);
   }
-  cluster.sync();  // every CTA of the cluster runs before remote writes
+  cluster.sync();  // every CTA runs, its barriers armed, before any st.async
 
   for (int t = T - 1; t >= 0; --t) {
     stamp(1, T - 1 - t, 0);
@@ -606,27 +592,21 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
                            : make_float4(c[0], c[1], s0, s1);
       const int n = 8 * (warp * NPW + jj);  // the n-tile's first unit
       const int r = odd ? g + 8 : g, un = n % U + 2 * (odd ? q - 1 : q);
-      float* dst = red + ((t & 1) * CLN + rank) * SLOT + r * U + un;
-      if constexpr (MBAR)
-        st_async16(dst, &full[t & 1], n / U, v);
-      else
-        *reinterpret_cast<float4*>(cluster.map_shared_rank(dst, n / U)) = v;
+      st_async16(red + ((t & 1) * CLN + rank) * SLOT + r * U + un,
+                 &full[t & 1], n / U, v);
     }
     stamp(1, T - 1 - t, 3);
-    if constexpr (!MBAR) cluster_arrive();
     if (t > 0) {
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
         if (ok[i]) load(i, t - 1);
     }
-    if constexpr (MBAR) {  // this step's partial carries from every CTA
+    {  // this step's partial carries from every CTA; re-armed for t - 2's
       const int b = t & 1;
       mbar_wait(&full[b], (ph >> b) & 1);
       ph ^= 1u << b;
       if (tid == 0 && t >= 2) mbar_expect(&full[b], BYTES);
       __syncthreads();  // every warp is done with dg (it may send no slot here)
-    } else {
-      cluster_wait();
     }
     stamp(1, T - 1 - t, 4);
   }

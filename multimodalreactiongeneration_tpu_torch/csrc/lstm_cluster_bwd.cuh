@@ -6,7 +6,7 @@
 // Used by csrc/mixer_stack.cu (the encoder-stack backward),
 // csrc/lstm_recurrence.cu, csrc/lstm_layer.cu (whose weight gradients
 // take the tensor-core reductions of tc_gemm.cuh instead of these) and
-// csrc/gru.cu (the reductions).
+// csrc/gru.cu (the column sum; its dW_hh takes tc_gemm.cuh's).
 //
 // The reverse recurrence. The forward stored the gate activations
 // A = [i, f, g, o] and the cell states c of every step, so a reverse step

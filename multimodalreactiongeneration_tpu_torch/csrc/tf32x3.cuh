@@ -1,7 +1,7 @@
 // FP32 products on the tensor cores at FP32 accuracy (3xTF32), and the
-// 16-byte cp.async copies that feed them. Shared by tc_gemm.cuh (K7's
-// and K9's weight gradients, K7's dx) and rect_attention.cu (K5's
-// forward, K6's backward).
+// 16-byte cp.async copies that feed them. Shared by tc_gemm.cuh (K4's,
+// K7's, K9's and K10's weight gradients, K7's dx), rect_attention.cu
+// (K5's forward, K6's backward) and gru.cu (K10's per-step products).
 //
 // Each FP32 operand x is split into hi = tf32(x) and lo = tf32(x - hi)
 // (cvt.rna: round to nearest, ties away), and lo*hi + hi*lo + hi*hi is

@@ -4,7 +4,7 @@ in the current directory, and split a chain step into its phases.
 
 Run from the root of a checkout of the PyTorch port, on one CUDA card:
 
-    python3 <this file> TAG [--stamps] [--batch N] [--define NAME[=VALUE] ...]
+    python3 <this file> TAG [--stamps] [--batch N] [--ctas C]
 
 It imports the port from the current directory, so one command can time
 two checkouts in turns (parent, change, change, parent: unpack the other
@@ -23,8 +23,8 @@ plain version.
 and the JSON gets, where the checkout chooses a cluster size per launch,
 the clusters of 16 rows the card holds at once per H and cluster size
 (``resident``) and the size chosen for each shape (``cluster_ctas``).
-``--define`` builds ``gru.cu`` with those preprocessor defines (a
-variant library of its own) and times that. ``--stamps`` also runs one
+``--ctas C`` runs every H256 launch over clusters of C CTAs (8 or 16),
+whatever the wrapper would choose. ``--stamps`` also runs one
 forward with residuals and one backward at H256 B32 x T2016 and at H128
 B32 x T252 from a build with ``-DGRU_STAMPS`` (a checkout whose source
 has the stamps): thread 0 of each of the first 16 CTAs stamps
@@ -88,12 +88,12 @@ def max_rel(got, want):
 
 
 @contextlib.contextmanager
-def variant(K10, defines):
-    """Inside, K10's wrappers launch ``gru.cu`` built with ``defines``."""
+def stamped(K10):
+    """Inside, K10's wrappers launch ``gru.cu`` built with -DGRU_STAMPS."""
     from multimodalreactiongeneration_tpu_torch import _build
 
     load = _build.load
-    _build.load = lambda name, d=(): load(name, tuple(defines) + tuple(d))
+    _build.load = lambda name, d=(): load(name, ("GRU_STAMPS", *d))
     try:
         yield _build.load("gru")
     finally:
@@ -159,7 +159,6 @@ def stamp_split(K10, lib, r, b, t, h):
 def main():
     argv = sys.argv[1:]
     tag = argv[0] if argv and not argv[0].startswith("--") else os.getcwd()
-    defines = [argv[i + 1] for i, a in enumerate(argv) if a == "--define"]
     shapes = SHAPES + tuple((int(argv[i + 1]), 2016, 256, True)
                             for i, a in enumerate(argv) if a == "--batch")
     from multimodalreactiongeneration_tpu_torch.ops import gru as K10
@@ -172,19 +171,22 @@ def main():
         x = (s * rng.standard_normal(shape)).astype(np.float32)
         return torch.from_numpy(x).to(dev)
 
-    record = {"tag": tag, "defines": defines}
-    with variant(K10, defines) as lib:
-        for b, t, h, backward in shapes:
-            record[f"B{b} T{t} H{h}"] = time_shape(K10, r, b, t, h,
-                                                   backward)
-        if hasattr(K10, "launch_ctas"):
-            record["resident"] = {
-                h: {c: lib.gru_resident_clusters(h, c) for c in ctas}
-                for h, ctas in K10.CLUSTER_CTAS.items()}
-            record["cluster_ctas"] = {f"B{b} H{h}": K10.launch_ctas(dev, b, h)
-                                      for b, _, h, _ in shapes}
+    record = {"tag": tag}
+    if "--ctas" in argv:
+        forced, chosen = int(argv[argv.index("--ctas") + 1]), K10.launch_ctas
+        K10.launch_ctas = lambda d, b, h: forced if h == 256 else chosen(
+            d, b, h)
+        record["forced_ctas_h256"] = forced
+    for b, t, h, backward in shapes:
+        record[f"B{b} T{t} H{h}"] = time_shape(K10, r, b, t, h, backward)
+    if hasattr(K10, "launch_ctas"):
+        record["resident"] = {
+            h: {c: K10._lib().gru_resident_clusters(h, c) for c in ctas}
+            for h, ctas in K10.CLUSTER_CTAS.items()}
+        record["cluster_ctas"] = {f"B{b} H{h}": K10.launch_ctas(dev, b, h)
+                                  for b, _, h, _ in shapes}
     if "--stamps" in argv:
-        with variant(K10, [*defines, "GRU_STAMPS"]) as lib:
+        with stamped(K10) as lib:
             record["stamps"] = {f"B{b} T{t} H{h}": stamp_split(
                 K10, lib, r, b, t, h) for b, t, h in STAMP_SHAPES}
     record["card"] = subprocess.run(
