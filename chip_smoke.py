@@ -112,12 +112,12 @@ Phases:
      T2096 (the decode hoist, forward only) and B128 x T252 (the yaml's
      own batch, past one wave of 16-CTA clusters: 8-CTA clusters), and
      H128 at B32 x T252: ys, h_n <= 1e-4 abs; each gradient max|kernel -
-     plain| / max|plain| <= 1e-3; two calls of each kernel on the same inputs give the same bits;
-     microseconds per chain step; the bounds with the products in 3xTF32
-     (as the kernels run them) beside their FP32 figures; cuDNN's
-     ``torch.nn.GRU`` with the same recurrent weights timed as a yardstick
-     (it also computes the input product; at the decode hoist its forward
-     alone, without a gradient);
+     plain| / max|plain| <= 1e-3; two calls of each kernel on the same
+     inputs give the same bits; microseconds per chain step; the bounds
+     with the products in 3xTF32 (as the kernels run them) beside their
+     FP32 figures; cuDNN's ``torch.nn.GRU`` with the same recurrent
+     weights timed as a yardstick (it also computes the input product; at
+     the decode hoist its forward alone, without a gradient);
  15. GRU generation: ``generate_metaformer`` with the GRU config, full
      mask, bf16 caches, on 3 batches of 16 x 250 frames (lead 12): shape,
      finite, launches per generation (K10 forward +10, the hoisted

@@ -17,9 +17,10 @@
 // that needs the previous step's h. Its FLOPs (2 B T 3H H) take a fraction
 // of a millisecond at the card's rates; the per-step latency (the product
 // on the few SMs of one cluster, the cell, the exchange of h and the wait
-// for it) times T is what counts. A cluster of CLN CTAs holds W_hh: CTA r owns the
-// 3U gate columns r, z, n of hidden units [r U, (r+1) U), U = H / CLN; 16
-// batch rows per cluster, rows past B run on zeros and are never stored.
+// for it) times T is what counts. A cluster of CLN CTAs holds W_hh: CTA r
+// owns the 3U gate columns r, z, n of hidden units [r U, (r+1) U), U = H /
+// CLN; 16 batch rows per cluster, rows past B run on zeros and are never
+// stored.
 //
 // Forward step, per CTA:
 //  * the product h_{t-1} (16 x H) @ W slice (H x 3U) on the tensor cores,
