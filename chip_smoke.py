@@ -138,10 +138,14 @@ Phases:
  18. LSTM recurrence over precomputed inputs (K8) forward with and without
      residuals and backward vs plain, f32: B256 x T120 x H128 (a
      simple_lstm acoustic direction), B32 x T252 x H256 (the flagship's
-     self-motion LSTMs under ``MRGEN_FUSED_DW=0``) and B20 x T37 x H128:
-     ys, h_n, c_n <= 1e-4 abs; each gradient max|kernel - plain| /
-     max|plain| <= 1e-3; cuDNN's ``torch.nn.LSTM`` with the same recurrent
-     weights timed as a yardstick (it also computes the input product);
+     self-motion LSTMs under ``MRGEN_FUSED_DW=0``), B20 x T37 x H128 and
+     B1 x T120 x H128 (a frame of the ``MRGEN_FUSED_DW=0`` simple_lstm
+     rollout): ys, h_n, c_n <= 1e-4 abs; each gradient max|kernel -
+     plain| / max|plain| <= 1e-3; two calls of each kernel on the same
+     inputs give the same bits; per case the cluster size, us per chain
+     step and the 3xTF32 bound beside the FP32 one; cuDNN's
+     ``torch.nn.LSTM`` with the same recurrent weights timed as a
+     yardstick (it also computes the input product);
      then a bidirectional ``TorchLSTM`` at simple_lstm's acoustic shape
      (B256 x T120, 256 -> 128: K7 on the input and on the flipped input)
      vs the plain recurrences, the same bounds, K7 +2 / +2; and the
@@ -172,7 +176,8 @@ Phases:
 
 Every kernel's JSON record carries its bound: the larger of its
 operations (FP32 at 67 TFLOP/s; the 3xTF32 products of K5's forward,
-K6, K4's and K7's and K9's backward as three TF32 passes at 495) and its
+K6, K4's and K7's and K9's backward, and all of K8's and K10's, as three
+TF32 passes at 495) and its
 bytes at 3.35 TB/s (H100 SXM, 700 W).
 Any failure raises. The last lines are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -888,12 +893,15 @@ def lstm_recurrence_phase(K8, dev, rng):
     """18. The LSTM recurrence over precomputed inputs (K8): forward
     without and with residuals and backward vs plain at B256 x T120 x H128
     (a simple_lstm acoustic direction), B32 x T252 x H256 (the flagship's
-    self-motion LSTMs under MRGEN_FUSED_DW=0) and B20 x T37 x H128 (ragged
-    batch and length)."""
+    self-motion LSTMs under MRGEN_FUSED_DW=0), B20 x T37 x H128 (ragged
+    batch and length) and B1 x T120 x H128 (a frame of the
+    MRGEN_FUSED_DW=0 simple_lstm rollout). Two calls of each kernel on the
+    same inputs must give the same bits."""
     r = seeded(rng, dev)
     cases = []
     for b, t, h in ((SIMPLE_B, SIMPLE_AUDIO_T, 128),
-                    (TRAIN_B, LEAD + TRAIN_FRAMES, 256), (20, 37, 128)):
+                    (TRAIN_B, LEAD + TRAIN_FRAMES, 256), (20, 37, 128),
+                    (1, SIMPLE_AUDIO_T, 128)):
         args = (r(b, t, 4 * h, s=0.5), r(h, 4 * h, s=0.06), r(b, h, s=0.3),
                 r(b, h, s=0.3))
         cots = (r(b, t, h), r(b, h), r(b, h))
@@ -916,35 +924,63 @@ def lstm_recurrence_phase(K8, dev, rng):
         grad_err = max_err(grads, want)
         grad_rel = rel_err(grads, want)
         del ysr, hr, cr, want
-        fwd_ms, _ = cuda_ms(lambda: K8.lstm_recurrence_forward(args, False),
-                            5)
+        fwd_ms, again = cuda_ms(
+            lambda: K8.lstm_recurrence_forward(args, False), 5)
         fwd_res_ms, (ys1, hn1, cn1, acts, cs) = cuda_ms(
             lambda: K8.lstm_recurrence_forward(args, True), 5)
-        bwd_ms, _ = cuda_ms(lambda: K8.lstm_recurrence_backward(
+        bwd_ms, grads1 = cuda_ms(lambda: K8.lstm_recurrence_backward(
             args, ys1, acts, cs, *cots), 5)
+        first = K8.lstm_recurrence_forward(args, True)
+        bits = (same_bits((ys0, hn0, cn0), again[:3])
+                and same_bits((ys, hn, cn), (ys1, hn1, cn1))
+                and same_bits(first, (ys1, hn1, cn1, acts, cs))
+                and same_bits(grads, grads1)
+                and same_bits(K8.lstm_recurrence_backward(
+                    args, first[0], *first[3:], *cots), grads1))
         # the chain's products h.W_hh: 2 B T 4H H FLOPs; the backward
-        # twice that (dgates.W_hh^T on the chain, then dW_hh)
+        # twice that (dgates.W_hh^T on the chain, then dW_hh); all in
+        # 3xTF32 (the FP32 figures beside)
         flops = 2 * b * t * 4 * h * h
-        fwd_bound = bound(flops, nbytes(args, ys1, hn1, cn1, acts, cs))
-        fwd_nores_bound = bound(flops, nbytes(args, ys0, hn0, cn0))
-        bwd_bound = bound(2 * flops,
-                          nbytes(args, ys1, acts, cs, cots, grads))
+        fwd_bytes = nbytes(args, ys1, hn1, cn1, acts, cs)
+        nores_bytes = nbytes(args, ys0, hn0, cn0)
+        bwd_bytes = nbytes(args, ys1, acts, cs, cots, grads)
         lib_fwd_ms, lib_bwd_ms = cudnn_recurrence_ms(args, cots)
-        check_case("lstm_recurrence", fwd_err, grad_rel, B=b, T=t, H=h,
-                   fwd_ms=fwd_ms, fwd_res_ms=fwd_res_ms,
-                   plain_fwd_ms=plain_fwd_ms, bwd_ms=bwd_ms,
-                   plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
-                   library_bwd_ms=lib_bwd_ms, fwd_bound_ms=fwd_bound[0],
-                   bwd_bound_ms=bwd_bound[0])
-        cases.append(dict(
-            B=b, T=t, H=h, clusters=-(-b // 16), fwd_max_abs_err=fwd_err,
+        case = dict(
+            B=b, T=t, H=h, clusters=-(-b // 16),
+            cluster_ctas=K8.launch_ctas(dev, b, h), fwd_max_abs_err=fwd_err,
             grad_max_abs_err=grad_err, grad_max_rel_err=grad_rel,
             fwd_ms=fwd_ms, fwd_res_ms=fwd_res_ms, plain_fwd_ms=plain_fwd_ms,
             bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
+            fwd_us_per_step=fwd_ms * 1e3 / t,
+            fwd_res_us_per_step=fwd_res_ms * 1e3 / t,
+            bwd_us_per_step=bwd_ms * 1e3 / t,
             library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms,
-            fwd_bound=fwd_bound, fwd_no_residual_bound=fwd_nores_bound,
-            bwd_bound=bwd_bound))
-        del args, leaves, grads, ys, ys0, ys1, acts, cs
+            fwd_bound=bound(0, fwd_bytes, tf32x3_flops=flops),
+            fwd_bound_fp32=bound(flops, fwd_bytes),
+            fwd_no_residual_bound=bound(0, nores_bytes, tf32x3_flops=flops),
+            fwd_no_residual_bound_fp32=bound(flops, nores_bytes),
+            bwd_bound=bound(0, bwd_bytes, tf32x3_flops=2 * flops),
+            bwd_bound_fp32=bound(2 * flops, bwd_bytes),
+            bit_identical=bits)
+        check_case("lstm_recurrence", fwd_err, grad_rel, B=b, T=t, H=h,
+                   cluster_ctas=case["cluster_ctas"], fwd_ms=fwd_ms,
+                   fwd_res_ms=fwd_res_ms, plain_fwd_ms=plain_fwd_ms,
+                   bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
+                   library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms,
+                   fwd_us_per_step=case["fwd_us_per_step"],
+                   fwd_res_us_per_step=case["fwd_res_us_per_step"],
+                   bwd_us_per_step=case["bwd_us_per_step"],
+                   fwd_bound_ms=case["fwd_bound"][0],
+                   fwd_bound_fp32_ms=case["fwd_bound_fp32"][0],
+                   bwd_bound_ms=case["bwd_bound"][0],
+                   bwd_bound_fp32_ms=case["bwd_bound_fp32"][0],
+                   bit_identical=bits)
+        if not bits:
+            raise AssertionError(
+                f"lstm_recurrence B={b} T={t} H={h}: two kernel calls on "
+                f"the same inputs differ")
+        cases.append(case)
+        del args, leaves, grads, grads1, ys, ys0, ys1, acts, cs, first, again
     return cases
 
 
@@ -2057,6 +2093,9 @@ def recurrence_records(cases, launches, **more_launches):
             launches["lstm_recurrence_fwd"],
             max(c["fwd_max_abs_err"] for c in cases), main["fwd_res_ms"],
             main["plain_fwd_ms"], main["fwd_bound"], main["library_fwd_ms"],
+            bound_fp32_ms=main["fwd_bound_fp32"][0],
+            us_per_step=main["fwd_res_us_per_step"],
+            cluster_ctas=main["cluster_ctas"],
             no_residual_ms=main["fwd_ms"],
             no_residual_bound_ms=main["fwd_no_residual_bound"][0],
             no_residual_replaces=JAX_OPS + "pallas_lstm.py:66",
@@ -2066,6 +2105,9 @@ def recurrence_records(cases, launches, **more_launches):
             launches["lstm_recurrence_bwd"],
             max(c["grad_max_abs_err"] for c in cases), main["bwd_ms"],
             main["plain_bwd_ms"], main["bwd_bound"], main["library_bwd_ms"],
+            bound_fp32_ms=main["bwd_bound_fp32"][0],
+            us_per_step=main["bwd_us_per_step"],
+            cluster_ctas=main["cluster_ctas"],
             max_rel_err=max(c["grad_max_rel_err"] for c in cases)),
     ]
 

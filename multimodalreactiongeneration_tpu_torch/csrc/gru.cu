@@ -41,17 +41,18 @@
 //  * the K split is reduced through shared memory in ks order, and the
 //    KS warps of a unit group share the cell: warp ks computes the
 //    fragment elements [ks 4/KS, (ks+1) 4/KS) of its lanes.
-//  * the exchange: the CTA's 16 x U block of h is staged in shared memory
-//    and written to every CTA's copy of the state (double-buffered by step
-//    parity) with 16-byte st.async stores into distributed shared memory,
-//    each of which completes 16 bytes of the receiver's transaction
-//    barrier (an mbarrier per buffer, armed for the 16 x H x 4 bytes of a
-//    step). Then ys and hh go to device memory and the next step's xw is
-//    loaded, then each CTA waits on its own barrier: one wait a step, for
-//    the data it needs, and no cluster-wide barrier (a cluster barrier,
-//    split into arrive and wait, measured slower). A CTA sends step t's h
-//    only after its last read of the buffer step t + 1 overwrites, so the
-//    data order keeps the two buffers free of races at any B and T.
+//  * the exchange (cluster_exchange.cuh): the CTA's 16 x U block of h is
+//    staged in shared memory and written to every CTA's copy of the state
+//    (double-buffered by step parity) with 16-byte st.async stores into
+//    distributed shared memory, each of which completes 16 bytes of the
+//    receiver's transaction barrier (an mbarrier per buffer, armed for the
+//    16 x H x 4 bytes of a step). Then ys and hh go to device memory and
+//    the next step's xw is loaded, then each CTA waits on its own barrier:
+//    one wait a step, for the data it needs, and no cluster-wide barrier
+//    (a cluster barrier, split into arrive and wait, measured slower). A
+//    CTA sends step t's h only after its last read of the buffer step t +
+//    1 overwrites, so the data order keeps the two buffers free of races
+//    at any B and T.
 //
 // The backward is the reverse chain from the forward's saved hh, with no
 // recompute of the hidden product. Per step, per (row, unit):
@@ -88,6 +89,7 @@
 // Numerics: the products in 3xTF32 (FP32's order of error, tf32x3.cuh);
 // cell math, state and sums in FP32.
 
+#include "cluster_exchange.cuh"
 #include "tc_gemm.cuh"
 
 namespace {
@@ -116,68 +118,6 @@ __device__ __forceinline__ void stamp(int dir, int step, int m) {
     g_gru_stamps[dir][s][blockIdx.x][m] = t;
   }
 #endif
-}
-
-// ---- the exchange: st.async into the peers' shared memory, counted by
-// each receiver's transaction barrier ----
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// this CTA's one arrival of the barrier's phase, expecting `bytes`
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "{ .reg .b64 st; mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], "
-      "%1; }" ::"r"(smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// wait for the phase of parity `parity` to complete; after two seconds,
-// trap (a fault the launch reports) rather than hang
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  unsigned long long t0 = 0, now;
-  for (uint32_t i = 0;; ++i) {
-    uint32_t done;
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.acquire.cluster.shared::cta."
-        "b64 p, [%1], %2; selp.u32 %0, 1, 0, p; }"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (i % 256 == 0) {
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-      if (i == 0)
-        t0 = now;
-      else if (now - t0 > 2000000000ull)
-        asm volatile("trap;");
-    }
-  }
-}
-
-// 16 bytes to CTA `peer`'s shared memory at `dst` (this CTA's address of
-// the same variable), completing 16 bytes of the peer's barrier `bar`
-__device__ __forceinline__ void st_async16(float* dst, uint64_t* bar,
-                                           int peer, float4 v) {
-  uint32_t rd, rb;
-  asm("mapa.shared::cluster.u32 %0, %1, %2;"
-      : "=r"(rd)
-      : "r"(smem_addr(dst)), "r"(peer));
-  asm("mapa.shared::cluster.u32 %0, %1, %2;"
-      : "=r"(rb)
-      : "r"(smem_addr(bar)), "r"(peer));
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
-      "{%1, %2, %3, %4}, [%5];" ::"r"(rd),
-      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(rb)
-      : "memory");
 }
 
 // the hidden sizes and CTAs per cluster the kernels take: H 256 over 16
@@ -623,63 +563,13 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
   }
 }
 
-// Sets `kernel`'s shared memory and, above 8 CTAs, its non-portable
-// cluster size; fills cfg for `clusters` clusters of CLN CTAs.
-template <int CLN, typename Kernel>
-int gru_config(Kernel kernel, size_t smem, unsigned clusters,
-               cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr) {
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  int err = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (!err && CLN > 8)
-    err = (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CLN;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg = {};
-  cfg.gridDim = dim3(CLN * clusters);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return err;
-}
-
-// launch `kernel` on ceil(B / 16) clusters of CLN CTAs
-template <int CLN, typename Kernel, typename... Args>
-int launch_gru(Kernel kernel, size_t smem, int B, cudaStream_t stream,
-               Args... args) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  int err = gru_config<CLN>(kernel, smem, (unsigned)((B + BT - 1) / BT), cfg,
-                            attr);
-  if (err) return err;
-  cfg.stream = stream;
-  err = (int)cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err) return err;
-  return check_launch();
-}
-
-// how many clusters of `kernel` the card holds at once; -1 on an error
-template <int CLN, typename Kernel>
-int gru_resident(Kernel kernel, size_t smem) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  int n = 0;
-  if (gru_config<CLN>(kernel, smem, 1, cfg, attr) ||
-      cudaOccupancyMaxActiveClusters(&n, kernel, &cfg))
-    return -1;
-  return n;
-}
-
 template <int H, int CLN>
 int gru_forward(const float* xw, const float* w_hh_t, const float* b_hh,
                 const float* h0, float* ys, float* hn, float* hh, int B,
                 int T, cudaStream_t stream) {
-  return launch_gru<CLN>(gru_fwd_kernel<H, CLN>, Gru<H, CLN>::fwd_smem(), B,
-                         stream, xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T);
+  return launch_cluster_n<CLN>(gru_fwd_kernel<H, CLN>,
+                               Gru<H, CLN>::fwd_smem(), B, stream, xw,
+                               w_hh_t, b_hh, h0, ys, hn, hh, B, T);
 }
 
 template <int H, int CLN>
@@ -687,9 +577,10 @@ int gru_backward(const float* xw, const float* hh, const float* w_hh_t,
                  const float* h0, const float* ys, const float* dys,
                  const float* dhn, float* dxw, float* dhh, float* dh0, int B,
                  int T, cudaStream_t stream) {
-  return launch_gru<CLN>(gru_bwd_kernel<H, CLN>, Gru<H, CLN>::bwd_smem(), B,
-                         stream, xw, hh, w_hh_t, h0, ys, dys, dhn, dxw, dhh,
-                         dh0, B, T);
+  return launch_cluster_n<CLN>(gru_bwd_kernel<H, CLN>,
+                               Gru<H, CLN>::bwd_smem(), B, stream, xw, hh,
+                               w_hh_t, h0, ys, dys, dhn, dxw, dhh, dh0, B,
+                               T);
 }
 
 }  // namespace
@@ -719,14 +610,20 @@ int gru_resident_clusters(int H, int ctas) {
   if (!gru_shape_ok(H, ctas)) return -1;
   int f, b;
   if (H == 128) {
-    f = gru_resident<8>(gru_fwd_kernel<128, 8>, Gru<128, 8>::fwd_smem());
-    b = gru_resident<8>(gru_bwd_kernel<128, 8>, Gru<128, 8>::bwd_smem());
+    f = resident_cluster_n<8>(gru_fwd_kernel<128, 8>,
+                              Gru<128, 8>::fwd_smem());
+    b = resident_cluster_n<8>(gru_bwd_kernel<128, 8>,
+                              Gru<128, 8>::bwd_smem());
   } else if (ctas == 16) {
-    f = gru_resident<16>(gru_fwd_kernel<256, 16>, Gru<256, 16>::fwd_smem());
-    b = gru_resident<16>(gru_bwd_kernel<256, 16>, Gru<256, 16>::bwd_smem());
+    f = resident_cluster_n<16>(gru_fwd_kernel<256, 16>,
+                               Gru<256, 16>::fwd_smem());
+    b = resident_cluster_n<16>(gru_bwd_kernel<256, 16>,
+                               Gru<256, 16>::bwd_smem());
   } else {
-    f = gru_resident<8>(gru_fwd_kernel<256, 8>, Gru<256, 8>::fwd_smem());
-    b = gru_resident<8>(gru_bwd_kernel<256, 8>, Gru<256, 8>::bwd_smem());
+    f = resident_cluster_n<8>(gru_fwd_kernel<256, 8>,
+                              Gru<256, 8>::fwd_smem());
+    b = resident_cluster_n<8>(gru_bwd_kernel<256, 8>,
+                              Gru<256, 8>::bwd_smem());
   }
   return f < b ? f : b;
 }

@@ -2,13 +2,14 @@
 // the row-parallel add+LayerNorm, and the cluster LSTM recurrence.
 //
 // Used by csrc/mixer_stack.cu (the encoder stack, inference and training
-// forward), csrc/lstm_layer.cu (one LSTM layer) and
-// csrc/lstm_recurrence.cu. The recurrence's design is in mixer_stack.cu's
-// source note: W_hh split over an 8-CTA cluster in shared memory, h
-// exchanged through distributed shared memory, one cluster barrier per
-// step, R batch rows per cluster (a template parameter: 16 for K8 and
-// the encoder stack, mixer_stack.cu STACK_ROWS; K7 picks 16, 24 or 32,
-// lstm_layer.cu).
+// forward) and csrc/lstm_layer.cu (one LSTM layer); csrc/gru.cu and
+// csrc/lstm_recurrence.cu (K10, K8: tensor-core chains of their own) take
+// only its constants and helpers. The recurrence's design is in
+// mixer_stack.cu's source note: W_hh split over an 8-CTA cluster in
+// shared memory, h exchanged through distributed shared memory, one
+// cluster barrier per step, R batch rows per cluster (a template
+// parameter: 16 for the encoder stack, mixer_stack.cu STACK_ROWS; K7
+// picks 16, 24 or 32, lstm_layer.cu).
 // The encoder stack runs the recurrence in windows of steps
 // (lstm_window_kernel) and its GEMMs and LayerNorms on the rows of a
 // window (RowMap).

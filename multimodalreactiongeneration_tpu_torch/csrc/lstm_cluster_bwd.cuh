@@ -4,9 +4,10 @@
 // row-parallel LayerNorm backward.
 //
 // Used by csrc/mixer_stack.cu (the encoder-stack backward),
-// csrc/lstm_recurrence.cu, csrc/lstm_layer.cu (whose weight gradients
-// take the tensor-core reductions of tc_gemm.cuh instead of these) and
-// csrc/gru.cu (the column sum; its dW_hh takes tc_gemm.cuh's).
+// csrc/lstm_layer.cu (whose weight gradients take the tensor-core
+// reductions of tc_gemm.cuh instead of these), csrc/gru.cu (the column
+// sum; its dW_hh takes tc_gemm.cuh's) and csrc/lstm_recurrence.cu (its
+// tensor-core reverse chain takes the cell step, StepIn and cell_bwd).
 //
 // The reverse recurrence. The forward stored the gate activations
 // A = [i, f, g, o] and the cell states c of every step, so a reverse step
@@ -26,7 +27,7 @@
 // barrier of step t also orders step t-1's writes after step t's reads.
 // A step's dy, gate activations and cell states come from device memory
 // a step ahead (StepIn), so their latency is off the chain.
-// One kernel runs a window of n steps from t0. K7 and K8 run the whole
+// One kernel runs a window of n steps from t0. K7 runs the whole
 // sequence (t0 = 0, n = T) and write the dgates trajectory (B, T, 4H);
 // the weight gradients and dx are then parallel products over all rows
 // (below). The encoder stack's chunks (mixer_stack.cu) run windows of the
@@ -101,7 +102,7 @@ __device__ __forceinline__ void cell_bwd(const StepIn& in, float dh,
 // R batch rows per cluster; each thread owns up to R/8 (row, unit) cells
 // (H <= 256), and threads k < H compute the partial dh_carry of unit k
 // for all R rows. Runs steps t0+n-1 down to t0 of the (B, T) planes acts
-// and cs (the whole sequence, K7 and K8: t0 = 0, n = T). dys (B, n, H)
+// and cs (the whole sequence, K7: t0 = 0, n = T). dys (B, n, H)
 // and dgates (B, n, 4H) are laid out by the steps run. The state after
 // the steps run is dhn, dcn (B, H), or with dhn_parts (CL, B, H) not null
 // the dh_carry slots of the window after; the state before them goes to

@@ -1,13 +1,15 @@
 // FP32 products on the tensor cores in 3xTF32: the weight-gradient
-// reductions over all B*T rows of K7's, K9's and K10's backward, K7's dx,
-// and K4's weight-gradient reductions, dy and dx over a chunk's rows.
+// reductions over all B*T rows of K7's, K8's, K9's and K10's backward,
+// K7's dx, and K4's weight-gradient reductions, dy and dx over a chunk's
+// rows.
 //
 // It replaces no TPU kernel of its own: it is part of K7's backward
 // (_bwd_kernel_layer in multimodalreactiongeneration_tpu/ops/
 // pallas_lstm.py, whose weight gradients the JAX package takes as
 // einsums at Precision.HIGHEST), of K9's (_bwd_kernel_fused in
-// pallas_lstm_stacked.py), of K4's (_bwd_kernel in pallas_mixer_stack.py)
-// and of K10's (the dW_hh einsum of _bwd_impl in pallas_gru.py).
+// pallas_lstm_stacked.py), of K4's (_bwd_kernel in pallas_mixer_stack.py),
+// of K8's (the dW_hh einsum of _bwd_impl in pallas_lstm.py) and of K10's
+// (the dW_hh einsum of _bwd_impl in pallas_gru.py).
 //
 // Why 3xTF32 (tf32x3.cuh). The weight gradients are sums over 10^4 to
 // 3 x 10^5 rows of products of both signs, and they cancel heavily: one

@@ -9,11 +9,13 @@ gradients are (dxw, dW_hh^T, dh0, dc0).
 
 On CPU tensors ``lstm_recurrence`` runs ``lstm_recurrence_reference``
 (autograd records through it). On CUDA tensors it launches
-``csrc/lstm_recurrence.cu`` (f32, H 128 or 256, any B and T): where a
-gradient is needed, the forward that saves the gate activations and cell
-states, then the backward kernel (the reverse chain writes dxw, then a
-deterministic FP32 split-K reduction gives dW_hh^T); otherwise the forward
-without residuals. Other shapes and dtypes raise, naming K8. Launch
+``csrc/lstm_recurrence.cu`` (f32, H 128 or 256, any B and T; each step's
+product on the tensor cores in 3xTF32): where a gradient is needed, the
+forward that saves the gate activations and cell states, then the
+backward kernel (the reverse chain writes dxw, then a deterministic
+3xTF32 split-K reduction gives dW_hh^T); otherwise the forward without
+residuals. A cluster of CTAs runs 16 batch rows; its size per launch is
+``cluster_ctas``. Other shapes and dtypes raise, naming K8. Launch
 counters: ``fwd_launches`` (both forwards) and ``bwd_launches``.
 """
 
@@ -30,8 +32,12 @@ fwd_launches = 0
 bwd_launches = 0
 
 HIDDEN_SIZES = (128, 256)  # the hidden sizes the kernels take
+# CTAs per cluster the kernels take at each hidden size, the faster first
+# (the sweep in PERF.md)
+CLUSTER_CTAS = {256: (16, 8), 128: (8, 4)}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_RESIDENT = {}  # (device index, H, ctas) -> clusters the card holds at once
 
 
 def lstm_recurrence_reference(xw, w_hh_t, h0, c0):
@@ -66,9 +72,21 @@ def kernel_refusal(hidden: int) -> Optional[str]:
     """Why the kernels cannot take an LSTM of this hidden size, or None."""
     if hidden not in HIDDEN_SIZES:
         return (f"hidden size {hidden}: the K8 kernels take {HIDDEN_SIZES} "
-                "(a CTA of the 8-CTA cluster owns H/8 units, whose 4H/8 gate "
-                "columns the step spreads over 64 threads)")
+                "(a CTA of a cluster of 8 or 16 owns the i, f, g, o gate "
+                "columns of 16 or 32 units, whole tensor-core tiles of 8)")
     return None
+
+
+def cluster_ctas(b: int, h: int, resident) -> int:
+    """CTAs per cluster for a batch of b rows at hidden size h: the first
+    size of ``CLUSTER_CTAS[h]`` at which the card holds all ceil(b / 16)
+    clusters at once (``resident(ctas)``: how many it holds), else the
+    last (whose clusters then run in waves)."""
+    *faster, last = CLUSTER_CTAS[h]
+    for ctas in faster:
+        if -(-b // 16) <= resident(ctas):
+            return ctas
+    return last
 
 
 def _lib():
@@ -77,12 +95,37 @@ def _lib():
         lib.lstm_recurrence_backward_workspace_floats.argtypes = [_I] * 3
         lib.lstm_recurrence_backward_workspace_floats.restype = (
             ctypes.c_longlong)
-        lib.lstm_recurrence_forward_f32.argtypes = [_P] * 9 + [_I] * 3 + [_P]
-        lib.lstm_recurrence_backward_f32.argtypes = [_P] * 14 + [_I] * 3 + [_P]
+        lib.lstm_recurrence_resident_clusters.argtypes = [_I] * 2
+        lib.lstm_recurrence_resident_clusters.restype = ctypes.c_int
+        lib.lstm_recurrence_forward_f32.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+        lib.lstm_recurrence_backward_f32.argtypes = [_P] * 14 + [_I] * 4 + [_P]
         lib.lstm_recurrence_forward_f32.restype = ctypes.c_int
         lib.lstm_recurrence_backward_f32.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def launch_ctas(device, b: int, h: int) -> int:
+    """``cluster_ctas`` on this CUDA device (its occupancy query, once)."""
+    def resident(ctas):
+        key = (device.index, h, ctas)
+        if key not in _RESIDENT:
+            with torch.cuda.device(device):
+                _RESIDENT[key] = _lib().lstm_recurrence_resident_clusters(
+                    h, ctas)
+        return _RESIDENT[key]
+    return cluster_ctas(b, h, resident)
+
+
+def _ctas(name, device, b, h, ctas):
+    """The cluster size of a launch: ``ctas`` where the caller names one
+    (it must be one the kernels take at h), else ``launch_ctas``."""
+    if ctas is None:
+        return launch_ctas(device, b, h)
+    if ctas not in CLUSTER_CTAS[h]:
+        raise ValueError(f"{name}: K8 takes clusters of {CLUSTER_CTAS[h]} "
+                         f"CTAs at hidden size {h}, not {ctas}")
+    return ctas
 
 
 def _check(name, xw, w_hh_t, h0, c0, **more):
@@ -115,11 +158,13 @@ def _check(name, xw, w_hh_t, h0, c0, **more):
     return b, t, h
 
 
-def lstm_recurrence_forward(args, residuals: bool):
+def lstm_recurrence_forward(args, residuals: bool, ctas=None):
     """The forward kernel (CUDA only). Returns (ys, hn, cn, acts, cs);
     acts (B, T, 4H) and cs (B, T, H) are the backward's residuals, None
-    unless ``residuals``."""
+    unless ``residuals``. ``ctas`` names the cluster size (default: the
+    wrapper's choice, ``launch_ctas``)."""
     b, t, h = _check("lstm_recurrence_forward", *args)
+    ctas = _ctas("lstm_recurrence_forward", args[0].device, b, h, ctas)
     xw = args[0]
     new = lambda *shape: torch.empty(*shape, dtype=torch.float32,
                                      device=xw.device)
@@ -127,16 +172,18 @@ def lstm_recurrence_forward(args, residuals: bool):
     acts = new(b, t, 4 * h) if residuals else None
     cs = new(b, t, h) if residuals else None
     _build.launch(_lib().lstm_recurrence_forward_f32, *args, ys, hn, cn,
-                  acts, cs, dims=(b, t, h))
+                  acts, cs, dims=(b, t, h, ctas))
     global fwd_launches
     fwd_launches += 1
     return ys, hn, cn, acts, cs
 
 
-def lstm_recurrence_backward(args, ys, acts, cs, dys, dhn, dcn):
+def lstm_recurrence_backward(args, ys, acts, cs, dys, dhn, dcn, ctas=None):
     """The backward kernel (CUDA only), from the forward's residuals.
-    Returns (dxw, dw_hh_t, dh0, dc0)."""
+    Returns (dxw, dw_hh_t, dh0, dc0). ``ctas`` as the forward's."""
     xw, w_hh_t, h0, c0 = args
+    # the dW_hh reduction reads ys and h0 16 bytes at a time
+    ys, h0 = [a.clone() if a.data_ptr() % 16 else a for a in (ys, h0)]
     cots = [c.float().contiguous() for c in (dys, dhn, dcn)]
     b, t, h = _check("lstm_recurrence_backward", *args,
                      ys=(ys, lambda b, t, h: (b, t, h)),
@@ -145,12 +192,13 @@ def lstm_recurrence_backward(args, ys, acts, cs, dys, dhn, dcn):
                      dys=(cots[0], lambda b, t, h: (b, t, h)),
                      dhn=(cots[1], lambda b, t, h: (b, h)),
                      dcn=(cots[2], lambda b, t, h: (b, h)))
+    ctas = _ctas("lstm_recurrence_backward", xw.device, b, h, ctas)
     grads = [torch.empty_like(a) for a in args]
     lib = _lib()
     ws = torch.empty(lib.lstm_recurrence_backward_workspace_floats(b, t, h),
                      dtype=torch.float32, device=xw.device)
     _build.launch(lib.lstm_recurrence_backward_f32, w_hh_t, h0, c0, ys, acts,
-                  cs, *cots, *grads, ws, dims=(b, t, h))
+                  cs, *cots, *grads, ws, dims=(b, t, h, ctas))
     global bwd_launches
     bwd_launches += 1
     return tuple(grads)

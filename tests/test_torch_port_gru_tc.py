@@ -45,7 +45,7 @@ from jax.experimental import pallas as pl
 
 from multimodalreactiongeneration_tpu.ops import pallas_gru
 from multimodalreactiongeneration_tpu_torch.ops import gru as K10
-from tests.tf32_emulation import product
+from tests.tf32_emulation import chain_product, product
 
 torch.set_num_threads(1)
 FWD_ATOL, GRAD_REL = 1e-5, 1e-4
@@ -56,19 +56,6 @@ def _interpret(monkeypatch):
     monkeypatch.setattr(
         pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True)
     )
-
-
-def chain_product(a, w, passes=3, splits=1):
-    """a (R, K) @ w (K, N) as the kernel's warps sum it: K in ``splits``
-    contiguous ranges, each summed as its even k-steps (k % 4 in {0, 1})
-    plus its odd ones, the ranges added in order."""
-    out = None
-    for idx in torch.arange(a.shape[1]).chunk(splits):
-        even, odd = idx[idx % 4 < 2], idx[idx % 4 >= 2]
-        part = (product(a[:, even], w[even], passes)
-                + product(a[:, odd], w[odd], passes))
-        out = part if out is None else out + part
-    return out
 
 
 def emulate_forward(xw, w_hh_t, b_hh, h0, ctas, passes=3):

@@ -864,6 +864,8 @@ def test_lstm_recurrence_kernels_match_plain(dev, b, t, h):
 
 
 def test_lstm_recurrence_kernel_refuses_bf16_and_other_hidden_sizes(dev):
+    """Every refusal names K8: other dtypes, hidden sizes, and a cluster
+    size the kernels do not take at that hidden size."""
     from multimodalreactiongeneration_tpu_torch.ops import lstm_recurrence as K8
 
     b, t = 2, 16
@@ -873,8 +875,84 @@ def test_lstm_recurrence_kernel_refuses_bf16_and_other_hidden_sizes(dev):
         z = lambda *s: torch.zeros(*s, device=dev, dtype=dt)
         for grad in (False, True):
             xw = z(b, t, 4 * h).requires_grad_(grad)
-            with pytest.raises(ValueError, match=match):
+            with pytest.raises(ValueError, match=match) as info:
                 K8.lstm_recurrence(xw, z(h, 4 * h), z(b, h), z(b, h))
+            assert "K8" in str(info.value)
+    z = lambda *s: torch.zeros(*s, device=dev)
+    before = K8.fwd_launches
+    for h, ctas in ((128, 16), (128, 2), (256, 4)):
+        with pytest.raises(ValueError, match="K8 takes clusters"):
+            K8.lstm_recurrence_forward(
+                (z(b, t, 4 * h), z(h, 4 * h), z(b, h), z(b, h)), False,
+                ctas=ctas)
+    assert K8.fwd_launches == before
+
+
+def _k8_case(dev, seed, b, t, h):
+    r = _rand(np.random.default_rng(seed), dev)
+    args = (r(b, t, 4 * h, s=0.5), r(h, 4 * h, s=0.06), r(b, h, s=0.3),
+            r(b, h, s=0.3))
+    return args, (r(b, t, h), r(b, h), r(b, h))
+
+
+def _k8_runs_twice_and_holds_to_plain(K8, args, cots, ctas=None):
+    """Two K8 forwards without residuals, two with, two backwards: the
+    same bits each time, one launch counted per call; then forward TOL
+    and gradients GRAD_REL_TOL of the largest against plain."""
+    before = K8.fwd_launches, K8.bwd_launches
+    bare = [K8.lstm_recurrence_forward(args, False, ctas=ctas)[:3]
+            for _ in range(2)]
+    first, second = [K8.lstm_recurrence_forward(args, True, ctas=ctas)
+                     for _ in range(2)]
+    grads = [K8.lstm_recurrence_backward(args, first[0], first[3], first[4],
+                                         *cots, ctas=ctas)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (K8.fwd_launches, K8.bwd_launches) == (before[0] + 4,
+                                                  before[1] + 2)
+    for x, y in zip((*bare[0], *first, *grads[0]),
+                    (*bare[1], *second, *grads[1])):
+        assert torch.equal(x, y)
+    for x, y in zip(bare[0], first[:3]):  # residuals change no output
+        assert torch.equal(x, y)
+    ysr, (hr, cr) = K8.lstm_recurrence_reference(*args)
+    for got, want in zip(first[:3], (ysr, hr, cr)):
+        assert float((got - want).abs().max()) <= TOL
+    want = K8.lstm_recurrence_backward_reference(args, *cots)
+    for i, (g, w) in enumerate(zip(grads[0], want)):
+        assert _rel_err(g, w) <= GRAD_REL_TOL, i
+
+
+@pytest.mark.parametrize("h", [128, 256])
+@pytest.mark.parametrize("t", [1, 37, 252])
+@pytest.mark.parametrize("b", [1, 17, 33])
+def test_lstm_recurrence_kernels_are_bit_identical_run_to_run(dev, b, t, h):
+    """K8 at the cluster size the wrapper chooses: two calls of each
+    kernel on the same inputs give the same bits (fixed summation orders,
+    no atomics), and agree with the plain version."""
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_recurrence as K8
+
+    args, cots = _k8_case(dev, 1000 * b + t + h, b, t, h)
+    _k8_runs_twice_and_holds_to_plain(K8, args, cots)
+
+
+@pytest.mark.parametrize("h", [128, 256])
+@pytest.mark.parametrize("b", [1, 17, 113, 256])
+def test_lstm_recurrence_kernels_at_every_cluster_size(dev, b, h):
+    """K8 at B 1 to 256 with every cluster size the kernels take at this
+    H forced once (at H 256 and B 113 or more the 16-CTA clusters run in
+    waves), and at the wrapper's choice: the same bits run to run, within
+    the gates of plain; the choice is the faster size while every cluster
+    of the batch fits on the card at once."""
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_recurrence as K8
+
+    args, cots = _k8_case(dev, 7 * b + h, b, 37, h)
+    resident = {c: K8._lib().lstm_recurrence_resident_clusters(h, c)
+                for c in K8.CLUSTER_CTAS[h]}
+    assert all(n > 0 for n in resident.values()), resident
+    assert K8.launch_ctas(dev, b, h) == K8.cluster_ctas(b, h, resident.get)
+    for ctas in K8.CLUSTER_CTAS[h]:
+        _k8_runs_twice_and_holds_to_plain(K8, args, cots, ctas)
 
 
 @pytest.mark.parametrize("din", [256, 81])

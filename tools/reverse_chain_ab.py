@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the backward of K7 and K8, which run the reverse cluster kernel
-that the encoder-stack backward (K4) runs in windows, for the checkout in
-the current directory.
+"""Time the backward of K7, which runs the reverse cluster kernel that
+the encoder-stack backward (K4) runs in windows, and of K8, for the
+checkout in the current directory.
 
 Run from the root of a checkout of the PyTorch port, on one CUDA card:
 
@@ -18,7 +18,10 @@ B20 x T37 x H128. Each time is three rounds of 30 launches by CUDA events
 after a warm-up, from the forward's residuals. Prints one JSON line with
 TAG, ms per launch (one value a round) and, for each shape, a fingerprint
 of the backward's output bits (the same in two checkouts whose kernels
-do the same arithmetic).
+do the same arithmetic). K8 left the shared reverse kernel for a
+tensor-core chain of its own (``csrc/lstm_recurrence.cu``), so its
+fingerprints differ from those of a checkout before that change, while
+K7's must still equal them: K7's bits do not move with K8's.
 """
 
 import hashlib
