@@ -147,33 +147,7 @@ inline bool lstm_shape_ok(int H, int ctas) {
 
 // most W fragments a warp keeps wholly in registers (hi and lo: 4
 // registers each); past it, lo lives in shared memory
-// Sweep variants (build defines a measuring tool asks for):
-// LSTM_REG_FRAGS=n  lo fragments in shared memory past n a warp
-// LSTM_CHAINED_ACC  every k-step's passes chained into one accumulator
-// LSTM_BWD_ACC4     four accumulator sets in the backward's product
-// LSTM_SCALAR_RES   the forward's residuals stored by each lane, unstaged
-#ifdef LSTM_REG_FRAGS
-constexpr int REG_FRAGS = LSTM_REG_FRAGS;
-#else
 constexpr int REG_FRAGS = 32;
-#endif
-
-// d (+)= a b for one k-step: summed from zero and added in FP32, or, with
-// LSTM_CHAINED_ACC, chained into the accumulator on the tensor cores
-__device__ __forceinline__ void kstep_3xtf32(float (&acc)[4],
-                                             const uint32_t (&ah)[4],
-                                             const uint32_t (&al)[4],
-                                             const uint32_t (&bh)[2],
-                                             const uint32_t (&bl)[2]) {
-#ifdef LSTM_CHAINED_ACC
-  mma_3xtf32(acc, ah, al, bh, bl);
-#else
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_3xtf32(d, ah, al, bh, bl);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += d[e];
-#endif
-}
 
 // The shape of a step for hidden size H over a cluster of CLN CTAs.
 template <int H, int CLN>
@@ -330,7 +304,10 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_fwd_kernel(
           } else {
             bl[0] = wl[gt][LO ? 0 : s][0], bl[1] = wl[gt][LO ? 0 : s][1];
           }
-          kstep_3xtf32(acc[o][gt], ah, al, whi[gt][s], bl);
+          float d[4] = {0.f, 0.f, 0.f, 0.f};  // this k-step, from zero
+          mma_3xtf32(d, ah, al, whi[gt][s], bl);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[o][gt][e] += d[e];
         }
       }
     }
@@ -365,19 +342,9 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_fwd_kernel(
       const int u = col[i] - rank * U;
       hs[row[i] * U + u] = a[i][3] * tanhf(c[i]);
       if constexpr (RES) {
-#ifdef LSTM_SCALAR_RES
-        if (ok[i]) {
-          const size_t rt = (size_t)(b0 + row[i]) * T + t;
-#pragma unroll
-          for (int gt = 0; gt < 4; ++gt)
-            acts[rt * G + gt * H + col[i]] = a[i][gt];
-          cs[rt * H + col[i]] = c[i];
-        }
-#else
 #pragma unroll
         for (int gt = 0; gt < 4; ++gt) rs[row[i] * RS + gt * U + u] = a[i][gt];
         rs[row[i] * RS + 4 * U + u] = c[i];
-#endif
       }
     }
     __syncthreads();
@@ -400,12 +367,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_fwd_kernel(
     }
     // the residuals from the staged block, 16 bytes a store: the U / 4
     // chunks of each gate, then of c
-#ifdef LSTM_SCALAR_RES
-    constexpr bool STAGED = false;
-#else
-    constexpr bool STAGED = RES;
-#endif
-    for (int ch = tid; STAGED && ch < BT * 5 * U / 4; ch += NT) {
+    for (int ch = tid; RES && ch < BT * 5 * U / 4; ch += NT) {
       const int r = ch / (5 * U / 4), k = 4 * (ch % (5 * U / 4));
       if (b0 + r >= B) continue;
       const size_t rt = (size_t)(b0 + r) * T + t;
@@ -550,14 +512,9 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_bwd_kernel(
     __syncthreads();
     stamp(1, T - 1 - t, 1);
 
-#ifdef LSTM_BWD_ACC4
-    constexpr int NA = 4;
-#else
-    constexpr int NA = 2;
-#endif
-    float acc[NA][NPW][4];
+    float acc[2][NPW][4];
 #pragma unroll
-    for (int o = 0; o < NA; ++o)
+    for (int o = 0; o < 2; ++o)
 #pragma unroll
       for (int jj = 0; jj < NPW; ++jj)
 #pragma unroll
@@ -585,8 +542,10 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_bwd_kernel(
           } else {
             bl[0] = wl[jj][LO ? 0 : s][0], bl[1] = wl[jj][LO ? 0 : s][1];
           }
-          kstep_3xtf32(acc[NA == 4 ? 2 * (p % 2) + o : o][jj], ah, al,
-                       whi[jj][s], bl);
+          float d[4] = {0.f, 0.f, 0.f, 0.f};  // this k-step, from zero
+          mma_3xtf32(d, ah, al, whi[jj][s], bl);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[o][jj][e] += d[e];
         }
       }
     }
@@ -599,10 +558,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_bwd_kernel(
     for (int jj = 0; jj < NPW; ++jj) {
       float cv[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        cv[e] = acc[0][jj][e] + acc[1][jj][e];
-        if (NA == 4) cv[e] = cv[e] + acc[NA - 2][jj][e] + acc[NA - 1][jj][e];
-      }
+      for (int e = 0; e < 4; ++e) cv[e] = acc[0][jj][e] + acc[1][jj][e];
       const float s0 = __shfl_xor_sync(0xffffffffu, odd ? cv[0] : cv[2], 1);
       const float s1 = __shfl_xor_sync(0xffffffffu, odd ? cv[1] : cv[3], 1);
       const float4 v = odd ? make_float4(s0, s1, cv[2], cv[3])

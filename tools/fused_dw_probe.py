@@ -4,7 +4,7 @@ several batch seeds, for the checkout in the current directory.
 
 Run from the root of a checkout of the PyTorch port, on one CUDA card:
 
-    python3 <this file> TAG [--seeds N] [--define X]
+    python3 <this file> TAG [--seeds N]
 
 ``chip_smoke.py`` phase 20 runs one ``MRGEN_FUSED_DW=0`` training step of
 the flagship Metaformer and of simple_lstm (their single-layer LSTMs on
@@ -14,8 +14,7 @@ reads K8's rounding through the whole model. This runs that phase on the
 batches of seeds 0 .. N-1 (default 3) and prints one JSON line: TAG, the
 card's name and power limit, and per model and seed the loss's relative
 difference and the worst gradient's (a gate failure is recorded, not
-raised). ``--define X`` builds the K8 kernels with ``-DX`` (a sweep
-variant the source offers).
+raised).
 """
 
 import json
@@ -33,14 +32,7 @@ def main():
     argv = sys.argv[1:]
     tag = argv[0] if argv and not argv[0].startswith("--") else os.getcwd()
     seeds = int(argv[argv.index("--seeds") + 1]) if "--seeds" in argv else 3
-    defines = tuple(argv[i + 1] for i, a in enumerate(argv)
-                    if a == "--define")
     import chip_smoke as cs
-    from multimodalreactiongeneration_tpu_torch import _build
-
-    load = _build.load
-    _build.load = lambda name, d=(): load(
-        name, (*defines, *d) if name == "lstm_recurrence" else d)
     from multimodalreactiongeneration_tpu_torch.ops import (
         decode_rollout as K2,
         gru as K10,
@@ -56,7 +48,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    record = {"tag": tag, "defines": list(defines)}
+    record = {"tag": tag}
     for seed in range(seeds):
         for spec in (cs.metaformer_train_spec(), cs.simple_train_spec()):
             key = f"{spec['tag']} seed {seed}"

@@ -5,7 +5,7 @@ and split a chain step into its phases.
 
 Run from the root of a checkout of the PyTorch port, on one CUDA card:
 
-    python3 <this file> TAG [--stamps] [--ctas C] [--batch N] [--define X]
+    python3 <this file> TAG [--stamps] [--ctas C] [--batch N]
 
 It imports the port from the current directory, so one command can time
 two checkouts in turns (parent, change, change, parent: unpack the other
@@ -28,8 +28,7 @@ the clusters of 16 rows the card holds at once per H and cluster size
 ``--ctas C`` runs every launch at a hidden size that takes clusters of
 C CTAs over clusters of C, whatever the wrapper would choose (the others
 at the wrapper's choice). ``--batch N`` adds BN x T120 x H128 and BN x
-T252 x H256. ``--define X`` times a sweep variant of the source: every
-kernel built with ``-DX``.
+T252 x H256.
 ``--stamps`` also runs one forward with residuals and one backward at
 B256 x T120 x H128 and B32 x T252 x H256 from a build with
 ``-DLSTM_STAMPS``: thread 0 of each of the first 16 CTAs stamps
@@ -93,13 +92,13 @@ def max_rel(got, want):
 
 
 @contextlib.contextmanager
-def built_with(*defines):
+def stamped():
     """Inside, the K8 wrappers launch ``lstm_recurrence.cu`` built with
-    ``defines`` (-D each); yields that build."""
+    -DLSTM_STAMPS; yields that build."""
     from multimodalreactiongeneration_tpu_torch import _build
 
     load = _build.load
-    _build.load = lambda name, d=(): load(name, (*defines, *d))
+    _build.load = lambda name, d=(): load(name, ("LSTM_STAMPS", *d))
     try:
         yield _build.load("lstm_recurrence")
     finally:
@@ -179,17 +178,15 @@ def main():
     shapes = SHAPES + tuple(
         s for i, a in enumerate(argv) if a == "--batch"
         for s in ((int(argv[i + 1]), 120, 128), (int(argv[i + 1]), 252, 256)))
-    defines = [argv[i + 1] for i, a in enumerate(argv) if a == "--define"]
-    record = {"tag": tag, "defines": defines}
+    record = {"tag": tag}
     forced = int(argv[argv.index("--ctas") + 1]) if "--ctas" in argv else None
     if forced:
         record["forced_ctas"] = forced
     kw = lambda h: ({"ctas": forced}
                     if forced in getattr(K8, "CLUSTER_CTAS", {}).get(h, ())
                     else {})
-    with built_with(*defines):
-        for b, t, h in shapes:
-            record[f"B{b} T{t} H{h}"] = time_shape(K8, r, b, t, h, kw(h))
+    for b, t, h in shapes:
+        record[f"B{b} T{t} H{h}"] = time_shape(K8, r, b, t, h, kw(h))
     if hasattr(K8, "launch_ctas"):
         record["resident"] = {
             h: {c: K8._lib().lstm_recurrence_resident_clusters(h, c)
@@ -198,7 +195,7 @@ def main():
             f"B{b} H{h}": kw(h).get("ctas", K8.launch_ctas(dev, b, h))
             for b, _, h in shapes}
     if "--stamps" in argv:
-        with built_with("LSTM_STAMPS", *defines) as lib:
+        with stamped() as lib:
             record["stamps"] = {f"B{b} T{t} H{h}": stamp_split(
                 K8, lib, r, b, t, h, kw(h)) for b, t, h in STAMP_SHAPES}
     record["card"] = subprocess.run(
