@@ -41,14 +41,9 @@
 //    per CTA. The K index of a fragment is permuted inside each group of
 //    16 so that a thread reads its four A values of two k-steps as one
 //    float4 of h (rows padded to H + 16 floats: the float4 reads are free
-//    of bank conflicts); h is split into hi and lo as it is read. Each
-//    k-step's three TF32 passes sum from zero, and that partial is added
-//    to its FP32 accumulator in round-to-nearest, even and odd k-steps
-//    into separate ones: the tensor cores' own additions truncate, and one
-//    accumulator chained through all of K drifted one way (the
-//    MRGEN_FUSED_DW=0 flagship step's gradients moved 5.2e-4 of their
-//    largest from the default path's, 5.9e-5 with per-k-step sums, at
-//    ~5% of K8's time; PERF.md).
+//    of bank conflicts); h is split into hi and lo as it is read. Even and
+//    odd k-steps sum into separate accumulators (eight independent chains
+//    of MMAs a warp).
 //  * the K split is reduced through shared memory in ks order, and the
 //    KS warps of a unit group share the cell: warp ks computes the
 //    fragment elements [ks 4/KS, (ks+1) 4/KS) of its lanes.
@@ -78,13 +73,13 @@
 // dgates go through shared memory to the carry product dgates (16 x 4U) @
 // W_slice^T (4U x H) in 3xTF32 mma.sync, warp w computing the n-tiles of
 // units [8 w H/64, 8 (w+1) H/64) over all of K = 4U, from W^T fragments
-// split once into hi and lo and k-steps summed as in the forward. That
-// product is a PARTIAL carry over all H units; each lane pairs with its
-// neighbour (one shuffle) to hold four consecutive units of one row and
-// writes them with one 16-byte st.async into slot r of the owning CTA
-// (slots double-buffered by parity, a transaction barrier per parity, one
-// wait a step; a __syncthreads after it, since a warp may send no slot to
-// its own CTA and its peers must be done with dgates). The carries are
+// split once into hi and lo as in the forward. That product is a PARTIAL
+// carry over all H units; each lane pairs with its neighbour (one
+// shuffle) to hold four consecutive units of one row and writes them with
+// one 16-byte st.async into slot r of the owning CTA (slots double-
+// buffered by parity, a transaction barrier per parity, one wait a step;
+// a __syncthreads after it, since a warp may send no slot to its own CTA
+// and its peers must be done with dgates). The carries are
 // summed in CTA order, so the result is the same from run to run.
 // dW_hh^T = h_shift^T dgates over all B*T rows, h_shift the h_{t-1} of
 // every step (h0 at step 0), reduces outside the chain in 3xTF32
@@ -100,8 +95,9 @@
 // B240), else 4 (U 32: B256, a simple_lstm direction, runs ~1.6x faster
 // over 4 than in two waves over 8). The sweep is in PERF.md: W's lo
 // fragments in shared memory past 24 fragments a warp, and four
-// accumulator sets in the backward, measured no faster. The widest
-// instances use all 255 registers and spill a few bytes.
+// accumulator sets in the backward, measured no faster; summing each
+// k-step from zero before adding it in FP32 ran 5-8% slower with the same
+// error against the plain version.
 //
 // Numerics: the products in 3xTF32 (FP32's order of error, tf32x3.cuh);
 // cell math, state and sums in FP32.
@@ -304,10 +300,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_fwd_kernel(
           } else {
             bl[0] = wl[gt][LO ? 0 : s][0], bl[1] = wl[gt][LO ? 0 : s][1];
           }
-          float d[4] = {0.f, 0.f, 0.f, 0.f};  // this k-step, from zero
-          mma_3xtf32(d, ah, al, whi[gt][s], bl);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[o][gt][e] += d[e];
+          mma_3xtf32(acc[o][gt], ah, al, whi[gt][s], bl);
         }
       }
     }
@@ -542,10 +535,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_bwd_kernel(
           } else {
             bl[0] = wl[jj][LO ? 0 : s][0], bl[1] = wl[jj][LO ? 0 : s][1];
           }
-          float d[4] = {0.f, 0.f, 0.f, 0.f};  // this k-step, from zero
-          mma_3xtf32(d, ah, al, whi[jj][s], bl);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[o][jj][e] += d[e];
+          mma_3xtf32(acc[o][jj], ah, al, whi[jj][s], bl);
         }
       }
     }

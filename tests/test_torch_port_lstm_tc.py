@@ -15,11 +15,8 @@ version and to the JAX kernel where no card is needed:
     accumulators, the even k-steps (k % 4 in {0, 1} within its range, the
     kernel's permuted fragment order) and the odd ones, added, then the
     warps' partials added in warp order and xw last; every product from
-    TF32 hi and lo parts with FP32 sums, lo*hi + hi*lo + hi*hi (the kernel
-    sums each k-step's three passes from zero on the tensor cores, whose
-    additions truncate, and adds that partial to its accumulator in FP32;
-    the emulation's sums are FP32 throughout); the cell in f32 as the
-    kernel's, saving the activations and cell states;
+    TF32 hi and lo parts with FP32 sums, lo*hi + hi*lo + hi*hi; the cell
+    in f32 as the kernel's, saving the activations and cell states;
   * ``emulate_backward`` repeats the backward kernel's: per reverse step
     dh = dy + dh_n at the last step, else dy + the partial carries of
     CTAs 0..C-1 in that order, the cell's backward from the activations

@@ -4,28 +4,103 @@ several batch seeds, for the checkout in the current directory.
 
 Run from the root of a checkout of the PyTorch port, on one CUDA card:
 
-    python3 <this file> TAG [--seeds N]
+    python3 <this file> TAG [--seeds N] [--time]
 
 ``chip_smoke.py`` phase 20 runs one ``MRGEN_FUSED_DW=0`` training step of
 the flagship Metaformer and of simple_lstm (their single-layer LSTMs on
 K8) against the default step (K7) on the same weights and batch, and
 holds every gradient within 1e-3 of its parameter's largest: a gate that
-reads K8's rounding through the whole model. This runs that phase on the
-batches of seeds 0 .. N-1 (default 3) and prints one JSON line: TAG, the
-card's name and power limit, and per model and seed the loss's relative
-difference and the worst gradient's (a gate failure is recorded, not
-raised).
+reads K8's rounding through the whole model. This repeats that
+comparison on the batches of seeds 0 .. N-1 (default 3) and also counts
+the inputs of every ``torch.relu`` of the two forwards whose sign
+differs: a flipped ReLU moves its parameter's gradient by a discrete
+amount, whatever the size of the rounding that flipped it. Prints one
+JSON line: TAG, the card's name and power limit, and per model and seed
+the loss's relative difference, the worst gradient's and its parameter,
+the ReLU inputs, how many flipped and the largest magnitude among them.
+``--time`` instead times each model's training step, with its yaml's
+optimizer on the batch of seed 0, under ``MRGEN_FUSED_DW=1`` and ``=0``
+in turns (1, 0, 0, 1): host clock to a synchronize, the mean of 5 steps
+after one warm-up step, ms.
 """
 
 import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
 
 sys.path.insert(0, os.getcwd())
+
+RELU = torch.relu
+
+
+def recording_relu(model, log):
+    """torch.relu that appends a copy of each input to ``log``, also set
+    as the activation of every module of ``model`` that holds torch.relu
+    (the modules that call torch.relu by name see it while it is
+    installed as torch.relu)."""
+    def relu(x):
+        log.append(x.detach().clone())
+        return RELU(x)
+    for m in model.modules():
+        if getattr(m, "act", None) is RELU:
+            m.act = relu
+    return relu
+
+
+def compare(cs, spec, dev, seed):
+    """The phase-20 comparison on the batch of ``seed``, with ReLU flips."""
+    batch = cs.spec_batch(spec, np.random.default_rng(seed), spec["batch"],
+                          dev)
+    sgd0 = dict(use_optimizer="sgd", lr=0.0, momentum=0.0, weight_decay=0.0)
+    runs = {}
+    for flag in ("1", "0"):
+        model = cs.spec_model(spec, dev)
+        train_step, _ = cs.spec_step_fns(spec, model, sgd0)
+        log = []
+        torch.relu = recording_relu(model, log)
+        try:
+            with cs.fused_dw(flag):
+                loss, _ = train_step(batch)
+        finally:
+            torch.relu = RELU
+        torch.cuda.synchronize()
+        runs[flag] = (float(loss), model, log)
+    (loss_on, model_on, on), (loss_off, model_off, off) = runs["1"], runs["0"]
+    worst, name = cs.grad_rel_errs(model_off, model_on)
+    flipped = [a[(a > 0) != (b > 0)] for a, b in zip(on, off)]
+    return {"loss_rel_err": abs(loss_off - loss_on) / abs(loss_on),
+            "grad_max_rel_err": worst, "worst": name,
+            "relu_inputs": sum(a.numel() for a in on),
+            "relu_sign_flips": sum(f.numel() for f in flipped),
+            "largest_flipped_input": max(
+                (float(f.abs().max()) for f in flipped if f.numel()),
+                default=0.0)}
+
+
+def step_times(cs, spec, dev, steps=5):
+    """{flag: [ms, ms]}: the step's mean time under MRGEN_FUSED_DW=flag,
+    the flags in turns 1, 0, 0, 1, one model and batch each turn."""
+    out = {"1": [], "0": []}
+    for flag in ("1", "0", "0", "1"):
+        model = cs.spec_model(spec, dev)
+        train_step, _ = cs.spec_step_fns(spec, model, spec["optim"])
+        batch = cs.spec_batch(spec, np.random.default_rng(0), spec["batch"],
+                              dev)
+        with cs.fused_dw(flag):
+            train_step(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                train_step(batch)
+            torch.cuda.synchronize()
+        out[flag].append((time.perf_counter() - t0) * 1e3 / steps)
+        del model, train_step
+    return out
 
 
 def main():
@@ -33,32 +108,17 @@ def main():
     tag = argv[0] if argv and not argv[0].startswith("--") else os.getcwd()
     seeds = int(argv[argv.index("--seeds") + 1]) if "--seeds" in argv else 3
     import chip_smoke as cs
-    from multimodalreactiongeneration_tpu_torch.ops import (
-        decode_rollout as K2,
-        gru as K10,
-        lstm_layer as K7,
-        lstm_recurrence as K8,
-        lstm_stacked as K9,
-        mixer_stack as K1,
-        rect_attention as K5,
-    )
 
-    mods = {"K1": K1, "K2": K2, "K5": K5, "K7": K7, "K8": K8, "K9": K9,
-            "K10": K10}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     record = {"tag": tag}
-    for seed in range(seeds):
-        for spec in (cs.metaformer_train_spec(), cs.simple_train_spec()):
-            key = f"{spec['tag']} seed {seed}"
-            try:
-                out = cs.fused_dw_off_phase(
-                    mods, dev, np.random.default_rng(seed), spec)
-                record[key] = {k: out["record"][k]
-                               for k in ("loss_rel_err", "grad_max_rel_err")}
-            except AssertionError as e:
-                record[key] = {"gate_failed": str(e)}
+    for spec in (cs.metaformer_train_spec(), cs.simple_train_spec()):
+        if "--time" in argv:
+            record[spec["tag"]] = step_times(cs, spec, dev)
+            continue
+        for seed in range(seeds):
+            record[f"{spec['tag']} seed {seed}"] = compare(cs, spec, dev, seed)
     record["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
