@@ -939,11 +939,12 @@ def lstm_recurrence_phase(K8, dev, rng):
                     args, first[0], *first[3:], *cots), grads1))
         # the chain's products h.W_hh: 2 B T 4H H FLOPs; the backward
         # twice that (dgates.W_hh^T on the chain, then dW_hh); all in
-        # 3xTF32 (the FP32 figures beside)
+        # 3xTF32 (the FP32 figures beside). The backward reads no xw: its
+        # gates come from acts
         flops = 2 * b * t * 4 * h * h
         fwd_bytes = nbytes(args, ys1, hn1, cn1, acts, cs)
         nores_bytes = nbytes(args, ys0, hn0, cn0)
-        bwd_bytes = nbytes(args, ys1, acts, cs, cots, grads)
+        bwd_bytes = nbytes(args[1:], ys1, acts, cs, cots, grads)
         lib_fwd_ms, lib_bwd_ms = cudnn_recurrence_ms(args, cots)
         case = dict(
             B=b, T=t, H=h, clusters=-(-b // 16),

@@ -82,7 +82,7 @@
 // 8 and run B32 x T2016 ~18% faster forward and ~25% backward, but the
 // card holds only 7 such clusters, so a batch of more than 112 rows runs
 // over 8 CTAs (15 resident) rather than in two waves; ops/gru.py
-// cluster_ctas picks from the occupancy query gru_resident_clusters. At
+// launch_ctas picks from the occupancy query gru_resident_clusters. At
 // H 128, 8 CTAs (4 and 2 were slower). The SIMT product (each thread all
 // 16 rows of its columns) was slower than the tensor cores at every size.
 //
@@ -121,7 +121,7 @@ __device__ __forceinline__ void stamp(int dir, int step, int m) {
 }
 
 // the hidden sizes and CTAs per cluster the kernels take: H 256 over 16
-// or 8, H 128 over 8 (ops/gru.py cluster_ctas picks)
+// or 8, H 128 over 8 (ops/gru.py launch_ctas picks)
 inline bool gru_shape_ok(int H, int ctas) {
   return (H == 256 && (ctas == 16 || ctas == 8)) || (H == 128 && ctas == 8);
 }

@@ -86,7 +86,7 @@
 // (tc_gemm.cuh reduce_rows_tn_tc, deterministic split-K; the JAX package
 // takes it at HIGHEST precision, as the sum cancels heavily).
 //
-// Cluster size: ops/lstm_recurrence.py cluster_ctas picks CLN per launch
+// Cluster size: ops/lstm_recurrence.py launch_ctas picks CLN per launch
 // from the occupancy query lstm_recurrence_resident_clusters: the larger
 // size while the batch's clusters fit on the card at once, else the
 // smaller, whose clusters run in one wave where the larger's would run
@@ -135,7 +135,8 @@ __device__ __forceinline__ void stamp(int dir, int step, int m) {
 }
 
 // the hidden sizes and CTAs per cluster the kernels take: H 256 over 16
-// or 8, H 128 over 8 or 4 (ops/lstm_recurrence.py cluster_ctas picks)
+// or 8, H 128 over 8 or 4 (ops/lstm_recurrence.py launch_ctas picks);
+// the entry points refuse any other size
 inline bool lstm_shape_ok(int H, int ctas) {
   return (H == 256 && (ctas == 16 || ctas == 8)) ||
          (H == 128 && (ctas == 8 || ctas == 4));

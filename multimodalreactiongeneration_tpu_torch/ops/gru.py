@@ -14,8 +14,9 @@ saves hh = h_{t-1} @ W_hh^T + b_hh of every step (as the JAX
 ``_vjp_fwd``) and then the backward kernel, which runs the reverse chain
 from hh and reduces dW_hh (3xTF32) and db_hh; otherwise the forward
 without residuals. A cluster of CTAs runs 16 batch rows; its size per
-launch is ``cluster_ctas``. Other shapes and dtypes raise. Launch
-counters: ``fwd_launches`` (both forwards) and ``bwd_launches``.
+launch is ``launch_ctas`` (``ops/cluster_size.py``). Other shapes and
+dtypes raise. Launch counters: ``fwd_launches`` (both forwards) and
+``bwd_launches``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from multimodalreactiongeneration_tpu_torch import _build
+from multimodalreactiongeneration_tpu_torch.ops import cluster_size
 
 fwd_launches = 0
 bwd_launches = 0
@@ -36,7 +38,6 @@ HIDDEN_SIZES = (128, 256)  # the hidden sizes the kernels take
 CLUSTER_CTAS = {256: (16, 8), 128: (8,)}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_RESIDENT = {}  # (device index, H, ctas) -> clusters the card holds at once
 
 
 def gru_recurrence_reference(xw, w_hh_t, b_hh, h0):
@@ -79,18 +80,6 @@ def kernel_refusal(hidden: int) -> Optional[str]:
     return None
 
 
-def cluster_ctas(b: int, h: int, resident) -> int:
-    """CTAs per cluster for a batch of b rows at hidden size h: the first
-    size of ``CLUSTER_CTAS[h]`` at which the card holds all ceil(b / 16)
-    clusters at once (``resident(ctas)``: how many it holds), else the
-    last (whose clusters then run in waves)."""
-    *faster, last = CLUSTER_CTAS[h]
-    for ctas in faster:
-        if -(-b // 16) <= resident(ctas):
-            return ctas
-    return last
-
-
 def _lib():
     lib = _build.load("gru")
     if not getattr(lib, "_typed", False):
@@ -107,14 +96,12 @@ def _lib():
 
 
 def launch_ctas(device, b: int, h: int) -> int:
-    """``cluster_ctas`` on this CUDA device (its occupancy query, once)."""
-    def resident(ctas):
-        key = (device.index, h, ctas)
-        if key not in _RESIDENT:
-            with torch.cuda.device(device):
-                _RESIDENT[key] = _lib().gru_resident_clusters(h, ctas)
-        return _RESIDENT[key]
-    return cluster_ctas(b, h, resident)
+    """CTAs per cluster of a launch on this CUDA device: the first size of
+    ``CLUSTER_CTAS[h]`` at which the card holds the batch's clusters at
+    once (``cluster_size.launch_ctas``)."""
+    return cluster_size.launch_ctas(
+        f"gru H{h}", device, b, CLUSTER_CTAS[h],
+        lambda ctas: _lib().gru_resident_clusters(h, ctas))
 
 
 def _check(name, xw, w_hh_t, b_hh, h0, **more):

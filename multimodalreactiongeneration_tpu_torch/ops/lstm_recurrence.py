@@ -15,8 +15,9 @@ forward that saves the gate activations and cell states, then the
 backward kernel (the reverse chain writes dxw, then a deterministic
 3xTF32 split-K reduction gives dW_hh^T); otherwise the forward without
 residuals. A cluster of CTAs runs 16 batch rows; its size per launch is
-``cluster_ctas``. Other shapes and dtypes raise, naming K8. Launch
-counters: ``fwd_launches`` (both forwards) and ``bwd_launches``.
+``launch_ctas`` (``ops/cluster_size.py``). Other shapes and dtypes
+raise, naming K8. Launch counters: ``fwd_launches`` (both forwards) and
+``bwd_launches``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from multimodalreactiongeneration_tpu_torch import _build
+from multimodalreactiongeneration_tpu_torch.ops import cluster_size
 
 fwd_launches = 0
 bwd_launches = 0
@@ -37,7 +39,6 @@ HIDDEN_SIZES = (128, 256)  # the hidden sizes the kernels take
 CLUSTER_CTAS = {256: (16, 8), 128: (8, 4)}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_RESIDENT = {}  # (device index, H, ctas) -> clusters the card holds at once
 
 
 def lstm_recurrence_reference(xw, w_hh_t, h0, c0):
@@ -77,18 +78,6 @@ def kernel_refusal(hidden: int) -> Optional[str]:
     return None
 
 
-def cluster_ctas(b: int, h: int, resident) -> int:
-    """CTAs per cluster for a batch of b rows at hidden size h: the first
-    size of ``CLUSTER_CTAS[h]`` at which the card holds all ceil(b / 16)
-    clusters at once (``resident(ctas)``: how many it holds), else the
-    last (whose clusters then run in waves)."""
-    *faster, last = CLUSTER_CTAS[h]
-    for ctas in faster:
-        if -(-b // 16) <= resident(ctas):
-            return ctas
-    return last
-
-
 def _lib():
     lib = _build.load("lstm_recurrence")
     if not getattr(lib, "_typed", False):
@@ -106,26 +95,12 @@ def _lib():
 
 
 def launch_ctas(device, b: int, h: int) -> int:
-    """``cluster_ctas`` on this CUDA device (its occupancy query, once)."""
-    def resident(ctas):
-        key = (device.index, h, ctas)
-        if key not in _RESIDENT:
-            with torch.cuda.device(device):
-                _RESIDENT[key] = _lib().lstm_recurrence_resident_clusters(
-                    h, ctas)
-        return _RESIDENT[key]
-    return cluster_ctas(b, h, resident)
-
-
-def _ctas(name, device, b, h, ctas):
-    """The cluster size of a launch: ``ctas`` where the caller names one
-    (it must be one the kernels take at h), else ``launch_ctas``."""
-    if ctas is None:
-        return launch_ctas(device, b, h)
-    if ctas not in CLUSTER_CTAS[h]:
-        raise ValueError(f"{name}: K8 takes clusters of {CLUSTER_CTAS[h]} "
-                         f"CTAs at hidden size {h}, not {ctas}")
-    return ctas
+    """CTAs per cluster of a launch on this CUDA device: the first size of
+    ``CLUSTER_CTAS[h]`` at which the card holds the batch's clusters at
+    once (``cluster_size.launch_ctas``)."""
+    return cluster_size.launch_ctas(
+        f"lstm_recurrence H{h}", device, b, CLUSTER_CTAS[h],
+        lambda ctas: _lib().lstm_recurrence_resident_clusters(h, ctas))
 
 
 def _check(name, xw, w_hh_t, h0, c0, **more):
@@ -158,13 +133,12 @@ def _check(name, xw, w_hh_t, h0, c0, **more):
     return b, t, h
 
 
-def lstm_recurrence_forward(args, residuals: bool, ctas=None):
+def lstm_recurrence_forward(args, residuals: bool):
     """The forward kernel (CUDA only). Returns (ys, hn, cn, acts, cs);
     acts (B, T, 4H) and cs (B, T, H) are the backward's residuals, None
-    unless ``residuals``. ``ctas`` names the cluster size (default: the
-    wrapper's choice, ``launch_ctas``)."""
+    unless ``residuals``."""
     b, t, h = _check("lstm_recurrence_forward", *args)
-    ctas = _ctas("lstm_recurrence_forward", args[0].device, b, h, ctas)
+    ctas = launch_ctas(args[0].device, b, h)
     xw = args[0]
     new = lambda *shape: torch.empty(*shape, dtype=torch.float32,
                                      device=xw.device)
@@ -178,9 +152,9 @@ def lstm_recurrence_forward(args, residuals: bool, ctas=None):
     return ys, hn, cn, acts, cs
 
 
-def lstm_recurrence_backward(args, ys, acts, cs, dys, dhn, dcn, ctas=None):
+def lstm_recurrence_backward(args, ys, acts, cs, dys, dhn, dcn):
     """The backward kernel (CUDA only), from the forward's residuals.
-    Returns (dxw, dw_hh_t, dh0, dc0). ``ctas`` as the forward's."""
+    Returns (dxw, dw_hh_t, dh0, dc0)."""
     xw, w_hh_t, h0, c0 = args
     # the dW_hh reduction reads ys and h0 16 bytes at a time
     ys, h0 = [a.clone() if a.data_ptr() % 16 else a for a in (ys, h0)]
@@ -192,7 +166,7 @@ def lstm_recurrence_backward(args, ys, acts, cs, dys, dhn, dcn, ctas=None):
                      dys=(cots[0], lambda b, t, h: (b, t, h)),
                      dhn=(cots[1], lambda b, t, h: (b, h)),
                      dcn=(cots[2], lambda b, t, h: (b, h)))
-    ctas = _ctas("lstm_recurrence_backward", xw.device, b, h, ctas)
+    ctas = launch_ctas(xw.device, b, h)
     grads = [torch.empty_like(a) for a in args]
     lib = _lib()
     ws = torch.empty(lib.lstm_recurrence_backward_workspace_floats(b, t, h),

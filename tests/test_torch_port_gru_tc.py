@@ -30,8 +30,9 @@ version and to the JAX kernel where no card is needed:
     dxw, dw_hh_t, db_hh and dh0 within ``GRAD_REL`` = 1e-4 of the largest
     entry of each (dW_hh sums B*T products of both signs);
   * one TF32 pass instead of three drifts by more than 3xTF32 does;
-  * ``cluster_ctas``, the wrapper's choice of cluster size: the faster
-    size while the card holds every cluster of the batch at once.
+  * ``cluster_size.cluster_ctas`` over ``CLUSTER_CTAS``, the wrapper's
+    choice of cluster size: the faster size while the card holds every
+    cluster of the batch at once.
 """
 
 import functools
@@ -45,6 +46,7 @@ from jax.experimental import pallas as pl
 
 from multimodalreactiongeneration_tpu.ops import pallas_gru
 from multimodalreactiongeneration_tpu_torch.ops import gru as K10
+from multimodalreactiongeneration_tpu_torch.ops.cluster_size import cluster_ctas
 from tests.tf32_emulation import chain_product, product
 
 torch.set_num_threads(1)
@@ -183,7 +185,8 @@ def test_cluster_ctas_takes_the_faster_size_while_every_cluster_fits():
     def resident(ctas):
         return {16: 7, 8: 15}[ctas]
 
-    assert [K10.cluster_ctas(b, 256, resident)
+    sizes = K10.CLUSTER_CTAS
+    assert [cluster_ctas(b, sizes[256], resident)
             for b in (1, 16, 17, 112, 113, 128, 300)] == [16] * 4 + [8] * 3
-    assert {K10.cluster_ctas(b, 128, resident) for b in (1, 300)} == {8}
-    assert K10.cluster_ctas(32, 256, lambda ctas: -1) == 8  # query failed
+    assert {cluster_ctas(b, sizes[128], resident) for b in (1, 300)} == {8}
+    assert cluster_ctas(32, sizes[256], lambda ctas: -1) == 8  # query failed

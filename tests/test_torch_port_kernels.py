@@ -863,9 +863,12 @@ def test_lstm_recurrence_kernels_match_plain(dev, b, t, h):
         assert _rel_err(g, w) <= GRAD_REL_TOL, i
 
 
-def test_lstm_recurrence_kernel_refuses_bf16_and_other_hidden_sizes(dev):
-    """Every refusal names K8: other dtypes, hidden sizes, and a cluster
-    size the kernels do not take at that hidden size."""
+def test_lstm_recurrence_kernel_refuses_bf16_and_other_hidden_sizes(
+        dev, monkeypatch):
+    """Every refusal of the wrappers names K8: other dtypes and hidden
+    sizes. A cluster size the kernels do not take at that hidden size,
+    forced past the wrapper's choice, is refused by the C entry point
+    before anything is launched or counted."""
     from multimodalreactiongeneration_tpu_torch.ops import lstm_recurrence as K8
 
     b, t = 2, 16
@@ -881,10 +884,10 @@ def test_lstm_recurrence_kernel_refuses_bf16_and_other_hidden_sizes(dev):
     z = lambda *s: torch.zeros(*s, device=dev)
     before = K8.fwd_launches
     for h, ctas in ((128, 16), (128, 2), (256, 4)):
-        with pytest.raises(ValueError, match="K8 takes clusters"):
+        monkeypatch.setattr(K8, "launch_ctas", lambda d, b, h: ctas)
+        with pytest.raises(RuntimeError, match="lstm_recurrence_forward_f32"):
             K8.lstm_recurrence_forward(
-                (z(b, t, 4 * h), z(h, 4 * h), z(b, h), z(b, h)), False,
-                ctas=ctas)
+                (z(b, t, 4 * h), z(h, 4 * h), z(b, h), z(b, h)), False)
     assert K8.fwd_launches == before
 
 
@@ -895,17 +898,16 @@ def _k8_case(dev, seed, b, t, h):
     return args, (r(b, t, h), r(b, h), r(b, h))
 
 
-def _k8_runs_twice_and_holds_to_plain(K8, args, cots, ctas=None):
+def _k8_runs_twice_and_holds_to_plain(K8, args, cots):
     """Two K8 forwards without residuals, two with, two backwards: the
     same bits each time, one launch counted per call; then forward TOL
     and gradients GRAD_REL_TOL of the largest against plain."""
     before = K8.fwd_launches, K8.bwd_launches
-    bare = [K8.lstm_recurrence_forward(args, False, ctas=ctas)[:3]
-            for _ in range(2)]
-    first, second = [K8.lstm_recurrence_forward(args, True, ctas=ctas)
+    bare = [K8.lstm_recurrence_forward(args, False)[:3] for _ in range(2)]
+    first, second = [K8.lstm_recurrence_forward(args, True)
                      for _ in range(2)]
     grads = [K8.lstm_recurrence_backward(args, first[0], first[3], first[4],
-                                         *cots, ctas=ctas)
+                                         *cots)
              for _ in range(2)]
     torch.cuda.synchronize()
     assert (K8.fwd_launches, K8.bwd_launches) == (before[0] + 4,
@@ -938,21 +940,27 @@ def test_lstm_recurrence_kernels_are_bit_identical_run_to_run(dev, b, t, h):
 
 @pytest.mark.parametrize("h", [128, 256])
 @pytest.mark.parametrize("b", [1, 17, 113, 256])
-def test_lstm_recurrence_kernels_at_every_cluster_size(dev, b, h):
+def test_lstm_recurrence_kernels_at_every_cluster_size(dev, b, h,
+                                                       monkeypatch):
     """K8 at B 1 to 256 with every cluster size the kernels take at this
     H forced once (at H 256 and B 113 or more the 16-CTA clusters run in
     waves), and at the wrapper's choice: the same bits run to run, within
     the gates of plain; the choice is the faster size while every cluster
     of the batch fits on the card at once."""
     from multimodalreactiongeneration_tpu_torch.ops import lstm_recurrence as K8
+    from multimodalreactiongeneration_tpu_torch.ops.cluster_size import (
+        cluster_ctas,
+    )
 
     args, cots = _k8_case(dev, 7 * b + h, b, 37, h)
     resident = {c: K8._lib().lstm_recurrence_resident_clusters(h, c)
                 for c in K8.CLUSTER_CTAS[h]}
     assert all(n > 0 for n in resident.values()), resident
-    assert K8.launch_ctas(dev, b, h) == K8.cluster_ctas(b, h, resident.get)
+    assert K8.launch_ctas(dev, b, h) == cluster_ctas(b, K8.CLUSTER_CTAS[h],
+                                                     resident.get)
     for ctas in K8.CLUSTER_CTAS[h]:
-        _k8_runs_twice_and_holds_to_plain(K8, args, cots, ctas)
+        monkeypatch.setattr(K8, "launch_ctas", lambda d, b, h: ctas)
+        _k8_runs_twice_and_holds_to_plain(K8, args, cots)
 
 
 @pytest.mark.parametrize("din", [256, 81])

@@ -33,10 +33,13 @@ version and to the JAX kernel where no card is needed:
     recurrence), and dxw, dw_hh_t, dh0 and dc0 within ``GRAD_REL`` = 1e-4
     of the largest entry of each (dW_hh sums B*T products of both signs);
   * one TF32 pass instead of three drifts by more than 3xTF32 does;
-  * ``cluster_ctas``, the wrapper's choice of cluster size: the faster
-    size while the card holds every cluster of the batch at once.
+  * ``cluster_size.cluster_ctas`` over ``CLUSTER_CTAS``, the wrapper's
+    choice of cluster size: the faster size while the card holds every
+    cluster of the batch at once; ``cluster_size.launch_ctas`` asks the
+    card once per kernel, device and size.
 """
 
+import contextlib
 import functools
 
 import jax
@@ -47,6 +50,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from multimodalreactiongeneration_tpu.ops import pallas_lstm
+from multimodalreactiongeneration_tpu_torch.ops import cluster_size
 from multimodalreactiongeneration_tpu_torch.ops import lstm_recurrence as K8
 from tests.tf32_emulation import chain_product, reduce_rows
 
@@ -191,18 +195,35 @@ def test_cluster_ctas_takes_the_faster_size_while_every_cluster_fits():
     def resident(ctas):
         return {16: 7, 8: 15, 4: 30}[ctas]
 
-    assert [K8.cluster_ctas(b, 256, resident)
+    sizes = K8.CLUSTER_CTAS
+    assert [cluster_size.cluster_ctas(b, sizes[256], resident)
             for b in (1, 16, 17, 112, 113, 128, 300)] == [16] * 4 + [8] * 3
-    assert [K8.cluster_ctas(b, 128, resident)
+    assert [cluster_size.cluster_ctas(b, sizes[128], resident)
             for b in (1, 20, 240, 241, 256, 600)] == [8] * 3 + [4] * 3
-    assert K8.cluster_ctas(32, 256, lambda ctas: -1) == 8
-    assert K8.cluster_ctas(32, 128, lambda ctas: -1) == 4
+    assert cluster_size.cluster_ctas(32, sizes[256], lambda ctas: -1) == 8
+    assert cluster_size.cluster_ctas(32, sizes[128], lambda ctas: -1) == 4
 
 
-def test_wrappers_name_k8_when_refusing_a_cluster_size():
-    """A forced cluster size the kernels do not take at that H raises,
-    naming K8, before anything is launched (checked on any device)."""
-    with pytest.raises(ValueError, match="K8 takes clusters of"):
-        K8._ctas("lstm_recurrence_forward", torch.device("cpu"), 32, 128, 16)
-    for h, ctas in ((256, 16), (256, 8), (128, 8), (128, 4)):
-        assert K8._ctas("x", torch.device("cpu"), 32, h, ctas) == ctas
+def test_launch_ctas_asks_the_card_once_per_kernel_device_and_size(
+        monkeypatch):
+    """The occupancy query of each (kernel, device, cluster size) runs
+    once, on that device; later launches read the answer kept: K8 at H 128
+    holds 15 clusters of 8 CTAs, so B240 runs over 8 and B241 over 4."""
+    asked, entered = [], []
+    monkeypatch.setattr(cluster_size, "_RESIDENT", {})
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: entered.append(d) or contextlib.nullcontext())
+
+    def query(ctas):
+        asked.append(ctas)
+        return {8: 15, 4: 30}[ctas]
+
+    dev = [torch.device("cuda", i) for i in (0, 1)]
+    sizes = K8.CLUSTER_CTAS[128]
+    got = [cluster_size.launch_ctas("K8 H128", dev[0], b, sizes, query)
+           for b in (1, 240, 241, 256, 1)]
+    assert got == [8, 8, 4, 4, 8] and asked == [8]
+    assert cluster_size.launch_ctas("K8 H128", dev[1], 241, sizes,
+                                    query) == 4
+    assert cluster_size.launch_ctas("K10 H128", dev[0], 1, sizes, query) == 8
+    assert asked == [8, 8, 8] and entered == [dev[0], dev[1], dev[0]]

@@ -4,7 +4,7 @@ several batch seeds, for the checkout in the current directory.
 
 Run from the root of a checkout of the PyTorch port, on one CUDA card:
 
-    python3 <this file> TAG [--seeds N] [--time]
+    python3 <this file> TAG [--seeds N] [--time] [--rollout]
 
 ``chip_smoke.py`` phase 20 runs one ``MRGEN_FUSED_DW=0`` training step of
 the flagship Metaformer and of simple_lstm (their single-layer LSTMs on
@@ -21,7 +21,16 @@ the ReLU inputs, how many flipped and the largest magnitude among them.
 ``--time`` instead times each model's training step, with its yaml's
 optimizer on the batch of seed 0, under ``MRGEN_FUSED_DW=1`` and ``=0``
 in turns (1, 0, 0, 1): host clock to a synchronize, the mean of 5 steps
-after one warm-up step, ms.
+after one warm-up step, ms. ``--rollout`` instead times ``chip_smoke.py``
+phase 19's ``MRGEN_FUSED_DW=0`` rollout: simple_lstm's
+``sliding_window_generate`` over ``DW0_FRAMES`` frames at batch 1 (K8 x4
+a frame under ``=0``, K7 x4 under ``=1``), the flags in turns (0, 1, 1,
+0), one 8-frame warm-up rollout under each flag first; host clock to a
+synchronize, ms. With it, the host time of one K8 forward without
+residuals at the rollout's B1 x T120 x H128: the mean over 200 calls,
+host clock up to the return of the last (the calls queue on the card
+unsynchronized), us. Run it from two checkouts in turns (parent, change,
+change, parent) to compare the rollouts.
 """
 
 import json
@@ -103,6 +112,60 @@ def step_times(cs, spec, dev, steps=5):
     return out
 
 
+def rollout_times(cs, dev):
+    """{flag: [ms, ms]}: the DW0_FRAMES rollout under MRGEN_FUSED_DW=flag,
+    the flags in turns 0, 1, 1, 0, one model and its inputs throughout;
+    and the host us of one K8 forward call."""
+    from multimodalreactiongeneration_tpu_torch.configs import (
+        SIMPLE_LSTM_MODEL_CFG,
+    )
+    from multimodalreactiongeneration_tpu_torch.infer.simple_generate import (
+        audio_windows,
+        sliding_window_generate,
+    )
+    from multimodalreactiongeneration_tpu_torch.models.simple_lstm import (
+        SimpleLSTM,
+    )
+    from multimodalreactiongeneration_tpu_torch.ops import (
+        lstm_recurrence as K8,
+    )
+
+    model = SimpleLSTM(SIMPLE_LSTM_MODEL_CFG,
+                       generator=torch.Generator().manual_seed(cs.SEED),
+                       device=dev)
+    rng = np.random.default_rng(0)
+    fbank = torch.from_numpy(rng.standard_normal(
+        (cs.FRAMES * cs.RATIO + cs.SIMPLE_AUDIO_T, cs.AUDIO_DIM)).astype(
+            np.float32))
+    ctx = torch.from_numpy(rng.standard_normal(
+        (cs.SIMPLE_CONTEXT, cs.MOTION_DIM)).astype(np.float32))
+    windows = audio_windows(fbank, cs.FRAMES, cs.RATIO, cs.SIMPLE_AUDIO_T)
+    out = {"0": [], "1": []}
+    for flag in out:
+        with cs.fused_dw(flag):
+            sliding_window_generate(model, windows[:8], ctx)
+    for flag in ("0", "1", "1", "0"):
+        with cs.fused_dw(flag):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sliding_window_generate(model, windows[:cs.DW0_FRAMES], ctx)
+            torch.cuda.synchronize()
+        out[flag].append((time.perf_counter() - t0) * 1e3)
+    h, calls = 128, 200
+    args = [torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev) * s for shape, s in (
+            ((1, cs.SIMPLE_AUDIO_T, 4 * h), 0.5), ((h, 4 * h), 0.06),
+            ((1, h), 0.3), ((1, h), 0.3))]
+    K8.lstm_recurrence_forward(args, False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        K8.lstm_recurrence_forward(args, False)
+    out["k8_host_us_per_call"] = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return out
+
+
 def main():
     argv = sys.argv[1:]
     tag = argv[0] if argv and not argv[0].startswith("--") else os.getcwd()
@@ -113,7 +176,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     record = {"tag": tag}
-    for spec in (cs.metaformer_train_spec(), cs.simple_train_spec()):
+    specs = (cs.metaformer_train_spec(), cs.simple_train_spec())
+    if "--rollout" in argv:
+        record["simple rollout"] = rollout_times(cs, dev)
+        specs = ()
+    for spec in specs:
         if "--time" in argv:
             record[spec["tag"]] = step_times(cs, spec, dev)
             continue

@@ -27,8 +27,8 @@ the clusters of 16 rows the card holds at once per H and cluster size
 (``resident``) and the size chosen for each shape (``cluster_ctas``).
 ``--ctas C`` runs every launch at a hidden size that takes clusters of
 C CTAs over clusters of C, whatever the wrapper would choose (the others
-at the wrapper's choice). ``--batch N`` adds BN x T120 x H128 and BN x
-T252 x H256.
+at the wrapper's choice), by replacing the module's ``launch_ctas``.
+``--batch N`` adds BN x T120 x H128 and BN x T252 x H256.
 ``--stamps`` also runs one forward with residuals and one backward at
 B256 x T120 x H128 and B32 x T252 x H256 from a build with
 ``-DLSTM_STAMPS``: thread 0 of each of the first 16 CTAs stamps
@@ -111,15 +111,15 @@ def inputs(r, b, t, h):
     return args, (r(b, t, h), r(b, h), r(b, h))
 
 
-def time_shape(K8, r, b, t, h, kw):
+def time_shape(K8, r, b, t, h):
     args, cots = inputs(r, b, t, h)
-    fwd = lambda res: K8.lstm_recurrence_forward(args, res, **kw)
+    fwd = lambda res: K8.lstm_recurrence_forward(args, res)
     rec = {"fwd_ms": rounds_ms(lambda: fwd(False)),
            "fwd_res_ms": rounds_ms(lambda: fwd(True))}
     ys, hn, cn, acts, cs = fwd(True)
     rec["bwd_ms"] = rounds_ms(lambda: K8.lstm_recurrence_backward(
-        args, ys, acts, cs, *cots, **kw))
-    grads = K8.lstm_recurrence_backward(args, ys, acts, cs, *cots, **kw)
+        args, ys, acts, cs, *cots))
+    grads = K8.lstm_recurrence_backward(args, ys, acts, cs, *cots)
     with torch.no_grad():
         want = K8.lstm_recurrence_reference(*args)
     rec["fwd_max_abs_err"] = max(float((a - w).abs().max()) for a, w in
@@ -132,7 +132,7 @@ def time_shape(K8, r, b, t, h, kw):
     return rec
 
 
-def stamp_split(K8, lib, r, b, t, h, kw):
+def stamp_split(K8, lib, r, b, t, h):
     """Per phase of a forward and a backward step, microseconds."""
     lib.lstm_recurrence_stamps.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.lstm_recurrence_stamps.restype = ctypes.c_int
@@ -141,8 +141,8 @@ def stamp_split(K8, lib, r, b, t, h, kw):
         raise RuntimeError("lstm_recurrence_stamps: reset failed")
     t0, steps, ctas, marks = list(dims)
     args, cots = inputs(r, b, t, h)
-    ys, _, _, acts, cs = K8.lstm_recurrence_forward(args, True, **kw)
-    K8.lstm_recurrence_backward(args, ys, acts, cs, *cots, **kw)
+    ys, _, _, acts, cs = K8.lstm_recurrence_forward(args, True)
+    K8.lstm_recurrence_backward(args, ys, acts, cs, *cots)
     buf = np.zeros((2, steps, ctas, marks), dtype=np.uint64)
     if lib.lstm_recurrence_stamps(buf.ctypes.data, dims):
         raise RuntimeError("lstm_recurrence_stamps: read failed")
@@ -179,25 +179,23 @@ def main():
         s for i, a in enumerate(argv) if a == "--batch"
         for s in ((int(argv[i + 1]), 120, 128), (int(argv[i + 1]), 252, 256)))
     record = {"tag": tag}
-    forced = int(argv[argv.index("--ctas") + 1]) if "--ctas" in argv else None
-    if forced:
+    if "--ctas" in argv:
+        forced, chosen = int(argv[argv.index("--ctas") + 1]), K8.launch_ctas
+        K8.launch_ctas = lambda d, b, h: (
+            forced if forced in K8.CLUSTER_CTAS[h] else chosen(d, b, h))
         record["forced_ctas"] = forced
-    kw = lambda h: ({"ctas": forced}
-                    if forced in getattr(K8, "CLUSTER_CTAS", {}).get(h, ())
-                    else {})
     for b, t, h in shapes:
-        record[f"B{b} T{t} H{h}"] = time_shape(K8, r, b, t, h, kw(h))
+        record[f"B{b} T{t} H{h}"] = time_shape(K8, r, b, t, h)
     if hasattr(K8, "launch_ctas"):
         record["resident"] = {
             h: {c: K8._lib().lstm_recurrence_resident_clusters(h, c)
                 for c in ctas} for h, ctas in K8.CLUSTER_CTAS.items()}
-        record["cluster_ctas"] = {
-            f"B{b} H{h}": kw(h).get("ctas", K8.launch_ctas(dev, b, h))
-            for b, _, h in shapes}
+        record["cluster_ctas"] = {f"B{b} H{h}": K8.launch_ctas(dev, b, h)
+                                  for b, _, h in shapes}
     if "--stamps" in argv:
         with stamped() as lib:
             record["stamps"] = {f"B{b} T{t} H{h}": stamp_split(
-                K8, lib, r, b, t, h, kw(h)) for b, t, h in STAMP_SHAPES}
+                K8, lib, r, b, t, h) for b, t, h in STAMP_SHAPES}
     record["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
