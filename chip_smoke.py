@@ -83,6 +83,19 @@ Phases:
      checkpoints and ``last``, the epoch records, and the launches of
      every kernel (K5, K6, K3, K4, K7 per train step; K5, K1, K7 and a
      generation's K1 and K2 per validation batch);
+ 9b. eval CLI: ``infer.cli`` with ``configs/lstmformer.yaml`` at full width
+     on phase 9's corpus and its ``last`` checkpoint, batches of 8, bf16
+     caches: with PIL and matplotlib ``main`` whole (speed.log, genrt
+     loss, per segment ``EVAL_RENDER_FRAMES`` comparison frames, pose
+     strips and nod.png), else ``evaluate`` and a line naming the missing
+     library; one speed.log line per batch, a finite loss, one rendered
+     output and nod.png per segment, launches K1 +2 and K2 one per 16 rows
+     per batch and nothing else, the first batch's predictions bit-equal
+     to a direct ``generate_metaformer`` call; then the reference
+     round trip: ``torch_export`` of ``last`` saved as a Lightning
+     ``{"state_dict": {"model.<name>": ...}}``, ``torch_import.main`` on
+     it, the imported state_dict bit-equal to ``last``'s and ``evaluate``
+     on it bit-equal to the CLI's predictions;
  10. stacked-LSTM wavefront (K9) forward with and without residuals and
      backward vs plain, f32, H128 x L2 at B256 x T1120 (the sampler in
      training) and B16 x T96 (the generation warmup): out, hn, cn <=
@@ -106,6 +119,8 @@ Phases:
      epoch, the checks of phase 9, and exact K9 and K7 launches (per
      train step K9 +1 / +1, K7 +2 / +2; per validation batch an eval
      step, K9 +1 and K7 forward +2, and a generation, K9 +1);
+13b. lws eval CLI: phase 9b with ``configs/lstm_with_sampling.yaml`` on
+     phase 13's checkpoint: launches K9 +1 per batch and nothing else;
  14. GRU recurrence (K10) forward with and without residuals and backward
      vs plain, f32: H256 at B32 x T2016 (an audio-encoder block in
      training), B32 x T252 (the self-motion and partner blocks), B16 x
@@ -161,11 +176,15 @@ Phases:
      15, audio T120, one target frame), AdamW with the yaml's optim group:
      as phase 8, with launches per step K7 +4 / +4, per eval step K7
      forward +4, the profiler table in
-     ``_build/profile_simple_train_step.txt``; then one step of the same
-     weights and batch with ``MRGEN_FUSED_DW=0`` (K8 +4 / +4, K7 +0), and
-     one flagship Metaformer step with it (K8 +5 / +5, K7 +0, the other
-     kernels as in phase 8): loss and gradients within phase 8's bounds of
-     the default step's;
+     ``_build/profile_simple_train_step.txt``; then, for simple_lstm and
+     for the flagship Metaformer, one step with ``MRGEN_FUSED_DW=0``
+     (simple_lstm K8 +4 / +4, the flagship K8 +5 / +5, K7 +0, the other
+     kernels as in phase 8) and one with the default, on a batch from
+     the phase's own generator (``SEED + 20``; simple_lstm's B256,
+     the flagship's phase 8's B2 x T48): each step's loss and
+     gradients within phase 8's bounds of the plain FP32 step's (the same
+     weights and batch on CPU tensors); the two card steps' distance from
+     each other printed as a reading;
  21. simple_lstm training CLI: ``configs/simple_lstm.yaml`` and
      ``configs/simple_lstm_best.yaml`` as written (batch 256), passed by
      their paths, on a ``.head`` corpus this script writes (2 sessions x
@@ -214,6 +233,9 @@ V1_SESSIONS, V1_SECONDS = 2, 24.0
 # the encoder stack's chunk sweeps: audio and motion lengths
 SWEEP_LONG, SWEEP_SHORT = (16, 32, 64, 128), (16, 32, 64)
 DW0_FRAMES = 25  # the MRGEN_FUSED_DW=0 rollout
+# comparison frames the eval CLI phases render per segment (every segment
+# also gets its pose strips and nod plot)
+EVAL_RENDER_FRAMES = 2
 LIBS = ("mixer_stack", "decode_rollout", "lstm_layer", "rect_attention",
         "lstm_stacked", "gru", "lstm_recurrence")
 SRC = "multimodalreactiongeneration_tpu_torch/csrc/"
@@ -1299,16 +1321,30 @@ def fused_dw(value):
             os.environ["MRGEN_FUSED_DW"] = old
 
 
-def fused_dw_off_phase(mods, dev, rng, spec):
+def fused_dw_off_phase(mods, dev, spec):
     """20. One training step of ``spec``'s model with ``MRGEN_FUSED_DW=0``
-    (its single-layer LSTMs on K8) against one with the default (K7), the
-    same weights and batch: the launches of each step, then the loss
-    within 1e-5 relative and every gradient within 1e-3 of its largest
-    (phase 8's bounds). SGD with lr 0 leaves the gradients to compare."""
+    (its single-layer LSTMs on K8) and one with the default (K7), each
+    held to the plain FP32 step: the same weights and batch on CPU
+    tensors, as phase 8 compares card with CPU. The launches of each step,
+    then each loss within 1e-5 relative of the plain step's and every
+    gradient within 1e-3 of its plain largest (phase 8's bounds). The
+    distance of the two card steps from each other is printed, not held:
+    it compares two roundings through the ReLUs. The batch comes from the
+    phase's own generator (``SEED + 20``), so what earlier phases draw
+    does not move it, at the spec's ``dw0_batch`` (batch, frames). SGD
+    with lr 0 leaves the gradients to compare."""
     tag = spec["tag"] + "_fused_dw_0"
-    batch = spec_batch(spec, rng, spec["batch"], dev)
+    rows, frames = spec["dw0_batch"]
+    host = spec_batch(spec, np.random.default_rng(SEED + 20), rows,
+                      frames=frames)
+    batch = to_device(host, dev)
     sgd0 = dict(use_optimizer="sgd", lr=0.0, momentum=0.0, weight_decay=0.0)
-    runs = {}
+    t0 = time.perf_counter()
+    plain = spec_model(spec, "cpu")
+    loss_plain, _ = spec_step_fns(spec, plain, sgd0)[0](host)
+    loss_plain = float(loss_plain)
+    plain_s = time.perf_counter() - t0
+    runs, record = {}, {"loss_plain": loss_plain, "plain_step_s": plain_s}
     for flag, want in (("1", spec["per_step"]), ("0", spec["per_step_off"])):
         model = spec_model(spec, dev)
         train_step, _ = spec_step_fns(spec, model, sgd0)
@@ -1319,23 +1355,37 @@ def fused_dw_off_phase(mods, dev, rng, spec):
             got = check_launches(f"{tag} MRGEN_FUSED_DW={flag}",
                                  {k: 0 for k in COUNTERS}, counts(mods),
                                  **want)
-        runs[flag] = (float(loss), model, got)
-    (loss_on, model_on, _), (loss_off, model_off, launches) = (
-        runs["1"], runs["0"])
-    loss_rel = abs(loss_off - loss_on) / abs(loss_on)
+        loss = float(loss)
+        loss_rel = abs(loss - loss_plain) / abs(loss_plain)
+        worst, worst_name = grad_rel_errs(model, plain)
+        runs[flag] = (model, got)
+        record[f"fused_dw_{flag}"] = {
+            "loss": loss, "loss_rel_err_vs_plain": loss_rel,
+            "grad_max_rel_err_vs_plain": worst, "worst": worst_name}
+        log(tag, flag=f"MRGEN_FUSED_DW={flag}", loss=f"{loss:.7f}",
+            loss_plain=f"{loss_plain:.7f}",
+            loss_rel_err_vs_plain=f"{loss_rel:.3e}",
+            grad_max_rel_err_vs_plain=f"{worst:.3e}", worst=worst_name,
+            plain_step_s=f"{plain_s:.1f}",
+            launches={k: v for k, v in got.items() if v})
+    (model_on, _), (model_off, launches) = runs["1"], runs["0"]
     worst, worst_name = grad_rel_errs(model_off, model_on)
-    log(tag, loss_default=f"{loss_on:.7f}", loss_fused_dw_0=f"{loss_off:.7f}",
-        loss_rel_err=f"{loss_rel:.3e}", grad_max_rel_err=f"{worst:.3e}",
-        worst=worst_name, launches={k: v for k, v in launches.items() if v})
-    if not loss_rel <= LOSS_REL_TOL:
-        raise AssertionError(f"{tag} loss: {loss_rel} > {LOSS_REL_TOL}")
-    if not worst <= GRAD_REL_TOL:
-        raise AssertionError(f"{tag} gradient of {worst_name}: {worst} > "
-                             f"{GRAD_REL_TOL}")
-    del runs, model_on, model_off
-    return {"launches": launches, "record": {
-        "loss_default": loss_on, "loss_fused_dw_0": loss_off,
-        "loss_rel_err": loss_rel, "grad_max_rel_err": worst}}
+    record["fused_dw_0_vs_1_grad_max_rel_err"] = worst
+    log(tag, reading="MRGEN_FUSED_DW=0 vs =1, not held",
+        grad_max_rel_err=f"{worst:.3e}", worst=worst_name)
+    for flag in ("1", "0"):
+        r = record[f"fused_dw_{flag}"]
+        if not r["loss_rel_err_vs_plain"] <= LOSS_REL_TOL:
+            raise AssertionError(
+                f"{tag} MRGEN_FUSED_DW={flag} vs plain loss: "
+                f"{r['loss_rel_err_vs_plain']} > {LOSS_REL_TOL}")
+        if not r["grad_max_rel_err_vs_plain"] <= GRAD_REL_TOL:
+            raise AssertionError(
+                f"{tag} MRGEN_FUSED_DW={flag} vs plain gradient of "
+                f"{r['worst']}: {r['grad_max_rel_err_vs_plain']} > "
+                f"{GRAD_REL_TOL}")
+    del runs, model_on, model_off, plain
+    return {"launches": launches, "record": record}
 
 
 def metaformer_train_spec():
@@ -1360,6 +1410,9 @@ def metaformer_train_spec():
         per_step_off=dict(mixer_stack_train_fwd=2, mixer_stack_bwd=2,
                           lstm_recurrence_fwd=5, lstm_recurrence_bwd=5,
                           rect_attention_fwd=10, rect_attention_bwd=10),
+        # phase 20 at phase 8's card-vs-CPU batch: the plain CPU step at
+        # B32 x T240 took 686 s of an H100 machine's host
+        dw0_batch=(2, 48),
         profile="profile_train_step.txt")
 
 
@@ -1411,6 +1464,7 @@ def simple_train_spec():
         per_step=dict(lstm_layer_fwd=4, lstm_layer_bwd=4),
         per_eval=dict(lstm_layer_fwd=4),
         per_step_off=dict(lstm_recurrence_fwd=4, lstm_recurrence_bwd=4),
+        dw0_batch=(SIMPLE_B, 1),
         profile="profile_simple_train_step.txt")
 
 
@@ -1785,6 +1839,189 @@ def simple_cli_launches(launches, steps):
     if launches != want:
         raise AssertionError(f"simple cli launches {launches}, want {want}")
     return n_eval
+
+
+def render_libs_missing():
+    """The rendering's libraries that do not import here (PIL draws the
+    frames, matplotlib the nod plots)."""
+    import importlib.util
+
+    return [m for m in ("PIL", "matplotlib")
+            if importlib.util.find_spec(m) is None]
+
+
+def speed_log_rates(path):
+    """frames/s of each line of a speed.log."""
+    with open(path, encoding="utf-8") as f:
+        return [float(line.rsplit("(", 1)[1].split()[0]) for line in f]
+
+
+def eval_cli_phase(mods, run, config, tag, train_tag, per_batch):
+    """9b. and 13b. The eval CLI, as a user runs it after training:
+    ``infer.cli`` with the yaml at ``config`` at full width on phase 9's
+    corpus and the ``last`` checkpoint of the training CLI run
+    ``train_tag``, on the card (the flagship with bf16 caches, the CLI's
+    default), batches of 8, ``EVAL_RENDER_FRAMES`` comparison frames a
+    segment. With PIL and matplotlib it runs ``main`` whole (rendering
+    included), else ``evaluate`` and a line that names the missing
+    library. Checks: one
+    speed.log line per batch, a finite genrt loss, one rendered output
+    and one nod.png per segment, exact launches (``per_batch(rows)`` of
+    each batch), and the CLI's predictions for its first batch bit-equal
+    to a direct generation on that batch. Then the reference-checkpoint
+    round trip: ``torch_export`` of ``last``, saved as a Lightning
+    ``{"state_dict": {"model.<name>": ...}}``, through ``torch_import``'s
+    ``main``: its state_dict equals ``last``'s bit for bit, and
+    ``evaluate`` on it gives the CLI's predictions bit for bit."""
+    from multimodalreactiongeneration_tpu_torch.configs import load_config
+    from multimodalreactiongeneration_tpu_torch.infer import cli
+    from multimodalreactiongeneration_tpu_torch.infer.generate import (
+        sampling_mask_for,
+    )
+    from multimodalreactiongeneration_tpu_torch.infer.visualize import (
+        generator_for,
+    )
+    from multimodalreactiongeneration_tpu_torch.models import (
+        torch_export,
+        torch_import,
+    )
+    from multimodalreactiongeneration_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+    )
+
+    config = os.path.abspath(config)  # the run's cwd is ``run``
+    last = run / f"ckpt_{train_tag}" / "smoke" / "last"
+    out = run / f"eval_{tag}"
+    args = ["--config", config, f"data_dir={run / 'corpus'}",
+            f"model_path={last}", f"output_path={out}",
+            f"log_dir={run / f'log_{tag}'}",
+            f"max_render_frames={EVAL_RENDER_FRAMES}"]
+    missing = render_libs_missing()
+    captured = {}
+    orig = cli.generation_speed_log
+
+    def capture(model, model_type, batches, **kw):
+        preds = orig(model, model_type, batches, **kw)
+        captured.update(model=model, model_type=model_type, batches=batches,
+                        preds=preds, at=time.perf_counter())
+        return preds
+
+    cwd = os.getcwd()
+    os.chdir(run)  # the manifests are phase 9's, under ./data of ``run``
+    cli.generation_speed_log = capture
+    try:
+        zero_counts(mods)
+        t0 = time.perf_counter()
+        if missing:
+            log(tag, rendering="skipped", missing=",".join(missing),
+                runs="evaluate (no rendering)")
+            _, _, losses = cli.evaluate(load_config(config, args[2:]))
+            summary = {"genrt_loss": float(np.mean(losses))}
+        else:
+            summary = cli.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = counts(mods)
+    finally:
+        cli.generation_speed_log = orig
+        os.chdir(cwd)
+    model, batches, preds = (captured["model"], captured["batches"],
+                             captured["preds"])
+    generation_s = captured["at"] - t0
+
+    rows = [int(b[0].shape[0]) for b in batches]
+    want = {k: 0 for k in COUNTERS}
+    for r in rows:
+        for k, v in per_batch(r).items():
+            want[k] += v
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches}, want {want}")
+    rates = speed_log_rates(out / "speed.log")
+    if len(rates) != len(batches):
+        raise AssertionError(f"{tag}: {len(rates)} speed.log lines for "
+                             f"{len(batches)} batches")
+    if not np.isfinite(summary["genrt_loss"]):
+        raise AssertionError(f"{tag}: genrt_loss {summary['genrt_loss']}")
+    segments = sum(rows)
+    if not missing:
+        outputs = [d for d in sorted(os.listdir(out)) if (out / d).is_dir()]
+        rendered = [d for d in outputs if (out / d / f"{d}.mp4").exists()
+                    or (out / d / "frame_00000.png").exists()]
+        nods = [d for d in outputs if (out / d / "nod.png").exists()]
+        if not len(outputs) == len(rendered) == len(nods) == segments:
+            raise AssertionError(
+                f"{tag}: {len(outputs)} outputs, {len(rendered)} rendered, "
+                f"{len(nods)} nod plots for {segments} segments")
+    with torch.no_grad():
+        full = sampling_mask_for(batches[0][1].shape[1], "full",
+                                 device=batches[0][1].device)
+        direct = generator_for(captured["model_type"])(
+            model, batches[0], full).cpu().numpy()
+    first_equal = bool(np.array_equal(direct, preds[0]))
+    if not first_equal:
+        raise AssertionError(f"{tag}: the CLI's first batch differs from a "
+                             "direct generation")
+    del model, captured
+
+    # the reference-checkpoint round trip
+    t1 = time.perf_counter()
+    cfg = load_config(config, args[2:])
+    params = load_checkpoint(str(last))["params"]
+    exported = torch_export.EXPORTERS[cfg.exp.use_model](
+        params, cfg.model.to_dict())
+    ref = run / f"reference_{tag}.ckpt"
+    torch.save({"state_dict": {f"model.{k}": v for k, v in exported.items()},
+                "epoch": 0}, ref)
+    torch_import.main(["--config", config, "--ckpt", str(ref), "--out",
+                       str(run / f"imported_{tag}")])
+    imported = load_checkpoint(str(run / f"imported_{tag}" / "last"))["params"]
+    same_state = (list(imported) == list(params) and all(
+        torch.equal(imported[k], params[k]) for k in params))
+    os.chdir(run)
+    try:
+        again, _, _ = cli.evaluate(load_config(config, [
+            *args[2:], f"model_path={run / f'imported_{tag}' / 'last'}",
+            f"output_path={run / f'eval_{tag}_imported'}"]))
+    finally:
+        os.chdir(cwd)
+    same_preds = len(again) == len(preds) and all(
+        np.array_equal(a, b) for a, b in zip(again, preds))
+    round_trip_s = time.perf_counter() - t1
+    log(tag, batches=len(batches), segments=segments,
+        genrt_loss=f"{summary['genrt_loss']:.6f}", seconds=f"{seconds:.1f}",
+        through_generation_s=f"{generation_s:.1f}",
+        rendering_s=("skipped" if missing else f"{seconds - generation_s:.1f}"),
+        speed_log_frames_per_s=[round(r, 1) for r in rates],
+        launches={k: v for k, v in launches.items() if v},
+        first_batch_bit_equal_to_direct=first_equal,
+        exported_tensors=len(exported), round_trip_state_bit_equal=same_state,
+        round_trip_preds_bit_equal=same_preds,
+        round_trip_s=f"{round_trip_s:.1f}", card=repr(card_line()))
+    if not same_state:
+        raise AssertionError(f"{tag}: the imported state_dict differs")
+    if not same_preds:
+        raise AssertionError(f"{tag}: evaluate on the imported checkpoint "
+                             "differs from the CLI's predictions")
+    return {"launches": launches, "record": {
+        "batches": len(batches), "segments": segments,
+        "genrt_loss": summary["genrt_loss"], "seconds": seconds,
+        "through_generation_s": generation_s,
+        "rendering_s": None if missing else seconds - generation_s,
+        "render_libs_missing": missing, "speed_log_frames_per_s": rates,
+        "round_trip_s": round_trip_s}}
+
+
+def metaformer_eval_launches(rows):
+    """A flagship eval batch of ``rows`` rows: K1 +2 (the hoisted audio
+    and partner-motion encoders), K2 one per 16 rows
+    (``decode_rollout.BATCH_PER_LAUNCH``)."""
+    return {"mixer_stack": 2, "decode_rollout": -(-rows // 16)}
+
+
+def lws_eval_launches(rows):
+    """An lws eval batch: K9 +1, the sampler's warmup over the lead (the
+    rollout's steps are under 16 frames: the plain recurrences)."""
+    return {"lstm_stacked_fwd": 1}
 
 
 def kernel_record(name, source, replaces, launches, max_abs_err, ms,
@@ -2353,6 +2590,8 @@ def main():
         write_s=f"{time.perf_counter() - t0:.1f}")
     cli_run = cli_phase(mods, run, "configs/lstmformer.yaml", "cli",
                         ["batch_size=32"], metaformer_cli_launches)
+    eval_cli = eval_cli_phase(mods, run, "configs/lstmformer.yaml",
+                              "eval_cli", "cli", metaformer_eval_launches)
 
     # ---- 10.-13. lstm_with_sampling: K9, generation, step, CLI ---------
     stacked = lstm_stacked_phase(K9, dev, rng)
@@ -2360,6 +2599,9 @@ def main():
     lws_step = train_path_phase(mods, dev, rng, lws_train_spec())
     lws_cli = cli_phase(mods, run, "configs/lstm_with_sampling.yaml",
                         "lws_cli", ["exp.batch_size=32"], lws_cli_launches)
+    lws_eval_cli = eval_cli_phase(
+        mods, run, "configs/lstm_with_sampling.yaml", "lws_eval_cli",
+        "lws_cli", lws_eval_launches)
 
     # ---- 14.-17. the GRU Metaformer: K10, generation, step, CLI ---------
     gru = gru_phase(K10, dev, rng)
@@ -2373,8 +2615,8 @@ def main():
     bidirectional = bidirectional_phase(mods, dev, rng)
     simple_gen = simple_generation_phase(mods, dev, rng)
     simple_step = train_path_phase(mods, dev, rng, simple_train_spec())
-    simple_off = fused_dw_off_phase(mods, dev, rng, simple_train_spec())
-    flagship_off = fused_dw_off_phase(mods, dev, rng, metaformer_train_spec())
+    simple_off = fused_dw_off_phase(mods, dev, simple_train_spec())
+    flagship_off = fused_dw_off_phase(mods, dev, metaformer_train_spec())
     t0 = time.perf_counter()
     v1_frames = write_corpus_v1(str(run / "corpus_v1"))
     log("simple_cli", corpus_frames=v1_frames, sessions=V1_SESSIONS,
@@ -2398,17 +2640,20 @@ def main():
             launches["mixer_stack"], max(c["max_abs_err"] for c in k1_cases),
             k1_main["ms"], k1_main["plain_ms"], k1_main["bound"], None,
             whole_sequence_ms=k1_main["whole_sequence_ms"],
-            chunk=k1_main["chunk"], cases=k1_cases),
+            chunk=k1_main["chunk"], cases=k1_cases,
+            launches_eval_cli=eval_cli["launches"]["mixer_stack"]),
         kernel_record(
             "decode_rollout", "decode_rollout.cu",
             "pallas_decode_rollout.py:103", launches["decode_rollout"],
             max(c["max_abs_err"] for c in k2_cases), k2_main["ms"],
-            k2_main["plain_ms"], k2_main["bound"], None, cases=k2_cases),
+            k2_main["plain_ms"], k2_main["bound"], None, cases=k2_cases,
+            launches_eval_cli=eval_cli["launches"]["decode_rollout"]),
         *training_records(train, lstm, step["launches"]),
         *attention_records(attention, cli_run["launches"]),
         *stacked_records(stacked, lws_cli["launches"],
                          generation=lws_gen["launches"],
-                         train_step=lws_step["launches"]),
+                         train_step=lws_step["launches"],
+                         eval_cli=lws_eval_cli["launches"]),
         *gru_records(gru, gru_cli["launches"],
                      generation=gru_gen["launches"],
                      train_step=gru_step["launches"]),
@@ -2419,6 +2664,7 @@ def main():
                                             "ms_each": gen_ab_each}},
         "train_step": step["record"],
         "cli": {"corpus_seconds_of_audio": audio_s, **cli_run["record"]},
+        "eval_cli": eval_cli["record"], "lws_eval_cli": lws_eval_cli["record"],
         "lws_generation": lws_gen["record"],
         "lws_train_step": lws_step["record"], "lws_cli": lws_cli["record"],
         "gru_generation": gru_gen["record"],

@@ -16,9 +16,10 @@ Any other leaf name raises. It converts a Metaformer tree (LSTM or GRU
 embeddings, tests/test_torch_port_gru.py), an LSTMwithSample tree and a
 SimpleLSTM tree (bidirectional LSTMs with their ``_reverse`` leaves,
 cross-modal MHA with kdim/vdim; tests/test_torch_port_simple_lstm.py)
-alike. Loading reference Lightning checkpoints (a
-numpy port of the JAX package's ``metaformer_name_map``) comes with the
-checkpoint slice.
+alike. Reference Lightning checkpoints load through
+``train/checkpoint.py import_torch_state_dict`` with the name tables of
+``models/torch_import.py`` (and go back out through
+``models/torch_export.py``).
 """
 
 from __future__ import annotations

@@ -19,8 +19,9 @@ for any ``nn.Module`` (the Metaformer and LSTMwithSample alike):
     writes it on a background thread, at most one in flight per monitor;
     the bytes on disk equal a synchronous save's.
 
-Importing the reference's Lightning checkpoints (JAX
-``import_torch_state_dict``) comes with the inference CLI.
+``import_torch_state_dict`` maps a reference (PyTorch-Lightning)
+state_dict onto the port's names (JAX ``import_torch_state_dict``);
+``models/torch_import.py`` holds the per-model name tables.
 """
 
 from __future__ import annotations
@@ -28,8 +29,9 @@ from __future__ import annotations
 import os
 import shutil
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -153,3 +155,64 @@ def restore_opt_state(payload: Dict[str, Any],
         return False
     optimizer.load_state_dict(payload["opt"])
     return True
+
+
+# ---------------------------------------------------------------------------
+# reference torch state_dict -> the port's state_dict
+# ---------------------------------------------------------------------------
+
+_RNN_LEAVES = ("weight_ih", "weight_hh", "bias_ih", "bias_hh")
+_UNPACKED_QKV = ("q_proj_weight", "k_proj_weight", "v_proj_weight")
+
+
+def _f32(value) -> torch.Tensor:
+    """An owned, contiguous float32 CPU tensor of ``value``."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().to("cpu", torch.float32).contiguous().clone()
+    return torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
+
+
+def import_torch_state_dict(
+    state_dict: Mapping[str, Any],
+    name_map: Dict[str, str],
+) -> Dict[str, torch.Tensor]:
+    """The port's state_dict from a reference one.
+
+    ``name_map``: reference prefix -> the JAX package's flax path prefix
+    (``models/torch_import.py``), whose "/" become the port's "."; the
+    longest prefix that ends on a name boundary wins. Per leaf:
+      * Linear and LayerNorm ``weight`` / ``bias`` keep name and layout
+        (the port's modules hold torch's layout, so the JAX importer's
+        kernel transpose and ``models/weights.py``'s transpose back
+        cancel);
+      * LSTM / GRU ``weight_ih_l*`` / ``bias_*`` and the unpacked MHA
+        ``q/k/v_proj_weight`` are copied verbatim;
+      * MHA ``in_proj_weight`` / ``in_proj_bias`` split into q, k and v
+        thirds; ``out_proj.weight`` / ``.bias`` become ``out_proj_*``.
+    A name no prefix covers, or a leaf of no known kind, raises: the JAX
+    importer skips it, which leaves a half-random model behind.
+    """
+    prefixes = sorted(name_map.items(), key=lambda x: -len(x[0]))
+    out: Dict[str, torch.Tensor] = {}
+    for tname, value in state_dict.items():
+        hit = next(((p, m) for p, m in prefixes
+                    if tname == p or tname.startswith(p + ".")), None)
+        if hit is None:
+            raise KeyError(f"no mapping for reference parameter {tname!r}")
+        ours = hit[1].replace("/", ".")
+        rest = tname[len(hit[0]):].lstrip(".")
+        array = _f32(value)
+        leaf = rest.rsplit(".", 1)[-1]
+        if leaf in ("in_proj_weight", "in_proj_bias"):
+            kind = leaf[len("in_proj_"):]
+            for part, sub in zip("qkv", torch.chunk(array, 3, dim=0)):
+                out[f"{ours}.{part}_proj_{kind}"] = sub.contiguous()
+        elif rest.startswith(_RNN_LEAVES) or rest in _UNPACKED_QKV:
+            out[f"{ours}.{rest}"] = array
+        elif rest.endswith(("out_proj.weight", "out_proj.bias")):
+            out[f"{ours}.out_proj_{leaf}"] = array
+        elif leaf in ("weight", "bias"):
+            out[f"{ours}.{rest}"] = array
+        else:
+            raise KeyError(f"no mapping for reference parameter {tname!r}")
+    return out

@@ -4,20 +4,30 @@ several batch seeds, for the checkout in the current directory.
 
 Run from the root of a checkout of the PyTorch port, on one CUDA card:
 
-    python3 <this file> TAG [--seeds N] [--time] [--rollout]
+    python3 <this file> TAG [--seeds N] [--seed S] [--plain [--full-batch]]
+        [--time] [--rollout]
 
 ``chip_smoke.py`` phase 20 runs one ``MRGEN_FUSED_DW=0`` training step of
 the flagship Metaformer and of simple_lstm (their single-layer LSTMs on
 K8) against the default step (K7) on the same weights and batch, and
 holds every gradient within 1e-3 of its parameter's largest: a gate that
 reads K8's rounding through the whole model. This repeats that
-comparison on the batches of seeds 0 .. N-1 (default 3) and also counts
+comparison on the batches of seeds 0 .. N-1 (default 3; ``--seed S``
+adds seed S before them, 20 being phase 20's own) and also counts
 the inputs of every ``torch.relu`` of the two forwards whose sign
 differs: a flipped ReLU moves its parameter's gradient by a discrete
 amount, whatever the size of the rounding that flipped it. Prints one
 JSON line: TAG, the card's name and power limit, and per model and seed
 the loss's relative difference, the worst gradient's and its parameter,
-the ReLU inputs, how many flipped and the largest magnitude among them.
+the ReLU inputs, how many flipped and the largest magnitude among them
+(each seed's entry also goes to standard error as it is measured).
+``--plain`` instead holds each flag's step to the plain FP32 step (the
+same weights and batch on CPU tensors) at phase 20's batch of each model
+(the spec's ``dw0_batch``), as phase 20 does, or with ``--full-batch``
+at the batch of the model's training step: per model, seed and flag the
+loss's relative difference from the plain step's, the worst gradient's,
+and the ReLU inputs whose sign differs from the plain step's; beside
+them the flags' distance from each other, and the plain step's seconds.
 ``--time`` instead times each model's training step, with its yaml's
 optimizer on the batch of seed 0, under ``MRGEN_FUSED_DW=1`` and ``=0``
 in turns (1, 0, 0, 1): host clock to a synchronize, the mean of 5 steps
@@ -89,6 +99,64 @@ def compare(cs, spec, dev, seed):
             "largest_flipped_input": max(
                 (float(f.abs().max()) for f in flipped if f.numel()),
                 default=0.0)}
+
+
+def card_step(cs, spec, model, batch, flag):
+    """(loss, ReLU inputs) of one lr-0 SGD step of ``model`` under
+    MRGEN_FUSED_DW=flag (the flag does not reach CPU tensors)."""
+    sgd0 = dict(use_optimizer="sgd", lr=0.0, momentum=0.0, weight_decay=0.0)
+    train_step, _ = cs.spec_step_fns(spec, model, sgd0)
+    log = []
+    torch.relu = recording_relu(model, log)
+    try:
+        with cs.fused_dw(flag):
+            loss, _ = train_step(batch)
+    finally:
+        torch.relu = RELU
+    if batch_device(batch).type == "cuda":
+        torch.cuda.synchronize()
+    return float(loss), [x.cpu() for x in log]
+
+
+def batch_device(batch):
+    first = batch[0]
+    return (first[0] if isinstance(first, tuple) else first).device
+
+
+def flips(a_log, b_log):
+    """(sign flips, largest flipped magnitude) between two ReLU logs."""
+    flipped = [a[(a > 0) != (b > 0)] for a, b in zip(a_log, b_log)]
+    return (sum(f.numel() for f in flipped),
+            max((float(f.abs().max()) for f in flipped if f.numel()),
+                default=0.0))
+
+
+def compare_plain(cs, spec, dev, seed, full_batch=False):
+    """Phase 20's comparison on the batch of ``seed``: each flag's card
+    step against the plain FP32 step on CPU tensors."""
+    rows, frames = ((spec["batch"], spec["frames"]) if full_batch
+                    else spec["dw0_batch"])
+    host = cs.spec_batch(spec, np.random.default_rng(seed), rows,
+                         frames=frames)
+    t0 = time.perf_counter()
+    plain = cs.spec_model(spec, "cpu")
+    loss_plain, plain_log = card_step(cs, spec, plain, host, "1")
+    out = {"plain_step_s": time.perf_counter() - t0,
+           "relu_inputs": sum(a.numel() for a in plain_log)}
+    models = {}
+    for flag in ("1", "0"):
+        model = cs.spec_model(spec, dev)
+        loss, log = card_step(cs, spec, model, cs.to_device(host, dev), flag)
+        worst, name = cs.grad_rel_errs(model, plain)
+        n, largest = flips(log, plain_log)
+        out[f"fused_dw_{flag}"] = {
+            "loss_rel_err": abs(loss - loss_plain) / abs(loss_plain),
+            "grad_max_rel_err": worst, "worst": name,
+            "relu_sign_flips": n, "largest_flipped_input": largest}
+        models[flag] = model
+    out["fused_dw_0_vs_1_grad_max_rel_err"] = cs.grad_rel_errs(
+        models["0"], models["1"])[0]
+    return out
 
 
 def step_times(cs, spec, dev, steps=5):
@@ -169,7 +237,10 @@ def rollout_times(cs, dev):
 def main():
     argv = sys.argv[1:]
     tag = argv[0] if argv and not argv[0].startswith("--") else os.getcwd()
-    seeds = int(argv[argv.index("--seeds") + 1]) if "--seeds" in argv else 3
+    seeds = list(range(int(argv[argv.index("--seeds") + 1])
+                       if "--seeds" in argv else 3))
+    if "--seed" in argv:  # one more batch seed, first: 20 is phase 20's
+        seeds.insert(0, int(argv[argv.index("--seed") + 1]))
     import chip_smoke as cs
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -180,12 +251,20 @@ def main():
     if "--rollout" in argv:
         record["simple rollout"] = rollout_times(cs, dev)
         specs = ()
-    for spec in specs:
-        if "--time" in argv:
+    if "--time" in argv:
+        for spec in specs:
             record[spec["tag"]] = step_times(cs, spec, dev)
-            continue
-        for seed in range(seeds):
-            record[f"{spec['tag']} seed {seed}"] = compare(cs, spec, dev, seed)
+        specs = ()
+    fn = compare
+    if "--plain" in argv:
+        def fn(cs, spec, dev, seed):
+            return compare_plain(cs, spec, dev, seed, "--full-batch" in argv)
+    for seed in seeds:  # every model at a seed before the next seed
+        for spec in specs:
+            key = f"{spec['tag']} seed {seed}"
+            record[key] = fn(cs, spec, dev, seed)
+            print(json.dumps({key: record[key]}), file=sys.stderr,
+                  flush=True)  # a cut run keeps what it measured
     record["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
