@@ -5,7 +5,8 @@ Drives the port's main paths at full width on random weights from a
 seeded generator: with the flagship Metaformer
 (``configs.LSTMFORMER_MODEL_CFG``: hidden 256, 5 blocks, encoders of 5
 mixer blocks, 4 heads, 10 s context) offline AR generation, the training
-step and the training CLI; then the same three with lstm_with_sampling
+step and the training CLI (and, last, its other decode layouts, a
+streaming session and the serving pool); then the same three with lstm_with_sampling
 (``configs.LWS_MODEL_CFG``: a 2-layer 128-wide LSTM sampler, two
 256-wide layered-LSTM blocks), with the GRU-embedding Metaformer
 (``configs.LSTMFORMER_GRU_MODEL_CFG``: the flagship with GRU embeddings)
@@ -191,7 +192,30 @@ Phases:
      24 s, 1,124 windows), an epoch and a resumed epoch each: finite train
      and val
      losses, V top-k checkpoints and ``last``, exact K7 launches (per
-     train step +4 / +4, per validation batch an eval step, +4 forward).
+     train step +4 / +4, per validation batch an eval step, +4 forward);
+ 22. decode layouts on the flagship (``decode_layouts_phase``), B16 x 64
+     frames, lead 12: teacher-forced f32 per-block and in-loop shared
+     against the hoisted K2 path (<= 1e-4), per-block int8 against bf16
+     (<= 1e-1, tests/test_generate.py's bound), per-block f32 at batch 2
+     against CPU tensors (<= 1e-4); the per-block bf16 and int8, in-loop
+     bf16 and hoisted bf16 generations timed with the full mask, and a
+     ``repeat_with_encoder`` and an mha-embedding flagship (finite,
+     timed); launches per generation exact (K1 +1, K2 +0 in the loop;
+     K1 +5 with repeat_with_encoder; none with mha embeddings; K1 +2, K2
+     +1 hoisted);
+ 23. a flagship ``StreamingSession`` (``streaming_phase``), batch 1, bf16
+     rings: ``prime`` on 12 lead frames (K1 +1), 125 steps of random
+     audio (10 s) with no launch, per-step ms p50/p95/p99 beside the 80
+     ms hop; the streamed fbank against the offline fbank of the whole
+     signal (bits, or within 1e-6 of its largest magnitude); 4 steps
+     against CPU tensors (<= 5e-2);
+ 24. a flagship ``ServingEngine`` (``serving_phase``), bf16 shared
+     layout, at 16 and 64 slots, 100 steps: slot s attaches at step 2s,
+     two sessions detach and reattach halfway; K1 +1 per attach, none
+     per step; step ms p50/p95/p99, attach ms, the pool sizes within the
+     hop at p95; slot isolation (bits, or <= 1e-6), a slot against a
+     batch-1 session with f32 rings (<= 1e-4), int8 against bf16 (<=
+     1e-1).
 
 Every kernel's JSON record carries its bound: the larger of its
 operations (FP32 at 67 TFLOP/s; the 3xTF32 products of K5's forward,
@@ -236,6 +260,12 @@ DW0_FRAMES = 25  # the MRGEN_FUSED_DW=0 rollout
 # comparison frames the eval CLI phases render per segment (every segment
 # also gets its pose strips and nod plot)
 EVAL_RENDER_FRAMES = 2
+# the live-serving phases: generation length of the decode layouts, the
+# streamed steps (10 s of dialogue), the serving steps and pool sizes,
+# the 80 ms hop a step must keep up with, and the int8 drift bound of
+# tests/test_generate.py
+LAYOUT_FRAMES, STREAM_STEPS, SERVE_STEPS = 64, 125, 100
+SERVE_SLOTS, HOP_MS, INT8_TOL = (16, 64), 80.0, 1e-1
 LIBS = ("mixer_stack", "decode_rollout", "lstm_layer", "rect_attention",
         "lstm_stacked", "gru", "lstm_recurrence")
 SRC = "multimodalreactiongeneration_tpu_torch/csrc/"
@@ -2316,6 +2346,336 @@ def simple_generation_phase(mods, dev, rng):
                        "f32_8_steps_vs_cpu_max_abs_err": err}}
 
 
+def percentiles(values):
+    return {f"p{q}": float(np.percentile(values, q)) for q in (50, 95, 99)}
+
+
+def fmt(d):
+    return {k: round(v, 3) for k, v in d.items()}
+
+
+def flagship(cfg, device, **changes):
+    from multimodalreactiongeneration_tpu_torch.models.lstmformer import (
+        Metaformer,
+    )
+
+    return Metaformer(dict(cfg, **changes),
+                      generator=torch.Generator().manual_seed(SEED),
+                      device=device)
+
+
+def lead_arrays(rng, batch=1, lead=LEAD):
+    """A leading segment in feature space: audio, partner, self."""
+    return tuple(rng.standard_normal(s).astype(np.float32) for s in (
+        (batch, lead * RATIO, AUDIO_DIM), (batch, lead, MOTION_DIM),
+        (batch, lead, MOTION_DIM)))
+
+
+def decode_layouts_phase(mods, dev, cfg):
+    """22. The decode layouts on the flagship, B16 x ``LAYOUT_FRAMES``
+    frames (lead 12), batch from ``SEED + 22``: teacher-forced f32, the
+    per-block and the in-loop shared layouts against the hoisted K2 path
+    (<= 1e-4), per-block int8 against per-block bf16 (<= ``INT8_TOL``),
+    per-block f32 at batch 2 against the same call on CPU tensors (<=
+    1e-4); each layout timed with the full mask after its teacher-forced
+    run; a ``repeat_with_encoder`` flagship and an mha-embedding flagship
+    (finite, timed). Launches per generation, exact: K1 +1 and K2 +0
+    in the loop, K1 +5 with repeat_with_encoder, none with mha
+    embeddings, K1 +2 and K2 +1 on the hoisted path."""
+    from multimodalreactiongeneration_tpu_torch.infer import generate as G
+
+    rng = np.random.default_rng(SEED + 22)
+    model = flagship(cfg, dev)
+    batch = [x.to(dev) for x in make_batch(rng, B, frames=LAYOUT_FRAMES)]
+    masks = {m: G.sampling_mask_for(LAYOUT_FRAMES, m, device=dev)
+             for m in ("teacher", "full")}
+    f32, int8 = dict(cache_dtype=torch.float32), dict(cache_dtype=torch.int8)
+    per_block = dict(kv_layout="per_block")
+    in_loop = dict(kv_layout="shared", hoist_encoders=False)
+    in_loop_k = dict(mixer_stack=1)
+    hoisted_k = dict(mixer_stack=2, decode_rollout=1)
+    record = {"batch": B, "frames": LAYOUT_FRAMES, "ms": {}, "launches": {}}
+
+    def run(tag, mask, want, net=model, **kw):
+        torch.cuda.synchronize()
+        before = counts(mods)
+        t0 = time.perf_counter()
+        pred = G.generate_metaformer(net, batch, masks[mask], **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1000
+        if tuple(pred.shape) != (B, LAYOUT_FRAMES, MOTION_DIM):
+            raise AssertionError(f"{tag}: shape {tuple(pred.shape)}")
+        if not bool(torch.isfinite(pred).all()):
+            raise AssertionError(f"{tag}: non-finite output")
+        d = check_launches(tag, before, counts(mods), **want)
+        if mask == "full":
+            record["ms"][tag] = ms
+            record["launches"][tag] = {k: v for k, v in d.items() if v}
+        log("decode_layouts", layout=tag, mask=mask, ms=f"{ms:.3f}",
+            launches={k: v for k, v in d.items() if v})
+        return pred
+
+    zero_counts(mods)
+    ref = run("hoisted_f32", "teacher", hoisted_k, **f32)
+    errs = {
+        "per_block_f32": float((run("per_block_f32", "teacher", in_loop_k,
+                                    **f32, **per_block) - ref).abs().max()),
+        "in_loop_f32": float((run("in_loop_f32", "teacher", in_loop_k,
+                                  **f32, **in_loop) - ref).abs().max()),
+    }
+    bf16 = run("per_block_bf16", "teacher", in_loop_k, **per_block)
+    errs["int8_vs_bf16"] = float(
+        (run("per_block_int8", "teacher", in_loop_k, **int8).float()
+         - bf16.float()).abs().max())
+    for tag, want, kw in (
+            ("hoisted_bf16", hoisted_k, {}),
+            ("per_block_bf16", in_loop_k, per_block),
+            ("per_block_int8", in_loop_k, int8),
+            ("in_loop_bf16", in_loop_k, in_loop)):
+        run(tag, "full", want, **kw)
+    for tag, want, changes in (
+            ("repeat_with_encoder", dict(mixer_stack=5),
+             dict(repeat_with_encoder=True)),
+            ("mha_embeddings", {}, dict(emb_mixers=["mha", "mha", "mha"]))):
+        net = flagship(cfg, dev, **changes)
+        run(tag, "teacher", want, net=net)  # warm-up
+        run(tag, "full", want, net=net)
+        del net
+
+    small = [x[:2] for x in batch]
+    teacher = masks["teacher"].cpu()
+    on_card = G.generate_metaformer(model, small, teacher.to(dev), **f32,
+                                    **per_block)
+    on_cpu = G.generate_metaformer(flagship(cfg, "cpu"),
+                                   [x.cpu() for x in small], teacher, **f32,
+                                   **per_block)
+    errs["per_block_f32_batch2_vs_cpu"] = float(
+        (on_card.cpu() - on_cpu).abs().max())
+    log("decode_layouts", **{f"{k}_max_abs_err": f"{v:.3e}"
+                             for k, v in errs.items()})
+    for key, tol in (("per_block_f32", PATH_TOL), ("in_loop_f32", PATH_TOL),
+                     ("int8_vs_bf16", INT8_TOL),
+                     ("per_block_f32_batch2_vs_cpu", PATH_TOL)):
+        if not errs[key] <= tol:
+            raise AssertionError(f"decode layouts {key}: {errs[key]} > {tol}")
+    record["max_abs_err"] = errs
+    return record
+
+
+def streaming_phase(mods, dev, cfg):
+    """23. A flagship ``StreamingSession``, batch 1, bf16 rings: ``prime``
+    on 12 lead frames (K1 +1), then ``STREAM_STEPS`` steps of random audio
+    (10 s of dialogue; no launch), from ``SEED + 23``; per-step ms to the
+    returned frame; the streamed fbank of those hops against the offline
+    fbank of the whole signal on the card (equal bits, or within 1e-6 of
+    the features' largest magnitude);
+    the first 4 steps against a session on CPU tensors (<= 5e-2, the bf16
+    drift bound)."""
+    from multimodalreactiongeneration_tpu_torch.infer.streaming import (
+        StreamingSession,
+    )
+    from multimodalreactiongeneration_tpu_torch.ops import dsp
+
+    rng = np.random.default_rng(SEED + 23)
+    session = StreamingSession(flagship(cfg, dev))
+    lead = lead_arrays(rng)
+    hop = session.hop_samples
+    audio = (0.1 * rng.standard_normal((STREAM_STEPS, 1, hop))).astype(
+        np.float32)
+    mp = rng.standard_normal((STREAM_STEPS, 1, 1, MOTION_DIM)).astype(
+        np.float32)
+    zero_counts(mods)
+    torch.cuda.synchronize()
+    before = counts(mods)
+    t0 = time.perf_counter()
+    session.prime(*lead)
+    torch.cuda.synchronize()
+    prime_ms = (time.perf_counter() - t0) * 1000
+    check_launches("stream prime", before, counts(mods), mixer_stack=1)
+    before = counts(mods)
+    outs, step_ms = [], []
+    for t in range(STREAM_STEPS):
+        t0 = time.perf_counter()
+        outs.append(session.step(audio[t], mp[t]))
+        step_ms.append((time.perf_counter() - t0) * 1000)
+    check_launches("stream steps", before, counts(mods))
+    launches = counts(mods)
+    outs = np.concatenate(outs, axis=1)
+    if outs.shape != (1, STREAM_STEPS, MOTION_DIM) or not np.isfinite(
+            outs).all():
+        raise AssertionError(f"stream: shape {outs.shape} or non-finite")
+
+    fbp, context = session.fb_params, session.context_samples
+    wave = torch.from_numpy(audio.reshape(-1)).to(dev)
+    tail = torch.zeros(context, device=dev)
+    chunks = []
+    for t in range(STREAM_STEPS):
+        buf = torch.cat([tail, wave[t * hop:(t + 1) * hop]])
+        tail = buf[-context:]
+        chunks.append(dsp.logmel_with_power(buf, fbp))
+    streamed = torch.cat(chunks)[context // fbp.hop:]
+    offline = dsp.logmel_with_power(wave, fbp)
+    n = min(len(streamed), len(offline))
+    fbank_err = float((streamed[:n] - offline[:n]).abs().max())
+    fbank_scale = float(offline[:n].abs().max())
+    fbank_equal = torch.equal(streamed[:n], offline[:n])
+
+    cpu = StreamingSession(flagship(cfg, "cpu"))
+    cpu.prime(*lead)
+    on_cpu = np.concatenate([cpu.step(audio[t], mp[t]) for t in range(4)],
+                            axis=1)
+    cpu_err = float(np.abs(outs[:, :4] - on_cpu).max())
+    pct = percentiles(step_ms)
+    log("streaming", prime_ms=f"{prime_ms:.3f}", step_ms=fmt(pct),
+        hop_ms=HOP_MS, fbank_frames=n, fbank_bit_equal=fbank_equal,
+        fbank_max_abs_err=f"{fbank_err:.3e}",
+        fbank_max_abs=f"{fbank_scale:.3f}",
+        first4_vs_cpu_max_abs_err=f"{cpu_err:.3e}")
+    # the card's matrix products block the sums of a 10-row and a
+    # 1000-row frame matrix differently: an f32 ulp or two of the
+    # features' magnitude
+    if not fbank_err <= 1e-6 * fbank_scale:
+        raise AssertionError(
+            f"streamed vs offline fbank: {fbank_err} > 1e-6 x {fbank_scale}")
+    if not cpu_err <= K2_BF16_TOL:
+        raise AssertionError(f"stream card vs CPU: {cpu_err} > {K2_BF16_TOL}")
+    return {"steps": STREAM_STEPS, "launches": launches,
+            "prime_ms": prime_ms, "step_ms": pct,
+            "step_ms_each": step_ms, "fbank_frames": n,
+            "fbank_bit_equal": fbank_equal, "fbank_max_abs_err": fbank_err,
+            "fbank_max_abs": fbank_scale,
+            "first4_vs_cpu_max_abs_err": cpu_err}
+
+
+def serving_phase(mods, dev, cfg):
+    """24. A flagship ``ServingEngine``, bf16 shared layout, at each of
+    ``SERVE_SLOTS`` slots, ``SERVE_STEPS`` steps from ``SEED + 24``: slot s
+    attaches at step 2s, slots 1 and 2 detach and reattach halfway;
+    launches K1 +1 per attach, none per step; detached rows zero; step ms
+    p50/p95/p99, attach ms. Gates (16 slots): slot 0's outputs equal those
+    of an engine where slot 0 runs alone with the other rows zero (bits,
+    or <= 1e-6); with f32 rings a slot against a batch-1
+    ``StreamingSession`` on the same lead and inputs over 4 steps (<=
+    1e-4); an int8 engine against the bf16 one over 4 steps (<= 1e-1)."""
+    from multimodalreactiongeneration_tpu_torch.infer.generate import (
+        _init_metaformer_states,
+    )
+    from multimodalreactiongeneration_tpu_torch.infer.serving import (
+        ServingEngine,
+    )
+    from multimodalreactiongeneration_tpu_torch.infer.streaming import (
+        StreamingSession,
+        fbank_stream_geometry,
+    )
+
+    rng = np.random.default_rng(SEED + 24)
+    model = flagship(cfg, dev)
+    hop = fbank_stream_geometry(cfg)[2]
+
+    def inputs(slots):
+        return ((0.1 * rng.standard_normal((slots, hop))).astype(np.float32),
+                rng.standard_normal((slots, 1, MOTION_DIM)).astype(
+                    np.float32))
+
+    def attach(engine, lead, times):
+        torch.cuda.synchronize()
+        before = counts(mods)
+        t0 = time.perf_counter()
+        slot = engine.attach(*lead)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000)
+        check_launches("serve attach", before, counts(mods), mixer_stack=1)
+        return slot
+
+    def step(engine, a, m, times=None):
+        before = counts(mods)
+        t0 = time.perf_counter()
+        out = engine.step(a, m)
+        if times is not None:
+            times.append((time.perf_counter() - t0) * 1000)
+        check_launches("serve step", before, counts(mods))
+        if not np.isfinite(out).all() or (out[~engine.active] != 0).any():
+            raise AssertionError("serve step: non-finite or detached row")
+        return out
+
+    record, slot0 = {}, {}
+    for slots in SERVE_SLOTS:
+        engine = ServingEngine(model, slots=slots)
+        zero_counts(mods)
+        attach_ms, step_ms, outs0 = [], [], []
+        feeds = [inputs(slots) for _ in range(SERVE_STEPS)]
+        leads = {}
+        for t in range(SERVE_STEPS):
+            if t == SERVE_STEPS // 2:
+                for s in (1, 2):
+                    engine.detach(s)
+                for s in (1, 2):
+                    attach(engine, lead_arrays(rng), attach_ms)
+            if t % 2 == 0 and t // 2 < slots:
+                leads[t // 2] = lead_arrays(rng)
+                attach(engine, leads[t // 2], attach_ms)
+            outs0.append(step(engine, *feeds[t], step_ms)[0])
+        launches = counts(mods)
+        pct = percentiles(step_ms[1:])  # the first step is a warm-up
+        record[slots] = {"step_ms": pct, "attach_ms": float(np.mean(
+            attach_ms)), "attach_ms_max": float(np.max(attach_ms)),
+            "attaches": len(attach_ms), "attached_at_end":
+            int(engine.active.sum()), "launches": launches,
+            "step_ms_each": step_ms}
+        log("serving", slots=slots, step_ms=fmt(pct), hop_ms=HOP_MS,
+            attach_ms=f"{record[slots]['attach_ms']:.3f}",
+            attaches=len(attach_ms), attached=int(engine.active.sum()),
+            launches={k: v for k, v in launches.items() if v})
+        if slots == SERVE_SLOTS[0]:
+            slot0 = {"lead": leads[0], "feeds": feeds, "outs": outs0}
+        del engine
+
+    alone = ServingEngine(model, slots=SERVE_SLOTS[0])
+    attach(alone, slot0["lead"], [])
+    outs = []
+    for a, m in slot0["feeds"]:
+        a0, m0 = np.zeros_like(a), np.zeros_like(m)
+        a0[0], m0[0] = a[0], m[0]
+        outs.append(step(alone, a0, m0)[0])
+    isolation_err = float(np.abs(np.stack(outs)
+                                 - np.stack(slot0["outs"])).max())
+    isolation_equal = bool((np.stack(outs) == np.stack(slot0["outs"])).all())
+    del alone
+
+    errs = {"slot_isolation": isolation_err}
+    leads = [lead_arrays(rng) for _ in range(3)]
+    feeds = [inputs(SERVE_SLOTS[0]) for _ in range(4)]
+    got = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", None),
+                        ("int8", torch.int8)):
+        engine = ServingEngine(model, slots=SERVE_SLOTS[0], cache_dtype=dtype)
+        for lead in leads:
+            attach(engine, lead, [])
+        got[name] = np.stack([step(engine, a, m) for a, m in feeds], 1)
+        del engine
+    session = StreamingSession(model)
+    session.states = _init_metaformer_states(cfg, 1, torch.float32,
+                                             "shared", device=dev)
+    session.prime(*leads[1])
+    alone = np.concatenate([session.step(a[1:2], m[1:2]) for a, m in feeds])
+    errs["slot_vs_session_f32"] = float(np.abs(got["f32"][1] - alone).max())
+    errs["int8_vs_bf16"] = float(
+        np.abs(got["int8"][:3] - got["bf16"][:3]).max())
+    fits = [s for s in SERVE_SLOTS if record[s]["step_ms"]["p95"] <= HOP_MS]
+    log("serving", slot_isolation_bit_equal=isolation_equal,
+        **{f"{k}_max_abs_err": f"{v:.3e}" for k, v in errs.items()},
+        slots_within_hop_at_p95=max(fits, default=0))
+    for key, tol in (("slot_isolation", 1e-6),
+                     ("slot_vs_session_f32", PATH_TOL),
+                     ("int8_vs_bf16", INT8_TOL)):
+        if not errs[key] <= tol:
+            raise AssertionError(f"serving {key}: {errs[key]} > {tol}")
+    return {"slots": {str(k): v for k, v in record.items()},
+            "steps": SERVE_STEPS, "slot_isolation_bit_equal": isolation_equal,
+            "max_abs_err": errs, "slots_within_hop_at_p95": max(fits,
+                                                                default=0)}
+
+
 def recurrence_records(cases, launches, **more_launches):
     """The JSON entries of K8's forward and backward: the main case is a
     simple_lstm acoustic direction (B256 x T120 x H128); launches from the
@@ -2626,6 +2986,11 @@ def main():
                         simple_cli_launches, corpus="corpus_v1", monitors="V")
         for name in ("simple_lstm", "simple_lstm_best")}
     shutil.rmtree(run)  # the corpora, manifests and checkpoints
+
+    # ---- 22.-24. live serving: decode layouts, streaming, serving ------
+    layouts = decode_layouts_phase(mods, dev, cfg)
+    streaming = streaming_phase(mods, dev, cfg)
+    serving = serving_phase(mods, dev, cfg)
     k8_runs = {"generation": simple_gen["launches_fused_dw_0"],
                "simple_train_step": simple_off["launches"],
                "flagship_train_step": flagship_off["launches"]}
@@ -2641,7 +3006,11 @@ def main():
             k1_main["ms"], k1_main["plain_ms"], k1_main["bound"], None,
             whole_sequence_ms=k1_main["whole_sequence_ms"],
             chunk=k1_main["chunk"], cases=k1_cases,
-            launches_eval_cli=eval_cli["launches"]["mixer_stack"]),
+            launches_eval_cli=eval_cli["launches"]["mixer_stack"],
+            launches_decode_layouts=layouts["launches"],
+            launches_streaming=streaming["launches"]["mixer_stack"],
+            launches_serving={k: v["launches"]["mixer_stack"]
+                              for k, v in serving["slots"].items()}),
         kernel_record(
             "decode_rollout", "decode_rollout.cu",
             "pallas_decode_rollout.py:103", launches["decode_rollout"],
@@ -2676,6 +3045,8 @@ def main():
         "flagship_fused_dw_0_step": flagship_off["record"],
         "simple_cli": {"corpus_frames": v1_frames,
                        **{k: v["record"] for k, v in simple_cli.items()}},
+        "decode_layouts": layouts, "streaming": streaming,
+        "serving": serving,
         "seconds": time.perf_counter() - t_start}
     log("done", seconds=f"{record['seconds']:.1f}")
     print(json.dumps(record))

@@ -2,35 +2,49 @@
 
 Counterpart of ``multimodalreactiongeneration_tpu/infer/generate.py``:
 ``generate_lws`` for LSTMwithSample (below) and ``generate_metaformer``
-on its production branch, the hoisted-encoder, shared-KV path:
+with the JAX package's three decode layouts:
 
-  1. One full-sequence pass encodes the known other-modality streams
-     (audio, partner motion) for lead + seq (``encode_others_only``; on
-     the card the encoder stacks run the mixer-stack kernel).
-  2. The leading segment primes the shared raw rings and the main LSTM
-     states (warmup, masks on).
-  3. The rollout: prediction[t] = model(prev); the next prev is
-     prediction[t] where sampling_mask[t] else motion_s[t]. With
-     ``fused_rollout`` ("auto" or True, and a supported config) it is
-     one call of ``ops/decode_rollout.decode_rollout`` (the kernel on
-     the card, its plain version on the CPU); ``fused_rollout=False``,
-     or a config outside the rollout's gate (a GRU main modality, as in
-     configs/lstmformer_gru.yaml), runs the module step by step. With GRU
-     embeddings the hoisted pass of step 1 runs the GRU recurrence
-     kernel (K10) over each encoder block.
+  * hoisted shared-KV (the default, and the production path):
+    1. One full-sequence pass encodes the known other-modality streams
+       (audio, partner motion) for lead + seq (``encode_others_only``;
+       on the card the encoder stacks run the mixer-stack kernel, K1).
+    2. The leading segment primes the shared raw rings and the main
+       LSTM states (warmup, masks on).
+    3. The rollout: prediction[t] = model(prev); the next prev is
+       prediction[t] where sampling_mask[t] else motion_s[t]. With
+       ``fused_rollout`` ("auto" or True, and a supported config) it is
+       one call of ``ops/decode_rollout.decode_rollout`` (K2 on the
+       card, its plain version on the CPU); ``fused_rollout=False``, or
+       a config outside the rollout's gate (a GRU main modality, as in
+       configs/lstmformer_gru.yaml), runs the module step by step.
+  * in-loop shared-KV (``hoist_encoders=False``, or "auto" with mha
+    other-modality embeddings): the warmup primes block 0's encoders
+    and the raw rings, and every step encodes its own ``ratio`` audio
+    frames and partner-motion frame in block 0 (K1 over the lead's
+    audio on the card; the 8-frame step chunks run the plain
+    recurrences). ``StreamingSession`` and ``ServingEngine`` step this
+    layout.
+  * per-block (``kv_layout="per_block"``, and the fallback for
+    ``repeat_with_encoder`` models and int8 caches): every (block,
+    integrator, layer) keeps its own ring of projected K/V
+    (``infer/cache.py cache_init``), attended with the plain attention,
+    as in JAX; int8 rings hold per-token codes and scales.
 
 -100 padded inputs are zeroed first. Tensors use the JAX package's
-layouts. The per-block KV layout, int8 caches and the in-loop
-(non-hoisted) encoder path are not ported.
+layouts.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
 
-from multimodalreactiongeneration_tpu_torch.infer.cache import raw_cache_init
+from multimodalreactiongeneration_tpu_torch.infer.cache import (
+    cache_init,
+    raw_cache_init,
+)
 from multimodalreactiongeneration_tpu_torch.models.lstm_with_sampling import (
     derived_sizes as lws_sizes,
 )
@@ -44,6 +58,18 @@ PADDING_VALUE = -100.0
 
 def _zero_padding(x: torch.Tensor) -> torch.Tensor:
     return x * (x != PADDING_VALUE)
+
+
+@contextlib.contextmanager
+def eval_mode(model):
+    """Run ``model`` in eval mode inside, and restore its own mode after:
+    decode is deterministic, as the JAX decode is."""
+    was_training = model.training
+    model.eval()
+    try:
+        yield model
+    finally:
+        model.train(was_training)
 
 
 def _form_steps(fbank, motion_p, motion_s, ratio: int):
@@ -98,9 +124,7 @@ def generate_lws(
     blocks' states after every call, the reference's effective behaviour
     (its LSTMLayerd returns the input states). The model runs in eval
     mode for the call, and its own mode is restored afterwards."""
-    was_training = model.training
-    model.eval()
-    try:
+    with eval_mode(model):
         fbank, motion_p, motion_s, lead_a, lead_mp, lead_ms, _ = [
             _zero_padding(x) for x in batch_data
         ]
@@ -119,46 +143,97 @@ def generate_lws(
             prev = torch.where(sampling_mask[t], y, ms[t])
             ys.append(y)
         return torch.stack(ys)[:, :, 0, :].transpose(0, 1)
-    finally:
-        model.train(was_training)
 
 
 def _init_metaformer_states(
     model_cfg: dict,
     batch: int,
     cache_dtype: torch.dtype = torch.bfloat16,
+    kv_layout: str = "per_block",
+    hoisted: bool = False,
     device: Optional[torch.device] = None,
 ):
-    """Shared-KV decode states with hoisted encoders: one raw ring per
-    other modality, sized by the context budgets; every block carries
-    only its main-modality embedding state (None until warmup)."""
-    if model_cfg["repeat_with_encoder"]:
-        raise ValueError("the shared-KV layout requires repeat_with_encoder=False")
-    if cache_dtype not in (torch.float32, torch.bfloat16):
+    """Decode states: ring buffers sized by the per-modality context
+    budgets; recurrent embedding states start None.
+
+    kv_layout="per_block": one projected-K/V ring per (block, integrator,
+    layer); works with repeat_with_encoder and int8 caches.
+    kv_layout="shared": ONE raw ring per other modality holding block 0's
+    pre-projection encodings, attended by every block with its
+    projections folded (``TorchMHA.attend_raw``).
+    hoisted: the other-modality encoders run outside the loop, so block 0
+    carries only the main-modality embedding state, like later blocks.
+    mha embeddings get rings of their own in either layout (without them
+    a decode step would attend only itself)."""
+    if kv_layout not in ("shared", "per_block"):
         raise ValueError(
-            f"shared-KV caches are f32 or bf16, got {cache_dtype}"
+            f"kv_layout must be 'shared' or 'per_block', got {kv_layout!r}"
         )
+    if kv_layout == "shared" and model_cfg["repeat_with_encoder"]:
+        raise ValueError(
+            "kv_layout='shared' requires repeat_with_encoder=False; "
+            "use kv_layout='per_block'"
+        )
+    if kv_layout == "shared" and cache_dtype == torch.int8:
+        # a raw int8 ring would truncate float encodings with no scales
+        raise ValueError(
+            "kv_layout='shared' does not support int8 caches (per-slot "
+            "quantization scales live in the per_block layout)"
+        )
+    if hoisted and kv_layout != "shared":
+        raise ValueError("hoisted encoders require kv_layout='shared'")
     budgets = context_budgets(model_cfg)
     hidden = model_cfg["hidden_size"]
-    n_other = len(model_cfg["modalities"]) - 1
     num_layerd = model_cfg["num_layerd"]
-    main_type = model_cfg["emb_mixers"][model_cfg["main_modal_idx"]]
-    if main_type == "mha":
-        raise NotImplementedError(
-            "mha main-modality embeddings need per-block caches, which "
-            "are not ported"
-        )
-    blocks = [
-        {"emb": [None], "crm": [[None] * num_layerd for _ in range(n_other)]}
-        for _ in range(model_cfg["num_block"])
-    ]
-    return {
-        "shared": [
-            raw_cache_init(batch, budgets[i], hidden, cache_dtype, device)
-            for i in range(n_other)
-        ],
-        "blocks": blocks,
+    num_inner = model_cfg["num_internal_layer"]
+    n_other = len(model_cfg["modalities"]) - 1
+    emb_types = list(model_cfg["emb_mixers"])
+    main_type = emb_types.pop(model_cfg["main_modal_idx"])
+    other_modalities = list(model_cfg["modalities"])
+    main_modality = other_modalities.pop(model_cfg["main_modal_idx"])
+    # block-0 embedding order: [main] + others; later blocks main only
+    emb_order = [(main_modality, main_type)] + list(
+        zip(other_modalities, emb_types)
+    )
+    rates = {
+        "audio": model_cfg["sampling_rate"] / model_cfg["shift"],
+        "motion": model_cfg["pred_fps"],
     }
+
+    def rings(count, capacity):
+        return [cache_init(batch, capacity, hidden, dtype=cache_dtype,
+                           device=device) for _ in range(count)]
+
+    def emb_state(modality: str, mtype: str, layerd: int):
+        if mtype != "mha":
+            return None
+        budget = int(model_cfg["max_context_len"] * rates[modality])
+        return [rings(num_inner, budget) for _ in range(layerd)]
+
+    states = []
+    for b in range(model_cfg["num_block"]):
+        encode = (b == 0 and not hoisted) or model_cfg["repeat_with_encoder"]
+        emb_here = emb_order if encode else emb_order[:1]
+        emb = [
+            emb_state(modality, mtype,
+                      num_layerd if m == 0 else model_cfg["encoder_num_layer"])
+            for m, (modality, mtype) in enumerate(emb_here)
+        ]
+        if kv_layout == "shared":
+            crm = [[None] * num_layerd for _ in range(n_other)]
+        else:
+            crm = [[rings(num_inner, budgets[i]) for _ in range(num_layerd)]
+                   for i in range(n_other)]
+        states.append({"emb": emb, "crm": crm})
+    if kv_layout == "shared":
+        return {
+            "shared": [
+                raw_cache_init(batch, budgets[i], hidden, cache_dtype, device)
+                for i in range(n_other)
+            ],
+            "blocks": states,
+        }
+    return states
 
 
 def _fused_rollout_supported(
@@ -248,20 +323,14 @@ def _fused_rollout(
 
 
 def _hoist_and_warmup(model, batch_data, cache_dtype):
-    """Steps 1 and 2: the full-sequence encoder pass and the warmup over
-    the leading segment. Returns (states, enc_a_steps (L, B, r, H),
-    enc_mp_steps (L, B, 1, H), ms (L, B, 1, D), lead lengths la, lm)."""
+    """Steps 1 and 2 of the hoisted path: the full-sequence encoder pass
+    and the warmup over the leading segment. Returns (states,
+    enc_a_steps (L, B, r, H), enc_mp_steps (L, B, 1, H), ms (L, B, 1, D),
+    lead lengths la, lm)."""
     fbank, motion_p, motion_s, lead_a, lead_mp, lead_ms, _ = [
         _zero_padding(x) for x in batch_data
     ]
     cfg = model.cfg
-    other_types = list(cfg["emb_mixers"])
-    other_types.pop(cfg["main_modal_idx"])
-    if cfg["repeat_with_encoder"] or any(t == "mha" for t in other_types):
-        raise NotImplementedError(
-            "only the hoisted shared-KV decode path is ported "
-            "(repeat_with_encoder=False, non-mha other-modality embeddings)"
-        )
     ratio = derived_sizes(cfg)["ratio"]
     batch = fbank.shape[0]
     hidden = cfg["hidden_size"]
@@ -279,7 +348,8 @@ def _hoist_and_warmup(model, batch_data, cache_dtype):
     )
     enc_mp_steps = enc_mp[:, lm:].permute(1, 0, 2)[:, :, None, :]
 
-    states = _init_metaformer_states(cfg, batch, cache_dtype, fbank.device)
+    states = _init_metaformer_states(cfg, batch, cache_dtype, "shared",
+                                     hoisted=True, device=fbank.device)
     _, states = model(
         lead_a, lead_mp, lead_ms, states=states, use_masks=True,
         precomputed_others=[enc_a[:, :la], enc_mp[:, :lm]],
@@ -293,29 +363,59 @@ def generate_metaformer(
     batch_data: Sequence[torch.Tensor],
     sampling_mask: torch.Tensor,
     cache_dtype: torch.dtype = torch.bfloat16,
+    kv_layout: str = "shared",
+    hoist_encoders="auto",
     fused_rollout="auto",
 ) -> torch.Tensor:
     """Rollout for the Metaformer; ``batch_data`` is the 7-tuple
     (fbank_p, motion_p, motion_s, lead_fbank, lead_mp, lead_ms, target).
     Returns the prediction (B, L, D).
 
-    fused_rollout: "auto" takes ``decode_rollout`` whenever the config
-    is supported (bf16 and f32 caches alike); True requires it; False
-    runs the module step by step.
+    kv_layout: "shared" (the default) or "per_block"; "shared" falls back
+    to "per_block" for repeat_with_encoder models and int8 caches, as in
+    JAX. hoist_encoders: "auto" hoists whenever the layout is shared and
+    no other-modality embedding is mha; True requires it; False runs the
+    encoders in the loop. fused_rollout (hoisted path only): "auto" takes
+    ``decode_rollout`` whenever the config is supported (bf16 and f32
+    caches alike); True requires it; False runs the module step by step.
 
-    Decoding is deterministic, as the JAX decode: the model runs in eval
-    mode for the call, and its own mode is restored afterwards."""
-    was_training = model.training
-    model.eval()
-    try:
+    The model runs in eval mode for the call (``eval_mode``)."""
+    with eval_mode(model):
         return _generate(model, batch_data, sampling_mask, cache_dtype,
-                         fused_rollout)
-    finally:
-        model.train(was_training)
+                         kv_layout, hoist_encoders, fused_rollout)
 
 
-def _generate(model, batch_data, sampling_mask, cache_dtype, fused_rollout):
+def _generate(model, batch_data, sampling_mask, cache_dtype, kv_layout,
+              hoist_encoders, fused_rollout):
     cfg = model.cfg
+    if kv_layout == "shared" and (
+        cfg["repeat_with_encoder"] or cache_dtype == torch.int8
+    ):
+        # the shared layout needs block-0 encoding reuse, and quantized
+        # rings carry their scales only in the per-block layout
+        kv_layout = "per_block"
+    other_types = list(cfg["emb_mixers"])
+    other_types.pop(cfg["main_modal_idx"])
+    hoistable = kv_layout == "shared" and all(t != "mha" for t in other_types)
+    if hoist_encoders == "auto":
+        hoist = hoistable
+    else:
+        hoist = bool(hoist_encoders)
+        if hoist and not hoistable:
+            raise ValueError(
+                "hoist_encoders=True needs the shared KV layout and "
+                "non-mha other-modality embeddings "
+                f"(kv_layout={kv_layout!r}, emb types {other_types})"
+            )
+    if fused_rollout is True and not hoist:
+        raise ValueError(
+            "fused_rollout=True needs the hoisted shared-KV path "
+            f"(kv_layout={kv_layout!r}, hoist_encoders={hoist_encoders!r})"
+        )
+    if not hoist:
+        return _generate_in_loop(model, batch_data, sampling_mask,
+                                 cache_dtype, kv_layout)
+
     states, enc_a_steps, enc_mp_steps, ms, la, lm = _hoist_and_warmup(
         model, batch_data, cache_dtype
     )
@@ -341,6 +441,31 @@ def _generate(model, batch_data, sampling_mask, cache_dtype, fused_rollout):
             None, None, prev, states=st, use_masks=False,
             precomputed_others=[enc_a_steps[t], enc_mp_steps[t]],
         )
+        prev = torch.where(sampling_mask[t], y, ms[t])
+        ys.append(y)
+    return torch.stack(ys)[:, :, 0, :].transpose(0, 1)
+
+
+def _generate_in_loop(model, batch_data, sampling_mask, cache_dtype,
+                      kv_layout):
+    """The non-hoisted layouts: a warmup over the leading segment with
+    the rings attached (masks on: its outputs feed deeper blocks'
+    recurrent states), then one module step a frame on ``ratio`` audio
+    frames, one partner-motion frame and the previous self-motion
+    frame; block 0 (every block with repeat_with_encoder) runs the
+    encoders in the loop."""
+    fbank, motion_p, motion_s, lead_a, lead_mp, lead_ms, _ = [
+        _zero_padding(x) for x in batch_data
+    ]
+    fb, mp, ms = _form_steps(fbank, motion_p, motion_s,
+                             derived_sizes(model.cfg)["ratio"])
+    states = _init_metaformer_states(model.cfg, fbank.shape[0], cache_dtype,
+                                     kv_layout, device=fbank.device)
+    _, st = model(lead_a, lead_mp, lead_ms, states=states, use_masks=True)
+    sampling_mask = sampling_mask.to(ms.device)
+    prev, ys = ms[0], []
+    for t in range(ms.shape[0]):
+        y, st = model(fb[t], mp[t], prev, states=st, use_masks=False)
         prev = torch.where(sampling_mask[t], y, ms[t])
         ys.append(y)
     return torch.stack(ys)[:, :, 0, :].transpose(0, 1)

@@ -7,10 +7,15 @@ it into every other modality by cross-attention, concatenates, projects
 and runs an FFN; an output FFN maps to the motion feature dim.
 
 States are plain Python structures threaded through ``forward``: per
-block ``{"emb": [...], "crm": [...]}``; in the shared-KV decode layout
-``{"shared": [raw caches], "blocks": [...]}``, where ONE raw ring buffer
-per other modality holds block 0's encodings and every integrator
-attends it with folded projections (``TorchMHA.attend_raw``).
+block ``{"emb": [...], "crm": [...]}``, where a recurrent embedding
+carries its (h, c) or h per block, an mha embedding its ring buffers of
+projected K/V, and, in the per-block decode layout, each integrator its
+own rings (``crm``); in the shared-KV decode layout ``{"shared": [raw
+caches], "blocks": [...]}``, where ONE raw ring buffer per other
+modality holds block 0's encodings and every integrator attends it with
+folded projections (``TorchMHA.attend_raw``). With
+``repeat_with_encoder`` every block encodes the other modalities (and
+only the per-block layout serves it).
 
 The encoding block owns the other-modality encoders (``emb_1`` ...)
 whether or not a given call runs them: under ``precomputed_others`` the
@@ -77,8 +82,7 @@ class MultiModalMetaformerBlock(nn.Module):
     def _embed(self, i: int, x, state, self_mask):
         layerd = getattr(self, f"emb_{i}")
         if self.mixer_types[i] == "mha":
-            y, _ = layerd(x, attn_mask=self_mask)
-            return y, state
+            return layerd(x, attn_mask=self_mask, caches=state)
         return layerd(x, state)
 
     def encode_only(self, other_modals, self_masks=None):
@@ -138,14 +142,9 @@ class MultiModalMetaformerBlock(nn.Module):
             if shared_kv is not None:
                 y, st = integ(main_out, shared_raw=shared_kv[i])
             else:
-                if crm_state[i] is not None:
-                    raise NotImplementedError(
-                        "per-block KV caches are not ported; use the "
-                        "shared-KV decode layout"
-                    )
                 y, st = integ(main_out, key=other_modals[i],
                               value=other_modals[i],
-                              attn_mask=cross_masks[i])
+                              attn_mask=cross_masks[i], caches=crm_state[i])
             ys.append(y)
             new_state["crm"].append(st)
         merged = self.cat_linear(torch.cat(ys, dim=-1))

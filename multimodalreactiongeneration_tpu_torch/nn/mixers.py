@@ -5,14 +5,16 @@ pieces the Metaformer runs: ``RecurrentMixerBlock`` /
 ``RecurrentMixerLayerd`` (LSTM and GRU kinds, single inner layer) with
 the fused stack dispatch (LSTM stacks only, as in the JAX package: a GRU
 stack runs block by block), and ``MHAMixerBlock`` / ``MHAMixerLayerd`` on
-their shared-raw (decode) and masked full-sequence paths. Submodule names
+their masked full-sequence path and their two decode paths: per-block
+ring buffers of projected K/V (``caches``) and a shared raw ring
+(``shared_raw``). Submodule names
 follow the flax tree (``block_i``, ``mixer``, ``mixer_norm``,
 ``feed_forward``, ``mha_i``). Recurrent stacks return their fresh
 states, as in the JAX package (PARITY #1): (h, c) per LSTM block, h per
 GRU block.
 
-Not ported yet: the MLP mixers, bidirectional and multi-layer recurrent
-mixers, and the per-block KV-cache decode path.
+Not ported yet: the MLP mixers and the bidirectional and multi-layer
+recurrent mixers.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from multimodalreactiongeneration_tpu_torch.infer.cache import cache_extend
 from multimodalreactiongeneration_tpu_torch.nn.attention import TorchMHA
 from multimodalreactiongeneration_tpu_torch.nn.basic import (
     FeedForward,
@@ -107,9 +110,14 @@ class RecurrentMixerBlock(nn.Module):
 class MHAMixerBlock(nn.Module):
     """MHA mixer (N inner layers) + FFN (reference mixer_block.py:510-603).
 
-    attn_mask given, shared_raw None -> full-sequence masked attention;
+    cache None, shared_raw None -> full-sequence masked attention;
+    cache = one ring buffer per inner MHA layer -> the per-block decode
+    path: only the incoming chunk is projected, appended to the ring
+    (``attn_mask``, if any, covers the chunk and is scattered onto the
+    slots it fills) and attended with the ring's mask;
     shared_raw = (x_full, mask) -> attend a raw ring buffer with folded
-    projections (the shared-KV decode path)."""
+    projections (the shared-KV decode path).
+    Returns (y, new caches or None)."""
 
     def __init__(
         self,
@@ -145,21 +153,29 @@ class MHAMixerBlock(nn.Module):
         self.feed_forward = _feed_forward(hidden_size, generator, self)
 
     def forward(self, query, key=None, value=None, attn_mask=None,
-                shared_raw=None):
+                cache=None, shared_raw=None):
         act = set_nonlinearity(self.nonlinearity)
+        new_cache = None if cache is None else []
         y = query
         for i in range(self.num_layers):
             mha = getattr(self, f"mha_{i}")
             if shared_raw is not None:
                 x_full, smask = shared_raw
                 y_att = mha.attend_raw(y, x_full, smask)
-            else:
+            elif cache is None:
                 y_att = mha(y, key, value, attn_mask)
+            else:
+                k_new, v_new = mha.project_kv(key, value)
+                c_i, k_full, v_full, mask = cache_extend(
+                    cache[i], k_new, v_new, chunk_mask=attn_mask
+                )
+                new_cache.append(c_i)
+                y_att = mha.attend(y, k_full, v_full, mask)
             if act is not None:
                 y_att = act(y_att)
             y = y_att
         y = _residual_wrap(y, query, self.residual, self.mixer_norm)
-        return self.feed_forward(y)
+        return self.feed_forward(y), new_cache
 
 
 class RecurrentMixerLayerd(nn.Module):
@@ -261,7 +277,9 @@ class RecurrentMixerLayerd(nn.Module):
 
 
 class MHAMixerLayerd(nn.Module):
-    """Cross-attention stack (reference mixer_block.py:846-963)."""
+    """Self- or cross-attention stack (reference mixer_block.py:846-963).
+    ``caches``: per block, None or a list of per-inner-layer rings (the
+    per-block decode layout); returns (y, per-block new caches)."""
 
     def __init__(
         self,
@@ -301,6 +319,7 @@ class MHAMixerLayerd(nn.Module):
         key: Optional[torch.Tensor] = None,
         value: Optional[torch.Tensor] = None,
         attn_mask: Optional[torch.Tensor] = None,
+        caches: Optional[List[Optional[List[Dict[str, Any]]]]] = None,
         shared_raw: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ):
         refuse_dropout(self)
@@ -314,13 +333,17 @@ class MHAMixerLayerd(nn.Module):
             key, value = query, query
         if shared_raw is None and (key is None or value is None):
             raise ValueError("key/value required when self_attention is False")
+        new_caches = []
         for i in range(self.num_layerd):
             if self.self_attention and i > 0:
+                # each stacked block self-attends to its own input
                 key = value = query
-            query = getattr(self, f"block_{i}")(
-                query, key, value, attn_mask, shared_raw
+            query, new_cache = getattr(self, f"block_{i}")(
+                query, key, value, attn_mask,
+                None if caches is None else caches[i], shared_raw,
             )
-        return query, [None] * self.num_layerd
+            new_caches.append(new_cache)
+        return query, new_caches
 
 
 def build_mixer_layerd(mixer_type: str, configs: Dict[str, Any],

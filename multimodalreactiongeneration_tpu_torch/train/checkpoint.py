@@ -189,8 +189,11 @@ def import_torch_state_dict(
         ``q/k/v_proj_weight`` are copied verbatim;
       * MHA ``in_proj_weight`` / ``in_proj_bias`` split into q, k and v
         thirds; ``out_proj.weight`` / ``.bias`` become ``out_proj_*``.
-    A name no prefix covers, or a leaf of no known kind, raises: the JAX
-    importer skips it, which leaves a half-random model behind.
+    A name no prefix covers on a name boundary, or a covered name whose
+    leaf is of no known kind (a registered buffer such as
+    ``running_mean``), is skipped, as the JAX importer skips it;
+    ``models/torch_import.py convert_checkpoint`` loads the result with
+    ``strict=True``, so a parameter left out still fails there.
     """
     prefixes = sorted(name_map.items(), key=lambda x: -len(x[0]))
     out: Dict[str, torch.Tensor] = {}
@@ -198,7 +201,7 @@ def import_torch_state_dict(
         hit = next(((p, m) for p, m in prefixes
                     if tname == p or tname.startswith(p + ".")), None)
         if hit is None:
-            raise KeyError(f"no mapping for reference parameter {tname!r}")
+            continue
         ours = hit[1].replace("/", ".")
         rest = tname[len(hit[0]):].lstrip(".")
         array = _f32(value)
@@ -213,6 +216,4 @@ def import_torch_state_dict(
             out[f"{ours}.out_proj_{leaf}"] = array
         elif leaf in ("weight", "bias"):
             out[f"{ours}.{rest}"] = array
-        else:
-            raise KeyError(f"no mapping for reference parameter {tname!r}")
     return out

@@ -13,7 +13,8 @@ with LSTM, GRU and MHA embeddings, LSTMwithSample and SimpleLSTM:
   * the export of a model's weights equals the JAX export of the same
     weights bit for bit, ``import(export(sd)) == sd``, and the reference
     replica loads it with ``strict=True``;
-  * a name no table covers raises, on import and on export;
+  * a name no table covers is skipped on import, as the JAX importer
+    skips it, and raises on export;
   * ``convert_checkpoint`` writes a checkpoint the port loads, and
     ``torch_import.main`` / ``torch_export.main`` go through files.
 The eval CLI on a converted checkpoint is in test_torch_port_eval_cli.py.
@@ -221,20 +222,36 @@ def test_name_tables_are_the_jax_tables(cfg_name):
 
 
 def test_mha_embeddings_import_but_do_not_decode():
-    """The port's Metaformer runs mha embeddings (the forward above); its
-    decode takes the hoisted shared-KV path only, which refuses them."""
+    """An imported mha-embedding Metaformer decodes on the in-loop
+    shared-KV path (the hoist refuses mha other-modality embeddings), as
+    the JAX decode of the JAX import does: teacher-forced f32 caches,
+    1e-4 abs."""
+    from multimodalreactiongeneration_tpu.infer.generate import (
+        generate_metaformer as jax_generate,
+    )
+
     ref, _, xs, cfg = _metaformer_reference("mha", 5)
+    sd = _numpy_sd(ref)
     port = build_model("lstmformer", cfg, device="cpu")
-    port.load_state_dict(
-        torch_import.import_metaformer_state_dict(_numpy_sd(ref), cfg),
-        strict=True)
+    port.load_state_dict(torch_import.import_metaformer_state_dict(sd, cfg),
+                         strict=True)
     rng = np.random.default_rng(6)
-    batch = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    batch = [rng.standard_normal(s).astype(np.float32)
              for s in ((2, 4 * RATIO, 81), (2, 4, 18), (2, 4, 18),
                        (2, 2 * RATIO, 81), (2, 2, 18), (2, 2, 18),
                        (2, 4, 18))]
-    with pytest.raises(NotImplementedError, match="hoisted"):
-        generate_metaformer(port, batch, sampling_mask_for(4, "full"))
+    teacher = np.zeros(4, bool)
+    got = generate_metaformer(
+        port, [torch.from_numpy(x) for x in batch],
+        torch.from_numpy(teacher), cache_dtype=torch.float32).numpy()
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jax_generate(
+            JaxMetaformer(cfg=cfg),
+            {"params": jimport.import_metaformer_state_dict(sd, cfg)},
+            tuple(jnp.asarray(x) for x in batch), jnp.asarray(teacher),
+            cache_dtype=jnp.float32))
+    assert got.shape == want.shape == (2, 4, 18)
+    np.testing.assert_allclose(got, want, atol=1e-4)
 
 
 def _jax_init(variant, seed):
@@ -274,22 +291,48 @@ def test_export_matches_jax_export_and_round_trips(variant):
 
 
 def test_unmapped_names_raise():
-    with pytest.raises(KeyError, match="no mapping"):
-        import_torch_state_dict({"elsewhere.weight": np.zeros((2, 2))},
-                                {"x": "y"})
-    # a prefix matches on a name boundary only
-    with pytest.raises(KeyError, match="no mapping"):
-        import_torch_state_dict({"x1.weight": np.zeros((2, 2))}, {"x": "y"})
-    with pytest.raises(KeyError, match="no mapping"):
-        import_torch_state_dict({"x.running_mean": np.zeros(2)}, {"x": "y"})
+    """A name no prefix covers on a name boundary, and a covered name
+    whose leaf is of no known kind, are skipped on import, as the JAX
+    importer skips them (``convert_checkpoint``'s strict load still
+    refuses a parameter left out); export still raises for a name no
+    table covers."""
+    w = np.ones((2, 2), np.float32)
+    assert import_torch_state_dict({"elsewhere.weight": w}, {"x": "y"}) == {}
+    # a prefix matches on a name boundary only: x1 is not under x
+    assert import_torch_state_dict({"x1.weight": w}, {"x": "y"}) == {}
+    got = import_torch_state_dict(
+        {"x.running_mean": np.zeros(2), "x.weight": w}, {"x": "y"})
+    assert list(got) == ["y.weight"]
     ref, _, _, cfg = _lws_reference(8)
     sd = _numpy_sd(ref)
+    clean = torch_import.import_lws_state_dict(sd, cfg)
     sd["extra.weight"] = np.zeros((2, 2), np.float32)
-    with pytest.raises(KeyError, match="extra.weight"):
-        torch_import.import_lws_state_dict(sd, cfg)
+    extra = torch_import.import_lws_state_dict(sd, cfg)
+    assert set(extra) == set(clean)
+    assert all(torch.equal(extra[k], clean[k]) for k in clean)
     with pytest.raises(ValueError, match="no reference mapping"):
         torch_export.export_torch_state_dict(
             {"somewhere.weight": torch.zeros(2, 2)}, {"x": "y"})
+
+
+@pytest.mark.parametrize("variant", ["metaformer_lstm", "lstm_with_sampling"])
+def test_extra_entry_skipped_as_jax_skips_it(variant):
+    """A reference state dict with one extra entry (``buffer.weight``,
+    which no table covers, and a covered ``running_mean`` buffer): the
+    JAX importer and the port's give the same parameters, bit for bit,
+    and the port's loads with ``strict=True``."""
+    model_type, make_ref, _, jax_import, port_import, _ = VARIANTS[variant]
+    ref, _, _, cfg = make_ref(9)
+    sd = _numpy_sd(ref)
+    first = next(iter(sd)).rsplit(".", 1)[0]
+    sd["buffer.weight"] = np.ones((3, 3), np.float32)
+    sd[f"{first}.running_mean"] = np.ones(3, np.float32)
+    want = state_dict_from_jax(flat_params(jax_import(sd, cfg)))
+    got = port_import(sd, cfg)
+    assert set(got) == set(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    build_model(model_type, cfg, device="cpu").load_state_dict(
+        got, strict=True)
 
 
 def test_unpacked_qkv_round_trip():

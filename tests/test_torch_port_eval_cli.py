@@ -10,9 +10,11 @@ saved by the JAX package's saver, the same params through
     relative of JAX's, the same output files (speed.log, per segment the
     frames, the wav, the pose strips and nod.png), one speed.log line per
     batch, and the same nod ratio within 1e-4;
-  * the small flagship: the same file set and a finite loss (free-running
-    bf16 rollouts of two implementations diverge; teacher-forced parity
-    is held in test_torch_port_generate.py);
+  * the small flagship, and the same with mha embeddings (decoded on the
+    in-loop shared-KV path): the same file set and a finite loss
+    (free-running bf16 rollouts of two implementations diverge;
+    teacher-forced parity is held in test_torch_port_generate.py and
+    test_torch_port_decode_layouts.py);
   * the mp4 branch through a fake encoder, one mp4 and nod.png per
     segment;
   * a reference-style checkpoint (the port's export, wrapped as a
@@ -166,6 +168,22 @@ def test_metaformer_eval_cli_renders_as_jax(corpus, tmp_path, capsys):
     assert np.isfinite(got["genrt_loss"]) and np.isfinite(got["nod_ratio"])
     assert _files(port_out) == _files(jax_out)
     assert got["output"] == port_out
+
+
+def test_metaformer_mha_embeddings_eval_cli(corpus, tmp_path, capsys):
+    """An mha-embedding Metaformer: its decode takes the in-loop shared-KV
+    path (the hoist refuses mha other-modality embeddings), and the CLI
+    writes the JAX CLI's files with a finite loss."""
+    overrides = MF_SMALL + ["model.emb_mixers=[mha,mha,mha]"]
+    jckpt, pckpt = _checkpoints(tmp_path, MF_YAML, overrides, 5)
+    jax_out, port_out = str(tmp_path / "jax_viz"), str(tmp_path / "viz")
+    want = _run(jcli.main, MF_YAML, corpus, str(tmp_path / "jwork"), jckpt,
+                jax_out, overrides + ["compile_cache_dir=null"], capsys)
+    got = _run(cli.main, MF_YAML, corpus, str(tmp_path / "work"), pckpt,
+               port_out, overrides + ["device=cpu"], capsys)
+    assert got["batches"] == want["batches"] >= 1
+    assert np.isfinite(got["genrt_loss"]) and np.isfinite(got["nod_ratio"])
+    assert _files(port_out) == _files(jax_out)
 
 
 def test_eval_cli_mp4_branch_and_imported_checkpoint(corpus, tmp_path,
