@@ -97,6 +97,9 @@ Phases:
      ``{"state_dict": {"model.<name>": ...}}``, ``torch_import.main`` on
      it, the imported state_dict bit-equal to ``last``'s and ``evaluate``
      on it bit-equal to the CLI's predictions;
+ 9c. phase 9 with ``model.dropout=0.1``: per train step K7 +15 / +15 (the
+     encoder stacks block by block), K5 +10, K6 +10, no K3 or K4; per
+     validation batch as phase 9;
  10. stacked-LSTM wavefront (K9) forward with and without residuals and
      backward vs plain, f32, H128 x L2 at B256 x T1120 (the sampler in
      training) and B16 x T96 (the generation warmup): out, hn, cn <=
@@ -122,6 +125,10 @@ Phases:
      step, K9 +1 and K7 forward +2, and a generation, K9 +1);
 13b. lws eval CLI: phase 9b with ``configs/lstm_with_sampling.yaml`` on
      phase 13's checkpoint: launches K9 +1 per batch and nothing else;
+13c. phase 13 with ``model.use_scheduled_sampling=true``: per train step
+     K9 +1 / +1 (the rollout's warmup), nothing else; per validation
+     batch as phase 13; ``scheduled_sampling_rate`` 0 and 0.5 in the
+     epoch records (epoch / ``model.max_epochs``);
  14. GRU recurrence (K10) forward with and without residuals and backward
      vs plain, f32: H256 at B32 x T2016 (an audio-encoder block in
      training), B32 x T252 (the self-motion and partner blocks), B16 x
@@ -167,7 +174,7 @@ Phases:
      vs the plain recurrences, the same bounds, K7 +2 / +2; and the
      routing case: ``TorchLSTM(81, 128)`` over T120 launches K8 once and
      no K7;
- 19. simple_lstm generation: ``sliding_window_generate`` on 2 rollouts of
+ 19. simple_lstm generation: ``sliding_window_generate`` on one rollout of
      250 frames (batch 1, one model call per frame): shape, finite,
      launches per rollout (K7 forward +4 per step, +1,000; nothing else),
      ms per rollout; a 25-frame rollout under ``MRGEN_FUSED_DW=0`` (K8
@@ -189,11 +196,11 @@ Phases:
  21. simple_lstm training CLI: ``configs/simple_lstm.yaml`` and
      ``configs/simple_lstm_best.yaml`` as written (batch 256), passed by
      their paths, on a ``.head`` corpus this script writes (2 sessions x
-     24 s, 1,124 windows), an epoch and a resumed epoch each: finite train
+     12 s), an epoch and a resumed epoch each: finite train
      and val
      losses, V top-k checkpoints and ``last``, exact K7 launches (per
      train step +4 / +4, per validation batch an eval step, +4 forward);
- 22. decode layouts on the flagship (``decode_layouts_phase``), B16 x 64
+ 22. decode layouts on the flagship (``decode_layouts_phase``), B16 x 32
      frames, lead 12: teacher-forced f32 per-block and in-loop shared
      against the hoisted K2 path (<= 1e-4), per-block int8 against bf16
      (<= 1e-1, tests/test_generate.py's bound), per-block f32 at batch 2
@@ -215,7 +222,28 @@ Phases:
      per step; step ms p50/p95/p99, attach ms, the pool sizes within the
      hop at p95; slot isolation (bits, or <= 1e-6), a slot against a
      batch-1 session with f32 rings (<= 1e-4), int8 against bf16 (<=
-     1e-1).
+     1e-1);
+ 25. the flagship's scheduled-sampling step (``scheduled_sampling_phase``:
+     the loss on the AR rollout, gradients through its 240 steps, f32
+     per-block rings), B8 x T240 + lead 12, rate 0.5, AdamW: ms a step,
+     peak memory, launches exact (K3 +1 / K4 +1 over the lead's audio,
+     nothing else); the card against CPU tensors at B2, the all-False
+     mask over T48 and rate 1 over 8 steps: loss <= 1e-5 relative,
+     gradients <= 1e-3 of the largest;
+ 26. the same for lstm_with_sampling at B32 x T128 (K9 +1 / +1);
+ 27. dropout steps (``dropout_phase``): the flagship at ``dropout`` 0.1,
+     B32 x T240, and lws at ``sampler_dropout_rate`` and ``dropout_rate``
+     0.1, B256 x T128: launches exact (the flagship K7 +15 / +15, K5 +10,
+     K6 +10; lws K7 +4 / +4; no K3, K4 or K9 in training; the eval steps'
+     as phases 8 and 12), ms a step; two kernel-route steps from one seed
+     bit-equal, and the plain route on the card from the same seed (the
+     same masks): loss <= 1e-5 relative, gradients <= 1e-3;
+ 28. the flagship step at B32 x T240 with ``remat=True``
+     (``remat_accumulation_phase``): loss and gradients bit-equal to the
+     plain step, launches exact (every forward kernel twice), ms and peak
+     memory of both; AdamW with ``accumulate_grad_batches=2`` over two
+     micro-batches against one update on their mean gradient: <= 1e-6 of
+     each parameter's largest magnitude.
 
 Every kernel's JSON record carries its bound: the larger of its
 operations (FP32 at 67 TFLOP/s; the 3xTF32 products of K5's forward,
@@ -252,8 +280,10 @@ SIMPLE_B, SIMPLE_AUDIO_T, SIMPLE_CONTEXT = 256, 120, 15
 CORPUS_SESSIONS, CORPUS_SECONDS = 4, 540.0
 # simple_lstm's corpus: its loader reads 20 pickles and computes a
 # 120-frame fbank per window on the host (~9 ms a window on an H100
-# machine's host CPU), so it is sized for phase 21 to take about a minute
-V1_SESSIONS, V1_SECONDS = 2, 24.0
+# machine's host CPU), so it is sized for phase 21 to take about half a
+# minute; simple_lstm's timed rollouts (phase 19, host-bound)
+V1_SESSIONS, V1_SECONDS = 2, 12.0
+SIMPLE_ROLLOUTS = 1
 # the encoder stack's chunk sweeps: audio and motion lengths
 SWEEP_LONG, SWEEP_SHORT = (16, 32, 64, 128), (16, 32, 64)
 DW0_FRAMES = 25  # the MRGEN_FUSED_DW=0 rollout
@@ -264,8 +294,14 @@ EVAL_RENDER_FRAMES = 2
 # streamed steps (10 s of dialogue), the serving steps and pool sizes,
 # the 80 ms hop a step must keep up with, and the int8 drift bound of
 # tests/test_generate.py
-LAYOUT_FRAMES, STREAM_STEPS, SERVE_STEPS = 64, 125, 100
+LAYOUT_FRAMES, STREAM_STEPS, SERVE_STEPS = 32, 125, 100
 SERVE_SLOTS, HOP_MS, INT8_TOL = (16, 64), 80.0, 1e-1
+# the training options: the scheduled-sampling steps (the flagship's
+# batch is sized by its f32 per-block rings, kept for backward at every
+# one of the 240 steps: ~92 MB a step at B8), the dropout rate of the
+# dropout steps, and the accumulation check's bound
+SS_STEPS, SS_RATE, SS_B, SS_LWS_B = 1, 0.5, 8, 32
+DROPOUT, ACCUM_REL_TOL = 0.1, 1e-6
 LIBS = ("mixer_stack", "decode_rollout", "lstm_layer", "rect_attention",
         "lstm_stacked", "gru", "lstm_recurrence")
 SRC = "multimodalreactiongeneration_tpu_torch/csrc/"
@@ -1833,6 +1869,36 @@ def metaformer_cli_launches(launches, steps):
     return n_eval
 
 
+def metaformer_dropout_cli_launches(launches, steps):
+    """``model.dropout=0.1``: every train step K7 +15 / +15 (the encoder
+    stacks block by block), K5 +10, K6 +10, no K3 or K4; every validation
+    batch as ``metaformer_cli_launches``'. Returns the validation
+    batches."""
+    n_eval = (launches["rect_attention_fwd"] - 10 * steps) // 10
+    want = {k: 0 for k in COUNTERS}
+    want.update(rect_attention_fwd=10 * (steps + n_eval),
+                rect_attention_bwd=10 * steps,
+                lstm_layer_fwd=15 * steps + 5 * n_eval,
+                lstm_layer_bwd=15 * steps, mixer_stack=4 * n_eval,
+                decode_rollout=launches["decode_rollout"])
+    if launches != want or launches["decode_rollout"] < n_eval:
+        raise AssertionError(f"dropout cli launches {launches}, want {want} "
+                             f"and decode_rollout >= {n_eval}")
+    return n_eval
+
+
+def lws_ss_cli_launches(launches, steps):
+    """``model.use_scheduled_sampling=true``: every train step K9 +1 / +1
+    (the rollout's warmup over the lead; its steps run the plain
+    recurrences); every validation batch as ``lws_cli_launches``'."""
+    n_eval = launches["lstm_layer_fwd"] // 2
+    want = {k: 0 for k in COUNTERS}
+    want.update(lstm_stacked_fwd=steps + 2 * n_eval, lstm_stacked_bwd=steps,
+                lstm_layer_fwd=2 * n_eval)
+    if launches != want:
+        raise AssertionError(f"lws ss cli launches {launches}, want {want}")
+    return n_eval
+
 def lws_cli_launches(launches, steps):
     """Every train step K9 +1 / +1 and K7 +2 / +2; every validation batch
     an eval step (K9 +1, K7 forward +2) and a generation (K9 +1: the
@@ -2264,7 +2330,8 @@ def gru_generation_spec():
 
 def simple_generation_phase(mods, dev, rng):
     """19. simple_lstm's generation at full width (random weights from
-    SEED): ``sliding_window_generate`` on 2 rollouts of 250 frames, batch
+    SEED): ``sliding_window_generate`` on ``SIMPLE_ROLLOUTS`` rollouts of
+    250 frames, batch
     1, one model call per frame over its 120-frame audio window: shape,
     finite, launches per rollout (K7 forward +4 per step), ms per
     rollout; a ``DW0_FRAMES`` rollout under ``MRGEN_FUSED_DW=0`` (K8
@@ -2294,7 +2361,7 @@ def simple_generation_phase(mods, dev, rng):
         return audio_windows(fbank, FRAMES, RATIO, SIMPLE_AUDIO_T), ctx
 
     model = new_model(dev)
-    rollouts = [inputs() for _ in range(2)]
+    rollouts = [inputs() for _ in range(SIMPLE_ROLLOUTS + 1)]
     sliding_window_generate(model, rollouts[0][0][:8], rollouts[0][1])
     torch.cuda.synchronize()  # warm-up, not counted
 
@@ -2318,7 +2385,7 @@ def simple_generation_phase(mods, dev, rng):
 
     zero_counts(mods)
     times = [rollout(i, w, c, lstm_layer_fwd=4 * FRAMES)
-             for i, (w, c) in enumerate(rollouts)]
+             for i, (w, c) in enumerate(rollouts[:SIMPLE_ROLLOUTS])]
     launches = counts(mods)
     gen_ms = float(np.mean(times))
     log("simple_generate", ms_per_rollout=f"{gen_ms:.3f}",
@@ -2330,7 +2397,7 @@ def simple_generation_phase(mods, dev, rng):
                          lstm_recurrence_fwd=4 * DW0_FRAMES)
         launches_off = counts(mods)
 
-    windows, ctx = rollouts[1]
+    windows, ctx = rollouts[-1]
     on_card = sliding_window_generate(model, windows[:8], ctx)
     on_cpu = sliding_window_generate(new_model("cpu"), windows[:8], ctx,
                                      device="cpu")
@@ -2676,6 +2743,336 @@ def serving_phase(mods, dev, cfg):
                                                                 default=0)}
 
 
+# ---- 25.-28. the training options ---------------------------------------
+
+def grads_equal(a, b):
+    """True when every gradient of model ``a`` equals ``b``'s bit for
+    bit."""
+    named = dict(b.named_parameters())
+    return all(torch.equal(p.grad, named[n].grad)
+               for n, p in a.named_parameters())
+
+
+def scheduled_sampling_phase(mods, dev, spec, n):
+    """25. and 26. A scheduled-sampling training step
+    (``scheduled_sampling_step_fn``, gradients through the AR rollout) of
+    ``spec``'s model at full width: ``SS_STEPS`` steps at rate
+    ``SS_RATE`` from the phase's own generators (``SEED + n``), the
+    launches of each exact (the warmup over the lead: the Metaformer's
+    audio stack K3 +1 / K4 +1, lws's sampler K9 +1 / +1; the 8-frame
+    steps run the plain recurrences), ms a step and the peak memory; then
+    the card against CPU tensors at B2, the same weights, SGD lr 0: the
+    all-False mask over T48 (teacher-forced), and rate 1 over 8 steps:
+    loss within ``LOSS_REL_TOL`` relative, every gradient within
+    ``GRAD_REL_TOL`` of its parameter's largest (phase 8's bounds)."""
+    from multimodalreactiongeneration_tpu_torch.train.harness import (
+        scheduled_sampling_masked_step_fn,
+        scheduled_sampling_step_fn,
+    )
+    from multimodalreactiongeneration_tpu_torch.train.optim import (
+        build_optimizer,
+    )
+
+    tag = "ss_" + spec["tag"]
+    rng = np.random.default_rng(SEED + n)
+    model_cfg = {**spec["cfg"], **spec["loss"]}
+    model = spec_model(spec, dev)
+    opt = build_optimizer(model.parameters(), spec["optim"])
+    step = scheduled_sampling_step_fn(model, spec["model_type"], model_cfg,
+                                      spec["metrics"], opt)
+    gen = torch.Generator().manual_seed(SEED + n)
+    batch = spec_batch(spec, rng, spec["batch"], dev)
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(mods)
+    for i in range(SS_STEPS):
+        before = counts(mods)
+        t0 = time.perf_counter()
+        loss, _ = step(batch, gen, SS_RATE)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000)
+        check_launches(f"{tag} {i}", before, counts(mods), **spec["per_step"])
+        losses.append(float(loss))
+    launches = counts(mods)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: non-finite losses {losses}")
+    log(tag, batch=spec["batch"], frames=spec["frames"], lead=LEAD,
+        rate=SS_RATE, ms_per_step=f"{np.mean(times):.3f}",
+        step_ms=[round(t, 3) for t in times], losses=losses,
+        peak_mem_gib=f"{peak_gib:.3f}",
+        launches={k: v for k, v in launches.items() if v})
+    del step, opt, model, batch
+
+    sgd0 = dict(use_optimizer="sgd", lr=0.0, momentum=0.0, weight_decay=0.0)
+    gates = {}
+    for case, frames, mask in (("teacher_T48", 48, False),
+                               ("rate1_T8", 8, True)):
+        host = spec_batch(spec, rng, 2, frames=frames)
+        mask_steps = torch.full((frames,), mask)
+        models = {}
+        for where in ("card", "cpu"):
+            m = spec_model(spec, dev if where == "card" else "cpu")
+            masked = scheduled_sampling_masked_step_fn(
+                m, spec["model_type"], model_cfg, spec["metrics"],
+                build_optimizer(m.parameters(), sgd0))
+            loss, _ = masked(host if where == "cpu" else to_device(host, dev),
+                             mask_steps)
+            models[where] = (m, float(loss))
+        (card, loss_card), (cpu, loss_cpu) = models["card"], models["cpu"]
+        loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        worst, worst_name = grad_rel_errs(card, cpu)
+        gates[case] = {"loss_rel_err": loss_rel, "grad_max_rel_err": worst,
+                       "worst": worst_name}
+        log(tag, gate=f"card_vs_cpu_{case}", loss_card=f"{loss_card:.7f}",
+            loss_cpu=f"{loss_cpu:.7f}", loss_rel_err=f"{loss_rel:.3e}",
+            grad_max_rel_err=f"{worst:.3e}", worst=worst_name)
+        if not loss_rel <= LOSS_REL_TOL:
+            raise AssertionError(
+                f"{tag} {case} card vs CPU loss: {loss_rel} > {LOSS_REL_TOL}")
+        if not worst <= GRAD_REL_TOL:
+            raise AssertionError(
+                f"{tag} {case} card vs CPU gradient of {worst_name}: "
+                f"{worst} > {GRAD_REL_TOL}")
+        del models, card, cpu
+    return {"launches": launches, "record": {
+        "batch": spec["batch"], "frames": spec["frames"], "rate": SS_RATE,
+        "steps": SS_STEPS, "ms": float(np.mean(times)), "ms_each": times,
+        "losses": losses, "peak_mem_gib": peak_gib,
+        "card_vs_cpu": gates}}
+
+
+@contextlib.contextmanager
+def plain_route():
+    """The modules' LSTM layers and integrator attention on their plain
+    PyTorch versions inside, on any device (the kernels' wrappers
+    otherwise launch them on CUDA tensors)."""
+    from multimodalreactiongeneration_tpu_torch.nn import attention, recurrent
+    from multimodalreactiongeneration_tpu_torch.ops.lstm_layer import (
+        lstm_layer_reference,
+    )
+    from multimodalreactiongeneration_tpu_torch.ops.rect_attention import (
+        rect_attention_reference,
+    )
+
+    saved = recurrent.lstm_layer, attention.rect_attention
+    recurrent.lstm_layer = lstm_layer_reference
+    attention.rect_attention = rect_attention_reference
+    try:
+        yield
+    finally:
+        recurrent.lstm_layer, attention.rect_attention = saved
+
+
+def dropout_phase(mods, dev, spec, n):
+    """27. A training step of ``spec``'s model with dropout on, at its
+    phase-8/12 shape, masks from the phase's own generators (``SEED +
+    n``): a warm-up and ``TRAIN_STEPS`` timed steps with the spec's
+    optimizer, the launches of each exact (active dropout takes the
+    encoders and samplers off the fused stack and the stacked LSTM, JAX's
+    gates: K7 per block and per layer, no K3, K4 or K9), the eval step's
+    as without dropout; then, with SGD lr 0 and one seed, two kernel-route
+    steps (the same bits) and a plain-route step on the card
+    (``plain_route``: the same masks): loss within ``LOSS_REL_TOL``,
+    every gradient within ``GRAD_REL_TOL`` of its plain parameter's
+    largest."""
+    tag = "dropout_" + spec["tag"]
+    rng = np.random.default_rng(SEED + n)
+    batch = spec_batch(spec, rng, spec["batch"], dev)
+    model = spec_model(spec, dev)
+    train_step, eval_step = spec_step_fns(spec, model, spec["optim"])
+    gen = torch.Generator().manual_seed(SEED + n)
+    train_step(batch, gen)  # warm-up, not counted
+    torch.cuda.synchronize()
+    zero_counts(mods)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        before = counts(mods)
+        t0 = time.perf_counter()
+        loss, _ = train_step(batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000)
+        check_launches(f"{tag} {i}", before, counts(mods), **spec["per_step"])
+        losses.append(float(loss))
+    launches = counts(mods)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: non-finite losses {losses}")
+    before = counts(mods)
+    eval_step(batch)
+    check_launches(f"{tag} eval", before, counts(mods), **spec["per_eval"])
+    log(tag, batch=spec["batch"], frames=spec["frames"],
+        ms_per_step=f"{np.mean(times):.3f}",
+        step_ms=[round(t, 3) for t in times], losses=losses,
+        peak_mem_gib=f"{peak_gib:.3f}",
+        launches={k: v for k, v in launches.items() if v})
+    del train_step, eval_step, model
+
+    sgd0 = dict(use_optimizer="sgd", lr=0.0, momentum=0.0, weight_decay=0.0)
+    runs = []
+    for route in ("kernel", "kernel", "plain"):
+        m = spec_model(spec, dev)
+        step, _ = spec_step_fns(spec, m, sgd0)
+        with plain_route() if route == "plain" else contextlib.nullcontext():
+            before = counts(mods)
+            loss, _ = step(batch, torch.Generator().manual_seed(SEED + n))
+            torch.cuda.synchronize()
+            if route == "plain":
+                check_launches(f"{tag} plain route", before, counts(mods))
+        runs.append((m, float(loss)))
+    (k1, loss1), (k2, loss2), (plain, loss_plain) = runs
+    bits = loss1 == loss2 and grads_equal(k1, k2)
+    loss_rel = abs(loss1 - loss_plain) / abs(loss_plain)
+    worst, worst_name = grad_rel_errs(k1, plain)
+    log(tag, run_to_run_bit_equal=bits, loss=f"{loss1:.7f}",
+        loss_plain=f"{loss_plain:.7f}", loss_rel_err=f"{loss_rel:.3e}",
+        grad_max_rel_err=f"{worst:.3e}", worst=worst_name)
+    if not bits:
+        raise AssertionError(f"{tag}: two steps from one seed differ")
+    if not loss_rel <= LOSS_REL_TOL:
+        raise AssertionError(
+            f"{tag} kernel vs plain loss: {loss_rel} > {LOSS_REL_TOL}")
+    if not worst <= GRAD_REL_TOL:
+        raise AssertionError(f"{tag} kernel vs plain gradient of "
+                             f"{worst_name}: {worst} > {GRAD_REL_TOL}")
+    del runs, k1, k2, plain
+    return {"launches": launches, "record": {
+        "batch": spec["batch"], "frames": spec["frames"],
+        "ms": float(np.mean(times)), "ms_each": times, "losses": losses,
+        "peak_mem_gib": peak_gib, "run_to_run_bit_equal": bits,
+        "kernel_vs_plain_loss_rel_err": loss_rel,
+        "kernel_vs_plain_grad_max_rel_err": worst}}
+
+
+def remat_accumulation_phase(mods, dev, n):
+    """28. The flagship step at B32 x T240, batches from ``SEED + n``:
+    with ``remat=True`` against the plain step (SGD lr 0, the same
+    weights): the same loss and gradients bit for bit, the launches of
+    each exact (remat runs every forward kernel twice: K3 +4, K7 +10, K5
+    +20; the backward kernels once), their ms and peak memory; then
+    AdamW with ``accumulate_grad_batches=2`` over two micro-batches
+    (the first leaves the parameters as they were) against one AdamW
+    update on the mean (g1 + g2) / 2 of their gradients: each parameter
+    within ``ACCUM_REL_TOL`` of its largest magnitude (MultiSteps takes
+    the mean as g1 + (g2 - g1) / 2, so the two may differ in the last
+    bit of a parameter)."""
+    from multimodalreactiongeneration_tpu_torch.train.harness import (
+        streaming_step_fns,
+    )
+    from multimodalreactiongeneration_tpu_torch.train.optim import (
+        build_optimizer,
+    )
+
+    spec = metaformer_train_spec()
+    rng = np.random.default_rng(SEED + n)
+    b1, b2 = (spec_batch(spec, rng, TRAIN_B, dev) for _ in range(2))
+    model_cfg = {**spec["cfg"], **spec["loss"]}
+    sgd0 = dict(use_optimizer="sgd", lr=0.0, momentum=0.0, weight_decay=0.0)
+    per_step = spec["per_step"]
+    remat_step = {k: v * (2 if k.endswith("fwd") else 1)
+                  for k, v in per_step.items()}
+    runs = {}
+    for remat, want in ((False, per_step), (True, remat_step)):
+        model = spec_model(spec, dev)
+        step, _ = streaming_step_fns(
+            model, model_cfg, spec["metrics"],
+            build_optimizer(model.parameters(), sgd0), spec["mask_self"],
+            remat=remat)
+        step(b1)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = counts(mods)
+        t0 = time.perf_counter()
+        loss, _ = step(b1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1000
+        got = check_launches(f"remat={remat}", before, counts(mods), **want)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        runs[remat] = (model, float(loss), ms, peak, got)
+        log("remat_step", remat=remat, ms=f"{ms:.3f}",
+            peak_mem_gib=f"{peak:.3f}", loss=f"{float(loss):.7f}",
+            launches={k: v for k, v in got.items() if v})
+    bits = (runs[True][1] == runs[False][1]
+            and grads_equal(runs[True][0], runs[False][0]))
+    log("remat_step", bit_equal_to_plain=bits)
+    if not bits:
+        raise AssertionError("remat step differs from the plain step")
+    launches = runs[True][4]
+    record = {"remat": {"bit_equal_to_plain": bits,
+                        **{("remat" if r else "plain"): {
+                            "ms": v[2], "peak_mem_gib": v[3], "loss": v[1]}
+                           for r, v in runs.items()}}}
+    del runs
+
+    accum = spec_model(spec, dev)
+    p0 = {k: p.detach().clone() for k, p in accum.named_parameters()}
+    step, _ = streaming_step_fns(
+        accum, model_cfg, spec["metrics"],
+        build_optimizer(accum.parameters(), spec["optim"],
+                        accumulate_grad_batches=2), spec["mask_self"])
+    step(b1)
+    moved = max(float((p.detach() - p0[k]).abs().max())
+                for k, p in accum.named_parameters())
+    step(b2)
+    once = spec_model(spec, dev)
+    grab, _ = streaming_step_fns(
+        once, model_cfg, spec["metrics"],
+        build_optimizer(once.parameters(), sgd0), spec["mask_self"])
+    grads = []
+    for b in (b1, b2):
+        grab(b)
+        grads.append([p.grad.clone() for p in once.parameters()])
+    adam = build_optimizer(once.parameters(), spec["optim"])
+    for p, g1, g2 in zip(once.parameters(), *grads):
+        p.grad = (g1 + g2) / 2
+    adam.step()
+    named = {k: p.detach() for k, p in once.named_parameters()}
+    rel = max(float((p.detach() - named[k]).abs().max())
+              / float(named[k].abs().max())
+              for k, p in accum.named_parameters())
+    update = max(float((p - p0[k]).abs().max()) for k, p in named.items())
+    log("accumulate_grad_batches", k=2, moved_after_first=moved,
+        max_update=f"{update:.3e}", max_rel_err=f"{rel:.3e}")
+    if moved != 0.0:
+        raise AssertionError(f"accumulation: the first micro-step moved the "
+                             f"parameters by {moved}")
+    if not rel <= ACCUM_REL_TOL:
+        raise AssertionError(
+            f"accumulation vs the mean gradient's update: {rel} > "
+            f"{ACCUM_REL_TOL}")
+    record["accumulation"] = {"k": 2, "rel_err": rel, "max_update": update}
+    return {"launches": launches, "record": record}
+
+
+def train_options_phases(mods, dev):
+    """25.-28. The training options on the flagship and lws; returns each
+    phase's launches and record by key."""
+    from multimodalreactiongeneration_tpu_torch import configs
+
+    flagship, lws = metaformer_train_spec(), lws_train_spec()
+    phases = {
+        "ss_flagship": lambda: scheduled_sampling_phase(mods, dev, dict(
+            flagship, model_type="lstmformer", batch=SS_B,
+            per_step=dict(mixer_stack_train_fwd=1, mixer_stack_bwd=1)), 25),
+        "ss_lws": lambda: scheduled_sampling_phase(mods, dev, dict(
+            lws, model_type="lstm_with_sampling", batch=SS_LWS_B,
+            per_step=dict(lstm_stacked_fwd=1, lstm_stacked_bwd=1)), 26),
+        "dropout_flagship": lambda: dropout_phase(mods, dev, dict(
+            flagship,
+            cfg=dict(configs.LSTMFORMER_MODEL_CFG, dropout=DROPOUT),
+            per_step=dict(lstm_layer_fwd=15, lstm_layer_bwd=15,
+                          rect_attention_fwd=10, rect_attention_bwd=10)), 27),
+        "dropout_lws": lambda: dropout_phase(mods, dev, dict(
+            lws, cfg=dict(configs.LWS_MODEL_CFG, dropout_rate=DROPOUT,
+                          sampler_dropout_rate=DROPOUT),
+            per_step=dict(lstm_layer_fwd=4, lstm_layer_bwd=4)), 27),
+        "remat_step": lambda: remat_accumulation_phase(mods, dev, 28),
+    }
+    return {k: run() for k, run in phases.items()}
+
+
 def recurrence_records(cases, launches, **more_launches):
     """The JSON entries of K8's forward and backward: the main case is a
     simple_lstm acoustic direction (B256 x T120 x H128); launches from the
@@ -2952,6 +3349,10 @@ def main():
                         ["batch_size=32"], metaformer_cli_launches)
     eval_cli = eval_cli_phase(mods, run, "configs/lstmformer.yaml",
                               "eval_cli", "cli", metaformer_eval_launches)
+    dropout_cli = cli_phase(mods, run, "configs/lstmformer.yaml",
+                            "dropout_cli", ["batch_size=32",
+                                            f"model.dropout={DROPOUT}"],
+                            metaformer_dropout_cli_launches)
 
     # ---- 10.-13. lstm_with_sampling: K9, generation, step, CLI ---------
     stacked = lstm_stacked_phase(K9, dev, rng)
@@ -2962,6 +3363,14 @@ def main():
     lws_eval_cli = eval_cli_phase(
         mods, run, "configs/lstm_with_sampling.yaml", "lws_eval_cli",
         "lws_cli", lws_eval_launches)
+    lws_ss_cli = cli_phase(mods, run, "configs/lstm_with_sampling.yaml",
+                           "lws_ss_cli", ["exp.batch_size=32",
+                                          "model.use_scheduled_sampling=true"],
+                           lws_ss_cli_launches)
+    rates = [r.get("scheduled_sampling_rate")
+             for r in lws_ss_cli["record"]["epochs"]]
+    if rates != [0.0, 0.5]:  # epoch / model.max_epochs (1, then 2)
+        raise AssertionError(f"lws ss cli scheduled_sampling_rate {rates}")
 
     # ---- 14.-17. the GRU Metaformer: K10, generation, step, CLI ---------
     gru = gru_phase(K10, dev, rng)
@@ -2991,6 +3400,9 @@ def main():
     layouts = decode_layouts_phase(mods, dev, cfg)
     streaming = streaming_phase(mods, dev, cfg)
     serving = serving_phase(mods, dev, cfg)
+
+    # ---- 25.-28. the training options ------------------------------------
+    options = train_options_phases(mods, dev)
     k8_runs = {"generation": simple_gen["launches_fused_dw_0"],
                "simple_train_step": simple_off["launches"],
                "flagship_train_step": flagship_off["launches"]}
@@ -3047,7 +3459,16 @@ def main():
                        **{k: v["record"] for k, v in simple_cli.items()}},
         "decode_layouts": layouts, "streaming": streaming,
         "serving": serving,
+        "train_options": {k: v["record"] for k, v in options.items()},
+        "dropout_cli": dropout_cli["record"],
+        "lws_ss_cli": lws_ss_cli["record"],
         "seconds": time.perf_counter() - t_start}
+    options = dict(options, dropout_cli=dropout_cli, lws_ss_cli=lws_ss_cli)
+    for entry in record["kernels"]:  # the training options' launches
+        extra = {k: v["launches"][entry["name"]] for k, v in options.items()
+                 if v["launches"].get(entry["name"])}
+        if extra:
+            entry["launches_train_options"] = extra
     log("done", seconds=f"{record['seconds']:.1f}")
     print(json.dumps(record))
     print(card_line())

@@ -20,9 +20,14 @@ batch-1 slots. Masks are True where masked: (1, C) for an int length,
 (B, 1, C) for a tensor one, and with a priming ``chunk_mask`` ((..., Lq,
 n) bool) that chunk's causality scattered onto the slots just written.
 
-The buffers are written IN PLACE (the old contents are never needed
-again, so no copy of a (B, C, D) ring is made per step); the returned
-cache shares them.
+Without gradient (decode, streaming, serving) the buffers are written IN
+PLACE (the old contents are never needed again, so no copy of a (B, C,
+D) ring is made per step); the returned cache shares them. Where
+autograd records the write (grad mode on, and the ring or the rows need
+a gradient: the scheduled-sampling rollout of training) a write makes a
+new ring instead, so the ring an earlier step's attention saved for
+backward keeps its contents: every step's ring is then held until
+backward, as the JAX scan's residuals are.
 """
 
 from __future__ import annotations
@@ -97,13 +102,23 @@ def _positions(length: Length, n: int, capacity: int, device):
     return (length + steps) % capacity
 
 
-def _write(buf: torch.Tensor, pos: torch.Tensor, rows: torch.Tensor) -> None:
-    """buf[:, pos] = rows in place; per row when pos is (B, n)."""
+def _write(buf: torch.Tensor, pos: torch.Tensor,
+           rows: torch.Tensor) -> torch.Tensor:
+    """buf with buf[:, pos] = rows (per row when pos is (B, n)): written in
+    place and returned, or a new tensor where autograd records the
+    write."""
+    rows = rows.to(buf.dtype)
+    if torch.is_grad_enabled() and (buf.requires_grad or rows.requires_grad):
+        if pos.dim() == 1:
+            return buf.index_copy(1, pos, rows)
+        index = pos.reshape(pos.shape + (1,) * (buf.dim() - 2))
+        return buf.scatter(1, index.expand(rows.shape), rows)
     if pos.dim() == 1:
-        buf[:, pos] = rows.to(buf.dtype)
+        buf[:, pos] = rows
     else:
         batch = torch.arange(buf.shape[0], device=buf.device)[:, None]
-        buf[batch, pos] = rows.to(buf.dtype)
+        buf[batch, pos] = rows
+    return buf
 
 
 def _mask(new_len: Length, pos: torch.Tensor,
@@ -140,7 +155,7 @@ def raw_cache_extend(
     _check_chunk(n, capacity, "raw cache")
     length = cache["length"]
     pos = _positions(length, n, capacity, x.device)
-    _write(x, pos, chunk)
+    x = _write(x, pos, chunk)
     new_len = length + n
     mask = _mask(new_len, pos, capacity, chunk_mask, x.device)
     return {"x": x, "length": new_len}, x, mask
@@ -161,21 +176,20 @@ def cache_extend(
     _check_chunk(n, capacity, "KV cache")
     length = cache["length"]
     pos = _positions(length, n, capacity, k_buf.device)
-    new_cache = {"k": k_buf, "v": v_buf}
     if k_buf.dtype == torch.int8:
         qk, sk = _quantize(key)
         qv, sv = _quantize(value)
-        for name, rows in (("k", qk), ("v", qv), ("k_scale", sk),
-                           ("v_scale", sv)):
-            _write(cache[name], pos, rows)
-            new_cache[name] = cache[name]
+        new_cache = {name: _write(cache[name], pos, rows)
+                     for name, rows in (("k", qk), ("v", qv), ("k_scale", sk),
+                                        ("v_scale", sv))}
         bf16 = torch.bfloat16
-        k_out = k_buf.to(bf16) * cache["k_scale"][..., None].to(bf16)
-        v_out = v_buf.to(bf16) * cache["v_scale"][..., None].to(bf16)
+        k_out, v_out = (new_cache[n].to(bf16)
+                        * new_cache[f"{n}_scale"][..., None].to(bf16)
+                        for n in "kv")
     else:
-        _write(k_buf, pos, key)
-        _write(v_buf, pos, value)
-        k_out, v_out = k_buf, v_buf
+        new_cache = {"k": _write(k_buf, pos, key),
+                     "v": _write(v_buf, pos, value)}
+        k_out, v_out = new_cache["k"], new_cache["v"]
     new_len = length + n
     new_cache["length"] = new_len
     mask = _mask(new_len, pos, capacity, chunk_mask, k_buf.device)

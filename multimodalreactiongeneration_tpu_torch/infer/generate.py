@@ -32,6 +32,15 @@ with the JAX package's three decode layouts:
 
 -100 padded inputs are zeroed first. Tensors use the JAX package's
 layouts.
+
+``generate_lws`` and ``generate_metaformer`` run without gradient. Their
+bodies, ``_generate_lws`` and ``_generate_metaformer``, run under the
+caller's grad mode: the scheduled-sampling training step
+(``train/harness.py``) takes the loss on their rollout with gradients
+through it, the Metaformer's on the in-loop per-block f32 layout, as
+JAX's step pins it. The model runs in eval mode there too (JAX's rollout
+applies the model deterministically). The fused rollout (K2) has no
+backward: asking for it under gradient raises.
 """
 
 from __future__ import annotations
@@ -107,6 +116,16 @@ def sampling_mask_for(
 
 @torch.no_grad()
 def generate_lws(
+    model,
+    batch_data: Sequence[torch.Tensor],
+    sampling_mask: torch.Tensor,
+    carry_layerd_state: bool = True,
+) -> torch.Tensor:
+    """``_generate_lws`` without gradient."""
+    return _generate_lws(model, batch_data, sampling_mask, carry_layerd_state)
+
+
+def _generate_lws(
     model,
     batch_data: Sequence[torch.Tensor],
     sampling_mask: torch.Tensor,
@@ -367,6 +386,21 @@ def generate_metaformer(
     hoist_encoders="auto",
     fused_rollout="auto",
 ) -> torch.Tensor:
+    """``_generate_metaformer`` without gradient."""
+    return _generate_metaformer(model, batch_data, sampling_mask,
+                                cache_dtype, kv_layout, hoist_encoders,
+                                fused_rollout)
+
+
+def _generate_metaformer(
+    model,
+    batch_data: Sequence[torch.Tensor],
+    sampling_mask: torch.Tensor,
+    cache_dtype: torch.dtype = torch.bfloat16,
+    kv_layout: str = "shared",
+    hoist_encoders="auto",
+    fused_rollout="auto",
+) -> torch.Tensor:
     """Rollout for the Metaformer; ``batch_data`` is the 7-tuple
     (fbank_p, motion_p, motion_s, lead_fbank, lead_mp, lead_ms, target).
     Returns the prediction (B, L, D).
@@ -429,6 +463,11 @@ def _generate(model, batch_data, sampling_mask, cache_dtype, kv_layout,
             "fused rollout's contract (see ops/decode_rollout.py)"
         )
     if fused_rollout is not False and supported:
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "the fused rollout (decode_rollout, K2) has no backward: "
+                "under gradient pass fused_rollout=False, or "
+                "kv_layout='per_block' as the scheduled-sampling step does")
         return _fused_rollout(
             model, states, enc_a_steps, enc_mp_steps, ms, sampling_mask,
             cache_dtype, la, lm,

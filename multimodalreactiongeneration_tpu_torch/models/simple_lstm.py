@@ -36,7 +36,6 @@ from multimodalreactiongeneration_tpu_torch.nn.attention import TorchMHA
 from multimodalreactiongeneration_tpu_torch.nn.basic import (
     LayerNorm,
     dense,
-    refuse_dropout,
 )
 from multimodalreactiongeneration_tpu_torch.nn.lstm_block import LSTMLayerd
 
@@ -57,7 +56,8 @@ class MultimodalAttention(nn.Module):
         for i in range(num_layers):
             setattr(self, f"att_{i}", TorchMHA(
                 modal1_feat_size, num_head, generator,
-                kdim=modal2_feat_size, vdim=modal2_feat_size))
+                kdim=modal2_feat_size, vdim=modal2_feat_size,
+                dropout=dropout))
             setattr(self, f"projection_{i}",
                     dense(modal1_feat_size, modal1_feat_size, generator))
             if use_residual and use_layer_norm:
@@ -65,7 +65,6 @@ class MultimodalAttention(nn.Module):
 
     def forward(self, modal1: torch.Tensor, modal2: torch.Tensor
                 ) -> torch.Tensor:
-        refuse_dropout(self)
         for i in range(self.num_layers):
             y = getattr(self, f"att_{i}")(modal1, modal2, modal2)
             y = getattr(self, f"projection_{i}")(y)

@@ -14,6 +14,12 @@ Counterpart of ``multimodalreactiongeneration_tpu/nn/attention.py``:
     layout): the k-bias cancels in softmax, the v-bias is restored
     additively because the weights sum to 1.
 
+With ``dropout`` > 0, training drops elements of the attention context
+before the output projection, at the JAX package's three sites (the rect
+route's (B, L, E) context, the plain route's and ``attend_raw``'s (B, H,
+L, Dh) one): torch drops the attention weights instead; the JAX package
+drops the context, and the port follows it.
+
 Operand rule of the bf16 decode caches: a bf16 key stream meets a query
 rounded to bf16, products accumulate in f32, and the softmax weights are
 rounded to the stream's dtype before the context sum.
@@ -37,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from multimodalreactiongeneration_tpu_torch.nn.basic import dropout
 from multimodalreactiongeneration_tpu_torch.ops.masks import (
     rectangular_causal_mask,
 )
@@ -108,9 +115,11 @@ class TorchMHA(nn.Module):
         vdim: Optional[int] = None,
         use_bias: bool = True,
         rect_pad_masks: bool = False,
+        dropout: float = 0.0,
     ):
         super().__init__()
         e = embed_dim
+        self.dropout = dropout
         self.rect_pad_masks = rect_pad_masks
         self.embed_dim = e
         self.num_heads = num_heads
@@ -173,12 +182,14 @@ class TorchMHA(nn.Module):
             ctx = rect_attention(h, q.contiguous(), k_proj.contiguous(),
                                  v_proj.contiguous(), pp.any(dim=2),
                                  pp.any(dim=1))
+            ctx = dropout(ctx, self.dropout, self.training)
             return ctx @ self.out_proj_weight.T + self._bias("out_proj_bias")
         q = q.reshape(batch, q_len, h, dh).transpose(1, 2)
         k = k_proj.reshape(batch, k_len, h, dh).transpose(1, 2)
         v = v_proj.reshape(batch, k_len, h, dh).transpose(1, 2)
         mask = _broadcast_mask(attn_mask, batch, h, q_len, k_len)
-        ctx = scaled_dot_attention(q, k, v, mask)
+        ctx = dropout(scaled_dot_attention(q, k, v, mask), self.dropout,
+                      self.training)
         ctx = ctx.transpose(1, 2).reshape(batch, q_len, e)
         return ctx @ self.out_proj_weight.T + self._bias("out_proj_bias")
 
@@ -218,6 +229,7 @@ class TorchMHA(nn.Module):
         ctx = torch.einsum("bhlk,hdk->bhld", ctx_pre, wv_h)
         if self.use_bias:
             ctx = ctx + self.v_proj_bias.reshape(h, 1, dh)[None]
+        ctx = dropout(ctx, self.dropout, self.training)
         ctx = ctx.transpose(1, 2).reshape(batch, q_len, e)
         return ctx @ self.out_proj_weight.T + self._bias("out_proj_bias")
 

@@ -1,5 +1,5 @@
 """Basic blocks: nonlinearities, Dense, LayerNorm, FeedForward, residual,
-and the refusal of dropout in training (not ported yet).
+and dropout.
 
 Counterpart of ``multimodalreactiongeneration_tpu/nn/basic.py``. Parameter
 names follow the flax tree of the JAX package so a converted parameter
@@ -9,12 +9,24 @@ tree loads with ``strict=True`` (``models/weights.py``): a Dense is an
 
 LayerNorm uses the fast-variance form E[x^2] - mean^2 with eps 1e-5, as
 flax and the JAX kernels do.
+
+Dropout is flax's ``nn.Dropout``: in training each element is kept with
+probability 1 - p and scaled by 1 / (1 - p), else zeroed; in eval mode it
+is the identity. The masks come from no global generator: a training
+step runs its forward inside ``dropout_rng(seed)``, with the seed drawn
+from the trainer's ``torch.Generator``, and every mask of that forward is
+drawn, in the order the modules draw them, from generators seeded with
+it (one per device). So the same seed gives the same masks, and a
+recompute under ``torch.utils.checkpoint`` that re-enters
+``dropout_rng`` with the step's seed draws the forward's masks again
+(JAX's remat reuses its dropout key the same way).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
 from torch import nn
@@ -36,14 +48,43 @@ def set_nonlinearity(name: Optional[str]) -> Optional[Callable]:
     return table[name]
 
 
-def refuse_dropout(module: nn.Module) -> None:
-    """Dropout in training comes with a later slice; until then a module
-    that would apply it raises instead of silently skipping it."""
-    if module.dropout > 0 and module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: dropout {module.dropout} in training "
-            "is not ported yet (use dropout 0.0, or eval mode)"
-        )
+# the seeds of the forwards running inside dropout_rng, innermost last,
+# each with its generators by device
+_DROPOUT_RNG: List[Dict] = []
+
+
+@contextlib.contextmanager
+def dropout_rng(seed: Optional[int]) -> Iterator[None]:
+    """Draw the dropout masks of the forward run inside from generators
+    seeded with ``seed`` (None: none, as outside)."""
+    if seed is None:
+        yield
+        return
+    _DROPOUT_RNG.append({"seed": int(seed), "generators": {}})
+    try:
+        yield
+    finally:
+        _DROPOUT_RNG.pop()
+
+
+def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
+    """flax ``nn.Dropout(p)`` (``deterministic = not training``)."""
+    if p <= 0 or not training:
+        return x
+    if not _DROPOUT_RNG:
+        raise RuntimeError(
+            f"dropout {p} in training draws its masks inside "
+            "nn.basic.dropout_rng(seed); the train steps enter it with a "
+            "seed from the generator they are given (train_step(batch, "
+            "generator))")
+    rng = _DROPOUT_RNG[-1]
+    gen = rng["generators"].get(x.device)
+    if gen is None:
+        gen = torch.Generator(device=x.device).manual_seed(rng["seed"])
+        rng["generators"][x.device] = gen
+    keep_prob = 1.0 - p
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 def layer_norm(
@@ -84,13 +125,15 @@ def dense(
 
 
 class ResidualConnection(nn.Module):
-    """y = LN(module(x, ...) + x); extra tuple outputs pass through."""
+    """y = dropout(LN(module(x, ...) + x)); extra tuple outputs pass
+    through."""
 
     def __init__(self, module: nn.Module, dim: int,
-                 use_layer_norm: bool = True):
+                 use_layer_norm: bool = True, dropout: float = 0.0):
         super().__init__()
         self.module = module
         self.LayerNorm_0 = LayerNorm(dim) if use_layer_norm else None
+        self.dropout = dropout
 
     def forward(self, x, *args, **kwargs):
         y = self.module(x, *args, **kwargs)
@@ -101,6 +144,7 @@ class ResidualConnection(nn.Module):
         y = y + x
         if self.LayerNorm_0 is not None:
             y = self.LayerNorm_0(y)
+        y = dropout(y, self.dropout, self.training)
         if others is not None:
             return (y, *others)
         return y

@@ -14,7 +14,10 @@ attribute names are the flax names, so a JAX parameter tree converts 1:1
   * ``LSTMSampler``: a unidirectional TorchLSTM keeping every
     ``decline_rate``-th hidden state (100 Hz audio -> 12.5 fps).
 
-Dropout in training raises, as the mixers' does (not ported yet).
+In training, ``LSTMBlock`` applies dropout after the LSTM's residual
+(and LayerNorm) and after the FFN's, where the block is residual, as the
+JAX package does; the stacked LSTMs apply theirs between layers
+(``nn/recurrent.py``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from torch import nn
 from multimodalreactiongeneration_tpu_torch.nn.basic import (
     LayerNorm,
     dense,
-    refuse_dropout,
+    dropout,
 )
 from multimodalreactiongeneration_tpu_torch.nn.recurrent import (
     LSTMState,
@@ -95,12 +98,12 @@ class LSTMBlock(nn.Module):
             self.ff_norm = LayerNorm(output_size) if norm else None
 
     def forward(self, x, hx=None):
-        refuse_dropout(self)
         y, hx = self.lstm_module(x, hx)
         if self.use_residual:
             y = y + x
             if self.lstm_norm is not None:
                 y = self.lstm_norm(y)
+            y = dropout(y, self.dropout, self.training)
         if self.use_feed_forward:
             f = self.ff_input(y)
             if self.use_relu:
@@ -110,6 +113,7 @@ class LSTMBlock(nn.Module):
                 f = f + y
                 if self.ff_norm is not None:
                     f = self.ff_norm(f)
+                f = dropout(f, self.dropout, self.training)
             y = f
         return y, hx
 

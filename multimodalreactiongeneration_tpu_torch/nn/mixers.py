@@ -13,6 +13,12 @@ follow the flax tree (``block_i``, ``mixer``, ``mixer_norm``,
 states, as in the JAX package (PARITY #1): (h, c) per LSTM block, h per
 GRU block.
 
+Dropout, as in the JAX package: an MHA stack hands its rate to every
+attention (``TorchMHA``, on the context); a recurrent stack's blocks are
+single-layer, so its rate acts only on the dispatch: in training with
+dropout > 0 the stack runs block by block (K7 per block on the card,
+``_fused_stack``'s JAX gate), not on the fused stack.
+
 Not ported yet: the MLP mixers and the bidirectional and multi-layer
 recurrent mixers.
 """
@@ -29,7 +35,6 @@ from multimodalreactiongeneration_tpu_torch.nn.attention import TorchMHA
 from multimodalreactiongeneration_tpu_torch.nn.basic import (
     FeedForward,
     LayerNorm,
-    refuse_dropout,
     set_nonlinearity,
 )
 from multimodalreactiongeneration_tpu_torch.nn.recurrent import (
@@ -133,6 +138,7 @@ class MHAMixerBlock(nn.Module):
         bottleneck_size: Optional[int] = None,
         use_bias: bool = True,
         rect_pad_masks: bool = False,
+        dropout: float = 0.0,
     ):
         super().__init__()
         self.num_layers = num_layers
@@ -145,6 +151,7 @@ class MHAMixerBlock(nn.Module):
             setattr(self, f"mha_{i}", TorchMHA(
                 hidden_size, num_heads, generator, kdim=kdim, vdim=vdim,
                 use_bias=use_bias, rect_pad_masks=rect_pad_masks,
+                dropout=dropout,
             ))
         self.mixer_norm = (
             LayerNorm(hidden_size) if residual and residual_layer_norm
@@ -215,7 +222,6 @@ class RecurrentMixerLayerd(nn.Module):
             ))
 
     def forward(self, x, hx: Optional[List[Any]] = None):
-        refuse_dropout(self)
         fused = self._fused_stack(x, hx)
         if fused is not None:
             return fused
@@ -232,8 +238,9 @@ class RecurrentMixerLayerd(nn.Module):
         (the CUDA kernels on the card, its plain version on the CPU;
         differentiable in both); returns None to fall back to the
         per-block modules. Same gate as the JAX package, less its TPU
-        backend test and its dropout term (``forward`` has already
-        refused dropout in training)."""
+        backend test: active dropout in training (``dropout == 0 or not
+        training``, JAX's ``dropout == 0 or deterministic``) runs the
+        blocks one by one."""
         if not (
             self.kind == "lstm"
             and self.num_internal_layer == 1
@@ -243,6 +250,7 @@ class RecurrentMixerLayerd(nn.Module):
             and self.residual_layer_norm
             and set_nonlinearity(self.nonlinearity) is None
             and self.use_bias
+            and (self.dropout == 0 or not self.training)
             and x.shape[-1] == self.hidden_size
             and x.shape[1] >= MIN_KERNEL_STEPS
         ):
@@ -310,7 +318,7 @@ class MHAMixerLayerd(nn.Module):
                 nonlinearity=nonlinearity, residual=residual,
                 residual_layer_norm=residual_layer_norm,
                 bottleneck_size=bottleneck_size, use_bias=use_bias,
-                rect_pad_masks=rect_pad_masks,
+                rect_pad_masks=rect_pad_masks, dropout=dropout,
             ))
 
     def forward(
@@ -322,7 +330,6 @@ class MHAMixerLayerd(nn.Module):
         caches: Optional[List[Optional[List[Dict[str, Any]]]]] = None,
         shared_raw: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ):
-        refuse_dropout(self)
         query = x
         if self.self_attention:
             if shared_raw is not None:

@@ -15,7 +15,8 @@ Dispatch, as the JAX package's (``resolve_impl`` and the branches of
   * under ``MIN_KERNEL_STEPS`` steps (the AR-decode steps, the 15-frame
     contexts of simple_lstm): the plain recurrence, layer by layer, on
     every device;
-  * several layers, unidirectional, dropout 0 or eval mode:
+  * several layers, unidirectional, dropout 0 or eval mode (the JAX
+    package's ``dropout == 0 or deterministic``):
     ``ops/lstm_stacked.py lstm_stacked_recurrence`` (the wavefront kernels,
     K9, on CUDA, the plain version on CPU) over x @ W_ih_0^T + b computed
     here; on CUDA, stacks the kernels do not take raise;
@@ -24,8 +25,8 @@ Dispatch, as the JAX package's (``resolve_impl`` and the branches of
     package's ``_fused_dw_enabled``) and input and hidden sizes multiples
     of 128, ``ops/lstm_layer.py lstm_layer`` (K7); else x @ W_ih^T + b as
     one matmul, then ``ops/lstm_recurrence.py lstm_recurrence`` (K8); on
-    CUDA a hidden size K8 does not take raises;
-  * dropout between layers in training raises (not ported yet).
+    CUDA a hidden size K8 does not take raises; in training, dropout
+    acts on each layer's output but the last's (``nn.basic.dropout``).
 
 ``TorchGRU``: gate order r, z, n with b_hn inside the reset product;
 parameters ``weight_ih_l{k}`` (3H, din), ``weight_hh_l{k}``,
@@ -33,8 +34,8 @@ parameters ``weight_ih_l{k}`` (3H, din), ``weight_hh_l{k}``,
 under ``MIN_KERNEL_STEPS`` steps the plain recurrence on every device;
 from there on x @ W_ih^T + b_ih as one matmul, then ``ops/gru.py
 gru_recurrence`` (the K10 kernels on CUDA, the plain version on CPU); on
-CUDA, a hidden size the kernels do not take raises. Dropout between
-layers in training and a bidirectional GRU raise.
+CUDA, a hidden size the kernels do not take raises. In training, dropout
+acts between layers, as the LSTM's. A bidirectional GRU raises.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from multimodalreactiongeneration_tpu_torch.nn.basic import refuse_dropout
+from multimodalreactiongeneration_tpu_torch.nn.basic import dropout
 from multimodalreactiongeneration_tpu_torch.ops import gru as gru_ops
 from multimodalreactiongeneration_tpu_torch.ops import lstm_recurrence as k8
 from multimodalreactiongeneration_tpu_torch.ops.lstm_layer import (
@@ -185,13 +186,13 @@ class TorchLSTM(nn.Module):
         if hx is None:
             zeros = x.new_zeros(layers * dirs, x.shape[0], self.hidden_size)
             hx = (zeros, zeros)
-        if layers > 1:  # dropout acts between layers
-            refuse_dropout(self)
         # the stacked kernels' backward (K9) serves both MRGEN_FUSED_DW
         # settings: the JAX package's _bwd_kernel and _bwd_kernel_fused
-        # (ops/pallas_lstm_stacked.py:230, :317) compute the same function
-        if dirs == 1 and use_lstm_stacked(x.device.type, steps, layers,
-                                          self.hidden_size, x.shape[0]):
+        # (ops/pallas_lstm_stacked.py:230, :317) compute the same function;
+        # active dropout between layers takes the stack layer by layer
+        inactive = self.dropout == 0 or not self.training
+        if dirs == 1 and inactive and use_lstm_stacked(
+                x.device.type, steps, layers, self.hidden_size, x.shape[0]):
             w_ih0, b0, w_hh0 = self._layer(0)
             rest = [self._layer(k) for k in range(1, layers)]
             return lstm_stacked_recurrence(
@@ -216,6 +217,8 @@ class TorchLSTM(nn.Module):
                 hs.append(h)
                 cs.append(c)
             x = outs[0] if dirs == 1 else torch.cat(outs, dim=-1)
+            if k < layers - 1:
+                x = dropout(x, self.dropout, self.training)
         return x, (torch.stack(hs), torch.stack(cs))
 
 
@@ -245,8 +248,6 @@ class TorchGRU(nn.Module):
         layers, steps = self.num_layers, x.shape[1]
         if hx is None:
             hx = x.new_zeros(layers, x.shape[0], self.hidden_size)
-        if layers > 1:  # dropout acts between layers
-            refuse_dropout(self)
         kernel = use_gru_kernel(x.device.type, steps, self.hidden_size)
         hs = []
         for k in range(layers):
@@ -264,4 +265,6 @@ class TorchGRU(nn.Module):
                 x, h = gru_ops.gru_recurrence_reference(xw, w_hh.T, b_hh,
                                                         hx[k])
             hs.append(h)
+            if k < layers - 1:
+                x = dropout(x, self.dropout, self.training)
         return x, torch.stack(hs)

@@ -13,7 +13,11 @@ for any ``nn.Module`` (the Metaformer and LSTMwithSample alike):
   * a payload is ``{"params": model state_dict, "epoch": int}`` plus
     ``"opt"`` (the optimizer's state_dict) where optimizer state is
     saved: always in ``last``, in the top-k files only with
-    ``save_opt_state="all"``;
+    ``save_opt_state="all"``; under gradient accumulation it is
+    ``train/optim.py MultiSteps``' state (the inner optimizer's, the
+    running mean of the micro-batches' gradients and the micro-step
+    count, what the MultiSteps ``opt_state`` of a JAX checkpoint holds),
+    so a run resumed mid-accumulation goes on as the unbroken run would;
   * ``use_async``: the payload is copied to host memory on the calling
     thread (a snapshot the next step cannot touch), and ``torch.save``
     writes it on a background thread, at most one in flight per monitor;
@@ -146,11 +150,10 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def restore_opt_state(payload: Dict[str, Any],
-                      optimizer: torch.optim.Optimizer) -> bool:
-    """Load the payload's optimizer state into ``optimizer`` (its tensors
-    move to the parameters' device); False if the checkpoint holds
-    none."""
+def restore_opt_state(payload: Dict[str, Any], optimizer) -> bool:
+    """Load the payload's optimizer state into ``optimizer``, a torch
+    optimizer or a ``MultiSteps`` (its tensors move to the parameters'
+    device); False if the checkpoint holds none."""
     if payload.get("opt") is None:
         return False
     optimizer.load_state_dict(payload["opt"])

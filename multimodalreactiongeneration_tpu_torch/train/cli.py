@@ -22,7 +22,15 @@ window batches (``make_windowed_loaders``). Then the model
 JAX package; ``windowed_step_fns`` for simple_lstm), the generation eval
 (not for simple_lstm, as in the JAX CLI), and ``Trainer.fit``;
 ``resume_from=<checkpoint>`` (e.g. ``<ckpt>/last``) restores the weights,
-the optimizer state and the epoch.
+the optimizer state (with a partial gradient accumulation) and the epoch.
+As in the JAX CLI, ``model.use_scheduled_sampling=true`` trains the
+streaming models on the AR rollout (``scheduled_sampling_step_fn``, rate
+epoch / ``model.max_epochs``), ``trainer.accumulate_grad_batches`` k
+averages k batches' gradients into each optimizer update
+(``optim.MultiSteps``), ``trainer.remat=true`` recomputes the forward in
+the backward, and ``model.dropout`` (``dropout_rate``,
+``sampler_dropout_rate``) acts in training; ``trainer.precision: bf16``
+(ROADMAP queue B) and ``trainer.mesh_shape`` (queue A, item 6) raise.
 
 It runs on ``cuda:0``; ``device=cpu`` runs it on the CPU (the tests do).
 The yaml's own ``device: tpu`` names no device of the port and means the
@@ -65,6 +73,7 @@ from multimodalreactiongeneration_tpu_torch.train.generation_eval import (
 )
 from multimodalreactiongeneration_tpu_torch.train.harness import (
     Trainer,
+    scheduled_sampling_step_fn,
     streaming_step_fns,
     windowed_step_fns,
 )
@@ -148,15 +157,10 @@ def main(argv=None):
     if model_type not in MODEL_TYPE:
         raise ValueError(f"exp.use_model must be one of {sorted(MODEL_TYPE)}, "
                          f"got {model_type!r}")
-    if cfg.model.get("use_scheduled_sampling", False):
-        raise NotImplementedError(
-            "scheduled sampling is not ported yet (ROADMAP queue A, item 4)")
-    if cfg.trainer.get("accumulate_grad_batches", 1) != 1:
-        raise NotImplementedError("gradient accumulation is not ported yet")
     if cfg.trainer.get("mesh_shape"):
         raise NotImplementedError(
             "trainer.mesh_shape: the port trains on one device (ROADMAP "
-            "queue A, item 9)")
+            "queue A, item 6)")
     named = cfg.get("device")
     device = resolve_device(None if named in (None, "tpu") else named)
     logger = set_logger(model_type, cfg.get("log_dir", "log"))
@@ -175,7 +179,12 @@ def main(argv=None):
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"model: {model_type}, parameters: {n_params:,}, "
                 f"device: {device}")
-    optimizer = build_optimizer(model.parameters(), cfg.optim)
+    optimizer = build_optimizer(
+        model.parameters(), cfg.optim,
+        accumulate_grad_batches=cfg.trainer.get("accumulate_grad_batches", 1))
+    # the streaming models' option, as in the JAX CLI
+    scheduled = not windowed and cfg.model.get("use_scheduled_sampling",
+                                               False)
     if windowed:
         train_step, eval_step = windowed_step_fns(
             model, model_cfg, cfg.metrics.to_dict(), optimizer)
@@ -189,6 +198,10 @@ def main(argv=None):
                            else torch.float32),
             remat=cfg.trainer.get("remat", False),
         )
+        if scheduled:
+            train_step = scheduled_sampling_step_fn(
+                model, model_type, model_cfg, cfg.metrics.to_dict(),
+                optimizer)
 
     start_epoch = 0
     if cfg.get("resume_from"):
@@ -209,6 +222,8 @@ def main(argv=None):
         log_dir=cfg.get("log_dir", "log"),
         ckpt_dir=os.path.join(cfg.get("ckpt_path", "ckpts"), cfg.name),
         generation_eval=generation_eval,
+        scheduled_max_epochs=cfg.model.max_epochs if scheduled else None,
+        seed=cfg.get("seed", 0),
         val_check_interval=float(cfg.trainer.get("val_check_interval", 1.0)),
         device=device,
     )

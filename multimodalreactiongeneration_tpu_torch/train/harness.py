@@ -1,6 +1,7 @@
 """Training step functions.
 
-Counterpart of ``streaming_step_fns`` and ``windowed_step_fns`` in
+Counterpart of ``streaming_step_fns``, ``scheduled_sampling_step_fn`` and
+``windowed_step_fns`` in
 ``multimodalreactiongeneration_tpu/train/harness.py`` (reference
 training_step / validation_step, lstmformer.py:357-424,
 lstm_with_sample.py:278-337, simple_lstm.py:239-269).
@@ -30,6 +31,23 @@ configs/lstmformer_gru.yaml, every encoder and self-motion block runs
 LSTMs (``ops/lstm_layer.py``); under ``MRGEN_FUSED_DW=0`` the single-layer
 LSTMs run ``ops/lstm_recurrence.py`` instead. f32 only.
 
+A train step's ``generator`` (the trainer's ``torch.Generator``) gives it
+one seed, and the step's forward draws every dropout mask from it
+(``nn.basic.dropout_rng``); a step given none draws no seed, so a model
+with dropout in training raises there. ``remat=True`` runs the model call
+under ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` of
+``apply_fn``): the backward recomputes the forward, inside the same
+``dropout_rng``, so with the same masks.
+
+``scheduled_sampling_step_fn`` takes the loss on the AR rollout (the
+bodies of ``infer/generate.py``'s generators, with gradients through
+every step): each step feeds back the model's own prediction where
+``uniform(length) < rate``, drawn from the trainer's generator; the
+Metaformer's rollout runs the in-loop per-block layout with f32 rings, as
+JAX's step pins it. On the card its warmup runs the encoder stacks'
+training kernels (K3, K4) over the lead's audio, and lstm_with_sampling's
+runs its sampler's stacked kernels (K9) under gradient.
+
 ``Trainer`` is the counterpart of the JAX package's fit loop on one
 device: per-epoch cosine LR, Lightning ``val_check_interval`` semantics
 (a fraction of the train epoch, or every N steps when > 1) with
@@ -38,8 +56,11 @@ checkpoints (T and G only with a generation eval) and ``last``, and the
 same ``metrics.jsonl`` records. It stages both batch layouts: the
 streaming (data, lengths) pairs and the windowed stacked arrays. Losses
 and metrics stay on the device through the epoch and are read back once
-at its end. A device mesh, multi-host runs and scheduled sampling (ROADMAP
-queue A) raise ``NotImplementedError``.
+at its end. With ``scheduled_max_epochs`` it passes the scheduled-sampling
+step ``rate = epoch / scheduled_max_epochs`` and writes it into the check
+and epoch records, as the JAX loop does. Gradient accumulation is the
+optimizer's (``train/optim.py MultiSteps``). A device mesh and multi-host
+runs raise ``NotImplementedError`` (ROADMAP queue A, item 6).
 """
 
 from __future__ import annotations
@@ -52,14 +73,20 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from multimodalreactiongeneration_tpu_torch import resolve_device
+from multimodalreactiongeneration_tpu_torch.infer.generate import (
+    _generate_lws,
+    _generate_metaformer,
+)
 from multimodalreactiongeneration_tpu_torch.models.simple_lstm import (
     mse_loss,
     simple_lstm_loss,
     split_and_form,
     static_base,
 )
+from multimodalreactiongeneration_tpu_torch.nn.basic import dropout_rng
 from multimodalreactiongeneration_tpu_torch.ops.masks import PADDING_VALUE
 from multimodalreactiongeneration_tpu_torch.train import checkpoint as ckpt_lib
 from multimodalreactiongeneration_tpu_torch.train.losses import build_loss
@@ -86,6 +113,13 @@ def delta_scaler(feat_dim: int, delta_order: int, scale: float,
     return s
 
 
+def _step_seed(generator: Optional[torch.Generator]) -> Optional[int]:
+    """One step's dropout seed from ``generator``; None without one."""
+    if generator is None:
+        return None
+    return int(torch.randint(0, 2**62, (1,), generator=generator))
+
+
 def streaming_step_fns(
     model: torch.nn.Module,
     model_cfg: Dict[str, Any],
@@ -99,16 +133,16 @@ def streaming_step_fns(
     zeroes the -100 padding of its self-motion input
     (``mask_self_motion_input=True``); LSTMwithSample takes it as it is.
 
-    ``train_step(batch) -> (loss, per_slice)`` runs forward, loss,
-    backward and one optimizer step on ``model``'s parameters;
+    ``train_step(batch, generator=None) -> (loss, per_slice)`` runs
+    forward, loss, backward and one optimizer step on ``model``'s
+    parameters, its dropout masks from a seed drawn from ``generator``;
     ``eval_step(batch) -> (loss, per_slice)`` runs the forward without a
     gradient. ``per_slice`` maps each feature slice to (sum_sq_err,
-    count), on the device."""
+    count), on the device. ``remat``: the model call under
+    ``torch.utils.checkpoint``."""
     if compute_dtype != torch.float32:
         raise NotImplementedError(
-            "the port trains in f32 only (bf16 training comes later)")
-    if remat:
-        raise NotImplementedError("remat is not ported yet")
+            "the port trains in f32 only (bf16 training is ROADMAP queue B)")
     lossfun = build_loss(model_cfg)
     target_dict = gen_target_dict(
         metrics_cfg["use_centroid"],
@@ -118,19 +152,28 @@ def streaming_step_fns(
     delta_order = metrics_cfg["delta_order"]
     dls = model_cfg.get("delta_loss_scale", 1.0)
 
-    def forward(batch: Batch):
+    def apply(seed: Optional[int], *arrays):
+        with dropout_rng(seed):
+            return model(*arrays)[0]
+
+    def forward(batch: Batch, seed: Optional[int] = None):
         a_p, m_p, m_s, la, lmp, lms, target = [b[0] for b in batch]
         if mask_self_motion_input:
             m_s = m_s * (m_s != PADDING_VALUE)
-        y, _ = model(a_p, m_p, m_s, la, lmp, lms)
+        arrays = (a_p, m_p, m_s, la, lmp, lms)
+        if remat and model.training:
+            y = checkpoint(apply, seed, *arrays, use_reentrant=False)
+        else:
+            y = apply(seed, *arrays)
         y = y[:, lmp.shape[1]:].float()
         mask = (target != PADDING_VALUE).to(y.dtype)
         return y * mask, target * mask
 
-    def train_step(batch: Batch):
+    def train_step(batch: Batch,
+                   generator: Optional[torch.Generator] = None):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        y, t = forward(batch)
+        y, t = forward(batch, _step_seed(generator))
         scaler = delta_scaler(y.shape[-1], delta_order, dls, y.device)
         y, t = y * scaler, t * scaler
         loss = lossfun(y, t)
@@ -147,6 +190,76 @@ def streaming_step_fns(
     return train_step, eval_step
 
 
+def scheduled_sampling_masked_step_fn(
+    model: torch.nn.Module,
+    model_type: str,
+    model_cfg: Dict[str, Any],
+    metrics_cfg: Dict[str, Any],
+    optimizer: torch.optim.Optimizer,
+):
+    """``masked_step(batch, mask_steps) -> (loss, per_slice)``: the
+    scheduled-sampling step on a given (L,) bool mask (True: the step
+    feeds back the model's prediction), the body of
+    ``scheduled_sampling_step_fn``'s step. The loss is the
+    ``delta_scaler``-scaled, -100-masked loss of the rollout's prediction;
+    forward, backward and one optimizer step, as JAX's ``train_step``
+    (no f32 gradient cast there either)."""
+    lossfun = build_loss(model_cfg)
+    target_dict = gen_target_dict(
+        metrics_cfg["use_centroid"],
+        metrics_cfg["use_angle"],
+        metrics_cfg["delta_order"],
+    )
+    delta_order = metrics_cfg["delta_order"]
+    dls = model_cfg.get("delta_loss_scale", 1.0)
+    if model_type == "lstm_with_sampling":
+        rollout = _generate_lws
+    else:
+        def rollout(model, data, mask):
+            return _generate_metaformer(model, data, mask,
+                                        cache_dtype=torch.float32,
+                                        kv_layout="per_block")
+
+    def masked_step(batch: Batch, mask_steps: torch.Tensor):
+        data = [b[0] for b in batch]
+        target = data[-1]
+        optimizer.zero_grad(set_to_none=True)
+        y = rollout(model, data, mask_steps.to(target.device))
+        mask = (target != PADDING_VALUE).to(y.dtype)
+        y, t = y * mask, target * mask
+        scaler = delta_scaler(y.shape[-1], delta_order, dls, y.device)
+        y, t = y * scaler, t * scaler
+        loss = lossfun(y, t)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), per_slice_sq_err(y.detach(), t, target_dict)
+
+    return masked_step
+
+
+def scheduled_sampling_step_fn(
+    model: torch.nn.Module,
+    model_type: str,
+    model_cfg: Dict[str, Any],
+    metrics_cfg: Dict[str, Any],
+    optimizer: torch.optim.Optimizer,
+):
+    """``train_step(batch, generator, rate) -> (loss, per_slice)`` for
+    ``use_scheduled_sampling`` (reference lstm_with_sample.py:278-301,
+    lstmformer.py:357-385): the mask is ``uniform(L) < rate`` with L the
+    batch's motion length, drawn from ``generator``, then
+    ``scheduled_sampling_masked_step_fn``'s step."""
+    masked_step = scheduled_sampling_masked_step_fn(
+        model, model_type, model_cfg, metrics_cfg, optimizer)
+
+    def train_step(batch: Batch, generator: torch.Generator, rate: float):
+        length = batch[1][0].shape[1]
+        mask = torch.rand(length, generator=generator) < rate
+        return masked_step(batch, mask)
+
+    return train_step
+
+
 def windowed_step_fns(
     model: torch.nn.Module,
     model_cfg: Dict[str, Any],
@@ -155,7 +268,8 @@ def windowed_step_fns(
 ):
     """(train_step, eval_step) for SimpleLSTM: each takes a batch
     (fbank (B, Ta, 81), motion (B, Tm, 18), target (B, 1, 18)) and returns
-    (loss, per_slice), as ``streaming_step_fns``' do."""
+    (loss, per_slice), as ``streaming_step_fns``' do; ``train_step`` also
+    takes their ``generator``."""
     target_dict = gen_target_dict(
         metrics_cfg["use_centroid"],
         metrics_cfg["use_angle"],
@@ -169,13 +283,15 @@ def windowed_step_fns(
         real = ~(target == PADDING_VALUE).flatten(1).all(dim=1)
         return real.reshape((-1,) + (1,) * (target.dim() - 1))
 
-    def train_step(batch):
+    def train_step(batch, generator: Optional[torch.Generator] = None):
         fbank, motion, target = batch
         model.train()
         optimizer.zero_grad(set_to_none=True)
         m = row_mask(target)
-        loss, y = simple_lstm_loss(model(fbank, motion), target, motion,
-                                   model_cfg, metrics_cfg, row_mask=m)
+        with dropout_rng(_step_seed(generator)):
+            y = model(fbank, motion)
+        loss, y = simple_lstm_loss(y, target, motion, model_cfg, metrics_cfg,
+                                   row_mask=m)
         loss.backward()
         optimizer.step()
         return loss.detach(), per_slice_sq_err(
@@ -242,11 +358,16 @@ class FitResult:
 class Trainer:
     """``fit`` on one device with checkpoint and early-stop callbacks.
 
-    ``train_step(batch) -> (loss, per_slice)`` and ``eval_step(batch) ->
-    (loss, per_slice)`` are ``streaming_step_fns``' or
-    ``windowed_step_fns``'; the model's
-    parameters and the optimizer are updated in place. Batches are staged
-    onto ``device`` (``cuda:0`` unless named)."""
+    ``train_step(batch, generator) -> (loss, per_slice)`` and
+    ``eval_step(batch) -> (loss, per_slice)`` are ``streaming_step_fns``'
+    or ``windowed_step_fns``'; with ``scheduled_max_epochs``, the train
+    step is ``scheduled_sampling_step_fn``'s, called as
+    ``train_step(batch, generator, rate)``. ``generator`` is the
+    trainer's, made at the start of ``fit`` from ``seed`` (JAX's
+    ``PRNGKey(seed)``): the steps draw their dropout seeds and
+    scheduled-sampling masks from it. The model's parameters and the
+    optimizer are updated in place. Batches are staged onto ``device``
+    (``cuda:0`` unless named)."""
 
     def __init__(
         self,
@@ -261,6 +382,7 @@ class Trainer:
         mesh=None,
         generation_eval: Optional[Callable] = None,
         scheduled_max_epochs: Optional[int] = None,
+        seed: int = 0,
         val_check_interval: float = 1.0,
         device=None,
     ):
@@ -268,11 +390,7 @@ class Trainer:
             raise NotImplementedError(
                 "the port trains on one device: a mesh and multi-host "
                 "training come with data-parallel training (ROADMAP queue "
-                "A, item 9)")
-        if scheduled_max_epochs:
-            raise NotImplementedError(
-                "scheduled sampling is not ported yet (ROADMAP queue A, "
-                "item 4)")
+                "A, item 6)")
         self.model = model
         self.train_step = train_step
         self.eval_step = eval_step
@@ -282,6 +400,9 @@ class Trainer:
         self.log_dir = log_dir
         self.ckpt_dir = ckpt_dir
         self.generation_eval = generation_eval
+        self.scheduled_max_epochs = scheduled_max_epochs
+        self.seed = seed
+        self.generator: Optional[torch.Generator] = None
         self.val_check_interval = float(val_check_interval)
         self.device = resolve_device(device)
         os.makedirs(log_dir, exist_ok=True)
@@ -335,8 +456,9 @@ class Trainer:
         saver = savers.get("V")
         state = dict(wait_checks=0, step=0, check_idx=0, stop=False,
                      val_seconds=0.0)
+        self.generator = torch.Generator().manual_seed(self.seed)
 
-        def run_check(epoch, packed_train):
+        def run_check(epoch, packed_train, rate):
             """One validation check: the val pass (+ the generation eval),
             the V/T/G monitors, early-stop bookkeeping and a check record
             in metrics.jsonl."""
@@ -395,6 +517,8 @@ class Trainer:
             }
             if genrt_loss is not None:
                 check["genrt_loss"] = genrt_loss
+            if rate is not None:
+                check["scheduled_sampling_rate"] = rate
             self._log(check)
             state["val_seconds"] += time.time() - t_val
             return check
@@ -404,6 +528,8 @@ class Trainer:
                 set_learning_rate(self.optimizer, float(lr_sched(epoch)))
             train_metrics = MetricAccumulator("train_")
             t0 = time.time()
+            rate = (epoch / self.scheduled_max_epochs
+                    if self.scheduled_max_epochs else None)
             packed_train, names = [], []
             train_frames = 0
             last_check = None
@@ -411,12 +537,14 @@ class Trainer:
             state["val_seconds"] = 0.0
             for batch_idx, batch in enumerate(train_loader):
                 train_frames += _batch_frames(batch)
-                loss, slices = self.train_step(self._stage(batch))
+                step_args = (self.generator,) + (
+                    () if rate is None else (rate,))
+                loss, slices = self.train_step(self._stage(batch), *step_args)
                 vec, names = _pack(loss, slices)
                 packed_train.append(vec)
                 state["step"] += 1
                 if val_every and (batch_idx + 1) % val_every == 0:
-                    last_check = run_check(epoch, packed_train)
+                    last_check = run_check(epoch, packed_train, rate)
                     checks_this_epoch += 1
                     if state["stop"]:
                         break
@@ -430,7 +558,7 @@ class Trainer:
             train_seconds = time.time() - t0 - state["val_seconds"]
             # epoch-end validation only when no interval check ran
             if last_check is None and not state["stop"]:
-                last_check = run_check(epoch, packed_train)
+                last_check = run_check(epoch, packed_train, rate)
                 checks_this_epoch += 1
             val_loss = last_check["val_loss"] if last_check else float("nan")
 
@@ -454,6 +582,8 @@ class Trainer:
                                if k.startswith("valid_")})
                 if "genrt_loss" in last_check:
                     record["genrt_loss"] = last_check["genrt_loss"]
+            if rate is not None:
+                record["scheduled_sampling_rate"] = rate
             self._log(record)
             result.history.append(record)
             result.epochs_run = epoch + 1

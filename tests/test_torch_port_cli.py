@@ -167,12 +167,16 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_other_models_and_unported_options():
+    """An unknown model and a device mesh (ROADMAP queue A, item 6)
+    raise; scheduled sampling, dropout, accumulation and remat train
+    (tests/test_torch_port_train_options.py)."""
     with pytest.raises(ValueError, match="gpt"):
         cli.main(["--config", "configs/lstmformer.yaml", "device=cpu",
                   "exp.use_model=gpt"])
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         cli.main(["--config", "configs/lstmformer.yaml", "device=cpu",
-                  "model.use_scheduled_sampling=true"])
+                  "model.use_scheduled_sampling=true",
+                  "trainer.mesh_shape=[2, 1]"])
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

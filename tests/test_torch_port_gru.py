@@ -179,11 +179,17 @@ def test_gru_refusals():
     with pytest.raises(NotImplementedError, match="bidirectional"):
         recurrent.TorchGRU(8, 8, gen, bidirectional=True)
     gru = recurrent.TorchGRU(8, 8, gen, num_layers=2, dropout=0.1)
-    x = torch.zeros(1, 4, 8)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    x = torch.ones(1, 4, 8)
+    # dropout between layers in training draws its masks only inside
+    # dropout_rng, and then drops some of the first layer's outputs
+    with pytest.raises(RuntimeError, match="dropout_rng"):
         gru(x)
+    from multimodalreactiongeneration_tpu_torch.nn.basic import dropout_rng
+    with dropout_rng(0):
+        dropped = gru(x)[0]
     gru.eval()
-    assert gru(x)[0].shape == (1, 4, 8)
+    assert gru(x)[0].shape == dropped.shape == (1, 4, 8)
+    assert not torch.equal(gru(x)[0], dropped)
     # the CUDA route raises for the hidden sizes the kernels do not take,
     # and only from 16 steps on
     with pytest.raises(NotImplementedError, match="K10"):

@@ -11,8 +11,9 @@ bound: the kernel takes its sums in another order). ``TorchLSTM`` with
 outputs, (L, B, H) states and the gradients of input and parameters.
 Dispatch as the JAX package: under 16 steps the plain recurrence layer by
 layer, from there on the stacked path; on CUDA a stack the kernels do
-not take raises, and so do a bidirectional LSTM and dropout between
-layers in training. The CUDA kernels are held to the plain version on
+not take raises; a bidirectional LSTM, and active dropout between layers
+in training, run layer by layer (dropout draws its masks only inside
+``nn.basic.dropout_rng``). The CUDA kernels are held to the plain version on
 the card in tests/test_torch_port_kernels.py.
 """
 
@@ -193,18 +194,26 @@ def test_stack_gate_raises_on_cuda_for_shapes_the_kernel_does_not_take():
 
 def test_torchlstm_refuses_bidirectional_and_dropout_in_training(
         monkeypatch):
-    """Dropout between layers in training raises, one direction or two; a
-    bidirectional stack runs layer by layer and direction by direction,
-    never the stacked route (JAX takes it for one direction only)."""
+    """Dropout between layers in training draws its masks only inside
+    ``dropout_rng`` (raises outside it), one direction or two, and runs
+    the stack layer by layer (JAX's ``dropout == 0 or deterministic``
+    gate); a bidirectional stack runs layer by layer and direction by
+    direction, never the stacked route (JAX takes it for one direction
+    only)."""
+    from multimodalreactiongeneration_tpu_torch.nn.basic import dropout_rng
+
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(2, 20, 8, generator=gen)
+    monkeypatch.setattr(recurrent, "lstm_stacked_recurrence", None)
     for bidirectional in (False, True):
         port = recurrent.TorchLSTM(8, 16, gen, num_layers=2, dropout=0.1,
                                    bidirectional=bidirectional)
-        with pytest.raises(NotImplementedError, match="dropout"):
+        with pytest.raises(RuntimeError, match="dropout_rng"):
             port(x)
+        with dropout_rng(0):
+            ys, _ = port(x)
+        assert ys.shape == (2, 20, 16 * (2 if bidirectional else 1))
     port.eval()
-    monkeypatch.setattr(recurrent, "lstm_stacked_recurrence", None)
     ys, (hn, cn) = port(x)
     assert ys.shape == (2, 20, 32) and hn.shape == (4, 2, 16)
     port = recurrent.TorchLSTM(8, 16, gen, num_layers=2, dropout=0.1).eval()

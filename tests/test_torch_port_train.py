@@ -19,7 +19,9 @@
     two agree;
   * the faults training exposed in the decode slice: the model is
     trainable, the inference-only kernel wrappers refuse inputs that
-    need a gradient, and the mixers refuse dropout in training.
+    need a gradient, and the mixers honour dropout in training (the
+    recurrent stack leaves the fused path, the attention draws masks
+    only inside ``dropout_rng``).
 
 The CUDA kernels are held to their plain versions on the card in
 tests/test_torch_port_kernels.py.
@@ -297,16 +299,23 @@ def _check_train_step_matches_jax():
 
 
 def test_step_fns_refuse_bf16_and_remat():
-    pm = Metaformer(MF_CFG, generator=torch.Generator().manual_seed(0),
-                    device="cpu")
-    opt = optim.build_optimizer(pm.parameters(), SGD_CFG)
+    """bf16 training raises (ROADMAP queue B); remat is ported: its step
+    gives the plain step's loss, bit for bit
+    (tests/test_torch_port_train_options.py holds it to JAX)."""
     model_cfg = dict(MF_CFG, **LOSS_CFG)
-    with pytest.raises(NotImplementedError, match="f32"):
-        harness.streaming_step_fns(pm, model_cfg, METRICS_CFG, opt, True,
-                                   compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="remat"):
-        harness.streaming_step_fns(pm, model_cfg, METRICS_CFG, opt, True,
-                                   remat=True)
+    batch = [(torch.from_numpy(x), None) for x in _train_batch(61)]
+    losses = []
+    for remat in (False, True):
+        pm = Metaformer(MF_CFG, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+        opt = optim.build_optimizer(pm.parameters(), SGD_CFG)
+        with pytest.raises(NotImplementedError, match="f32"):
+            harness.streaming_step_fns(pm, model_cfg, METRICS_CFG, opt, True,
+                                       compute_dtype=torch.bfloat16)
+        step, _ = harness.streaming_step_fns(pm, model_cfg, METRICS_CFG, opt,
+                                             True, remat=remat)
+        losses.append(float(step(batch)[0]))
+    assert losses[0] == losses[1]
 
 
 # ---- faults of the decode slice that training exposed ----------------------
@@ -348,7 +357,14 @@ def test_inference_kernel_wrappers_refuse_inputs_that_need_grad():
 
 
 @pytest.mark.parametrize("kind", ["lstm", "mha"])
-def test_mixers_refuse_dropout_in_training(kind):
+def test_mixers_refuse_dropout_in_training(kind, monkeypatch):
+    """Dropout in training: the recurrent stack leaves the fused stack
+    for its blocks (JAX's gate; its single-layer blocks draw no mask), so
+    the output is the eval-mode output; the attention drops its context,
+    with masks drawn only inside ``dropout_rng`` (outside it, raises)."""
+    from multimodalreactiongeneration_tpu_torch.nn import mixers
+    from multimodalreactiongeneration_tpu_torch.nn.basic import dropout_rng
+
     gen = torch.Generator().manual_seed(0)
     common = dict(hidden_size=16, generator=gen, num_layerd=2, dropout=0.1,
                   residual=True, residual_layer_norm=True)
@@ -359,8 +375,18 @@ def test_mixers_refuse_dropout_in_training(kind):
     else:
         mod = MHAMixerLayerd(num_heads=2, **common)
         run = lambda: mod(x, x, x)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        run()
+    fused = mixers.mixer_stack_recurrence
+    monkeypatch.setattr(mixers, "mixer_stack_recurrence", None)
+    if kind == "mha":
+        with pytest.raises(RuntimeError, match="dropout_rng"):
+            run()
+    with dropout_rng(0):
+        y_train, _ = run()
     mod.eval()
+    monkeypatch.setattr(mixers, "mixer_stack_recurrence", fused)
     y, _ = run()
-    assert y.shape == x.shape
+    assert y.shape == y_train.shape == x.shape
+    if kind == "lstm":
+        torch.testing.assert_close(y_train, y)
+    else:
+        assert not torch.equal(y_train, y)

@@ -204,13 +204,15 @@ def test_generation_eval_matches_jax():
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """A mesh raises (ROADMAP queue A, item 6); scheduled sampling is
+    ported (tests/test_torch_port_train_options*.py)."""
     pm = Metaformer(CFG, device="cpu")
     opt = optim.build_optimizer(pm.parameters(), OPTIM)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         harness.Trainer(pm, None, None, opt, OPTIM, mesh=object(),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        harness.Trainer(pm, None, None, opt, OPTIM, scheduled_max_epochs=3,
-                        device="cpu")
+    trainer = harness.Trainer(pm, None, None, opt, OPTIM,
+                              scheduled_max_epochs=3, device="cpu")
+    assert trainer.scheduled_max_epochs == 3
     with pytest.raises(NotImplementedError, match="simple_lstm"):
         make_generation_eval(pm, "simple_lstm", CFG)
