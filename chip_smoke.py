@@ -129,6 +129,10 @@ Phases:
      K9 +1 / +1 (the rollout's warmup), nothing else; per validation
      batch as phase 13; ``scheduled_sampling_rate`` 0 and 0.5 in the
      epoch records (epoch / ``model.max_epochs``);
+13d. phase 13 with ``trainer.precision=bf16``: per train step the bf16
+     modes, K9 +1 / +1 and K7 +2 / +2, and no f32 training launch; per
+     validation batch in f32 (an eval step, K9 +1 and K7 forward +2, and a
+     generation, K9 +1); the ``last`` checkpoint's parameters all f32;
  14. GRU recurrence (K10) forward with and without residuals and backward
      vs plain, f32: H256 at B32 x T2016 (an audio-encoder block in
      training), B32 x T252 (the self-motion and partner blocks), B16 x
@@ -146,7 +150,7 @@ Phases:
      finite, launches per generation (K10 forward +10, the hoisted
      encoders; nothing else: the fused rollout's gate needs an LSTM main
      modality, so the rollout runs step by step), time; one more
-     generation under ``torch.profiler`` (table in
+     generation of the first 64 frames under ``torch.profiler`` (table in
      ``_build/profile_gru_generation.txt``); then a teacher-forced f32
      generation at batch 2 vs CPU tensors: <= 1e-4;
  16. GRU training step, B32 x T240 (lead 12), f32, AdamW lr 1e-4, decay
@@ -243,12 +247,32 @@ Phases:
      plain step, launches exact (every forward kernel twice), ms and peak
      memory of both; AdamW with ``accumulate_grad_batches=2`` over two
      micro-batches against one update on their mean gradient: <= 1e-6 of
-     each parameter's largest magnitude.
+     each parameter's largest magnitude;
+ 29. the bf16 modes of K7 and K9 (``bf16_kernel_phase``, own generator
+     ``SEED + 29``): K7 at B256 x T140, 256 -> 256 and K9 at H128 x L2,
+     B256 x T1120 (lstm_with_sampling's blocks and sampler in training),
+     each also at T16 (K9: T32); bf16 x and weights (K9: bf16 weights),
+     f32 biases and states: forward with and without residuals and
+     backward vs the plain bf16 versions within ``BF16_SHORT_TOL`` at the
+     short T and ``BF16_FULL_TOL`` at full length, each gradient in its
+     input's dtype, and the kernel's ys nearer the plain bf16 version's
+     than the plain f32 version's (``bf16_check``); the bf16 kernels and
+     the f32 kernels on the same values timed in turns, the plain bf16
+     versions and cuDNN's ``torch.nn.LSTM`` in bf16 as the yardstick;
+ 30. lstm_with_sampling's bf16 training step (``bf16_step_phase``, own
+     generator ``SEED + 30``) as phase 12 (B256 x T128, AdamW, the
+     profiler table in ``_build/profile_lws_bf16_train_step.txt``): per
+     step the bf16 modes, K9 +1 / +1 and K7 +2 / +2; the eval step in
+     f32, K9 +1 and K7 forward +2; the card's bf16 SGD step against the
+     same bf16 step on CPU tensors within ``BF16_CARD_CPU_TOL``; then,
+     from one model's weights on one batch, the bf16 step's loss within
+     ``BF16_LOSS_REL_TOL`` of the f32 step's, the parameters f32 after
+     both; ms a step and peak memory beside phase 12's.
 
 Every kernel's JSON record carries its bound: the larger of its
 operations (FP32 at 67 TFLOP/s; the 3xTF32 products of K5's forward,
 K6, K4's and K7's and K9's backward, and all of K8's and K10's, as three
-TF32 passes at 495) and its
+TF32 passes at 495; the bf16 modes' products as bf16 at 989) and its
 bytes at 3.35 TB/s (H100 SXM, 700 W).
 Any failure raises. The last lines are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -302,6 +326,24 @@ SERVE_SLOTS, HOP_MS, INT8_TOL = (16, 64), 80.0, 1e-1
 # dropout steps, and the accumulation check's bound
 SS_STEPS, SS_RATE, SS_B, SS_LWS_B = 1, 0.5, 8, 32
 DROPOUT, ACCUM_REL_TOL = 0.1, 1e-6
+# the bf16 modes of K7 and K9 against their plain bf16 versions (the two
+# round h and the dgates at the same products but sum in other orders, so
+# a value on a bf16 rounding boundary may round the other way): at T16
+# forward 1e-3 abs, the f32 gradients 2e-3 and the bf16 ones 1e-2 of
+# their largest magnitude (a bf16 ulp is 2^-8 to 2^-7 of a value); over
+# the full length the JAX bf16 bound (tests/test_pallas_lstm.py:130): 5e-2
+# abs on outputs and states, 5e-2 of their largest magnitude on every
+# gradient (sums over 10^4 to 10^5 rows: a dW of 200 has a bf16 ulp of
+# 1); and the kernel's ys on average within a quarter of the plain f32
+# version's distance from the plain bf16 one (the flips are too rare to
+# move the mean). The bf16 step's loss within 1e-2 of the f32 step's
+# (outputs rounded to bf16, 2^-9 relative each); the bf16 step on the card
+# against CPU tensors: loss 1e-3 relative, gradients 3e-2 of their
+# largest magnitude (bf16 gradients, a few ulps)
+BF16_SHORT_T = 16
+BF16_SHORT_TOL, BF16_FULL_TOL, BF16_MODE_FRAC = (1e-3, 2e-3, 1e-2), (
+    5e-2, 5e-2, 5e-2), 0.25
+BF16_LOSS_REL_TOL, BF16_CARD_CPU_TOL = 1e-2, (1e-3, 3e-2)
 LIBS = ("mixer_stack", "decode_rollout", "lstm_layer", "rect_attention",
         "lstm_stacked", "gru", "lstm_recurrence")
 SRC = "multimodalreactiongeneration_tpu_torch/csrc/"
@@ -366,6 +408,10 @@ COUNTERS = {  # kernel name -> (module key, counter attribute)
     "gru_bwd": ("K10", "bwd_launches"),
     "lstm_recurrence_fwd": ("K8", "fwd_launches"),
     "lstm_recurrence_bwd": ("K8", "bwd_launches"),
+    "lstm_layer_bf16_fwd": ("K7", "bf16_fwd_launches"),
+    "lstm_layer_bf16_bwd": ("K7", "bf16_bwd_launches"),
+    "lstm_stacked_bf16_fwd": ("K9", "bf16_fwd_launches"),
+    "lstm_stacked_bf16_bwd": ("K9", "bf16_bwd_launches"),
 }
 
 
@@ -494,8 +540,9 @@ def window_overlap(events, kernel="lstm_window_kernel"):
 
 
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): FP32 outside the tensor
-# cores, dense TF32 on them, and HBM3
+# cores, dense TF32 and bf16 on them, and HBM3
 PEAK_FLOPS, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
+PEAK_BF16 = 989e12
 
 
 def nbytes(*objs):
@@ -803,8 +850,9 @@ def cudnn_ms(rnn, x, hx, cots):
     return fwd_ms, bwd_ms
 
 
-def cudnn_lstm_ms(args, cots):
-    """cuDNN's one-layer LSTM with K7's weights (``cudnn_ms``)."""
+def cudnn_lstm_ms(args, cots, dtype=torch.float32):
+    """cuDNN's one-layer LSTM with K7's weights (``cudnn_ms``), in
+    ``dtype`` (bf16: the yardstick of K7's bf16 mode)."""
     x, w_ih_t, b_sum, w_hh_t, h0, c0 = args
     lstm = torch.nn.LSTM(x.shape[-1], h0.shape[-1], batch_first=True).to(
         x.device)
@@ -813,14 +861,16 @@ def cudnn_lstm_ms(args, cots):
         lstm.weight_hh_l0.copy_(w_hh_t.T)
         lstm.bias_ih_l0.copy_(b_sum)
         lstm.bias_hh_l0.zero_()
-    return cudnn_ms(lstm, x.clone().requires_grad_(), (h0[None], c0[None]),
-                    (cots[0], cots[1][None], cots[2][None]))
+    return cudnn_ms(lstm.to(dtype), x.to(dtype).clone().requires_grad_(),
+                    (h0[None].to(dtype), c0[None].to(dtype)),
+                    tuple(c.to(dtype) for c in (cots[0], cots[1][None],
+                                                 cots[2][None])))
 
 
-def cudnn_stacked_ms(args, cots):
-    """cuDNN's L-layer LSTM with K9's recurrent weights (``cudnn_ms``).
-    It also computes layer 0's input product, from an input x (B, T, H)
-    standing in for the precomputed xw0 the kernels take."""
+def cudnn_stacked_ms(args, cots, dtype=torch.float32):
+    """cuDNN's L-layer LSTM with K9's recurrent weights (``cudnn_ms``), in
+    ``dtype``. It also computes layer 0's input product, from an input x
+    (B, T, H) standing in for the precomputed xw0 the kernels take."""
     xw0, w_ih_t, b_rest, w_hh_t, h0, c0 = args
     layers, _, h = h0.shape
     lstm = torch.nn.LSTM(h, h, num_layers=layers, batch_first=True).to(
@@ -832,8 +882,9 @@ def cudnn_stacked_ms(args, cots):
             if k:
                 getattr(lstm, f"weight_ih_l{k}").copy_(w_ih_t[k - 1].T)
                 getattr(lstm, f"bias_ih_l{k}").copy_(b_rest[k - 1])
-    x = xw0[:, :, :h].contiguous().requires_grad_()
-    return cudnn_ms(lstm, x, (h0, c0), cots)
+    x = xw0[:, :, :h].to(dtype).contiguous().requires_grad_()
+    return cudnn_ms(lstm.to(dtype), x, (h0.to(dtype), c0.to(dtype)),
+                    tuple(c.to(dtype) for c in cots))
 
 
 def cudnn_gru_ms(args, cots=None):
@@ -1264,8 +1315,10 @@ def spec_step_fns(spec, model, optim):
     model_cfg = {**spec["cfg"], **spec["loss"]}
     if spec.get("windowed"):
         return windowed_step_fns(model, model_cfg, spec["metrics"], opt)
-    return streaming_step_fns(model, model_cfg, spec["metrics"], opt,
-                              mask_self_motion_input=spec["mask_self"])
+    return streaming_step_fns(
+        model, model_cfg, spec["metrics"], opt,
+        mask_self_motion_input=spec["mask_self"],
+        compute_dtype=spec.get("compute_dtype", torch.float32))
 
 
 def spec_model(spec, device):
@@ -1357,12 +1410,14 @@ def train_path_phase(mods, dev, rng, spec):
     log(tag, card_vs_cpu_loss_rel_err=f"{loss_rel:.3e}",
         card_vs_cpu_grad_max_rel_err=f"{worst:.3e}", worst=worst_name,
         loss_card=f"{float(loss_card):.7f}", loss_cpu=f"{float(loss_cpu):.7f}")
-    if not loss_rel <= LOSS_REL_TOL:
+    loss_tol, grad_tol = spec.get("card_vs_cpu_tol",
+                                  (LOSS_REL_TOL, GRAD_REL_TOL))
+    if not loss_rel <= loss_tol:
         raise AssertionError(
-            f"{tag} card vs CPU loss: {loss_rel} > {LOSS_REL_TOL}")
-    if not worst <= GRAD_REL_TOL:
+            f"{tag} card vs CPU loss: {loss_rel} > {loss_tol}")
+    if not worst <= grad_tol:
         raise AssertionError(f"{tag} card vs CPU gradient of {worst_name}: "
-                             f"{worst} > {GRAD_REL_TOL}")
+                             f"{worst} > {grad_tol}")
     return {"launches": launches, "record": {
         "batch": batch_size, "frames": frames, "steps": TRAIN_STEPS,
         "ms": step_ms, "frames_per_s": frames_per_s, "losses": losses,
@@ -2201,7 +2256,8 @@ def generation_phase(mods, dev, rng, spec):
     function and the launches of one generation), with the full mask on
     3 batches of 16 x 250 frames (lead 12): shape, finite, launches per
     generation, time; one more generation under ``torch.profiler`` (the
-    busy share into the record, the table into ``_build/``); then a
+    busy share into the record, the table into ``_build/``; of the first
+    ``profile_frames`` frames where the spec names them); then a
     teacher-forced f32 generation at batch 2 against the same weights and
     inputs on CPU tensors (the all-plain path): <= 1e-4."""
     from multimodalreactiongeneration_tpu_torch.infer.generate import (
@@ -2239,8 +2295,14 @@ def generation_phase(mods, dev, rng, spec):
     frames_per_s = B * FRAMES / (gen_ms / 1000)
     log(f"{tag}_generate", ms_per_generation=f"{gen_ms:.3f}",
         frames_per_s=f"{frames_per_s:.1f}", launches=launches)
-    busy, _ = profile_step(lambda bd: generate(model, bd, full), batches[0],
-                        f"profile_{tag}_generation.txt")
+    pf = spec.get("profile_frames", FRAMES)
+    first = batches[0]
+    cut = [first[0][:, :pf * RATIO], first[1][:, :pf], first[2][:, :pf],
+           *first[3:6], first[6][:, :pf]]
+    busy, _ = profile_step(
+        lambda bd: generate(model, bd,
+                            sampling_mask_for(pf, "full", device=dev)),
+        cut, f"profile_{tag}_generation.txt")
 
     small = make_batch(rng, 2)
     teacher = sampling_mask_for(FRAMES, "teacher")
@@ -2320,8 +2382,11 @@ def gru_generation_spec():
         Metaformer,
     )
 
+    # its host-driven steps give the profiler ~10^5 events a frame: the
+    # profiled generation is the first 64 frames (250 took ~140 s, most
+    # of it the profiler's own processing)
     return dict(
-        tag="gru", generate=generate_metaformer,
+        tag="gru", generate=generate_metaformer, profile_frames=64,
         per_generation=dict(gru_fwd=10), f32=dict(cache_dtype=torch.float32),
         model=lambda device: Metaformer(
             LSTMFORMER_GRU_MODEL_CFG,
@@ -3073,6 +3138,254 @@ def train_options_phases(mods, dev):
     return {k: run() for k, run in phases.items()}
 
 
+def bound_bf16(flops, bytes_):
+    """(ms, "operations" or "bytes") of a bf16 mode: its products as bf16
+    tensor-core operations at 989 TFLOP/s (dense), or its bytes (each
+    input read once, each output written once) at 3.35 TB/s."""
+    t_ops = flops / PEAK_BF16 * 1e3
+    t_bytes = bytes_ / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bf16_check(name, outs, grads, want_outs, want_grads, ys_f32, short,
+               **kv):
+    """A bf16 mode's outputs and gradients against its plain bf16
+    version's: within ``BF16_SHORT_TOL`` at a short T and
+    ``BF16_FULL_TOL`` over the full length (forward abs; the f32 and the
+    bf16 gradients relative to their largest magnitude); each gradient in
+    its input's dtype; and the kernel's ys on average at most
+    ``BF16_MODE_FRAC`` as far from the plain bf16 ys as the plain f32 ys
+    is (a kernel that took f32 operands would not be). Returns the
+    errors."""
+    for i, (g, w) in enumerate(zip(grads, want_grads)):
+        if g.dtype != w.dtype:
+            raise AssertionError(f"{name} {kv}: gradient {i} is {g.dtype}, "
+                                 f"the plain version's {w.dtype}")
+    pairs = {dt: [(g.float(), w.float()) for g, w in zip(grads, want_grads)
+                  if (g.dtype == torch.bfloat16) == (dt == "bf16")]
+             for dt in ("f32", "bf16")}
+    fwd = max_err(outs, want_outs)
+    mean_gap = lambda a, b: float((a.detach().float() - b).abs().mean())
+    gap = mean_gap(ys_f32[0], want_outs[0])
+    ys_err = mean_gap(outs[0], want_outs[0])
+    tol = BF16_SHORT_TOL if short else BF16_FULL_TOL
+    g32, g16 = (rel_err(*zip(*pairs[dt])) for dt in ("f32", "bf16"))
+    log(name, fwd_max_abs_err=f"{fwd:.3e}", grad_f32_max_rel_err=f"{g32:.3e}",
+        grad_bf16_max_rel_err=f"{g16:.3e}", ys_mean_abs_err=f"{ys_err:.3e}",
+        plain_f32_vs_bf16_ys_mean=f"{gap:.3e}", **kv)
+    if not (fwd <= tol[0] and g32 <= tol[1] and g16 <= tol[2]):
+        raise AssertionError(f"{name} {kv}: errors {fwd}, {g32}, {g16} "
+                             f"beyond {tol}")
+    if not ys_err <= BF16_MODE_FRAC * gap:
+        raise AssertionError(f"{name} {kv}: ys {ys_err} from the plain bf16 "
+                             f"version, the plain f32 one {gap}")
+    return dict(fwd_max_abs_err=fwd, grad_f32_max_rel_err=g32,
+                grad_bf16_max_rel_err=g16,
+                grad_max_abs_err=max_err(grads, want_grads),
+                ys_mean_abs_err=ys_err, plain_f32_vs_bf16_ys_mean=gap)
+
+
+def bf16_case(name, mod, key, call, fwd, bwd, plain, plain_bwd, args, cots,
+              flops, library, **shape):
+    """One shape of a bf16 mode (phase 29): the wrapper as the model calls
+    it (no gradient: the forward without residuals; with one, the forward
+    with residuals, then the backward) vs the plain bf16 version
+    (``bf16_check``); then, in turns (bf16, f32, f32, bf16), the bf16
+    kernel and the f32 kernel on the same values converted (exactly) to
+    f32, forward without and with residuals and backward, ms each (mean
+    of 5 after a warm-up); the plain bf16 version's ms, cuDNN's in bf16,
+    the bounds. fwd(args, residuals) and bwd(args, fwd's outputs) call
+    the kernels' wrappers."""
+    b, t = shape["B"], shape["T"]
+    call0 = call(*args)
+    leaves = [a.clone().requires_grad_() for a in args]
+    ys, (hn, cn) = call(*leaves)
+    grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
+    outs = (call0[0], *call0[1], ys.detach(), hn.detach(), cn.detach())
+    del leaves, ys, hn, cn, call0
+    with torch.no_grad():
+        plain_fwd_ms, (ysr, (hr, cr)) = cuda_ms(lambda: plain(*args), 1)
+        ys32 = plain(*[a.float() for a in args])[0]
+    plain_bwd_ms, want = cuda_ms(plain_bwd(args, *cots, closure=True), 1)
+    errs = bf16_check(name, outs, grads, (ysr, hr, cr) * 2, want, (ys32,),
+                      short=t <= BF16_SHORT_T, **shape)
+    del ysr, hr, cr, want, ys32, outs
+    args32 = [a.float() for a in args]
+    runs = {}
+    for mode in ("bf16", "f32", "f32", "bf16"):
+        a = args if mode == "bf16" else args32
+        out = fwd(a, True)
+        runs.setdefault(mode, []).append(dict(
+            fwd_ms=cuda_ms(lambda: fwd(a, False), 5)[0],
+            fwd_res_ms=cuda_ms(lambda: fwd(a, True), 5)[0],
+            bwd_ms=cuda_ms(lambda: bwd(a, out), 5)[0]))
+        del out
+    times = {k: {m: float(np.mean([r[m] for r in v])) for m in v[0]}
+             for k, v in runs.items()}
+    out = fwd(args, True)
+    fwd_bound = bound_bf16(flops[0], nbytes(args, out))
+    fwd_nores_bound = bound_bf16(flops[0], nbytes(args, out[:3]))
+    bwd_bound = bound_bf16(flops[1], nbytes(args, out, cots, grads))
+    del out
+    lib_fwd_ms, lib_bwd_ms = library(args, cots, torch.bfloat16)
+    rows = tuple(mod.rows_for(args[0].device, key, bw, b, bf16=True)
+                 for bw in (False, True))
+    resident = {d: mod.layout(0, key, d == "backward", True)[0]
+                for d in ("forward", "backward")}
+    log(name, **shape, rows=rows, resident=resident,
+        bf16=fmt(times["bf16"]), f32_kernel=fmt(times["f32"]),
+        plain_fwd_ms=f"{plain_fwd_ms:.3f}", plain_bwd_ms=f"{plain_bwd_ms:.3f}",
+        library_bf16_fwd_ms=f"{lib_fwd_ms:.3f}",
+        library_bf16_bwd_ms=f"{lib_bwd_ms:.3f}",
+        fwd_bound_ms=f"{fwd_bound[0]:.3f}", bwd_bound_ms=f"{bwd_bound[0]:.3f}")
+    return dict(**shape, rows=rows, resident_clusters=resident, **errs,
+                **times["bf16"], f32_kernel=times["f32"],
+                plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
+                library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms,
+                fwd_bound=fwd_bound, fwd_no_residual_bound=fwd_nores_bound,
+                bwd_bound=bwd_bound)
+
+
+def bf16_kernel_phase(mods, dev, rng):
+    """29. The bf16 modes of K7 and K9 at lstm_with_sampling's shapes, in
+    training: K7 at B256 x T140, 256 -> 256 (a layered block), K9 at H128
+    x L2, B256 x T1120 (the sampler), each also at T16 (``bf16_case``)."""
+    K7, K9 = mods["K7"], mods["K9"]
+    bf = torch.bfloat16
+    r = seeded(rng, dev)
+    k7, k9 = [], []
+    din = h = 256
+    for t in (LEAD + LWS_FRAMES, BF16_SHORT_T):
+        b = LWS_B
+        args = (r(b, t, din).to(bf), r(din, 4 * h, s=0.06).to(bf),
+                r(4 * h, s=0.06), r(h, 4 * h, s=0.06).to(bf), r(b, h, s=0.3),
+                r(b, h, s=0.3))
+        cots = (r(b, t, h), r(b, h), r(b, h))
+        # x.W_ih and h.W_hh: 2 B T 4H (din + H); the backward: the chain's
+        # dgates.W_hh^T, 2 B T 4H H, and dW_ih, dW_hh and dx, 2 B T 4H
+        # (2 din + H)
+        k7.append(bf16_case(
+            "lstm_layer_bf16", K7, h, K7.lstm_layer,
+            lambda a, res: K7.lstm_layer_forward(a, res),
+            lambda a, out, c=cots: K7.lstm_layer_backward(
+                a, out[0], out[3], out[4], *c),
+            K7.lstm_layer_reference, K7.lstm_layer_backward_reference, args,
+            cots, (8 * b * t * h * (din + h), 8 * b * t * h * (2 * din + 2 * h)),
+            cudnn_lstm_ms, B=b, T=t, din=din, H=h))
+        del args, cots
+    h, layers = 128, 2
+    for t in ((LEAD + LWS_FRAMES) * RATIO, 2 * BF16_SHORT_T):
+        b = LWS_B
+        args = (r(b, t, 4 * h), r(layers - 1, h, 4 * h, s=0.06).to(bf),
+                r(layers - 1, 4 * h, s=0.06),
+                r(layers, h, 4 * h, s=0.06).to(bf), r(layers, b, h, s=0.3),
+                r(layers, b, h, s=0.3))
+        cots = (r(b, t, h), r(layers, b, h), r(layers, b, h))
+        flops = 2 * b * t * 4 * h * h * (2 * layers - 1)
+        k9.append(bf16_case(
+            "lstm_stacked_bf16", K9, layers, K9.lstm_stacked_recurrence,
+            lambda a, res: K9.lstm_stacked_forward(a, res),
+            lambda a, out, c=cots: K9.lstm_stacked_backward(
+                a[1:], out[0], *out[3:], *c),
+            K9.lstm_stacked_reference, K9.lstm_stacked_backward_reference,
+            args, cots, (flops, 2 * flops), cudnn_stacked_ms, B=b, T=t, L=layers,
+            H=h))
+        del args, cots
+    return k7, k9
+
+
+def lws_bf16_train_spec():
+    """lstm_with_sampling's bf16 step (``trainer.precision: bf16``): per
+    step the bf16 modes, K9 +1 / +1 and K7 +2 / +2; the eval step in f32,
+    K9 +1 and K7 forward +2; the card against CPU tensors within
+    ``BF16_CARD_CPU_TOL``."""
+    spec = lws_train_spec()
+    spec.update(
+        tag="lws_bf16_train_step", eval_tag="lws_bf16_eval_step",
+        compute_dtype=torch.bfloat16,
+        per_step=dict(lstm_stacked_bf16_fwd=1, lstm_stacked_bf16_bwd=1,
+                      lstm_layer_bf16_fwd=2, lstm_layer_bf16_bwd=2),
+        per_eval=dict(lstm_stacked_fwd=1, lstm_layer_fwd=2),
+        profile="profile_lws_bf16_train_step.txt",
+        card_vs_cpu_tol=BF16_CARD_CPU_TOL)
+    return spec
+
+
+def bf16_step_phase(mods, dev, rng):
+    """30. The bf16 training step of lstm_with_sampling as phase 12 runs
+    the f32 one (``lws_bf16_train_spec``); then, from one model's weights
+    on one batch, the bf16 step's loss against the f32 step's, within
+    ``BF16_LOSS_REL_TOL``, the parameters f32 after both."""
+    spec = lws_bf16_train_spec()
+    step = train_path_phase(mods, dev, rng, spec)
+    batch = spec_batch(spec, rng, spec["batch"], dev)
+    losses = {}
+    for name, s in (("f32", lws_train_spec()), ("bf16", spec)):
+        model = spec_model(s, dev)
+        losses[name] = float(spec_step_fns(s, model, s["optim"])[0](
+            batch)[0])
+        dtypes = {p.dtype for p in model.parameters()}
+        if dtypes != {torch.float32}:
+            raise AssertionError(f"{name} step: parameters {dtypes}")
+        del model
+    rel = abs(losses["bf16"] - losses["f32"]) / abs(losses["f32"])
+    log("lws_bf16_vs_f32_step", loss_f32=f"{losses['f32']:.7f}",
+        loss_bf16=f"{losses['bf16']:.7f}", rel_err=f"{rel:.3e}")
+    if not rel <= BF16_LOSS_REL_TOL:
+        raise AssertionError(f"bf16 step loss {losses['bf16']} vs f32 "
+                             f"{losses['f32']}: {rel} > {BF16_LOSS_REL_TOL}")
+    step["record"]["loss_vs_f32_step"] = dict(losses, rel_err=rel)
+    return step
+
+
+def lws_bf16_cli_launches(launches, steps):
+    """``trainer.precision=bf16``: every train step the bf16 modes, K9 +1
+    / +1 and K7 +2 / +2; every validation batch in f32, an eval step (K9
+    +1, K7 forward +2) and a generation (K9 +1)."""
+    n_eval = launches["lstm_layer_fwd"] // 2
+    want = {k: 0 for k in COUNTERS}
+    want.update(lstm_stacked_bf16_fwd=steps, lstm_stacked_bf16_bwd=steps,
+                lstm_layer_bf16_fwd=2 * steps, lstm_layer_bf16_bwd=2 * steps,
+                lstm_stacked_fwd=2 * n_eval, lstm_layer_fwd=2 * n_eval)
+    if launches != want:
+        raise AssertionError(f"lws bf16 cli launches {launches}, want {want}")
+    return n_eval
+
+
+def bf16_records(k7, k9, launches, **more_launches):
+    """The JSON entries of the bf16 modes of K7 and K9: launches from the
+    bf16 lws CLI run, the train step's beside them; the main case the
+    full length; cuDNN's LSTM in bf16 the yardstick; the f32 kernel's ms
+    on the same values beside."""
+    records = []
+    for cases, name, src, fwd_at, bwd_at in (
+            (k7, "lstm_layer_bf16", "lstm_layer.cu", "pallas_lstm.py:390",
+             "pallas_lstm.py:448"),
+            (k9, "lstm_stacked_bf16", "lstm_stacked.cu",
+             "pallas_lstm_stacked.py:154", "pallas_lstm_stacked.py:317")):
+        main = cases[0]
+        keys = (f"{name}_fwd", f"{name}_bwd")
+        extra = {f"launches_{k}": {n: v[n] for n in keys}
+                 for k, v in more_launches.items()}
+        records += [
+            kernel_record(
+                keys[0], src, fwd_at, launches[keys[0]],
+                max(c["fwd_max_abs_err"] for c in cases),
+                main["fwd_res_ms"], main["plain_fwd_ms"], main["fwd_bound"],
+                main["library_fwd_ms"], no_residual_ms=main["fwd_ms"],
+                no_residual_bound_ms=main["fwd_no_residual_bound"][0],
+                f32_kernel_ms=main["f32_kernel"]["fwd_res_ms"],
+                dtype="bf16", cases=cases, **extra),
+            kernel_record(
+                keys[1], src, bwd_at, launches[keys[1]],
+                max(c["grad_max_abs_err"] for c in cases), main["bwd_ms"],
+                main["plain_bwd_ms"], main["bwd_bound"],
+                main["library_bwd_ms"],
+                f32_kernel_ms=main["f32_kernel"]["bwd_ms"], dtype="bf16"),
+        ]
+    return records
+
+
 def recurrence_records(cases, launches, **more_launches):
     """The JSON entries of K8's forward and backward: the main case is a
     simple_lstm acoustic direction (B256 x T120 x H128); launches from the
@@ -3371,6 +3684,16 @@ def main():
              for r in lws_ss_cli["record"]["epochs"]]
     if rates != [0.0, 0.5]:  # epoch / model.max_epochs (1, then 2)
         raise AssertionError(f"lws ss cli scheduled_sampling_rate {rates}")
+    lws_bf16_cli = cli_phase(mods, run, "configs/lstm_with_sampling.yaml",
+                             "lws_bf16_cli", ["exp.batch_size=32",
+                                              "trainer.precision=bf16"],
+                             lws_bf16_cli_launches)
+    saved = torch.load(run / "ckpt_lws_bf16_cli" / "smoke" / "last",
+                       weights_only=True)
+    dtypes = sorted({str(v.dtype) for v in saved["params"].values()})
+    log("lws_bf16_cli", checkpoint_param_dtypes=dtypes)
+    if dtypes != ["torch.float32"]:
+        raise AssertionError(f"bf16 cli checkpoint holds {dtypes}")
 
     # ---- 14.-17. the GRU Metaformer: K10, generation, step, CLI ---------
     gru = gru_phase(K10, dev, rng)
@@ -3409,6 +3732,11 @@ def main():
     k8_launches = {k: sum(v[k] for v in k8_runs.values())
                    for k in ("lstm_recurrence_fwd", "lstm_recurrence_bwd")}
 
+    # ---- 29.-30. bf16 training of lstm_with_sampling -------------------
+    bf16_k7, bf16_k9 = bf16_kernel_phase(
+        mods, dev, np.random.default_rng(SEED + 29))
+    bf16_step = bf16_step_phase(mods, dev, np.random.default_rng(SEED + 30))
+
     k1_main, k2_main = k1_cases[0], k2_cases[1]
     # no single PyTorch call computes the encoder stack or the rollout
     record = {"kernels": [
@@ -3439,6 +3767,8 @@ def main():
                      generation=gru_gen["launches"],
                      train_step=gru_step["launches"]),
         *recurrence_records(recurrence, k8_launches, **k8_runs),
+        *bf16_records(bf16_k7, bf16_k9, lws_bf16_cli["launches"],
+                      train_step=bf16_step["launches"]),
     ], "generation": {"batch": B, "frames": FRAMES, "ms": gen_ms,
                       "frames_per_s": B * FRAMES / (gen_ms / 1000),
                       "stack_schedule_ab": {"ms": gen_ab,
@@ -3462,6 +3792,10 @@ def main():
         "train_options": {k: v["record"] for k, v in options.items()},
         "dropout_cli": dropout_cli["record"],
         "lws_ss_cli": lws_ss_cli["record"],
+        "lws_bf16_cli": lws_bf16_cli["record"],
+        "lws_bf16_train_step": dict(
+            bf16_step["record"], f32_ms=lws_step["record"]["ms"],
+            f32_peak_mem_gib=lws_step["record"]["peak_mem_gib"]),
         "seconds": time.perf_counter() - t_start}
     options = dict(options, dropout_cli=dropout_cli, lws_ss_cli=lws_ss_cli)
     for entry in record["kernels"]:  # the training options' launches

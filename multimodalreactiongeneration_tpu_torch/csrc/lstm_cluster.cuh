@@ -16,13 +16,21 @@
 //
 // Numerics: FP32 throughout (no tensor cores, so no TF32 rounding);
 // LayerNorm in the fast-variance form E[x^2] - mean^2, eps 1e-5; gate
-// order i, f, g, o.
+// order i, f, g, o. The recurrence also has a bf16 operand mode (TW =
+// __nv_bfloat16, K7's bf16 instantiation): W_hh's slice is kept in
+// shared memory as bf16 (half the bytes), h is rounded to bf16 where it
+// enters the product (the exchanged copy; the state and the outputs stay
+// FP32), and the product sums in FP32, as the JAX kernels' bf16 mode
+// (ops/lstm_bf16.py).
 
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -165,10 +173,27 @@ __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// R batch rows per cluster (16, 24 or 32)
-size_t lstm_smem_bytes(int H, int R) {
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+// x as it enters a product with weights of type TW: rounded to bf16
+// (to nearest, ties to even) in the bf16 mode, as it is in FP32
+template <typename TW>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (std::is_same_v<TW, bf16>)
+    return __bfloat162float(__float2bfloat16(x));
+  else
+    return x;
+}
+
+// R batch rows per cluster (16, 24 or 32); wbytes: bytes of a weight
+// (4 FP32, 2 bf16)
+size_t lstm_smem_bytes(int H, int R, int wbytes = 4) {
   const int nc = H / 2;  // 4 gates x H/8 units
-  return sizeof(float) * ((size_t)H * nc + 2 * (size_t)R * H + (size_t)R * nc);
+  return (size_t)wbytes * H * nc +
+         sizeof(float) * (2 * (size_t)R * H + (size_t)R * nc);
 }
 
 // acts (B, T, 4H) and cs (B, T, H) are the training residuals: the gate
@@ -179,10 +204,11 @@ size_t lstm_smem_bytes(int H, int R) {
 // cells for the whole sequence. A step's xw loads are issued before its
 // product, which hides them (loading them a step ahead measured slower).
 // WINDOW runs the n steps t0 .. t0+n-1 of the (B, T) planes rnn, acts
-// and cs from xw laid out (B, n, 4H); without it t0 = 0, n = T.
-template <int R, bool WINDOW>
+// and cs from xw laid out (B, n, 4H); without it t0 = 0, n = T. TW: the
+// weights' type (bf16: the operand mode above).
+template <int R, bool WINDOW, typename TW = float>
 __device__ __forceinline__ void lstm_cluster_steps(
-    const float* __restrict__ xw, const float* __restrict__ w_hh_t,
+    const float* __restrict__ xw, const TW* __restrict__ w_hh_t,
     const float* __restrict__ h0, const float* __restrict__ c0,
     float* __restrict__ rnn, float* __restrict__ hn, float* __restrict__ cn,
     float* __restrict__ acts, float* __restrict__ cs, int B, int T, int H,
@@ -200,9 +226,9 @@ __device__ __forceinline__ void lstm_cluster_steps(
   const size_t G = 4 * (size_t)H;
 
   extern __shared__ __align__(16) float smem[];
-  float* Ws = smem;                  // [H][NC]
-  float* hbuf = Ws + H * NC;         // [2][R][H]
-  float* gsm = hbuf + 2 * R * H;     // [R][NC]
+  TW* Ws = reinterpret_cast<TW*>(smem);                 // [H][NC]
+  float* hbuf = reinterpret_cast<float*>(Ws + H * NC);  // [2][R][H]
+  float* gsm = hbuf + 2 * R * H;                        // [R][NC]
 
   // local column lc = g*U + u  <->  global gate column g*H + rank*U + u
   for (int i = tid; i < H * NC; i += NT) {
@@ -210,13 +236,15 @@ __device__ __forceinline__ void lstm_cluster_steps(
     const int g = lc / U, u = lc % U;
     Ws[i] = w_hh_t[(size_t)k * 4 * H + g * H + rank * U + u];
   }
+  // hbuf holds h as the product takes it (operand<TW>); the state h of a
+  // thread's own cells stays in hreg
   for (int i = tid; i < R * H; i += NT) {
     const int b = b0 + i / H;
-    hbuf[i] = (b < B) ? h0[(size_t)b * H + i % H] : 0.f;
+    hbuf[i] = operand<TW>((b < B) ? h0[(size_t)b * H + i % H] : 0.f);
   }
   // own_in: the cell exists; own_ok: and its row is a batch row (rows
   // past B run on zeros and are never stored)
-  float creg[MC];
+  float creg[MC], hreg[MC];
   int own_r[MC], own_u[MC];
   bool own_in[MC], own_ok[MC];
 #pragma unroll
@@ -228,6 +256,8 @@ __device__ __forceinline__ void lstm_cluster_steps(
     own_ok[j] = own_in[j] && b0 + own_r[j] < B;
     creg[j] = own_ok[j]
         ? c0[(size_t)(b0 + own_r[j]) * H + rank * U + own_u[j]] : 0.f;
+    hreg[j] = own_ok[j]
+        ? h0[(size_t)(b0 + own_r[j]) * H + rank * U + own_u[j]] : 0.f;
   }
   auto load_xw = [&](int t, float (&x)[MC][4]) {
 #pragma unroll
@@ -263,8 +293,8 @@ __device__ __forceinline__ void lstm_cluster_steps(
         hv[i] = *reinterpret_cast<const float4*>(&hcur[(rg * RG + i) * H + k]);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const float w0 = Ws[(k + kk) * NC + cl];
-        const float w1 = col2 ? Ws[(k + kk) * NC + cl + 64] : 0.f;
+        const float w0 = to_f(Ws[(k + kk) * NC + cl]);
+        const float w1 = col2 ? to_f(Ws[(k + kk) * NC + cl + 64]) : 0.f;
 #pragma unroll
         for (int i = 0; i < RG; ++i) {
           const float hk = kk == 0 ? hv[i].x
@@ -295,9 +325,12 @@ __device__ __forceinline__ void lstm_cluster_steps(
       const float c = gf * creg[j] + gi * gg;
       const float h = go * tanhf(c);
       creg[j] = c;
+      hreg[j] = h;
       const int slot = nxt_off + r * H + rank * U + u;
+      const float hop = operand<TW>(h);
 #pragma unroll
-      for (int q = 0; q < CL; ++q) cluster.map_shared_rank(hbuf, q)[slot] = h;
+      for (int q = 0; q < CL; ++q)
+        cluster.map_shared_rank(hbuf, q)[slot] = hop;
       if (own_ok[j]) {
         const size_t row = (size_t)(b0 + r) * T + tb + t;
         const int col = rank * U + u;
@@ -315,25 +348,24 @@ __device__ __forceinline__ void lstm_cluster_steps(
     cluster.sync();
   }
 
-  const float* hlast = hbuf + (steps & 1) * R * H;
 #pragma unroll
   for (int j = 0; j < MC; ++j) {
     if (!own_ok[j]) continue;
     const size_t o = (size_t)(b0 + own_r[j]) * H + rank * U + own_u[j];
-    hn[o] = hlast[own_r[j] * H + rank * U + own_u[j]];
+    hn[o] = hreg[j];
     cn[o] = creg[j];
   }
 }
 
 // The whole sequence: xw (B, T, 4H); rnn (B, T, H); h0, c0, hn, cn (B, H)
-template <int R>
+template <int R, typename TW = float>
 __global__ void __launch_bounds__(NT, 1) lstm_cluster_kernel(
-    const float* __restrict__ xw, const float* __restrict__ w_hh_t,
+    const float* __restrict__ xw, const TW* __restrict__ w_hh_t,
     const float* __restrict__ h0, const float* __restrict__ c0,
     float* __restrict__ rnn, float* __restrict__ hn, float* __restrict__ cn,
     float* __restrict__ acts, float* __restrict__ cs, int B, int T, int H) {
-  lstm_cluster_steps<R, false>(xw, w_hh_t, h0, c0, rnn, hn, cn, acts, cs, B,
-                               T, H, 0, T);
+  lstm_cluster_steps<R, false, TW>(xw, w_hh_t, h0, c0, rnn, hn, cn, acts, cs,
+                                   B, T, H, 0, T);
 }
 
 // A window of n steps from step t0 (the encoder stack's chunks): xw (B,

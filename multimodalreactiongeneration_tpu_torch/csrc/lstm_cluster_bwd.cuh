@@ -36,6 +36,10 @@
 // (CL, B, H): the next window sums dy + slot 0 + ... + slot 7 in the
 // order a step inside one window does, so every window length gives the
 // same bits.
+// The bf16 operand mode (TW = __nv_bfloat16, K7's bf16 instantiation)
+// keeps W_hh's slice as bf16 and rounds each step's dgates to bf16 where
+// they enter the dh_carry product (the dgates written out stay FP32),
+// with FP32 sums, as the JAX kernels' bf16 mode (ops/lstm_bf16.py).
 
 #pragma once
 
@@ -50,12 +54,12 @@ constexpr size_t PART_FLOATS = (size_t)1 << 22;   // A^T B partial tiles
 constexpr size_t CPART_FLOATS = (size_t)1 << 18;  // column-sum partials
 constexpr int SPLIT_TARGET_BLOCKS = 1024;
 
-// R batch rows per cluster (16, 24 or 32)
-size_t lstm_bwd_smem_bytes(int H, int R) {
+// R batch rows per cluster (16, 24 or 32); wbytes: bytes of a weight
+size_t lstm_bwd_smem_bytes(int H, int R, int wbytes = 4) {
   const int nc = H / 2;
   const int u = H / CL;
-  return sizeof(float) *
-         ((size_t)nc * H + (size_t)nc * R + 2 * (size_t)CL * R * u);
+  return (size_t)wbytes * nc * H +
+         sizeof(float) * ((size_t)nc * R + 2 * (size_t)CL * R * u);
 }
 
 // What a reverse step of one (row, unit) cell reads besides the chain:
@@ -106,14 +110,15 @@ __device__ __forceinline__ void cell_bwd(const StepIn& in, float dh,
 // and dgates (B, n, 4H) are laid out by the steps run. The state after
 // the steps run is dhn, dcn (B, H), or with dhn_parts (CL, B, H) not null
 // the dh_carry slots of the window after; the state before them goes to
-// dh0, dc0, or its slots to dh0_parts where that is not null.
-template <int R>
+// dh0, dc0, or its slots to dh0_parts where that is not null. TW: the
+// weights' type (bf16: the operand mode above).
+template <int R, typename TW = float>
 __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
     const float* __restrict__ acts,    // (B, T, 4H) i, f, g, o
     const float* __restrict__ cs,      // (B, T, H) cell states
     const float* __restrict__ c0,      // (B, H)
     const float* __restrict__ dys,     // (B, n, H) cotangent of h_t
-    const float* __restrict__ w_hh_t,  // (H, 4H)
+    const TW* __restrict__ w_hh_t,     // (H, 4H)
     const float* __restrict__ dhn,     // (B, H)
     const float* __restrict__ dcn,     // (B, H)
     const float* __restrict__ dhn_parts,  // (CL, B, H) or null
@@ -134,8 +139,10 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
   const int tl = t0 + n - 1;  // the first step run
 
   extern __shared__ __align__(16) float smem[];
-  float* WsT = smem;              // [NC][H]: WsT[lc][k] = W_hh^T[k][col(lc)]
-  float* dg = WsT + NC * H;       // [NC][R] this step's dgates slice
+  // WsT[lc][k] = W_hh^T[k][col(lc)]
+  TW* WsT = reinterpret_cast<TW*>(smem);               // [NC][H]
+  float* dg = reinterpret_cast<float*>(WsT + NC * H);  // [NC][R] dgates
+  // (as the product takes them: operand<TW>)
   float* red = dg + NC * R;       // [2][CL][R][U] partial dh_carry slots
   const int slot = R * U;
 
@@ -197,7 +204,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
         o[3 * H] = d[3];
       }
 #pragma unroll
-      for (int g = 0; g < 4; ++g) dg[(g * U + u) * R + r] = d[g];
+      for (int g = 0; g < 4; ++g) dg[(g * U + u) * R + r] = operand<TW>(d[g]);
     }
     __syncthreads();
 
@@ -206,7 +213,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = 0.f;
       for (int lc = 0; lc < NC; ++lc) {
-        const float w = WsT[lc * H + tid];
+        const float w = to_f(WsT[lc * H + tid]);
         const float4* d4 = reinterpret_cast<const float4*>(dg + lc * R);
 #pragma unroll
         for (int q = 0; q < R / 4; ++q) {

@@ -5,6 +5,8 @@
 //   lstm_layer_forward_f32, residuals on    _fwd_kernel_acts   (_layer_vjp_fwd)
 //   lstm_layer_forward_f32, residuals off   _fwd_kernel        (the primal)
 //   lstm_layer_backward_f32                 _bwd_kernel_layer  (_layer_vjp_bwd)
+// and the same three in JAX's bf16 operand mode (bf16 x, W_ih and W_hh):
+//   lstm_layer_forward_bf16, lstm_layer_backward_bf16
 //
 // Forward. As in JAX, whose Pallas call takes xw = x W_ih^T + b from
 // XLA, the wrapper (ops/lstm_layer.py) computes xw with one FP32
@@ -37,49 +39,85 @@
 // an (R x H) x (H x H/2) FP32 product per CTA; the FLOP bound of the
 // whole layer at 67 TFLOP/s is far below it. The per-step products on the
 // tensor cores are later work.
+//
+// The bf16 operand mode. The wrapper computes xw in FP32 from x and W_ih
+// converted exactly (JAX's f32 einsum of bf16 operands). The chains are
+// the same kernels instantiated on bf16 weights (lstm_cluster.cuh,
+// lstm_cluster_bwd.cuh): W_hh's slice held as bf16 (the CTA needs 64 KB
+// less at H256), h and the backward's dgates rounded to bf16 at the
+// product, FP32 state and sums. dx, dW_ih and dW_hh take bf16 operands
+// in one mma.sync.m16n8k16 pass each (bf16_gemm.cuh) where the FP32 mode
+// takes three TF32 passes; dW and dx come back bf16, db FP32 from the
+// unrounded dgates.
 
+#include "bf16_gemm.cuh"
 #include "tc_gemm.cuh"
 
 namespace {
 
-using LayerFwd = decltype(&lstm_cluster_kernel<BT>);
-using LayerBwd = decltype(&lstm_cluster_bwd_kernel<BT>);
+template <typename TW>
+using LayerFwd = decltype(&lstm_cluster_kernel<BT, TW>);
+template <typename TW>
+using LayerBwd = decltype(&lstm_cluster_bwd_kernel<BT, TW>);
 
-LayerFwd layer_fwd(int R) {
+template <typename TW>
+LayerFwd<TW> layer_fwd(int R) {
   switch (R) {
-    case 16: return lstm_cluster_kernel<16>;
-    case 24: return lstm_cluster_kernel<24>;
-    case 32: return lstm_cluster_kernel<32>;
+    case 16: return lstm_cluster_kernel<16, TW>;
+    case 24: return lstm_cluster_kernel<24, TW>;
+    case 32: return lstm_cluster_kernel<32, TW>;
   }
   return nullptr;
 }
 
-LayerBwd layer_bwd(int R) {
+template <typename TW>
+LayerBwd<TW> layer_bwd(int R) {
   switch (R) {
-    case 16: return lstm_cluster_bwd_kernel<16>;
-    case 24: return lstm_cluster_bwd_kernel<24>;
-    case 32: return lstm_cluster_bwd_kernel<32>;
+    case 16: return lstm_cluster_bwd_kernel<16, TW>;
+    case 24: return lstm_cluster_bwd_kernel<24, TW>;
+    case 32: return lstm_cluster_bwd_kernel<32, TW>;
   }
   return nullptr;
+}
+
+template <typename TW>
+int resident(int H, int backward, int R, size_t smem) {
+  return backward ? resident_clusters(layer_bwd<TW>(R), smem)
+                  : resident_clusters(layer_fwd<TW>(R), smem);
+}
+
+template <typename TW>
+int layer_forward(const float* xw, const TW* w_hh_t, const float* h0,
+                  const float* c0, float* ys, float* hn, float* cn,
+                  float* acts, float* cs, int B, int T, int H, int R,
+                  void* stream_ptr) {
+  const LayerFwd<TW> kernel = layer_fwd<TW>(R);
+  if (!kernel || !hidden_ok(H) || B <= 0 || T <= 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_cluster(kernel, lstm_smem_bytes(H, R, (int)sizeof(TW)), B, R,
+                        (cudaStream_t)stream_ptr, xw, w_hh_t, h0, c0, ys, hn,
+                        cn, acts, cs, B, T, H);
 }
 
 }  // namespace
 
 extern "C" {
 
-// shared memory of one CTA of the forward (backward) chain at R rows
-long long lstm_layer_smem_bytes(int H, int backward, int R) {
-  return (long long)(backward ? lstm_bwd_smem_bytes(H, R)
-                              : lstm_smem_bytes(H, R));
+// shared memory of one CTA of the forward (backward) chain at R rows, of
+// the FP32 or (bf16 != 0) the bf16 mode
+long long lstm_layer_smem_bytes(int H, int backward, int R, int bf) {
+  const int wb = bf ? 2 : 4;
+  return (long long)(backward ? lstm_bwd_smem_bytes(H, R, wb)
+                              : lstm_smem_bytes(H, R, wb));
 }
 
-// How many clusters of the forward (backward) chain at R rows the card
-// holds at once; -1 if it takes no such launch.
-int lstm_layer_resident_clusters(int H, int backward, int R) {
+// How many clusters of the forward (backward) chain of one mode at R rows
+// the card holds at once; -1 if it takes no such launch.
+int lstm_layer_resident_clusters(int H, int backward, int R, int bf) {
   if (!hidden_ok(H)) return -1;
-  const size_t smem = (size_t)lstm_layer_smem_bytes(H, backward, R);
-  return backward ? resident_clusters(layer_bwd(R), smem)
-                  : resident_clusters(layer_fwd(R), smem);
+  const size_t smem = (size_t)lstm_layer_smem_bytes(H, backward, R, bf);
+  return bf ? resident<bf16>(H, backward, R, smem)
+              : resident<float>(H, backward, R, smem);
 }
 
 // xw (B,T,4H) = x W_ih^T + b; w_hh_t (H,4H); h0, c0 (B,H). Writes ys
@@ -90,12 +128,17 @@ int lstm_layer_forward_f32(const float* xw, const float* w_hh_t,
                            const float* h0, const float* c0, float* ys,
                            float* hn, float* cn, float* acts, float* cs,
                            int B, int T, int H, int R, void* stream_ptr) {
-  const LayerFwd kernel = layer_fwd(R);
-  if (!kernel || !hidden_ok(H) || B <= 0 || T <= 0)
-    return (int)cudaErrorInvalidValue;
-  return launch_cluster(kernel, lstm_smem_bytes(H, R), B, R,
-                        (cudaStream_t)stream_ptr, xw, w_hh_t, h0, c0, ys, hn,
-                        cn, acts, cs, B, T, H);
+  return layer_forward(xw, w_hh_t, h0, c0, ys, hn, cn, acts, cs, B, T, H, R,
+                       stream_ptr);
+}
+
+// The same in the bf16 mode: w_hh_t bf16, the rest FP32.
+int lstm_layer_forward_bf16(const float* xw, const bf16* w_hh_t,
+                            const float* h0, const float* c0, float* ys,
+                            float* hn, float* cn, float* acts, float* cs,
+                            int B, int T, int H, int R, void* stream_ptr) {
+  return layer_forward(xw, w_hh_t, h0, c0, ys, hn, cn, acts, cs, B, T, H, R,
+                       stream_ptr);
 }
 
 // floats of backward scratch: dgates (B, T, 4H) and split-K partials
@@ -114,7 +157,7 @@ int lstm_layer_backward_f32(const float* x, const float* w_ih_t,
                             float* db, float* dwhh, float* dh0, float* dc0,
                             float* ws, int B, int T, int Din, int H, int R,
                             void* stream_ptr) {
-  const LayerBwd kernel = layer_bwd(R);
+  const LayerBwd<float> kernel = layer_bwd<float>(R);
   if (!kernel || !hidden_ok(H) || B <= 0 || T <= 0 || Din <= 0 || Din % 4)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
@@ -136,6 +179,40 @@ int lstm_layer_backward_f32(const float* x, const float* w_ih_t,
     return err;
   return gemm_tc(dgates, w_ih_t, nullptr, nullptr, dx, RowMap{rows, 0, rows},
                  rows, Din, 4 * H, true, stream);
+}
+
+// The bf16 mode: x, w_ih_t, w_hh_t bf16; dx, dw_ih_t, dw_hh_t bf16 (each
+// its FP32 sum rounded once); db, dh0, dc0 and the rest FP32.
+int lstm_layer_backward_bf16(const bf16* x, const bf16* w_ih_t,
+                             const bf16* w_hh_t, const float* h0,
+                             const float* c0, const float* ys,
+                             const float* acts, const float* cs,
+                             const float* dys, const float* dhn,
+                             const float* dcn, bf16* dx, bf16* dwih,
+                             float* db, bf16* dwhh, float* dh0, float* dc0,
+                             float* ws, int B, int T, int Din, int H, int R,
+                             void* stream_ptr) {
+  const LayerBwd<bf16> kernel = layer_bwd<bf16>(R);
+  if (!kernel || !hidden_ok(H) || B <= 0 || T <= 0 || Din <= 0 || Din % 4)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const int rows = B * T;
+  float* dgates = ws;
+  float* part = dgates + (size_t)rows * 4 * H;
+  int err = launch_cluster(kernel, lstm_bwd_smem_bytes(H, R, 2), B, R,
+                           stream, acts, cs, c0, dys, w_hh_t, dhn, dcn,
+                           (const float*)nullptr, dgates, dh0, dc0,
+                           (float*)nullptr, B, T, H, 0, T);
+  if (err) return err;
+  if ((err = reduce_rows_tn_bf16(x, nullptr, 0, dgates, dwih, part, rows,
+                                 Din, 4 * H, stream)))
+    return err;
+  if ((err = reduce_rows_tn_bf16(ys, h0, T, dgates, dwhh, part, rows, H,
+                                 4 * H, stream)))
+    return err;
+  if ((err = colsum(dgates, db, part + PART_FLOATS, rows, 4 * H, stream)))
+    return err;
+  return gemm_nt_bf16(dgates, w_ih_t, dx, rows, Din, 4 * H, stream);
 }
 
 // C (M,N) = A (M,K) @ W (K,N) (+ bias (N), may be null) in 3xTF32 on the

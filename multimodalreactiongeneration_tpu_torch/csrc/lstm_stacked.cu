@@ -5,7 +5,9 @@
 //   lstm_stacked_forward_f32, residuals on    _fwd_kernel_acts   (_vjp_fwd)
 //   lstm_stacked_forward_f32, residuals off   _fwd_kernel        (the primal)
 //   lstm_stacked_backward_f32                 _bwd_kernel_fused  (_vjp_bwd)
-// (and _bwd_kernel, the same backward under MRGEN_FUSED_DW=0).
+// (and _bwd_kernel, the same backward under MRGEN_FUSED_DW=0), and the
+// same in JAX's bf16 operand mode (bf16 W_ih and W_hh):
+//   lstm_stacked_forward_bf16, lstm_stacked_backward_bf16.
 //
 // What it computes. L LSTM layers over precomputed layer-0 inputs
 // xw0 = x W_ih0^T + b_ih0 + b_hh0 (outside, as the JAX package leaves it
@@ -66,8 +68,20 @@
 // is 2 B T 4H H (2L-1) FLOPs at 67 TFLOP/s = 1.7 ms forward (3.4 ms
 // backward); the per-slot products on the tensor cores are later work.
 //
-// Shapes: H = 128, L = 2 or 3, any B, any T >= 1. FP32 throughout.
+// Shapes: H = 128, L = 2 or 3, any B, any T >= 1. FP32 throughout in the
+// FP32 mode.
+//
+// The bf16 operand mode (TW = bf16). The weight slices are held as bf16
+// (L = 2: 48 KB a CTA where FP32 takes 96), every h is rounded to bf16
+// where it enters a product (the exchanged copy; each thread keeps its
+// cells' FP32 state in registers), and the backward's dgates where they
+// enter the bracket's products; FP32 sums, state and residuals. dW_hh and
+// dW_ih are bf16 operand products (bf16_gemm.cuh: one mma.sync.m16n8k16
+// pass where the FP32 mode takes three TF32 passes), each FP32 sum
+// rounded once to bf16; db and dxw0 stay FP32, from the unrounded dgates,
+// as in JAX's bf16 mode (ops/lstm_bf16.py).
 
+#include "bf16_gemm.cuh"
 #include "tc_gemm.cuh"
 
 namespace {
@@ -76,16 +90,16 @@ constexpr int SH = 128;         // the hidden size the kernels take
 constexpr int SU = SH / CL;     // hidden units per CTA: 16
 constexpr int SNC = 4 * SU;     // gate columns per CTA and matrix: 64
 
-// shared memory at R rows per cluster: the 2L-1 weight slices, then the
-// kernel's buffers
-size_t stacked_fwd_smem_bytes(int L, int R) {
-  return sizeof(float) * ((size_t)(2 * L - 1) * SH * SNC +
-                          2 * (size_t)L * R * SH + (size_t)L * R * SNC);
+// shared memory at R rows per cluster: the 2L-1 weight slices (wbytes a
+// weight: 4 FP32, 2 bf16), then the kernel's buffers
+size_t stacked_fwd_smem_bytes(int L, int R, int wbytes = 4) {
+  return (size_t)wbytes * (2 * L - 1) * SH * SNC +
+         sizeof(float) * (2 * (size_t)L * R * SH + (size_t)L * R * SNC);
 }
 
-size_t stacked_bwd_smem_bytes(int L, int R) {
-  return sizeof(float) * ((size_t)(2 * L - 1) * SNC * SH +
-                          (size_t)L * SNC * R + 2 * (size_t)L * CL * R * SU);
+size_t stacked_bwd_smem_bytes(int L, int R, int wbytes = 4) {
+  return (size_t)wbytes * (2 * L - 1) * SNC * SH +
+         sizeof(float) * ((size_t)L * SNC * R + 2 * (size_t)L * CL * R * SU);
 }
 
 // cells a thread owns per layer at R rows: R x 16 units over 256 threads
@@ -96,10 +110,10 @@ __host__ __device__ constexpr int stacked_cells(int R) {
 // a0 += h[rows] . w0[:, cl]; with UP also a1 += h[rows] . w1[:, cl]
 // (w0 = W_hh of layer l, w1 = W_ih of layer l+1: both read h_l); rows
 // rg*RG .. rg*RG+RG-1
-template <bool UP, int RG>
+template <bool UP, int RG, typename TW>
 __device__ __forceinline__ void mac_rows(const float* __restrict__ h,
-                                         const float* __restrict__ w0,
-                                         const float* __restrict__ w1,
+                                         const TW* __restrict__ w0,
+                                         const TW* __restrict__ w1,
                                          int rg, int cl, float (&a0)[RG],
                                          float (&a1)[RG]) {
   for (int k = 0; k < SH; k += 4) {
@@ -109,8 +123,8 @@ __device__ __forceinline__ void mac_rows(const float* __restrict__ h,
       hv[i] = *reinterpret_cast<const float4*>(&h[(rg * RG + i) * SH + k]);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const float x0 = w0[(k + kk) * SNC + cl];
-      const float x1 = UP ? w1[(k + kk) * SNC + cl] : 0.f;
+      const float x0 = to_f(w0[(k + kk) * SNC + cl]);
+      const float x1 = UP ? to_f(w1[(k + kk) * SNC + cl]) : 0.f;
 #pragma unroll
       for (int i = 0; i < RG; ++i) {
         const float hk = kk == 0 ? hv[i].x
@@ -124,14 +138,14 @@ __device__ __forceinline__ void mac_rows(const float* __restrict__ h,
   }
 }
 
-// R rows per cluster, L layers. hs, acts and cs null: no training
-// residuals (the inference forward)
-template <int R, int L>
+// R rows per cluster, L layers, TW the weights' type. hs, acts and cs
+// null: no training residuals (the inference forward)
+template <int R, int L, typename TW = float>
 __global__ void __launch_bounds__(NT, 1) lstm_stacked_fwd_kernel(
     const float* __restrict__ xw0,     // (B, T, 4H)
-    const float* __restrict__ w_ih_t,  // (L-1, H, 4H)
+    const TW* __restrict__ w_ih_t,     // (L-1, H, 4H)
     const float* __restrict__ b_rest,  // (L-1, 4H)
-    const float* __restrict__ w_hh_t,  // (L, H, 4H)
+    const TW* __restrict__ w_hh_t,     // (L, H, 4H)
     const float* __restrict__ h0,      // (L, B, H)
     const float* __restrict__ c0,      // (L, B, H)
     float* __restrict__ ys,            // (B, T, H) the top layer's h
@@ -150,21 +164,22 @@ __global__ void __launch_bounds__(NT, 1) lstm_stacked_fwd_kernel(
   const int tid = threadIdx.x;
 
   extern __shared__ __align__(16) float smem[];
-  float* Ws = smem;                         // [2L-1][H][NC]
-  float* hbuf = Ws + (2 * L - 1) * H * NC;  // [2][L][R][H]
-  float* gsm = hbuf + 2 * L * R * H;        // [L][R][NC]
+  TW* Ws = reinterpret_cast<TW*>(smem);  // [2L-1][H][NC]
+  // [2][L][R][H]: h as the products take it (operand<TW>)
+  float* hbuf = reinterpret_cast<float*>(Ws + (2 * L - 1) * H * NC);
+  float* gsm = hbuf + 2 * L * R * H;     // [L][R][NC]
 
   // matrix m < L is W_hh_m, m >= L is W_ih_{m-L+1}; local column
   // lc = g*U + u  <->  global gate column g*H + rank*U + u
   for (int i = tid; i < (2 * L - 1) * H * NC; i += NT) {
     const int m = i / (H * NC), k = (i / NC) % H, lc = i % NC;
-    const float* w = m < L ? w_hh_t + (size_t)m * H * G
-                           : w_ih_t + (size_t)(m - L) * H * G;
+    const TW* w = m < L ? w_hh_t + (size_t)m * H * G
+                        : w_ih_t + (size_t)(m - L) * H * G;
     Ws[i] = w[(size_t)k * G + (lc / U) * H + rank * U + lc % U];
   }
   for (int i = tid; i < L * R * H; i += NT) {
     const int l = i / (R * H), b = b0 + (i / H) % R;
-    hbuf[i] = b < B ? h0[((size_t)l * B + b) * H + i % H] : 0.f;
+    hbuf[i] = operand<TW>(b < B ? h0[((size_t)l * B + b) * H + i % H] : 0.f);
   }
   // each thread owns the cells of unit own_u in rows own_r[j] of every
   // layer; own_in: the row is one of the cluster's R, row_ok: and a batch
@@ -173,16 +188,19 @@ __global__ void __launch_bounds__(NT, 1) lstm_stacked_fwd_kernel(
   const int col = rank * U + own_u;
   int own_r[MC];
   bool own_in[MC], row_ok[MC];
-  float creg[L][MC], bias[L][4];
+  // creg, hreg: the FP32 state of the thread's cells
+  float creg[L][MC], hreg[L][MC], bias[L][4];
 #pragma unroll
   for (int j = 0; j < MC; ++j) {
     own_r[j] = tid / U + (NT / U) * j;
     own_in[j] = own_r[j] < R;
     row_ok[j] = own_in[j] && b0 + own_r[j] < B;
 #pragma unroll
-    for (int l = 0; l < L; ++l)
-      creg[l][j] =
-          row_ok[j] ? c0[((size_t)l * B + b0 + own_r[j]) * H + col] : 0.f;
+    for (int l = 0; l < L; ++l) {
+      const size_t st = ((size_t)l * B + b0 + own_r[j]) * H + col;
+      creg[l][j] = row_ok[j] ? c0[st] : 0.f;
+      hreg[l][j] = row_ok[j] ? h0[st] : 0.f;
+    }
   }
 #pragma unroll
   for (int l = 0; l < L; ++l)
@@ -218,7 +236,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_stacked_fwd_kernel(
 #pragma unroll
     for (int l = 0; l < L; ++l) {
       const float* hl = hcur + l * R * H;
-      const float* whh = Ws + l * H * NC;
+      const TW* whh = Ws + l * H * NC;
       if (l + 1 < L)
         mac_rows<true, RG>(hl, whh, Ws + (L + l) * H * NC, rg, cl, acc[l],
                            acc[l + 1 < L ? l + 1 : l]);
@@ -250,11 +268,14 @@ __global__ void __launch_bounds__(NT, 1) lstm_stacked_fwd_kernel(
         const float c = gf * creg[l][j] + gi * gg;
         const float h = go * tanhf(c);
         const int cell = (l * R + own_r[j]) * H + col;
-        const float h_new = valid ? h : hcur[cell];
-        if (valid) creg[l][j] = c;
+        if (valid) {
+          creg[l][j] = c;
+          hreg[l][j] = h;
+        }
+        const float h_op = operand<TW>(hreg[l][j]);
 #pragma unroll
         for (int q = 0; q < CL; ++q)
-          cluster.map_shared_rank(hbuf, q)[nxt + cell] = h_new;
+          cluster.map_shared_rank(hbuf, q)[nxt + cell] = h_op;
         if (row_ok[j] && valid) {
           const size_t row = (size_t)(b0 + own_r[j]) * T + t;
           const size_t lrow = (size_t)l * B * T + row;
@@ -274,26 +295,25 @@ __global__ void __launch_bounds__(NT, 1) lstm_stacked_fwd_kernel(
     cluster.sync();
   }
 
-  const float* hlast = hbuf + (S & 1) * L * R * H;
 #pragma unroll
   for (int j = 0; j < MC; ++j) {
     if (!row_ok[j]) continue;
 #pragma unroll
     for (int l = 0; l < L; ++l) {
       const size_t o = ((size_t)l * B + b0 + own_r[j]) * H + col;
-      hn[o] = hlast[(l * R + own_r[j]) * H + col];
+      hn[o] = hreg[l][j];
       cn[o] = creg[l][j];
     }
   }
 }
 
 // acc[r] += sum over this CTA's columns lc of d[lc][r] * wT[lc][k]
-template <int R>
+template <int R, typename TW>
 __device__ __forceinline__ void mac_cols(const float* __restrict__ d,
-                                         const float* __restrict__ wT, int k,
+                                         const TW* __restrict__ wT, int k,
                                          float (&acc)[R]) {
   for (int lc = 0; lc < SNC; ++lc) {
-    const float w = wT[lc * SH + k];
+    const float w = to_f(wT[lc * SH + k]);
     const float4* d4 = reinterpret_cast<const float4*>(d + lc * R);
 #pragma unroll
     for (int q = 0; q < R / 4; ++q) {
@@ -306,14 +326,14 @@ __device__ __forceinline__ void mac_cols(const float* __restrict__ d,
   }
 }
 
-template <int R, int L>
+template <int R, int L, typename TW = float>
 __global__ void __launch_bounds__(NT, 1) lstm_stacked_bwd_kernel(
     const float* __restrict__ acts,    // (L, B, T, 4H) i, f, g, o
     const float* __restrict__ cs,      // (L, B, T, H) cell states
     const float* __restrict__ c0,      // (L, B, H)
     const float* __restrict__ dys,     // (B, T, H) cotangent of the top h
-    const float* __restrict__ w_ih_t,  // (L-1, H, 4H)
-    const float* __restrict__ w_hh_t,  // (L, H, 4H)
+    const TW* __restrict__ w_ih_t,     // (L-1, H, 4H)
+    const TW* __restrict__ w_hh_t,     // (L, H, 4H)
     const float* __restrict__ dhn,     // (L, B, H)
     const float* __restrict__ dcn,     // (L, B, H)
     float* __restrict__ dgates,        // (L, B, T, 4H)
@@ -329,14 +349,15 @@ __global__ void __launch_bounds__(NT, 1) lstm_stacked_bwd_kernel(
   const int tid = threadIdx.x;
 
   extern __shared__ __align__(16) float smem[];
-  float* WsT = smem;                         // [2L-1][NC][H], transposed
-  float* dg = WsT + (2 * L - 1) * NC * H;    // [L][NC][R] this slot's dgates
+  TW* WsT = reinterpret_cast<TW*>(smem);  // [2L-1][NC][H], transposed
+  // [L][NC][R] this slot's dgates, as the products take them
+  float* dg = reinterpret_cast<float*>(WsT + (2 * L - 1) * NC * H);
   float* red = dg + L * NC * R;              // [2][L][CL][R][U] partials
 
   for (int i = tid; i < (2 * L - 1) * H * NC; i += NT) {
     const int m = i / (H * NC), k = (i / NC) % H, lc = i % NC;
-    const float* w = m < L ? w_hh_t + (size_t)m * H * G
-                           : w_ih_t + (size_t)(m - L) * H * G;
+    const TW* w = m < L ? w_hh_t + (size_t)m * H * G
+                        : w_ih_t + (size_t)(m - L) * H * G;
     WsT[(m * NC + lc) * H + k] =
         w[(size_t)k * G + (lc / U) * H + rank * U + lc % U];
   }
@@ -405,7 +426,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_stacked_bwd_kernel(
         }
 #pragma unroll
         for (int g = 0; g < 4; ++g)
-          dg[(l * NC + g * U + own_u) * R + r] = d[g];
+          dg[(l * NC + g * U + own_u) * R + r] = operand<TW>(d[g]);
       }
     }
     if (s < 0) break;
@@ -434,41 +455,68 @@ __global__ void __launch_bounds__(NT, 1) lstm_stacked_bwd_kernel(
   }
 }
 
-using StackedFwd = decltype(&lstm_stacked_fwd_kernel<16, 2>);
-using StackedBwd = decltype(&lstm_stacked_bwd_kernel<16, 2>);
+template <typename TW>
+using StackedFwd = decltype(&lstm_stacked_fwd_kernel<16, 2, TW>);
+template <typename TW>
+using StackedBwd = decltype(&lstm_stacked_bwd_kernel<16, 2, TW>);
 
-// the instantiations: L 2 at R 16, 24 and 32; L 3 only at R 16 (its
-// 2L-1 = 5 weight slices leave no room for more rows)
-StackedFwd stacked_fwd(int L, int R) {
-  if (L == 3) return R == 16 ? lstm_stacked_fwd_kernel<16, 3> : nullptr;
+// the instantiations, per weight type: L 2 at R 16, 24 and 32; L 3 only
+// at R 16 (its 2L-1 = 5 FP32 weight slices leave no room for more rows)
+template <typename TW>
+StackedFwd<TW> stacked_fwd(int L, int R) {
+  if (L == 3) return R == 16 ? lstm_stacked_fwd_kernel<16, 3, TW> : nullptr;
   if (L != 2) return nullptr;
   switch (R) {
-    case 16: return lstm_stacked_fwd_kernel<16, 2>;
-    case 24: return lstm_stacked_fwd_kernel<24, 2>;
-    case 32: return lstm_stacked_fwd_kernel<32, 2>;
+    case 16: return lstm_stacked_fwd_kernel<16, 2, TW>;
+    case 24: return lstm_stacked_fwd_kernel<24, 2, TW>;
+    case 32: return lstm_stacked_fwd_kernel<32, 2, TW>;
   }
   return nullptr;
 }
 
-StackedBwd stacked_bwd(int L, int R) {
-  if (L == 3) return R == 16 ? lstm_stacked_bwd_kernel<16, 3> : nullptr;
+template <typename TW>
+StackedBwd<TW> stacked_bwd(int L, int R) {
+  if (L == 3) return R == 16 ? lstm_stacked_bwd_kernel<16, 3, TW> : nullptr;
   if (L != 2) return nullptr;
   switch (R) {
-    case 16: return lstm_stacked_bwd_kernel<16, 2>;
-    case 24: return lstm_stacked_bwd_kernel<24, 2>;
-    case 32: return lstm_stacked_bwd_kernel<32, 2>;
+    case 16: return lstm_stacked_bwd_kernel<16, 2, TW>;
+    case 24: return lstm_stacked_bwd_kernel<24, 2, TW>;
+    case 32: return lstm_stacked_bwd_kernel<32, 2, TW>;
   }
   return nullptr;
+}
+
+template <typename TW>
+int stacked_forward(const float* xw0, const TW* w_ih_t, const float* b_rest,
+                    const TW* w_hh_t, const float* h0, const float* c0,
+                    float* ys, float* hn, float* cn, float* hs, float* acts,
+                    float* cs, int B, int T, int L, int R, void* stream_ptr) {
+  const StackedFwd<TW> kernel = stacked_fwd<TW>(L, R);
+  if (!kernel || B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  return launch_cluster(kernel,
+                        stacked_fwd_smem_bytes(L, R, (int)sizeof(TW)), B, R,
+                        (cudaStream_t)stream_ptr, xw0, w_ih_t, b_rest, w_hh_t,
+                        h0, c0, ys, hn, cn, hs, acts, cs, B, T);
+}
+
+template <typename TW>
+int resident_stacked(int L, int backward, int R, size_t smem) {
+  return backward ? resident_clusters(stacked_bwd<TW>(L, R), smem)
+                  : resident_clusters(stacked_fwd<TW>(L, R), smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// shared memory of one CTA of the forward (backward) at R rows
-long long lstm_stacked_smem_bytes(int L, int backward, int R) {
-  return (long long)(backward ? stacked_bwd_smem_bytes(L, R)
-                              : stacked_fwd_smem_bytes(L, R));
+// shared memory of one CTA of the forward (backward) at R rows, of the
+// FP32 or (bf != 0) the bf16 mode; more than a block can use where no
+// kernel is instantiated (L 3 beyond R 16), so no caller picks that R
+long long lstm_stacked_smem_bytes(int L, int backward, int R, int bf) {
+  if (!stacked_fwd<float>(L, R)) return (long long)SMEM_LIMIT + 1;
+  const int wb = bf ? 2 : 4;
+  return (long long)(backward ? stacked_bwd_smem_bytes(L, R, wb)
+                              : stacked_fwd_smem_bytes(L, R, wb));
 }
 
 // xw0 (B,T,4H); w_ih_t (L-1,H,4H); b_rest (L-1,4H); w_hh_t (L,H,4H);
@@ -481,20 +529,28 @@ int lstm_stacked_forward_f32(const float* xw0, const float* w_ih_t,
                              float* hn, float* cn, float* hs, float* acts,
                              float* cs, int B, int T, int L, int R,
                              void* stream_ptr) {
-  const StackedFwd kernel = stacked_fwd(L, R);
-  if (!kernel || B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
-  return launch_cluster(kernel, stacked_fwd_smem_bytes(L, R), B, R,
-                        (cudaStream_t)stream_ptr, xw0, w_ih_t, b_rest, w_hh_t,
-                        h0, c0, ys, hn, cn, hs, acts, cs, B, T);
+  return stacked_forward(xw0, w_ih_t, b_rest, w_hh_t, h0, c0, ys, hn, cn, hs,
+                         acts, cs, B, T, L, R, stream_ptr);
 }
 
-// How many clusters of the forward (backward) kernel at R rows the card
-// holds at once; a batch of more than R times as many rows runs in
-// waves. -1 if there is no such kernel or on an error.
-int lstm_stacked_resident_clusters(int L, int backward, int R) {
-  const size_t smem = (size_t)lstm_stacked_smem_bytes(L, backward, R);
-  return backward ? resident_clusters(stacked_bwd(L, R), smem)
-                  : resident_clusters(stacked_fwd(L, R), smem);
+// The same in the bf16 mode: w_ih_t, w_hh_t bf16, the rest FP32.
+int lstm_stacked_forward_bf16(const float* xw0, const bf16* w_ih_t,
+                              const float* b_rest, const bf16* w_hh_t,
+                              const float* h0, const float* c0, float* ys,
+                              float* hn, float* cn, float* hs, float* acts,
+                              float* cs, int B, int T, int L, int R,
+                              void* stream_ptr) {
+  return stacked_forward(xw0, w_ih_t, b_rest, w_hh_t, h0, c0, ys, hn, cn, hs,
+                         acts, cs, B, T, L, R, stream_ptr);
+}
+
+// How many clusters of the forward (backward) kernel of one mode at R
+// rows the card holds at once; a batch of more than R times as many rows
+// runs in waves. -1 if there is no such kernel or on an error.
+int lstm_stacked_resident_clusters(int L, int backward, int R, int bf) {
+  const size_t smem = (size_t)lstm_stacked_smem_bytes(L, backward, R, bf);
+  return bf ? resident_stacked<bf16>(L, backward, R, smem)
+            : resident_stacked<float>(L, backward, R, smem);
 }
 
 // floats of backward scratch: the split-K partials
@@ -514,7 +570,7 @@ int lstm_stacked_backward_f32(const float* w_ih_t, const float* w_hh_t,
                               float* db, float* dwhh, float* dh0, float* dc0,
                               float* ws, int B, int T, int L, int R,
                               void* stream_ptr) {
-  const StackedBwd kernel = stacked_bwd(L, R);
+  const StackedBwd<float> kernel = stacked_bwd<float>(L, R);
   if (!kernel || B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const size_t G = 4 * SH, rows = (size_t)B * T;
@@ -537,6 +593,47 @@ int lstm_stacked_backward_f32(const float* w_ih_t, const float* w_hh_t,
     if ((err = reduce_rows_tn_tc(hs + (l - 1) * rows * SH, nullptr, 0, dg_l,
                                  dwih + (l - 1) * SH * G, part, (int)rows, SH,
                                  (int)G, stream)))
+      return err;
+    if ((err = colsum(dg_l, db + (l - 1) * G, cpart, (int)rows, (int)G,
+                      stream)))
+      return err;
+  }
+  return 0;
+}
+
+// The bf16 mode: w_ih_t, w_hh_t bf16; dw_ih_t and dw_hh_t bf16 (each
+// FP32 sum rounded once); dgates, db, dh0, dc0 and the rest FP32.
+int lstm_stacked_backward_bf16(const bf16* w_ih_t, const bf16* w_hh_t,
+                               const float* h0, const float* c0,
+                               const float* ys, const float* hs,
+                               const float* acts, const float* cs,
+                               const float* dys, const float* dhn,
+                               const float* dcn, float* dgates, bf16* dwih,
+                               float* db, bf16* dwhh, float* dh0, float* dc0,
+                               float* ws, int B, int T, int L, int R,
+                               void* stream_ptr) {
+  const StackedBwd<bf16> kernel = stacked_bwd<bf16>(L, R);
+  if (!kernel || B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const size_t G = 4 * SH, rows = (size_t)B * T;
+  int err = launch_cluster(kernel, stacked_bwd_smem_bytes(L, R, 2), B, R,
+                           stream, acts, cs, c0, dys, w_ih_t, w_hh_t, dhn,
+                           dcn, dgates, dh0, dc0, B, T);
+  if (err) return err;
+  float* part = ws;
+  float* cpart = ws + PART_FLOATS;
+  for (int l = 0; l < L; ++l) {
+    const float* dg_l = dgates + l * rows * G;
+    const float* h_l = l == L - 1 ? ys : hs + l * rows * SH;
+    if ((err = reduce_rows_tn_bf16(h_l, h0 + (size_t)l * B * SH, T, dg_l,
+                                   dwhh + l * SH * G, part, (int)rows, SH,
+                                   (int)G, stream)))
+      return err;
+    if (l == 0) continue;
+    if ((err = reduce_rows_tn_bf16(hs + (l - 1) * rows * SH,
+                                   (const float*)nullptr, 0, dg_l,
+                                   dwih + (l - 1) * SH * G, part, (int)rows,
+                                   SH, (int)G, stream)))
       return err;
     if ((err = colsum(dg_l, db + (l - 1) * G, cpart, (int)rows, (int)G,
                       stream)))

@@ -8,7 +8,9 @@ tree loads with ``strict=True`` (``models/weights.py``): a Dense is an
 ``weight``/``bias`` (flax ``scale``/``bias``).
 
 LayerNorm uses the fast-variance form E[x^2] - mean^2 with eps 1e-5, as
-flax and the JAX kernels do.
+flax and the JAX kernels do; on bf16 input (the bf16 training step) it
+computes in f32 and returns bf16, as flax's does. Dense layers, ReLU,
+residuals and dropout run in their inputs' dtype, as flax's.
 
 Dropout is flax's ``nn.Dropout``: in training each element is kept with
 probability 1 - p and scaled by 1 / (1 - p), else zeroed; in eval mode it
@@ -90,6 +92,14 @@ def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
 def layer_norm(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
 ) -> torch.Tensor:
+    if x.dtype != torch.float32:
+        # flax's LayerNorm on bf16: the statistics and the affine map in
+        # f32 (the variance clipped at 0), the output in x's dtype
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp(min=0.0)
+        y = (xf - mu) * (torch.rsqrt(var + LN_EPS) * weight.float())
+        return (y + bias.float()).to(x.dtype)
     mu = x.mean(-1, keepdim=True)
     var = (x * x).mean(-1, keepdim=True) - mu * mu
     return (x - mu) * torch.rsqrt(var + LN_EPS) * weight + bias
@@ -105,15 +115,26 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias)
 
 
+class Dense(nn.Linear):
+    """nn.Linear that rounds as flax's Dense on bf16 input: the product
+    is rounded to bf16, then the bias add (torch's fused add rounds
+    once). f32 input takes nn.Linear's own forward."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32 or self.bias is None:
+            return super().forward(x)
+        return nn.functional.linear(x, self.weight) + self.bias
+
+
 def dense(
     in_features: int,
     out_features: int,
     generator: torch.Generator,
     bias: bool = True,
 ) -> nn.Linear:
-    """nn.Linear with flax's Dense init: lecun-normal (truncated normal,
+    """``Dense`` with flax's Dense init: lecun-normal (truncated normal,
     std sqrt(1/fan_in) / .8796) weight and zero bias."""
-    lin = nn.Linear(in_features, out_features, bias=bias, device="meta")
+    lin = Dense(in_features, out_features, bias=bias, device="meta")
     std = math.sqrt(1.0 / in_features) / 0.87962566103423978
     w = torch.empty(out_features, in_features)
     nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,

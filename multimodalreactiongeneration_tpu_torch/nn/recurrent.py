@@ -28,6 +28,17 @@ Dispatch, as the JAX package's (``resolve_impl`` and the branches of
     CUDA a hidden size K8 does not take raises; in training, dropout
     acts on each layer's output but the last's (``nn.basic.dropout``).
 
+The operand dtype is the weights' (``weight_hh_l0``), as JAX's
+``mm_dtype``: bf16 parameters (the bf16 training step) run the kernels'
+bf16 operand mode with f32 state, biases and input products, and the
+outputs and states come back in x's dtype; the input products and bias
+sums round where JAX's do (K9's xw0 adds b_ih and b_hh to the f32 product
+one by one; its b_rest and K7's b_sum are b_ih + b_hh summed in the
+weights' dtype). Under ``MIN_KERNEL_STEPS`` steps a bf16 LSTM runs JAX's
+``_lstm_scan`` in bf16 (``lstm_scan_lowp``: bf16 carries, unlike the
+kernels' f32 state). The route to K8 has no bf16 mode yet and raises in
+bf16 on every device (ROADMAP Queue B item 2).
+
 ``TorchGRU``: gate order r, z, n with b_hn inside the reset product;
 parameters ``weight_ih_l{k}`` (3H, din), ``weight_hh_l{k}``,
 ``bias_ih_l{k}``, ``bias_hh_l{k}``; states h (L, B, H). Layer by layer,
@@ -72,15 +83,21 @@ def fused_dw_enabled() -> bool:
 
 
 def single_layer_route(device_type: str, steps: int, din: int,
-                       hidden: int) -> str:
+                       hidden: int, bf16: bool = False) -> str:
     """The JAX package's route for one layer and direction of an LSTM:
     "plain" under ``MIN_KERNEL_STEPS`` steps, "lstm_layer" (K7) with
     ``MRGEN_FUSED_DW`` on and 128-aligned sizes, else "lstm_recurrence"
-    (K8); on CUDA, raises for a hidden size K8 does not take."""
+    (K8); on CUDA, raises for a hidden size K8 does not take, and in the
+    bf16 operand mode (``bf16``) on every device, since K8 has none yet."""
     if steps < MIN_KERNEL_STEPS:
         return "plain"
     if fused_dw_enabled() and din % 128 == 0 and hidden % 128 == 0:
         return "lstm_layer"
+    if bf16:
+        raise NotImplementedError(
+            f"an LSTM of input {din} and hidden {hidden} over {steps} steps "
+            "runs the lstm_recurrence kernels (K8), which have no bf16 "
+            "operand mode yet (ROADMAP Queue B item 2); train it in f32")
     why = k8.kernel_refusal(hidden)
     if why is not None and device_type == "cuda":
         raise NotImplementedError(
@@ -137,6 +154,25 @@ def _uniform_params(module, generator, bound, gates, input_size,
             setattr(module, f"bias_hh_{sfx}", uniform(gates * hidden_size))
 
 
+def lstm_scan_lowp(x, w_ih_t, b_ih, b_hh, w_hh_t, h0, c0):
+    """JAX's ``_lstm_scan`` in x's dtype (bf16): the input product in f32
+    plus both biases, rounded to x's dtype; each step adds h W_hh (f32
+    sums, rounded) and runs the cell in x's dtype, so h and c are carried
+    rounded. Returns (ys, (hn, cn)) in x's dtype."""
+    dtype = x.dtype
+    xw = (x.float() @ w_ih_t.float() + b_ih.float() + b_hh.float()).to(dtype)
+    w = w_hh_t.float()
+    h, c = h0.to(dtype), c0.to(dtype)
+    ys = []
+    for t in range(x.shape[1]):
+        gates = xw[:, t] + (h.float() @ w).to(dtype)
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        ys.append(h)
+    return torch.stack(ys, dim=1), (h, c)
+
+
 class TorchLSTM(nn.Module):
     """torch.nn.LSTM(batch_first=True) equivalent with uniform(+-1/sqrt(H))
     init drawn from an explicit generator.
@@ -155,29 +191,41 @@ class TorchLSTM(nn.Module):
         _uniform_params(self, generator, 1.0 / math.sqrt(hidden_size), 4,
                         input_size, hidden_size, num_layers, self.directions)
 
-    def _layer(self, k: int, reverse: bool = False):
-        """(W_ih^T, b_ih + b_hh, W_hh^T) of layer k, one direction."""
+    def _params(self, k: int, reverse: bool = False):
+        """(W_ih^T, b_ih, b_hh, W_hh^T) of layer k, one direction."""
         sfx = f"l{k}" + ("_reverse" if reverse else "")
         return (getattr(self, f"weight_ih_{sfx}").T,
-                getattr(self, f"bias_ih_{sfx}") + getattr(self, f"bias_hh_{sfx}"),
+                getattr(self, f"bias_ih_{sfx}"),
+                getattr(self, f"bias_hh_{sfx}"),
                 getattr(self, f"weight_hh_{sfx}").T)
+
+    def _layer(self, k: int, reverse: bool = False):
+        """(W_ih^T, b_ih + b_hh, W_hh^T) of layer k, one direction."""
+        w_ih_t, b_ih, b_hh, w_hh_t = self._params(k, reverse)
+        return w_ih_t, b_ih + b_hh, w_hh_t
 
     def _direction(self, x, args, h0, c0):
         """One layer in one direction over x (B, T, din), by
-        ``single_layer_route``."""
-        w_ih_t, b, w_hh_t = args
+        ``single_layer_route``; outputs and states in x's dtype."""
+        w_ih_t, b_ih, b_hh, w_hh_t = args
+        bf16 = w_hh_t.dtype == torch.bfloat16
         route = single_layer_route(x.device.type, x.shape[1], x.shape[-1],
-                                   self.hidden_size)
+                                   self.hidden_size, bf16)
+        f32 = lambda a: a.float().contiguous()
         if route == "lstm_layer":
-            return lstm_layer(x.float().contiguous(),
-                              *[a.float().contiguous() for a in args],
-                              h0.float().contiguous(), c0.float().contiguous())
+            mm = w_hh_t.dtype
+            ys, (h, c) = lstm_layer(
+                x.to(mm).contiguous(), w_ih_t.to(mm).contiguous(),
+                f32(b_ih + b_hh), w_hh_t.to(mm).contiguous(), f32(h0),
+                f32(c0))
+            return ys.to(x.dtype), (h.to(x.dtype), c.to(x.dtype))
         if route == "lstm_recurrence":
             return k8.lstm_recurrence(
-                (x @ w_ih_t + b).float().contiguous(),
-                w_hh_t.float().contiguous(), h0.float().contiguous(),
-                c0.float().contiguous())
-        return lstm_layer_reference(x, *args, h0, c0)
+                f32(x @ w_ih_t + (b_ih + b_hh)), f32(w_hh_t), f32(h0),
+                f32(c0))
+        if bf16:
+            return lstm_scan_lowp(x, w_ih_t, b_ih, b_hh, w_hh_t, h0, c0)
+        return lstm_layer_reference(x, w_ih_t, b_ih + b_hh, w_hh_t, h0, c0)
 
     def forward(
         self, x: torch.Tensor, hx: Optional[LSTMState] = None
@@ -193,16 +241,23 @@ class TorchLSTM(nn.Module):
         inactive = self.dropout == 0 or not self.training
         if dirs == 1 and inactive and use_lstm_stacked(
                 x.device.type, steps, layers, self.hidden_size, x.shape[0]):
-            w_ih0, b0, w_hh0 = self._layer(0)
-            rest = [self._layer(k) for k in range(1, layers)]
-            return lstm_stacked_recurrence(
-                (x @ w_ih0 + b0).float().contiguous(),
-                torch.stack([w for w, _, _ in rest]).float().contiguous(),
-                torch.stack([b for _, b, _ in rest]).float().contiguous(),
-                torch.stack([w_hh0] + [w for _, _, w in rest]).float()
+            w_ih0, b_ih0, b_hh0, w_hh0 = self._params(0)
+            rest = [self._params(k) for k in range(1, layers)]
+            mm = w_hh0.dtype
+            if mm == torch.bfloat16:
+                # JAX: the f32 product of the bf16 operands, + b_ih + b_hh
+                xw0 = x.float() @ w_ih0.float() + b_ih0.float() + b_hh0.float()
+            else:
+                xw0 = x @ w_ih0 + (b_ih0 + b_hh0)
+            ys, (hn, cn) = lstm_stacked_recurrence(
+                xw0.float().contiguous(),
+                torch.stack([r[0] for r in rest]).to(mm).contiguous(),
+                torch.stack([r[1] + r[2] for r in rest]).float().contiguous(),
+                torch.stack([w_hh0] + [r[3] for r in rest]).to(mm)
                 .contiguous(),
                 hx[0].float().contiguous(), hx[1].float().contiguous(),
             )
+            return ys.to(x.dtype), (hn.to(x.dtype), cn.to(x.dtype))
         hs, cs = [], []
         for k in range(layers):
             outs = []
@@ -211,7 +266,7 @@ class TorchLSTM(nn.Module):
                 # the reverse direction reads the sequence back to front;
                 # its h_n is the state after the first original frame
                 x_dir = torch.flip(x, [1]) if d else x
-                ys, (h, c) = self._direction(x_dir, self._layer(k, d == 1),
+                ys, (h, c) = self._direction(x_dir, self._params(k, d == 1),
                                              hx[0][idx], hx[1][idx])
                 outs.append(torch.flip(ys, [1]) if d else ys)
                 hs.append(h)

@@ -9,15 +9,24 @@ b_ih + b_hh, ``w_hh_t`` (L, H, 4H), ``h0``/``c0`` (L, B, H) (torch's
 state layout); gate order i, f, g, o. Returns (ys of the top layer
 (B, T, H), (h_n, c_n) each (L, B, H)).
 
+Two operand modes, as JAX's: every tensor f32, or JAX's bf16 mode, where
+``w_ih_t`` and ``w_hh_t`` are bf16 and select bf16 operands for every
+product (``ops/lstm_bf16.py``) while ``xw0``, ``b_rest``, ``h0`` and
+``c0`` stay f32. ys, h_n and c_n are f32; in the bf16 mode dW_ih and
+dW_hh come back bf16 (the weights' dtype), dxw0, db and the state
+cotangents f32. Any other mix raises.
+
 On CPU tensors ``lstm_stacked_recurrence`` runs ``lstm_stacked_reference``
-(autograd records through it). On CUDA tensors it launches
-``csrc/lstm_stacked.cu`` (f32, H 128, L 2 or 3, any B): where a gradient
+(f32: autograd records through it; bf16: its backward is the plain bf16
+backward). On CUDA tensors it launches ``csrc/lstm_stacked.cu`` (H 128,
+L 2 or 3, any B; the f32 or the bf16 instantiation): where a gradient
 is needed, the forward that stores the backward's residuals and then the
 backward kernel; otherwise the forward without residuals. Each runs R
 batch rows per cluster, the smallest R the card holds in one wave
-(``cluster_rows.choose_rows``; L 3 takes only 16), or the ``rows`` a
-caller names. Other shapes raise. Launch counters: ``fwd_launches``
-(both forwards) and ``bwd_launches``.
+(``cluster_rows.choose_rows``, on the layout of the mode; L 3 takes only
+16), or the ``rows`` a caller names. Other shapes raise. Launch
+counters: ``fwd_launches`` (both f32 forwards), ``bwd_launches``,
+``bf16_fwd_launches`` and ``bf16_bwd_launches``.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from multimodalreactiongeneration_tpu_torch import _build
+from multimodalreactiongeneration_tpu_torch.ops import lstm_bf16
 from multimodalreactiongeneration_tpu_torch.ops.cluster_rows import (
     card_layout,
     resolve_rows,
@@ -39,6 +49,8 @@ from multimodalreactiongeneration_tpu_torch.ops.lstm_recurrence import (
 
 fwd_launches = 0
 bwd_launches = 0
+bf16_fwd_launches = 0
+bf16_bwd_launches = 0
 
 HIDDEN = 128       # the hidden size the kernels take
 MAX_LAYERS = 3     # the most layers whose weights fit one 8-CTA cluster
@@ -46,9 +58,84 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+def operand_dtype(name, args) -> torch.dtype:
+    """The operand mode of (xw0, w_ih_t, b_rest, w_hh_t, h0, c0): f32 when
+    every tensor is f32, bf16 for JAX's bf16 mode (both weights bf16, the
+    rest f32); raises, naming ``name``, otherwise."""
+    mm = args[3].dtype
+    f32 = torch.float32
+    want = (f32, mm, f32, mm, f32, f32)
+    if mm not in (f32, torch.bfloat16) or any(
+            a.dtype != d for a, d in zip(args, want)):
+        raise ValueError(
+            f"{name} (K9) takes every tensor f32, or w_ih_t and w_hh_t "
+            "bf16 with xw0, b_rest, h0 and c0 f32 (the bf16 operand mode); "
+            "got " + ", ".join(str(a.dtype) for a in args))
+    return mm
+
+
+def _bf16_forward(xw0, w_ih_t, b_rest, w_hh_t, h0, c0):
+    """The plain bf16 mode, layer by layer: (ys, hn, cn, ys_all, acts,
+    cs); ys_all (L, B, T, H), acts (L, B, T, 4H) and cs (L, B, T, H) are
+    the backward's residuals. All f32."""
+    x, outs = xw0, []
+    for layer in range(w_hh_t.shape[0]):
+        if layer > 0:
+            x = (lstm_bf16.round_bf16(outs[-1][0]) @ w_ih_t[layer - 1].float()
+                 + b_rest[layer - 1])
+        outs.append(lstm_bf16.chain_forward(x, w_hh_t[layer], h0[layer],
+                                            c0[layer]))
+    ys_all, hn, cn, acts, cs = (torch.stack(o) for o in zip(*outs))
+    return ys_all[-1], hn, cn, ys_all, acts, cs
+
+
+def _bf16_backward(args, ys_all, acts, cs, dys, dhn, dcn):
+    """The plain bf16 mode's gradients (dxw0, dw_ih_t, db_rest, dw_hh_t,
+    dh0, dc0), top layer first: a layer's dy is bf16(dgates of the layer
+    above) W_ih^T."""
+    xw0, w_ih_t, b_rest, w_hh_t, h0, c0 = args
+    layers = w_hh_t.shape[0]
+    dwih, db = [None] * (layers - 1), [None] * (layers - 1)
+    dwhh, dh0, dc0 = [None] * layers, [None] * layers, [None] * layers
+    dy = dys.float()
+    for l in reversed(range(layers)):
+        dg, dh0[l], dc0[l] = lstm_bf16.chain_backward(
+            acts[l], cs[l], c0[l], w_hh_t[l], dy, dhn[l].float(),
+            dcn[l].float())
+        dwhh[l] = lstm_bf16.tn(lstm_bf16.shifted(ys_all[l], h0[l]), dg)
+        if l > 0:
+            dwih[l - 1] = lstm_bf16.tn(ys_all[l - 1], dg)
+            db[l - 1] = dg.sum((0, 1))
+            dy = lstm_bf16.round_bf16(dg) @ w_ih_t[l - 1].float().T
+    stack = lambda xs, like: torch.stack(xs) if xs else torch.zeros_like(like)
+    return (dg, stack(dwih, w_ih_t), stack(db, b_rest), torch.stack(dwhh),
+            torch.stack(dh0), torch.stack(dc0))
+
+
+class _PlainBf16Stacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *args):
+        ys, hn, cn, ys_all, acts, cs = _bf16_forward(*args)
+        ctx.save_for_backward(*args, ys_all, acts, cs)
+        return ys, hn, cn
+
+    @staticmethod
+    def backward(ctx, dys, dhn, dcn):
+        *args, ys_all, acts, cs = ctx.saved_tensors
+        return _bf16_backward(args, ys_all, acts, cs, *lstm_bf16.zero_none(
+            (dys, dhn, dcn), (ys_all[-1], args[4], args[5])))
+
+
 def lstm_stacked_reference(xw0, w_ih_t, b_rest, w_hh_t, h0, c0):
     """Plain PyTorch version, layer by layer: the JAX test's ground truth
-    (``tests/test_pallas_lstm_stacked.py _scan_stack_ref``)."""
+    (``tests/test_pallas_lstm_stacked.py _scan_stack_ref``). In the bf16
+    mode (bf16 ``w_hh_t``) every product rounds its operands to bf16 and
+    the backward is the plain bf16 backward (``ops/lstm_bf16.py``)."""
+    if w_hh_t.dtype == torch.bfloat16:
+        args = (xw0, w_ih_t, b_rest, w_hh_t, h0, c0)
+        operand_dtype("lstm_stacked_reference", args)
+        ys, hn, cn = _PlainBf16Stacked.apply(*args)
+        return ys, (hn, cn)
     x = xw0
     hns, cns = [], []
     for layer in range(w_hh_t.shape[0]):
@@ -81,29 +168,35 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.lstm_stacked_backward_workspace_floats.argtypes = []
         lib.lstm_stacked_backward_workspace_floats.restype = ctypes.c_longlong
-        lib.lstm_stacked_smem_bytes.argtypes = [_I] * 3
+        lib.lstm_stacked_smem_bytes.argtypes = [_I] * 4
         lib.lstm_stacked_smem_bytes.restype = ctypes.c_longlong
-        lib.lstm_stacked_forward_f32.argtypes = [_P] * 12 + [_I] * 4 + [_P]
-        lib.lstm_stacked_backward_f32.argtypes = [_P] * 18 + [_I] * 4 + [_P]
-        lib.lstm_stacked_forward_f32.restype = ctypes.c_int
-        lib.lstm_stacked_backward_f32.restype = ctypes.c_int
-        lib.lstm_stacked_resident_clusters.argtypes = [_I] * 3
+        for mode in ("f32", "bf16"):
+            fwd = getattr(lib, f"lstm_stacked_forward_{mode}")
+            bwd = getattr(lib, f"lstm_stacked_backward_{mode}")
+            fwd.argtypes = [_P] * 12 + [_I] * 4 + [_P]
+            bwd.argtypes = [_P] * 18 + [_I] * 4 + [_P]
+            fwd.restype = bwd.restype = ctypes.c_int
+        lib.lstm_stacked_resident_clusters.argtypes = [_I] * 4
         lib.lstm_stacked_resident_clusters.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def smem_bytes(layers: int, backward: bool, rows: int) -> int:
+def smem_bytes(layers: int, backward: bool, rows: int,
+               bf16: bool = False) -> int:
     """Shared memory of one CTA of the forward or backward at ``rows``
-    batch rows per cluster."""
-    return _lib().lstm_stacked_smem_bytes(layers, int(backward), rows)
+    batch rows per cluster, of the f32 or the bf16 mode."""
+    return _lib().lstm_stacked_smem_bytes(layers, int(backward), rows,
+                                          int(bf16))
 
 
-def resident_clusters(layers: int, backward: bool, rows: int = 16) -> int:
+def resident_clusters(layers: int, backward: bool, rows: int = 16,
+                      bf16: bool = False) -> int:
     """How many 8-CTA clusters of ``rows`` batch rows of the forward or
-    backward kernel the current card holds at once (CUDA only); a larger
-    batch runs in waves."""
-    n = _lib().lstm_stacked_resident_clusters(layers, int(backward), rows)
+    backward kernel (f32 or bf16 mode) the current card holds at once
+    (CUDA only); a larger batch runs in waves."""
+    n = _lib().lstm_stacked_resident_clusters(layers, int(backward), rows,
+                                              int(bf16))
     if n < 0:
         raise RuntimeError(
             f"no occupancy for {layers} layers at {rows} rows per cluster")
@@ -111,22 +204,26 @@ def resident_clusters(layers: int, backward: bool, rows: int = 16) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def layout(device_index: int, layers: int, backward: bool):
+def layout(device_index: int, layers: int, backward: bool,
+           bf16: bool = False):
     """(resident clusters, shared memory) by rows of the forward or
-    backward on one card (``cluster_rows.card_layout``)."""
+    backward of one mode on one card (``cluster_rows.card_layout``)."""
     with torch.cuda.device(device_index):
-        return card_layout(lambda r: smem_bytes(layers, backward, r),
-                           lambda r: resident_clusters(layers, backward, r))
+        return card_layout(
+            lambda r: smem_bytes(layers, backward, r, bf16),
+            lambda r: resident_clusters(layers, backward, r, bf16))
 
 
-def _rows(name, device, layers, backward, batch, rows):
+def _rows(name, device, layers, backward, batch, rows, bf16=False):
     return resolve_rows(name, batch, rows,
-                        layout(device.index or 0, layers, backward))
+                        layout(device.index or 0, layers, backward, bf16))
 
 
-def rows_for(device, layers: int, backward: bool, batch: int) -> int:
+def rows_for(device, layers: int, backward: bool, batch: int,
+             bf16: bool = False) -> int:
     """The rows per cluster the wrapper launches at this batch."""
-    return _rows("lstm_stacked", device, layers, backward, batch, None)
+    return _rows("lstm_stacked", device, layers, backward, batch, None,
+                 bf16)
 
 
 def kernel_refusal(layers: int, hidden: int, batch: int):
@@ -144,11 +241,15 @@ def kernel_refusal(layers: int, hidden: int, batch: int):
 
 
 def _check(name, t, w_ih_t, b_rest, w_hh_t, h0, c0, **more):
-    """Raise unless the kernels take these tensors: f32, contiguous, on
-    one CUDA device, shapes from h0 (L, B, H) and ``t``; ``more`` maps
-    each further tensor to its expected shape. Returns (L, B, T, H)."""
+    """Raise unless the kernels take these tensors: contiguous, on one
+    CUDA device, f32 but for the weights (f32, or bf16 in the bf16 mode),
+    shapes from h0 (L, B, H) and ``t``; ``more`` maps each further tensor
+    to its expected shape. Returns (L, B, T, H, bf16 mode)."""
     if h0.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {h0.device}")
+    mm = w_hh_t.dtype
+    if mm not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name} (K9) takes f32 or bf16 weights; got {mm}")
     layers, b, h = h0.shape
     want = dict(w_ih_t=(w_ih_t, (layers - 1, h, 4 * h)),
                 b_rest=(b_rest, (layers - 1, 4 * h)),
@@ -157,10 +258,12 @@ def _check(name, t, w_ih_t, b_rest, w_hh_t, h0, c0, **more):
     want.update({k: (v, tuple(s(layers, b, t, h)))
                  for k, (v, s) in more.items()})
     for key, (a, shape) in want.items():
-        if a.device != h0.device or a.dtype != torch.float32:
+        dtype = mm if key in ("w_ih_t", "w_hh_t") else torch.float32
+        if a.device != h0.device or a.dtype != dtype:
             raise ValueError(
-                f"{name} kernel takes f32 tensors on one CUDA device; got "
-                f"{key} {a.dtype} on {a.device}")
+                f"{name} kernel takes {dtype} {key} on one CUDA device "
+                f"(weights f32, or bf16 in the bf16 mode; the rest f32); "
+                f"got {a.dtype} on {a.device}")
         if tuple(a.shape) != shape or not a.is_contiguous():
             raise ValueError(
                 f"{name}: expected {key} contiguous {shape}, got "
@@ -168,7 +271,7 @@ def _check(name, t, w_ih_t, b_rest, w_hh_t, h0, c0, **more):
     why = kernel_refusal(layers, h, b) if t >= 1 else f"T {t}"
     if why is not None:
         raise ValueError(f"{name}: no kernel for {why}")
-    return layers, b, t, h
+    return layers, b, t, h, mm == torch.bfloat16
 
 
 def lstm_stacked_forward(args, residuals: bool, rows: Optional[int] = None):
@@ -177,10 +280,11 @@ def lstm_stacked_forward(args, residuals: bool, rows: Optional[int] = None):
     (L-1, B, T, H), acts (L, B, T, 4H) and cs (L, B, T, H) are the
     backward's residuals, None unless ``residuals``."""
     xw0 = args[0]
-    layers, b, t, h = _check(
+    layers, b, t, h, bf16 = _check(
         "lstm_stacked_forward", xw0.shape[1], *args[1:],
         xw0=(xw0, lambda l, b, t, h: (b, t, 4 * h)))
-    rows = _rows("lstm_stacked_forward", xw0.device, layers, False, b, rows)
+    rows = _rows("lstm_stacked_forward", xw0.device, layers, False, b, rows,
+                 bf16)
     new = lambda *shape: torch.empty(*shape, dtype=torch.float32,
                                      device=xw0.device)
     ys, hn, cn = new(b, t, h), new(layers, b, h), new(layers, b, h)
@@ -189,10 +293,16 @@ def lstm_stacked_forward(args, residuals: bool, rows: Optional[int] = None):
         hs = new(layers - 1, b, t, h)
         acts = new(layers, b, t, 4 * h)
         cs = new(layers, b, t, h)
-    _build.launch(_lib().lstm_stacked_forward_f32, *args, ys, hn, cn, hs,
-                  acts, cs, dims=(b, t, layers, rows))
-    global fwd_launches
-    fwd_launches += 1
+    lib = _lib()
+    fn = (lib.lstm_stacked_forward_bf16 if bf16
+          else lib.lstm_stacked_forward_f32)
+    _build.launch(fn, *args, ys, hn, cn, hs, acts, cs,
+                  dims=(b, t, layers, rows))
+    global fwd_launches, bf16_fwd_launches
+    if bf16:
+        bf16_fwd_launches += 1
+    else:
+        fwd_launches += 1
     return ys, hn, cn, hs, acts, cs
 
 
@@ -201,10 +311,10 @@ def lstm_stacked_backward(weights, ys, hs, acts, cs, dys, dhn, dcn,
     """The backward kernel (CUDA only), from ``weights`` = (w_ih_t,
     b_rest, w_hh_t, h0, c0) and the forward's residuals, at ``rows`` batch
     rows per cluster (None: the wrapper's choice). Returns (dxw0, dw_ih_t,
-    db_rest, dw_hh_t, dh0, dc0)."""
+    db_rest, dw_hh_t, dh0, dc0), each in its input's dtype."""
     w_ih_t, b_rest, w_hh_t, h0, c0 = weights
     cots = [c.float().contiguous() for c in (dys, dhn, dcn)]
-    layers, b, t, h = _check(
+    layers, b, t, h, bf16 = _check(
         "lstm_stacked_backward", ys.shape[1], *weights,
         ys=(ys, lambda l, b, t, h: (b, t, h)),
         hs=(hs, lambda l, b, t, h: (l - 1, b, t, h)),
@@ -213,18 +323,24 @@ def lstm_stacked_backward(weights, ys, hs, acts, cs, dys, dhn, dcn,
         dys=(cots[0], lambda l, b, t, h: (b, t, h)),
         dhn=(cots[1], lambda l, b, t, h: (l, b, h)),
         dcn=(cots[2], lambda l, b, t, h: (l, b, h)))
-    rows = _rows("lstm_stacked_backward", h0.device, layers, True, b, rows)
+    rows = _rows("lstm_stacked_backward", h0.device, layers, True, b, rows,
+                 bf16)
     dgates = torch.empty(layers, b, t, 4 * h, dtype=torch.float32,
                          device=h0.device)
     dwih, db, dwhh, dh0, dc0 = [torch.empty_like(a) for a in weights]
     lib = _lib()
     ws = torch.empty(lib.lstm_stacked_backward_workspace_floats(),
                      dtype=torch.float32, device=h0.device)
-    _build.launch(lib.lstm_stacked_backward_f32, w_ih_t, w_hh_t, h0, c0, ys,
-                  hs, acts, cs, *cots, dgates, dwih, db, dwhh, dh0, dc0, ws,
+    fn = (lib.lstm_stacked_backward_bf16 if bf16
+          else lib.lstm_stacked_backward_f32)
+    _build.launch(fn, w_ih_t, w_hh_t, h0, c0, ys, hs, acts, cs, *cots,
+                  dgates, dwih, db, dwhh, dh0, dc0, ws,
                   dims=(b, t, layers, rows))
-    global bwd_launches
-    bwd_launches += 1
+    global bwd_launches, bf16_bwd_launches
+    if bf16:
+        bf16_bwd_launches += 1
+    else:
+        bwd_launches += 1
     return dgates[0], dwih, db, dwhh, dh0, dc0
 
 
@@ -240,23 +356,21 @@ class _LstmStacked(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dys, dhn, dcn):
         *weights, ys, hs, acts, cs = ctx.saved_tensors
-        dys, dhn, dcn = (
-            torch.zeros_like(like) if c is None else c
-            for c, like in zip((dys, dhn, dcn), (ys, weights[3], weights[4]))
-        )
-        return lstm_stacked_backward(weights, ys, hs, acts, cs, dys, dhn,
-                                     dcn)
+        cots = lstm_bf16.zero_none((dys, dhn, dcn),
+                                   (ys, weights[3], weights[4]))
+        return lstm_stacked_backward(weights, ys, hs, acts, cs, *cots)
 
 
 def lstm_stacked_recurrence(
     xw0: torch.Tensor,     # (B, T, 4H) f32
-    w_ih_t: torch.Tensor,  # (L-1, H, 4H)
-    b_rest: torch.Tensor,  # (L-1, 4H)
-    w_hh_t: torch.Tensor,  # (L, H, 4H)
-    h0: torch.Tensor, c0: torch.Tensor,  # (L, B, H)
+    w_ih_t: torch.Tensor,  # (L-1, H, 4H) f32, or bf16 in the bf16 mode
+    b_rest: torch.Tensor,  # (L-1, 4H) f32
+    w_hh_t: torch.Tensor,  # (L, H, 4H), w_ih_t's dtype
+    h0: torch.Tensor, c0: torch.Tensor,  # (L, B, H) f32
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """The stacked LSTM, differentiable. CPU tensors take the plain
-    version, CUDA tensors the kernels."""
+    """The stacked LSTM, differentiable; the weights' dtype picks the
+    operand mode. CPU tensors take the plain version, CUDA tensors the
+    kernels."""
     args = (xw0, w_ih_t, b_rest, w_hh_t, h0, c0)
     if xw0.device.type == "cpu":
         return lstm_stacked_reference(*args)

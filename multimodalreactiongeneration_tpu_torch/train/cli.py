@@ -190,11 +190,16 @@ def main(argv=None):
             model, model_cfg, cfg.metrics.to_dict(), optimizer)
     else:
         precision = str(cfg.trainer.get("precision", 32))
+        bf16 = precision in ("bf16", "bfloat16")
+        if bf16 and scheduled:
+            # JAX's scheduled-sampling step takes no compute dtype: the
+            # option trains in f32 whatever the precision
+            logger.info("trainer.precision=bf16 with scheduled sampling: "
+                        "the scheduled-sampling step trains in f32")
         train_step, eval_step = streaming_step_fns(
             model, model_cfg, cfg.metrics.to_dict(), optimizer,
             mask_self_motion_input=(model_type == "lstmformer"),
-            compute_dtype=(torch.bfloat16
-                           if precision in ("bf16", "bfloat16")
+            compute_dtype=(torch.bfloat16 if bf16 and not scheduled
                            else torch.float32),
             remat=cfg.trainer.get("remat", False),
         )

@@ -29,7 +29,19 @@ configs/lstmformer_gru.yaml, every encoder and self-motion block runs
 ``ops/gru.py``), LSTMwithSample's sampler stack and layered blocks
 (``ops/lstm_stacked.py``, ``ops/lstm_layer.py``), SimpleLSTM's acoustic
 LSTMs (``ops/lstm_layer.py``); under ``MRGEN_FUSED_DW=0`` the single-layer
-LSTMs run ``ops/lstm_recurrence.py`` instead. f32 only.
+LSTMs run ``ops/lstm_recurrence.py`` instead.
+
+``compute_dtype=torch.bfloat16`` is JAX's mixed-precision step: each
+train step runs the model on bf16 copies of every float parameter
+(``torch.func.functional_call``, so autograd carries the gradients back
+to the f32 parameters the optimizer keeps, as JAX's cast of the gradients
+to f32 does) and on the six inputs cast to bf16 (JAX's ``_cast_tree``);
+the loss and the metrics take the prediction in f32 against the f32
+target. On the card LSTMwithSample's sampler and layered blocks then run
+the bf16 modes of K9 and K7. The eval step stays f32. Models whose bf16
+step needs a kernel with no bf16 mode yet raise ``NotImplementedError``
+on every device (``bf16_refusal``): the Metaformer, with LSTM or GRU
+embeddings.
 
 A train step's ``generator`` (the trainer's ``torch.Generator``) gives it
 one seed, and the step's forward draws every dropout mask from it
@@ -120,6 +132,28 @@ def _step_seed(generator: Optional[torch.Generator]) -> Optional[int]:
     return int(torch.randint(0, 2**62, (1,), generator=generator))
 
 
+def bf16_refusal(model: torch.nn.Module) -> Optional[str]:
+    """Why the bf16 step cannot train ``model`` yet (the ROADMAP Queue B
+    items its kernels wait for), or None: only LSTMwithSample's kernels
+    (K7, K9) have their bf16 mode."""
+    from multimodalreactiongeneration_tpu_torch.models.lstm_with_sampling import (
+        LSTMwithSample,
+    )
+    if isinstance(model, LSTMwithSample):
+        return None
+    why = ("the Metaformer trains in f32 only so far: its bf16 step needs "
+           "the bf16 operand modes of the encoder stacks (K1/K3/K4, ROADMAP "
+           "Queue B item 1) and of rect attention (K5/K6, item 5)")
+    if "gru" in getattr(model, "cfg", {}).get("emb_mixers", ()):
+        why += ", and of the GRU recurrence (K10, item 4)"
+    return why
+
+
+def _cast_floats(tensors, dtype):
+    return tuple(t.to(dtype) if t.is_floating_point() else t
+                 for t in tensors)
+
+
 def streaming_step_fns(
     model: torch.nn.Module,
     model_cfg: Dict[str, Any],
@@ -139,10 +173,13 @@ def streaming_step_fns(
     ``eval_step(batch) -> (loss, per_slice)`` runs the forward without a
     gradient. ``per_slice`` maps each feature slice to (sum_sq_err,
     count), on the device. ``remat``: the model call under
-    ``torch.utils.checkpoint``."""
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            "the port trains in f32 only (bf16 training is ROADMAP queue B)")
+    ``torch.utils.checkpoint``. ``compute_dtype``: f32, or bf16 for the
+    mixed-precision train step (the module docstring)."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype {compute_dtype}: f32 or bf16")
+    bf16 = compute_dtype == torch.bfloat16
+    if bf16 and bf16_refusal(model) is not None:
+        raise NotImplementedError(bf16_refusal(model))
     lossfun = build_loss(model_cfg)
     target_dict = gen_target_dict(
         metrics_cfg["use_centroid"],
@@ -152,19 +189,27 @@ def streaming_step_fns(
     delta_order = metrics_cfg["delta_order"]
     dls = model_cfg.get("delta_loss_scale", 1.0)
 
-    def apply(seed: Optional[int], *arrays):
+    def apply(seed: Optional[int], params, *arrays):
         with dropout_rng(seed):
-            return model(*arrays)[0]
+            if params is None:
+                return model(*arrays)[0]
+            return torch.func.functional_call(model, params, arrays)[0]
 
-    def forward(batch: Batch, seed: Optional[int] = None):
+    def forward(batch: Batch, seed: Optional[int] = None,
+                lowp: bool = False):
         a_p, m_p, m_s, la, lmp, lms, target = [b[0] for b in batch]
         if mask_self_motion_input:
             m_s = m_s * (m_s != PADDING_VALUE)
         arrays = (a_p, m_p, m_s, la, lmp, lms)
+        params = None
+        if lowp:  # JAX's _cast_tree of the parameters and the six inputs
+            params = {name: p.to(compute_dtype) if p.is_floating_point()
+                      else p for name, p in model.named_parameters()}
+            arrays = _cast_floats(arrays, compute_dtype)
         if remat and model.training:
-            y = checkpoint(apply, seed, *arrays, use_reentrant=False)
+            y = checkpoint(apply, seed, params, *arrays, use_reentrant=False)
         else:
-            y = apply(seed, *arrays)
+            y = apply(seed, params, *arrays)
         y = y[:, lmp.shape[1]:].float()
         mask = (target != PADDING_VALUE).to(y.dtype)
         return y * mask, target * mask
@@ -173,7 +218,7 @@ def streaming_step_fns(
                    generator: Optional[torch.Generator] = None):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        y, t = forward(batch, _step_seed(generator))
+        y, t = forward(batch, _step_seed(generator), lowp=bf16)
         scaler = delta_scaler(y.shape[-1], delta_order, dls, y.device)
         y, t = y * scaler, t * scaler
         loss = lossfun(y, t)

@@ -310,9 +310,11 @@ def test_training_kernels_refuse_bf16_and_off_gate_shapes(dev):
                          (64, torch.float32, "multiple of 128")):
         w = torch.zeros(h, 4 * h, device=dev, dtype=dt)
         s = torch.zeros(b, h, device=dev)
+        # K7 takes bf16 x and weights with an f32 b_sum (its bf16 mode);
+        # a bf16 b_sum is no mode of it
         with pytest.raises(ValueError, match=match):
             K7.lstm_layer(torch.zeros(b, t, h, device=dev, dtype=dt), w,
-                          torch.zeros(4 * h, device=dev), w, s, s)
+                          torch.zeros(4 * h, device=dev, dtype=dt), w, s, s)
         args = (torch.zeros(b, t, h, device=dev, dtype=dt),
                 w[None].requires_grad_(), torch.zeros(1, 4 * h, device=dev),
                 w[None], torch.zeros(1, h, h, device=dev),
@@ -453,6 +455,102 @@ def test_lstm_layer_chosen_rows_match_rows16(dev, b, t):
             *K7.lstm_layer_backward_reference(args, *cots))
     _assert_within_gates(chosen_out, want, 6)
     _assert_within_gates(rows16_out, want, 6)
+
+
+# bf16 modes (K7, K9) vs their plain bf16 versions: the two round h and
+# the dgates to bf16 at the same products but sum in other orders, so a
+# value on a rounding boundary can round the other way (at B250 x T17 x
+# H256 some ten h of 10^6 flip, and move their rows' gates by ~1e-4). At
+# a short T a flip has little room to compound: forward 1e-3 abs, the
+# f32 gradients 2e-3 and the bf16 ones 1e-2 of their largest magnitude
+# (one bf16 ulp is 2^-8 to 2^-7 of a value). Over the lws lengths the JAX
+# bf16 bound (tests/test_pallas_lstm.py:130) holds: 5e-2 abs on outputs
+# and states, and 5e-2 of their largest magnitude on the gradients (sums
+# over 10^4 to 10^5 rows: a dW of 200 has a bf16 ulp of 1). And the
+# kernel's ys lies on average at most a quarter as far from the plain
+# bf16 version's as the plain f32 version's does: a kernel that took
+# f32 operands would not (the flips are too rare to move the mean).
+BF16_SHORT = (1e-3, 2e-3, 1e-2)
+
+
+def _bf16_within(outs, grads, want_outs, want_grads, short, ys_f32=None):
+    if ys_f32 is not None:
+        gap = float((ys_f32 - want_outs[0]).abs().mean())
+        assert float((outs[0].detach() - want_outs[0]).abs().mean()) <= (
+            0.25 * gap)
+    for g, w in zip(outs, want_outs):
+        assert float((g.detach() - w).abs().max()) <= (
+            BF16_SHORT[0] if short else 5e-2)
+    for i, (g, w) in enumerate(zip(grads, want_grads)):
+        assert g.dtype == w.dtype, i
+        tol = (BF16_SHORT[2 if g.dtype == torch.bfloat16 else 1] if short
+               else 5e-2)
+        assert _rel_err(g.float(), w.float()) <= tol, i
+
+
+@pytest.mark.parametrize("b,t,din,h", [
+    (16, 40, 256, 256), (5, 17, 128, 128), (250, 17, 256, 256),
+    (256, 140, 256, 256),
+])
+def test_lstm_layer_bf16_kernels_match_plain_bf16(dev, b, t, din, h):
+    """K7's bf16 mode (bf16 x and weights, f32 b_sum and states) vs the
+    plain bf16 version: forward with and without residuals, backward;
+    dx, dW_ih and dW_hh come back bf16; +2 / +1 bf16 launches."""
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_layer as K7
+
+    r = _rand(np.random.default_rng(b * t + din), dev)
+    bf = torch.bfloat16
+    args = (r(b, t, din).to(bf), r(din, 4 * h, s=0.06).to(bf),
+            r(4 * h, s=0.06), r(h, 4 * h, s=0.06).to(bf), r(b, h, s=0.3),
+            r(b, h, s=0.3))
+    cots = (r(b, t, h), r(b, h), r(b, h))
+    ysr, (hr, cr) = K7.lstm_layer_reference(*args)
+    before = (K7.fwd_launches, K7.bwd_launches, K7.bf16_fwd_launches,
+              K7.bf16_bwd_launches)
+    ys0, (hn0, cn0) = K7.lstm_layer(*args)
+    leaves = [a.clone().requires_grad_() for a in args]
+    ys, (hn, cn) = K7.lstm_layer(*leaves)
+    grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
+    torch.cuda.synchronize()
+    assert (K7.fwd_launches, K7.bwd_launches, K7.bf16_fwd_launches,
+            K7.bf16_bwd_launches) == (*before[:2], before[2] + 2,
+                                      before[3] + 1)
+    ys32, _ = K7.lstm_layer_reference(*[a.float() for a in args])
+    _bf16_within((ys0, hn0, cn0, ys, hn, cn), grads,
+                 (ysr, hr, cr) * 2, K7.lstm_layer_backward_reference(
+                     args, *cots), short=t <= 40, ys_f32=ys32)
+
+
+@pytest.mark.parametrize("b,t,layers", [
+    (3, 16, 2), (20, 17, 3), (5, 1, 3), (241, 33, 2), (16, 96, 2),
+    (256, 1120, 2),
+])
+def test_lstm_stacked_bf16_kernels_match_plain_bf16(dev, b, t, layers):
+    """K9's bf16 mode (bf16 weights, f32 xw0, b_rest and states) vs the
+    plain bf16 version, from ragged shapes to the lws sampler's B256 x
+    T1120; dW come back bf16, dxw0 f32; +2 / +1 bf16 launches."""
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_stacked as K9
+
+    h = 128
+    r = _rand(np.random.default_rng(b * t + layers), dev)
+    bf = torch.bfloat16
+    args = (r(b, t, 4 * h), r(layers - 1, h, 4 * h, s=0.06).to(bf),
+            r(layers - 1, 4 * h, s=0.06), r(layers, h, 4 * h, s=0.06).to(bf),
+            r(layers, b, h, s=0.3), r(layers, b, h, s=0.3))
+    cots = (r(b, t, h), r(layers, b, h), r(layers, b, h))
+    ysr, (hr, cr) = K9.lstm_stacked_reference(*args)
+    before = K9.bf16_fwd_launches, K9.bf16_bwd_launches
+    ys0, (hn0, cn0) = K9.lstm_stacked_recurrence(*args)
+    leaves = [a.clone().requires_grad_() for a in args]
+    ys, (hn, cn) = K9.lstm_stacked_recurrence(*leaves)
+    grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
+    torch.cuda.synchronize()
+    assert (K9.bf16_fwd_launches, K9.bf16_bwd_launches) == (
+        before[0] + 2, before[1] + 1)
+    ys32, _ = K9.lstm_stacked_reference(*[a.float() for a in args])
+    _bf16_within((ys0, hn0, cn0, ys, hn, cn), grads,
+                 (ysr, hr, cr) * 2, K9.lstm_stacked_backward_reference(
+                     args, *cots), short=t <= 40, ys_f32=ys32)
 
 
 def test_lstm_chains_refuse_rows_they_do_not_take(dev):
