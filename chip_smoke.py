@@ -100,6 +100,11 @@ Phases:
  9c. phase 9 with ``model.dropout=0.1``: per train step K7 +15 / +15 (the
      encoder stacks block by block), K5 +10, K6 +10, no K3 or K4; per
      validation batch as phase 9;
+ 9d. phase 9 with ``trainer.precision=bf16``: per train step the bf16
+     modes, K3 +2, K4 +2, K7 +5 / +5, K5 +2 and K6 +2 (block 0's
+     integrators), and K5's and K6's f32 mode +8 each (the later blocks'
+     f32 queries); per validation batch in f32, as phase 9; the ``last``
+     checkpoint's parameters and optimizer state all f32;
  10. stacked-LSTM wavefront (K9) forward with and without residuals and
      backward vs plain, f32, H128 x L2 at B256 x T1120 (the sampler in
      training) and B16 x T96 (the generation warmup): out, hn, cn <=
@@ -251,14 +256,22 @@ Phases:
  29. the bf16 modes of K7 and K9 (``bf16_kernel_phase``, own generator
      ``SEED + 29``): K7 at B256 x T140, 256 -> 256 and K9 at H128 x L2,
      B256 x T1120 (lstm_with_sampling's blocks and sampler in training),
-     each also at T16 (K9: T32); bf16 x and weights (K9: bf16 weights),
-     f32 biases and states: forward with and without residuals and
-     backward vs the plain bf16 versions within ``BF16_SHORT_TOL`` at the
-     short T and ``BF16_FULL_TOL`` at full length, each gradient in its
-     input's dtype, and the kernel's ys nearer the plain bf16 version's
-     than the plain f32 version's (``bf16_check``); the bf16 kernels and
-     the f32 kernels on the same values timed in turns, the plain bf16
-     versions and cuDNN's ``torch.nn.LSTM`` in bf16 as the yardstick;
+     each also at T16 (K9: T32), and K7 at the flagship's B32 x T252 x
+     256; bf16 x and weights (K9: bf16 weights), f32 biases and states:
+     forward with and without residuals and backward vs the plain bf16
+     versions within ``BF16_SHORT_TOL`` at the short T and
+     ``BF16_FULL_TOL`` at full length, each gradient in its input's dtype,
+     and the kernel's ys nearer the plain bf16 version's than the plain
+     f32 version's (``bf16_check``); the bf16 kernels and the f32 kernels
+     on the same values timed in turns, the plain bf16 versions and
+     cuDNN's ``torch.nn.LSTM`` in bf16 as the yardstick; then the
+     flagship's bf16 modes the same way: the encoder stack (K3 then K4,
+     bf16 W_ih, W_hh and W_ff) at B32 x H256 x L5 over T2016 and T252
+     (``BF16_FULL_TOL`` and the distance test over the first 4 steps)
+     and at L2 x T16 (``BF16_STACK_SHORT_TOL`` and the distance test),
+     and rect attention (K5 then K6, bf16 q, k, v) at B32
+     x 252 x {2016, 252} x 4 heads (``BF16_ATTN_TOL`` and the distance
+     test), with SDPA in bf16 as its yardstick;
  30. lstm_with_sampling's bf16 training step (``bf16_step_phase``, own
      generator ``SEED + 30``) as phase 12 (B256 x T128, AdamW, the
      profiler table in ``_build/profile_lws_bf16_train_step.txt``): per
@@ -267,12 +280,27 @@ Phases:
      same bf16 step on CPU tensors within ``BF16_CARD_CPU_TOL``; then,
      from one model's weights on one batch, the bf16 step's loss within
      ``BF16_LOSS_REL_TOL`` of the f32 step's, the parameters f32 after
-     both; ms a step and peak memory beside phase 12's.
+     both; ms a step and peak memory beside phase 12's;
+ 31. the flagship's bf16 training step (own generator ``SEED + 31``) as
+     phase 8 runs the f32 one (B32 x T240, AdamW, the profiler table in
+     ``_build/profile_bf16_train_step.txt``): per step the bf16 modes, K3
+     +2, K4 +2, K7 +5 / +5, K5 +2, K6 +2, and K5's and K6's f32 mode +8
+     each; the eval step in f32 as phase 8's; the card's bf16 SGD step at
+     B2 x T48 against the same step on CPU tensors within
+     ``BF16_FLAGSHIP_CARD_CPU_TOL`` (each gradient's scale floored at 1e-2
+     of the largest gradient of all: the k projections' biases, zero in
+     exact arithmetic, carry bf16 rounding noise), and its gradients on
+     average within ``BF16_STEP_MEAN_TOL`` of the CPU's bf16 step's, where
+     the CPU's f32 step, the control, must lie beyond it; the bf16 step's
+     loss within
+     ``BF16_LOSS_REL_TOL`` of the f32 step's from one model's weights on
+     one batch; ms a step and peak memory beside phase 8's.
 
 Every kernel's JSON record carries its bound: the larger of its
 operations (FP32 at 67 TFLOP/s; the 3xTF32 products of K5's forward,
 K6, K4's and K7's and K9's backward, and all of K8's and K10's, as three
-TF32 passes at 495; the bf16 modes' products as bf16 at 989) and its
+TF32 passes at 495; the bf16 modes' products, those of K3/K4, K5/K6, K7
+and K9, as bf16 at 989) and its
 bytes at 3.35 TB/s (H100 SXM, 700 W).
 Any failure raises. The last lines are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -344,8 +372,43 @@ BF16_SHORT_T = 16
 BF16_SHORT_TOL, BF16_FULL_TOL, BF16_MODE_FRAC = (1e-3, 2e-3, 1e-2), (
     5e-2, 5e-2, 5e-2), 0.25
 BF16_LOSS_REL_TOL, BF16_CARD_CPU_TOL = 1e-2, (1e-3, 3e-2)
+# rect attention's bf16 mode against its plain bf16 version: the context
+# 1e-2 abs (a normalized weight on a bf16 rounding boundary rounds the
+# other way in one of them: 2^-8 of a weight up to 1 times a value up to
+# ~5), the bf16 gradients 1e-2 of their largest (an ulp or two); the
+# encoder stack's bf16 mode over L5 at T252 and T2016 decorrelates from
+# its plain bf16 version as fast as from a 1e-7 perturbation of its own
+# input (its LayerNorms and chains amplify a rounding flip), so at the
+# full lengths the kernel-vs-f32 distance test (``BF16_MODE_FRAC``) reads
+# the first ``BF16_MODE_STEPS`` steps, before flips compound through the
+# five layers (there two faithful bf16 stacks, the port's plain version
+# and JAX's, differ by 0.02-0.07 of the plain f32 version's distance, and
+# a one-ulp input perturbation moves the plain version up to 0.14 of it;
+# over 16 steps up to 0.26 and 0.21: tests/
+# test_torch_port_bf16_flagship.py), and the whole lengths hold to
+# ``BF16_FULL_TOL``
+BF16_ATTN_TOL = (1e-2, 1e-2, 1e-2)
+# at the short stack a block input or an h on a rounding boundary moves
+# the LayerNormed rows after it by up to ~5e-3 (4.9e-3 at B32): its
+# forward bound is 1e-2 abs
+BF16_MODE_STEPS = 4
+BF16_STACK_SHORT = (2, BF16_SHORT_T)  # layers, steps
+BF16_STACK_SHORT_TOL = (1e-2, *BF16_SHORT_TOL[1:])
+# the flagship's bf16 SGD step on the card against the same step on CPU
+# tensors (B2 x T48), from the models and batches of four seeds
+# (tools/bf16_phases.py cardcpu): a gradient's largest error reads 3.1e-2
+# to 1.5e-1 of its largest magnitude (one input element moved by a bf16
+# ulp moves the CPU's own step by up to 4.6e-2: its encoder stacks and
+# LayerNorms amplify a rounding flip), as far as the CPU's f32 step reads
+# (1.1e-1 to 2.0e-1), so that bound (2e-1) only catches a broken step;
+# the mean over the parameters of each gradient's mean error separates
+# them: 8.4e-3 to 1.6e-2 against the f32 step's
+# 3.7e-2 to 4.5e-2, so it holds to 2.5e-2, and the f32 step, the control,
+# must read beyond it; the loss to 1e-3 relative. cuBLAS's bf16 partial
+# sums in bf16 or in f32 gave the same bits there
+BF16_FLAGSHIP_CARD_CPU_TOL, BF16_STEP_MEAN_TOL = (1e-3, 2e-1), 2.5e-2
 LIBS = ("mixer_stack", "decode_rollout", "lstm_layer", "rect_attention",
-        "lstm_stacked", "gru", "lstm_recurrence")
+        "lstm_stacked", "gru", "lstm_recurrence", "attention_bf16")
 SRC = "multimodalreactiongeneration_tpu_torch/csrc/"
 JAX_OPS = "multimodalreactiongeneration_tpu/ops/"
 
@@ -412,6 +475,10 @@ COUNTERS = {  # kernel name -> (module key, counter attribute)
     "lstm_layer_bf16_bwd": ("K7", "bf16_bwd_launches"),
     "lstm_stacked_bf16_fwd": ("K9", "bf16_fwd_launches"),
     "lstm_stacked_bf16_bwd": ("K9", "bf16_bwd_launches"),
+    "mixer_stack_bf16_train_fwd": ("K1", "bf16_train_fwd_launches"),
+    "mixer_stack_bf16_bwd": ("K1", "bf16_bwd_launches"),
+    "rect_attention_bf16_fwd": ("K5", "bf16_fwd_launches"),
+    "rect_attention_bf16_bwd": ("K5", "bf16_bwd_launches"),
 }
 
 
@@ -1327,16 +1394,29 @@ def spec_model(spec, device):
                          device=device)
 
 
-def grad_rel_errs(model, ref):
+def grad_mean_rel(model, ref):
+    """The mean over the parameters of mean |grad - ref grad| / mean |ref
+    grad| (the k projections' biases, zero in exact arithmetic, left
+    out)."""
+    named_ref = dict(ref.named_parameters())
+    errs = [float((p.grad.to(named_ref[n].grad.device) - named_ref[n].grad)
+                  .abs().mean() / named_ref[n].grad.abs().mean())
+            for n, p in model.named_parameters() if "k_proj_bias" not in n]
+    return float(np.mean(errs))
+
+
+def grad_rel_errs(model, ref, floor=1e-4):
     """(worst, its parameter): max |grad - ref grad| of each parameter over
-    the largest magnitude of ``ref``'s, that scale floored at 1e-4 of
-    ``ref``'s largest gradient of all (phase 8's bound)."""
+    the largest magnitude of ``ref``'s, that scale floored at ``floor`` of
+    ``ref``'s largest gradient of all (phase 8's bound: 1e-4, for the
+    gradients that are zero in exact arithmetic, the k projections'
+    biases)."""
     named_ref = dict(ref.named_parameters())
     g_all = max(float(p.grad.abs().max()) for p in named_ref.values())
     worst, worst_name = 0.0, ""
     for name, p in model.named_parameters():
         g_ref = named_ref[name].grad
-        scale = max(float(g_ref.abs().max()), 1e-4 * g_all)
+        scale = max(float(g_ref.abs().max()), floor * g_all)
         e = float((p.grad.to(g_ref.device) - g_ref).abs().max()) / scale
         if e > worst:
             worst, worst_name = e, name
@@ -1406,7 +1486,8 @@ def train_path_phase(mods, dev, rng, spec):
         to_device(small, dev))
     loss_cpu, _ = spec_step_fns(spec, model_cpu, sgd)[0](small)
     loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
-    worst, worst_name = grad_rel_errs(model_card, model_cpu)
+    worst, worst_name = grad_rel_errs(model_card, model_cpu,
+                                      spec.get("grad_floor", 1e-4))
     log(tag, card_vs_cpu_loss_rel_err=f"{loss_rel:.3e}",
         card_vs_cpu_grad_max_rel_err=f"{worst:.3e}", worst=worst_name,
         loss_card=f"{float(loss_card):.7f}", loss_cpu=f"{float(loss_cpu):.7f}")
@@ -1418,13 +1499,27 @@ def train_path_phase(mods, dev, rng, spec):
     if not worst <= grad_tol:
         raise AssertionError(f"{tag} card vs CPU gradient of {worst_name}: "
                              f"{worst} > {grad_tol}")
+    mode = None
+    if spec.get("f32_twin"):  # the mean errors: the card, the control
+        model_f32 = spec_model(spec, "cpu")
+        spec_step_fns(spec["f32_twin"](), model_f32, sgd)[0](small)
+        mode = dict(vs_bf16=grad_mean_rel(model_card, model_cpu),
+                    vs_f32=grad_mean_rel(model_card, model_f32))
+        log(tag, card_vs_cpu_grad_mean_rel_err=f"{mode['vs_bf16']:.3e}",
+            card_vs_cpu_f32_step_grad_mean_rel_err=f"{mode['vs_f32']:.3e}")
+        if not mode["vs_bf16"] <= BF16_STEP_MEAN_TOL < mode["vs_f32"]:
+            raise AssertionError(
+                f"{tag}: card step {mode['vs_bf16']} from the CPU bf16 step, "
+                f"{mode['vs_f32']} from the CPU f32 one, the bound "
+                f"{BF16_STEP_MEAN_TOL} between")
     return {"launches": launches, "record": {
         "batch": batch_size, "frames": frames, "steps": TRAIN_STEPS,
         "ms": step_ms, "frames_per_s": frames_per_s, "losses": losses,
         "peak_mem_gib": peak_gib, "device_busy_share": busy,
         "stack_overlap": overlap, "stack_schedule_ab": ab,
         "card_vs_cpu_loss_rel_err": loss_rel,
-        "card_vs_cpu_grad_max_rel_err": worst}}
+        "card_vs_cpu_grad_max_rel_err": worst,
+        "card_vs_cpu_grad_mean_rel_err": mode}}
 
 
 @contextlib.contextmanager
@@ -3148,15 +3243,16 @@ def bound_bf16(flops, bytes_):
 
 
 def bf16_check(name, outs, grads, want_outs, want_grads, ys_f32, short,
-               **kv):
+               tol=None, mode_frac=BF16_MODE_FRAC, mode_steps=None, **kv):
     """A bf16 mode's outputs and gradients against its plain bf16
-    version's: within ``BF16_SHORT_TOL`` at a short T and
-    ``BF16_FULL_TOL`` over the full length (forward abs; the f32 and the
-    bf16 gradients relative to their largest magnitude); each gradient in
-    its input's dtype; and the kernel's ys on average at most
-    ``BF16_MODE_FRAC`` as far from the plain bf16 ys as the plain f32 ys
-    is (a kernel that took f32 operands would not be). Returns the
-    errors."""
+    version's: within ``tol``, by default ``BF16_SHORT_TOL`` at a short T
+    and ``BF16_FULL_TOL`` over the full length (forward abs; the f32 and
+    the bf16 gradients relative to their largest magnitude); each
+    gradient in its input's dtype; and (``mode_frac`` not None) the
+    kernel's ys on average at most ``mode_frac`` as far from the plain
+    bf16 ys as the plain f32 ys is (a kernel that took f32 operands would
+    not be; over the first ``mode_steps`` rows of the time axis where
+    given). Returns the errors."""
     for i, (g, w) in enumerate(zip(grads, want_grads)):
         if g.dtype != w.dtype:
             raise AssertionError(f"{name} {kv}: gradient {i} is {g.dtype}, "
@@ -3166,17 +3262,21 @@ def bf16_check(name, outs, grads, want_outs, want_grads, ys_f32, short,
              for dt in ("f32", "bf16")}
     fwd = max_err(outs, want_outs)
     mean_gap = lambda a, b: float((a.detach().float() - b).abs().mean())
-    gap = mean_gap(ys_f32[0], want_outs[0])
-    ys_err = mean_gap(outs[0], want_outs[0])
-    tol = BF16_SHORT_TOL if short else BF16_FULL_TOL
-    g32, g16 = (rel_err(*zip(*pairs[dt])) for dt in ("f32", "bf16"))
+    window = slice(None) if mode_steps is None else slice(0, mode_steps)
+    gap = mean_gap(ys_f32[0][:, window], want_outs[0][:, window])
+    ys_err = mean_gap(outs[0][:, window], want_outs[0][:, window])
+    if tol is None:
+        tol = BF16_SHORT_TOL if short else BF16_FULL_TOL
+    g32, g16 = (rel_err(*zip(*pairs[dt])) if pairs[dt] else 0.0
+                for dt in ("f32", "bf16"))
     log(name, fwd_max_abs_err=f"{fwd:.3e}", grad_f32_max_rel_err=f"{g32:.3e}",
         grad_bf16_max_rel_err=f"{g16:.3e}", ys_mean_abs_err=f"{ys_err:.3e}",
-        plain_f32_vs_bf16_ys_mean=f"{gap:.3e}", **kv)
+        plain_f32_vs_bf16_ys_mean=f"{gap:.3e}", mode_steps=mode_steps,
+        **kv)
     if not (fwd <= tol[0] and g32 <= tol[1] and g16 <= tol[2]):
         raise AssertionError(f"{name} {kv}: errors {fwd}, {g32}, {g16} "
                              f"beyond {tol}")
-    if not ys_err <= BF16_MODE_FRAC * gap:
+    if mode_frac is not None and not ys_err <= mode_frac * gap:
         raise AssertionError(f"{name} {kv}: ys {ys_err} from the plain bf16 "
                              f"version, the plain f32 one {gap}")
     return dict(fwd_max_abs_err=fwd, grad_f32_max_rel_err=g32,
@@ -3249,14 +3349,17 @@ def bf16_case(name, mod, key, call, fwd, bwd, plain, plain_bwd, args, cots,
 def bf16_kernel_phase(mods, dev, rng):
     """29. The bf16 modes of K7 and K9 at lstm_with_sampling's shapes, in
     training: K7 at B256 x T140, 256 -> 256 (a layered block), K9 at H128
-    x L2, B256 x T1120 (the sampler), each also at T16 (``bf16_case``)."""
+    x L2, B256 x T1120 (the sampler), each also at T16 (``bf16_case``);
+    K7 also at the flagship's self-motion LSTMs, B32 x T252; then the
+    flagship's bf16 modes of K3/K4 (``bf16_stack_case``) and K5/K6
+    (``bf16_attention_case``). Returns (k7, k9, stack, attention)."""
     K7, K9 = mods["K7"], mods["K9"]
     bf = torch.bfloat16
     r = seeded(rng, dev)
     k7, k9 = [], []
-    din = h = 256
-    for t in (LEAD + LWS_FRAMES, BF16_SHORT_T):
-        b = LWS_B
+    din = 256
+
+    def k7_case(b, t, h=256):
         args = (r(b, t, din).to(bf), r(din, 4 * h, s=0.06).to(bf),
                 r(4 * h, s=0.06), r(h, 4 * h, s=0.06).to(bf), r(b, h, s=0.3),
                 r(b, h, s=0.3))
@@ -3264,15 +3367,17 @@ def bf16_kernel_phase(mods, dev, rng):
         # x.W_ih and h.W_hh: 2 B T 4H (din + H); the backward: the chain's
         # dgates.W_hh^T, 2 B T 4H H, and dW_ih, dW_hh and dx, 2 B T 4H
         # (2 din + H)
-        k7.append(bf16_case(
+        return bf16_case(
             "lstm_layer_bf16", K7, h, K7.lstm_layer,
             lambda a, res: K7.lstm_layer_forward(a, res),
             lambda a, out, c=cots: K7.lstm_layer_backward(
                 a, out[0], out[3], out[4], *c),
             K7.lstm_layer_reference, K7.lstm_layer_backward_reference, args,
             cots, (8 * b * t * h * (din + h), 8 * b * t * h * (2 * din + 2 * h)),
-            cudnn_lstm_ms, B=b, T=t, din=din, H=h))
-        del args, cots
+            cudnn_lstm_ms, B=b, T=t, din=din, H=h)
+
+    for t in (LEAD + LWS_FRAMES, BF16_SHORT_T):
+        k7.append(k7_case(LWS_B, t))
     h, layers = 128, 2
     for t in ((LEAD + LWS_FRAMES) * RATIO, 2 * BF16_SHORT_T):
         b = LWS_B
@@ -3291,7 +3396,170 @@ def bf16_kernel_phase(mods, dev, rng):
             args, cots, (flops, 2 * flops), cudnn_stacked_ms, B=b, T=t, L=layers,
             H=h))
         del args, cots
-    return k7, k9
+    k7.append(k7_case(TRAIN_B, LEAD + TRAIN_FRAMES))
+    stack = [bf16_stack_case(mods["K1"], r, TRAIN_B, t, layers)
+             for layers, t in ((5, (LEAD + TRAIN_FRAMES) * RATIO),
+                               (5, LEAD + TRAIN_FRAMES), BF16_STACK_SHORT)]
+    attention = [bf16_attention_case(mods["K5"], r, rng, dev, lk)
+                 for lk in ((LEAD + TRAIN_FRAMES) * RATIO,
+                            LEAD + TRAIN_FRAMES)]
+    return k7, k9, stack, attention
+
+
+def bf16_in_turns(run, args, args32):
+    """ms of ``run(a)`` (a dict of timings) on the bf16 arguments and on
+    the same values converted to f32 (the f32 kernel), in turns (bf16,
+    f32, f32, bf16): the mean of each."""
+    runs = {}
+    for mode in ("bf16", "f32", "f32", "bf16"):
+        runs.setdefault(mode, []).append(
+            run(args if mode == "bf16" else args32))
+    return {k: {m: float(np.mean([x[m] for x in v])) for m in v[0]}
+            for k, v in runs.items()}
+
+
+def bf16_stack_case(K1, r, b, t, layers, h=256):
+    """The encoder stack's bf16 mode (K3 then K4, as the flagship's bf16
+    step runs it: bf16 W_ih, W_hh and W_ff, the rest f32) at B x T x
+    layers vs the plain bf16 version (``bf16_check``; at the full lengths
+    the distance test over the first ``BF16_MODE_STEPS`` steps); the bf16
+    kernels and
+    the f32 kernels on the same values in turns; the plain bf16 version's
+    ms; the bounds of the bf16 mode (its products at 989 TFLOP/s: 18 L B
+    T H^2 forward, twice that backward)."""
+    n = layers
+    args32 = (r(b, t, h), r(n, h, 4 * h, s=0.06), r(n, 4 * h, s=0.06),
+              r(n, h, 4 * h, s=0.06), r(n, h, h, s=0.06), r(n, h, s=0.1),
+              r(n, h, s=0.1, mean=1.0), r(n, h, s=0.1),
+              r(n, h, s=0.1, mean=1.0), r(n, h, s=0.1),
+              r(n, b, h, s=0.3), r(n, b, h, s=0.3))
+    args = tuple(a.to(torch.bfloat16) if i in K1._WEIGHTS else a
+                 for i, a in enumerate(args32))
+    args32 = tuple(a.float() for a in args)  # the same values in f32
+    cots = (r(b, t, h), r(n, b, h), r(n, b, h))
+    leaves = [a.clone().requires_grad_() for a in args]
+    y, (hn, cn) = K1.mixer_stack_recurrence(*leaves)
+    grads = torch.autograd.grad((y, hn, cn), leaves, cots)
+    del leaves
+    with torch.no_grad():
+        plain_fwd_ms, (yr, (hr, cr)) = cuda_ms(
+            lambda: K1.mixer_stack_forward_reference(*args), 1)
+        y32 = K1.mixer_stack_forward_reference(*args32)[0]
+    plain_bwd_ms, want = cuda_ms(
+        K1.mixer_stack_backward_reference(args, *cots, closure=True), 1)
+    short = (n, t) == BF16_STACK_SHORT
+    errs = bf16_check("mixer_stack_bf16", (y, hn, cn), grads, (yr, hr, cr),
+                      want, (y32,), short,
+                      tol=BF16_STACK_SHORT_TOL if short else BF16_FULL_TOL,
+                      mode_steps=None if short else BF16_MODE_STEPS,
+                      B=b, T=t, L=n)
+    del yr, hr, cr, want, y32
+
+    def run(a):
+        out = K1.mixer_stack_train_forward(*a)
+        times = dict(
+            fwd_ms=cuda_ms(lambda: K1.mixer_stack_train_forward(*a), 3)[0],
+            bwd_ms=cuda_ms(lambda: K1.mixer_stack_backward(
+                a, out[3], *cots), 3)[0])
+        del out
+        return times
+
+    times = bf16_in_turns(run, args, args32)
+    out = K1.mixer_stack_train_forward(*args)
+    fwd_bound = bound_bf16(18 * n * b * t * h * h, nbytes(args, out))
+    bwd_bound = bound_bf16(36 * n * b * t * h * h,
+                           nbytes(args, out[3], cots, grads))
+    del out, grads
+    log("mixer_stack_bf16", B=b, T=t, L=n, bf16=fmt(times["bf16"]),
+        f32_kernel=fmt(times["f32"]), plain_fwd_ms=f"{plain_fwd_ms:.3f}",
+        plain_bwd_ms=f"{plain_bwd_ms:.3f}",
+        fwd_bound_ms=f"{fwd_bound[0]:.3f}", bwd_bound_ms=f"{bwd_bound[0]:.3f}",
+        chunk=K1.chunk_steps(b, t, h, n),
+        bwd_chunk=K1.backward_chunk_steps(b, t, h, n))
+    return dict(B=b, T=t, L=n, **errs, **times["bf16"],
+                f32_kernel=times["f32"], plain_fwd_ms=plain_fwd_ms,
+                plain_bwd_ms=plain_bwd_ms, fwd_bound=fwd_bound,
+                bwd_bound=bwd_bound)
+
+
+def bf16_attention_case(K5, r, rng, dev, lk):
+    """Rect attention's bf16 mode (K5 then K6, as block 0's integrators
+    run it in the flagship's bf16 step: bf16 q, k, v) at B32 x 252 x Lk x
+    4 heads, 10% padded rows and keys, vs the plain bf16 version
+    (``bf16_check`` within ``BF16_ATTN_TOL``); the bf16 kernels and the
+    f32 kernels on the same values in turns; SDPA in bf16 with the
+    boolean mask (forward, and its backward through autograd) as the
+    yardstick; the bounds of the bf16 mode over the (query, key) pairs the
+    mask leaves (4 and 10 FLOPs per pair and head dim at 989 TFLOP/s)."""
+    import torch.nn.functional as F
+
+    b, lq, e, heads = TRAIN_B, LEAD + TRAIN_FRAMES, 256, 4
+    dh, bf = e // heads, torch.bfloat16
+    q, k, v, g = r(b, lq, e).to(bf), r(b, lk, e).to(bf), r(b, lk, e).to(bf), \
+        r(b, lq, e)
+    q_pad = torch.from_numpy(rng.random((b, lq)) < 0.1).to(dev)
+    k_pad = torch.from_numpy(rng.random((b, lk)) < 0.1).to(dev)
+    args = (heads, q, k, v, q_pad, k_pad)
+    args32 = (heads, q.float(), k.float(), v.float(), q_pad, k_pad)
+    with torch.no_grad():
+        out0 = K5.rect_attention(*args)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = K5.rect_attention(heads, *leaves, q_pad, k_pad)
+    grads = torch.autograd.grad(out, leaves, g)
+    with torch.no_grad():
+        plain_fwd_ms, want = cuda_ms(
+            lambda: K5.rect_attention_bf16_reference(*args), 1)
+        ctx32 = K5.rect_attention_reference(*args32)
+    plain_bwd_ms, wgrads = cuda_ms(
+        K5.rect_attention_backward_reference(*args, g, closure=True), 1)
+    errs = bf16_check("rect_attention_bf16", (out0, out.detach()), grads,
+                      (want, want), wgrads, (ctx32,), False,
+                      tol=BF16_ATTN_TOL, B=b, Lq=lq, Lk=lk)
+    del out0, out, want, wgrads, ctx32
+
+    def run(a):
+        ctx, m, l = K5.rect_attention_forward(*a, residuals=True)
+        times = dict(
+            fwd_ms=cuda_ms(lambda: K5.rect_attention_forward(*a), 5)[0],
+            fwd_res_ms=cuda_ms(lambda: K5.rect_attention_forward(
+                *a, residuals=True), 5)[0],
+            bwd_ms=cuda_ms(lambda: K5.rect_attention_backward(
+                *a, ctx, m, l, g), 5)[0])
+        del ctx, m, l
+        return times
+
+    times = bf16_in_turns(run, args, args32)
+    # yardstick only, never called by the port
+    allowed = ~K5.rect_attention_mask(q_pad, k_pad)[:, None]
+    lib_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def split(x):
+        return x.view(b, x.shape[1], heads, dh).transpose(1, 2)
+
+    lib_fwd_ms, lib_out = cuda_ms(lambda: F.scaled_dot_product_attention(
+        *[split(x) for x in lib_leaves], attn_mask=allowed), 5)
+    lib_bwd_ms, _ = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, lib_leaves, split(g.to(bf)), retain_graph=True), 5)
+    del lib_out, lib_leaves, allowed
+    pairs = rect_pairs(q_pad, k_pad) * heads
+    ctx = K5.rect_attention_forward(*args)
+    fwd_bound = bound_bf16(4 * pairs * dh, nbytes(args, ctx))
+    bwd_bound = bound_bf16(10 * pairs * dh, nbytes(args, g, grads))
+    planes = 2 * K5.plane_bytes(heads, b, lq, lk) + 2 * K5.plane_bytes(
+        heads, b, lq, lk, bf16=True)
+    del ctx, grads
+    log("rect_attention_bf16", B=b, Lq=lq, Lk=lk, bf16=fmt(times["bf16"]),
+        f32_kernel=fmt(times["f32"]), plain_fwd_ms=f"{plain_fwd_ms:.3f}",
+        plain_bwd_ms=f"{plain_bwd_ms:.3f}",
+        library_bf16_fwd_ms=f"{lib_fwd_ms:.3f}",
+        library_bf16_bwd_ms=f"{lib_bwd_ms:.3f}",
+        fwd_bound_ms=f"{fwd_bound[0]:.3f}", bwd_bound_ms=f"{bwd_bound[0]:.3f}",
+        bwd_scratch_bytes=planes)
+    return dict(B=b, Lq=lq, Lk=lk, **errs, **times["bf16"],
+                f32_kernel=times["f32"], plain_fwd_ms=plain_fwd_ms,
+                plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
+                library_bwd_ms=lib_bwd_ms, fwd_bound=fwd_bound,
+                bwd_bound=bwd_bound, bwd_scratch_bytes=planes)
 
 
 def lws_bf16_train_spec():
@@ -3311,16 +3579,45 @@ def lws_bf16_train_spec():
     return spec
 
 
-def bf16_step_phase(mods, dev, rng):
-    """30. The bf16 training step of lstm_with_sampling as phase 12 runs
-    the f32 one (``lws_bf16_train_spec``); then, from one model's weights
-    on one batch, the bf16 step's loss against the f32 step's, within
-    ``BF16_LOSS_REL_TOL``, the parameters f32 after both."""
-    spec = lws_bf16_train_spec()
+def metaformer_bf16_train_spec():
+    """The flagship's bf16 step (``trainer.precision: bf16``): per step the
+    encoder stacks' bf16 mode, K3 +2 / K4 +2, K7's, +5 / +5, and rect
+    attention's bf16 mode for block 0's two integrators (bf16 queries),
+    K5 +2 / K6 +2, its f32 mode for the later blocks' eight (f32 queries
+    out of f32 contexts, as JAX promotes them), K5 +8 / K6 +8; the eval
+    step in f32 as phase 8's; the card against CPU tensors within
+    ``BF16_FLAGSHIP_CARD_CPU_TOL`` (gradients floored at 1e-2 of the
+    largest: the k projections' biases carry bf16 rounding noise), and on
+    average within ``BF16_STEP_MEAN_TOL`` of the CPU's bf16 step, the
+    CPU's f32 step beyond it."""
+    spec = metaformer_train_spec()
+    spec.update(
+        tag="bf16_train_step", eval_tag="bf16_eval_step",
+        compute_dtype=torch.bfloat16, stack_ab=False,
+        per_step=dict(mixer_stack_bf16_train_fwd=2, mixer_stack_bf16_bwd=2,
+                      lstm_layer_bf16_fwd=5, lstm_layer_bf16_bwd=5,
+                      rect_attention_bf16_fwd=2, rect_attention_bf16_bwd=2,
+                      rect_attention_fwd=8, rect_attention_bwd=8),
+        profile="profile_bf16_train_step.txt",
+        card_vs_cpu_tol=BF16_FLAGSHIP_CARD_CPU_TOL,
+        f32_twin=metaformer_train_spec,
+        # the k projections' biases: their gradients are zero in exact
+        # arithmetic, so both sides give rounding noise, in bf16 ~2^-8 of
+        # the gradients it is summed from
+        grad_floor=1e-2)
+    return spec
+
+
+def bf16_step_phase(mods, dev, rng, spec, f32_spec, tag):
+    """30. and 31. A bf16 training step as the f32 one's phase runs it
+    (``spec``: lstm_with_sampling's, then the flagship's); then, from one
+    model's weights on one batch, the bf16 step's loss against the f32
+    step's (``f32_spec``), within ``BF16_LOSS_REL_TOL``, the parameters
+    f32 after both."""
     step = train_path_phase(mods, dev, rng, spec)
     batch = spec_batch(spec, rng, spec["batch"], dev)
     losses = {}
-    for name, s in (("f32", lws_train_spec()), ("bf16", spec)):
+    for name, s in (("f32", f32_spec), ("bf16", spec)):
         model = spec_model(s, dev)
         losses[name] = float(spec_step_fns(s, model, s["optim"])[0](
             batch)[0])
@@ -3329,7 +3626,7 @@ def bf16_step_phase(mods, dev, rng):
             raise AssertionError(f"{name} step: parameters {dtypes}")
         del model
     rel = abs(losses["bf16"] - losses["f32"]) / abs(losses["f32"])
-    log("lws_bf16_vs_f32_step", loss_f32=f"{losses['f32']:.7f}",
+    log(tag, loss_f32=f"{losses['f32']:.7f}",
         loss_bf16=f"{losses['bf16']:.7f}", rel_err=f"{rel:.3e}")
     if not rel <= BF16_LOSS_REL_TOL:
         raise AssertionError(f"bf16 step loss {losses['bf16']} vs f32 "
@@ -3350,6 +3647,80 @@ def lws_bf16_cli_launches(launches, steps):
     if launches != want:
         raise AssertionError(f"lws bf16 cli launches {launches}, want {want}")
     return n_eval
+
+
+def metaformer_bf16_cli_launches(launches, steps):
+    """``trainer.precision=bf16`` on the flagship: every train step the
+    bf16 modes, K3 +2, K4 +2, K7 +5 / +5, K5 +2 and K6 +2, and K5's and
+    K6's f32 mode +8 each (the later blocks' f32 queries); every
+    validation batch in f32, as ``metaformer_cli_launches``'. Returns the
+    validation batches."""
+    n_eval = (launches["rect_attention_fwd"] - 8 * steps) // 10
+    want = {k: 0 for k in COUNTERS}
+    want.update(mixer_stack_bf16_train_fwd=2 * steps,
+                mixer_stack_bf16_bwd=2 * steps,
+                lstm_layer_bf16_fwd=5 * steps, lstm_layer_bf16_bwd=5 * steps,
+                rect_attention_bf16_fwd=2 * steps,
+                rect_attention_bf16_bwd=2 * steps,
+                rect_attention_fwd=8 * steps + 10 * n_eval,
+                rect_attention_bwd=8 * steps,
+                lstm_layer_fwd=5 * n_eval, mixer_stack=4 * n_eval,
+                decode_rollout=launches["decode_rollout"])
+    if launches != want or launches["decode_rollout"] < n_eval:
+        raise AssertionError(f"bf16 cli launches {launches}, want {want} "
+                             f"and decode_rollout >= {n_eval}")
+    return n_eval
+
+
+def checkpoint_dtypes(run, tag):
+    """The dtypes of the parameters and of the optimizer state's floating
+    tensors in ``tag``'s ``last`` checkpoint: f32 only, or raise."""
+    saved = torch.load(run / f"ckpt_{tag}" / "smoke" / "last",
+                       weights_only=True)
+    tensors = list(saved["params"].values()) + [
+        v for st in saved["opt"]["state"].values() for v in st.values()
+        if torch.is_tensor(v) and v.is_floating_point()]
+    dtypes = sorted({str(v.dtype) for v in tensors})
+    log(tag, checkpoint_dtypes=dtypes)
+    if dtypes != ["torch.float32"]:
+        raise AssertionError(f"{tag} checkpoint holds {dtypes}")
+    return dtypes
+
+
+def flagship_bf16_records(stack, attention, launches, **more_launches):
+    """The JSON entries of the bf16 modes of K3/K4 and K5/K6: launches from
+    the flagship's bf16 CLI run (phase 9d), the bf16 train step's beside
+    them; the main case the audio encoder (B32 x L5 x T2016) and the
+    audio integrator (Lk 2016); the f32 kernel's ms on the same values
+    beside; SDPA in bf16 the yardstick of K5/K6; no single PyTorch call
+    computes the encoder stack."""
+    records = []
+    for cases, names, src, fwd_at, bwd_at, fwd_key in (
+            (stack, ("mixer_stack_bf16_train_fwd", "mixer_stack_bf16_bwd"),
+             "mixer_stack.cu", "pallas_mixer_stack.py:110",
+             "pallas_mixer_stack.py:297", "fwd_ms"),
+            (attention, ("rect_attention_bf16_fwd", "rect_attention_bf16_bwd"),
+             "attention_bf16.cu", "pallas_rect_attention.py:85",
+             "pallas_rect_attention.py:117", "fwd_res_ms")):
+        main = cases[0]
+        extra = {f"launches_{k}": {n: v[n] for n in names}
+                 for k, v in more_launches.items()}
+        records += [
+            kernel_record(
+                names[0], src, fwd_at, launches[names[0]],
+                max(c["fwd_max_abs_err"] for c in cases), main[fwd_key],
+                main["plain_fwd_ms"], main["fwd_bound"],
+                main.get("library_fwd_ms"),
+                f32_kernel_ms=main["f32_kernel"][fwd_key], dtype="bf16",
+                cases=cases, **extra),
+            kernel_record(
+                names[1], src, bwd_at, launches[names[1]],
+                max(c["grad_max_abs_err"] for c in cases), main["bwd_ms"],
+                main["plain_bwd_ms"], main["bwd_bound"],
+                main.get("library_bwd_ms"),
+                f32_kernel_ms=main["f32_kernel"]["bwd_ms"], dtype="bf16"),
+        ]
+    return records
 
 
 def bf16_records(k7, k9, launches, **more_launches):
@@ -3666,6 +4037,11 @@ def main():
                             "dropout_cli", ["batch_size=32",
                                             f"model.dropout={DROPOUT}"],
                             metaformer_dropout_cli_launches)
+    bf16_cli = cli_phase(mods, run, "configs/lstmformer.yaml", "bf16_cli",
+                         ["batch_size=32", "trainer.precision=bf16"],
+                         metaformer_bf16_cli_launches)
+    bf16_cli["record"]["checkpoint_dtypes"] = checkpoint_dtypes(run,
+                                                                "bf16_cli")
 
     # ---- 10.-13. lstm_with_sampling: K9, generation, step, CLI ---------
     stacked = lstm_stacked_phase(K9, dev, rng)
@@ -3688,12 +4064,8 @@ def main():
                              "lws_bf16_cli", ["exp.batch_size=32",
                                               "trainer.precision=bf16"],
                              lws_bf16_cli_launches)
-    saved = torch.load(run / "ckpt_lws_bf16_cli" / "smoke" / "last",
-                       weights_only=True)
-    dtypes = sorted({str(v.dtype) for v in saved["params"].values()})
-    log("lws_bf16_cli", checkpoint_param_dtypes=dtypes)
-    if dtypes != ["torch.float32"]:
-        raise AssertionError(f"bf16 cli checkpoint holds {dtypes}")
+    lws_bf16_cli["record"]["checkpoint_dtypes"] = checkpoint_dtypes(
+        run, "lws_bf16_cli")
 
     # ---- 14.-17. the GRU Metaformer: K10, generation, step, CLI ---------
     gru = gru_phase(K10, dev, rng)
@@ -3732,10 +4104,16 @@ def main():
     k8_launches = {k: sum(v[k] for v in k8_runs.values())
                    for k in ("lstm_recurrence_fwd", "lstm_recurrence_bwd")}
 
-    # ---- 29.-30. bf16 training of lstm_with_sampling -------------------
-    bf16_k7, bf16_k9 = bf16_kernel_phase(
+    # ---- 29.-31. bf16 training: the bf16 modes, the lws and flagship steps
+    bf16_k7, bf16_k9, bf16_stack, bf16_attention = bf16_kernel_phase(
         mods, dev, np.random.default_rng(SEED + 29))
-    bf16_step = bf16_step_phase(mods, dev, np.random.default_rng(SEED + 30))
+    bf16_step = bf16_step_phase(
+        mods, dev, np.random.default_rng(SEED + 30), lws_bf16_train_spec(),
+        lws_train_spec(), "lws_bf16_vs_f32_step")
+    flagship_bf16_step = bf16_step_phase(
+        mods, dev, np.random.default_rng(SEED + 31),
+        metaformer_bf16_train_spec(), metaformer_train_spec(),
+        "bf16_vs_f32_step")
 
     k1_main, k2_main = k1_cases[0], k2_cases[1]
     # no single PyTorch call computes the encoder stack or the rollout
@@ -3768,7 +4146,12 @@ def main():
                      train_step=gru_step["launches"]),
         *recurrence_records(recurrence, k8_launches, **k8_runs),
         *bf16_records(bf16_k7, bf16_k9, lws_bf16_cli["launches"],
-                      train_step=bf16_step["launches"]),
+                      train_step=bf16_step["launches"],
+                      flagship_bf16_cli=bf16_cli["launches"],
+                      flagship_bf16_train_step=flagship_bf16_step["launches"]),
+        *flagship_bf16_records(bf16_stack, bf16_attention,
+                               bf16_cli["launches"],
+                               train_step=flagship_bf16_step["launches"]),
     ], "generation": {"batch": B, "frames": FRAMES, "ms": gen_ms,
                       "frames_per_s": B * FRAMES / (gen_ms / 1000),
                       "stack_schedule_ab": {"ms": gen_ab,
@@ -3793,6 +4176,10 @@ def main():
         "dropout_cli": dropout_cli["record"],
         "lws_ss_cli": lws_ss_cli["record"],
         "lws_bf16_cli": lws_bf16_cli["record"],
+        "bf16_cli": bf16_cli["record"],
+        "bf16_train_step": dict(
+            flagship_bf16_step["record"], f32_ms=step["record"]["ms"],
+            f32_peak_mem_gib=step["record"]["peak_mem_gib"]),
         "lws_bf16_train_step": dict(
             bf16_step["record"], f32_ms=lws_step["record"]["ms"],
             f32_peak_mem_gib=lws_step["record"]["peak_mem_gib"]),

@@ -21,7 +21,8 @@
 // shared memory as bf16 (half the bytes), h is rounded to bf16 where it
 // enters the product (the exchanged copy; the state and the outputs stay
 // FP32), and the product sums in FP32, as the JAX kernels' bf16 mode
-// (ops/lstm_bf16.py).
+// (ops/lstm_bf16.py); the encoder stack's bf16 mode instantiates the
+// window kernel so (mixer_stack.cu).
 
 #pragma once
 
@@ -370,16 +371,17 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_kernel(
 
 // A window of n steps from step t0 (the encoder stack's chunks): xw (B,
 // n, 4H); rnn, acts, cs the (B, T) planes; h0, c0 the state before step
-// t0, hn, cn after step t0 + n - 1 (other buffers than h0, c0).
-template <int R>
+// t0, hn, cn after step t0 + n - 1 (other buffers than h0, c0). TW: the
+// weights' type, as lstm_cluster_steps.
+template <int R, typename TW = float>
 __global__ void __launch_bounds__(NT, 1) lstm_window_kernel(
-    const float* __restrict__ xw, const float* __restrict__ w_hh_t,
+    const float* __restrict__ xw, const TW* __restrict__ w_hh_t,
     const float* __restrict__ h0, const float* __restrict__ c0,
     float* __restrict__ rnn, float* __restrict__ hn, float* __restrict__ cn,
     float* __restrict__ acts, float* __restrict__ cs, int B, int T, int H,
     int t0, int n) {
-  lstm_cluster_steps<R, true>(xw, w_hh_t, h0, c0, rnn, hn, cn, acts, cs, B,
-                              T, H, t0, n);
+  lstm_cluster_steps<R, true, TW>(xw, w_hh_t, h0, c0, rnn, hn, cn, acts, cs,
+                                  B, T, H, t0, n);
 }
 
 int check_launch() { return (int)cudaGetLastError(); }

@@ -6,6 +6,10 @@
 //   mixer_stack_forward_f32         _fwd_kernel_light  (the primal)
 //   mixer_stack_train_forward_f32   _fwd_kernel        (_vjp_fwd)
 //   mixer_stack_backward_f32        _bwd_kernel        (_vjp_bwd)
+// and the training forward and backward in JAX's bf16 operand mode (bf16
+// W_ih, W_hh and W_ff; the rest FP32):
+//   mixer_stack_train_forward_bf16  _fwd_kernel
+//   mixer_stack_backward_bf16       _bwd_kernel
 // Each of the L blocks computes  LSTM -> +x -> LN -> Dense(H->H) -> +res
 // -> LN  over (B, T, H); the stack returns the top block's output and
 // every block's final (h, c).
@@ -100,10 +104,26 @@
 // per layer (the layers run at once): the chunk buffers and the carries,
 // B*C rows and no (B, T) plane; and the side stream's partials. The
 // chain is (ceil(T/C) + L - 1) * C reverse steps instead of L * T.
+//
+// The bf16 operand mode (TW = bf16; JAX's _fwd_kernel and _bwd_kernel
+// with bf16 weights): every product rounds its activation operand to bf16
+// and takes the bf16 weights, with FP32 sums; the states, the cell math,
+// the LayerNorms, the residual planes, dx0, db and the LayerNorm
+// gradients stay FP32. The forward's chunk input product and Dense, and
+// the backward's dy, dx and three weight-gradient reductions, run as one
+// bf16 mma.sync.m16n8k16 pass each (bf16_gemm.cuh) where the FP32 mode
+// takes SIMT FP32 and 3xTF32; the chains are the window kernels
+// instantiated on bf16 W_hh (h and the dgates rounded at the product).
+// The weight gradients add their chunks' sums in FP32 (in scratch) and
+// round to bf16 once, after the layer's last chunk, as JAX casts its f32
+// sums. The bf16 chains' CTAs reserve the FP32 mode's shared memory, so
+// they land one an SM as the FP32 ones do (at H256 two bf16 CTAs would
+// share an SM: PERF.md, PR 18).
 
 #include <mutex>
 #include <vector>
 
+#include "bf16_gemm.cuh"
 #include "tc_gemm.cuh"
 
 namespace {
@@ -132,7 +152,7 @@ bool shape_ok(int B, int T, int H, int L) {
   return hidden_ok(H) && B > 0 && T > 0 && L > 0;
 }
 
-const auto window_kernel = lstm_window_kernel<STACK_ROWS>;
+const auto window_kernel = lstm_window_kernel<STACK_ROWS, float>;
 
 // Scratch of the forward per layer: the xw chunk buffer (4H per row of a
 // chunk), the inference forward's LSTM output, y and z chunk buffers (H
@@ -192,15 +212,63 @@ int lanes_for(int L, int n_events, Lanes** out) {
   return 0;
 }
 
+template <typename TW>
 struct StackArgs {
-  const float *x0, *w_ih_t, *b_g, *w_hh_t, *w_ff, *b_ff, *g1, *b1, *g2, *b2,
-      *h0, *c0;
+  const float* x0;
+  const TW* w_ih_t;
+  const float* b_g;
+  const TW *w_hh_t, *w_ff;
+  const float *b_ff, *g1, *b1, *g2, *b2, *h0, *c0;
   float *out, *hn, *cn, *res, *ws;
   int B, T, H, L, C;
 };
 
+// The forward's row products C[mc(m)] = A[ma(m)] @ W + bias: SIMT FP32,
+// or the bf16 operand mode on the tensor cores
+int row_product(const float* A, RowMap ma, const float* W, const float* bias,
+                float* C, RowMap mc, int M, int N, int K, cudaStream_t s) {
+  return gemm_rows(A, ma, W, bias, C, mc, M, N, K, s);
+}
+int row_product(const float* A, RowMap ma, const bf16* W, const float* bias,
+                float* C, RowMap mc, int M, int N, int K, cudaStream_t s) {
+  return gemm_rows_bf16(A, ma, W, bias, nullptr, C, mc, M, N, K, false, s);
+}
+
+// The backward's row products C[mo(m)] = A @ W^T + D (A, D dense; W
+// stored (N, K)): 3xTF32, or the bf16 operand mode
+int product_nt(const float* A, const float* W, const float* D, float* C,
+               RowMap mo, int M, int N, int K, cudaStream_t s) {
+  return gemm_tc(A, W, nullptr, D, C, mo, M, N, K, true, s);
+}
+int product_nt(const float* A, const bf16* W, const float* D, float* C,
+               RowMap mo, int M, int N, int K, cudaStream_t s) {
+  return gemm_rows_bf16(A, RowMap{M, 0, M}, W, nullptr, D, C, mo, M, N, K,
+                        true, s);
+}
+
+// out = (with acc: out +) A'^T B over a window's rows (reduce_window_tn_tc
+// of tc_gemm.cuh, or its bf16 operand mode)
+template <typename TW>
+int reduce_window(const float* A, RowMap ma, const float* h0, const float* Bm,
+                  float* out, bool acc, float* part, int R, int M, int N,
+                  cudaStream_t s) {
+  if constexpr (std::is_same_v<TW, bf16>)
+    return reduce_window_tn_bf16(A, ma, h0, Bm, out, acc, part, R, M, N, s);
+  else
+    return reduce_window_tn_tc(A, ma, h0, Bm, out, acc, part, R, M, N, s);
+}
+
+// The shared memory a chain CTA reserves: its own need, at least the FP32
+// mode's (so bf16 CTAs land one an SM as FP32 ones do)
+template <typename TW>
+size_t chain_smem(size_t (*bytes)(int, int, int), int H) {
+  return std::max(bytes(H, STACK_ROWS, sizeof(TW)),
+                  bytes(H, STACK_ROWS, sizeof(float)));
+}
+
 // Enqueue chunk c of every layer, each on its stream after (l-1, c).
-int enqueue_chunk(const StackArgs& a, Lanes& ln, size_t smem, int c) {
+template <typename TW>
+int enqueue_chunk(const StackArgs<TW>& a, Lanes& ln, size_t smem, int c) {
   const int B = a.B, T = a.T, H = a.H, C = a.C;
   const bool train = a.res != nullptr;
   const size_t bth = (size_t)B * T * H, bh = (size_t)B * H;
@@ -244,20 +312,21 @@ int enqueue_chunk(const StackArgs& a, Lanes& ln, size_t smem, int c) {
     const float* c_in = c == 0 ? a.c0 + so : h_in + bh;
     float* h_out = last ? a.hn + so : carry + (c & 1) * 2 * bh;
     float* c_out = last ? a.cn + so : h_out + bh;
-    if ((err = gemm_rows(xin, win, a.w_ih_t + wo, a.b_g + 4 * vo, xw, dense,
-                         rows, 4 * H, H, s)))
+    if ((err = row_product(xin, win, a.w_ih_t + wo, a.b_g + 4 * vo, xw,
+                           dense, rows, 4 * H, H, s)))
       return err;
     cfg.stream = s;
     if ((err = (int)cudaLaunchKernelEx(
-             &cfg, window_kernel, (const float*)xw, a.w_hh_t + wo, h_in, c_in,
-             r.rnn, h_out, c_out, r.acts, r.cs, B, m.T, H, m.t0, n)))
+             &cfg, lstm_window_kernel<STACK_ROWS, TW>, (const float*)xw,
+             a.w_hh_t + wo, h_in, c_in, r.rnn, h_out, c_out, r.acts, r.cs, B,
+             m.T, H, m.t0, n)))
       return err;
     if ((err = check_launch())) return err;
     if ((err = add_ln(r.rnn, m, xin, win, a.g1 + vo, a.b1 + vo, r.y, m, rows,
                       H, s)))
       return err;
-    if ((err = gemm_rows(r.y, m, a.w_ff + (size_t)l * H * H, a.b_ff + vo, r.z,
-                         m, rows, H, H, s)))
+    if ((err = row_product(r.y, m, a.w_ff + (size_t)l * H * H, a.b_ff + vo,
+                           r.z, m, rows, H, H, s)))
       return err;
     if ((err = add_ln(r.z, m, r.y, m, a.g2 + vo, a.b2 + vo, xout, win, rows,
                       H, s)))
@@ -291,12 +360,14 @@ int on_lanes(int L, bool side, int n_events, cudaStream_t stream,
   return err;
 }
 
-int stack_forward(const StackArgs& a, cudaStream_t stream) {
+template <typename TW>
+int stack_forward(const StackArgs<TW>& a, cudaStream_t stream) {
   if (!shape_ok(a.B, a.T, a.H, a.L) || a.C < 1 || a.C > a.T)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = lstm_smem_bytes(a.H, STACK_ROWS);
+  const size_t smem = chain_smem<TW>(lstm_smem_bytes, a.H);
   int err = (int)cudaFuncSetAttribute(
-      window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      lstm_window_kernel<STACK_ROWS, TW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
   return on_lanes(a.L, false, a.L + 1, stream, [&](Lanes& ln) {
     const int chunks = (a.T + a.C - 1) / a.C;
@@ -306,15 +377,30 @@ int stack_forward(const StackArgs& a, cudaStream_t stream) {
   });
 }
 
+// dwih, dwhh and dwff hold the weight gradients in FP32: the outputs of
+// the FP32 mode; in the bf16 mode scratch, rounded into dw16 (dW_ih,
+// dW_hh, dW_ff) after each layer's last chunk
+template <typename TW>
 struct BwdArgs {
-  const float *x0, *w_ih_t, *w_hh_t, *w_ff, *g1, *g2, *h0, *c0, *res,
-      *dout, *dhn, *dcn;
+  const float* x0;
+  const TW *w_ih_t, *w_hh_t, *w_ff;
+  const float *g1, *g2, *h0, *c0, *res, *dout, *dhn, *dcn;
   float *dx0, *dh0, *dc0, *dwih, *dbg, *dwhh, *dwff, *dbff, *dg1, *db1, *dg2,
       *db2, *ws;
   int B, T, H, L, C;
+  bf16* dw16[3];
 };
 
-const auto bwd_window_kernel = lstm_cluster_bwd_kernel<STACK_ROWS>;
+__global__ void __launch_bounds__(256) round_bf16_kernel(
+    const float* __restrict__ src, bf16* __restrict__ dst, size_t n) {
+  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (i < n) dst[i] = __float2bfloat16(src[i]);
+}
+
+int round_bf16(const float* src, bf16* dst, size_t n, cudaStream_t s) {
+  round_bf16_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(src, dst, n);
+  return check_launch();
+}
 
 // Chunk buffers of the backward, H floats per row of a chunk each: the
 // dgates (4), dz, the h and x cotangent dhx, dcur (the output cotangent)
@@ -340,7 +426,8 @@ size_t bwd_layer_floats(int B, int T, int C, int H) {
 // slot c & 1 of the layer's chunk buffers, after the side stream has
 // read them for chunk c + 2. The first chunk run (c = chunks - 1) writes
 // the gradients, the others add to them.
-int enqueue_bwd_chunk(const BwdArgs& a, Lanes& ln, size_t smem, int l,
+template <typename TW>
+int enqueue_bwd_chunk(const BwdArgs<TW>& a, Lanes& ln, size_t smem, int l,
                       int c, int chunks) {
   const int B = a.B, T = a.T, H = a.H, C = a.C, L = a.L;
   const size_t bth = (size_t)B * T * H, bh = (size_t)B * H;
@@ -381,8 +468,7 @@ int enqueue_bwd_chunk(const BwdArgs& a, Lanes& ln, size_t smem, int l,
   // and y also feeds the residual), y = LN1(h + x)
   if ((err = ln_bwd(l == L - 1 ? a.dout : a.dx0, win, r.z, win, r.y, win,
                     a.g2 + vo, dz, p2, dcur, rows, H, s)) ||
-      (err = gemm_tc(dz, a.w_ff + fo, nullptr, dz, dy, dense, rows, H, H,
-                     true, s)) ||
+      (err = product_nt(dz, a.w_ff + fo, dz, dy, dense, rows, H, H, s)) ||
       (err = ln_bwd(dy, dense, r.rnn, win, xin, win, a.g1 + vo, dhx, p1,
                     nullptr, rows, H, s)))
     return err;
@@ -391,7 +477,7 @@ int enqueue_bwd_chunk(const BwdArgs& a, Lanes& ln, size_t smem, int l,
   float* cout = carry + (c & 1) * (CL + 1) * bh;
   cfg.stream = s;
   if ((err = (int)cudaLaunchKernelEx(
-           &cfg, bwd_window_kernel, (const float*)r.acts,
+           &cfg, lstm_cluster_bwd_kernel<STACK_ROWS, TW>, (const float*)r.acts,
            (const float*)r.cs, a.c0 + so, (const float*)dhx, a.w_hh_t + wo,
            a.dhn + so, first ? a.dcn + so : (const float*)cin + CL * bh,
            first ? nullptr : (const float*)cin, dgates, a.dh0 + so,
@@ -400,8 +486,8 @@ int enqueue_bwd_chunk(const BwdArgs& a, Lanes& ln, size_t smem, int l,
       (err = check_launch()))
     return err;
   // 3. dx into the window's rows of dx0: block l-1's output cotangent
-  if ((err = gemm_tc(dgates, a.w_ih_t + wo, nullptr, dhx, a.dx0, win, rows,
-                     H, 4 * H, true, s)) ||
+  if ((err = product_nt(dgates, a.w_ih_t + wo, dhx, a.dx0, win, rows, H,
+                        4 * H, s)) ||
       (err = (int)cudaEventRecord(done, s)))
     return err;
   // 4. on the side stream, the window's share of the nine parameter
@@ -412,25 +498,31 @@ int enqueue_bwd_chunk(const BwdArgs& a, Lanes& ln, size_t smem, int l,
                      {H, H, H, H, H, 4 * H}};
   if ((err = (int)cudaStreamWaitEvent(side, done, 0)) ||
       (err = colsums(jobs, cpart, rows, acc, side)) ||
-      (err = reduce_window_tn_tc(r.y, win, nullptr, dz, a.dwff + fo, acc,
-                                 part, rows, H, H, side)) ||
-      (err = reduce_window_tn_tc(xin, win, nullptr, dgates, a.dwih + wo,
-                                 acc, part, rows, H, 4 * H, side)) ||
-      (err = reduce_window_tn_tc(r.rnn, win, a.h0 + so, dgates,
-                                 a.dwhh + wo, acc, part, rows, H, 4 * H,
-                                 side)) ||
-      (err = (int)cudaEventRecord(freed, side)))
+      (err = reduce_window<TW>(r.y, win, nullptr, dz, a.dwff + fo, acc,
+                               part, rows, H, H, side)) ||
+      (err = reduce_window<TW>(xin, win, nullptr, dgates, a.dwih + wo, acc,
+                               part, rows, H, 4 * H, side)) ||
+      (err = reduce_window<TW>(r.rnn, win, a.h0 + so, dgates, a.dwhh + wo,
+                               acc, part, rows, H, 4 * H, side)))
     return err;
-  return 0;
+  if (c == 0 && a.dw16[0] &&  // the layer's last chunk: round its dW once
+      ((err = round_bf16(a.dwih + wo, a.dw16[0] + wo, (size_t)4 * H * H,
+                         side)) ||
+       (err = round_bf16(a.dwhh + wo, a.dw16[1] + wo, (size_t)4 * H * H,
+                         side)) ||
+       (err = round_bf16(a.dwff + fo, a.dw16[2] + fo, (size_t)H * H, side))))
+    return err;
+  return (int)cudaEventRecord(freed, side);
 }
 
-int stack_backward(const BwdArgs& a, cudaStream_t stream) {
+template <typename TW>
+int stack_backward(const BwdArgs<TW>& a, cudaStream_t stream) {
   if (!shape_ok(a.B, a.T, a.H, a.L) || a.C < 1 || a.C > a.T)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = lstm_bwd_smem_bytes(a.H, STACK_ROWS);
+  const size_t smem = chain_smem<TW>(lstm_bwd_smem_bytes, a.H);
   int err = (int)cudaFuncSetAttribute(
-      bwd_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      lstm_cluster_bwd_kernel<STACK_ROWS, TW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
   // Enqueued a stage at a time, a stage being the chunks the layers run
   // together ((L-1, c) with (L-2, c+1), ...), bottom layer first: the side
@@ -478,8 +570,9 @@ int mixer_stack_forward_f32(
     const float* g1, const float* b1, const float* g2, const float* b2,
     const float* h0, const float* c0, float* out, float* hn, float* cn,
     float* ws, int B, int T, int H, int L, int C, void* stream_ptr) {
-  return stack_forward({x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2,
-                        h0, c0, out, hn, cn, nullptr, ws, B, T, H, L, C},
+  return stack_forward(StackArgs<float>{x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff,
+                                        g1, b1, g2, b2, h0, c0, out, hn, cn,
+                                        nullptr, ws, B, T, H, L, C},
                        (cudaStream_t)stream_ptr);
 }
 
@@ -504,8 +597,24 @@ int mixer_stack_train_forward_f32(
     const float* h0, const float* c0, float* out, float* hn, float* cn,
     float* res, float* ws, int B, int T, int H, int L, int C,
     void* stream_ptr) {
-  return stack_forward({x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2,
-                        h0, c0, out, hn, cn, res, ws, B, T, H, L, C},
+  return stack_forward(StackArgs<float>{x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff,
+                                        g1, b1, g2, b2, h0, c0, out, hn, cn,
+                                        res, ws, B, T, H, L, C},
+                       (cudaStream_t)stream_ptr);
+}
+
+// The training forward in the bf16 operand mode: w_ih_t, w_hh_t and w_ff
+// bf16, the rest as mixer_stack_train_forward_f32.
+int mixer_stack_train_forward_bf16(
+    const float* x0, const bf16* w_ih_t, const float* b_g,
+    const bf16* w_hh_t, const bf16* w_ff, const float* b_ff,
+    const float* g1, const float* b1, const float* g2, const float* b2,
+    const float* h0, const float* c0, float* out, float* hn, float* cn,
+    float* res, float* ws, int B, int T, int H, int L, int C,
+    void* stream_ptr) {
+  return stack_forward(StackArgs<bf16>{x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff,
+                                       g1, b1, g2, b2, h0, c0, out, hn, cn,
+                                       res, ws, B, T, H, L, C},
                        (cudaStream_t)stream_ptr);
 }
 
@@ -529,10 +638,38 @@ int mixer_stack_backward_f32(
     float* dbg, float* dwhh, float* dwff, float* dbff, float* dg1,
     float* db1, float* dg2, float* db2, float* ws, int B, int T, int H,
     int L, int C, void* stream_ptr) {
-  return stack_backward({x0, w_ih_t, w_hh_t, w_ff, g1, g2, h0, c0, res, dout,
-                         dhn, dcn, dx0, dh0, dc0, dwih, dbg, dwhh, dwff, dbff,
-                         dg1, db1, dg2, db2, ws, B, T, H, L, C},
-                        (cudaStream_t)stream_ptr);
+  return stack_backward(
+      BwdArgs<float>{x0, w_ih_t, w_hh_t, w_ff, g1, g2, h0, c0, res, dout, dhn,
+                     dcn, dx0, dh0, dc0, dwih, dbg, dwhh, dwff, dbff, dg1,
+                     db1, dg2, db2, ws, B, T, H, L, C, {}},
+      (cudaStream_t)stream_ptr);
+}
+
+// floats of the bf16 mode's FP32 weight-gradient sums (dW_ih, dW_hh,
+// dW_ff of every layer), beside mixer_stack_backward_workspace_floats
+long long mixer_stack_backward_bf16_sum_floats(int H, int L) {
+  return (long long)L * 9 * H * H;
+}
+
+// The backward in the bf16 operand mode: w_ih_t, w_hh_t, w_ff bf16, and
+// so dwih, dwhh, dwff (rounded once from their FP32 sums, kept in dw32,
+// mixer_stack_backward_bf16_sum_floats); the rest as
+// mixer_stack_backward_f32.
+int mixer_stack_backward_bf16(
+    const float* x0, const bf16* w_ih_t, const bf16* w_hh_t,
+    const bf16* w_ff, const float* g1, const float* g2, const float* h0,
+    const float* c0, const float* res, const float* dout, const float* dhn,
+    const float* dcn, float* dx0, float* dh0, float* dc0, bf16* dwih,
+    float* dbg, bf16* dwhh, bf16* dwff, float* dbff, float* dg1, float* db1,
+    float* dg2, float* db2, float* ws, float* dw32, int B, int T, int H,
+    int L, int C, void* stream_ptr) {
+  const size_t w4 = (size_t)L * 4 * H * H;
+  return stack_backward(
+      BwdArgs<bf16>{x0, w_ih_t, w_hh_t, w_ff, g1, g2, h0, c0, res, dout, dhn,
+                    dcn, dx0, dh0, dc0, dw32, dbg, dw32 + w4, dw32 + 2 * w4,
+                    dbff, dg1, db1, dg2, db2, ws, B, T, H, L, C,
+                    {dwih, dwhh, dwff}},
+      (cudaStream_t)stream_ptr);
 }
 
 }  // extern "C"

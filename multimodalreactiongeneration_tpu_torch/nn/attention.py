@@ -43,7 +43,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from multimodalreactiongeneration_tpu_torch.nn.basic import dropout
+from multimodalreactiongeneration_tpu_torch.nn.basic import dropout, matmul
 from multimodalreactiongeneration_tpu_torch.ops.masks import (
     rectangular_causal_mask,
 )
@@ -147,8 +147,8 @@ class TorchMHA(nn.Module):
         self, key: torch.Tensor, value: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B,S,kdim/vdim) -> projected (B,S,E) pair."""
-        k = key @ self.k_proj_weight.T + self._bias("k_proj_bias")
-        v = value @ self.v_proj_weight.T + self._bias("v_proj_bias")
+        k = matmul(key, self.k_proj_weight.T) + self._bias("k_proj_bias")
+        v = matmul(value, self.v_proj_weight.T) + self._bias("v_proj_bias")
         return k, v
 
     def attend(
@@ -166,7 +166,7 @@ class TorchMHA(nn.Module):
         dh = e // h
         batch, q_len = query.shape[0], query.shape[1]
         k_len = k_proj.shape[1]
-        q = query @ self.q_proj_weight.T + self._bias("q_proj_bias")
+        q = matmul(query, self.q_proj_weight.T) + self._bias("q_proj_bias")
         if (
             rect_pad_hint
             and attn_mask is not None
@@ -183,7 +183,8 @@ class TorchMHA(nn.Module):
                                  v_proj.contiguous(), pp.any(dim=2),
                                  pp.any(dim=1))
             ctx = dropout(ctx, self.dropout, self.training)
-            return ctx @ self.out_proj_weight.T + self._bias("out_proj_bias")
+            return (matmul(ctx, self.out_proj_weight.T)
+                    + self._bias("out_proj_bias"))
         q = q.reshape(batch, q_len, h, dh).transpose(1, 2)
         k = k_proj.reshape(batch, k_len, h, dh).transpose(1, 2)
         v = v_proj.reshape(batch, k_len, h, dh).transpose(1, 2)
@@ -191,7 +192,8 @@ class TorchMHA(nn.Module):
         ctx = dropout(scaled_dot_attention(q, k, v, mask), self.dropout,
                       self.training)
         ctx = ctx.transpose(1, 2).reshape(batch, q_len, e)
-        return ctx @ self.out_proj_weight.T + self._bias("out_proj_bias")
+        return (matmul(ctx, self.out_proj_weight.T)
+                + self._bias("out_proj_bias"))
 
     def attend_raw(
         self,

@@ -10,7 +10,12 @@ tree loads with ``strict=True`` (``models/weights.py``): a Dense is an
 LayerNorm uses the fast-variance form E[x^2] - mean^2 with eps 1e-5, as
 flax and the JAX kernels do; on bf16 input (the bf16 training step) it
 computes in f32 and returns bf16, as flax's does. Dense layers, ReLU,
-residuals and dropout run in their inputs' dtype, as flax's.
+residuals and dropout run in their inputs' dtype, as flax's. Where an
+f32 activation meets a bf16 parameter (the bf16 step's later Metaformer
+blocks), every op gives the dtype ``jnp`` promotion gives: elementwise
+ops promote by themselves; ``matmul`` and ``Dense`` compute such a pair
+in f32 on the bf16 values converted exactly, as ``jnp.einsum`` and
+flax's ``Dense`` do.
 
 Dropout is flax's ``nn.Dropout``: in training each element is kept with
 probability 1 - p and scaled by 1 / (1 - p), else zeroed; in eval mode it
@@ -94,11 +99,14 @@ def layer_norm(
 ) -> torch.Tensor:
     if x.dtype != torch.float32:
         # flax's LayerNorm on bf16: the statistics and the affine map in
-        # f32 (the variance clipped at 0), the output in x's dtype
-        xf = x.float()
-        mu = xf.mean(-1, keepdim=True)
-        var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp(min=0.0)
-        y = (xf - mu) * (torch.rsqrt(var + LN_EPS) * weight.float())
+        # f32 (the variance clipped at 0), the output in x's dtype. x is
+        # converted twice, as flax converts it (once for the statistics,
+        # once where x - mean promotes), so the backward rounds each
+        # conversion's cotangent to bf16 and sums the two in bf16 as JAX
+        xs = x.float()
+        mu = xs.mean(-1, keepdim=True)
+        var = ((xs * xs).mean(-1, keepdim=True) - mu * mu).clamp(min=0.0)
+        y = (x.float() - mu) * (torch.rsqrt(var + LN_EPS) * weight.float())
         return (y + bias.float()).to(x.dtype)
     mu = x.mean(-1, keepdim=True)
     var = (x * x).mean(-1, keepdim=True) - mu * mu
@@ -115,12 +123,29 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias)
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in ``jnp`` promotion: a pair of one dtype computes in it; a
+    mixed pair (an f32 activation with a bf16 weight) in the promoted
+    dtype, on the narrower operand converted exactly."""
+    if a.dtype != b.dtype:
+        dtype = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dtype), b.to(dtype)
+    return a @ b
+
+
 class Dense(nn.Linear):
-    """nn.Linear that rounds as flax's Dense on bf16 input: the product
-    is rounded to bf16, then the bias add (torch's fused add rounds
-    once). f32 input takes nn.Linear's own forward."""
+    """nn.Linear that rounds as flax's Dense: on bf16 input with bf16
+    parameters the product is rounded to bf16, then the bias add (torch's
+    fused add rounds once); input and parameters of two dtypes promote to
+    the wider (flax's ``promote_dtype``); f32 throughout takes
+    nn.Linear's own forward."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != self.weight.dtype:
+            dtype = torch.promote_types(x.dtype, self.weight.dtype)
+            bias = None if self.bias is None else self.bias.to(dtype)
+            return nn.functional.linear(x.to(dtype), self.weight.to(dtype),
+                                        bias)
         if x.dtype == torch.float32 or self.bias is None:
             return super().forward(x)
         return nn.functional.linear(x, self.weight) + self.bias

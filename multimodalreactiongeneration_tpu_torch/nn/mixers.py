@@ -236,8 +236,10 @@ class RecurrentMixerLayerd(nn.Module):
     def _fused_stack(self, x, hx):
         """Run the whole block stack through ``mixer_stack_recurrence``
         (the CUDA kernels on the card, its plain version on the CPU;
-        differentiable in both); returns None to fall back to the
-        per-block modules. Same gate as the JAX package, less its TPU
+        differentiable in both; bf16 parameters run its bf16 operand mode
+        on the f32 input, and the output and states come back in x's
+        dtype, as JAX's); returns None to fall back to the per-block
+        modules. Same gate as the JAX package, less its TPU
         backend test: active dropout in training (``dropout == 0 or not
         training``, JAX's ``dropout == 0 or deterministic``) runs the
         blocks one by one."""
@@ -256,16 +258,21 @@ class RecurrentMixerLayerd(nn.Module):
         ):
             return None
         blocks = [getattr(self, f"block_{i}") for i in range(self.num_layerd)]
+        # JAX's operand mode: the weights in the parameters' dtype (bf16 in
+        # the bf16 step), every other input in f32; b_ih + b_hh is summed
+        # in the parameters' dtype, then converted
+        mm = blocks[0].mixer.weight_hh_l0.dtype
+        mm = mm if mm == torch.bfloat16 else torch.float32
 
-        def st(fn):
-            return torch.stack([fn(b) for b in blocks]).float().contiguous()
+        def st(fn, dtype=torch.float32):
+            return torch.stack([fn(b) for b in blocks]).to(dtype).contiguous()
 
-        w_ih_t = st(lambda b: b.mixer.weight_ih_l0.T)
-        w_hh_t = st(lambda b: b.mixer.weight_hh_l0.T)
+        w_ih_t = st(lambda b: b.mixer.weight_ih_l0.T, mm)
+        w_hh_t = st(lambda b: b.mixer.weight_hh_l0.T, mm)
         b_g = st(lambda b: b.mixer.bias_ih_l0 + b.mixer.bias_hh_l0)
         g1 = st(lambda b: b.mixer_norm.weight)
         b1 = st(lambda b: b.mixer_norm.bias)
-        w_ff = st(lambda b: b.feed_forward.feedforward.weight.T)
+        w_ff = st(lambda b: b.feed_forward.feedforward.weight.T, mm)
         b_ff = st(lambda b: b.feed_forward.feedforward.bias)
         g2 = st(lambda b: b.feed_forward.LayerNorm_0.weight)
         b2 = st(lambda b: b.feed_forward.LayerNorm_0.bias)
@@ -280,7 +287,8 @@ class RecurrentMixerLayerd(nn.Module):
             x.float().contiguous(), w_ih_t, b_g, w_hh_t, w_ff, b_ff,
             g1, b1, g2, b2, h0, c0,
         )
-        new_states = [(hn[l][None], cn[l][None]) for l in range(n)]
+        new_states = [(hn[l][None].to(x.dtype), cn[l][None].to(x.dtype))
+                      for l in range(n)]
         return y.to(x.dtype), new_states
 
 

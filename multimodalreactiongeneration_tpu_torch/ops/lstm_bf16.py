@@ -1,4 +1,6 @@
-"""The bf16 operand mode of the LSTM chains K7 and K9, in plain PyTorch.
+"""The bf16 operand mode of the LSTM chains K7 and K9, in plain PyTorch,
+and the bf16 operand product the plain versions of K3/K4
+(``ops/mixer_stack.py``) record autograd through.
 
 In the JAX package the dtype of the weights handed to ``lstm_layer``
 (``ops/pallas_lstm.py``) and ``lstm_stacked_recurrence``
@@ -91,6 +93,35 @@ def zero_none(cots, likes):
     outputs that got none."""
     return [torch.zeros_like(like) if c is None else c
             for c, like in zip(cots, likes)]
+
+
+class _OperandMm(torch.autograd.Function):
+    """a @ w with a rounded to bf16, w f32 holding bf16 values, f32 sums;
+    its backward rounds the cotangent g to bf16 for both products: da =
+    bf16(g) w^T and dw = bf16(a)^T bf16(g), f32 sums (JAX's products in
+    the bf16 mode, ``ops/pallas_mixer_stack.py _bwd_kernel``)."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ar = round_bf16(a)
+        ctx.save_for_backward(ar, w)
+        return ar @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        ar, w = ctx.saved_tensors
+        gr = round_bf16(g)
+        dw = ar.reshape(-1, ar.shape[-1]).T @ gr.reshape(-1, gr.shape[-1])
+        return gr @ w.T, dw
+
+
+def operand_mm(a: torch.Tensor, w32: torch.Tensor) -> torch.Tensor:
+    """bf16(a) @ w32 with f32 sums, differentiable at JAX's rounding
+    points (``_OperandMm``). ``w32`` is a bf16 weight converted to f32
+    once per forward (``w.float()``): autograd then sums the weight's
+    gradient over every product in f32 and rounds it to bf16 once, as JAX
+    casts its f32 sum to the weights' dtype."""
+    return _OperandMm.apply(a, w32)
 
 
 def tn(a, b):

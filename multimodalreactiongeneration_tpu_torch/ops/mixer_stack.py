@@ -6,15 +6,27 @@ Each of the L blocks computes LSTM -> +x -> LayerNorm -> Dense(H->H) ->
 +res -> LayerNorm; the stack returns the top block's output and every
 block's final (h, c).
 
+Two operand modes, as JAX's kernel takes them: every tensor f32, or
+JAX's bf16 mode (``nn/mixers.py`` passes the stacked weights in the
+parameters' dtype): ``w_ih_t``, ``w_hh_t`` and ``w_ff`` bf16, every other
+input f32. Then each product rounds its activation operand to bf16 (x,
+h, y; in the backward the cotangents dgates and dr2) and sums in f32;
+the states, cell math, LayerNorms and outputs stay f32. dW_ih, dW_hh and
+dW_ff come back bf16, rounded once from their f32 sums; dx0, db and the
+LayerNorm and state gradients f32. Any other mix of dtypes raises.
+
 ``mixer_stack_recurrence`` is the entry point. On CPU tensors it runs
-``mixer_stack_forward_reference`` (autograd records through it). On CUDA
-tensors, where a gradient is needed, the autograd function runs the
-training forward (``mixer_stack_train_forward``, which stores residuals)
-and the backward kernel (``mixer_stack_backward``); otherwise the
-inference forward (``mixer_stack_forward``). All three launch
-``csrc/mixer_stack.cu`` (f32 only; the design is in its source note).
-Launch counters: ``launches`` (inference forward), ``train_fwd_launches``
-and ``bwd_launches``.
+``mixer_stack_forward_reference`` (autograd records through it; in the
+bf16 mode through ``ops/lstm_bf16.py operand_mm``, which rounds where
+JAX's backward rounds). On CUDA tensors, where a gradient is needed, the
+autograd function runs the training forward (``mixer_stack_train_
+forward``, which stores residuals) and the backward kernel
+(``mixer_stack_backward``); otherwise the inference forward
+(``mixer_stack_forward``, f32 only: K1's bf16 mode waits in ROADMAP Queue
+B item 1). All three launch ``csrc/mixer_stack.cu`` (the design is in its
+source note). Launch counters: ``launches`` (inference forward),
+``train_fwd_launches`` and ``bwd_launches``, and the bf16 mode's
+``bf16_train_fwd_launches`` and ``bf16_bwd_launches``.
 
 The two forwards run the layers as a layer-lagged chunk schedule on
 per-layer CUDA streams: layer l runs chunk c (``chunk`` steps) once layer
@@ -34,10 +46,13 @@ import torch
 
 from multimodalreactiongeneration_tpu_torch import _build
 from multimodalreactiongeneration_tpu_torch.nn.basic import layer_norm
+from multimodalreactiongeneration_tpu_torch.ops.lstm_bf16 import operand_mm
 
 launches = 0
 train_fwd_launches = 0
 bwd_launches = 0
+bf16_train_fwd_launches = 0
+bf16_bwd_launches = 0
 
 _MAX_H = 256
 _P = ctypes.c_void_p
@@ -81,23 +96,44 @@ def backward_chunk_steps(b: int, t: int, h: int, layers: int) -> int:
     return min(t, BWD_LONG_CHUNK if t >= LONG_T else BWD_SHORT_CHUNK)
 
 
-def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """a @ w with a rounded to w's dtype, accumulated in f32."""
-    return a.to(w.dtype).float() @ w.float()
+_WEIGHTS = (1, 3, 4)  # w_ih_t, w_hh_t, w_ff
+
+
+def operand_dtype(name, args) -> torch.dtype:
+    """The operand mode of the twelve arguments: f32 when every tensor is
+    f32, bf16 for JAX's bf16 mode (w_ih_t, w_hh_t and w_ff bf16, the rest
+    f32); raises, naming ``name``, otherwise."""
+    mm = args[3].dtype
+    want = [mm if i in _WEIGHTS else torch.float32 for i in range(12)]
+    if mm not in (torch.float32, torch.bfloat16) or any(
+            a.dtype != d for a, d in zip(args, want)):
+        raise ValueError(
+            f"{name} (K3/K4) takes every tensor f32, or w_ih_t, w_hh_t and "
+            "w_ff bf16 with the rest f32 (the bf16 operand mode); got "
+            + ", ".join(str(a.dtype) for a in args))
+    return mm
 
 
 def mixer_stack_forward_reference(
     x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2, h0, c0
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Plain PyTorch version; arguments as ``mixer_stack_recurrence``."""
-    x = x0.float()
+    """Plain PyTorch version; arguments as ``mixer_stack_recurrence``. In
+    the bf16 mode every product is ``operand_mm``: bf16 operands, f32 sums,
+    and under autograd JAX's rounding of the cotangents."""
+    args = (x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2, h0, c0)
+    if operand_dtype("mixer_stack_forward_reference", args) == torch.float32:
+        mm = torch.matmul
+    else:  # the bf16 weights converted once: their gradients sum in f32
+        mm = operand_mm
+        w_ih_t, w_hh_t, w_ff = w_ih_t.float(), w_hh_t.float(), w_ff.float()
+    x = x0
     hn, cn = [], []
     for l in range(w_hh_t.shape[0]):
-        xw = _mm(x, w_ih_t[l]) + b_g[l]
-        h, c = h0[l].float(), c0[l].float()
+        xw = mm(x, w_ih_t[l]) + b_g[l]
+        h, c = h0[l], c0[l]
         ys = []
         for t in range(x.shape[1]):
-            gates = xw[:, t] + _mm(h, w_hh_t[l])
+            gates = xw[:, t] + mm(h, w_hh_t[l])
             i, f, g, o = gates.chunk(4, dim=-1)
             c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
             h = torch.sigmoid(o) * torch.tanh(c)
@@ -105,7 +141,7 @@ def mixer_stack_forward_reference(
         hn.append(h)
         cn.append(c)
         y = layer_norm(torch.stack(ys, dim=1) + x, g1[l], b1[l])
-        x = layer_norm(_mm(y, w_ff[l]) + b_ff[l] + y, g2[l], b2[l])
+        x = layer_norm(mm(y, w_ff[l]) + b_ff[l] + y, g2[l], b2[l])
     return x, (torch.stack(hn), torch.stack(cn))
 
 
@@ -139,20 +175,29 @@ def _lib():
         lib.mixer_stack_train_forward_f32.argtypes = (
             [_P] * 17 + [_I] * 5 + [_P])
         lib.mixer_stack_backward_f32.argtypes = [_P] * 25 + [_I] * 5 + [_P]
+        lib.mixer_stack_train_forward_bf16.argtypes = (
+            [_P] * 17 + [_I] * 5 + [_P])
+        lib.mixer_stack_backward_bf16.argtypes = [_P] * 26 + [_I] * 5 + [_P]
+        lib.mixer_stack_backward_bf16_sum_floats.argtypes = [_I] * 2
+        lib.mixer_stack_backward_bf16_sum_floats.restype = ctypes.c_longlong
         for name in ("mixer_stack_forward_f32",
                      "mixer_stack_train_forward_f32",
-                     "mixer_stack_backward_f32"):
+                     "mixer_stack_backward_f32",
+                     "mixer_stack_train_forward_bf16",
+                     "mixer_stack_backward_bf16"):
             getattr(lib, name).restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
 def _check_args(name, args):
-    """The kernels' contract: contiguous f32 on one CUDA device, shapes as
-    ``mixer_stack_recurrence`` documents, H 128 or 256."""
+    """The kernels' contract: contiguous tensors of one operand mode on one
+    CUDA device, shapes as ``mixer_stack_recurrence`` documents, H 128 or
+    256. Returns (B, T, H, L, bf16 mode)."""
     x0, w_hh_t = args[0], args[3]
     if x0.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {x0.device}")
+    bf16 = operand_dtype(name, args) == torch.bfloat16
     b, t, h = x0.shape
     nl = w_hh_t.shape[0]
     shapes = (
@@ -160,11 +205,10 @@ def _check_args(name, args):
         (nl, h), (nl, h), (nl, h), (nl, h), (nl, h), (nl, b, h), (nl, b, h),
     )
     for a, shape in zip(args, shapes):
-        if a.device != x0.device or a.dtype != torch.float32:
+        if a.device != x0.device:
             raise ValueError(
-                f"{name} kernel takes f32 tensors on one CUDA device; got "
-                f"{a.dtype} on {a.device}"
-            )
+                f"{name} kernel takes tensors on one CUDA device; got "
+                f"{a.device} beside {x0.device}")
         if tuple(a.shape) != shape or not a.is_contiguous():
             raise ValueError(
                 f"{name}: expected contiguous {shape}, got {tuple(a.shape)} "
@@ -174,7 +218,7 @@ def _check_args(name, args):
         raise ValueError(
             f"{name} kernel takes H a multiple of 128 up to {_MAX_H}; got {h}"
         )
-    return b, t, h, nl
+    return b, t, h, nl, bf16
 
 
 def _empty(n, like):
@@ -223,7 +267,12 @@ def mixer_stack_forward(
         )
     if x0.device.type == "cpu":
         return mixer_stack_forward_reference(*args)
-    b, t, h, nl = _check_args("mixer_stack_forward", args)
+    b, t, h, nl, bf16 = _check_args("mixer_stack_forward", args)
+    if bf16:
+        raise NotImplementedError(
+            "mixer_stack_forward (K1) has no bf16 operand mode yet (ROADMAP "
+            "Queue B item 1); the bf16 training step runs the stack under "
+            "gradient (K3/K4)")
     chunk = _chunk("mixer_stack_forward", b, t, h, nl, chunk)
     lib = _lib()
     out = torch.empty_like(x0)
@@ -238,10 +287,10 @@ def mixer_stack_forward(
 
 
 def mixer_stack_train_forward(*args, chunk=None):
-    """The training forward kernel (CUDA only): returns (out, hn, cn,
-    res), ``res`` the flat residual buffer ``mixer_stack_backward``
-    reads; ``chunk`` as ``mixer_stack_forward``."""
-    b, t, h, nl = _check_args("mixer_stack_train_forward", args)
+    """The training forward kernel (CUDA only), in the arguments' operand
+    mode: returns (out, hn, cn, res), ``res`` the flat residual buffer
+    ``mixer_stack_backward`` reads; ``chunk`` as ``mixer_stack_forward``."""
+    b, t, h, nl, bf16 = _check_args("mixer_stack_train_forward", args)
     chunk = _chunk("mixer_stack_train_forward", b, t, h, nl, chunk)
     x0, h0 = args[0], args[10]
     lib = _lib()
@@ -251,19 +300,23 @@ def mixer_stack_train_forward(*args, chunk=None):
     res = _empty(lib.mixer_stack_residual_floats(b, t, h, nl), x0)
     ws = _empty(lib.mixer_stack_train_workspace_floats(b, t, h, nl, chunk),
                 x0)
-    _build.launch(lib.mixer_stack_train_forward_f32, *args, out, hn, cn,
-                  res, ws, dims=(b, t, h, nl, chunk))
-    global train_fwd_launches
-    train_fwd_launches += 1
+    fn = (lib.mixer_stack_train_forward_bf16 if bf16
+          else lib.mixer_stack_train_forward_f32)
+    _build.launch(fn, *args, out, hn, cn, res, ws, dims=(b, t, h, nl, chunk))
+    global train_fwd_launches, bf16_train_fwd_launches
+    if bf16:
+        bf16_train_fwd_launches += 1
+    else:
+        train_fwd_launches += 1
     return out, hn, cn, res
 
 
 def mixer_stack_backward(args, res, dout, dhn, dcn, *, chunk=None):
     """The backward kernel (CUDA only), from the training forward's
-    residuals. Returns the twelve input gradients, in argument order.
-    ``chunk`` steps per chunk (None: ``backward_chunk_steps``; T:
-    layer-major)."""
-    b, t, h, nl = _check_args("mixer_stack_backward", args)
+    residuals. Returns the twelve input gradients, in argument order, each
+    in its input's dtype. ``chunk`` steps per chunk (None:
+    ``backward_chunk_steps``; T: layer-major)."""
+    b, t, h, nl, bf16 = _check_args("mixer_stack_backward", args)
     chunk = _chunk("mixer_stack_backward", b, t, h, nl, chunk,
                    backward=True)
     x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2, h0, c0 = args
@@ -281,11 +334,18 @@ def mixer_stack_backward(args, res, dout, dhn, dcn, *, chunk=None):
     lib = _lib()
     ws = _empty(lib.mixer_stack_backward_workspace_floats(b, t, h, nl, chunk),
                 x0)
-    _build.launch(lib.mixer_stack_backward_f32, x0, w_ih_t, w_hh_t, w_ff, g1,
-                  g2, h0, c0, res, *cots, *grads, ws,
-                  dims=(b, t, h, nl, chunk))
-    global bwd_launches
-    bwd_launches += 1
+    global bwd_launches, bf16_bwd_launches
+    if bf16:
+        sums = _empty(lib.mixer_stack_backward_bf16_sum_floats(h, nl), x0)
+        _build.launch(lib.mixer_stack_backward_bf16, x0, w_ih_t, w_hh_t, w_ff,
+                      g1, g2, h0, c0, res, *cots, *grads, ws, sums,
+                      dims=(b, t, h, nl, chunk))
+        bf16_bwd_launches += 1
+    else:
+        _build.launch(lib.mixer_stack_backward_f32, x0, w_ih_t, w_hh_t, w_ff,
+                      g1, g2, h0, c0, res, *cots, *grads, ws,
+                      dims=(b, t, h, nl, chunk))
+        bwd_launches += 1
     dx0, dh0, dc0, dwih, dbg, dwhh, dwff, dbff, dg1, db1, dg2, db2 = grads
     return (dx0, dwih, dbg, dwhh, dwff, dbff, dg1, db1, dg2, db2, dh0, dc0)
 
@@ -311,9 +371,10 @@ def mixer_stack_recurrence(
     x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2, h0, c0
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The stack, differentiable: arguments and result as
-    ``mixer_stack_forward``. CPU tensors take the plain version; CUDA
-    tensors the kernels (training forward and backward where a gradient
-    is needed, the inference forward otherwise)."""
+    ``mixer_stack_forward``; the weights' dtype picks the operand mode. CPU
+    tensors take the plain version; CUDA tensors the kernels (training
+    forward and backward where a gradient is needed, the inference forward
+    otherwise)."""
     args = (x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff, g1, b1, g2, b2, h0, c0)
     if x0.device.type == "cpu":
         return mixer_stack_forward_reference(*args)

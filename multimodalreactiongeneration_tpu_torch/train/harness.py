@@ -37,11 +37,19 @@ train step runs the model on bf16 copies of every float parameter
 to the f32 parameters the optimizer keeps, as JAX's cast of the gradients
 to f32 does) and on the six inputs cast to bf16 (JAX's ``_cast_tree``);
 the loss and the metrics take the prediction in f32 against the f32
-target. On the card LSTMwithSample's sampler and layered blocks then run
-the bf16 modes of K9 and K7. The eval step stays f32. Models whose bf16
-step needs a kernel with no bf16 mode yet raise ``NotImplementedError``
-on every device (``bf16_refusal``): the Metaformer, with LSTM or GRU
-embeddings.
+target. Inside the model every op takes the dtype JAX's promotion gives
+it (``nn/basic.py``), so an f32 activation meeting bf16 weights computes
+in f32; cuBLAS's bf16 products keep their partial sums in f32 for the
+step (``bf16_sums_in_f32``). On the card LSTMwithSample's sampler and
+layered blocks then run the bf16 modes of K9 and K7; the Metaformer's
+encoder stacks the bf16 mode of K3/K4, its self-motion LSTMs K7's, and
+its integrators K5/K6's bf16 mode where the query is bf16 (block 0) and
+their f32 mode on the upcast keys and values where it is f32 (the later
+blocks, whose queries come out of f32 attention contexts). The eval step stays f32. Models
+whose bf16 step needs a kernel with no bf16 mode yet raise
+``NotImplementedError`` on every device (``bf16_refusal``): the GRU
+Metaformer; a model whose LSTMs take K8's route (``MRGEN_FUSED_DW=0``, or
+sizes not multiples of 128) raises at its first step.
 
 A train step's ``generator`` (the trainer's ``torch.Generator``) gives it
 one seed, and the step's forward draws every dropout mask from it
@@ -77,6 +85,7 @@ runs raise ``NotImplementedError`` (ROADMAP queue A, item 6).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -134,19 +143,29 @@ def _step_seed(generator: Optional[torch.Generator]) -> Optional[int]:
 
 def bf16_refusal(model: torch.nn.Module) -> Optional[str]:
     """Why the bf16 step cannot train ``model`` yet (the ROADMAP Queue B
-    items its kernels wait for), or None: only LSTMwithSample's kernels
-    (K7, K9) have their bf16 mode."""
-    from multimodalreactiongeneration_tpu_torch.models.lstm_with_sampling import (
-        LSTMwithSample,
-    )
-    if isinstance(model, LSTMwithSample):
-        return None
-    why = ("the Metaformer trains in f32 only so far: its bf16 step needs "
-           "the bf16 operand modes of the encoder stacks (K1/K3/K4, ROADMAP "
-           "Queue B item 1) and of rect attention (K5/K6, item 5)")
+    item its kernels wait for), or None: the kernels of LSTMwithSample
+    (K7, K9) and of the LSTM Metaformer (K3/K4, K5/K6, K7) have their
+    bf16 mode, the GRU recurrence (K10) not yet."""
     if "gru" in getattr(model, "cfg", {}).get("emb_mixers", ()):
-        why += ", and of the GRU recurrence (K10, item 4)"
-    return why
+        return ("the GRU Metaformer trains in f32 only so far: its bf16 step "
+                "needs the bf16 operand mode of the GRU recurrence (K10, "
+                "ROADMAP Queue B item 4)")
+    return None
+
+
+@contextlib.contextmanager
+def bf16_sums_in_f32():
+    """cuBLAS's bf16 products with every partial sum in f32 inside the
+    block, the setting restored after: PyTorch lets them add split-K
+    partial sums in bf16 by default, where JAX's bf16 products sum in
+    f32 and round once."""
+    matmul = torch.backends.cuda.matmul
+    old = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = old
 
 
 def _cast_floats(tensors, dtype):
@@ -218,11 +237,12 @@ def streaming_step_fns(
                    generator: Optional[torch.Generator] = None):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        y, t = forward(batch, _step_seed(generator), lowp=bf16)
-        scaler = delta_scaler(y.shape[-1], delta_order, dls, y.device)
-        y, t = y * scaler, t * scaler
-        loss = lossfun(y, t)
-        loss.backward()
+        with bf16_sums_in_f32() if bf16 else contextlib.nullcontext():
+            y, t = forward(batch, _step_seed(generator), lowp=bf16)
+            scaler = delta_scaler(y.shape[-1], delta_order, dls, y.device)
+            y, t = y * scaler, t * scaler
+            loss = lossfun(y, t)
+            loss.backward()
         optimizer.step()
         return loss.detach(), per_slice_sq_err(y.detach(), t, target_dict)
 

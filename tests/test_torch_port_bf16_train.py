@@ -30,9 +30,11 @@ PyTorch does, and the two bf16 steps agree within 0.8%.
     run does not retrace the unbroken one: the loader reshuffles from
     ``seed + epochs run in the process``, as JAX's does); with scheduled
     sampling the step trains in f32, as JAX's CLI does;
-  * the Metaformer (LSTM and GRU embeddings) refuses bf16, naming the
-    ROADMAP Queue B items of the kernels it waits for, and lws under
-    ``MRGEN_FUSED_DW=0`` refuses it for K8's (item 2).
+  * the GRU Metaformer refuses bf16, naming the ROADMAP Queue B item of
+    the kernel it waits for (K10, item 4), and lws and the LSTM Metaformer
+    under ``MRGEN_FUSED_DW=0`` refuse it for K8's (item 2); the LSTM
+    Metaformer's bf16 step is held to JAX's in
+    tests/test_torch_port_bf16_flagship.py.
 """
 
 import functools
@@ -204,22 +206,31 @@ def test_bf16_lws_refuses_the_k8_route(monkeypatch):
         step([(torch.from_numpy(x), None) for x in _batch(80)])
 
 
-@pytest.mark.parametrize("mixers,items", [
-    (("lstm", "lstm", "lstm"), ("item 1", "item 5")),
-    (("gru", "gru", "gru"), ("item 1", "item 5", "item 4")),
+@pytest.mark.parametrize("mixers,fused_dw,item,kernel", [
+    (("lstm", "lstm", "lstm"), "0", "item 2", "K8"),
+    (("gru", "gru", "gru"), "1", "item 4", "K10"),
 ])
-def test_metaformer_refuses_bf16(mixers, items):
-    cfg = dict(MF_CFG, emb_mixers=list(mixers))
+def test_metaformer_refuses_bf16(mixers, fused_dw, item, kernel,
+                                 monkeypatch):
+    """The GRU Metaformer refuses the bf16 step when it is built (K10 has
+    no bf16 mode); the LSTM one at hidden 128 trains in bf16 but under
+    MRGEN_FUSED_DW=0 its self-motion LSTMs take K8's route, and its first
+    step raises, on the CPU too."""
+    monkeypatch.setenv("MRGEN_FUSED_DW", fused_dw)
+    cfg = dict(MF_CFG, emb_mixers=list(mixers), hidden_size=128)
     pm = Metaformer(cfg, generator=torch.Generator().manual_seed(0),
                     device="cpu")
     opt = optim.build_optimizer(pm.parameters(), SGD_CFG)
+    batch = [(torch.from_numpy(x), None) for x in _batch(90)]
     with pytest.raises(NotImplementedError) as err:
-        harness.streaming_step_fns(pm, dict(cfg, **LOSS_CFG), METRICS_CFG,
-                                   opt, True, compute_dtype=torch.bfloat16)
-    for item in items:
-        assert item in str(err.value)
-    assert ("K10" in str(err.value)) == ("gru" in mixers)
+        step, _ = harness.streaming_step_fns(
+            pm, dict(cfg, **LOSS_CFG), METRICS_CFG, opt, True,
+            compute_dtype=torch.bfloat16)
+        step(batch)
+    assert f"Queue B {item}" in str(err.value) and kernel in str(err.value)
     assert harness.bf16_refusal(LSTMwithSample(CFG, device="cpu")) is None
+    lstm = dict(cfg, emb_mixers=["lstm"] * 3)
+    assert harness.bf16_refusal(Metaformer(lstm, device="cpu")) is None
 
 
 SMALL = [
@@ -273,15 +284,25 @@ def test_lws_cli_bf16_trains_checkpoints_f32_and_resumes(tmp_path,
     assert np.isfinite(sched.history[0]["train_loss"])
 
 
-def test_cli_bf16_refuses_the_metaformer(tmp_path, monkeypatch):
+@pytest.mark.parametrize("config,fused_dw,item", [
+    ("lstmformer_gru.yaml", "1", "Queue B item 4"),
+    ("lstmformer.yaml", "0", "Queue B item 2"),
+])
+def test_cli_bf16_refuses_the_metaformer(config, fused_dw, item, tmp_path,
+                                         monkeypatch):
+    """``trainer.precision=bf16`` through the CLI: the GRU Metaformer
+    refuses (K10), and so does the flagship under MRGEN_FUSED_DW=0 (its
+    self-motion LSTMs on K8's route); the flagship's bf16 CLI run itself
+    is in tests/test_torch_port_bf16_flagship.py."""
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("MRGEN_FUSED_DW", fused_dw)
     corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_sessions=1,
-                                   seconds=30.0)
-    yaml = os.path.join(os.path.dirname(YAML), "lstmformer.yaml")
-    with pytest.raises(NotImplementedError, match="Queue B item 1"):
+                                   seconds=60.0)
+    yaml = os.path.join(os.path.dirname(YAML), config)
+    with pytest.raises(NotImplementedError, match=item):
         cli.main(["--config", yaml, "name=mf", f"data_dir={corpus}",
                   "ckpt_path=ck", "log_dir=log", "device=cpu",
-                  "hidden_size=32", "bottleneck_size=8", "batch_size=2",
+                  "hidden_size=128", "bottleneck_size=8", "batch_size=2",
                   "max_epochs=1", "motion.max_len=150", "motion.min_len=50",
                   "motion.shift_len=150", "motion.leading_len=24",
                   "model.num_block=1", "model.encoder_num_layer=2",

@@ -473,11 +473,13 @@ def test_lstm_layer_chosen_rows_match_rows16(dev, b, t):
 BF16_SHORT = (1e-3, 2e-3, 1e-2)
 
 
-def _bf16_within(outs, grads, want_outs, want_grads, short, ys_f32=None):
+def _bf16_within(outs, grads, want_outs, want_grads, short, ys_f32=None,
+                 mode_steps=None):
     if ys_f32 is not None:
-        gap = float((ys_f32 - want_outs[0]).abs().mean())
-        assert float((outs[0].detach() - want_outs[0]).abs().mean()) <= (
-            0.25 * gap)
+        w = slice(None) if mode_steps is None else slice(0, mode_steps)
+        gap = float((ys_f32[:, w] - want_outs[0][:, w]).abs().mean())
+        assert float((outs[0].detach()[:, w] - want_outs[0][:, w]).abs()
+                     .mean()) <= 0.25 * gap
     for g, w in zip(outs, want_outs):
         assert float((g.detach() - w).abs().max()) <= (
             BF16_SHORT[0] if short else 5e-2)
@@ -551,6 +553,86 @@ def test_lstm_stacked_bf16_kernels_match_plain_bf16(dev, b, t, layers):
     _bf16_within((ys0, hn0, cn0, ys, hn, cn), grads,
                  (ysr, hr, cr) * 2, K9.lstm_stacked_backward_reference(
                      args, *cots), short=t <= 40, ys_f32=ys32)
+
+
+def _bf16_stack_args(r, b, t, h, n):
+    """The encoder stack's bf16 mode: W_ih, W_hh and W_ff bf16."""
+    args = list(_stack_args(r, b, t, h, n))
+    for i in K1._WEIGHTS:
+        args[i] = args[i].to(torch.bfloat16)
+    return tuple(args)
+
+
+@pytest.mark.parametrize("b,t,h,layers", [
+    (4, 16, 128, 2), (16, 40, 256, 3), (20, 33, 128, 2), (3, 17, 256, 5),
+    (32, 252, 256, 5),
+])
+def test_mixer_stack_bf16_kernels_match_plain_bf16(dev, b, t, h, layers):
+    """K3/K4's bf16 mode (bf16 W_ih, W_hh and W_ff; the rest f32) vs the
+    plain bf16 version: forward and all twelve gradients; dW_ih, dW_hh
+    and dW_ff come back bf16, the rest f32; +1 / +1 bf16 launches and no
+    f32 ones; K1 (no gradient) has no bf16 mode yet and raises. The
+    short bounds hold to T16: past it an h or a block input on a bf16
+    rounding boundary rounds the other way in one of them (the sums run
+    in other orders) and moves the rows after it by ~1e-4 (6.5e-3 at
+    most at B16 x T40 x L3), so the full-length bounds hold there; to T40
+    over up to 3 layers the kernel's outputs are on average within a
+    quarter of the plain f32 version's distance from the plain bf16 ones.
+    Deeper and longer stacks decorrelate from the plain bf16 version as
+    fast as the plain bf16 version does from a 1e-7 perturbation of its
+    own input (0.59 of the f32 distance at B8 x T252 x L5), so there that
+    test reads the first 4 steps, before a flip compounds through the
+    layers (tests/test_torch_port_bf16_flagship.py)."""
+    r = _rand(np.random.default_rng(b * t + h + layers), dev)
+    args = _bf16_stack_args(r, b, t, h, layers)
+    cots = (r(b, t, h), r(layers, b, h), r(layers, b, h))
+    names = ("launches", "train_fwd_launches", "bwd_launches",
+             "bf16_train_fwd_launches", "bf16_bwd_launches")
+    before = [getattr(K1, n) for n in names]
+    leaves = [a.clone().requires_grad_() for a in args]
+    y, (hn, cn) = K1.mixer_stack_recurrence(*leaves)
+    grads = torch.autograd.grad((y, hn, cn), leaves, cots)
+    torch.cuda.synchronize()
+    assert [getattr(K1, n) for n in names] == [*before[:3], before[3] + 1,
+                                                before[4] + 1]
+    yr, (hr, cr) = K1.mixer_stack_forward_reference(*args)
+    want = K1.mixer_stack_backward_reference(args, *cots)
+    y32 = K1.mixer_stack_forward_reference(*[a.float() for a in args])[0]
+    # the distance test over the steps before a flip compounds
+    _bf16_within((y, hn, cn), grads, (yr, hr, cr), want, short=t <= 16,
+                 ys_f32=y32,
+                 mode_steps=None if layers <= 3 and t <= 40 else 4)
+    with torch.no_grad(), pytest.raises(NotImplementedError,
+                                        match="Queue B item 1"):
+        K1.mixer_stack_recurrence(*args)
+
+
+@pytest.mark.parametrize("b,t,layers,chunk", [
+    (17, 37, 2, 8), (33, 37, 5, 3), (32, 252, 5, 16), (64, 2016, 5, 37)])
+def test_mixer_stack_bf16_chunks_bitwise_equal_layer_major(dev, b, t, layers,
+                                                           chunk):
+    """The bf16 mode keeps the chunk schedule's bits: the training forward
+    (out, hn, cn, every residual plane) and K4's dx0, dh0, dc0 at any
+    chunk are the bits of chunk=T; two backward runs at one chunk the
+    same bits."""
+    r = _rand(np.random.default_rng(5 * b + t + layers + chunk), dev)
+    args = _bf16_stack_args(r, b, t, 256, layers)
+    cots = (r(b, t, 256), r(layers, b, 256), r(layers, b, 256))
+    got_tr = K1.mixer_stack_train_forward(*args, chunk=chunk)
+    want_tr = K1.mixer_stack_train_forward(*args, chunk=t)
+    for g, w in zip(got_tr, want_tr):
+        assert torch.equal(g, w)
+    res = got_tr[3]
+    got = K1.mixer_stack_backward(args, res, *cots, chunk=chunk)
+    again = K1.mixer_stack_backward(args, res, *cots, chunk=chunk)
+    whole = K1.mixer_stack_backward(args, res, *cots, chunk=t)
+    torch.cuda.synchronize()
+    for i in (0, 10, 11):  # dx0, dh0, dc0
+        assert torch.equal(got[i], whole[i]), i
+    for i, (g, w) in enumerate(zip(got, again)):
+        assert torch.equal(g, w), i
+    for i in K1._WEIGHTS:
+        assert got[i].dtype == torch.bfloat16, i
 
 
 def test_lstm_chains_refuse_rows_they_do_not_take(dev):
@@ -630,14 +712,77 @@ def test_rect_attention_kernels_match_plain(dev, b, lq, lk, e, heads):
 
 
 def test_rect_attention_kernel_refuses_bf16_and_other_head_dims(dev):
+    """The kernels take q/k/v all f32 or all bf16 (``rect_attention``
+    casts k and v to q's mode first; float16 is no mode) and head dims 32
+    or 64."""
     from multimodalreactiongeneration_tpu_torch.ops import rect_attention as K5
 
     q, k, v, q_pad, k_pad, _ = _rect_inputs(dev, 0, 2, 8, 16, 64, False)
-    with pytest.raises(ValueError, match="f32"):
-        K5.rect_attention(2, q.bfloat16(), k.bfloat16(), v.bfloat16(),
-                          q_pad, k_pad)
+    with pytest.raises(ValueError, match="all f32 or all bf16"):
+        K5.rect_attention_forward(2, q.bfloat16(), k, v, q_pad, k_pad)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        K5.rect_attention(2, q.half(), k.half(), v.half(), q_pad, k_pad)
     with pytest.raises(ValueError, match="head dims"):
         K5.rect_attention(4, q, k, v, q_pad, k_pad)
+    with pytest.raises(ValueError, match="head dims"):
+        K5.rect_attention(4, q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                          q_pad, k_pad)
+
+
+@pytest.mark.parametrize("b,lq,lk,e,heads", [
+    (32, 252, 2016, 256, 4), (32, 252, 252, 256, 4), (2, 16, 128, 64, 2),
+    (2, 128, 16, 64, 2), (3, 40, 40, 128, 2), (2, 10, 20, 64, 2),
+    (2, 12, 96, 64, 2),
+])
+def test_rect_attention_bf16_kernels_match_plain_bf16(dev, b, lq, lk, e,
+                                                      heads):
+    """K5/K6's bf16 mode (bf16 q, k, v; f32 context) vs the plain bf16
+    version, fully masked rows included: the forward within 1e-2 (the
+    normalized weights round to bf16 in both, and a weight on a rounding
+    boundary may round the other way: 2^-8 of a weight up to 1 times a
+    value up to ~5; 1.3e-3 at B32 x 252 x 252), dq, dk and dv bf16 within
+    BF16_SHORT[2] of the largest; +2 / +1 bf16 launches and no f32 ones.
+    An f32 q with bf16 k and v runs the f32 mode on k and v converted,
+    and rounds dk and dv to bf16."""
+    from multimodalreactiongeneration_tpu_torch.ops import rect_attention as K5
+
+    bf = torch.bfloat16
+    q, k, v, q_pad, k_pad, g = _rect_inputs(dev, lq + lk + e, b, lq, lk, e)
+    q, k, v = q.to(bf), k.to(bf), v.to(bf)
+    want = K5.rect_attention_bf16_reference(heads, q, k, v, q_pad, k_pad)
+    names = ("fwd_launches", "bwd_launches", "bf16_fwd_launches",
+             "bf16_bwd_launches")
+    before = [getattr(K5, n) for n in names]
+    with torch.no_grad():
+        got = K5.rect_attention(heads, q, k, v, q_pad, k_pad)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = K5.rect_attention(heads, *leaves, q_pad, k_pad)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert [getattr(K5, n) for n in names] == [*before[:2], before[2] + 2,
+                                                before[3] + 1]
+    assert got.dtype == out.dtype == torch.float32
+    for o in (got, out):
+        assert float((o.detach() - want).abs().max()) <= 1e-2
+    wgrads = K5.rect_attention_backward_reference(heads, q, k, v, q_pad,
+                                                  k_pad, g)
+    largest = max(float(w.float().abs().max()) for w in wgrads)
+    for i, (gk, gw) in enumerate(zip(grads, wgrads)):
+        assert gk.dtype == gw.dtype == bf, i
+        assert float((gk.float() - gw.float()).abs().max()) <= (
+            BF16_SHORT[2] * largest), i
+    # the later blocks' mix: f32 q, bf16 k and v
+    q32 = q.float().requires_grad_()
+    kv = [x.clone().requires_grad_() for x in (k, v)]
+    before = [getattr(K5, n) for n in names]
+    out = K5.rect_attention(heads, q32, *kv, q_pad, k_pad)
+    grads = torch.autograd.grad(out, [q32, *kv], g)
+    assert [getattr(K5, n) for n in names] == [before[0] + 1, before[1] + 1,
+                                                *before[2:]]
+    assert [x.dtype for x in grads] == [torch.float32, bf, bf]
+    want = K5.rect_attention_reference(heads, q32.detach(), k.float(),
+                                       v.float(), q_pad, k_pad)
+    assert float((out.detach() - want).abs().max()) <= TOL
 
 
 def _rect_holds_to_plain(dev, heads, q, k, v, q_pad, k_pad, g):

@@ -299,19 +299,26 @@ def _check_train_step_matches_jax():
 
 
 def test_step_fns_refuse_bf16_and_remat():
-    """bf16 training raises (ROADMAP queue B); remat is ported: its step
+    """bf16 training of the GRU Metaformer raises (ROADMAP queue B item 4;
+    the LSTM Metaformer's bf16 step is held to JAX's in
+    tests/test_torch_port_bf16_flagship.py); remat is ported: its step
     gives the plain step's loss, bit for bit
     (tests/test_torch_port_train_options.py holds it to JAX)."""
     model_cfg = dict(MF_CFG, **LOSS_CFG)
     batch = [(torch.from_numpy(x), None) for x in _train_batch(61)]
+    gru_cfg = dict(MF_CFG, emb_mixers=["gru"] * 3)
     losses = []
     for remat in (False, True):
         pm = Metaformer(MF_CFG, generator=torch.Generator().manual_seed(0),
                         device="cpu")
         opt = optim.build_optimizer(pm.parameters(), SGD_CFG)
+        gru = Metaformer(gru_cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
         with pytest.raises(NotImplementedError, match="f32"):
-            harness.streaming_step_fns(pm, model_cfg, METRICS_CFG, opt, True,
-                                       compute_dtype=torch.bfloat16)
+            harness.streaming_step_fns(
+                gru, dict(gru_cfg, **LOSS_CFG), METRICS_CFG,
+                optim.build_optimizer(gru.parameters(), SGD_CFG), True,
+                compute_dtype=torch.bfloat16)
         step, _ = harness.streaming_step_fns(pm, model_cfg, METRICS_CFG, opt,
                                              True, remat=remat)
         losses.append(float(step(batch)[0]))
