@@ -62,6 +62,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// two bf16 as one fragment register, the lower k in the low half
+__device__ __forceinline__ uint32_t pack_bf16_raw(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
 // four consecutive elements as four bf16 (rounded from FP32)
 __device__ __forceinline__ uint2 load4_bf16(const float* p) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -446,6 +452,33 @@ __global__ void __launch_bounds__(TC_THREADS) bf16_reduce_kernel(
     }
 }
 
+// The split-K partials of A'^T B on bf16_reduce_kernel (A' as
+// load_tile reads it: with MAP, row r is row ma(r) of the A plane, with
+// shift_t > 0 the row before it; without MAP and shift_t > 0 the one-step
+// shifted trajectory of the (B, T = shift_t, M) array, h0 at t = 0), the
+// rows split as reduce_rows_tn_tc splits them; `splits` gets the number
+// of partial tiles, summed by the caller in split order.
+template <bool MAP>
+int reduce_partials_bf16_tc(const float* A, RowMap ma, const float* h0,
+                            int shift_t, const float* Bm, float* part,
+                            int R, int M, int N, int& splits,
+                            cudaStream_t stream) {
+  if (M % 4 || N % 4 || !aligned16(A, Bm) || (shift_t > 0 && !aligned16(h0)))
+    return (int)cudaErrorInvalidValue;
+  const size_t mn = (size_t)M * N;
+  const int tiles = ((M + TC_BM - 1) / TC_BM) * ((N + TC_BN - 1) / TC_BN);
+  splits = (SPLIT_TARGET_BLOCKS + tiles - 1) / tiles;
+  splits = (int)std::min<size_t>(splits, PART_FLOATS / mn);
+  splits = std::max(1, std::min(splits, (R + TC_BK - 1) / TC_BK));
+  int rps = (R + splits - 1) / splits;
+  rps = (rps + TC_BK - 1) / TC_BK * TC_BK;
+  splits = (R + rps - 1) / rps;
+  const dim3 grid((N + TC_BN - 1) / TC_BN, (M + TC_BM - 1) / TC_BM, splits);
+  bf16_reduce_kernel<MAP><<<grid, TC_THREADS, 0, stream>>>(
+      A, h0, Bm, part, M, N, R, rps, shift_t, ma);
+  return check_launch();
+}
+
 // out (M, N) = (with acc: out +) A'^T B over the R rows of a window, both
 // operands rounded to bf16, FP32 sums and an FP32 result: row r of A' is
 // row ma(r) of the A plane or, with h0 not null, the row before it (h0 at
@@ -454,23 +487,32 @@ __global__ void __launch_bounds__(TC_THREADS) bf16_reduce_kernel(
 int reduce_window_tn_bf16(const float* A, RowMap ma, const float* h0,
                           const float* Bm, float* out, bool acc, float* part,
                           int R, int M, int N, cudaStream_t stream) {
-  if (M % 4 || N % 4 || !aligned16(A, Bm) || (h0 && !aligned16(h0)))
-    return (int)cudaErrorInvalidValue;
-  const size_t mn = (size_t)M * N;
-  const int tiles = ((M + TC_BM - 1) / TC_BM) * ((N + TC_BN - 1) / TC_BN);
-  int splits = (SPLIT_TARGET_BLOCKS + tiles - 1) / tiles;
-  splits = (int)std::min<size_t>(splits, PART_FLOATS / mn);
-  splits = std::max(1, std::min(splits, (R + TC_BK - 1) / TC_BK));
-  int rps = (R + splits - 1) / splits;
-  rps = (rps + TC_BK - 1) / TC_BK * TC_BK;
-  splits = (R + rps - 1) / rps;
-  const dim3 grid((N + TC_BN - 1) / TC_BN, (M + TC_BM - 1) / TC_BM, splits);
-  bf16_reduce_kernel<true><<<grid, TC_THREADS, 0, stream>>>(
-      A, h0, Bm, part, M, N, R, rps, h0 ? 1 : 0, ma);
-  int err = check_launch();
+  int splits = 0;
+  int err = reduce_partials_bf16_tc<true>(A, ma, h0, h0 ? 1 : 0, Bm, part,
+                                          R, M, N, splits, stream);
   if (err) return err;
+  const size_t mn = (size_t)M * N;
   sum_splits_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
       part, out, splits, mn, acc);
+  return check_launch();
+}
+
+// out (M, N) bf16 = A'^T B over R rows of FP32 operands, A' the one-step
+// shifted trajectory of the (B, T = shift_t, M) array (h0 at t = 0), B
+// dense (R, N): each operand rounded to bf16 at the fragments, FP32 sums
+// in split order, rounded to bf16 once (the dW_hh of K8's and K10's bf16
+// modes: JAX's einsum of the bf16-cast operands, preferred f32, cast to
+// the weights' dtype)
+int reduce_rows_tn_bf16_tc(const float* A, const float* h0, int shift_t,
+                           const float* Bm, bf16* out, float* part, int R,
+                           int M, int N, cudaStream_t stream) {
+  int splits = 0;
+  int err = reduce_partials_bf16_tc<false>(A, RowMap{}, h0, shift_t, Bm,
+                                           part, R, M, N, splits, stream);
+  if (err) return err;
+  const size_t mn = (size_t)M * N;
+  sum_splits_bf16_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
+      part, out, splits, mn);
   return check_launch();
 }
 

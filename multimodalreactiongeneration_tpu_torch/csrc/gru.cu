@@ -6,6 +6,8 @@
 //   gru_forward_f32, hh given    _fwd_kernel_savehh  (_vjp_fwd)
 //   gru_backward_f32             _bwd_kernel and the dW_hh / db_hh
 //                                reductions of _bwd_impl (_vjp_bwd)
+// and the same three in JAX's bf16 operand mode (w_hh_t bf16):
+//   gru_forward_bf16, gru_backward_bf16
 //
 // Layouts as the JAX kernel's: xw (B, T, 3H) = x @ W_ih^T + b_ih, w_hh_t
 // (H, 3H) = W_hh^T, b_hh (3H), h0 (B, H); gate order r, z, n, with b_hn
@@ -88,9 +90,27 @@
 //
 // Numerics: the products in 3xTF32 (FP32's order of error, tf32x3.cuh);
 // cell math, state and sums in FP32.
+//
+// The bf16 operand mode (TW = bf16; JAX's kernel with bf16 w_hh_t,
+// pallas_gru.py _gates and _bwd_kernel: h.astype(bf16) @ W_hh and
+// dhh.astype(bf16) @ W_hh^T with f32 accumulation): each k16 step of a
+// product is one mma.sync.m16n8k16 (bf16 in, FP32 accumulate) in place of
+// two k8 steps of three TF32 passes. The operand permutation is the one
+// above, read two k at a time: a lane's float4 of h (or dhh) at k = kb +
+// 16 p .. + 3 gives A fragments a0/a1 (k 4q, 4q + 1) and a2/a3 (4q + 2,
+// 4q + 3), each pair rounded to bf16 (to nearest, ties to even) as the
+// register is built, and W's b0/b1 take the same k pairs, stored bf16
+// and kept in registers (a quarter of the FP32 mode's hi/lo registers,
+// no lo in shared memory). State, gate math, b_hh and hh = h W + b_hh
+// stay FP32; hh, dxw and dhh come back FP32. dW_hh^T = bf16(h_shift)^T
+// bf16(dhh) sums in FP32 on bf16_reduce_kernel (FP32 tiles, rounded at
+// the fragments, bf16_gemm.cuh reduce_rows_tn_bf16_tc) and is rounded to
+// bf16 once, JAX's einsum cast to the weights' dtype; db_hh = colsum(dhh)
+// FP32. The cluster size comes from the bf16 instantiation's own
+// occupancy (gru_resident_clusters_bf16).
 
+#include "bf16_gemm.cuh"
 #include "cluster_exchange.cuh"
-#include "tc_gemm.cuh"
 
 namespace {
 
@@ -126,8 +146,9 @@ inline bool gru_shape_ok(int H, int ctas) {
   return (H == 256 && (ctas == 16 || ctas == 8)) || (H == 128 && ctas == 8);
 }
 
-// The shape of a step for hidden size H over a cluster of CLN CTAs.
-template <int H, int CLN>
+// The shape of a step for hidden size H over a cluster of CLN CTAs, in
+// the FP32 or (BF) the bf16 operand mode.
+template <int H, int CLN, bool BF>
 struct Gru {
   static constexpr int U = H / CLN;   // units a CTA owns
   static constexpr int UG = U / 8;    // unit groups (n-tile triples)
@@ -135,10 +156,12 @@ struct Gru {
   static constexpr int EPW = 4 / KS;  // forward: cell elements a lane
   static constexpr int KF = H / KS;   // forward: K range of a warp
   static constexpr int KSF = KF / 8;  // forward: k-steps of a warp
-  static constexpr bool LO_F = 3 * KSF > 24;  // lo fragments in smem
+  static constexpr bool LO_F = !BF && 3 * KSF > 24;  // lo fragments in smem
+  static constexpr int NF = BF ? KSF / 2 : KSF;  // forward: W fragments a gate
   static constexpr int NPW = H / 64;  // backward: n-tiles a warp
   static constexpr int KSB = 3 * U / 8;       // backward: k-steps
-  static constexpr bool LO_B = NPW * KSB > 24;
+  static constexpr bool LO_B = !BF && NPW * KSB > 24;
+  static constexpr int NB = BF ? KSB / 2 : KSB;  // backward: W fragments
   static constexpr int RPT = U / 16;  // backward: cell rows a thread
   static constexpr int HS = H + 16;   // row stride of the h state
   static constexpr int DS = 3 * U + (48 - (3 * U) % 32) % 32;  // of dhh
@@ -160,19 +183,20 @@ struct Gru {
 
 // hh (B, T, 3H), null for the primal, is the backward's residual:
 // h_{t-1} @ w_hh_t + b_hh of every step
-template <int H, int CLN>
+template <int H, int CLN, typename TW>
 __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
     const float* __restrict__ xw,      // (B, T, 3H)
-    const float* __restrict__ w_hh_t,  // (H, 3H)
+    const TW* __restrict__ w_hh_t,     // (H, 3H)
     const float* __restrict__ b_hh,    // (3H)
     const float* __restrict__ h0,      // (B, H)
     float* __restrict__ ys,            // (B, T, H)
     float* __restrict__ hn,            // (B, H)
     float* __restrict__ hh,            // (B, T, 3H) or null
     int B, int T) {
-  using C = Gru<H, CLN>;
+  constexpr bool BF = std::is_same_v<TW, bf16>;
+  using C = Gru<H, CLN, BF>;
   constexpr int U = C::U, UG = C::UG, KS = C::KS, EPW = C::EPW;
-  constexpr int KSF = C::KSF, HS = C::HS;
+  constexpr int KSF = C::KSF, HS = C::HS, NF = C::NF;
   constexpr bool LO = C::LO_F;
   constexpr int CH = BT * U / 4;  // float4 chunks of the CTA's h block
   cg::cluster_group cluster = cg::this_cluster();
@@ -192,21 +216,32 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
   uint2* wlo = reinterpret_cast<uint2*>(hs + BT * U);  // [8][3][KSF][32]
 
   // B fragments: k-step s reads k = kb + 16 (s / 2) + 2 (s % 2) (b0) and
-  // the k after it (b1), column gate * H + rank U + 8 ug + g
-  uint32_t whi[3][KSF][2], wl[3][LO ? 1 : KSF][2];
+  // the k after it (b1), column gate * H + rank U + 8 ug + g; in the bf16
+  // mode k16-step s reads k = kb + 16 s and the k after it (b0), then k +
+  // 2 and k + 3 (b1)
+  uint32_t whi[3][NF][2], wl[3][LO || BF ? 1 : KSF][2];
 #pragma unroll
   for (int gt = 0; gt < 3; ++gt)
 #pragma unroll
-    for (int s = 0; s < KSF; ++s) {
-      const int k = kb + 16 * (s / 2) + 2 * (s % 2);
-      const float* w = w_hh_t + (size_t)k * G + gt * H + rank * U + 8 * ug + g;
-      uint32_t lo[2];
-      split_tf32(w[0], whi[gt][s][0], lo[0]);
-      split_tf32(w[G], whi[gt][s][1], lo[1]);
-      if constexpr (LO)
-        wlo[((warp * 3 + gt) * KSF + s) * 32 + lane] = make_uint2(lo[0], lo[1]);
-      else
-        wl[gt][LO ? 0 : s][0] = lo[0], wl[gt][LO ? 0 : s][1] = lo[1];
+    for (int s = 0; s < NF; ++s) {
+      if constexpr (BF) {
+        const TW* w = w_hh_t + (size_t)(kb + 16 * s) * G + gt * H +
+                      rank * U + 8 * ug + g;
+        whi[gt][s][0] = pack_bf16_raw(w[0], w[G]);
+        whi[gt][s][1] = pack_bf16_raw(w[2 * G], w[3 * G]);
+      } else {
+        const int k = kb + 16 * (s / 2) + 2 * (s % 2);
+        const TW* w =
+            w_hh_t + (size_t)k * G + gt * H + rank * U + 8 * ug + g;
+        uint32_t lo[2];
+        split_tf32(w[0], whi[gt][s][0], lo[0]);
+        split_tf32(w[G], whi[gt][s][1], lo[1]);
+        if constexpr (LO)
+          wlo[((warp * 3 + gt) * KSF + s) * 32 + lane] =
+              make_uint2(lo[0], lo[1]);
+        else
+          wl[gt][LO ? 0 : s][0] = lo[0], wl[gt][LO ? 0 : s][1] = lo[1];
+      }
     }
   for (int i = tid; i < BT * H; i += NT) {
     const int r = i / H, k = i % H;
@@ -257,24 +292,31 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
                                                          16 * p);
       const float4 vb = *reinterpret_cast<const float4*>(
           hc + (g + 8) * HS + kb + 16 * p);
+      if constexpr (BF) {  // one k16 step, even and odd p apart
+        const uint32_t a[4] = {pack_bf16(va.x, va.y), pack_bf16(vb.x, vb.y),
+                               pack_bf16(va.z, va.w), pack_bf16(vb.z, vb.w)};
 #pragma unroll
-      for (int o = 0; o < 2; ++o) {
-        const int s = 2 * p + o;
-        uint32_t ah[4], al[4];
-        split_tf32_alu(o ? va.z : va.x, ah[0], al[0]);
-        split_tf32_alu(o ? vb.z : vb.x, ah[1], al[1]);
-        split_tf32_alu(o ? va.w : va.y, ah[2], al[2]);
-        split_tf32_alu(o ? vb.w : vb.y, ah[3], al[3]);
+        for (int gt = 0; gt < 3; ++gt) mma_bf16(acc[p & 1][gt], a, whi[gt][p]);
+      } else {
 #pragma unroll
-        for (int gt = 0; gt < 3; ++gt) {
-          uint32_t bl[2];
-          if constexpr (LO) {
-            const uint2 v = wlo[((warp * 3 + gt) * KSF + s) * 32 + lane];
-            bl[0] = v.x, bl[1] = v.y;
-          } else {
-            bl[0] = wl[gt][LO ? 0 : s][0], bl[1] = wl[gt][LO ? 0 : s][1];
+        for (int o = 0; o < 2; ++o) {
+          const int s = 2 * p + o;
+          uint32_t ah[4], al[4];
+          split_tf32_alu(o ? va.z : va.x, ah[0], al[0]);
+          split_tf32_alu(o ? vb.z : vb.x, ah[1], al[1]);
+          split_tf32_alu(o ? va.w : va.y, ah[2], al[2]);
+          split_tf32_alu(o ? vb.w : vb.y, ah[3], al[3]);
+#pragma unroll
+          for (int gt = 0; gt < 3; ++gt) {
+            uint32_t bl[2];
+            if constexpr (LO) {
+              const uint2 v = wlo[((warp * 3 + gt) * KSF + s) * 32 + lane];
+              bl[0] = v.x, bl[1] = v.y;
+            } else {
+              bl[0] = wl[gt][LO ? 0 : s][0], bl[1] = wl[gt][LO ? 0 : s][1];
+            }
+            mma_3xtf32(acc[o][gt], ah, al, whi[gt][s], bl);
           }
-          mma_3xtf32(acc[o][gt], ah, al, whi[gt][s], bl);
         }
       }
     }
@@ -354,11 +396,11 @@ __global__ void __launch_bounds__(NT, 1) gru_fwd_kernel(
 }
 
 // dhh (B, T, 3H) is the cotangent of hh, for the weight reductions after
-template <int H, int CLN>
+template <int H, int CLN, typename TW>
 __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
     const float* __restrict__ xw,      // (B, T, 3H)
     const float* __restrict__ hh,      // (B, T, 3H) saved by the forward
-    const float* __restrict__ w_hh_t,  // (H, 3H)
+    const TW* __restrict__ w_hh_t,     // (H, 3H)
     const float* __restrict__ h0,      // (B, H)
     const float* __restrict__ ys,      // (B, T, H)
     const float* __restrict__ dys,     // (B, T, H)
@@ -367,9 +409,10 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
     float* __restrict__ dhh,           // (B, T, 3H)
     float* __restrict__ dh0,           // (B, H)
     int B, int T) {
-  using C = Gru<H, CLN>;
+  constexpr bool BF = std::is_same_v<TW, bf16>;
+  using C = Gru<H, CLN, BF>;
   constexpr int U = C::U, RPT = C::RPT, NPW = C::NPW, KSB = C::KSB;
-  constexpr int DS = C::DS, SLOT = C::SLOT;
+  constexpr int DS = C::DS, SLOT = C::SLOT, NB = C::NB;
   constexpr bool LO = C::LO_B;
   static_assert(RPT * (NT / U) == BT, "cell layout covers 16 rows");
   cg::cluster_group cluster = cg::this_cluster();
@@ -390,24 +433,32 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
   // B fragments of W^T: k-step s reads local gate column lc = 16 (s / 2)
   // + 4 q + 2 (s % 2) (b0) and the one after it (b1), of unit n = 8 j + g
   // of n-tile j = warp NPW + jj; local column lc is w_hh_t's column
-  // (lc / U) H + rank U + lc % U
-  uint32_t whi[NPW][KSB][2], wl[NPW][LO ? 1 : KSB][2];
+  // (lc / U) H + rank U + lc % U. In the bf16 mode k16-step s reads lc =
+  // 16 s + 4 q and the one after it (b0), then lc + 2 and lc + 3 (b1)
+  uint32_t whi[NPW][NB][2], wl[NPW][LO || BF ? 1 : KSB][2];
 #pragma unroll
   for (int jj = 0; jj < NPW; ++jj)
 #pragma unroll
-    for (int s = 0; s < KSB; ++s) {
-      const int lc = 16 * (s / 2) + 4 * q + 2 * (s % 2);
-      const float* w = w_hh_t + (size_t)(8 * (warp * NPW + jj) + g) * G;
-      uint32_t lo[2];
+    for (int s = 0; s < NB; ++s) {
+      const TW* w = w_hh_t + (size_t)(8 * (warp * NPW + jj) + g) * G;
+      if constexpr (BF) {
+        const int lc = 16 * s + 4 * q;  // four columns of one gate
+        const TW* wc = w + (lc / U) * H + rank * U + lc % U;
+        whi[jj][s][0] = pack_bf16_raw(wc[0], wc[1]);
+        whi[jj][s][1] = pack_bf16_raw(wc[2], wc[3]);
+      } else {
+        const int lc = 16 * (s / 2) + 4 * q + 2 * (s % 2);
+        uint32_t lo[2];
 #pragma unroll
-      for (int c = 0; c < 2; ++c)
-        split_tf32(w[((lc + c) / U) * H + rank * U + (lc + c) % U],
-                   whi[jj][s][c], lo[c]);
-      if constexpr (LO)
-        wlo[((warp * NPW + jj) * KSB + s) * 32 + lane] =
-            make_uint2(lo[0], lo[1]);
-      else
-        wl[jj][LO ? 0 : s][0] = lo[0], wl[jj][LO ? 0 : s][1] = lo[1];
+        for (int c = 0; c < 2; ++c)
+          split_tf32(w[((lc + c) / U) * H + rank * U + (lc + c) % U],
+                     whi[jj][s][c], lo[c]);
+        if constexpr (LO)
+          wlo[((warp * NPW + jj) * KSB + s) * 32 + lane] =
+              make_uint2(lo[0], lo[1]);
+        else
+          wl[jj][LO ? 0 : s][0] = lo[0], wl[jj][LO ? 0 : s][1] = lo[1];
+      }
     }
   // per owned (row, unit): the local carry dh z, and the next step's
   // inputs, loaded a step ahead: dy, xw (3), hh (3), h_{t-1}
@@ -496,24 +547,32 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
           *reinterpret_cast<const float4*>(dg + g * DS + 16 * p + 4 * q);
       const float4 vb = *reinterpret_cast<const float4*>(
           dg + (g + 8) * DS + 16 * p + 4 * q);
+      if constexpr (BF) {  // one k16 step, even and odd p apart
+        const uint32_t a[4] = {pack_bf16(va.x, va.y), pack_bf16(vb.x, vb.y),
+                               pack_bf16(va.z, va.w), pack_bf16(vb.z, vb.w)};
 #pragma unroll
-      for (int o = 0; o < 2; ++o) {
-        const int s = 2 * p + o;
-        uint32_t ah[4], al[4];
-        split_tf32_alu(o ? va.z : va.x, ah[0], al[0]);
-        split_tf32_alu(o ? vb.z : vb.x, ah[1], al[1]);
-        split_tf32_alu(o ? va.w : va.y, ah[2], al[2]);
-        split_tf32_alu(o ? vb.w : vb.y, ah[3], al[3]);
+        for (int jj = 0; jj < NPW; ++jj)
+          mma_bf16(acc[p & 1][jj], a, whi[jj][p]);
+      } else {
 #pragma unroll
-        for (int jj = 0; jj < NPW; ++jj) {
-          uint32_t bl[2];
-          if constexpr (LO) {
-            const uint2 v = wlo[((warp * NPW + jj) * KSB + s) * 32 + lane];
-            bl[0] = v.x, bl[1] = v.y;
-          } else {
-            bl[0] = wl[jj][LO ? 0 : s][0], bl[1] = wl[jj][LO ? 0 : s][1];
+        for (int o = 0; o < 2; ++o) {
+          const int s = 2 * p + o;
+          uint32_t ah[4], al[4];
+          split_tf32_alu(o ? va.z : va.x, ah[0], al[0]);
+          split_tf32_alu(o ? vb.z : vb.x, ah[1], al[1]);
+          split_tf32_alu(o ? va.w : va.y, ah[2], al[2]);
+          split_tf32_alu(o ? vb.w : vb.y, ah[3], al[3]);
+#pragma unroll
+          for (int jj = 0; jj < NPW; ++jj) {
+            uint32_t bl[2];
+            if constexpr (LO) {
+              const uint2 v = wlo[((warp * NPW + jj) * KSB + s) * 32 + lane];
+              bl[0] = v.x, bl[1] = v.y;
+            } else {
+              bl[0] = wl[jj][LO ? 0 : s][0], bl[1] = wl[jj][LO ? 0 : s][1];
+            }
+            mma_3xtf32(acc[o][jj], ah, al, whi[jj][s], bl);
           }
-          mma_3xtf32(acc[o][jj], ah, al, whi[jj][s], bl);
         }
       }
     }
@@ -563,24 +622,87 @@ __global__ void __launch_bounds__(NT, 1) gru_bwd_kernel(
   }
 }
 
-template <int H, int CLN>
-int gru_forward(const float* xw, const float* w_hh_t, const float* b_hh,
+template <int H, int CLN, typename TW>
+int gru_forward(const float* xw, const TW* w_hh_t, const float* b_hh,
                 const float* h0, float* ys, float* hn, float* hh, int B,
                 int T, cudaStream_t stream) {
-  return launch_cluster_n<CLN>(gru_fwd_kernel<H, CLN>,
-                               Gru<H, CLN>::fwd_smem(), B, stream, xw,
-                               w_hh_t, b_hh, h0, ys, hn, hh, B, T);
+  return launch_cluster_n<CLN>(
+      gru_fwd_kernel<H, CLN, TW>,
+      Gru<H, CLN, std::is_same_v<TW, bf16>>::fwd_smem(), B, stream, xw,
+      w_hh_t, b_hh, h0, ys, hn, hh, B, T);
 }
 
-template <int H, int CLN>
-int gru_backward(const float* xw, const float* hh, const float* w_hh_t,
+template <int H, int CLN, typename TW>
+int gru_backward(const float* xw, const float* hh, const TW* w_hh_t,
                  const float* h0, const float* ys, const float* dys,
                  const float* dhn, float* dxw, float* dhh, float* dh0, int B,
                  int T, cudaStream_t stream) {
-  return launch_cluster_n<CLN>(gru_bwd_kernel<H, CLN>,
-                               Gru<H, CLN>::bwd_smem(), B, stream, xw, hh,
-                               w_hh_t, h0, ys, dys, dhn, dxw, dhh, dh0, B,
-                               T);
+  return launch_cluster_n<CLN>(
+      gru_bwd_kernel<H, CLN, TW>,
+      Gru<H, CLN, std::is_same_v<TW, bf16>>::bwd_smem(), B, stream, xw, hh,
+      w_hh_t, h0, ys, dys, dhn, dxw, dhh, dh0, B, T);
+}
+
+// the fewer of the forward's and the backward's resident clusters
+template <int H, int CLN, typename TW>
+int gru_resident() {
+  using C = Gru<H, CLN, std::is_same_v<TW, bf16>>;
+  const int f =
+      resident_cluster_n<CLN>(gru_fwd_kernel<H, CLN, TW>, C::fwd_smem());
+  const int b =
+      resident_cluster_n<CLN>(gru_bwd_kernel<H, CLN, TW>, C::bwd_smem());
+  return f < b ? f : b;
+}
+
+template <typename TW>
+int forward_any(const float* xw, const TW* w_hh_t, const float* b_hh,
+                const float* h0, float* ys, float* hn, float* hh, int B,
+                int T, int H, int ctas, void* stream_ptr) {
+  if (!gru_shape_ok(H, ctas) || B <= 0 || T <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream_ptr;
+  if (H == 128)
+    return gru_forward<128, 8>(xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T, s);
+  return ctas == 16
+             ? gru_forward<256, 16>(xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T, s)
+             : gru_forward<256, 8>(xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T, s);
+}
+
+// dW_hh^T over all B*T rows: 3xTF32 (FP32 mode), or bf16 operands with
+// FP32 sums rounded to bf16 once (bf16 mode)
+int reduce_dw(const float* ys, const float* h0, int T, const float* dhh,
+              float* dwhh, float* part, int rows, int H, cudaStream_t s) {
+  return reduce_rows_tn_tc(ys, h0, T, dhh, dwhh, part, rows, H, 3 * H, s);
+}
+int reduce_dw(const float* ys, const float* h0, int T, const float* dhh,
+              bf16* dwhh, float* part, int rows, int H, cudaStream_t s) {
+  return reduce_rows_tn_bf16_tc(ys, h0, T, dhh, dwhh, part, rows, H, 3 * H,
+                                s);
+}
+
+template <typename TW>
+int backward_any(const float* xw, const float* hh, const TW* w_hh_t,
+                 const float* h0, const float* ys, const float* dys,
+                 const float* dhn, float* dxw, TW* dwhh, float* dbhh,
+                 float* dh0, float* ws, int B, int T, int H, int ctas,
+                 void* stream_ptr) {
+  if (!gru_shape_ok(H, ctas) || B <= 0 || T <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream_ptr;
+  float* dhh = ws;
+  float* part = dhh + (size_t)B * T * 3 * H;
+  int err =
+      H == 128 ? gru_backward<128, 8>(xw, hh, w_hh_t, h0, ys, dys, dhn, dxw,
+                                      dhh, dh0, B, T, s)
+      : ctas == 16
+          ? gru_backward<256, 16>(xw, hh, w_hh_t, h0, ys, dys, dhn, dxw, dhh,
+                                  dh0, B, T, s)
+          : gru_backward<256, 8>(xw, hh, w_hh_t, h0, ys, dys, dhn, dxw, dhh,
+                                 dh0, B, T, s);
+  if (err) return err;
+  const int rows = B * T;
+  if ((err = reduce_dw(ys, h0, T, dhh, dwhh, part, rows, H, s))) return err;
+  return colsum(dhh, dbhh, part + PART_FLOATS, rows, 3 * H, s);
 }
 
 }  // namespace
@@ -593,14 +715,16 @@ extern "C" {
 int gru_forward_f32(const float* xw, const float* w_hh_t, const float* b_hh,
                     const float* h0, float* ys, float* hn, float* hh, int B,
                     int T, int H, int ctas, void* stream_ptr) {
-  if (!gru_shape_ok(H, ctas) || B <= 0 || T <= 0)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream_ptr;
-  if (H == 128)
-    return gru_forward<128, 8>(xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T, s);
-  return ctas == 16
-             ? gru_forward<256, 16>(xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T, s)
-             : gru_forward<256, 8>(xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T, s);
+  return forward_any(xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T, H, ctas,
+                     stream_ptr);
+}
+
+// The same in the bf16 operand mode: w_hh_t bf16, the rest FP32.
+int gru_forward_bf16(const float* xw, const bf16* w_hh_t, const float* b_hh,
+                     const float* h0, float* ys, float* hn, float* hh, int B,
+                     int T, int H, int ctas, void* stream_ptr) {
+  return forward_any(xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T, H, ctas,
+                     stream_ptr);
 }
 
 // Clusters of 16 batch rows the card runs at once for hidden size H over
@@ -608,24 +732,17 @@ int gru_forward_f32(const float* xw, const float* w_hh_t, const float* b_hh,
 // more run in waves. -1 on an error.
 int gru_resident_clusters(int H, int ctas) {
   if (!gru_shape_ok(H, ctas)) return -1;
-  int f, b;
-  if (H == 128) {
-    f = resident_cluster_n<8>(gru_fwd_kernel<128, 8>,
-                              Gru<128, 8>::fwd_smem());
-    b = resident_cluster_n<8>(gru_bwd_kernel<128, 8>,
-                              Gru<128, 8>::bwd_smem());
-  } else if (ctas == 16) {
-    f = resident_cluster_n<16>(gru_fwd_kernel<256, 16>,
-                               Gru<256, 16>::fwd_smem());
-    b = resident_cluster_n<16>(gru_bwd_kernel<256, 16>,
-                               Gru<256, 16>::bwd_smem());
-  } else {
-    f = resident_cluster_n<8>(gru_fwd_kernel<256, 8>,
-                              Gru<256, 8>::fwd_smem());
-    b = resident_cluster_n<8>(gru_bwd_kernel<256, 8>,
-                              Gru<256, 8>::bwd_smem());
-  }
-  return f < b ? f : b;
+  if (H == 128) return gru_resident<128, 8, float>();
+  return ctas == 16 ? gru_resident<256, 16, float>()
+                    : gru_resident<256, 8, float>();
+}
+
+// The same for the bf16 mode's instantiations.
+int gru_resident_clusters_bf16(int H, int ctas) {
+  if (!gru_shape_ok(H, ctas)) return -1;
+  if (H == 128) return gru_resident<128, 8, bf16>();
+  return ctas == 16 ? gru_resident<256, 16, bf16>()
+                    : gru_resident<256, 8, bf16>();
 }
 
 // floats of backward scratch: dhh (B, T, 3H) and split-K partials
@@ -642,25 +759,19 @@ int gru_backward_f32(const float* xw, const float* hh, const float* w_hh_t,
                      const float* dhn, float* dxw, float* dwhh, float* dbhh,
                      float* dh0, float* ws, int B, int T, int H, int ctas,
                      void* stream_ptr) {
-  if (!gru_shape_ok(H, ctas) || B <= 0 || T <= 0)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream_ptr;
-  float* dhh = ws;
-  float* part = dhh + (size_t)B * T * 3 * H;
-  int err =
-      H == 128 ? gru_backward<128, 8>(xw, hh, w_hh_t, h0, ys, dys, dhn, dxw,
-                                      dhh, dh0, B, T, s)
-      : ctas == 16
-          ? gru_backward<256, 16>(xw, hh, w_hh_t, h0, ys, dys, dhn, dxw, dhh,
-                                  dh0, B, T, s)
-          : gru_backward<256, 8>(xw, hh, w_hh_t, h0, ys, dys, dhn, dxw, dhh,
-                                 dh0, B, T, s);
-  if (err) return err;
-  const int rows = B * T;
-  if ((err = reduce_rows_tn_tc(ys, h0, T, dhh, dwhh, part, rows, H, 3 * H,
-                               s)))
-    return err;
-  return colsum(dhh, dbhh, part + PART_FLOATS, rows, 3 * H, s);
+  return backward_any(xw, hh, w_hh_t, h0, ys, dys, dhn, dxw, dwhh, dbhh, dh0,
+                      ws, B, T, H, ctas, stream_ptr);
+}
+
+// The same in the bf16 operand mode: w_hh_t and dw_hh_t bf16, the rest
+// FP32.
+int gru_backward_bf16(const float* xw, const float* hh, const bf16* w_hh_t,
+                      const float* h0, const float* ys, const float* dys,
+                      const float* dhn, float* dxw, bf16* dwhh, float* dbhh,
+                      float* dh0, float* ws, int B, int T, int H, int ctas,
+                      void* stream_ptr) {
+  return backward_any(xw, hh, w_hh_t, h0, ys, dys, dhn, dxw, dwhh, dbhh, dh0,
+                      ws, B, T, H, ctas, stream_ptr);
 }
 
 #ifdef GRU_STAMPS

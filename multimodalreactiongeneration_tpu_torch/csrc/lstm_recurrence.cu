@@ -9,6 +9,8 @@
 //   lstm_recurrence_backward_f32                _bwd_kernel and the dW_hh
 //                                               einsum of _bwd_impl
 //                                               (_vjp_bwd)
+// and the same in JAX's bf16 operand mode (w_hh_t bf16):
+//   lstm_recurrence_forward_bf16, lstm_recurrence_backward_bf16
 //
 // Layouts as the JAX kernel's: xw (B, T, 4H) = x @ W_ih^T + b_ih + b_hh,
 // w_hh_t (H, 4H) = W_hh^T, h0, c0 (B, H); gate order i, f, g, o. Unlike
@@ -101,9 +103,24 @@
 //
 // Numerics: the products in 3xTF32 (FP32's order of error, tf32x3.cuh);
 // cell math, state and sums in FP32.
+//
+// The bf16 operand mode (TW = bf16; JAX's kernel with bf16 w_hh_t,
+// pallas_lstm.py _fwd_kernel and _bwd_kernel: h.astype(bf16) @ W_hh and
+// dgates.astype(bf16) @ W_hh^T with f32 accumulation) is gru.cu's: each
+// k16 step of a product one mma.sync.m16n8k16 (bf16 in, FP32 accumulate),
+// h and the dgates rounded to bf16 (to nearest, ties to even) as the A
+// fragments are built from the same float4 reads, W's fragments stored
+// bf16 in registers. State, cell math, the residuals and dxw stay FP32.
+// dW_hh^T = bf16(h_shift)^T bf16(dgates) sums in FP32 on
+// bf16_reduce_kernel (FP32 tiles rounded at the fragments,
+// bf16_gemm.cuh reduce_rows_tn_bf16_tc) and is rounded to bf16 once: the
+// einsum of _bwd_impl (pallas_lstm.py:331), which the JAX package runs
+// outside its kernel and the port inside its own reduction. The cluster
+// size comes from the bf16 instantiation's own occupancy
+// (lstm_recurrence_resident_clusters_bf16).
 
+#include "bf16_gemm.cuh"
 #include "cluster_exchange.cuh"
-#include "tc_gemm.cuh"
 
 namespace {
 
@@ -146,8 +163,9 @@ inline bool lstm_shape_ok(int H, int ctas) {
 // registers each); past it, lo lives in shared memory
 constexpr int REG_FRAGS = 32;
 
-// The shape of a step for hidden size H over a cluster of CLN CTAs.
-template <int H, int CLN>
+// The shape of a step for hidden size H over a cluster of CLN CTAs, in
+// the FP32 or (BF) the bf16 operand mode.
+template <int H, int CLN, bool BF>
 struct Lstm {
   static constexpr int U = H / CLN;   // units a CTA owns
   static constexpr int UG = U / 8;    // unit groups (n-tile quads)
@@ -155,10 +173,12 @@ struct Lstm {
   static constexpr int EPW = 4 / KS;  // forward: cells a lane
   static constexpr int KF = H / KS;   // forward: K range of a warp
   static constexpr int KSF = KF / 8;  // forward: k-steps of a warp
-  static constexpr bool LO_F = 4 * KSF > REG_FRAGS;  // lo in smem
+  static constexpr bool LO_F = !BF && 4 * KSF > REG_FRAGS;  // lo in smem
+  static constexpr int NF = BF ? KSF / 2 : KSF;  // forward: W fragments a gate
   static constexpr int NPW = H / 64;  // backward: n-tiles a warp
   static constexpr int KSB = 4 * U / 8;  // backward: k-steps (K = 4U)
-  static constexpr bool LO_B = NPW * KSB > REG_FRAGS;
+  static constexpr bool LO_B = !BF && NPW * KSB > REG_FRAGS;
+  static constexpr int NB = BF ? KSB / 2 : KSB;  // backward: W fragments
   static constexpr int RPT = U / 16;  // backward: cell rows a thread
   static constexpr int HS = H + 16;   // row stride of the h state
   static constexpr int RS = 5 * U + 4;  // of the staged acts and c
@@ -183,10 +203,10 @@ struct Lstm {
 // With RES (_fwd_kernel_savegates), acts (B, T, 4H) = [i, f, g, o] and
 // cs (B, T, H) are the backward's residuals; without (the primal), they
 // are not touched
-template <int H, int CLN, bool RES>
+template <int H, int CLN, bool RES, typename TW>
 __global__ void __launch_bounds__(NT, 1) lstm_tc_fwd_kernel(
     const float* __restrict__ xw,      // (B, T, 4H)
-    const float* __restrict__ w_hh_t,  // (H, 4H)
+    const TW* __restrict__ w_hh_t,     // (H, 4H)
     const float* __restrict__ h0,      // (B, H)
     const float* __restrict__ c0,      // (B, H)
     float* __restrict__ ys,            // (B, T, H)
@@ -195,9 +215,10 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_fwd_kernel(
     float* __restrict__ acts,          // (B, T, 4H) with RES
     float* __restrict__ cs,            // (B, T, H) with RES
     int B, int T) {
-  using C = Lstm<H, CLN>;
+  constexpr bool BF = std::is_same_v<TW, bf16>;
+  using C = Lstm<H, CLN, BF>;
   constexpr int U = C::U, UG = C::UG, KS = C::KS, EPW = C::EPW;
-  constexpr int KSF = C::KSF, HS = C::HS, RS = C::RS;
+  constexpr int KSF = C::KSF, HS = C::HS, RS = C::RS, NF = C::NF;
   constexpr bool LO = C::LO_F;
   constexpr int CH = BT * U / 4;  // float4 chunks of the CTA's h block
   cg::cluster_group cluster = cg::this_cluster();
@@ -219,21 +240,32 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_fwd_kernel(
       reinterpret_cast<uint2*>(rs + (RES ? BT * RS : 0));
 
   // B fragments: k-step s reads k = kb + 16 (s / 2) + 2 (s % 2) (b0) and
-  // the k after it (b1), column gate * H + rank U + 8 ug + g
-  uint32_t whi[4][KSF][2], wl[4][LO ? 1 : KSF][2];
+  // the k after it (b1), column gate * H + rank U + 8 ug + g; in the bf16
+  // mode k16-step s reads k = kb + 16 s and the k after it (b0), then k +
+  // 2 and k + 3 (b1)
+  uint32_t whi[4][NF][2], wl[4][LO || BF ? 1 : KSF][2];
 #pragma unroll
   for (int gt = 0; gt < 4; ++gt)
 #pragma unroll
-    for (int s = 0; s < KSF; ++s) {
-      const int k = kb + 16 * (s / 2) + 2 * (s % 2);
-      const float* w = w_hh_t + (size_t)k * G + gt * H + rank * U + 8 * ug + g;
-      uint32_t lo[2];
-      split_tf32(w[0], whi[gt][s][0], lo[0]);
-      split_tf32(w[G], whi[gt][s][1], lo[1]);
-      if constexpr (LO)
-        wlo[((warp * 4 + gt) * KSF + s) * 32 + lane] = make_uint2(lo[0], lo[1]);
-      else
-        wl[gt][LO ? 0 : s][0] = lo[0], wl[gt][LO ? 0 : s][1] = lo[1];
+    for (int s = 0; s < NF; ++s) {
+      if constexpr (BF) {
+        const TW* w = w_hh_t + (size_t)(kb + 16 * s) * G + gt * H +
+                      rank * U + 8 * ug + g;
+        whi[gt][s][0] = pack_bf16_raw(w[0], w[G]);
+        whi[gt][s][1] = pack_bf16_raw(w[2 * G], w[3 * G]);
+      } else {
+        const int k = kb + 16 * (s / 2) + 2 * (s % 2);
+        const TW* w =
+            w_hh_t + (size_t)k * G + gt * H + rank * U + 8 * ug + g;
+        uint32_t lo[2];
+        split_tf32(w[0], whi[gt][s][0], lo[0]);
+        split_tf32(w[G], whi[gt][s][1], lo[1]);
+        if constexpr (LO)
+          wlo[((warp * 4 + gt) * KSF + s) * 32 + lane] =
+              make_uint2(lo[0], lo[1]);
+        else
+          wl[gt][LO ? 0 : s][0] = lo[0], wl[gt][LO ? 0 : s][1] = lo[1];
+      }
     }
   for (int i = tid; i < BT * H; i += NT) {
     const int r = i / H, k = i % H;
@@ -284,24 +316,31 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_fwd_kernel(
                                                          16 * p);
       const float4 vb = *reinterpret_cast<const float4*>(
           hc + (g + 8) * HS + kb + 16 * p);
+      if constexpr (BF) {  // one k16 step, even and odd p apart
+        const uint32_t a[4] = {pack_bf16(va.x, va.y), pack_bf16(vb.x, vb.y),
+                               pack_bf16(va.z, va.w), pack_bf16(vb.z, vb.w)};
 #pragma unroll
-      for (int o = 0; o < 2; ++o) {
-        const int s = 2 * p + o;
-        uint32_t ah[4], al[4];
-        split_tf32_alu(o ? va.z : va.x, ah[0], al[0]);
-        split_tf32_alu(o ? vb.z : vb.x, ah[1], al[1]);
-        split_tf32_alu(o ? va.w : va.y, ah[2], al[2]);
-        split_tf32_alu(o ? vb.w : vb.y, ah[3], al[3]);
+        for (int gt = 0; gt < 4; ++gt) mma_bf16(acc[p & 1][gt], a, whi[gt][p]);
+      } else {
 #pragma unroll
-        for (int gt = 0; gt < 4; ++gt) {
-          uint32_t bl[2];
-          if constexpr (LO) {
-            const uint2 v = wlo[((warp * 4 + gt) * KSF + s) * 32 + lane];
-            bl[0] = v.x, bl[1] = v.y;
-          } else {
-            bl[0] = wl[gt][LO ? 0 : s][0], bl[1] = wl[gt][LO ? 0 : s][1];
+        for (int o = 0; o < 2; ++o) {
+          const int s = 2 * p + o;
+          uint32_t ah[4], al[4];
+          split_tf32_alu(o ? va.z : va.x, ah[0], al[0]);
+          split_tf32_alu(o ? vb.z : vb.x, ah[1], al[1]);
+          split_tf32_alu(o ? va.w : va.y, ah[2], al[2]);
+          split_tf32_alu(o ? vb.w : vb.y, ah[3], al[3]);
+#pragma unroll
+          for (int gt = 0; gt < 4; ++gt) {
+            uint32_t bl[2];
+            if constexpr (LO) {
+              const uint2 v = wlo[((warp * 4 + gt) * KSF + s) * 32 + lane];
+              bl[0] = v.x, bl[1] = v.y;
+            } else {
+              bl[0] = wl[gt][LO ? 0 : s][0], bl[1] = wl[gt][LO ? 0 : s][1];
+            }
+            mma_3xtf32(acc[o][gt], ah, al, whi[gt][s], bl);
           }
-          mma_3xtf32(acc[o][gt], ah, al, whi[gt][s], bl);
         }
       }
     }
@@ -399,22 +438,23 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_fwd_kernel(
 }
 
 // dxw (B, T, 4H) is the dgates trajectory, for the dW_hh reduction after
-template <int H, int CLN>
+template <int H, int CLN, typename TW>
 __global__ void __launch_bounds__(NT, 1) lstm_tc_bwd_kernel(
     const float* __restrict__ acts,    // (B, T, 4H) i, f, g, o
     const float* __restrict__ cs,      // (B, T, H) cell states
     const float* __restrict__ c0,      // (B, H)
     const float* __restrict__ dys,     // (B, T, H)
-    const float* __restrict__ w_hh_t,  // (H, 4H)
+    const TW* __restrict__ w_hh_t,     // (H, 4H)
     const float* __restrict__ dhn,     // (B, H)
     const float* __restrict__ dcn,     // (B, H)
     float* __restrict__ dxw,           // (B, T, 4H)
     float* __restrict__ dh0,           // (B, H)
     float* __restrict__ dc0,           // (B, H)
     int B, int T) {
-  using C = Lstm<H, CLN>;
+  constexpr bool BF = std::is_same_v<TW, bf16>;
+  using C = Lstm<H, CLN, BF>;
   constexpr int U = C::U, RPT = C::RPT, NPW = C::NPW, KSB = C::KSB;
-  constexpr int DS = C::DS, SLOT = C::SLOT;
+  constexpr int DS = C::DS, SLOT = C::SLOT, NB = C::NB;
   constexpr bool LO = C::LO_B;
   static_assert(RPT * (NT / U) == BT, "cell layout covers 16 rows");
   cg::cluster_group cluster = cg::this_cluster();
@@ -435,24 +475,32 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_bwd_kernel(
   // B fragments of W^T: k-step s reads local gate column lc = 16 (s / 2)
   // + 4 q + 2 (s % 2) (b0) and the one after it (b1), of unit n = 8 j + g
   // of n-tile j = warp NPW + jj; local column lc is w_hh_t's column
-  // (lc / U) H + rank U + lc % U
-  uint32_t whi[NPW][KSB][2], wl[NPW][LO ? 1 : KSB][2];
+  // (lc / U) H + rank U + lc % U. In the bf16 mode k16-step s reads lc =
+  // 16 s + 4 q and the one after it (b0), then lc + 2 and lc + 3 (b1)
+  uint32_t whi[NPW][NB][2], wl[NPW][LO || BF ? 1 : KSB][2];
 #pragma unroll
   for (int jj = 0; jj < NPW; ++jj)
 #pragma unroll
-    for (int s = 0; s < KSB; ++s) {
-      const int lc = 16 * (s / 2) + 4 * q + 2 * (s % 2);
-      const float* w = w_hh_t + (size_t)(8 * (warp * NPW + jj) + g) * G;
-      uint32_t lo[2];
+    for (int s = 0; s < NB; ++s) {
+      const TW* w = w_hh_t + (size_t)(8 * (warp * NPW + jj) + g) * G;
+      if constexpr (BF) {
+        const int lc = 16 * s + 4 * q;  // four columns of one gate
+        const TW* wc = w + (lc / U) * H + rank * U + lc % U;
+        whi[jj][s][0] = pack_bf16_raw(wc[0], wc[1]);
+        whi[jj][s][1] = pack_bf16_raw(wc[2], wc[3]);
+      } else {
+        const int lc = 16 * (s / 2) + 4 * q + 2 * (s % 2);
+        uint32_t lo[2];
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
-        split_tf32(w[((lc + e) / U) * H + rank * U + (lc + e) % U],
-                   whi[jj][s][e], lo[e]);
-      if constexpr (LO)
-        wlo[((warp * NPW + jj) * KSB + s) * 32 + lane] =
-            make_uint2(lo[0], lo[1]);
-      else
-        wl[jj][LO ? 0 : s][0] = lo[0], wl[jj][LO ? 0 : s][1] = lo[1];
+        for (int e = 0; e < 2; ++e)
+          split_tf32(w[((lc + e) / U) * H + rank * U + (lc + e) % U],
+                     whi[jj][s][e], lo[e]);
+        if constexpr (LO)
+          wlo[((warp * NPW + jj) * KSB + s) * 32 + lane] =
+              make_uint2(lo[0], lo[1]);
+        else
+          wl[jj][LO ? 0 : s][0] = lo[0], wl[jj][LO ? 0 : s][1] = lo[1];
+      }
     }
   // per owned (row, unit): the cell-state carry dc and the step's inputs
   // (dy, the activations, c_t, c_{t-1}), loaded a step ahead
@@ -519,24 +567,32 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_bwd_kernel(
           *reinterpret_cast<const float4*>(dg + g * DS + 16 * p + 4 * q);
       const float4 vb = *reinterpret_cast<const float4*>(
           dg + (g + 8) * DS + 16 * p + 4 * q);
+      if constexpr (BF) {  // one k16 step, even and odd p apart
+        const uint32_t a[4] = {pack_bf16(va.x, va.y), pack_bf16(vb.x, vb.y),
+                               pack_bf16(va.z, va.w), pack_bf16(vb.z, vb.w)};
 #pragma unroll
-      for (int o = 0; o < 2; ++o) {
-        const int s = 2 * p + o;
-        uint32_t ah[4], al[4];
-        split_tf32_alu(o ? va.z : va.x, ah[0], al[0]);
-        split_tf32_alu(o ? vb.z : vb.x, ah[1], al[1]);
-        split_tf32_alu(o ? va.w : va.y, ah[2], al[2]);
-        split_tf32_alu(o ? vb.w : vb.y, ah[3], al[3]);
+        for (int jj = 0; jj < NPW; ++jj)
+          mma_bf16(acc[p & 1][jj], a, whi[jj][p]);
+      } else {
 #pragma unroll
-        for (int jj = 0; jj < NPW; ++jj) {
-          uint32_t bl[2];
-          if constexpr (LO) {
-            const uint2 v = wlo[((warp * NPW + jj) * KSB + s) * 32 + lane];
-            bl[0] = v.x, bl[1] = v.y;
-          } else {
-            bl[0] = wl[jj][LO ? 0 : s][0], bl[1] = wl[jj][LO ? 0 : s][1];
+        for (int o = 0; o < 2; ++o) {
+          const int s = 2 * p + o;
+          uint32_t ah[4], al[4];
+          split_tf32_alu(o ? va.z : va.x, ah[0], al[0]);
+          split_tf32_alu(o ? vb.z : vb.x, ah[1], al[1]);
+          split_tf32_alu(o ? va.w : va.y, ah[2], al[2]);
+          split_tf32_alu(o ? vb.w : vb.y, ah[3], al[3]);
+#pragma unroll
+          for (int jj = 0; jj < NPW; ++jj) {
+            uint32_t bl[2];
+            if constexpr (LO) {
+              const uint2 v = wlo[((warp * NPW + jj) * KSB + s) * 32 + lane];
+              bl[0] = v.x, bl[1] = v.y;
+            } else {
+              bl[0] = wl[jj][LO ? 0 : s][0], bl[1] = wl[jj][LO ? 0 : s][1];
+            }
+            mma_3xtf32(acc[o][jj], ah, al, whi[jj][s], bl);
           }
-          mma_3xtf32(acc[o][jj], ah, al, whi[jj][s], bl);
         }
       }
     }
@@ -589,39 +645,95 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_bwd_kernel(
   }
 }
 
-template <int H, int CLN>
-int lstm_forward(const float* xw, const float* w_hh_t, const float* h0,
+template <int H, int CLN, typename TW>
+int lstm_forward(const float* xw, const TW* w_hh_t, const float* h0,
                  const float* c0, float* ys, float* hn, float* cn,
                  float* acts, float* cs, int B, int T, cudaStream_t stream) {
+  using C = Lstm<H, CLN, std::is_same_v<TW, bf16>>;
   if (acts)
-    return launch_cluster_n<CLN>(lstm_tc_fwd_kernel<H, CLN, true>,
-                                 Lstm<H, CLN>::fwd_smem(true), B, stream, xw,
-                                 w_hh_t, h0, c0, ys, hn, cn, acts, cs, B, T);
-  return launch_cluster_n<CLN>(lstm_tc_fwd_kernel<H, CLN, false>,
-                               Lstm<H, CLN>::fwd_smem(false), B, stream, xw,
-                               w_hh_t, h0, c0, ys, hn, cn, acts, cs, B, T);
+    return launch_cluster_n<CLN>(lstm_tc_fwd_kernel<H, CLN, true, TW>,
+                                 C::fwd_smem(true), B, stream, xw, w_hh_t, h0,
+                                 c0, ys, hn, cn, acts, cs, B, T);
+  return launch_cluster_n<CLN>(lstm_tc_fwd_kernel<H, CLN, false, TW>,
+                               C::fwd_smem(false), B, stream, xw, w_hh_t, h0,
+                               c0, ys, hn, cn, acts, cs, B, T);
 }
 
-template <int H, int CLN>
+template <int H, int CLN, typename TW>
 int lstm_backward(const float* acts, const float* cs, const float* c0,
-                  const float* dys, const float* w_hh_t, const float* dhn,
+                  const float* dys, const TW* w_hh_t, const float* dhn,
                   const float* dcn, float* dxw, float* dh0, float* dc0,
                   int B, int T, cudaStream_t stream) {
-  return launch_cluster_n<CLN>(lstm_tc_bwd_kernel<H, CLN>,
-                               Lstm<H, CLN>::bwd_smem(), B, stream, acts, cs,
-                               c0, dys, w_hh_t, dhn, dcn, dxw, dh0, dc0, B,
-                               T);
+  return launch_cluster_n<CLN>(
+      lstm_tc_bwd_kernel<H, CLN, TW>,
+      Lstm<H, CLN, std::is_same_v<TW, bf16>>::bwd_smem(), B, stream, acts,
+      cs, c0, dys, w_hh_t, dhn, dcn, dxw, dh0, dc0, B, T);
 }
 
 // the smaller of the training forward's and the backward's resident
 // clusters (the primal takes less shared memory, the same registers)
-template <int H, int CLN>
+template <int H, int CLN, typename TW>
 int lstm_resident() {
-  const int f = resident_cluster_n<CLN>(lstm_tc_fwd_kernel<H, CLN, true>,
-                                        Lstm<H, CLN>::fwd_smem(true));
-  const int b = resident_cluster_n<CLN>(lstm_tc_bwd_kernel<H, CLN>,
-                                        Lstm<H, CLN>::bwd_smem());
+  using C = Lstm<H, CLN, std::is_same_v<TW, bf16>>;
+  const int f = resident_cluster_n<CLN>(lstm_tc_fwd_kernel<H, CLN, true, TW>,
+                                        C::fwd_smem(true));
+  const int b = resident_cluster_n<CLN>(lstm_tc_bwd_kernel<H, CLN, TW>,
+                                        C::bwd_smem());
   return f < b ? f : b;
+}
+
+template <typename TW>
+int forward_any(const float* xw, const TW* w_hh_t, const float* h0,
+                const float* c0, float* ys, float* hn, float* cn, float* acts,
+                float* cs, int B, int T, int H, int ctas, void* stream_ptr) {
+  if (!lstm_shape_ok(H, ctas) || B <= 0 || T <= 0 ||
+      !aligned16(ys, acts, cs))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream_ptr;
+  if (H == 128)
+    return ctas == 8 ? lstm_forward<128, 8>(xw, w_hh_t, h0, c0, ys, hn, cn,
+                                            acts, cs, B, T, s)
+                     : lstm_forward<128, 4>(xw, w_hh_t, h0, c0, ys, hn, cn,
+                                            acts, cs, B, T, s);
+  return ctas == 16 ? lstm_forward<256, 16>(xw, w_hh_t, h0, c0, ys, hn, cn,
+                                            acts, cs, B, T, s)
+                    : lstm_forward<256, 8>(xw, w_hh_t, h0, c0, ys, hn, cn,
+                                           acts, cs, B, T, s);
+}
+
+// dW_hh^T over all B*T rows: 3xTF32 (FP32 mode), or bf16 operands with
+// FP32 sums rounded to bf16 once (bf16 mode)
+int reduce_dw(const float* ys, const float* h0, int T, const float* dxw,
+              float* dwhh, float* ws, int rows, int H, cudaStream_t s) {
+  return reduce_rows_tn_tc(ys, h0, T, dxw, dwhh, ws, rows, H, 4 * H, s);
+}
+int reduce_dw(const float* ys, const float* h0, int T, const float* dxw,
+              bf16* dwhh, float* ws, int rows, int H, cudaStream_t s) {
+  return reduce_rows_tn_bf16_tc(ys, h0, T, dxw, dwhh, ws, rows, H, 4 * H, s);
+}
+
+template <typename TW>
+int backward_any(const TW* w_hh_t, const float* h0, const float* c0,
+                 const float* ys, const float* acts, const float* cs,
+                 const float* dys, const float* dhn, const float* dcn,
+                 float* dxw, TW* dwhh, float* dh0, float* dc0, float* ws,
+                 int B, int T, int H, int ctas, void* stream_ptr) {
+  if (!lstm_shape_ok(H, ctas) || B <= 0 || T <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream_ptr;
+  int err =
+      H == 128
+          ? (ctas == 8 ? lstm_backward<128, 8>(acts, cs, c0, dys, w_hh_t, dhn,
+                                               dcn, dxw, dh0, dc0, B, T, s)
+                       : lstm_backward<128, 4>(acts, cs, c0, dys, w_hh_t, dhn,
+                                               dcn, dxw, dh0, dc0, B, T, s))
+      : ctas == 16
+          ? lstm_backward<256, 16>(acts, cs, c0, dys, w_hh_t, dhn, dcn, dxw,
+                                   dh0, dc0, B, T, s)
+          : lstm_backward<256, 8>(acts, cs, c0, dys, w_hh_t, dhn, dcn, dxw,
+                                  dh0, dc0, B, T, s);
+  if (err) return err;
+  return reduce_dw(ys, h0, T, dxw, dwhh, ws, B * T, H, s);
 }
 
 }  // namespace
@@ -638,19 +750,18 @@ int lstm_recurrence_forward_f32(const float* xw, const float* w_hh_t,
                                 float* hn, float* cn, float* acts, float* cs,
                                 int B, int T, int H, int ctas,
                                 void* stream_ptr) {
-  if (!lstm_shape_ok(H, ctas) || B <= 0 || T <= 0 ||
-      !aligned16(ys, acts, cs))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream_ptr;
-  if (H == 128)
-    return ctas == 8 ? lstm_forward<128, 8>(xw, w_hh_t, h0, c0, ys, hn, cn,
-                                            acts, cs, B, T, s)
-                     : lstm_forward<128, 4>(xw, w_hh_t, h0, c0, ys, hn, cn,
-                                            acts, cs, B, T, s);
-  return ctas == 16 ? lstm_forward<256, 16>(xw, w_hh_t, h0, c0, ys, hn, cn,
-                                            acts, cs, B, T, s)
-                    : lstm_forward<256, 8>(xw, w_hh_t, h0, c0, ys, hn, cn,
-                                           acts, cs, B, T, s);
+  return forward_any(xw, w_hh_t, h0, c0, ys, hn, cn, acts, cs, B, T, H, ctas,
+                     stream_ptr);
+}
+
+// The same in the bf16 operand mode: w_hh_t bf16, the rest FP32.
+int lstm_recurrence_forward_bf16(const float* xw, const bf16* w_hh_t,
+                                 const float* h0, const float* c0, float* ys,
+                                 float* hn, float* cn, float* acts, float* cs,
+                                 int B, int T, int H, int ctas,
+                                 void* stream_ptr) {
+  return forward_any(xw, w_hh_t, h0, c0, ys, hn, cn, acts, cs, B, T, H, ctas,
+                     stream_ptr);
 }
 
 // Clusters of 16 batch rows the card runs at once for hidden size H over
@@ -659,8 +770,20 @@ int lstm_recurrence_forward_f32(const float* xw, const float* w_hh_t,
 int lstm_recurrence_resident_clusters(int H, int ctas) {
   if (!lstm_shape_ok(H, ctas)) return -1;
   if (H == 128)
-    return ctas == 8 ? lstm_resident<128, 8>() : lstm_resident<128, 4>();
-  return ctas == 16 ? lstm_resident<256, 16>() : lstm_resident<256, 8>();
+    return ctas == 8 ? lstm_resident<128, 8, float>()
+                     : lstm_resident<128, 4, float>();
+  return ctas == 16 ? lstm_resident<256, 16, float>()
+                    : lstm_resident<256, 8, float>();
+}
+
+// The same for the bf16 mode's instantiations.
+int lstm_recurrence_resident_clusters_bf16(int H, int ctas) {
+  if (!lstm_shape_ok(H, ctas)) return -1;
+  if (H == 128)
+    return ctas == 8 ? lstm_resident<128, 8, bf16>()
+                     : lstm_resident<128, 4, bf16>();
+  return ctas == 16 ? lstm_resident<256, 16, bf16>()
+                    : lstm_resident<256, 8, bf16>();
 }
 
 // floats of backward scratch: the split-K partials of dW_hh
@@ -679,22 +802,21 @@ int lstm_recurrence_backward_f32(const float* w_hh_t, const float* h0,
                                  const float* dcn, float* dxw, float* dwhh,
                                  float* dh0, float* dc0, float* ws, int B,
                                  int T, int H, int ctas, void* stream_ptr) {
-  if (!lstm_shape_ok(H, ctas) || B <= 0 || T <= 0)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream_ptr;
-  int err =
-      H == 128
-          ? (ctas == 8 ? lstm_backward<128, 8>(acts, cs, c0, dys, w_hh_t, dhn,
-                                               dcn, dxw, dh0, dc0, B, T, s)
-                       : lstm_backward<128, 4>(acts, cs, c0, dys, w_hh_t, dhn,
-                                               dcn, dxw, dh0, dc0, B, T, s))
-      : ctas == 16
-          ? lstm_backward<256, 16>(acts, cs, c0, dys, w_hh_t, dhn, dcn, dxw,
-                                   dh0, dc0, B, T, s)
-          : lstm_backward<256, 8>(acts, cs, c0, dys, w_hh_t, dhn, dcn, dxw,
-                                  dh0, dc0, B, T, s);
-  if (err) return err;
-  return reduce_rows_tn_tc(ys, h0, T, dxw, dwhh, ws, B * T, H, 4 * H, s);
+  return backward_any(w_hh_t, h0, c0, ys, acts, cs, dys, dhn, dcn, dxw, dwhh,
+                      dh0, dc0, ws, B, T, H, ctas, stream_ptr);
+}
+
+// The same in the bf16 operand mode: w_hh_t and dw_hh_t bf16, the rest
+// FP32.
+int lstm_recurrence_backward_bf16(const bf16* w_hh_t, const float* h0,
+                                  const float* c0, const float* ys,
+                                  const float* acts, const float* cs,
+                                  const float* dys, const float* dhn,
+                                  const float* dcn, float* dxw, bf16* dwhh,
+                                  float* dh0, float* dc0, float* ws, int B,
+                                  int T, int H, int ctas, void* stream_ptr) {
+  return backward_any(w_hh_t, h0, c0, ys, acts, cs, dys, dhn, dcn, dxw, dwhh,
+                      dh0, dc0, ws, B, T, H, ctas, stream_ptr);
 }
 
 #ifdef LSTM_STAMPS

@@ -32,12 +32,11 @@ The operand dtype is the weights' (``weight_hh_l0``), as JAX's
 ``mm_dtype``: bf16 parameters (the bf16 training step) run the kernels'
 bf16 operand mode with f32 state, biases and input products, and the
 outputs and states come back in x's dtype; the input products and bias
-sums round where JAX's do (K9's xw0 adds b_ih and b_hh to the f32 product
-one by one; its b_rest and K7's b_sum are b_ih + b_hh summed in the
-weights' dtype). Under ``MIN_KERNEL_STEPS`` steps a bf16 LSTM runs JAX's
-``_lstm_scan`` in bf16 (``lstm_scan_lowp``: bf16 carries, unlike the
-kernels' f32 state). The route to K8 has no bf16 mode yet and raises in
-bf16 on every device (ROADMAP Queue B item 2).
+sums round where JAX's do (K9's xw0 and K8's xw add b_ih and b_hh to the
+f32 product of the converted operands one by one; K9's b_rest and K7's
+b_sum are b_ih + b_hh summed in the weights' dtype). Under
+``MIN_KERNEL_STEPS`` steps a bf16 LSTM runs JAX's ``_lstm_scan`` in bf16
+(``lstm_scan_lowp``: bf16 carries, unlike the kernels' f32 state).
 
 ``TorchGRU``: gate order r, z, n with b_hn inside the reset product;
 parameters ``weight_ih_l{k}`` (3H, din), ``weight_hh_l{k}``,
@@ -46,7 +45,13 @@ under ``MIN_KERNEL_STEPS`` steps the plain recurrence on every device;
 from there on x @ W_ih^T + b_ih as one matmul, then ``ops/gru.py
 gru_recurrence`` (the K10 kernels on CUDA, the plain version on CPU); on
 CUDA, a hidden size the kernels do not take raises. In training, dropout
-acts between layers, as the LSTM's. A bidirectional GRU raises.
+acts between layers, as the LSTM's. A bidirectional GRU raises. The
+dtypes flow as JAX's (``TorchGRU`` of ``nn/recurrent.py`` there): on the
+kernel route xw is the f32 product of x and W_ih converted (exact) plus
+b_ih in f32, W_hh^T goes in the weights' dtype (bf16: the kernels' bf16
+mode), b_hh and h0 in f32, ys and h_n come back in x's dtype; under
+``MIN_KERNEL_STEPS`` steps bf16 weights run JAX's ``_gru_scan``
+(``gru_scan_lowp``: the step in x's dtype, h carried rounded).
 """
 
 from __future__ import annotations
@@ -83,21 +88,15 @@ def fused_dw_enabled() -> bool:
 
 
 def single_layer_route(device_type: str, steps: int, din: int,
-                       hidden: int, bf16: bool = False) -> str:
+                       hidden: int) -> str:
     """The JAX package's route for one layer and direction of an LSTM:
     "plain" under ``MIN_KERNEL_STEPS`` steps, "lstm_layer" (K7) with
     ``MRGEN_FUSED_DW`` on and 128-aligned sizes, else "lstm_recurrence"
-    (K8); on CUDA, raises for a hidden size K8 does not take, and in the
-    bf16 operand mode (``bf16``) on every device, since K8 has none yet."""
+    (K8); on CUDA, raises for a hidden size K8 does not take."""
     if steps < MIN_KERNEL_STEPS:
         return "plain"
     if fused_dw_enabled() and din % 128 == 0 and hidden % 128 == 0:
         return "lstm_layer"
-    if bf16:
-        raise NotImplementedError(
-            f"an LSTM of input {din} and hidden {hidden} over {steps} steps "
-            "runs the lstm_recurrence kernels (K8), which have no bf16 "
-            "operand mode yet (ROADMAP Queue B item 2); train it in f32")
     why = k8.kernel_refusal(hidden)
     if why is not None and device_type == "cuda":
         raise NotImplementedError(
@@ -154,6 +153,27 @@ def _uniform_params(module, generator, bound, gates, input_size,
             setattr(module, f"bias_hh_{sfx}", uniform(gates * hidden_size))
 
 
+def gru_scan_lowp(x, w_ih_t, b_ih, b_hh, w_hh_t, h0):
+    """JAX's ``_gru_scan`` in x's dtype: the input product in f32 plus
+    b_ih, rounded to x's dtype; each step's h W_hh + b_hh in f32, rounded,
+    and the gates in x's dtype, so h is carried rounded. Returns (ys, h)
+    in x's dtype."""
+    dtype = x.dtype
+    xw = (x.float() @ w_ih_t.float() + b_ih.float()).to(dtype)
+    w = w_hh_t.float()
+    h = h0.to(dtype)
+    ys = []
+    for t in range(x.shape[1]):
+        hr, hz, hn = (h.float() @ w + b_hh.float()).to(dtype).chunk(3, -1)
+        xr, xz, xn = xw[:, t].chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        h = (1.0 - z) * n + z * h
+        ys.append(h)
+    return torch.stack(ys, dim=1), h
+
+
 def lstm_scan_lowp(x, w_ih_t, b_ih, b_hh, w_hh_t, h0, c0):
     """JAX's ``_lstm_scan`` in x's dtype (bf16): the input product in f32
     plus both biases, rounded to x's dtype; each step adds h W_hh (f32
@@ -208,21 +228,25 @@ class TorchLSTM(nn.Module):
         """One layer in one direction over x (B, T, din), by
         ``single_layer_route``; outputs and states in x's dtype."""
         w_ih_t, b_ih, b_hh, w_hh_t = args
-        bf16 = w_hh_t.dtype == torch.bfloat16
+        mm = w_hh_t.dtype
+        bf16 = mm == torch.bfloat16
         route = single_layer_route(x.device.type, x.shape[1], x.shape[-1],
-                                   self.hidden_size, bf16)
+                                   self.hidden_size)
         f32 = lambda a: a.float().contiguous()
         if route == "lstm_layer":
-            mm = w_hh_t.dtype
             ys, (h, c) = lstm_layer(
                 x.to(mm).contiguous(), w_ih_t.to(mm).contiguous(),
                 f32(b_ih + b_hh), w_hh_t.to(mm).contiguous(), f32(h0),
                 f32(c0))
             return ys.to(x.dtype), (h.to(x.dtype), c.to(x.dtype))
         if route == "lstm_recurrence":
-            return k8.lstm_recurrence(
-                f32(x @ w_ih_t + (b_ih + b_hh)), f32(w_hh_t), f32(h0),
-                f32(c0))
+            if bf16:  # JAX: the f32 einsum, + b_ih + b_hh one by one
+                xw = x.float() @ w_ih_t.float() + b_ih.float() + b_hh.float()
+            else:
+                xw = x @ w_ih_t + (b_ih + b_hh)
+            ys, (h, c) = k8.lstm_recurrence(
+                f32(xw), w_hh_t.contiguous(), f32(h0), f32(c0))
+            return ys.to(x.dtype), (h.to(x.dtype), c.to(x.dtype))
         if bf16:
             return lstm_scan_lowp(x, w_ih_t, b_ih, b_hh, w_hh_t, h0, c0)
         return lstm_layer_reference(x, w_ih_t, b_ih + b_hh, w_hh_t, h0, c0)
@@ -306,19 +330,24 @@ class TorchGRU(nn.Module):
         kernel = use_gru_kernel(x.device.type, steps, self.hidden_size)
         hs = []
         for k in range(layers):
+            w_ih = getattr(self, f"weight_ih_l{k}")
+            b_ih = getattr(self, f"bias_ih_l{k}")
             w_hh = getattr(self, f"weight_hh_l{k}")
             b_hh = getattr(self, f"bias_hh_l{k}")
-            # the input projection for the whole sequence, outside the
-            # recurrence, as the JAX package computes it
-            xw = (x @ getattr(self, f"weight_ih_l{k}").T
-                  + getattr(self, f"bias_ih_l{k}"))
+            dtype = x.dtype
             if kernel:
+                # the input projection for the whole sequence, outside the
+                # recurrence: JAX's einsum (preferred f32) + b_ih
+                xw = x.float() @ w_ih.T.float() + b_ih.float()
                 x, h = gru_ops.gru_recurrence(
-                    xw.float().contiguous(), w_hh.T.float().contiguous(),
+                    xw.contiguous(), w_hh.T.contiguous(),
                     b_hh.float().contiguous(), hx[k].float().contiguous())
+                x, h = x.to(dtype), h.to(dtype)
+            elif w_hh.dtype == torch.bfloat16:
+                x, h = gru_scan_lowp(x, w_ih.T, b_ih, b_hh, w_hh.T, hx[k])
             else:
-                x, h = gru_ops.gru_recurrence_reference(xw, w_hh.T, b_hh,
-                                                        hx[k])
+                x, h = gru_ops.gru_recurrence_reference(
+                    x @ w_ih.T + b_ih, w_hh.T, b_hh, hx[k])
             hs.append(h)
             if k < layers - 1:
                 x = dropout(x, self.dropout, self.training)

@@ -1,14 +1,15 @@
-"""The bf16 operand mode of the LSTM chains K7 and K9, in plain PyTorch,
-and the bf16 operand product the plain versions of K3/K4
+"""The bf16 operand mode of the LSTM chains K7, K8 and K9, in plain
+PyTorch, and the bf16 operand product the plain versions of K3/K4
 (``ops/mixer_stack.py``) record autograd through.
 
-In the JAX package the dtype of the weights handed to ``lstm_layer``
-(``ops/pallas_lstm.py``) and ``lstm_stacked_recurrence``
-(``ops/pallas_lstm_stacked.py``) selects the operands of every matrix
-product inside the kernels: with bf16 weights each product rounds its
-operands to bf16 and sums in f32 (``preferred_element_type=f32``). The
-state, the cell math, the gate activations and cell states kept for the
-backward, the bias sums and db stay f32. So in this mode:
+In the JAX package the dtype of the weights handed to ``lstm_layer``,
+``lstm_recurrence`` (``ops/pallas_lstm.py``) and
+``lstm_stacked_recurrence`` (``ops/pallas_lstm_stacked.py``) selects the
+operands of every matrix product inside the kernels: with bf16 weights
+each product rounds its operands to bf16 and sums in f32
+(``preferred_element_type=f32``). The state, the cell math, the gate
+activations and cell states kept for the backward, the bias sums and db
+stay f32. So in this mode:
 
   * forward: gates = xw + bf16(h) W_hh (K9's upper layers also take
     bf16(h_below) W_ih + b);
@@ -18,10 +19,12 @@ backward, the bias sums and db stay f32. So in this mode:
     rounded to bf16 (the weights' dtype);
   * db and K9's dxw0 are the f32 dgates, unrounded.
 
-This module holds that arithmetic once for the plain versions of both
-kernels (``ops/lstm_layer.py``, ``ops/lstm_stacked.py``); the CUDA
-kernels' bf16 mode computes the same function (``csrc/lstm_cluster.cuh``,
-``csrc/lstm_cluster_bwd.cuh``, ``csrc/bf16_gemm.cuh``). Its backward is
+This module holds that arithmetic once for the plain versions of the
+three kernels (``ops/lstm_layer.py``, ``ops/lstm_recurrence.py``,
+``ops/lstm_stacked.py``; K8's dW_hh is ``tn`` of its h_{t-1} and
+dgates); the CUDA kernels' bf16 mode computes the same function
+(``csrc/lstm_cluster.cuh``, ``csrc/lstm_cluster_bwd.cuh``,
+``csrc/lstm_recurrence.cu``, ``csrc/bf16_gemm.cuh``). Its backward is
 written out step by step, as the JAX kernels' custom VJPs are, because
 autograd through the roundings would round the cotangents too.
 """
@@ -31,6 +34,22 @@ from __future__ import annotations
 import torch
 
 BF16 = torch.bfloat16
+
+
+def recurrence_operand_dtype(name, args, names) -> torch.dtype:
+    """The operand mode of a recurrence over f32 input projections (K8,
+    K10) on ``args``, named ``names``, W_hh second: f32 when every tensor
+    is f32, bf16 for the bf16 mode (w_hh_t bf16, the rest f32); raises,
+    naming ``name``, otherwise."""
+    mm = args[1].dtype
+    if mm not in (torch.float32, BF16) or any(
+            a.dtype != torch.float32 for i, a in enumerate(args) if i != 1):
+        rest = ", ".join(n for i, n in enumerate(names) if i != 1)
+        raise ValueError(
+            f"{name} takes every tensor f32, or w_hh_t bf16 with {rest} f32 "
+            "(the bf16 operand mode); got "
+            + ", ".join(str(a.dtype) for a in args))
+    return mm
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:

@@ -7,17 +7,29 @@ ops/pallas_lstm.py`` (K8), same signature and layouts: ``xw`` (B, T, 4H)
 (B, H); gate order i, f, g, o. Returns (ys (B, T, H), (h_n, c_n)); its
 gradients are (dxw, dW_hh^T, dh0, dc0).
 
+Two operand modes, as JAX's ``lstm_recurrence`` takes them: every tensor
+f32, or the bf16 mode, where bf16 ``w_hh_t`` makes the kernel round h
+(forward) and the dgates (the backward's carry product) to bf16 at the
+product with W_hh, summing in f32 (``ops/lstm_bf16.py``); xw, h0 and c0
+stay f32, and so do the state, the cell math and the outputs. In the
+bf16 mode dW_hh is bf16(h_{t-1})^T bf16(dgates) summed in f32 over all
+rows and rounded to bf16 (the weights' dtype: JAX's einsum at
+``_bwd_impl``), dxw, dh0 and dc0 f32. Any other mix of dtypes raises.
+
 On CPU tensors ``lstm_recurrence`` runs ``lstm_recurrence_reference``
-(autograd records through it). On CUDA tensors it launches
-``csrc/lstm_recurrence.cu`` (f32, H 128 or 256, any B and T; each step's
-product on the tensor cores in 3xTF32): where a gradient is needed, the
-forward that saves the gate activations and cell states, then the
-backward kernel (the reverse chain writes dxw, then a deterministic
-3xTF32 split-K reduction gives dW_hh^T); otherwise the forward without
-residuals. A cluster of CTAs runs 16 batch rows; its size per launch is
-``launch_ctas`` (``ops/cluster_size.py``). Other shapes and dtypes
-raise, naming K8. Launch counters: ``fwd_launches`` (both forwards) and
-``bwd_launches``.
+(f32: autograd records through it; bf16: the plain bf16 version,
+``lstm_bf16.chain_forward`` with its backward written out). On CUDA
+tensors it launches ``csrc/lstm_recurrence.cu`` (H 128 or 256, any B
+and T; each step's product on the tensor cores, in 3xTF32 or, in the
+bf16 mode, bf16 ``mma.sync``): where a gradient is needed, the forward
+that saves the gate activations and cell states, then the backward
+kernel (the reverse chain writes dxw, then a deterministic split-K
+reduction gives dW_hh^T); otherwise the forward without residuals. A
+cluster of CTAs runs 16 batch rows; its size per launch is
+``launch_ctas`` (``ops/cluster_size.py``), from the occupancy of the
+mode's own instantiation. Other shapes raise, naming K8. Launch
+counters: ``fwd_launches`` (both f32 forwards), ``bwd_launches``,
+``bf16_fwd_launches`` and ``bf16_bwd_launches``.
 """
 
 from __future__ import annotations
@@ -28,10 +40,12 @@ from typing import Optional, Tuple
 import torch
 
 from multimodalreactiongeneration_tpu_torch import _build
-from multimodalreactiongeneration_tpu_torch.ops import cluster_size
+from multimodalreactiongeneration_tpu_torch.ops import cluster_size, lstm_bf16
 
 fwd_launches = 0
 bwd_launches = 0
+bf16_fwd_launches = 0
+bf16_bwd_launches = 0
 
 HIDDEN_SIZES = (128, 256)  # the hidden sizes the kernels take
 # CTAs per cluster the kernels take at each hidden size, the faster first
@@ -41,8 +55,44 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+_OPERANDS = ("xw", "w_hh_t", "h0", "c0")
+
+
+def operand_dtype(name, args) -> torch.dtype:
+    """The operand mode of (xw, w_hh_t, h0, c0): f32 or bf16
+    (``lstm_bf16.recurrence_operand_dtype``)."""
+    return lstm_bf16.recurrence_operand_dtype(f"{name} (K8)", args,
+                                              _OPERANDS)
+
+
+class _PlainBf16Recurrence(torch.autograd.Function):
+    """The plain bf16 mode (``lstm_bf16.chain_forward``), its backward
+    ``chain_backward`` and dW_hh = bf16(h_{t-1})^T bf16(dgates)."""
+
+    @staticmethod
+    def forward(ctx, xw, w_hh_t, h0, c0):
+        ys, hn, cn, acts, cs = lstm_bf16.chain_forward(xw, w_hh_t, h0, c0)
+        ctx.save_for_backward(w_hh_t, h0, c0, ys, acts, cs)
+        return ys, hn, cn
+
+    @staticmethod
+    def backward(ctx, dys, dhn, dcn):
+        w_hh_t, h0, c0, ys, acts, cs = ctx.saved_tensors
+        dys, dhn, dcn = lstm_bf16.zero_none((dys, dhn, dcn), (ys, h0, c0))
+        dgates, dh0, dc0 = lstm_bf16.chain_backward(
+            acts, cs, c0, w_hh_t, dys.float(), dhn.float(), dcn.float())
+        return (dgates, lstm_bf16.tn(lstm_bf16.shifted(ys, h0), dgates),
+                dh0, dc0)
+
+
 def lstm_recurrence_reference(xw, w_hh_t, h0, c0):
-    """Plain PyTorch version: only h @ W_hh^T runs inside the time loop."""
+    """Plain PyTorch version: only h @ W_hh^T runs inside the time loop.
+    In the bf16 mode (bf16 ``w_hh_t``) h rounds to bf16 at the product and
+    the backward is the plain bf16 backward."""
+    if w_hh_t.dtype == torch.bfloat16:
+        operand_dtype("lstm_recurrence_reference", (xw, w_hh_t, h0, c0))
+        ys, hn, cn = _PlainBf16Recurrence.apply(xw, w_hh_t, h0, c0)
+        return ys, (hn, cn)
     h, c = h0, c0
     ys = []
     for t in range(xw.shape[1]):
@@ -84,32 +134,41 @@ def _lib():
         lib.lstm_recurrence_backward_workspace_floats.argtypes = [_I] * 3
         lib.lstm_recurrence_backward_workspace_floats.restype = (
             ctypes.c_longlong)
-        lib.lstm_recurrence_resident_clusters.argtypes = [_I] * 2
-        lib.lstm_recurrence_resident_clusters.restype = ctypes.c_int
-        lib.lstm_recurrence_forward_f32.argtypes = [_P] * 9 + [_I] * 4 + [_P]
-        lib.lstm_recurrence_backward_f32.argtypes = [_P] * 14 + [_I] * 4 + [_P]
-        lib.lstm_recurrence_forward_f32.restype = ctypes.c_int
-        lib.lstm_recurrence_backward_f32.restype = ctypes.c_int
+        for mode in ("f32", "bf16"):
+            query = getattr(lib, "lstm_recurrence_resident_clusters"
+                            + ("_bf16" if mode == "bf16" else ""))
+            query.argtypes = [_I] * 2
+            query.restype = ctypes.c_int
+            fwd = getattr(lib, f"lstm_recurrence_forward_{mode}")
+            bwd = getattr(lib, f"lstm_recurrence_backward_{mode}")
+            fwd.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+            bwd.argtypes = [_P] * 14 + [_I] * 4 + [_P]
+            fwd.restype = bwd.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def launch_ctas(device, b: int, h: int) -> int:
-    """CTAs per cluster of a launch on this CUDA device: the first size of
-    ``CLUSTER_CTAS[h]`` at which the card holds the batch's clusters at
-    once (``cluster_size.launch_ctas``)."""
+def launch_ctas(device, b: int, h: int, bf16: bool = False) -> int:
+    """CTAs per cluster of a launch of the f32 or the bf16 mode on this
+    CUDA device: the first size of ``CLUSTER_CTAS[h]`` at which the card
+    holds the batch's clusters of that mode's kernels at once
+    (``cluster_size.launch_ctas``)."""
     return cluster_size.launch_ctas(
-        f"lstm_recurrence H{h}", device, b, CLUSTER_CTAS[h],
-        lambda ctas: _lib().lstm_recurrence_resident_clusters(h, ctas))
+        f"lstm_recurrence H{h}" + (" bf16" if bf16 else ""), device, b,
+        CLUSTER_CTAS[h],
+        lambda ctas: (_lib().lstm_recurrence_resident_clusters_bf16 if bf16
+                      else _lib().lstm_recurrence_resident_clusters)(h, ctas))
 
 
 def _check(name, xw, w_hh_t, h0, c0, **more):
-    """Raise unless the kernels take these tensors: f32, contiguous, on
-    one CUDA device, shapes from xw (B, T, 4H); ``more`` maps each further
-    tensor to its expected shape as a function of (B, T, H). Returns
-    (B, T, H)."""
+    """Raise unless the kernels take these tensors: one operand mode
+    (``operand_dtype``; the further tensors f32), contiguous, on one CUDA
+    device, shapes from xw (B, T, 4H); ``more`` maps each further tensor
+    to its expected shape as a function of (B, T, H). Returns (B, T, H,
+    bf16 mode)."""
     if xw.device.type != "cuda":
         raise ValueError(f"{name}: no K8 kernel for {xw.device}")
+    bf16 = operand_dtype(name, (xw, w_hh_t, h0, c0)) == torch.bfloat16
     if xw.dim() != 3 or xw.shape[2] % 4:
         raise ValueError(f"{name}: K8 takes xw (B, T, 4H), got "
                          f"{tuple(xw.shape)}")
@@ -119,10 +178,11 @@ def _check(name, xw, w_hh_t, h0, c0, **more):
                 h0=(h0, (b, h)), c0=(c0, (b, h)))
     want.update({k: (v, tuple(s(b, t, h))) for k, (v, s) in more.items()})
     for key, (a, shape) in want.items():
-        if a.device != xw.device or a.dtype != torch.float32:
+        if a.device != xw.device or (key != "w_hh_t"
+                                     and a.dtype != torch.float32):
             raise ValueError(
-                f"{name}: the K8 kernels take f32 tensors on one CUDA "
-                f"device; got {key} {a.dtype} on {a.device}")
+                f"{name}: the K8 kernels take tensors on one CUDA device, "
+                f"f32 but w_hh_t; got {key} {a.dtype} on {a.device}")
         if tuple(a.shape) != shape or not a.is_contiguous():
             raise ValueError(
                 f"{name}: K8 expects {key} contiguous {shape}, got "
@@ -130,51 +190,61 @@ def _check(name, xw, w_hh_t, h0, c0, **more):
     why = kernel_refusal(h) if b >= 1 and t >= 1 else f"B {b}, T {t}"
     if why is not None:
         raise ValueError(f"{name}: no K8 kernel for {why}")
-    return b, t, h
+    return b, t, h, bf16
 
 
 def lstm_recurrence_forward(args, residuals: bool):
-    """The forward kernel (CUDA only). Returns (ys, hn, cn, acts, cs);
-    acts (B, T, 4H) and cs (B, T, H) are the backward's residuals, None
-    unless ``residuals``."""
-    b, t, h = _check("lstm_recurrence_forward", *args)
-    ctas = launch_ctas(args[0].device, b, h)
+    """The forward kernel (CUDA only), in the operand mode of ``args``.
+    Returns (ys, hn, cn, acts, cs); acts (B, T, 4H) and cs (B, T, H) are
+    the backward's residuals, None unless ``residuals``."""
+    b, t, h, bf16 = _check("lstm_recurrence_forward", *args)
+    ctas = launch_ctas(args[0].device, b, h, bf16)
     xw = args[0]
     new = lambda *shape: torch.empty(*shape, dtype=torch.float32,
                                      device=xw.device)
     ys, hn, cn = new(b, t, h), new(b, h), new(b, h)
     acts = new(b, t, 4 * h) if residuals else None
     cs = new(b, t, h) if residuals else None
-    _build.launch(_lib().lstm_recurrence_forward_f32, *args, ys, hn, cn,
-                  acts, cs, dims=(b, t, h, ctas))
-    global fwd_launches
-    fwd_launches += 1
+    lib = _lib()
+    fn = (lib.lstm_recurrence_forward_bf16 if bf16
+          else lib.lstm_recurrence_forward_f32)
+    _build.launch(fn, *args, ys, hn, cn, acts, cs, dims=(b, t, h, ctas))
+    global fwd_launches, bf16_fwd_launches
+    if bf16:
+        bf16_fwd_launches += 1
+    else:
+        fwd_launches += 1
     return ys, hn, cn, acts, cs
 
 
 def lstm_recurrence_backward(args, ys, acts, cs, dys, dhn, dcn):
     """The backward kernel (CUDA only), from the forward's residuals.
-    Returns (dxw, dw_hh_t, dh0, dc0)."""
+    Returns (dxw, dw_hh_t, dh0, dc0), each in its input's dtype."""
     xw, w_hh_t, h0, c0 = args
     # the dW_hh reduction reads ys and h0 16 bytes at a time
     ys, h0 = [a.clone() if a.data_ptr() % 16 else a for a in (ys, h0)]
     cots = [c.float().contiguous() for c in (dys, dhn, dcn)]
-    b, t, h = _check("lstm_recurrence_backward", *args,
+    b, t, h, bf16 = _check("lstm_recurrence_backward", *args,
                      ys=(ys, lambda b, t, h: (b, t, h)),
                      acts=(acts, lambda b, t, h: (b, t, 4 * h)),
                      cs=(cs, lambda b, t, h: (b, t, h)),
                      dys=(cots[0], lambda b, t, h: (b, t, h)),
                      dhn=(cots[1], lambda b, t, h: (b, h)),
                      dcn=(cots[2], lambda b, t, h: (b, h)))
-    ctas = launch_ctas(xw.device, b, h)
+    ctas = launch_ctas(xw.device, b, h, bf16)
     grads = [torch.empty_like(a) for a in args]
     lib = _lib()
     ws = torch.empty(lib.lstm_recurrence_backward_workspace_floats(b, t, h),
                      dtype=torch.float32, device=xw.device)
-    _build.launch(lib.lstm_recurrence_backward_f32, w_hh_t, h0, c0, ys, acts,
-                  cs, *cots, *grads, ws, dims=(b, t, h, ctas))
-    global bwd_launches
-    bwd_launches += 1
+    fn = (lib.lstm_recurrence_backward_bf16 if bf16
+          else lib.lstm_recurrence_backward_f32)
+    _build.launch(fn, w_hh_t, h0, c0, ys, acts, cs, *cots, *grads, ws,
+                  dims=(b, t, h, ctas))
+    global bwd_launches, bf16_bwd_launches
+    if bf16:
+        bf16_bwd_launches += 1
+    else:
+        bwd_launches += 1
     return tuple(grads)
 
 
@@ -188,20 +258,19 @@ class _LstmRecurrence(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dys, dhn, dcn):
         *args, ys, acts, cs = ctx.saved_tensors
-        dys, dhn, dcn = (
-            torch.zeros_like(like) if c is None else c
-            for c, like in zip((dys, dhn, dcn), (ys, args[2], args[3]))
-        )
-        return lstm_recurrence_backward(args, ys, acts, cs, dys, dhn, dcn)
+        return lstm_recurrence_backward(
+            args, ys, acts, cs, *lstm_bf16.zero_none(
+                (dys, dhn, dcn), (ys, args[2], args[3])))
 
 
 def lstm_recurrence(
     xw: torch.Tensor,      # (B, T, 4H) f32
-    w_hh_t: torch.Tensor,  # (H, 4H)
-    h0: torch.Tensor, c0: torch.Tensor,  # (B, H)
+    w_hh_t: torch.Tensor,  # (H, 4H) f32, or bf16 in the bf16 mode
+    h0: torch.Tensor, c0: torch.Tensor,  # (B, H) f32
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """The LSTM recurrence, differentiable. CPU tensors take the plain
-    version, CUDA tensors the kernels."""
+    """The LSTM recurrence, differentiable; ``w_hh_t``'s dtype picks the
+    operand mode. CPU tensors take the plain version, CUDA tensors the
+    kernels."""
     args = (xw, w_hh_t, h0, c0)
     if xw.device.type == "cpu":
         return lstm_recurrence_reference(*args)

@@ -30,7 +30,11 @@ averages k batches' gradients into each optimizer update
 (``optim.MultiSteps``), ``trainer.remat=true`` recomputes the forward in
 the backward, and ``model.dropout`` (``dropout_rate``,
 ``sampler_dropout_rate``) acts in training; ``trainer.precision: bf16``
-(ROADMAP queue B) and ``trainer.mesh_shape`` (queue A, item 6) raise.
+trains the streaming models on the bf16 step (``streaming_step_fns``
+with ``compute_dtype=torch.bfloat16``: the lstmformer with LSTM or GRU
+embeddings, lstm_with_sampling; the scheduled-sampling step and
+simple_lstm's windowed step stay f32), with f32 parameters, optimizer
+state and checkpoints; ``trainer.mesh_shape`` (queue A, item 6) raises.
 
 It runs on ``cuda:0``; ``device=cpu`` runs it on the CPU (the tests do).
 The yaml's own ``device: tpu`` names no device of the port and means the

@@ -45,11 +45,12 @@ layered blocks then run the bf16 modes of K9 and K7; the Metaformer's
 encoder stacks the bf16 mode of K3/K4, its self-motion LSTMs K7's, and
 its integrators K5/K6's bf16 mode where the query is bf16 (block 0) and
 their f32 mode on the upcast keys and values where it is f32 (the later
-blocks, whose queries come out of f32 attention contexts). The eval step stays f32. Models
-whose bf16 step needs a kernel with no bf16 mode yet raise
-``NotImplementedError`` on every device (``bf16_refusal``): the GRU
-Metaformer; a model whose LSTMs take K8's route (``MRGEN_FUSED_DW=0``, or
-sizes not multiples of 128) raises at its first step.
+blocks, whose queries come out of f32 attention contexts); with GRU
+embeddings (configs/lstmformer_gru.yaml) every encoder and self-motion
+block runs K10's bf16 mode (bf16 W_hh, whatever the dtype of its input).
+Single-layer LSTMs on K8's route (``MRGEN_FUSED_DW=0``, or sizes not
+multiples of 128) run K8's bf16 mode. Every trained model has its bf16
+step. The eval step stays f32.
 
 A train step's ``generator`` (the trainer's ``torch.Generator``) gives it
 one seed, and the step's forward draws every dropout mask from it
@@ -141,18 +142,6 @@ def _step_seed(generator: Optional[torch.Generator]) -> Optional[int]:
     return int(torch.randint(0, 2**62, (1,), generator=generator))
 
 
-def bf16_refusal(model: torch.nn.Module) -> Optional[str]:
-    """Why the bf16 step cannot train ``model`` yet (the ROADMAP Queue B
-    item its kernels wait for), or None: the kernels of LSTMwithSample
-    (K7, K9) and of the LSTM Metaformer (K3/K4, K5/K6, K7) have their
-    bf16 mode, the GRU recurrence (K10) not yet."""
-    if "gru" in getattr(model, "cfg", {}).get("emb_mixers", ()):
-        return ("the GRU Metaformer trains in f32 only so far: its bf16 step "
-                "needs the bf16 operand mode of the GRU recurrence (K10, "
-                "ROADMAP Queue B item 4)")
-    return None
-
-
 @contextlib.contextmanager
 def bf16_sums_in_f32():
     """cuBLAS's bf16 products with every partial sum in f32 inside the
@@ -197,8 +186,6 @@ def streaming_step_fns(
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype {compute_dtype}: f32 or bf16")
     bf16 = compute_dtype == torch.bfloat16
-    if bf16 and bf16_refusal(model) is not None:
-        raise NotImplementedError(bf16_refusal(model))
     lossfun = build_loss(model_cfg)
     target_dict = gen_target_dict(
         metrics_cfg["use_centroid"],

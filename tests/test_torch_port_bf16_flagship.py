@@ -297,16 +297,22 @@ def _spy(log, fn, skip=0):
     return wrapped
 
 
-def _spy_kernel_entries(monkeypatch):
+# the flagship's kernel entries, (module, attribute, leading non-tensor
+# arguments) on each side, and the calls of each in one forward
+FLAGSHIP_SPIES = {
+    "jax": ((jstack, "mixer_stack_recurrence", 0), (jlstm, "lstm_layer", 0),
+            (jra, "rect_attention", 1)),
+    "port": ((pmix, "mixer_stack_recurrence", 0), (prec, "lstm_layer", 0),
+             (patt, "rect_attention", 1)),
+    "calls": [2, 2, 4]}
+
+
+def _spy_kernel_entries(monkeypatch, spies=FLAGSHIP_SPIES):
     """Record each kernel entry's operand dtypes on both sides: the JAX
     module attributes its models import at call time, and the port's."""
     logs = {"jax": [], "port": []}
-    for side, targets in (
-            ("jax", ((jstack, "mixer_stack_recurrence", 0),
-                     (jlstm, "lstm_layer", 0), (jra, "rect_attention", 1))),
-            ("port", ((pmix, "mixer_stack_recurrence", 0),
-                      (prec, "lstm_layer", 0), (patt, "rect_attention", 1)))):
-        for mod, name, skip in targets:
+    for side in ("jax", "port"):
+        for mod, name, skip in spies[side]:
             log = []
             logs[side].append(log)
             monkeypatch.setattr(mod, name, _spy(log, getattr(mod, name),
@@ -344,7 +350,8 @@ class _JaxMoved:
 
 
 def _step_readings(seed, remat, accumulate, sides, monkeypatch=None,
-                   sync=True):
+                   sync=True, cfg=CFG, spies=FLAGSHIP_SPIES, pair=None,
+                   make_batch=_train_batch, mask=True):
     """Three optimizer steps (each of ``accumulate`` micro-steps) of JAX's
     bf16 step and of each of ``sides`` (the port's step in a compute
     dtype, or "jax_moved": ``_JaxMoved``) on two alternating batches, from
@@ -358,17 +365,22 @@ def _step_readings(seed, remat, accumulate, sides, monkeypatch=None,
     reading made to the parameter) and of the same ratio of the mean
     differences, each with its parameter and step; the k projections'
     biases apart (``NOISE_ATOL``, their largest absolute difference); the
-    kernel entries' operand dtypes on both sides (``monkeypatch`` given);
-    the last JAX parameters and eval step."""
-    batches = [_train_batch(50), _train_batch(60)]
-    jm, params, _ = paired_models(CFG, seed, batches[0])
-    models = [paired_models(CFG, seed, batches[0])[2] for _ in sides]
-    logs = _spy_kernel_entries(monkeypatch) if monkeypatch else None
-    model_cfg = dict(CFG, **LOSS_CFG)
+    kernel entries' operand dtypes on both sides (``monkeypatch`` given;
+    ``spies`` names the entries); the last JAX parameters and eval step.
+    ``cfg``: the model's config; ``pair(seed, batch)``: (JAX module, its
+    parameters, the port's model) of that config, by default the
+    Metaformer's (``paired_models``); ``make_batch(seed)``: a batch;
+    ``mask``: ``mask_self_motion_input``."""
+    pair = pair or functools.partial(paired_models, cfg)
+    batches = [make_batch(50), make_batch(60)]
+    jm, params, _ = pair(seed, batches[0])
+    models = [pair(seed, batches[0])[2] for _ in sides]
+    logs = _spy_kernel_entries(monkeypatch, spies) if monkeypatch else None
+    model_cfg = dict(cfg, **LOSS_CFG)
     jopt = joptim.build_optimizer(from_dict(SGD_CFG),
                                   accumulate_grad_batches=accumulate)
     jtrain, jeval = jharness.streaming_step_fns(
-        jm, model_cfg, METRICS_CFG, jopt, mask_self_motion_input=True,
+        jm, model_cfg, METRICS_CFG, jopt, mask_self_motion_input=mask,
         compute_dtype=jnp.bfloat16, remat=remat)
     state = jopt.init(params)
     key = jax.random.PRNGKey(0)
@@ -383,7 +395,7 @@ def _step_readings(seed, remat, accumulate, sides, monkeypatch=None,
         popt = optim.build_optimizer(pm.parameters(), SGD_CFG,
                                      accumulate_grad_batches=accumulate)
         ptrain = harness.streaming_step_fns(
-            pm, model_cfg, METRICS_CFG, popt, mask_self_motion_input=True,
+            pm, model_cfg, METRICS_CFG, popt, mask_self_motion_input=mask,
             compute_dtype=side, remat=remat)[0]
         pm.step = lambda b, f=ptrain: f(
             [(torch.from_numpy(x), None) for x in b])[0]
@@ -406,7 +418,7 @@ def _step_readings(seed, remat, accumulate, sides, monkeypatch=None,
                 # JAX traced the forward once; the port's first step ran
                 # it once
                 assert logs["port"] == logs["jax"]
-                assert [len(x) for x in logs["jax"]] == [2, 2, 4]
+                assert [len(x) for x in logs["jax"]] == spies["calls"]
         if (step + 1) % accumulate or not (sync or step + 1 == steps):
             continue
         want = state_dict_from_jax(flat_params(params))

@@ -30,8 +30,9 @@ numpy inputs go through both.
   * flax's ``Dense`` and ``LayerNorm`` on bf16 (the port's ``Dense``
     rounds the product, then the bias add; ``LayerNorm`` computes in f32
     and rounds once): bit for bit.
-  * Refusals: the K8 route has no bf16 mode yet; mixes of dtypes that
-    are no mode of K7 or K9 raise, naming the kernel.
+  * Refusals: mixes of dtypes that are no mode of K7 or K9 raise, naming
+    the kernel. (K8's bf16 route is held in
+    tests/test_torch_port_bf16_recurrence.py.)
 """
 
 import functools
@@ -228,8 +229,7 @@ def _close_bf16(got, want, rel):
 def test_torch_lstm_bf16_routes_match_jax(monkeypatch, route, din, hidden,
                                           layers, t):
     if route == "lstm_layer":
-        assert recurrent.single_layer_route("cpu", t, din, hidden,
-                                            True) == route
+        assert recurrent.single_layer_route("cpu", t, din, hidden) == route
     want, jgrads, got, pgrads = _route_pair(monkeypatch, din, hidden, layers,
                                             t, seed=din + t)
     for g, w in zip(got, want):
@@ -240,20 +240,6 @@ def test_torch_lstm_bf16_routes_match_jax(monkeypatch, route, din, hidden,
     for name, g in pgrads.items():
         assert g.dtype == BF, name
         _close_bf16(g, sd[name], 2e-2)
-
-
-def test_k8_route_has_no_bf16_mode_yet():
-    """MRGEN_FUSED_DW on, 128-unaligned input: JAX's route is K8, whose
-    bf16 mode is not ported; the port raises on every device (in f32 the
-    CPU takes K8's plain version)."""
-    assert recurrent.single_layer_route("cpu", 16, 24, 128) == \
-        "lstm_recurrence"
-    with pytest.raises(NotImplementedError, match="Queue B item 2"):
-        recurrent.single_layer_route("cpu", 16, 24, 128, bf16=True)
-    pm = recurrent.TorchLSTM(24, 128, torch.Generator().manual_seed(0))
-    pm.to(BF)
-    with pytest.raises(NotImplementedError, match="K8"):
-        pm(torch.zeros(1, 16, 24, dtype=BF))
 
 
 # ---- the dense layers in bf16 -----------------------------------------------

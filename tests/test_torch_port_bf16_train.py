@@ -1,14 +1,14 @@
 """PyTorch port: the bf16 mixed-precision training step of
-lstm_with_sampling vs the JAX package on the CPU, its CLI, and the
-models that still refuse bf16.
+lstm_with_sampling vs the JAX package on the CPU, also on K8's route,
+and its CLI.
 
 The JAX side: ``streaming_step_fns(compute_dtype=jnp.bfloat16)`` under
 ``MRGEN_RNN_IMPL=pallas`` with the Pallas calls in interpret mode, so its
 sampler takes the stacked kernel (K9) and its layered blocks ``lstm_layer``
 (K7), as the port's do. The model is the JAX tests' small lws config at
-hidden 128 (K7's route needs 128-aligned sizes; below it JAX takes K8,
-whose bf16 mode is not ported) over 16 motion frames and a lead of 2 (the
-sampler runs 144 steps, the blocks 18).
+hidden 128 (K7's route needs 128-aligned sizes; below it both take K8)
+over 16 motion frames and a lead of 2 (the sampler runs 144 steps, the
+blocks 18).
 
 The JAX step is compiled with ``xla_allow_excess_precision`` off. With it
 on (XLA's default), the CPU compiler keeps f32 through fused chains where
@@ -24,17 +24,34 @@ PyTorch does, and the two bf16 steps agree within 0.8%.
     value); the parameters stay f32; the eval step (f32) rtol 1e-5;
   * the same with ``remat=True``, and with ``accumulate_grad_batches=2``
     (JAX's ``MultiSteps``), which compose with bf16 as in JAX;
+  * under ``MRGEN_FUSED_DW=0``, where both sides' layered blocks take
+    K8's bf16 route (``lstm_recurrence`` with bf16 W_hh) and the sampler
+    K9's, each entry's operand dtypes spied on both sides: three updates,
+    the port taking JAX's parameters before each (the flagship test's
+    ``_step_readings``): every parameter within ``SYNCED_MOVE_FRAC`` (2%)
+    of the largest change JAX's update made to it and on average within
+    ``SYNCED_MEAN_FRAC`` (1%) of its mean change, bounds the port's f32
+    step, the control, must exceed (the 2% bound on three unsynced
+    updates above does not reject it: over 12 model seeds it read inside
+    at 8). Over those seeds, synced (tests/bf16_step_survey.py ``--model
+    lws_k8``), the bf16 step read 1.07-1.61% on the largest (always a
+    bias: XLA's CPU backend sums bf16 bias gradients in bf16) and
+    0.49-0.76% on the mean, JAX against itself from parameters moved by
+    one f32 ulp 0.45-13% and 0.73-9.1%, the f32 step 1.4-15% and
+    0.83-9.1% (13.2% and 6.4% at model seed 52, the test's; beyond both
+    bounds at 7 of the 12 seeds, the flagship's 4% and 2% at 4): at this
+    size one f32 update can land as near JAX's bf16 update as the port's
+    bf16 one, so the dtype spies carry the rest;
   * the training CLI with ``trainer.precision=bf16``: trains, writes f32
     checkpoints (parameters and optimizer state), and resumes from them:
     two runs resumed from one checkpoint end bit for bit alike (a resumed
     run does not retrace the unbroken one: the loader reshuffles from
     ``seed + epochs run in the process``, as JAX's does); with scheduled
     sampling the step trains in f32, as JAX's CLI does;
-  * the GRU Metaformer refuses bf16, naming the ROADMAP Queue B item of
-    the kernel it waits for (K10, item 4), and lws and the LSTM Metaformer
-    under ``MRGEN_FUSED_DW=0`` refuse it for K8's (item 2); the LSTM
-    Metaformer's bf16 step is held to JAX's in
-    tests/test_torch_port_bf16_flagship.py.
+  * no trained model refuses bf16: the LSTM Metaformer's bf16 step is held
+    to JAX's in tests/test_torch_port_bf16_flagship.py, the GRU
+    Metaformer's and the flagship's on K8's route in
+    tests/test_torch_port_bf16_gru.py.
 """
 
 import functools
@@ -50,23 +67,27 @@ from jax.experimental import pallas as pl
 from multimodalreactiongeneration_tpu.models.lstm_with_sampling import (
     LSTMwithSample as JaxLSTMwithSample,
 )
+from multimodalreactiongeneration_tpu.ops import pallas_lstm as jlstm
+from multimodalreactiongeneration_tpu.ops import (
+    pallas_lstm_stacked as jstacked,
+)
 from multimodalreactiongeneration_tpu.train import harness as jharness
 from multimodalreactiongeneration_tpu.train import optim as joptim
 from multimodalreactiongeneration_tpu.utils.config import from_dict
 from multimodalreactiongeneration_tpu_torch.models.lstm_with_sampling import (
     LSTMwithSample,
 )
-from multimodalreactiongeneration_tpu_torch.models.lstmformer import (
-    Metaformer,
-)
 from multimodalreactiongeneration_tpu_torch.models.weights import (
     state_dict_from_jax,
 )
+from multimodalreactiongeneration_tpu_torch.nn import recurrent as prec
 from multimodalreactiongeneration_tpu_torch.ops import lstm_layer as K7
+from multimodalreactiongeneration_tpu_torch.ops import lstm_recurrence as K8
 from multimodalreactiongeneration_tpu_torch.ops import lstm_stacked as K9
 from multimodalreactiongeneration_tpu_torch.train import cli, harness, optim
 from tests.fixtures import make_synthetic_corpus
-from tests.test_streaming_models import LWS_CFG, MF_CFG
+from tests.test_torch_port_bf16_flagship import _step_readings
+from tests.test_streaming_models import LWS_CFG
 from tests.test_torch_port_weights import flat_params, np_batch
 
 torch.set_num_threads(1)
@@ -77,6 +98,15 @@ METRICS_CFG = dict(use_centroid=True, use_angle=True, delta_order=2)
 SGD_CFG = dict(use_optimizer="sgd", lr=1e-2, weight_decay=1e-3, momentum=0.9)
 LOSS_RTOL = 2e-3
 MOVE_FRAC = 2e-2
+SYNCED_MOVE_FRAC, SYNCED_MEAN_FRAC = 2e-2, 1e-2  # the module docstring
+# the kernel entries of the K8 route's step on both sides, and the calls
+# of each in one forward: the sampler's stacked LSTM, the layered blocks'
+# K8 recurrences
+K8_SPIES = {"jax": ((jstacked, "lstm_stacked_recurrence", 0),
+                    (jlstm, "lstm_recurrence", 0)),
+            "port": ((prec, "lstm_stacked_recurrence", 0),
+                     (K8, "lstm_recurrence", 0)),
+            "calls": [1, 2]}
 YAML = os.path.join(os.path.dirname(__file__), "..", "configs",
                     "lstm_with_sampling.yaml")
 
@@ -173,6 +203,32 @@ def test_bf16_train_step_matches_jax(remat, accumulate):
                                rtol=1e-5)
 
 
+def test_bf16_train_step_on_k8_route_matches_jax(monkeypatch):
+    """MRGEN_FUSED_DW=0: the layered blocks on K8's bf16 route on both
+    sides (two calls a forward, bf16 W_hh with f32 xw and states), the
+    sampler on K9's, each entry's operand dtypes spied on both sides;
+    three SGD updates, each from JAX's parameters (the flagship test's
+    ``_step_readings``): losses rtol ``LOSS_RTOL``, every parameter within
+    ``SYNCED_MOVE_FRAC`` of the largest change JAX's update made to it
+    and on average within ``SYNCED_MEAN_FRAC`` of its mean change; the
+    port's f32 step, the control, beyond both bounds. On the CPU no kernel
+    launches."""
+    monkeypatch.setenv("MRGEN_FUSED_DW", "0")
+    launches = (K8.bf16_fwd_launches, K8.fwd_launches, K9.bf16_fwd_launches,
+                K9.fwd_launches)
+    read = _step_readings(52, False, 1, [torch.bfloat16, torch.float32],
+                          monkeypatch, cfg=CFG, spies=K8_SPIES, pair=_pair,
+                          make_batch=_batch, mask=False)[0]
+    assert (K8.bf16_fwd_launches, K8.fwd_launches, K9.bf16_fwd_launches,
+            K9.fwd_launches) == launches
+    bf16, f32 = read[torch.bfloat16], read[torch.float32]
+    assert bf16["loss"] <= LOSS_RTOL, bf16
+    assert bf16["move"][0] <= SYNCED_MOVE_FRAC, bf16
+    assert bf16["mean"][0] <= SYNCED_MEAN_FRAC, bf16
+    assert (f32["move"][0] > SYNCED_MOVE_FRAC
+            and f32["mean"][0] > SYNCED_MEAN_FRAC), f32
+
+
 def test_bf16_step_casts_a_copy_and_leaves_the_model_f32():
     batch = _batch(70)
     pm = LSTMwithSample(CFG, generator=torch.Generator().manual_seed(1),
@@ -190,47 +246,6 @@ def test_bf16_step_casts_a_copy_and_leaves_the_model_f32():
     with pytest.raises(ValueError, match="f32 or bf16"):
         harness.streaming_step_fns(pm, CFG, METRICS_CFG, opt, False,
                                    compute_dtype=torch.float16)
-
-
-def test_bf16_lws_refuses_the_k8_route(monkeypatch):
-    """Under MRGEN_FUSED_DW=0 the layered blocks take K8 (no bf16 mode
-    yet); the step raises on the CPU too rather than run an unchecked
-    plain path."""
-    monkeypatch.setenv("MRGEN_FUSED_DW", "0")
-    pm = LSTMwithSample(CFG, device="cpu")
-    opt = optim.build_optimizer(pm.parameters(), SGD_CFG)
-    step, _ = harness.streaming_step_fns(
-        pm, dict(CFG, **LOSS_CFG), METRICS_CFG, opt, False,
-        compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Queue B item 2"):
-        step([(torch.from_numpy(x), None) for x in _batch(80)])
-
-
-@pytest.mark.parametrize("mixers,fused_dw,item,kernel", [
-    (("lstm", "lstm", "lstm"), "0", "item 2", "K8"),
-    (("gru", "gru", "gru"), "1", "item 4", "K10"),
-])
-def test_metaformer_refuses_bf16(mixers, fused_dw, item, kernel,
-                                 monkeypatch):
-    """The GRU Metaformer refuses the bf16 step when it is built (K10 has
-    no bf16 mode); the LSTM one at hidden 128 trains in bf16 but under
-    MRGEN_FUSED_DW=0 its self-motion LSTMs take K8's route, and its first
-    step raises, on the CPU too."""
-    monkeypatch.setenv("MRGEN_FUSED_DW", fused_dw)
-    cfg = dict(MF_CFG, emb_mixers=list(mixers), hidden_size=128)
-    pm = Metaformer(cfg, generator=torch.Generator().manual_seed(0),
-                    device="cpu")
-    opt = optim.build_optimizer(pm.parameters(), SGD_CFG)
-    batch = [(torch.from_numpy(x), None) for x in _batch(90)]
-    with pytest.raises(NotImplementedError) as err:
-        step, _ = harness.streaming_step_fns(
-            pm, dict(cfg, **LOSS_CFG), METRICS_CFG, opt, True,
-            compute_dtype=torch.bfloat16)
-        step(batch)
-    assert f"Queue B {item}" in str(err.value) and kernel in str(err.value)
-    assert harness.bf16_refusal(LSTMwithSample(CFG, device="cpu")) is None
-    lstm = dict(cfg, emb_mixers=["lstm"] * 3)
-    assert harness.bf16_refusal(Metaformer(lstm, device="cpu")) is None
 
 
 SMALL = [
@@ -282,28 +297,3 @@ def test_lws_cli_bf16_trains_checkpoints_f32_and_resumes(tmp_path,
     sched = cli.main(common + ["ckpt_path=c", "max_epochs=1",
                                "model.use_scheduled_sampling=true"])
     assert np.isfinite(sched.history[0]["train_loss"])
-
-
-@pytest.mark.parametrize("config,fused_dw,item", [
-    ("lstmformer_gru.yaml", "1", "Queue B item 4"),
-    ("lstmformer.yaml", "0", "Queue B item 2"),
-])
-def test_cli_bf16_refuses_the_metaformer(config, fused_dw, item, tmp_path,
-                                         monkeypatch):
-    """``trainer.precision=bf16`` through the CLI: the GRU Metaformer
-    refuses (K10), and so does the flagship under MRGEN_FUSED_DW=0 (its
-    self-motion LSTMs on K8's route); the flagship's bf16 CLI run itself
-    is in tests/test_torch_port_bf16_flagship.py."""
-    monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("MRGEN_FUSED_DW", fused_dw)
-    corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_sessions=1,
-                                   seconds=60.0)
-    yaml = os.path.join(os.path.dirname(YAML), config)
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(["--config", yaml, "name=mf", f"data_dir={corpus}",
-                  "ckpt_path=ck", "log_dir=log", "device=cpu",
-                  "hidden_size=128", "bottleneck_size=8", "batch_size=2",
-                  "max_epochs=1", "motion.max_len=150", "motion.min_len=50",
-                  "motion.shift_len=150", "motion.leading_len=24",
-                  "model.num_block=1", "model.encoder_num_layer=2",
-                  "trainer.precision=bf16"])

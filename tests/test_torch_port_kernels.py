@@ -1127,11 +1127,121 @@ def test_lstm_recurrence_kernel_refuses_bf16_and_other_hidden_sizes(
     z = lambda *s: torch.zeros(*s, device=dev)
     before = K8.fwd_launches
     for h, ctas in ((128, 16), (128, 2), (256, 4)):
-        monkeypatch.setattr(K8, "launch_ctas", lambda d, b, h: ctas)
+        monkeypatch.setattr(K8, "launch_ctas", lambda d, b, h, *mode: ctas)
         with pytest.raises(RuntimeError, match="lstm_recurrence_forward_f32"):
             K8.lstm_recurrence_forward(
                 (z(b, t, 4 * h), z(h, 4 * h), z(b, h), z(b, h)), False)
     assert K8.fwd_launches == before
+
+
+# K10's and K8's bf16 modes (bf16 W_hh, the rest f32) vs their plain bf16
+# versions, at the bounds of the K7/K9 bf16 modes above (_bf16_within):
+# the short bounds to T 40, past it the JAX bf16 bound; the kernel's ys
+# within a quarter of the plain f32 version's distance from the plain
+# bf16 ys, past T 40 over the first 16 steps (a flip compounds along the
+# chain: a one-ulp input move takes the plain bf16 version itself 0.28 to
+# 0.34 of that distance over 252 steps, tools/bf16_chaos_probe.py); dW_hh
+# bf16, the other gradients f32; +2 / +1 bf16 launches and no f32 ones;
+# two calls on the same inputs give the same bits.
+RECURRENCE_MODE_STEPS = 16
+@pytest.mark.parametrize("b,t,h", [
+    (32, 16, 256), (32, 252, 256), (128, 252, 256), (17, 37, 128),
+    (3, 1, 256),
+])
+def test_gru_bf16_kernels_match_plain_bf16(dev, b, t, h):
+    """K10's bf16 mode at the GRU Metaformer's shapes (B32 x T252; the
+    yaml's B128, on the clusters the bf16 residency picks) and ragged
+    ones."""
+    from multimodalreactiongeneration_tpu_torch.ops import gru as K10
+
+    r = _rand(np.random.default_rng(b * t + h + 1), dev)
+    args = (r(b, t, 3 * h, s=0.5), r(h, 3 * h, s=0.06).to(torch.bfloat16),
+            r(3 * h, s=0.1), r(b, h, s=0.3))
+    cots = (r(b, t, h), r(b, h))
+    before = (K10.fwd_launches, K10.bwd_launches, K10.bf16_fwd_launches,
+              K10.bf16_bwd_launches)
+    ys0, hn0 = K10.gru_recurrence(*args)
+    leaves = [a.clone().requires_grad_() for a in args]
+    ys, hn = K10.gru_recurrence(*leaves)
+    grads = torch.autograd.grad((ys, hn), leaves, cots)
+    torch.cuda.synchronize()
+    assert (K10.fwd_launches, K10.bwd_launches, K10.bf16_fwd_launches,
+            K10.bf16_bwd_launches) == (*before[:2], before[2] + 2,
+                                       before[3] + 1)
+    assert [g.dtype for g in grads] == [torch.float32, torch.bfloat16,
+                                        torch.float32, torch.float32]
+    ysr, hr = K10.gru_recurrence_reference(*args)
+    ys32, _ = K10.gru_recurrence_reference(*[a.float() for a in args])
+    _bf16_within((ys0, hn0, ys, hn), grads, (ysr, hr) * 2,
+                 K10.gru_backward_reference(args, *cots), short=t <= 40,
+                 ys_f32=ys32 if t > 1 else None,
+                 mode_steps=None if t <= 40 else RECURRENCE_MODE_STEPS)
+    first = K10.gru_forward(args, True)
+    again = K10.gru_forward(args, True)
+    g1, g2 = (K10.gru_backward(args, first[0], first[2], *cots)
+              for _ in range(2))
+    for x, y in zip((*first[:2], first[2], *g1), (*again[:2], again[2], *g2)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("b,t,h", [
+    (256, 120, 128), (32, 252, 256), (20, 37, 128), (1, 16, 128),
+    (3, 1, 256),
+])
+def test_lstm_recurrence_bf16_kernels_match_plain_bf16(dev, b, t, h):
+    """K8's bf16 mode at the MRGEN_FUSED_DW=0 shapes (lws's blocks at
+    B256, the flagship's self-motion LSTMs at B32 x T252) and ragged
+    ones."""
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_recurrence as K8
+
+    r = _rand(np.random.default_rng(b * t + h + 2), dev)
+    args = (r(b, t, 4 * h, s=0.5), r(h, 4 * h, s=0.06).to(torch.bfloat16),
+            r(b, h, s=0.3), r(b, h, s=0.3))
+    cots = (r(b, t, h), r(b, h), r(b, h))
+    before = (K8.fwd_launches, K8.bwd_launches, K8.bf16_fwd_launches,
+              K8.bf16_bwd_launches)
+    ys0, (hn0, cn0) = K8.lstm_recurrence(*args)
+    leaves = [a.clone().requires_grad_() for a in args]
+    ys, (hn, cn) = K8.lstm_recurrence(*leaves)
+    grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
+    torch.cuda.synchronize()
+    assert (K8.fwd_launches, K8.bwd_launches, K8.bf16_fwd_launches,
+            K8.bf16_bwd_launches) == (*before[:2], before[2] + 2,
+                                      before[3] + 1)
+    assert [g.dtype for g in grads] == [torch.float32, torch.bfloat16,
+                                        torch.float32, torch.float32]
+    ysr, (hr, cr) = K8.lstm_recurrence_reference(*args)
+    ys32, _ = K8.lstm_recurrence_reference(*[a.float() for a in args])
+    _bf16_within((ys0, hn0, cn0, ys, hn, cn), grads, (ysr, hr, cr) * 2,
+                 K8.lstm_recurrence_backward_reference(args, *cots),
+                 short=t <= 40, ys_f32=ys32 if t > 1 else None,
+                 mode_steps=None if t <= 40 else RECURRENCE_MODE_STEPS)
+    first = K8.lstm_recurrence_forward(args, True)
+    again = K8.lstm_recurrence_forward(args, True)
+    g1, g2 = (K8.lstm_recurrence_backward(args, first[0], first[3],
+                                          first[4], *cots) for _ in range(2))
+    for x, y in zip((*first, *g1), (*again, *g2)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kernel", ["gru", "lstm_recurrence"])
+def test_bf16_recurrences_pick_clusters_from_their_own_residency(dev,
+                                                                 kernel):
+    """The bf16 mode's cluster size comes from the occupancy of its own
+    instantiation (fewer registers than the FP32 mode's hi/lo fragments),
+    at every hidden size and around each size's one-wave limit."""
+    from multimodalreactiongeneration_tpu_torch.ops import cluster_size
+    from multimodalreactiongeneration_tpu_torch.ops import gru as K10
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_recurrence as K8
+
+    mod = K10 if kernel == "gru" else K8
+    query = getattr(mod._lib(), f"{kernel}_resident_clusters_bf16")
+    for h, sizes in mod.CLUSTER_CTAS.items():
+        resident = {c: query(h, c) for c in sizes}
+        assert all(n > 0 for n in resident.values()), (h, resident)
+        for b in (1, 16 * resident[sizes[0]], 16 * resident[sizes[0]] + 1):
+            assert mod.launch_ctas(dev, b, h, True) == \
+                cluster_size.cluster_ctas(b, sizes, resident.get)
 
 
 def _k8_case(dev, seed, b, t, h):
@@ -1202,7 +1312,7 @@ def test_lstm_recurrence_kernels_at_every_cluster_size(dev, b, h,
     assert K8.launch_ctas(dev, b, h) == cluster_ctas(b, K8.CLUSTER_CTAS[h],
                                                      resident.get)
     for ctas in K8.CLUSTER_CTAS[h]:
-        monkeypatch.setattr(K8, "launch_ctas", lambda d, b, h: ctas)
+        monkeypatch.setattr(K8, "launch_ctas", lambda d, b, h, *mode: ctas)
         _k8_runs_twice_and_holds_to_plain(K8, args, cots)
 
 

@@ -299,11 +299,13 @@ def _check_train_step_matches_jax():
 
 
 def test_step_fns_refuse_bf16_and_remat():
-    """bf16 training of the GRU Metaformer raises (ROADMAP queue B item 4;
-    the LSTM Metaformer's bf16 step is held to JAX's in
-    tests/test_torch_port_bf16_flagship.py); remat is ported: its step
-    gives the plain step's loss, bit for bit
-    (tests/test_torch_port_train_options.py holds it to JAX)."""
+    """The step functions take f32 or bf16 and refuse any other compute
+    dtype; no model refuses bf16 any more: the GRU Metaformer's bf16 step
+    trains (held to JAX's in tests/test_torch_port_bf16_gru.py, the LSTM
+    Metaformer's in tests/test_torch_port_bf16_flagship.py) and leaves
+    its parameters f32; remat is ported: its step gives the plain step's
+    loss, bit for bit (tests/test_torch_port_train_options.py holds it to
+    JAX)."""
     model_cfg = dict(MF_CFG, **LOSS_CFG)
     batch = [(torch.from_numpy(x), None) for x in _train_batch(61)]
     gru_cfg = dict(MF_CFG, emb_mixers=["gru"] * 3)
@@ -314,11 +316,16 @@ def test_step_fns_refuse_bf16_and_remat():
         opt = optim.build_optimizer(pm.parameters(), SGD_CFG)
         gru = Metaformer(gru_cfg, generator=torch.Generator().manual_seed(0),
                          device="cpu")
-        with pytest.raises(NotImplementedError, match="f32"):
+        gru_opt = optim.build_optimizer(gru.parameters(), SGD_CFG)
+        with pytest.raises(ValueError, match="f32 or bf16"):
             harness.streaming_step_fns(
-                gru, dict(gru_cfg, **LOSS_CFG), METRICS_CFG,
-                optim.build_optimizer(gru.parameters(), SGD_CFG), True,
-                compute_dtype=torch.bfloat16)
+                gru, dict(gru_cfg, **LOSS_CFG), METRICS_CFG, gru_opt, True,
+                compute_dtype=torch.float16)
+        gru_step, _ = harness.streaming_step_fns(
+            gru, dict(gru_cfg, **LOSS_CFG), METRICS_CFG, gru_opt, True,
+            compute_dtype=torch.bfloat16, remat=remat)
+        assert np.isfinite(float(gru_step(batch)[0]))
+        assert {p.dtype for p in gru.parameters()} == {torch.float32}
         step, _ = harness.streaming_step_fns(pm, model_cfg, METRICS_CFG, opt,
                                              True, remat=remat)
         losses.append(float(step(batch)[0]))

@@ -174,8 +174,8 @@ def main():
     record = {"tag": tag}
     if "--ctas" in argv:
         forced, chosen = int(argv[argv.index("--ctas") + 1]), K10.launch_ctas
-        K10.launch_ctas = lambda d, b, h: forced if h == 256 else chosen(
-            d, b, h)
+        K10.launch_ctas = lambda d, b, h, *mode: (
+            forced if h == 256 else chosen(d, b, h, *mode))
         record["forced_ctas_h256"] = forced
     for b, t, h, backward in shapes:
         record[f"B{b} T{t} H{h}"] = time_shape(K10, r, b, t, h, backward)

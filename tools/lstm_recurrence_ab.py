@@ -181,8 +181,9 @@ def main():
     record = {"tag": tag}
     if "--ctas" in argv:
         forced, chosen = int(argv[argv.index("--ctas") + 1]), K8.launch_ctas
-        K8.launch_ctas = lambda d, b, h: (
-            forced if forced in K8.CLUSTER_CTAS[h] else chosen(d, b, h))
+        K8.launch_ctas = lambda d, b, h, *mode: (
+            forced if forced in K8.CLUSTER_CTAS[h] else chosen(d, b, h,
+                                                               *mode))
         record["forced_ctas"] = forced
     for b, t, h in shapes:
         record[f"B{b} T{t} H{h}"] = time_shape(K8, r, b, t, h)
