@@ -333,7 +333,27 @@ Phases:
      ``BF16_GRU_STEP_MEAN_TOL``, the CPU's f32 step, the control, beyond
      it;
      the loss within ``BF16_LOSS_REL_TOL`` of the f32 step's; ms a step
-     and peak memory beside phase 16's.
+     and peak memory beside phase 16's;
+ 33. K1's bf16 mode (``bf16_inference_phase``, own generator ``SEED +
+     33``) against its plain bf16 version at B16 x L5 x T2096 and L2 x
+     T16 (as K3's bf16 mode), the training forward's bits, beside the f32
+     kernel on the same values in turns; the flagship's forward without
+     gradient on bf16 parameters and inputs at B16 x 250, the counts set
+     to 0 before it: K1 bf16 +2, K7 bf16 +5, K5 bf16 +2 and f32 +8; at B2
+     x 48 against CPU tensors within ``BF16_FWD_TOL`` and on average
+     within ``BF16_MODE_FRAC`` of the CPU's f32 forward's distance;
+     ``generate_metaformer`` on the bf16 parameters (K1 bf16 +2, K2 +1 a
+     generation), teacher-forced at batch 2 within ``K2_BF16_TOL`` of CPU
+     tensors;
+ 34. ``generate_metaformer(fused_rollout="auto")`` at hidden 128 with 4
+     heads and at hidden 256 with 8 heads (``rollout_route_phase``, own
+     generator ``SEED + 34``): K1 +2, K2 +0, teacher-forced f32 at batch 2
+     within ``PATH_TOL`` of CPU tensors; ``fused_rollout=True`` raises;
+ 35. data parallel (``data_parallel_phase``, fresh worker processes of
+     ``parallel/multihost_dryrun.py``): a world-size-1 NCCL DDP step
+     against the plain step within ``DP_ONE_TOL``; two gloo ranks on the
+     one card, every step path and a one-epoch ``Trainer.fit`` against
+     one process within ``DP_LOSS_TOL`` / ``DP_PARAM_TOL``.
 
 Every kernel's JSON record carries its bound: the larger of its
 operations (FP32 at 67 TFLOP/s; the 3xTF32 products of K5's forward,
@@ -466,13 +486,41 @@ BF16_LWS_STEP_MEAN_TOL = 1e-2
 # tests/test_torch_port_bf16_recurrence.py): the distance test reads the
 # first 16 steps there
 BF16_RECURRENCE_MODE_STEPS = 16
+# K1's bf16 mode (phase 33) against its plain bf16 version: as K3's
+# (``bf16_stack_case``); the flagship's bf16 forward without gradient on
+# the card against the same on CPU tensors: within JAX's bf16 output bound
+# (5e-2, tests/test_pallas_lstm.py) and on average within
+# ``BF16_MODE_FRAC`` of the CPU's f32 forward's distance from its bf16 one
+# (read 4.2e-3 and 0.121 at B2 x 48); its bf16-parameter generation
+# (teacher-forced, f32 rings) within the JAX package's bf16 drift bound
+# ``K2_BF16_TOL`` (read 1.6e-3)
+BF16_FWD_TOL = 5e-2
+BF16_FWD_BATCH, BF16_FWD_FRAMES = 2, 48
+# phase 34: the rollout configs outside K2's shape contract
+ROUTE_CONFIGS = {"hidden128_heads4": dict(hidden_size=128),
+                 "hidden256_heads8": dict(num_heads=8)}
+# phase 35: data parallel, the dryrun's Metaformer at the flagship's width
+# (hidden 256, 2 blocks, 2-block encoders, B8 x T8); the ranks' global
+# losses against one process within 1e-4, and their parameters after two
+# SGD steps within ``DP_PARAM_TOL`` of its, relative to each tensor's
+# largest (the rows split 4 + 4 changes the sums of the weight gradients'
+# reductions; bf16 rounds each rank's dW: read 2.6e-5 and 4.0e-6, f32
+# 6e-8); the world-size-1 NCCL DDP step within ``DP_ONE_TOL`` of the plain
+# step (loss and parameters; read 0)
+DP_HIDDEN, DP_LOSS_TOL, DP_PARAM_TOL, DP_ONE_TOL = 256, 1e-4, 1e-4, 1e-6
 LIBS = ("mixer_stack", "decode_rollout", "lstm_layer", "rect_attention",
         "lstm_stacked", "gru", "lstm_recurrence", "attention_bf16")
 SRC = "multimodalreactiongeneration_tpu_torch/csrc/"
 JAX_OPS = "multimodalreactiongeneration_tpu/ops/"
 
 
+_START = time.perf_counter()
+
+
 def log(phase, **kv):
+    """One line of a phase's readings, ending in the script's elapsed
+    seconds (``at_s``), which say what each phase cost."""
+    kv["at_s"] = f"{time.perf_counter() - _START:.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
 
@@ -542,6 +590,7 @@ COUNTERS = {  # kernel name -> (module key, counter attribute)
     "gru_bf16_bwd": ("K10", "bf16_bwd_launches"),
     "lstm_recurrence_bf16_fwd": ("K8", "bf16_fwd_launches"),
     "lstm_recurrence_bf16_bwd": ("K8", "bf16_bwd_launches"),
+    "mixer_stack_bf16": ("K1", "bf16_launches"),
 }
 
 
@@ -2600,7 +2649,8 @@ def gru_records(cases, launches, **more_launches):
 
 def lws_generation_spec():
     """lstm_with_sampling's generation: K9 +1 per generation (the
-    sampler's warmup), nothing else."""
+    sampler's warmup), nothing else; the profile of its first 64 frames
+    (the whole generation's took ~48 s of the script)."""
     from multimodalreactiongeneration_tpu_torch.configs import LWS_MODEL_CFG
     from multimodalreactiongeneration_tpu_torch.infer.generate import (
         generate_lws,
@@ -2610,7 +2660,7 @@ def lws_generation_spec():
 
     return dict(
         tag="lws", generate=generate_lws, per_generation=dict(
-            lstm_stacked_fwd=1), f32={},
+            lstm_stacked_fwd=1), f32={}, profile_frames=64,
         model=lambda device: LSTMwithSample(
             LWS_MODEL_CFG, generator=torch.Generator().manual_seed(SEED),
             device=device))
@@ -3434,7 +3484,7 @@ def bf16_check(name, outs, grads, want_outs, want_grads, ys_f32, short,
                              f"version, the plain f32 one {gap}")
     return dict(fwd_max_abs_err=fwd, grad_f32_max_rel_err=g32,
                 grad_bf16_max_rel_err=g16,
-                grad_max_abs_err=max_err(grads, want_grads),
+                grad_max_abs_err=max_err(grads, want_grads) if grads else 0.0,
                 ys_mean_abs_err=ys_err, plain_f32_vs_bf16_ys_mean=gap)
 
 
@@ -4136,6 +4186,259 @@ def attention_records(cases, launches):
             max_rel_err=max(c["grad_max_rel_err"] for c in cases)),
     ]
 
+def bf16_inference_case(K1, r, b, t, layers, h=256):
+    """K1's bf16 mode (``mixer_stack_forward`` on bf16 W_ih, W_hh and W_ff,
+    the rest f32) at B x T x layers: one launch; the training forward's
+    bits (the same schedule, without residual stores); against the plain
+    bf16 version as K3's bf16 mode is held (``bf16_stack_case``); the bf16
+    kernel and the f32 kernel on the same values in turns; the plain bf16
+    version's ms; the bound of its products (18 L B T H^2) at 989 TFLOP/s
+    or its bytes."""
+    n = layers
+    args32 = (r(b, t, h), r(n, h, 4 * h, s=0.06), r(n, 4 * h, s=0.06),
+              r(n, h, 4 * h, s=0.06), r(n, h, h, s=0.06), r(n, h, s=0.1),
+              r(n, h, s=0.1, mean=1.0), r(n, h, s=0.1),
+              r(n, h, s=0.1, mean=1.0), r(n, h, s=0.1),
+              r(n, b, h, s=0.3), r(n, b, h, s=0.3))
+    args = tuple(a.to(torch.bfloat16) if i in K1._WEIGHTS else a
+                 for i, a in enumerate(args32))
+    args32 = tuple(a.float() for a in args)  # the same values in f32
+    with torch.no_grad():
+        before = K1.bf16_launches
+        y, (hn, cn) = K1.mixer_stack_forward(*args)
+        torch.cuda.synchronize()
+        if K1.bf16_launches != before + 1:
+            raise AssertionError("mixer_stack_bf16: not one bf16 launch")
+        train_bits = same_bits((y, hn, cn),
+                               K1.mixer_stack_train_forward(*args)[:3])
+        plain_ms, (yr, (hr, cr)) = cuda_ms(
+            lambda: K1.mixer_stack_forward_reference(*args), 1)
+        y32 = K1.mixer_stack_forward_reference(*args32)[0]
+    short = (n, t) == BF16_STACK_SHORT
+    errs = bf16_check("mixer_stack_bf16", (y, hn, cn), (), (yr, hr, cr), (),
+                      (y32,), short,
+                      tol=BF16_STACK_SHORT_TOL if short else BF16_FULL_TOL,
+                      mode_steps=None if short else BF16_MODE_STEPS,
+                      B=b, T=t, L=n)
+    if not train_bits:
+        raise AssertionError(f"mixer_stack_bf16 B{b} T{t} L{n}: not the "
+                             "training forward's bits")
+    del yr, hr, cr, y32
+
+    def run(a):
+        with torch.no_grad():
+            return {"ms": cuda_ms(lambda: K1.mixer_stack_forward(*a), 3)[0]}
+
+    times = bf16_in_turns(run, args, args32)
+    bound_ = bound_bf16(18 * n * b * t * h * h, nbytes(args, y, hn, cn))
+    log("mixer_stack_bf16", B=b, T=t, L=n, ms=f"{times['bf16']['ms']:.3f}",
+        f32_kernel_ms=f"{times['f32']['ms']:.3f}",
+        plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound_[0]:.3f}",
+        chunk=K1.chunk_steps(b, t, h, n), training_forward_bits=train_bits)
+    return dict(B=b, T=t, L=n, **errs, ms=times["bf16"]["ms"],
+                f32_kernel_ms=times["f32"]["ms"], plain_ms=plain_ms,
+                bound=bound_, training_forward_bits=train_bits)
+
+
+def bf16_forward_check(tag, card, cpu, cpu_f32):
+    """A bf16 result on the card against the same on CPU tensors: its
+    largest error within ``BF16_FWD_TOL`` and its mean within
+    ``BF16_MODE_FRAC`` of the CPU's f32 result's mean distance from the
+    CPU's bf16 one (the control reads 1)."""
+    card, cpu, cpu_f32 = (x.detach().float().cpu() for x in (card, cpu,
+                                                             cpu_f32))
+    err = float((card - cpu).abs().max())
+    mean = float((card - cpu).abs().mean())
+    gap = float((cpu_f32 - cpu).abs().mean())
+    log(tag, card_vs_cpu_max_abs_err=f"{err:.3e}",
+        card_vs_cpu_mean_abs_err=f"{mean:.3e}",
+        cpu_f32_vs_bf16_mean=f"{gap:.3e}", mean_frac=f"{mean / gap:.3f}")
+    if not err <= BF16_FWD_TOL or not mean <= BF16_MODE_FRAC * gap:
+        raise AssertionError(f"{tag}: card vs CPU {err} (mean {mean}), the "
+                             f"f32 control's mean {gap}")
+    return dict(card_vs_cpu_max_abs_err=err, card_vs_cpu_mean_abs_err=mean,
+                cpu_f32_vs_bf16_mean=gap, mean_frac=mean / gap)
+
+
+def bf16_inference_phase(mods, dev, rng, cfg):
+    """33. K1's bf16 mode (``bf16_inference_case``) at B16 x L5 x T2096
+    (the audio encoder) and L2 x T16; then its main path, the flagship's
+    forward without gradient on bf16 parameters and inputs (JAX's
+    ``model.apply`` on ``_cast_tree(params, bf16)``) at B16 x 250 frames,
+    the counts set to 0 just before it: K1 bf16 +2 (the audio and
+    partner-motion encoders), K7's bf16 mode +5 (the self-motion LSTMs),
+    K5's bf16 mode +2 (block 0's bf16 queries) and its f32 mode +8 (the
+    later blocks' f32 queries), nothing else; its ms beside the f32
+    forward's, in turns; the same forward at B2 x 48 against CPU tensors
+    (``bf16_forward_check``); ``generate_metaformer`` on the bf16
+    parameters (hoisted encoders K1 bf16 +2, K2 +1), and teacher-forced
+    with f32 rings at batch 2 against CPU tensors within
+    ``K2_BF16_TOL``."""
+    from multimodalreactiongeneration_tpu_torch.infer import generate as G
+
+    K1, bf = mods["K1"], torch.bfloat16
+    r = seeded(rng, dev)
+    cases = [bf16_inference_case(K1, r, B, (LEAD + FRAMES) * RATIO, 5),
+             bf16_inference_case(K1, r, B, BF16_SHORT_T, 2)]
+    model32 = flagship(cfg, dev)
+    model = flagship(cfg, dev).to(bf)
+    ins = [x.to(dev) for x in make_batch(rng, B)[:6]]
+    ins16 = [x.to(bf) for x in ins]
+    with torch.no_grad():
+        model(*ins16)  # warm-up, not counted
+        torch.cuda.synchronize()
+        zero_counts(mods)
+        y = model(*ins16)[0]
+        torch.cuda.synchronize()
+        launches = counts(mods)
+        check_launches("bf16 forward", {k: 0 for k in COUNTERS}, launches,
+                       mixer_stack_bf16=2, lstm_layer_bf16_fwd=5,
+                       rect_attention_bf16_fwd=2, rect_attention_fwd=8)
+        if not bool(torch.isfinite(y).all()) or y.dtype != torch.float32:
+            raise AssertionError(f"bf16 forward: {y.dtype}, finite "
+                                 f"{bool(torch.isfinite(y).all())}")
+        turns = {"bf16": [], "f32": []}
+        for mode in ("bf16", "f32", "f32", "bf16"):
+            m, a = (model, ins16) if mode == "bf16" else (model32, ins)
+            turns[mode].append(cuda_ms(lambda: m(*a), 3)[0])
+        fwd_ms = {k: float(np.mean(v)) for k, v in turns.items()}
+        small = make_batch(rng, BF16_FWD_BATCH, frames=BF16_FWD_FRAMES)[:6]
+        cpu32 = flagship(cfg, "cpu")
+        cpu16 = flagship(cfg, "cpu").to(bf)
+        on_card = model(*[x.to(dev).to(bf) for x in small])[0]
+        on_cpu = cpu16(*[x.to(bf) for x in small])[0]
+        forward = bf16_forward_check("bf16_forward", on_card, on_cpu,
+                                     cpu32(*small)[0])
+    log("bf16_forward", B=B, frames=FRAMES, ms=f"{fwd_ms['bf16']:.3f}",
+        f32_ms=f"{fwd_ms['f32']:.3f}", turns=turns,
+        launches={k: v for k, v in launches.items() if v})
+
+    full = G.sampling_mask_for(FRAMES, "full", device=dev)
+    batch = [x.to(dev) for x in make_batch(rng, B)]
+    G.generate_metaformer(model, batch, full)  # warm-up
+    torch.cuda.synchronize()
+    before = counts(mods)
+    gen_ms, pred = cuda_ms(lambda: G.generate_metaformer(model, batch, full),
+                           1)
+    after = counts(mods)
+    # the timed call and its warm-up
+    check_launches("bf16 generation", before, after, mixer_stack_bf16=4,
+                   decode_rollout=2)
+    if tuple(pred.shape) != (B, FRAMES, MOTION_DIM) or not bool(
+            torch.isfinite(pred).all()):
+        raise AssertionError(f"bf16 generation: {tuple(pred.shape)}")
+    small = make_batch(rng, 2)
+    teacher = G.sampling_mask_for(FRAMES, "teacher")
+    card_gen = G.generate_metaformer(
+        model, [x.to(dev) for x in small], teacher.to(dev),
+        cache_dtype=torch.float32)
+    cpu_gen = G.generate_metaformer(cpu16, small, teacher,
+                                    cache_dtype=torch.float32)
+    gen_err = float((card_gen.cpu() - cpu_gen).abs().max())
+    log("bf16_generate", ms=f"{gen_ms:.3f}",
+        teacher_f32_batch2_vs_cpu_max_abs_err=f"{gen_err:.3e}")
+    if not gen_err <= K2_BF16_TOL:
+        raise AssertionError(f"bf16 generation card vs CPU: {gen_err}")
+    return {"cases": cases, "launches": launches, "record": {
+        "forward": dict(batch=B, frames=FRAMES, ms=fwd_ms["bf16"],
+                        f32_ms=fwd_ms["f32"], turns=turns, **forward),
+        "generation": dict(batch=B, frames=FRAMES, ms=gen_ms,
+                           teacher_batch2_vs_cpu_max_abs_err=gen_err)}}
+
+
+def rollout_route_phase(mods, dev, rng, cfg):
+    """34. ``generate_metaformer`` under ``fused_rollout="auto"`` on
+    configs its gate takes and K2 does not (``ROUTE_CONFIGS``: hidden 128
+    with 4 heads, hidden 256 with 8 heads): teacher-forced, f32 rings, at
+    batch 2 x 250 frames, the module loop on the card (K1 +2, K2 +0)
+    against CPU tensors within ``PATH_TOL``; ``fused_rollout=True`` raises
+    with K2's reason."""
+    from multimodalreactiongeneration_tpu_torch.infer import generate as G
+
+    small = make_batch(rng, 2)
+    teacher = G.sampling_mask_for(FRAMES, "teacher")
+    out = {}
+    for name, changes in ROUTE_CONFIGS.items():
+        model = flagship(cfg, dev, **changes)
+        batch = [x.to(dev) for x in small]
+        before = counts(mods)
+        t0 = time.perf_counter()
+        card = G.generate_metaformer(model, batch, teacher.to(dev),
+                                     cache_dtype=torch.float32)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check_launches(f"route {name}", before, counts(mods), mixer_stack=2)
+        cpu = G.generate_metaformer(flagship(cfg, "cpu", **changes), small,
+                                    teacher, cache_dtype=torch.float32)
+        err = float((card.cpu() - cpu).abs().max())
+        try:
+            G.generate_metaformer(model, batch, teacher.to(dev),
+                                  fused_rollout=True)
+            raised = None
+        except ValueError as exc:
+            raised = str(exc)
+        log("rollout_route", config=name, decode_rollout_launches=0,
+            card_s=f"{seconds:.2f}", card_vs_cpu_max_abs_err=f"{err:.3e}",
+            forced_raises=repr(raised))
+        if not err <= PATH_TOL:
+            raise AssertionError(f"route {name}: card vs CPU {err}")
+        if not raised or "decode_rollout kernel" not in raised:
+            raise AssertionError(f"route {name}: fused_rollout=True ran")
+        out[name] = dict(card_s=seconds, card_vs_cpu_max_abs_err=err,
+                         forced_error=raised)
+    return out
+
+
+def data_parallel_phase():
+    """35. Data parallel (``parallel/multihost_dryrun.py``; each worker a
+    fresh process, waited on with a timeout): a world-size-1 NCCL DDP step
+    (f32 and bf16) against the plain step in one process, within
+    ``DP_ONE_TOL``; two ranks over gloo on CUDA tensors of the one card
+    (NCCL refuses two ranks on one GPU), the five step paths against one
+    process within ``DP_LOSS_TOL`` / ``DP_PARAM_TOL``, ranks equal; a
+    one-epoch ``Trainer.fit`` of two ranks against one process, the
+    validation loss within ``DP_LOSS_TOL``, rank 0 alone writing. The two
+    ranks' step ms (host clock to the global loss; the second step's
+    printed) beside one process's, the two launches one after the other
+    (the world-size-1 check launches both at once: its times contend):
+    two ranks on one card say nothing of scaling over cards."""
+    from multimodalreactiongeneration_tpu_torch.parallel import (
+        multihost_dryrun as dp,
+    )
+
+    out = {}
+    for tag, n, backend, variants, tol, timed in (
+            ("nccl_world_1", 1, "nccl", ("f32", "bf16"),
+             (DP_ONE_TOL, DP_ONE_TOL), False),
+            ("gloo_two_ranks", 2, "gloo", dp.VARIANTS,
+             (DP_LOSS_TOL, DP_PARAM_TOL), True)):
+        t0 = time.perf_counter()
+        readings = dp.step_readings(n, variants, device="cuda",
+                                    backend=backend, hidden=DP_HIDDEN,
+                                    timeout=300.0, timed=timed)
+        seconds = time.perf_counter() - t0
+        for v, rd in readings.items():
+            log("data_parallel", run=tag, variant=v,
+                loss_err=f"{rd['loss_err']:.3e}",
+                param_err=f"{rd['param_err']:.3e}",
+                rank_param_err=rd["rank_param_err"], rows=rd["rows"],
+                ddp=rd["rank_ddp"], **(dict(
+                    second_step_ms_one_process=f"{rd['single_step_ms'][1]:.1f}",
+                    second_step_ms_ranks=[round(m[1], 1)
+                                          for m in rd["rank_step_ms"]])
+                    if timed else {}))
+            dp.check_steps(rd, loss_tol=tol[0], param_tol=tol[1])
+        log("data_parallel", run=tag, seconds=f"{seconds:.1f}")
+        out[tag] = dict(seconds=seconds, steps=readings)
+    t0 = time.perf_counter()
+    out["gloo_two_ranks_fit"] = dp.verify_multihost_fit(
+        2, device="cuda", backend="gloo", hidden=DP_HIDDEN, timeout=300.0,
+        tol=DP_LOSS_TOL, epochs=1)
+    out["gloo_two_ranks_fit"]["seconds"] = time.perf_counter() - t0
+    log("data_parallel", run="gloo_two_ranks_fit",
+        **{k: v for k, v in out["gloo_two_ranks_fit"].items()})
+    return out
+
 
 def main():
     if not torch.cuda.is_available():
@@ -4461,6 +4764,14 @@ def main():
                         for k in COUNTERS}
     lws_bf16_launches = lws_bf16_cli["launches"]
 
+    # ---- 33.-35. K1's bf16 mode, the rollout route, data parallel -------
+    bf16_inference = bf16_inference_phase(
+        mods, dev, np.random.default_rng(SEED + 33), cfg)
+    route = rollout_route_phase(mods, dev, np.random.default_rng(SEED + 34),
+                                cfg)
+    data_parallel = data_parallel_phase()
+    k1_bf16 = bf16_inference["cases"][0]
+
     k1_main, k2_main = k1_cases[0], k2_cases[1]
     # no single PyTorch call computes the encoder stack or the rollout
     record = {"kernels": [
@@ -4505,6 +4816,13 @@ def main():
             gru_bf16_train_step=gru_bf16_step["launches"],
             **{f"{k}_bf16_fused_dw_0_step": v["launches"]
                for k, v in bf16_off.items()}),
+        kernel_record(
+            "mixer_stack_bf16", "mixer_stack.cu", "pallas_mixer_stack.py:215",
+            bf16_inference["launches"]["mixer_stack_bf16"],
+            max(c["fwd_max_abs_err"] for c in bf16_inference["cases"]),
+            k1_bf16["ms"], k1_bf16["plain_ms"], k1_bf16["bound"], None,
+            f32_kernel_ms=k1_bf16["f32_kernel_ms"], dtype="bf16",
+            cases=bf16_inference["cases"]),
     ], "generation": {"batch": B, "frames": FRAMES, "ms": gen_ms,
                       "frames_per_s": B * FRAMES / (gen_ms / 1000),
                       "stack_schedule_ab": {"ms": gen_ab,
@@ -4542,6 +4860,8 @@ def main():
         "gru_bf16_cli": gru_bf16_cli["record"],
         **{f"{k}_bf16_fused_dw_0_step": v["record"]
            for k, v in bf16_off.items()},
+        "bf16_inference": bf16_inference["record"],
+        "rollout_route": route, "data_parallel": data_parallel,
         "seconds": time.perf_counter() - t_start}
     options = dict(options, dropout_cli=dropout_cli, lws_ss_cli=lws_ss_cli)
     for entry in record["kernels"]:  # the training options' launches

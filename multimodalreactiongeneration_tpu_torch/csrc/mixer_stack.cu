@@ -6,8 +6,9 @@
 //   mixer_stack_forward_f32         _fwd_kernel_light  (the primal)
 //   mixer_stack_train_forward_f32   _fwd_kernel        (_vjp_fwd)
 //   mixer_stack_backward_f32        _bwd_kernel        (_vjp_bwd)
-// and the training forward and backward in JAX's bf16 operand mode (bf16
-// W_ih, W_hh and W_ff; the rest FP32):
+// and the three in JAX's bf16 operand mode (bf16 W_ih, W_hh and W_ff; the
+// rest FP32):
+//   mixer_stack_forward_bf16        _fwd_kernel_light
 //   mixer_stack_train_forward_bf16  _fwd_kernel
 //   mixer_stack_backward_bf16       _bwd_kernel
 // Each of the L blocks computes  LSTM -> +x -> LN -> Dense(H->H) -> +res
@@ -573,6 +574,21 @@ int mixer_stack_forward_f32(
   return stack_forward(StackArgs<float>{x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff,
                                         g1, b1, g2, b2, h0, c0, out, hn, cn,
                                         nullptr, ws, B, T, H, L, C},
+                       (cudaStream_t)stream_ptr);
+}
+
+// The inference forward in the bf16 operand mode: w_ih_t, w_hh_t and w_ff
+// bf16, the rest and the scratch (mixer_stack_workspace_floats: the chunk
+// buffers hold FP32 whatever the weights) as mixer_stack_forward_f32.
+int mixer_stack_forward_bf16(
+    const float* x0, const bf16* w_ih_t, const float* b_g,
+    const bf16* w_hh_t, const bf16* w_ff, const float* b_ff,
+    const float* g1, const float* b1, const float* g2, const float* b2,
+    const float* h0, const float* c0, float* out, float* hn, float* cn,
+    float* ws, int B, int T, int H, int L, int C, void* stream_ptr) {
+  return stack_forward(StackArgs<bf16>{x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff,
+                                       g1, b1, g2, b2, h0, c0, out, hn, cn,
+                                       nullptr, ws, B, T, H, L, C},
                        (cudaStream_t)stream_ptr);
 }
 

@@ -14,7 +14,9 @@ numpy lengths; motion data are numpy, the batched fbank entries of
 ``pad_collate_device`` tensors on the device. The fixed windows of
 simple_lstm (``WindowDataset``, ``stack_collate``, ``WindowBatchLoader``)
 are host numpy batches of stacked arrays (fbank, motion context,
-target). ``HostRowShard`` (data-parallel training) is not ported.
+target). ``HostRowShard`` keeps one rank's rows of every batch for
+data-parallel training (``train/harness.py Trainer`` under
+``torch.distributed``).
 """
 
 from __future__ import annotations
@@ -510,6 +512,57 @@ class BatchLoader:
     def __iter__(self) -> Iterator[Batch]:
         for chunk in self._epoch_batches():
             yield self._collate(chunk)
+
+
+def _map_rows(fn, batch):
+    """``fn`` on every array of a (nested list / tuple of) batch: numpy
+    arrays and tensors alike, the containers rebuilt as they were."""
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(_map_rows(fn, x) for x in batch)
+    return fn(batch)
+
+
+def _first_leaf(batch):
+    while isinstance(batch, (list, tuple)):
+        batch = batch[0]
+    return batch
+
+
+class HostRowShard:
+    """Data-parallel loader adapter: consistent global batches on every
+    rank (JAX ``data/dataset.py HostRowShard``).
+
+    Sharding the *index list* per rank (tr[pi::pc]) breaks data-parallel
+    training two ways: independently collated per-rank batches pad to
+    different time lengths (so the ranks' losses are means over different
+    shapes, and DDP's average of them is not the global batch's), and
+    uneven shard sizes give ranks different step counts (one rank enters
+    a gradient all-reduce the others never join -> hang). Here every rank
+    iterates the IDENTICAL global batch sequence (same indices + seed ->
+    same shuffle, bucketing, collation, padded shapes, step count) and
+    keeps only rows [pi::pc] of each batch. Trailing rows beyond the
+    largest pc-divisible count are dropped (at most pc-1 per batch), so
+    every rank holds the same number of rows; batches smaller than pc are
+    skipped.
+    """
+
+    def __init__(self, loader, process_index: int, process_count: int):
+        self.loader = loader
+        self.pi = process_index
+        self.pc = process_count
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __iter__(self):
+        def rows(t):
+            keep = (t.shape[0] // self.pc) * self.pc
+            return t[self.pi:keep:self.pc]
+
+        for batch in self.loader:
+            if _first_leaf(batch).shape[0] < self.pc:
+                continue
+            yield _map_rows(rows, batch)
 
 
 class PrefetchLoader:

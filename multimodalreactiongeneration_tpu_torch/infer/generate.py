@@ -14,9 +14,11 @@ with the JAX package's three decode layouts:
        prediction[t] where sampling_mask[t] else motion_s[t]. With
        ``fused_rollout`` ("auto" or True, and a supported config) it is
        one call of ``ops/decode_rollout.decode_rollout`` (K2 on the
-       card, its plain version on the CPU); ``fused_rollout=False``, or
-       a config outside the rollout's gate (a GRU main modality, as in
-       configs/lstmformer_gru.yaml), runs the module step by step.
+       card, its plain version on the CPU); ``fused_rollout=False``, a
+       config outside the rollout's gate (a GRU main modality, as in
+       configs/lstmformer_gru.yaml), or on the card a shape outside K2's
+       contract (hidden other than 256, heads other than 4, ...) under
+       "auto", runs the module step by step.
   * in-loop shared-KV (``hoist_encoders=False``, or "auto" with mha
     other-modality embeddings): the warmup primes block 0's encoders
     and the raw rings, and every step encodes its own ``ratio`` audio
@@ -284,6 +286,39 @@ def _fused_rollout_supported(
     )
 
 
+def _rollout_route(cfg: dict, cache_dtype, fused_rollout, device_type: str,
+                   ratio: int, len_a0: int) -> bool:
+    """Whether the hoisted rollout goes to ``decode_rollout`` (True) or
+    runs the module step by step (False), decided from shapes before any
+    launch. ``fused_rollout`` False: the loop. Otherwise a config outside
+    ``_fused_rollout_supported`` takes the loop under "auto" and raises
+    under True. On the CPU a supported config takes ``decode_rollout``'s
+    plain version; on the card K2 takes it only within the kernel's shape
+    contract (``ops/decode_rollout.py kernel_contract``): "auto" takes the
+    loop elsewhere, as JAX's "auto" falls back to its scan where its
+    kernel does not fit, and True raises."""
+    from multimodalreactiongeneration_tpu_torch.ops.decode_rollout import (
+        kernel_contract,
+    )
+
+    supported = _fused_rollout_supported(cfg, cache_dtype, ratio, len_a0)
+    if fused_rollout is True and not supported:
+        raise ValueError(
+            "fused_rollout=True but the model config is outside the "
+            "fused rollout's contract (see ops/decode_rollout.py)"
+        )
+    if fused_rollout is False or not supported or device_type == "cpu":
+        return fused_rollout is not False and supported
+    budgets = context_budgets(cfg)
+    why = kernel_contract(cfg["hidden_size"], cfg["num_heads"], budgets[0],
+                          budgets[1], budgets[1], cfg["bottleneck_size"],
+                          ratio, len_a0)
+    if why and fused_rollout is True:
+        raise ValueError(
+            f"fused_rollout=True: the decode_rollout kernel {why}")
+    return why is None
+
+
 def _fused_rollout_args(
     model, states, enc_a_steps, enc_mp_steps, ms, sampling_mask,
     cache_dtype, len_a0: int, len_m0: int,
@@ -411,7 +446,9 @@ def _generate_metaformer(
     no other-modality embedding is mha; True requires it; False runs the
     encoders in the loop. fused_rollout (hoisted path only): "auto" takes
     ``decode_rollout`` whenever the config is supported (bf16 and f32
-    caches alike); True requires it; False runs the module step by step.
+    caches alike) and, on the card, within K2's shape contract; True
+    requires both; False runs the module step by step
+    (``_rollout_route``).
 
     The model runs in eval mode for the call (``eval_mode``)."""
     with eval_mode(model):
@@ -456,13 +493,8 @@ def _generate(model, batch_data, sampling_mask, cache_dtype, kv_layout,
     ratio = enc_a_steps.shape[2]
     sampling_mask = sampling_mask.to(ms.device)
 
-    supported = _fused_rollout_supported(cfg, cache_dtype, ratio, la)
-    if fused_rollout is True and not supported:
-        raise ValueError(
-            "fused_rollout=True but the model config is outside the "
-            "fused rollout's contract (see ops/decode_rollout.py)"
-        )
-    if fused_rollout is not False and supported:
+    if _rollout_route(cfg, cache_dtype, fused_rollout, ms.device.type,
+                      ratio, la):
         if torch.is_grad_enabled():
             raise RuntimeError(
                 "the fused rollout (decode_rollout, K2) has no backward: "

@@ -99,8 +99,9 @@ class ServingEngine:
             raise ValueError(f"need at least 1 slot, got {slots}")
         if mesh is not None:
             raise NotImplementedError(
-                "serving over a mesh is not ported; the port's data "
-                "parallel is DDP, queue A, item 6"
+                "serving over a mesh (JAX infer/serving.py: the slot pool "
+                "sharded over the 'data' axis) is not ported: ROADMAP "
+                "queue A, item 9"
             )
         self.model = model
         self.cfg = model.cfg

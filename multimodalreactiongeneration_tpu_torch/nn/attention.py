@@ -43,7 +43,11 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from multimodalreactiongeneration_tpu_torch.nn.basic import dropout, matmul
+from multimodalreactiongeneration_tpu_torch.nn.basic import (
+    dropout,
+    matmul,
+    promote,
+)
 from multimodalreactiongeneration_tpu_torch.ops.masks import (
     rectangular_causal_mask,
 )
@@ -213,10 +217,10 @@ class TorchMHA(nn.Module):
                 f"vdim={self.vdim}"
             )
         batch, q_len, s_len = query.shape[0], query.shape[1], raw.shape[1]
-        q = query @ self.q_proj_weight.T + self._bias("q_proj_bias")
+        q = matmul(query, self.q_proj_weight.T) + self._bias("q_proj_bias")
         qh = q.reshape(batch, q_len, h, dh).transpose(1, 2)
         wk_h = self.k_proj_weight.reshape(h, dh, kdim)
-        q_fold = torch.einsum("bhld,hdk->bhlk", qh, wk_h)
+        q_fold = torch.einsum("bhld,hdk->bhlk", *promote(qh, wk_h))
         logits = torch.einsum(
             "bhlk,bsk->bhls", _as_operand(q_fold, raw.dtype), raw.float()
         ) * (1.0 / math.sqrt(dh))
@@ -228,12 +232,13 @@ class TorchMHA(nn.Module):
             "bhls,bsk->bhlk", _as_operand(weights, raw.dtype), raw.float()
         )
         wv_h = self.v_proj_weight.reshape(h, dh, kdim)
-        ctx = torch.einsum("bhlk,hdk->bhld", ctx_pre, wv_h)
+        ctx = torch.einsum("bhlk,hdk->bhld", *promote(ctx_pre, wv_h))
         if self.use_bias:
             ctx = ctx + self.v_proj_bias.reshape(h, 1, dh)[None]
         ctx = dropout(ctx, self.dropout, self.training)
         ctx = ctx.transpose(1, 2).reshape(batch, q_len, e)
-        return ctx @ self.out_proj_weight.T + self._bias("out_proj_bias")
+        return (matmul(ctx, self.out_proj_weight.T)
+                + self._bias("out_proj_bias"))
 
     def forward(
         self,

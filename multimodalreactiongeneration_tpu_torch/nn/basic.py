@@ -123,13 +123,19 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias)
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b in ``jnp`` promotion: a pair of one dtype computes in it; a
+def promote(a: torch.Tensor, b: torch.Tensor):
+    """``a``, ``b`` in ``jnp`` promotion: a pair of one dtype as it is; a
     mixed pair (an f32 activation with a bf16 weight) in the promoted
-    dtype, on the narrower operand converted exactly."""
+    dtype, the narrower operand converted exactly."""
     if a.dtype != b.dtype:
         dtype = torch.promote_types(a.dtype, b.dtype)
         a, b = a.to(dtype), b.to(dtype)
+    return a, b
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in ``jnp`` promotion (``promote``)."""
+    a, b = promote(a, b)
     return a @ b
 
 

@@ -16,8 +16,10 @@ Weight folding (exact reassociations of ``TorchMHA.attend_raw``):
 
 ``decode_rollout`` launches ``csrc/decode_rollout.cu`` for CUDA tensors
 (its design is in the source note) and runs ``decode_rollout_reference``
-for CPU tensors; ``logit_chunk`` sizes the ring chunks of the kernel's
-logits stage. ``launches`` counts kernel launches. Numerics: f32 state,
+for CPU tensors; ``kernel_contract`` states the shapes the kernel takes
+(``infer/generate.py``'s "auto" route asks it before choosing K2);
+``logit_chunk`` sizes the ring chunks of the kernel's logits stage.
+``launches`` counts kernel launches. Numerics: f32 state,
 LayerNorms, softmax and sums; matmul inputs rounded to the panel dtype;
 queries and softmax weights rounded to the ring dtype; masked logits at
 -1e30.
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -278,6 +280,28 @@ def _check(name, x, device, dtype, shape):
         )
 
 
+def kernel_contract(hidden: int, heads: int, ring_a: int, ring_m: int,
+                    bud_m: int, bottleneck: int, ratio: int,
+                    len_a0: int) -> Optional[str]:
+    """Why the kernel does not take these shapes, or None where it does:
+    hidden 256 with 4 heads, rings of up to 2048 slots (``ring_a`` audio,
+    ``ring_m`` partner-motion slots, ``bud_m`` of them attended), a
+    bottleneck that is a multiple of 64, and an audio ring and primed
+    audio length ``len_a0`` that are multiples of ``ratio``."""
+    if hidden != _KERNEL_HIDDEN or heads != _KERNEL_HEADS:
+        return (f"takes hidden {_KERNEL_HIDDEN} and {_KERNEL_HEADS} heads; "
+                f"got {hidden} and {heads}")
+    if (max(ring_a, ring_m) > _KERNEL_MAX_RING or bud_m > ring_m
+            or bottleneck % 64):
+        return (f"rings up to {_KERNEL_MAX_RING} slots (got {ring_a}, "
+                f"{ring_m}; bud_m {bud_m}) and a bottleneck that is a "
+                f"multiple of 64 (got {bottleneck})")
+    if ring_a % ratio or len_a0 % ratio:
+        return ("the audio ring and its primed length must be ratio "
+                f"multiples (SA {ring_a}, len_a0 {len_a0}, ratio {ratio})")
+    return None
+
+
 def decode_rollout(
     folded: Dict[str, Any],
     ca0: torch.Tensor,          # (B, SA, H) ring dtype
@@ -323,23 +347,9 @@ def decode_rollout(
     out_dim = int(folded["out_dim"])
     if rdt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"decode_rollout kernel: ring dtype {rdt} not taken")
-    if hidden != _KERNEL_HIDDEN or heads != _KERNEL_HEADS:
-        raise ValueError(
-            f"decode_rollout kernel takes hidden {_KERNEL_HIDDEN} and "
-            f"{_KERNEL_HEADS} heads; got {hidden} and {heads}"
-        )
-    if max(sa, sm) > _KERNEL_MAX_RING or bud_m > sm or bneck % 64:
-        raise ValueError(
-            f"decode_rollout kernel: rings up to {_KERNEL_MAX_RING} slots "
-            f"(got {sa}, {sm}; bud_m {bud_m}) and a bottleneck that is a "
-            f"multiple of 64 (got {bneck})"
-        )
-    if sa % ratio or len_a0 % ratio:
-        raise ValueError(
-            "decode_rollout kernel: the audio ring and its primed length "
-            f"must be ratio multiples (SA {sa}, len_a0 {len_a0}, "
-            f"ratio {ratio})"
-        )
+    why = kernel_contract(hidden, heads, sa, sm, bud_m, bneck, ratio, len_a0)
+    if why:
+        raise ValueError(f"decode_rollout kernel: {why}")
     _check("ca0", ca0, dev, rdt, (batch, sa, hidden))
     _check("cm0", cm0, dev, rdt, (batch, sm, hidden))
     _check("h0", h0, dev, torch.float32, (nb, batch, hidden))

@@ -22,10 +22,10 @@ JAX's backward rounds). On CUDA tensors, where a gradient is needed, the
 autograd function runs the training forward (``mixer_stack_train_
 forward``, which stores residuals) and the backward kernel
 (``mixer_stack_backward``); otherwise the inference forward
-(``mixer_stack_forward``, f32 only: K1's bf16 mode waits in ROADMAP Queue
-B item 1). All three launch ``csrc/mixer_stack.cu`` (the design is in its
-source note). Launch counters: ``launches`` (inference forward),
-``train_fwd_launches`` and ``bwd_launches``, and the bf16 mode's
+(``mixer_stack_forward``). All three launch ``csrc/mixer_stack.cu`` in
+the arguments' operand mode (the design is in its source note). Launch
+counters: ``launches`` (inference forward), ``train_fwd_launches`` and
+``bwd_launches``, and the bf16 mode's ``bf16_launches``,
 ``bf16_train_fwd_launches`` and ``bf16_bwd_launches``.
 
 The two forwards run the layers as a layer-lagged chunk schedule on
@@ -49,6 +49,7 @@ from multimodalreactiongeneration_tpu_torch.nn.basic import layer_norm
 from multimodalreactiongeneration_tpu_torch.ops.lstm_bf16 import operand_mm
 
 launches = 0
+bf16_launches = 0
 train_fwd_launches = 0
 bwd_launches = 0
 bf16_train_fwd_launches = 0
@@ -172,6 +173,7 @@ def _lib():
         lib.mixer_stack_resident_clusters.argtypes = [_I]
         lib.mixer_stack_resident_clusters.restype = _I
         lib.mixer_stack_forward_f32.argtypes = [_P] * 16 + [_I] * 5 + [_P]
+        lib.mixer_stack_forward_bf16.argtypes = [_P] * 16 + [_I] * 5 + [_P]
         lib.mixer_stack_train_forward_f32.argtypes = (
             [_P] * 17 + [_I] * 5 + [_P])
         lib.mixer_stack_backward_f32.argtypes = [_P] * 25 + [_I] * 5 + [_P]
@@ -181,6 +183,7 @@ def _lib():
         lib.mixer_stack_backward_bf16_sum_floats.argtypes = [_I] * 2
         lib.mixer_stack_backward_bf16_sum_floats.restype = ctypes.c_longlong
         for name in ("mixer_stack_forward_f32",
+                     "mixer_stack_forward_bf16",
                      "mixer_stack_train_forward_f32",
                      "mixer_stack_backward_f32",
                      "mixer_stack_train_forward_bf16",
@@ -268,21 +271,19 @@ def mixer_stack_forward(
     if x0.device.type == "cpu":
         return mixer_stack_forward_reference(*args)
     b, t, h, nl, bf16 = _check_args("mixer_stack_forward", args)
-    if bf16:
-        raise NotImplementedError(
-            "mixer_stack_forward (K1) has no bf16 operand mode yet (ROADMAP "
-            "Queue B item 1); the bf16 training step runs the stack under "
-            "gradient (K3/K4)")
     chunk = _chunk("mixer_stack_forward", b, t, h, nl, chunk)
     lib = _lib()
     out = torch.empty_like(x0)
     hn = torch.empty_like(h0)
     cn = torch.empty_like(c0)
     ws = _empty(lib.mixer_stack_workspace_floats(b, t, h, nl, chunk), x0)
-    _build.launch(lib.mixer_stack_forward_f32, *args, out, hn, cn, ws,
-                  dims=(b, t, h, nl, chunk))
-    global launches
-    launches += 1
+    fn = lib.mixer_stack_forward_bf16 if bf16 else lib.mixer_stack_forward_f32
+    _build.launch(fn, *args, out, hn, cn, ws, dims=(b, t, h, nl, chunk))
+    global launches, bf16_launches
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return out, (hn, cn)
 
 

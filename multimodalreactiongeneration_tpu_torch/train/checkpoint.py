@@ -22,6 +22,10 @@ for any ``nn.Module`` (the Metaformer and LSTMwithSample alike):
     thread (a snapshot the next step cannot touch), and ``torch.save``
     writes it on a background thread, at most one in flight per monitor;
     the bytes on disk equal a synchronous save's.
+  * data parallel: a save is local to the process that calls it (JAX
+    scopes its orbax checkpointer to the calling rank for the same
+    reason); ``is_primary`` names the one process that saves, rank 0, so
+    ranks never write the same path at once.
 
 ``import_torch_state_dict`` maps a reference (PyTorch-Lightning)
 state_dict onto the port's names (JAX ``import_torch_state_dict``);
@@ -59,6 +63,14 @@ class HostSnapshot:
         self.tree = {"params": _to_host(model.state_dict())}
         if optimizer is not None:
             self.tree["opt"] = _to_host(optimizer.state_dict())
+
+
+def is_primary() -> bool:
+    """True on the process that writes logs and checkpoints: rank 0 of the
+    process group, or the only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _remove(path: str) -> None:

@@ -34,13 +34,28 @@ trains the streaming models on the bf16 step (``streaming_step_fns``
 with ``compute_dtype=torch.bfloat16``: the lstmformer with LSTM or GRU
 embeddings, lstm_with_sampling; the scheduled-sampling step and
 simple_lstm's windowed step stay f32), with f32 parameters, optimizer
-state and checkpoints; ``trainer.mesh_shape`` (queue A, item 6) raises.
+state and checkpoints.
 
-It runs on ``cuda:0``; ``device=cpu`` runs it on the CPU (the tests do).
-The yaml's own ``device: tpu`` names no device of the port and means the
-default. Not carried over: the JAX package's persistent compile cache
-(the port compiles nothing per shape) and its multi-host set-up (one
-device, ROADMAP queue A).
+Data parallel on N GPUs, one process per card:
+
+    torchrun --nproc_per_node N -m \
+        multimodalreactiongeneration_tpu_torch.train.cli --config ...
+
+Each rank joins the process group from torchrun's environment
+(``parallel/distributed.py initialize_multihost``; NCCL on CUDA, gloo on
+the CPU), takes the card ``LOCAL_RANK``, iterates the same global batches
+and keeps its rows (``HostRowShard``, as the JAX CLI wraps its loaders
+when its process count is above 1); ``Trainer`` averages the gradients
+over the ranks (DDP). Rank 0 writes the log, ``metrics.jsonl`` and the
+checkpoints. ``trainer.mesh_shape: [N, 1]`` names the data axis, N the
+world size; a 'model' axis above 1 (JAX's parameter sharding) raises,
+ROADMAP queue A, item 10. ``exp.batch_size`` is the global batch.
+
+It runs on ``cuda:0`` (``cuda:LOCAL_RANK`` under torchrun); ``device=cpu``
+runs it on the CPU (the tests do). The yaml's own ``device: tpu`` names
+no device of the port and means the default. Not carried over: the JAX
+package's persistent compile cache (the port compiles nothing per
+shape).
 """
 
 from __future__ import annotations
@@ -61,6 +76,7 @@ from multimodalreactiongeneration_tpu_torch.data.databuild_nx import (
 )
 from multimodalreactiongeneration_tpu_torch.data.dataset import (
     BatchLoader,
+    HostRowShard,
     PrefetchLoader,
     SegmentDatasetNX,
     WindowBatchLoader,
@@ -68,6 +84,8 @@ from multimodalreactiongeneration_tpu_torch.data.dataset import (
     random_split_indices,
 )
 from multimodalreactiongeneration_tpu_torch.models import MODEL_TYPE, build_model
+from multimodalreactiongeneration_tpu_torch.parallel import distributed
+from multimodalreactiongeneration_tpu_torch.parallel.mesh import make_mesh_2d
 from multimodalreactiongeneration_tpu_torch.train.checkpoint import (
     load_checkpoint,
     restore_opt_state,
@@ -82,7 +100,19 @@ from multimodalreactiongeneration_tpu_torch.train.harness import (
     windowed_step_fns,
 )
 from multimodalreactiongeneration_tpu_torch.train.optim import build_optimizer
-from multimodalreactiongeneration_tpu_torch.utils.logging import set_logger
+from multimodalreactiongeneration_tpu_torch.utils.logging import (
+    DummyLogger,
+    set_logger,
+)
+
+
+def _row_shard(loader):
+    """``loader`` as this rank's rows of its batches (``HostRowShard``)
+    in a process group of more than one rank; itself otherwise."""
+    world = distributed.world_size()
+    if world == 1:
+        return loader
+    return HostRowShard(loader, distributed.rank(), world)
 
 
 def make_streaming_loaders(cfg, logger, device=None):
@@ -124,6 +154,9 @@ def make_streaming_loaders(cfg, logger, device=None):
             bucket_windows=int(cfg.trainer.get("bucket_windows", 8)),
             audio_cache=audio_cache, device=device,
         )
+        # data parallel: identical global batches on every rank, each
+        # keeping its rows (HostRowShard's docstring has the why)
+        loader = _row_shard(loader)
         return PrefetchLoader(loader, depth) if depth > 0 else loader
 
     return mk(tr, True), mk(va, False), mk(te, False), dataset
@@ -143,8 +176,9 @@ def make_windowed_loaders(cfg, logger):
         f"train size: {len(tr)}, valid size: {len(va)}, test size: {len(te)}")
 
     def mk(idx, shuffle):
-        return WindowBatchLoader(dataset, idx, cfg.exp.batch_size,
-                                 shuffle=shuffle, seed=cfg.get("seed", 0))
+        return _row_shard(WindowBatchLoader(
+            dataset, idx, cfg.exp.batch_size, shuffle=shuffle,
+            seed=cfg.get("seed", 0)))
 
     return mk(tr, True), mk(va, False), mk(te, False), dataset
 
@@ -161,20 +195,31 @@ def main(argv=None):
     if model_type not in MODEL_TYPE:
         raise ValueError(f"exp.use_model must be one of {sorted(MODEL_TYPE)}, "
                          f"got {model_type!r}")
-    if cfg.trainer.get("mesh_shape"):
-        raise NotImplementedError(
-            "trainer.mesh_shape: the port trains on one device (ROADMAP "
-            "queue A, item 6)")
     named = cfg.get("device")
-    device = resolve_device(None if named in (None, "tpu") else named)
-    logger = set_logger(model_type, cfg.get("log_dir", "log"))
+    if named == "tpu":
+        named = None
+    # data parallel: join torchrun's process group (no-op for one process)
+    # over the backend of the device the run trains on
+    distributed.initialize_multihost(device=named)
+    mesh_shape = cfg.trainer.get("mesh_shape")
+    mesh = make_mesh_2d(*map(int, mesh_shape)) if mesh_shape else None
+    device = distributed.rank_device(named)
+    # rank 0 writes the log (the other ranks' values are the same)
+    logger = (set_logger(model_type, cfg.get("log_dir", "log"))
+              if distributed.rank() == 0 else DummyLogger())
+    if distributed.world_size() > 1:
+        logger.info(f"data parallel: process {distributed.rank()} of "
+                    f"{distributed.world_size()}, device {device}")
 
     windowed = model_type == "simple_lstm"
-    if windowed:
-        train_loader, val_loader, _, _ = make_windowed_loaders(cfg, logger)
-    else:
-        train_loader, val_loader, _, _ = make_streaming_loaders(cfg, logger,
-                                                                device)
+    # data parallel: rank 0 builds the corpus manifests, the others read
+    with distributed.rank_zero_first():
+        if windowed:
+            train_loader, val_loader, _, _ = make_windowed_loaders(cfg,
+                                                                   logger)
+        else:
+            train_loader, val_loader, _, _ = make_streaming_loaders(
+                cfg, logger, device)
     model_cfg = cfg.model.to_dict()
     model = build_model(
         model_type, model_cfg,
@@ -235,6 +280,7 @@ def main(argv=None):
         seed=cfg.get("seed", 0),
         val_check_interval=float(cfg.trainer.get("val_check_interval", 1.0)),
         device=device,
+        mesh=mesh,
     )
     result = trainer.fit(train_loader, val_loader,
                          max_epochs=cfg.trainer.max_epochs,

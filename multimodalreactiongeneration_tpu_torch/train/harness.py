@@ -69,8 +69,8 @@ JAX's step pins it. On the card its warmup runs the encoder stacks'
 training kernels (K3, K4) over the lead's audio, and lstm_with_sampling's
 runs its sampler's stacked kernels (K9) under gradient.
 
-``Trainer`` is the counterpart of the JAX package's fit loop on one
-device: per-epoch cosine LR, Lightning ``val_check_interval`` semantics
+``Trainer`` is the counterpart of the JAX package's fit loop: per-epoch
+cosine LR, Lightning ``val_check_interval`` semantics
 (a fraction of the train epoch, or every N steps when > 1) with
 early-stop patience counted in validation checks, V/T/G top-k
 checkpoints (T and G only with a generation eval) and ``last``, and the
@@ -80,8 +80,26 @@ and metrics stay on the device through the epoch and are read back once
 at its end. With ``scheduled_max_epochs`` it passes the scheduled-sampling
 step ``rate = epoch / scheduled_max_epochs`` and writes it into the check
 and epoch records, as the JAX loop does. Gradient accumulation is the
-optimizer's (``train/optim.py MultiSteps``). A device mesh and multi-host
-runs raise ``NotImplementedError`` (ROADMAP queue A, item 6).
+optimizer's (``train/optim.py MultiSteps``).
+
+Data parallel (JAX's 'data' mesh axis): in a ``torch.distributed``
+process group (``parallel/distributed.py``, one process per card under
+``torchrun``) the ``Trainer`` wraps the model with
+``DistributedDataParallel``, which broadcasts rank 0's parameters, and
+each rank trains on its rows of every global batch (``data/dataset.py
+HostRowShard``). Every train step runs its forward through that wrapper
+(``parallel/distributed.py run_forward``: the step functions' bodies,
+bf16 copies, remat and the scheduled-sampling rollout included), so its
+backward averages the gradients over the ranks. The loss is a full-tensor
+mean, and the ranks hold equal shards of one collated batch (the same
+rows and time length), so the average of their gradients is the global
+batch's: the mean of equal-sized means is the mean. Accumulation
+(``MultiSteps``) averages those averages, the same mean again. Dropout
+masks are drawn per rank's rows from the step's seed, so with dropout a
+rank's masks are not the single-process run's. Logged losses and metrics
+are reduced over the ranks; rank 0 alone writes ``metrics.jsonl`` and the
+checkpoints, and every rank waits for its last save before ``fit``
+returns.
 """
 
 from __future__ import annotations
@@ -110,6 +128,14 @@ from multimodalreactiongeneration_tpu_torch.models.simple_lstm import (
 )
 from multimodalreactiongeneration_tpu_torch.nn.basic import dropout_rng
 from multimodalreactiongeneration_tpu_torch.ops.masks import PADDING_VALUE
+from multimodalreactiongeneration_tpu_torch.parallel import distributed
+from multimodalreactiongeneration_tpu_torch.parallel.distributed import (
+    run_forward,
+)
+from multimodalreactiongeneration_tpu_torch.parallel.mesh import (
+    DataMesh,
+    make_mesh,
+)
 from multimodalreactiongeneration_tpu_torch.train import checkpoint as ckpt_lib
 from multimodalreactiongeneration_tpu_torch.train.losses import build_loss
 from multimodalreactiongeneration_tpu_torch.train.metrics import (
@@ -224,8 +250,10 @@ def streaming_step_fns(
                    generator: Optional[torch.Generator] = None):
         model.train()
         optimizer.zero_grad(set_to_none=True)
+        seed = _step_seed(generator)
         with bf16_sums_in_f32() if bf16 else contextlib.nullcontext():
-            y, t = forward(batch, _step_seed(generator), lowp=bf16)
+            y, t = run_forward(
+                model, lambda _, b: forward(b, seed, lowp=bf16), batch)
             scaler = delta_scaler(y.shape[-1], delta_order, dls, y.device)
             y, t = y * scaler, t * scaler
             loss = lossfun(y, t)
@@ -276,7 +304,7 @@ def scheduled_sampling_masked_step_fn(
         data = [b[0] for b in batch]
         target = data[-1]
         optimizer.zero_grad(set_to_none=True)
-        y = rollout(model, data, mask_steps.to(target.device))
+        y = run_forward(model, rollout, data, mask_steps.to(target.device))
         mask = (target != PADDING_VALUE).to(y.dtype)
         y, t = y * mask, target * mask
         scaler = delta_scaler(y.shape[-1], delta_order, dls, y.device)
@@ -341,7 +369,7 @@ def windowed_step_fns(
         optimizer.zero_grad(set_to_none=True)
         m = row_mask(target)
         with dropout_rng(_step_seed(generator)):
-            y = model(fbank, motion)
+            y = run_forward(model, lambda mod, a, b: mod(a, b), fbank, motion)
         loss, y = simple_lstm_loss(y, target, motion, model_cfg, metrics_cfg,
                                    row_mask=m)
         loss.backward()
@@ -393,6 +421,15 @@ def _pack(loss, slices) -> Tuple[torch.Tensor, List[str]]:
     return torch.stack(flat), names
 
 
+def _reduce_ranks(packed: torch.Tensor) -> torch.Tensor:
+    """Rows of ``_pack`` vectors over the process group: each step's loss
+    averaged over the ranks (the global batch's, from equal shards), the
+    slices' squared-error sums and counts summed."""
+    total = distributed.all_reduce_sum(packed)
+    return torch.cat([total[:, :1] / distributed.world_size(), total[:, 1:]],
+                     dim=1)
+
+
 def _unpack_rows(arr: np.ndarray, names: List[str], acc: MetricAccumulator):
     for row in arr:
         acc.update({n: (row[1 + 2 * i], row[2 + 2 * i])
@@ -408,7 +445,8 @@ class FitResult:
 
 
 class Trainer:
-    """``fit`` on one device with checkpoint and early-stop callbacks.
+    """``fit`` with checkpoint and early-stop callbacks, on one device or
+    data-parallel over a ``torch.distributed`` process group.
 
     ``train_step(batch, generator) -> (loss, per_slice)`` and
     ``eval_step(batch) -> (loss, per_slice)`` are ``streaming_step_fns``'
@@ -419,7 +457,21 @@ class Trainer:
     ``PRNGKey(seed)``): the steps draw their dropout seeds and
     scheduled-sampling masks from it. The model's parameters and the
     optimizer are updated in place. Batches are staged onto ``device``
-    (``cuda:0`` unless named)."""
+    (``cuda:0`` unless named).
+
+    Where a process group is initialized the model is wrapped for data
+    parallel (``parallel/distributed.py data_parallel``; the module
+    docstring): make the Trainer on every rank, after the step functions
+    and before the first step. ``mesh`` is accepted for parity with JAX's
+    ``Trainer``: a ``parallel/mesh.py DataMesh`` (``make_mesh()``, the
+    process group, by default), checked against the group and deciding
+    nothing; it has no 'model' axis (``make_mesh_2d`` refuses one above
+    1, ROADMAP queue A, item 10).
+
+    Each epoch's record holds the global batch's frames under data
+    parallel: ``train_frames`` is summed over the ranks, so
+    ``train_frames_per_s`` is the job's rate, not rank 0's (JAX's loop
+    counts a process's own rows)."""
 
     def __init__(
         self,
@@ -438,11 +490,17 @@ class Trainer:
         val_check_interval: float = 1.0,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the port trains on one device: a mesh and multi-host "
-                "training come with data-parallel training (ROADMAP queue "
-                "A, item 6)")
+        if mesh is None:
+            mesh = make_mesh()
+        if not isinstance(mesh, DataMesh):
+            raise TypeError(f"mesh: a parallel.mesh.DataMesh, got {mesh!r}")
+        if mesh.world_size != distributed.world_size():
+            raise ValueError(
+                f"a data axis of {mesh.world_size} in a process group of "
+                f"{distributed.world_size()}")
+        self.mesh = mesh
+        if torch.distributed.is_initialized():
+            distributed.data_parallel(model)
         self.model = model
         self.train_step = train_step
         self.eval_step = eval_step
@@ -457,18 +515,31 @@ class Trainer:
         self.generator: Optional[torch.Generator] = None
         self.val_check_interval = float(val_check_interval)
         self.device = resolve_device(device)
+        self.primary = ckpt_lib.is_primary()
         os.makedirs(log_dir, exist_ok=True)
         self._metrics_path = os.path.join(log_dir, "metrics.jsonl")
 
     def _stage(self, batch):
+        """Host or device batch -> ``device``, contiguous. Under a process
+        group the batch holds this rank's rows (``HostRowShard``). JAX's
+        ``_stage`` pads a process's rows to a multiple of the devices it
+        feeds, with the -100 sentinel; a process of the port feeds one
+        card, so every row count divides and none is padded (a global
+        batch is padded and split by ``parallel/mesh.py
+        pad_batch_to_devices`` and ``shard_batch``)."""
         def put(x):
-            return torch.as_tensor(x).to(self.device, non_blocking=True)
+            return torch.as_tensor(x).to(self.device,
+                                         non_blocking=True).contiguous()
 
         if _is_paired(batch):
             return [(put(x), n) for x, n in batch]
         return tuple(put(x) for x in batch)
 
     def _log(self, record: Dict[str, Any]) -> None:
+        # one writer: every rank holds the same reduced values, and
+        # concurrent appends would interleave
+        if not self.primary:
+            return
         with open(self._metrics_path, "a", encoding="utf-8") as f:
             f.write(json.dumps(record) + "\n")
 
@@ -494,7 +565,9 @@ class Trainer:
         else:
             val_every = None
         patience = patience_epochs / vci if vci <= 1.0 else patience_epochs
-        use_ckpt = self.callbacks.get("use_checkpoint", True) and self.ckpt_dir
+        # rank 0 owns the checkpoint files (its values are every rank's)
+        use_ckpt = (self.callbacks.get("use_checkpoint", True)
+                    and self.ckpt_dir and self.primary)
 
         result = FitResult(ckpt_dir=self.ckpt_dir)
         use_async = self.callbacks.get("async_checkpoint", False)
@@ -517,8 +590,9 @@ class Trainer:
             state["check_idx"] += 1
             # read first: it drains the queued train steps, so the timer
             # below charges only validation work to val_seconds
-            train_so_far = (float(torch.stack([p[0] for p in packed_train])
-                                  .mean()) if packed_train else float("nan"))
+            train_so_far = (float(_reduce_ranks(torch.stack(packed_train))
+                                  [:, 0].mean())
+                            if packed_train else float("nan"))
             t_val = time.time()
             val_metrics = MetricAccumulator("valid_")
             packed_val, names = [], []
@@ -527,14 +601,15 @@ class Trainer:
                 vec, names = _pack(loss, slices)
                 packed_val.append(vec)
             if packed_val:
-                arr = torch.stack(packed_val).cpu().numpy()
+                arr = _reduce_ranks(torch.stack(packed_val)).cpu().numpy()
                 val_loss = float(arr[:, 0].mean())
                 _unpack_rows(arr, names, val_metrics)
             else:
                 val_loss = float("nan")
             genrt_loss = None
             if self.generation_eval is not None:
-                genrt_loss = float(self.generation_eval(val_loader))
+                genrt_loss = float(distributed.all_reduce_mean(torch.tensor(
+                    self.generation_eval(val_loader), device=self.device)))
 
             snap = None
             if savers:
@@ -602,12 +677,14 @@ class Trainer:
                         break
             # the one readback of the epoch is its device sync
             if packed_train:
-                arr = torch.stack(packed_train).cpu().numpy()
+                arr = _reduce_ranks(torch.stack(packed_train)).cpu().numpy()
                 train_loss = float(arr[:, 0].mean())
                 _unpack_rows(arr, names, train_metrics)
             else:
                 train_loss = float("nan")
             train_seconds = time.time() - t0 - state["val_seconds"]
+            train_frames = int(distributed.all_reduce_sum(
+                torch.tensor(train_frames, device=self.device)))
             # epoch-end validation only when no interval check ran
             if last_check is None and not state["stop"]:
                 last_check = run_check(epoch, packed_train, rate)
@@ -646,4 +723,7 @@ class Trainer:
                             result.epochs_run - 1)
         for s in savers.values():
             s.wait()  # flush background saves before anyone reads ckpt_dir
+        # no collective follows the last eval step: hold every rank until
+        # rank 0's saves are on disk, so none reads ckpt_dir early
+        distributed.barrier()
         return result

@@ -167,15 +167,21 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_other_models_and_unported_options():
-    """An unknown model and a device mesh (ROADMAP queue A, item 6)
-    raise; scheduled sampling, dropout, accumulation and remat train
-    (tests/test_torch_port_train_options.py)."""
+    """An unknown model, a 'model' mesh axis (parameter sharding, ROADMAP
+    queue A, item 10) and a data axis wider than the process group raise;
+    scheduled sampling, dropout, accumulation and remat train
+    (tests/test_torch_port_train_options.py), and so does
+    ``trainer.mesh_shape: [N, 1]`` on N processes
+    (tests/test_torch_port_data_parallel.py)."""
     with pytest.raises(ValueError, match="gpt"):
         cli.main(["--config", "configs/lstmformer.yaml", "device=cpu",
                   "exp.use_model=gpt"])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         cli.main(["--config", "configs/lstmformer.yaml", "device=cpu",
                   "model.use_scheduled_sampling=true",
+                  "trainer.mesh_shape=[1, 2]"])
+    with pytest.raises(ValueError, match="torchrun"):
+        cli.main(["--config", "configs/lstmformer.yaml", "device=cpu",
                   "trainer.mesh_shape=[2, 1]"])
 
 

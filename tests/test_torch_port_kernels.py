@@ -571,7 +571,9 @@ def test_mixer_stack_bf16_kernels_match_plain_bf16(dev, b, t, h, layers):
     """K3/K4's bf16 mode (bf16 W_ih, W_hh and W_ff; the rest f32) vs the
     plain bf16 version: forward and all twelve gradients; dW_ih, dW_hh
     and dW_ff come back bf16, the rest f32; +1 / +1 bf16 launches and no
-    f32 ones; K1 (no gradient) has no bf16 mode yet and raises. The
+    f32 ones; K1's bf16 mode (no gradient) gives the training forward's
+    bits (the same schedule, without the residual stores), +1 bf16
+    inference launch. The
     short bounds hold to T16: past it an h or a block input on a bf16
     rounding boundary rounds the other way in one of them (the sums run
     in other orders) and moves the rows after it by ~1e-4 (6.5e-3 at
@@ -602,9 +604,13 @@ def test_mixer_stack_bf16_kernels_match_plain_bf16(dev, b, t, h, layers):
     _bf16_within((y, hn, cn), grads, (yr, hr, cr), want, short=t <= 16,
                  ys_f32=y32,
                  mode_steps=None if layers <= 3 and t <= 40 else 4)
-    with torch.no_grad(), pytest.raises(NotImplementedError,
-                                        match="Queue B item 1"):
-        K1.mixer_stack_recurrence(*args)
+    before = K1.bf16_launches
+    with torch.no_grad():
+        yi, (hi, ci) = K1.mixer_stack_recurrence(*args)
+    torch.cuda.synchronize()
+    assert K1.bf16_launches == before + 1
+    for got, want in ((yi, y), (hi, hn), (ci, cn)):
+        assert torch.equal(got, want.detach())
 
 
 @pytest.mark.parametrize("b,t,layers,chunk", [
@@ -633,6 +639,36 @@ def test_mixer_stack_bf16_chunks_bitwise_equal_layer_major(dev, b, t, layers,
         assert torch.equal(g, w), i
     for i in K1._WEIGHTS:
         assert got[i].dtype == torch.bfloat16, i
+
+
+@pytest.mark.parametrize("b,t,h,layers,chunk", [
+    (4, 16, 128, 2, 5), (17, 37, 256, 2, 8), (16, 262, 256, 5, None),
+    (16, 2096, 256, 5, None)])
+def test_mixer_stack_bf16_inference_matches_plain_bf16(dev, b, t, h, layers,
+                                                       chunk):
+    """K1's bf16 mode (``mixer_stack_forward`` on bf16 W_ih, W_hh, W_ff):
+    at any chunk the bits of chunk=T and of the training forward; within
+    the short bounds of the plain bf16 version to T16 and the full-length
+    ones past it (as K3's bf16 mode: a rounding flip moves the rows after
+    it, 4.6e-3 at B17 x T37 x L2) and, over its first 4 steps at depth,
+    within a quarter of the plain f32 version's distance; +1 bf16 launch
+    a call, none in f32."""
+    r = _rand(np.random.default_rng(7 * b + t + h + layers), dev)
+    args = _bf16_stack_args(r, b, t, h, layers)
+    before = K1.launches, K1.bf16_launches
+    got = K1.mixer_stack_forward(*args, chunk=chunk)
+    whole = K1.mixer_stack_forward(*args, chunk=t)
+    train = K1.mixer_stack_train_forward(*args)
+    torch.cuda.synchronize()
+    assert (K1.launches, K1.bf16_launches) == (before[0], before[1] + 2)
+    y, (hn, cn) = got
+    for g, w, tr in zip((y, hn, cn), (whole[0], *whole[1]), train[:3]):
+        assert torch.equal(g, w) and torch.equal(g, tr)
+    want = K1.mixer_stack_forward_reference(*args)
+    y32 = K1.mixer_stack_forward_reference(*[a.float() for a in args])[0]
+    _bf16_within((y, hn, cn), (), (want[0], *want[1]), (), short=t <= 16,
+                 ys_f32=y32,
+                 mode_steps=None if layers <= 3 and t <= 40 else 4)
 
 
 def test_lstm_chains_refuse_rows_they_do_not_take(dev):

@@ -227,5 +227,5 @@ def test_int8_engine_tracks_bf16(models):
 
 
 def test_mesh_is_refused(models):
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         ServingEngine(models[2], slots=2, mesh=object())

@@ -204,13 +204,19 @@ def test_generation_eval_matches_jax():
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """A mesh raises (ROADMAP queue A, item 6); scheduled sampling is
-    ported (tests/test_torch_port_train_options*.py)."""
+    """A 'model' mesh axis raises (parameter sharding, ROADMAP queue A,
+    item 10); the data axis of the process group is taken
+    (tests/test_torch_port_data_parallel.py), and so is scheduled
+    sampling (tests/test_torch_port_train_options*.py)."""
+    from multimodalreactiongeneration_tpu_torch.parallel import mesh
+
     pm = Metaformer(CFG, device="cpu")
     opt = optim.build_optimizer(pm.parameters(), OPTIM)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        harness.Trainer(pm, None, None, opt, OPTIM, mesh=object(),
-                        device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        harness.Trainer(pm, None, None, opt, OPTIM,
+                        mesh=mesh.make_mesh_2d(1, 2), device="cpu")
+    assert harness.Trainer(pm, None, None, opt, OPTIM, mesh=mesh.make_mesh(),
+                           device="cpu").mesh.shape == {"data": 1, "model": 1}
     trainer = harness.Trainer(pm, None, None, opt, OPTIM,
                               scheduled_max_epochs=3, device="cpu")
     assert trainer.scheduled_max_epochs == 3
