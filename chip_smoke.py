@@ -3742,7 +3742,8 @@ def bf16_attention_case(K5, r, rng, dev, lk):
     f32 kernels on the same values in turns; SDPA in bf16 with the
     boolean mask (forward, and its backward through autograd) as the
     yardstick; the bounds of the bf16 mode over the (query, key) pairs the
-    mask leaves (4 and 10 FLOPs per pair and head dim at 989 TFLOP/s)."""
+    mask leaves (4 and 10 FLOPs per pair and head dim at 989 TFLOP/s); the
+    backward's scratch (``bf16_backward_workspace_bytes``)."""
     import torch.nn.functional as F
 
     b, lq, e, heads = TRAIN_B, LEAD + TRAIN_FRAMES, 256, 4
@@ -3794,24 +3795,23 @@ def bf16_attention_case(K5, r, rng, dev, lk):
         lib_out, lib_leaves, split(g.to(bf)), retain_graph=True), 5)
     del lib_out, lib_leaves, allowed
     pairs = rect_pairs(q_pad, k_pad) * heads
-    ctx = K5.rect_attention_forward(*args)
-    fwd_bound = bound_bf16(4 * pairs * dh, nbytes(args, ctx))
-    bwd_bound = bound_bf16(10 * pairs * dh, nbytes(args, g, grads))
-    planes = 2 * K5.plane_bytes(heads, b, lq, lk) + 2 * K5.plane_bytes(
-        heads, b, lq, lk, bf16=True)
-    del ctx, grads
+    ctx, m, l = K5.rect_attention_forward(*args, residuals=True)
+    fwd_bound = bound_bf16(4 * pairs * dh, nbytes(args, ctx, m, l))
+    bwd_bound = bound_bf16(10 * pairs * dh, nbytes(args, m, l, g, grads))
+    scratch = K5.bf16_backward_workspace_bytes(heads, b, lq, lk, e)
+    del ctx, m, l, grads
     log("rect_attention_bf16", B=b, Lq=lq, Lk=lk, bf16=fmt(times["bf16"]),
         f32_kernel=fmt(times["f32"]), plain_fwd_ms=f"{plain_fwd_ms:.3f}",
         plain_bwd_ms=f"{plain_bwd_ms:.3f}",
         library_bf16_fwd_ms=f"{lib_fwd_ms:.3f}",
         library_bf16_bwd_ms=f"{lib_bwd_ms:.3f}",
         fwd_bound_ms=f"{fwd_bound[0]:.3f}", bwd_bound_ms=f"{bwd_bound[0]:.3f}",
-        bwd_scratch_bytes=planes)
+        bwd_scratch_bytes=scratch)
     return dict(B=b, Lq=lq, Lk=lk, **errs, **times["bf16"],
                 f32_kernel=times["f32"], plain_fwd_ms=plain_fwd_ms,
                 plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
                 library_bwd_ms=lib_bwd_ms, fwd_bound=fwd_bound,
-                bwd_bound=bwd_bound, bwd_scratch_bytes=planes)
+                bwd_bound=bwd_bound, bwd_scratch_bytes=scratch)
 
 
 def bf16_recurrence_phase(mods, dev, rng):

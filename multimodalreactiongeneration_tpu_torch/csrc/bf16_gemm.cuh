@@ -2,8 +2,7 @@
 // weight-gradient reductions over all B*T rows of the bf16 modes of K7
 // and K9, and K7's dx; the bf16 mode of the encoder stack's row products
 // (K3's input and Dense products, K4's dy, dx and weight gradients, over
-// a chunk's rows); and the batched per-head products of rect attention's
-// bf16 mode (K5, K6: attention_bf16.cu).
+// a chunk's rows).
 //
 // It replaces no TPU kernel of its own: it is part of the bf16 operand
 // mode of K7's backward (_bwd_kernel_layer in multimodalreactiongeneration
@@ -11,10 +10,10 @@
 // dW_hh = h_prev^T dgates with both operands cast to the weights' dtype
 // and preferred_element_type f32), of K9's (_bwd_kernel_fused and the
 // MRGEN_FUSED_DW=0 einsums in pallas_lstm_stacked.py), of K3's and K4's
-// (_fwd_kernel and _bwd_kernel in pallas_mixer_stack.py) and of K5's and
-// K6's (pallas_rect_attention.py). In that mode the 3xTF32 passes of
-// tc_gemm.cuh are not needed: the operands are rounded to bf16 (to
-// nearest, ties to even) as they are staged, so one mma.sync.m16n8k16
+// (_fwd_kernel and _bwd_kernel in pallas_mixer_stack.py). In that mode
+// the 3xTF32 passes of tc_gemm.cuh are not needed: the operands are
+// rounded to bf16 (to nearest, ties to even) as they are staged, so one
+// mma.sync.m16n8k16
 // (bf16 in, FP32 accumulate) a fragment computes JAX's product; the
 // reductions' split-K partials are summed in FP32 in split order and
 // rounded to bf16 once, where JAX casts its f32 sum to the weights' dtype
@@ -36,16 +35,11 @@
 // two 16-bit reads from a k-major tile and one 32-bit read from the
 // other. The row length of a k-major operand and the K of an m-/n-major
 // one are multiples of 4; FP32 sources are 16-byte aligned, bf16 ones
-// 8-byte (the callers check).
-//
-// Fragments of m16n8k16 (g = lane / 4, q = lane % 4), each register two
-// bf16, the lower k in the low half:
-//   A (16 x 16): a0 (g, 2q..), a1 (g+8, 2q..), a2 (g, 2q+8..), a3 (g+8, 2q+8..)
-//   B (16 x 8):  b0 (2q.., g), b1 (2q+8.., g)
-//   C (16 x 8):  c0 (g, 2q), c1 (g, 2q+1), c2 (g+8, 2q), c3 (g+8, 2q+1)
+// 8-byte (the callers check). The fragments are bf16_mma.cuh's.
 
 #pragma once
 
+#include "bf16_mma.cuh"
 #include "tc_gemm.cuh"
 
 namespace {
@@ -56,11 +50,6 @@ constexpr int BG_LDX = BG_BK + 8;  // m-/n-major tile: [64][BG_LDX]
 constexpr int BG_TILE = BG_BM * BG_LDX;  // bf16 of a stage (the larger)
 static_assert(BG_BM == BG_BN, "one tile shape for both operands");
 static_assert(BG_BK * BG_LDK <= BG_TILE, "a k-major tile fits a stage");
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // two bf16 as one fragment register, the lower k in the low half
 __device__ __forceinline__ uint32_t pack_bf16_raw(bf16 lo, bf16 hi) {
@@ -92,9 +81,9 @@ __device__ __forceinline__ void chunk_at(int tid, int j, int& k, int& x) {
   x = KMAJOR ? (c % 16) * 4 : c / 8;
 }
 
-// Where the rows of an operand (or of the result) lie. Row r of batch z
-// starts at P + b * zb + h * zh + map(r) * ld (b = z / heads, h = z %
-// heads; the identity map is RowMap{IDENTITY, 0, IDENTITY}). A row is a
+// Where the rows of an operand (or of the result) lie. Row r starts at P
+// + map(r) * ld (the identity map is RowMap{IDENTITY, 0, IDENTITY}). A
+// row is a
 // k of a k-major operand, an x (m or n) of an m-/n-major one, an m of
 // the result. With shift (k-major operands), row r reads plane row map(r)
 // - 1, and h0's row r / map.n where map(r) is step 0 of its (B, T)
@@ -104,13 +93,12 @@ constexpr int IDENTITY = 1 << 30;
 struct Rows {
   int ld;
   RowMap map;
-  long long zb, zh;
   bool shift;
   const float* h0;
 };
 
 __host__ __device__ inline Rows dense_rows(int ld) {
-  return Rows{ld, RowMap{IDENTITY, 0, IDENTITY}, 0, 0, false, nullptr};
+  return Rows{ld, RowMap{IDENTITY, 0, IDENTITY}, false, nullptr};
 }
 
 // The four chunks of a stage of operand P at (x from base, k from k0):
@@ -161,26 +149,16 @@ __device__ __forceinline__ uint32_t pair_at(const bf16* t, int k, int x) {
   return *reinterpret_cast<const uint32_t*>(t + x * BG_LDX + k);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // The products of one launch: C = alpha * sum over k of bf16(A(m, k))
 // bf16(B(k, n)), FP32 sums, (+ bias[n]) (+ D[m, n], dense (M, N)), in C's
-// type. blockIdx.z = batch * splits + split: the batch selects the rows'
-// offsets (Rows), the split the k range [split * k_per_split, ...) and
+// type. blockIdx.z = split: the k range [split * k_per_split, ...) and
 // C's offset split * c_split (the partials of a split-K reduction).
 struct BfGemm {
   Rows a, b, c;
   const float* bias;
   const float* D;
   float alpha;
-  int M, N, K, k_per_split, splits, heads;
+  int M, N, K, k_per_split, splits;
   long long c_split;
 };
 
@@ -198,13 +176,10 @@ __global__ void __launch_bounds__(BG_THREADS) bf16_gemm_kernel(
   const int g = lane / 4, q = lane % 4;
   const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
   const int m0 = blockIdx.y * BG_BM, n0 = blockIdx.x * BG_BN;
-  const int batch = blockIdx.z / p.splits, split = blockIdx.z % p.splits;
-  const int bb = batch / p.heads, bh = batch % p.heads;
+  const int split = blockIdx.z;
   const int k_begin = split * p.k_per_split;
   const int k_end = min(p.K, k_begin + p.k_per_split);
   const int nk = max(0, (k_end - k_begin + BG_BK - 1) / BG_BK);
-  A += bb * p.a.zb + bh * p.a.zh;
-  Bm += bb * p.b.zb + bh * p.b.zh;
 
   uint2 ra[4], rb[4];
   auto load = [&](int kt) {
@@ -259,7 +234,7 @@ __global__ void __launch_bounds__(BG_THREADS) bf16_gemm_kernel(
     __syncthreads();
   }
 
-  TC* out = C + bb * p.c.zb + bh * p.c.zh + split * p.c_split;
+  TC* out = C + split * p.c_split;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -304,9 +279,9 @@ inline bool stage_aligned(const bf16* p) {
 template <bool A_KMAJOR, bool B_KMAJOR, typename TA, typename TB,
           typename TC>
 int launch_bf16_gemm(const TA* A, const TB* Bm, TC* C, const BfGemm& p,
-                     int batches, cudaStream_t stream) {
+                     cudaStream_t stream) {
   const dim3 grid((p.N + BG_BN - 1) / BG_BN, (p.M + BG_BM - 1) / BG_BM,
-                  batches * p.splits);
+                  p.splits);
   bf16_gemm_kernel<A_KMAJOR, B_KMAJOR, TA, TB, TC>
       <<<grid, BG_THREADS, 0, stream>>>(A, Bm, C, p);
   return check_launch();
@@ -332,8 +307,8 @@ int reduce_partials_bf16(const TA* A, const Rows& ra, const float* Bm,
   rps = (rps + BG_BK - 1) / BG_BK * BG_BK;
   splits = (R + rps - 1) / rps;
   BfGemm p{ra, dense_rows(N), dense_rows(N), nullptr, nullptr, 1.f,
-           M, N, R, rps, splits, 1, (long long)mn};
-  if (launch_bf16_gemm<true, true>(A, Bm, part, p, 1, stream)) return -1;
+           M, N, R, rps, splits, (long long)mn};
+  if (launch_bf16_gemm<true, true>(A, Bm, part, p, stream)) return -1;
   return splits;
 }
 
@@ -523,8 +498,8 @@ int gemm_nt_bf16(const float* A, const bf16* W, bf16* C, int M, int N, int K,
   if (K % 4 || !stage_aligned(A) || !stage_aligned(W))
     return (int)cudaErrorInvalidValue;
   const BfGemm p{dense_rows(K), dense_rows(K), dense_rows(N), nullptr,
-                 nullptr, 1.f, M, N, K, K, 1, 1, 0};
-  return launch_bf16_gemm<false, false>(A, W, C, p, 1, stream);
+                 nullptr, 1.f, M, N, K, K, 1, 0};
+  return launch_bf16_gemm<false, false>(A, W, C, p, stream);
 }
 
 // C (M rows, N) = bf16(A (M, K)) @ op(W) (+ bias[N]) (+ D (M, N), dense),
@@ -537,11 +512,11 @@ int gemm_rows_bf16(const float* A, RowMap ma, const bf16* W,
                    int M, int N, int K, bool trans_w, cudaStream_t stream) {
   if (K % 4 || N % 4 || !stage_aligned(A) || !stage_aligned(W))
     return (int)cudaErrorInvalidValue;
-  const Rows ra{K, ma, 0, 0, false, nullptr}, rc{N, mo, 0, 0, false, nullptr};
+  const Rows ra{K, ma, false, nullptr}, rc{N, mo, false, nullptr};
   const BfGemm p{ra, dense_rows(trans_w ? K : N), rc, bias, D, 1.f,
-                 M, N, K, K, 1, 1, 0};
-  return trans_w ? launch_bf16_gemm<false, false>(A, W, C, p, 1, stream)
-                 : launch_bf16_gemm<false, true>(A, W, C, p, 1, stream);
+                 M, N, K, K, 1, 0};
+  return trans_w ? launch_bf16_gemm<false, false>(A, W, C, p, stream)
+                 : launch_bf16_gemm<false, true>(A, W, C, p, stream);
 }
 
 }  // namespace

@@ -79,11 +79,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "tf32x3.cuh"
+#include "rect_tiles.cuh"
 
 namespace {
-
-constexpr float NEG = -1e30f;   // the plain path's masked logit
 
 // forward: FQ_WARPS warps of 16 q rows, FK-key tiles, F_STAGES in flight
 // (measured against 8 warps of a 128-row tile and against 3 stages: both
@@ -99,60 +97,11 @@ constexpr int F_STAGES = 2;
 // registers a thread); chosen by a sweep (PERF.md)
 constexpr int BW = 4;
 constexpr int BK = 16 * BW;
+static_assert(BK == KEY_BLOCK && FK == KEY_BLOCK, "rect_tiles.cuh's blocks");
 constexpr int BQ = 16;
 constexpr int B_STAGES = 2;
 constexpr int B_THREADS = 32 * BW;
 constexpr int B_MIN_BLOCKS = 3;
-
-// keys visible to query row i: j*Lq < (i+1)*Lk, i.e. ceil((i+1)*Lk/Lq)
-__device__ __forceinline__ int visible(int i, int Lq, int Lk) {
-  long long v = ((long long)(i + 1) * Lk + Lq - 1) / Lq;
-  return v < Lk ? (int)v : Lk;
-}
-
-// the first key of a batch row that is not padding (Lk if none)
-__device__ int first_unpadded(const unsigned char* kp, int Lk, int* s_min) {
-  if (threadIdx.x == 0) *s_min = Lk;
-  __syncthreads();
-  for (int j = threadIdx.x; j < Lk; j += blockDim.x) {
-    if (!kp[j]) {
-      atomicMin(s_min, j);
-      break;
-    }
-  }
-  __syncthreads();
-  return *s_min;
-}
-
-// does q tile [i0, i0+rows) hold a row whose every key is masked?
-// (rows <= blockDim.x)
-__device__ bool tile_has_full_row(const unsigned char* qp, int i0, int rows,
-                                  int Lq, int Lk, int fu) {
-  bool full = false;
-  if (threadIdx.x < rows) {
-    int i = i0 + threadIdx.x;
-    full = i < Lq && qp[i] && fu >= visible(i, Lq, Lk);
-  }
-  return __syncthreads_or(full) != 0;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// 4 bytes global -> shared; zero where !ok (nothing is read)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
 
 // keys [j0, j0+FK) of one head's columns of k and v into a ring stage
 // (rows of DH+4 floats) by cp.async; rows past Lk are zeros
@@ -374,20 +323,6 @@ __global__ void rect_attn_bwd_dot(const float* __restrict__ o,
     acc += a.x * c.x + a.y * c.y + a.z * c.z + a.w * c.w;
   }
   D[((long long)b * H + h) * Lq + i] = acc;
-}
-
-// the first q row that sees a key of block jb: floor(jb*BK*Lq / Lk)
-__device__ __forceinline__ int first_row(int jb, int Lq, int Lk) {
-  return (int)((long long)jb * BK * Lq / Lk);
-}
-
-// dQ workspace rows of the key blocks before jb (a warp-wide sum: every
-// warp gets the same value)
-__device__ __forceinline__ int ws_rows_before(int jb, int Lq, int Lk) {
-  int s = 0;
-  for (int j = threadIdx.x & 31; j < jb; j += 32) s += Lq - first_row(j, Lq, Lk);
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
 }
 
 // Q and dO rows [i0, i0+BQ) of one head's columns (rows of DH+4 floats),
@@ -752,61 +687,6 @@ __global__ void __launch_bounds__(B_THREADS, B_MIN_BLOCKS)
   }
 }
 
-// dQ[b, i, h*DH + d] = scale * the sum of the key blocks' partials of row
-// i, in key-block order (no atomics: the bits do not change run to run)
-template <int DH>
-__global__ void rect_attn_bwd_dq_sum(const float* __restrict__ ws,
-                                     float* __restrict__ dq, int Lq, int Lk,
-                                     int H, int R, float scale) {
-  extern __shared__ int tab[];  // per key block: first row, workspace row
-  const int nkb = (Lk + BK - 1) / BK;
-  int* first = tab;
-  int* start = tab + nkb;
-  if (threadIdx.x < 32) {
-    int carry = 0;
-    for (int base = 0; base < nkb; base += 32) {
-      const int jb = base + threadIdx.x;
-      const int r = jb < nkb ? first_row(jb, Lq, Lk) : Lq;
-      int n = Lq - r, incl = n;
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, incl, o);
-        if ((int)threadIdx.x >= o) incl += y;
-      }
-      if (jb < nkb) {
-        first[jb] = r;
-        start[jb] = carry + incl - n;
-      }
-      carry += __shfl_sync(0xffffffffu, incl, 31);
-    }
-  }
-  __syncthreads();
-  constexpr int C4 = DH / 4;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= Lq * C4) return;
-  const int i = t / C4, d = (t % C4) * 4;
-  const float* wb = ws + ((size_t)b * H + h) * R * DH + d;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int jb = 0; jb < nkb && first[jb] <= i; ++jb) {
-    const float4 x = *reinterpret_cast<const float4*>(
-        wb + (size_t)(start[jb] + i - first[jb]) * DH);
-    acc.x += x.x;
-    acc.y += x.y;
-    acc.z += x.z;
-    acc.w += x.w;
-  }
-  *reinterpret_cast<float4*>(dq + ((size_t)b * Lq + i) * H * DH + h * DH +
-                             d) =
-      make_float4(acc.x * scale, acc.y * scale, acc.z * scale, acc.w * scale);
-}
-
-template <typename K>
-cudaError_t set_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
-
 template <int DH>
 int forward(const float* q, const float* k, const float* v,
             const unsigned char* qpad, const unsigned char* kpad, float* out,
@@ -819,14 +699,6 @@ int forward(const float* q, const float* k, const float* v,
   rect_attn_fwd<DH><<<grid, F_THREADS, smem, stream>>>(
       q, k, v, qpad, kpad, out, mrow, lrow, Lq, Lk, H, rsqrtf((float)DH));
   return (int)cudaGetLastError();
-}
-
-// dQ workspace rows of one (batch row, head): each key block's partials
-// for the q rows that see its keys
-long long ws_rows(int Lq, int Lk) {
-  long long n = 0;
-  for (long long jb = 0; jb * BK < Lk; ++jb) n += Lq - jb * BK * Lq / Lk;
-  return n;
 }
 
 template <int DH>
@@ -855,19 +727,7 @@ int backward(const float* q, const float* k, const float* v,
       scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  dim3 grid_s((Lq * (DH / 4) + 255) / 256, H, B);
-  rect_attn_bwd_dq_sum<DH><<<grid_s, 256, 2 * nkb * sizeof(int), stream>>>(
-      ws, dq, Lq, Lk, H, R, scale);
-  return (int)cudaGetLastError();
-}
-
-bool shape_ok(int B, int Lq, int Lk, int E, int H) {
-  if (!(B > 0 && Lq > 0 && Lk > 0 && H > 0 && E % H == 0 && B <= 65535 &&
-        H <= 65535))
-    return false;
-  // the backward's grid, its workspace rows and their 32-bit offsets
-  const long long nkb = (Lk + BK - 1) / BK;
-  return nkb * B * H < (1LL << 31) && nkb * Lq < (1LL << 31);
+  return (int)launch_dq_sum<DH>(ws, dq, B, Lq, Lk, H, R, scale, stream);
 }
 
 }  // namespace
@@ -882,7 +742,7 @@ int rect_attention_forward_f32(const float* q, const float* k, const float* v,
                                const unsigned char* kpad, float* out,
                                float* mrow, float* lrow, int B, int Lq, int Lk,
                                int E, int H, void* stream_ptr) {
-  if (!shape_ok(B, Lq, Lk, E, H)) return (int)cudaErrorInvalidValue;
+  if (!rect_shape_ok(B, Lq, Lk, E, H)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream_ptr;
   switch (E / H) {
     case 32:
@@ -897,7 +757,7 @@ int rect_attention_forward_f32(const float* q, const float* k, const float* v,
 // Floats of the backward's dQ workspace for these shapes.
 long long rect_attention_backward_workspace_floats(int B, int Lq, int Lk,
                                                    int E, int H) {
-  if (!shape_ok(B, Lq, Lk, E, H)) return -1;
+  if (!rect_shape_ok(B, Lq, Lk, E, H)) return -1;
   return (long long)B * E * ws_rows(Lq, Lk);
 }
 
@@ -911,7 +771,7 @@ int rect_attention_backward_f32(const float* q, const float* k,
                                 const float* lrow, float* dq, float* dk,
                                 float* dv, float* D, float* ws, int B, int Lq,
                                 int Lk, int E, int H, void* stream_ptr) {
-  if (!shape_ok(B, Lq, Lk, E, H)) return (int)cudaErrorInvalidValue;
+  if (!rect_shape_ok(B, Lq, Lk, E, H)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream_ptr;
   switch (E / H) {
     case 32:

@@ -65,7 +65,7 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
 }
 
 // 16 bytes global -> shared; zeros where !ok (nothing is read)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool ok) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),

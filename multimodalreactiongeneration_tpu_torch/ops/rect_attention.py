@@ -25,19 +25,21 @@ it out).
 versions (f32: autograd records through ``rect_attention_reference``;
 bf16: ``rect_attention_bf16_reference``). On CUDA tensors, where a
 gradient is needed, the autograd function runs the forward kernel with
-its softmax residuals and the backward kernels; otherwise the forward
-kernel alone, which writes no residuals. The f32 mode launches
-``csrc/rect_attention.cu`` (every product on the tensor cores in 3xTF32;
-the design is in its source note); its backward takes a dQ workspace
-(``backward_workspace_bytes``: each key block's partial dQ for the query
-rows that see its keys) from PyTorch's allocator on the caller's stream.
-The bf16 mode launches ``csrc/attention_bf16.cu`` (bf16 ``mma.sync``
-products over materialized per-head logits, ``plane_bytes`` a plane, two
-planes in the forward and four in the backward, from the allocator).
-Launch counters: ``fwd_launches`` (one per f32 forward call) and
-``bwd_launches`` (one per f32 backward call, which runs the source's
-three backward kernels in turn: D, the key-block pass, the dQ sum);
-``bf16_fwd_launches`` and ``bf16_bwd_launches``.
+its softmax residuals (each row's max and sum) and the backward kernels;
+otherwise the forward kernel alone, which writes no residuals. The f32
+mode launches ``csrc/rect_attention.cu`` (every product on the tensor
+cores in 3xTF32), the bf16 mode ``csrc/attention_bf16.cu`` (bf16
+``mma.sync`` products over streamed key tiles, JAX's normalized weights
+rounded); their designs are in their source notes. Each backward takes
+its scratch from PyTorch's allocator on the caller's stream: the f32
+mode's dQ workspace (``backward_workspace_bytes``: each key block's
+partial dQ for the query rows that see its keys), the bf16 mode's the
+same workspace beside the rows' D and bf16(g)
+(``bf16_backward_workspace_bytes``). Launch counters, one per call of a
+mode's forward or backward (each backward runs its source's three
+kernels in turn: D, the key-block pass, the dQ sum): ``fwd_launches``
+and ``bwd_launches`` (f32), ``bf16_fwd_launches`` and
+``bf16_bwd_launches``.
 """
 
 from __future__ import annotations
@@ -188,29 +190,16 @@ def _lib():
 def _lib_bf16():
     lib = _build.load("attention_bf16")
     if not getattr(lib, "_typed", False):
-        lib.rect_attention_bf16_plane_ld.argtypes = [_I]
-        lib.rect_attention_bf16_plane_ld.restype = _I
         lib.rect_attention_forward_bf16.argtypes = [_P] * 8 + [_I] * 5 + [_P]
         lib.rect_attention_backward_bf16.argtypes = (
-            [_P] * 13 + [_I] * 5 + [_P])
+            [_P] * 12 + [_I] * 5 + [_P])
+        lib.rect_attention_bf16_backward_workspace_bytes.argtypes = [_I] * 5
         lib.rect_attention_forward_bf16.restype = ctypes.c_int
         lib.rect_attention_backward_bf16.restype = ctypes.c_int
+        lib.rect_attention_bf16_backward_workspace_bytes.restype = (
+            ctypes.c_longlong)
         lib._typed = True
     return lib
-
-
-def plane_bytes(heads, b, lq, lk, bf16=False):
-    """Bytes of one (B, heads, Lq, Lk) plane of the bf16 mode's scratch
-    (rows padded to 8 keys), f32 or bf16 elements."""
-    ld = _lib_bf16().rect_attention_bf16_plane_ld(lk)
-    return (2 if bf16 else 4) * b * heads * lq * ld
-
-
-def _planes(q, heads, lk, *dtypes):
-    b, lq = q.shape[:2]
-    ld = _lib_bf16().rect_attention_bf16_plane_ld(lk)
-    return [torch.empty(b, heads, lq, ld, dtype=dt, device=q.device)
-            for dt in dtypes]
 
 
 def _check_args(name, heads, q, k, v, q_pad, k_pad):
@@ -253,27 +242,24 @@ def rect_attention_forward(heads, q, k, v, q_pad, k_pad, residuals=False):
     """The forward kernel (CUDA only) of the operands' mode. Returns the
     f32 context (B, Lq, E) and, with ``residuals``, also each row's
     softmax max and sum (B, H, Lq), which ``rect_attention_backward``
-    reads (None, None in the bf16 mode, whose backward recomputes the
-    softmax)."""
+    reads."""
     b, lq, lk, e, bf16 = _check_args("rect_attention_forward", heads, q, k,
                                      v, q_pad, k_pad)
-    if bf16:
-        out = torch.empty(b, lq, e, dtype=torch.float32, device=q.device)
-        s, w = _planes(q, heads, lk, torch.float32, torch.bfloat16)
-        _build.launch(_lib_bf16().rect_attention_forward_bf16, q, k, v,
-                      q_pad, k_pad, out, s, w, dims=(b, lq, lk, e, heads))
-        global bf16_fwd_launches
-        bf16_fwd_launches += 1
-        return (out, None, None) if residuals else out
-    out = torch.empty_like(q)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    out = torch.empty(b, lq, e, **f32)
     m = l = None
     if residuals:
-        m = q.new_empty(b, heads, lq)
-        l = q.new_empty(b, heads, lq)
-    _build.launch(_lib().rect_attention_forward_f32, q, k, v, q_pad, k_pad,
-                  out, m, l, dims=(b, lq, lk, e, heads))
-    global fwd_launches
-    fwd_launches += 1
+        m, l = torch.empty(b, heads, lq, **f32), torch.empty(b, heads, lq,
+                                                             **f32)
+    fn = (_lib_bf16().rect_attention_forward_bf16 if bf16
+          else _lib().rect_attention_forward_f32)
+    _build.launch(fn, q, k, v, q_pad, k_pad, out, m, l,
+                  dims=(b, lq, lk, e, heads))
+    global fwd_launches, bf16_fwd_launches
+    if bf16:
+        bf16_fwd_launches += 1
+    else:
+        fwd_launches += 1
     return (out, m, l) if residuals else out
 
 
@@ -288,12 +274,29 @@ def backward_workspace_bytes(heads, b, lq, lk, e):
     return 4 * n
 
 
+def bf16_backward_workspace_bytes(heads, b, lq, lk, e):
+    """Bytes of the scratch the bf16 backward takes at these shapes: the
+    rows' D, bf16(g) and the dQ workspace (each key block's partial dQ
+    for the query rows that see its keys)."""
+    n = _lib_bf16().rect_attention_bf16_backward_workspace_bytes(
+        b, lq, lk, e, heads)
+    if n < 0:
+        raise ValueError(
+            f"rect_attention_backward (bf16): no kernel for B={b}, Lq={lq}, "
+            f"Lk={lk}, E={e}, heads={heads}")
+    return n
+
+
 def rect_attention_backward(heads, q, k, v, q_pad, k_pad, out, m, l, g):
     """The backward kernels (CUDA only) of the operands' mode, from the
-    forward's context and residuals (the f32 mode's) and the context's
-    cotangent ``g``. Returns (dq, dk, dv) in the operands' dtype."""
+    forward's context and residuals and the context's cotangent ``g``.
+    Returns (dq, dk, dv) in the operands' dtype."""
     b, lq, lk, e, bf16 = _check_args("rect_attention_backward", heads, q, k,
                                      v, q_pad, k_pad)
+    if m is None or l is None:
+        raise ValueError("rect_attention_backward: needs the forward's row "
+                         "max and sum (rect_attention_forward(..., "
+                         "residuals=True))")
     g = g.float().contiguous()
     if g.shape != q.shape or g.device != q.device:
         raise ValueError(
@@ -303,10 +306,11 @@ def rect_attention_backward(heads, q, k, v, q_pad, k_pad, out, m, l, g):
         g = g.clone()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if bf16:
-        planes = _planes(q, heads, lk, torch.float32, torch.float32,
-                         torch.bfloat16, torch.bfloat16)
+        scratch = torch.empty(bf16_backward_workspace_bytes(heads, b, lq, lk,
+                                                            e),
+                              dtype=torch.uint8, device=q.device)
         _build.launch(_lib_bf16().rect_attention_backward_bf16, q, k, v,
-                      q_pad, k_pad, g, dq, dk, dv, *planes,
+                      q_pad, k_pad, g, m, l, dq, dk, dv, scratch,
                       dims=(b, lq, lk, e, heads))
         global bf16_bwd_launches
         bf16_bwd_launches += 1

@@ -768,7 +768,7 @@ def test_rect_attention_kernel_refuses_bf16_and_other_head_dims(dev):
 @pytest.mark.parametrize("b,lq,lk,e,heads", [
     (32, 252, 2016, 256, 4), (32, 252, 252, 256, 4), (2, 16, 128, 64, 2),
     (2, 128, 16, 64, 2), (3, 40, 40, 128, 2), (2, 10, 20, 64, 2),
-    (2, 12, 96, 64, 2),
+    (2, 12, 96, 64, 2), (3, 63, 129, 128, 4),
 ])
 def test_rect_attention_bf16_kernels_match_plain_bf16(dev, b, lq, lk, e,
                                                       heads):
@@ -778,8 +778,11 @@ def test_rect_attention_bf16_kernels_match_plain_bf16(dev, b, lq, lk, e,
     boundary may round the other way: 2^-8 of a weight up to 1 times a
     value up to ~5; 1.3e-3 at B32 x 252 x 252), dq, dk and dv bf16 within
     BF16_SHORT[2] of the largest; +2 / +1 bf16 launches and no f32 ones.
-    An f32 q with bf16 k and v runs the f32 mode on k and v converted,
-    and rounds dk and dv to bf16."""
+    Two calls of each kernel on the same inputs give the same bits, and
+    the backward allocates no more than its outputs and
+    ``bf16_backward_workspace_bytes`` (each allocation rounded to the
+    caching allocator's 512 bytes). An f32 q with bf16 k and v runs the
+    f32 mode on k and v converted, and rounds dk and dv to bf16."""
     from multimodalreactiongeneration_tpu_torch.ops import rect_attention as K5
 
     bf = torch.bfloat16
@@ -807,6 +810,22 @@ def test_rect_attention_bf16_kernels_match_plain_bf16(dev, b, lq, lk, e,
         assert gk.dtype == gw.dtype == bf, i
         assert float((gk.float() - gw.float()).abs().max()) <= (
             BF16_SHORT[2] * largest), i
+    # the same bits run to run; the backward's scratch
+    args = (heads, q, k, v, q_pad, k_pad)
+    first = K5.rect_attention_forward(*args, residuals=True)
+    again = K5.rect_attention_forward(*args, residuals=True)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    back = K5.rect_attention_backward(*args, *first, g)
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated(dev) - base - sum(
+        x.numel() * x.element_size() for x in back)
+    assert scratch <= K5.bf16_backward_workspace_bytes(
+        heads, b, lq, lk, e) + 4 * 512
+    again = K5.rect_attention_backward(*args, *first, g)
+    assert all(torch.equal(x, y) for x, y in zip(back, again))
     # the later blocks' mix: f32 q, bf16 k and v
     q32 = q.float().requires_grad_()
     kv = [x.clone().requires_grad_() for x in (k, v)]

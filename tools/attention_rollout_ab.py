@@ -4,7 +4,7 @@ in the current directory.
 
 Run from the root of a checkout of the PyTorch port, on one CUDA card:
 
-    python3 <this file> TAG [--stages]
+    python3 <this file> TAG [--stages] [--attention-only]
 
 It imports the port from the current directory, so one command can time
 two checkouts in turns (parent, change, change, parent: unpack the other
@@ -15,7 +15,10 @@ this file from there). Times are means by CUDA events after a warm-up:
     integrators' shapes, B32 x Lq 252 x Lk {2016, 252}, E 256, 4 heads,
     10% padded rows and keys (as ``chip_smoke.py`` phase 7), with the
     forward's max abs error against the plain version, each of K6's
-    launches' device time under torch.profiler by kernel name;
+    launches' device time under torch.profiler by kernel name; then the
+    same in the bf16 mode (bf16 q, k, v: ``csrc/attention_bf16.cu``, the
+    error against the plain bf16 version), beside SDPA in bf16 on the
+    same values and mask (forward, and its backward through autograd);
   * K2 in bf16 and f32 at B16 x 250 steps (one launch) and B64 x 250 (four
     launches) on the flagship Metaformer from seed 0, teacher-forced, with
     the max abs error against the f32 plain version at B16;
@@ -100,11 +103,64 @@ def make_batch(rng, batch):
             for s in shapes]
 
 
+def attention_times(K5, args, g, plain):
+    """K5 with and without residuals and K6 (CUDA-event means of 20), the
+    forward's error against ``plain``, and a function giving K6's kernels'
+    device ms by name (torch.profiler: called after every CUDA-event
+    timing, since a profiler session slows a process's later launches)."""
+    ctx, m, l = K5.rect_attention_forward(*args, residuals=True)
+    want = plain(*args)
+    rec = {
+        "fwd_ms": cuda_ms(
+            lambda: K5.rect_attention_forward(*args, residuals=True), 20),
+        "fwd_no_residual_ms": cuda_ms(
+            lambda: K5.rect_attention_forward(*args), 20),
+        "bwd_ms": cuda_ms(
+            lambda: K5.rect_attention_backward(*args, ctx, m, l, g), 20),
+        "fwd_max_abs_err": float((ctx - want).abs().max())}
+    del want
+
+    def kernels():
+        rec["fwd_kernel_ms"] = kernel_device_ms(
+            lambda: K5.rect_attention_forward(*args, residuals=True),
+            "rect_attn_fwd")
+        rec["bwd_kernels_ms"] = kernel_device_ms(
+            lambda: K5.rect_attention_backward(*args, ctx, m, l, g),
+            "rect_attn_bwd")
+    return rec, kernels
+
+
+def sdpa_times(K5, args, g):
+    """SDPA on the same values and mask (a yardstick the port never
+    calls): forward, and its backward through autograd (means of 20)."""
+    import torch.nn.functional as F
+
+    heads, q, k, v, q_pad, k_pad = args
+    b, dh = q.shape[0], q.shape[2] // heads
+    allowed = ~K5.rect_attention_mask(q_pad, k_pad)[:, None]
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def split(x):
+        return x.view(b, x.shape[1], heads, dh).transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(
+            *[split(x) for x in leaves], attn_mask=allowed)
+
+    out = fwd()
+    cot = split(g.to(q.dtype))
+    rec = {"fwd_ms": cuda_ms(fwd, 20), "bwd_ms": cuda_ms(
+        lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True), 20)}
+    del out
+    return rec
+
+
 def attention(dev, rng):
     from multimodalreactiongeneration_tpu_torch.ops import rect_attention as K5
 
     b, lq, e, heads = 32, LEAD + 240, 256, 4
-    out = {}
+    bf = torch.bfloat16
+    out, profiles = {}, []
     for lk in (lq * RATIO, lq):
         def r(*shape):
             return torch.from_numpy(
@@ -113,20 +169,17 @@ def attention(dev, rng):
         q_pad = torch.from_numpy(rng.random((b, lq)) < 0.1).to(dev)
         k_pad = torch.from_numpy(rng.random((b, lk)) < 0.1).to(dev)
         args = (heads, q, k, v, q_pad, k_pad)
-        ctx, m, l = K5.rect_attention_forward(*args, residuals=True)
-        want = K5.rect_attention_reference(*args)
-        out[f"lk{lk}"] = {
-            "fwd_ms": cuda_ms(
-                lambda: K5.rect_attention_forward(*args, residuals=True), 20),
-            "fwd_no_residual_ms": cuda_ms(
-                lambda: K5.rect_attention_forward(*args), 20),
-            "bwd_ms": cuda_ms(
-                lambda: K5.rect_attention_backward(*args, ctx, m, l, g), 20),
-            "bwd_kernels_ms": kernel_device_ms(
-                lambda: K5.rect_attention_backward(*args, ctx, m, l, g),
-                "rect_attn_bwd"),
-            "fwd_max_abs_err": float((ctx - want).abs().max())}
-        del ctx, m, l, want
+        rec, kernels = attention_times(K5, args, g,
+                                       K5.rect_attention_reference)
+        out[f"lk{lk}"] = rec
+        profiles.append(kernels)
+        args = (heads, q.to(bf), k.to(bf), v.to(bf), q_pad, k_pad)
+        rec["sdpa_bf16"] = sdpa_times(K5, args, g)
+        rec["bf16"], kernels = attention_times(
+            K5, args, g, K5.rect_attention_bf16_reference)
+        profiles.append(kernels)
+    for kernels in profiles:
+        kernels()
     return out
 
 
