@@ -155,7 +155,7 @@ Phases:
      finite, launches per generation (K10 forward +10, the hoisted
      encoders; nothing else: the fused rollout's gate needs an LSTM main
      modality, so the rollout runs step by step), time; one more
-     generation of the first 64 frames under ``torch.profiler`` (table in
+     generation of the first 16 frames under ``torch.profiler`` (table in
      ``_build/profile_gru_generation.txt``); then a teacher-forced f32
      generation at batch 2 vs CPU tensors: <= 1e-4;
  16. GRU training step, B32 x T240 (lead 12), f32, AdamW lr 1e-4, decay
@@ -353,7 +353,28 @@ Phases:
      ``parallel/multihost_dryrun.py``): a world-size-1 NCCL DDP step
      against the plain step within ``DP_ONE_TOL``; two gloo ranks on the
      one card, every step path and a one-epoch ``Trainer.fit`` against
-     one process within ``DP_LOSS_TOL`` / ``DP_PARAM_TOL``.
+     one process within ``DP_LOSS_TOL`` / ``DP_PARAM_TOL``;
+ 36. K9's layer route (``stacked_layers_phase``, own generator ``SEED +
+     36``: the stacks the wavefront cannot hold, a layer-lagged window
+     schedule of K8's chains with the input products and weight
+     gradients on the tensor-core GEMMs) at H256 x L2, B32 x T2016 and
+     T252 (forward with and without residuals, backward; ms by window
+     length; the chosen window against C = T in turns, the same bits)
+     and B16 x T2096 (forward without a gradient) vs plain within phase
+     10's bounds, cuDNN's 2-layer LSTM the yardstick, CTAs per cluster
+     printed; its bf16 mode at B32 x T2016 (``bf16_case``) beside the
+     f32 route in turns;
+ 37. the flagship under the mixer settings no shipped yaml uses
+     (``mixer_kinds_phase``, own generator ``SEED + 37``):
+     ``num_internal_layer`` 2 (K9's layer route +15 / +15 a step), GRU
+     mixers at 2 inner layers (K10 +30 / +30), ``emb_mixers`` [mlp, mlp,
+     lstm] (K7 +5 / +5, K2 +1 a generation) and [lstm, lstm, mlp] (K3 +2
+     / K4 +2, the rollout's module loop); K5 / K6 +10 a step per inner
+     layer (the integrators' MHA layers): five
+     timed steps, the eval step and the card against CPU tensors at B2 x
+     T48 as phase 8 (no profile), one generation each (B16 x 250, bf16
+     caches, counts from 0), and the 2-inner-layer model's bf16 step
+     (K9's bf16 mode +15 / +15) held to the CPU as phase 31.
 
 Every kernel's JSON record carries its bound: the larger of its
 operations (FP32 at 67 TFLOP/s; the 3xTF32 products of K5's forward,
@@ -591,6 +612,10 @@ COUNTERS = {  # kernel name -> (module key, counter attribute)
     "lstm_recurrence_bf16_fwd": ("K8", "bf16_fwd_launches"),
     "lstm_recurrence_bf16_bwd": ("K8", "bf16_bwd_launches"),
     "mixer_stack_bf16": ("K1", "bf16_launches"),
+    "lstm_stacked_layers_fwd": ("K9", "layers_fwd_launches"),
+    "lstm_stacked_layers_bwd": ("K9", "layers_bwd_launches"),
+    "lstm_stacked_layers_bf16_fwd": ("K9", "layers_bf16_fwd_launches"),
+    "lstm_stacked_layers_bf16_bwd": ("K9", "layers_bf16_bwd_launches"),
 }
 
 
@@ -1583,7 +1608,9 @@ def train_path_phase(mods, dev, rng, spec):
     log(spec["eval_tag"], loss=f"{float(eval_loss):.6f}",
         launches={k: v for k, v in got.items() if v})
 
-    busy, overlap = profile_step(train_step, batch, spec["profile"])
+    busy = overlap = None
+    if spec["profile"]:
+        busy, overlap = profile_step(train_step, batch, spec["profile"])
     ab = None
     if spec.get("stack_ab"):  # the chunk schedule vs chunk = T
         means, each, peak = schedule_ab(mods["K1"], lambda: train_step(batch),
@@ -2681,10 +2708,10 @@ def gru_generation_spec():
     )
 
     # its host-driven steps give the profiler ~10^5 events a frame: the
-    # profiled generation is the first 64 frames (250 took ~140 s, most
-    # of it the profiler's own processing)
+    # profiled generation is the first 16 frames (250 took ~140 s, most
+    # of it the profiler's own processing; 64 took ~28 s)
     return dict(
-        tag="gru", generate=generate_metaformer, profile_frames=64,
+        tag="gru", generate=generate_metaformer, profile_frames=16,
         per_generation=dict(gru_fwd=10), f32=dict(cache_dtype=torch.float32),
         model=lambda device: Metaformer(
             LSTMFORMER_GRU_MODEL_CFG,
@@ -4096,6 +4123,9 @@ BF16_SOURCES = {
     "gru_bf16": ("gru.cu", "pallas_gru.py:57", "pallas_gru.py:101"),
     "lstm_recurrence_bf16": ("lstm_recurrence.cu", "pallas_lstm.py:117",
                              "pallas_lstm.py:131"),
+    "lstm_stacked_layers_bf16": ("lstm_recurrence.cu",
+                                 "pallas_lstm_stacked.py:154",
+                                 "pallas_lstm_stacked.py:317"),
 }
 
 
@@ -4440,6 +4470,284 @@ def data_parallel_phase():
     return out
 
 
+def stacked_layers_phase(mods, dev, rng):
+    """36. K9's layer route (the stacks the wavefront's one cluster cannot
+    hold: ``lstm_stacked_recurrence`` at H256, a layer-lagged window
+    schedule of K8's chains, the input products and weight gradients on
+    the tensor-core GEMMs) vs plain at the Metaformer's shapes with 2
+    inner layers: B32 x T2016 (an audio-encoder block in training) and
+    B32 x T252 (the self-motion and partner blocks), forward without and
+    with residuals and backward, the forward's ms by window length and
+    the chosen window against C = T (the layers one after the other) in
+    turns, the same bits; B16 x T2096 (the decode hoist) forward without
+    a gradient; cuDNN's 2-layer ``nn.LSTM`` as the yardstick; then its bf16
+    mode at B32 x T2016 (``bf16_case``, the distance test over the first
+    ``BF16_RECURRENCE_MODE_STEPS`` steps) beside the f32 route in turns.
+    Returns (f32 cases, bf16 cases)."""
+    K8, K9 = mods["K8"], mods["K9"]
+    h, layers = 256, 2
+    r = seeded(rng, dev)
+    cases = []
+    for b, t, grad in ((TRAIN_B, (LEAD + TRAIN_FRAMES) * RATIO, True),
+                       (TRAIN_B, LEAD + TRAIN_FRAMES, True),
+                       (B, (LEAD + FRAMES) * RATIO, False)):
+        args = (r(b, t, 4 * h), r(layers - 1, h, 4 * h, s=0.06),
+                r(layers - 1, 4 * h, s=0.06), r(layers, h, 4 * h, s=0.06),
+                r(layers, b, h, s=0.3), r(layers, b, h, s=0.3))
+        cots = (r(b, t, h), r(layers, b, h), r(layers, b, h))
+        ys0, (hn0, cn0) = K9.lstm_stacked_recurrence(*args)
+        with torch.no_grad():
+            plain_fwd_ms, (ysr, (hr, cr)) = cuda_ms(
+                lambda: K9.lstm_stacked_reference(*args), 1)
+        fwd_err = max_err((ys0, hn0, cn0), (ysr, hr, cr))
+        fwd_ms, _ = cuda_ms(lambda: K9.lstm_stacked_forward(args, False), 5)
+        # h.W_hh of every layer and h.W_ih of layers 1..L-1, all in
+        # 3xTF32: 2 B T 4H H (2L - 1); the backward twice that
+        flops = 2 * b * t * 4 * h * h * (2 * layers - 1)
+        nores_bound = bound(0, nbytes(args, ys0, hn0, cn0),
+                            tf32x3_flops=flops)
+        case = dict(B=b, T=t, L=layers, H=h, route=K9.route(layers, h),
+                    cluster_ctas=K8.launch_ctas(dev, b, h),
+                    fwd_max_abs_err=fwd_err, fwd_ms=fwd_ms,
+                    plain_fwd_ms=plain_fwd_ms,
+                    fwd_no_residual_bound=nores_bound)
+        if not grad:  # the decode hoist: cuDNN's forward alone
+            lstm = torch.nn.LSTM(h, h, num_layers=layers,
+                                 batch_first=True).to(dev)
+            x = args[0][:, :, :h].contiguous()
+            with torch.no_grad():
+                case["library_fwd_ms"] = cuda_ms(lambda: lstm(x), 5)[0]
+            check_case("lstm_stacked_layers", fwd_err, 0.0, B=b, T=t,
+                       L=layers, fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
+                       library_fwd_ms=case["library_fwd_ms"],
+                       fwd_bound_ms=nores_bound[0])
+            cases.append(case)
+            del args, ys0, ysr, x, lstm
+            continue
+        leaves = [a.clone().requires_grad_() for a in args]
+        ys, (hn, cn) = K9.lstm_stacked_recurrence(*leaves)
+        grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
+        fwd_err = max(fwd_err, max_err((ys, hn, cn), (ysr, hr, cr)))
+        del ysr, hr, cr, leaves
+        plain_bwd_ms, want = cuda_ms(
+            K9.lstm_stacked_backward_reference(args, *cots, closure=True), 1)
+        grad_err, grad_rel = max_err(grads, want), rel_err(grads, want)
+        del want
+        out = K9.lstm_stacked_forward(args, True)
+        fwd_res_ms, _ = cuda_ms(lambda: K9.lstm_stacked_forward(args, True),
+                                5)
+        bwd_ms, _ = cuda_ms(lambda: K9.lstm_stacked_backward(
+            args[1:], out[0], *out[3:], *cots), 5)
+        fwd_bound = bound(0, nbytes(args, out), tf32x3_flops=flops)
+        bwd_bound = bound(0, nbytes(args[1:], out[0], *out[3:], cots, grads),
+                          tf32x3_flops=2 * flops)
+        del out
+        # the window schedule: ms by window length, then the chosen window
+        # against C = T (the layers one after the other) in turns, a
+        # training forward and backward each, and their bits
+        chosen = K9.layers_chunk(t)
+        sweep = chunk_sweep(
+            lambda c: K9.lstm_stacked_forward(args, False, chunk=c), t,
+            SWEEP_LONG if t > 1000 else SWEEP_SHORT)
+        log("lstm_stacked_layers_sweep", T=t,
+            fwd_ms={c: round(v, 3) for c, v in sweep.items()})
+
+        def train_pair(c):
+            o = K9.lstm_stacked_forward(args, True, chunk=c)
+            return [x for x in o if x is not None] + list(
+                K9.lstm_stacked_backward(args[1:], o[0], *o[3:], *cots,
+                                         chunk=c))
+
+        means, turns = in_turns(train_pair, chosen, t)
+        bitwise = same_bits(train_pair(chosen), train_pair(t))
+        if not bitwise:
+            raise AssertionError(f"lstm_stacked_layers T={t}: window "
+                                 f"{chosen} differs from C = T")
+        case.update(chunk=chosen, chunk_sweep_fwd_ms=sweep,
+                    train_pair_ms=means[chosen],
+                    whole_sequence_train_pair_ms=means[t],
+                    train_pair_turns=turns, bitwise_equal_to_whole=bitwise)
+        lib_fwd_ms, lib_bwd_ms = cudnn_stacked_ms(args, cots)
+        check_case("lstm_stacked_layers", fwd_err, grad_rel, B=b, T=t,
+                   L=layers, cluster_ctas=case["cluster_ctas"],
+                   chunk=chosen, bitwise_equal_to_whole=bitwise,
+                   train_pair_ms=means[chosen],
+                   whole_sequence_train_pair_ms=means[t],
+                   fwd_ms=fwd_ms, fwd_res_ms=fwd_res_ms, bwd_ms=bwd_ms,
+                   fwd_us_per_step=fwd_res_ms * 1e3 / t,
+                   plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
+                   library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms,
+                   fwd_bound_ms=fwd_bound[0], bwd_bound_ms=bwd_bound[0])
+        case.update(fwd_max_abs_err=fwd_err, grad_max_abs_err=grad_err,
+                    grad_max_rel_err=grad_rel, fwd_res_ms=fwd_res_ms,
+                    bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
+                    library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms,
+                    fwd_bound=fwd_bound, bwd_bound=bwd_bound)
+        cases.append(case)
+        del args, cots, grads, ys, ys0
+    bf = torch.bfloat16
+    b, t = TRAIN_B, (LEAD + TRAIN_FRAMES) * RATIO
+    args = (r(b, t, 4 * h), r(layers - 1, h, 4 * h, s=0.06).to(bf),
+            r(layers - 1, 4 * h, s=0.06), r(layers, h, 4 * h, s=0.06).to(bf),
+            r(layers, b, h, s=0.3), r(layers, b, h, s=0.3))
+    cots = (r(b, t, h), r(layers, b, h), r(layers, b, h))
+    flops = 2 * b * t * 4 * h * h * (2 * layers - 1)
+    bf16 = [bf16_case(
+        "lstm_stacked_layers_bf16", flat(K9.lstm_stacked_recurrence),
+        lambda a, res: K9.lstm_stacked_forward(a, res),
+        lambda a, out: K9.lstm_stacked_backward(a[1:], out[0], *out[3:],
+                                                *cots),
+        flat(K9.lstm_stacked_reference), K9.lstm_stacked_backward_reference,
+        args, cots, (flops, 2 * flops), cudnn_stacked_ms,
+        lambda a, out: (a[1:], out[0], *out[3:]),
+        ctas_layout(K8, dev, b, h),
+        mode_steps=BF16_RECURRENCE_MODE_STEPS, B=b, T=t, L=layers, H=h)]
+    return cases, bf16
+
+
+def stacked_layers_records(cases, bf16_cases, launches, bf16_launches,
+                           **more_launches):
+    """The JSON entries of K9's layer route, forward and backward (f32)
+    and its bf16 mode: the main case an audio-encoder block in training
+    (B32 x T2016 x H256 x L2); launches from the 2-inner-layer
+    Metaformer's training steps (f32 and bf16), those of its generation
+    and eval step beside them; cuDNN's 2-layer LSTM the yardstick."""
+    main = cases[0]
+    keys = ("lstm_stacked_layers_fwd", "lstm_stacked_layers_bwd")
+    extra = {f"launches_{k}": {n: v[n] for n in keys}
+             for k, v in more_launches.items()}
+    bwd = [c for c in cases if "bwd_ms" in c]
+    return [
+        kernel_record(
+            keys[0], "lstm_recurrence.cu", "pallas_lstm_stacked.py:154",
+            launches[keys[0]], max(c["fwd_max_abs_err"] for c in cases),
+            main["fwd_res_ms"], main["plain_fwd_ms"], main["fwd_bound"],
+            main["library_fwd_ms"], no_residual_ms=main["fwd_ms"],
+            no_residual_bound_ms=main["fwd_no_residual_bound"][0],
+            cluster_ctas=main["cluster_ctas"], cases=cases, **extra),
+        kernel_record(
+            keys[1], "lstm_recurrence.cu", "pallas_lstm_stacked.py:317",
+            launches[keys[1]], max(c["grad_max_abs_err"] for c in bwd),
+            main["bwd_ms"], main["plain_bwd_ms"], main["bwd_bound"],
+            main["library_bwd_ms"],
+            max_rel_err=max(c["grad_max_rel_err"] for c in bwd)),
+        *bf16_records({"lstm_stacked_layers_bf16": (bf16_cases,
+                                                    bf16_launches)}),
+    ]
+
+
+MIXER_KINDS = {  # the lstmformer.yaml mixer settings no shipped yaml uses
+    "inner2": dict(num_internal_layer=2),
+    "gru_inner2": dict(emb_mixers=["gru"] * 3, num_internal_layer=2),
+    "mlp_encoders": dict(emb_mixers=["mlp", "mlp", "lstm"]),
+    "mlp_main": dict(emb_mixers=["lstm", "lstm", "mlp"]),
+}
+
+
+def mixer_kind_spec(kind):
+    """The flagship's training spec with the ``MIXER_KINDS[kind]`` mixers
+    and the launches of its step, eval step and generation (5 blocks,
+    5-block encoders): 2-layer LSTM mixers take K9's layer route, one a
+    block (15 a step); 2-layer GRU mixers K10 per layer (30); MLP
+    encoders no kernel (the self-motion LSTMs K7, as the flagship's);
+    an MLP main mixer none (the encoders K3/K4, as the flagship's, the
+    rollout the module loop: the fused rollout needs an LSTM main
+    mixer)."""
+    from multimodalreactiongeneration_tpu_torch import configs
+
+    cfg = dict(configs.LSTMFORMER_MODEL_CFG, **MIXER_KINDS[kind])
+    # num_internal_layer also sets the integrators' MHA layers (2 x 5
+    # blocks x the inner layers), as in the JAX package
+    k5 = 10 * cfg["num_internal_layer"]
+    attn = dict(rect_attention_fwd=k5, rect_attention_bwd=k5)
+    runs = {
+        "inner2": (dict(lstm_stacked_layers_fwd=15,
+                        lstm_stacked_layers_bwd=15),
+                   dict(lstm_stacked_layers_fwd=15),
+                   dict(lstm_stacked_layers_fwd=10)),
+        "gru_inner2": (dict(gru_fwd=30, gru_bwd=30), dict(gru_fwd=30),
+                       dict(gru_fwd=20)),
+        "mlp_encoders": (dict(lstm_layer_fwd=5, lstm_layer_bwd=5),
+                         dict(lstm_layer_fwd=5), dict(decode_rollout=1)),
+        "mlp_main": (dict(mixer_stack_train_fwd=2, mixer_stack_bwd=2),
+                     dict(mixer_stack=2), dict(mixer_stack=2)),
+    }
+    step, ev, gen = runs[kind]
+    return dict(
+        metaformer_train_spec(), tag=f"{kind}_train_step",
+        eval_tag=f"{kind}_eval_step",
+        cfg=cfg, stack_ab=False, profile=None, per_step=dict(step, **attn),
+        per_eval=dict(ev, rect_attention_fwd=k5), per_generation=gen)
+
+
+def mixer_kind_bf16_spec():
+    """The 2-inner-layer Metaformer's bf16 step: K9's layer route in its
+    bf16 mode, +15 / +15; rect attention's bf16 mode for the first inner
+    MHA layer of block 0's two integrators (bf16 queries), K5 +2 / K6 +2,
+    its f32 mode for the other 18 (the second inner layer's query comes
+    out of the first's f32 context, as JAX promotes it); the eval step in
+    f32; the card against CPU tensors within the
+    flagship's bounds (``BF16_FLAGSHIP_CARD_CPU_TOL``,
+    ``BF16_STEP_MEAN_TOL``, the CPU's f32 step, the control, beyond it)."""
+    spec = mixer_kind_spec("inner2")
+    spec.update(
+        tag="inner2_bf16_train_step", eval_tag="inner2_bf16_eval_step",
+        compute_dtype=torch.bfloat16,
+        per_step=dict(lstm_stacked_layers_bf16_fwd=15,
+                      lstm_stacked_layers_bf16_bwd=15,
+                      rect_attention_bf16_fwd=2, rect_attention_bf16_bwd=2,
+                      rect_attention_fwd=18, rect_attention_bwd=18),
+        card_vs_cpu_tol=BF16_FLAGSHIP_CARD_CPU_TOL,
+        f32_twin=lambda: mixer_kind_spec("inner2"),
+        mean_tol=BF16_STEP_MEAN_TOL, grad_floor=1e-2)
+    return spec
+
+
+def mixer_kinds_phase(mods, dev, rng):
+    """37. The flagship under the mixer settings ``MIXER_KINDS``, each
+    driven as a user would (``mixer_kind_spec``): the training step
+    (``train_path_phase``: five timed f32 steps at B32 x T240 with exact
+    launches, the eval step, the card against CPU tensors at B2 x T48),
+    then one ``generate_metaformer`` at B16 x 250 (bf16 caches, full
+    mask, "auto" routes), its counts set to 0 before it: shape, finite,
+    exact launches, ms; and the 2-inner-layer model's bf16 step
+    (``mixer_kind_bf16_spec``). Returns the records and launches by
+    kind."""
+    from multimodalreactiongeneration_tpu_torch.infer.generate import (
+        generate_metaformer,
+        sampling_mask_for,
+    )
+
+    out = {}
+    full = sampling_mask_for(FRAMES, "full", device=dev)
+    for kind in MIXER_KINDS:
+        spec = mixer_kind_spec(kind)
+        step = train_path_phase(mods, dev, rng, spec)
+        model = spec_model(spec, dev)
+        batch = [x.to(dev) for x in make_batch(rng, B)]
+        zero_counts(mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = generate_metaformer(model, batch, full)
+        torch.cuda.synchronize()
+        gen_ms = (time.perf_counter() - t0) * 1000
+        if tuple(pred.shape) != (B, FRAMES, MOTION_DIM):
+            raise AssertionError(f"{kind} generation: {tuple(pred.shape)}")
+        if not bool(torch.isfinite(pred).all()):
+            raise AssertionError(f"{kind} generation: non-finite output")
+        gen_launches = counts(mods)
+        check_launches(f"{kind} generation", dict.fromkeys(COUNTERS, 0),
+                       gen_launches, **spec["per_generation"])
+        log(f"{kind}_generate", batch=B, frames=FRAMES, ms=f"{gen_ms:.3f}",
+            launches={k: v for k, v in gen_launches.items() if v})
+        out[kind] = dict(step, generation_launches=gen_launches,
+                         generation_ms=gen_ms)
+        del model, batch, pred
+    out["inner2_bf16"] = train_path_phase(mods, dev, rng,
+                                          mixer_kind_bf16_spec())
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; nothing was run")
@@ -4772,6 +5080,11 @@ def main():
     data_parallel = data_parallel_phase()
     k1_bf16 = bf16_inference["cases"][0]
 
+    # ---- 36.-37. K9's layer route, the other mixer kinds ---------------
+    layers_f32, layers_bf16 = stacked_layers_phase(
+        mods, dev, np.random.default_rng(SEED + 36))
+    kinds = mixer_kinds_phase(mods, dev, np.random.default_rng(SEED + 37))
+
     k1_main, k2_main = k1_cases[0], k2_cases[1]
     # no single PyTorch call computes the encoder stack or the rollout
     record = {"kernels": [
@@ -4823,6 +5136,10 @@ def main():
             k1_bf16["ms"], k1_bf16["plain_ms"], k1_bf16["bound"], None,
             f32_kernel_ms=k1_bf16["f32_kernel_ms"], dtype="bf16",
             cases=bf16_inference["cases"]),
+        *stacked_layers_records(
+            layers_f32, layers_bf16, kinds["inner2"]["launches"],
+            kinds["inner2_bf16"]["launches"],
+            generation=kinds["inner2"]["generation_launches"]),
     ], "generation": {"batch": B, "frames": FRAMES, "ms": gen_ms,
                       "frames_per_s": B * FRAMES / (gen_ms / 1000),
                       "stack_schedule_ab": {"ms": gen_ab,
@@ -4862,6 +5179,11 @@ def main():
            for k, v in bf16_off.items()},
         "bf16_inference": bf16_inference["record"],
         "rollout_route": route, "data_parallel": data_parallel,
+        "mixer_kinds": {k: dict(v["record"], launches=v["launches"],
+                                **{n: v[n] for n in ("generation_ms",
+                                                     "generation_launches")
+                                   if n in v})
+                        for k, v in kinds.items()},
         "seconds": time.perf_counter() - t_start}
     options = dict(options, dropout_cli=dropout_cli, lws_ss_cli=lws_ss_cli)
     for entry in record["kernels"]:  # the training options' launches

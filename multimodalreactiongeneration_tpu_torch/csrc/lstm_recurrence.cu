@@ -118,6 +118,45 @@
 // outside its kernel and the port inside its own reduction. The cluster
 // size comes from the bf16 instantiation's own occupancy
 // (lstm_recurrence_resident_clusters_bf16).
+//
+// K9's layer route (lstm_stacked_layers_forward_* / _backward_*): the
+// stacks that lstm_stacked.cu's one-cluster wavefront cannot hold (its
+// recurrent weights take (2L - 1) x 4 H^2 floats in one 8-CTA cluster's
+// shared memory: H 256 at any L >= 2 is 3 MB at L 2, and H 128 past L 3)
+// run here as a layer-lagged window schedule of this file's chains.
+// Replaces, in multimodalreactiongeneration_tpu/ops/pallas_lstm_stacked.py
+// (lstm_stacked_recurrence) at those shapes:
+//   lstm_stacked_layers_forward_*, hs/acts/cs given  _fwd_kernel_acts
+//   lstm_stacked_layers_forward_*, hs/acts/cs null   _fwd_kernel
+//   lstm_stacked_layers_backward_*                   _bwd_kernel_fused
+//                                                    (and _bwd_kernel)
+// The sequence is cut into windows of C steps (ops/lstm_stacked.py
+// layers_chunk). Each layer has a stream of its own, and layer l runs
+// window c after layer l - 1 has finished it (an event), so while layer
+// l runs window c, layer l - 1 runs window c + 1: the chain is T + (L-1)
+// C dependent steps, not L T. A window of layer l is its input product
+// xw_l = h_{l-1} W_ih_l + b_l over the window's rows (l >= 1; the
+// hand-written tensor-core GEMMs: tc_gemm.cuh gemm_tc_rows in 3xTF32, so
+// f32 stays FP32-exact; in the bf16 mode bf16_gemm.cuh gemm_rows_bf16, h
+// rounded to bf16 as it is staged, FP32 sums), then the chain over the
+// window's steps (the kernels above over [t0, t0 + n) of the (B, T, *)
+// arrays), carrying h and c from the window before through two slots a
+// layer. Under grad the forward keeps the wavefront's residual layout
+// (hs (L-1, B, T, H), acts (L, B, T, 4H), cs (L, B, T, H)). The backward
+// is the reverse schedule (mixer_stack.cu's for K4): the last window
+// first, layer l's window c after layer l + 1's; per window the reverse
+// chain from the layer's dy (dys at the top), giving its dgates and the
+// carries into the window before, then the next layer's dy = dgates_l
+// W_ih_l^T over the window's rows (gemm_tc_rows, gemm_rows_bf16); after
+// a layer's first window its dW_hh (the reduction above), dW_ih_l =
+// h_{l-1}^T dgates_l (3xTF32, or bf16 operands with FP32 sums rounded
+// once) and db_l = colsum(dgates_l) over all its rows on its stream,
+// while the layers below run on. Each window's steps are the whole
+// sequence's steps and every sum runs in a fixed order, so every C gives
+// the bits of C = T (the layers one after the other), run to run.
+
+#include <mutex>
+#include <vector>
 
 #include "bf16_gemm.cuh"
 #include "cluster_exchange.cuh"
@@ -214,7 +253,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_fwd_kernel(
     float* __restrict__ cn,            // (B, H)
     float* __restrict__ acts,          // (B, T, 4H) with RES
     float* __restrict__ cs,            // (B, T, H) with RES
-    int B, int T) {
+    int B, int T, int t0, int n) {
   constexpr bool BF = std::is_same_v<TW, bf16>;
   using C = Lstm<H, CLN, BF>;
   constexpr int U = C::U, UG = C::UG, KS = C::KS, EPW = C::EPW;
@@ -286,7 +325,8 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_fwd_kernel(
     c[i] = ok[i] ? c0[(size_t)(b0 + row[i]) * H + col[i]] : 0.f;
 #pragma unroll
     for (int gt = 0; gt < 4; ++gt)
-      x[i][gt] = ok[i] ? xw[(size_t)(b0 + row[i]) * T * G + gt * H + col[i]]
+      x[i][gt] = ok[i] ? xw[((size_t)(b0 + row[i]) * T + t0) * G + gt * H +
+                            col[i]]
                        : 0.f;
   }
   constexpr uint32_t BYTES = BT * H * sizeof(float);  // a step's state
@@ -300,7 +340,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_fwd_kernel(
   }
   cluster.sync();  // every CTA runs, its barriers armed, before any st.async
 
-  for (int t = 0; t < T; ++t) {
+  for (int t = 0; t < n; ++t) {  // step t0 + t of the sequence
     stamp(0, t, 0);
     const float* hc = hbuf + (t & 1) * BT * HS;
     float acc[2][4][4];
@@ -394,7 +434,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_fwd_kernel(
     for (int ch = tid; ch < CH; ch += NT) {
       const int r = ch / (U / 4), u = 4 * (ch % (U / 4));
       if (b0 + r < B)
-        *reinterpret_cast<float4*>(ys + ((size_t)(b0 + r) * T + t) * H +
+        *reinterpret_cast<float4*>(ys + ((size_t)(b0 + r) * T + t0 + t) * H +
                                    rank * U + u) =
             *reinterpret_cast<const float4*>(hs + r * U + u);
     }
@@ -403,17 +443,18 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_fwd_kernel(
     for (int ch = tid; RES && ch < BT * 5 * U / 4; ch += NT) {
       const int r = ch / (5 * U / 4), k = 4 * (ch % (5 * U / 4));
       if (b0 + r >= B) continue;
-      const size_t rt = (size_t)(b0 + r) * T + t;
+      const size_t rt = (size_t)(b0 + r) * T + t0 + t;
       const float4 v = *reinterpret_cast<const float4*>(rs + r * RS + k);
       float* dst = k < 4 * U ? acts + rt * G + (k / U) * H + rank * U + k % U
                              : cs + rt * H + rank * U + k - 4 * U;
       *reinterpret_cast<float4*>(dst) = v;
     }
-    if (t + 1 < T) {
+    if (t + 1 < n) {
 #pragma unroll
       for (int i = 0; i < EPW; ++i) {
         if (!ok[i]) continue;
-        const size_t at = ((size_t)(b0 + row[i]) * T + t + 1) * G + col[i];
+        const size_t at =
+            ((size_t)(b0 + row[i]) * T + t0 + t + 1) * G + col[i];
 #pragma unroll
         for (int gt = 0; gt < 4; ++gt) x[i][gt] = xw[at + gt * H];
       }
@@ -422,12 +463,12 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_fwd_kernel(
       const int b = (t + 1) & 1;
       mbar_wait(&full[b], (ph >> b) & 1);
       ph ^= 1u << b;
-      if (tid == 0 && t + 2 < T) mbar_expect(&full[b], BYTES);
+      if (tid == 0 && t + 2 < n) mbar_expect(&full[b], BYTES);
     }
     stamp(0, t, 4);
   }
 
-  const float* hlast = hbuf + (T & 1) * BT * HS;
+  const float* hlast = hbuf + (n & 1) * BT * HS;
 #pragma unroll
   for (int i = 0; i < EPW; ++i) {
     if (!ok[i]) continue;
@@ -450,7 +491,9 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_bwd_kernel(
     float* __restrict__ dxw,           // (B, T, 4H)
     float* __restrict__ dh0,           // (B, H)
     float* __restrict__ dc0,           // (B, H)
-    int B, int T) {
+    int B, int T, int t0, int n,
+    const float* __restrict__ dhn_parts,  // (CLN, B, H) or null
+    float* __restrict__ dh0_parts) {      // (CLN, B, H) or null
   constexpr bool BF = std::is_same_v<TW, bf16>;
   using C = Lstm<H, CLN, BF>;
   constexpr int U = C::U, RPT = C::RPT, NPW = C::NPW, KSB = C::KSB;
@@ -503,7 +546,9 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_bwd_kernel(
       }
     }
   // per owned (row, unit): the cell-state carry dc and the step's inputs
-  // (dy, the activations, c_t, c_{t-1}), loaded a step ahead
+  // (dy, the activations, c_t, c_{t-1}), loaded a step ahead; the steps
+  // run from tl, the window's last, down to t0
+  const int tl = t0 + n - 1;
   float dcreg[RPT];
   StepIn in[RPT];
   bool ok[RPT];
@@ -512,7 +557,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_bwd_kernel(
     const int b = b0 + r0 + i;
     ok[i] = b < B;
     dcreg[i] = ok[i] ? dcn[(size_t)b * H + col] : 0.f;
-    load_step_in(in[i], ok[i], dys, acts, cs, c0, b, T - 1, T, 0, T, H, col);
+    load_step_in(in[i], ok[i], dys, acts, cs, c0, b, tl, T, 0, T, H, col);
   }
   constexpr uint32_t BYTES = BT * H * sizeof(float);  // a step's slots
   uint32_t ph = 0;  // bit b: the parity of slot set b's next phase
@@ -525,8 +570,8 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_bwd_kernel(
   }
   cluster.sync();  // every CTA runs, its barriers armed, before any st.async
 
-  for (int t = T - 1; t >= 0; --t) {
-    stamp(1, T - 1 - t, 0);
+  for (int t = tl; t >= t0; --t) {
+    stamp(1, tl - t, 0);
     const float* rd = red + ((t + 1) & 1) * CLN * SLOT;
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
@@ -535,7 +580,11 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_bwd_kernel(
       if (ok[i]) {
         const size_t b = b0 + r;
         float dh = in[i].dy;
-        if (t == T - 1) {
+        if (t == tl && dhn_parts) {  // a later window's partial carries
+#pragma unroll
+          for (int s = 0; s < CLN; ++s)
+            dh += dhn_parts[(size_t)s * B * H + b * H + col];
+        } else if (t == tl) {
           dh += dhn[b * H + col];
         } else {
 #pragma unroll
@@ -552,7 +601,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_bwd_kernel(
       for (int gt = 0; gt < 4; ++gt) dg[r * DS + gt * U + u] = d[gt];
     }
     __syncthreads();
-    stamp(1, T - 1 - t, 1);
+    stamp(1, tl - t, 1);
 
     float acc[2][NPW][4];
 #pragma unroll
@@ -596,7 +645,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_bwd_kernel(
         }
       }
     }
-    stamp(1, T - 1 - t, 2);
+    stamp(1, tl - t, 2);
 
     // lane pairs (q even, q + 1): the even lane sends row g, units 2q ..
     // 2q + 3 of the n-tile, the odd one row g + 8, units 2q - 2 .. 2q + 1
@@ -615,8 +664,8 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_bwd_kernel(
       st_async16(red + ((t & 1) * CLN + rank) * SLOT + r * U + un,
                  &full[t & 1], n / U, v);
     }
-    stamp(1, T - 1 - t, 3);
-    if (t > 0) {
+    stamp(1, tl - t, 3);
+    if (t > t0) {
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
         load_step_in(in[i], ok[i], dys, acts, cs, c0, b0 + r0 + i, t - 1, T,
@@ -626,10 +675,10 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_bwd_kernel(
       const int b = t & 1;
       mbar_wait(&full[b], (ph >> b) & 1);
       ph ^= 1u << b;
-      if (tid == 0 && t >= 2) mbar_expect(&full[b], BYTES);
+      if (tid == 0 && t >= t0 + 2) mbar_expect(&full[b], BYTES);
       __syncthreads();  // every warp is done with dg (it may send no slot here)
     }
-    stamp(1, T - 1 - t, 4);
+    stamp(1, tl - t, 4);
   }
 
 #pragma unroll
@@ -637,37 +686,54 @@ __global__ void __launch_bounds__(NT, 1) lstm_tc_bwd_kernel(
     if (!ok[i]) continue;
     const int r = r0 + i;
     const size_t o = (size_t)(b0 + r) * H + col;
-    float dh = 0.f;
+    float dh = 0.f;  // step t0's partial carries, in its slot set
 #pragma unroll
-    for (int s = 0; s < CLN; ++s) dh += red[s * SLOT + r * U + u];
-    dh0[o] = dh;
+    for (int s = 0; s < CLN; ++s) {
+      const float v = red[((t0 & 1) * CLN + s) * SLOT + r * U + u];
+      if (dh0_parts) dh0_parts[(size_t)s * B * H + o] = v;
+      dh += v;
+    }
+    if (dh0) dh0[o] = dh;
     dc0[o] = dcreg[i];
   }
 }
 
+// The chain over steps [t0, t0 + n) of (B, T, *) arrays: from the state
+// h0, c0 before step t0 to hn, cn after its last (K9's layer route runs
+// a sequence window by window; a whole sequence is t0 0, n T).
 template <int H, int CLN, typename TW>
 int lstm_forward(const float* xw, const TW* w_hh_t, const float* h0,
                  const float* c0, float* ys, float* hn, float* cn,
-                 float* acts, float* cs, int B, int T, cudaStream_t stream) {
+                 float* acts, float* cs, int B, int T, int t0, int n,
+                 cudaStream_t stream) {
   using C = Lstm<H, CLN, std::is_same_v<TW, bf16>>;
   if (acts)
     return launch_cluster_n<CLN>(lstm_tc_fwd_kernel<H, CLN, true, TW>,
                                  C::fwd_smem(true), B, stream, xw, w_hh_t, h0,
-                                 c0, ys, hn, cn, acts, cs, B, T);
+                                 c0, ys, hn, cn, acts, cs, B, T, t0, n);
   return launch_cluster_n<CLN>(lstm_tc_fwd_kernel<H, CLN, false, TW>,
                                C::fwd_smem(false), B, stream, xw, w_hh_t, h0,
-                               c0, ys, hn, cn, acts, cs, B, T);
+                               c0, ys, hn, cn, acts, cs, B, T, t0, n);
 }
 
+// The reverse chain over steps [t0, t0 + n): dhn, dcn the carries into
+// its last step, dh0, dc0 those out of its first. A window of a longer
+// sequence hands dh on as the CLN CTAs' partial carries (dh0_parts to the
+// window before, dhn_parts from the window after, each (CLN, B, H), null
+// at the sequence's ends): the window before adds them in CTA order to
+// its last step's dy, as one chain adds them from its slots, so any
+// window gives the whole chain's bits.
 template <int H, int CLN, typename TW>
 int lstm_backward(const float* acts, const float* cs, const float* c0,
                   const float* dys, const TW* w_hh_t, const float* dhn,
                   const float* dcn, float* dxw, float* dh0, float* dc0,
-                  int B, int T, cudaStream_t stream) {
+                  int B, int T, int t0, int n, const float* dhn_parts,
+                  float* dh0_parts, cudaStream_t stream) {
   return launch_cluster_n<CLN>(
       lstm_tc_bwd_kernel<H, CLN, TW>,
       Lstm<H, CLN, std::is_same_v<TW, bf16>>::bwd_smem(), B, stream, acts,
-      cs, c0, dys, w_hh_t, dhn, dcn, dxw, dh0, dc0, B, T);
+      cs, c0, dys, w_hh_t, dhn, dcn, dxw, dh0, dc0, B, T, t0, n, dhn_parts,
+      dh0_parts);
 }
 
 // the smaller of the training forward's and the backward's resident
@@ -682,6 +748,49 @@ int lstm_resident() {
   return f < b ? f : b;
 }
 
+// the forward chain of a window at the hidden size and cluster size
+// given (the shape checked by the caller)
+template <typename TW>
+int chain_forward(const float* xw, const TW* w_hh_t, const float* h0,
+                  const float* c0, float* ys, float* hn, float* cn,
+                  float* acts, float* cs, int B, int T, int t0, int n, int H,
+                  int ctas, cudaStream_t s) {
+  if (H == 128)
+    return ctas == 8 ? lstm_forward<128, 8>(xw, w_hh_t, h0, c0, ys, hn, cn,
+                                            acts, cs, B, T, t0, n, s)
+                     : lstm_forward<128, 4>(xw, w_hh_t, h0, c0, ys, hn, cn,
+                                            acts, cs, B, T, t0, n, s);
+  return ctas == 16 ? lstm_forward<256, 16>(xw, w_hh_t, h0, c0, ys, hn, cn,
+                                            acts, cs, B, T, t0, n, s)
+                    : lstm_forward<256, 8>(xw, w_hh_t, h0, c0, ys, hn, cn,
+                                           acts, cs, B, T, t0, n, s);
+}
+
+// the reverse chain of a window, as chain_forward (the partial carries
+// as lstm_backward's)
+template <typename TW>
+int chain_backward(const float* acts, const float* cs, const float* c0,
+                   const float* dys, const TW* w_hh_t, const float* dhn,
+                   const float* dcn, float* dxw, float* dh0, float* dc0,
+                   int B, int T, int t0, int n, const float* dhn_parts,
+                   float* dh0_parts, int H, int ctas, cudaStream_t s) {
+  if (H == 128)
+    return ctas == 8
+               ? lstm_backward<128, 8>(acts, cs, c0, dys, w_hh_t, dhn, dcn,
+                                       dxw, dh0, dc0, B, T, t0, n, dhn_parts,
+                                       dh0_parts, s)
+               : lstm_backward<128, 4>(acts, cs, c0, dys, w_hh_t, dhn, dcn,
+                                       dxw, dh0, dc0, B, T, t0, n, dhn_parts,
+                                       dh0_parts, s);
+  return ctas == 16
+             ? lstm_backward<256, 16>(acts, cs, c0, dys, w_hh_t, dhn, dcn,
+                                      dxw, dh0, dc0, B, T, t0, n, dhn_parts,
+                                      dh0_parts, s)
+             : lstm_backward<256, 8>(acts, cs, c0, dys, w_hh_t, dhn, dcn,
+                                     dxw, dh0, dc0, B, T, t0, n, dhn_parts,
+                                     dh0_parts, s);
+}
+
 template <typename TW>
 int forward_any(const float* xw, const TW* w_hh_t, const float* h0,
                 const float* c0, float* ys, float* hn, float* cn, float* acts,
@@ -689,16 +798,8 @@ int forward_any(const float* xw, const TW* w_hh_t, const float* h0,
   if (!lstm_shape_ok(H, ctas) || B <= 0 || T <= 0 ||
       !aligned16(ys, acts, cs))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream_ptr;
-  if (H == 128)
-    return ctas == 8 ? lstm_forward<128, 8>(xw, w_hh_t, h0, c0, ys, hn, cn,
-                                            acts, cs, B, T, s)
-                     : lstm_forward<128, 4>(xw, w_hh_t, h0, c0, ys, hn, cn,
-                                            acts, cs, B, T, s);
-  return ctas == 16 ? lstm_forward<256, 16>(xw, w_hh_t, h0, c0, ys, hn, cn,
-                                            acts, cs, B, T, s)
-                    : lstm_forward<256, 8>(xw, w_hh_t, h0, c0, ys, hn, cn,
-                                           acts, cs, B, T, s);
+  return chain_forward(xw, w_hh_t, h0, c0, ys, hn, cn, acts, cs, B, T, 0, T,
+                       H, ctas, (cudaStream_t)stream_ptr);
 }
 
 // dW_hh^T over all B*T rows: 3xTF32 (FP32 mode), or bf16 operands with
@@ -721,19 +822,240 @@ int backward_any(const TW* w_hh_t, const float* h0, const float* c0,
   if (!lstm_shape_ok(H, ctas) || B <= 0 || T <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream_ptr;
-  int err =
-      H == 128
-          ? (ctas == 8 ? lstm_backward<128, 8>(acts, cs, c0, dys, w_hh_t, dhn,
-                                               dcn, dxw, dh0, dc0, B, T, s)
-                       : lstm_backward<128, 4>(acts, cs, c0, dys, w_hh_t, dhn,
-                                               dcn, dxw, dh0, dc0, B, T, s))
-      : ctas == 16
-          ? lstm_backward<256, 16>(acts, cs, c0, dys, w_hh_t, dhn, dcn, dxw,
-                                   dh0, dc0, B, T, s)
-          : lstm_backward<256, 8>(acts, cs, c0, dys, w_hh_t, dhn, dcn, dxw,
-                                  dh0, dc0, B, T, s);
+  int err = chain_backward(acts, cs, c0, dys, w_hh_t, dhn, dcn, dxw, dh0, dc0,
+                           B, T, 0, T, nullptr, nullptr, H, ctas, s);
   if (err) return err;
   return reduce_dw(ys, h0, T, dxw, dwhh, ws, B * T, H, s);
+}
+
+// xw = y W_ih + b over the rows of a window (row m of y and xw is row
+// win(m) of its plane; W_ih stored (H, 4H)): 3xTF32, or y rounded to bf16
+// at the fragments against bf16 W_ih, FP32 sums
+int layer_input(const float* y, const float* w_ih_t, const float* b,
+                float* xw, RowMap win, int rows, int H, cudaStream_t s) {
+  return gemm_tc_rows(y, win, w_ih_t, b, nullptr, xw, win, rows, 4 * H, H,
+                      false, s);
+}
+int layer_input(const float* y, const bf16* w_ih_t, const float* b,
+                float* xw, RowMap win, int rows, int H, cudaStream_t s) {
+  return gemm_rows_bf16(y, win, w_ih_t, b, nullptr, xw, win, rows, 4 * H, H,
+                        false, s);
+}
+
+// dy = dgates W_ih^T over the rows of a window, in the same two modes
+int layer_input_grad(const float* dg, const float* w_ih_t, float* dy,
+                     RowMap win, int rows, int H, cudaStream_t s) {
+  return gemm_tc_rows(dg, win, w_ih_t, nullptr, nullptr, dy, win, rows, H,
+                      4 * H, true, s);
+}
+int layer_input_grad(const float* dg, const bf16* w_ih_t, float* dy,
+                     RowMap win, int rows, int H, cudaStream_t s) {
+  return gemm_rows_bf16(dg, win, w_ih_t, nullptr, nullptr, dy, win, rows, H,
+                        4 * H, true, s);
+}
+
+inline bool layers_ok(int B, int T, int H, int L, int ctas, int C) {
+  return lstm_shape_ok(H, ctas) && B > 0 && T > 0 && L >= 2 && C >= 1;
+}
+
+// The layer route's streams, one a layer, and an event a layer, of one
+// device; made once and kept, one call enqueues at a time (the events are
+// reused call after call).
+struct Lanes {
+  std::vector<cudaStream_t> streams;
+  std::vector<cudaEvent_t> events;
+  cudaEvent_t fork = nullptr;
+};
+
+std::mutex lanes_mutex;
+std::vector<Lanes> lanes_by_device;
+
+int lanes_for(int L, Lanes** out) {
+  int dev, err;
+  if ((err = (int)cudaGetDevice(&dev))) return err;
+  if ((int)lanes_by_device.size() <= dev) lanes_by_device.resize(dev + 1);
+  Lanes& ln = lanes_by_device[dev];
+  if (!ln.fork &&
+      (err = (int)cudaEventCreateWithFlags(&ln.fork, cudaEventDisableTiming)))
+    return err;
+  while ((int)ln.streams.size() < L) {
+    cudaStream_t s;
+    cudaEvent_t e;
+    if ((err = (int)cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking)) ||
+        (err = (int)cudaEventCreateWithFlags(&e, cudaEventDisableTiming)))
+      return err;
+    ln.streams.push_back(s);
+    ln.events.push_back(e);
+  }
+  *out = &ln;
+  return 0;
+}
+
+// Fork L layer streams from the caller's stream, enqueue(lanes), and
+// join: the caller's stream waits on every layer's, also after an error.
+template <typename Enqueue>
+int on_lanes(int L, cudaStream_t stream, Enqueue enqueue) {
+  std::lock_guard<std::mutex> lock(lanes_mutex);
+  Lanes* ln;
+  int err;
+  if ((err = lanes_for(L, &ln))) return err;
+  if ((err = (int)cudaEventRecord(ln->fork, stream))) return err;
+  for (int l = 0; l < L; ++l)
+    if ((err = (int)cudaStreamWaitEvent(ln->streams[l], ln->fork, 0)))
+      return err;
+  err = enqueue(*ln);
+  for (int l = 0; l < L; ++l) {
+    int e = (int)cudaEventRecord(ln->events[l], ln->streams[l]);
+    if (!e) e = (int)cudaStreamWaitEvent(stream, ln->events[l], 0);
+    if (!err) err = e;
+  }
+  return err;
+}
+
+// The most CTAs a chain's cluster has: a backward carry slot holds that
+// many partial dh carries and dc.
+constexpr int MAX_CTAS = 16;
+
+// floats of the layer route's scratch `ws`: two carry slots a layer (a
+// window's state out is the next window's in: forward h and c, backward
+// the partial dh carries and dc, lstm_backward) and, backward, a layer's
+// split-K and column-sum partials (each layer reduces its weight
+// gradients on its own stream after its last window)
+size_t carry_floats(int B, int H, bool backward) {
+  return 2 * (backward ? MAX_CTAS + 1 : 2) * (size_t)B * H;
+}
+size_t layers_ws_floats(int B, int H, int L, bool backward) {
+  return (size_t)L * (carry_floats(B, H, backward) +
+                      (backward ? PART_FLOATS + CPART_FLOATS : 0));
+}
+
+// K9's layer route, forward: window c of layer l on layer l's stream
+// after window c of layer l - 1 (an event), so layer l runs window c
+// while layer l - 1 runs window c + 1. Layer l's input product over the
+// window's rows into the xw plane (B, T, 4H) the layers above 0 share (a
+// window's rows are written by layer l's product only after layer l - 1
+// read them), then its chain over the window from the state the window
+// before left in the carry slots. Without residuals (hs null) the lower
+// layers' h pass through ys: window c of layer l + 1 reads them and then
+// writes its own over them, after layer l is done with the window.
+template <typename TW>
+int layers_forward(const float* xw0, const TW* w_ih_t, const float* b_rest,
+                   const TW* w_hh_t, const float* h0, const float* c0,
+                   float* ys, float* hn, float* cn, float* hs, float* acts,
+                   float* cs, float* xw, float* ws, int B, int T, int H,
+                   int L, int ctas, int C, void* stream_ptr) {
+  if (!layers_ok(B, T, H, L, ctas, C) || !aligned16(ys, hs, acts, cs, xw))
+    return (int)cudaErrorInvalidValue;
+  const size_t rows = (size_t)B * T, G = 4 * (size_t)H, bh = (size_t)B * H;
+  const int chunks = (T + C - 1) / C;
+  return on_lanes(L, (cudaStream_t)stream_ptr, [&](Lanes& ln) {
+    for (int c = 0; c < chunks; ++c) {
+      const int t0 = c * C, n = T - t0 < C ? T - t0 : C;
+      const bool last = c == chunks - 1;
+      const RowMap win{T, t0, n};
+      for (int l = 0; l < L; ++l) {
+        const cudaStream_t s = ln.streams[l];
+        int err;
+        if (l > 0 && (err = (int)cudaStreamWaitEvent(s, ln.events[l - 1], 0)))
+          return err;
+        const float* x = xw0;
+        if (l > 0) {
+          const float* y_in = hs ? hs + (l - 1) * rows * H : ys;
+          if ((err = layer_input(y_in, w_ih_t + (l - 1) * H * G,
+                                 b_rest + (l - 1) * G, xw, win, B * n, H, s)))
+            return err;
+          x = xw;
+        }
+        float* carry = ws + l * carry_floats(B, H, false);
+        const float* h_in = c == 0 ? h0 + l * bh : carry + ((c - 1) & 1) * 2 * bh;
+        const float* c_in = c == 0 ? c0 + l * bh : h_in + bh;
+        float* h_out = last ? hn + l * bh : carry + (c & 1) * 2 * bh;
+        float* c_out = last ? cn + l * bh : h_out + bh;
+        if ((err = chain_forward(
+                 x, w_hh_t + l * H * G, h_in, c_in,
+                 l == L - 1 || !hs ? ys : hs + l * rows * H, h_out, c_out,
+                 acts ? acts + l * rows * G : nullptr,
+                 cs ? cs + l * rows * H : nullptr, B, T, t0, n, H, ctas, s)) ||
+            (err = (int)cudaEventRecord(ln.events[l], s)))
+          return err;
+      }
+    }
+    return 0;
+  });
+}
+
+// K9's layer route, backward: the reverse schedule, the last window
+// first, window c of layer l after window c of layer l + 1, whose
+// product gave its dy. Per window: the reverse chain (dgates into the
+// layer's (B, T, 4H) plane; the dh, dc carries through the carry slots),
+// then dy of layer l - 1 over the window's rows into the dy plane (B, T,
+// H) the layers share (layer l - 1 reads a window's rows before its own
+// product writes layer l - 2's over them). After its first window a
+// layer reduces dW_hh, dW_ih and db over all its rows on its stream,
+// while the layers below run on: every sum in a fixed order.
+template <typename TW>
+int layers_backward(const TW* w_ih_t, const TW* w_hh_t, const float* h0,
+                    const float* c0, const float* ys, const float* hs,
+                    const float* acts, const float* cs, const float* dys,
+                    const float* dhn, const float* dcn, float* dgates,
+                    TW* dwih, float* db, TW* dwhh, float* dh0, float* dc0,
+                    float* dy, float* ws, int B, int T, int H, int L,
+                    int ctas, int C, void* stream_ptr) {
+  if (!layers_ok(B, T, H, L, ctas, C) ||
+      !aligned16(ys, hs, h0, dgates, dy))
+    return (int)cudaErrorInvalidValue;
+  const size_t rows = (size_t)B * T, G = 4 * (size_t)H, bh = (size_t)B * H;
+  const int chunks = (T + C - 1) / C;
+  const size_t slot = (MAX_CTAS + 1) * bh;  // partial dh carries, then dc
+  float* parts = ws + L * carry_floats(B, H, true);
+  return on_lanes(L, (cudaStream_t)stream_ptr, [&](Lanes& ln) {
+    for (int c = chunks - 1; c >= 0; --c) {
+      const int t0 = c * C, n = T - t0 < C ? T - t0 : C;
+      const bool first = c == chunks - 1;
+      const RowMap win{T, t0, n};
+      for (int l = L - 1; l >= 0; --l) {
+        const cudaStream_t s = ln.streams[l];
+        int err;
+        if (l < L - 1 &&
+            (err = (int)cudaStreamWaitEvent(s, ln.events[l + 1], 0)))
+          return err;
+        float* carry = ws + l * carry_floats(B, H, true);
+        float* dg_l = dgates + l * rows * G;
+        float* in_slot = carry + ((c + 1) & 1) * slot;
+        float* out_slot = carry + (c & 1) * slot;
+        if ((err = chain_backward(
+                 acts + l * rows * G, cs + l * rows * H, c0 + l * bh,
+                 l == L - 1 ? dys : dy, w_hh_t + l * H * G, dhn + l * bh,
+                 first ? dcn + l * bh : in_slot + MAX_CTAS * bh, dg_l,
+                 c == 0 ? dh0 + l * bh : nullptr,
+                 c == 0 ? dc0 + l * bh : out_slot + MAX_CTAS * bh, B, T, t0,
+                 n, first ? nullptr : in_slot, c == 0 ? nullptr : out_slot, H,
+                 ctas, s)))
+          return err;
+        if (l > 0 && (err = layer_input_grad(dg_l, w_ih_t + (l - 1) * H * G,
+                                             dy, win, B * n, H, s)))
+          return err;
+        if ((err = (int)cudaEventRecord(ln.events[l], s))) return err;
+        if (c > 0) continue;
+        // the layer's weight gradients over all B*T rows: dW_hh_l =
+        // h_l(t-1)^T dgates_l; layer l's input is h_{l-1}(t): dW_ih_l =
+        // h_{l-1}^T dgates_l, db_l = colsum(dgates_l)
+        float* part = parts + (size_t)l * (PART_FLOATS + CPART_FLOATS);
+        if ((err = reduce_dw(l == L - 1 ? ys : hs + l * rows * H,
+                             h0 + l * bh, T, dg_l, dwhh + l * H * G, part,
+                             (int)rows, H, s)))
+          return err;
+        if (l > 0 &&
+            ((err = reduce_dw(hs + (l - 1) * rows * H, nullptr, 0, dg_l,
+                              dwih + (l - 1) * H * G, part, (int)rows, H,
+                              s)) ||
+             (err = colsum(dg_l, db + (l - 1) * G, part + PART_FLOATS,
+                           (int)rows, (int)G, s))))
+          return err;
+      }
+    }
+    return 0;
+  });
 }
 
 }  // namespace
@@ -817,6 +1139,73 @@ int lstm_recurrence_backward_bf16(const bf16* w_hh_t, const float* h0,
                                   int T, int H, int ctas, void* stream_ptr) {
   return backward_any(w_hh_t, h0, c0, ys, acts, cs, dys, dhn, dcn, dxw, dwhh,
                       dh0, dc0, ws, B, T, H, ctas, stream_ptr);
+}
+
+// K9's layer route (the header): xw0 (B,T,4H), w_ih_t (L-1,H,4H), b_rest
+// (L-1,4H), w_hh_t (L,H,4H), h0, c0 (L,B,H). Writes ys (B,T,H), hn, cn
+// (L,B,H) and, when hs/acts/cs are not null, the backward's residuals hs
+// (L-1,B,T,H), acts (L,B,T,4H), cs (L,B,T,H). xw: scratch (B,T,4H); ws:
+// lstm_stacked_layers_workspace_floats(B, H, L, 0); ctas: CTAs per
+// cluster of the chains (lstm_shape_ok); C: steps a window (C = T: the
+// layers one after the other); L >= 2.
+int lstm_stacked_layers_forward_f32(
+    const float* xw0, const float* w_ih_t, const float* b_rest,
+    const float* w_hh_t, const float* h0, const float* c0, float* ys,
+    float* hn, float* cn, float* hs, float* acts, float* cs, float* xw,
+    float* ws, int B, int T, int H, int L, int ctas, int C,
+    void* stream_ptr) {
+  return layers_forward(xw0, w_ih_t, b_rest, w_hh_t, h0, c0, ys, hn, cn, hs,
+                        acts, cs, xw, ws, B, T, H, L, ctas, C, stream_ptr);
+}
+
+// The same in the bf16 operand mode: w_ih_t and w_hh_t bf16, the rest
+// FP32.
+int lstm_stacked_layers_forward_bf16(
+    const float* xw0, const bf16* w_ih_t, const float* b_rest,
+    const bf16* w_hh_t, const float* h0, const float* c0, float* ys,
+    float* hn, float* cn, float* hs, float* acts, float* cs, float* xw,
+    float* ws, int B, int T, int H, int L, int ctas, int C,
+    void* stream_ptr) {
+  return layers_forward(xw0, w_ih_t, b_rest, w_hh_t, h0, c0, ys, hn, cn, hs,
+                        acts, cs, xw, ws, B, T, H, L, ctas, C, stream_ptr);
+}
+
+// floats of the layer route's scratch `ws`, forward (backward 0) or
+// backward (1)
+long long lstm_stacked_layers_workspace_floats(int B, int H, int L,
+                                               int backward) {
+  return (long long)layers_ws_floats(B, H, L, backward != 0);
+}
+
+// From the forward's residuals and the cotangents dys (B,T,H), dhn, dcn
+// (L,B,H): dgates (L,B,T,4H) (layer 0's are dxw0), dw_ih_t (L-1,H,4H), db
+// (L-1,4H), dw_hh_t (L,H,4H), dh0, dc0 (L,B,H). dy: scratch (B,T,H); ws:
+// lstm_stacked_layers_workspace_floats(B, H, L, 1); ctas and C as the
+// forward's. Every (B,T,*) array and h0 16-byte aligned.
+int lstm_stacked_layers_backward_f32(
+    const float* w_ih_t, const float* w_hh_t, const float* h0,
+    const float* c0, const float* ys, const float* hs, const float* acts,
+    const float* cs, const float* dys, const float* dhn, const float* dcn,
+    float* dgates, float* dwih, float* db, float* dwhh, float* dh0,
+    float* dc0, float* dy, float* ws, int B, int T, int H, int L, int ctas,
+    int C, void* stream_ptr) {
+  return layers_backward(w_ih_t, w_hh_t, h0, c0, ys, hs, acts, cs, dys, dhn,
+                         dcn, dgates, dwih, db, dwhh, dh0, dc0, dy, ws, B, T,
+                         H, L, ctas, C, stream_ptr);
+}
+
+// The bf16 mode: w_ih_t, w_hh_t, dw_ih_t and dw_hh_t bf16 (each FP32 sum
+// rounded once); the rest FP32.
+int lstm_stacked_layers_backward_bf16(
+    const bf16* w_ih_t, const bf16* w_hh_t, const float* h0,
+    const float* c0, const float* ys, const float* hs, const float* acts,
+    const float* cs, const float* dys, const float* dhn, const float* dcn,
+    float* dgates, bf16* dwih, float* db, bf16* dwhh, float* dh0,
+    float* dc0, float* dy, float* ws, int B, int T, int H, int L, int ctas,
+    int C, void* stream_ptr) {
+  return layers_backward(w_ih_t, w_hh_t, h0, c0, ys, hs, acts, cs, dys, dhn,
+                         dcn, dgates, dwih, db, dwhh, dh0, dc0, dy, ws, B, T,
+                         H, L, ctas, C, stream_ptr);
 }
 
 #ifdef LSTM_STAMPS

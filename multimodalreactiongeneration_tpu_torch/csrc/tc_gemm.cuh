@@ -52,10 +52,10 @@ __device__ __forceinline__ float tile_at(const float* t, int k, int x) {
 // Stage the 64 x 16 tile of operand P at (x from base, k from k0): P is
 // k-major (element (k, x) at P[k * dim + x]; with shift_t > 0 row k of
 // the (B, T = shift_t, dim) array is read one step back, h0[b] at t = 0)
-// or x-major (element (k, x) at P[x * K + k]). With MAP (k-major), row k
+// or x-major (element (k, x) at P[x * K + k]). With MAP, k-major: row k
 // is row mk(k) of the P plane, with shift_t > 0 the row before it (h0[k
-// / mk.n] at step 0 of the plane). Rows k >= k_end and x >= dim are
-// zeros.
+// / mk.n] at step 0 of the plane); x-major: row x is row mk(x) of the P
+// plane. Rows k >= k_end and x >= dim are zeros.
 template <bool KMAJOR, bool MAP = false>
 __device__ __forceinline__ void load_tile(float* t, const float* P,
                                           const float* h0, int shift_t,
@@ -72,7 +72,7 @@ __device__ __forceinline__ void load_tile(float* t, const float* P,
     const float* src = P;
     if (ok) {
       if (!KMAJOR)
-        src = P + (size_t)gx * K + gk;
+        src = P + (MAP ? mk(gx) : (size_t)gx) * K + gk;
       else if (MAP && shift_t > 0 && mk.t0 + gk % mk.n == 0)
         src = h0 + (size_t)(gk / mk.n) * dim + gx;
       else if (MAP)
@@ -89,8 +89,8 @@ __device__ __forceinline__ void load_tile(float* t, const float* P,
 // C[m, n] = sum over k in [k_begin, k_end) of A(m, k) B(k, n) (+ bias[n]),
 // on tile (blockIdx.y, blockIdx.x), written to C + blockIdx.z * M * N.
 // A_KMAJOR: A(m, k) = A[k * M + m], shifted as load_tile says; else
-// A[m * K + k]; A_MAP (with A_KMAJOR): row k of A is row ma(k) of the A
-// plane, as load_tile says. B_KMAJOR: B(k, n) = Bm[k * N + n]; else
+// A[m * K + k]; A_MAP: row k (A_KMAJOR) or m of A is row ma(k) or ma(m)
+// of the A plane, as load_tile says. B_KMAJOR: B(k, n) = Bm[k * N + n]; else
 // Bm[n * K + k]. D (M, N), if not null, is added; row m of C is row
 // mo(m) of the C plane.
 template <bool A_KMAJOR, bool B_KMAJOR, bool A_MAP = false>
@@ -254,6 +254,23 @@ int gemm_tc(const float* A, const float* W, const float* bias,
   else
     tc_gemm_kernel<false, true><<<grid, TC_THREADS, 0, stream>>>(
         A, nullptr, W, bias, C, M, N, K, K, 0, RowMap{}, D, mo);
+  return check_launch();
+}
+
+// gemm_tc with A's rows mapped: row m of A is row ma(m) of the A plane
+// (the windows of K9's layer route); the same sums in the same order.
+int gemm_tc_rows(const float* A, RowMap ma, const float* W,
+                 const float* bias, const float* D, float* C, RowMap mo,
+                 int M, int N, int K, bool trans_w, cudaStream_t stream) {
+  if (K % 4 || (!trans_w && N % 4) || !aligned16(A, W))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + TC_BN - 1) / TC_BN, (M + TC_BM - 1) / TC_BM, 1);
+  if (trans_w)
+    tc_gemm_kernel<false, false, true><<<grid, TC_THREADS, 0, stream>>>(
+        A, nullptr, W, bias, C, M, N, K, K, 0, ma, D, mo);
+  else
+    tc_gemm_kernel<false, true, true><<<grid, TC_THREADS, 0, stream>>>(
+        A, nullptr, W, bias, C, M, N, K, K, 0, ma, D, mo);
   return check_launch();
 }
 

@@ -6,8 +6,11 @@ with the JAX package's three decode layouts:
 
   * hoisted shared-KV (the default, and the production path):
     1. One full-sequence pass encodes the known other-modality streams
-       (audio, partner motion) for lead + seq (``encode_others_only``;
-       on the card the encoder stacks run the mixer-stack kernel, K1).
+       (audio, partner motion) for lead + seq (``encode_others_only``,
+       without gradient; on the card one-layer LSTM encoder stacks run
+       the mixer-stack kernel, K1, multi-layer LSTM mixers K9's layer
+       route a block, GRU mixers K10 a layer a block, MLP mixers no
+       kernel).
     2. The leading segment primes the shared raw rings and the main
        LSTM states (warmup, masks on).
     3. The rollout: prediction[t] = model(prev); the next prev is
@@ -15,10 +18,13 @@ with the JAX package's three decode layouts:
        ``fused_rollout`` ("auto" or True, and a supported config) it is
        one call of ``ops/decode_rollout.decode_rollout`` (K2 on the
        card, its plain version on the CPU); ``fused_rollout=False``, a
-       config outside the rollout's gate (a GRU main modality, as in
-       configs/lstmformer_gru.yaml), or on the card a shape outside K2's
-       contract (hidden other than 256, heads other than 4, ...) under
-       "auto", runs the module step by step.
+       config outside the rollout's gate (a main mixer other than a
+       one-layer LSTM: the GRU of configs/lstmformer_gru.yaml, an MLP,
+       ``num_internal_layer`` above 1), or on the card a shape outside
+       K2's contract (hidden other than 256, heads other than 4, ...)
+       under "auto", runs the module step by step. Recurrent and MLP
+       embeddings start from None states (an MLP carries none; a
+       multi-layer recurrent mixer carries (layers, B, H) per block).
   * in-loop shared-KV (``hoist_encoders=False``, or "auto" with mha
     other-modality embeddings): the warmup primes block 0's encoders
     and the raw rings, and every step encodes its own ``ratio`` audio

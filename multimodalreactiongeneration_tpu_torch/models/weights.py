@@ -13,7 +13,11 @@ The port's modules carry the flax paths as attribute names, so a leaf
     layout.
 
 Any other leaf name raises. It converts a Metaformer tree (LSTM or GRU
-embeddings, tests/test_torch_port_gru.py), an LSTMwithSample tree and a
+embeddings, tests/test_torch_port_gru.py; multi-layer and bidirectional
+recurrent mixers, whose ``_l{k}`` and ``_reverse`` leaves keep their
+names, and MLP mixers, whose ``input`` / ``hidden_{i}`` / ``output``
+Dense kernels transpose, tests/test_torch_port_mixer_kinds.py), an
+LSTMwithSample tree and a
 SimpleLSTM tree (bidirectional LSTMs with their ``_reverse`` leaves,
 cross-modal MHA with kdim/vdim; tests/test_torch_port_simple_lstm.py)
 alike. Reference Lightning checkpoints load through

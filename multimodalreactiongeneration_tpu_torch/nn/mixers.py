@@ -1,26 +1,29 @@
-"""Recurrent and attention mixer blocks and their layered stacks.
+"""MLP, recurrent and attention mixer blocks and their layered stacks.
 
-Counterpart of ``multimodalreactiongeneration_tpu/nn/mixers.py`` for the
-pieces the Metaformer runs: ``RecurrentMixerBlock`` /
-``RecurrentMixerLayerd`` (LSTM and GRU kinds, single inner layer) with
-the fused stack dispatch (LSTM stacks only, as in the JAX package: a GRU
-stack runs block by block), and ``MHAMixerBlock`` / ``MHAMixerLayerd`` on
-their masked full-sequence path and their two decode paths: per-block
-ring buffers of projected K/V (``caches``) and a shared raw ring
-(``shared_raw``). Submodule names
-follow the flax tree (``block_i``, ``mixer``, ``mixer_norm``,
-``feed_forward``, ``mha_i``). Recurrent stacks return their fresh
-states, as in the JAX package (PARITY #1): (h, c) per LSTM block, h per
-GRU block.
+Counterpart of ``multimodalreactiongeneration_tpu/nn/mixers.py``:
+``MLPMixerBlock`` / ``MLPMixerLayerd`` (Dense layers ``input``,
+``hidden_{i}``, ``output``; no state: a stack returns (x, None)),
+``RecurrentMixerBlock`` / ``RecurrentMixerLayerd`` (LSTM and GRU kinds,
+any number of inner layers, one or two directions: bidirectional halves
+the hidden size so that the concatenated output is ``hidden_size``; the
+inner ``TorchLSTM`` / ``TorchGRU`` takes the stack's dropout between its
+layers) with the fused stack dispatch (single-layer unidirectional LSTM
+blocks only, as in the JAX package: other kinds run block by block) and
+the layerd's optional ``input_projection`` / ``output_projection``
+Dense layers, and ``MHAMixerBlock`` / ``MHAMixerLayerd`` on their masked
+full-sequence path and their two decode paths: per-block ring buffers of
+projected K/V (``caches``) and a shared raw ring (``shared_raw``).
+Submodule names follow the flax tree (``block_i``, ``mixer``,
+``mixer_norm``, ``feed_forward``, ``mha_i``). Recurrent stacks return
+their fresh states, as in the JAX package (PARITY #1): per block the
+inner module's (h, c) for an LSTM, h for a GRU, each (layers *
+directions, B, H).
 
 Dropout, as in the JAX package: an MHA stack hands its rate to every
-attention (``TorchMHA``, on the context); a recurrent stack's blocks are
-single-layer, so its rate acts only on the dispatch: in training with
-dropout > 0 the stack runs block by block (K7 per block on the card,
-``_fused_stack``'s JAX gate), not on the fused stack.
-
-Not ported yet: the MLP mixers and the bidirectional and multi-layer
-recurrent mixers.
+attention (``TorchMHA``, on the context); a recurrent stack hands it to
+each block's inner recurrence, where it acts between inner layers, and
+in training with dropout > 0 the stack runs block by block (K7 per block
+on the card, ``_fused_stack``'s JAX gate), not on the fused stack.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from multimodalreactiongeneration_tpu_torch.nn.attention import TorchMHA
 from multimodalreactiongeneration_tpu_torch.nn.basic import (
     FeedForward,
     LayerNorm,
+    dense,
     set_nonlinearity,
 )
 from multimodalreactiongeneration_tpu_torch.nn.recurrent import (
@@ -68,8 +72,55 @@ def _feed_forward(hidden_size, generator, cfg_owner) -> FeedForward:
     )
 
 
+class MLPMixerBlock(nn.Module):
+    """MLP mixer + FFN (reference mixer_block.py:114-166, 308-352)."""
+
+    def __init__(
+        self,
+        hidden_size: int,
+        generator: torch.Generator,
+        num_layer: int = 1,
+        nonlinearity: Optional[str] = None,
+        residual: bool = False,
+        residual_layer_norm: bool = False,
+        bottleneck_size: Optional[int] = None,
+        use_bias: bool = True,
+    ):
+        super().__init__()
+        self.num_layer = num_layer
+        self.nonlinearity = nonlinearity
+        self.residual = residual
+        self.residual_layer_norm = residual_layer_norm
+        self.bottleneck_size = bottleneck_size
+        self.use_bias = use_bias
+        self.input = dense(hidden_size, hidden_size, generator, use_bias)
+        for i in range(1, num_layer):
+            setattr(self, f"hidden_{i}",
+                    dense(hidden_size, hidden_size, generator, use_bias))
+        self.output = dense(hidden_size, hidden_size, generator, use_bias)
+        self.mixer_norm = (
+            LayerNorm(hidden_size) if residual and residual_layer_norm
+            else None
+        )
+        self.feed_forward = _feed_forward(hidden_size, generator, self)
+
+    def forward(self, x):
+        act = set_nonlinearity(self.nonlinearity)
+        y = self.input(x)
+        if act is not None:
+            y = act(y)
+        for i in range(1, self.num_layer):
+            y = getattr(self, f"hidden_{i}")(y)
+            if act is not None:
+                y = act(y)
+        y = _residual_wrap(self.output(y), x, self.residual, self.mixer_norm)
+        return self.feed_forward(y)
+
+
 class RecurrentMixerBlock(nn.Module):
-    """GRU or LSTM mixer + FFN (reference mixer_block.py:355-507)."""
+    """GRU or LSTM mixer + FFN (reference mixer_block.py:355-507).
+    Bidirectional halves the hidden size so the concatenation matches
+    ``hidden_size`` (mixer_block.py:185-190, 228-233)."""
 
     def __init__(
         self,
@@ -77,6 +128,7 @@ class RecurrentMixerBlock(nn.Module):
         generator: torch.Generator,
         kind: str = "lstm",
         num_layers: int = 1,
+        dropout: float = 0.0,
         bidirectional: bool = False,
         nonlinearity: Optional[str] = None,
         residual: bool = False,
@@ -87,19 +139,19 @@ class RecurrentMixerBlock(nn.Module):
         super().__init__()
         if kind not in ("gru", "lstm"):
             raise ValueError(f"kind must be gru/lstm, got {kind!r}")
-        if num_layers != 1 or bidirectional:
-            raise NotImplementedError(
-                "the port has the single-layer unidirectional recurrent "
-                f"mixers only (kind={kind!r}, num_layers={num_layers}, "
-                f"bidirectional={bidirectional})"
-            )
+        hidden = hidden_size
+        if bidirectional:
+            if hidden % 2:
+                raise ValueError("hidden_size must be even when bidirectional")
+            hidden //= 2
         self.nonlinearity = nonlinearity
         self.residual = residual
         self.residual_layer_norm = residual_layer_norm
         self.bottleneck_size = bottleneck_size
         self.use_bias = use_bias
         rnn = TorchLSTM if kind == "lstm" else TorchGRU
-        self.mixer = rnn(hidden_size, hidden_size, generator)
+        self.mixer = rnn(hidden_size, hidden, generator, num_layers=num_layers,
+                         bidirectional=bidirectional, dropout=dropout)
         self.mixer_norm = (
             LayerNorm(hidden_size) if residual and residual_layer_norm
             else None
@@ -185,6 +237,61 @@ class MHAMixerBlock(nn.Module):
         return self.feed_forward(y), new_cache
 
 
+def _projections(module, hidden_size, generator, input_projection_size,
+                 output_projection_size):
+    """A layerd's optional Dense layers: ``input_projection`` from
+    ``input_projection_size`` features to ``hidden_size`` (flax infers
+    its input size from x; here it is the input's feature size) and
+    ``output_projection`` from ``hidden_size`` to
+    ``output_projection_size``; both with bias, as flax's Dense."""
+    module.input_projection = (
+        None if input_projection_size is None
+        else dense(input_projection_size, hidden_size, generator))
+    module.output_projection = (
+        None if output_projection_size is None
+        else dense(hidden_size, output_projection_size, generator))
+
+
+def _project(layer, x):
+    return x if layer is None else layer(x)
+
+
+class MLPMixerLayerd(nn.Module):
+    """Stack of MLP mixer blocks; stateless: returns (y, None)."""
+
+    def __init__(
+        self,
+        hidden_size: int,
+        generator: torch.Generator,
+        num_layerd: int = 1,
+        num_internal_layer: int = 1,
+        input_projection_size: Optional[int] = None,
+        output_projection_size: Optional[int] = None,
+        nonlinearity: Optional[str] = None,
+        residual: bool = False,
+        residual_layer_norm: bool = False,
+        bottleneck_size: Optional[int] = None,
+        use_bias: bool = True,
+    ):
+        super().__init__()
+        self.num_layerd = num_layerd
+        _projections(self, hidden_size, generator, input_projection_size,
+                     output_projection_size)
+        for i in range(num_layerd):
+            setattr(self, f"block_{i}", MLPMixerBlock(
+                hidden_size, generator, num_layer=num_internal_layer,
+                nonlinearity=nonlinearity, residual=residual,
+                residual_layer_norm=residual_layer_norm,
+                bottleneck_size=bottleneck_size, use_bias=use_bias,
+            ))
+
+    def forward(self, x, hx=None):
+        x = _project(self.input_projection, x)
+        for i in range(self.num_layerd):
+            x = getattr(self, f"block_{i}")(x)
+        return _project(self.output_projection, x), None
+
+
 class RecurrentMixerLayerd(nn.Module):
     def __init__(
         self,
@@ -195,6 +302,8 @@ class RecurrentMixerLayerd(nn.Module):
         num_internal_layer: int = 1,
         dropout: float = 0.0,
         bidirectional: bool = False,
+        input_projection_size: Optional[int] = None,
+        output_projection_size: Optional[int] = None,
         nonlinearity: Optional[str] = None,
         residual: bool = False,
         residual_layer_norm: bool = False,
@@ -212,26 +321,30 @@ class RecurrentMixerLayerd(nn.Module):
         self.residual = residual
         self.residual_layer_norm = residual_layer_norm
         self.use_bias = use_bias
+        _projections(self, hidden_size, generator, input_projection_size,
+                     output_projection_size)
         for i in range(num_layerd):
             setattr(self, f"block_{i}", RecurrentMixerBlock(
                 hidden_size, generator, kind=kind,
-                num_layers=num_internal_layer, bidirectional=bidirectional,
-                nonlinearity=nonlinearity, residual=residual,
-                residual_layer_norm=residual_layer_norm,
+                num_layers=num_internal_layer, dropout=dropout,
+                bidirectional=bidirectional, nonlinearity=nonlinearity,
+                residual=residual, residual_layer_norm=residual_layer_norm,
                 bottleneck_size=bottleneck_size, use_bias=use_bias,
             ))
 
     def forward(self, x, hx: Optional[List[Any]] = None):
+        x = _project(self.input_projection, x)
         fused = self._fused_stack(x, hx)
         if fused is not None:
-            return fused
+            y, new_states = fused
+            return _project(self.output_projection, y), new_states
         new_states = []
         for i in range(self.num_layerd):
             x, bhx = getattr(self, f"block_{i}")(
                 x, None if hx is None else hx[i]
             )
             new_states.append(bhx)
-        return x, new_states
+        return _project(self.output_projection, x), new_states
 
     def _fused_stack(self, x, hx):
         """Run the whole block stack through ``mixer_stack_recurrence``
@@ -363,14 +476,12 @@ class MHAMixerLayerd(nn.Module):
 
 def build_mixer_layerd(mixer_type: str, configs: Dict[str, Any],
                        generator: torch.Generator) -> nn.Module:
-    """MixerLayerdFactory equivalent for the ported mixer kinds."""
+    """MixerLayerdFactory equivalent (reference mixer_block.py:993-1017)."""
     if mixer_type in ("gru", "lstm"):
         return RecurrentMixerLayerd(kind=mixer_type, generator=generator,
                                     **configs)
     if mixer_type == "mha":
         return MHAMixerLayerd(generator=generator, **configs)
     if mixer_type == "mlp":
-        raise NotImplementedError(
-            "'mlp' mixers are not ported yet (no shipped config runs them)"
-        )
+        return MLPMixerLayerd(generator=generator, **configs)
     raise ValueError(f"mixer_type must be mlp/gru/lstm/mha, got {mixer_type!r}")

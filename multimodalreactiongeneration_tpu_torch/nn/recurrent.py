@@ -17,9 +17,10 @@ Dispatch, as the JAX package's (``resolve_impl`` and the branches of
     every device;
   * several layers, unidirectional, dropout 0 or eval mode (the JAX
     package's ``dropout == 0 or deterministic``):
-    ``ops/lstm_stacked.py lstm_stacked_recurrence`` (the wavefront kernels,
-    K9, on CUDA, the plain version on CPU) over x @ W_ih_0^T + b computed
-    here; on CUDA, stacks the kernels do not take raise;
+    ``ops/lstm_stacked.py lstm_stacked_recurrence`` (K9 on CUDA: the
+    one-cluster wavefront at hidden 128 and 2-3 layers, the layer route on
+    K8's chains otherwise; the plain version on CPU) over x @ W_ih_0^T + b
+    computed here; on CUDA, stacks the kernels do not take raise;
   * otherwise each layer and direction on its own (``single_layer_route``):
     with ``MRGEN_FUSED_DW`` on (the default; read at call time, as the JAX
     package's ``_fused_dw_enabled``) and input and hidden sizes multiples
@@ -44,9 +45,11 @@ parameters ``weight_ih_l{k}`` (3H, din), ``weight_hh_l{k}``,
 under ``MIN_KERNEL_STEPS`` steps the plain recurrence on every device;
 from there on x @ W_ih^T + b_ih as one matmul, then ``ops/gru.py
 gru_recurrence`` (the K10 kernels on CUDA, the plain version on CPU); on
-CUDA, a hidden size the kernels do not take raises. In training, dropout
-acts between layers, as the LSTM's. A bidirectional GRU raises. The
-dtypes flow as JAX's (``TorchGRU`` of ``nn/recurrent.py`` there): on the
+CUDA, a hidden size the kernels do not take raises. Bidirectional, as
+the LSTM: the reverse direction (``_reverse`` parameters) runs on the
+time-flipped input, its outputs are flipped back and concatenated on
+features, states (L * D, B, H) layer-major. In training, dropout acts
+between layers, as the LSTM's. The dtypes flow as JAX's (``TorchGRU`` of ``nn/recurrent.py`` there): on the
 kernel route xw is the f32 product of x and W_ih converted (exact) plus
 b_ih in f32, W_hh^T goes in the weights' dtype (bf16: the kernels' bf16
 mode), b_hh and h0 in f32, ys and h_n come back in x's dtype; under
@@ -305,50 +308,61 @@ class TorchGRU(nn.Module):
     """torch.nn.GRU(batch_first=True) equivalent with uniform(+-1/sqrt(H))
     init drawn from an explicit generator.
 
-    State convention as torch: ``hx`` is h (L, B, H); None means zeros."""
+    State convention as torch: ``hx`` is h (L * D, B, H) with D the
+    directions; None means zeros."""
 
     def __init__(self, input_size: int, hidden_size: int,
                  generator: torch.Generator, num_layers: int = 1,
                  bidirectional: bool = False, dropout: float = 0.0):
         super().__init__()
-        if bidirectional:
-            raise NotImplementedError(
-                "a bidirectional GRU is not ported (no shipped config "
-                "runs one)")
         self.hidden_size = hidden_size
         self.num_layers = num_layers
+        self.directions = 2 if bidirectional else 1
         self.dropout = dropout
         _uniform_params(self, generator, 1.0 / math.sqrt(hidden_size), 3,
-                        input_size, hidden_size, num_layers)
+                        input_size, hidden_size, num_layers, self.directions)
+
+    def _direction(self, x, k: int, reverse: bool, h0, kernel: bool):
+        """Layer k in one direction over x (B, T, din): (ys, h_n) in x's
+        dtype."""
+        sfx = f"l{k}" + ("_reverse" if reverse else "")
+        w_ih = getattr(self, f"weight_ih_{sfx}")
+        b_ih = getattr(self, f"bias_ih_{sfx}")
+        w_hh = getattr(self, f"weight_hh_{sfx}")
+        b_hh = getattr(self, f"bias_hh_{sfx}")
+        if kernel:
+            # the input projection for the whole sequence, outside the
+            # recurrence: JAX's einsum (preferred f32) + b_ih
+            xw = x.float() @ w_ih.T.float() + b_ih.float()
+            ys, h = gru_ops.gru_recurrence(
+                xw.contiguous(), w_hh.T.contiguous(),
+                b_hh.float().contiguous(), h0.float().contiguous())
+            return ys.to(x.dtype), h.to(x.dtype)
+        if w_hh.dtype == torch.bfloat16:
+            return gru_scan_lowp(x, w_ih.T, b_ih, b_hh, w_hh.T, h0)
+        return gru_ops.gru_recurrence_reference(x @ w_ih.T + b_ih, w_hh.T,
+                                                b_hh, h0)
 
     def forward(
         self, x: torch.Tensor, hx: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        layers, steps = self.num_layers, x.shape[1]
+        layers, steps, dirs = self.num_layers, x.shape[1], self.directions
         if hx is None:
-            hx = x.new_zeros(layers, x.shape[0], self.hidden_size)
+            hx = x.new_zeros(layers * dirs, x.shape[0], self.hidden_size)
         kernel = use_gru_kernel(x.device.type, steps, self.hidden_size)
         hs = []
         for k in range(layers):
-            w_ih = getattr(self, f"weight_ih_l{k}")
-            b_ih = getattr(self, f"bias_ih_l{k}")
-            w_hh = getattr(self, f"weight_hh_l{k}")
-            b_hh = getattr(self, f"bias_hh_l{k}")
-            dtype = x.dtype
-            if kernel:
-                # the input projection for the whole sequence, outside the
-                # recurrence: JAX's einsum (preferred f32) + b_ih
-                xw = x.float() @ w_ih.T.float() + b_ih.float()
-                x, h = gru_ops.gru_recurrence(
-                    xw.contiguous(), w_hh.T.contiguous(),
-                    b_hh.float().contiguous(), hx[k].float().contiguous())
-                x, h = x.to(dtype), h.to(dtype)
-            elif w_hh.dtype == torch.bfloat16:
-                x, h = gru_scan_lowp(x, w_ih.T, b_ih, b_hh, w_hh.T, hx[k])
-            else:
-                x, h = gru_ops.gru_recurrence_reference(
-                    x @ w_ih.T + b_ih, w_hh.T, b_hh, hx[k])
-            hs.append(h)
+            outs = []
+            for d in range(dirs):
+                # the reverse direction reads the sequence back to front
+                # (JAX's jnp.flip on its kernel route); its h_n is the
+                # state after the first original frame
+                x_dir = torch.flip(x, [1]) if d else x
+                ys, h = self._direction(x_dir, k, d == 1, hx[k * dirs + d],
+                                        kernel)
+                outs.append(torch.flip(ys, [1]) if d else ys)
+                hs.append(h)
+            x = outs[0] if dirs == 1 else torch.cat(outs, dim=-1)
             if k < layers - 1:
                 x = dropout(x, self.dropout, self.training)
         return x, torch.stack(hs)

@@ -18,15 +18,30 @@ cotangents f32. Any other mix raises.
 
 On CPU tensors ``lstm_stacked_recurrence`` runs ``lstm_stacked_reference``
 (f32: autograd records through it; bf16: its backward is the plain bf16
-backward). On CUDA tensors it launches ``csrc/lstm_stacked.cu`` (H 128,
-L 2 or 3, any B; the f32 or the bf16 instantiation): where a gradient
-is needed, the forward that stores the backward's residuals and then the
-backward kernel; otherwise the forward without residuals. Each runs R
-batch rows per cluster, the smallest R the card holds in one wave
-(``cluster_rows.choose_rows``, on the layout of the mode; L 3 takes only
-16), or the ``rows`` a caller names. Other shapes raise. Launch
-counters: ``fwd_launches`` (both f32 forwards), ``bwd_launches``,
-``bf16_fwd_launches`` and ``bf16_bwd_launches``.
+backward). On CUDA tensors it launches one of two routes (``route``):
+
+  * "wavefront", H 128 at L 2 or 3 (any B): ``csrc/lstm_stacked.cu``, the
+    whole stack in one cluster's shared memory (the f32 or the bf16
+    instantiation). It runs R batch rows per cluster, the smallest R the
+    card holds in one wave (``cluster_rows.choose_rows``, on the layout
+    of the mode; L 3 takes only 16), or the ``rows`` a caller names.
+    Launch counters: ``fwd_launches`` (both f32 forwards),
+    ``bwd_launches``, ``bf16_fwd_launches`` and ``bf16_bwd_launches``.
+  * "layers", H 256 at any L >= 2 and H 128 at L >= 4 (any B): the
+    stacks whose weights one cluster cannot hold, as a layer-lagged
+    window schedule of K8's chains on a stream a layer, the input
+    products and weight gradients on the repo's tensor-core GEMMs
+    (``csrc/lstm_recurrence.cu`` ``lstm_stacked_layers_*``); C steps a
+    window (``layers_chunk``, or the ``chunk`` a caller names: C = T runs
+    the layers one after the other, the same bits), CTAs per cluster of
+    the chains from ``lstm_recurrence.launch_ctas``. Launch counters:
+    ``layers_fwd_launches``, ``layers_bwd_launches``,
+    ``layers_bf16_fwd_launches`` and ``layers_bf16_bwd_launches``.
+
+Both routes take the same residual layout (hs (L-1, B, T, H), acts (L,
+B, T, 4H), cs (L, B, T, H)). Where a gradient is needed the wrapper
+launches the forward that stores them and then the backward; otherwise
+the forward without residuals. Other shapes raise, naming K9.
 """
 
 from __future__ import annotations
@@ -39,20 +54,24 @@ import torch
 
 from multimodalreactiongeneration_tpu_torch import _build
 from multimodalreactiongeneration_tpu_torch.ops import lstm_bf16
+from multimodalreactiongeneration_tpu_torch.ops import (
+    lstm_recurrence as k8,
+)
 from multimodalreactiongeneration_tpu_torch.ops.cluster_rows import (
     card_layout,
     resolve_rows,
-)
-from multimodalreactiongeneration_tpu_torch.ops.lstm_recurrence import (
-    lstm_recurrence_reference,
 )
 
 fwd_launches = 0
 bwd_launches = 0
 bf16_fwd_launches = 0
 bf16_bwd_launches = 0
+layers_fwd_launches = 0
+layers_bwd_launches = 0
+layers_bf16_fwd_launches = 0
+layers_bf16_bwd_launches = 0
 
-HIDDEN = 128       # the hidden size the kernels take
+HIDDEN = 128       # the hidden size the wavefront takes
 MAX_LAYERS = 3     # the most layers whose weights fit one 8-CTA cluster
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -141,8 +160,8 @@ def lstm_stacked_reference(xw0, w_ih_t, b_rest, w_hh_t, h0, c0):
     for layer in range(w_hh_t.shape[0]):
         if layer > 0:
             x = x @ w_ih_t[layer - 1] + b_rest[layer - 1]
-        x, (hn, cn) = lstm_recurrence_reference(x, w_hh_t[layer], h0[layer],
-                                                c0[layer])
+        x, (hn, cn) = k8.lstm_recurrence_reference(x, w_hh_t[layer],
+                                                   h0[layer], c0[layer])
         hns.append(hn)
         cns.append(cn)
     return x, (torch.stack(hns), torch.stack(cns))
@@ -179,6 +198,29 @@ def _lib():
         lib.lstm_stacked_resident_clusters.argtypes = [_I] * 4
         lib.lstm_stacked_resident_clusters.restype = ctypes.c_int
         lib._typed = True
+    return lib
+
+
+def _aligned16(tensors):
+    """The tensors, each copied if it does not start on 16 bytes (the
+    layer route's GEMMs and reductions read them 16 bytes at a time)."""
+    return [a if a is None or a.data_ptr() % 16 == 0 else a.clone()
+            for a in tensors]
+
+
+def _layers_lib():
+    """K8's library, which holds the layer route's entry points."""
+    lib = k8._lib()
+    if not getattr(lib, "_layers_typed", False):
+        lib.lstm_stacked_layers_workspace_floats.argtypes = [_I] * 4
+        lib.lstm_stacked_layers_workspace_floats.restype = ctypes.c_longlong
+        for mode in ("f32", "bf16"):
+            fwd = getattr(lib, f"lstm_stacked_layers_forward_{mode}")
+            bwd = getattr(lib, f"lstm_stacked_layers_backward_{mode}")
+            fwd.argtypes = [_P] * 14 + [_I] * 6 + [_P]
+            bwd.argtypes = [_P] * 19 + [_I] * 6 + [_P]
+            fwd.restype = bwd.restype = ctypes.c_int
+        lib._layers_typed = True
     return lib
 
 
@@ -226,15 +268,35 @@ def rows_for(device, layers: int, backward: bool, batch: int,
                  bf16)
 
 
+def route(layers: int, hidden: int) -> Optional[str]:
+    """The CUDA route of a stack: "wavefront" (``csrc/lstm_stacked.cu``),
+    "layers" (K8's chains in layer-lagged windows), or None."""
+    if hidden == HIDDEN and 2 <= layers <= MAX_LAYERS:
+        return "wavefront"
+    if hidden in k8.HIDDEN_SIZES and layers >= 2:
+        return "layers"
+    return None
+
+
+def layers_chunk(t: int) -> int:
+    """Steps a window of the layer route: 128 past 1,024 steps, else 64
+    (capped at T). A window costs a launch and a GEMM a layer, and the
+    schedule lags a window a layer: at H256 x L2 a training forward and
+    backward read 17.8 ms at T2016 over C 128, 18.5 over 64 and 17.9
+    over 256; 2.71 ms at T252 over 64, 2.89 over 32 and 2.96 over 128
+    (``tools/k9_layer_route_sweep.py``; PERF.md section 6)."""
+    return min(t, 128 if t > 1024 else 64)
+
+
 def kernel_refusal(layers: int, hidden: int, batch: int):
     """Why the kernels cannot take this stack, or None if they can."""
-    if hidden != HIDDEN:
-        return (f"hidden size {hidden}: the kernels take {HIDDEN} (the "
-                "recurrent weights of the stack must fit one 8-CTA cluster)")
-    if not 2 <= layers <= MAX_LAYERS:
-        return (f"{layers} layers: the kernels take 2 to {MAX_LAYERS} at "
-                f"hidden {HIDDEN} (the weights of more do not fit one "
-                "cluster's shared memory)")
+    if hidden not in k8.HIDDEN_SIZES:
+        return (f"hidden size {hidden}: the kernels take {k8.HIDDEN_SIZES} "
+                f"(the wavefront {HIDDEN} at 2 to {MAX_LAYERS} layers, whose "
+                "weights fit one 8-CTA cluster; the layer route the hidden "
+                "sizes of the K8 chains it runs)")
+    if layers < 2:
+        return f"{layers} layers: a stack has 2 or more"
     if batch < 1:
         return f"batch {batch}"
     return None
@@ -274,17 +336,40 @@ def _check(name, t, w_ih_t, b_rest, w_hh_t, h0, c0, **more):
     return layers, b, t, h, mm == torch.bfloat16
 
 
-def lstm_stacked_forward(args, residuals: bool, rows: Optional[int] = None):
-    """The forward kernel (CUDA only), at ``rows`` batch rows per cluster
-    (None: the wrapper's choice). Returns (ys, hn, cn, hs, acts, cs); hs
-    (L-1, B, T, H), acts (L, B, T, 4H) and cs (L, B, T, H) are the
-    backward's residuals, None unless ``residuals``."""
+def _route_options(name, layered, layers, h, t, rows, chunk):
+    """The layer route takes a window length and no rows per cluster, the
+    wavefront the reverse; returns the layer route's window (or None)."""
+    if layered and rows is not None:
+        raise ValueError(f"{name}: the layer route (H {h}, {layers} layers) "
+                         "takes no rows per cluster")
+    if not layered:
+        if chunk is not None:
+            raise ValueError(f"{name}: the wavefront (H {h}, {layers} "
+                             "layers) takes no window length")
+        return None
+    chunk = layers_chunk(t) if chunk is None else chunk
+    if not 1 <= chunk <= t:
+        raise ValueError(f"{name}: window of {chunk} steps over T {t}")
+    return chunk
+
+
+def lstm_stacked_forward(args, residuals: bool, rows: Optional[int] = None,
+                         chunk: Optional[int] = None):
+    """The forward kernels (CUDA only) of the stack's route: the wavefront
+    at ``rows`` batch rows per cluster, or the layer route in windows of
+    ``chunk`` steps (None: the wrapper's choice). Returns (ys, hn, cn, hs,
+    acts, cs); hs (L-1, B, T, H), acts (L, B, T, 4H) and cs (L, B, T, H)
+    are the backward's residuals, None unless ``residuals``."""
     xw0 = args[0]
     layers, b, t, h, bf16 = _check(
         "lstm_stacked_forward", xw0.shape[1], *args[1:],
         xw0=(xw0, lambda l, b, t, h: (b, t, 4 * h)))
-    rows = _rows("lstm_stacked_forward", xw0.device, layers, False, b, rows,
-                 bf16)
+    layered = route(layers, h) == "layers"
+    chunk = _route_options("lstm_stacked_forward", layered, layers, h, t,
+                           rows, chunk)
+    if not layered:
+        rows = _rows("lstm_stacked_forward", xw0.device, layers, False, b,
+                     rows, bf16)
     new = lambda *shape: torch.empty(*shape, dtype=torch.float32,
                                      device=xw0.device)
     ys, hn, cn = new(b, t, h), new(layers, b, h), new(layers, b, h)
@@ -293,12 +378,27 @@ def lstm_stacked_forward(args, residuals: bool, rows: Optional[int] = None):
         hs = new(layers - 1, b, t, h)
         acts = new(layers, b, t, 4 * h)
         cs = new(layers, b, t, h)
+    global fwd_launches, bf16_fwd_launches
+    global layers_fwd_launches, layers_bf16_fwd_launches
+    if layered:
+        lib = _layers_lib()
+        fn = (lib.lstm_stacked_layers_forward_bf16 if bf16
+              else lib.lstm_stacked_layers_forward_f32)
+        ws = new(lib.lstm_stacked_layers_workspace_floats(b, h, layers, 0))
+        _build.launch(fn, *_aligned16(args), ys, hn, cn, hs, acts, cs,
+                      new(b, t, 4 * h), ws,
+                      dims=(b, t, h, layers,
+                            k8.launch_ctas(xw0.device, b, h, bf16), chunk))
+        if bf16:
+            layers_bf16_fwd_launches += 1
+        else:
+            layers_fwd_launches += 1
+        return ys, hn, cn, hs, acts, cs
     lib = _lib()
     fn = (lib.lstm_stacked_forward_bf16 if bf16
           else lib.lstm_stacked_forward_f32)
     _build.launch(fn, *args, ys, hn, cn, hs, acts, cs,
                   dims=(b, t, layers, rows))
-    global fwd_launches, bf16_fwd_launches
     if bf16:
         bf16_fwd_launches += 1
     else:
@@ -307,11 +407,14 @@ def lstm_stacked_forward(args, residuals: bool, rows: Optional[int] = None):
 
 
 def lstm_stacked_backward(weights, ys, hs, acts, cs, dys, dhn, dcn,
-                          rows: Optional[int] = None):
-    """The backward kernel (CUDA only), from ``weights`` = (w_ih_t,
-    b_rest, w_hh_t, h0, c0) and the forward's residuals, at ``rows`` batch
-    rows per cluster (None: the wrapper's choice). Returns (dxw0, dw_ih_t,
-    db_rest, dw_hh_t, dh0, dc0), each in its input's dtype."""
+                          rows: Optional[int] = None,
+                          chunk: Optional[int] = None):
+    """The backward kernels (CUDA only) of the stack's route, from
+    ``weights`` = (w_ih_t, b_rest, w_hh_t, h0, c0) and the forward's
+    residuals: the wavefront at ``rows`` batch rows per cluster, or the
+    layer route in windows of ``chunk`` steps (None: the wrapper's
+    choice). Returns (dxw0, dw_ih_t, db_rest, dw_hh_t, dh0, dc0), each in
+    its input's dtype."""
     w_ih_t, b_rest, w_hh_t, h0, c0 = weights
     cots = [c.float().contiguous() for c in (dys, dhn, dcn)]
     layers, b, t, h, bf16 = _check(
@@ -323,11 +426,34 @@ def lstm_stacked_backward(weights, ys, hs, acts, cs, dys, dhn, dcn,
         dys=(cots[0], lambda l, b, t, h: (b, t, h)),
         dhn=(cots[1], lambda l, b, t, h: (l, b, h)),
         dcn=(cots[2], lambda l, b, t, h: (l, b, h)))
-    rows = _rows("lstm_stacked_backward", h0.device, layers, True, b, rows,
-                 bf16)
     dgates = torch.empty(layers, b, t, 4 * h, dtype=torch.float32,
                          device=h0.device)
     dwih, db, dwhh, dh0, dc0 = [torch.empty_like(a) for a in weights]
+    global bwd_launches, bf16_bwd_launches
+    global layers_bwd_launches, layers_bf16_bwd_launches
+    layered = route(layers, h) == "layers"
+    chunk = _route_options("lstm_stacked_backward", layered, layers, h, t,
+                           rows, chunk)
+    if layered:
+        lib = _layers_lib()
+        ws = torch.empty(
+            lib.lstm_stacked_layers_workspace_floats(b, h, layers, 1),
+            dtype=torch.float32, device=h0.device)
+        dy = torch.empty(b, t, h, dtype=torch.float32, device=h0.device)
+        fn = (lib.lstm_stacked_layers_backward_bf16 if bf16
+              else lib.lstm_stacked_layers_backward_f32)
+        _build.launch(fn, *_aligned16((w_ih_t, w_hh_t, h0, c0, ys, hs, acts,
+                                       cs, *cots)),
+                      dgates, dwih, db, dwhh, dh0, dc0, dy, ws,
+                      dims=(b, t, h, layers,
+                            k8.launch_ctas(h0.device, b, h, bf16), chunk))
+        if bf16:
+            layers_bf16_bwd_launches += 1
+        else:
+            layers_bwd_launches += 1
+        return dgates[0], dwih, db, dwhh, dh0, dc0
+    rows = _rows("lstm_stacked_backward", h0.device, layers, True, b, rows,
+                 bf16)
     lib = _lib()
     ws = torch.empty(lib.lstm_stacked_backward_workspace_floats(),
                      dtype=torch.float32, device=h0.device)
@@ -336,7 +462,6 @@ def lstm_stacked_backward(weights, ys, hs, acts, cs, dys, dhn, dcn,
     _build.launch(fn, w_ih_t, w_hh_t, h0, c0, ys, hs, acts, cs, *cots,
                   dgates, dwih, db, dwhh, dh0, dc0, ws,
                   dims=(b, t, layers, rows))
-    global bwd_launches, bf16_bwd_launches
     if bf16:
         bf16_bwd_launches += 1
     else:

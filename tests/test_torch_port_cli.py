@@ -166,6 +166,25 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, monkeypatch):
     assert last["epoch"] == 1 and last["opt"]["state"]
 
 
+def test_cli_trains_two_inner_layer_mixers(tmp_path, monkeypatch):
+    """``model.num_internal_layer=2`` (a setting configs/lstmformer.yaml
+    documents and no shipped yaml uses): 2-layer LSTM mixers in every
+    block and 2 MHA layers in every integrator train an epoch with the
+    generation eval (held to JAX in tests/test_torch_port_mixer_kinds.py)."""
+    monkeypatch.chdir(tmp_path)
+    corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_sessions=1,
+                                   seconds=90.0)
+    result = cli.main(["--config", YAML, "name=inner2", f"data_dir={corpus}",
+                       "ckpt_path=ck", "log_dir=log", *SMALL, "max_epochs=1",
+                       "model.num_internal_layer=2"])
+    rec = result.history[0]
+    for key in ("train_loss", "val_loss", "genrt_loss"):
+        assert np.isfinite(rec[key]), key
+    last = torch.load(tmp_path / "ck" / "inner2" / "last", weights_only=True)
+    assert (last["params"]["metaformer.block_0.emb_0.block_0.mixer."
+                           "weight_hh_l1"].shape == (4 * 32, 32))
+
+
 def test_cli_refuses_other_models_and_unported_options():
     """An unknown model, a 'model' mesh axis (parameter sharding, ROADMAP
     queue A, item 10) and a data axis wider than the process group raise;

@@ -175,9 +175,13 @@ def test_torchgru_dispatch_on_cpu(monkeypatch, t, routed):
 
 
 def test_gru_refusals():
+    """What the GRU route refuses, and what it no longer does: a
+    bidirectional GRU and 'mlp' mixers build and run (held to JAX in
+    tests/test_torch_port_mixer_kinds.py)."""
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="bidirectional"):
-        recurrent.TorchGRU(8, 8, gen, bidirectional=True)
+    y, hn = recurrent.TorchGRU(8, 8, gen, bidirectional=True)(
+        torch.ones(1, 4, 8))
+    assert y.shape == (1, 4, 16) and hn.shape == (2, 1, 8)
     gru = recurrent.TorchGRU(8, 8, gen, num_layers=2, dropout=0.1)
     x = torch.ones(1, 4, 8)
     # dropout between layers in training draws its masks only inside
@@ -199,8 +203,8 @@ def test_gru_refusals():
     with pytest.raises(ValueError, match="no kernel"):
         K10.gru_forward([torch.zeros(1, 2, 12), torch.zeros(4, 12),
                          torch.zeros(12), torch.zeros(1, 4)], False)
-    with pytest.raises(NotImplementedError, match="mlp"):
-        mixers.build_mixer_layerd("mlp", {"hidden_size": 8}, gen)
+    assert isinstance(mixers.build_mixer_layerd("mlp", {"hidden_size": 8},
+                                                gen), mixers.MLPMixerLayerd)
     layerd = mixers.build_mixer_layerd(
         "gru", dict(hidden_size=8, num_layerd=2, residual=True,
                     residual_layer_norm=True), gen)

@@ -687,23 +687,137 @@ def test_lstm_chains_refuse_rows_they_do_not_take(dev):
 
 
 def test_lstm_stacked_kernel_refuses_other_shapes(dev):
+    """K9 takes hidden 128 at 2-3 layers on the wavefront and hidden 256
+    (any depth) or 128 past 3 layers on the layer route; other hidden
+    sizes, one layer, bf16 states and rows per cluster on the layer route
+    raise, naming K9's refusal."""
     from multimodalreactiongeneration_tpu_torch.nn.recurrent import (
         use_lstm_stacked,
     )
     from multimodalreactiongeneration_tpu_torch.ops import lstm_stacked as K9
 
     b, t = 2, 16
-    for layers, h, dt, match in ((2, 256, torch.float32, "hidden size 256"),
-                                 (4, 128, torch.float32, "4 layers"),
+    for layers, h, dt, match in ((2, 64, torch.float32, "hidden size 64"),
+                                 (1, 128, torch.float32, "1 layers"),
                                  (2, 128, torch.bfloat16, "f32")):
         z = lambda *s: torch.zeros(*s, device=dev, dtype=dt)
         args = (z(b, t, 4 * h), z(layers - 1, h, 4 * h), z(layers - 1, 4 * h),
                 z(layers, h, 4 * h), z(layers, b, h), z(layers, b, h))
         with pytest.raises(ValueError, match=match):
             K9.lstm_stacked_recurrence(*args)
-    with pytest.raises(NotImplementedError, match="hidden size 256"):
-        use_lstm_stacked("cuda", 16, 2, 256, b)
+    z = lambda *s: torch.zeros(*s, device=dev)
+    h = 256
+    with pytest.raises(ValueError, match="no rows per cluster"):
+        K9.lstm_stacked_forward((z(b, t, 4 * h), z(1, h, 4 * h), z(1, 4 * h),
+                                 z(2, h, 4 * h), z(2, b, h), z(2, b, h)),
+                                False, rows=16)
+    with pytest.raises(NotImplementedError, match="hidden size 64"):
+        use_lstm_stacked("cuda", 16, 2, 64, b)
     assert use_lstm_stacked("cuda", 16, 2, 128, b)
+    assert use_lstm_stacked("cuda", 16, 2, 256, b)
+    assert use_lstm_stacked("cuda", 16, 4, 128, b)
+
+
+def _stacked_args(r, b, t, h, layers, bf16=False):
+    """K9's inputs (xw0, w_ih_t, b_rest, w_hh_t, h0, c0) and cotangents;
+    with ``bf16`` the weights bf16 (the bf16 operand mode)."""
+    w = (lambda a: a.to(torch.bfloat16)) if bf16 else (lambda a: a)
+    args = (r(b, t, 4 * h), w(r(layers - 1, h, 4 * h, s=0.06)),
+            r(layers - 1, 4 * h, s=0.06), w(r(layers, h, 4 * h, s=0.06)),
+            r(layers, b, h, s=0.3), r(layers, b, h, s=0.3))
+    return args, (r(b, t, h), r(layers, b, h), r(layers, b, h))
+
+
+def _stacked_counts(K9):
+    return (K9.fwd_launches, K9.bwd_launches, K9.bf16_fwd_launches,
+            K9.bf16_bwd_launches, K9.layers_fwd_launches,
+            K9.layers_bwd_launches, K9.layers_bf16_fwd_launches,
+            K9.layers_bf16_bwd_launches)
+
+
+@pytest.mark.parametrize("b,t,h,layers", [
+    (3, 16, 256, 2), (20, 37, 256, 3), (5, 17, 128, 4), (16, 96, 128, 4),
+    (32, 252, 256, 2), (32, 2016, 256, 2),
+])
+def test_lstm_stacked_layer_route_matches_plain(dev, b, t, h, layers):
+    """K9's layer route (hidden 256, and hidden 128 past 3 layers) vs the
+    plain version: the forward without residuals (no grad), the forward
+    with them and the backward, within K9's bounds, to the Metaformer's
+    audio encoder (B32 x T2016 x H256 x L2); exactly +2 / +1 launches of
+    the route's own counters, none of the wavefront's."""
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_stacked as K9
+
+    assert K9.route(layers, h) == "layers"
+    args, cots = _stacked_args(_rand(np.random.default_rng(b * t + h), dev),
+                               b, t, h, layers)
+    before = _stacked_counts(K9)
+    ys0, (hn0, cn0) = K9.lstm_stacked_recurrence(*args)
+    leaves = [a.clone().requires_grad_() for a in args]
+    ys, (hn, cn) = K9.lstm_stacked_recurrence(*leaves)
+    grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
+    torch.cuda.synchronize()
+    assert _stacked_counts(K9) == (*before[:4], before[4] + 2,
+                                   before[5] + 1, *before[6:])
+    ysr, (hr, cr) = K9.lstm_stacked_reference(*args)
+    want = (ysr, hr, cr, ysr, hr, cr,
+            *K9.lstm_stacked_backward_reference(args, *cots))
+    _assert_within_gates((ys0, hn0, cn0, ys, hn, cn, *grads), want, 6)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("b,t,h,layers,chunk", [
+    (3, 37, 256, 2, 16), (20, 33, 256, 3, 7), (5, 40, 128, 4, 13),
+    (32, 252, 256, 2, 64), (17, 130, 256, 2, 1),
+])
+def test_lstm_stacked_layer_route_windows_give_whole_sequence_bits(
+        dev, b, t, h, layers, chunk, bf16):
+    """The layer route's lagged windows (ragged last windows, windows of
+    one step) give the bits of ``chunk = T`` (the layers one after the
+    other): forward without and with residuals, every residual, and the
+    backward; run to run the same bits."""
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_stacked as K9
+
+    args, cots = _stacked_args(_rand(np.random.default_rng(b + t), dev),
+                               b, t, h, layers, bf16)
+    got, whole = [], []
+    for c, out in ((chunk, got), (t, whole), (chunk, got)):
+        fwd0 = K9.lstm_stacked_forward(args, False, chunk=c)
+        fwd = K9.lstm_stacked_forward(args, True, chunk=c)
+        grads = K9.lstm_stacked_backward(args[1:], fwd[0], *fwd[3:], *cots,
+                                         chunk=c)
+        out.append([x for x in (*fwd0[:3], *fwd, *grads) if x is not None])
+    for a, w, again in zip(got[0], whole[0], got[1]):
+        assert torch.equal(a, w) and torch.equal(a, again)
+
+
+@pytest.mark.parametrize("b,t,h,layers", [
+    (3, 16, 256, 2), (20, 37, 256, 3), (5, 17, 128, 4), (32, 252, 256, 2),
+    (32, 2016, 256, 2),
+])
+def test_lstm_stacked_layer_route_bf16_matches_plain_bf16(dev, b, t, h,
+                                                          layers):
+    """The layer route's bf16 mode (bf16 weights, f32 xw0, b_rest and
+    states) vs the plain bf16 version, within K9's bf16 bounds (a long
+    chain's distance test over its first 16 steps, where a rounding flip
+    has not compounded); dW come back bf16; +2 / +1 bf16 launches of the
+    route's counters."""
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_stacked as K9
+
+    args, cots = _stacked_args(_rand(np.random.default_rng(b * t + h), dev),
+                               b, t, h, layers, bf16=True)
+    before = _stacked_counts(K9)
+    ys0, (hn0, cn0) = K9.lstm_stacked_recurrence(*args)
+    leaves = [a.clone().requires_grad_() for a in args]
+    ys, (hn, cn) = K9.lstm_stacked_recurrence(*leaves)
+    grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
+    torch.cuda.synchronize()
+    assert _stacked_counts(K9) == (*before[:6], before[6] + 2, before[7] + 1)
+    ysr, (hr, cr) = K9.lstm_stacked_reference(*args)
+    ys32, _ = K9.lstm_stacked_reference(*[a.float() for a in args])
+    _bf16_within((ys0, hn0, cn0, ys, hn, cn), grads,
+                 (ysr, hr, cr) * 2, K9.lstm_stacked_backward_reference(
+                     args, *cots), short=t <= 40, ys_f32=ys32,
+                 mode_steps=None if t <= 40 else 16)
 
 
 def _rect_inputs(dev, seed, b, lq, lk, e, full_row=True):

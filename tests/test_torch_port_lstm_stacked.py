@@ -6,7 +6,10 @@ the JAX ``ops/pallas_lstm_stacked.py lstm_stacked_recurrence`` with its
 Pallas calls in interpret mode (patched as tests/test_pallas_lstm_stacked.py
 runs them), forward and all six input gradients under one random
 cotangent, f32: forward atol 2e-5, gradients atol 3e-4 (the JAX test's
-bound: the kernel takes its sums in another order). ``TorchLSTM`` with
+bound: the kernel takes its sums in another order), at 2, 3 and 4
+layers (4: past the wavefront, K9's layer route on the card). The layer
+route's host plan (its window, the route a stack takes) and its window
+schedule emulated in torch against the plain stack. ``TorchLSTM`` with
 2 and 3 layers vs the JAX ``TorchLSTM(impl="pallas")`` in interpret mode:
 outputs, (L, B, H) states and the gradients of input and parameters.
 Dispatch as the JAX package: under 16 steps the plain recurrence layer by
@@ -57,7 +60,7 @@ def _inputs(seed, b, t, h, layers):
     return args, cots
 
 
-@pytest.mark.parametrize("layers,t", [(2, 16), (3, 21)])
+@pytest.mark.parametrize("layers,t", [(2, 16), (3, 21), (4, 18)])
 def test_plain_lstm_stacked_matches_jax(layers, t):
     args, cots = _inputs(t, 3, t, 16, layers)
     jargs = [jnp.asarray(a) for a in args]
@@ -181,15 +184,60 @@ def test_torchlstm_stack_dispatch_on_cpu(monkeypatch, t, stacked):
 
 
 def test_stack_gate_raises_on_cuda_for_shapes_the_kernel_does_not_take():
+    """K9 takes hidden 128 at 2-3 layers on its wavefront and hidden 256
+    (any depth) or 128 past 3 layers on its layer route; other hidden
+    sizes raise on CUDA, naming the sizes it takes."""
     assert recurrent.use_lstm_stacked("cuda", 1120, 2, 128, 256)
     assert recurrent.use_lstm_stacked("cuda", 16, 3, 128, 12)
+    assert recurrent.use_lstm_stacked("cuda", 96, 2, 256, 2)
+    assert recurrent.use_lstm_stacked("cuda", 96, 4, 128, 2)
     assert not recurrent.use_lstm_stacked("cuda", 15, 2, 256, 2)
     assert not recurrent.use_lstm_stacked("cuda", 96, 1, 128, 2)
     assert recurrent.use_lstm_stacked("cpu", 96, 2, 16, 2)
-    with pytest.raises(NotImplementedError, match="hidden size 256"):
-        recurrent.use_lstm_stacked("cuda", 96, 2, 256, 2)
-    with pytest.raises(NotImplementedError, match="4 layers"):
-        recurrent.use_lstm_stacked("cuda", 96, 4, 128, 2)
+    with pytest.raises(NotImplementedError, match="hidden size 64"):
+        recurrent.use_lstm_stacked("cuda", 96, 2, 64, 2)
+    assert [K9.route(l, h) for l, h in ((2, 128), (3, 128), (4, 128),
+                                        (2, 256), (5, 256), (2, 64))] == [
+        "wavefront", "wavefront", "layers", "layers", "layers", None]
+
+
+def test_layer_route_plan():
+    """The layer route's window (``layers_chunk``: 64, 128 past 1,024
+    steps, capped at T) and the route each stack takes on CUDA."""
+    assert [K9.layers_chunk(t) for t in (1, 37, 64, 252, 1024, 1025, 2016,
+                                         2096)] == [1, 37, 64, 64, 64, 128,
+                                                    128, 128]
+    assert K9.kernel_refusal(1, 128, 2) == "1 layers: a stack has 2 or more"
+    assert K9.kernel_refusal(2, 256, 2) is None
+    assert K9.kernel_refusal(4, 128, 2) is None
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+def test_layer_route_windows_emulated_match_plain(chunk):
+    """The layer route's schedule in torch: layer l's window c from its
+    input product over the window's rows and the state the window before
+    left, after layer l - 1's window c; equals the plain stack (and so
+    JAX's) for any window length, a ragged last window included."""
+    args, _ = _inputs(11, 3, 45, 16, 3)
+    xw0, w_ih_t, b_rest, w_hh_t, h0, c0 = [torch.from_numpy(a) for a in args]
+    layers, t = w_hh_t.shape[0], xw0.shape[1]
+    outs = [torch.zeros(3, t, 16) for _ in range(layers)]
+    state = [(h0[l], c0[l]) for l in range(layers)]
+    for t0 in range(0, t, chunk):
+        win = slice(t0, min(t, t0 + chunk))
+        for l in range(layers):
+            x = (xw0[:, win] if l == 0
+                 else outs[l - 1][:, win] @ w_ih_t[l - 1] + b_rest[l - 1])
+            ys, state[l] = recurrent.k8.lstm_recurrence_reference(
+                x, w_hh_t[l], *state[l])
+            outs[l][:, win] = ys
+    want, (hn, cn) = K9.lstm_stacked_reference(xw0, w_ih_t, b_rest, w_hh_t,
+                                               h0, c0)
+    torch.testing.assert_close(outs[-1], want, rtol=0, atol=FWD_ATOL)
+    torch.testing.assert_close(torch.stack([s[0] for s in state]), hn,
+                               rtol=0, atol=FWD_ATOL)
+    torch.testing.assert_close(torch.stack([s[1] for s in state]), cn,
+                               rtol=0, atol=FWD_ATOL)
 
 
 def test_torchlstm_refuses_bidirectional_and_dropout_in_training(
