@@ -117,7 +117,7 @@ Phases:
      per generation (K9 forward +1, nothing else), time; one more
      generation under ``torch.profiler`` (table in
      ``_build/profile_lws_generation.txt``); then a teacher-forced f32
-     generation at batch 2 vs CPU tensors: <= 1e-4;
+     generation at batch 2 x 125 frames vs CPU tensors: <= 1e-4;
  12. lstm_with_sampling training step at the yaml's batch and window,
      B256 x T128 (lead 12), AdamW with the yaml's optim group: as phase
      8, with launches per step K9 +1 / +1 and K7 +2 / +2, per eval step
@@ -157,7 +157,7 @@ Phases:
      modality, so the rollout runs step by step), time; one more
      generation of the first 16 frames under ``torch.profiler`` (table in
      ``_build/profile_gru_generation.txt``); then a teacher-forced f32
-     generation at batch 2 vs CPU tensors: <= 1e-4;
+     generation at batch 2 x 125 frames vs CPU tensors: <= 1e-4;
  16. GRU training step, B32 x T240 (lead 12), f32, AdamW lr 1e-4, decay
      1e-2: as phase 8, with launches per step K10 +15 / +15, K5 +10, K6
      +10, per eval step K10 forward +15 and K5 +10, the profiler table in
@@ -248,11 +248,12 @@ Phases:
      batch-1 session with f32 rings (<= 1e-4), int8 against bf16 (<=
      1e-1);
  25. the flagship's scheduled-sampling step (``scheduled_sampling_phase``:
-     the loss on the AR rollout, gradients through its 240 steps, f32
-     per-block rings), B8 x T240 + lead 12, rate 0.5, AdamW: ms a step,
+     the loss on the AR rollout, gradients through its ``SS_FRAMES``
+     steps, f32 per-block rings), B8 x T120 + lead 12 (the yaml's T240
+     cut for room), rate 0.5, AdamW: ms a step,
      peak memory, launches exact (K3 +1 / K4 +1 over the lead's audio,
      nothing else); the card against CPU tensors at B2, the all-False
-     mask over T48 and rate 1 over 8 steps: loss <= 1e-5 relative,
+     mask over T24 and rate 1 over 8 steps: loss <= 1e-5 relative,
      gradients <= 1e-3 of the largest;
  26. the same for lstm_with_sampling at B32 x T128 (K9 +1 / +1);
  27. dropout steps (``dropout_phase``): the flagship at ``dropout`` 0.1,
@@ -348,7 +349,8 @@ Phases:
  34. ``generate_metaformer(fused_rollout="auto")`` at hidden 128 with 4
      heads and at hidden 256 with 8 heads (``rollout_route_phase``, own
      generator ``SEED + 34``): K1 +2, K2 +0, teacher-forced f32 at batch 2
-     within ``PATH_TOL`` of CPU tensors; ``fused_rollout=True`` raises;
+     x 125 frames (cut from 250 for room) within ``PATH_TOL`` of CPU tensors;
+     ``fused_rollout=True`` raises;
  35. data parallel (``data_parallel_phase``, fresh worker processes of
      ``parallel/multihost_dryrun.py``): a world-size-1 NCCL DDP step
      against the plain step within ``DP_ONE_TOL``; two gloo ranks on the
@@ -372,9 +374,27 @@ Phases:
      / K4 +2, the rollout's module loop); K5 / K6 +10 a step per inner
      layer (the integrators' MHA layers): five
      timed steps, the eval step and the card against CPU tensors at B2 x
-     T48 as phase 8 (no profile), one generation each (B16 x 250, bf16
-     caches, counts from 0), and the 2-inner-layer model's bf16 step
+     T48 as phase 8 (no profile), one generation each (B16 x 125, bf16
+     caches, counts from 0; cut from 250 for room), and the 2-inner-layer
+     model's bf16 step
      (K9's bf16 mode +15 / +15) held to the CPU as phase 31.
+ 38. the offline corpus pipeline (``corpus_pipeline_phase``, own
+     generator ``SEED + 38``; no kernel): ``ops/xcorr.py align_shift`` on
+     a 540 s session (a mix and two channels with planted shifts): the
+     card's lags equal the planted ones and the CPU's;
+     ``landmarks_to_pose`` over 13,500 frames of 478 landmarks in one
+     call and in chunks of 256, card against CPU within
+     ``POSE_TOL``; ``ops/dsp_reference.py compute_fbank`` over the 540 s
+     channel, card against CPU within ``FBANK_REF_TOL``; then the corpus
+     CLIs on a raw corpus the phase writes (``RAW_SESSIONS`` x
+     ``RAW_SECONDS``: comp, host and mix wavs with planted shifts and a
+     side-by-side array movie; a synthetic landmarker and an array
+     trimmer stand in for mediapipe and ffmpeg): ``corpus.alignment``
+     (the planted shifts back), ``corpus.landmarks`` (every frame a
+     ``.head``, statistics stamped), ``corpus.extract_angle_cent`` (the
+     ``.npz`` sections the planted detection gaps imply), the port's
+     ``databuild_nx`` manifests and one loader batch (its audio through
+     ``utils/native_io.py read_batch``), finite; ms a call and s a stage;
 
 Every kernel's JSON record carries its bound: the larger of its
 operations (FP32 at 67 TFLOP/s; the 3xTF32 products of K5's forward,
@@ -430,9 +450,11 @@ LAYOUT_FRAMES, STREAM_STEPS, SERVE_STEPS = 32, 125, 100
 SERVE_SLOTS, HOP_MS, INT8_TOL = (16, 64), 80.0, 1e-1
 # the training options: the scheduled-sampling steps (the flagship's
 # batch is sized by its f32 per-block rings, kept for backward at every
-# one of the 240 steps: ~92 MB a step at B8), the dropout rate of the
-# dropout steps, and the accumulation check's bound
-SS_STEPS, SS_RATE, SS_B, SS_LWS_B = 1, 0.5, 8, 32
+# step of the rollout: ~92 MB a step at B8; its rollout is cut from the
+# yaml's 240 frames to 120 for room: a host-driven step a frame, ~27 s at
+# 240), the dropout rate of the dropout steps, and the accumulation
+# check's bound
+SS_STEPS, SS_RATE, SS_B, SS_LWS_B, SS_FRAMES = 1, 0.5, 8, 32, 120
 DROPOUT, ACCUM_REL_TOL = 0.1, 1e-6
 # the bf16 modes of K7 and K9 against their plain bf16 versions (the two
 # round h and the dgates at the same products but sum in other orders, so
@@ -520,6 +542,10 @@ BF16_FWD_BATCH, BF16_FWD_FRAMES = 2, 48
 # phase 34: the rollout configs outside K2's shape contract
 ROUTE_CONFIGS = {"hidden128_heads4": dict(hidden_size=128),
                  "hidden256_heads8": dict(num_heads=8)}
+# the host-driven generations of phases 34 and 37 and the teacher-forced
+# card-against-CPU generations of phases 11 and 15, cut from 250 frames to
+# 125 for room (their draws unchanged: the batches are cut)
+LOOP_FRAMES = 125
 # phase 35: data parallel, the dryrun's Metaformer at the flagship's width
 # (hidden 256, 2 blocks, 2-block encoders, B8 x T8); the ranks' global
 # losses against one process within 1e-4, and their parameters after two
@@ -529,6 +555,14 @@ ROUTE_CONFIGS = {"hidden128_heads4": dict(hidden_size=128),
 # 6e-8); the world-size-1 NCCL DDP step within ``DP_ONE_TOL`` of the plain
 # step (loss and parameters; read 0)
 DP_HIDDEN, DP_LOSS_TOL, DP_PARAM_TOL, DP_ONE_TOL = 256, 1e-4, 1e-4, 1e-6
+# phase 38: the offline corpus pipeline. The card against the CPU: the
+# head pose's angles within 1e-3 degrees and centroids within 1e-5; the
+# Kaldi log-mel and log power within 1e-3 (the JAX package's bounds,
+# tests/test_dsp_reference.py). The raw corpus: sessions of 60 s, 16 kHz,
+# a 25 fps side-by-side movie of 8 x 16 frames; the alignment's full
+# session is the corpus sessions' 540 s
+POSE_TOL, FBANK_REF_TOL = (1e-3, 1e-5), (1e-3, 1e-3)
+RAW_SESSIONS, RAW_SECONDS, RAW_FRAME = 2, 60.0, (8, 16)
 LIBS = ("mixer_stack", "decode_rollout", "lstm_layer", "rect_attention",
         "lstm_stacked", "gru", "lstm_recurrence", "attention_bf16")
 SRC = "multimodalreactiongeneration_tpu_torch/csrc/"
@@ -563,6 +597,13 @@ def make_batch(rng, batch, frames=FRAMES, lead=LEAD):
     ]
     return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
             for s in shapes]
+
+
+def first_frames(batch, frames):
+    """A ``make_batch`` batch cut to its first ``frames`` frames (the
+    lead kept): a shorter generation from the same draws."""
+    cut = (frames * RATIO, frames, frames, None, None, None, frames)
+    return [x if n is None else x[:, :n] for x, n in zip(batch, cut)]
 
 
 def cuda_ms(fn, reps):
@@ -2582,8 +2623,9 @@ def generation_phase(mods, dev, rng, spec):
     generation, time; one more generation under ``torch.profiler`` (the
     busy share into the record, the table into ``_build/``; of the first
     ``profile_frames`` frames where the spec names them); then a
-    teacher-forced f32 generation at batch 2 against the same weights and
-    inputs on CPU tensors (the all-plain path): <= 1e-4."""
+    teacher-forced f32 generation at batch 2 x ``LOOP_FRAMES`` against
+    the same weights and inputs on CPU tensors (the all-plain path):
+    <= 1e-4."""
     from multimodalreactiongeneration_tpu_torch.infer.generate import (
         sampling_mask_for,
     )
@@ -2620,16 +2662,13 @@ def generation_phase(mods, dev, rng, spec):
     log(f"{tag}_generate", ms_per_generation=f"{gen_ms:.3f}",
         frames_per_s=f"{frames_per_s:.1f}", launches=launches)
     pf = spec.get("profile_frames", FRAMES)
-    first = batches[0]
-    cut = [first[0][:, :pf * RATIO], first[1][:, :pf], first[2][:, :pf],
-           *first[3:6], first[6][:, :pf]]
     busy, _ = profile_step(
         lambda bd: generate(model, bd,
                             sampling_mask_for(pf, "full", device=dev)),
-        cut, f"profile_{tag}_generation.txt")
+        first_frames(batches[0], pf), f"profile_{tag}_generation.txt")
 
-    small = make_batch(rng, 2)
-    teacher = sampling_mask_for(FRAMES, "teacher")
+    small = first_frames(make_batch(rng, 2), LOOP_FRAMES)
+    teacher = sampling_mask_for(LOOP_FRAMES, "teacher")
     on_card = generate(model, [x.to(dev) for x in small], teacher.to(dev),
                        **spec["f32"])
     on_cpu = generate(spec["model"]("cpu"), small, teacher, **spec["f32"])
@@ -3152,7 +3191,8 @@ def scheduled_sampling_phase(mods, dev, spec, n):
     audio stack K3 +1 / K4 +1, lws's sampler K9 +1 / +1; the 8-frame
     steps run the plain recurrences), ms a step and the peak memory; then
     the card against CPU tensors at B2, the same weights, SGD lr 0: the
-    all-False mask over T48 (teacher-forced), and rate 1 over 8 steps:
+    all-False mask over T24 (teacher-forced; cut from T48 for room), and
+    rate 1 over 8 steps:
     loss within ``LOSS_REL_TOL`` relative, every gradient within
     ``GRAD_REL_TOL`` of its parameter's largest (phase 8's bounds)."""
     from multimodalreactiongeneration_tpu_torch.train.harness import (
@@ -3197,7 +3237,7 @@ def scheduled_sampling_phase(mods, dev, spec, n):
 
     sgd0 = dict(use_optimizer="sgd", lr=0.0, momentum=0.0, weight_decay=0.0)
     gates = {}
-    for case, frames, mask in (("teacher_T48", 48, False),
+    for case, frames, mask in (("teacher_T24", 24, False),
                                ("rate1_T8", 8, True)):
         host = spec_batch(spec, rng, 2, frames=frames)
         mask_steps = torch.full((frames,), mask)
@@ -3444,7 +3484,7 @@ def train_options_phases(mods, dev):
     flagship, lws = metaformer_train_spec(), lws_train_spec()
     phases = {
         "ss_flagship": lambda: scheduled_sampling_phase(mods, dev, dict(
-            flagship, model_type="lstmformer", batch=SS_B,
+            flagship, model_type="lstmformer", batch=SS_B, frames=SS_FRAMES,
             per_step=dict(mixer_stack_train_fwd=1, mixer_stack_bwd=1)), 25),
         "ss_lws": lambda: scheduled_sampling_phase(mods, dev, dict(
             lws, model_type="lstm_with_sampling", batch=SS_LWS_B,
@@ -4380,13 +4420,14 @@ def rollout_route_phase(mods, dev, rng, cfg):
     """34. ``generate_metaformer`` under ``fused_rollout="auto"`` on
     configs its gate takes and K2 does not (``ROUTE_CONFIGS``: hidden 128
     with 4 heads, hidden 256 with 8 heads): teacher-forced, f32 rings, at
-    batch 2 x 250 frames, the module loop on the card (K1 +2, K2 +0)
+    batch 2 x ``LOOP_FRAMES`` frames, the module loop on the card (K1 +2,
+    K2 +0)
     against CPU tensors within ``PATH_TOL``; ``fused_rollout=True`` raises
     with K2's reason."""
     from multimodalreactiongeneration_tpu_torch.infer import generate as G
 
-    small = make_batch(rng, 2)
-    teacher = G.sampling_mask_for(FRAMES, "teacher")
+    small = first_frames(make_batch(rng, 2), LOOP_FRAMES)
+    teacher = G.sampling_mask_for(LOOP_FRAMES, "teacher")
     out = {}
     for name, changes in ROUTE_CONFIGS.items():
         model = flagship(cfg, dev, **changes)
@@ -4708,8 +4749,9 @@ def mixer_kinds_phase(mods, dev, rng):
     driven as a user would (``mixer_kind_spec``): the training step
     (``train_path_phase``: five timed f32 steps at B32 x T240 with exact
     launches, the eval step, the card against CPU tensors at B2 x T48),
-    then one ``generate_metaformer`` at B16 x 250 (bf16 caches, full
-    mask, "auto" routes), its counts set to 0 before it: shape, finite,
+    then one ``generate_metaformer`` at B16 x ``LOOP_FRAMES`` (bf16
+    caches, full mask, "auto" routes), its counts set to 0 before it:
+    shape, finite,
     exact launches, ms; and the 2-inner-layer model's bf16 step
     (``mixer_kind_bf16_spec``). Returns the records and launches by
     kind."""
@@ -4719,26 +4761,28 @@ def mixer_kinds_phase(mods, dev, rng):
     )
 
     out = {}
-    full = sampling_mask_for(FRAMES, "full", device=dev)
+    full = sampling_mask_for(LOOP_FRAMES, "full", device=dev)
     for kind in MIXER_KINDS:
         spec = mixer_kind_spec(kind)
         step = train_path_phase(mods, dev, rng, spec)
         model = spec_model(spec, dev)
-        batch = [x.to(dev) for x in make_batch(rng, B)]
+        batch = [x.to(dev) for x in first_frames(make_batch(rng, B),
+                                                 LOOP_FRAMES)]
         zero_counts(mods)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pred = generate_metaformer(model, batch, full)
         torch.cuda.synchronize()
         gen_ms = (time.perf_counter() - t0) * 1000
-        if tuple(pred.shape) != (B, FRAMES, MOTION_DIM):
+        if tuple(pred.shape) != (B, LOOP_FRAMES, MOTION_DIM):
             raise AssertionError(f"{kind} generation: {tuple(pred.shape)}")
         if not bool(torch.isfinite(pred).all()):
             raise AssertionError(f"{kind} generation: non-finite output")
         gen_launches = counts(mods)
         check_launches(f"{kind} generation", dict.fromkeys(COUNTERS, 0),
                        gen_launches, **spec["per_generation"])
-        log(f"{kind}_generate", batch=B, frames=FRAMES, ms=f"{gen_ms:.3f}",
+        log(f"{kind}_generate", batch=B, frames=LOOP_FRAMES,
+            ms=f"{gen_ms:.3f}",
             launches={k: v for k, v in gen_launches.items() if v})
         out[kind] = dict(step, generation_launches=gen_launches,
                          generation_ms=gen_ms)
@@ -4746,6 +4790,330 @@ def mixer_kinds_phase(mods, dev, rng):
     out["inner2_bf16"] = train_path_phase(mods, dev, rng,
                                           mixer_kind_bf16_spec())
     return out
+
+
+# ---- 38. the offline corpus pipeline -------------------------------------
+SR, FPS = 16000, 25
+
+
+def raw_channels(rng, seconds):
+    """A dyadic session's clean channels: comp and host take turns of
+    3-8 s noise bursts 2.5-4 s apart, and the listener answers within the
+    first 4 s of each turn with a 0.4-0.8 s burst at half the loudness,
+    so both channels sound in any 10 s window (the alignment's fine stage
+    correlates one). Both speak equally loud: the coarse stage correlates
+    RMS envelopes, and a louder partner's turn could outweigh a channel's
+    own. The mix is their mean."""
+    n = int(seconds * SR)
+    waves = np.zeros((2, n), np.float32)
+    t, who = 1.0, 0
+    while True:
+        length = rng.uniform(3.0, 8.0)
+        if t + length + 1.0 > seconds:
+            break
+        a, z = int(t * SR), int((t + length) * SR)
+        waves[who, a:z] += 0.3 * rng.standard_normal(z - a)
+        b = t + rng.uniform(0.5, min(length - 1.0, 3.0))
+        a, z = int(b * SR), int((b + rng.uniform(0.4, 0.8)) * SR)
+        waves[1 - who, a:z] += 0.15 * rng.standard_normal(z - a)
+        t, who = t + length + rng.uniform(2.5, 4.0), who ^ 1
+    return waves[0], waves[1], 0.5 * (waves[0] + waves[1])
+
+
+def plant(clean, shift):
+    """``clean`` recorded ``shift`` samples late (positive: leading
+    silence) or early (negative: its head cut)."""
+    if shift >= 0:
+        return np.concatenate([np.zeros(shift, np.float32), clean])
+    return clean[-shift:]
+
+
+def side_by_side_movie(frames):
+    """(frames, h, w, 3) uint8: the frame index in pixels 0 and 1 of each
+    half's first pixel, the half (0 comp, 1 host) in pixel 2."""
+    h, w = RAW_FRAME
+    movie = np.zeros((frames, h, w, 3), np.uint8)
+    t = np.arange(frames)
+    for side, x in ((0, 0), (1, w // 2)):
+        movie[:, 0, x, 0] = t % 256
+        movie[:, 0, x, 1] = t // 256
+        movie[:, 0, x, 2] = side
+    return movie
+
+
+class SyntheticLandmarker:
+    """Stands in for mediapipe: a fixed random face (MediaPipe's eye,
+    chin and forehead points placed) posed by a smooth trajectory of the
+    frame index the movie carries (within +-40 degrees), no face on a
+    3-frame gap every 400 frames (interpolated by extract_angle_cent) and
+    on a 20-frame gap of the host (a split)."""
+
+    def __init__(self, seed):
+        from multimodalreactiongeneration_tpu_torch.ops import rotations
+
+        self.rot = rotations
+        base = np.random.default_rng(seed).uniform(-0.15, 0.15, (478, 3))
+        base[rotations.LM_EYE_R] = [-0.2, 0.0, 0.0]
+        base[rotations.LM_EYE_L] = [0.2, 0.0, 0.0]
+        base[rotations.LM_FOREHEAD] = [0.0, -0.25, 0.0]
+        base[rotations.LM_CHIN] = [0.0, 0.25, 0.0]
+        self.base = base
+
+    def __call__(self, frame):
+        t = int(frame[0, 0, 0]) + 256 * int(frame[0, 0, 1])
+        side = int(frame[0, 0, 2])
+        if t % 400 in (200, 201, 202) or (side and 700 <= t < 720):
+            return None
+        return self.face(t, side)
+
+    def face(self, t, side):
+        """(478, 3) float32 landmarks of frame ``t`` of a side."""
+        ang = np.array([20.0 * np.sin(2 * np.pi * t / 250 + side),
+                        10.0 * np.sin(2 * np.pi * t / 170),
+                        5.0 * np.sin(2 * np.pi * t / 330)])
+        m = self.rot.angles_to_matrix(ang, "xyz")
+        center = np.array([0.5 + 0.05 * np.sin(t / 90.0), 0.5, 0.0])
+        return (self.base @ m + center).astype(np.float32)
+
+
+def open_array_movie(path):
+    """A movie stored as a numpy array (the raw corpus's stand-in for an
+    mp4)."""
+    from multimodalreactiongeneration_tpu_torch.corpus.video import (
+        ArrayVideoReader,
+    )
+
+    return ArrayVideoReader(np.load(path), fps=FPS)
+
+
+def array_trim_runner(cmd, check):
+    """Stands in for ffmpeg in ``infer/video.py trim_video``: the frames
+    of ``-i`` in [``-ss``, ``-to``) seconds to the last argument."""
+    frames = np.load(cmd[cmd.index("-i") + 1])
+    a = round(float(cmd[cmd.index("-ss") + 1]) * FPS)
+    z = round(float(cmd[cmd.index("-to") + 1]) * FPS)
+    with open(cmd[-1], "wb") as f:
+        np.save(f, frames[a:z])
+
+
+def write_raw_corpus(root, sessions=RAW_SESSIONS, seconds=RAW_SECONDS,
+                     seed=SEED + 38):
+    """Raw sessions ``data00``.. as recorded: comp.wav and host.wav with
+    planted shifts against the session mix pair.wav, and the side-by-side
+    movie.mp4 (an array movie) over the mix. Returns the planted shifts
+    by session."""
+    from multimodalreactiongeneration_tpu_torch.utils.wavio import write_wav
+
+    rng = np.random.default_rng(seed)
+    planted = {}
+    for s in range(sessions):
+        d = os.path.join(root, f"data{s:02d}")
+        os.makedirs(d, exist_ok=True)
+        comp, host, mix = raw_channels(rng, seconds)
+        shifts = {"comp": int(rng.integers(800, 8000)),
+                  "host": -int(rng.integers(800, 8000))}
+        write_wav(os.path.join(d, "pair.wav"), mix[None], SR)
+        for who, clean in (("comp", comp), ("host", host)):
+            write_wav(os.path.join(d, f"{who}.wav"),
+                      plant(clean, shifts[who])[None], SR)
+        with open(os.path.join(d, "movie.mp4"), "wb") as f:
+            np.save(f, side_by_side_movie(int(seconds * FPS)))
+        planted[f"data{s:02d}"] = shifts
+    return planted
+
+
+def corpus_chain(root, device, planted, config="configs/lstmformer.yaml"):
+    """The corpus CLIs, as a user runs them, on the raw corpus at
+    ``root / raw``: ``corpus.alignment``, ``corpus.landmarks`` (into the
+    aligned tree, beside its wavs), ``corpus.extract_angle_cent``, then
+    the training CLI's loaders at ``config`` over the built corpus (the
+    manifests under ./data of ``root``; per-batch native PCM16 reads, no
+    audio cache) and one batch. Checks each stage; returns the seconds of
+    each and the batch."""
+    from multimodalreactiongeneration_tpu_torch.configs import load_config
+    from multimodalreactiongeneration_tpu_torch.corpus import (
+        alignment,
+        extract_angle_cent,
+        landmarks,
+    )
+    from multimodalreactiongeneration_tpu_torch.data.head_io import (
+        load_head_file,
+    )
+    from multimodalreactiongeneration_tpu_torch.train.cli import (
+        make_streaming_loaders,
+    )
+    from multimodalreactiongeneration_tpu_torch.utils.logging import (
+        DummyLogger,
+    )
+
+    raw, aligned, npz = (os.path.join(root, d)
+                         for d in ("raw", "aligned", "npz"))
+    on = ["--device", str(device)]
+    seconds = {}
+    t0 = time.perf_counter()
+    alignment.main(["--target", raw, "--output", aligned, *on],
+                   video_runner=array_trim_runner)
+    seconds["alignment"] = time.perf_counter() - t0
+    for session, want in planted.items():
+        with open(os.path.join(aligned, session, "alignment.json")) as f:
+            got = json.load(f)["shifts"]
+        if got != want:
+            raise AssertionError(f"{session}: shifts {got}, planted {want}")
+    t0 = time.perf_counter()
+    landmarks.main(["--target", aligned, "--output", aligned, *on],
+                   landmarker=SyntheticLandmarker(SEED + 38),
+                   open_video_fn=open_array_movie)
+    seconds["landmarks"] = time.perf_counter() - t0
+    heads = 0
+    for session in planted:
+        frames = len(np.load(os.path.join(aligned, session, "movie.mp4")))
+        for who in ("comp", "host"):
+            d = os.path.join(aligned, session, who)
+            names = sorted(n for n in os.listdir(d) if n.endswith(".head"))
+            if len(names) != frames:
+                raise AssertionError(f"{d}: {len(names)} heads, {frames} "
+                                     "frames")
+            _, head = load_head_file(os.path.join(d, names[0]))
+            if head is None or not np.all(head.angle_std > 0):
+                raise AssertionError(f"{d}: statistics not stamped")
+            heads += len(names)
+    t0 = time.perf_counter()
+    extract_angle_cent.main(["--path", aligned, "--output", npz, *on])
+    seconds["extract_angle_cent"] = time.perf_counter() - t0
+    sections = {}
+    for session in planted:
+        names = sorted(os.listdir(os.path.join(npz, session)))
+        sections[session] = [n for n in names if n.endswith(".npz")]
+        # the host's 20-frame gap splits it in two; comp's 3-frame gaps
+        # are interpolated
+        if [n.split("_")[0] for n in sections[session]] != [
+                "comp", "host", "host"] or "comp.wav" not in names:
+            raise AssertionError(f"{session}: {names}")
+    cwd = os.getcwd()
+    config = os.path.abspath(config)
+    os.chdir(root)  # the manifests go under ./data of ``root``
+    try:
+        cfg = load_config(config, [f"data_dir={npz}", "batch_size=4",
+                                   "trainer.cache_audio_mb=0",
+                                   "trainer.prefetch_batches=0"])
+        t0 = time.perf_counter()
+        train, _, _, dataset = make_streaming_loaders(cfg, DummyLogger(),
+                                                      device)
+        batch = next(iter(train))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds["databuild_and_batch"] = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    for m, (data, lengths) in enumerate(batch):
+        data = torch.as_tensor(data)
+        if not bool(torch.isfinite(data).all()) or len(lengths) != 4:
+            raise AssertionError(f"loader batch entry {m}: not finite or "
+                                 f"{len(lengths)} rows")
+    return {"seconds": seconds, "heads": heads, "segments": len(dataset),
+            "npz_sections": sections, "batch": batch}
+
+
+def corpus_pipeline_phase(dev, card):
+    """38. (module docstring)"""
+    from multimodalreactiongeneration_tpu_torch import _build
+    from multimodalreactiongeneration_tpu_torch.ops import (
+        dsp_reference,
+        rotations,
+        xcorr,
+    )
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(SEED + 38)
+    record = {}
+    # the lag search on a corpus session's 540 s
+    comp, host, mix = raw_channels(rng, CORPUS_SECONDS)
+    planted = {"comp": int(rng.integers(800, 8000)),
+               "host": -int(rng.integers(800, 8000))}
+    chans = {"comp": plant(comp, planted["comp"]),
+             "host": plant(host, planted["host"])}
+    lags, ms = {}, {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        xcorr.align_shift(mix, chans["comp"], SR, device=d)  # warm-up
+        t0 = time.perf_counter()
+        lags[where] = {who: xcorr.align_shift(mix, ch, SR, device=d)
+                       for who, ch in chans.items()}
+        ms[where] = (time.perf_counter() - t0) * 1000 / len(chans)
+    log("corpus_align_shift", seconds=CORPUS_SECONDS, planted=planted,
+        card=lags["card"], cpu=lags["cpu"], ms_card=f"{ms['card']:.3f}",
+        ms_cpu=f"{ms['cpu']:.3f}", card_line=repr(card))
+    if not lags["card"] == lags["cpu"] == planted:
+        raise AssertionError(f"align_shift: card {lags['card']}, cpu "
+                             f"{lags['cpu']}, planted {planted}")
+    record["align_shift"] = {"seconds_of_audio": CORPUS_SECONDS,
+                             "lags": lags["card"], "ms_card": ms["card"],
+                             "ms_cpu": ms["cpu"]}
+
+    # the head pose of a 540 s side's frames, at once and in chunks
+    frames = int(CORPUS_SECONDS * FPS)
+    lm = SyntheticLandmarker(SEED + 38)
+    lms = np.stack([lm.face(t, 0) for t in range(frames)])
+    w, h = 640.0, 480.0
+    ms_pose, ang_card = cuda_ms(
+        lambda: rotations.landmarks_to_pose(lms, w, h, device=dev), 3)
+    ms_chunks, chunks = cuda_ms(lambda: [
+        rotations.landmarks_to_pose(lms[i:i + 256], w, h, device=dev)
+        for i in range(0, frames, 256)], 1)
+    ang_cpu, cen_cpu = rotations.landmarks_to_pose(lms, w, h, device=cpu)
+    errs = {}
+    for tag, (a, c) in (("whole", ang_card), ("chunks", (
+            torch.cat([x[0] for x in chunks]),
+            torch.cat([x[1] for x in chunks])))):
+        errs[tag] = (float((a.cpu() - ang_cpu).abs().max()),
+                     float((c.cpu() - cen_cpu).abs().max()))
+    log("corpus_landmarks_to_pose", frames=frames, landmarks=478,
+        angle_err_deg=f"{max(e[0] for e in errs.values()):.3e}",
+        centroid_err=f"{max(e[1] for e in errs.values()):.3e}",
+        ms_whole=f"{ms_pose:.3f}", ms_chunks_of_256=f"{ms_chunks:.3f}",
+        card_line=repr(card))
+    for tag, (ea, ec) in errs.items():
+        if not (ea <= POSE_TOL[0] and ec <= POSE_TOL[1]):
+            raise AssertionError(f"landmarks_to_pose {tag}: {ea}, {ec} > "
+                                 f"{POSE_TOL}")
+    record["landmarks_to_pose"] = {"frames": frames, "errors": errs,
+                                   "ms_whole": ms_pose,
+                                   "ms_chunks_of_256": ms_chunks}
+
+    # the Kaldi reference extractor over the 540 s channel
+    p = dsp_reference.KaldiParams(dither=0.0)
+    ms_fbank, (fb, lp) = cuda_ms(
+        lambda: dsp_reference.compute_fbank(comp, p, device=dev), 3)
+    fb_cpu, lp_cpu = dsp_reference.compute_fbank(comp, p, device=cpu)
+    fb_err = float((fb.cpu() - fb_cpu).abs().max())
+    lp_err = float((lp.cpu() - lp_cpu).abs().max())
+    log("corpus_fbank_reference", frames=tuple(fb.shape),
+        logmel_err=f"{fb_err:.3e}", log_power_err=f"{lp_err:.3e}",
+        ms=f"{ms_fbank:.3f}", card_line=repr(card))
+    if not (fb_err <= FBANK_REF_TOL[0] and lp_err <= FBANK_REF_TOL[1]):
+        raise AssertionError(f"compute_fbank: {fb_err}, {lp_err} > "
+                             f"{FBANK_REF_TOL}")
+    record["fbank_reference"] = {"frames": int(fb.shape[0]),
+                                 "logmel_err": fb_err,
+                                 "log_power_err": lp_err, "ms": ms_fbank}
+
+    # the corpus CLIs on a short raw corpus
+    root = str(_build.BUILD_DIR / "corpus_run")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    planted = write_raw_corpus(os.path.join(root, "raw"))
+    write_s = time.perf_counter() - t0
+    try:
+        chain = corpus_chain(root, dev, planted)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("corpus_cli_chain", sessions=RAW_SESSIONS, seconds=RAW_SECONDS,
+        heads=chain["heads"], segments=chain["segments"],
+        npz_sections=chain["npz_sections"], write_s=f"{write_s:.1f}",
+        **{f"{k}_s": f"{v:.2f}" for k, v in chain["seconds"].items()},
+        card_line=repr(card))
+    record["cli_chain"] = {k: chain[k] for k in ("seconds", "heads",
+                                                  "segments", "npz_sections")}
+    return record
 
 
 def main():
@@ -5085,6 +5453,9 @@ def main():
         mods, dev, np.random.default_rng(SEED + 36))
     kinds = mixer_kinds_phase(mods, dev, np.random.default_rng(SEED + 37))
 
+    # ---- 38. the offline corpus pipeline (no kernel) --------------------
+    corpus_pipeline = corpus_pipeline_phase(dev, card)
+
     k1_main, k2_main = k1_cases[0], k2_cases[1]
     # no single PyTorch call computes the encoder stack or the rollout
     record = {"kernels": [
@@ -5184,6 +5555,7 @@ def main():
                                                      "generation_launches")
                                    if n in v})
                         for k, v in kinds.items()},
+        "corpus_pipeline": corpus_pipeline,
         "seconds": time.perf_counter() - t_start}
     options = dict(options, dropout_cli=dropout_cli, lws_ss_cli=lws_ss_cli)
     for entry in record["kernels"]:  # the training options' launches

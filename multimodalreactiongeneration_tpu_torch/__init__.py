@@ -7,8 +7,9 @@ library. The hand-written Hopper kernels live in ``csrc/`` and are built
 with ``nvcc`` at first use (``_build.py``); every kernel wrapper keeps a
 plain PyTorch version beside it, which it runs for CPU tensors only.
 
-Entry points (the model, the loaders, the trainer, the training CLI) run
-on ``cuda:0`` unless the caller names a device: ``resolve_device``.
+Entry points (the model, the loaders, the trainer, the training CLI, the
+corpus tools and their CLIs) run on ``cuda:0`` unless the caller names a
+device: ``resolve_device``.
 """
 
 import torch

@@ -36,6 +36,7 @@ from multimodalreactiongeneration_tpu_torch.data.features import (
     MotionFeatureExtractorNX,
 )
 from multimodalreactiongeneration_tpu_torch.ops import dsp
+from multimodalreactiongeneration_tpu_torch.utils import native_io
 from multimodalreactiongeneration_tpu_torch.utils.wavio import read_wav
 
 PADDING_VALUE = -100.0
@@ -92,7 +93,8 @@ class SegmentDatasetNX:
         ``audio="spec"`` defers the wav read entirely: audio entries are
         ``(path, start, n_samples)`` tuples, letting the collate gather a
         whole batch of slices from the device-resident bank
-        (data/audio_cache.py) or read them as raw PCM16.
+        (data/audio_cache.py) or read them as raw PCM16 in one native
+        call (utils/native_io.py read_batch).
         """
         with open(self.data_list[index], "r", encoding="utf-8") as f:
             jdic = json.loads(f.readline())
@@ -371,7 +373,8 @@ def pad_collate_device(
         )
         if arrs and isinstance(arrs[0], tuple):
             # (path, start, n_samples) specs: gathered from the device
-            # bank, else read as raw PCM16 (zero past EOF) and uploaded;
+            # bank, else the whole batch's slices in one native read as
+            # raw PCM16 (utils/native_io.py, zero past EOF) and uploaded;
             # samples past each slice's true length are zero either way,
             # as on the array path (slice, then zero-pad)
             true_lens = [min(a[2], samples_needed) for a in arrs]
@@ -383,10 +386,12 @@ def pad_collate_device(
                     true_lens, samples_needed,
                 )
             if wave is None:
-                host = np.zeros((len(arrs), samples_needed), np.int16)
-                for b, (a, n) in enumerate(zip(arrs, true_lens)):
-                    data, _ = read_wav(a[0], a[1], n, dtype=np.int16)
-                    host[b, : data.shape[1]] = data[0]
+                host = native_io.read_batch(
+                    [a[0] for a in arrs], [a[1] for a in arrs],
+                    samples_needed, dtype=np.int16,
+                )
+                for b, n in enumerate(true_lens):
+                    host[b, n:] = 0
                 wave = torch.from_numpy(host).to(device)
         else:
             host = np.zeros((len(arrs), samples_needed), np.float32)

@@ -1,11 +1,12 @@
 """Energy VAD + two-party utterance/turn segmentation (host pipeline).
 
-A copy of ``multimodalreactiongeneration_tpu/data/segmentation.py`` for
-the corpus build: the framewise energy is the numpy sliding window (not
-the JAX package's ctypes library), and the debug plot and its command
-line are left out. Semantics-exact port of the reference's speech
-segmentation (reference mr_gen/databuild/utterance_analysis/
-speech_segmentation.py):
+A copy of ``multimodalreactiongeneration_tpu/data/segmentation.py``: the
+framewise energy runs through the port's binding of the native library
+(``utils/native_io.py frame_energy_native``, built from
+``native/mrgen_io.cpp``), the debug plot renders with matplotlib
+(imported only when plotting) and ``main`` is the VAD command line.
+Semantics-exact port of the reference's speech segmentation (reference
+mr_gen/databuild/utterance_analysis/speech_segmentation.py):
 
   * framewise log power, window 400 / hop 160, threshold -4 (:30-48)
   * two-party recursive utterance sectioning: pauses shorter than
@@ -17,30 +18,36 @@ speech_segmentation.py):
 transcribed from the reference: the recursive two-party merge/split
 rules are semantics-bearing, and any deviation in the index bookkeeping
 changes which windows exist in the dataset.
+
+The VAD is host work; the command line takes ``--device`` as every
+entry point of the port does (the card unless it names one) and raises
+without CUDA when it names none.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Tuple
 
 import numpy as np
 
+from multimodalreactiongeneration_tpu_torch import resolve_device
+from multimodalreactiongeneration_tpu_torch.utils.native_io import (
+    frame_energy_native,
+)
 from multimodalreactiongeneration_tpu_torch.utils.wavio import read_wav
 
 
 def compute_log_power(
     wave: np.ndarray, n_fft: int = 400, n_shift: int = 160
 ) -> np.ndarray:
-    """Framewise log energy, float32 (reference :30-38, loop-free); the
-    JAX package's native frame energy computes the identical sum of
-    squared samples per frame (tests/test_native_io.py)."""
-    num_frames = (len(wave) - n_fft) // n_shift + 1
-    if num_frames <= 0:
-        return np.zeros((0,), np.float32)
-    sq = (wave.astype(np.float32) ** 2)
-    frames = np.lib.stride_tricks.sliding_window_view(sq, n_fft)[::n_shift]
-    with np.errstate(divide="ignore"):  # silent frames -> -inf, unvoiced
-        return np.log(frames.sum(axis=-1, dtype=np.float32))
+    """Framewise log energy, float32 (reference :30-38): the native
+    library's sum of squared samples per frame (the databuild is
+    host-bound, and this is its hottest per-sample loop); silent frames
+    give -inf, unvoiced."""
+    energy = frame_energy_native(np.asarray(wave), n_fft, n_shift)
+    with np.errstate(divide="ignore"):
+        return np.log(energy)
 
 
 def collect_voiced_section(log_power: np.ndarray, threshold: float) -> np.ndarray:
@@ -208,6 +215,101 @@ def utterance_to_turn_section(
     return np.stack([starts, ends], axis=1)
 
 
+def plot_utterance_section(
+    output_dir: str,
+    wave_comp: np.ndarray,
+    wave_host: np.ndarray,
+    lp_comp: np.ndarray,
+    lp_host: np.ndarray,
+    ut_comp: np.ndarray,
+    ut_host: np.ndarray,
+    sampling_rate: int,
+    window_size: int = 400,
+    stride: int = 160,
+    time_range: Tuple[float, float] = (0, 15),
+) -> str:
+    """VAD section debug plot (reference speech_segmentation.py:209-288):
+    two stacked panels (comp, host) with the waveform, a twin-axis log
+    power trace (front-padded by ceil(window/stride) frames to line up
+    with sample time, :229-232), and translucent utterance-section spans;
+    one PNG per time window, named ``utterance_<start>_<end>.png``.
+
+    Deviation from the reference: panel titles name comp/host (the
+    reference titles BOTH panels "comp utterance section", :253 — a
+    cosmetic copy-paste slip not worth preserving), and trace lengths are
+    trimmed to a common length so the final partial window also renders.
+    """
+    import math
+
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    wav_start = int(time_range[0] * sampling_rate)
+    wav_end = int(time_range[1] * sampling_rate)
+    lp_start = wav_start // stride
+    lp_end = wav_end // stride
+
+    coordinater = math.ceil(window_size / stride)
+    lp_comp = np.concatenate([np.zeros(coordinater, np.float32), lp_comp])
+    lp_host = np.concatenate([np.zeros(coordinater, np.float32), lp_host])
+
+    # frame-unit sections -> seconds (:235-236)
+    ut_secs = [
+        np.asarray(u, np.float64) / sampling_rate * stride
+        for u in (ut_comp, ut_host)
+    ]
+    waveform = [
+        wave_comp[wav_start:wav_end], wave_host[wav_start:wav_end]
+    ]
+    lp = [lp_comp[lp_start:lp_end], lp_host[lp_start:lp_end]]
+    fills = ["paleturquoise", "navajowhite"]
+    spans = ["blue", "red"]
+    titles = ["comp utterance section", "host utterance section"]
+
+    times = np.arange(wav_start, wav_end) / sampling_rate
+    lp_times = np.arange(wav_start, wav_end, stride) / sampling_rate
+
+    fig = plt.figure(figsize=(20, 12))
+    axs = fig.subplots(2, 1)
+    for i in range(2):
+        axs[i].set_title(titles[i])
+        axs[i].set_ylabel("amplitude")
+        axs[i].set_xlabel("times")
+        axs[i].set_xlim(time_range[0], time_range[1])
+        axs[i].set_ylim(-0.8, 0.8)
+        n = min(len(times), len(waveform[i]))
+        axs[i].plot(times[:n], waveform[i][:n], label="waveform",
+                    color="gray", linewidth=3)
+
+        ax_lp = axs[i].twinx()
+        ax_lp.set_ylabel("power")
+        ax_lp.set_xlim(time_range[0], time_range[1])
+        ax_lp.set_ylim(-8, 4)
+        m = min(len(lp_times), len(lp[i]))
+        ax_lp.plot(lp_times[:m], lp[i][:m], label="log power",
+                   color=fills[i])
+
+        for sec in ut_secs[i]:
+            start, end = float(sec[0]), float(sec[1])
+            if end < time_range[0] or time_range[1] < start:
+                continue
+            axs[i].axvspan(
+                max(start, time_range[0]),
+                min(end, time_range[1]),
+                color=spans[i],
+                alpha=0.3,
+            )
+
+    start = str(int(time_range[0])).zfill(3)
+    end = str(int(time_range[1])).zfill(3)
+    out_path = os.path.join(output_dir, f"utterance_{start}_{end}.png")
+    fig.savefig(out_path)
+    plt.close(fig)
+    return out_path
+
+
 def get_utterance_section(
     host_path: str,
     comp_path: str,
@@ -219,8 +321,14 @@ def get_utterance_section(
     pause_with_voice: float = 1.0,
     pause_without_voice: float = 2.0,
     mergin: float = 1.0,
+    exp_plot: bool = False,
+    exp_plot_dir: str = "data/temp/utterance_section",
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Turn sections (seconds) for (comp, host) — reference :316-425."""
+    """Turn sections (seconds) for (comp, host) — reference :316-425.
+
+    ``exp_plot`` renders one debug PNG per 15-second window into
+    ``exp_plot_dir/<session>/`` (reference :380-406).
+    """
     wave_comp, sr_comp = read_wav(comp_path)
     wave_host, sr_host = read_wav(host_path)
     assert sr_comp == sr_host == sampling_rate
@@ -242,6 +350,28 @@ def get_utterance_section(
     )
 
     audio_length = len(wave_comp) / sampling_rate
+
+    if exp_plot:
+        # one figure per full 15 s window (reference :380-406)
+        session = os.path.split(os.path.dirname(host_path))[-1]
+        output_dir = os.path.join(exp_plot_dir, session)
+        os.makedirs(output_dir, exist_ok=True)
+        time_length = 15
+        for i in range(int(audio_length // time_length)):
+            plot_utterance_section(
+                output_dir,
+                wave_comp,
+                wave_host,
+                lp_comp,
+                lp_host,
+                utter_comp,
+                utter_host,
+                sampling_rate,
+                window_size,
+                stride,
+                time_range=(i * time_length, (i + 1) * time_length),
+            )
+
     turn_comp = utterance_to_turn_section(
         utter_comp, mergin, sampling_rate, stride, audio_length
     )
@@ -249,3 +379,40 @@ def get_utterance_section(
         utter_host, mergin, sampling_rate, stride, audio_length
     )
     return turn_comp, turn_host
+
+
+def main(argv=None) -> None:
+    """Standalone VAD/turn-segmentation CLI with ``--debug-plot``.
+
+    Mirrors the reference's runnable speech_segmentation module (its
+    ``exp_plot`` flag, :327-330); prints the turn sections as JSON lines.
+    """
+    import argparse
+    import json
+
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("host_wav")
+    ap.add_argument("comp_wav")
+    ap.add_argument("--sampling-rate", type=int, default=16000)
+    ap.add_argument("--threshold", type=float, default=-4)
+    ap.add_argument("--debug-plot", action="store_true",
+                    help="render per-15s VAD debug PNGs")
+    ap.add_argument("--plot-dir", default="data/temp/utterance_section")
+    ap.add_argument("--device", default=None,
+                    help="the port's device (default cuda:0); the VAD "
+                    "itself is host work")
+    args = ap.parse_args(argv)
+    resolve_device(args.device)
+    turn_comp, turn_host = get_utterance_section(
+        args.host_wav,
+        args.comp_wav,
+        args.sampling_rate,
+        threshold=args.threshold,
+        exp_plot=args.debug_plot,
+        exp_plot_dir=args.plot_dir,
+    )
+    print(json.dumps({"comp": turn_comp.tolist(), "host": turn_host.tolist()}))
+
+
+if __name__ == "__main__":
+    main()

@@ -7,10 +7,18 @@ degrees, over any leading batch axes. A torch tensor gives a tensor on
 its device, a numpy array (or a list) a numpy array; the dtype is kept
 (float32 stays float32, as in the JAX functions).
 
-Parity note: the decomposition uses arctan, not arctan2, as the
-reference does (gimbal-unsafe, but it defines the angles the corpus
-holds). ``calc_R``, ``centroid`` and ``landmarks_to_pose`` come with the
-corpus tools.
+Parity notes:
+  * the decomposition uses arctan, not arctan2, as the reference does
+    (gimbal-unsafe, but it defines the angles the corpus holds);
+  * ``calc_R`` keeps the reference's Gram-Schmidt with its quirk of
+    normalizing z by |y| (a no-op numerically, |y| = 1 there;
+    reference rotations.py:44-45);
+  * landmark indices 33/263 (eye corners), 152 (chin), 10 (forehead):
+    MediaPipe FaceMesh canonical points (reference rotations.py:14-17).
+
+``landmarks_to_pose`` is the corpus tools' entry point: a chunk of
+frames' landmarks to (angle, centroid) in one batched call on the device
+``resolve_device`` gives (the card unless the caller names one).
 """
 
 from __future__ import annotations
@@ -20,8 +28,15 @@ import math
 import numpy as np
 import torch
 
+from multimodalreactiongeneration_tpu_torch import resolve_device
+
 DEG2RAD = math.pi / 180.0
 RAD2DEG = 180.0 / math.pi
+
+LM_EYE_R = 33
+LM_EYE_L = 263
+LM_CHIN = 152
+LM_FOREHEAD = 10
 
 ORDERS = (
     "xzx", "xyx", "yxy", "yzy", "zyz", "zxz",
@@ -183,3 +198,70 @@ def matrix_to_angles(m, order: str = "xyz"):
     else:
         raise ValueError(f"invalid order {order!r}")
     return stack([t1, t2, t3], -1) * RAD2DEG
+
+
+def _vec_ops(x):
+    """(array, scale vector maker, norm, dot, cross, stack) over the last
+    axis, for a tensor or a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return (
+            x,
+            lambda v: torch.tensor(v, dtype=x.dtype, device=x.device),
+            lambda v: torch.linalg.vector_norm(v, dim=-1, keepdim=True),
+            lambda a, b: (a * b).sum(-1, keepdim=True),
+            lambda a, b: torch.linalg.cross(a, b, dim=-1),
+            torch.stack,
+        )
+    x = np.asarray(x)
+    return (
+        x,
+        lambda v: np.asarray(v, dtype=x.dtype),
+        lambda v: np.linalg.norm(v, axis=-1, keepdims=True),
+        lambda a, b: (a * b).sum(-1, keepdims=True),
+        np.cross,
+        np.stack,
+    )
+
+
+def calc_R(landmarks, img_w: float, img_h: float):
+    """Face-frame rotation matrix from (..., 478, 3) normalized landmarks
+    (reference rotations.py:6-49): rows are the face-local x (eye line),
+    y (vertical) and z axes in image space. A tensor gives a tensor on its
+    device, a numpy array a numpy array."""
+    landmarks, vec, norm, dot, cross, stack = _vec_ops(landmarks)
+    scale = vec([img_w, img_h, img_w])
+    p33 = landmarks[..., LM_EYE_R, :] * scale
+    p263 = landmarks[..., LM_EYE_L, :] * scale
+    p152 = landmarks[..., LM_CHIN, :] * scale
+    p10 = landmarks[..., LM_FOREHEAD, :] * scale
+
+    _x = p263 - p33
+    x = _x / norm(_x)
+    _y = p152 - p10
+    y = _y - x * dot(x, _y)
+    y = y / norm(y)
+    z = cross(x, y)
+    z = z / norm(y)  # the reference's |y|, kept
+    return stack([x, y, z], -2)
+
+
+def centroid(landmarks):
+    """Mean landmark = face centroid (reference adapter.py:22-24)."""
+    if isinstance(landmarks, torch.Tensor):
+        return landmarks.mean(-2)
+    return np.asarray(landmarks).mean(-2)
+
+
+def landmarks_to_pose(landmarks, img_w: float, img_h: float, device=None):
+    """(T, 478, 3) landmarks (numpy or a tensor) -> (angle (T, 3) degrees,
+    centroid (T, 3)) as float32 tensors on the resolved device.
+
+    The reference runs these per frame inside FaceAdapter.__init__
+    (adapter.py:26-33): centroid = mean landmark, the face centered, then
+    angle = matrix_to_angles(calc_R(face)). Centering is a translation and
+    calc_R reads landmark differences only, so R is unaffected: one
+    batched call over a chunk of frames gives both."""
+    device = resolve_device(device)
+    lms = torch.as_tensor(landmarks, dtype=torch.float32, device=device)
+    ang = matrix_to_angles(calc_R(lms, float(img_w), float(img_h)), "xyz")
+    return ang, centroid(lms)
