@@ -113,10 +113,10 @@ Phases:
      2-layer ``torch.nn.LSTM`` with the same recurrent weights timed as a
      yardstick (it also computes layer 0's input product);
  11. lstm_with_sampling generation: ``generate_lws`` with the full mask
-     on 3 batches of 16 x 250 frames (lead 12): shape, finite, launches
-     per generation (K9 forward +1, nothing else), time; one more
-     generation under ``torch.profiler`` (table in
-     ``_build/profile_lws_generation.txt``); then a teacher-forced f32
+     on 1 batch of 16 x 250 frames (lead 12; cut from 3 for room, the
+     same draws): shape, finite, launches per generation (K9 forward +1,
+     nothing else), time (no profile: PERF.md quotes its table); then a
+     teacher-forced f32
      generation at batch 2 x 125 frames vs CPU tensors: <= 1e-4;
  12. lstm_with_sampling training step at the yaml's batch and window,
      B256 x T128 (lead 12), AdamW with the yaml's optim group: as phase
@@ -151,13 +151,12 @@ Phases:
      weights timed as a yardstick (it also computes the input product; at
      the decode hoist its forward alone, without a gradient);
  15. GRU generation: ``generate_metaformer`` with the GRU config, full
-     mask, bf16 caches, on 3 batches of 16 x 250 frames (lead 12): shape,
-     finite, launches per generation (K10 forward +10, the hoisted
-     encoders; nothing else: the fused rollout's gate needs an LSTM main
-     modality, so the rollout runs step by step), time; one more
-     generation of the first 16 frames under ``torch.profiler`` (table in
-     ``_build/profile_gru_generation.txt``); then a teacher-forced f32
-     generation at batch 2 x 125 frames vs CPU tensors: <= 1e-4;
+     mask, bf16 caches, on 1 batch of 16 x 250 frames (lead 12; cut from
+     3 for room, the same draws): shape, finite, launches per generation
+     (K10 forward +10, the hoisted encoders; nothing else: the fused
+     rollout's gate needs an LSTM main modality, so the rollout runs step
+     by step), time (no profile); then a teacher-forced f32 generation at
+     batch 2 x 125 frames vs CPU tensors: <= 1e-4;
  16. GRU training step, B32 x T240 (lead 12), f32, AdamW lr 1e-4, decay
      1e-2: as phase 8, with launches per step K10 +15 / +15, K5 +10, K6
      +10, per eval step K10 forward +15 and K5 +10, the profiler table in
@@ -224,9 +223,10 @@ Phases:
      and val
      losses, V top-k checkpoints and ``last``, exact K7 launches (per
      train step +4 / +4, per validation batch an eval step, +4 forward);
- 22. decode layouts on the flagship (``decode_layouts_phase``), B16 x 32
-     frames, lead 12: teacher-forced f32 per-block and in-loop shared
-     against the hoisted K2 path (<= 1e-4), per-block int8 against bf16
+ 22. decode layouts on the flagship (``decode_layouts_phase``), B16 x 16
+     frames (cut from 32 for room), lead 12: teacher-forced f32
+     per-block and in-loop shared against the hoisted K2 path (<= 1e-4),
+     per-block int8 against bf16
      (<= 1e-1, tests/test_generate.py's bound), per-block f32 at batch 2
      against CPU tensors (<= 1e-4); the per-block bf16 and int8, in-loop
      bf16 and hoisted bf16 generations timed with the full mask, and a
@@ -351,11 +351,12 @@ Phases:
      generator ``SEED + 34``): K1 +2, K2 +0, teacher-forced f32 at batch 2
      x 125 frames (cut from 250 for room) within ``PATH_TOL`` of CPU tensors;
      ``fused_rollout=True`` raises;
- 35. data parallel (``data_parallel_phase``, fresh worker processes of
-     ``parallel/multihost_dryrun.py``): a world-size-1 NCCL DDP step
-     against the plain step within ``DP_ONE_TOL``; two gloo ranks on the
-     one card, every step path and a one-epoch ``Trainer.fit`` against
-     one process within ``DP_LOSS_TOL`` / ``DP_PARAM_TOL``;
+ 35. data parallel (``mesh_phases``, fresh worker processes of
+     ``parallel/multihost_dryrun.py``, launched once with phase 39's): a
+     world-size-1 NCCL DDP step against the plain step within
+     ``DP_ONE_TOL``; two gloo ranks on the one card, every step path and
+     a one-epoch ``Trainer.fit`` against one process within
+     ``DP_LOSS_TOL`` / ``DP_PARAM_TOL``;
  36. K9's layer route (``stacked_layers_phase``, own generator ``SEED +
      36``: the stacks the wavefront cannot hold, a layer-lagged window
      schedule of K8's chains with the input products and weight
@@ -395,6 +396,28 @@ Phases:
      ``.npz`` sections the planted detection gaps imply), the port's
      ``databuild_nx`` manifests and one loader batch (its audio through
      ``utils/native_io.py read_batch``), finite; ms a call and s a stage;
+ 39. the (data, model) mesh (``mesh_phases``, generator ``SEED + 39``;
+     run with phase 35, in the same two launches: the single process's,
+     then two gloo ranks on CUDA tensors of the one card): (a) a (1, 2)
+     mesh, the flagship's parameters and AdamW state sharded by JAX's
+     ``param_sharding``, 3 f32 steps at B32 x T240 against one process
+     (loss within ``LOSS_REL_TOL``, parameters within ``DP_PARAM_TOL``,
+     the ranks' gathered parameters the same bits, each rank storing half
+     of the split parameters and of their AdamW state, per rank exactly
+     phase 8's launches a step), the second step's ms per rank beside one
+     process's; one bf16 step against one process's within
+     ``DP_LOSS_TOL`` / ``DP_PARAM_TOL``, per rank phase 31's launches;
+     (b) a one-epoch (1, 2) ``Trainer.fit`` of the dryrun's model against
+     one process within ``DP_LOSS_TOL``, rank 0 alone writing, its
+     ``last`` loading ``strict=True`` into one process's model equal to
+     the ranks' gathered parameters; (c) a 16-slot ``ServingEngine``
+     split over the two ranks: f32 rings, 4 steps with staggered
+     attaches, against this process's 16-slot engine within
+     ``PATH_TOL``; 15 slots raise; bf16 rings, ``SERVE_STEPS`` steps
+     (attaches and a detach / reattach as phase 24's), step ms
+     p50/p95/p99 per rank beside phase 24's pool; per rank K1 +1 per
+     attach it owns, nothing per step. Two ranks on one card say nothing
+     of scaling over cards;
 
 Every kernel's JSON record carries its bound: the larger of its
 operations (FP32 at 67 TFLOP/s; the 3xTF32 products of K5's forward,
@@ -446,7 +469,8 @@ EVAL_RENDER_FRAMES = 2
 # streamed steps (10 s of dialogue), the serving steps and pool sizes,
 # the 80 ms hop a step must keep up with, and the int8 drift bound of
 # tests/test_generate.py
-LAYOUT_FRAMES, STREAM_STEPS, SERVE_STEPS = 32, 125, 100
+# phase 22's layouts at 16 frames (cut from 32 for room)
+LAYOUT_FRAMES, STREAM_STEPS, SERVE_STEPS = 16, 125, 100
 SERVE_SLOTS, HOP_MS, INT8_TOL = (16, 64), 80.0, 1e-1
 # the training options: the scheduled-sampling steps (the flagship's
 # batch is sized by its f32 per-block rings, kept for backward at every
@@ -2619,13 +2643,12 @@ def generation_phase(mods, dev, rng, spec):
     """11. and 15. A generation main path at full width (random weights
     from SEED), as ``spec`` names it (tag, model constructor, generate
     function and the launches of one generation), with the full mask on
-    3 batches of 16 x 250 frames (lead 12): shape, finite, launches per
-    generation, time; one more generation under ``torch.profiler`` (the
-    busy share into the record, the table into ``_build/``; of the first
-    ``profile_frames`` frames where the spec names them); then a
-    teacher-forced f32 generation at batch 2 x ``LOOP_FRAMES`` against
-    the same weights and inputs on CPU tensors (the all-plain path):
-    <= 1e-4."""
+    3 batches of 16 x 250 frames (lead 12; the first ``batches`` of them
+    where the spec names it): shape, finite, launches per generation,
+    time; then a teacher-forced f32 generation at batch 2 x
+    ``LOOP_FRAMES`` against the same weights and inputs on CPU tensors
+    (the all-plain path): <= 1e-4. No profile (cut for room: PERF.md
+    quotes their tables)."""
     from multimodalreactiongeneration_tpu_torch.infer.generate import (
         sampling_mask_for,
     )
@@ -2633,7 +2656,8 @@ def generation_phase(mods, dev, rng, spec):
     tag, generate = spec["tag"], spec["generate"]
     model = spec["model"](dev)
     full = sampling_mask_for(FRAMES, "full", device=dev)
-    batches = [[x.to(dev) for x in make_batch(rng, B)] for _ in range(3)]
+    batches = [[x.to(dev) for x in make_batch(rng, B)]
+               for _ in range(3)][:spec.get("batches", 3)]
     generate(model, batches[0], full)  # warm-up, not counted
     torch.cuda.synchronize()
     zero_counts(mods)
@@ -2661,12 +2685,6 @@ def generation_phase(mods, dev, rng, spec):
     frames_per_s = B * FRAMES / (gen_ms / 1000)
     log(f"{tag}_generate", ms_per_generation=f"{gen_ms:.3f}",
         frames_per_s=f"{frames_per_s:.1f}", launches=launches)
-    pf = spec.get("profile_frames", FRAMES)
-    busy, _ = profile_step(
-        lambda bd: generate(model, bd,
-                            sampling_mask_for(pf, "full", device=dev)),
-        first_frames(batches[0], pf), f"profile_{tag}_generation.txt")
-
     small = first_frames(make_batch(rng, 2), LOOP_FRAMES)
     teacher = sampling_mask_for(LOOP_FRAMES, "teacher")
     on_card = generate(model, [x.to(dev) for x in small], teacher.to(dev),
@@ -2680,7 +2698,6 @@ def generation_phase(mods, dev, rng, spec):
     return {"launches": launches, "record": {
         "batch": B, "frames": FRAMES, "ms": gen_ms,
         "frames_per_s": frames_per_s, "ms_each": times,
-        "device_busy_share": busy,
         "teacher_batch2_vs_cpu_max_abs_err": err}}
 
 
@@ -2715,8 +2732,8 @@ def gru_records(cases, launches, **more_launches):
 
 def lws_generation_spec():
     """lstm_with_sampling's generation: K9 +1 per generation (the
-    sampler's warmup), nothing else; the profile of its first 64 frames
-    (the whole generation's took ~48 s of the script)."""
+    sampler's warmup), nothing else; one batch (host-driven steps, ~1.3 s
+    a generation)."""
     from multimodalreactiongeneration_tpu_torch.configs import LWS_MODEL_CFG
     from multimodalreactiongeneration_tpu_torch.infer.generate import (
         generate_lws,
@@ -2726,7 +2743,7 @@ def lws_generation_spec():
 
     return dict(
         tag="lws", generate=generate_lws, per_generation=dict(
-            lstm_stacked_fwd=1), f32={}, profile_frames=64,
+            lstm_stacked_fwd=1), f32={}, batches=1,
         model=lambda device: LSTMwithSample(
             LWS_MODEL_CFG, generator=torch.Generator().manual_seed(SEED),
             device=device))
@@ -2735,7 +2752,8 @@ def lws_generation_spec():
 def gru_generation_spec():
     """The GRU Metaformer's generation, bf16 caches: K10 +10 per
     generation (the hoisted audio and partner-motion encoders, 5 blocks
-    each), nothing else."""
+    each), nothing else; one batch (its host-driven steps take ~4.6 s a
+    generation)."""
     from multimodalreactiongeneration_tpu_torch.configs import (
         LSTMFORMER_GRU_MODEL_CFG,
     )
@@ -2746,11 +2764,8 @@ def gru_generation_spec():
         Metaformer,
     )
 
-    # its host-driven steps give the profiler ~10^5 events a frame: the
-    # profiled generation is the first 16 frames (250 took ~140 s, most
-    # of it the profiler's own processing; 64 took ~28 s)
     return dict(
-        tag="gru", generate=generate_metaformer, profile_frames=16,
+        tag="gru", generate=generate_metaformer, batches=1,
         per_generation=dict(gru_fwd=10), f32=dict(cache_dtype=torch.float32),
         model=lambda device: Metaformer(
             LSTMFORMER_GRU_MODEL_CFG,
@@ -4460,35 +4475,116 @@ def rollout_route_phase(mods, dev, rng, cfg):
     return out
 
 
-def data_parallel_phase():
-    """35. Data parallel (``parallel/multihost_dryrun.py``; each worker a
-    fresh process, waited on with a timeout): a world-size-1 NCCL DDP step
-    (f32 and bf16) against the plain step in one process, within
-    ``DP_ONE_TOL``; two ranks over gloo on CUDA tensors of the one card
-    (NCCL refuses two ranks on one GPU), the five step paths against one
-    process within ``DP_LOSS_TOL`` / ``DP_PARAM_TOL``, ranks equal; a
-    one-epoch ``Trainer.fit`` of two ranks against one process, the
-    validation loss within ``DP_LOSS_TOL``, rank 0 alone writing. The two
-    ranks' step ms (host clock to the global loss; the second step's
-    printed) beside one process's, the two launches one after the other
-    (the world-size-1 check launches both at once: its times contend):
-    two ranks on one card say nothing of scaling over cards."""
+# chip_smoke.py's kernel-module keys as ``parallel/multihost_dryrun.py``
+# names the counters' modules
+DRYRUN_MODULES = {"K1": "mixer_stack", "K2": "decode_rollout",
+                  "K5": "rect_attention", "K7": "lstm_layer",
+                  "K8": "lstm_recurrence", "K9": "lstm_stacked",
+                  "K10": "gru"}
+
+
+def dryrun_launches(per_step, steps):
+    """``per_step`` launches (``COUNTERS`` names) over ``steps`` steps, as
+    the dryrun keys them (``module.counter``)."""
+    return {f"{DRYRUN_MODULES[COUNTERS[k][0]]}.{COUNTERS[k][1]}": n * steps
+            for k, n in per_step.items() if n}
+
+
+def mesh_feeds(rng, hop, slots, steps):
+    return ((0.1 * rng.standard_normal((steps, slots, hop))).astype(
+                np.float32),
+            rng.standard_normal((steps, slots, 1, MOTION_DIM)).astype(
+                np.float32))
+
+
+def mesh_phases(mods, dev, cfg, pool):
+    """35. and 39. Data parallel and the (data, model) mesh
+    (``parallel/multihost_dryrun.py readings``): ONE launch of a single
+    process (its references, then the world-size-1 NCCL DDP steps), then
+    ONE launch of two ranks over gloo on CUDA tensors of the one card
+    (NCCL refuses two ranks on one GPU), one after the other so that
+    neither side's step times contend; each worker a fresh process,
+    waited on with a timeout. 35: the NCCL world-size-1 step (f32 and
+    bf16) within ``DP_ONE_TOL`` of the plain step; on a (2, 1) mesh the
+    five step paths of the dryrun's Metaformer (hidden 256) within
+    ``DP_LOSS_TOL`` / ``DP_PARAM_TOL`` of one process, ranks equal, and a
+    one-epoch fit. 39 (generator ``SEED + 39``): the module docstring.
+    ``pool``: phase 24's record, whose 16-slot step times are printed
+    beside the ranks'."""
+    from multimodalreactiongeneration_tpu_torch import _build
+    from multimodalreactiongeneration_tpu_torch.infer.serving import (
+        ServingEngine,
+    )
+    from multimodalreactiongeneration_tpu_torch.infer.streaming import (
+        fbank_stream_geometry,
+    )
     from multimodalreactiongeneration_tpu_torch.parallel import (
         multihost_dryrun as dp,
     )
 
-    out = {}
-    for tag, n, backend, variants, tol, timed in (
-            ("nccl_world_1", 1, "nccl", ("f32", "bf16"),
-             (DP_ONE_TOL, DP_ONE_TOL), False),
-            ("gloo_two_ranks", 2, "gloo", dp.VARIANTS,
-             (DP_LOSS_TOL, DP_PARAM_TOL), True)):
-        t0 = time.perf_counter()
-        readings = dp.step_readings(n, variants, device="cuda",
-                                    backend=backend, hidden=DP_HIDDEN,
-                                    timeout=300.0, timed=timed)
-        seconds = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 39)
+    work = _build.BUILD_DIR / "mesh_run"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    model = flagship(cfg, dev)
+    torch.save(model.state_dict(), work / "flagship.pt")
+    hop = fbank_stream_geometry(cfg)[2]
+    slots = SERVE_SLOTS[0]
+    leads = [lead_arrays(rng) for _ in range(slots + 2)]
+    # f32: 4 slots attach at each of 4 steps; bf16: phase 24's schedule
+    # (slot s at step 2s, slots 1 and 2 detached and retaken halfway)
+    events = {"f32": [(s // 4, "attach", s) for s in range(slots)],
+              "bf16": [(2 * s, "attach", s) for s in range(slots)] + [
+                  (SERVE_STEPS // 2, what, arg) for what, arg in (
+                      ("detach", 1), ("detach", 2), ("attach", slots),
+                      ("attach", slots + 1))]}
+    feeds = {"f32": mesh_feeds(rng, hop, slots, 4),
+             "bf16": mesh_feeds(rng, hop, slots, SERVE_STEPS)}
+    for name, (audio, mp) in feeds.items():
+        np.savez(work / f"serve_{name}.npz",
+                 lead_audio=np.stack([x[0] for x in leads]),
+                 lead_mp=np.stack([x[1] for x in leads]),
+                 lead_ms=np.stack([x[2] for x in leads]), audio=audio, mp=mp)
+    requests = [
+        dp.step_request(("f32", "bf16"), hidden=DP_HIDDEN, tag="nccl",
+                        nccl_world_1=True),
+        dp.step_request(dp.VARIANTS, hidden=DP_HIDDEN, tag="dp"),
+        dp.fit_request(1, hidden=DP_HIDDEN, tag="dpfit", tol=DP_LOSS_TOL),
+        dp.step_request(("f32",), (1, 2), scale="flagship", steps=3,
+                        tag="mesh"),
+        dp.step_request(("bf16",), (1, 2), scale="flagship", steps=1,
+                        tag="mesh_bf16"),
+        dp.fit_request(1, (1, 2), hidden=DP_HIDDEN, tag="meshfit",
+                       tol=DP_LOSS_TOL),
+        *[dp.serving_request(cfg, str(work / "flagship.pt"),
+                             str(work / f"serve_{name}.npz"), events[name],
+                             slots, name, (2, 1),
+                             refuse_slots=slots - 1 if name == "f32" else None,
+                             tag=f"serve_{name}")
+          for name in ("f32", "bf16")]]
+    t0 = time.perf_counter()
+    took = []
+    (nccl, steps, fit, mesh, mesh_bf16, mesh_fit, serve32,
+     serve16) = dp.readings(requests, 2, device="cuda", backend="gloo",
+                            timeout=600.0, timed=True, seconds=took)
+    seconds = time.perf_counter() - t0
+    # the two launches run one after the other: a phase's seconds are its
+    # jobs' in the single process plus its jobs' on the slowest rank; the
+    # rest is the launches' start-up, which the two phases share
+    jobs35, jobs39 = [sum(t["one"] + t["ranks"] for t in part)
+                      for part in (took[:3], took[3:])]
+    log("mesh", launches_seconds=f"{seconds:.1f}",
+        phase35_job_seconds=f"{jobs35:.1f}",
+        phase39_job_seconds=f"{jobs39:.1f}", phase39_budget_seconds=45,
+        shared_start_up_seconds=f"{seconds - jobs35 - jobs39:.1f}")
+
+    # ---- 35. data parallel -------------------------------------------
+    dp_out = {"seconds": seconds}
+    for tag, readings, tol in (
+            ("nccl_world_1", nccl, (DP_ONE_TOL, DP_ONE_TOL)),
+            ("gloo_two_ranks", steps, (DP_LOSS_TOL, DP_PARAM_TOL))):
         for v, rd in readings.items():
+            rd.pop("params")
             log("data_parallel", run=tag, variant=v,
                 loss_err=f"{rd['loss_err']:.3e}",
                 param_err=f"{rd['param_err']:.3e}",
@@ -4497,18 +4593,93 @@ def data_parallel_phase():
                     second_step_ms_one_process=f"{rd['single_step_ms'][1]:.1f}",
                     second_step_ms_ranks=[round(m[1], 1)
                                           for m in rd["rank_step_ms"]])
-                    if timed else {}))
+                    if tag == "gloo_two_ranks" else {}))
             dp.check_steps(rd, loss_tol=tol[0], param_tol=tol[1])
-        log("data_parallel", run=tag, seconds=f"{seconds:.1f}")
-        out[tag] = dict(seconds=seconds, steps=readings)
-    t0 = time.perf_counter()
-    out["gloo_two_ranks_fit"] = dp.verify_multihost_fit(
-        2, device="cuda", backend="gloo", hidden=DP_HIDDEN, timeout=300.0,
-        tol=DP_LOSS_TOL, epochs=1)
-    out["gloo_two_ranks_fit"]["seconds"] = time.perf_counter() - t0
+        dp_out[tag] = {"steps": readings}
+    dp_out["gloo_two_ranks_fit"] = fit
     log("data_parallel", run="gloo_two_ranks_fit",
-        **{k: v for k, v in out["gloo_two_ranks_fit"].items()})
-    return out
+        **{k: v for k, v in fit.items()})
+
+    # ---- 39. (a) sharded steps ---------------------------------------
+    record = {}
+    for tag, rd, per_step, n, loss_rel in (
+            ("f32", mesh["f32"], metaformer_train_spec()["per_step"], 3,
+             LOSS_REL_TOL),
+            ("bf16", mesh_bf16["bf16"],
+             metaformer_bf16_train_spec()["per_step"], 1, None)):
+        rd.pop("params")
+        want = dryrun_launches(per_step, n)
+        log("mesh_steps", dtype=tag, mesh=rd["mesh"], steps=n,
+            loss_rel_err=f"{rd['loss_rel_err']:.3e}",
+            param_err=f"{rd['param_err']:.3e}",
+            rank_param_err=rd["rank_param_err"], rows=rd["rows"],
+            stored_of_whole=[f"{x['stored']}/{x['whole']}"
+                             for x in rd["storage"]],
+            adamw_state_of_whole=[f"{x['state']}/{x['state_whole']}"
+                                  for x in rd["storage"]],
+            launches_per_rank=rd["rank_launches"], **(dict(
+                second_step_ms_one_process=f"{rd['single_step_ms'][1]:.1f}",
+                second_step_ms_ranks=[round(m[1], 1)
+                                      for m in rd["rank_step_ms"]])
+                if n > 1 else {}))
+        dp.check_steps(rd, loss_tol=DP_LOSS_TOL, param_tol=DP_PARAM_TOL,
+                       rank_tol=0.0, loss_rel_tol=loss_rel)
+        for who, got in [("one process", rd["single_launches"])] + [
+                (f"rank {r}", x) for r, x in enumerate(rd["rank_launches"])]:
+            if got != want:
+                raise AssertionError(
+                    f"mesh {tag} steps, {who}: launches {got}, want {want}")
+        record[f"steps_{tag}"] = rd
+
+    # ---- 39. (b) the mesh fit ----------------------------------------
+    log("mesh_fit", **{k: v for k, v in mesh_fit.items()})
+    record["fit"] = mesh_fit
+
+    # ---- 39. (c) the mesh serving pool -------------------------------
+    engine = ServingEngine(model, slots=slots, cache_dtype=torch.float32)
+    audio, mp = feeds["f32"]
+    want, taken = [], []
+    for t in range(len(audio)):
+        for when, _, arg in events["f32"]:
+            if when == t:
+                taken.append(engine.attach(*leads[arg]))
+        want.append(engine.step(audio[t], mp[t]))
+    want = np.stack(want)
+    del engine
+    err = max(float(np.abs(o - want).max()) for o in serve32["outputs"])
+    log("mesh_serving", cache="f32", slots=slots, steps=len(audio),
+        vs_one_process_max_abs_err=f"{err:.3e}",
+        slots_taken_equal=serve32["slots_taken"] == [taken, taken],
+        refused_15_slots=serve32["refused"])
+    if not err <= PATH_TOL:
+        raise AssertionError(f"mesh serving f32: {err} > {PATH_TOL}")
+    if serve32["slots_taken"] != [taken, taken] or serve32["refused"] != [
+            True, True]:
+        raise AssertionError(f"mesh serving: {serve32}")
+    pct = [percentiles(ms[1:]) for ms in serve16["step_ms"]]
+    log("mesh_serving", cache="bf16", slots=slots, steps=SERVE_STEPS,
+        step_ms_per_rank=[fmt(x) for x in pct],
+        one_process_step_ms=fmt(pool["slots"][str(slots)]["step_ms"]),
+        note="two ranks on one card: nothing of scaling over cards")
+    for r, run in enumerate((serve32, serve16)):
+        for rank in range(2):
+            got = run["launches"][rank]
+            want_k1 = {"mixer_stack.launches": run["owned"][rank]}
+            if got != want_k1:
+                raise AssertionError(f"mesh serving run {r} rank {rank}: "
+                                     f"launches {got}, want {want_k1}")
+    log("mesh_serving", attaches_owned=[serve32["owned"], serve16["owned"]],
+        k1_launches_per_rank=[[x.get("mixer_stack.launches", 0)
+                               for x in run["launches"]]
+                              for run in (serve32, serve16)])
+    record["serving"] = {
+        "slots": slots, "f32_max_abs_err": err,
+        "bf16_step_ms_per_rank": pct,
+        "one_process_bf16_step_ms": pool["slots"][str(slots)]["step_ms"],
+        "owned": [serve32["owned"], serve16["owned"]],
+        "launches": [serve32["launches"], serve16["launches"]]}
+    shutil.rmtree(work)
+    return dp_out, record
 
 
 def stacked_layers_phase(mods, dev, rng):
@@ -5440,12 +5611,16 @@ def main():
                         for k in COUNTERS}
     lws_bf16_launches = lws_bf16_cli["launches"]
 
-    # ---- 33.-35. K1's bf16 mode, the rollout route, data parallel -------
+    # ---- 33.-35., 39. K1's bf16 mode, the rollout route, data parallel
+    # and the (data, model) mesh ---------------------------------------
     bf16_inference = bf16_inference_phase(
         mods, dev, np.random.default_rng(SEED + 33), cfg)
     route = rollout_route_phase(mods, dev, np.random.default_rng(SEED + 34),
                                 cfg)
-    data_parallel = data_parallel_phase()
+    t0 = time.perf_counter()
+    data_parallel, mesh = mesh_phases(mods, dev, cfg, serving)
+    mesh["seconds"] = time.perf_counter() - t0
+    log("mesh", seconds=f"{mesh['seconds']:.1f}")
     k1_bf16 = bf16_inference["cases"][0]
 
     # ---- 36.-37. K9's layer route, the other mixer kinds ---------------
@@ -5550,6 +5725,7 @@ def main():
            for k, v in bf16_off.items()},
         "bf16_inference": bf16_inference["record"],
         "rollout_route": route, "data_parallel": data_parallel,
+        "mesh": mesh,
         "mixer_kinds": {k: dict(v["record"], launches=v["launches"],
                                 **{n: v[n] for n in ("generation_ms",
                                                      "generation_launches")

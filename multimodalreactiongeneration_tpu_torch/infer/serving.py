@@ -23,6 +23,23 @@ Design:
     trade, as in JAX).
 A step runs the plain recurrences (8 audio frames, 1 motion frame) and
 the plain attention, as the JAX step does; no kernel runs per step.
+
+Over a mesh (JAX's ``ServingEngine(mesh=...)``: the slot pool sharded
+over 'data', the parameters replicated): ``mesh`` is a ``parallel/mesh.py
+DataMesh`` of the process group, one process per card, each holding the
+whole model. Rank k of the data axis holds the k-th contiguous block of
+``slots / data`` rows (``shard_batch``'s block, JAX's ``P('data')``);
+``slots % data`` must be 0, else ValueError, as in JAX. Every public call
+is made on every rank with the same arguments (SPMD) and returns the same
+result there: ``attach`` takes the same slot on every rank, and only the
+slot's owner primes it (K1 runs once per attach, on the owner); ``detach``
+frees it everywhere; ``step`` takes the whole (slots, hop) and (slots, 1,
+D) inputs, each rank runs its rows (the fbank and one module call), and
+the (slots, 1, D) outputs are gathered over the data axis; the states
+never leave their card. One process per card, not one process driving
+every card: the pool step is bound by the module step's launches
+(PERF.md), and one host thread would issue every card's launches in
+series. A mesh of one rank is the one-card pool.
 """
 
 from __future__ import annotations
@@ -44,6 +61,7 @@ from multimodalreactiongeneration_tpu_torch.models.lstmformer import (
     derived_sizes,
 )
 from multimodalreactiongeneration_tpu_torch.ops import dsp
+from multimodalreactiongeneration_tpu_torch.parallel import distributed
 
 
 def _is_ring(node) -> bool:
@@ -89,23 +107,28 @@ class ServingEngine:
     """Fixed-capacity multi-session decode server for the Metaformer, on
     the device of the model's parameters.
 
-    slots: sessions served at once. cache_dtype: the rings' dtype, bf16
-    by default; int8 takes the per-block layout. kv_layout: "shared"
-    unless the config or the dtype needs "per_block"."""
+    slots: sessions served at once. mesh: a ``parallel/mesh.py
+    DataMesh`` whose data axis splits the pool (the module docstring), or
+    None. cache_dtype: the rings' dtype, bf16 by default; int8 takes the
+    per-block layout. kv_layout: "shared" unless the config or the dtype
+    needs "per_block"."""
 
     def __init__(self, model, slots: int = 8, mesh=None, cache_dtype=None,
                  kv_layout: str = None):
         if slots < 1:
             raise ValueError(f"need at least 1 slot, got {slots}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "serving over a mesh (JAX infer/serving.py: the slot pool "
-                "sharded over the 'data' axis) is not ported: ROADMAP "
-                "queue A, item 9"
-            )
+        parts = 1 if mesh is None else mesh.data
+        if slots % parts:
+            raise ValueError(f"{slots} slots do not divide over a data axis "
+                             f"of {parts}")
         self.model = model
         self.cfg = model.cfg
         self.slots = slots
+        self.mesh = mesh
+        self.local_slots = slots // parts
+        self._first = (0 if mesh is None
+                       else mesh.data_rank * self.local_slots)
+        self._group = None if mesh is None else mesh.group("data")
         self.device = next(model.parameters()).device
         self.cache_dtype = (
             torch.bfloat16 if cache_dtype is None else cache_dtype
@@ -125,15 +148,23 @@ class ServingEngine:
         self.feat_dim = derived_sizes(self.cfg)["motion_input_size"]
         self.active = np.zeros(slots, bool)
         self._free: List[int] = list(range(slots))[::-1]
-        self._tails = np.zeros((slots, self.context_samples), np.float32)
+        # this rank's rows: the fbank tails, the pooled states, the AR
+        # loop's last frames
+        local = self.local_slots
+        self._tails = np.zeros((local, self.context_samples), np.float32)
 
         # the pool takes the structure a state settles into after one
         # call (recurrent embedding states materialize from None there)
         proto = self._fresh_state(np.zeros((1, self.ratio, fbp.feat_dim)),
                                   np.zeros((1, 1, self.feat_dim)),
                                   np.zeros((1, 1, self.feat_dim)))
-        self._states = _pool(proto, slots)
-        self._prev = torch.zeros(slots, 1, self.feat_dim, device=self.device)
+        self._states = _pool(proto, local)
+        self._prev = torch.zeros(local, 1, self.feat_dim, device=self.device)
+
+    def owns(self, slot: int) -> bool:
+        """Whether this rank holds ``slot``'s row (always, without a
+        mesh)."""
+        return self._first <= slot < self._first + self.local_slots
 
     @torch.no_grad()
     def _fresh_state(self, lead_audio, lead_mp, lead_ms):
@@ -153,14 +184,17 @@ class ServingEngine:
         """Start a session on a leading segment (feature space: (1,
         L*ratio, F), (1, L, D), (1, L, D)): prime a fresh state, copy it
         into a free slot, seed the AR loop with the last lead self-motion
-        frame. Returns the slot. Raises when the pool is full."""
+        frame. Returns the slot. Raises when the pool is full. Over a mesh
+        only the slot's owner primes it."""
         if not self._free:
             raise RuntimeError(f"all {self.slots} slots are attached")
         slot = self._free.pop()
-        fresh = self._fresh_state(lead_audio, lead_mp, lead_ms)
-        _scatter(self._states, fresh, slot)
-        self._prev[slot] = _as_input(lead_ms, self.device)[0, -1:]
-        self._tails[slot] = 0.0
+        if self.owns(slot):
+            row = slot - self._first
+            fresh = self._fresh_state(lead_audio, lead_mp, lead_ms)
+            _scatter(self._states, fresh, row)
+            self._prev[row] = _as_input(lead_ms, self.device)[0, -1:]
+            self._tails[row] = 0.0
         self.active[slot] = True
         return slot
 
@@ -188,16 +222,21 @@ class ServingEngine:
                 f"need partner_motion ({self.slots}, 1, {self.feat_dim}), "
                 f"got {np.shape(partner_motion)}"
             )
+        rows = slice(self._first, self._first + self.local_slots)
         buf = np.concatenate(
-            [self._tails, np.asarray(audio_samples, np.float32)], axis=-1)
+            [self._tails, np.asarray(audio_samples, np.float32)[rows]],
+            axis=-1)
         self._tails = buf[:, -self.context_samples:]
         feat = dsp.logmel_with_power(_as_input(buf, self.device), self._fbp)
         with eval_mode(self.model):
             y, self._states = self.model(
-                feat, _as_input(partner_motion, self.device), self._prev,
+                feat, _as_input(np.asarray(partner_motion)[rows],
+                                self.device), self._prev,
                 states=self._states, use_masks=False,
             )
         self._prev = y
-        out = y.cpu().numpy()
+        # an owned copy: on the CPU ``numpy()`` shares ``y``, the pool's
+        # last frames, which a later attach writes into
+        out = np.array(distributed.all_gather_rows(y, self._group).cpu())
         out[~self.active] = 0.0
         return out

@@ -25,7 +25,10 @@ for any ``nn.Module`` (the Metaformer and LSTMwithSample alike):
   * data parallel: a save is local to the process that calls it (JAX
     scopes its orbax checkpointer to the calling rank for the same
     reason); ``is_primary`` names the one process that saves, rank 0, so
-    ranks never write the same path at once.
+    ranks never write the same path at once. Parameters sharded over a
+    'model' axis are saved whole (``HostSnapshot``), and a run resumed on
+    a mesh loads them whole before its ``Trainer`` keeps each rank's
+    slice.
 
 ``import_torch_state_dict`` maps a reference (PyTorch-Lightning)
 state_dict onto the port's names (JAX ``import_torch_state_dict``);
@@ -42,6 +45,9 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from multimodalreactiongeneration_tpu_torch.parallel import distributed
+from multimodalreactiongeneration_tpu_torch.train.optim import map_state_dict
+
 
 def _to_host(tree):
     """An owned host copy of a (nested) state dict."""
@@ -56,13 +62,23 @@ def _to_host(tree):
 
 class HostSnapshot:
     """One host copy of the model's (and optionally the optimizer's)
-    state, shared by the monitors that save at the same check."""
+    state, shared by the monitors that save at the same check. Parameters
+    sharded over a mesh's 'model' axis (``parallel/distributed.py
+    shard_parameters``) and their optimizer state are gathered whole, so
+    every rank of the mesh makes the snapshot (the gathers are
+    collectives), and a checkpoint loads ``strict=True`` into one
+    process's model."""
 
     def __init__(self, model: torch.nn.Module,
                  optimizer: Optional[torch.optim.Optimizer] = None):
-        self.tree = {"params": _to_host(model.state_dict())}
+        with distributed.gathered(model):
+            self.tree = {"params": _to_host(model.state_dict())}
         if optimizer is not None:
-            self.tree["opt"] = _to_host(optimizer.state_dict())
+            state = optimizer.state_dict()
+            shards = distributed.param_shards(model)
+            if shards is not None:
+                state = map_state_dict(optimizer, state, shards.whole_state)
+            self.tree["opt"] = _to_host(state)
 
 
 def is_primary() -> bool:

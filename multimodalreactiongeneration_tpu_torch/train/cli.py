@@ -47,9 +47,15 @@ the CPU), takes the card ``LOCAL_RANK``, iterates the same global batches
 and keeps its rows (``HostRowShard``, as the JAX CLI wraps its loaders
 when its process count is above 1); ``Trainer`` averages the gradients
 over the ranks (DDP). Rank 0 writes the log, ``metrics.jsonl`` and the
-checkpoints. ``trainer.mesh_shape: [N, 1]`` names the data axis, N the
-world size; a 'model' axis above 1 (JAX's parameter sharding) raises,
-ROADMAP queue A, item 10. ``exp.batch_size`` is the global batch.
+checkpoints. ``trainer.mesh_shape: [data, model]`` lays the ranks out as
+JAX's (data, model) mesh, ``data x model`` the world size (``torchrun
+--nproc_per_node data*model``): with ``model`` 1 the run is data parallel
+as above; above 1 each rank stores its slice of the parameters JAX's
+``param_sharding`` splits and of their optimizer state, every step
+gathers them whole, the rows are split over 'data' only and the gradients
+averaged over it (``train/harness.py Trainer``); the checkpoints hold
+whole tensors, and ``resume_from`` loads them whole before each rank keeps
+its slice. ``exp.batch_size`` is the global batch.
 
 It runs on ``cuda:0`` (``cuda:LOCAL_RANK`` under torchrun); ``device=cpu``
 runs it on the CPU (the tests do). The yaml's own ``device: tpu`` names
@@ -85,7 +91,10 @@ from multimodalreactiongeneration_tpu_torch.data.dataset import (
 )
 from multimodalreactiongeneration_tpu_torch.models import MODEL_TYPE, build_model
 from multimodalreactiongeneration_tpu_torch.parallel import distributed
-from multimodalreactiongeneration_tpu_torch.parallel.mesh import make_mesh_2d
+from multimodalreactiongeneration_tpu_torch.parallel.mesh import (
+    make_mesh,
+    make_mesh_2d,
+)
 from multimodalreactiongeneration_tpu_torch.train.checkpoint import (
     load_checkpoint,
     restore_opt_state,
@@ -106,19 +115,22 @@ from multimodalreactiongeneration_tpu_torch.utils.logging import (
 )
 
 
-def _row_shard(loader):
-    """``loader`` as this rank's rows of its batches (``HostRowShard``)
-    in a process group of more than one rank; itself otherwise."""
-    world = distributed.world_size()
-    if world == 1:
+def _row_shard(loader, mesh):
+    """``loader`` as this rank's rows of its batches (``HostRowShard`` at
+    the mesh's place on its data axis) where that axis has more than one
+    rank; itself otherwise."""
+    if mesh.data == 1:
         return loader
-    return HostRowShard(loader, distributed.rank(), world)
+    return HostRowShard(loader, mesh.data_rank, mesh.data)
 
 
-def make_streaming_loaders(cfg, logger, device=None):
+def make_streaming_loaders(cfg, logger, device=None, mesh=None):
     """(train, valid, test loaders, dataset) over the corpus at
-    ``cfg.data.data_dir``; the batched fbank runs on ``device``."""
+    ``cfg.data.data_dir``; the batched fbank runs on ``device``; each rank
+    keeps its rows of the ``mesh``'s data axis (``make_mesh()``, every
+    rank, by default)."""
     device = resolve_device(device)
+    mesh = make_mesh() if mesh is None else mesh
     builder = DataBuilderNX(cfg.data, logger)
     dataset = SegmentDatasetNX(builder.data_site, cfg.motion, cfg.audio)
     if len(dataset) == 0:
@@ -156,15 +168,17 @@ def make_streaming_loaders(cfg, logger, device=None):
         )
         # data parallel: identical global batches on every rank, each
         # keeping its rows (HostRowShard's docstring has the why)
-        loader = _row_shard(loader)
+        loader = _row_shard(loader, mesh)
         return PrefetchLoader(loader, depth) if depth > 0 else loader
 
     return mk(tr, True), mk(va, False), mk(te, False), dataset
 
 
-def make_windowed_loaders(cfg, logger):
+def make_windowed_loaders(cfg, logger, mesh=None):
     """(train, valid, test loaders, dataset) of simple_lstm's fixed
-    windows over the ``.head`` corpus at ``cfg.data.data_dir``."""
+    windows over the ``.head`` corpus at ``cfg.data.data_dir``, each
+    rank's rows of the ``mesh``'s data axis."""
+    mesh = make_mesh() if mesh is None else mesh
     builder = DataBuilder(cfg.data, logger)
     dataset = WindowDataset(builder.data_site, cfg.data, cfg.audio)
     if len(dataset) == 0:
@@ -178,7 +192,7 @@ def make_windowed_loaders(cfg, logger):
     def mk(idx, shuffle):
         return _row_shard(WindowBatchLoader(
             dataset, idx, cfg.exp.batch_size, shuffle=shuffle,
-            seed=cfg.get("seed", 0)))
+            seed=cfg.get("seed", 0)), mesh)
 
     return mk(tr, True), mk(va, False), mk(te, False), dataset
 
@@ -202,24 +216,25 @@ def main(argv=None):
     # over the backend of the device the run trains on
     distributed.initialize_multihost(device=named)
     mesh_shape = cfg.trainer.get("mesh_shape")
-    mesh = make_mesh_2d(*map(int, mesh_shape)) if mesh_shape else None
+    mesh = make_mesh_2d(*map(int, mesh_shape)) if mesh_shape else make_mesh()
     device = distributed.rank_device(named)
     # rank 0 writes the log (the other ranks' values are the same)
     logger = (set_logger(model_type, cfg.get("log_dir", "log"))
               if distributed.rank() == 0 else DummyLogger())
     if distributed.world_size() > 1:
         logger.info(f"data parallel: process {distributed.rank()} of "
-                    f"{distributed.world_size()}, device {device}")
+                    f"{distributed.world_size()}, device {device}, mesh "
+                    f"{mesh.data}x{mesh.model} (data x model)")
 
     windowed = model_type == "simple_lstm"
     # data parallel: rank 0 builds the corpus manifests, the others read
     with distributed.rank_zero_first():
         if windowed:
-            train_loader, val_loader, _, _ = make_windowed_loaders(cfg,
-                                                                   logger)
+            train_loader, val_loader, _, _ = make_windowed_loaders(
+                cfg, logger, mesh)
         else:
             train_loader, val_loader, _, _ = make_streaming_loaders(
-                cfg, logger, device)
+                cfg, logger, device, mesh)
     model_cfg = cfg.model.to_dict()
     model = build_model(
         model_type, model_cfg,

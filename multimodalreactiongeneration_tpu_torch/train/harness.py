@@ -100,6 +100,18 @@ rank's masks are not the single-process run's. Logged losses and metrics
 are reduced over the ranks; rank 0 alone writes ``metrics.jsonl`` and the
 checkpoints, and every rank waits for its last save before ``fit``
 returns.
+
+Parameter sharding (JAX's 'model' mesh axis above 1, ``trainer.mesh_shape:
+[data, model]``): the ``Trainer`` keeps on each rank its slice of every
+parameter JAX's ``param_sharding`` splits, and the optimizer's state of
+that layout (``parallel/distributed.py shard_parameters``). Each train
+step runs inside ``gathered(model, grads=True)``: the slices are gathered
+whole over the model axis, the unchanged step body runs on whole weights
+(the kernels take whole gate matrices, as JAX keeps them whole), and the
+gradients are averaged over the data axis, each rank keeping the slice it
+owns, which the optimizer updates. The eval steps and the generation eval
+gather too. Rows are split over 'data' only, so the ranks of one model
+group see the same rows; DDP is not used there.
 """
 
 from __future__ import annotations
@@ -130,11 +142,13 @@ from multimodalreactiongeneration_tpu_torch.nn.basic import dropout_rng
 from multimodalreactiongeneration_tpu_torch.ops.masks import PADDING_VALUE
 from multimodalreactiongeneration_tpu_torch.parallel import distributed
 from multimodalreactiongeneration_tpu_torch.parallel.distributed import (
+    gathered,
     run_forward,
 )
 from multimodalreactiongeneration_tpu_torch.parallel.mesh import (
     DataMesh,
     make_mesh,
+    param_sharding,
 )
 from multimodalreactiongeneration_tpu_torch.train import checkpoint as ckpt_lib
 from multimodalreactiongeneration_tpu_torch.train.losses import build_loss
@@ -145,6 +159,7 @@ from multimodalreactiongeneration_tpu_torch.train.metrics import (
 )
 from multimodalreactiongeneration_tpu_torch.train.optim import (
     cosine_annealing,
+    map_param_state,
     set_learning_rate,
 )
 
@@ -251,7 +266,8 @@ def streaming_step_fns(
         model.train()
         optimizer.zero_grad(set_to_none=True)
         seed = _step_seed(generator)
-        with bf16_sums_in_f32() if bf16 else contextlib.nullcontext():
+        with gathered(model, grads=True), (
+                bf16_sums_in_f32() if bf16 else contextlib.nullcontext()):
             y, t = run_forward(
                 model, lambda _, b: forward(b, seed, lowp=bf16), batch)
             scaler = delta_scaler(y.shape[-1], delta_order, dls, y.device)
@@ -264,7 +280,8 @@ def streaming_step_fns(
     @torch.no_grad()
     def eval_step(batch: Batch):
         model.eval()
-        y, t = forward(batch)
+        with gathered(model):
+            y, t = forward(batch)
         return lossfun(y, t), per_slice_sq_err(y, t, target_dict)
 
     return train_step, eval_step
@@ -304,13 +321,15 @@ def scheduled_sampling_masked_step_fn(
         data = [b[0] for b in batch]
         target = data[-1]
         optimizer.zero_grad(set_to_none=True)
-        y = run_forward(model, rollout, data, mask_steps.to(target.device))
-        mask = (target != PADDING_VALUE).to(y.dtype)
-        y, t = y * mask, target * mask
-        scaler = delta_scaler(y.shape[-1], delta_order, dls, y.device)
-        y, t = y * scaler, t * scaler
-        loss = lossfun(y, t)
-        loss.backward()
+        with gathered(model, grads=True):
+            y = run_forward(model, rollout, data,
+                            mask_steps.to(target.device))
+            mask = (target != PADDING_VALUE).to(y.dtype)
+            y, t = y * mask, target * mask
+            scaler = delta_scaler(y.shape[-1], delta_order, dls, y.device)
+            y, t = y * scaler, t * scaler
+            loss = lossfun(y, t)
+            loss.backward()
         optimizer.step()
         return loss.detach(), per_slice_sq_err(y.detach(), t, target_dict)
 
@@ -368,11 +387,13 @@ def windowed_step_fns(
         model.train()
         optimizer.zero_grad(set_to_none=True)
         m = row_mask(target)
-        with dropout_rng(_step_seed(generator)):
-            y = run_forward(model, lambda mod, a, b: mod(a, b), fbank, motion)
-        loss, y = simple_lstm_loss(y, target, motion, model_cfg, metrics_cfg,
-                                   row_mask=m)
-        loss.backward()
+        with gathered(model, grads=True):
+            with dropout_rng(_step_seed(generator)):
+                y = run_forward(model, lambda mod, a, b: mod(a, b), fbank,
+                                motion)
+            loss, y = simple_lstm_loss(y, target, motion, model_cfg,
+                                       metrics_cfg, row_mask=m)
+            loss.backward()
         optimizer.step()
         return loss.detach(), per_slice_sq_err(
             y.detach(), target * m.to(target.dtype), target_dict)
@@ -381,7 +402,8 @@ def windowed_step_fns(
     def eval_step(batch):
         fbank, motion, target = batch
         model.eval()
-        y = model(fbank, motion)
+        with gathered(model):
+            y = model(fbank, motion)
         if model_cfg.get("all_static", False):
             y = split_and_form(motion, y, metrics_cfg["delta_order"],
                                static_base(metrics_cfg))
@@ -421,13 +443,13 @@ def _pack(loss, slices) -> Tuple[torch.Tensor, List[str]]:
     return torch.stack(flat), names
 
 
-def _reduce_ranks(packed: torch.Tensor) -> torch.Tensor:
-    """Rows of ``_pack`` vectors over the process group: each step's loss
-    averaged over the ranks (the global batch's, from equal shards), the
-    slices' squared-error sums and counts summed."""
-    total = distributed.all_reduce_sum(packed)
-    return torch.cat([total[:, :1] / distributed.world_size(), total[:, 1:]],
-                     dim=1)
+def _reduce_ranks(packed: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """Rows of ``_pack`` vectors over the mesh's data axis: each step's
+    loss averaged over its ranks (the global batch's, from equal shards),
+    the slices' squared-error sums and counts summed. The ranks of one
+    model group hold the same rows, so the data axis alone counts them."""
+    total = distributed.axis_sum(packed, mesh.group("data"))
+    return torch.cat([total[:, :1] / mesh.data, total[:, 1:]], dim=1)
 
 
 def _unpack_rows(arr: np.ndarray, names: List[str], acc: MetricAccumulator):
@@ -459,17 +481,20 @@ class Trainer:
     optimizer are updated in place. Batches are staged onto ``device``
     (``cuda:0`` unless named).
 
-    Where a process group is initialized the model is wrapped for data
-    parallel (``parallel/distributed.py data_parallel``; the module
-    docstring): make the Trainer on every rank, after the step functions
-    and before the first step. ``mesh`` is accepted for parity with JAX's
-    ``Trainer``: a ``parallel/mesh.py DataMesh`` (``make_mesh()``, the
-    process group, by default), checked against the group and deciding
-    nothing; it has no 'model' axis (``make_mesh_2d`` refuses one above
-    1, ROADMAP queue A, item 10).
+    ``mesh``: a ``parallel/mesh.py DataMesh`` over the process group
+    (``make_mesh()``, every rank on the data axis, by default), checked
+    against the group. Where a process group is initialized and the
+    mesh's 'model' axis is 1, the model is wrapped for data parallel
+    (``parallel/distributed.py data_parallel``; the module docstring);
+    above 1 its parameters and the optimizer's state are sharded by JAX's
+    ``param_sharding`` (``parallel/distributed.py shard_parameters``), the
+    step functions gather them whole for each step, and the gradients are
+    averaged over the data axis. Make the Trainer on every rank, after the
+    step functions (and any restore of a checkpoint) and before the first
+    step. Feed each rank its mesh's ``data_rank``-th rows.
 
     Each epoch's record holds the global batch's frames under data
-    parallel: ``train_frames`` is summed over the ranks, so
+    parallel: ``train_frames`` is summed over the data axis, so
     ``train_frames_per_s`` is the job's rate, not rank 0's (JAX's loop
     counts a process's own rows)."""
 
@@ -496,10 +521,15 @@ class Trainer:
             raise TypeError(f"mesh: a parallel.mesh.DataMesh, got {mesh!r}")
         if mesh.world_size != distributed.world_size():
             raise ValueError(
-                f"a data axis of {mesh.world_size} in a process group of "
+                f"a {mesh.data}x{mesh.model} mesh in a process group of "
                 f"{distributed.world_size()}")
         self.mesh = mesh
-        if torch.distributed.is_initialized():
+        self.shards = None
+        if mesh.model > 1:
+            self.shards = distributed.shard_parameters(
+                model, mesh, param_sharding(model, mesh))
+            map_param_state(optimizer, self.shards.slice_state)
+        elif torch.distributed.is_initialized():
             distributed.data_parallel(model)
         self.model = model
         self.train_step = train_step
@@ -565,9 +595,12 @@ class Trainer:
         else:
             val_every = None
         patience = patience_epochs / vci if vci <= 1.0 else patience_epochs
-        # rank 0 owns the checkpoint files (its values are every rank's)
-        use_ckpt = (self.callbacks.get("use_checkpoint", True)
-                    and self.ckpt_dir and self.primary)
+        # rank 0 owns the checkpoint files (its values are every rank's);
+        # sharded parameters are gathered for a snapshot on every rank
+        want_ckpt = bool(self.callbacks.get("use_checkpoint", True)
+                         and self.ckpt_dir)
+        use_ckpt = want_ckpt and self.primary
+        sharded_ckpt = want_ckpt and self.shards is not None
 
         result = FitResult(ckpt_dir=self.ckpt_dir)
         use_async = self.callbacks.get("async_checkpoint", False)
@@ -590,8 +623,8 @@ class Trainer:
             state["check_idx"] += 1
             # read first: it drains the queued train steps, so the timer
             # below charges only validation work to val_seconds
-            train_so_far = (float(_reduce_ranks(torch.stack(packed_train))
-                                  [:, 0].mean())
+            train_so_far = (float(_reduce_ranks(torch.stack(packed_train),
+                                                self.mesh)[:, 0].mean())
                             if packed_train else float("nan"))
             t_val = time.time()
             val_metrics = MetricAccumulator("valid_")
@@ -601,18 +634,22 @@ class Trainer:
                 vec, names = _pack(loss, slices)
                 packed_val.append(vec)
             if packed_val:
-                arr = _reduce_ranks(torch.stack(packed_val)).cpu().numpy()
+                arr = _reduce_ranks(torch.stack(packed_val),
+                                    self.mesh).cpu().numpy()
                 val_loss = float(arr[:, 0].mean())
                 _unpack_rows(arr, names, val_metrics)
             else:
                 val_loss = float("nan")
             genrt_loss = None
             if self.generation_eval is not None:
-                genrt_loss = float(distributed.all_reduce_mean(torch.tensor(
-                    self.generation_eval(val_loader), device=self.device)))
+                with gathered(self.model):
+                    genrt = self.generation_eval(val_loader)
+                genrt_loss = float(distributed.axis_sum(torch.tensor(
+                    genrt, device=self.device), self.mesh.group("data"))
+                    / self.mesh.data)
 
             snap = None
-            if savers:
+            if savers or sharded_ckpt:
                 # optimizer state only in ``last`` unless "all"
                 opt = (self.optimizer
                        if self.callbacks.get("save_opt_state", "last") == "all"
@@ -677,14 +714,16 @@ class Trainer:
                         break
             # the one readback of the epoch is its device sync
             if packed_train:
-                arr = _reduce_ranks(torch.stack(packed_train)).cpu().numpy()
+                arr = _reduce_ranks(torch.stack(packed_train),
+                                    self.mesh).cpu().numpy()
                 train_loss = float(arr[:, 0].mean())
                 _unpack_rows(arr, names, train_metrics)
             else:
                 train_loss = float("nan")
             train_seconds = time.time() - t0 - state["val_seconds"]
-            train_frames = int(distributed.all_reduce_sum(
-                torch.tensor(train_frames, device=self.device)))
+            train_frames = int(distributed.axis_sum(
+                torch.tensor(train_frames, device=self.device),
+                self.mesh.group("data")))
             # epoch-end validation only when no interval check ran
             if last_check is None and not state["stop"]:
                 last_check = run_check(epoch, packed_train, rate)
@@ -718,9 +757,10 @@ class Trainer:
             result.epochs_run = epoch + 1
             if state["stop"]:
                 break
-        if saver is not None:
-            saver.save_last(ckpt_lib.HostSnapshot(self.model, self.optimizer),
-                            result.epochs_run - 1)
+        if saver is not None or sharded_ckpt:
+            snap = ckpt_lib.HostSnapshot(self.model, self.optimizer)
+            if saver is not None:
+                saver.save_last(snap, result.epochs_run - 1)
         for s in savers.values():
             s.wait()  # flush background saves before anyone reads ckpt_dir
         # no collective follows the last eval step: hold every rank until

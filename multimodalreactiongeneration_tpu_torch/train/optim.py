@@ -10,12 +10,18 @@ chain), which is what ``torch.optim.SGD(weight_decay=...)`` does.
 ``accumulate_grad_batches`` k > 1 wraps it in ``MultiSteps``, the JAX
 package's ``optax.MultiSteps`` (Lightning's
 ``trainer.accumulate_grad_batches``).
+
+Under a mesh with a 'model' axis (``parallel/distributed.py
+shard_parameters``) a sharded parameter holds this rank's slice between
+steps, and so does every per-parameter state tensor:
+``map_param_state`` slices a state made whole (a resumed run's), and
+``map_state_dict`` makes a ``state_dict`` whole for a checkpoint.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Iterable, Mapping
+from typing import Any, Callable, Dict, Iterable, List, Mapping
 
 import torch
 
@@ -118,3 +124,46 @@ def set_learning_rate(optimizer, lr: float) -> None:
     step); a ``MultiSteps``' groups are its inner optimizer's."""
     for group in optimizer.param_groups:
         group["lr"] = lr
+
+
+def _inner(optimizer) -> torch.optim.Optimizer:
+    return optimizer.inner if isinstance(optimizer, MultiSteps) else optimizer
+
+
+def _params(optimizer) -> List[torch.Tensor]:
+    """The parameters in ``state_dict`` order (the groups', in turn)."""
+    return [p for g in _inner(optimizer).param_groups for p in g["params"]]
+
+
+def map_param_state(optimizer, fn: Callable) -> None:
+    """Replace, in place, every tensor of the optimizer's per-parameter
+    state (AdamW's moments and step, SGD's momentum, ``MultiSteps``'
+    accumulators) by ``fn(param, tensor)``."""
+    inner = _inner(optimizer)
+    for p in _params(optimizer):
+        state = inner.state.get(p, {})
+        for k, v in state.items():
+            if isinstance(v, torch.Tensor):
+                state[k] = fn(p, v)
+    if isinstance(optimizer, MultiSteps):
+        optimizer.acc_grads = [fn(p, a) for p, a in
+                               zip(optimizer.params, optimizer.acc_grads)]
+
+
+def map_state_dict(optimizer, state: Dict[str, Any],
+                   fn: Callable) -> Dict[str, Any]:
+    """``optimizer.state_dict()``'s ``state`` with every per-parameter
+    tensor replaced by ``fn(param, tensor)``, in parameter order (the same
+    calls on every rank)."""
+    params = _params(optimizer)
+
+    def inner(sd):
+        return dict(sd, state={
+            i: {k: fn(params[i], v) if isinstance(v, torch.Tensor) else v
+                for k, v in st.items()}
+            for i, st in sd["state"].items()})
+
+    if isinstance(optimizer, MultiSteps):
+        return dict(state, inner=inner(state["inner"]), acc_grads=[
+            fn(p, a) for p, a in zip(optimizer.params, state["acc_grads"])])
+    return inner(state)

@@ -185,23 +185,51 @@ def test_cli_trains_two_inner_layer_mixers(tmp_path, monkeypatch):
                            "weight_hh_l1"].shape == (4 * 32, 32))
 
 
-def test_cli_refuses_other_models_and_unported_options():
-    """An unknown model, a 'model' mesh axis (parameter sharding, ROADMAP
-    queue A, item 10) and a data axis wider than the process group raise;
-    scheduled sampling, dropout, accumulation and remat train
+def test_cli_refuses_other_models_and_unported_options(tmp_path):
+    """An unknown model and a mesh of more ranks than the process group
+    raise; ``trainer.mesh_shape: [1, 2]`` on two processes (torchrun's
+    environment, gloo) trains an epoch with the parameters sharded over
+    the 'model' axis, and resumes from its ``last`` checkpoint on the mesh
+    for a second; rank 0 alone writes, and each ``last`` holds whole
+    tensors that load ``strict=True`` into one process's model. Scheduled
+    sampling, dropout, accumulation and remat train
     (tests/test_torch_port_train_options.py), and so does
     ``trainer.mesh_shape: [N, 1]`` on N processes
     (tests/test_torch_port_data_parallel.py)."""
+    from tests.test_torch_port_data_parallel import run_cli_ranks
+
     with pytest.raises(ValueError, match="gpt"):
         cli.main(["--config", "configs/lstmformer.yaml", "device=cpu",
                   "exp.use_model=gpt"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.main(["--config", "configs/lstmformer.yaml", "device=cpu",
-                  "model.use_scheduled_sampling=true",
-                  "trainer.mesh_shape=[1, 2]"])
-    with pytest.raises(ValueError, match="torchrun"):
-        cli.main(["--config", "configs/lstmformer.yaml", "device=cpu",
-                  "trainer.mesh_shape=[2, 1]"])
+    for shape in ("[2, 1]", "[1, 2]"):
+        with pytest.raises(ValueError, match="torchrun"):
+            cli.main(["--config", "configs/lstmformer.yaml", "device=cpu",
+                      f"trainer.mesh_shape={shape}"])
+    corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_sessions=1,
+                                   seconds=90.0)
+    common = ["name=mp", f"data_dir={corpus}", "ckpt_path=ck",
+              "log_dir=log", "trainer.mesh_shape=[1, 2]"]
+    run_cli_ranks(tmp_path, common + ["max_epochs=1"])
+    first = torch.load(tmp_path / "ck" / "mp" / "last", weights_only=True)
+    run_cli_ranks(tmp_path, common + ["max_epochs=2",
+                                      "resume_from=ck/mp/last"])
+    last = torch.load(tmp_path / "ck" / "mp" / "last", weights_only=True)
+    assert (first["epoch"], last["epoch"]) == (0, 1)
+    cfg = cli.load_config(YAML, SMALL).model.to_dict()
+    for payload in (first, last):
+        Metaformer(cfg, device="cpu").load_state_dict(payload["params"],
+                                                      strict=True)
+        assert payload["opt"]["state"]
+    moved = max(float((last["params"][k] - first["params"][k]).abs().max())
+                for k in first["params"])
+    assert moved > 0.0
+    with open(tmp_path / "log" / "metrics.jsonl", encoding="utf-8") as f:
+        epochs = [json.loads(x)["epoch"] for x in f
+                  if "val_check" not in json.loads(x)]
+    assert epochs == [0, 1]
+    logs = [n for n in os.listdir(tmp_path / "log") if n.startswith("main")]
+    text = "".join((tmp_path / "log" / n).read_text() for n in logs)
+    assert "mesh 1x2 (data x model)" in text
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

@@ -6,7 +6,8 @@ place of the JAX 'data' mesh axis), on the CPU.
   * ``parallel/mesh.py``: ``pad_batch_to_devices`` against JAX's, and
     ``shard_batch`` against the rows ``NamedSharding(mesh, P('data'))``
     puts on each of the 8 virtual devices; the meshes a process group
-    cannot be (a data axis wider than it, a 'model' axis) raise.
+    cannot be (a data axis wider than it, a 2-D mesh of more ranks than
+    it holds) raise.
   * ``Trainer._stage`` without a process group: rows as given, on the
     device, contiguous; only rank 0 writes (``checkpoint.is_primary``).
   * ``initialize_multihost`` and the CLI with CUDA reported available:
@@ -130,7 +131,7 @@ def test_meshes_a_process_group_cannot_be_raise():
     assert mesh.make_mesh_2d(1, 1) == one
     with pytest.raises(ValueError, match="torchrun"):
         mesh.make_mesh(2)
-    with pytest.raises(NotImplementedError, match="queue A, item 10"):
+    with pytest.raises(ValueError, match="1x2 mesh needs 2 processes"):
         mesh.make_mesh_2d(1, 2)
     with pytest.raises(ValueError, match="outside"):
         mesh.DataMesh(data=2, rank=2)
@@ -288,36 +289,31 @@ def test_two_process_fit_matches_one_process():
     assert r["frames"][0] == r["frames"][1] and r["frames"][0][0] > 0
 
 
-def test_cli_trains_on_two_processes_and_rank_zero_writes(tmp_path):
-    """``train.cli`` as ``torchrun --nproc_per_node 2`` starts it (RANK,
-    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR / MASTER_PORT), over gloo on the
-    CPU, with ``trainer.mesh_shape=[2, 1]``: both ranks finish; rank 0
-    alone wrote the log, ``metrics.jsonl`` (one record per check and
-    epoch, not one per rank) and the checkpoints."""
-    import json
+def run_cli_ranks(tmp_path, overrides, n=2):
+    """``train.cli`` on ``n`` processes as ``torchrun --nproc_per_node n``
+    starts it (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR / MASTER_PORT),
+    over gloo on the CPU, in ``tmp_path``, on the small yaml of
+    tests/test_torch_port_cli.py with ``overrides``; every rank must
+    finish with 0."""
     import os
     import socket
     import subprocess
     import sys
 
-    from tests.fixtures import make_synthetic_corpus
     from tests.test_torch_port_cli import SMALL, YAML
 
-    corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_sessions=1,
-                                   seconds=90.0)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cmd = [sys.executable, "-m", "multimodalreactiongeneration_tpu_torch.train."
-           "cli", "--config", os.path.abspath(YAML), "name=dp",
-           f"data_dir={corpus}", "ckpt_path=ck", "log_dir=log", *SMALL,
-           "max_epochs=1", "trainer.mesh_shape=[2, 1]"]
+           "cli", "--config", os.path.abspath(YAML), *SMALL, *overrides]
     procs = []
-    for r in range(2):
-        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2",
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                   GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1",
+    for r in range(n):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                   WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), GLOO_SOCKET_IFNAME="lo",
+                   OMP_NUM_THREADS="1",
                    PYTHONPATH=root + os.pathsep + os.environ.get(
                        "PYTHONPATH", ""))
         procs.append(subprocess.Popen(
@@ -329,7 +325,28 @@ def test_cli_trains_on_two_processes_and_rank_zero_writes(tmp_path):
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    assert rcs == [0, 0], (tmp_path / "err0.txt").read_text()[-3000:]
+    assert rcs == [0] * n, (tmp_path / "err0.txt").read_text()[-3000:]
+
+
+def test_cli_trains_on_two_processes_and_rank_zero_writes(tmp_path):
+    """``train.cli`` as ``torchrun --nproc_per_node 2`` starts it (RANK,
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR / MASTER_PORT), over gloo on the
+    CPU, with ``trainer.mesh_shape=[2, 1]``: both ranks finish; rank 0
+    alone wrote the log, ``metrics.jsonl`` (one record per check and
+    epoch, not one per rank) and the checkpoints, whose ``last`` loads
+    ``strict=True`` into one process's model."""
+    import json
+    import os
+
+    from multimodalreactiongeneration_tpu_torch.train.cli import load_config
+    from tests.fixtures import make_synthetic_corpus
+    from tests.test_torch_port_cli import SMALL, YAML
+
+    corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_sessions=1,
+                                   seconds=90.0)
+    run_cli_ranks(tmp_path, ["name=dp", f"data_dir={corpus}", "ckpt_path=ck",
+                             "log_dir=log", "max_epochs=1",
+                             "trainer.mesh_shape=[2, 1]"])
     with open(tmp_path / "log" / "metrics.jsonl", encoding="utf-8") as f:
         lines = [json.loads(x) for x in f]
     assert [("val_check" in x) for x in lines] == [True, True, False]
@@ -339,3 +356,6 @@ def test_cli_trains_on_two_processes_and_rank_zero_writes(tmp_path):
     text = (tmp_path / "log" / logs[0]).read_text()
     assert "data parallel: process 0 of 2" in text
     assert "last" in os.listdir(tmp_path / "ck" / "dp")
+    last = torch.load(tmp_path / "ck" / "dp" / "last", weights_only=True)
+    Metaformer(load_config(YAML, SMALL).model.to_dict(),
+               device="cpu").load_state_dict(last["params"], strict=True)

@@ -16,7 +16,7 @@ tests/test_serving.py (a lead of 3 frames, 1280-sample hops):
   * mha embeddings: the pool carries their rings (a slot against a
     batch-1 session, 1e-4);
   * int8 rings track bf16 within 1e-1 (tests/test_serving.py:257);
-  * a mesh is refused.
+  * slots that do not divide a mesh's data axis are refused.
 The JAX serving tests are marked slow; these run in tier-1.
 """
 
@@ -227,5 +227,13 @@ def test_int8_engine_tracks_bf16(models):
 
 
 def test_mesh_is_refused(models):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ServingEngine(models[2], slots=2, mesh=object())
+    """What a mesh refuses: slots that do not divide its data axis
+    (ValueError, as JAX's engine); a mesh of one rank is the one-card
+    pool (the mesh pool itself: tests/test_torch_port_serving_mesh.py)."""
+    from multimodalreactiongeneration_tpu_torch.parallel import mesh
+
+    with pytest.raises(ValueError, match="3 slots do not divide over a "
+                       "data axis of 2"):
+        ServingEngine(models[2], slots=3, mesh=mesh.DataMesh(data=2))
+    engine = ServingEngine(models[2], slots=2, mesh=mesh.make_mesh())
+    assert engine.local_slots == 2 and engine.owns(0) and engine.owns(1)

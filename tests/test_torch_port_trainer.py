@@ -204,19 +204,30 @@ def test_generation_eval_matches_jax():
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """A 'model' mesh axis raises (parameter sharding, ROADMAP queue A,
-    item 10); the data axis of the process group is taken
+    """The Trainer takes a 2-D mesh: on a (1, 2) mesh of two spawned
+    gloo ranks it shards the parameters and the optimizer's state (each
+    rank storing half of what ``param_sharding`` splits) in place of DDP,
+    and the step matches one process; a 2-D mesh of more ranks than the
+    process group raises. The data axis of the process group is taken
     (tests/test_torch_port_data_parallel.py), and so is scheduled
-    sampling (tests/test_torch_port_train_options*.py)."""
+    sampling (tests/test_torch_port_train_options*.py); the generation
+    eval refuses simple_lstm."""
     from multimodalreactiongeneration_tpu_torch.parallel import mesh
+    from multimodalreactiongeneration_tpu_torch.parallel import (
+        multihost_dryrun as dryrun,
+    )
 
     pm = Metaformer(CFG, device="cpu")
     opt = optim.build_optimizer(pm.parameters(), OPTIM)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="1x2 mesh in a process group of 1"):
         harness.Trainer(pm, None, None, opt, OPTIM,
-                        mesh=mesh.make_mesh_2d(1, 2), device="cpu")
+                        mesh=mesh.DataMesh(data=1, model=2), device="cpu")
     assert harness.Trainer(pm, None, None, opt, OPTIM, mesh=mesh.make_mesh(),
                            device="cpu").mesh.shape == {"data": 1, "model": 1}
+    r = dryrun.step_readings(2, ("f32",), mesh_shape=(1, 2), steps=1,
+                             timeout=300.0)["f32"]
+    assert r["mesh"] == [1, 2] and r["rank_sharded"] == [True, True]
+    dryrun.check_steps(r, loss_tol=0.0, param_tol=0.0, rank_tol=0.0)
     trainer = harness.Trainer(pm, None, None, opt, OPTIM,
                               scheduled_max_epochs=3, device="cpu")
     assert trainer.scheduled_max_epochs == 3
