@@ -198,12 +198,13 @@ Phases:
  20. simple_lstm training step at the yaml's batch, B256 windows (context
      15, audio T120, one target frame), AdamW with the yaml's optim group:
      as phase 8, with launches per step K7 +4 / +4, per eval step K7
-     forward +4, the profiler table in
-     ``_build/profile_simple_train_step.txt``; then, for simple_lstm and
+     forward +4 (no profile since PR 26: cut for room); then, for
+     simple_lstm and
      for the flagship Metaformer, one step with ``MRGEN_FUSED_DW=0``
      (simple_lstm K8 +4 / +4, the flagship K8 +5 / +5, K7 +0, the other
      kernels as in phase 8) and one with the default, on a batch from
-     the phase's own generator (``SEED + 20``; simple_lstm's B256,
+     the phase's own generator (``SEED + 20``; simple_lstm's B64 since
+     PR 26, cut from B256 for room,
      the flagship's phase 8's B2 x T48): each step's loss and
      gradients within phase 8's bounds of the plain FP32 step's (the same
      weights and batch on CPU tensors); the two card steps' distance from
@@ -249,7 +250,7 @@ Phases:
      1e-1);
  25. the flagship's scheduled-sampling step (``scheduled_sampling_phase``:
      the loss on the AR rollout, gradients through its ``SS_FRAMES``
-     steps, f32 per-block rings), B8 x T120 + lead 12 (the yaml's T240
+     steps, f32 per-block rings), B8 x T60 + lead 12 (the yaml's T240
      cut for room), rate 0.5, AdamW: ms a step,
      peak memory, launches exact (K3 +1 / K4 +1 over the lead's audio,
      nothing else); the card against CPU tensors at B2, the all-False
@@ -302,8 +303,8 @@ Phases:
      values timed in turns, the plain bf16 versions and cuDNN's
      ``nn.GRU`` / ``nn.LSTM`` in bf16 as the yardstick;
  30. lstm_with_sampling's bf16 training step (``bf16_step_phase``, own
-     generator ``SEED + 30``) as phase 12 (B256 x T128, AdamW, the
-     profiler table in ``_build/profile_lws_bf16_train_step.txt``): per
+     generator ``SEED + 30``) as phase 12 (B256 x T128, AdamW; no
+     profile since PR 26, cut for room): per
      step the bf16 modes, K9 +1 / +1 and K7 +2 / +2; the eval step in
      f32, K9 +1 and K7 forward +2; the card's bf16 SGD step against the
      same bf16 step on CPU tensors within ``BF16_CARD_CPU_TOL``; then,
@@ -325,8 +326,8 @@ Phases:
      ``BF16_LOSS_REL_TOL`` of the f32 step's from one model's weights on
      one batch; ms a step and peak memory beside phase 8's;
  32. the GRU Metaformer's bf16 training step (own generator ``SEED +
-     32``) as phase 16 runs the f32 one (B32 x T240, AdamW, the profiler
-     table in ``_build/profile_gru_bf16_train_step.txt``): per step K10's
+     32``) as phase 16 runs the f32 one (B32 x T240, AdamW; no profile
+     since PR 26, cut for room): per step K10's
      bf16 mode +15 / +15, K5 +2 / K6 +2 in bf16 and +8 / +8 in f32; the
      eval step in f32 as phase 16's; the card's bf16 SGD step at B2 x T48
      against the same step on CPU tensors within phase 31's bounds on
@@ -418,6 +419,27 @@ Phases:
      p50/p95/p99 per rank beside phase 24's pool; per rank K1 +1 per
      attach it owns, nothing per step. Two ranks on one card say nothing
      of scaling over cards;
+ 40. every head count and hidden size up to 256 (``shape_phases``,
+     generator ``SEED + 40``): (a) each new shape against its plain
+     version on the card in f32 and bf16 (``kernel_shapes_phase``: f32
+     forward <= 1e-4 abs and gradients <= 1e-3 of the largest, bf16
+     within ``BF16_ATTN_TOL`` / ``BF16_FULL_TOL`` and the distance test),
+     launches exact, timed beside the plain version, SDPA or cuDNN in the
+     same dtype, with the bounds at the real and at the padded width:
+     K5/K6 at B32 x 252 x 2016 with head dims 16, 48 (on the 64 tile), 128
+     and 256; K10 and K8 at B32 x T252 x H 64, 192 and 100 (on 128); K10 at
+     B32 x T2016 x H192; K9's layer route at B256 x T1120 x H192 x L2; (b)
+     at full width, through the step functions (``train_path_phase``:
+     ``SHAPE_STEPS`` f32 steps, eval, one SGD step card against CPU at B2 x
+     T48, launches exact) the GRU Metaformer at hidden 192 and 4 heads (K10
+     +15 / +15 at H192, K5/K6 +10 / +10 at head dim 48; one bf16 step with
+     phase 32's gates), lstm_with_sampling at hidden 192 and sampler 192
+     (B256 x T128: K8 +2 / +2 at H192, K9's layer route +1 / +1; one bf16
+     step with phase 20's gates of that route), the flagship at 2 heads
+     (head dim 128; one bf16 step with phase 31's gates) and 1 head (256);
+     (c) one generation of the GRU Metaformer (K10 +10) and of
+     lstm_with_sampling (the layer route +1) at those widths, each with
+     its teacher-forced card-against-CPU check;
 
 Every kernel's JSON record carries its bound: the larger of its
 operations (FP32 at 67 TFLOP/s; the 3xTF32 products of K5's forward,
@@ -452,6 +474,7 @@ LWS_B, LWS_FRAMES = 256, 128  # configs/lstm_with_sampling.yaml's batch
 # configs/simple_lstm.yaml's batch, audio window (15 x 100 / 12.5) and
 # motion context
 SIMPLE_B, SIMPLE_AUDIO_T, SIMPLE_CONTEXT = 256, 120, 15
+SIMPLE_DW0_B = 64  # phase 20's simple_lstm batch (cut for room)
 CORPUS_SESSIONS, CORPUS_SECONDS = 4, 540.0
 # simple_lstm's corpus: its loader reads 20 pickles and computes a
 # 120-frame fbank per window on the host (~9 ms a window on an H100
@@ -475,10 +498,10 @@ SERVE_SLOTS, HOP_MS, INT8_TOL = (16, 64), 80.0, 1e-1
 # the training options: the scheduled-sampling steps (the flagship's
 # batch is sized by its f32 per-block rings, kept for backward at every
 # step of the rollout: ~92 MB a step at B8; its rollout is cut from the
-# yaml's 240 frames to 120 for room: a host-driven step a frame, ~27 s at
-# 240), the dropout rate of the dropout steps, and the accumulation
+# yaml's 240 frames to 60 for room: a host-driven step a frame, ~27 s at
+# 240, 17.3 s at 120), the dropout rate of the dropout steps, and the accumulation
 # check's bound
-SS_STEPS, SS_RATE, SS_B, SS_LWS_B, SS_FRAMES = 1, 0.5, 8, 32, 120
+SS_STEPS, SS_RATE, SS_B, SS_LWS_B, SS_FRAMES = 1, 0.5, 8, 32, 60
 DROPOUT, ACCUM_REL_TOL = 0.1, 1e-6
 # the bf16 modes of K7 and K9 against their plain bf16 versions (the two
 # round h and the dgates at the same products but sum in other orders, so
@@ -587,6 +610,12 @@ DP_HIDDEN, DP_LOSS_TOL, DP_PARAM_TOL, DP_ONE_TOL = 256, 1e-4, 1e-4, 1e-6
 # session is the corpus sessions' 540 s
 POSE_TOL, FBANK_REF_TOL = (1e-3, 1e-5), (1e-3, 1e-3)
 RAW_SESSIONS, RAW_SECONDS, RAW_FRAME = 2, 60.0, (8, 16)
+# phase 40: the (E, heads) of K5/K6's new head dims (16, 48, 128, 256),
+# the hidden sizes of K8's and K10's (64, 192, and 100 run padded to
+# 128), and the f32 steps of each configuration (cut from 5 for room)
+SHAPE_HEADS = ((256, 16), (192, 4), (256, 2), (256, 1))
+SHAPE_HIDDEN = (64, 192, 100)
+SHAPE_STEPS = 2
 LIBS = ("mixer_stack", "decode_rollout", "lstm_layer", "rect_attention",
         "lstm_stacked", "gru", "lstm_recurrence", "attention_bf16")
 SRC = "multimodalreactiongeneration_tpu_torch/csrc/"
@@ -1646,7 +1675,8 @@ def train_path_phase(mods, dev, rng, spec):
     zero_counts(mods)
     losses, times = [], []
     torch.cuda.reset_peak_memory_stats(dev)
-    for i in range(TRAIN_STEPS):
+    steps = spec.get("steps", TRAIN_STEPS)
+    for i in range(steps):
         before = counts(mods)
         t0 = time.perf_counter()
         loss, _ = train_step(batch)
@@ -1722,7 +1752,7 @@ def train_path_phase(mods, dev, rng, spec):
                 f"{mode['vs_f32']} from the CPU f32 one, the bound "
                 f"{spec['mean_tol']} between")
     return {"launches": launches, "record": {
-        "batch": batch_size, "frames": frames, "steps": TRAIN_STEPS,
+        "batch": batch_size, "frames": frames, "steps": steps,
         "ms": step_ms, "frames_per_s": frames_per_s, "losses": losses,
         "peak_mem_gib": peak_gib, "device_busy_share": busy,
         "stack_overlap": overlap, "stack_schedule_ab": ab,
@@ -1951,8 +1981,10 @@ def simple_train_spec():
         per_step=dict(lstm_layer_fwd=4, lstm_layer_bwd=4),
         per_eval=dict(lstm_layer_fwd=4),
         per_step_off=dict(lstm_recurrence_fwd=4, lstm_recurrence_bwd=4),
-        dw0_batch=(SIMPLE_B, 1),
-        profile="profile_simple_train_step.txt")
+        # phase 20's card-vs-CPU batch, cut from the yaml's 256 windows for
+        # room: the plain CPU step at B256 took 61.4 s of the host; no
+        # profile (cut for room: host-bound, busy 0.12, PERF.md section 5)
+        dw0_batch=(SIMPLE_DW0_B, 1), profile=None)
 
 
 def profile_step(step, batch, name):
@@ -3972,7 +4004,7 @@ def lws_bf16_train_spec():
                           lstm_recurrence_bf16_fwd=2,
                           lstm_recurrence_bf16_bwd=2),
         per_eval=dict(lstm_stacked_fwd=1, lstm_layer_fwd=2),
-        profile="profile_lws_bf16_train_step.txt",
+        profile=None,  # cut for room: phase 12's f32 step is profiled
         card_vs_cpu_tol=BF16_CARD_CPU_TOL)
     return spec
 
@@ -4047,7 +4079,7 @@ def gru_bf16_train_spec():
         per_step=dict(gru_bf16_fwd=15, gru_bf16_bwd=15,
                       rect_attention_bf16_fwd=2, rect_attention_bf16_bwd=2,
                       rect_attention_fwd=8, rect_attention_bwd=8),
-        profile="profile_gru_bf16_train_step.txt",
+        profile=None,  # cut for room: phase 16's f32 step is profiled
         card_vs_cpu_tol=BF16_FLAGSHIP_CARD_CPU_TOL, f32_twin=gru_train_spec,
         mean_tol=BF16_GRU_STEP_MEAN_TOL, grad_floor=1e-2)
     return spec
@@ -5287,6 +5319,429 @@ def corpus_pipeline_phase(dev, card):
     return record
 
 
+def attention_shape_case(K5, r, rng, dev, e, heads, bf16):
+    """Phase 40, K5/K6 at one (E, heads) of the rate-aligned integrators'
+    shape (B32 x Lq 252 x Lk 2016, 10% padded rows and keys), f32 or bf16
+    operands: the wrapper as the model calls it (the forward without a
+    gradient, then with one and the backward: launches exact), against
+    the plain version of the mode (f32: ``check_case``; bf16:
+    ``bf16_check`` within ``BF16_ATTN_TOL``); the wrapper's ms (a head
+    dim that is no tile includes its padded copies), the plain version's,
+    SDPA's with the boolean mask in the same dtype; the bounds at the
+    real head dim and at its tile."""
+    import torch.nn.functional as F
+
+    b, lq, lk = TRAIN_B, LEAD + TRAIN_FRAMES, (LEAD + TRAIN_FRAMES) * RATIO
+    d = e // heads
+    dp = K5.padded_head_dim(d)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q, k, v, g = (r(b, lq, e).to(dt), r(b, lk, e).to(dt), r(b, lk, e).to(dt),
+                  r(b, lq, e))
+    q_pad = torch.from_numpy(rng.random((b, lq)) < 0.1).to(dev)
+    k_pad = torch.from_numpy(rng.random((b, lk)) < 0.1).to(dev)
+    args = (heads, q, k, v, q_pad, k_pad)
+    keys = (("rect_attention_bf16_fwd", "rect_attention_bf16_bwd") if bf16
+            else ("rect_attention_fwd", "rect_attention_bwd"))
+    read = lambda: {n: getattr(K5, COUNTERS[n][1]) for n in keys}
+    before = read()
+    with torch.no_grad():
+        out0 = K5.rect_attention(*args)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = K5.rect_attention(heads, *leaves, q_pad, k_pad)
+    grads = torch.autograd.grad(out, leaves, g)
+    got = {n: v - before[n] for n, v in read().items()}
+    if got != {keys[0]: 2, keys[1]: 1}:
+        raise AssertionError(f"rect attention E{e} x {heads} heads: "
+                             f"launches {got}")
+    tag = "rect_attention_shapes" + ("_bf16" if bf16 else "")
+    shape = dict(B=b, Lq=lq, Lk=lk, E=e, heads=heads, head_dim=d, tile=dp)
+    plain = (K5.rect_attention_bf16_reference if bf16
+             else K5.rect_attention_reference)
+    with torch.no_grad():
+        plain_fwd_ms, want = cuda_ms(lambda: plain(*args), 1)
+    plain_bwd_ms, wgrads = cuda_ms(
+        K5.rect_attention_backward_reference(*args, g, closure=True), 1)
+    if bf16:
+        with torch.no_grad():
+            ctx32 = K5.rect_attention_reference(
+                heads, q.float(), k.float(), v.float(), q_pad, k_pad)
+        errs = bf16_check(tag, (out0, out.detach()), grads, (want, want),
+                          wgrads, (ctx32,), False, tol=BF16_ATTN_TOL,
+                          **shape)
+        del ctx32
+    else:
+        errs = dict(fwd_max_abs_err=max_err((out0, out), (want, want)),
+                    grad_max_abs_err=max_err(grads, wgrads),
+                    grad_max_rel_err=rel_err(grads, wgrads))
+    del out0, out, want, wgrads
+    ctx, m, l = K5.rect_attention_forward(*args, residuals=True)
+    fwd_ms, _ = cuda_ms(lambda: K5.rect_attention_forward(*args), 5)
+    fwd_res_ms, _ = cuda_ms(
+        lambda: K5.rect_attention_forward(*args, residuals=True), 5)
+    bwd_ms, _ = cuda_ms(
+        lambda: K5.rect_attention_backward(*args, ctx, m, l, g), 5)
+    # yardstick only, never called by the port
+    allowed = ~K5.rect_attention_mask(q_pad, k_pad)[:, None]
+    lib_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def split(x):
+        return x.view(b, x.shape[1], heads, d).transpose(1, 2)
+
+    lib_fwd_ms, lib_out = cuda_ms(lambda: F.scaled_dot_product_attention(
+        *[split(x) for x in lib_leaves], attn_mask=allowed), 5)
+    lib_bwd_ms, _ = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, lib_leaves, split(g.to(dt)), retain_graph=True), 5)
+    del lib_out, lib_leaves, allowed
+    # per visible (query, key) pair and head dim: 4 FLOPs forward, 10
+    # backward (3xTF32 in the f32 mode, bf16 in the bf16 mode); the bytes
+    # of every input and output; at the tile both grow by dp / d
+    pairs = rect_pairs(q_pad, k_pad) * heads
+    fwd_bytes = nbytes(args, ctx, m, l)
+    bwd_bytes = nbytes(args, m, l, g, grads) + (0 if bf16 else nbytes(ctx))
+
+    def at(width, flops, bytes_):
+        if bf16:
+            return bound_bf16(flops * width, bytes_)
+        return bound(0, bytes_, tf32x3_flops=flops * width)
+
+    grow = dp / d
+    bounds = dict(fwd_bound=at(d, 4 * pairs, fwd_bytes),
+                  bwd_bound=at(d, 10 * pairs, bwd_bytes),
+                  fwd_tile_bound=at(dp, 4 * pairs, fwd_bytes * grow),
+                  bwd_tile_bound=at(dp, 10 * pairs, bwd_bytes * grow))
+    del ctx, m, l, grads
+    times = dict(fwd_ms=fwd_ms, fwd_res_ms=fwd_res_ms, bwd_ms=bwd_ms,
+                 plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
+                 library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms)
+    if not bf16:
+        check_case(tag, errs["fwd_max_abs_err"], errs["grad_max_rel_err"],
+                   **shape, **times,
+                   **{k_: v_[0] for k_, v_ in bounds.items()})
+    else:
+        log(tag, **shape, **fmt(times),
+            **{k_: round(v_[0], 4) for k_, v_ in bounds.items()})
+    return dict(**shape, **errs, **times, **bounds)
+
+
+def recurrence_shape_case(kind, mod, r, dev, b, t, h, bf16, layers=2):
+    """Phase 40, one shape of K10 (``kind`` "gru"), K8 ("lstm") or K9's
+    layer route ("stacked", ``layers`` deep), f32 or bf16 W: the entry
+    point as the model calls it (the forward without a gradient, then
+    with one and the backward: launches exact; a hidden size the kernels
+    are not built for runs padded), against the plain version of the
+    mode (f32: ``check_case``; bf16: ``bf16_check`` over the full length,
+    the distance test over the first ``BF16_RECURRENCE_MODE_STEPS``
+    steps); the entry point's ms (forward without a gradient, with one,
+    and forward plus backward), the plain version's, cuDNN's in the same
+    dtype; the bounds at the real H and at the H the kernels run."""
+    from multimodalreactiongeneration_tpu_torch.ops.hidden_pad import (
+        padded_hidden,
+    )
+
+    wt = torch.bfloat16 if bf16 else torch.float32
+    hp = padded_hidden(h)
+    if kind == "gru":
+        g = 3
+        args = (r(b, t, 3 * h, s=0.5), r(h, 3 * h, s=0.06).to(wt),
+                r(3 * h, s=0.1), r(b, h, s=0.3))
+        cots = (r(b, t, h), r(b, h))
+        entry, plain = flat(mod.gru_recurrence), flat(
+            mod.gru_recurrence_reference)
+        plain_bwd, lib = mod.gru_backward_reference, cudnn_gru_ms
+        keys, nmat = ("gru_fwd", "gru_bwd"), 1
+    elif kind == "lstm":
+        g = 4
+        args = (r(b, t, 4 * h, s=0.5), r(h, 4 * h, s=0.06).to(wt),
+                r(b, h, s=0.3), r(b, h, s=0.3))
+        cots = (r(b, t, h), r(b, h), r(b, h))
+        entry, plain = flat(mod.lstm_recurrence), flat(
+            mod.lstm_recurrence_reference)
+        plain_bwd, lib = (mod.lstm_recurrence_backward_reference,
+                          cudnn_recurrence_ms)
+        keys, nmat = ("lstm_recurrence_fwd", "lstm_recurrence_bwd"), 1
+    else:
+        g = 4
+        args = (r(b, t, 4 * h), r(layers - 1, h, 4 * h, s=0.06).to(wt),
+                r(layers - 1, 4 * h, s=0.06),
+                r(layers, h, 4 * h, s=0.06).to(wt),
+                r(layers, b, h, s=0.3), r(layers, b, h, s=0.3))
+        cots = (r(b, t, h), r(layers, b, h), r(layers, b, h))
+        entry, plain = flat(mod.lstm_stacked_recurrence), flat(
+            mod.lstm_stacked_reference)
+        plain_bwd, lib = mod.lstm_stacked_backward_reference, cudnn_stacked_ms
+        keys = ("lstm_stacked_layers_fwd", "lstm_stacked_layers_bwd")
+        nmat = 2 * layers - 1
+    if bf16:
+        keys = tuple(k.replace("_fwd", "_bf16_fwd").replace(
+            "_bwd", "_bf16_bwd") for k in keys)
+    modk = {"gru": "K10", "lstm": "K8", "stacked": "K9"}[kind]
+    read = lambda: {n: getattr(mod, COUNTERS[n][1]) for n in keys}
+    before = read()
+    with torch.no_grad():
+        outs0 = entry(*args)
+    leaves = [a.clone().requires_grad_() for a in args]
+    outs = entry(*leaves)
+    grads = torch.autograd.grad(outs, leaves, cots)
+    outs = tuple(o.detach() for o in outs)
+    got = {n: v - before[n] for n, v in read().items()}
+    if got != {keys[0]: 2, keys[1]: 1}:
+        raise AssertionError(f"{kind} B{b} T{t} H{h}: launches {got} "
+                             f"({modk})")
+    tag = f"{kind}_shapes" + ("_bf16" if bf16 else "")
+    shape = dict(B=b, T=t, H=h, H_run=hp, **(
+        dict(L=layers, route=mod.route(layers, h)) if kind == "stacked"
+        else {}))
+    with torch.no_grad():
+        plain_fwd_ms, want = cuda_ms(lambda: plain(*args), 1)
+    plain_bwd_ms, want_grads = cuda_ms(plain_bwd(args, *cots, closure=True),
+                                       1)
+    if bf16:
+        with torch.no_grad():
+            ys32 = plain(*[a.float() for a in args])[0]
+        errs = bf16_check(tag, outs0 + outs, grads, want * 2, want_grads,
+                          (ys32,), short=False,
+                          mode_steps=BF16_RECURRENCE_MODE_STEPS, **shape)
+        del ys32
+    else:
+        errs = dict(fwd_max_abs_err=max_err(outs0 + outs, want * 2),
+                    grad_max_abs_err=max_err(grads, want_grads),
+                    grad_max_rel_err=rel_err(grads, want_grads))
+    del want, want_grads
+
+    def pair():
+        lv = [a.clone().requires_grad_() for a in args]
+        return torch.autograd.grad(entry(*lv), lv, cots)
+
+    with torch.no_grad():
+        fwd_ms, _ = cuda_ms(lambda: entry(*args), 3)
+    fwd_res_ms, _ = cuda_ms(lambda: entry(*leaves), 3)
+    pair_ms, _ = cuda_ms(pair, 3)
+    lib_fwd_ms, lib_bwd_ms = lib(args, cots, wt)
+    # the chains' products h W_hh (and, stacked, h W_ih of the layers
+    # above the first): 2 B T gH H each, forward; the backward twice that
+    # (its carry product and the weight reductions); 3xTF32 in the f32
+    # mode, bf16 in the bf16 mode; the bytes of every input and output
+    flops = 2 * b * t * g * h * h * nmat
+    fwd_bytes, bwd_bytes = nbytes(args, outs), nbytes(args, outs, cots,
+                                                      grads)
+
+    def at(n, bytes_):
+        if bf16:
+            return bound_bf16(n, bytes_)
+        return bound(0, bytes_, tf32x3_flops=n)
+
+    grow = hp / h
+    bounds = dict(fwd_bound=at(flops, fwd_bytes),
+                  bwd_bound=at(2 * flops, bwd_bytes),
+                  fwd_run_bound=at(flops * grow * grow, fwd_bytes * grow),
+                  bwd_run_bound=at(2 * flops * grow * grow,
+                                   bwd_bytes * grow))
+    times = dict(fwd_ms=fwd_ms, fwd_res_ms=fwd_res_ms,
+                 bwd_ms=pair_ms - fwd_res_ms, train_pair_ms=pair_ms,
+                 fwd_us_per_step=fwd_res_ms * 1e3 / t,
+                 plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
+                 library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms)
+    del outs0, outs, grads, leaves, args, cots
+    if not bf16:
+        check_case(tag, errs["fwd_max_abs_err"], errs["grad_max_rel_err"],
+                   **shape, **times,
+                   **{k_: v_[0] for k_, v_ in bounds.items()})
+    else:
+        log(tag, **shape, **fmt(times),
+            **{k_: round(v_[0], 4) for k_, v_ in bounds.items()})
+    return dict(**shape, **errs, **times, **bounds)
+
+
+def kernel_shapes_phase(mods, dev, rng):
+    """40a. The shapes this slice opens, each kernel against its plain
+    version on the card in the existing gates (f32: forward 1e-4 abs,
+    gradients 1e-3 of the largest; bf16: ``BF16_ATTN_TOL``, the
+    ``BF16_FULL_TOL`` of a full length), f32 and bf16: K5/K6 at B32 x 252
+    x 2016 with head dims 16 (E 256, 16 heads), 48 (E 192, 4 heads: run
+    on the 64 tile), 128 (E 256, 2 heads) and 256 (E 256, 1 head); K10
+    and K8 at B32 x T252 x H 64, 192 and 100 (run on 128); K10 at B32 x
+    T2016 x H192 (f32: its bf16 mode at T2016 is phase 29b's, cut here
+    for room); K9's layer route at B256 x T1120 x H192 x L2. Returns
+    {kernel: [cases]}."""
+    r = seeded(rng, dev)
+    out = {}
+    for bf16 in (False, True):
+        sfx = "_bf16" if bf16 else ""
+        out["rect_attention" + sfx] = [
+            attention_shape_case(mods["K5"], r, rng, dev, e, heads, bf16)
+            for e, heads in SHAPE_HEADS]
+        out["gru" + sfx] = [
+            recurrence_shape_case("gru", mods["K10"], r, dev, b, t, h, bf16)
+            for b, t, h in [(TRAIN_B, LEAD + TRAIN_FRAMES, h)
+                            for h in SHAPE_HIDDEN] + [
+                (TRAIN_B, (LEAD + TRAIN_FRAMES) * RATIO, 192)][
+                    :len(SHAPE_HIDDEN) + (not bf16)]]
+        out["lstm_recurrence" + sfx] = [
+            recurrence_shape_case("lstm", mods["K8"], r, dev, TRAIN_B,
+                                  LEAD + TRAIN_FRAMES, h, bf16)
+            for h in SHAPE_HIDDEN]
+        out["lstm_stacked_layers" + sfx] = [
+            recurrence_shape_case("stacked", mods["K9"], r, dev, LWS_B,
+                                  (LWS_FRAMES + LEAD) * RATIO, 192, bf16)]
+    return out
+
+
+def shape_model_specs():
+    """40b. The configurations this slice opens, at full width, as the
+    shipped yamls with ``hidden_size`` / ``num_heads`` overridden: the
+    GRU Metaformer at hidden 192, 4 heads (K10 at H192 in its 15 GRU
+    blocks, K5/K6 at head dim 48), lstm_with_sampling at hidden 192,
+    sampler 192 (K8 at H192 in its two blocks, K9's layer route at H192
+    x L2), the flagship at 2 heads (head dim 128) and 1 head (256). Each
+    spec: its f32 step, its bf16 step (where named), whether it runs an
+    eval step and a generation."""
+    from multimodalreactiongeneration_tpu_torch import configs
+
+    gru = dict(configs.LSTMFORMER_GRU_MODEL_CFG, hidden_size=192,
+               num_heads=4)
+    lws = dict(configs.LWS_MODEL_CFG, hidden_size=192,
+               sampler_hidden_size=192)
+    specs = []
+    for name, f32, bf16, extra in (
+            ("gru_h192_heads4", gru_train_spec, gru_bf16_train_spec,
+             dict(cfg=gru)),
+            # its blocks run K8 (as under MRGEN_FUSED_DW=0): phase 20's
+            # bf16 gates on that route
+            ("lws_h192", lws_train_spec, lws_bf16_off_spec, dict(cfg=lws)),
+            ("flagship_heads2", metaformer_train_spec,
+             metaformer_bf16_train_spec,
+             dict(cfg=dict(configs.LSTMFORMER_MODEL_CFG, num_heads=2))),
+            ("flagship_heads1", metaformer_train_spec, None,
+             dict(cfg=dict(configs.LSTMFORMER_MODEL_CFG, num_heads=1)))):
+        step = dict(f32(), **extra, tag=f"{name}_train_step",
+                    eval_tag=f"{name}_eval_step", profile=None,
+                    stack_ab=False, steps=SHAPE_STEPS)
+        if name.startswith("lws"):  # K8 at H192 in the blocks, K9's layers
+            step.update(per_step=dict(lstm_stacked_layers_fwd=1,
+                                      lstm_stacked_layers_bwd=1,
+                                      lstm_recurrence_fwd=2,
+                                      lstm_recurrence_bwd=2),
+                        per_eval=dict(lstm_stacked_layers_fwd=1,
+                                      lstm_recurrence_fwd=2))
+        half = None
+        if bf16 is not None:
+            twin = step
+            half = dict(bf16(), **extra, tag=f"{name}_bf16_train_step",
+                        eval_tag=f"{name}_bf16_eval_step", profile=None,
+                        stack_ab=False, steps=1)
+            if "f32_twin" in half:  # the control: this configuration's
+                half["f32_twin"] = lambda s=twin: s
+            if name.startswith("lws"):
+                half.update(per_step=dict(lstm_stacked_layers_bf16_fwd=1,
+                                          lstm_stacked_layers_bf16_bwd=1,
+                                          lstm_recurrence_bf16_fwd=2,
+                                          lstm_recurrence_bf16_bwd=2),
+                            per_eval=step["per_eval"])
+        specs.append((name, step, half))
+    return specs
+
+
+def shape_generation_specs():
+    """40c. One generation of the GRU Metaformer at hidden 192, 4 heads
+    (K10 +10: its hoisted encoders) and of lstm_with_sampling at hidden
+    192, sampler 192 (K9's layer route +1: the sampler's warmup), each as
+    phase 15 / 11 runs it (one batch of 16 x 250, then the teacher-forced
+    f32 generation at B2 against CPU tensors)."""
+    from multimodalreactiongeneration_tpu_torch import configs
+    from multimodalreactiongeneration_tpu_torch.models.lstm_with_sampling \
+        import LSTMwithSample
+    from multimodalreactiongeneration_tpu_torch.models.lstmformer import (
+        Metaformer,
+    )
+
+    gru = dict(configs.LSTMFORMER_GRU_MODEL_CFG, hidden_size=192,
+               num_heads=4)
+    lws = dict(configs.LWS_MODEL_CFG, hidden_size=192,
+               sampler_hidden_size=192)
+    return [
+        dict(gru_generation_spec(), tag="gru_h192_heads4",
+             model=lambda device: Metaformer(
+                 gru, generator=torch.Generator().manual_seed(SEED),
+                 device=device)),
+        dict(lws_generation_spec(), tag="lws_h192",
+             per_generation=dict(lstm_stacked_layers_fwd=1),
+             model=lambda device: LSTMwithSample(
+                 lws, generator=torch.Generator().manual_seed(SEED),
+                 device=device))]
+
+
+def shape_phases(mods, dev, kernels=True, models=True):
+    """40. The head counts and hidden sizes this slice opens
+    (``SEED + 40``): with ``kernels`` the kernels at each new shape
+    against their plain versions (``kernel_shapes_phase``), then with
+    ``models`` the configurations at full width through the step
+    functions (``train_path_phase``: the f32 steps, eval, one SGD step
+    card against CPU at B2 x T48; the bf16 step with phase 31's, 32's and
+    20's gates) and the generations. Each part draws from a generator of
+    its own (``SEED + 40``), so the kernel cases do not move the models'
+    batches. Returns the kernel cases ({} without ``kernels``), the model
+    runs' launches and their records."""
+    cases = (kernel_shapes_phase(mods, dev, np.random.default_rng(SEED + 40))
+             if kernels else {})
+    rng = np.random.default_rng(SEED + 40)
+    launches = {k: 0 for k in COUNTERS}
+    records = {}
+    runs = []
+    if models:
+        runs = [(spec["tag"], lambda s=spec: train_path_phase(mods, dev, rng,
+                                                              s))
+                for _, step, half in shape_model_specs()
+                for spec in (step, half) if spec is not None]
+        runs += [(f"{spec['tag']}_generation",
+                  lambda s=spec: generation_phase(mods, dev, rng, s))
+                 for spec in shape_generation_specs()]
+    for tag, run in runs:
+        out = run()
+        records[tag] = out["record"]
+        for k, v in out["launches"].items():
+            launches[k] += v
+    return cases, launches, records
+
+
+def shape_records(kernels, launches):
+    """The JSON entries of phase 40: for each kernel and mode, its
+    forward and backward over the new shapes (the first case the main
+    one), launches from the phase's model runs; SDPA and cuDNN the
+    yardsticks."""
+    where = {
+        "rect_attention": ("rect_attention.cu", "pallas_rect_attention.py:85",
+                           "pallas_rect_attention.py:117"),
+        "rect_attention_bf16": ("attention_bf16.cu",
+                                "pallas_rect_attention.py:85",
+                                "pallas_rect_attention.py:117"),
+        "gru": ("gru.cu", "pallas_gru.py:57", "pallas_gru.py:101"),
+        "lstm_recurrence": ("lstm_recurrence.cu", "pallas_lstm.py:66",
+                            "pallas_lstm.py:131"),
+        "lstm_stacked_layers": ("lstm_recurrence.cu",
+                                "pallas_lstm_stacked.py:495",
+                                "pallas_lstm_stacked.py:595"),
+    }
+    out = []
+    for key, cases in kernels.items():
+        base = key.replace("_bf16", "") if key != "rect_attention_bf16" \
+            else key
+        src, fwd_at, bwd_at = where[base]
+        mode = "_bf16" if key.endswith("_bf16") else ""
+        stem = key[:-len("_bf16")] if mode else key
+        main = cases[0]
+        for way, at in (("fwd", fwd_at), ("bwd", bwd_at)):
+            counter = f"{stem}{mode}_{way}"
+            err = (max(c["fwd_max_abs_err"] for c in cases) if way == "fwd"
+                   else max(c["grad_max_abs_err"] for c in cases))
+            ms = main["fwd_res_ms" if way == "fwd" else "bwd_ms"]
+            out.append(kernel_record(
+                f"{counter}_shapes", src, at, launches[counter], err, ms,
+                main[f"plain_{way}_ms"], main[f"{way}_bound"],
+                main[f"library_{way}_ms"],
+                cases=cases if way == "fwd" else None))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; nothing was run")
@@ -5631,6 +6086,11 @@ def main():
     # ---- 38. the offline corpus pipeline (no kernel) --------------------
     corpus_pipeline = corpus_pipeline_phase(dev, card)
 
+    # ---- 40. every head count and hidden size up to 256 ------------------
+    t0 = time.perf_counter()
+    shape_kernels, shape_launches, shape_runs = shape_phases(mods, dev)
+    log("shapes", seconds=f"{time.perf_counter() - t0:.1f}")
+
     k1_main, k2_main = k1_cases[0], k2_cases[1]
     # no single PyTorch call computes the encoder stack or the rollout
     record = {"kernels": [
@@ -5686,6 +6146,7 @@ def main():
             layers_f32, layers_bf16, kinds["inner2"]["launches"],
             kinds["inner2_bf16"]["launches"],
             generation=kinds["inner2"]["generation_launches"]),
+        *shape_records(shape_kernels, shape_launches),
     ], "generation": {"batch": B, "frames": FRAMES, "ms": gen_ms,
                       "frames_per_s": B * FRAMES / (gen_ms / 1000),
                       "stack_schedule_ab": {"ms": gen_ab,
@@ -5731,7 +6192,7 @@ def main():
                                                      "generation_launches")
                                    if n in v})
                         for k, v in kinds.items()},
-        "corpus_pipeline": corpus_pipeline,
+        "corpus_pipeline": corpus_pipeline, "shapes": shape_runs,
         "seconds": time.perf_counter() - t_start}
     options = dict(options, dropout_cli=dropout_cli, lws_ss_cli=lws_ss_cli)
     for entry in record["kernels"]:  # the training options' launches

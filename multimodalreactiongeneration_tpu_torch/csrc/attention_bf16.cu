@@ -97,6 +97,17 @@
 // pipeline short; TMA would replace 16-byte cp.async copies of 9 KB tiles,
 // and a third ring stage measured no faster, so the copies are not where
 // the time goes. Neither is used here.
+//
+// Head dims: instantiated for Dh 16, 32, 64, 128 and 256, the logits'
+// scale from the caller (1/sqrt of the real head dim: ops/rect_attention.py
+// runs any other Dh up to 256 on the next of these, on a zero-padded copy
+// of the heads). Under Dh 64 a warp of the key-block pass may take no dQ
+// column group; past it a warp takes DT / 4 of them, their B fragments
+// two groups an ldmatrix. From Dh 128 on the kernels' __launch_bounds__
+// leave a thread 255 registers, and at Dh 256 a forward block has one key
+// group (two stages of two groups' K and V tiles would take 270 KB). The
+// build log prints the spill: at Dh 256 the forward 148 bytes, the
+// key-block pass 796 (nvcc 12.8, sm_90a).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -113,7 +124,9 @@ namespace {
 // each kernel's CTAs an SM for __launch_bounds__.
 constexpr int RG = 4;               // row groups of a forward or D-pass
 constexpr int FQ = 16 * RG;         // block, its q rows
-constexpr int KGF = 2;              // key groups of a forward block
+// key groups of a forward block: at Dh 256 one (two stages of two key
+// groups' K and V tiles would take 270 KB of shared memory)
+__host__ __device__ constexpr int kgf(int dh) { return dh >= 256 ? 1 : 2; }
 constexpr int KGD = 1;              // of a D-pass block
 constexpr int FK = KEY_BLOCK;       // keys of a streamed K / V tile
 constexpr int STAGES = 2;           // ring stages in flight
@@ -122,6 +135,18 @@ constexpr int K_THREADS = 32 * KW;
 constexpr int BK = KEY_BLOCK;       // its keys: 16 a warp
 constexpr int BQ = 16;              // q rows a step of the key-block pass
 constexpr int FWD_MINB = 2, D_MINB = 3, KV_MINB = 4;  // CTAs an SM
+// from Dh 128 on, as many CTAs an SM as leave a thread 255 registers (Q's
+// and G's fragments and the accumulators grow with Dh; the build log's
+// spill lines say what does not fit)
+__host__ __device__ constexpr int fwd_minb(int dh) {
+  return dh >= 128 ? 1 : FWD_MINB;
+}
+__host__ __device__ constexpr int d_minb(int dh) {
+  return dh >= 128 ? 2 : D_MINB;
+}
+__host__ __device__ constexpr int kv_minb(int dh) {
+  return dh >= 128 ? 2 : KV_MINB;
+}
 static_assert(BK == 16 * KW, "a warp takes 16 keys of a key block");
 static_assert(BQ == 16 || BQ == 32, "k16 steps of q rows");
 
@@ -353,7 +378,7 @@ __device__ __forceinline__ float weight(float x, float m, float inv_l) {
 }
 
 template <int DH>
-__global__ void __launch_bounds__(32 * RG * KGF, FWD_MINB)
+__global__ void __launch_bounds__(32 * RG * kgf(DH), fwd_minb(DH))
     rect_attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v,
                        const unsigned char* __restrict__ qpad,
@@ -361,7 +386,7 @@ __global__ void __launch_bounds__(32 * RG * KGF, FWD_MINB)
                        float* __restrict__ out, float* __restrict__ mrow,
                        float* __restrict__ lrow, int B, int Lq, int Lk,
                        int H, float scale) {
-  constexpr int KG = KGF, R_THREADS = 32 * RG * KG;
+  constexpr int KG = kgf(DH), R_THREADS = 32 * RG * KG;
   constexpr int LD = DH + 8, KS = DH / 16, NT = FK / 8, DT = DH / 8;
   constexpr int TILE = 2 * FK * LD;  // bf16 of a tile's K and V
   constexpr int STAGE = KG * TILE;   // a ring stage: a tile a key group
@@ -541,7 +566,7 @@ __global__ void __launch_bounds__(32 * RG * KGF, FWD_MINB)
 
 // D[b, h, i] = sum over keys of w dw, and gb = bf16(g): see the source note
 template <int DH>
-__global__ void __launch_bounds__(32 * RG * KGD, D_MINB)
+__global__ void __launch_bounds__(32 * RG * KGD, d_minb(DH))
     rect_attn_bwd_d_bf16(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
@@ -645,7 +670,7 @@ __global__ void __launch_bounds__(32 * RG * KGD, D_MINB)
 
 // dK, dV and the dQ partials of one key block: see the source note
 template <int DH>
-__global__ void __launch_bounds__(K_THREADS, KV_MINB)
+__global__ void __launch_bounds__(K_THREADS, kv_minb(DH))
     rect_attn_bwd_kv_bf16(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
                           const bf16* __restrict__ v,
@@ -661,8 +686,11 @@ __global__ void __launch_bounds__(K_THREADS, KV_MINB)
   constexpr int LD = DH + 8;   // bf16 rows of K, V, Q and G in shared memory
   constexpr int LDS = BK + 8;  // bf16 rows of dS
   constexpr int KS = DH / 16, DT = DH / 8, NQ = BQ / 8, MQ = BQ / 16;
-  constexpr int PPW = DT / KW;  // dQ 8-column groups a warp
-  static_assert(PPW == 1 || PPW == 2, "dQ columns a warp");
+  // dQ 8-column groups a warp; under Dh 64 there are fewer groups than
+  // warps and the last warps take none
+  constexpr int PPW = DT >= KW ? DT / KW : 1;
+  static_assert((DT < KW || DT % KW == 0) && (PPW == 1 || PPW % 2 == 0),
+                "dQ columns a warp");
   constexpr int STAGE_BYTES = 2 * BQ * LD * 2 + 3 * BQ * 4;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
@@ -832,6 +860,7 @@ __global__ void __launch_bounds__(K_THREADS, KV_MINB)
 
       // this block's part of dQ for the step's rows, dS K over its BK
       // keys, into the workspace; each warp takes PPW 8-column groups
+      if (warp * PPW >= DT) continue;  // no group for this warp (Dh 16)
       float acc[MQ][PPW][4];
 #pragma unroll
       for (int mt = 0; mt < MQ; ++mt)
@@ -844,20 +873,24 @@ __global__ void __launch_bounds__(K_THREADS, KV_MINB)
       const bf16* brow = Ks + (lane & 15) * LD + warp * PPW * 8;
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t b0[2], b1[2];
-        if constexpr (PPW == 2) {
-          uint32_t bf[4];
-          ldsm_x4_t(bf, brow + kk * 16 * LD + (lane >> 4) * 8);
-          b0[0] = bf[0], b0[1] = bf[1], b1[0] = bf[2], b1[1] = bf[3];
+        uint32_t bq[PPW][2];
+        if constexpr (PPW == 1) {
+          ldsm_x2_t(bq[0], brow + kk * 16 * LD);
         } else {
-          ldsm_x2_t(b0, brow + kk * 16 * LD);
+#pragma unroll
+          for (int pr = 0; pr < PPW / 2; ++pr) {
+            uint32_t bf[4];
+            ldsm_x4_t(bf, brow + kk * 16 * LD + pr * 16 + (lane >> 4) * 8);
+            bq[2 * pr][0] = bf[0], bq[2 * pr][1] = bf[1];
+            bq[2 * pr + 1][0] = bf[2], bq[2 * pr + 1][1] = bf[3];
+          }
         }
 #pragma unroll
         for (int mt = 0; mt < MQ; ++mt) {
           uint32_t af[4];
           ldsm_x4(af, arow + mt * 16 * LDS + kk * 16);
-          mma_bf16(acc[mt][0], af, b0);
-          if constexpr (PPW == 2) mma_bf16(acc[mt][PPW - 1], af, b1);
+#pragma unroll
+          for (int u = 0; u < PPW; ++u) mma_bf16(acc[mt][u], af, bq[u]);
         }
       }
 #pragma unroll
@@ -890,9 +923,6 @@ __global__ void __launch_bounds__(K_THREADS, KV_MINB)
   }
 }
 
-// the scale of the logits, 1/sqrt(Dh) rounded once, as the plain path's
-float scale_of(int dh) { return (float)(1.0 / sqrt((double)dh)); }
-
 // a forward or D-pass block's shared bytes at KG key groups: the ring (a
 // tile a key group a stage), the key groups' row maxima and sums, the key
 // pad words
@@ -907,13 +937,14 @@ template <int DH>
 int forward(const bf16* q, const bf16* k, const bf16* v,
             const unsigned char* qpad, const unsigned char* kpad, float* out,
             float* mrow, float* lrow, int B, int Lq, int Lk, int H,
-            cudaStream_t stream) {
-  const int smem = row_pass_smem<DH>(KGF, Lk);
+            float scale, cudaStream_t stream) {
+  constexpr int KG = kgf(DH);
+  const int smem = row_pass_smem<DH>(KG, Lk);
   cudaError_t err = set_smem(rect_attn_fwd_bf16<DH>, smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((Lq + FQ - 1) / FQ * H * B);
-  rect_attn_fwd_bf16<DH><<<grid, 32 * RG * KGF, smem, stream>>>(
-      q, k, v, qpad, kpad, out, mrow, lrow, B, Lq, Lk, H, scale_of(DH));
+  rect_attn_fwd_bf16<DH><<<grid, 32 * RG * KG, smem, stream>>>(
+      q, k, v, qpad, kpad, out, mrow, lrow, B, Lq, Lk, H, scale);
   return (int)cudaGetLastError();
 }
 
@@ -936,8 +967,7 @@ int backward(const bf16* q, const bf16* k, const bf16* v,
              const unsigned char* qpad, const unsigned char* kpad,
              const float* g, const float* mrow, const float* lrow, bf16* dq,
              bf16* dk, bf16* dv, unsigned char* scratch, int B, int Lq,
-             int Lk, int H, cudaStream_t stream) {
-  const float scale = scale_of(DH);
+             int Lk, int H, float scale, cudaStream_t stream) {
   const Scratch sc = scratch_of(B, Lq, Lk, H * DH, H);
   float* D = reinterpret_cast<float*>(scratch);
   bf16* gb = reinterpret_cast<bf16*>(scratch + sc.g_at);
@@ -984,24 +1014,34 @@ extern "C" {
 // q (B, Lq, E), k, v (B, Lk, E) bf16, 16-byte aligned; pads (B, Lq), (B,
 // Lk) bytes (1 = pad). Writes the context out (B, Lq, E) FP32 and, when
 // mrow / lrow are not null, each row's softmax max and sum, (B, H, Lq)
-// each. Head dim E / H 32 or 64. Returns 0 or the first CUDA error code.
+// each. Head dim E / H 16, 32, 64, 128 or 256 (ops/rect_attention.py pads
+// any other up to the next with zero columns); scale: the logits' factor,
+// 1/sqrt of the unpadded head dim rounded once. Returns 0 or the first
+// CUDA error code.
 int rect_attention_forward_bf16(const bf16* q, const bf16* k, const bf16* v,
                                 const unsigned char* qpad,
                                 const unsigned char* kpad, float* out,
                                 float* mrow, float* lrow, int B, int Lq,
-                                int Lk, int E, int H, void* stream_ptr) {
+                                int Lk, int E, int H, float scale,
+                                void* stream_ptr) {
   if (!shape_ok(B, Lq, Lk, E, H) || !aligned(q, 16) ||
       !aligned(k, 16) || !aligned(v, 16) || !aligned(out, 8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream_ptr;
+#define RECT_FWD(D)                                                       \
+  case D:                                                                 \
+    return forward<D>(q, k, v, qpad, kpad, out, mrow, lrow, B, Lq, Lk, H, \
+                      scale, s);
   switch (E / H) {
-    case 32:
-      return forward<32>(q, k, v, qpad, kpad, out, mrow, lrow, B, Lq, Lk, H, s);
-    case 64:
-      return forward<64>(q, k, v, qpad, kpad, out, mrow, lrow, B, Lq, Lk, H, s);
+    RECT_FWD(16)
+    RECT_FWD(32)
+    RECT_FWD(64)
+    RECT_FWD(128)
+    RECT_FWD(256)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef RECT_FWD
 }
 
 // Bytes of the backward's scratch for these shapes (-1 if none).
@@ -1013,14 +1053,15 @@ long long rect_attention_bf16_backward_workspace_bytes(int B, int Lq, int Lk,
 
 // From the forward's mrow, lrow and the context's cotangent g (B, Lq, E)
 // FP32: dq (B, Lq, E), dk, dv (B, Lk, E) bf16. scratch: the bytes
-// rect_attention_bf16_backward_workspace_bytes gives, 256-byte aligned.
+// rect_attention_bf16_backward_workspace_bytes gives, 256-byte aligned;
+// head dims and scale as the forward's.
 int rect_attention_backward_bf16(const bf16* q, const bf16* k, const bf16* v,
                                  const unsigned char* qpad,
                                  const unsigned char* kpad, const float* g,
                                  const float* mrow, const float* lrow,
                                  bf16* dq, bf16* dk, bf16* dv, void* scratch,
                                  int B, int Lq, int Lk, int E, int H,
-                                 void* stream_ptr) {
+                                 float scale, void* stream_ptr) {
   if (!shape_ok(B, Lq, Lk, E, H) || !aligned(q, 16) ||
       !aligned(k, 16) || !aligned(v, 16) || !aligned(g, 8) ||
       !aligned(dq, 8) || !aligned(dk, 4) || !aligned(dv, 4) ||
@@ -1028,16 +1069,20 @@ int rect_attention_backward_bf16(const bf16* q, const bf16* k, const bf16* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream_ptr;
   unsigned char* sc = static_cast<unsigned char*>(scratch);
+#define RECT_BWD(D)                                                          \
+  case D:                                                                    \
+    return backward<D>(q, k, v, qpad, kpad, g, mrow, lrow, dq, dk, dv, sc, B, \
+                       Lq, Lk, H, scale, s);
   switch (E / H) {
-    case 32:
-      return backward<32>(q, k, v, qpad, kpad, g, mrow, lrow, dq, dk, dv, sc,
-                          B, Lq, Lk, H, s);
-    case 64:
-      return backward<64>(q, k, v, qpad, kpad, g, mrow, lrow, dq, dk, dv, sc,
-                          B, Lq, Lk, H, s);
+    RECT_BWD(16)
+    RECT_BWD(32)
+    RECT_BWD(64)
+    RECT_BWD(128)
+    RECT_BWD(256)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef RECT_BWD
 }
 
 }  // extern "C"

@@ -87,6 +87,11 @@
 // launch_ctas picks from the occupancy query gru_resident_clusters. At
 // H 128, 8 CTAs (4 and 2 were slower). The SIMT product (each thread all
 // 16 rows of its columns) was slower than the tensor cores at every size.
+// H 192 takes 12 or 6 CTAs and H 64 4 or 2, the same 16 or 32 units a CTA
+// as at H 256; a cluster of 12 or 6 is no power of two, and nothing here
+// needs one (every index is rank * U or n / U). ops/gru.py runs any other
+// H up to 256 on the next of these four sizes, zero-padded
+// (ops/hidden_pad.py).
 //
 // Numerics: the products in 3xTF32 (FP32's order of error, tf32x3.cuh);
 // cell math, state and sums in FP32.
@@ -141,9 +146,17 @@ __device__ __forceinline__ void stamp(int dir, int step, int m) {
 }
 
 // the hidden sizes and CTAs per cluster the kernels take: H 256 over 16
-// or 8, H 128 over 8 (ops/gru.py launch_ctas picks)
+// or 8, H 192 over 12 or 6, H 128 over 8, H 64 over 4 or 2 (ops/gru.py
+// launch_ctas picks, and pads any other H up to 256 to the next of
+// them). A cluster of 12 or 6 CTAs is no power of two: every rank and
+// slot index below is rank * U or n / U, never a shift or a mask
+#define GRU_SHAPES(X) \
+  X(256, 16) X(256, 8) X(192, 12) X(192, 6) X(128, 8) X(64, 4) X(64, 2)
 inline bool gru_shape_ok(int H, int ctas) {
-  return (H == 256 && (ctas == 16 || ctas == 8)) || (H == 128 && ctas == 8);
+#define GRU_OK(h, c) if (H == h && ctas == c) return true;
+  GRU_SHAPES(GRU_OK)
+#undef GRU_OK
+  return false;
 }
 
 // The shape of a step for hidden size H over a cluster of CLN CTAs, in
@@ -661,11 +674,37 @@ int forward_any(const float* xw, const TW* w_hh_t, const float* b_hh,
   if (!gru_shape_ok(H, ctas) || B <= 0 || T <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream_ptr;
-  if (H == 128)
-    return gru_forward<128, 8>(xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T, s);
-  return ctas == 16
-             ? gru_forward<256, 16>(xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T, s)
-             : gru_forward<256, 8>(xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T, s);
+#define GRU_FWD(h, c)    \
+  if (H == h && ctas == c) \
+    return gru_forward<h, c>(xw, w_hh_t, b_hh, h0, ys, hn, hh, B, T, s);
+  GRU_SHAPES(GRU_FWD)
+#undef GRU_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// the backward chain at a shape gru_shape_ok takes
+template <typename TW>
+int chain_backward(const float* xw, const float* hh, const TW* w_hh_t,
+                   const float* h0, const float* ys, const float* dys,
+                   const float* dhn, float* dxw, float* dhh, float* dh0,
+                   int B, int T, int H, int ctas, cudaStream_t s) {
+#define GRU_BWD(h, c)                                                      \
+  if (H == h && ctas == c)                                                 \
+    return gru_backward<h, c>(xw, hh, w_hh_t, h0, ys, dys, dhn, dxw, dhh, \
+                              dh0, B, T, s);
+  GRU_SHAPES(GRU_BWD)
+#undef GRU_BWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// the resident clusters of the mode of TW at a shape gru_shape_ok takes
+template <typename TW>
+int resident_any(int H, int ctas) {
+#define GRU_RES(h, c) \
+  if (H == h && ctas == c) return gru_resident<h, c, TW>();
+  GRU_SHAPES(GRU_RES)
+#undef GRU_RES
+  return -1;
 }
 
 // dW_hh^T over all B*T rows: 3xTF32 (FP32 mode), or bf16 operands with
@@ -691,14 +730,8 @@ int backward_any(const float* xw, const float* hh, const TW* w_hh_t,
   const cudaStream_t s = (cudaStream_t)stream_ptr;
   float* dhh = ws;
   float* part = dhh + (size_t)B * T * 3 * H;
-  int err =
-      H == 128 ? gru_backward<128, 8>(xw, hh, w_hh_t, h0, ys, dys, dhn, dxw,
-                                      dhh, dh0, B, T, s)
-      : ctas == 16
-          ? gru_backward<256, 16>(xw, hh, w_hh_t, h0, ys, dys, dhn, dxw, dhh,
-                                  dh0, B, T, s)
-          : gru_backward<256, 8>(xw, hh, w_hh_t, h0, ys, dys, dhn, dxw, dhh,
-                                 dh0, B, T, s);
+  int err = chain_backward(xw, hh, w_hh_t, h0, ys, dys, dhn, dxw, dhh, dh0,
+                           B, T, H, ctas, s);
   if (err) return err;
   const int rows = B * T;
   if ((err = reduce_dw(ys, h0, T, dhh, dwhh, part, rows, H, s))) return err;
@@ -731,18 +764,12 @@ int gru_forward_bf16(const float* xw, const bf16* w_hh_t, const float* b_hh,
 // clusters of `ctas` CTAs, the fewer of the forward's and the backward's;
 // more run in waves. -1 on an error.
 int gru_resident_clusters(int H, int ctas) {
-  if (!gru_shape_ok(H, ctas)) return -1;
-  if (H == 128) return gru_resident<128, 8, float>();
-  return ctas == 16 ? gru_resident<256, 16, float>()
-                    : gru_resident<256, 8, float>();
+  return resident_any<float>(H, ctas);
 }
 
 // The same for the bf16 mode's instantiations.
 int gru_resident_clusters_bf16(int H, int ctas) {
-  if (!gru_shape_ok(H, ctas)) return -1;
-  if (H == 128) return gru_resident<128, 8, bf16>();
-  return ctas == 16 ? gru_resident<256, 16, bf16>()
-                    : gru_resident<256, 8, bf16>();
+  return resident_any<bf16>(H, ctas);
 }
 
 // floats of backward scratch: dhh (B, T, 3H) and split-K partials

@@ -95,7 +95,11 @@
 // in two. At H 256, 16 CTAs (U 16; a non-portable size; an H100 holds 7
 // such clusters, so up to B112), else 8; at H 128, 8 (15 clusters, up to
 // B240), else 4 (U 32: B256, a simple_lstm direction, runs ~1.6x faster
-// over 4 than in two waves over 8). The sweep is in PERF.md: W's lo
+// over 4 than in two waves over 8). H 192 takes 12 or 6 CTAs and H 64 4
+// or 2, the same 16 or 32 units a CTA; a cluster of 12 or 6 is no power
+// of two, and nothing here needs one (every index is rank * U or n / U).
+// ops/lstm_recurrence.py runs any other H up to 256 on the next of these
+// four sizes, zero-padded (ops/hidden_pad.py). The sweep is in PERF.md: W's lo
 // fragments in shared memory past 24 fragments a warp, and four
 // accumulator sets in the backward, measured no faster; summing each
 // k-step from zero before adding it in FP32 ran 5-8% slower with the same
@@ -190,12 +194,21 @@ __device__ __forceinline__ void stamp(int dir, int step, int m) {
 #endif
 }
 
-// the hidden sizes and CTAs per cluster the kernels take: H 256 over 16
-// or 8, H 128 over 8 or 4 (ops/lstm_recurrence.py launch_ctas picks);
-// the entry points refuse any other size
+// the hidden sizes and CTAs per cluster the kernels take: U = H / ctas
+// units a CTA, 16 or 32 (H 256 over 16 or 8, H 192 over 12 or 6, H 128
+// over 8 or 4, H 64 over 4 or 2; ops/lstm_recurrence.py launch_ctas
+// picks, and pads any other H up to 256 to the next of them); the entry
+// points refuse any other size. A cluster of 12 or 6 CTAs is no power
+// of two: every rank and slot index below is rank * U or n / U, never a
+// shift or a mask
+#define LSTM_SHAPES(X) \
+  X(256, 16) X(256, 8) X(192, 12) X(192, 6) X(128, 8) X(128, 4) X(64, 4) \
+  X(64, 2)
 inline bool lstm_shape_ok(int H, int ctas) {
-  return (H == 256 && (ctas == 16 || ctas == 8)) ||
-         (H == 128 && (ctas == 8 || ctas == 4));
+#define LSTM_OK(h, c) if (H == h && ctas == c) return true;
+  LSTM_SHAPES(LSTM_OK)
+#undef LSTM_OK
+  return false;
 }
 
 // most W fragments a warp keeps wholly in registers (hi and lo: 4
@@ -755,15 +768,13 @@ int chain_forward(const float* xw, const TW* w_hh_t, const float* h0,
                   const float* c0, float* ys, float* hn, float* cn,
                   float* acts, float* cs, int B, int T, int t0, int n, int H,
                   int ctas, cudaStream_t s) {
-  if (H == 128)
-    return ctas == 8 ? lstm_forward<128, 8>(xw, w_hh_t, h0, c0, ys, hn, cn,
-                                            acts, cs, B, T, t0, n, s)
-                     : lstm_forward<128, 4>(xw, w_hh_t, h0, c0, ys, hn, cn,
-                                            acts, cs, B, T, t0, n, s);
-  return ctas == 16 ? lstm_forward<256, 16>(xw, w_hh_t, h0, c0, ys, hn, cn,
-                                            acts, cs, B, T, t0, n, s)
-                    : lstm_forward<256, 8>(xw, w_hh_t, h0, c0, ys, hn, cn,
-                                           acts, cs, B, T, t0, n, s);
+#define LSTM_FWD(h, c)                                                      \
+  if (H == h && ctas == c)                                                  \
+    return lstm_forward<h, c>(xw, w_hh_t, h0, c0, ys, hn, cn, acts, cs, B, \
+                              T, t0, n, s);
+  LSTM_SHAPES(LSTM_FWD)
+#undef LSTM_FWD
+  return (int)cudaErrorInvalidValue;
 }
 
 // the reverse chain of a window, as chain_forward (the partial carries
@@ -774,21 +785,24 @@ int chain_backward(const float* acts, const float* cs, const float* c0,
                    const float* dcn, float* dxw, float* dh0, float* dc0,
                    int B, int T, int t0, int n, const float* dhn_parts,
                    float* dh0_parts, int H, int ctas, cudaStream_t s) {
-  if (H == 128)
-    return ctas == 8
-               ? lstm_backward<128, 8>(acts, cs, c0, dys, w_hh_t, dhn, dcn,
-                                       dxw, dh0, dc0, B, T, t0, n, dhn_parts,
-                                       dh0_parts, s)
-               : lstm_backward<128, 4>(acts, cs, c0, dys, w_hh_t, dhn, dcn,
-                                       dxw, dh0, dc0, B, T, t0, n, dhn_parts,
-                                       dh0_parts, s);
-  return ctas == 16
-             ? lstm_backward<256, 16>(acts, cs, c0, dys, w_hh_t, dhn, dcn,
-                                      dxw, dh0, dc0, B, T, t0, n, dhn_parts,
-                                      dh0_parts, s)
-             : lstm_backward<256, 8>(acts, cs, c0, dys, w_hh_t, dhn, dcn,
-                                     dxw, dh0, dc0, B, T, t0, n, dhn_parts,
-                                     dh0_parts, s);
+#define LSTM_BWD(h, c)                                                     \
+  if (H == h && ctas == c)                                                 \
+    return lstm_backward<h, c>(acts, cs, c0, dys, w_hh_t, dhn, dcn, dxw,  \
+                               dh0, dc0, B, T, t0, n, dhn_parts, dh0_parts, \
+                               s);
+  LSTM_SHAPES(LSTM_BWD)
+#undef LSTM_BWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// the resident clusters of the mode of TW at a shape lstm_shape_ok takes
+template <typename TW>
+int resident_any(int H, int ctas) {
+#define LSTM_RES(h, c) \
+  if (H == h && ctas == c) return lstm_resident<h, c, TW>();
+  LSTM_SHAPES(LSTM_RES)
+#undef LSTM_RES
+  return -1;
 }
 
 template <typename TW>
@@ -1090,22 +1104,12 @@ int lstm_recurrence_forward_bf16(const float* xw, const bf16* w_hh_t,
 // clusters of `ctas` CTAs, the fewer of the forward's and the backward's;
 // more run in waves. -1 on an error.
 int lstm_recurrence_resident_clusters(int H, int ctas) {
-  if (!lstm_shape_ok(H, ctas)) return -1;
-  if (H == 128)
-    return ctas == 8 ? lstm_resident<128, 8, float>()
-                     : lstm_resident<128, 4, float>();
-  return ctas == 16 ? lstm_resident<256, 16, float>()
-                    : lstm_resident<256, 8, float>();
+  return resident_any<float>(H, ctas);
 }
 
 // The same for the bf16 mode's instantiations.
 int lstm_recurrence_resident_clusters_bf16(int H, int ctas) {
-  if (!lstm_shape_ok(H, ctas)) return -1;
-  if (H == 128)
-    return ctas == 8 ? lstm_resident<128, 8, bf16>()
-                     : lstm_resident<128, 4, bf16>();
-  return ctas == 16 ? lstm_resident<256, 16, bf16>()
-                    : lstm_resident<256, 8, bf16>();
+  return resident_any<bf16>(H, ctas);
 }
 
 // floats of backward scratch: the split-K partials of dW_hh

@@ -75,6 +75,20 @@
 //     dQ route (PERF.md): at B32 x 252 x 2016 on an H100 SXM (700 W), a
 //     second pass that recomputed S and dP for dQ alone (seven products)
 //     took 1.06 ms against 0.73.
+//
+// Head dims. Instantiated for Dh 16, 32, 64, 128 and 256; the logits'
+// scale comes from the caller (1/sqrt of the real head dim), since
+// ops/rect_attention.py runs any other Dh up to 256 on the next of these
+// on a zero-padded copy of the heads. Under Dh 32 a tile's dQ has fewer
+// (row tile, column group) pairs than the block has warps; the last warps
+// take none. From Dh 128 on __launch_bounds__ asks one block an SM, so a
+// thread may take 255 registers (Q's hi and lo fragments and O's
+// accumulators grow with Dh); at Dh 256 the forward streams one stage (a
+// K and V tile is 133 KB) and the backward keeps K as loaded and splits it
+// at each read (K, V and K's split would be 266 KB of a block's 227 KB).
+// The build log (_build/rect_attention.log) prints the spill: at Dh 128
+// the forward spills 104 bytes, at Dh 256 the forward 2,616 and the
+// backward 1,672 (nvcc 12.8, sm_90a).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -83,14 +97,22 @@
 
 namespace {
 
-// forward: FQ_WARPS warps of 16 q rows, FK-key tiles, F_STAGES in flight
-// (measured against 8 warps of a 128-row tile and against 3 stages: both
-// slower at the flagship's audio shape)
+// forward: FQ_WARPS warps of 16 q rows, FK-key tiles, f_stages(DH) in
+// flight (measured against 8 warps of a 128-row tile and against 3
+// stages: both slower at the flagship's audio shape). At Dh 256 a stage
+// of a K and a V tile is 133 KB, so one stage: the tile loads while no
+// product runs.
 constexpr int FQ_WARPS = 4;
 constexpr int FQ = 16 * FQ_WARPS;
 constexpr int FK = 64;
 constexpr int F_THREADS = 32 * FQ_WARPS;
-constexpr int F_STAGES = 2;
+__host__ __device__ constexpr int f_stages(int dh) { return dh >= 256 ? 1 : 2; }
+// CTAs an SM for __launch_bounds__: from Dh 128 on, one, so that a thread
+// may take 255 registers (Q's fragments and O's accumulators grow with Dh;
+// the build log's spill lines say what does not fit)
+__host__ __device__ constexpr int f_min_blocks(int dh) {
+  return dh >= 128 ? 1 : 2;
+}
 
 // backward (K6): BW warps of 16 keys (BK keys a block), BQ q rows a step,
 // B_STAGES stages of Q and dO in flight, three blocks an SM (at most 170
@@ -101,7 +123,13 @@ static_assert(BK == KEY_BLOCK && FK == KEY_BLOCK, "rect_tiles.cuh's blocks");
 constexpr int BQ = 16;
 constexpr int B_STAGES = 2;
 constexpr int B_THREADS = 32 * BW;
-constexpr int B_MIN_BLOCKS = 3;
+__host__ __device__ constexpr int b_min_blocks(int dh) {
+  return dh >= 128 ? 1 : 3;
+}
+// K split once into TF32 hi and lo in shared memory, or (Dh 256, where
+// K, V and their split would pass a block's 227 KB) kept as loaded and
+// split at each read
+__host__ __device__ constexpr bool k_split(int dh) { return dh < 256; }
 
 // keys [j0, j0+FK) of one head's columns of k and v into a ring stage
 // (rows of DH+4 floats) by cp.async; rows past Lk are zeros
@@ -121,7 +149,7 @@ __device__ __forceinline__ void load_kv(float* ks, float* vs, const float* kb,
 }
 
 template <int DH>
-__global__ void __launch_bounds__(F_THREADS, 2)
+__global__ void __launch_bounds__(F_THREADS, f_min_blocks(DH))
     rect_attn_fwd(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v,
                   const unsigned char* __restrict__ qpad,
@@ -134,6 +162,7 @@ __global__ void __launch_bounds__(F_THREADS, 2)
   constexpr int NT = FK / 8;     // 8-key groups of a tile
   constexpr int DT = DH / 8;     // 8-column groups of O
   constexpr int STAGE = 2 * FK * LDF;  // floats of a ring stage (K, V)
+  constexpr int F_STAGES = f_stages(DH);
   extern __shared__ __align__(16) float ring[];
   __shared__ int s_fu;
   const int i0 = (gridDim.x - 1 - blockIdx.x) * FQ;  // longest first
@@ -189,14 +218,22 @@ __global__ void __launch_bounds__(F_THREADS, 2)
     for (int c = 0; c < 4; ++c) o[dt][c] = 0.f;
 
   for (int jt = 0; jt < ntiles; ++jt) {
-    cp_async_wait<F_STAGES - 2>();
-    __syncthreads();  // tile jt landed; every warp is done with jt - 1's
-    const int nx = jt + F_STAGES - 1;
-    if (nx < ntiles) {
-      float* st = ring + (nx % F_STAGES) * STAGE;
-      load_kv<DH>(st, st + FK * LDF, kb, vb, nx * FK, Lk, E, col0);
+    if constexpr (F_STAGES == 1) {
+      __syncthreads();  // every warp is done with tile jt - 1
+      load_kv<DH>(ring, ring + FK * LDF, kb, vb, jt * FK, Lk, E, col0);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();  // tile jt landed
+    } else {
+      cp_async_wait<F_STAGES - 2>();
+      __syncthreads();  // tile jt landed; every warp is done with jt - 1's
+      const int nx = jt + F_STAGES - 1;
+      if (nx < ntiles) {
+        float* st = ring + (nx % F_STAGES) * STAGE;
+        load_kv<DH>(st, st + FK * LDF, kb, vb, nx * FK, Lk, E, col0);
+      }
+      cp_async_commit();
     }
-    cp_async_commit();
     const float* ks = ring + (jt % F_STAGES) * STAGE;
     const float* vs = ks + FK * LDF;
     const int j0 = jt * FK;
@@ -396,8 +433,21 @@ __device__ __forceinline__ void mma_3xtf32_2n(
 }
 
 // dK, dV and the dQ partials of one key block: see the source note
+// K's TF32 hi and lo parts at shared offset `at`: split once (Kl beside
+// Kh) or, without the split kept, from K itself (Kh)
+template <bool SPLIT>
+__device__ __forceinline__ void k_parts(const float* Kh, const float* Kl,
+                                        int at, uint32_t& hi, uint32_t& lo) {
+  if constexpr (SPLIT) {
+    hi = bits(Kh[at]);
+    lo = bits(Kl[at]);
+  } else {
+    split_tf32_alu(Kh[at], hi, lo);
+  }
+}
+
 template <int DH>
-__global__ void __launch_bounds__(B_THREADS, B_MIN_BLOCKS)
+__global__ void __launch_bounds__(B_THREADS, b_min_blocks(DH))
     rect_attn_bwd_kv(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const unsigned char* __restrict__ qpad,
@@ -415,12 +465,17 @@ __global__ void __launch_bounds__(B_THREADS, B_MIN_BLOCKS)
   constexpr int DT = DH / 8;   // 8-column groups of the head dim
   constexpr int DG = DT < 4 ? DT : 4;  // groups of dV/dK a pass goes over
   constexpr int STAGE = 2 * BQ * LDF + 3 * BQ;
-  constexpr int PPW = (BQ / 16) * DT / BW;  // dQ (m tile, group) pairs a warp
-  static_assert(PPW >= 1 && DT % PPW == 0, "dQ pairs must split evenly");
+  constexpr bool KSPLIT = k_split(DH);
+  // dQ (m tile, 8-column group) pairs of a step, and a warp's; under Dh
+  // 32 there are fewer pairs than warps and the last warps take none
+  constexpr int PAIRS = (BQ / 16) * DT;
+  constexpr int PPW = PAIRS >= BW ? PAIRS / BW : 1;
+  static_assert((PAIRS < BW || PAIRS % BW == 0) && DT % PPW == 0,
+                "dQ pairs must split evenly");
   extern __shared__ __align__(16) float sm[];
-  float* Kh = sm;
+  float* Kh = sm;  // K's hi parts, or K itself (!KSPLIT)
   float* Kl = Kh + BK * LDF;
-  float* Vs = Kl + BK * LDF;
+  float* Vs = Kl + (KSPLIT ? BK * LDF : 0);
   float* ring = Vs + BK * LDF;
   float* dSs = ring + B_STAGES * STAGE;
   const int nqt = (Lq + BQ - 1) / BQ;
@@ -442,12 +497,17 @@ __global__ void __launch_bounds__(B_THREADS, B_MIN_BLOCKS)
   const unsigned char* qp = qpad + (size_t)b * Lq;
   const unsigned char* kp = kpad + (size_t)b * Lk;
 
-  // V by cp.async (in the first group); K split once into TF32 hi and lo
+  // V by cp.async (in the first group); K split once into TF32 hi and lo,
+  // or (!KSPLIT) by cp.async as it is
   for (int c = threadIdx.x; c < BK * (DH / 4); c += B_THREADS) {
     const int r = c / (DH / 4), d = (c % (DH / 4)) * 4, row = j0 + r;
     const bool ok = row < Lk;
     const size_t at = ok ? (size_t)row * E + col0 + d : 0;
     cp_async16(Vs + r * LDF + d, vb + at, ok);
+    if constexpr (!KSPLIT) {
+      cp_async16(Kh + r * LDF + d, kb + at, ok);
+      continue;
+    }
     const float4 x = ok ? __ldg(reinterpret_cast<const float4*>(kb + at))
                         : make_float4(0.f, 0.f, 0.f, 0.f);
     const float xs[4] = {x.x, x.y, x.z, x.w};
@@ -534,10 +594,11 @@ __global__ void __launch_bounds__(B_THREADS, B_MIN_BLOCKS)
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         const int at = ka * LDF + kk * 8 + t4;
-        const uint32_t ah[4] = {bits(Kh[at]), bits(Kh[at + 8 * LDF]),
-                                bits(Kh[at + 4]), bits(Kh[at + 8 * LDF + 4])};
-        const uint32_t al[4] = {bits(Kl[at]), bits(Kl[at + 8 * LDF]),
-                                bits(Kl[at + 4]), bits(Kl[at + 8 * LDF + 4])};
+        uint32_t ah[4], al[4];
+        k_parts<KSPLIT>(Kh, Kl, at, ah[0], al[0]);
+        k_parts<KSPLIT>(Kh, Kl, at + 8 * LDF, ah[1], al[1]);
+        k_parts<KSPLIT>(Kh, Kl, at + 4, ah[2], al[2]);
+        k_parts<KSPLIT>(Kh, Kl, at + 8 * LDF + 4, ah[3], al[3]);
         uint32_t vh[4], vl[4];
         split_tf32_alu(Vs[at], vh[0], vl[0]);
         split_tf32_alu(Vs[at + 8 * LDF], vh[1], vl[1]);
@@ -631,6 +692,7 @@ __global__ void __launch_bounds__(B_THREADS, B_MIN_BLOCKS)
     if (vis) {
       __syncthreads();  // dS complete
       const int p0 = warp * PPW, mt = p0 / DT, dt0 = p0 % DT;
+      if (p0 >= PAIRS) continue;  // no pair for this warp (Dh 16)
       float acc[PPW][4];
 #pragma unroll
       for (int u = 0; u < PPW; ++u)
@@ -651,10 +713,8 @@ __global__ void __launch_bounds__(B_THREADS, B_MIN_BLOCKS)
 #pragma unroll
         for (int u = 0; u < PPW; ++u) {
           const int at = bt + (dt0 + u) * 8;
-          bh[u][0] = bits(Kh[at]);
-          bh[u][1] = bits(Kh[at + LDF]);
-          bl[u][0] = bits(Kl[at]);
-          bl[u][1] = bits(Kl[at + LDF]);
+          k_parts<KSPLIT>(Kh, Kl, at, bh[u][0], bl[u][0]);
+          k_parts<KSPLIT>(Kh, Kl, at + LDF, bh[u][1], bl[u][1]);
         }
         mma_3xtf32_n<PPW>(acc, ah, al, bh, bl);
       }
@@ -691,13 +751,13 @@ template <int DH>
 int forward(const float* q, const float* k, const float* v,
             const unsigned char* qpad, const unsigned char* kpad, float* out,
             float* mrow, float* lrow, int B, int Lq, int Lk, int H,
-            cudaStream_t stream) {
-  const int smem = F_STAGES * 2 * FK * (DH + 4) * (int)sizeof(float);
+            float scale, cudaStream_t stream) {
+  const int smem = f_stages(DH) * 2 * FK * (DH + 4) * (int)sizeof(float);
   cudaError_t err = set_smem(rect_attn_fwd<DH>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Lq + FQ - 1) / FQ, H, B);
   rect_attn_fwd<DH><<<grid, F_THREADS, smem, stream>>>(
-      q, k, v, qpad, kpad, out, mrow, lrow, Lq, Lk, H, rsqrtf((float)DH));
+      q, k, v, qpad, kpad, out, mrow, lrow, Lq, Lk, H, scale);
   return (int)cudaGetLastError();
 }
 
@@ -706,8 +766,8 @@ int backward(const float* q, const float* k, const float* v,
              const unsigned char* qpad, const unsigned char* kpad,
              const float* out, const float* g, const float* mrow,
              const float* lrow, float* dq, float* dk, float* dv, float* D,
-             float* ws, int B, int Lq, int Lk, int H, cudaStream_t stream) {
-  const float scale = rsqrtf((float)DH);
+             float* ws, int B, int Lq, int Lk, int H, float scale,
+             cudaStream_t stream) {
   long long rows = (long long)B * Lq * H;
   rect_attn_bwd_dot<DH><<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
       out, g, D, B, Lq, H);
@@ -717,7 +777,8 @@ int backward(const float* q, const float* k, const float* v,
   constexpr int LDF = DH + 4;
   const int R = (int)ws_rows(Lq, Lk);
   const int nqt = (Lq + BQ - 1) / BQ, nkb = (Lk + BK - 1) / BK;
-  const int smem = (3 * BK * LDF + B_STAGES * (2 * BQ * LDF + 3 * BQ) +
+  const int smem = ((k_split(DH) ? 3 : 2) * BK * LDF +
+                    B_STAGES * (2 * BQ * LDF + 3 * BQ) +
                     BQ * (BK + 8)) * (int)sizeof(float) +
                    2 * nqt * (int)sizeof(int);
   if ((err = set_smem(rect_attn_bwd_kv<DH>, smem)) != cudaSuccess)
@@ -736,22 +797,30 @@ extern "C" {
 
 // q (B,Lq,E), k/v (B,Lk,E) f32; qpad (B,Lq), kpad (B,Lk) bytes (1 = pad).
 // Writes out (B,Lq,E) and, when mrow/lrow are not null, each row's
-// softmax max and sum, (B,H,Lq) each. Head dim E/H must be 32 or 64.
+// softmax max and sum, (B,H,Lq) each. Head dim E/H 16, 32, 64, 128 or
+// 256 (ops/rect_attention.py pads any other up to the next with zero
+// columns); scale: the logits' factor, 1/sqrt of the unpadded head dim.
 int rect_attention_forward_f32(const float* q, const float* k, const float* v,
                                const unsigned char* qpad,
                                const unsigned char* kpad, float* out,
                                float* mrow, float* lrow, int B, int Lq, int Lk,
-                               int E, int H, void* stream_ptr) {
+                               int E, int H, float scale, void* stream_ptr) {
   if (!rect_shape_ok(B, Lq, Lk, E, H)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream_ptr;
+#define RECT_FWD(D)                                                       \
+  case D:                                                                 \
+    return forward<D>(q, k, v, qpad, kpad, out, mrow, lrow, B, Lq, Lk, H, \
+                      scale, s);
   switch (E / H) {
-    case 32:
-      return forward<32>(q, k, v, qpad, kpad, out, mrow, lrow, B, Lq, Lk, H, s);
-    case 64:
-      return forward<64>(q, k, v, qpad, kpad, out, mrow, lrow, B, Lq, Lk, H, s);
+    RECT_FWD(16)
+    RECT_FWD(32)
+    RECT_FWD(64)
+    RECT_FWD(128)
+    RECT_FWD(256)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef RECT_FWD
 }
 
 // Floats of the backward's dQ workspace for these shapes.
@@ -763,26 +832,32 @@ long long rect_attention_backward_workspace_floats(int B, int Lq, int Lk,
 
 // From the forward's out, mrow, lrow and the cotangent g (B,Lq,E):
 // dq (B,Lq,E), dk, dv (B,Lk,E). D is (B,H,Lq) f32 scratch, ws the dQ
-// workspace (rect_attention_backward_workspace_floats).
+// workspace (rect_attention_backward_workspace_floats); head dims and
+// scale as the forward's.
 int rect_attention_backward_f32(const float* q, const float* k,
                                 const float* v, const unsigned char* qpad,
                                 const unsigned char* kpad, const float* out,
                                 const float* g, const float* mrow,
                                 const float* lrow, float* dq, float* dk,
                                 float* dv, float* D, float* ws, int B, int Lq,
-                                int Lk, int E, int H, void* stream_ptr) {
+                                int Lk, int E, int H, float scale,
+                                void* stream_ptr) {
   if (!rect_shape_ok(B, Lq, Lk, E, H)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream_ptr;
+#define RECT_BWD(D_)                                                         \
+  case D_:                                                                   \
+    return backward<D_>(q, k, v, qpad, kpad, out, g, mrow, lrow, dq, dk, dv, \
+                        D, ws, B, Lq, Lk, H, scale, s);
   switch (E / H) {
-    case 32:
-      return backward<32>(q, k, v, qpad, kpad, out, g, mrow, lrow, dq, dk, dv,
-                          D, ws, B, Lq, Lk, H, s);
-    case 64:
-      return backward<64>(q, k, v, qpad, kpad, out, g, mrow, lrow, dq, dk, dv,
-                          D, ws, B, Lq, Lk, H, s);
+    RECT_BWD(16)
+    RECT_BWD(32)
+    RECT_BWD(64)
+    RECT_BWD(128)
+    RECT_BWD(256)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef RECT_BWD
 }
 
 }  // extern "C"

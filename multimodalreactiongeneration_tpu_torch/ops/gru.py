@@ -19,15 +19,21 @@ On CPU tensors ``gru_recurrence`` runs ``gru_recurrence_reference``
 (f32: autograd records through it; bf16: the plain bf16 version, its
 backward written out step by step, as ``ops/lstm_bf16.py`` does for the
 LSTM chains, since autograd through the roundings would round the
-cotangents too). On CUDA tensors it launches ``csrc/gru.cu`` (H 128 or
-256, any B; each step's product on the tensor cores, in 3xTF32 or, in
-the bf16 mode, bf16 ``mma.sync``): where a gradient is needed, the
+cotangents too). On CUDA tensors it launches ``csrc/gru.cu`` (built for
+H 64, 128, 192 and 256, any B; each step's product on the tensor cores,
+in 3xTF32 or, in the bf16 mode, bf16 ``mma.sync``); any other H up to
+256 runs on the next of those sizes, its gate blocks, W_hh's rows, b_hh
+and h0 padded with zero units and the outputs' padded units dropped
+(``ops/hidden_pad.py``: exact; the padding is part of
+``gru_recurrence`` and the launches are the same). Where a gradient is
+needed, the
 forward that saves hh = h_{t-1} @ W_hh^T + b_hh of every step (as the JAX
 ``_vjp_fwd``) and then the backward kernel, which runs the reverse chain
 from hh and reduces dW_hh and db_hh; otherwise the forward without
 residuals. A cluster of CTAs runs 16 batch rows; its size per launch is
 ``launch_ctas`` (``ops/cluster_size.py``), from the occupancy of the
-mode's own instantiation. Other shapes raise. Launch counters:
+mode's own instantiation. H above 256 raises, naming K10. Launch
+counters:
 ``fwd_launches`` (both f32 forwards), ``bwd_launches``,
 ``bf16_fwd_launches`` and ``bf16_bwd_launches``.
 """
@@ -41,16 +47,25 @@ import torch
 
 from multimodalreactiongeneration_tpu_torch import _build
 from multimodalreactiongeneration_tpu_torch.ops import cluster_size, lstm_bf16
+from multimodalreactiongeneration_tpu_torch.ops.hidden_pad import (
+    HIDDEN_SIZES,
+    pad_gates,
+    pad_units,
+    pad_weight,
+    padded_hidden,
+    unbuilt,
+    unpad_units,
+)
 
 fwd_launches = 0
 bwd_launches = 0
 bf16_fwd_launches = 0
 bf16_bwd_launches = 0
 
-HIDDEN_SIZES = (128, 256)  # the hidden sizes the kernels take
-# CTAs per cluster the kernels take at each hidden size, the faster first
-# (the sweep in PERF.md)
-CLUSTER_CTAS = {256: (16, 8), 128: (8,)}
+# CTAs per cluster the kernels take at each hidden size they are built
+# for (``HIDDEN_SIZES``), the faster first (the sweep in PERF.md; at H 64
+# and 192, 16 and 32 units a CTA as at H 256)
+CLUSTER_CTAS = {256: (16, 8), 192: (12, 6), 128: (8,), 64: (4, 2)}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -163,11 +178,29 @@ def gru_backward_reference(args, dys, dhn, closure=False):
 
 
 def kernel_refusal(hidden: int) -> Optional[str]:
-    """Why the kernels cannot take a GRU of this hidden size, or None."""
-    if hidden not in HIDDEN_SIZES:
-        return (f"hidden size {hidden}: the kernels take {HIDDEN_SIZES} (a "
-                "CTA of the 8-CTA cluster owns H/8 units, 16 or 32)")
+    """Why ``gru_recurrence`` cannot take a GRU of this hidden size on
+    CUDA, or None: every H from 1 to 256 runs (on ``padded_hidden(H)``)."""
+    if padded_hidden(hidden) is None:
+        return (f"hidden size {hidden}: the K10 kernels take hidden sizes 1 "
+                f"to {HIDDEN_SIZES[-1]} (built for {HIDDEN_SIZES}, the "
+                "others padded with zero units to the next; a CTA of the "
+                "cluster owns the r, z, n gate columns of 16 or 32 units "
+                "and W_hh stays in the cluster's registers)")
     return None
+
+
+def pad_args(args, hp: int):
+    """(xw, w_hh_t, b_hh, h0) of hidden size H as hidden size ``hp`` >= H:
+    each gate block of xw, of W_hh's columns and of b_hh, W_hh's rows and
+    h0 padded with zero units (``ops/hidden_pad.py``; differentiable)."""
+    xw, w_hh_t, b_hh, h0 = args
+    return (pad_gates(xw, 3, hp), pad_weight(w_hh_t, 3, hp),
+            pad_gates(b_hh, 3, hp), pad_units(h0, hp))
+
+
+def unpad_outputs(ys, hn, h: int):
+    """(ys, h_n) of a padded run cut to the first ``h`` units."""
+    return unpad_units(ys, h), unpad_units(hn, h)
 
 
 def _lib():
@@ -227,7 +260,9 @@ def _check(name, xw, w_hh_t, b_hh, h0, **more):
             raise ValueError(
                 f"{name}: expected {key} contiguous {shape}, got "
                 f"{tuple(a.shape)} (contiguous={a.is_contiguous()})")
-    why = kernel_refusal(h) if b >= 1 and t >= 1 else f"B {b}, T {t}"
+    why = f"B {b}, T {t}"
+    if b >= 1 and t >= 1:
+        why = kernel_refusal(h) or unbuilt(h, "K10", "gru_recurrence")
     if why is not None:
         raise ValueError(f"{name}: no kernel for {why}")
     return b, t, h, bf16
@@ -304,11 +339,18 @@ def gru_recurrence(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The GRU recurrence, differentiable; ``w_hh_t``'s dtype picks the
     operand mode. CPU tensors take the plain version, CUDA tensors the
-    kernels."""
+    kernels: a hidden size they are not built for on its arguments padded
+    to ``padded_hidden`` (``pad_args``), the outputs cut back
+    (``unpad_outputs``); above 256 it raises, naming K10."""
     args = (xw, w_hh_t, b_hh, h0)
     if xw.device.type == "cpu":
         return gru_recurrence_reference(*args)
+    h = h0.shape[-1]
+    hp = padded_hidden(h) or h
+    if hp != h and xw.shape[-1] == 3 * h:
+        args = pad_args(args, hp)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        return _Gru.apply(*args)
-    ys, hn, _ = gru_forward(args, residuals=False)
-    return ys, hn
+        ys, hn = _Gru.apply(*args)
+    else:
+        ys, hn, _ = gru_forward(args, residuals=False)
+    return unpad_outputs(ys, hn, h)

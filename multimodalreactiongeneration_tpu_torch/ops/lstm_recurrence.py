@@ -19,15 +19,19 @@ rows and rounded to bf16 (the weights' dtype: JAX's einsum at
 On CPU tensors ``lstm_recurrence`` runs ``lstm_recurrence_reference``
 (f32: autograd records through it; bf16: the plain bf16 version,
 ``lstm_bf16.chain_forward`` with its backward written out). On CUDA
-tensors it launches ``csrc/lstm_recurrence.cu`` (H 128 or 256, any B
-and T; each step's product on the tensor cores, in 3xTF32 or, in the
-bf16 mode, bf16 ``mma.sync``): where a gradient is needed, the forward
+tensors it launches ``csrc/lstm_recurrence.cu`` (built for H 64, 128,
+192 and 256, any B and T; each step's product on the tensor cores, in
+3xTF32 or, in the bf16 mode, bf16 ``mma.sync``); any other H up to 256
+runs on the next of those sizes, its gate blocks, W_hh's rows, h0 and c0
+padded with zero units and the outputs' padded units dropped
+(``ops/hidden_pad.py``: exact; the padding is part of ``lstm_recurrence``
+and the launches are the same). Where a gradient is needed, the forward
 that saves the gate activations and cell states, then the backward
 kernel (the reverse chain writes dxw, then a deterministic split-K
 reduction gives dW_hh^T); otherwise the forward without residuals. A
 cluster of CTAs runs 16 batch rows; its size per launch is
 ``launch_ctas`` (``ops/cluster_size.py``), from the occupancy of the
-mode's own instantiation. Other shapes raise, naming K8. Launch
+mode's own instantiation. H above 256 raises, naming K8. Launch
 counters: ``fwd_launches`` (both f32 forwards), ``bwd_launches``,
 ``bf16_fwd_launches`` and ``bf16_bwd_launches``.
 """
@@ -41,16 +45,25 @@ import torch
 
 from multimodalreactiongeneration_tpu_torch import _build
 from multimodalreactiongeneration_tpu_torch.ops import cluster_size, lstm_bf16
+from multimodalreactiongeneration_tpu_torch.ops.hidden_pad import (
+    HIDDEN_SIZES,
+    pad_gates,
+    pad_units,
+    pad_weight,
+    padded_hidden,
+    unbuilt,
+    unpad_units,
+)
 
 fwd_launches = 0
 bwd_launches = 0
 bf16_fwd_launches = 0
 bf16_bwd_launches = 0
 
-HIDDEN_SIZES = (128, 256)  # the hidden sizes the kernels take
-# CTAs per cluster the kernels take at each hidden size, the faster first
-# (the sweep in PERF.md)
-CLUSTER_CTAS = {256: (16, 8), 128: (8, 4)}
+# CTAs per cluster the kernels take at each hidden size they are built
+# for (``HIDDEN_SIZES``), the faster first (the sweep in PERF.md; at H 64
+# and 192, 16 and 32 units a CTA as at H 256 and 128)
+CLUSTER_CTAS = {256: (16, 8), 192: (12, 6), 128: (8, 4), 64: (4, 2)}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -120,12 +133,29 @@ def lstm_recurrence_backward_reference(args, dys, dhn, dcn, closure=False):
 
 
 def kernel_refusal(hidden: int) -> Optional[str]:
-    """Why the kernels cannot take an LSTM of this hidden size, or None."""
-    if hidden not in HIDDEN_SIZES:
-        return (f"hidden size {hidden}: the K8 kernels take {HIDDEN_SIZES} "
-                "(a CTA of a cluster of 8 or 16 owns the i, f, g, o gate "
-                "columns of 16 or 32 units, whole tensor-core tiles of 8)")
+    """Why ``lstm_recurrence`` cannot take an LSTM of this hidden size on
+    CUDA, or None: every H from 1 to 256 runs (on ``padded_hidden(H)``)."""
+    if padded_hidden(hidden) is None:
+        return (f"hidden size {hidden}: the K8 kernels take hidden sizes 1 "
+                f"to {HIDDEN_SIZES[-1]} (built for {HIDDEN_SIZES}, the "
+                "others padded with zero units to the next; a CTA of the "
+                "cluster owns the i, f, g, o gate columns of 16 or 32 "
+                "units and W_hh stays in the cluster's registers)")
     return None
+
+
+def pad_args(args, hp: int):
+    """(xw, w_hh_t, h0, c0) of hidden size H as hidden size ``hp`` >= H:
+    each gate block of xw and of W_hh's columns, W_hh's rows, h0 and c0
+    padded with zero units (``ops/hidden_pad.py``; differentiable)."""
+    xw, w_hh_t, h0, c0 = args
+    return (pad_gates(xw, 4, hp), pad_weight(w_hh_t, 4, hp),
+            pad_units(h0, hp), pad_units(c0, hp))
+
+
+def unpad_outputs(ys, hn, cn, h: int):
+    """(ys, h_n, c_n) of a padded run cut to the first ``h`` units."""
+    return tuple(unpad_units(x, h) for x in (ys, hn, cn))
 
 
 def _lib():
@@ -187,7 +217,9 @@ def _check(name, xw, w_hh_t, h0, c0, **more):
             raise ValueError(
                 f"{name}: K8 expects {key} contiguous {shape}, got "
                 f"{tuple(a.shape)} (contiguous={a.is_contiguous()})")
-    why = kernel_refusal(h) if b >= 1 and t >= 1 else f"B {b}, T {t}"
+    why = f"B {b}, T {t}"
+    if b >= 1 and t >= 1:
+        why = kernel_refusal(h) or unbuilt(h, "K8", "lstm_recurrence")
     if why is not None:
         raise ValueError(f"{name}: no K8 kernel for {why}")
     return b, t, h, bf16
@@ -270,12 +302,19 @@ def lstm_recurrence(
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The LSTM recurrence, differentiable; ``w_hh_t``'s dtype picks the
     operand mode. CPU tensors take the plain version, CUDA tensors the
-    kernels."""
+    kernels: a hidden size they are not built for on its arguments padded
+    to ``padded_hidden`` (``pad_args``), the outputs cut back
+    (``unpad_outputs``); above 256 it raises, naming K8."""
     args = (xw, w_hh_t, h0, c0)
     if xw.device.type == "cpu":
         return lstm_recurrence_reference(*args)
+    h = h0.shape[-1]
+    hp = padded_hidden(h) or h
+    if hp != h and xw.shape[-1] == 4 * h:
+        args = pad_args(args, hp)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         ys, hn, cn = _LstmRecurrence.apply(*args)
     else:
         ys, hn, cn, _, _ = lstm_recurrence_forward(args, residuals=False)
+    ys, hn, cn = unpad_outputs(ys, hn, cn, h)
     return ys, (hn, cn)

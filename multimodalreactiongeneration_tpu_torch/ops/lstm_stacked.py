@@ -20,15 +20,18 @@ On CPU tensors ``lstm_stacked_recurrence`` runs ``lstm_stacked_reference``
 (f32: autograd records through it; bf16: its backward is the plain bf16
 backward). On CUDA tensors it launches one of two routes (``route``):
 
-  * "wavefront", H 128 at L 2 or 3 (any B): ``csrc/lstm_stacked.cu``, the
+  * "wavefront", H 128 at L 2 or 3 (any B; H 65 to 127 run padded to
+    128 there): ``csrc/lstm_stacked.cu``, the
     whole stack in one cluster's shared memory (the f32 or the bf16
     instantiation). It runs R batch rows per cluster, the smallest R the
     card holds in one wave (``cluster_rows.choose_rows``, on the layout
     of the mode; L 3 takes only 16), or the ``rows`` a caller names.
     Launch counters: ``fwd_launches`` (both f32 forwards),
     ``bwd_launches``, ``bf16_fwd_launches`` and ``bf16_bwd_launches``.
-  * "layers", H 256 at any L >= 2 and H 128 at L >= 4 (any B): the
-    stacks whose weights one cluster cannot hold, as a layer-lagged
+  * "layers", every other H up to 256 at any L >= 2 (any B): the stacks
+    whose weights one cluster cannot hold (H 256, H 128 past 3 layers)
+    and the hidden sizes the wavefront is not built for (H 1 to 64, 129 to
+    256), as a layer-lagged
     window schedule of K8's chains on a stream a layer, the input
     products and weight gradients on the repo's tensor-core GEMMs
     (``csrc/lstm_recurrence.cu`` ``lstm_stacked_layers_*``); C steps a
@@ -36,12 +39,19 @@ backward). On CUDA tensors it launches one of two routes (``route``):
     the layers one after the other, the same bits), CTAs per cluster of
     the chains from ``lstm_recurrence.launch_ctas``. Launch counters:
     ``layers_fwd_launches``, ``layers_bwd_launches``,
-    ``layers_bf16_fwd_launches`` and ``layers_bf16_bwd_launches``.
+    ``layers_bf16_fwd_launches`` and ``layers_bf16_bwd_launches``. K8's
+    chains are built for H 64, 128, 192 and 256; any other H runs on the
+    next of them, ``lstm_stacked_recurrence`` padding xw0's, w_ih_t's,
+    w_hh_t's and b_rest's gate blocks, the weights' rows, h0 and c0 with
+    zero units and cutting the outputs back (``pad_args``,
+    ``ops/hidden_pad.py``: exact, as a padded unit's h stays 0 and its
+    input product reads only zeros).
 
 Both routes take the same residual layout (hs (L-1, B, T, H), acts (L,
 B, T, 4H), cs (L, B, T, H)). Where a gradient is needed the wrapper
 launches the forward that stores them and then the backward; otherwise
-the forward without residuals. Other shapes raise, naming K9.
+the forward without residuals. H above 256 and fewer than 2 layers
+raise, naming K9.
 """
 
 from __future__ import annotations
@@ -60,6 +70,15 @@ from multimodalreactiongeneration_tpu_torch.ops import (
 from multimodalreactiongeneration_tpu_torch.ops.cluster_rows import (
     card_layout,
     resolve_rows,
+)
+from multimodalreactiongeneration_tpu_torch.ops.hidden_pad import (
+    HIDDEN_SIZES,
+    pad_gates,
+    pad_units,
+    pad_weight,
+    padded_hidden,
+    unbuilt,
+    unpad_units,
 )
 
 fwd_launches = 0
@@ -270,10 +289,12 @@ def rows_for(device, layers: int, backward: bool, batch: int,
 
 def route(layers: int, hidden: int) -> Optional[str]:
     """The CUDA route of a stack: "wavefront" (``csrc/lstm_stacked.cu``),
-    "layers" (K8's chains in layer-lagged windows), or None."""
-    if hidden == HIDDEN and 2 <= layers <= MAX_LAYERS:
+    "layers" (K8's chains in layer-lagged windows), or None; by the hidden
+    size the kernels run, ``padded_hidden(hidden)`` (H 65 to 127 at 2 or 3
+    layers run padded to 128 on the wavefront)."""
+    if padded_hidden(hidden) == HIDDEN and 2 <= layers <= MAX_LAYERS:
         return "wavefront"
-    if hidden in k8.HIDDEN_SIZES and layers >= 2:
+    if padded_hidden(hidden) is not None and layers >= 2:
         return "layers"
     return None
 
@@ -289,12 +310,15 @@ def layers_chunk(t: int) -> int:
 
 
 def kernel_refusal(layers: int, hidden: int, batch: int):
-    """Why the kernels cannot take this stack, or None if they can."""
-    if hidden not in k8.HIDDEN_SIZES:
-        return (f"hidden size {hidden}: the kernels take {k8.HIDDEN_SIZES} "
-                f"(the wavefront {HIDDEN} at 2 to {MAX_LAYERS} layers, whose "
-                "weights fit one 8-CTA cluster; the layer route the hidden "
-                "sizes of the K8 chains it runs)")
+    """Why ``lstm_stacked_recurrence`` cannot take this stack on CUDA, or
+    None if it can."""
+    if padded_hidden(hidden) is None:
+        return (f"hidden size {hidden}: the K9 kernels take hidden sizes 1 "
+                f"to {HIDDEN_SIZES[-1]} (the wavefront {HIDDEN} at 2 to "
+                f"{MAX_LAYERS} layers, whose weights fit one 8-CTA cluster; "
+                "the layer route the hidden sizes of the K8 chains it runs, "
+                f"built for {HIDDEN_SIZES}, the others padded with zero "
+                "units to the next)")
     if layers < 2:
         return f"{layers} layers: a stack has 2 or more"
     if batch < 1:
@@ -330,7 +354,9 @@ def _check(name, t, w_ih_t, b_rest, w_hh_t, h0, c0, **more):
             raise ValueError(
                 f"{name}: expected {key} contiguous {shape}, got "
                 f"{tuple(a.shape)} (contiguous={a.is_contiguous()})")
-    why = kernel_refusal(layers, h, b) if t >= 1 else f"T {t}"
+    why = (kernel_refusal(layers, h, b)
+           or unbuilt(h, "K9", "lstm_stacked_recurrence") if t >= 1
+           else f"T {t}")
     if why is not None:
         raise ValueError(f"{name}: no kernel for {why}")
     return layers, b, t, h, mm == torch.bfloat16
@@ -486,6 +512,22 @@ class _LstmStacked(torch.autograd.Function):
         return lstm_stacked_backward(weights, ys, hs, acts, cs, *cots)
 
 
+def pad_args(args, hp: int):
+    """(xw0, w_ih_t, b_rest, w_hh_t, h0, c0) of hidden size H as hidden
+    size ``hp`` >= H: each gate block of xw0, b_rest and both weights'
+    columns, the weights' rows, h0 and c0 padded with zero units
+    (``ops/hidden_pad.py``; differentiable)."""
+    xw0, w_ih_t, b_rest, w_hh_t, h0, c0 = args
+    return (pad_gates(xw0, 4, hp), pad_weight(w_ih_t, 4, hp),
+            pad_gates(b_rest, 4, hp), pad_weight(w_hh_t, 4, hp),
+            pad_units(h0, hp), pad_units(c0, hp))
+
+
+def unpad_outputs(ys, hn, cn, h: int):
+    """(ys, h_n, c_n) of a padded run cut to the first ``h`` units."""
+    return tuple(unpad_units(x, h) for x in (ys, hn, cn))
+
+
 def lstm_stacked_recurrence(
     xw0: torch.Tensor,     # (B, T, 4H) f32
     w_ih_t: torch.Tensor,  # (L-1, H, 4H) f32, or bf16 in the bf16 mode
@@ -495,12 +537,19 @@ def lstm_stacked_recurrence(
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The stacked LSTM, differentiable; the weights' dtype picks the
     operand mode. CPU tensors take the plain version, CUDA tensors the
-    kernels."""
+    kernels: a hidden size they are not built for on its arguments padded
+    to ``padded_hidden`` (``pad_args``; the layer route), the outputs cut
+    back (``unpad_outputs``); above 256 it raises, naming K9."""
     args = (xw0, w_ih_t, b_rest, w_hh_t, h0, c0)
     if xw0.device.type == "cpu":
         return lstm_stacked_reference(*args)
+    h = h0.shape[-1]
+    hp = padded_hidden(h) or h
+    if hp != h and xw0.shape[-1] == 4 * h:
+        args = pad_args(args, hp)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         ys, hn, cn = _LstmStacked.apply(*args)
     else:
         ys, hn, cn, _, _, _ = lstm_stacked_forward(args, residuals=False)
+    ys, hn, cn = unpad_outputs(ys, hn, cn, h)
     return ys, (hn, cn)

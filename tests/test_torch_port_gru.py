@@ -194,11 +194,12 @@ def test_gru_refusals():
     gru.eval()
     assert gru(x)[0].shape == dropped.shape == (1, 4, 8)
     assert not torch.equal(gru(x)[0], dropped)
-    # the CUDA route raises for the hidden sizes the kernels do not take,
-    # and only from 16 steps on
+    # the CUDA route raises for the hidden sizes the kernels do not take
+    # (above 256; the others run padded), and only from 16 steps on
     with pytest.raises(NotImplementedError, match="K10"):
-        recurrent.use_gru_kernel("cuda", 16, 32)
-    assert not recurrent.use_gru_kernel("cuda", 15, 32)
+        recurrent.use_gru_kernel("cuda", 16, 384)
+    assert recurrent.use_gru_kernel("cuda", 16, 32)
+    assert not recurrent.use_gru_kernel("cuda", 15, 384)
     assert recurrent.use_gru_kernel("cpu", 16, 32)
     with pytest.raises(ValueError, match="no kernel"):
         K10.gru_forward([torch.zeros(1, 2, 12), torch.zeros(4, 12),

@@ -23,7 +23,8 @@ version and to the JAX kernel where no card is needed:
     h_shift^T dhh over all B*T rows in 3xTF32, db_hh the column sum;
   * both match ``gru_recurrence_reference`` and the JAX ``ops/pallas_gru.py
     gru_recurrence`` and its VJP (Pallas in interpret mode, as
-    tests/test_torch_port_gru.py runs it) at H 128 and 256, B 1, 17 and
+    tests/test_torch_port_gru.py runs it) at H 64, 128, 192 and 256
+    (every cluster size of each), B 1, 17 and
     33 (a ragged second cluster), T 1, 7 and 37: ys and hn within
     ``FWD_ATOL`` = 1e-5 abs (three TF32 passes keep FP32's order of
     error; what is left is summation order through the recurrence), and
@@ -134,7 +135,7 @@ def _rel(got, want):
 
 @pytest.mark.parametrize("t", [1, 7, 37])
 @pytest.mark.parametrize("b", [1, 17, 33])
-@pytest.mark.parametrize("h", [128, 256])
+@pytest.mark.parametrize("h", [64, 128, 192, 256])
 def test_emulated_tensor_core_gru_matches_plain_and_jax(h, b, t):
     """Every cluster size the kernels take at this H."""
     args, cots = _inputs(1000 * b + 10 * t + h, b, t, h)

@@ -326,7 +326,7 @@ def test_training_kernels_refuse_bf16_and_off_gate_shapes(dev):
         with torch.no_grad(), pytest.raises(ValueError, match=match):
             K1.mixer_stack_recurrence(*args)  # K1
     with pytest.raises(NotImplementedError, match="K8"):
-        single_layer_route("cuda", 16, 18, 64)
+        single_layer_route("cuda", 16, 18, 384)
 
 
 @pytest.mark.parametrize("b,t,layers", [
@@ -697,7 +697,7 @@ def test_lstm_stacked_kernel_refuses_other_shapes(dev):
     from multimodalreactiongeneration_tpu_torch.ops import lstm_stacked as K9
 
     b, t = 2, 16
-    for layers, h, dt, match in ((2, 64, torch.float32, "hidden size 64"),
+    for layers, h, dt, match in ((2, 384, torch.float32, "hidden size 384"),
                                  (1, 128, torch.float32, "1 layers"),
                                  (2, 128, torch.bfloat16, "f32")):
         z = lambda *s: torch.zeros(*s, device=dev, dtype=dt)
@@ -711,8 +711,9 @@ def test_lstm_stacked_kernel_refuses_other_shapes(dev):
         K9.lstm_stacked_forward((z(b, t, 4 * h), z(1, h, 4 * h), z(1, 4 * h),
                                  z(2, h, 4 * h), z(2, b, h), z(2, b, h)),
                                 False, rows=16)
-    with pytest.raises(NotImplementedError, match="hidden size 64"):
-        use_lstm_stacked("cuda", 16, 2, 64, b)
+    with pytest.raises(NotImplementedError, match="hidden size 384"):
+        use_lstm_stacked("cuda", 16, 2, 384, b)
+    assert use_lstm_stacked("cuda", 16, 2, 64, b)
     assert use_lstm_stacked("cuda", 16, 2, 128, b)
     assert use_lstm_stacked("cuda", 16, 2, 256, b)
     assert use_lstm_stacked("cuda", 16, 4, 128, b)
@@ -863,8 +864,8 @@ def test_rect_attention_kernels_match_plain(dev, b, lq, lk, e, heads):
 
 def test_rect_attention_kernel_refuses_bf16_and_other_head_dims(dev):
     """The kernels take q/k/v all f32 or all bf16 (``rect_attention``
-    casts k and v to q's mode first; float16 is no mode) and head dims 32
-    or 64."""
+    casts k and v to q's mode first; float16 is no mode) and head dims up
+    to 256 (the others padded to the next tile)."""
     from multimodalreactiongeneration_tpu_torch.ops import rect_attention as K5
 
     q, k, v, q_pad, k_pad, _ = _rect_inputs(dev, 0, 2, 8, 16, 64, False)
@@ -872,11 +873,12 @@ def test_rect_attention_kernel_refuses_bf16_and_other_head_dims(dev):
         K5.rect_attention_forward(2, q.bfloat16(), k, v, q_pad, k_pad)
     with pytest.raises(ValueError, match="f32 or bf16"):
         K5.rect_attention(2, q.half(), k.half(), v.half(), q_pad, k_pad)
+    wide = [torch.zeros(x.shape[0], x.shape[1], 512, device=dev)
+            for x in (q, k, v)]
     with pytest.raises(ValueError, match="head dims"):
-        K5.rect_attention(4, q, k, v, q_pad, k_pad)
+        K5.rect_attention(1, *wide, q_pad, k_pad)
     with pytest.raises(ValueError, match="head dims"):
-        K5.rect_attention(4, q.bfloat16(), k.bfloat16(), v.bfloat16(),
-                          q_pad, k_pad)
+        K5.rect_attention(1, *(x.bfloat16() for x in wide), q_pad, k_pad)
 
 
 @pytest.mark.parametrize("b,lq,lk,e,heads", [
@@ -1227,19 +1229,20 @@ def test_gru_kernel_refuses_bf16_and_other_hidden_sizes(dev):
 
     b, t = 2, 16
     for h, dt, match in ((256, torch.bfloat16, "f32"),
-                         (64, torch.float32, "hidden size 64"),
-                         (192, torch.float32, "hidden size 192")):
+                         (384, torch.float32, "hidden size 384"),
+                         (512, torch.float32, "hidden size 512")):
         z = lambda *s: torch.zeros(*s, device=dev, dtype=dt)
         with pytest.raises(ValueError, match=match):
             K10.gru_recurrence(z(b, t, 3 * h), z(h, 3 * h), z(3 * h), z(b, h))
         with pytest.raises(ValueError, match=match):
             K10.gru_recurrence(z(b, t, 3 * h).requires_grad_(), z(h, 3 * h),
                                z(3 * h), z(b, h))
-    for h in (64, 192):
+    for h in (384, 512):
         with pytest.raises(NotImplementedError, match="K10"):
             use_gru_kernel("cuda", 16, h)
     assert use_gru_kernel("cuda", 16, 128) and use_gru_kernel("cuda", 252, 256)
-    assert not use_gru_kernel("cuda", 15, 64)
+    assert use_gru_kernel("cuda", 16, 64) and use_gru_kernel("cuda", 16, 100)
+    assert not use_gru_kernel("cuda", 15, 384)
 
 
 @pytest.mark.parametrize("b,t,h", [
@@ -1285,7 +1288,7 @@ def test_lstm_recurrence_kernel_refuses_bf16_and_other_hidden_sizes(
 
     b, t = 2, 16
     for h, dt, match in ((128, torch.bfloat16, "f32"),
-                         (64, torch.float32, "hidden size 64"),
+                         (320, torch.float32, "hidden size 320"),
                          (384, torch.float32, "hidden size 384")):
         z = lambda *s: torch.zeros(*s, device=dev, dtype=dt)
         for grad in (False, True):
@@ -1531,3 +1534,131 @@ def test_lstm_layer_and_recurrence_on_flipped_input(dev, din):
     assert float((hn.detach() - hr.detach()).abs().max()) <= TOL
     for i, (gk, gw) in enumerate(zip(grads, want)):
         assert _rel_err(gk, gw) <= GRAD_REL_TOL, i
+
+
+# Every head dim and hidden size up to 256: the kernels are built for
+# head dims 16 to 256 (powers of two) and hidden sizes 64, 128, 192 and
+# 256; the wrappers run any other up to 256 padded with zeros to the
+# next of them (exact), counted as one launch each way.
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("b,lq,lk,e,heads", [
+    (32, 252, 2016, 256, 16), (32, 252, 2016, 192, 4),
+    (32, 252, 2016, 256, 2), (32, 252, 2016, 256, 1), (3, 40, 96, 96, 4),
+    (2, 12, 40, 8, 1), (3, 63, 129, 200, 1),
+])
+def test_rect_attention_kernels_at_every_head_dim(dev, b, lq, lk, e, heads,
+                                                  bf16):
+    """K5/K6 at head dims 16, 48 (on the 64 tile), 128, 256, 24, 8 and
+    200 (on the 256 tile), f32 and bf16 operands, vs the plain version of
+    the mode at the real head dim: f32 within TOL and GRAD_REL_TOL, bf16
+    within 1e-2 and BF16_SHORT[2] (as
+    ``test_rect_attention_bf16_kernels_match_plain_bf16``); +2 / +1
+    launches of the mode's counters."""
+    from multimodalreactiongeneration_tpu_torch.ops import rect_attention as K5
+
+    q, k, v, q_pad, k_pad, g = _rect_inputs(dev, lq + lk + e + heads, b, lq,
+                                            lk, e)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    plain = (K5.rect_attention_bf16_reference if bf16
+             else K5.rect_attention_reference)
+    want = plain(heads, q, k, v, q_pad, k_pad)
+    names = (("bf16_fwd_launches", "bf16_bwd_launches") if bf16
+             else ("fwd_launches", "bwd_launches"))
+    before = [getattr(K5, n) for n in names]
+    with torch.no_grad():
+        got = K5.rect_attention(heads, q, k, v, q_pad, k_pad)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = K5.rect_attention(heads, *leaves, q_pad, k_pad)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert [getattr(K5, n) for n in names] == [before[0] + 2, before[1] + 1]
+    assert got.shape == out.shape == (b, lq, e)
+    for o in (got, out):
+        assert float((o.detach() - want).abs().max()) <= (
+            1e-2 if bf16 else TOL)
+    wgrads = K5.rect_attention_backward_reference(heads, q, k, v, q_pad,
+                                                  k_pad, g)
+    largest = max(float(w.float().abs().max()) for w in wgrads)
+    for i, (gk, gw) in enumerate(zip(grads, wgrads)):
+        assert gk.dtype == gw.dtype == dt, i
+        if bf16:
+            assert float((gk.float() - gw.float()).abs().max()) <= (
+                BF16_SHORT[2] * largest), i
+        else:
+            assert _rel_err(gk, gw) <= GRAD_REL_TOL, i
+
+
+def _recurrence_case(kind, r, b, t, h, bf16):
+    """(module, entry point, plain version, plain backward, args, cots,
+    launch counter names) of K10 ("gru"), K8 ("lstm") or K9 ("stacked", 2
+    layers: its layer route, or at H 65 to 128 the wavefront on H 128)."""
+    from multimodalreactiongeneration_tpu_torch.ops import gru as K10
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_recurrence as K8
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_stacked as K9
+
+    w = (lambda a: a.to(torch.bfloat16)) if bf16 else (lambda a: a)
+    mode = "bf16_" if bf16 else ""
+    if kind == "gru":
+        args = (r(b, t, 3 * h, s=0.5), w(r(h, 3 * h, s=0.06)),
+                r(3 * h, s=0.1), r(b, h, s=0.3))
+        return (K10, K10.gru_recurrence, K10.gru_recurrence_reference,
+                K10.gru_backward_reference, args, (r(b, t, h), r(b, h)),
+                (f"{mode}fwd_launches", f"{mode}bwd_launches"))
+    if kind == "lstm":
+        args = (r(b, t, 4 * h, s=0.5), w(r(h, 4 * h, s=0.06)),
+                r(b, h, s=0.3), r(b, h, s=0.3))
+        return (K8, K8.lstm_recurrence, K8.lstm_recurrence_reference,
+                K8.lstm_recurrence_backward_reference, args,
+                (r(b, t, h), r(b, h), r(b, h)),
+                (f"{mode}fwd_launches", f"{mode}bwd_launches"))
+    args, cots = _stacked_args(r, b, t, h, 2, bf16)
+    route = "" if K9.route(2, h) == "wavefront" else "layers_"
+    return (K9, K9.lstm_stacked_recurrence, K9.lstm_stacked_reference,
+            K9.lstm_stacked_backward_reference, args, cots,
+            (f"{route}{mode}fwd_launches", f"{route}{mode}bwd_launches"))
+
+
+def _flat_out(out):
+    ys, state = out
+    return (ys, *state) if isinstance(state, tuple) else (ys, state)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kind", ["gru", "lstm", "stacked"])
+@pytest.mark.parametrize("b,t,h", [
+    (32, 252, 64), (32, 252, 192), (32, 252, 100), (20, 37, 48),
+    (17, 40, 160), (3, 16, 250),
+])
+def test_recurrence_kernels_at_every_hidden_size(dev, b, t, h, kind, bf16):
+    """K10, K8 and K9 (2 layers: the layer route, and at H 100 the
+    wavefront) at hidden sizes 64 and 192 (built) and 100, 48, 160 and
+    250 (padded to 128, 64, 192 and 256), f32
+    and bf16 W: the forward without and with residuals and the backward
+    through the entry point vs the plain version at the real H (f32:
+    TOL and GRAD_REL_TOL; bf16: ``_bf16_within`` as the bf16 tests of
+    each kernel: the short bounds to T 40, the JAX bf16 bound past it,
+    the distance test over the first ``RECURRENCE_MODE_STEPS`` steps); +2
+    / +1 launches of the mode's counters."""
+    r = _rand(np.random.default_rng(b * t + h + bf16), dev)
+    mod, entry, plain, plain_bwd, args, cots, names = _recurrence_case(
+        kind, r, b, t, h, bf16)
+    before = [getattr(mod, n) for n in names]
+    out0 = _flat_out(entry(*args))
+    leaves = [a.clone().requires_grad_() for a in args]
+    out = _flat_out(entry(*leaves))
+    grads = torch.autograd.grad(out, leaves, cots)
+    torch.cuda.synchronize()
+    assert [getattr(mod, n) for n in names] == [before[0] + 2, before[1] + 1]
+    want = _flat_out(plain(*args))
+    want_grads = plain_bwd(args, *cots)
+    if bf16:
+        ys32 = _flat_out(plain(*[a.float() for a in args]))[0]
+        _bf16_within(out0 + out, grads, want * 2, want_grads, short=t <= 40,
+                     ys_f32=ys32,
+                     mode_steps=None if t <= 40 else RECURRENCE_MODE_STEPS)
+        return
+    for got, w in zip(out0 + out, want * 2):
+        assert float((got.detach() - w).abs().max()) <= TOL
+    for i, (g, w) in enumerate(zip(grads, want_grads)):
+        assert _rel_err(g, w) <= GRAD_REL_TOL, i

@@ -141,5 +141,6 @@ def test_cuda_lstm_off_the_kernel_gate_raises():
     assert route("cpu", 252, 18, 256) == "lstm_recurrence"
     assert route("cuda", 252, 18, 256) == "lstm_recurrence"
     assert route("cpu", 252, 18, 64) == "lstm_recurrence"
+    assert route("cuda", 252, 18, 64) == "lstm_recurrence"
     with pytest.raises(NotImplementedError, match="lstm_recurrence"):
-        route("cuda", 252, 18, 64)
+        route("cuda", 252, 18, 384)

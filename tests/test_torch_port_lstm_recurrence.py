@@ -218,7 +218,7 @@ def test_single_layer_route(monkeypatch, fused_dw, device):
     assert route(device, 120, 81, 128) == "lstm_recurrence"
     assert route(device, 16, 18, 256) == "lstm_recurrence"
     if device == "cuda":
-        for h in (64, 192):
+        for h in (320, 384):
             with pytest.raises(NotImplementedError, match="K8"):
                 route(device, 16, 18, h)
     else:

@@ -184,9 +184,10 @@ def test_torchlstm_stack_dispatch_on_cpu(monkeypatch, t, stacked):
 
 
 def test_stack_gate_raises_on_cuda_for_shapes_the_kernel_does_not_take():
-    """K9 takes hidden 128 at 2-3 layers on its wavefront and hidden 256
-    (any depth) or 128 past 3 layers on its layer route; other hidden
-    sizes raise on CUDA, naming the sizes it takes."""
+    """K9 takes hidden 128 at 2-3 layers on its wavefront and every other
+    hidden size up to 256 (any depth; 128 past 3 layers) on its layer
+    route; hidden sizes above 256 raise on CUDA, naming the sizes it
+    takes."""
     assert recurrent.use_lstm_stacked("cuda", 1120, 2, 128, 256)
     assert recurrent.use_lstm_stacked("cuda", 16, 3, 128, 12)
     assert recurrent.use_lstm_stacked("cuda", 96, 2, 256, 2)
@@ -194,10 +195,10 @@ def test_stack_gate_raises_on_cuda_for_shapes_the_kernel_does_not_take():
     assert not recurrent.use_lstm_stacked("cuda", 15, 2, 256, 2)
     assert not recurrent.use_lstm_stacked("cuda", 96, 1, 128, 2)
     assert recurrent.use_lstm_stacked("cpu", 96, 2, 16, 2)
-    with pytest.raises(NotImplementedError, match="hidden size 64"):
-        recurrent.use_lstm_stacked("cuda", 96, 2, 64, 2)
+    with pytest.raises(NotImplementedError, match="hidden size 384"):
+        recurrent.use_lstm_stacked("cuda", 96, 2, 384, 2)
     assert [K9.route(l, h) for l, h in ((2, 128), (3, 128), (4, 128),
-                                        (2, 256), (5, 256), (2, 64))] == [
+                                        (2, 256), (5, 256), (2, 384))] == [
         "wavefront", "wavefront", "layers", "layers", "layers", None]
 
 

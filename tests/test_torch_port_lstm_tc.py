@@ -26,8 +26,8 @@ version and to the JAX kernel where no card is needed:
     the partials summed in split order;
   * both match ``lstm_recurrence_reference`` and the JAX ``ops/
     pallas_lstm.py lstm_recurrence`` and its VJP (Pallas in interpret
-    mode, as tests/test_torch_port_lstm_recurrence.py runs it) at H 128
-    and 256, B 1, 17 and 33 (a ragged second cluster), T 1, 7 and 37: ys,
+    mode, as tests/test_torch_port_lstm_recurrence.py runs it) at H 64,
+    128, 192 and 256 (every cluster size of each), B 1, 17 and 33 (a ragged second cluster), T 1, 7 and 37: ys,
     h_n and c_n within ``FWD_ATOL`` = 1e-5 abs (three TF32 passes keep
     FP32's order of error; what is left is summation order through the
     recurrence), and dxw, dw_hh_t, dh0 and dc0 within ``GRAD_REL`` = 1e-4
@@ -143,7 +143,7 @@ def _emulate(args, cots, ctas, passes=3):
 
 @pytest.mark.parametrize("t", [1, 7, 37])
 @pytest.mark.parametrize("b", [1, 17, 33])
-@pytest.mark.parametrize("h", [128, 256])
+@pytest.mark.parametrize("h", [64, 128, 192, 256])
 def test_emulated_tensor_core_lstm_recurrence_matches_plain_and_jax(h, b, t):
     """Every cluster size the kernels take at this H."""
     args, cots = _inputs(1000 * b + 10 * t + h, b, t, h)

@@ -5,7 +5,7 @@ Run from the root of a checkout of the PyTorch port:
 
     python3 tools/bf16_phases.py [lws] [flagship] [gru] [recurrence]
         [dw0] [cardcpu] [cardcpu_gru] [cardcpu_lws1] [cardcpu_lws0]
-        [cardcpu_p20]
+        [cardcpu_p20] [cardcpu_shapes]
 
 builds the libraries the phases launch (all eight at once), then runs,
 each part as ``chip_smoke.py`` runs it (the default: ``lws flagship``):
@@ -26,10 +26,12 @@ against the same step on CPU tensors (B2 x T48) from the models and
 batches of several seeds (``card_vs_cpu``), with ``cardcpu_gru`` phase
 32's, with ``cardcpu_lws1`` and ``cardcpu_lws0`` lstm_with_sampling's
 under ``MRGEN_FUSED_DW`` 1 (phase 30's) and 0 (phase 20's); with
-``cardcpu_p20`` the lws and flagship bf16 steps at phase 20's model and
-batch under both flags, each parameter's error (``card_vs_cpu_at``). The
-CLI
-phases run on a corpus written under ``_build/cli_run`` and deleted
+``cardcpu_shapes`` the bf16 steps of phase 40's configurations (the GRU
+Metaformer at hidden 192 and 4 heads, lws at hidden 192 and sampler 192,
+the flagship at 2 heads: ``chip_smoke.shape_model_specs``) over six
+seeds; with ``cardcpu_p20`` the lws and flagship bf16 steps at phase
+20's model and batch under both flags, each parameter's error
+(``card_vs_cpu_at``). The CLI phases run on a corpus written under ``_build/cli_run`` and deleted
 after. Each phase draws from the generator ``chip_smoke.py`` gives it.
 The last line is one JSON object: the bf16 kernels' records and the
 steps' and CLI runs'.
@@ -214,6 +216,11 @@ def main(parts):
                                   (cs.metaformer_bf16_train_spec,
                                    cs.metaformer_train_spec))
                 for flag in ("1", "0")]
+        if "cardcpu_shapes" in parts:
+            out["card_vs_cpu_shapes"] = {
+                name: card_vs_cpu(cs, dev, range(6), half, step)
+                for name, step, half in cs.shape_model_specs()
+                if half is not None}
         for flag in ("1", "0"):  # lws, on K7's and on K8's route
             if f"cardcpu_lws{flag}" in parts:
                 out[f"card_vs_cpu_lws_fused_dw_{flag}"] = card_vs_cpu(
