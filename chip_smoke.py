@@ -440,6 +440,32 @@ Phases:
      (c) one generation of the GRU Metaformer (K10 +10) and of
      lstm_with_sampling (the layer route +1) at those widths, each with
      its teacher-forced card-against-CPU check;
+ 41. the encoder stack at every hidden size to 512 and K7 at 384 and 512
+     (``stack_shape_phases``, generators ``SEED + 41``): (a) K1 (no
+     gradient), K3 and K4 through ``mixer_stack_recurrence`` at B32 x L5 x
+     T252 and H 100 (run padded to 128), 192 (8-CTA clusters), 384 and 512
+     (16-CTA clusters; FP32 at 512 reads part of W_hh from L2), f32 and
+     bf16, against the plain version at the real width (f32 within
+     ``K1_TOL`` forward and ``GRAD_REL_TOL`` gradients; bf16 within
+     ``BF16_FULL_TOL`` and the distance test over the first
+     ``BF16_MODE_STEPS`` steps, within ``BF16_WIDE_MODE_FRAC`` past H
+     256), K1's outputs the training forward's bits, launches exact; K7 at B32 x T252 x H 384 and 512 (din = H) the
+     same way (the distance test over ``BF16_RECURRENCE_MODE_STEPS``
+     steps) beside cuDNN's ``nn.LSTM`` in the same dtype; timed beside the
+     plain versions, with the bounds at the real and at the run width,
+     the layout (CTAs a cluster, rows or gate columns of W_hh a CTA keeps
+     in shared memory, residency); (b) the flagship at hidden 192 and
+     512 through the step functions: ``SHAPE_STEPS`` f32 steps at B32 x
+     T240 (K3 +2 / K4 +2; K8 at 192, K7 at 512, +5 / +5; K5 / K6 +10 /
+     +10), eval, the card against CPU tensors at B2 x T48 within phase
+     8's bounds; one bf16 step each, timed, launches exact; (c) one
+     generation of the flagship at hidden 192 (B16 x 250, K1 +2, the
+     module loop: K2's contract is hidden 256) with its teacher-forced
+     card-against-CPU check; (d) the flagship's forward without gradient
+     on bf16 parameters and inputs at hidden 192 and 512 (B16 x 250, the
+     counts read just before and after it: K1 bf16 +2; K8 bf16 at 192, K7
+     bf16 at 512, +5; K5 bf16 +2 and f32 +8), timed, and at B2 x 48
+     against CPU tensors as phase 33's (``bf16_forward_check``);
 
 Every kernel's JSON record carries its bound: the larger of its
 operations (FP32 at 67 TFLOP/s; the 3xTF32 products of K5's forward,
@@ -616,6 +642,16 @@ RAW_SESSIONS, RAW_SECONDS, RAW_FRAME = 2, 60.0, (8, 16)
 SHAPE_HEADS = ((256, 16), (192, 4), (256, 2), (256, 1))
 SHAPE_HIDDEN = (64, 192, 100)
 SHAPE_STEPS = 2
+# phase 41: the encoder stack's new widths (100 runs padded to 128, 192
+# on 8-CTA clusters, 384 and 512 on 16-CTA ones). The bf16 stack's
+# distance test reads the first BF16_MODE_STEPS steps at every width,
+# within BF16_WIDE_MODE_FRAC past H 256: at B32 x L5 x T252 the kernels
+# read 0.02, 0.06, 0.21 and 0.32 of the f32 distance there (H 100 to
+# 512; two faithful plain bf16 stacks, one with its sums in f64, part by
+# 0.15-0.16 at 384 and 512), and the f32 kernel in the bf16 mode's place
+# reads about 1 (tools/bf16_sum_order_probe.py --card)
+STACK_SHAPE_HIDDEN = (100, 192, 384, 512)
+BF16_WIDE_MODE_FRAC = 0.5
 LIBS = ("mixer_stack", "decode_rollout", "lstm_layer", "rect_attention",
         "lstm_stacked", "gru", "lstm_recurrence", "attention_bf16")
 SRC = "multimodalreactiongeneration_tpu_torch/csrc/"
@@ -671,6 +707,21 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps, out
+
+
+def plain_time(fn):
+    """(ms, output) of one call of a plain version, without a warm-up:
+    the plain recurrences loop over their steps on the host, from tens of
+    ms to seconds a call, so a warm-up call would only double their
+    cost."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop), out
 
 
 def max_err(a, b):
@@ -906,10 +957,10 @@ def train_kernel_phase(K1, dev, rng):
         y, (hn, cn) = K1.mixer_stack_recurrence(*leaves)
         grads = torch.autograd.grad((y, hn, cn), leaves, cots)
         with torch.no_grad():
-            plain_fwd_ms, (yr, (hr, cr)) = cuda_ms(
-                lambda: K1.mixer_stack_forward_reference(*args), 1)
-        plain_bwd_ms, want = cuda_ms(
-            K1.mixer_stack_backward_reference(args, *cots, closure=True), 1)
+            plain_fwd_ms, (yr, (hr, cr)) = plain_time(
+                lambda: K1.mixer_stack_forward_reference(*args))
+        plain_bwd_ms, want = plain_time(
+            K1.mixer_stack_backward_reference(args, *cots, closure=True))
         fwd_err = max_err((y, hn, cn), (yr, hr, cr))
         grad_err = max_err(grads, want)
         grad_rel = rel_err(grads, want)
@@ -1082,10 +1133,10 @@ def lstm_layer_phase(K7, dev, rng):
         grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
         ys, hn, cn = ys.detach(), hn.detach(), cn.detach()
         with torch.no_grad():
-            plain_fwd_ms, (ysr, (hr, cr)) = cuda_ms(
-                lambda: K7.lstm_layer_reference(*args), 1)
-        plain_bwd_ms, want = cuda_ms(
-            K7.lstm_layer_backward_reference(args, *cots, closure=True), 1)
+            plain_fwd_ms, (ysr, (hr, cr)) = plain_time(
+                lambda: K7.lstm_layer_reference(*args))
+        plain_bwd_ms, want = plain_time(
+            K7.lstm_layer_backward_reference(args, *cots, closure=True))
         fwd_err = max(max_err((ys0, hn0, cn0), (ysr, hr, cr)),
                       max_err((ys, hn, cn), (ysr, hr, cr)))
         grad_err = max_err(grads, want)
@@ -1231,8 +1282,8 @@ def gru_phase(K10, dev, rng):
         # residuals, then the backward
         ys0, hn0 = K10.gru_recurrence(*args)
         with torch.no_grad():
-            plain_fwd_ms, (ysr, hr) = cuda_ms(
-                lambda: K10.gru_recurrence_reference(*args), 1)
+            plain_fwd_ms, (ysr, hr) = plain_time(
+                lambda: K10.gru_recurrence_reference(*args))
         fwd_err = max_err((ys0, hn0), (ysr, hr))
         fwd_ms, again = cuda_ms(lambda: K10.gru_forward(args, False), 5)
         bits = same_bits((ys0, hn0), again[:2])
@@ -1254,8 +1305,8 @@ def gru_phase(K10, dev, rng):
             ys, hn = K10.gru_recurrence(*leaves)
             grads = torch.autograd.grad((ys, hn), leaves, cots)
             fwd_err = max(fwd_err, max_err((ys, hn), (ysr, hr)))
-            plain_bwd_ms, want = cuda_ms(
-                K10.gru_backward_reference(args, *cots, closure=True), 1)
+            plain_bwd_ms, want = plain_time(
+                K10.gru_backward_reference(args, *cots, closure=True))
             grad_err = max_err(grads, want)
             grad_rel = rel_err(grads, want)
             del want
@@ -1356,11 +1407,10 @@ def lstm_recurrence_phase(K8, dev, rng):
         grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
         ys, hn, cn = ys.detach(), hn.detach(), cn.detach()
         with torch.no_grad():
-            plain_fwd_ms, (ysr, (hr, cr)) = cuda_ms(
-                lambda: K8.lstm_recurrence_reference(*args), 1)
-        plain_bwd_ms, want = cuda_ms(
-            K8.lstm_recurrence_backward_reference(args, *cots, closure=True),
-            1)
+            plain_fwd_ms, (ysr, (hr, cr)) = plain_time(
+                lambda: K8.lstm_recurrence_reference(*args))
+        plain_bwd_ms, want = plain_time(
+            K8.lstm_recurrence_backward_reference(args, *cots, closure=True))
         fwd_err = max(max_err((ys0, hn0, cn0), (ysr, hr, cr)),
                       max_err((ys, hn, cn), (ysr, hr, cr)))
         grad_err = max_err(grads, want)
@@ -1512,10 +1562,10 @@ def lstm_stacked_phase(K9, dev, rng):
         grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
         ys, hn, cn = ys.detach(), hn.detach(), cn.detach()
         with torch.no_grad():
-            plain_fwd_ms, (ysr, (hr, cr)) = cuda_ms(
-                lambda: K9.lstm_stacked_reference(*args), 1)
-        plain_bwd_ms, want = cuda_ms(
-            K9.lstm_stacked_backward_reference(args, *cots, closure=True), 1)
+            plain_fwd_ms, (ysr, (hr, cr)) = plain_time(
+                lambda: K9.lstm_stacked_reference(*args))
+        plain_bwd_ms, want = plain_time(
+            K9.lstm_stacked_backward_reference(args, *cots, closure=True))
         fwd_err = max(max_err((ys0, hn0, cn0), (ysr, hr, cr)),
                       max_err((ys, hn, cn), (ysr, hr, cr)))
         grad_err = max_err(grads, want)
@@ -1716,6 +1766,12 @@ def train_path_phase(mods, dev, rng, spec):
             whole_ms=f"{means['whole']:.3f}",
             peak_mem_gib={k: round(v, 3) for k, v in peak.items()})
 
+    if not spec.get("card_vs_cpu", True):  # timed, with its launches
+        return {"launches": launches, "record": {
+            "batch": batch_size, "frames": frames, "steps": steps,
+            "ms": step_ms, "frames_per_s": frames_per_s, "losses": losses,
+            "peak_mem_gib": peak_gib, "device_busy_share": busy,
+            "stack_overlap": overlap, "stack_schedule_ab": ab}}
     # one SGD step on the card and on CPU tensors, same weights and batch
     model_cpu = spec_model(spec, "cpu")
     model_card = copy.deepcopy(model_cpu).to(dev)
@@ -3630,10 +3686,9 @@ def bf16_case(name, call, fwd, bwd, plain, plain_bwd, args, cots, flops,
     outs = tuple(o.detach() for o in outs)
     del leaves
     with torch.no_grad():
-        plain_fwd_ms, want = cuda_ms(lambda: plain(*args), 1)
+        plain_fwd_ms, want = plain_time(lambda: plain(*args))
         ys32 = plain(*[a.float() for a in args])[0]
-    plain_bwd_ms, want_grads = cuda_ms(plain_bwd(args, *cots, closure=True),
-                                       1)
+    plain_bwd_ms, want_grads = plain_time(plain_bwd(args, *cots, closure=True))
     errs = bf16_check(name, outs0 + outs, grads, want * 2, want_grads,
                       (ys32,), short=t <= BF16_SHORT_T,
                       mode_steps=mode_steps, **shape)
@@ -3808,11 +3863,11 @@ def bf16_stack_case(K1, r, b, t, layers, h=256):
     grads = torch.autograd.grad((y, hn, cn), leaves, cots)
     del leaves
     with torch.no_grad():
-        plain_fwd_ms, (yr, (hr, cr)) = cuda_ms(
-            lambda: K1.mixer_stack_forward_reference(*args), 1)
+        plain_fwd_ms, (yr, (hr, cr)) = plain_time(
+            lambda: K1.mixer_stack_forward_reference(*args))
         y32 = K1.mixer_stack_forward_reference(*args32)[0]
-    plain_bwd_ms, want = cuda_ms(
-        K1.mixer_stack_backward_reference(args, *cots, closure=True), 1)
+    plain_bwd_ms, want = plain_time(
+        K1.mixer_stack_backward_reference(args, *cots, closure=True))
     short = (n, t) == BF16_STACK_SHORT
     errs = bf16_check("mixer_stack_bf16", (y, hn, cn), grads, (yr, hr, cr),
                       want, (y32,), short,
@@ -4328,8 +4383,8 @@ def bf16_inference_case(K1, r, b, t, layers, h=256):
             raise AssertionError("mixer_stack_bf16: not one bf16 launch")
         train_bits = same_bits((y, hn, cn),
                                K1.mixer_stack_train_forward(*args)[:3])
-        plain_ms, (yr, (hr, cr)) = cuda_ms(
-            lambda: K1.mixer_stack_forward_reference(*args), 1)
+        plain_ms, (yr, (hr, cr)) = plain_time(
+            lambda: K1.mixer_stack_forward_reference(*args))
         y32 = K1.mixer_stack_forward_reference(*args32)[0]
     short = (n, t) == BF16_STACK_SHORT
     errs = bf16_check("mixer_stack_bf16", (y, hn, cn), (), (yr, hr, cr), (),
@@ -4741,8 +4796,8 @@ def stacked_layers_phase(mods, dev, rng):
         cots = (r(b, t, h), r(layers, b, h), r(layers, b, h))
         ys0, (hn0, cn0) = K9.lstm_stacked_recurrence(*args)
         with torch.no_grad():
-            plain_fwd_ms, (ysr, (hr, cr)) = cuda_ms(
-                lambda: K9.lstm_stacked_reference(*args), 1)
+            plain_fwd_ms, (ysr, (hr, cr)) = plain_time(
+                lambda: K9.lstm_stacked_reference(*args))
         fwd_err = max_err((ys0, hn0, cn0), (ysr, hr, cr))
         fwd_ms, _ = cuda_ms(lambda: K9.lstm_stacked_forward(args, False), 5)
         # h.W_hh of every layer and h.W_ih of layers 1..L-1, all in
@@ -4773,8 +4828,8 @@ def stacked_layers_phase(mods, dev, rng):
         grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
         fwd_err = max(fwd_err, max_err((ys, hn, cn), (ysr, hr, cr)))
         del ysr, hr, cr, leaves
-        plain_bwd_ms, want = cuda_ms(
-            K9.lstm_stacked_backward_reference(args, *cots, closure=True), 1)
+        plain_bwd_ms, want = plain_time(
+            K9.lstm_stacked_backward_reference(args, *cots, closure=True))
         grad_err, grad_rel = max_err(grads, want), rel_err(grads, want)
         del want
         out = K9.lstm_stacked_forward(args, True)
@@ -5423,17 +5478,90 @@ def attention_shape_case(K5, r, rng, dev, e, heads, bf16):
     return dict(**shape, **errs, **times, **bounds)
 
 
+def entry_point_case(tag, shape, kernels, mod, entry, plain, plain_bwd,
+                     args, cots, launches, bf16, mode_steps, tol=None,
+                     mode_frac=BF16_MODE_FRAC, library=None):
+    """The run phases 40 and 41 make of one shape of a recurrence's entry
+    point ``entry`` (flat outputs; ``kernels`` names its kernels in an
+    error): without a gradient, then with one and the backward, module
+    ``mod``'s counters move by exactly ``launches``;
+    against the plain version ``plain`` / ``plain_bwd`` of the mode (f32:
+    forward and gradient errors; bf16: ``bf16_check`` over the full
+    length within ``tol``, the distance test over the first
+    ``mode_steps`` steps within ``mode_frac``); the entry point's ms (forward without a
+    gradient, with one, forward plus backward), the plain version's and
+    ``library``'s (args, cots, dtype -> forward and backward ms) where
+    given. Returns the errors, the times, the bytes the forward and the
+    backward read and write, and whether the outputs without a gradient
+    are the bits of those with one."""
+    wt = torch.bfloat16 if bf16 else torch.float32
+    read = lambda: {k: getattr(mod, COUNTERS[k][1]) for k in launches}  # noqa
+    before = read()
+    with torch.no_grad():
+        outs0 = entry(*args)
+    leaves = [a.clone().requires_grad_() for a in args]
+    outs = entry(*leaves)
+    grads = torch.autograd.grad(outs, leaves, cots)
+    outs = tuple(o.detach() for o in outs)
+    got = {k: v - before[k] for k, v in read().items()}
+    if got != launches:
+        raise AssertionError(f"{tag} {shape}: launches {got} ({kernels})")
+    with torch.no_grad():
+        plain_fwd_ms, want = plain_time(lambda: plain(*args))
+    plain_bwd_ms, want_grads = plain_time(plain_bwd(args, *cots, closure=True))
+    if bf16:
+        with torch.no_grad():
+            ys32 = plain(*[a.float() for a in args])[0]
+        errs = bf16_check(tag, outs0 + outs, grads, want * 2, want_grads,
+                          (ys32,), short=False, tol=tol,
+                          mode_frac=mode_frac, mode_steps=mode_steps,
+                          **shape)
+        del ys32
+    else:
+        errs = dict(fwd_max_abs_err=max_err(outs0 + outs, want * 2),
+                    grad_max_abs_err=max_err(grads, want_grads),
+                    grad_max_rel_err=rel_err(grads, want_grads))
+    del want, want_grads
+
+    def pair():
+        lv = [a.clone().requires_grad_() for a in args]
+        return torch.autograd.grad(entry(*lv), lv, cots)
+
+    with torch.no_grad():
+        fwd_ms, _ = cuda_ms(lambda: entry(*args), 3)
+    fwd_res_ms, _ = cuda_ms(lambda: entry(*leaves), 3)
+    pair_ms, _ = cuda_ms(pair, 3)
+    times = dict(fwd_ms=fwd_ms, fwd_res_ms=fwd_res_ms,
+                 bwd_ms=pair_ms - fwd_res_ms, train_pair_ms=pair_ms,
+                 fwd_us_per_step=fwd_res_ms * 1e3 / args[0].shape[1],
+                 plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms)
+    if library is not None:
+        times["library_fwd_ms"], times["library_bwd_ms"] = library(
+            args, cots, wt)
+    return (errs, times, nbytes(args, outs), nbytes(args, outs, cots, grads),
+            same_bits(outs0, outs))
+
+
+def shape_case_record(tag, bf16, errs, times, bounds, **info):
+    """Logs one case of phases 40 and 41 (f32: ``check_case``'s gates) and
+    returns its record."""
+    if not bf16:
+        check_case(tag, errs["fwd_max_abs_err"], errs["grad_max_rel_err"],
+                   **info, **times,
+                   **{k_: v_[0] for k_, v_ in bounds.items()})
+    else:
+        log(tag, **info, **fmt(times),
+            **{k_: round(v_[0], 4) for k_, v_ in bounds.items()})
+    return dict(**info, **errs, **times, **bounds)
+
+
 def recurrence_shape_case(kind, mod, r, dev, b, t, h, bf16, layers=2):
     """Phase 40, one shape of K10 (``kind`` "gru"), K8 ("lstm") or K9's
-    layer route ("stacked", ``layers`` deep), f32 or bf16 W: the entry
-    point as the model calls it (the forward without a gradient, then
-    with one and the backward: launches exact; a hidden size the kernels
-    are not built for runs padded), against the plain version of the
-    mode (f32: ``check_case``; bf16: ``bf16_check`` over the full length,
-    the distance test over the first ``BF16_RECURRENCE_MODE_STEPS``
-    steps); the entry point's ms (forward without a gradient, with one,
-    and forward plus backward), the plain version's, cuDNN's in the same
-    dtype; the bounds at the real H and at the H the kernels run."""
+    layer route ("stacked", ``layers`` deep), f32 or bf16 W, through
+    ``entry_point_case`` (launches +2 / +1; a hidden size the kernels are
+    not built for runs padded; bf16: the distance test over the first
+    ``BF16_RECURRENCE_MODE_STEPS`` steps; cuDNN in the same dtype); the
+    bounds at the real H and at the H the kernels run."""
     from multimodalreactiongeneration_tpu_torch.ops.hidden_pad import (
         padded_hidden,
     )
@@ -5475,55 +5603,19 @@ def recurrence_shape_case(kind, mod, r, dev, b, t, h, bf16, layers=2):
         keys = tuple(k.replace("_fwd", "_bf16_fwd").replace(
             "_bwd", "_bf16_bwd") for k in keys)
     modk = {"gru": "K10", "lstm": "K8", "stacked": "K9"}[kind]
-    read = lambda: {n: getattr(mod, COUNTERS[n][1]) for n in keys}
-    before = read()
-    with torch.no_grad():
-        outs0 = entry(*args)
-    leaves = [a.clone().requires_grad_() for a in args]
-    outs = entry(*leaves)
-    grads = torch.autograd.grad(outs, leaves, cots)
-    outs = tuple(o.detach() for o in outs)
-    got = {n: v - before[n] for n, v in read().items()}
-    if got != {keys[0]: 2, keys[1]: 1}:
-        raise AssertionError(f"{kind} B{b} T{t} H{h}: launches {got} "
-                             f"({modk})")
     tag = f"{kind}_shapes" + ("_bf16" if bf16 else "")
     shape = dict(B=b, T=t, H=h, H_run=hp, **(
         dict(L=layers, route=mod.route(layers, h)) if kind == "stacked"
         else {}))
-    with torch.no_grad():
-        plain_fwd_ms, want = cuda_ms(lambda: plain(*args), 1)
-    plain_bwd_ms, want_grads = cuda_ms(plain_bwd(args, *cots, closure=True),
-                                       1)
-    if bf16:
-        with torch.no_grad():
-            ys32 = plain(*[a.float() for a in args])[0]
-        errs = bf16_check(tag, outs0 + outs, grads, want * 2, want_grads,
-                          (ys32,), short=False,
-                          mode_steps=BF16_RECURRENCE_MODE_STEPS, **shape)
-        del ys32
-    else:
-        errs = dict(fwd_max_abs_err=max_err(outs0 + outs, want * 2),
-                    grad_max_abs_err=max_err(grads, want_grads),
-                    grad_max_rel_err=rel_err(grads, want_grads))
-    del want, want_grads
-
-    def pair():
-        lv = [a.clone().requires_grad_() for a in args]
-        return torch.autograd.grad(entry(*lv), lv, cots)
-
-    with torch.no_grad():
-        fwd_ms, _ = cuda_ms(lambda: entry(*args), 3)
-    fwd_res_ms, _ = cuda_ms(lambda: entry(*leaves), 3)
-    pair_ms, _ = cuda_ms(pair, 3)
-    lib_fwd_ms, lib_bwd_ms = lib(args, cots, wt)
+    errs, times, fwd_bytes, bwd_bytes, _ = entry_point_case(
+        tag, shape, modk, mod, entry, plain, plain_bwd, args, cots,
+        {keys[0]: 2, keys[1]: 1}, bf16, BF16_RECURRENCE_MODE_STEPS,
+        library=lib)
     # the chains' products h W_hh (and, stacked, h W_ih of the layers
     # above the first): 2 B T gH H each, forward; the backward twice that
     # (its carry product and the weight reductions); 3xTF32 in the f32
     # mode, bf16 in the bf16 mode; the bytes of every input and output
     flops = 2 * b * t * g * h * h * nmat
-    fwd_bytes, bwd_bytes = nbytes(args, outs), nbytes(args, outs, cots,
-                                                      grads)
 
     def at(n, bytes_):
         if bf16:
@@ -5536,20 +5628,7 @@ def recurrence_shape_case(kind, mod, r, dev, b, t, h, bf16, layers=2):
                   fwd_run_bound=at(flops * grow * grow, fwd_bytes * grow),
                   bwd_run_bound=at(2 * flops * grow * grow,
                                    bwd_bytes * grow))
-    times = dict(fwd_ms=fwd_ms, fwd_res_ms=fwd_res_ms,
-                 bwd_ms=pair_ms - fwd_res_ms, train_pair_ms=pair_ms,
-                 fwd_us_per_step=fwd_res_ms * 1e3 / t,
-                 plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
-                 library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms)
-    del outs0, outs, grads, leaves, args, cots
-    if not bf16:
-        check_case(tag, errs["fwd_max_abs_err"], errs["grad_max_rel_err"],
-                   **shape, **times,
-                   **{k_: v_[0] for k_, v_ in bounds.items()})
-    else:
-        log(tag, **shape, **fmt(times),
-            **{k_: round(v_[0], 4) for k_, v_ in bounds.items()})
-    return dict(**shape, **errs, **times, **bounds)
+    return shape_case_record(tag, bf16, errs, times, bounds, **shape)
 
 
 def kernel_shapes_phase(mods, dev, rng):
@@ -5742,6 +5821,293 @@ def shape_records(kernels, launches):
     return out
 
 
+
+# ---- 41. the encoder stack at every H to 512, K7 at 384 and 512 ----------
+
+def stack_shape_case(K1, r, b, t, h, bf16, layers=5):
+    """Phase 41, one width of the encoder stack, f32 or bf16 weights,
+    through ``entry_point_case``: without a gradient K1, with one K3 then
+    K4, each +1 (a width the kernels are not built for runs padded,
+    ``stack_hidden``), K1's outputs the training forward's bits; the plain
+    version at the real width, bf16 within ``BF16_FULL_TOL`` and the
+    distance test over the first ``BF16_MODE_STEPS`` steps (within
+    ``BF16_WIDE_MODE_FRAC`` past H 256); the bounds at
+    the real H and at the H the kernels run (products: 18 L B T H^2
+    forward; the backward's FP32 chain 8 L B T H^2 and 3xTF32 products 28
+    L B T H^2, in the bf16 mode 36 L B T H^2 at 989 TFLOP/s); the layout
+    (CTAs a cluster, the rows or gate columns of W_hh a chain CTA keeps in
+    shared memory)."""
+    n = layers
+    wt = torch.bfloat16 if bf16 else torch.float32
+    args = (r(b, t, h), r(n, h, 4 * h, s=0.06).to(wt), r(n, 4 * h, s=0.06),
+            r(n, h, 4 * h, s=0.06).to(wt), r(n, h, h, s=0.06).to(wt),
+            r(n, h, s=0.1), r(n, h, s=0.1, mean=1.0), r(n, h, s=0.1),
+            r(n, h, s=0.1, mean=1.0), r(n, h, s=0.1), r(n, b, h, s=0.3),
+            r(n, b, h, s=0.3))
+    cots = (r(b, t, h), r(n, b, h), r(n, b, h))
+    keys = (("mixer_stack_bf16", "mixer_stack_bf16_train_fwd",
+             "mixer_stack_bf16_bwd") if bf16 else
+            ("mixer_stack", "mixer_stack_train_fwd", "mixer_stack_bwd"))
+    tag = "mixer_stack_widths" + ("_bf16" if bf16 else "")
+    hp = K1.stack_hidden(h)
+    shape = dict(B=b, T=t, L=n, H=h, H_run=hp)
+    errs, times, fwd_bytes, bwd_bytes, bits = entry_point_case(
+        tag, shape, "K1/K3/K4", K1, flat(K1.mixer_stack_recurrence),
+        flat(K1.mixer_stack_forward_reference),
+        K1.mixer_stack_backward_reference, args, cots,
+        {k: 1 for k in keys}, bf16, BF16_MODE_STEPS, tol=BF16_FULL_TOL,
+        mode_frac=BF16_WIDE_MODE_FRAC if h > 256 else BF16_MODE_FRAC)
+    if not bits:
+        raise AssertionError(f"{tag} {shape}: K1's outputs differ from the "
+                             "training forward's")
+    grow = hp / h
+
+    def at(f, bytes_, backward):
+        f *= grow * grow
+        if bf16:
+            return bound_bf16((36 if backward else 18) * f, bytes_)
+        if backward:
+            return bound(8 * f, bytes_, tf32x3_flops=28 * f)
+        return bound(18 * f, bytes_)
+
+    f = n * b * t * h * h
+    bounds = dict(fwd_bound=at(f / grow ** 2, fwd_bytes, False),
+                  bwd_bound=at(f / grow ** 2, bwd_bytes, True),
+                  fwd_run_bound=at(f, fwd_bytes * grow, False),
+                  bwd_run_bound=at(f, bwd_bytes * grow, True))
+    lay = dict(cluster_ctas=K1.launch_ctas(hp),
+               kept_rows_fwd=K1.kept(hp, False, bf16),
+               kept_columns_bwd=K1.kept(hp, True, bf16),
+               resident_clusters=K1.resident_clusters(hp),
+               chunk=K1.chunk_steps(b, t, hp, n),
+               bwd_chunk=K1.backward_chunk_steps(b, t, hp, n),
+               k1_bits_equal_k3=bits)
+    return shape_case_record(tag, bf16, errs, times, bounds, **shape, **lay)
+
+
+def wide_lstm_layer_case(K7, r, dev, b, t, h, bf16):
+    """Phase 41, K7 at H 384 or 512 (din = H, the flagship's block LSTMs
+    at that width), f32 or bf16, through ``entry_point_case`` (launches +2
+    / +1; bf16: the distance test over the first
+    ``BF16_RECURRENCE_MODE_STEPS`` steps, as K8's; cuDNN's ``nn.LSTM`` in
+    the same dtype); the bounds (products 2 B T 4H (din + H) forward;
+    backward the FP32 chain 2 B T 4H H and the 3xTF32 dW_ih, dW_hh and dx
+    2 B T 4H (2 din + H), in the bf16 mode all at 989 TFLOP/s); the rows a
+    cluster and what a CTA keeps of W_hh."""
+    wt = torch.bfloat16 if bf16 else torch.float32
+    din = h
+    args = (r(b, t, din).to(wt), r(din, 4 * h, s=0.06).to(wt),
+            r(4 * h, s=0.06), r(h, 4 * h, s=0.06).to(wt), r(b, h, s=0.3),
+            r(b, h, s=0.3))
+    cots = (r(b, t, h), r(b, h), r(b, h))
+    keys = (("lstm_layer_bf16_fwd", "lstm_layer_bf16_bwd") if bf16 else
+            ("lstm_layer_fwd", "lstm_layer_bwd"))
+    tag = "lstm_layer_wide" + ("_bf16" if bf16 else "")
+    shape = dict(B=b, T=t, din=din, H=h)
+    errs, times, fwd_bytes, bwd_bytes, _ = entry_point_case(
+        tag, shape, "K7", K7, flat(K7.lstm_layer),
+        flat(K7.lstm_layer_reference), K7.lstm_layer_backward_reference,
+        args, cots, {keys[0]: 2, keys[1]: 1}, bf16,
+        BF16_RECURRENCE_MODE_STEPS, library=cudnn_lstm_ms)
+    fwd_f, chain_f = 8 * b * t * h * (din + h), 8 * b * t * h * h
+    prod_f = 8 * b * t * h * (2 * din + h)
+    if bf16:
+        bounds = dict(fwd_bound=bound_bf16(fwd_f, fwd_bytes),
+                      bwd_bound=bound_bf16(chain_f + prod_f, bwd_bytes))
+    else:
+        bounds = dict(fwd_bound=bound(fwd_f, fwd_bytes),
+                      bwd_bound=bound(chain_f, bwd_bytes,
+                                      tf32x3_flops=prod_f))
+    rows = tuple(K7.rows_for(dev, h, bw, b, bf16) for bw in (False, True))
+    lay = dict(rows=rows, cluster_ctas=K7.launch_ctas(h),
+               kept=tuple(K7.kept(h, bw, r_, bf16)
+                          for bw, r_ in zip((False, True), rows)))
+    return shape_case_record(tag, bf16, errs, times, bounds, **shape, **lay)
+
+
+def stack_kernel_phase(mods, dev, rng):
+    """41a. The encoder stack's kernels at ``STACK_SHAPE_HIDDEN`` (100 runs
+    padded to 128; 192 on 8-CTA clusters; 384 and 512 on 16-CTA ones, FP32
+    at 512 reading part of W_hh from L2) at the motion encoder's B32 x
+    L5 x T252, and K7 at 384 and 512 at the flagship's B32 x T252, f32
+    and bf16. Returns {kernel: [cases]}."""
+    r = seeded(rng, dev)
+    out = {}
+    t = LEAD + TRAIN_FRAMES
+    for bf16 in (False, True):
+        sfx = "_bf16" if bf16 else ""
+        out["mixer_stack" + sfx] = [
+            stack_shape_case(mods["K1"], r, TRAIN_B, t, h, bf16)
+            for h in STACK_SHAPE_HIDDEN]
+        out["lstm_layer" + sfx] = [
+            wide_lstm_layer_case(mods["K7"], r, dev, TRAIN_B, t, h, bf16)
+            for h in (384, 512)]
+    return out
+
+
+def stack_model_specs():
+    """41b. The flagship (``configs/lstmformer.yaml``) at hidden 192 and
+    512 through the step functions: ``SHAPE_STEPS`` f32 steps (K3 +2 /
+    K4 +2 a step, the two encoders; the five block LSTMs on K8 at 192,
+    K7 at 512, +5 / +5; K5 / K6 +10 / +10), eval, the card against CPU
+    tensors at B2 x T48 within phase 8's bounds; one bf16 step each
+    (the stack's and K8's or K7's bf16 modes +2 / +2 and +5 / +5, K5 / K6
+    +2 / +2 in bf16 and +8 / +8 in f32), timed with its launches (its
+    card-against-CPU check is phase 31's, at hidden 256)."""
+    from multimodalreactiongeneration_tpu_torch import configs
+
+    specs = []
+    for h in (192, 512):
+        cfg = dict(configs.LSTMFORMER_MODEL_CFG, hidden_size=h)
+        k8 = h % 128 != 0  # JAX routes unaligned sizes to K8
+        block = "lstm_recurrence" if k8 else "lstm_layer"
+        step = dict(metaformer_train_spec(), cfg=cfg,
+                    tag=f"flagship_h{h}_train_step",
+                    eval_tag=f"flagship_h{h}_eval_step", profile=None,
+                    stack_ab=False, steps=SHAPE_STEPS)
+        step["per_step"] = dict(step["per_step_off" if k8 else "per_step"])
+        step["per_eval"] = dict(mixer_stack=2, rect_attention_fwd=10,
+                                **{f"{block}_fwd": 5})
+        half = dict(metaformer_bf16_train_spec(), cfg=cfg,
+                    tag=f"flagship_h{h}_bf16_train_step",
+                    eval_tag=f"flagship_h{h}_bf16_eval_step", profile=None,
+                    stack_ab=False, steps=1, per_eval=step["per_eval"],
+                    card_vs_cpu=False)
+        half["per_step"] = dict(half["per_step_off" if k8 else "per_step"])
+        specs.append((f"flagship_h{h}", step, half))
+    return specs
+
+
+def stack_bf16_forward(mods, dev, rng, h):
+    """41d. The flagship at hidden ``h`` without gradient on bf16
+    parameters and inputs (JAX's ``model.apply`` on ``_cast_tree(params,
+    bf16)``) at B16 x 250, the path of K1's bf16 mode: launches exact (K1
+    bf16 +2, the audio and partner-motion encoders; the five block LSTMs'
+    bf16 mode +5, K8 at unaligned h, K7 at 128 multiples; K5 bf16 +2 and
+    f32 +8), finite f32 output, ms; at B2 x 48 against CPU tensors within
+    phase 33's bounds (``bf16_forward_check``)."""
+    from multimodalreactiongeneration_tpu_torch import configs
+
+    bf = torch.bfloat16
+    cfg = dict(configs.LSTMFORMER_MODEL_CFG, hidden_size=h)
+    tag = f"flagship_h{h}_bf16_forward"
+    block = "lstm_recurrence_bf16_fwd" if h % 128 else "lstm_layer_bf16_fwd"
+    model = flagship(cfg, dev).to(bf)
+    ins16 = [x.to(dev).to(bf) for x in make_batch(rng, B)[:6]]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        before = counts(mods)
+        y = model(*ins16)[0]
+        torch.cuda.synchronize()
+        launches = check_launches(
+            tag, before, counts(mods), mixer_stack_bf16=2, **{block: 5},
+            rect_attention_bf16_fwd=2, rect_attention_fwd=8)
+        if not bool(torch.isfinite(y).all()) or y.dtype != torch.float32:
+            raise AssertionError(f"{tag}: {y.dtype}, finite "
+                                 f"{bool(torch.isfinite(y).all())}")
+        ms, _ = cuda_ms(lambda: model(*ins16), 3)
+        small = make_batch(rng, BF16_FWD_BATCH, frames=BF16_FWD_FRAMES)[:6]
+        cpu16 = flagship(cfg, "cpu").to(bf)
+        forward = bf16_forward_check(
+            tag, model(*[x.to(dev).to(bf) for x in small])[0],
+            cpu16(*[x.to(bf) for x in small])[0],
+            flagship(cfg, "cpu")(*small)[0])
+    log(tag, B=B, frames=FRAMES, ms=f"{ms:.3f}",
+        launches={k: v for k, v in launches.items() if v})
+    return {"launches": launches,
+            "record": dict(batch=B, frames=FRAMES, ms=ms, **forward)}
+
+
+def stack_generation_spec():
+    """41c. One generation of the flagship at hidden 192 (B16 x 250, bf16
+    caches, ``fused_rollout="auto"``: K2's contract is hidden 256, so the
+    module loop): K1 +2 (the hoisted audio and partner-motion encoders),
+    then the teacher-forced f32 generation at B2 against CPU tensors."""
+    from multimodalreactiongeneration_tpu_torch import configs
+    from multimodalreactiongeneration_tpu_torch.infer.generate import (
+        generate_metaformer,
+    )
+    from multimodalreactiongeneration_tpu_torch.models.lstmformer import (
+        Metaformer,
+    )
+
+    cfg = dict(configs.LSTMFORMER_MODEL_CFG, hidden_size=192)
+    return dict(
+        tag="flagship_h192", generate=generate_metaformer, batches=1,
+        per_generation=dict(mixer_stack=2),
+        f32=dict(cache_dtype=torch.float32),
+        model=lambda device: Metaformer(
+            cfg, generator=torch.Generator().manual_seed(SEED),
+            device=device))
+
+
+def stack_shape_phases(mods, dev, kernels=True, models=True):
+    """41. The encoder stack at every hidden size to 512 and K7 at 384
+    and 512 (generators ``SEED + 41``, one for the kernels and one for the
+    models): with ``kernels`` 41a, with ``models`` 41b to 41d. Returns
+    the kernel cases ({} without ``kernels``), the model runs' launches
+    and their records."""
+    cases = (stack_kernel_phase(mods, dev, np.random.default_rng(SEED + 41))
+             if kernels else {})
+    rng = np.random.default_rng(SEED + 41)
+    launches = {k: 0 for k in COUNTERS}
+    records = {}
+    runs = []
+    if models:
+        runs = [(spec["tag"], lambda s=spec: train_path_phase(mods, dev, rng,
+                                                              s))
+                for _, step, half in stack_model_specs()
+                for spec in (step, half)]
+        spec = stack_generation_spec()
+        runs.append((f"{spec['tag']}_generation",
+                     lambda s=spec: generation_phase(mods, dev, rng, s)))
+        runs += [(f"flagship_h{h}_bf16_forward",
+                  lambda h=h: stack_bf16_forward(mods, dev, rng, h))
+                 for h in (192, 512)]
+    for tag, run in runs:
+        out = run()
+        records[tag] = out["record"]
+        for k, v in out["launches"].items():
+            launches[k] += v
+    return cases, launches, records
+
+
+def stack_shape_records(kernels, launches):
+    """The JSON entries of phase 41: K1 (no gradient), K3, K4 and K7's
+    forward and backward in each mode over the new widths (the first
+    case the main one: H 100 for the stack, 384 for K7), launches from
+    the phase's model runs; cuDNN the yardstick of K7, none of the
+    stack."""
+    out = []
+    for key, cases in kernels.items():
+        mode = "_bf16" if key.endswith("_bf16") else ""
+        stem = key[:-len(mode)] if mode else key
+        main = cases[0]
+        if stem == "mixer_stack":
+            names = (f"mixer_stack{mode}", f"mixer_stack{mode}_train_fwd",
+                     f"mixer_stack{mode}_bwd")
+            ways = (("fwd_ms", "fwd", "pallas_mixer_stack.py:215", names[0]),
+                    ("fwd_res_ms", "fwd", "pallas_mixer_stack.py:110",
+                     names[1]),
+                    ("bwd_ms", "bwd", "pallas_mixer_stack.py:297", names[2]))
+            src, lib = "mixer_stack.cu", False
+        else:
+            ways = (("fwd_res_ms", "fwd", "pallas_lstm.py:390",
+                     f"lstm_layer{mode}_fwd"),
+                    ("bwd_ms", "bwd", "pallas_lstm.py:448",
+                     f"lstm_layer{mode}_bwd"))
+            src, lib = "lstm_layer.cu", True
+        for ms_key, way, at, counter in ways:
+            err = (max(c["fwd_max_abs_err"] for c in cases) if way == "fwd"
+                   else max(c["grad_max_abs_err"] for c in cases))
+            out.append(kernel_record(
+                f"{counter}_wide_shapes", src, at, launches[counter], err,
+                main[ms_key], main[f"plain_{way}_ms"], main[f"{way}_bound"],
+                main[f"library_{way}_ms"] if lib else None,
+                cases=cases if ms_key == ways[0][0] else None))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; nothing was run")
@@ -5833,8 +6199,8 @@ def main():
             y, (hn, cn) = k1(chosen)
             yw, (hnw, cnw) = k1(t)
             bitwise = same_bits((y, hn, cn), (yw, hnw, cnw))
-            plain_ms, (yr, (hr, cr)) = cuda_ms(
-                lambda: K1.mixer_stack_forward_reference(*args), 1)
+            plain_ms, (yr, (hr, cr)) = plain_time(
+                lambda: K1.mixer_stack_forward_reference(*args))
         err = max_err((y, hn, cn), (yr, hr, cr))
         rows, resident = K1.ROWS, K1.resident_clusters(hid)
         log("mixer_stack", T=t, chunk=chosen, rows=rows,
@@ -5869,8 +6235,8 @@ def main():
             rollout[dt] = G._fused_rollout_args(
                 model, states, ea, em, ms_, teacher, dt, la, lm)
         a32, kw = rollout[torch.float32]
-        plain_ms, ref = cuda_ms(
-            lambda: K2.decode_rollout_reference(*a32, **kw), 1)
+        plain_ms, ref = plain_time(
+            lambda: K2.decode_rollout_reference(*a32, **kw))
         k2_cases = []
         # the plain version's matrix products count the work (the same
         # products in both cache dtypes)
@@ -5881,8 +6247,8 @@ def main():
             ms, out = cuda_ms(lambda: K2.decode_rollout(*a, **kw_dt), 3)
             case = {}
             if dt == torch.bfloat16:
-                plain_bf16_ms, ref_bf16 = cuda_ms(
-                    lambda: K2.decode_rollout_reference(*a, **kw_dt), 1)
+                plain_bf16_ms, ref_bf16 = plain_time(
+                    lambda: K2.decode_rollout_reference(*a, **kw_dt))
                 # same numerics on both sides: reported, not gated
                 case["max_abs_err_vs_plain_bf16"] = max_err((out,), (ref_bf16,))
             err = max_err((out,), (ref,))
@@ -6091,6 +6457,11 @@ def main():
     shape_kernels, shape_launches, shape_runs = shape_phases(mods, dev)
     log("shapes", seconds=f"{time.perf_counter() - t0:.1f}")
 
+    # ---- 41. the encoder stack at every H to 512, K7 at 384 and 512 -----
+    t0 = time.perf_counter()
+    stack_kernels, stack_launches, stack_runs = stack_shape_phases(mods, dev)
+    log("stack_shapes", seconds=f"{time.perf_counter() - t0:.1f}")
+
     k1_main, k2_main = k1_cases[0], k2_cases[1]
     # no single PyTorch call computes the encoder stack or the rollout
     record = {"kernels": [
@@ -6147,6 +6518,7 @@ def main():
             kinds["inner2_bf16"]["launches"],
             generation=kinds["inner2"]["generation_launches"]),
         *shape_records(shape_kernels, shape_launches),
+        *stack_shape_records(stack_kernels, stack_launches),
     ], "generation": {"batch": B, "frames": FRAMES, "ms": gen_ms,
                       "frames_per_s": B * FRAMES / (gen_ms / 1000),
                       "stack_schedule_ab": {"ms": gen_ab,
@@ -6193,6 +6565,7 @@ def main():
                                    if n in v})
                         for k, v in kinds.items()},
         "corpus_pipeline": corpus_pipeline, "shapes": shape_runs,
+        "stack_shapes": stack_runs,
         "seconds": time.perf_counter() - t_start}
     options = dict(options, dropout_cli=dropout_cli, lws_ss_cli=lws_ss_cli)
     for entry in record["kernels"]:  # the training options' launches

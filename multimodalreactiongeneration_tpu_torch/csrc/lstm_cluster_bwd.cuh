@@ -16,14 +16,15 @@
 //   dgates = [dc*g*i(1-i), dc*c_{t-1}*f(1-f), dc*i*(1-g^2), dh*tanh(c_t)*o(1-o)]
 //   dc_carry = dc * f,          dh_carry = dgates @ W_hh      (W_hh = w_hh_t^T)
 // with c_{-1} = c0. The chain is dh_carry: an (R x 4H) @ (4H x H) product
-// per step, R the batch rows per cluster. As in the forward, a cluster of 8 CTAs splits W_hh: CTA r
-// keeps the 4H/8 gate columns of hidden units [r*H/8, (r+1)*H/8), now
+// per step, R the batch rows per cluster. As in the forward, a cluster of
+// CL CTAs (8, or 16 past H 256) splits W_hh: CTA r
+// keeps the 4H/CL gate columns of hidden units [r*H/CL, (r+1)*H/CL), now
 // transposed (column-major over k, so thread k reads without bank
 // conflicts), and computes those columns' dgates. Its product with its
 // W_hh slice is a PARTIAL dh_carry over all H units; each CTA needs only
 // its own units' sum, so every CTA writes its partial for CTA q's units
-// into q's shared memory (slot r of 8) and after one cluster barrier sums
-// the 8 slots. The slots are double-buffered by step parity, so the
+// into q's shared memory (slot r of CL) and after one cluster barrier
+// sums the CL slots. The slots are double-buffered by step parity, so the
 // barrier of step t also orders step t-1's writes after step t's reads.
 // A step's dy, gate activations and cell states come from device memory
 // a step ahead (StepIn), so their latency is off the chain.
@@ -32,8 +33,8 @@
 // the weight gradients and dx are then parallel products over all rows
 // (below). The encoder stack's chunks (mixer_stack.cu) run windows of the
 // (B, T) residual planes, read dy and write dgates in (B, n) chunk
-// buffers, and hand dh_carry to the next window as its 8 unsummed slots
-// (CL, B, H): the next window sums dy + slot 0 + ... + slot 7 in the
+// buffers, and hand dh_carry to the next window as its CL unsummed slots
+// (CL, B, H): the next window sums dy + slot 0 + ... + slot CL-1 in the
 // order a step inside one window does, so every window length gives the
 // same bits.
 // The bf16 operand mode (TW = __nv_bfloat16, K7's bf16 instantiation)
@@ -54,12 +55,32 @@ constexpr size_t PART_FLOATS = (size_t)1 << 22;   // A^T B partial tiles
 constexpr size_t CPART_FLOATS = (size_t)1 << 18;  // column-sum partials
 constexpr int SPLIT_TARGET_BLOCKS = 1024;
 
-// R batch rows per cluster (16, 24 or 32); wbytes: bytes of a weight
-size_t lstm_bwd_smem_bytes(int H, int R, int wbytes = 4) {
-  const int nc = H / 2;
-  const int u = H / CL;
-  return (size_t)wbytes * nc * H +
-         sizeof(float) * ((size_t)nc * R + 2 * (size_t)CL * R * u);
+// w (N, M) = a (M, N)^T, row-major: W_hh^T (H, 4H) into W_hh (4H, H), the
+// layout the reverse chain reads the gate columns it keeps in device
+// memory in (consecutive units at consecutive addresses)
+template <typename T>
+__global__ void __launch_bounds__(256) transpose_kernel(
+    const T* __restrict__ a, T* __restrict__ w, int M, int N) {
+  __shared__ T tile[32][33];
+  const int x = blockIdx.x * 32 + threadIdx.x % 32;
+  const int y0 = blockIdx.y * 32 + threadIdx.x / 32;
+  for (int y = y0; y < blockIdx.y * 32 + 32; y += 8)
+    if (y < M && x < N) tile[y % 32][threadIdx.x % 32] = a[(size_t)y * N + x];
+  __syncthreads();
+  const int xo = blockIdx.y * 32 + threadIdx.x % 32;
+  const int yo0 = blockIdx.x * 32 + threadIdx.x / 32;
+  for (int y = yo0; y < blockIdx.x * 32 + 32; y += 8)
+    if (y < N && xo < M) w[(size_t)y * M + xo] = tile[threadIdx.x % 32][y % 32];
+}
+
+template <typename T>
+int transpose(const T* a, T* w, int M, int N, cudaStream_t stream) {
+  // moved as bits (FP32 or bf16)
+  using Bits = std::conditional_t<sizeof(T) == 4, uint32_t, uint16_t>;
+  const dim3 grid((N + 31) / 32, (M + 31) / 32);
+  transpose_kernel<Bits><<<grid, 256, 0, stream>>>(
+      reinterpret_cast<const Bits*>(a), reinterpret_cast<Bits*>(w), M, N);
+  return (int)cudaGetLastError();
 }
 
 // What a reverse step of one (row, unit) cell reads besides the chain:
@@ -103,16 +124,21 @@ __device__ __forceinline__ void cell_bwd(const StepIn& in, float dh,
   dcreg = dc * af;
 }
 
-// R batch rows per cluster; each thread owns up to R/8 (row, unit) cells
-// (H <= 256), and threads k < H compute the partial dh_carry of unit k
-// for all R rows. Runs steps t0+n-1 down to t0 of the (B, T) planes acts
-// and cs (the whole sequence, K7: t0 = 0, n = T). dys (B, n, H)
-// and dgates (B, n, 4H) are laid out by the steps run. The state after
-// the steps run is dhn, dcn (B, H), or with dhn_parts (CL, B, H) not null
+// R batch rows per cluster of CLN CTAs; each thread owns up to R/8 (row,
+// unit) cells (U <= 32), and thread k (and k + 256 from H 257 on)
+// computes the partial dh_carry of unit k for all R rows. The CTA keeps
+// its first ncs gate columns of W_hh in shared memory; with SPILL (only
+// the FP32 layouts past H 400 need it) it reads the others from w_hh
+// (4H, H), W_hh itself, in device memory each step (lstm_layout), and
+// without it ncs = 4U and w_hh is null. Runs steps t0+n-1 down
+// to t0 of the (B, T) planes acts and cs (the whole sequence, K7: t0 = 0,
+// n = T). dys (B, n, H) and dgates (B, n, 4H) are laid out by the steps
+// run. The state after the steps run is dhn, dcn (B, H), or with
+// dhn_parts (CLN, B, H) not null
 // the dh_carry slots of the window after; the state before them goes to
 // dh0, dc0, or its slots to dh0_parts where that is not null. TW: the
 // weights' type (bf16: the operand mode above).
-template <int R, typename TW = float>
+template <int R, int CLN = CL, typename TW = float, bool SPILL = false>
 __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
     const float* __restrict__ acts,    // (B, T, 4H) i, f, g, o
     const float* __restrict__ cs,      // (B, T, H) cell states
@@ -121,18 +147,21 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
     const TW* __restrict__ w_hh_t,     // (H, 4H)
     const float* __restrict__ dhn,     // (B, H)
     const float* __restrict__ dcn,     // (B, H)
-    const float* __restrict__ dhn_parts,  // (CL, B, H) or null
+    const float* __restrict__ dhn_parts,  // (CLN, B, H) or null
     float* __restrict__ dgates,        // (B, n, 4H)
     float* __restrict__ dh0,           // (B, H)
     float* __restrict__ dc0,           // (B, H)
-    float* __restrict__ dh0_parts,     // (CL, B, H) or null
-    int B, int T, int H, int t0, int n) {
+    float* __restrict__ dh0_parts,     // (CLN, B, H) or null
+    int B, int T, int H, int t0, int n,
+    const TW* __restrict__ w_hh,       // (4H, H) or null
+    int ncs) {
   constexpr int MC = R / 8;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int b0 = (blockIdx.x / CL) * R;
-  const int U = H / CL;
+  const int b0 = (blockIdx.x / CLN) * R;
+  const int U = H / CLN;
   const int NC = 4 * U;
+  const int kept = SPILL ? ncs : NC;  // gate columns in shared memory
   const int tid = threadIdx.x;
   const size_t G = 4 * (size_t)H;
   const size_t BH = (size_t)B * H;
@@ -140,16 +169,17 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
 
   extern __shared__ __align__(16) float smem[];
   // WsT[lc][k] = W_hh^T[k][col(lc)]
-  TW* WsT = reinterpret_cast<TW*>(smem);               // [NC][H]
-  float* dg = reinterpret_cast<float*>(WsT + NC * H);  // [NC][R] dgates
+  TW* WsT = reinterpret_cast<TW*>(smem);                 // [kept][H]
+  float* dg = reinterpret_cast<float*>(WsT + kept * H);  // [NC][R] dgates
   // (as the product takes them: operand<TW>)
-  float* red = dg + NC * R;       // [2][CL][R][U] partial dh_carry slots
+  float* red = dg + NC * R;       // [2][CLN][R][U] partial dh_carry slots
   const int slot = R * U;
 
   for (int i = tid; i < H * NC; i += NT) {
     const int k = i / NC, lc = i % NC;
     const int g = lc / U, u = lc % U;
-    WsT[lc * H + k] = w_hh_t[(size_t)k * G + g * H + rank * U + u];
+    if (lc < kept)
+      WsT[lc * H + k] = w_hh_t[(size_t)k * G + g * H + rank * U + u];
   }
   float dcreg[MC];
   int own_r[MC], own_u[MC];
@@ -170,7 +200,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
   cluster.sync();  // every CTA of the cluster runs before remote writes
 
   for (int t = tl; t >= t0; --t) {
-    const float* rd = red + ((t + 1) & 1) * CL * slot;
+    const float* rd = red + ((t + 1) & 1) * CLN * slot;
 #pragma unroll
     for (int j = 0; j < MC; ++j)
       load_step_in(nxt[j], own_ok[j], dys, acts, cs, c0, b0 + own_r[j],
@@ -187,14 +217,14 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
         if (t == tl) {
           if (dhn_parts) {
 #pragma unroll
-            for (int s = 0; s < CL; ++s)
+            for (int s = 0; s < CLN; ++s)
               dh += dhn_parts[s * BH + (size_t)b * H + col];
           } else {
             dh += dhn[(size_t)b * H + col];
           }
         } else {
 #pragma unroll
-          for (int s = 0; s < CL; ++s) dh += rd[s * slot + r * U + u];
+          for (int s = 0; s < CLN; ++s) dh += rd[s * slot + r * U + u];
         }
         cell_bwd(cur[j], dh, dcreg[j], d);
         float* o = dgates + ((size_t)b * n + t - t0) * G + col;
@@ -208,12 +238,13 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
     }
     __syncthreads();
 
-    if (tid < H) {  // thread k: partial dh_carry[:, k] over this CTA's columns
+    // thread k: partial dh_carry[:, k] over this CTA's columns (with
+    // SPILL those in device memory first)
+    auto partial = [&](int k) {
       float acc[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = 0.f;
-      for (int lc = 0; lc < NC; ++lc) {
-        const float w = to_f(WsT[lc * H + tid]);
+      auto column = [&](int lc, float w) {
         const float4* d4 = reinterpret_cast<const float4*>(dg + lc * R);
 #pragma unroll
         for (int q = 0; q < R / 4; ++q) {
@@ -223,18 +254,30 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
           acc[4 * q + 2] = fmaf(v.z, w, acc[4 * q + 2]);
           acc[4 * q + 3] = fmaf(v.w, w, acc[4 * q + 3]);
         }
+      };
+      if constexpr (SPILL) {
+#pragma unroll 4
+        for (int lc = ncs; lc < NC; ++lc)
+          column(lc, to_f(w_hh[((size_t)(lc / U) * H + rank * U + lc % U) *
+                                   H + k]));
       }
-      float* dst = cluster.map_shared_rank(red, tid / U) +
-                   ((t & 1) * CL + rank) * slot + tid % U;
+      for (int lc = 0; lc < kept; ++lc) column(lc, to_f(WsT[lc * H + k]));
+      float* dst = cluster.map_shared_rank(red, k / U) +
+                   ((t & 1) * CLN + rank) * slot + k % U;
 #pragma unroll
       for (int r = 0; r < R; ++r) dst[r * U] = acc[r];
+    };
+    if constexpr (CLN == CL) {  // H <= 256 = NT: one unit a thread
+      if (tid < H) partial(tid);
+    } else {
+      for (int k = tid; k < H; k += NT) partial(k);
     }
     cluster.sync();
 #pragma unroll
     for (int j = 0; j < MC; ++j) cur[j] = nxt[j];
   }
 
-  const float* fin = red + (t0 & 1) * CL * slot;  // written at step t0
+  const float* fin = red + (t0 & 1) * CLN * slot;  // written at step t0
 #pragma unroll
   for (int j = 0; j < MC; ++j) {
     if (!own_ok[j]) continue;
@@ -242,12 +285,12 @@ __global__ void __launch_bounds__(NT, 1) lstm_cluster_bwd_kernel(
     const size_t o = (size_t)(b0 + r) * H + rank * U + u;
     if (dh0_parts) {
 #pragma unroll
-      for (int s = 0; s < CL; ++s)
+      for (int s = 0; s < CLN; ++s)
         dh0_parts[s * BH + o] = fin[s * slot + r * U + u];
     } else {
       float dh = 0.f;
 #pragma unroll
-      for (int s = 0; s < CL; ++s) dh += fin[s * slot + r * U + u];
+      for (int s = 0; s < CLN; ++s) dh += fin[s * slot + r * U + u];
       dh0[o] = dh;
     }
     dc0[o] = dcreg[j];
@@ -389,14 +432,17 @@ __global__ void __launch_bounds__(256) colsums_kernel(
 // statistics are recomputed from ra + rb as the forward computed them.
 // Also writes dout * xhat, the terms of the scale gradient, and (dcopy
 // not null) a copy of dout. Row r of dout, ra and rb is row md(r), ma(r)
-// and mb(r) of its plane; dr, prod and dcopy are dense (rows, H).
+// and mb(r) of its plane; dr, prod and dcopy are dense (rows, H). The
+// statistics and means run over the first Hr units (the real width of a
+// zero-padded stack); dr and prod are 0 past them.
 // ---------------------------------------------------------------------
+template <int V>  // units a lane holds: H <= 32 V
 __global__ void __launch_bounds__(256) ln_bwd_kernel(
     const float* __restrict__ dout, RowMap md, const float* __restrict__ ra,
     RowMap ma, const float* __restrict__ rb, RowMap mb,
     const float* __restrict__ g, float* __restrict__ dr,
-    float* __restrict__ prod, float* __restrict__ dcopy, int rows, int H) {
-  constexpr int V = MAX_H / 32;
+    float* __restrict__ prod, float* __restrict__ dcopy, int rows, int H,
+    int Hr) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
@@ -409,12 +455,14 @@ __global__ void __launch_bounds__(256) ln_bwd_kernel(
   for (int i = 0; i < V; ++i) {
     const int k = lane + 32 * i;
     rv[i] = dv[i] = ov[i] = 0.f;
-    if (k < H) {
+    if (k < Hr) {
       rv[i] = pa[k] + pb[k];
       ov[i] = pd[k];
       dv[i] = ov[i] * g[k];
       s += rv[i];
       ss += rv[i] * rv[i];
+    } else if (k < H) {
+      ov[i] = pd[k];
     }
   }
 #pragma unroll
@@ -422,12 +470,12 @@ __global__ void __launch_bounds__(256) ln_bwd_kernel(
     s += __shfl_xor_sync(0xffffffffu, s, o);
     ss += __shfl_xor_sync(0xffffffffu, ss, o);
   }
-  const float mu = s / H;
-  const float rstd = rsqrtf(ss / H - mu * mu + LN_EPS);
+  const float mu = s / Hr;
+  const float rstd = rsqrtf(ss / Hr - mu * mu + LN_EPS);
   float m1 = 0.f, m2 = 0.f;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
-    if (lane + 32 * i < H) {
+    if (lane + 32 * i < Hr) {
       rv[i] = (rv[i] - mu) * rstd;
       m1 += dv[i];
       m2 += dv[i] * rv[i];
@@ -438,17 +486,19 @@ __global__ void __launch_bounds__(256) ln_bwd_kernel(
     m1 += __shfl_xor_sync(0xffffffffu, m1, o);
     m2 += __shfl_xor_sync(0xffffffffu, m2, o);
   }
-  m1 /= H;
-  m2 /= H;
+  m1 /= Hr;
+  m2 /= Hr;
   const size_t base = (size_t)row * H;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     const int k = lane + 32 * i;
-    if (k < H) {
+    if (k < Hr) {
       dr[base + k] = rstd * (dv[i] - m1 - rv[i] * m2);
       prod[base + k] = ov[i] * rv[i];
-      if (dcopy) dcopy[base + k] = ov[i];
+    } else if (k < H) {
+      dr[base + k] = prod[base + k] = 0.f;
     }
+    if (dcopy && k < H) dcopy[base + k] = ov[i];
   }
 }
 
@@ -508,10 +558,15 @@ int colsum(const float* a, float* out, float* cpart, int R, int N,
 
 int ln_bwd(const float* dout, RowMap md, const float* ra, RowMap ma,
            const float* rb, RowMap mb, const float* g, float* dr,
-           float* prod, float* dcopy, int rows, int H, cudaStream_t stream) {
+           float* prod, float* dcopy, int rows, int H, int Hr,
+           cudaStream_t stream) {
   const unsigned blocks = (unsigned)(((size_t)rows * 32 + 255) / 256);
-  ln_bwd_kernel<<<blocks, 256, 0, stream>>>(dout, md, ra, ma, rb, mb, g, dr,
-                                            prod, dcopy, rows, H);
+  if (H > CL * MAX_U)
+    ln_bwd_kernel<MAX_H / 32><<<blocks, 256, 0, stream>>>(
+        dout, md, ra, ma, rb, mb, g, dr, prod, dcopy, rows, H, Hr);
+  else
+    ln_bwd_kernel<CL * MAX_U / 32><<<blocks, 256, 0, stream>>>(
+        dout, md, ra, ma, rb, mb, g, dr, prod, dcopy, rows, H, Hr);
   return check_launch();
 }
 

@@ -27,6 +27,13 @@
 // 3xTF32 (tc_gemm.cuh), dx = dgates W_ih the same product as one tiled
 // GEMM, db an FP32 column sum.
 //
+// Hidden sizes: 128 and 256 on 8-CTA clusters, 384 and 512 on 16-CTA
+// ones (the non-portable size; JAX routes 128-aligned sizes here). At 512
+// an FP32 CTA's W_hh slice (256 KB) does not fit its shared memory: at R
+// 16 it keeps what fits and reads the rest from L2 each step
+// (lstm_cluster.cuh lstm_layout); R 24 and 32 take only the sizes that
+// fit (H 384: R 24 f32, R 24 and 32 bf16).
+//
 // Rows per cluster. Both chains take R batch rows per cluster, R in
 // {16, 24, 32}, chosen by the wrapper: the smallest R whose ceil(B / R)
 // clusters the card holds at once (lstm_layer_resident_clusters). At H256
@@ -56,34 +63,63 @@
 namespace {
 
 template <typename TW>
-using LayerFwd = decltype(&lstm_cluster_kernel<BT, TW>);
+using LayerFwd = decltype(&lstm_cluster_kernel<BT, CL, TW>);
 template <typename TW>
-using LayerBwd = decltype(&lstm_cluster_bwd_kernel<BT, TW>);
+using LayerBwd = decltype(&lstm_cluster_bwd_kernel<BT, CL, TW>);
 
-template <typename TW>
-LayerFwd<TW> layer_fwd(int R) {
+template <int CLN, typename TW>
+LayerFwd<TW> layer_fwd_cl(int R) {
   switch (R) {
-    case 16: return lstm_cluster_kernel<16, TW>;
-    case 24: return lstm_cluster_kernel<24, TW>;
-    case 32: return lstm_cluster_kernel<32, TW>;
+    case 16: return lstm_cluster_kernel<16, CLN, TW>;
+    case 24: return lstm_cluster_kernel<24, CLN, TW>;
+    case 32: return lstm_cluster_kernel<32, CLN, TW>;
   }
   return nullptr;
 }
 
-template <typename TW>
-LayerBwd<TW> layer_bwd(int R) {
+template <int CLN, typename TW>
+LayerBwd<TW> layer_bwd_cl(int R) {
   switch (R) {
-    case 16: return lstm_cluster_bwd_kernel<16, TW>;
-    case 24: return lstm_cluster_bwd_kernel<24, TW>;
-    case 32: return lstm_cluster_bwd_kernel<32, TW>;
+    case 16: return lstm_cluster_bwd_kernel<16, CLN, TW>;
+    case 24: return lstm_cluster_bwd_kernel<24, CLN, TW>;
+    case 32: return lstm_cluster_bwd_kernel<32, CLN, TW>;
   }
   return nullptr;
 }
 
+// the chains at R rows on clusters of cl CTAs (cluster_for(H)); the
+// forward reads W_hh^T's rows past `kept` from device memory where there
+// are some (only FP32 at R 16 on 16-CTA clusters spills)
 template <typename TW>
-int resident(int H, int backward, int R, size_t smem) {
-  return backward ? resident_clusters(layer_bwd<TW>(R), smem)
-                  : resident_clusters(layer_fwd<TW>(R), smem);
+LayerFwd<TW> layer_fwd(int R, int cl, bool spill) {
+  if constexpr (std::is_same<TW, float>::value)
+    if (spill) return R == BT ? &lstm_cluster_kernel<BT, CL_WIDE, TW, true>
+                              : nullptr;
+  return cl > CL ? layer_fwd_cl<CL_WIDE, TW>(R) : layer_fwd_cl<CL, TW>(R);
+}
+template <typename TW>
+LayerBwd<TW> layer_bwd(int R, int cl, bool spill) {
+  if constexpr (std::is_same<TW, float>::value)
+    if (spill) return R == BT ? &lstm_cluster_bwd_kernel<BT, CL_WIDE, TW, true>
+                              : nullptr;
+  return cl > CL ? layer_bwd_cl<CL_WIDE, TW>(R) : layer_bwd_cl<CL, TW>(R);
+}
+
+// A chain CTA's layout: W_hh's slice spills to device memory (FP32 at R
+// 16 past H 400) only at R 16; a larger R whose slice does not fit is no
+// layout (its smem past the limit)
+ChainLayout layer_layout(int H, int R, int wbytes, int backward) {
+  return lstm_layout(H, R, wbytes, backward != 0, R == BT);
+}
+
+template <typename TW>
+int resident(int H, int backward, int R) {
+  const ChainLayout lay = layer_layout(H, R, sizeof(TW), backward);
+  return backward ? resident_clusters(
+                        layer_bwd<TW>(R, lay.cl, lay.kept < 4 * (H / lay.cl)),
+                        lay.smem, lay.cl)
+                  : resident_clusters(layer_fwd<TW>(R, lay.cl, lay.kept < H),
+                                      lay.smem, lay.cl);
 }
 
 template <typename TW>
@@ -91,12 +127,36 @@ int layer_forward(const float* xw, const TW* w_hh_t, const float* h0,
                   const float* c0, float* ys, float* hn, float* cn,
                   float* acts, float* cs, int B, int T, int H, int R,
                   void* stream_ptr) {
-  const LayerFwd<TW> kernel = layer_fwd<TW>(R);
-  if (!kernel || !hidden_ok(H) || B <= 0 || T <= 0)
-    return (int)cudaErrorInvalidValue;
-  return launch_cluster(kernel, lstm_smem_bytes(H, R, (int)sizeof(TW)), B, R,
-                        (cudaStream_t)stream_ptr, xw, w_hh_t, h0, c0, ys, hn,
-                        cn, acts, cs, B, T, H);
+  if (!hidden_ok(H) || B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  const ChainLayout lay = layer_layout(H, R, sizeof(TW), 0);
+  const LayerFwd<TW> kernel = layer_fwd<TW>(R, lay.cl, lay.kept < H);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  return launch_cluster_cl(kernel, lay.cl, lay.smem, B, R,
+                           (cudaStream_t)stream_ptr, xw, w_hh_t, h0, c0, ys,
+                           hn, cn, acts, cs, B, T, H, lay.kept);
+}
+
+// The reverse chain over the whole sequence into dgates (B, T, 4H); w_t
+// (4H, H) scratch for W_hh where the layout keeps gate columns in device
+// memory
+template <typename TW>
+int layer_chain_backward(const float* acts, const float* cs, const float* c0,
+                         const float* dys, const TW* w_hh_t, const float* dhn,
+                         const float* dcn, float* dgates, float* dh0,
+                         float* dc0, TW* w_t, int B, int T, int H, int R,
+                         cudaStream_t stream) {
+  const ChainLayout lay = layer_layout(H, R, sizeof(TW), 1);
+  const bool spill = lay.kept < 4 * (H / lay.cl);
+  const LayerBwd<TW> kernel = layer_bwd<TW>(R, lay.cl, spill);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  if (spill) {
+    const int err = transpose(w_hh_t, w_t, H, 4 * H, stream);
+    if (err) return err;
+  }
+  return launch_cluster_cl(kernel, lay.cl, lay.smem, B, R, stream, acts, cs,
+                           c0, dys, w_hh_t, dhn, dcn, (const float*)nullptr,
+                           dgates, dh0, dc0, (float*)nullptr, B, T, H, 0, T,
+                           (const TW*)(spill ? w_t : nullptr), lay.kept);
 }
 
 }  // namespace
@@ -104,20 +164,29 @@ int layer_forward(const float* xw, const TW* w_hh_t, const float* h0,
 extern "C" {
 
 // shared memory of one CTA of the forward (backward) chain at R rows, of
-// the FP32 or (bf16 != 0) the bf16 mode
+// the FP32 or (bf16 != 0) the bf16 mode (layer_layout: past the limit
+// where no layout at R takes H)
 long long lstm_layer_smem_bytes(int H, int backward, int R, int bf) {
-  const int wb = bf ? 2 : 4;
-  return (long long)(backward ? lstm_bwd_smem_bytes(H, R, wb)
-                              : lstm_smem_bytes(H, R, wb));
+  return (long long)layer_layout(H, R, bf ? 2 : 4, backward).smem;
+}
+
+// CTAs per cluster of the chains at a width H they take (cluster_for),
+// else -1
+int lstm_layer_cluster_ctas(int H) {
+  return hidden_ok(H) ? cluster_for(H) : -1;
+}
+
+// rows of W_hh^T (forward) or gate columns (backward) a chain CTA at R
+// rows keeps in shared memory (the rest read from device memory)
+int lstm_layer_kept(int H, int backward, int R, int bf) {
+  return hidden_ok(H) ? layer_layout(H, R, bf ? 2 : 4, backward).kept : -1;
 }
 
 // How many clusters of the forward (backward) chain of one mode at R rows
 // the card holds at once; -1 if it takes no such launch.
 int lstm_layer_resident_clusters(int H, int backward, int R, int bf) {
   if (!hidden_ok(H)) return -1;
-  const size_t smem = (size_t)lstm_layer_smem_bytes(H, backward, R, bf);
-  return bf ? resident<bf16>(H, backward, R, smem)
-              : resident<float>(H, backward, R, smem);
+  return bf ? resident<bf16>(H, backward, R) : resident<float>(H, backward, R);
 }
 
 // xw (B,T,4H) = x W_ih^T + b; w_hh_t (H,4H); h0, c0 (B,H). Writes ys
@@ -141,9 +210,12 @@ int lstm_layer_forward_bf16(const float* xw, const bf16* w_hh_t,
                        stream_ptr);
 }
 
-// floats of backward scratch: dgates (B, T, 4H) and split-K partials
+// floats of backward scratch: dgates (B, T, 4H), split-K partials and,
+// past H 256, W_hh (4H, H) for the gate columns a chain CTA keeps in
+// device memory
 long long lstm_layer_backward_workspace_floats(int B, int T, int H) {
-  return (long long)B * T * 4 * H + (long long)(PART_FLOATS + CPART_FLOATS);
+  return (long long)B * T * 4 * H + (long long)(PART_FLOATS + CPART_FLOATS) +
+         (H > CL * MAX_U ? 4LL * H * H : 0);
 }
 
 // Cotangents dys (B,T,H), dhn, dcn (B,H) -> dx (B,T,Din), dw_ih_t
@@ -157,17 +229,15 @@ int lstm_layer_backward_f32(const float* x, const float* w_ih_t,
                             float* db, float* dwhh, float* dh0, float* dc0,
                             float* ws, int B, int T, int Din, int H, int R,
                             void* stream_ptr) {
-  const LayerBwd<float> kernel = layer_bwd<float>(R);
-  if (!kernel || !hidden_ok(H) || B <= 0 || T <= 0 || Din <= 0 || Din % 4)
+  if (!hidden_ok(H) || B <= 0 || T <= 0 || Din <= 0 || Din % 4)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int rows = B * T;
   float* dgates = ws;
   float* part = dgates + (size_t)rows * 4 * H;
-  int err = launch_cluster(kernel, lstm_bwd_smem_bytes(H, R), B, R, stream,
-                           acts, cs, c0, dys, w_hh_t, dhn, dcn,
-                           (const float*)nullptr, dgates, dh0, dc0,
-                           (float*)nullptr, B, T, H, 0, T);
+  int err = layer_chain_backward(acts, cs, c0, dys, w_hh_t, dhn, dcn, dgates,
+                                 dh0, dc0, part + PART_FLOATS + CPART_FLOATS,
+                                 B, T, H, R, stream);
   if (err) return err;
   if ((err = reduce_rows_tn_tc(x, nullptr, 0, dgates, dwih, part, rows, Din,
                                4 * H, stream)))
@@ -192,17 +262,16 @@ int lstm_layer_backward_bf16(const bf16* x, const bf16* w_ih_t,
                              float* db, bf16* dwhh, float* dh0, float* dc0,
                              float* ws, int B, int T, int Din, int H, int R,
                              void* stream_ptr) {
-  const LayerBwd<bf16> kernel = layer_bwd<bf16>(R);
-  if (!kernel || !hidden_ok(H) || B <= 0 || T <= 0 || Din <= 0 || Din % 4)
+  if (!hidden_ok(H) || B <= 0 || T <= 0 || Din <= 0 || Din % 4)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int rows = B * T;
   float* dgates = ws;
   float* part = dgates + (size_t)rows * 4 * H;
-  int err = launch_cluster(kernel, lstm_bwd_smem_bytes(H, R, 2), B, R,
-                           stream, acts, cs, c0, dys, w_hh_t, dhn, dcn,
-                           (const float*)nullptr, dgates, dh0, dc0,
-                           (float*)nullptr, B, T, H, 0, T);
+  int err = layer_chain_backward(
+      acts, cs, c0, dys, w_hh_t, dhn, dcn, dgates, dh0, dc0,
+      reinterpret_cast<bf16*>(part + PART_FLOATS + CPART_FLOATS), B, T, H, R,
+      stream);
   if (err) return err;
   if ((err = reduce_rows_tn_bf16(x, nullptr, 0, dgates, dwih, part, rows,
                                  Din, 4 * H, stream)))

@@ -121,6 +121,21 @@
 // they land one an SM as the FP32 ones do (at H256 two bf16 CTAs would
 // share an SM: PERF.md, PR 18).
 
+// Hidden sizes. The chains take every H that is a multiple of their
+// cluster size, 8 CTAs up to 256 and 16 (the non-portable size) from 257
+// to 512, so a CTA owns at most 32 units; ops/mixer_stack.py pads any
+// other H up to 512 with zero units, and the LayerNorms take the real
+// width Hr (statistics over it, 0 past it), which keeps every padded unit
+// 0 through every block (ops/mixer_stack.py says why). Past H 400 an
+// FP32 CTA's W_hh slice no longer fits beside its h buffers: it keeps
+// the rows (forward) or gate columns (backward) that fit and reads the
+// others from device memory each step, where W_hh stays resident in L2
+// (chain_layout; the backward reads them from a transposed copy in its
+// workspace, so consecutive units are consecutive addresses). At 16 CTAs
+// a cluster the card holds 7 or 8 clusters at once, so at B32 x L5 the
+// layers' chains wait on each other's SMs: that costs the schedule its
+// overlap, not its order (chunks are launches ordered by events).
+
 #include <mutex>
 #include <vector>
 
@@ -149,11 +164,47 @@ BlockRes block_res(float* res, size_t bth, int l) {
   return {p, p + bth, p + 5 * bth, p + 6 * bth, p + 7 * bth, p + 8 * bth};
 }
 
-bool shape_ok(int B, int T, int H, int L) {
-  return hidden_ok(H) && B > 0 && T > 0 && L > 0;
+bool shape_ok(int B, int T, int H, int Hr, int L) {
+  return hidden_ok(H) && Hr >= 1 && Hr <= H && B > 0 && T > 0 && L > 0;
 }
 
-const auto window_kernel = lstm_window_kernel<STACK_ROWS, float>;
+// the chains on clusters of cl CTAs (cluster_for(H))
+template <typename TW>
+using WindowKernel = decltype(&lstm_window_kernel<STACK_ROWS, CL, TW>);
+template <typename TW>
+using ReverseKernel = decltype(&lstm_cluster_bwd_kernel<STACK_ROWS, CL, TW>);
+
+// (each chain reading what lay does not keep of W_hh from device memory
+// where there is some: only FP32 spills, only on 16-CTA clusters)
+template <typename TW>
+WindowKernel<TW> window_kernel(const ChainLayout& lay, int H) {
+  if constexpr (std::is_same<TW, float>::value)
+    if (lay.kept < H)
+      return &lstm_window_kernel<STACK_ROWS, CL_WIDE, TW, true>;
+  if (lay.cl > CL) return &lstm_window_kernel<STACK_ROWS, CL_WIDE, TW>;
+  return &lstm_window_kernel<STACK_ROWS, CL, TW>;
+}
+template <typename TW>
+ReverseKernel<TW> reverse_kernel(const ChainLayout& lay, int H) {
+  if constexpr (std::is_same<TW, float>::value)
+    if (lay.kept < 4 * (H / lay.cl))
+      return &lstm_cluster_bwd_kernel<STACK_ROWS, CL_WIDE, TW, true>;
+  if (lay.cl > CL) return &lstm_cluster_bwd_kernel<STACK_ROWS, CL_WIDE, TW>;
+  return &lstm_cluster_bwd_kernel<STACK_ROWS, CL, TW>;
+}
+
+// The layout of a chain CTA (lstm_layout at STACK_ROWS, W_hh's slice
+// spilling to device memory where it does not fit), and the shared memory
+// it reserves: its own need, at least the FP32 mode's (so bf16 CTAs land
+// one an SM as FP32 ones do)
+template <typename TW>
+ChainLayout chain_layout(int H, bool backward) {
+  ChainLayout own = lstm_layout(H, STACK_ROWS, sizeof(TW), backward, true);
+  const ChainLayout f32 =
+      lstm_layout(H, STACK_ROWS, sizeof(float), backward, true);
+  own.smem = std::max(own.smem, f32.smem);
+  return own;
+}
 
 // Scratch of the forward per layer: the xw chunk buffer (4H per row of a
 // chunk), the inference forward's LSTM output, y and z chunk buffers (H
@@ -221,7 +272,7 @@ struct StackArgs {
   const TW *w_hh_t, *w_ff;
   const float *b_ff, *g1, *b1, *g2, *b2, *h0, *c0;
   float *out, *hn, *cn, *res, *ws;
-  int B, T, H, L, C;
+  int B, T, H, Hr, L, C;  // Hr: the real width of a zero-padded stack
 };
 
 // The forward's row products C[mc(m)] = A[ma(m)] @ W + bias: SIMT FP32,
@@ -259,17 +310,12 @@ int reduce_window(const float* A, RowMap ma, const float* h0, const float* Bm,
     return reduce_window_tn_tc(A, ma, h0, Bm, out, acc, part, R, M, N, s);
 }
 
-// The shared memory a chain CTA reserves: its own need, at least the FP32
-// mode's (so bf16 CTAs land one an SM as FP32 ones do)
-template <typename TW>
-size_t chain_smem(size_t (*bytes)(int, int, int), int H) {
-  return std::max(bytes(H, STACK_ROWS, sizeof(TW)),
-                  bytes(H, STACK_ROWS, sizeof(float)));
-}
-
-// Enqueue chunk c of every layer, each on its stream after (l-1, c).
-template <typename TW>
-int enqueue_chunk(const StackArgs<TW>& a, Lanes& ln, size_t smem, int c) {
+// Enqueue chunk c of every layer, each on its stream after (l-1, c): the
+// chains launched by cfg (stream set here), keeping ks rows of W_hh^T in
+// shared memory.
+template <typename TW, typename Kernel>
+int enqueue_chunk(const StackArgs<TW>& a, Lanes& ln, cudaLaunchConfig_t cfg,
+                  Kernel kernel, int ks, int c) {
   const int B = a.B, T = a.T, H = a.H, C = a.C;
   const bool train = a.res != nullptr;
   const size_t bth = (size_t)B * T * H, bh = (size_t)B * H;
@@ -277,10 +323,6 @@ int enqueue_chunk(const StackArgs<TW>& a, Lanes& ln, size_t smem, int c) {
   const bool last = t0 + n == T;
   const RowMap win{T, t0, n}, dense{n, 0, n};
   float* planes = a.ws + a.L * layer_floats(B, C, H, train);
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg =
-      cluster_config((unsigned)((B + STACK_ROWS - 1) / STACK_ROWS), smem,
-                     attr);
   int err;
   for (int l = 0; l < a.L; ++l) {
     cudaStream_t s = ln.chains[l];
@@ -318,19 +360,18 @@ int enqueue_chunk(const StackArgs<TW>& a, Lanes& ln, size_t smem, int c) {
       return err;
     cfg.stream = s;
     if ((err = (int)cudaLaunchKernelEx(
-             &cfg, lstm_window_kernel<STACK_ROWS, TW>, (const float*)xw,
-             a.w_hh_t + wo, h_in, c_in, r.rnn, h_out, c_out, r.acts, r.cs, B,
-             m.T, H, m.t0, n)))
+             &cfg, kernel, (const float*)xw, a.w_hh_t + wo, h_in, c_in, r.rnn,
+             h_out, c_out, r.acts, r.cs, B, m.T, H, m.t0, n, ks)))
       return err;
     if ((err = check_launch())) return err;
     if ((err = add_ln(r.rnn, m, xin, win, a.g1 + vo, a.b1 + vo, r.y, m, rows,
-                      H, s)))
+                      H, a.Hr, s)))
       return err;
     if ((err = row_product(r.y, m, a.w_ff + (size_t)l * H * H, a.b_ff + vo,
                            r.z, m, rows, H, H, s)))
       return err;
     if ((err = add_ln(r.z, m, r.y, m, a.g2 + vo, a.b2 + vo, xout, win, rows,
-                      H, s)))
+                      H, a.Hr, s)))
       return err;
     if ((err = (int)cudaEventRecord(ln.events[l], s))) return err;
   }
@@ -363,17 +404,21 @@ int on_lanes(int L, bool side, int n_events, cudaStream_t stream,
 
 template <typename TW>
 int stack_forward(const StackArgs<TW>& a, cudaStream_t stream) {
-  if (!shape_ok(a.B, a.T, a.H, a.L) || a.C < 1 || a.C > a.T)
+  if (!shape_ok(a.B, a.T, a.H, a.Hr, a.L) || a.C < 1 || a.C > a.T)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = chain_smem<TW>(lstm_smem_bytes, a.H);
-  int err = (int)cudaFuncSetAttribute(
-      lstm_window_kernel<STACK_ROWS, TW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const ChainLayout lay = chain_layout<TW>(a.H, false);
+  const auto kernel = window_kernel<TW>(lay, a.H);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  int err = cluster_config(
+      kernel, lay.cl, (unsigned)((a.B + STACK_ROWS - 1) / STACK_ROWS),
+      lay.smem, cfg, attr);
   if (err) return err;
   return on_lanes(a.L, false, a.L + 1, stream, [&](Lanes& ln) {
     const int chunks = (a.T + a.C - 1) / a.C;
     int e = 0;
-    for (int c = 0; c < chunks && !e; ++c) e = enqueue_chunk(a, ln, smem, c);
+    for (int c = 0; c < chunks && !e; ++c)
+      e = enqueue_chunk(a, ln, cfg, kernel, lay.kept, c);
     return e;
   });
 }
@@ -388,7 +433,7 @@ struct BwdArgs {
   const float *g1, *g2, *h0, *c0, *res, *dout, *dhn, *dcn;
   float *dx0, *dh0, *dc0, *dwih, *dbg, *dwhh, *dwff, *dbff, *dg1, *db1, *dg2,
       *db2, *ws;
-  int B, T, H, L, C;
+  int B, T, H, Hr, L, C;
   bf16* dw16[3];
 };
 
@@ -415,32 +460,37 @@ constexpr int BWD_ROW = 10;
 int bwd_slots(int T, int C) { return T > C ? 2 : 1; }
 
 // Scratch of the backward per layer: the slots of chunk buffers and two
-// carries (each the 8 dh_carry slots and dc, (B, H) each); after the
-// layers', the side stream's split-K partials
+// carries (each the cluster_for(H) dh_carry slots and dc, (B, H) each);
+// after the layers', the side stream's split-K partials and, past H 256,
+// each layer's W_hh (4H, H) for the gate columns its reverse chain keeps
+// in device memory (chain_layout)
 size_t bwd_layer_floats(int B, int T, int C, int H) {
   return (size_t)bwd_slots(T, C) * B * C * BWD_ROW * H +
-         2 * (size_t)(CL + 1) * B * H;
+         2 * (size_t)(cluster_for(H) + 1) * B * H;
+}
+
+size_t bwd_w_floats(int H, int L) {
+  return H > CL * MAX_U ? (size_t)L * 4 * H * H : 0;
 }
 
 // Enqueue chunk (l, c): its chain on the layer's stream after (l+1, c),
 // its gradient reductions on the side stream after that. Chunk c uses
 // slot c & 1 of the layer's chunk buffers, after the side stream has
 // read them for chunk c + 2. The first chunk run (c = chunks - 1) writes
-// the gradients, the others add to them.
-template <typename TW>
-int enqueue_bwd_chunk(const BwdArgs<TW>& a, Lanes& ln, size_t smem, int l,
-                      int c, int chunks) {
-  const int B = a.B, T = a.T, H = a.H, C = a.C, L = a.L;
+// the gradients, the others add to them. The reverse chains launch by cfg
+// (stream set here) on clusters of lay.cl CTAs, keeping lay.kept gate
+// columns in shared memory and the others in w_t (4H, H) a layer.
+template <typename TW, typename Kernel>
+int enqueue_bwd_chunk(const BwdArgs<TW>& a, Lanes& ln, cudaLaunchConfig_t cfg,
+                      Kernel kernel, const ChainLayout& lay, const TW* w_t,
+                      int l, int c, int chunks) {
+  const int B = a.B, T = a.T, H = a.H, C = a.C, L = a.L, cl = lay.cl;
   const size_t bth = (size_t)B * T * H, bh = (size_t)B * H;
   const size_t cf = (size_t)B * C * H;
   const int t0 = c * C, n = T - t0 < C ? T - t0 : C, rows = B * n;
   const RowMap win{T, t0, n}, dense{n, 0, n};
   const bool first = c == chunks - 1, acc = !first;
   const int slot = c & 1;
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg =
-      cluster_config((unsigned)((B + STACK_ROWS - 1) / STACK_ROWS), smem,
-                     attr);
   int err;
   cudaStream_t s = ln.chains[l], side = ln.side;
   cudaEvent_t done = ln.events[l], freed = ln.events[L + 2 * l + slot];
@@ -458,7 +508,7 @@ int enqueue_bwd_chunk(const BwdArgs<TW>& a, Lanes& ln, size_t smem, int l,
   float* dy = dcur + cf;
   float* p2 = dy + cf;
   float* p1 = p2 + cf;
-  float* carry = base + bwd_slots(T, C) * BWD_ROW * cf;  // [2][CL + 1][B][H]
+  float* carry = base + bwd_slots(T, C) * BWD_ROW * cf;  // [2][cl + 1][B][H]
   float* part = a.ws + L * bwd_layer_floats(B, T, C, H);
   float* cpart = part + PART_FLOATS;
   float* res = const_cast<float*>(a.res);
@@ -468,22 +518,22 @@ int enqueue_bwd_chunk(const BwdArgs<TW>& a, Lanes& ln, size_t smem, int l,
   // block l+1 wrote; then dy = dz @ W_ff^T + dz (z = y @ W_ff + b_ff,
   // and y also feeds the residual), y = LN1(h + x)
   if ((err = ln_bwd(l == L - 1 ? a.dout : a.dx0, win, r.z, win, r.y, win,
-                    a.g2 + vo, dz, p2, dcur, rows, H, s)) ||
+                    a.g2 + vo, dz, p2, dcur, rows, H, a.Hr, s)) ||
       (err = product_nt(dz, a.w_ff + fo, dz, dy, dense, rows, H, H, s)) ||
       (err = ln_bwd(dy, dense, r.rnn, win, xin, win, a.g1 + vo, dhx, p1,
-                    nullptr, rows, H, s)))
+                    nullptr, rows, H, a.Hr, s)))
     return err;
   // 2. the reverse recurrence over the window
-  float* cin = carry + ((c + 1) & 1) * (CL + 1) * bh;
-  float* cout = carry + (c & 1) * (CL + 1) * bh;
+  float* cin = carry + ((c + 1) & 1) * (cl + 1) * bh;
+  float* cout = carry + (c & 1) * (cl + 1) * bh;
   cfg.stream = s;
   if ((err = (int)cudaLaunchKernelEx(
-           &cfg, lstm_cluster_bwd_kernel<STACK_ROWS, TW>, (const float*)r.acts,
-           (const float*)r.cs, a.c0 + so, (const float*)dhx, a.w_hh_t + wo,
-           a.dhn + so, first ? a.dcn + so : (const float*)cin + CL * bh,
+           &cfg, kernel, (const float*)r.acts, (const float*)r.cs, a.c0 + so,
+           (const float*)dhx, a.w_hh_t + wo, a.dhn + so,
+           first ? a.dcn + so : (const float*)cin + cl * bh,
            first ? nullptr : (const float*)cin, dgates, a.dh0 + so,
-           c == 0 ? a.dc0 + so : cout + CL * bh, c == 0 ? nullptr : cout,
-           B, T, H, t0, n)) ||
+           c == 0 ? a.dc0 + so : cout + cl * bh, c == 0 ? nullptr : cout, B,
+           T, H, t0, n, w_t ? w_t + wo : nullptr, lay.kept)) ||
       (err = check_launch()))
     return err;
   // 3. dx into the window's rows of dx0: block l-1's output cotangent
@@ -518,13 +568,31 @@ int enqueue_bwd_chunk(const BwdArgs<TW>& a, Lanes& ln, size_t smem, int l,
 
 template <typename TW>
 int stack_backward(const BwdArgs<TW>& a, cudaStream_t stream) {
-  if (!shape_ok(a.B, a.T, a.H, a.L) || a.C < 1 || a.C > a.T)
+  if (!shape_ok(a.B, a.T, a.H, a.Hr, a.L) || a.C < 1 || a.C > a.T)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = chain_smem<TW>(lstm_bwd_smem_bytes, a.H);
-  int err = (int)cudaFuncSetAttribute(
-      lstm_cluster_bwd_kernel<STACK_ROWS, TW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int H = a.H;
+  const ChainLayout lay = chain_layout<TW>(H, true);
+  const auto kernel = reverse_kernel<TW>(lay, H);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  int err = cluster_config(
+      kernel, lay.cl, (unsigned)((a.B + STACK_ROWS - 1) / STACK_ROWS),
+      lay.smem, cfg, attr);
   if (err) return err;
+  // W_hh (4H, H) of each layer, where a chain keeps gate columns in device
+  // memory, written on the caller's stream before the lanes fork
+  TW* w_t = nullptr;
+  if (lay.kept < 4 * (H / lay.cl)) {
+    const size_t wh = (size_t)4 * H * H;
+    if (bwd_w_floats(H, a.L) * sizeof(float) < a.L * wh * sizeof(TW))
+      return (int)cudaErrorInvalidValue;
+    w_t = reinterpret_cast<TW*>(a.ws + a.L * bwd_layer_floats(a.B, a.T, a.C,
+                                                              H) +
+                                PART_FLOATS + CPART_FLOATS);
+    for (int l = 0; l < a.L && !err; ++l)
+      err = transpose(a.w_hh_t + l * wh, w_t + l * wh, H, 4 * H, stream);
+    if (err) return err;
+  }
   // Enqueued a stage at a time, a stage being the chunks the layers run
   // together ((L-1, c) with (L-2, c+1), ...), bottom layer first: the side
   // stream then takes the chunks in the order they finish, and (l, c)'s
@@ -537,7 +605,7 @@ int stack_backward(const BwdArgs<TW>& a, cudaStream_t stream) {
       for (int l = 0; l < a.L && !e; ++l) {
         const int c = chunks - 1 - stage + (a.L - 1 - l);
         if (c >= 0 && c < chunks)
-          e = enqueue_bwd_chunk(a, ln, smem, l, c, chunks);
+          e = enqueue_bwd_chunk(a, ln, cfg, kernel, lay, w_t, l, c, chunks);
       }
     return e;
   });
@@ -554,26 +622,44 @@ long long mixer_stack_workspace_floats(int B, int T, int H, int L, int C) {
                      (size_t)(L - 1) * B * T * H);
 }
 
-// How many clusters of the forward recurrence the card holds at once;
-// -1 if it takes no such launch.
+// How many clusters of the forward recurrence (FP32) the card holds at
+// once; -1 if it takes no such launch.
 int mixer_stack_resident_clusters(int H) {
   if (!hidden_ok(H)) return -1;
-  return resident_clusters(window_kernel, lstm_smem_bytes(H, STACK_ROWS));
+  const ChainLayout lay = chain_layout<float>(H, false);
+  return resident_clusters(window_kernel<float>(lay, H), lay.smem, lay.cl);
+}
+
+// CTAs per cluster of the chains at a width H the kernels take
+// (cluster_for), else -1.
+int mixer_stack_cluster_ctas(int H) {
+  return hidden_ok(H) ? cluster_for(H) : -1;
+}
+
+// The rows of W_hh^T (forward, FP32 or bf16 != 0) or gate columns
+// (backward) a chain CTA keeps in shared memory (chain_layout); -1 if no
+// kernel takes H.
+int mixer_stack_kept(int H, int backward, int bf) {
+  if (!hidden_ok(H)) return -1;
+  return bf ? chain_layout<bf16>(H, backward).kept
+            : chain_layout<float>(H, backward).kept;
 }
 
 // x0 (B,T,H); w_ih_t, w_hh_t (L,H,4H); b_g (L,4H); w_ff (L,H,H);
 // b_ff, g1, b1, g2, b2 (L,H); h0, c0 (L,B,H). Writes out (B,T,H),
-// hn, cn (L,B,H). Chunks of C steps. Returns 0 or the first CUDA error
-// code.
+// hn, cn (L,B,H). H: a width hidden_ok takes; Hr <= H the real width of
+// a stack zero-padded to H (its LayerNorms' statistics), else H. Chunks
+// of C steps. Returns 0 or the first CUDA error code.
 int mixer_stack_forward_f32(
     const float* x0, const float* w_ih_t, const float* b_g,
     const float* w_hh_t, const float* w_ff, const float* b_ff,
     const float* g1, const float* b1, const float* g2, const float* b2,
     const float* h0, const float* c0, float* out, float* hn, float* cn,
-    float* ws, int B, int T, int H, int L, int C, void* stream_ptr) {
+    float* ws, int B, int T, int H, int Hr, int L, int C,
+    void* stream_ptr) {
   return stack_forward(StackArgs<float>{x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff,
                                         g1, b1, g2, b2, h0, c0, out, hn, cn,
-                                        nullptr, ws, B, T, H, L, C},
+                                        nullptr, ws, B, T, H, Hr, L, C},
                        (cudaStream_t)stream_ptr);
 }
 
@@ -585,10 +671,11 @@ int mixer_stack_forward_bf16(
     const bf16* w_hh_t, const bf16* w_ff, const float* b_ff,
     const float* g1, const float* b1, const float* g2, const float* b2,
     const float* h0, const float* c0, float* out, float* hn, float* cn,
-    float* ws, int B, int T, int H, int L, int C, void* stream_ptr) {
+    float* ws, int B, int T, int H, int Hr, int L, int C,
+    void* stream_ptr) {
   return stack_forward(StackArgs<bf16>{x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff,
                                        g1, b1, g2, b2, h0, c0, out, hn, cn,
-                                       nullptr, ws, B, T, H, L, C},
+                                       nullptr, ws, B, T, H, Hr, L, C},
                        (cudaStream_t)stream_ptr);
 }
 
@@ -611,11 +698,11 @@ int mixer_stack_train_forward_f32(
     const float* w_hh_t, const float* w_ff, const float* b_ff,
     const float* g1, const float* b1, const float* g2, const float* b2,
     const float* h0, const float* c0, float* out, float* hn, float* cn,
-    float* res, float* ws, int B, int T, int H, int L, int C,
+    float* res, float* ws, int B, int T, int H, int Hr, int L, int C,
     void* stream_ptr) {
   return stack_forward(StackArgs<float>{x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff,
                                         g1, b1, g2, b2, h0, c0, out, hn, cn,
-                                        res, ws, B, T, H, L, C},
+                                        res, ws, B, T, H, Hr, L, C},
                        (cudaStream_t)stream_ptr);
 }
 
@@ -626,11 +713,11 @@ int mixer_stack_train_forward_bf16(
     const bf16* w_hh_t, const bf16* w_ff, const float* b_ff,
     const float* g1, const float* b1, const float* g2, const float* b2,
     const float* h0, const float* c0, float* out, float* hn, float* cn,
-    float* res, float* ws, int B, int T, int H, int L, int C,
+    float* res, float* ws, int B, int T, int H, int Hr, int L, int C,
     void* stream_ptr) {
   return stack_forward(StackArgs<bf16>{x0, w_ih_t, b_g, w_hh_t, w_ff, b_ff,
                                        g1, b1, g2, b2, h0, c0, out, hn, cn,
-                                       res, ws, B, T, H, L, C},
+                                       res, ws, B, T, H, Hr, L, C},
                        (cudaStream_t)stream_ptr);
 }
 
@@ -640,7 +727,7 @@ int mixer_stack_train_forward_bf16(
 long long mixer_stack_backward_workspace_floats(int B, int T, int H, int L,
                                                 int C) {
   return (long long)(L * bwd_layer_floats(B, T, C, H) + PART_FLOATS +
-                     CPART_FLOATS);
+                     CPART_FLOATS + bwd_w_floats(H, L));
 }
 
 // Cotangents dout (B,T,H), dhn, dcn (L,B,H) -> dx0 (B,T,H), dh0, dc0
@@ -653,11 +740,11 @@ int mixer_stack_backward_f32(
     const float* dcn, float* dx0, float* dh0, float* dc0, float* dwih,
     float* dbg, float* dwhh, float* dwff, float* dbff, float* dg1,
     float* db1, float* dg2, float* db2, float* ws, int B, int T, int H,
-    int L, int C, void* stream_ptr) {
+    int Hr, int L, int C, void* stream_ptr) {
   return stack_backward(
       BwdArgs<float>{x0, w_ih_t, w_hh_t, w_ff, g1, g2, h0, c0, res, dout, dhn,
                      dcn, dx0, dh0, dc0, dwih, dbg, dwhh, dwff, dbff, dg1,
-                     db1, dg2, db2, ws, B, T, H, L, C, {}},
+                     db1, dg2, db2, ws, B, T, H, Hr, L, C, {}},
       (cudaStream_t)stream_ptr);
 }
 
@@ -678,12 +765,12 @@ int mixer_stack_backward_bf16(
     const float* dcn, float* dx0, float* dh0, float* dc0, bf16* dwih,
     float* dbg, bf16* dwhh, bf16* dwff, float* dbff, float* dg1, float* db1,
     float* dg2, float* db2, float* ws, float* dw32, int B, int T, int H,
-    int L, int C, void* stream_ptr) {
+    int Hr, int L, int C, void* stream_ptr) {
   const size_t w4 = (size_t)L * 4 * H * H;
   return stack_backward(
       BwdArgs<bf16>{x0, w_ih_t, w_hh_t, w_ff, g1, g2, h0, c0, res, dout, dhn,
                     dcn, dx0, dh0, dc0, dw32, dbg, dw32 + w4, dw32 + 2 * w4,
-                    dbff, dg1, db1, dg2, db2, ws, B, T, H, L, C,
+                    dbff, dg1, db1, dg2, db2, ws, B, T, H, Hr, L, C,
                     {dwih, dwhh, dwff}},
       (cudaStream_t)stream_ptr);
 }

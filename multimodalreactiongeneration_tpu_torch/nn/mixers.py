@@ -47,6 +47,9 @@ from multimodalreactiongeneration_tpu_torch.nn.recurrent import (
     TorchLSTM,
 )
 from multimodalreactiongeneration_tpu_torch.ops.mixer_stack import (
+    kernel_refusal as stack_refusal,
+)
+from multimodalreactiongeneration_tpu_torch.ops.mixer_stack import (
     mixer_stack_recurrence,
 )
 
@@ -292,6 +295,18 @@ class MLPMixerLayerd(nn.Module):
         return _project(self.output_projection, x), None
 
 
+def require_stack_kernel(device_type: str, layers: int, steps: int,
+                         hidden: int) -> None:
+    """Where a stack goes to ``mixer_stack_recurrence``: on CUDA, raise
+    (naming K1/K3/K4) for a hidden size its kernels do not take; on the
+    CPU the plain version takes any."""
+    why = stack_refusal(hidden)
+    if why is not None and device_type == "cuda":
+        raise NotImplementedError(
+            f"a {layers}-block LSTM mixer stack over {steps} steps needs the "
+            f"encoder-stack kernels (K1/K3/K4), which do not take {why}")
+
+
 class RecurrentMixerLayerd(nn.Module):
     def __init__(
         self,
@@ -355,7 +370,9 @@ class RecurrentMixerLayerd(nn.Module):
         modules. Same gate as the JAX package, less its TPU
         backend test: active dropout in training (``dropout == 0 or not
         training``, JAX's ``dropout == 0 or deterministic``) runs the
-        blocks one by one."""
+        blocks one by one. JAX's stack kernel takes any hidden size; on
+        CUDA a size the port's K1/K3/K4 do not take (past 512) raises
+        rather than run the blocks where JAX runs its kernel."""
         if not (
             self.kind == "lstm"
             and self.num_internal_layer == 1
@@ -370,6 +387,8 @@ class RecurrentMixerLayerd(nn.Module):
             and x.shape[1] >= MIN_KERNEL_STEPS
         ):
             return None
+        require_stack_kernel(x.device.type, self.num_layerd, x.shape[1],
+                             self.hidden_size)
         blocks = [getattr(self, f"block_{i}") for i in range(self.num_layerd)]
         # JAX's operand mode: the weights in the parameters' dtype (bf16 in
         # the bf16 step), every other input in f32; b_ih + b_hh is summed

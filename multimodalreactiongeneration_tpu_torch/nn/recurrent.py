@@ -68,6 +68,7 @@ from torch import nn
 
 from multimodalreactiongeneration_tpu_torch.nn.basic import dropout
 from multimodalreactiongeneration_tpu_torch.ops import gru as gru_ops
+from multimodalreactiongeneration_tpu_torch.ops import lstm_layer as k7
 from multimodalreactiongeneration_tpu_torch.ops import lstm_recurrence as k8
 from multimodalreactiongeneration_tpu_torch.ops.lstm_layer import (
     lstm_layer,
@@ -95,10 +96,15 @@ def single_layer_route(device_type: str, steps: int, din: int,
     """The JAX package's route for one layer and direction of an LSTM:
     "plain" under ``MIN_KERNEL_STEPS`` steps, "lstm_layer" (K7) with
     ``MRGEN_FUSED_DW`` on and 128-aligned sizes, else "lstm_recurrence"
-    (K8); on CUDA, raises for a hidden size K8 does not take."""
+    (K8); on CUDA, raises for a size the route's kernels do not take."""
     if steps < MIN_KERNEL_STEPS:
         return "plain"
     if fused_dw_enabled() and din % 128 == 0 and hidden % 128 == 0:
+        why = k7.kernel_refusal(hidden, din)
+        if why is not None and device_type == "cuda":
+            raise NotImplementedError(
+                f"an LSTM of input {din} over {steps} steps needs the "
+                f"lstm_layer kernels (K7), which do not take {why}")
         return "lstm_layer"
     why = k8.kernel_refusal(hidden)
     if why is not None and device_type == "cuda":

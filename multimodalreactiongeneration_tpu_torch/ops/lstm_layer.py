@@ -20,8 +20,9 @@ autograd records through it; bf16: its backward is the plain bf16
 backward). On CUDA tensors it computes xw = x W_ih^T + b with one FP32
 ``torch.addmm`` (as JAX leaves it to XLA; in the bf16 mode on x and
 W_ih converted to f32, which is exact, so xw is JAX's f32 product of
-bf16 operands) and launches ``csrc/lstm_layer.cu`` (H 128 or 256, din a
-multiple of 4; the f32 or the bf16 instantiation): where a gradient is
+bf16 operands) and launches ``csrc/lstm_layer.cu`` (H 128, 256, 384 or
+512, the last two on 16-CTA clusters; din a multiple of 4; the f32 or
+the bf16 instantiation; ``kernel_refusal``): where a gradient is
 needed, the forward that stores the backward's residuals and then the
 backward kernel; otherwise the forward without residuals. Each chain
 runs R batch rows per cluster, the smallest R the card holds in one wave
@@ -54,9 +55,22 @@ bwd_launches = 0
 bf16_fwd_launches = 0
 bf16_bwd_launches = 0
 
-_MAX_H = 256
+MAX_H = 512
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def kernel_refusal(hidden: int, din: int = 128) -> Optional[str]:
+    """Why the K7 kernels cannot take an LSTM layer of this hidden and
+    input size on CUDA, or None: H a multiple of 128 up to ``MAX_H`` (the
+    sizes JAX routes to ``lstm_layer``), din a multiple of 4."""
+    if hidden < 1 or hidden % 128 or hidden > MAX_H:
+        return (f"hidden size {hidden}: the LSTM layer kernels K7 take "
+                f"multiples of 128 up to {MAX_H} (8-CTA clusters to 256, "
+                "16-CTA ones past it)")
+    if din % 4:  # dW_ih's product reads x 4 floats at a time
+        return f"input size {din}: K7 takes multiples of 4"
+    return None
 
 
 def operand_dtype(name, args) -> torch.dtype:
@@ -143,6 +157,10 @@ def _lib():
         lib.lstm_layer_smem_bytes.restype = ctypes.c_longlong
         lib.lstm_layer_resident_clusters.argtypes = [_I] * 4
         lib.lstm_layer_resident_clusters.restype = ctypes.c_int
+        lib.lstm_layer_kept.argtypes = [_I] * 4
+        lib.lstm_layer_kept.restype = ctypes.c_int
+        lib.lstm_layer_cluster_ctas.argtypes = [_I]
+        lib.lstm_layer_cluster_ctas.restype = ctypes.c_int
         fns = []
         for mode in ("f32", "bf16"):
             fwd = getattr(lib, f"lstm_layer_forward_{mode}")
@@ -167,15 +185,30 @@ def smem_bytes(hidden: int, backward: bool, rows: int,
 
 def resident_clusters(hidden: int, backward: bool, rows: int = 16,
                       bf16: bool = False) -> int:
-    """How many 8-CTA clusters of ``rows`` batch rows of the forward or
-    backward chain (f32 or bf16 mode) the current card holds at once
-    (CUDA only); a larger batch runs in waves."""
+    """How many clusters (8 CTAs, 16 past H 256) of ``rows`` batch rows
+    of the forward or backward chain (f32 or bf16 mode) the current card
+    holds at once (CUDA only); a larger batch runs in waves."""
     n = _lib().lstm_layer_resident_clusters(hidden, int(backward), rows,
                                             int(bf16))
     if n < 0:
         raise RuntimeError(
             f"lstm_layer: no occupancy at hidden {hidden}, {rows} rows")
     return n
+
+
+def launch_ctas(hidden: int) -> int:
+    """CTAs per cluster the chains launch at ``hidden`` (8 to 256, 16
+    past it), read from the kernels' library (-1 where they take no such
+    width)."""
+    return _lib().lstm_layer_cluster_ctas(hidden)
+
+
+def kept(hidden: int, backward: bool, rows: int = 16,
+         bf16: bool = False) -> int:
+    """Rows of W_hh^T (forward) or gate columns (backward) a chain CTA
+    keeps in shared memory; the rest of its slice it reads from device
+    memory each step (f32 at 512)."""
+    return _lib().lstm_layer_kept(hidden, int(backward), rows, int(bf16))
 
 
 @functools.lru_cache(maxsize=None)
@@ -221,13 +254,9 @@ def _check_args(name, args):
                 f"{name}: expected contiguous {shape}, got {tuple(a.shape)} "
                 f"(contiguous={a.is_contiguous()})"
             )
-    if h % 128 or h > _MAX_H:
-        raise ValueError(
-            f"{name} kernel takes H a multiple of 128 up to {_MAX_H}; got {h}"
-        )
-    if din % 4:  # dW_ih's product reads x 4 floats at a time
-        raise ValueError(
-            f"{name} kernel takes din a multiple of 4; got {din}")
+    why = kernel_refusal(h, din)
+    if why is not None:
+        raise ValueError(f"{name}: no kernel for {why}")
     return b, t, din, h, bf16
 
 

@@ -306,13 +306,15 @@ def test_training_kernels_refuse_bf16_and_off_gate_shapes(dev):
     from multimodalreactiongeneration_tpu_torch.ops import lstm_layer as K7
 
     b, t = 2, 16
-    for h, dt, match in ((256, torch.bfloat16, "f32"),
-                         (64, torch.float32, "multiple of 128")):
+    # K7 takes 128-aligned H to 512, the stack any H to 512
+    for h, dt, match, k7_match in (
+            (256, torch.bfloat16, "f32", "f32"),
+            (640, torch.float32, "K1/K3/K4", "multiples of 128 up to 512")):
         w = torch.zeros(h, 4 * h, device=dev, dtype=dt)
         s = torch.zeros(b, h, device=dev)
         # K7 takes bf16 x and weights with an f32 b_sum (its bf16 mode);
         # a bf16 b_sum is no mode of it
-        with pytest.raises(ValueError, match=match):
+        with pytest.raises(ValueError, match=k7_match):
             K7.lstm_layer(torch.zeros(b, t, h, device=dev, dtype=dt), w,
                           torch.zeros(4 * h, device=dev, dtype=dt), w, s, s)
         args = (torch.zeros(b, t, h, device=dev, dtype=dt),
@@ -327,6 +329,12 @@ def test_training_kernels_refuse_bf16_and_off_gate_shapes(dev):
             K1.mixer_stack_recurrence(*args)  # K1
     with pytest.raises(NotImplementedError, match="K8"):
         single_layer_route("cuda", 16, 18, 384)
+    with pytest.raises(ValueError, match="K7"):
+        z = torch.zeros(b, 64, device=dev)
+        K7.lstm_layer(torch.zeros(b, t, 64, device=dev),
+                      torch.zeros(64, 256, device=dev),
+                      torch.zeros(256, device=dev),
+                      torch.zeros(64, 256, device=dev), z, z)
 
 
 @pytest.mark.parametrize("b,t,layers", [
@@ -473,13 +481,20 @@ def test_lstm_layer_chosen_rows_match_rows16(dev, b, t):
 BF16_SHORT = (1e-3, 2e-3, 1e-2)
 
 
+def _mode_distance(ys, want_ys, ys_f32, mode_steps=None):
+    """The mean distance of ys from the plain bf16 ys over the first
+    ``mode_steps`` steps (all without), over the plain f32 ys' distance
+    from them: a kernel that took f32 operands reads about 1."""
+    w = slice(None) if mode_steps is None else slice(0, mode_steps)
+    gap = float((ys_f32[:, w] - want_ys[:, w]).abs().mean())
+    return float((ys.detach()[:, w] - want_ys[:, w]).abs().mean()) / gap
+
+
 def _bf16_within(outs, grads, want_outs, want_grads, short, ys_f32=None,
-                 mode_steps=None):
+                 mode_steps=None, mode_frac=0.25):
     if ys_f32 is not None:
-        w = slice(None) if mode_steps is None else slice(0, mode_steps)
-        gap = float((ys_f32[:, w] - want_outs[0][:, w]).abs().mean())
-        assert float((outs[0].detach()[:, w] - want_outs[0][:, w]).abs()
-                     .mean()) <= 0.25 * gap
+        assert _mode_distance(outs[0], want_outs[0], ys_f32,
+                              mode_steps) <= mode_frac
     for g, w in zip(outs, want_outs):
         assert float((g.detach() - w).abs().max()) <= (
             BF16_SHORT[0] if short else 5e-2)
@@ -1662,3 +1677,170 @@ def test_recurrence_kernels_at_every_hidden_size(dev, b, t, h, kind, bf16):
         assert float((got.detach() - w).abs().max()) <= TOL
     for i, (g, w) in enumerate(zip(grads, want_grads)):
         assert _rel_err(g, w) <= GRAD_REL_TOL, i
+
+
+# ---- the encoder stack at every hidden size to 512, K7 at 384 and 512 ----
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("b,t,h,layers", [
+    (3, 16, 8, 2), (19, 37, 100, 2), (16, 40, 192, 3), (5, 17, 300, 2),
+    (19, 37, 384, 2), (17, 33, 448, 2), (19, 37, 512, 2), (32, 96, 512, 5),
+])
+def test_mixer_stack_every_hidden_kernels_match_plain(dev, b, t, h, layers,
+                                                      bf16):
+    """K3/K4 (and K1 without a gradient) at hidden sizes other than 128
+    and 256: built widths (multiples of 8 from 128 to 256 on 8-CTA
+    clusters, of 16 to 512 on 16-CTA ones; FP32 past 400 with part of W_hh
+    read from L2) and padded ones (8 and 100 on 128, 300 on 304), against
+    the plain version at the real width: f32 forward within TOL and
+    gradients within GRAD_REL_TOL, the bf16 mode within ``_bf16_within``'s
+    bounds (short to T16); +1 / +1 training launches of the mode, +1
+    inference launch whose outputs are the training forward's bits."""
+    r = _rand(np.random.default_rng(b * t + h + layers), dev)
+    args = (_bf16_stack_args if bf16 else _stack_args)(r, b, t, h, layers)
+    cots = (r(b, t, h), r(layers, b, h), r(layers, b, h))
+    pre = "bf16_" if bf16 else ""
+    names = (f"{pre}train_fwd_launches", f"{pre}bwd_launches",
+             f"{pre}launches")
+    before = [getattr(K1, n) for n in names]
+    leaves = [a.clone().requires_grad_() for a in args]
+    y, (hn, cn) = K1.mixer_stack_recurrence(*leaves)
+    grads = torch.autograd.grad((y, hn, cn), leaves, cots)
+    with torch.no_grad():
+        yi, (hi, ci) = K1.mixer_stack_recurrence(*args)
+    torch.cuda.synchronize()
+    assert [getattr(K1, n) for n in names] == [v + 1 for v in before]
+    for got, want in ((yi, y), (hi, hn), (ci, cn)):
+        assert torch.equal(got, want.detach())
+    yr, (hr, cr) = K1.mixer_stack_forward_reference(*args)
+    want = K1.mixer_stack_backward_reference(args, *cots)
+    if bf16:
+        # past H 256 the distance test reads the first 4 steps within
+        # WIDE_MODE_FRAC: there two faithful plain bf16 stacks, one summing
+        # in f64, part by 0.011-0.18 of the f32 distance, but by 0.17-0.22
+        # and 0.83 over these lengths
+        y32 = K1.mixer_stack_forward_reference(*[a.float() for a in args])[0]
+        _bf16_within((y, hn, cn), grads, (yr, hr, cr), want, short=t <= 16,
+                     ys_f32=y32,
+                     mode_steps=None if h <= 256 and layers <= 3 and t <= 40
+                     else 4,
+                     mode_frac=WIDE_MODE_FRAC if h > 256 else 0.25)
+    else:
+        _assert_within_gates((y, hn, cn, *grads), (yr, hr, cr, *want), 3)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("b,t,h,layers,chunk", [
+    (17, 37, 384, 2, 8), (33, 101, 512, 5, 16), (19, 37, 200, 3, 5)])
+def test_mixer_stack_wide_chunks_bitwise_equal_layer_major(dev, b, t, h,
+                                                           layers, chunk,
+                                                           bf16):
+    """At the new widths any chunk gives chunk=T's bits: the training
+    forward (every residual plane) and dx0, dh0, dc0; two backward runs at
+    one chunk the same bits."""
+    r = _rand(np.random.default_rng(3 * b + t + h + chunk), dev)
+    args = (_bf16_stack_args if bf16 else _stack_args)(r, b, t, h, layers)
+    cots = (r(b, t, h), r(layers, b, h), r(layers, b, h))
+    got_tr = K1.mixer_stack_train_forward(*args, chunk=chunk)
+    want_tr = K1.mixer_stack_train_forward(*args, chunk=t)
+    for g, w in zip(got_tr, want_tr):
+        assert torch.equal(g, w)
+    res = got_tr[3]
+    got = K1.mixer_stack_backward(args, res, *cots, chunk=chunk)
+    again = K1.mixer_stack_backward(args, res, *cots, chunk=chunk)
+    whole = K1.mixer_stack_backward(args, res, *cots, chunk=t)
+    torch.cuda.synchronize()
+    for i in (0, 10, 11):  # dx0, dh0, dc0
+        assert torch.equal(got[i], whole[i]), i
+    for i, (g, w) in enumerate(zip(got, again)):
+        assert torch.equal(g, w), i
+
+
+# the bf16 stack's distance test past H 256 (chip_smoke.BF16_WIDE_MODE_FRAC):
+# the kernels read 0.21 and 0.32 of the f32 distance over the first 4 steps
+# at B32 x L5 x T252 x H 384 and 512, the f32 kernel about 1
+WIDE_MODE_FRAC = 0.5
+
+
+@pytest.mark.parametrize("b,t,h,layers", [(19, 37, 384, 2),
+                                          (32, 96, 512, 5)])
+def test_mixer_stack_wide_bf16_distance_test_tells_the_modes_apart(
+        dev, b, t, h, layers):
+    """The control of the distance test past H 256: over the first 4
+    steps the f32 kernel on the bf16 mode's values (f32 operands) reads
+    past WIDE_MODE_FRAC of the f32 distance, the bf16 mode within it."""
+    r = _rand(np.random.default_rng(b * t + h + layers), dev)
+    args = _bf16_stack_args(r, b, t, h, layers)
+    f32 = [a.float() for a in args]
+    with torch.no_grad():
+        want = K1.mixer_stack_forward_reference(*args)[0]
+        y32 = K1.mixer_stack_forward_reference(*f32)[0]
+        y16 = K1.mixer_stack_recurrence(*args)[0]
+        y32k = K1.mixer_stack_recurrence(*f32)[0]
+    assert _mode_distance(y16, want, y32, 4) <= WIDE_MODE_FRAC
+    assert _mode_distance(y32k, want, y32, 4) > WIDE_MODE_FRAC
+
+
+def test_mixer_stack_wide_layout(dev):
+    """16-CTA clusters past H 256, the wrapper's padding rule the
+    kernels' cluster size at every H (and K7's at its four); an FP32 chain
+    CTA keeps all of its W_hh slice to H 400 and part of it past (W_hh's
+    rest in L2), a bf16 one all of it to 512; the card holds the 16-CTA
+    clusters at once."""
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_layer as K7
+
+    for h in (8, 104, 256):
+        assert K1.cluster_ctas(h) == 8
+    for h in (272, 384, 512):
+        assert K1.cluster_ctas(h) == 16
+        assert K1.resident_clusters(h) >= 1
+    for h in range(1, K1.MAX_H + 1):
+        assert K1.launch_ctas(K1.stack_hidden(h)) == K1.cluster_ctas(h), h
+    assert K1.launch_ctas(K1.MAX_H + 16) == -1
+    assert [K7.launch_ctas(h) for h in (128, 256, 384, 512)] == [8, 8, 16, 16]
+    assert (K1.kept(384, False), K1.kept(384, True)) == (384, 96)
+    for backward, full in ((False, 512), (True, 128)):
+        assert 0 < K1.kept(512, backward) < full
+        assert K1.kept(512, backward, bf16=True) == full
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("b,t,h", [(16, 40, 384), (5, 17, 512),
+                                   (32, 252, 512), (250, 17, 384)])
+def test_lstm_layer_wide_kernels_match_plain(dev, b, t, h, bf16):
+    """K7 at H 384 and 512 (16-CTA clusters; FP32 at 512 reads part of
+    W_hh from L2 each step) at the rows the wrapper chooses and at R 16,
+    against the plain version: f32 within TOL / GRAD_REL_TOL, bf16 within
+    ``_bf16_within``'s bounds; +2 / +1 launches of the mode."""
+    from multimodalreactiongeneration_tpu_torch.ops import lstm_layer as K7
+
+    r = _rand(np.random.default_rng(b * t + h), dev)
+    wt = torch.bfloat16 if bf16 else torch.float32
+    args = (r(b, t, h).to(wt), r(h, 4 * h, s=0.06).to(wt), r(4 * h, s=0.06),
+            r(h, 4 * h, s=0.06).to(wt), r(b, h, s=0.3), r(b, h, s=0.3))
+    cots = (r(b, t, h), r(b, h), r(b, h))
+    pre = "bf16_" if bf16 else ""
+    names = (f"{pre}fwd_launches", f"{pre}bwd_launches")
+    before = [getattr(K7, n) for n in names]
+    ys0, (hn0, cn0) = K7.lstm_layer(*args)
+    leaves = [a.clone().requires_grad_() for a in args]
+    ys, (hn, cn) = K7.lstm_layer(*leaves)
+    grads = torch.autograd.grad((ys, hn, cn), leaves, cots)
+    torch.cuda.synchronize()
+    assert [getattr(K7, n) for n in names] == [before[0] + 2, before[1] + 1]
+    ys16, hn16, cn16, acts, cs = K7.lstm_layer_forward(args, True, rows=16)
+    grads16 = K7.lstm_layer_backward(args, ys16, acts, cs, *cots, rows=16)
+    ysr, (hr, cr) = K7.lstm_layer_reference(*args)
+    want = K7.lstm_layer_backward_reference(args, *cots)
+    for outs, g in (((ys0, hn0, cn0, ys, hn, cn), grads),
+                    ((ys16, hn16, cn16), grads16)):
+        wouts = (ysr, hr, cr) * (len(outs) // 3)
+        if bf16:
+            # the distance test over the first 16 steps, as K8's and K10's:
+            # the plain bf16 version summing in f64 parts from itself by
+            # 0.01-0.024 of the f32 distance there, 0.31 over T252 at 512
+            ys32, _ = K7.lstm_layer_reference(*[a.float() for a in args])
+            _bf16_within(outs, g, wouts, want, short=t <= 40, ys_f32=ys32,
+                         mode_steps=16)
+        else:
+            _assert_within_gates((*outs, *g), (*wouts, *want), len(outs))
